@@ -9,16 +9,24 @@ Phases, each of which must pass or the script exits non-zero:
   2. build   -- every CUDA kernel of the serving path, built from
                 dynamo_tpu_torch/csrc/ with nvcc for sm_90a, all at once;
   3. parity  -- each kernel against its plain PyTorch version on the card,
-                at Llama-3.1-8B attention shapes (Hq 32, Hkv 8, D 128,
-                block 16), with the window / scale / softcap variants;
+                at Llama-3.1-8B shapes (Hq 32, Hkv 8, D 128, block 16,
+                hidden 4096), with the window / scale / softcap variants,
+                verify lanes whose drafts stop early, and a bias case;
   4. serve   -- TorchEngine built by build_torch_engine at the full width of
-                Llama-3.1-8B (random bf16 weights from a seed), ~8
-                concurrent generate() calls; checks the outputs and that both
-                kernels' launch counters equal 32 x prefills and
-                32 x decode steps;
-  5. times   -- each kernel, its plain version and the PyTorch yardstick
+                Llama-3.1-8B (random bf16 weights from a seed), fused decode
+                and spec decode off, 8 concurrent generate() calls; checks
+                the outputs and that the kernels' launch counters equal
+                32 x prefills and 32 x decode steps (the other three: 0);
+  5. serve_spec -- the same weights behind an engine with fused_decode and
+                spec_k=3, on repeating traffic; checks the outputs, >= 4
+                verify dispatches, the launch counters (verify 32 x verify
+                dispatches, the fused heads 32 x every decode and verify
+                step, decode 32 x plain steps, prefill 32 x prefills), a
+                dense reference and that the seeded request repeats;
+  6. times   -- each kernel, its plain version and the PyTorch yardstick
                 timed with CUDA events, beside the kernel's bound; engine
-                TTFT, decode step time and output rate.
+                TTFT, the B=8 decode step with the fused heads off and on
+                (wall and device time), tokens/s with spec off and on.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -28,6 +36,7 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import asyncio
+import copy
 import json
 import os
 import statistics
@@ -48,8 +57,17 @@ MAX_BLOCKS = MAX_MODEL_LEN // BLOCK  # block-table width at max_model_len
 #   prefill: the kernel also rounds the softmax weights to bf16 for the
 #     tensor-core P @ V product (relative 2^-9 per weight, |v| ~ 1 here):
 #     |d| <= 1e-2 + 2^-6 |plain|.
+#   verify: rounds the softmax weights to bf16 for P @ V, as prefill does;
+#   fused QKV / o-proj: the f32 products are summed in another order (split
+#     contraction) and the norm's sum of squares too, so a bf16 rounding of
+#     the normed activations or of the product may flip by one ulp before
+#     RoPE / the residual add: a few bf16 ulps of the output,
+#     |d| <= 1e-2 + 2^-6 |plain|.
 DECODE_TOL = (1e-3, 2.0 ** -6)
 PREFILL_TOL = (1e-2, 2.0 ** -6)
+VERIFY_TOL = (1e-2, 2.0 ** -6)
+GEMV_TOL = (1e-2, 2.0 ** -6)
+HIDDEN = 4096  # Llama-3.1-8B hidden size
 
 
 class SmokeError(RuntimeError):
@@ -139,6 +157,69 @@ def prefill_inputs(torch, P: int, seed: int):
     return q.cuda(), k.cuda(), v.cuda()
 
 
+def verify_inputs(torch, bases, draft_lens, S: int, seed: int, num_blocks: int = 2112):
+    """Paged verify inputs: lane b feeds positions bases[b] .. bases[b]+S-1;
+    its table covers only positions up to bases[b] + draft_lens[b] (a lane
+    whose drafts stop early has entries 0 past its last block)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    B = len(bases)
+    pages = [(p + d) // BLOCK + 1 for p, d in zip(bases, draft_lens)]
+    if sum(pages) >= num_blocks:
+        raise SmokeError("verify parity cache too small")
+    perm = torch.randperm(num_blocks - 1, generator=g)[: sum(pages)] + 1
+    tables = torch.zeros(B, MAX_BLOCKS, dtype=torch.int32)
+    off = 0
+    for b, n in enumerate(pages):
+        tables[b, :n] = perm[off:off + n].to(torch.int32)
+        off += n
+    shape = (HKV, num_blocks, BLOCK, D)
+    k = torch.randn(shape, generator=g).to(torch.bfloat16)
+    v = torch.randn(shape, generator=g).to(torch.bfloat16)
+    q = torch.randn(B, S, HQ, D, generator=g).to(torch.bfloat16)
+    pos = (torch.tensor(bases)[:, None] + torch.arange(S)[None, :]).to(torch.int32)
+    return [t.cuda() for t in (q, k, v, tables, pos)]
+
+
+def gemv_inputs(torch, M: int, seed: int, bias: bool = False):
+    """The fused heads' inputs at Llama-3.1-8B width: residual rows x, the
+    norm weight, wq / wk / wv / wo (std 0.02, as init_params draws them),
+    cos / sin of random positions under llama3 rope scaling, and optional
+    q/k/v biases."""
+    from dynamo_tpu_torch.ops.basics import rope_freqs
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bf = torch.bfloat16
+    x = torch.randn(M, HIDDEN, generator=g).to(bf)
+    norm = (1.0 + 0.1 * torch.randn(HIDDEN, generator=g)).to(bf)
+    wq = (0.02 * torch.randn(HIDDEN, HQ * D, generator=g)).to(bf)
+    wk = (0.02 * torch.randn(HIDDEN, HKV * D, generator=g)).to(bf)
+    wv = (0.02 * torch.randn(HIDDEN, HKV * D, generator=g)).to(bf)
+    wo = (0.02 * torch.randn(HQ * D, HIDDEN, generator=g)).to(bf)
+    attn = torch.randn(M, HQ * D, generator=g).to(bf)
+    pos = torch.randint(0, MAX_MODEL_LEN, (M,), generator=g)
+    inv = rope_freqs(D, LLAMA31_8B["rope_theta"], LLAMA31_8B["rope_scaling"])
+    angles = pos[:, None].float() * inv
+    biases = (
+        tuple((0.1 * torch.randn(n, generator=g)).to(bf) for n in (HQ * D, HKV * D, HKV * D))
+        if bias else (None, None, None)
+    )
+    cuda = lambda t: None if t is None else t.cuda()  # noqa: E731
+    return {
+        "x": cuda(x), "norm": cuda(norm), "wq": cuda(wq), "wk": cuda(wk),
+        "wv": cuda(wv), "wo": cuda(wo), "attn": cuda(attn),
+        "cos": cuda(torch.cos(angles)), "sin": cuda(torch.sin(angles)),
+        "bq": cuda(biases[0]), "bk": cuda(biases[1]), "bv": cuda(biases[2]),
+    }
+
+
+def qkv_call(fn, t):
+    return fn(
+        t["x"], t["norm"], t["wq"], t["wk"], t["wv"], t["cos"], t["sin"],
+        eps=LLAMA31_8B["rms_norm_eps"], num_heads=HQ, num_kv_heads=HKV,
+        head_dim=D, bq=t["bq"], bk=t["bk"], bv=t["bv"],
+    )
+
+
 def compare(torch, name: str, got, want, tol) -> float:
     got = got.float()
     want = want.float()
@@ -172,6 +253,13 @@ PREFILL_CASES = [
     ("P2048_window", 2048, 1900, {"window": 512}),
     ("P512_scale_softcap", 512, 480, {"scale": 0.1, "logit_softcap": 5.0}),
 ]
+# verify: B=8 lanes of S = spec_k + 1 = 4 positions, ragged bases, three
+# lanes whose drafts stop early (their tables end at base + draft_len)
+VERIFY_S = 4
+VERIFY_BASES = [3, 100, 511, 1023, 1500, 2047, 2600, 2996]
+VERIFY_DRAFT_LENS = [3, 3, 0, 1, 3, 2, 3, 3]
+# fused heads: M = B (decode) and M = B * S (verify) rows, and a bias case
+GEMV_CASES = [(8, False), (32, False), (32, True)]
 
 
 def phase_parity(torch) -> dict:
@@ -197,6 +285,46 @@ def phase_parity(torch) -> dict:
         errs["flash_prefill_attention"] = max(errs["flash_prefill_attention"], e)
         log(f"parity prefill/{name}: P={P} valid_len={vl} {kw} max|d|={e:.3e} "
             f"(tol {PREFILL_TOL[0]:g} + {PREFILL_TOL[1]:g}|x|)")
+    errs.update(spec_parity(torch))
+    return errs
+
+
+def spec_parity(torch) -> dict:
+    """The spec + fused path's kernels against their plain versions."""
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops import cuda_attention as K
+    from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops import linear as L
+
+    errs = {"paged_verify_attention": 0.0, "fused_qkv_rope": 0.0, "fused_attn_out_residual": 0.0}
+    q, k, v, tables, pos = verify_inputs(torch, VERIFY_BASES, VERIFY_DRAFT_LENS, VERIFY_S, seed=4)
+    for name, kw in DECODE_CASES:
+        got = K.paged_verify_attention_cuda(q, k, v, tables, pos, **kw)
+        want = A.paged_verify_attention_plain(q, k, v, tables, pos, **kw)
+        torch.cuda.synchronize()
+        e = compare(torch, f"verify/{name}", got, want, VERIFY_TOL)
+        errs["paged_verify_attention"] = max(errs["paged_verify_attention"], e)
+        log(f"parity verify/{name}: B={len(VERIFY_BASES)} S={VERIFY_S} bases={VERIFY_BASES} "
+            f"draft_lens={VERIFY_DRAFT_LENS} max|d|={e:.3e} "
+            f"(tol {VERIFY_TOL[0]:g} + {VERIFY_TOL[1]:g}|x|)")
+    for M, bias in GEMV_CASES:
+        t = gemv_inputs(torch, M, seed=10 + M, bias=bias)
+        got = qkv_call(KL.fused_qkv_rope_cuda, t)
+        want = qkv_call(L.fused_qkv_rope_plain, t)
+        torch.cuda.synchronize()
+        e = max(compare(torch, f"qkv/M{M}/{n}", a, b, GEMV_TOL) for n, a, b in zip("qkv", got, want))
+        errs["fused_qkv_rope"] = max(errs["fused_qkv_rope"], e)
+        log(f"parity fused_qkv_rope: M={M} bias={bias} llama3 rope max|d|={e:.3e} "
+            f"(tol {GEMV_TOL[0]:g} + {GEMV_TOL[1]:g}|x|)")
+        if bias:
+            continue
+        got = KL.fused_attn_out_residual_cuda(t["attn"], t["wo"], t["x"])
+        want = L.fused_attn_out_residual_plain(t["attn"], t["wo"], t["x"])
+        torch.cuda.synchronize()
+        e = compare(torch, f"out/M{M}", got, want, GEMV_TOL)
+        errs["fused_attn_out_residual"] = max(errs["fused_attn_out_residual"], e)
+        log(f"parity fused_attn_out_residual: M={M} max|d|={e:.3e} "
+            f"(tol {GEMV_TOL[0]:g} + {GEMV_TOL[1]:g}|x|)")
     return errs
 
 
@@ -274,8 +402,115 @@ def phase_kernel_times(torch, card: str) -> dict:
         "bound_by": b_by, "bytes": nbytes, "flops": flops,
         "shape": f"P={P} valid_len={vl} Hq={HQ} Hkv={HKV} D={D}",
     }
+    rows.update(spec_kernel_times(torch, flush))
     for name, row in rows.items():
         print(json.dumps({"kernel_time": name, "card": card, **row}), flush=True)
+    return rows
+
+
+def verify_bound(bases, S: int) -> tuple[float, str, float, float]:
+    """Least time for one verify call: each lane's live K and V rows (its
+    context, base + S keys) read once, q / tables / positions read once, the
+    output written once; 4 * D flops per (query head, visible key) pair."""
+    keys = sum(p + S for p in bases)
+    pairs = sum(p + s + 1 for p in bases for s in range(S))
+    nbytes = (
+        2 * keys * HKV * D * 2 + 2 * len(bases) * S * HQ * D * 2
+        + sum((p + S + BLOCK - 1) // BLOCK for p in bases) * 4 + len(bases) * S * 4
+    )
+    flops = 4 * pairs * HQ * D
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
+
+
+def gemv_bound(M: int, K: int, N: int, extra_bytes: int) -> tuple[float, str, float, float]:
+    """Least time for a fused head: the [K, N] bf16 weights, the [M, K]
+    input and the [M, N] output moved once, plus `extra_bytes` (norm
+    weight, cos / sin, residual); 2 * M * K * N flops."""
+    nbytes = (K * N + M * K + M * N) * 2 + extra_bytes
+    flops = 2 * M * K * N
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
+
+
+def spec_kernel_times(torch, flush) -> dict:
+    """The spec + fused path's kernels: kernel / plain / yardstick times at
+    the verify shape (B=8, S=4) and the fused heads at M = 8 (a decode
+    step) and M = 32 (a verify step)."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops import cuda_attention as K
+    from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops import linear as L
+    from dynamo_tpu_torch.ops.basics import rms_norm
+
+    rows = {}
+    S, bases = VERIFY_S, VERIFY_BASES
+    full = [S - 1] * len(bases)  # every lane drafted S - 1 tokens
+    q, k, v, tables, pos = verify_inputs(torch, bases, full, S, seed=5)
+    t_k = time_ms(torch, lambda: K.paged_verify_attention_cuda(q, k, v, tables, pos), flush=flush)
+    t_p = time_ms(torch, lambda: A.paged_verify_attention_plain(q, k, v, tables, pos),
+                  reps=5, flush=flush)
+    # yardstick: SDPA over the same keys gathered dense beforehand (not
+    # timed), [B, Hkv, ctx, D], with each query row's causal mask
+    ctx = max(bases) + S
+    kd = torch.zeros(len(bases), HKV, ctx, D, dtype=torch.bfloat16, device="cuda")
+    vd = torch.zeros_like(kd)
+    for b, p in enumerate(bases):
+        n = p + S
+        pages = tables[b, : (n + BLOCK - 1) // BLOCK].long()
+        kd[b, :, :n] = k[:, pages].reshape(HKV, -1, D)[:, :n]
+        vd[b, :, :n] = v[:, pages].reshape(HKV, -1, D)[:, :n]
+    mask = torch.arange(ctx, device="cuda")[None, None, :] <= pos.long()[:, :, None]
+    qd = q.transpose(1, 2)  # [B, Hq, S, D]
+    t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask[:, None], enable_gqa=True), flush=flush)
+    b_ms, b_by, nbytes, flops = verify_bound(bases, S)
+    rows["paged_verify_attention"] = {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
+        "bound_by": b_by, "bytes": nbytes, "flops": flops,
+        "library": "SDPA over keys gathered dense beforehand, causal mask",
+        "shape": f"B={len(bases)} S={S} Hq={HQ} Hkv={HKV} D={D} block={BLOCK} bases={bases}",
+    }
+    eps = LLAMA31_8B["rms_norm_eps"]
+    for M in (8, 32):
+        t = gemv_inputs(torch, M, seed=20 + M)
+        wqkv = torch.cat([t["wq"], t["wk"], t["wv"]], dim=1)  # built beforehand
+        inv = torch.ones(D // 2, device="cuda")
+
+        def chain():  # the unfused chain: rms_norm -> one matmul -> rope
+            from dynamo_tpu_torch.ops.basics import apply_rope
+
+            y = torch.matmul(rms_norm(t["x"], t["norm"], eps), wqkv)
+            qh = y[:, : HQ * D].reshape(M, HQ, D)
+            kh = y[:, HQ * D: (HQ + HKV) * D].reshape(M, HKV, D)
+            p = torch.arange(M, device="cuda")
+            return apply_rope(qh, p, inv), apply_rope(kh, p, inv)
+
+        N = (HQ + 2 * HKV) * D
+        t_k = time_ms(torch, lambda: qkv_call(KL.fused_qkv_rope_cuda, t), flush=flush)
+        t_p = time_ms(torch, lambda: qkv_call(L.fused_qkv_rope_plain, t), flush=flush)
+        t_s = time_ms(torch, chain, flush=flush)
+        b_ms, b_by, nbytes, flops = gemv_bound(M, HIDDEN, N, HIDDEN * 2 + M * D * 4)
+        rows[f"fused_qkv_rope/M{M}"] = {
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "library": "chain: rms_norm -> matmul on [wq|wk|wv] -> apply_rope (q, k)",
+            "shape": f"M={M} hidden={HIDDEN} N={N} (Hq {HQ}, Hkv {HKV}, D {D})",
+        }
+        t_k = time_ms(torch, lambda: KL.fused_attn_out_residual_cuda(t["attn"], t["wo"], t["x"]),
+                      flush=flush)
+        t_p = time_ms(torch, lambda: L.fused_attn_out_residual_plain(t["attn"], t["wo"], t["x"]),
+                      flush=flush)
+        t_s = time_ms(torch, lambda: torch.addmm(t["x"], t["attn"], t["wo"]), flush=flush)
+        b_ms, b_by, nbytes, flops = gemv_bound(M, HQ * D, HIDDEN, M * HIDDEN * 2)
+        rows[f"fused_attn_out_residual/M{M}"] = {
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
+            "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "library": "torch.addmm(x, attn, wo)",
+            "shape": f"M={M} K={HQ * D} N={HIDDEN}",
+        }
     return rows
 
 
@@ -387,7 +622,7 @@ def reference_check(torch, runner, prompt, generated, n_check: int = 8) -> float
 
 def phase_serve(torch, np, card: str) -> dict:
     from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
-    from dynamo_tpu_torch.ops import cuda_attention as K
+    from dynamo_tpu_torch.ops import kernels
     from dynamo_tpu_torch.protocols.common import (
         Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
     )
@@ -395,6 +630,7 @@ def phase_serve(torch, np, card: str) -> dict:
     t0 = time.perf_counter()
     engine = build_torch_engine(
         LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
+        fused_decode=False, spec_k=0,
     )
     torch.cuda.synchronize()
     runner = engine.runner
@@ -406,16 +642,13 @@ def phase_serve(torch, np, card: str) -> dict:
 
     async def serve():
         try:
-            K.reset_launch_counts()
+            kernels.reset_launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t1 = time.perf_counter()
             first = await run_requests(engine, reqs, Context)
             wall = time.perf_counter() - t1
-            stats = dict(vars(engine.stats))
-            launches = {
-                "paged_decode_attention": K.paged_decode_attention_cuda.launches,
-                "flash_prefill_attention": K.flash_prefill_attention_cuda.launches,
-            }
+            stats = copy.deepcopy(vars(engine.stats))
+            launches = kernels.launch_counts()
             peak = torch.cuda.max_memory_allocated()
             # the same requests again: must repeat, and time the engine warm
             # (the first run pays one-time set-up: library handles on the
@@ -440,6 +673,7 @@ def phase_serve(torch, np, card: str) -> dict:
             raise SmokeError(f"request {i}: the repeated run gave other tokens")
     n_layers = runner.config.num_layers
     want = {
+        **dict.fromkeys(kernels.KERNELS, 0),  # spec and fused decode are off
         "paged_decode_attention": n_layers * stats["decode_steps"],
         "flash_prefill_attention": n_layers * stats["prefills"],
     }
@@ -466,6 +700,156 @@ def phase_serve(torch, np, card: str) -> dict:
     return res
 
 
+SPEC_K = 3
+SPEC_MAX_TOKENS = 64
+# one drafting lane of eight is enough for a verify dispatch: at B=8 the
+# card is weight-bound, so scoring S=4 positions per lane costs about what
+# one plain step costs (the JAX engine's advice for such chips)
+SPEC_COVERAGE = 0.125
+SPEC_KERNELS = ("paged_verify_attention", "fused_qkv_rope", "fused_attn_out_residual")
+
+
+async def repeating_prompts(np, engine, PreprocessedRequest, SamplingOptions, StopConditions,
+                            Context):
+    """Quoting traffic for the n-gram drafter: per request, random filler,
+    then a numpy-seeded 32-128-token segment s followed by the model's own
+    greedy continuation of it, 2-4 times over, ending on s again. Each
+    continuation is generated (by `engine`, spec off) in the context of the
+    copies before it, so the text after the last s is what the model says
+    there and the drafter finds it earlier in the prompt. 400-1500 tokens
+    per prompt."""
+    rng = np.random.default_rng(2)
+    vocab = LLAMA31_8B["vocab_size"]
+    plans = []
+    for _ in range(8):
+        seg = rng.integers(0, vocab, int(rng.integers(32, 129))).tolist()
+        copies = int(rng.integers(2, 5))
+        body = copies * len(seg) + (copies - 1) * SPEC_MAX_TOKENS
+        fill = max(0, int(rng.integers(400, 1501)) - body)
+        plans.append([rng.integers(0, vocab, fill).tolist(), seg, copies])
+    prompts = [fill + seg for fill, seg, _ in plans]
+
+    def greedy(p):
+        return PreprocessedRequest(
+            token_ids=p, sampling=SamplingOptions(greedy=True),
+            stop=StopConditions(max_tokens=SPEC_MAX_TOKENS), eos_token_ids=[],
+        )
+
+    for rnd in range(max(c for _, _, c in plans) - 1):
+        live = [i for i, (_, _, c) in enumerate(plans) if rnd < c - 1]
+        outs = await run_requests(engine, [greedy(prompts[i]) for i in live], Context)
+        for i, (toks, _, _) in zip(live, outs):
+            prompts[i] = prompts[i] + toks + plans[i][1]
+    reqs = [greedy(p) for p in prompts]
+    reqs[SAMPLED].sampling = SamplingOptions(temperature=0.8, top_p=0.95, top_k=50, seed=1234)
+    return reqs
+
+
+def phase_serve_spec(torch, np, card: str, params) -> dict:
+    """The spec + fused path: TorchEngine with fused_decode and spec_k=3
+    over the serve phase's weights (shared, not copied), on repeating
+    traffic; and the same traffic through a spec-off engine, for tokens/s
+    with spec off and on."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    def build(spec_k):
+        return build_torch_engine(
+            LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN,
+            seed=0, fused_decode=True, spec_k=spec_k, params=params,
+            spec_min_coverage=SPEC_COVERAGE,
+        )
+
+    plain, spec = build(0), build(SPEC_K)
+
+    async def serve():
+        try:
+            t0 = time.perf_counter()
+            reqs = await repeating_prompts(np, plain, PreprocessedRequest, SamplingOptions,
+                                           StopConditions, Context)
+            log(f"serve_spec: repeating traffic built in {time.perf_counter() - t0:.1f} s; "
+                f"prompt lengths {[len(r.token_ids) for r in reqs]}")
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            first = await run_requests(spec, reqs, Context)
+            wall = time.perf_counter() - t1
+            stats = copy.deepcopy(vars(spec.stats))
+            launches = kernels.launch_counts()
+            # warm: the same traffic through spec off, spec on, spec on,
+            # spec off (the host's speed drifts; the pairs straddle it)
+            walls = {"off": [], "on": []}
+            outs = {}
+            for name, eng in (("off", plain), ("on", spec), ("on", spec), ("off", plain)):
+                t1 = time.perf_counter()
+                outs[name] = await run_requests(eng, reqs, Context)
+                walls[name].append(time.perf_counter() - t1)
+            return reqs, first, outs, wall, walls, stats, launches
+        finally:
+            await spec.close()
+            await plain.close()
+
+    reqs, first, outs, wall, walls, stats, launches = asyncio.run(serve())
+    lens = [len(r.token_ids) for r in reqs]
+    for i, ((toks, reason, _), req) in enumerate(zip(first, reqs)):
+        if reason is not FinishReason.LENGTH or len(toks) != SPEC_MAX_TOKENS:
+            raise SmokeError(f"spec request {i}: {len(toks)} tokens, reason {reason}")
+    if outs["on"][SAMPLED][0] != first[SAMPLED][0]:
+        raise SmokeError("spec: the seeded sampled request did not repeat")
+    if stats["verify_steps"] < 4:
+        raise SmokeError(f"spec: only {stats['verify_steps']} verify dispatches (want >= 4): {stats}")
+    L, steps = spec.runner.config.num_layers, stats["decode_steps"]
+    verify = stats["verify_steps"]
+    want = {
+        "paged_decode_attention": L * steps,
+        "flash_prefill_attention": L * stats["prefills"],
+        "paged_verify_attention": L * verify,
+        "fused_qkv_rope": L * (steps + verify),
+        "fused_attn_out_residual": L * (steps + verify),
+    }
+    if launches != want:
+        raise SmokeError(f"spec: kernel launches {launches} != 32 x dispatches {want}")
+    # every greedy lane's first 32 tokens, most of them from verify
+    # dispatches, against a dense reference of the same weights
+    gap = max(
+        reference_check(torch, spec.runner, reqs[i].token_ids, first[i][0], n_check=32)
+        for i in range(len(reqs)) if i != SAMPLED
+    )
+    out_tokens = len(reqs) * SPEC_MAX_TOKENS
+    same = sum(a[0] == b[0] for a, b in zip(outs["on"], outs["off"]))
+    # bf16: spec on and off round differently (verify vs decode attention,
+    # 32- vs 8-row products), so a near-tie may flip and the lane diverge
+    prefix = []
+    for a, b in zip(outs["on"], outs["off"]):
+        n = 0
+        while n < min(len(a[0]), len(b[0])) and a[0][n] == b[0][n]:
+            n += 1
+        prefix.append(n)
+    rate = {k: out_tokens / statistics.median(v) for k, v in walls.items()}
+    res = {
+        "requests": len(reqs), "prompt_lens": lens, "max_tokens": SPEC_MAX_TOKENS,
+        "spec_k": SPEC_K, "stats": stats, "launches": launches, "wall_s_cold": wall,
+        "wall_s_warm": walls, "output_tok_per_s_warm": rate,
+        "acceptance": stats["num_accepted_tokens"] / max(1, stats["num_draft_tokens"]),
+        "tokens_per_verify_lane": (stats["num_accepted_tokens"] + stats["num_drafts"])
+        / max(1, stats["num_drafts"]),
+        "requests_identical_spec_on_off": same, "common_prefix_spec_on_off": prefix,
+        "reference_max_logit_gap": gap,
+    }
+    log(f"serve_spec: {verify} verify dispatches, {steps} plain decode steps, "
+        f"{stats['prefills']} prefills; drafts {stats['num_drafts']} "
+        f"({stats['num_draft_tokens']} tokens), accepted {stats['num_accepted_tokens']} "
+        f"per position {stats['accepted_per_pos']}; launches {launches}; "
+        f"warm tokens/s off {rate['off']:.1f} on {rate['on']:.1f}; "
+        f"{same}/8 requests identical spec on/off (common prefixes {prefix}); "
+        f"reference gap {gap:.3f} over 32 tokens of each greedy lane")
+    print(json.dumps({"serve_spec": res, "card": card}), flush=True)
+    res["runner"] = spec.runner
+    return res
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -477,10 +861,29 @@ def _leaves(tree):
         yield tree
 
 
-def phase_engine_times(torch, np, engine, card: str) -> dict:
+def device_ms_per_call(torch, fn, calls: int = 5) -> float:
+    """Device time of one fn() call: the CUDA kernels' total under
+    torch.profiler over `calls` calls, per call. Only the device events
+    count: a CPU op's entry repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+    total_us = sum(
+        getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    )
+    return total_us / 1e3 / calls
+
+
+def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     """TTFT per prompt length (one request alone, prefill + first sample +
     fetch) and the B=8 decode step (model + sampling + fetch), host clock
-    around work that ends in a device-to-host copy."""
+    around work that ends in a device-to-host copy; the step with the fused
+    heads off (`engine`'s runner) and on (`fused_runner`, the same weights),
+    in turns off, on, on, off, with the device time of each."""
     runner = engine.runner
     bs = runner.block_size
     rng = np.random.default_rng(1)
@@ -507,30 +910,41 @@ def phase_engine_times(torch, np, engine, card: str) -> dict:
     zeros, ones = np.zeros(B, np.float32), np.ones(B, np.float32)
     kz = np.zeros(B, np.int64)
 
-    def step():
-        return runner.fetch_sample(runner.decode(toks, pos, tables, slots, zeros, ones, kz))
+    def step(r):
+        return r.fetch_sample(r.decode(toks, pos, tables, slots, zeros, ones, kz))
 
-    for _ in range(3):
-        step()
-    ts = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        step()
-        ts.append((time.perf_counter() - t0) * 1e3)
-    decode = {"median": statistics.median(ts), "min": min(ts), "max": max(ts), "B": B, "ctx": ctx}
-    # where a decode step's device time goes (torch.profiler, by kernel)
+    runners = {"unfused": runner, "fused": fused_runner}
+    walls = {"unfused": [], "fused": []}
+    for name in ("unfused", "fused", "fused", "unfused"):
+        r = runners[name]
+        for _ in range(3):
+            step(r)
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step(r)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    decode = {}
+    for name, r in runners.items():
+        ts = walls[name]
+        decode[name] = {
+            "median": statistics.median(ts), "min": min(ts), "max": max(ts),
+            "device_ms": device_ms_per_call(torch, lambda: step(r)), "B": B, "ctx": ctx,
+        }
+    # where a fused decode step's device time goes (torch.profiler, by kernel)
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            step()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=12)
-    print(table, flush=True)
+            step(fused_runner)
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
     res = {
         "ttft_ms_alone": ttft, "decode_step_ms_B8": decode,
-        "decode_output_tok_per_s_B8": B / (decode["median"] / 1e3),
+        "decode_output_tok_per_s_B8": {k: B / (v["median"] / 1e3) for k, v in decode.items()},
     }
     print(json.dumps({"engine_time": res, "card": card}), flush=True)
+    log(f"decode step B=8 ctx 1024: unfused {decode['unfused']['median']:.2f} ms wall / "
+        f"{decode['unfused']['device_ms']:.2f} ms device; fused "
+        f"{decode['fused']['median']:.2f} ms wall / {decode['fused']['device_ms']:.2f} ms device")
     return res
 
 
@@ -548,7 +962,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from dynamo_tpu_torch.ops import _build
-        from dynamo_tpu_torch.ops import cuda_attention as K
     except ImportError as e:
         print(f"[chip_smoke] FAIL: the port's package is not beside this "
               f"script: {e}", file=sys.stderr)
@@ -576,12 +989,20 @@ def main() -> int:
         # 3. parity
         errs = phase_parity(torch)
 
-        # 4. serve (counters set to 0 just before, read just after)
+        # 4. serve and 5. serve_spec (each path's counters set to 0 just
+        # before it, read just after)
         served = phase_serve(torch, np, card)
-        launches = served["launches"]
+        engine = served.pop("engine")
+        spec = phase_serve_spec(torch, np, card, engine.runner.params)
+        fused_runner = spec.pop("runner")
+        # each kernel's launches on the path that owns it
+        launches = {
+            **served["launches"],
+            **{k: spec["launches"][k] for k in SPEC_KERNELS},
+        }
 
-        # 5. times
-        phase_engine_times(torch, np, served.pop("engine"), card)
+        # 6. times
+        phase_engine_times(torch, np, engine, fused_runner, card)
         rows = phase_kernel_times(torch, card)
         log(f"peak device memory during serve: {served['peak_mem_bytes'] / 1e9:.2f} GB")
     except Exception as e:  # noqa: BLE001 - report and fail the run
@@ -591,22 +1012,20 @@ def main() -> int:
         print(f"[chip_smoke] FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
 
-    src = {
-        "paged_decode_attention": (
-            "dynamo_tpu_torch/csrc/paged_decode_attention.cu",
-            "dynamo_tpu/ops/pallas_attention.py:231",
-        ),
-        "flash_prefill_attention": (
-            "dynamo_tpu_torch/csrc/flash_prefill_attention.cu",
-            "dynamo_tpu/ops/pallas_attention.py:554",
-        ),
+    replaces = {
+        "paged_decode_attention": "dynamo_tpu/ops/pallas_attention.py:231",
+        "flash_prefill_attention": "dynamo_tpu/ops/pallas_attention.py:554",
+        "paged_verify_attention": "dynamo_tpu/ops/pallas_attention.py:452",
+        "fused_qkv_rope": "dynamo_tpu/ops/linear.py:206",
+        "fused_attn_out_residual": "dynamo_tpu/ops/linear.py:334",
     }
     kernels = []
-    for name, (source, replaces) in src.items():
-        row = rows[name]
+    for name, replaced in replaces.items():
+        # the fused heads' row is at the verify step's shape (M = 32)
+        row = rows.get(name) or rows[f"{name}/M32"]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{name}.cu",
+            "replaces": replaced, "launches": launches[name],
             "max_abs_err": errs[name], "ms": row["ms"]["median"],
             "plain_ms": row["plain_ms"]["median"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -7,7 +7,13 @@ finish reason. It is the JAX engine's loop with chunking off, reduced to:
 
   * a FIFO waiting queue; a prompt is admitted when a batch lane and its
     blocks (plus a watermark reserve) are free, and prefilled on its own;
-  * one batched decode step over every running lane per loop iteration;
+  * one batched decode step over every running lane per loop iteration,
+    or, with ``spec_k > 0``, one speculative verify dispatch when enough
+    lanes carry a draft: an n-gram drafter (drafter.py) proposes up to
+    spec_k tokens per lane from its own history, one weight pass scores
+    them all, and the host accepts each lane's longest matching prefix plus
+    the model's next token (``_collect_drafts`` / ``_spec_decode_phase``,
+    after the JAX engine's, without the chained horizon);
   * stop conditions: ``max_tokens`` (default 16), EOS and
     ``stop_token_ids_hidden`` unless ``ignore_eos`` (the stop token itself
     is not streamed), and ``max_model_len``;
@@ -26,7 +32,7 @@ on a single worker thread so the event loop keeps streaming while the card
 works.
 
 Left out (ROADMAP.md lists them): packed / chunked / mixed prefill, the
-decode horizon, speculative decoding, penalties and min_tokens, the tiered
+decode horizon, penalties and min_tokens, the tiered
 block manager and KV events, disaggregation, QoS classes and deadlines,
 tracing and the watchdog.
 """
@@ -39,11 +45,12 @@ import itertools
 import logging
 from collections.abc import AsyncIterator
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 
+from dynamo_tpu_torch.engine.torch_engine.drafter import make_drafter
 from dynamo_tpu_torch.engine.torch_engine.kv_cache import BlockAllocator, OutOfBlocks
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
 from dynamo_tpu_torch.ops.sampling import SAMPLE_CANDIDATES, make_key_data
@@ -65,6 +72,15 @@ class TorchEngineConfig:
     max_model_len: int = 2048
     watermark_blocks: int = 8  # admission reserve
     rng_seed: int = 0
+    # self-drafting speculative decoding (0 = off): up to spec_k drafted
+    # tokens per lane, verified in one weight pass (runner.spec_verify)
+    spec_k: int = 0
+    spec_drafter: str = "ngram"
+    spec_ngram_min: int = 2
+    spec_ngram_max: int = 4
+    # least fraction of active lanes with a draft for a verify dispatch to
+    # replace a plain decode step
+    spec_min_coverage: float = 0.5
 
 
 @dataclass
@@ -73,6 +89,13 @@ class EngineStats:
     decode_steps: int = 0  # batched decode calls
     generated_tokens: int = 0
     preemptions: int = 0
+    # speculative decoding: a "draft" is one lane-dispatch carrying >= 1
+    # proposed token; verify_steps counts verify dispatches
+    num_drafts: int = 0
+    num_draft_tokens: int = 0
+    num_accepted_tokens: int = 0
+    accepted_per_pos: list = field(default_factory=list)  # len spec_k
+    verify_steps: int = 0
 
 
 class _Sequence:
@@ -100,6 +123,10 @@ class _Sequence:
         self.seed = s.seed
         self.want_logprobs = bool(s.logprobs)
         self.num_top_lp = min(int(s.top_logprobs or 0), 20)
+        # spec decoding: consecutive fully rejected drafts, and dispatches
+        # left before this lane drafts again
+        self.spec_fail = 0
+        self.spec_backoff = 0
 
     @property
     def num_generated(self) -> int:
@@ -145,6 +172,13 @@ class TorchEngine:
         self._keys = np.zeros((B, 2), np.int64)
         # unseeded sequences draw from (engine seed base + seq_id) streams
         self._seed_base = (self.config.rng_seed ^ 0x9E3779B9) & 0x7FFFFFFF
+        self.drafter = None
+        if self.config.spec_k > 0:
+            self.drafter = make_drafter(
+                self.config.spec_drafter, self.config.spec_k,
+                min_n=self.config.spec_ngram_min, max_n=self.config.spec_ngram_max,
+            )
+            self.stats.accepted_per_pos = [0] * self.config.spec_k
 
     # --------------------------------------------------------------- api
 
@@ -307,8 +341,14 @@ class TorchEngine:
             self._append_token(seq, int(tok[0]), float(lp[0]), tids[0], tlps[0])
         return admitted
 
-    async def _decode_phase(self, active: list[_Sequence]) -> None:
-        bs = self.config.block_size
+    def _lane_remaining(self, seq: _Sequence) -> int:
+        """Tokens this lane may still emit (max_new and model-length caps)."""
+        return max(1, min(
+            seq.max_new - seq.num_generated,
+            self.config.max_model_len - len(seq.token_ids),
+        ))
+
+    def _clear_lanes(self) -> None:
         self._block_tables.fill(0)
         self._positions.fill(0)
         self._tokens.fill(0)
@@ -316,17 +356,35 @@ class TorchEngine:
         self._temps.fill(0.0)
         self._top_ps.fill(1.0)
         self._top_ks.fill(0)
+
+    def _fill_lane(self, seq: _Sequence) -> int:
+        """Write one active lane's per-step inputs into the batch arrays;
+        returns the position of the token being fed."""
+        i = seq.slot
+        pos = len(seq.token_ids) - 1
+        self._tokens[i] = seq.token_ids[-1]
+        self._positions[i] = pos
+        self._block_tables[i, : len(seq.block_ids)] = seq.block_ids
+        self._temps[i] = seq.temperature
+        self._top_ps[i] = seq.top_p
+        self._top_ks[i] = seq.top_k
+        self._keys[i] = self._key_row(seq)
+        return pos
+
+    async def _decode_phase(self, active: list[_Sequence]) -> None:
+        if self.drafter is not None:
+            drafts = self._collect_drafts(active)
+            if drafts is not None:
+                await self._spec_decode_phase(active, drafts)
+                return
+        await self._decode_single_phase(active)
+
+    async def _decode_single_phase(self, active: list[_Sequence]) -> None:
+        bs = self.config.block_size
+        self._clear_lanes()
         for seq in active:
-            i = seq.slot
-            pos = len(seq.token_ids) - 1  # position of the token being fed
-            self._tokens[i] = seq.token_ids[-1]
-            self._positions[i] = pos
-            self._block_tables[i, : len(seq.block_ids)] = seq.block_ids
-            self._slot_indices[i] = seq.block_ids[pos // bs] * bs + pos % bs
-            self._temps[i] = seq.temperature
-            self._top_ps[i] = seq.top_p
-            self._top_ks[i] = seq.top_k
-            self._keys[i] = self._key_row(seq)
+            pos = self._fill_lane(seq)
+            self._slot_indices[seq.slot] = seq.block_ids[pos // bs] * bs + pos % bs
         runner = self.runner
         args = (
             self._tokens.copy(), self._positions.copy(), self._block_tables.copy(),
@@ -342,6 +400,104 @@ class TorchEngine:
                 continue  # finished, cancelled or preempted meanwhile
             i = seq.slot
             self._append_token(seq, int(toks[i]), float(lps[i]), tids[i], tlps[i])
+
+    def _collect_drafts(self, active: list[_Sequence]) -> Optional[dict[int, list[int]]]:
+        """Host drafting pass: seq_id -> proposed continuation tokens, or
+        None for a plain decode step (no lane drafted, or fewer than
+        ``spec_min_coverage`` of them)."""
+        out: dict[int, list[int]] = {}
+        for seq in active:
+            if seq.spec_backoff > 0:
+                seq.spec_backoff -= 1
+                out[seq.seq_id] = []
+                continue
+            # the verify pass emits one token past the accepted drafts: cap
+            # the drafts so the lane's writes stay inside its budget
+            cap = min(self.config.spec_k, self._lane_remaining(seq) - 1)
+            out[seq.seq_id] = self.drafter.draft(seq.token_ids, cap) if cap > 0 else []
+        drafted = sum(1 for d in out.values() if d)
+        need = max(1, int(np.ceil(self.config.spec_min_coverage * len(active))))
+        return out if drafted >= need else None
+
+    async def _spec_decode_phase(
+        self, active: list[_Sequence], drafts: dict[int, list[int]]
+    ) -> None:
+        """One verify dispatch, then host-side accept: each lane's samples
+        go in order through ``_append_token`` (streaming, stops and block
+        growth as on every other step) and the lane stops at its first
+        draft mismatch. Every emitted token is the model's own sample; the
+        draft only decides how many weight passes those tokens cost."""
+        B = self.config.max_batch
+        K = self.config.spec_k
+        bs = self.config.block_size
+        # blocks for every write of this dispatch: the last emitted token is
+        # not fed, so the writes reach lane_steps - 1 positions past the fed
+        # one; under block pressure a plain step (its allocation preempts)
+        for seq in active:
+            lane_steps = min(len(drafts[seq.seq_id]) + 1, self._lane_remaining(seq))
+            need = (len(seq.token_ids) - 1 + lane_steps - 1) // bs + 1 - len(seq.block_ids)
+            if need > 0:
+                try:
+                    seq.block_ids.extend(self.allocator.alloc(need))
+                except OutOfBlocks:
+                    await self._decode_single_phase(active)
+                    return
+        self._clear_lanes()
+        act = np.zeros(B, bool)
+        limit_rem = np.ones(B, np.int64)
+        draft_arr = np.full((B, K), -1, np.int64)
+        draft_len = np.zeros(B, np.int64)
+        for seq in active:
+            i = seq.slot
+            self._fill_lane(seq)
+            act[i] = True
+            limit_rem[i] = self._lane_remaining(seq)
+            d = drafts[seq.seq_id]
+            draft_len[i] = len(d)
+            if d:
+                draft_arr[i, : len(d)] = d
+                self.stats.num_drafts += 1
+                self.stats.num_draft_tokens += len(d)
+        runner = self.runner
+        args = (
+            self._tokens.copy(), draft_arr, draft_len, self._positions.copy(),
+            self._block_tables.copy(), self._temps.copy(), self._top_ps.copy(),
+            self._top_ks.copy(), self._keys.copy(), act, limit_rem,
+        )
+        # one device-to-host copy of the packed [S, B, 2 + 2K] samples
+        packed = await self._device(lambda: runner.spec_verify(K, 0, *args).cpu().numpy())
+        self.stats.verify_steps += 1
+        n_top = (packed.shape[-1] - 2) // 2
+        for seq in active:
+            if seq.slot is None:
+                continue
+            i = seq.slot
+            d = drafts[seq.seq_id]
+            accepted = 0
+            for h in range(len(d) + 1):
+                row = packed[h, i]
+                tok = int(row[0])
+                if tok < 0:
+                    break  # the device marked the position invalid
+                accept = h < len(d) and d[h] == tok
+                self._append_token(
+                    seq, tok, float(row[1]), row[2:2 + n_top].astype(np.int32),
+                    row[2 + n_top:],
+                )
+                if accept:
+                    accepted += 1
+                    self.stats.num_accepted_tokens += 1
+                    self.stats.accepted_per_pos[h] += 1
+                if seq.slot is None or not accept:
+                    break
+            if d:
+                if accepted:
+                    seq.spec_fail = 0
+                else:
+                    # the history stopped predicting: back off this lane's
+                    # drafting exponentially
+                    seq.spec_fail += 1
+                    seq.spec_backoff = min(1 << seq.spec_fail, 32)
 
     def _append_token(self, seq: _Sequence, token: int, lp: float, top_ids, top_lps) -> None:
         """Record a newly generated token: stream it, grow blocks, stop."""

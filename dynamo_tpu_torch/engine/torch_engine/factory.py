@@ -1,7 +1,8 @@
 """Engine factory: model config (or HF model dir) -> TorchEngine.
 
 Counterpart of dynamo_tpu/engine/jax_engine/factory.py (``build_jax_engine``
-:26-209 and ``default_num_blocks`` :411) for one device.
+:26-209, ``default_num_blocks`` :411, ``fused_decode_from_env`` and
+``spec_decode_settings`` :281-320) for one device.
 """
 
 from __future__ import annotations
@@ -51,6 +52,32 @@ def default_num_blocks(
     return min(want, max(16, budget // block_bytes))
 
 
+def fused_decode_from_env() -> bool:
+    """DYN_FUSED_DECODE=1: run every decode and verify step's norm+QKV+RoPE
+    and o-proj+residual through the fused kernels. Off by default, as in
+    the JAX package."""
+    return os.environ.get("DYN_FUSED_DECODE", "0") in ("1", "true", "yes")
+
+
+def spec_decode_settings() -> dict:
+    """Self-drafting speculative decoding knobs (TorchEngineConfig fields):
+
+      DYN_SPEC_K           draft tokens per lane per dispatch (0 = off, the
+                           default)
+      DYN_SPEC_DRAFTER     "ngram" (prompt lookup; the only kind)
+      DYN_SPEC_NGRAM_MIN / DYN_SPEC_NGRAM_MAX   lookup n-gram bounds
+      DYN_SPEC_COVERAGE    least fraction of lanes with a draft
+    """
+    env = os.environ.get
+    return {
+        "spec_k": max(0, int(env("DYN_SPEC_K", "0") or 0)),
+        "spec_drafter": env("DYN_SPEC_DRAFTER", "ngram"),
+        "spec_ngram_min": max(1, int(env("DYN_SPEC_NGRAM_MIN", "2") or 2)),
+        "spec_ngram_max": max(1, int(env("DYN_SPEC_NGRAM_MAX", "4") or 4)),
+        "spec_min_coverage": float(env("DYN_SPEC_COVERAGE", "0.5") or 0.5),
+    }
+
+
 def _resolve_config(config) -> tuple[LlamaConfig, Optional[str]]:
     if isinstance(config, LlamaConfig):
         return config, None
@@ -74,16 +101,27 @@ def build_torch_engine(
     max_model_len: Optional[int] = None,
     seed: int = 0,
     dtype: torch.dtype = torch.bfloat16,
+    fused_decode: Optional[bool] = None,
+    spec_k: Optional[int] = None,
+    spec_min_coverage: Optional[float] = None,
+    params: Optional[dict] = None,
 ) -> TorchEngine:
     """Build the serving engine on ``device`` (the card unless the caller
     asks for the CPU; raises when a card is asked for and absent).
 
     ``config`` is a LlamaConfig, an HF ``config.json`` dict, or a model
     directory holding one (default: Llama-3.1-8B shapes). Weights are
-    seeded random (``init_params``); a directory with safetensors raises,
+    ``params`` when given (a parameter dict on ``device``, e.g. another
+    engine's, shared rather than copied), else seeded random
+    (``init_params``); a directory with safetensors raises,
     as loading checkpoints is not ported yet. The KV pool is sized like the
     JAX factory's: every lane at full context plus 64 blocks, capped by the
-    device memory left after the weights."""
+    device memory left after the weights.
+
+    ``fused_decode``, ``spec_k`` and ``spec_min_coverage`` default to what
+    ``DYN_FUSED_DECODE`` and ``DYN_SPEC_*`` say (fused and spec off when
+    unset); the drafter's kind and n-gram bounds come from the
+    environment."""
     dev = resolve_device(device)
     cfg, model_dir = _resolve_config(config)
     if model_dir and glob.glob(os.path.join(model_dir, "*.safetensors")):
@@ -98,15 +136,24 @@ def build_torch_engine(
             budget_bytes=device_memory_bytes(dev),
             dtype_bytes=torch.empty((), dtype=dtype).element_size(),
         )
-    params = init_params(cfg, seed=seed, device=dev, dtype=dtype)
+    if fused_decode is None:
+        fused_decode = fused_decode_from_env()
+    spec = spec_decode_settings()
+    if spec_k is not None:
+        spec["spec_k"] = spec_k
+    if spec_min_coverage is not None:
+        spec["spec_min_coverage"] = spec_min_coverage
+    if params is None:
+        params = init_params(cfg, seed=seed, device=dev, dtype=dtype)
     runner = TorchModelRunner(
         cfg, params, num_blocks=num_blocks, block_size=kv_block_size,
         max_batch=max_batch, max_model_len=max_len, device=dev, rng_seed=seed,
+        fused_decode=fused_decode,
     )
     return TorchEngine(
         runner,
         TorchEngineConfig(
             max_batch=max_batch, block_size=kv_block_size, num_blocks=num_blocks,
-            max_model_len=max_len, rng_seed=seed,
+            max_model_len=max_len, rng_seed=seed, **spec,
         ),
     )

@@ -3,7 +3,8 @@ cache) and runs prefill / decode + sampling.
 
 Counterpart of dynamo_tpu/engine/jax_engine/model_runner.py (``prefill``
 :1142 with ``_prefill_impl`` :490, ``decode`` :1603 with ``_decode_impl``
-:579, ``fetch_sample`` :1049, ``default_prefill_buckets`` :41), for the
+:579, ``spec_verify`` :1696 with ``_spec_verify_impl`` :704,
+``fetch_sample`` :1049, ``default_prefill_buckets`` :41), for the
 single-device path:
 
   * the caches are single buffers written IN PLACE by every call (the JAX
@@ -11,15 +12,19 @@ single-device path:
   * prompts are padded to the same power-of-two buckets of whole KV blocks,
     so the prefill shapes match the JAX program set;
   * sampling runs on the device right behind the model step, and the host
-    reads a step's results with ONE device-to-host copy (``fetch_sample``).
+    reads a step's results with ONE device-to-host copy (``fetch_sample``,
+    or the packed array of ``spec_verify``);
+  * ``fused_decode`` runs every decode and verify step through the fused
+    norm+QKV+RoPE and o-proj+residual heads (models/llama.py).
 
 Not ported yet: the repetition / frequency / presence penalties and the
-min_tokens EOS mask, packed / chunked / mixed prefill, the decode horizon,
-spec-decode verify, disaggregated block moves and sharded meshes.
+min_tokens EOS mask, packed / chunked / mixed prefill, the decode horizon
+(also after a verify pass), disaggregated block moves and sharded meshes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
@@ -67,9 +72,12 @@ class TorchModelRunner:
         max_model_len: int,
         device="cuda",
         rng_seed: int = 0,
+        fused_decode: bool = False,
     ) -> None:
         self.device = resolve_device(device)
-        self.config = config
+        self.config = dataclasses.replace(
+            config, fused_decode=bool(fused_decode) or config.fused_decode
+        )
         self.params = params
         self.num_blocks = num_blocks
         self.block_size = block_size
@@ -175,6 +183,93 @@ class TorchModelRunner:
         return sample_tokens_full(
             logits, *args, all_greedy=bool((np.asarray(temps) <= 0).all())
         )
+
+    @torch.inference_mode()
+    def spec_verify(
+        self,
+        spec_k: int,
+        extras: int,
+        tokens: np.ndarray,  # [B] last accepted token per lane
+        drafts: np.ndarray,  # [B, spec_k] draft tokens (-1 pads)
+        draft_len: np.ndarray,  # [B] valid drafts per lane (0 = none)
+        positions: np.ndarray,  # [B] position of `tokens`
+        block_tables: np.ndarray,  # [B, max_blocks_per_seq], covering every
+        # position up to positions + draft_len
+        temps: np.ndarray,
+        top_ps: np.ndarray,
+        top_ks: np.ndarray,
+        keys: np.ndarray,  # [B, 2] (stream, counter) rows of position 0
+        active: np.ndarray,  # [B] bool
+        limit_remaining: np.ndarray,  # [B] tokens the lane may still emit
+    ) -> torch.Tensor:
+        """Speculative draft-verify dispatch: ONE weight pass
+        (llama.decode_verify) scores S = spec_k + 1 positions per lane --
+        position 0 re-feeds the last accepted token, 1..draft_len the
+        drafts. Every position is sampled with the key the per-token path
+        would use, (stream, counter + h), so the emitted stream equals
+        non-speculative decoding under greedy and seeded sampling alike.
+        Positions past a lane's drafts, and inactive lanes, write their K/V
+        to the null slot 0 and come back as token -1. Rejected draft
+        positions leave K/V ahead of the accepted frontier; the next fed
+        token overwrites it before anything attends to it.
+
+        Returns the packed [S, B, 2 + 2 * num_top] f32 device array (token
+        or -1, logprob, top ids, top logprobs per position), for one
+        device-to-host copy. ``extras`` (decode steps chained after the
+        verify pass) must be 0: the horizon is not ported yet."""
+        if extras:
+            raise NotImplementedError(
+                "decode steps chained after the verify pass (the horizon) are "
+                "not ported yet"
+            )
+        S = spec_k + 1
+        tokens = np.asarray(tokens, np.int64)
+        B = tokens.shape[0]
+        draft_len = np.asarray(draft_len, np.int64)
+        active = np.asarray(active, bool)
+        if (active & (draft_len >= np.asarray(limit_remaining))).any():
+            raise ValueError("a lane drafts past the tokens it may still emit")
+        step = np.arange(S)[None, :]
+        valid = active[:, None] & (step <= draft_len[:, None])  # [B, S]
+        fed = np.concatenate(
+            [tokens[:, None], np.asarray(drafts, np.int64).reshape(B, spec_k)], axis=1
+        )
+        fed = np.where(valid, fed, 0)  # pads are never embedded as -1
+        qpos = np.asarray(positions, np.int64)[:, None] + step
+        tables = np.asarray(block_tables, np.int32)
+        page = np.minimum(qpos // self.block_size, tables.shape[1] - 1)
+        slot = (
+            tables[np.arange(B)[:, None], page].astype(np.int64) * self.block_size
+            + qpos % self.block_size
+        )
+        slot = np.where(valid, slot, 0)  # invalid positions hit the null sink
+        logits = llama.decode_verify(
+            self.params, self.config, self._dev(fed, np.int64),
+            self._dev(qpos, np.int64), self.k_cache, self.v_cache,
+            self._dev(tables, np.int32), self._dev(slot, np.int64),
+        )
+        # fold S into the batch and sample every position in one pass; the
+        # sampler is row-wise, so this equals S single steps
+        keys_rep = np.repeat(np.asarray(keys, np.int64), S, axis=0)
+        keys_rep[:, 1] = (keys_rep[:, 1] + np.tile(np.arange(S), B)) & 0xFFFFFFFF
+        temps_rep = np.repeat(np.asarray(temps, np.float32), S)
+        args = sample_args(
+            temps_rep, np.repeat(top_ps, S), np.repeat(top_ks, S), keys_rep, self.device
+        )
+        tok, lp, top_ids, top_lps = sample_tokens_full(
+            logits.reshape(B * S, -1), *args, all_greedy=bool((temps_rep <= 0).all())
+        )
+        tok = torch.where(self._dev(valid, bool), tok.reshape(B, S), -1)
+        packed = torch.cat(
+            [
+                tok[..., None].float(),
+                lp.reshape(B, S, 1),
+                top_ids.reshape(B, S, -1).float(),
+                top_lps.reshape(B, S, -1),
+            ],
+            dim=-1,
+        )
+        return packed.transpose(0, 1).contiguous()  # [S, B, 2 + 2K]
 
     def fetch_sample(self, out: SampleOut) -> tuple[np.ndarray, ...]:
         """Bring a sample tuple to the host with ONE device-to-host copy: the

@@ -6,16 +6,19 @@ Counterpart of dynamo_tpu/models/llama.py: ``LlamaConfig`` is the port's own
 copy of the JAX package's config (with ``from_hf_dict``), and the forward
 pass follows the JAX functions op for op (``_embed``, ``_rope_pair`` /
 ``_layer_freqs``, ``_attn_prefill``, ``_attn_decode``, ``_mlp``, ``_logits``,
-``prefill``, ``decode``). Parameters are a dict with the JAX layout --
+``prefill``, ``decode``, ``decode_verify``, and the fused decode heads
+``_use_fused_decode`` / ``_fused_qkv_dispatch`` / ``_fused_out_dispatch``).
+Parameters are a dict with the JAX layout --
 weights ``[in, out]``, ``layers`` a list of per-layer dicts -- so a JAX
 parameter tree converts leaf by leaf (engine/torch_engine/weights.py).
 
 The cache is head-major ``[L, Hkv, num_blocks, block_size, D]``. Unlike the
 JAX functions, which return updated caches, ``prefill`` and ``decode`` write
 the new K/V into the caches they are given, IN PLACE, and return only the
-logits. Attention runs the hand-written CUDA kernels for CUDA tensors and the
-plain versions for CPU tensors (ops/attention.py). MoE layers are not ported
-yet.
+logits. Attention and the fused decode heads run the hand-written CUDA
+kernels for CUDA tensors and the plain versions for CPU tensors
+(ops/attention.py, ops/linear.py). MoE layers and the meshed (tensor
+parallel) fused heads are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,12 +35,17 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.ops.attention import (
     causal_prefill_attention,
     paged_decode_attention,
+    paged_verify_attention,
     write_decode_kv,
     write_prefill_kv,
 )
 from dynamo_tpu_torch.ops.basics import rms_norm, rope_freqs, swiglu
 from dynamo_tpu_torch.ops.layers import attn_out, qkv_head
-from dynamo_tpu_torch.ops.linear import linear
+from dynamo_tpu_torch.ops.linear import (
+    fused_attn_out_residual,
+    fused_qkv_rope,
+    linear,
+)
 
 
 @dataclass(frozen=True)
@@ -56,6 +64,11 @@ class LlamaConfig:
     rope_scaling: Optional[dict] = None
     # Qwen2-family: bias on the q/k/v projections (o/mlp stay bias-free)
     attn_bias: bool = False
+    # Fused decode step (DYN_FUSED_DECODE): norm+QKV+RoPE in one kernel and
+    # attn-out+O-proj+residual in another, on every decode and verify step,
+    # for layers without qk-norm or a sandwich post-attention norm (those
+    # keep the unfused head). The kernels keep the unfused op sequence.
+    fused_decode: bool = False
     # Gemma-family: GeGLU FFN instead of SwiGLU ("gelu_tanh"), embeddings
     # scaled by sqrt(hidden) at lookup, and (1+w) RMSNorm weights — the
     # +1 is folded into the stored weights at load time, so the forward
@@ -279,15 +292,50 @@ def _attn_prefill(x, layer, cfg, inv_freqs, positions, valid_len, k_cache_l, v_c
     return attn_out(attn, x, layer, cfg)
 
 
+def _use_fused_decode(cfg, layer) -> bool:
+    """Fused decode applies when enabled and for layers the fused heads
+    cover exactly: no per-head qk-norm, no sandwich post-attention norm."""
+    return (
+        cfg.fused_decode
+        and "q_norm" not in layer
+        and "post_attn_norm" not in layer
+    )
+
+
+def _fused_qkv_dispatch(x, layer, cfg, inv_freqs, positions):
+    """The fused norm+QKV+RoPE head. cos / sin are computed exactly as
+    apply_rope's angle formula; the rotation runs inside the fused head."""
+    angles = positions[..., None].float() * inv_freqs
+    return fused_qkv_rope(
+        x, layer["attn_norm"], layer["wq"], layer["wk"], layer["wv"],
+        torch.cos(angles), torch.sin(angles),
+        eps=cfg.rms_eps, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        bq=layer.get("bq"), bk=layer.get("bk"), bv=layer.get("bv"),
+    )
+
+
+def _fused_out_dispatch(attn_flat, layer, x):
+    """The fused o-proj + residual head."""
+    return fused_attn_out_residual(attn_flat, layer["wo"], x)
+
+
 def _attn_decode(x, layer, cfg, inv_freqs, positions, context_lens, k_cache_l, v_cache_l, block_tables, slot_indices, li=0):
-    """One layer's decode attention (the unfused path)."""
-    q, k, v = qkv_head(x, layer, cfg, inv_freqs, positions)
+    """One layer's decode attention, through the fused heads where
+    ``_use_fused_decode`` says so."""
+    fused = _use_fused_decode(cfg, layer)
+    if fused:
+        q, k, v = _fused_qkv_dispatch(x, layer, cfg, inv_freqs, positions)
+    else:
+        q, k, v = qkv_head(x, layer, cfg, inv_freqs, positions)
     write_decode_kv(k_cache_l, v_cache_l, k, v, slot_indices)
     attn = paged_decode_attention(
         q, k_cache_l, v_cache_l, block_tables, context_lens,
         window=cfg.layer_window(li), scale=cfg.attn_scale,
         logit_softcap=cfg.attn_logit_softcap,
     )
+    if fused:
+        return _fused_out_dispatch(attn.reshape(x.shape[0], cfg.q_dim), layer, x)
     return attn_out(attn, x, layer, cfg)
 
 
@@ -365,3 +413,48 @@ def decode(
         )
         x = _mlp(x, layer, cfg)
     return _logits(x, params, cfg)
+
+
+def decode_verify(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] int64 -- last accepted token + draft window
+    positions: torch.Tensor,  # [B, S] int64 true positions, consecutive per lane
+    k_cache: torch.Tensor,  # [L, Hkv, num_blocks, block_size, D], written in place
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    slot_indices: torch.Tensor,  # [B, S] flat cache slots (0 = null sink)
+) -> torch.Tensor:
+    """Draft-verify forward for speculative decoding: ONE weight pass scores
+    S positions per lane. Each lane's S tokens write their K/V into their
+    slots first, then attend causally over the lane's paged context (the
+    drafts see each other through the cache). Returns logits [B, S, V]
+    (f32)."""
+    freqs = _rope_pair(cfg, tokens.device)
+    B, S = tokens.shape
+    pos_flat = positions.reshape(-1)
+    slots_flat = slot_indices.reshape(-1)
+    positions_i32 = positions.to(torch.int32)
+    x = _embed(params, cfg, tokens.reshape(-1))  # [B*S, hidden]
+    for i, layer in enumerate(params["layers"]):
+        fused = _use_fused_decode(cfg, layer)
+        lf = _layer_freqs(cfg, i, freqs)
+        if fused:
+            # the fused heads are row-count generic: the window's flat [B*S]
+            # rows ride the same heads decode uses
+            q, k, v = _fused_qkv_dispatch(x, layer, cfg, lf, pos_flat)
+        else:
+            q, k, v = qkv_head(x, layer, cfg, lf, pos_flat)
+        write_decode_kv(k_cache[i], v_cache[i], k, v, slots_flat)
+        attn = paged_verify_attention(
+            q.reshape(B, S, cfg.num_heads, cfg.head_dim), k_cache[i], v_cache[i],
+            block_tables, positions_i32,
+            window=cfg.layer_window(i), scale=cfg.attn_scale,
+            logit_softcap=cfg.attn_logit_softcap,
+        )
+        if fused:
+            x = _fused_out_dispatch(attn.reshape(B * S, cfg.q_dim), layer, x)
+        else:
+            x = attn_out(attn.reshape(B * S, cfg.num_heads, cfg.head_dim), x, layer, cfg)
+        x = _mlp(x, layer, cfg)
+    return _logits(x, params, cfg).reshape(B, S, -1)

@@ -3,8 +3,8 @@
 Each source in ``dynamo_tpu_torch/csrc/`` becomes one shared library with a
 plain C interface, compiled for Hopper (``sm_90a``) on first use into
 ``build/kernels/`` at the root of the checkout. The library name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time: the CPU
+hash of the source, the shared ``*.cuh`` headers and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Nothing here runs at import time: the CPU
 tests import every module of the package on a machine without nvcc.
 """
 
@@ -22,7 +22,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("paged_decode_attention", "flash_prefill_attention")
+SOURCES = (
+    "paged_decode_attention",
+    "flash_prefill_attention",
+    "paged_verify_attention",
+    "fused_qkv_rope",
+    "fused_attn_out_residual",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,7 +55,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are hashed too: a source's library changes with them
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))
+    )
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

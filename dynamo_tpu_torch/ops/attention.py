@@ -1,5 +1,5 @@
-"""Attention over a paged KV cache: causal prefill, paged decode and the
-cache writes.
+"""Attention over a paged KV cache: causal prefill, paged decode, the
+spec-decode verify pass and the cache writes.
 
 Counterpart of dynamo_tpu/ops/attention.py. The cache of one layer is
 head-major and block-paged, ``[Hkv, num_blocks, block_size, D]``, addressed by
@@ -23,6 +23,7 @@ import torch
 from dynamo_tpu_torch.ops.cuda_attention import (
     flash_prefill_attention_cuda,
     paged_decode_attention_cuda,
+    paged_verify_attention_cuda,
 )
 
 NEG_INF = -1e30
@@ -146,6 +147,67 @@ def paged_decode_attention_plain(
     weights = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,hbsd->bhgd", weights, v.float())
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,  # [B, S, Hq, D] -- S speculative positions per lane
+    k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] (this layer)
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32 block ids
+    positions: torch.Tensor,  # [B, S] int32 true positions, consecutive per lane
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Draft-verify attention: each lane's S new tokens, whose K/V are
+    already in the cache, attend causally over the lane's pages. The paged
+    verify kernel for CUDA tensors (positions must be consecutive per lane,
+    as ``decode_verify`` feeds them), the plain gather version for CPU ones."""
+    if q.is_cuda:
+        return paged_verify_attention_cuda(
+            q, k_cache, v_cache, block_tables, positions,
+            window=window, scale=scale, logit_softcap=logit_softcap,
+        )
+    return paged_verify_attention_plain(
+        q, k_cache, v_cache, block_tables, positions,
+        window=window, scale=scale, logit_softcap=logit_softcap,
+    )
+
+
+def paged_verify_attention_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    positions: torch.Tensor,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of the verify kernel (dynamo_tpu/ops/attention.py
+    gather branch, :426-459): every table entry's page gathered into a dense
+    [Hkv, B, max_blocks * block_size, D] window; query (b, s) sees key kpos
+    iff kpos <= positions[b, s] and, with a window,
+    positions[b, s] - kpos < window."""
+    B, S, Hq, D = q.shape
+    Hkv, _, block_size, _ = k_cache.shape
+    G = Hq // Hkv
+    S_ctx = block_tables.shape[1] * block_size
+    tables = block_tables.long()
+    k = k_cache[:, tables].reshape(Hkv, B, S_ctx, D)
+    v = v_cache[:, tables].reshape(Hkv, B, S_ctx, D)
+    qr = q.reshape(B, S, Hkv, G, D).float()
+    scores = torch.einsum("bshgd,hbkd->bhgsk", qr, k.float()) * _scale(scale, D)
+    scores = _softcap(scores, logit_softcap)
+    kpos = torch.arange(S_ctx, device=q.device)[None, None, :]
+    qpos = positions.long()[:, :, None]
+    mask = kpos <= qpos  # [B, S, S_ctx]
+    if window is not None:
+        mask &= qpos - kpos < window
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgsk,hbkd->bshgd", weights, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
 
 
 def write_prefill_kv(

@@ -1,19 +1,23 @@
 """Wrappers of the port's hand-written CUDA attention kernels.
 
-Counterpart of dynamo_tpu/ops/pallas_attention.py: the two TPU kernels on
-the serving path, rewritten for Hopper in ``dynamo_tpu_torch/csrc/`` (each
-source says what bounds it on the card and how its design answers that):
+Counterpart of dynamo_tpu/ops/pallas_attention.py: the three TPU attention
+kernels of the serving path, rewritten for Hopper in
+``dynamo_tpu_torch/csrc/`` (each source says what bounds it on the card and
+how its design answers that):
 
   * ``paged_decode_attention_cuda`` <- ``paged_decode_attention_pallas``
     (csrc/paged_decode_attention.cu);
   * ``flash_prefill_attention_cuda`` <- ``flash_prefill_attention_pallas``
-    (csrc/flash_prefill_attention.cu).
+    (csrc/flash_prefill_attention.cu);
+  * ``paged_verify_attention_cuda`` <- ``paged_verify_attention_pallas``
+    (csrc/paged_verify_attention.cu).
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, allocates
 its output with ``torch.empty``, launches on the current stream without
 synchronising, and raises if the launch is refused. It counts its launches in
-a plain integer attribute, ``<wrapper>.launches``, so a run can show that the
-serving path went through the kernel. There is no fallback: a failed build or
+a plain integer attribute, ``<wrapper>.launches`` (ops/kernels.py resets and
+reads them all), so a run can show that the serving path went through the
+kernel. There is no fallback: a failed build or
 launch raises. The plain PyTorch versions live in ops/attention.py.
 """
 
@@ -33,10 +37,14 @@ _F = ctypes.c_float
 
 _DECODE_ARGTYPES = [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P]
 _PREFILL_ARGTYPES = [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P]
+_VERIFY_ARGTYPES = [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P]
 _DECODE_D = (64, 128, 256)
 _PREFILL_D = (64, 128)
+_VERIFY_D = (64, 128)
 _GROUPS = (1, 2, 4, 8)
 DECODE_SPLIT = 256  # keys per block of the decode kernel (kSplit in the source)
+VERIFY_SPLIT = 128  # keys per block of the verify kernel (kSplit in the source)
+VERIFY_ROWS = 16  # query rows per tile of the verify kernel (kRows)
 
 
 def _fn(lib_name: str, sym: str, argtypes):
@@ -60,14 +68,18 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, device) ->
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _common(q: torch.Tensor, hq: int, hkv: int, d: int, ds) -> None:
-    if not q.is_cuda:
+def _device_ok(t: torch.Tensor) -> None:
+    if not t.is_cuda:
         raise ValueError("the CUDA kernels take CUDA tensors only")
-    if q.device.index != torch.cuda.current_device():
+    if t.device.index != torch.cuda.current_device():
         raise ValueError(
-            f"tensors on {q.device} but the current device is "
+            f"tensors on {t.device} but the current device is "
             f"cuda:{torch.cuda.current_device()}"
         )
+
+
+def _common(q: torch.Tensor, hq: int, hkv: int, d: int, ds) -> None:
+    _device_ok(q)
     if hkv <= 0 or hq % hkv or hq // hkv not in _GROUPS:
         raise ValueError(f"GQA group Hq/Hkv = {hq}/{hkv} must be one of {_GROUPS}")
     if d not in ds:
@@ -188,9 +200,69 @@ def flash_prefill_attention_cuda(
 
 flash_prefill_attention_cuda.launches = 0
 
-KERNELS = (paged_decode_attention_cuda, flash_prefill_attention_cuda)
+
+def paged_verify_attention_cuda(
+    q: torch.Tensor,  # [B, S, Hq, D] bf16, S consecutive positions per lane
+    k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] bf16 (one layer)
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    positions: torch.Tensor,  # [B, S] int32, positions[b, s] = positions[b, 0] + s
+    *,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Spec-decode verify attention on the card: each lane's S draft
+    positions, whose K/V are already in the cache, attend causally over the
+    lane's pages, read once for all S * G rows. The positions must be
+    consecutive per lane (what ``decode_verify`` feeds); the kernel reads
+    only ``positions[b, 0]`` and ``positions[b, S - 1]``."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "int8-resident KV pages (per-page scales) are not ported yet"
+        )
+    B, S, Hq, D = q.shape
+    Hkv, num_blocks, block_size, Dc = k_cache.shape
+    _common(q, Hq, Hkv, D, _VERIFY_D)
+    dev = q.device
+    _check(q, "q", torch.bfloat16, 4, dev)
+    _check(k_cache, "k_cache", torch.bfloat16, 4, dev)
+    _check(v_cache, "v_cache", torch.bfloat16, 4, dev)
+    _check(block_tables, "block_tables", torch.int32, 2, dev)
+    _check(positions, "positions", torch.int32, 2, dev)
+    if Dc != D or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
+            f"do not match q {tuple(q.shape)}"
+        )
+    if block_tables.shape[0] != B or tuple(positions.shape) != (B, S):
+        raise ValueError("block_tables / positions do not match q's [B, S]")
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out
+    # split-KV partials of every (lane, kv head, 16-row tile, 128-key split),
+    # merged by the kernel's second pass
+    max_blocks = block_tables.shape[1]
+    tiles = -(-S * (Hq // Hkv) // VERIFY_ROWS)
+    splits = -(-max_blocks * block_size // VERIFY_SPLIT)
+    n_part = B * Hkv * tiles * splits * VERIFY_ROWS
+    part_acc = torch.empty(n_part * D, dtype=torch.float32, device=dev)
+    part_ml = torch.empty(n_part * 2, dtype=torch.float32, device=dev)
+    fn = _fn("paged_verify_attention", "paged_verify_attention_bf16", _VERIFY_ARGTYPES)
+    sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    err = fn(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(),
+        B, S, Hq, Hkv, D, num_blocks, block_size, max_blocks,
+        sc, float(logit_softcap or 0.0), int(window or 0),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "paged_verify_attention")
+    paged_verify_attention_cuda.launches += 1
+    return out
 
 
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+paged_verify_attention_cuda.launches = 0

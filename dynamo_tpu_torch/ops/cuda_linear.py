@@ -1,0 +1,171 @@
+"""Wrappers of the port's hand-written CUDA fused decode-step kernels.
+
+Counterpart of the two Pallas programs of dynamo_tpu/ops/linear.py,
+rewritten for Hopper in ``dynamo_tpu_torch/csrc/`` (each source says what
+bounds it on the card and how its design answers that):
+
+  * ``fused_qkv_rope_cuda`` <- ``fused_qkv_rope`` (csrc/fused_qkv_rope.cu):
+    RMSNorm -> Q/K/V products -> bias -> RoPE;
+  * ``fused_attn_out_residual_cuda`` <- ``fused_attn_out_residual``
+    (csrc/fused_attn_out_residual.cu): o-projection -> residual add.
+
+Both cut the contraction into splits so enough blocks stream the weights;
+the wrapper picks the split from the shapes and allocates the f32 partials
+(and the normed activations of the first) with ``torch.empty``. As in
+ops/cuda_attention.py, each wrapper checks device, dtype, shape,
+contiguity and alignment, launches on the current stream without
+synchronising, raises if a launch is refused, and counts its launches in
+``<wrapper>.launches``. The plain PyTorch versions live in ops/linear.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from dynamo_tpu_torch.ops.cuda_attention import _check, _device_ok, _fn, _raise_on
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+_QKV_ARGTYPES = [_P] * 15 + [_I] * 6 + [_F, _P]
+_OUT_ARGTYPES = [_P] * 5 + [_I] * 4 + [_P]
+GEMM_COLS = 128  # output columns per block (kGemmCols in csrc/hopper_common.cuh)
+GEMM_KC = 32  # contraction rows per pipeline chunk (kGemmKC)
+GEMM_ROWS = 64  # rows per row group (kGemmRows)
+# blocks the split-K product aims for: ~4 per SM of an H100's 132, enough
+# loads in flight to stream the weights at the memory's rate
+TARGET_BLOCKS = 4 * 132
+
+
+def k_split_for(K: int, n_cols: int, M: int) -> int:
+    """Contraction rows per split: the product's blocks (column tiles x row
+    groups x splits) come to about TARGET_BLOCKS; a multiple of GEMM_KC."""
+    tiles = (n_cols // GEMM_COLS) * -(-M // GEMM_ROWS)
+    splits = max(1, min(K // GEMM_KC, round(TARGET_BLOCKS / tiles)))
+    chunks = -(-(K // GEMM_KC) // splits)
+    return chunks * GEMM_KC
+
+
+def _widths_ok(name: str, n: int) -> None:
+    if n % GEMM_COLS:
+        raise ValueError(f"{name} width {n} is not a multiple of {GEMM_COLS}")
+
+
+def fused_qkv_rope_cuda(
+    x: torch.Tensor,  # [M, H] bf16 residual stream
+    attn_norm: torch.Tensor,  # [H] bf16
+    wq: torch.Tensor,  # [H, Hq * D] bf16
+    wk: torch.Tensor,  # [H, Hkv * D] bf16
+    wv: torch.Tensor,
+    cos: torch.Tensor,  # [M, D // 2] f32
+    sin: torch.Tensor,
+    *,
+    eps: float,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    bq: Optional[torch.Tensor] = None,
+    bk: Optional[torch.Tensor] = None,
+    bv: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RMSNorm + Q/K/V products (+ bias) + RoPE on the card; returns
+    (q [M, Hq, D], k [M, Hkv, D], v [M, Hkv, D]) bf16."""
+    _device_ok(x)
+    M, H = x.shape
+    q_dim, kv_dim = num_heads * head_dim, num_kv_heads * head_dim
+    dev = x.device
+    _check(x, "x", torch.bfloat16, 2, dev)
+    _check(attn_norm, "attn_norm", torch.bfloat16, 1, dev)
+    for name, w, n in (("wq", wq, q_dim), ("wk", wk, kv_dim), ("wv", wv, kv_dim)):
+        _check(w, name, torch.bfloat16, 2, dev)
+        if tuple(w.shape) != (H, n):
+            raise ValueError(f"{name} is {tuple(w.shape)}, expected {(H, n)}")
+    for name, t in (("cos", cos), ("sin", sin)):
+        _check(t, name, torch.float32, 2, dev)
+        if tuple(t.shape) != (M, head_dim // 2):
+            raise ValueError(f"{name} is {tuple(t.shape)}, expected {(M, head_dim // 2)}")
+    biases = (bq, bk, bv)
+    if any(b is not None for b in biases):
+        if any(b is None for b in biases):
+            raise ValueError("bq, bk and bv come together")
+        for name, b, n in (("bq", bq, q_dim), ("bk", bk, kv_dim), ("bv", bv, kv_dim)):
+            _check(b, name, torch.bfloat16, 1, dev)
+            if b.shape[0] != n:
+                raise ValueError(f"{name} has {b.shape[0]} entries, expected {n}")
+    if tuple(attn_norm.shape) != (H,):
+        raise ValueError(f"attn_norm is {tuple(attn_norm.shape)}, expected {(H,)}")
+    if head_dim % 2:
+        raise ValueError(f"head_dim {head_dim} must be even")
+    if H % GEMM_KC:
+        raise ValueError(f"hidden size {H} is not a multiple of {GEMM_KC}")
+    _widths_ok("wq", q_dim)
+    _widths_ok("wk/wv", kv_dim)
+    q = torch.empty(M, num_heads, head_dim, dtype=x.dtype, device=dev)
+    k = torch.empty(M, num_kv_heads, head_dim, dtype=x.dtype, device=dev)
+    v = torch.empty_like(k)
+    if M == 0:
+        return q, k, v
+    n_cols = q_dim + 2 * kv_dim
+    k_split = k_split_for(H, n_cols, M)
+    splits = -(-H // k_split)
+    xn = torch.empty_like(x)
+    part = torch.empty(splits * M * n_cols, dtype=torch.float32, device=dev)
+    fn = _fn("fused_qkv_rope", "fused_qkv_rope_bf16", _QKV_ARGTYPES)
+    err = fn(
+        x.data_ptr(), attn_norm.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+        *(b.data_ptr() if b is not None else None for b in biases),
+        cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        xn.data_ptr(), part.data_ptr(),
+        M, H, num_heads, num_kv_heads, head_dim, k_split, float(eps),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "fused_qkv_rope")
+    fused_qkv_rope_cuda.launches += 1
+    return q, k, v
+
+
+fused_qkv_rope_cuda.launches = 0
+
+
+def fused_attn_out_residual_cuda(
+    attn: torch.Tensor,  # [M, q_dim] bf16 flattened attention output
+    wo: torch.Tensor,  # [q_dim, H] bf16
+    x: torch.Tensor,  # [M, H] bf16 residual stream
+) -> torch.Tensor:
+    """o-projection + residual add on the card: x + bf16(attn @ wo)."""
+    _device_ok(attn)
+    M, K = attn.shape
+    dev = attn.device
+    _check(attn, "attn", torch.bfloat16, 2, dev)
+    _check(wo, "wo", torch.bfloat16, 2, dev)
+    _check(x, "x", torch.bfloat16, 2, dev)
+    H = wo.shape[1]
+    if wo.shape[0] != K or tuple(x.shape) != (M, H):
+        raise ValueError(
+            f"shapes attn {tuple(attn.shape)}, wo {tuple(wo.shape)}, x "
+            f"{tuple(x.shape)} do not chain"
+        )
+    if K % GEMM_KC:
+        raise ValueError(f"attn width {K} is not a multiple of {GEMM_KC}")
+    _widths_ok("wo", H)
+    out = torch.empty_like(x)
+    if M == 0:
+        return out
+    k_split = k_split_for(K, H, M)
+    splits = -(-K // k_split)
+    part = torch.empty(splits * M * H, dtype=torch.float32, device=dev)
+    fn = _fn("fused_attn_out_residual", "fused_attn_out_residual_bf16", _OUT_ARGTYPES)
+    err = fn(
+        attn.data_ptr(), wo.data_ptr(), x.data_ptr(), out.data_ptr(), part.data_ptr(),
+        M, K, H, k_split, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "fused_attn_out_residual")
+    fused_attn_out_residual_cuda.launches += 1
+    return out
+
+
+fused_attn_out_residual_cuda.launches = 0

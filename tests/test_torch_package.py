@@ -1,5 +1,5 @@
-"""Guards of the PyTorch port: what it imports, where it runs, and its CUDA
-kernels against their plain versions on a card.
+"""Guards of the PyTorch port: what it imports, where it runs, and its five
+CUDA kernels against their plain versions on a card.
 
 The ``cuda`` tests decide inside the test body whether a card is present, so
 every pytest-xdist worker collects the same tests; here, without a card,
@@ -19,6 +19,10 @@ import torch
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.ops import attention as A
 from dynamo_tpu_torch.ops import cuda_attention as K
+from dynamo_tpu_torch.ops import cuda_linear as KL
+from dynamo_tpu_torch.ops import kernels
+from dynamo_tpu_torch.ops import linear as L
+from dynamo_tpu_torch.ops.basics import rope_freqs
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu")
@@ -41,6 +45,17 @@ def test_port_imports_nothing_of_jax_or_the_jax_package(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
+def test_scan_covers_every_kernel_wrapper_and_engine_module():
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for mod in ("ops/cuda_attention.py", "ops/cuda_linear.py", "ops/kernels.py",
+                "engine/torch_engine/drafter.py", "engine/torch_engine/engine.py",
+                "engine/torch_engine/model_runner.py", "engine/torch_engine/factory.py"):
+        assert f"dynamo_tpu_torch/{mod}" in scanned
+    # every kernel the counters cover has its source beside the package
+    for name in kernels.KERNELS:
+        assert (ROOT / "dynamo_tpu_torch" / "csrc" / f"{name}.cu").is_file()
+
+
 def _need_no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the no-card refusal")
@@ -52,6 +67,8 @@ def test_build_torch_engine_defaults_to_the_card_and_refuses_without_one():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         build_torch_engine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_torch_engine(fused_decode=True, spec_k=3)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
 
@@ -67,18 +84,40 @@ def test_kernel_wrappers_refuse_cpu_tensors_instead_of_falling_back():
         K.flash_prefill_attention_cuda(q, cache[0, :2], cache[0, :2], 2)
     with pytest.raises(NotImplementedError):
         K.paged_decode_attention_cuda(q, cache, cache, tables, lens, k_scales=lens)
+    q4 = q[:, None].expand(2, 3, 8, 128).contiguous()
+    pos = torch.arange(3, dtype=torch.int32).repeat(2, 1)
+    with pytest.raises(ValueError):
+        K.paged_verify_attention_cuda(q4, cache, cache, tables, pos)
+    with pytest.raises(NotImplementedError):
+        K.paged_verify_attention_cuda(q4, cache, cache, tables, pos, v_scales=lens)
+    x = torch.zeros(2, 256, dtype=torch.bfloat16)
+    w = torch.zeros(256, 256, dtype=torch.bfloat16)
+    cs = torch.zeros(2, 64)
+    with pytest.raises(ValueError):
+        KL.fused_qkv_rope_cuda(x, x[0], w, w[:, :128], w[:, :128], cs, cs, eps=1e-5,
+                               num_heads=2, num_kv_heads=1, head_dim=128)
+    with pytest.raises(ValueError):
+        KL.fused_attn_out_residual_cuda(x, w, x)
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    K.reset_launch_counts()
+    kernels.reset_launch_counts()
     q = torch.randn(4, 8, 16)
     k = torch.randn(4, 2, 16)
     A.causal_prefill_attention(q, k, k, 4)
     A.paged_decode_attention(q, torch.randn(2, 3, 4, 16), torch.randn(2, 3, 4, 16),
                              torch.ones(4, 1, dtype=torch.int32),
                              torch.ones(4, dtype=torch.int32))
-    assert K.paged_decode_attention_cuda.launches == 0
-    assert K.flash_prefill_attention_cuda.launches == 0
+    S = 3
+    A.paged_verify_attention(torch.randn(4, S, 8, 16), torch.randn(2, 3, 4, 16),
+                             torch.randn(2, 3, 4, 16), torch.ones(4, 1, dtype=torch.int32),
+                             torch.arange(S, dtype=torch.int32).repeat(4, 1))
+    x = torch.randn(4, 64)
+    w = torch.randn(64, 64)
+    L.fused_qkv_rope(x, x[0], w, w[:, :32], w[:, :32], torch.zeros(4, 8), torch.zeros(4, 8),
+                     eps=1e-5, num_heads=4, num_kv_heads=2, head_dim=16)
+    L.fused_attn_out_residual(x, w, x)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
 # ------------------------------------------------------------- on the card
@@ -136,3 +175,61 @@ def test_prefill_kernel_matches_plain_on_card(feature, P, valid):
     err = (got[:valid] - want[:valid]).abs()
     assert (err <= 1e-2 + 2.0 ** -6 * want[:valid].abs()).all()
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("M", [1, 8, 32, 70])
+def test_fused_kernels_match_plain_on_card(M, bias):
+    _need_card()
+    g = torch.Generator().manual_seed(M)
+    H, hq, hkv, d = 1024, 8, 2, 128
+    bf = lambda *s, sd=1.0: (sd * torch.randn(*s, generator=g)).bfloat16().cuda()  # noqa: E731
+    x, norm = bf(M, H), (1 + 0.1 * torch.randn(H, generator=g)).bfloat16().cuda()
+    wq, wk, wv = bf(H, hq * d, sd=0.03), bf(H, hkv * d, sd=0.03), bf(H, hkv * d, sd=0.03)
+    biases = (bf(hq * d, sd=0.1), bf(hkv * d, sd=0.1), bf(hkv * d, sd=0.1)) if bias else (None,) * 3
+    angles = torch.randint(0, 4000, (M, 1), generator=g).float() * rope_freqs(d, 500000.0)
+    cos, sin = torch.cos(angles).cuda(), torch.sin(angles).cuda()
+    kw = dict(eps=1e-5, num_heads=hq, num_kv_heads=hkv, head_dim=d,
+              bq=biases[0], bk=biases[1], bv=biases[2])
+    got = KL.fused_qkv_rope_cuda(x, norm, wq, wk, wv, cos, sin, **kw)
+    want = L.fused_qkv_rope_plain(x, norm, wq, wk, wv, cos, sin, **kw)
+    attn, wo = bf(M, hq * d), bf(hq * d, H, sd=0.03)
+    got_o = KL.fused_attn_out_residual_cuda(attn, wo, x)
+    want_o = L.fused_attn_out_residual_plain(attn, wo, x)
+    torch.cuda.synchronize()
+    # f32 products summed in another order: a bf16 rounding may flip by one
+    # ulp before RoPE / the residual add
+    for a, b in zip((*got, got_o), (*want, want_o)):
+        a, b = a.float(), b.float()
+        assert ((a - b).abs() <= 1e-2 + 2.0 ** -6 * b.abs()).all()
+
+
+VERIFY = {"full": {}, "window": {"window": 100}, "softcap": {"scale": 0.1, "logit_softcap": 4.0}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", sorted(VERIFY))
+@pytest.mark.parametrize("S", [1, 4, 6])
+def test_verify_kernel_matches_plain_on_card(feature, S):
+    _need_card()
+    g = torch.Generator().manual_seed(S)
+    B, Hq, Hkv, D, bs, nb, mb = 5, 32, 8, 128, 16, 160, 40
+    bases = [0, 15, 200, 333, 600]
+    perm = torch.randperm(nb - 1, generator=g) + 1
+    tables = torch.zeros(B, mb, dtype=torch.int32)
+    off = 0
+    for b, p in enumerate(bases):
+        n = (p + S - 1 - b % 2) // bs + 1  # odd lanes drafted one token less
+        tables[b, :n] = perm[off:off + n].int()
+        off += n
+    pos = (torch.tensor(bases)[:, None] + torch.arange(S)[None, :]).int()
+    q = torch.randn(B, S, Hq, D, generator=g).bfloat16().cuda()
+    kc = torch.randn(Hkv, nb, bs, D, generator=g).bfloat16().cuda()
+    vc = torch.randn(Hkv, nb, bs, D, generator=g).bfloat16().cuda()
+    args = (q, kc, vc, tables.cuda(), pos.cuda())
+    got = K.paged_verify_attention_cuda(*args, **VERIFY[feature]).float()
+    want = A.paged_verify_attention_plain(*args, **VERIFY[feature]).float()
+    torch.cuda.synchronize()
+    # the kernel rounds the softmax weights to bf16 for P @ V
+    assert ((got - want).abs() <= 1e-2 + 2.0 ** -6 * want.abs()).all()
