@@ -11,7 +11,8 @@ Phases, each of which must pass or the script exits non-zero:
   3. parity  -- each kernel against its plain PyTorch version on the card,
                 at Llama-3.1-8B shapes (Hq 32, Hkv 8, D 128, block 16,
                 hidden 4096), with the window / scale / softcap variants,
-                verify lanes whose drafts stop early, and a bias case;
+                a ragged prompt, GQA groups 1 and 8, verify lanes whose
+                drafts stop early, and a bias case;
   4. serve   -- TorchEngine built by build_torch_engine at the full width of
                 Llama-3.1-8B (random bf16 weights from a seed), fused decode
                 and spec decode off, 8 concurrent generate() calls; checks
@@ -24,9 +25,11 @@ Phases, each of which must pass or the script exits non-zero:
                 step, decode 32 x plain steps, prefill 32 x prefills), a
                 dense reference and that the seeded request repeats;
   6. times   -- each kernel, its plain version and the PyTorch yardstick
-                timed with CUDA events, beside the kernel's bound; engine
-                TTFT, the B=8 decode step with the fused heads off and on
-                (wall and device time), tokens/s with spec off and on.
+                timed with CUDA events, beside the kernel's bound (and the
+                kernel / yardstick ratio where the yardstick is one call);
+                engine TTFT with the 2000-token prefill's device time, the
+                B=8 decode step with the fused heads off and on (wall and
+                device time), tokens/s with spec off and on.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -149,9 +152,9 @@ def decode_inputs(torch, ctx_lens, seed: int, num_blocks: int = 2112):
     return [t.cuda() for t in (q, k, v, tables, lens)]
 
 
-def prefill_inputs(torch, P: int, seed: int):
+def prefill_inputs(torch, P: int, seed: int, hq: int = HQ):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = torch.randn(P, HQ, D, generator=g).to(torch.bfloat16)
+    q = torch.randn(P, hq, D, generator=g).to(torch.bfloat16)
     k = torch.randn(P, HKV, D, generator=g).to(torch.bfloat16)
     v = torch.randn(P, HKV, D, generator=g).to(torch.bfloat16)
     return q.cuda(), k.cuda(), v.cuda()
@@ -252,7 +255,10 @@ PREFILL_CASES = [
     ("P2048", 2048, 2000, {}),
     ("P2048_window", 2048, 1900, {"window": 512}),
     ("P512_scale_softcap", 512, 480, {"scale": 0.1, "logit_softcap": 5.0}),
+    ("P1000_ragged", 1000, 999, {}),  # P not a multiple of the 128-row tile
 ]
+# other GQA groups G = Hq / Hkv, Hkv fixed at 8: (name, Hq, P, valid_len)
+PREFILL_GROUP_CASES = [("G1", HKV, 1000, 999), ("G8", 8 * HKV, 2048, 2000)]
 # verify: B=8 lanes of S = spec_k + 1 = 4 positions, ragged bases, three
 # lanes whose drafts stop early (their tables end at base + draft_len)
 VERIFY_S = 4
@@ -276,15 +282,17 @@ def phase_parity(torch) -> dict:
         errs["paged_decode_attention"] = max(errs["paged_decode_attention"], e)
         log(f"parity decode/{name}: B={len(DECODE_LENS)} lens={DECODE_LENS} "
             f"max|d|={e:.3e} (tol {DECODE_TOL[0]:g} + {DECODE_TOL[1]:g}|x|)")
-    for name, P, vl, kw in PREFILL_CASES:
-        q, k, v = prefill_inputs(torch, P, seed=P + vl)
+    prefill = [(name, HQ, P, vl, kw) for name, P, vl, kw in PREFILL_CASES]
+    prefill += [(name, hq, P, vl, {}) for name, hq, P, vl in PREFILL_GROUP_CASES]
+    for name, hq, P, vl, kw in prefill:
+        q, k, v = prefill_inputs(torch, P, seed=P + vl + hq, hq=hq)
         got = K.flash_prefill_attention_cuda(q, k, v, vl, **kw)
         want = A.causal_prefill_attention_plain(q, k, v, vl, **kw)
         torch.cuda.synchronize()
         e = compare(torch, f"prefill/{name}", got[:vl], want[:vl], PREFILL_TOL)
         errs["flash_prefill_attention"] = max(errs["flash_prefill_attention"], e)
-        log(f"parity prefill/{name}: P={P} valid_len={vl} {kw} max|d|={e:.3e} "
-            f"(tol {PREFILL_TOL[0]:g} + {PREFILL_TOL[1]:g}|x|)")
+        log(f"parity prefill/{name}: P={P} valid_len={vl} Hq={hq} Hkv={HKV} {kw} "
+            f"max|d|={e:.3e} (tol {PREFILL_TOL[0]:g} + {PREFILL_TOL[1]:g}|x|)")
     errs.update(spec_parity(torch))
     return errs
 
@@ -400,6 +408,7 @@ def phase_kernel_times(torch, card: str) -> dict:
     rows["flash_prefill_attention"] = {
         "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
         "bound_by": b_by, "bytes": nbytes, "flops": flops,
+        "ratio_to_library": t_k["median"] / t_s["median"],
         "shape": f"P={P} valid_len={vl} Hq={HQ} Hkv={HKV} D={D}",
     }
     rows.update(spec_kernel_times(torch, flush))
@@ -508,6 +517,7 @@ def spec_kernel_times(torch, flush) -> dict:
         rows[f"fused_attn_out_residual/M{M}"] = {
             "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
             "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "ratio_to_library": t_k["median"] / t_s["median"],
             "library": "torch.addmm(x, attn, wo)",
             "shape": f"M={M} K={HQ * D} N={HIDDEN}",
         }
@@ -899,6 +909,10 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
             runner.fetch_sample(runner.prefill(prompt, blocks, 0.0, 1.0, 0))
             ts.append((time.perf_counter() - t0) * 1e3)
         ttft[n] = {"median": statistics.median(ts), "min": min(ts), "max": max(ts)}
+    # device time of the last (longest) prompt's prefill: all its kernels,
+    # by profiler
+    ttft[2000]["device_ms"] = device_ms_per_call(
+        torch, lambda: runner.fetch_sample(runner.prefill(prompt, blocks, 0.0, 1.0, 0)))
     B, ctx = 8, 1024
     per = (ctx + 1 + bs - 1) // bs
     tables = np.zeros((B, runner.max_blocks_per_seq), np.int32)
@@ -942,6 +956,8 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
         "decode_output_tok_per_s_B8": {k: B / (v["median"] / 1e3) for k, v in decode.items()},
     }
     print(json.dumps({"engine_time": res, "card": card}), flush=True)
+    log("TTFT alone: " + "; ".join(f"{n} tokens {v['median']:.2f} ms" for n, v in ttft.items())
+        + f"; 2000-token prefill device time {ttft[2000]['device_ms']:.2f} ms")
     log(f"decode step B=8 ctx 1024: unfused {decode['unfused']['median']:.2f} ms wall / "
         f"{decode['unfused']['device_ms']:.2f} ms device; fused "
         f"{decode['fused']['median']:.2f} ms wall / {decode['fused']['device_ms']:.2f} ms device")

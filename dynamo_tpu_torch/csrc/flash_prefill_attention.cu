@@ -1,5 +1,5 @@
 // Causal flash attention over one padded prompt for Hopper (sm_90a):
-// bf16 q/k/v, bf16 tensor-core products (mma.sync m16n8k16), f32 softmax
+// bf16 q/k/v, warpgroup tensor-core products (wgmma) fed by TMA, f32 softmax
 // and accumulation.
 //
 // Replaces: dynamo_tpu/ops/pallas_attention.py::flash_prefill_attention_pallas
@@ -12,349 +12,525 @@
 // 2 * P^2 * Hq * D flops (half of the P^2 pairs are causal) on
 // 2 * P * (Hq + 2 * Hkv) * D bytes, hundreds of flops per byte at
 // P >= 512 -- above the card's ~295 flop/byte ridge, so the tensor cores are
-// the limit and the work must be on them.
+// the limit, and only wgmma reaches their full rate.
 //
-// Design:
-//   * one thread block per (query tile, kv head), 4 warps. A query tile is
-//     64 group-expanded rows -- 64 / G positions times the G query heads of
-//     the kv head's GQA group, row r = (position p0 + r / G, head h*G + r % G),
-//     the TPU kernel's [bq * G, D] slab -- so each K/V tile is loaded once
-//     for the whole group;
-//   * each warp owns 16 rows; its Q fragments stay in registers for the
-//     whole key loop; S = Q K^T and O += P V run on mma.sync with f32
-//     accumulators, P rounded to bf16 for the second product;
-//   * the key loop visits 64-key tiles only from the window's first tile to
+// Design (warp-specialised, one block per (query tile, kv head)):
+//   * a query tile is 128 group-expanded rows -- 128 / G positions times the
+//     G query heads of the kv head's GQA group, row r = (position
+//     p0 + r / G, head h*G + r % G), the TPU kernel's [bq * G, D] slab -- so
+//     each K/V tile is read once for the whole group. TMA brings it as one
+//     3-D box (64, G, 128 / G) of q viewed as [P, Hq, D] per 64 columns;
+//   * a producer warpgroup (one issuing thread; setmaxnreg gives its
+//     registers to the consumers) keeps 2-stage rings of 128-key K and V
+//     tiles in flight by TMA; full / empty mbarriers per stage replace
+//     __syncthreads.
+//     K and V have their own barriers: S can start before V lands, and K's
+//     stage is refilled as soon as S is done. TMA zero-fills past P, and the
+//     K/V tensor maps end at valid_len, so the ragged edge and the prompt's
+//     padding read as zeros;
+//   * two consumer warpgroups own 64 rows each (one wgmma m64 tile):
+//     S = Q K^T is wgmma m64n128k16 with Q and K both from shared memory
+//     (K-major, 128-byte swizzle); the online softmax runs in registers
+//     with exp2 (scale premultiplied by log2 e); O += P V is wgmma
+//     m64n(D)k16 with P from registers (the S accumulator layout packs to
+//     the A fragment with no shuffle; P rounded to bf16) and V from shared
+//     memory, N-major (transposed B);
+//   * the softmax is the bottleneck beside the products (exp2 runs at 16
+//     per clock per SM), so it is hidden behind them: a warpgroup issues
+//     S_t together with P_{t-1} V_{t-1} and runs the softmax of S_t while
+//     the second product is still on the tensor cores; the two warpgroups
+//     take turns to issue (named barriers), so one's softmax runs while the
+//     other's products keep the tensor cores busy;
+//   * setmaxnreg moves registers from the producer to the consumers: with
+//     S, O and P live at once they need ~200, and at ~168 ptxas spills and
+//     serialises every wgmma (C7512). Nothing between a wgmma's issue and
+//     its wait touches its registers, and the loop has one static shape
+//     (tile 0 peeled), or ptxas serialises them too (C7514, C7520);
+//   * the key loop visits tiles only from the window's first key to
 //     min(last causal key, valid_len) -- acausal, padded and out-of-window
-//     tiles are neither loaded nor computed, as the TPU kernel skips them;
-//   * the ragged edges are masked in the kernel: P need not be a multiple
-//     of the tile (the TPU kernel required P % block == 0), rows past P are
-//     zero-filled and never stored, and query tiles wholly at or past
-//     valid_len (padding of the prompt's bucket) are written as zeros
+//     tiles are neither loaded nor computed. Only tiles that cross the
+//     diagonal, the valid_len edge or the window edge take the per-element
+//     mask. Query tiles wholly at or past valid_len are written as zeros
 //     without touching K/V;
-//   * tiles arrive by cp.async (global -> shared, no registers) into two
-//     stages: the next K/V tile is in flight while the current one computes;
-//   * B fragments come from shared memory by ldmatrix (.trans for V), four
-//     8x8 matrices per instruction; rows are padded (D + 8 bf16) so those
-//     loads are free of bank conflicts;
-//   * tiles wholly inside every row's causal / valid / window range skip
-//     the per-element mask.
-// Not yet (later work): wgmma + TMA with a producer warp, larger query
-// tiles, split of long prompts' key ranges.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+//   * blocks are ordered heaviest (most causal keys) first: a shorter tail.
+// Not yet (later work): a persistent grid (the next tile's loads under this
+// tile's epilogue), a TMA store of the output.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kRows = 64;      // group-expanded query rows per block (16 per warp)
-constexpr int kBK = 64;        // keys per tile
+constexpr int kRows = 128;                  // group-expanded query rows per block
+constexpr int kBK = 128;                    // keys per K/V tile
+constexpr int kConsumers = 256;             // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
+// registers per thread after setmaxnreg: the consumers hold S (64), O (64)
+// and P (32) at once; 2 x 128 x 232 + 128 x 40 = 64512 of the SM's 65536
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr int kStages = 2;
+constexpr int kBox = 128 * 128;             // one 128-row x 64-column bf16 box, bytes
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// shared memory, byte offsets from a 1024-aligned base (the 128-byte swizzle
+// repeats every 1024 bytes; wgmma descriptors assume tiles start on it)
+template <int D>
+struct Layout {
+  static constexpr int kTile = (D / 64) * kBox;  // a Q, K or V tile: D / 64 boxes
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + (1 + 4 * kStages) * 8 + 1024;  // barriers, alignment slack
+};
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands: sbo =
+// 1024 (8 rows of 128 bytes), lbo unused. N-major operands: lbo = the
+// stride between 64-wide column boxes, sbo = 1024 (8 k-rows).
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// 16-byte global -> shared copy that bypasses registers; pred false writes
-// zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(gmem),
-               "r"(pred ? 16 : 0));
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// pin registers that an asynchronous wgmma reads or writes: the compiler
+// may not move their uses across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// four 8x8 b16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8 and receives (row l / 4, cols 2 * (l % 4) + {0, 1})
-// of each (transposed with .trans)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// named barriers 1 and 2 give the two consumer warpgroups turns to issue
+// their products: bar.sync waits for `count` threads, bar.arrive counts
+// without waiting
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// D (64 x 128, f32) (+)= A (64 x 16, smem) * B (16 x 128, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// (lo, hi) -> one register, lo in the low 16 bits (the lower-indexed element)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n64(o, a, db);
 }
 
-template <int D, int G>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,  // [P, Hkv*G, D]
-                     const __nv_bfloat16* __restrict__ k,  // [P, Hkv, D]
-                     const __nv_bfloat16* __restrict__ v,  // [P, Hkv, D]
-                     __nv_bfloat16* __restrict__ out,      // [P, Hkv*G, D]
-                     int P, int valid_len, float scale, float softcap, int window) {
-  constexpr int kBQ = kRows / G;          // query positions per block
-  constexpr int kStride = D + 8;          // padded shared row, in bf16
-  constexpr int kVec = D / 8;             // 16-byte pieces per row
-  constexpr int kDSteps = D / 16;         // k-steps of S = Q K^T
-  constexpr int kNTiles = kBK / 8;        // n8 tiles of S
-  constexpr int kOTiles = D / 8;          // n8 tiles of O
-  static_assert(kRows % G == 0, "G must divide the query tile");
+// Online-softmax state of one thread's two rows (ra and ra + 8): running
+// max in raw score units, per-thread partial row sums (reduced at the end),
+// and the last tile's rescale factors.
+struct RowState {
+  float m_a = -INFINITY, m_b = -INFINITY;
+  float l_a = 0.f, l_b = 0.f;
+  float alpha_a = 1.f, alpha_b = 1.f;
+};
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][kStride]
-  __nv_bfloat16* sK = sQ + kRows * kStride;                    // [2][kBK][kStride]
-  __nv_bfloat16* sV = sK + 2 * kBK * kStride;                  // [2][kBK][kStride]
+// What the mask and the softmax of a tile need to know about this thread's
+// rows and the call.
+struct RowGeom {
+  int qa, qb;               // positions of rows ra and ra + 8
+  int c0;                   // first of this thread's two columns in each 8-group
+  int wq_first, wq_last;    // the warpgroup's first and last live position
+  int valid_len, window;
+  float mult, cap_in, cap_out;
+};
 
-  const int h = blockIdx.y;
-  const int Hkv = gridDim.y;
-  const int Hq = Hkv * G;
-  // heaviest (last, most causal keys) query tiles first: a shorter tail
-  const int p0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+// S = Q K^T for one warpgroup: 64 rows x 128 keys, D / 16 k-steps
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[64], uint32_t sq, uint32_t sk) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kBox + (kk & 3) * 32;
+    wgmma_ss_n128(s, desc128(sq + off, 16, 1024), desc128(sk + off, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V over the tile's 128 keys, 8 k-steps
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kBK / 16][4],
+                                         uint32_t sv) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_pv<D>(o, pa[kk], desc128(sv + kk * 16 * 128, kBox, 1024));
+}
+
+// softcap, mask, running max, exp2 and row sums of one S tile, in place
+__device__ __forceinline__ void softmax_tile(float (&s)[64], RowState& row, const RowGeom& g,
+                                             int k0) {
+  if (g.cap_out > 0.f) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) s[i] = g.cap_out * tanhf(s[i] * g.cap_in);
+  }
+  // a tile wholly inside every row's causal / valid / window range needs no
+  // mask (warpgroup-uniform test)
+  const bool interior = k0 + kBK - 1 <= g.wq_first && k0 + kBK <= g.valid_len &&
+                        (g.window <= 0 || g.wq_last - k0 < g.window);
+  if (!interior) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int qp = (i & 2) ? g.qb : g.qa;
+      const int kp = k0 + 8 * (i >> 2) + g.c0 + (i & 1);
+      if (!(kp <= qp && kp < g.valid_len && (g.window <= 0 || qp - kp < g.window))) s[i] = -INFINITY;
+    }
+  }
+  // row max over the quad that shares a row
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    mx_a = fmaxf(mx_a, fmaxf(s[4 * j + 0], s[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  const float mn_a = fmaxf(row.m_a, mx_a), mn_b = fmaxf(row.m_b, mx_b);
+  // exp2 of (x - m) * scale * log2(e); a row that has seen no key keeps
+  // alpha 1 and weights 0
+  row.alpha_a = mn_a == -INFINITY ? 1.f : ex2((row.m_a - mn_a) * g.mult);
+  row.alpha_b = mn_b == -INFINITY ? 1.f : ex2((row.m_b - mn_b) * g.mult);
+  row.m_a = mn_a;
+  row.m_b = mn_b;
+  const float base_a = mn_a == -INFINITY ? 0.f : mn_a * g.mult;
+  const float base_b = mn_b == -INFINITY ? 0.f : mn_b * g.mult;
+  float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    s[4 * j + 0] = ex2(fmaf(s[4 * j + 0], g.mult, -base_a));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], g.mult, -base_a));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], g.mult, -base_b));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], g.mult, -base_b));
+    rs_a += s[4 * j + 0] + s[4 * j + 1];
+    rs_b += s[4 * j + 2] + s[4 * j + 3];
+  }
+  row.l_a = row.l_a * row.alpha_a + rs_a;
+  row.l_b = row.l_b * row.alpha_b + rs_b;
+}
+
+template <int D>
+__device__ __forceinline__ void rescale_o(float (&o)[D / 2], const RowState& row) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j + 0] *= row.alpha_a;
+    o[4 * j + 1] *= row.alpha_a;
+    o[4 * j + 2] *= row.alpha_b;
+    o[4 * j + 3] *= row.alpha_b;
+  }
+}
+
+// P as bf16 A fragments: the accumulators of key groups 2kk and 2kk + 1
+// are the k16 fragment of step kk
+__device__ __forceinline__ void pack_p(const float (&s)[64], uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,  // q [P, Hq, D], box (64, G, 128/G)
+                     const __grid_constant__ CUtensorMap tm_k,  // k [valid_len, Hkv, D], box (64, 1, 128)
+                     const __grid_constant__ CUtensorMap tm_v,  // v, as k
+                     __nv_bfloat16* __restrict__ out,           // [P, Hq, D]
+                     int P, int Hkv, int log2g, int valid_len, float mult, float cap_in,
+                     float cap_out, int window) {
+  using L = Layout<D>;
+  constexpr int kHalves = D / 64;
+  const int G = 1 << log2g;
+  const int bq = kRows >> log2g;  // query positions per block
+  const int n_qt = (P + bq - 1) / bq;
+  const int h = blockIdx.x % Hkv;
+  const int p0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / Hkv) * bq;  // heaviest first
+  const int Hq = Hkv << log2g;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gid = lane >> 2;  // mma row group
-  const int tig = lane & 3;   // thread in group
-
-  const int r0 = warp * 16 + gid;  // this thread's two rows: r0 and r0 + 8
-  const int qpos0 = p0 + r0 / G;
-  const int qpos1 = p0 + (r0 + 8) / G;
-  const int head0 = h * G + r0 % G;
-  const int head1 = h * G + (r0 + 8) % G;
 
   if (p0 >= valid_len) {
     // padding of the prompt's bucket: nothing valid to attend from here
-    const uint2 zero = make_uint2(0u, 0u);
-    for (int i = tid; i < kRows * (D / 4); i += kThreads) {
-      const int r = i / (D / 4);
-      const int pos = p0 + r / G;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < kRows * (D / 8); i += kThreads) {
+      const int r = i / (D / 8);
+      const int pos = p0 + (r >> log2g);
       if (pos < P)
-        *reinterpret_cast<uint2*>(out + ((size_t)pos * Hq + h * G + r % G) * D +
-                                  (i % (D / 4)) * 4) = zero;
+        *reinterpret_cast<uint4*>(out + ((size_t)pos * Hq + h * G + (r & (G - 1))) * D +
+                                  (i % (D / 8)) * 8) = zero;
     }
     return;
   }
 
-  // ---- Q tile -> shared (async copies) -> this warp's A fragments
-  for (int i = tid; i < kRows * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i % kVec) * 8;
-    const int pos = p0 + r / G;
-    const bool live = pos < P;
-    cp_async16(sQ + r * kStride + c,
-               live ? q + ((size_t)pos * Hq + h * G + r % G) * D + c : q, live);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_k = full_q + 1;  // [kStages] each
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + s, 1);
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_k + s, kConsumers / 32);  // one arrival per consumer warp
+      mbar_init(empty_v + s, kConsumers / 32);
+    }
+    mbar_fence_init();
   }
-  cp_async_commit();
+  __syncthreads();
 
-  const int last_q = min(p0 + kBQ, P) - 1;
+  const int last_q = min(p0 + bq, P) - 1;
   const int k_end = min(last_q + 1, valid_len);  // exclusive bound on live keys
   const int k_first = window > 0 ? max(p0 - (window - 1), 0) : 0;
   const int k_begin = (k_first / kBK) * kBK;
-  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
-  // K/V tile starting at key k0 -> shared stage `stage` (one commit group)
-  auto load_kv = [&](int k0, int stage) {
-    __nv_bfloat16* dk = sK + stage * kBK * kStride;
-    __nv_bfloat16* dv = sV + stage * kBK * kStride;
-    for (int i = tid; i < kBK * kVec; i += kThreads) {
-      const int r = i / kVec;
-      const int c = (i % kVec) * 8;
-      const int kpos = k0 + r;
-      const bool live = kpos < k_end;
-      const size_t off = live ? ((size_t)kpos * Hkv + h) * D + c : 0;
-      cp_async16(dk + r * kStride + c, k + off, live);
-      cp_async16(dv + r * kStride + c, v + off, live);
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;  // >= 1: p0 < valid_len
+
+  // the warpgroup index, warp-uniform to the compiler too (a test of
+  // threadIdx.x would make the consumers' path divergent, and ptxas would
+  // serialise their wgmmas)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (wg == kConsumers / 128) {
+    reg_dealloc<kProducerRegs>();
+    // ---- producer warpgroup: one thread issues every TMA load of the
+    // block. K and V have their own release barriers: K of tile t is free
+    // once S_t is done, V only once P_t V_t is, an iteration later
+    if (tid == kConsumers) {
+      mbar_expect_tx(full_q, L::kTile);
+      for (int hf = 0; hf < kHalves; ++hf)
+        tma_load_3d(smem + L::kQ + hf * kBox, &tm_q, full_q, hf * 64, h * G, p0);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        const uint32_t free_ph = ((t / kStages) & 1) ^ 1;  // the first round passes at once
+        const int k0 = k_begin + t * kBK;
+        mbar_wait(empty_k + st, free_ph);
+        mbar_expect_tx(full_k + st, L::kTile);
+        for (int hf = 0; hf < kHalves; ++hf)
+          tma_load_3d(smem + L::kK + st * L::kTile + hf * kBox, &tm_k, full_k + st, hf * 64, h, k0);
+        mbar_wait(empty_v + st, free_ph);
+        mbar_expect_tx(full_v + st, L::kTile);
+        for (int hf = 0; hf < kHalves; ++hf)
+          tma_load_3d(smem + L::kV + st * L::kTile + hf * kBox, &tm_v, full_v + st, hf * 64, h, k0);
+      }
     }
-    cp_async_commit();
-  };
-  load_kv(k_begin, 0);
-  cp_async_wait<1>();  // the Q tile has landed (K/V tile 0 may be in flight)
-  __syncthreads();
-  uint32_t qa[kDSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kDSteps; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qa[kk][0] = ld_pair(sQ + r0 * kStride + c);
-    qa[kk][1] = ld_pair(sQ + (r0 + 8) * kStride + c);
-    qa[kk][2] = ld_pair(sQ + r0 * kStride + c + 8);
-    qa[kk][3] = ld_pair(sQ + (r0 + 8) * kStride + c + 8);
+    return;
   }
 
-  float o[kOTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // per-thread partial sums, reduced at the end
+  // ---- consumer warpgroups (no path back to the producer's: setmaxnreg
+  // needs the two roles to stay apart). Iteration t issues S_t = Q K_t^T and
+  // O += P_{t-1} V_{t-1} together, then runs the softmax of S_t while the
+  // second product is still on the tensor cores.
+  reg_alloc<kConsumerRegs>();
+  const int lane = tid & 31;
+  const int ra = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // rows ra and ra + 8
+  const int qa = p0 + (ra >> log2g);
+  const int qb = p0 + ((ra + 8) >> log2g);
+  const int c0 = 2 * (lane & 3);  // first of this thread's two columns in each 8-group
+  const int wq_first = p0 + ((wg * 64) >> log2g);
+  const int wq_last = min(p0 + ((wg * 64 + 63) >> log2g), last_q);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = k_begin + t * kBK;
-    const int stage = t & 1;
-    // prefetch the next tile into the other stage while this one computes
-    if (t + 1 < n_tiles) {
-      load_kv(k0 + kBK, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* cK = sK + stage * kBK * kStride;
-    const __nv_bfloat16* cV = sV + stage * kBK * kStride;
+  const uint32_t sq = smem_u32(smem + L::kQ) + wg * 64 * 128;
+  const uint32_t sk = smem_u32(smem + L::kK);
+  const uint32_t sv = smem_u32(smem + L::kV);
 
-    // ---- S = Q K^T for this warp's 16 rows x 64 keys; one ldmatrix.x4
-    // brings the B fragments of two key tiles
-    float s[kNTiles][4];
+  float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < kNTiles; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    const int mat = lane >> 3;  // which 8x8 matrix this lane addresses
-#pragma unroll
-    for (int kk = 0; kk < kDSteps; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kNTiles; n += 2) {
-        uint32_t b[4];  // (n: d lo, d hi), (n + 1: d lo, d hi)
-        ldsm_x4(b, cK + ((n + (mat >> 1)) * 8 + (lane & 7)) * kStride + kk * 16 + (mat & 1) * 8);
-        mma_16816(s[n], qa[kk], b[0], b[1]);
-        mma_16816(s[n + 1], qa[kk], b[2], b[3]);
-      }
-    }
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[kBK / 2];                // S_t, then its softmax weights in f32
+  uint32_t pa[kBK / 16][4];        // P_t as bf16 A fragments
+  RowState row;
+  const RowGeom geo{qa, qb, c0, wq_first, wq_last, valid_len, window, mult, cap_in, cap_out};
+  mbar_wait(full_q, 0);
+  __syncwarp();  // the warpgroup's wgmma needs its warps converged
+  if (wg == 1) bar_arrive(1, kConsumers);  // warpgroup 0 issues first
 
-    // ---- scale, softcap, mask; row max over the quad that shares a row.
-    // A tile wholly inside every query's causal / valid / window range
-    // (block-uniform test) needs no mask.
-    const bool interior = k0 + kBK - 1 <= p0 && k0 + kBK <= valid_len &&
-                          (window <= 0 || last_q - k0 < window);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e >> 1;
-        float x = s[n][e] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        if (!interior) {
-          const int qp = row ? qpos1 : qpos0;
-          const int kpos = k0 + n * 8 + tig * 2 + (e & 1);
-          const bool ok = kpos <= qp && kpos < valid_len && (window <= 0 || qp - kpos < window);
-          x = ok ? x : -INFINITY;
-        }
-        s[n][e] = x;
-        mx[row] = fmaxf(mx[row], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
-      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
-      const float m_new = fmaxf(m_run[row], mx[row]);
-      alpha[row] = m_new == -INFINITY ? 1.f : expf(m_run[row] - m_new);
-      m_run[row] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kNTiles; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e >> 1;
-        const float p = s[n][e] == -INFINITY ? 0.f : expf(s[n][e] - m_run[row]);
-        s[n][e] = p;
-        rs[row] += p;
-      }
-    }
-#pragma unroll
-    for (int row = 0; row < 2; ++row) l_run[row] = l_run[row] * alpha[row] + rs[row];
-#pragma unroll
-    for (int n = 0; n < kOTiles; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
+  // ---- tile 0: S_0 alone. The loop below then has one static shape --
+  // S_t and P_{t-1} V_{t-1} in flight together -- which ptxas can pipeline
+  // (a branch on t around a wgmma or its wait serialises every wgmma)
+  mbar_wait(full_k, 0);
+  __syncwarp();
+  bar_sync(1 + wg, kConsumers);
+  wgmma_fence();
+  issue_s<D>(s, sq, sk);
+  wgmma_commit();
+  // the other warpgroup's turn; warpgroup 1 leaves out its last arrival so
+  // that every bar.sync has exactly one bar.arrive
+  if (!(wg == 1 && n_tiles == 1)) bar_arrive(2 - wg, kConsumers);
+  wgmma_wait<0>();
+  fence_regs(s);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty_k);
+  softmax_tile(s, row, geo, k_begin);
+  pack_p(s, pa);
 
-    // ---- O += P V: two n8 tiles of S form one 16-key A fragment
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
-          pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]), pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-      // V fragments by ldmatrix.trans: matrices (keys lo, d tile n),
-      // (keys hi, n), (keys lo, n + 1), (keys hi, n + 1)
-      const __nv_bfloat16* vr = cV + (j * 16 + (mat & 1) * 8 + (lane & 7)) * kStride;
-#pragma unroll
-      for (int n = 0; n < kOTiles; n += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, vr + (n + (mat >> 1)) * 8);
-        mma_16816(o[n], pa, b[0], b[1]);
-        mma_16816(o[n + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+  for (int t = 1; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const int pv = (t - 1) % kStages;
+    mbar_wait(full_k + st, (t / kStages) & 1);
+    __syncwarp();
+    bar_sync(1 + wg, kConsumers);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_s<D>(s, sq, sk + st * L::kTile);
+    wgmma_commit();
+    mbar_wait(full_v + pv, ((t - 1) / kStages) & 1);
+    __syncwarp();
+    issue_pv<D>(o, pa, sv + pv * L::kTile);
+    wgmma_commit();
+    if (!(wg == 1 && t == n_tiles - 1)) bar_arrive(2 - wg, kConsumers);
+    wgmma_wait<1>();  // S_t is done; P_{t-1} V_{t-1} may still run
+    fence_regs(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_k + st);  // this warp is done with K_t
+    softmax_tile(s, row, geo, k_begin + t * kBK);
+    wgmma_wait<0>();  // P_{t-1} V_{t-1} is done: O and P's registers are free
+    fence_regs(o);
+    fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_v + pv);
+    rescale_o<D>(o, row);
+    pack_p(s, pa);
   }
+  // ---- the last tile's O += P V
+  {
+    const int pv = (n_tiles - 1) % kStages;
+    mbar_wait(full_v + pv, ((n_tiles - 1) / kStages) & 1);
+    __syncwarp();
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+    issue_pv<D>(o, pa, sv + pv * L::kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+  float l_a = row.l_a, l_b = row.l_b;
 
   // ---- normalise and store (a row that saw no key writes 0)
-  float inv[2];
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+  const float inv_a = l_a == 0.f ? 0.f : 1.f / l_a;
+  const float inv_b = l_b == 0.f ? 0.f : 1.f / l_b;
+  __nv_bfloat16* out_a = out + ((size_t)qa * Hq + h * G + (ra & (G - 1))) * D + c0;
+  __nv_bfloat16* out_b = out + ((size_t)qb * Hq + h * G + ((ra + 8) & (G - 1))) * D + c0;
 #pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    float l = l_run[row];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[row] = l == 0.f ? 0.f : 1.f / l;
+  for (int j = 0; j < D / 8; ++j) {
+    if (qa < P)
+      *reinterpret_cast<__nv_bfloat162*>(out_a + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 0] * inv_a, o[4 * j + 1] * inv_a);
+    if (qb < P)
+      *reinterpret_cast<__nv_bfloat162*>(out_b + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
   }
-#pragma unroll
-  for (int n = 0; n < kOTiles; ++n) {
-    const int c = n * 8 + tig * 2;
-    if (qpos0 < P)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)qpos0 * Hq + head0) * D + c) =
-          __floats2bfloat162_rn(o[n][0] * inv[0], o[n][1] * inv[0]);
-    if (qpos1 < P)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)qpos1 * Hq + head1) * D + c) =
-          __floats2bfloat162_rn(o[n][2] * inv[1], o[n][3] * inv[1]);
-  }
-}
-
-template <int D, int G>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int P, int Hkv,
-                   int valid_len, float scale, float softcap, int window, cudaStream_t stream) {
-  constexpr int kSmem = (kRows + 4 * kBK) * (D + 8) * 2;  // Q + 2 stages of K, V
-  // set on every launch: the attribute belongs to the current device, and a
-  // host-side "done" flag would be neither per device nor thread-safe
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((P + kRows / G - 1) / (kRows / G), Hkv);
-  flash_prefill_kernel<D, G><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), P, valid_len,
-      scale, softcap, window);
-  return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_g(int G, const void* q, const void* k, const void* v, void* out, int P,
-                     int Hkv, int valid_len, float scale, float softcap, int window,
-                     cudaStream_t stream) {
-  switch (G) {
-    case 1: return launch<D, 1>(q, k, v, out, P, Hkv, valid_len, scale, softcap, window, stream);
-    case 2: return launch<D, 2>(q, k, v, out, P, Hkv, valid_len, scale, softcap, window, stream);
-    case 4: return launch<D, 4>(q, k, v, out, P, Hkv, valid_len, scale, softcap, window, stream);
-    case 8: return launch<D, 8>(q, k, v, out, P, Hkv, valid_len, scale, softcap, window, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int P, int Hkv,
+                   int log2g, int valid_len, float scale, float softcap, int window,
+                   cudaStream_t stream) {
+  using L = Layout<D>;
+  const int G = 1 << log2g;
+  const int Hq = Hkv * G;
+  // the tensor maps carry the pointers and P, so they are built per call
+  CUtensorMap tq, tk, tv;
+  const cuuint64_t dq[3] = {(cuuint64_t)D, (cuuint64_t)Hq, (cuuint64_t)P};
+  const cuuint64_t sq[2] = {(cuuint64_t)D * 2, (cuuint64_t)Hq * D * 2};
+  const cuuint32_t bq[3] = {64, (cuuint32_t)G, (cuuint32_t)(kRows / G)};
+  // keys at or past valid_len are never attended: the K/V maps end there
+  const cuuint64_t dk[3] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)(valid_len > 0 ? valid_len : 1)};
+  const cuuint64_t sk[2] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2};
+  const cuuint32_t bk[3] = {64, 1, kBK};
+  int err = make_tensor_map_bf16(&tq, q, 3, dq, sq, bq);
+  if (!err) err = make_tensor_map_bf16(&tk, k, 3, dk, sk, bk);
+  if (!err) err = make_tensor_map_bf16(&tv, v, 3, dk, sk, bk);
+  if (err) return static_cast<cudaError_t>(err);
+  // set on every launch: the attribute belongs to the current device, and a
+  // host-side "done" flag would be neither per device nor thread-safe
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return e;
+  // softcap: x -> cap * tanh(x * scale / cap), then exp2 of (x - m) * log2 e;
+  // without: exp2 of (x - m) * scale * log2 e
+  const bool capped = softcap > 0.f;
+  const float mult = capped ? kLog2e : scale * kLog2e;
+  const float cap_in = capped ? scale / softcap : 0.f;
+  const float cap_out = capped ? softcap : 0.f;
+  const int n_qt = (P + kRows / G - 1) / (kRows / G);
+  flash_prefill_kernel<D><<<n_qt * Hkv, kThreads, L::kBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), P, Hkv, log2g, valid_len, mult, cap_in, cap_out,
+      window);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -367,10 +543,13 @@ extern "C" int flash_prefill_attention_bf16(const void* q, const void* k, const 
                                             void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
+  int log2g = 0;
+  while ((1 << log2g) < G) ++log2g;
+  if ((1 << log2g) != G || G > 8) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_g<64>(G, q, k, v, out, P, Hkv, valid_len, scale, softcap, window, s);
-    case 128: return launch_g<128>(G, q, k, v, out, P, Hkv, valid_len, scale, softcap, window, s);
+    case 64: return launch<64>(q, k, v, out, P, Hkv, log2g, valid_len, scale, softcap, window, s);
+    case 128: return launch<128>(q, k, v, out, P, Hkv, log2g, valid_len, scale, softcap, window, s);
     default: return cudaErrorInvalidValue;
   }
 }

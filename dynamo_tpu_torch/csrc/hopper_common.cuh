@@ -1,16 +1,115 @@
-// Warp-level building blocks shared by the port's tensor-core kernels
-// (fused_qkv_rope.cu, fused_attn_out_residual.cu, paged_verify_attention.cu):
-// bf16 mma.sync with f32 accumulators, cp.async global -> shared copies and
-// ldmatrix fragment loads, and the split-K skinny product of the two fused
-// decode kernels. Everything here is inline or a template, so each library
-// that includes it carries its own copy.
+// Building blocks shared by the port's tensor-core kernels
+// (flash_prefill_attention.cu, fused_qkv_rope.cu, fused_attn_out_residual.cu,
+// paged_verify_attention.cu): bf16 mma.sync with f32 accumulators, cp.async
+// global -> shared copies and ldmatrix fragment loads, the split-K skinny
+// product of the fused QKV kernel, and Hopper's asynchronous machinery --
+// mbarriers, TMA tensor copies and the host-side tensor maps they read.
+// Everything here is inline or a template, so each library that includes it
+// carries its own copy.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+// ------------------------------------------------------ mbarriers and TMA
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// make the barriers' initialisation visible to the async (TMA) proxy and
+// the rest of the cluster; one thread, before the block-wide sync
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive and announce `bytes` of TMA traffic that completes this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase with the given parity has completed. The spin loop
+// lives inside the asm (its labels are local to the braces): a loop in C++
+// exits per thread, a divergent path before any wgmma that follows, for
+// which ptxas may serialise them (C7520, "WG.AR in divergent path")
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: one box of a tensor map -> shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Host: a bf16 tensor map with 128-byte swizzle (the layout wgmma and the
+// swizzled ldmatrix addressing below expect). dims and box innermost first;
+// strides[i] is the byte stride of dimension i + 1. cuTensorMapEncodeTiled
+// is a driver-API function: it is looked up in the driver library that the
+// CUDA runtime has already loaded, so no library links against libcuda.
+// Returns 0, or the cudaError_t to report.
+inline int make_tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                const cuuint64_t* dims, const cuuint64_t* strides,
+                                const cuuint32_t* box) {
+  using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static const EncodeFn encode = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  // out-of-bounds elements of a box read as zeros
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// Byte offset of 16-byte chunk `chunk` of 128-byte row `row` in a tile that
+// TMA wrote with 128-byte swizzle (tile base 1024-byte aligned).
+__device__ __forceinline__ uint32_t swz128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
 
 // D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, column-major)
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -54,6 +153,19 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloa
                : "r"(a));
 }
 
+// the same two loads by shared-memory address (for swizzled tiles)
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans_at(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -67,10 +179,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---------------------------------------------------------------- split-K GEMM
 //
 // part[split, m, n] = sum over k in the split's slice of A[m, k] * W[k, n]:
-// the skinny product (M <= 64 rows per row group) of the fused decode
-// kernels. W is bf16 [K, N] row-major, given as up to three column segments
-// (wq | wk | wv for the QKV projection, one segment for the o-projection),
-// each a multiple of kGemmCols wide. The f32 partials of the splits are
+// the skinny product (M <= 64 rows per row group) of the fused QKV kernel.
+// W is bf16 [K, N] row-major, given as up to three column segments
+// (wq | wk | wv), each a multiple of kGemmCols wide. The f32 partials of the splits are
 // summed, in split order, by the caller's combine-and-epilogue kernel, so
 // the result does not depend on scheduling.
 //

@@ -9,9 +9,11 @@ bounds it on the card and how its design answers that):
   * ``fused_attn_out_residual_cuda`` <- ``fused_attn_out_residual``
     (csrc/fused_attn_out_residual.cu): o-projection -> residual add.
 
-Both cut the contraction into splits so enough blocks stream the weights;
-the wrapper picks the split from the shapes and allocates the f32 partials
-(and the normed activations of the first) with ``torch.empty``. As in
+Both cut the contraction into splits so enough blocks stream the weights.
+For the QKV head the wrapper picks the split from the shapes and allocates
+the f32 partials and the normed activations with ``torch.empty``; the
+o-projection sums its splits inside one launch (a thread block cluster) and
+needs no scratch. As in
 ops/cuda_attention.py, each wrapper checks device, dtype, shape,
 contiguity and alignment, launches on the current stream without
 synchronising, raises if a launch is refused, and counts its launches in
@@ -32,7 +34,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _QKV_ARGTYPES = [_P] * 15 + [_I] * 6 + [_F, _P]
-_OUT_ARGTYPES = [_P] * 5 + [_I] * 4 + [_P]
+_OUT_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 GEMM_COLS = 128  # output columns per block (kGemmCols in csrc/hopper_common.cuh)
 GEMM_KC = 32  # contraction rows per pipeline chunk (kGemmKC)
 GEMM_ROWS = 64  # rows per row group (kGemmRows)
@@ -155,13 +157,10 @@ def fused_attn_out_residual_cuda(
     out = torch.empty_like(x)
     if M == 0:
         return out
-    k_split = k_split_for(K, H, M)
-    splits = -(-K // k_split)
-    part = torch.empty(splits * M * H, dtype=torch.float32, device=dev)
     fn = _fn("fused_attn_out_residual", "fused_attn_out_residual_bf16", _OUT_ARGTYPES)
     err = fn(
-        attn.data_ptr(), wo.data_ptr(), x.data_ptr(), out.data_ptr(), part.data_ptr(),
-        M, K, H, k_split, torch.cuda.current_stream(dev).cuda_stream,
+        attn.data_ptr(), wo.data_ptr(), x.data_ptr(), out.data_ptr(),
+        M, K, H, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "fused_attn_out_residual")
     fused_attn_out_residual_cuda.launches += 1

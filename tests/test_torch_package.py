@@ -159,27 +159,47 @@ def test_decode_kernel_matches_plain_on_card(feature):
 PREFILL = {"full": {}, "window": {"window": 64}, "softcap": {"scale": 0.1, "logit_softcap": 4.0}}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("feature", sorted(PREFILL))
-@pytest.mark.parametrize("P,valid", [(128, 100), (300, 300), (512, 37)])
-def test_prefill_kernel_matches_plain_on_card(feature, P, valid):
-    _need_card()
-    g = torch.Generator().manual_seed(P)
-    q = torch.randn(P, 32, 128, generator=g).bfloat16().cuda()
-    k = torch.randn(P, 8, 128, generator=g).bfloat16().cuda()
-    v = torch.randn(P, 8, 128, generator=g).bfloat16().cuda()
-    got = K.flash_prefill_attention_cuda(q, k, v, valid, **PREFILL[feature]).float()
-    want = A.causal_prefill_attention_plain(q, k, v, valid, **PREFILL[feature]).float()
+def _prefill_case(P, valid, hq, hkv, d, kw, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(P, hq, d, generator=g).bfloat16().cuda()
+    k = torch.randn(P, hkv, d, generator=g).bfloat16().cuda()
+    v = torch.randn(P, hkv, d, generator=g).bfloat16().cuda()
+    got = K.flash_prefill_attention_cuda(q, k, v, valid, **kw).float()
+    want = A.causal_prefill_attention_plain(q, k, v, valid, **kw).float()
     torch.cuda.synchronize()
     # the kernel rounds the softmax weights to bf16 for P @ V
     err = (got[:valid] - want[:valid]).abs()
     assert (err <= 1e-2 + 2.0 ** -6 * want[:valid].abs()).all()
     assert np.isfinite(got.cpu().numpy()).all()
+    # query tiles wholly in the padding are written as zeros
+    bq = 128 * hkv // hq
+    first_pad_tile = -(-valid // bq) * bq
+    assert (got[first_pad_tile:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", sorted(PREFILL))
+@pytest.mark.parametrize("P,valid", [(128, 100), (300, 300), (512, 37), (129, 129), (300, 0),
+                                     (300, 1), (2048, 2000)])
+def test_prefill_kernel_matches_plain_on_card(feature, P, valid):
+    _need_card()
+    _prefill_case(P, valid, 32, 8, 128, PREFILL[feature], seed=P + valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", sorted(PREFILL))
+@pytest.mark.parametrize("G,D", [(1, 128), (2, 128), (8, 128), (1, 64), (4, 64), (8, 64)])
+@pytest.mark.parametrize("P,valid", [(129, 129), (300, 257), (1000, 999)])
+def test_prefill_kernel_groups_and_head_dims_on_card(feature, G, D, P, valid):
+    """Every GQA group the kernel takes (Hkv fixed at 8, Hq = 8 G) and both
+    head dims, over ragged prompt lengths (the 128-row tile's edge)."""
+    _need_card()
+    _prefill_case(P, valid, 8 * G, 8, D, PREFILL[feature], seed=G * 1000 + D + P)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
-@pytest.mark.parametrize("M", [1, 8, 32, 70])
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 70, 96])
 def test_fused_kernels_match_plain_on_card(M, bias):
     _need_card()
     g = torch.Generator().manual_seed(M)
@@ -203,6 +223,46 @@ def test_fused_kernels_match_plain_on_card(M, bias):
     for a, b in zip((*got, got_o), (*want, want_o)):
         a, b = a.float(), b.float()
         assert ((a - b).abs() <= 1e-2 + 2.0 ** -6 * b.abs()).all()
+
+
+def _out_proj_inputs(M, H, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, H, generator=g).bfloat16().cuda()
+    attn = torch.randn(M, H, generator=g).bfloat16().cuda()  # K = Hq * D = H here
+    wo = (0.02 * torch.randn(H, H, generator=g)).bfloat16().cuda()
+    return attn, wo, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1024, 4096])
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 70, 96])
+def test_out_proj_kernel_matches_plain_on_card(M, H):
+    """The one-launch o-proj + residual at the decode (8), verify (32) and
+    prefill-sized row counts, over one and two row groups."""
+    _need_card()
+    attn, wo, x = _out_proj_inputs(M, H, seed=M + H)
+    got = KL.fused_attn_out_residual_cuda(attn, wo, x).float()
+    want = L.fused_attn_out_residual_plain(attn, wo, x).float()
+    torch.cuda.synchronize()
+    # the splits' f32 partials are summed in another order than one matmul:
+    # the bf16 rounding of the product may flip by one ulp before the add
+    assert ((got - want).abs() <= 1e-2 + 2.0 ** -6 * want.abs()).all()
+
+
+@pytest.mark.cuda
+def test_out_proj_kernel_allocates_only_its_output_on_card():
+    """The splits are reduced inside the launch: one call allocates the
+    output and no f32 partial buffer."""
+    _need_card()
+    attn, wo, x = _out_proj_inputs(32, 4096, seed=7)
+    KL.fused_attn_out_residual_cuda(attn, wo, x)  # build and load first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = KL.fused_attn_out_residual_cuda(attn, wo, x)
+    torch.cuda.synchronize()
+    out_bytes = -(-out.numel() * out.element_size() // 512) * 512  # allocator granularity
+    assert torch.cuda.max_memory_allocated() - before == out_bytes
 
 
 VERIFY = {"full": {}, "window": {"window": 100}, "softcap": {"scale": 0.1, "logit_softcap": 4.0}}
