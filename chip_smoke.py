@@ -52,6 +52,7 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 HQ, HKV, D, BLOCK = 32, 8, 128, 16  # Llama-3.1-8B attention shapes
 MAX_MODEL_LEN = 4096
 MAX_BLOCKS = MAX_MODEL_LEN // BLOCK  # block-table width at max_model_len
+STEP_CTX = 1024  # the engine phase's B=8 decode step feeds position 1024
 
 # Tolerances of kernel vs plain version (same bf16 inputs on the card; both
 # accumulate in f32 and round the output to bf16).
@@ -60,7 +61,9 @@ MAX_BLOCKS = MAX_MODEL_LEN // BLOCK  # block-table width at max_model_len
 #   prefill: the kernel also rounds the softmax weights to bf16 for the
 #     tensor-core P @ V product (relative 2^-9 per weight, |v| ~ 1 here):
 #     |d| <= 1e-2 + 2^-6 |plain|.
-#   verify: rounds the softmax weights to bf16 for P @ V, as prefill does;
+#   verify: PR 2's kernel rounded the softmax weights to bf16 for P @ V, as
+#     prefill does (the page-streaming kernel keeps them f32 in a bf16 hi/lo
+#     pair and now also meets DECODE_TOL, which the card tests hold it to);
 #   fused QKV / o-proj: the f32 products are summed in another order (split
 #     contraction) and the norm's sum of squares too, so a bf16 rounding of
 #     the normed activations or of the product may flip by one ulp before
@@ -92,10 +95,16 @@ def nvidia_smi_line() -> str:
 # ------------------------------------------------------------------ timing
 
 
+HOLD_CYCLES = 2_000_000  # ~1 ms of an idle spin kernel at the H100's clocks
+
+
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> dict:
     """Per-call CUDA-event times of fn() in ms: median and spread over
     `reps` calls. `flush` (if given) runs before every call, outside the
-    timed region, to evict the L2 cache the way other layers would."""
+    timed region, to evict the L2 cache the way other layers would. A spin
+    kernel that touches no memory holds the stream before the start event
+    until fn() has been enqueued, so the time is the device's alone and not
+    the host's work to launch it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -103,6 +112,7 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> dict:
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -395,6 +405,7 @@ def phase_kernel_times(torch, card: str) -> dict:
         "bound_by": b_by, "bytes": nbytes, "flops": flops,
         "shape": f"B={len(lens)} Hq={HQ} Hkv={HKV} D={D} block={BLOCK} lens={lens}",
     }
+    rows["paged_decode_attention/step"] = decode_step_times(torch, flush)
     P, vl = 2048, 2000
     q, k, v = prefill_inputs(torch, P, seed=3)
     t_k = time_ms(torch, lambda: K.flash_prefill_attention_cuda(q, k, v, vl), flush=flush)
@@ -415,6 +426,37 @@ def phase_kernel_times(torch, card: str) -> dict:
     for name, row in rows.items():
         print(json.dumps({"kernel_time": name, "card": card, **row}), flush=True)
     return rows
+
+
+def decode_step_times(torch, flush) -> dict:
+    """#1 at the B=8 decode step's own shape (every context 1025: position
+    1024 and the keys before it; a 256-wide table, max_model_len 4096),
+    beside one unmasked dense SDPA call with enable_gqa over the same keys
+    gathered beforehand (not timed): every key is live, so that call
+    computes the same function."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops import cuda_attention as K
+
+    B, ctx = 8, STEP_CTX + 1
+    q, k, v, tables, lens_t = decode_inputs(torch, [ctx] * B, seed=6)
+    t_k = time_ms(torch, lambda: K.paged_decode_attention_cuda(q, k, v, tables, lens_t), flush=flush)
+    t_p = time_ms(torch, lambda: A.paged_decode_attention_plain(q, k, v, tables, lens_t),
+                  reps=5, flush=flush)
+    pages = tables[:, : (ctx + BLOCK - 1) // BLOCK].long()
+    kd = k[:, pages].reshape(HKV, B, -1, D)[:, :, :ctx].transpose(0, 1).contiguous()
+    vd = v[:, pages].reshape(HKV, B, -1, D)[:, :, :ctx].transpose(0, 1).contiguous()
+    qd = q[:, :, None, :]
+    t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(qd, kd, vd, enable_gqa=True),
+                  flush=flush)
+    b_ms, b_by, nbytes, flops = decode_bound([ctx] * B, B)
+    return {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes, "flops": flops, "ratio_to_library": t_k["median"] / t_s["median"],
+        "library": "SDPA over the keys gathered dense beforehand, no mask, enable_gqa",
+        "shape": f"B={B} ctx={ctx} Hq={HQ} Hkv={HKV} D={D} block={BLOCK} table {MAX_BLOCKS} wide",
+    }
 
 
 def verify_bound(bases, S: int) -> tuple[float, str, float, float]:
@@ -871,21 +913,37 @@ def _leaves(tree):
         yield tree
 
 
-def device_ms_per_call(torch, fn, calls: int = 5) -> float:
-    """Device time of one fn() call: the CUDA kernels' total under
-    torch.profiler over `calls` calls, per call. Only the device events
-    count: a CPU op's entry repeats the time of the kernels it launched."""
+def profile_calls(torch, fn, calls: int = 5) -> tuple[float, dict]:
+    """Device time of one fn() call -- the CUDA kernels' total under
+    torch.profiler over `calls` calls, per call -- and each kernel's
+    (total us, launches) over them. Only the device events count: a CPU
+    op's entry repeats the time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
-    total_us = sum(
-        getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    kernels = {
+        e.key: (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0),
+                e.count)
         for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-    )
-    return total_us / 1e3 / calls
+    }
+    return sum(us for us, _ in kernels.values()) / 1e3 / calls, kernels
+
+
+def device_ms_per_call(torch, fn, calls: int = 5) -> float:
+    return profile_calls(torch, fn, calls)[0]
+
+
+def per_launch_us(kernels: dict, mode: str) -> dict:
+    """Per-launch device time of the paged attention template's decode
+    (mode "true") or verify ("false") instantiation in a profile."""
+    us = n = 0
+    for key, (t, c) in kernels.items():
+        if "paged_attention_kernel<" in key and f", {mode}>" in key:
+            us, n = us + t, n + c
+    return {"us_per_launch": us / n if n else None, "launches": n}
 
 
 def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
@@ -913,7 +971,7 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     # by profiler
     ttft[2000]["device_ms"] = device_ms_per_call(
         torch, lambda: runner.fetch_sample(runner.prefill(prompt, blocks, 0.0, 1.0, 0)))
-    B, ctx = 8, 1024
+    B, ctx = 8, STEP_CTX
     per = (ctx + 1 + bs - 1) // bs
     tables = np.zeros((B, runner.max_blocks_per_seq), np.int32)
     for b in range(B):
@@ -940,10 +998,26 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     decode = {}
     for name, r in runners.items():
         ts = walls[name]
+        dev_ms, prof = profile_calls(torch, lambda: step(r))
         decode[name] = {
             "median": statistics.median(ts), "min": min(ts), "max": max(ts),
-            "device_ms": device_ms_per_call(torch, lambda: step(r)), "B": B, "ctx": ctx,
+            "device_ms": dev_ms, "B": B, "ctx": ctx,
+            "decode_attention": per_launch_us(prof, "true"),
         }
+    # one B=8, S=4 fused verify dispatch at the same context: each lane
+    # re-feeds its token at position 1024 and scores 3 drafts after it
+    drafts = rng.integers(0, vocab, (B, 3))
+    many = np.full(B, 1 << 20, np.int64)
+
+    def verify():
+        return fused_runner.spec_verify(
+            3, 0, toks, drafts, np.full(B, 3), pos, tables, zeros, ones, kz,
+            np.zeros((B, 2), np.int64), np.ones(B, bool), many).cpu()
+
+    verify()
+    dev_ms, prof = profile_calls(torch, verify)
+    verify_step = {"device_ms": dev_ms, "B": B, "S": 4, "ctx": ctx,
+                   "verify_attention": per_launch_us(prof, "false")}
     # where a fused decode step's device time goes (torch.profiler, by kernel)
     from torch.profiler import ProfilerActivity, profile
 
@@ -952,7 +1026,7 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
             step(fused_runner)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
     res = {
-        "ttft_ms_alone": ttft, "decode_step_ms_B8": decode,
+        "ttft_ms_alone": ttft, "decode_step_ms_B8": decode, "verify_dispatch_B8_S4": verify_step,
         "decode_output_tok_per_s_B8": {k: B / (v["median"] / 1e3) for k, v in decode.items()},
     }
     print(json.dumps({"engine_time": res, "card": card}), flush=True)
@@ -960,7 +1034,12 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
         + f"; 2000-token prefill device time {ttft[2000]['device_ms']:.2f} ms")
     log(f"decode step B=8 ctx 1024: unfused {decode['unfused']['median']:.2f} ms wall / "
         f"{decode['unfused']['device_ms']:.2f} ms device; fused "
-        f"{decode['fused']['median']:.2f} ms wall / {decode['fused']['device_ms']:.2f} ms device")
+        f"{decode['fused']['median']:.2f} ms wall / {decode['fused']['device_ms']:.2f} ms device; "
+        f"decode attention per launch: unfused "
+        f"{decode['unfused']['decode_attention']['us_per_launch']} us, fused "
+        f"{decode['fused']['decode_attention']['us_per_launch']} us")
+    log(f"verify dispatch B=8 S=4 ctx 1024: {verify_step['device_ms']:.3f} ms device; "
+        f"verify attention {verify_step['verify_attention']['us_per_launch']} us per launch")
     return res
 
 

@@ -1,9 +1,10 @@
 // Building blocks shared by the port's tensor-core kernels
 // (flash_prefill_attention.cu, fused_qkv_rope.cu, fused_attn_out_residual.cu,
-// paged_verify_attention.cu): bf16 mma.sync with f32 accumulators, cp.async
+// paged_attention.cuh): bf16 mma.sync with f32 accumulators, cp.async
 // global -> shared copies and ldmatrix fragment loads, the split-K skinny
 // product of the fused QKV kernel, and Hopper's asynchronous machinery --
-// mbarriers, TMA tensor copies and the host-side tensor maps they read.
+// mbarriers, 1-D bulk copies, TMA tensor copies and the host-side tensor
+// maps they read.
 // Everything here is inline or a template, so each library that includes it
 // carries its own copy.
 #pragma once
@@ -75,6 +76,23 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 1-D bulk copy (TMA without a tensor map): `bytes` global -> shared,
+// completing on `bar`. Both addresses 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy (bulk copy) writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Host: a bf16 tensor map with 128-byte swizzle (the layout wgmma and the

@@ -9,320 +9,62 @@
 // What bounds it on an H100: bytes. A (sequence, kv head) pair reads
 // ctx_len * D * 2 bytes of K and as many of V and does 4 * G * D flops per
 // key, about 8 flops per byte for G = 4 -- far under the card's ~295
-// flop/byte ridge. The kernel's job is to read each live K/V row exactly
-// once and keep enough loads in flight.
+// flop/byte ridge.
 //
-// Design:
-//   * split-KV: one thread block per (sequence, kv head, 256-key split of
-//     the table's reach), 8 warps, so a long sequence spreads over many SMs
-//     even at a small batch; blocks whose split holds no live key exit at
-//     once. Each block leaves an unnormalised partial (running max, sum,
-//     accumulator) and a second, small kernel merges a (sequence, head)'s
-//     partials into the bf16 output;
-//   * the G query rows of the head's GQA group are held in registers, so
-//     each K/V row is read ONCE for the whole group (the TPU kernel's
-//     [G, D] x [D, W*bs] product, without the per-query-head re-read a
-//     naive port would do);
-//   * the block walks the block table itself (no scalar prefetch on a GPU):
-//     a key at position p lives in page table[p / block_size], row
-//     p % block_size; each warp fetches the page ids of its next batch one
-//     batch ahead;
-//   * keys go to the warps in batches of 16 consecutive positions, round
-//     robin. A warp starts the K and V row loads of its whole batch before
-//     any arithmetic (32 loads in flight per lane) and folds the batch into
-//     its own f32 online softmax (running max m, sum l, accumulator acc) --
-//     no block-wide barrier inside the key loop. The 8 warp states are
-//     merged once at the end through shared memory into the block's partial;
-//   * the batches start at the one holding the window's first key and stop
-//     at ctx_len; keys outside [ctx_len - window, ctx_len) are never read;
-//   * scale and softcap (cap * tanh(s / cap)) are applied before the running
-//     max, as in the TPU kernel; masked keys contribute exactly 0 and a row
-//     that saw no key (l == 0) writes 0.
-// Not yet (later work): TMA/cp.async staging of pages, a single-pass path
-// for short contexts, int8 pages with per-(head, page) scales.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Design: the page-streaming template of paged_attention.cuh with R = G rows
+// at the single position context_lens[b] - 1: a producer warp bulk-copies
+// the live key rows into a 2-stage shared ring, four consumer warps score
+// them on mma.sync (the G rows padded to one m16 tile) and fold P V in with
+// P split into a bf16 hi and lo pair, so the softmax weights keep f32
+// precision; the splits of a long context are merged by the last split to
+// finish, in the same launch. Keys outside [ctx_len - window, ctx_len) are
+// never read. Not yet (later work): int8 pages with per-(head, page) scales.
+#include "paged_attention.cuh"
 
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSplit = 256;  // keys per block (split-KV); a multiple of kBatch
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Splits per (sequence, kv head): the wrapper sizes the partial buffers
+// part_acc [B * Hkv, 1, splits, 16, D] and part_ml [B * Hkv, 1, splits, 16, 2]
+// with it.
+extern "C" int paged_decode_num_splits(int B, int Hkv, int max_blocks, int block_size) {
+  return paged::num_splits(B, Hkv, 1, max_blocks, block_size);
 }
-
-// N consecutive bf16 values (N in {2, 4, 8}) as one raw vector register
-template <int N> struct RawRow;
-template <> struct RawRow<2> { using T = uint32_t; };
-template <> struct RawRow<4> { using T = uint2; };
-template <> struct RawRow<8> { using T = uint4; };
-
-template <int N>
-__device__ __forceinline__ void unpack(const typename RawRow<N>::T& raw, float (&out)[N]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-template <int D, int G>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,        // [B, Hkv*G, D]
-                    const __nv_bfloat16* __restrict__ k_cache,  // [Hkv, NB, bs, D]
-                    const __nv_bfloat16* __restrict__ v_cache,
-                    const int* __restrict__ block_tables,       // [B, max_blocks]
-                    const int* __restrict__ context_lens,       // [B]
-                    float* __restrict__ part_acc,  // [B, Hkv, S, G, D] unnormalised
-                    float* __restrict__ part_ml,   // [B, Hkv, S, G, 2] (max, sum)
-                    int num_blocks, int block_size, int max_blocks,
-                    float scale, float softcap, int window) {
-  constexpr int kPerLane = D / 32;           // values of a row per lane
-  constexpr int kBatch = D >= 256 ? 8 : 16;  // keys per warp step
-  using Raw = typename RawRow<kPerLane>::T;
-  static_assert(G * D <= 1024, "warp partials must fit in shared memory");
-
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int Hkv = gridDim.y;
-  const int split = blockIdx.z;
-  const size_t part = ((size_t)b * Hkv + h) * gridDim.z + split;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  __shared__ float s_acc[kWarps][G][D];
-  __shared__ float s_m[kWarps][G];
-  __shared__ float s_l[kWarps][G];
-
-  // positions past the table's reach do not exist (the plain version's
-  // gather window is max_blocks * block_size keys wide)
-  const int ctx = min(context_lens[b], max_blocks * block_size);
-  const int kv_start = window > 0 ? max(ctx - window, 0) : 0;
-  const int* table = block_tables + (size_t)b * max_blocks;
-  // this block's keys: [lo, hi), the split's slice of [kv_start, ctx)
-  const int lo = max(kv_start, split * kSplit);
-  const int hi = min(ctx, (split + 1) * kSplit);
-  if (lo >= hi) {  // nothing live here: an empty partial
-    if (tid < G) {
-      part_ml[(part * G + tid) * 2] = -INFINITY;
-      part_ml[(part * G + tid) * 2 + 1] = 0.f;
-    }
-    return;
-  }
-
-  float qr[G][kPerLane];
-  const __nv_bfloat16* qg = q + ((size_t)b * Hkv + h) * G * D;
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-    unpack<kPerLane>(*reinterpret_cast<const Raw*>(qg + g * D + lane * kPerLane), qr[g]);
-
-  float m[G], l[G], acc[G][kPerLane];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) acc[g][e] = 0.f;
-  }
-
-  const size_t head_rows = (size_t)h * num_blocks;  // first page of this head
-  const int j_end = (hi + kBatch - 1) / kBatch;
-  // lane i < kBatch holds the page id of key i of the warp's batch j
-  auto page_of = [&](int j) -> int {
-    const int pos = j * kBatch + lane;
-    return (lane < kBatch && pos < ctx) ? table[pos / block_size] : 0;
-  };
-  int j = lo / kBatch + warp;
-  int page = j < j_end ? page_of(j) : 0;
-  for (; j < j_end; j += kWarps) {
-    const int next_page = j + kWarps < j_end ? page_of(j + kWarps) : 0;
-    // all of the batch's loads are in flight before any is used: predicated
-    // raw loads, unpacked later, so the warp never waits on one row to start
-    // the next (masked keys load nothing)
-    Raw kraw[kBatch], vraw[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int pos = j * kBatch + i;
-      const int pg = __shfl_sync(0xffffffffu, page, i);
-      const bool live = pos >= kv_start && pos < ctx;
-      const size_t row = ((head_rows + pg) * block_size + pos % block_size) * D + lane * kPerLane;
-      kraw[i] = live ? *reinterpret_cast<const Raw*>(k_cache + row) : Raw{};
-      vraw[i] = live ? *reinterpret_cast<const Raw*>(v_cache + row) : Raw{};
-    }
-    float s[G][kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int pos = j * kBatch + i;
-      const bool live = pos >= kv_start && pos < ctx;  // warp-uniform
-      float kf[kPerLane];
-      unpack<kPerLane>(kraw[i], kf);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < kPerLane; ++e) dot = fmaf(qr[g][e], kf[e], dot);
-        float x = warp_sum(dot) * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        s[g][i] = live ? x : -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float mx = m[g];
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) mx = fmaxf(mx, s[g][i]);
-      const float alpha = mx == -INFINITY ? 1.f : expf(m[g] - mx);
-      m[g] = mx;
-      l[g] *= alpha;
-#pragma unroll
-      for (int e = 0; e < kPerLane; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        // masked keys contribute exactly 0
-        const float p = s[g][i] == -INFINITY ? 0.f : expf(s[g][i] - mx);
-        l[g] += p;
-        float vf[kPerLane];
-        unpack<kPerLane>(vraw[i], vf);
-#pragma unroll
-        for (int e = 0; e < kPerLane; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
-      }
-    }
-    page = next_page;
-  }
-
-  // ---- merge the warps' softmax states
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) s_acc[warp][g][lane * kPerLane + e] = acc[g][e];
-    if (lane == 0) {
-      s_m[warp][g] = m[g];
-      s_l[warp][g] = l[g];
-    }
-  }
-  __syncthreads();
-  float* pacc = part_acc + part * G * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D;
-    const int d = i % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w][g]);
-    float lsum = 0.f, osum = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float mw = s_m[w][g];
-        if (mw == -INFINITY) continue;
-        const float f = expf(mw - mx);
-        lsum = fmaf(s_l[w][g], f, lsum);
-        osum = fmaf(s_acc[w][g][d], f, osum);
-      }
-    }
-    pacc[i] = osum;
-    if (d == 0) {
-      part_ml[(part * G + g) * 2] = mx;
-      part_ml[(part * G + g) * 2 + 1] = lsum;
-    }
-  }
-}
-
-// Second pass: merge a (sequence, kv head)'s split partials into the output.
-template <int D, int G>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                     __nv_bfloat16* __restrict__ out, int num_splits) {
-  const size_t bh = (size_t)blockIdx.x * gridDim.y + blockIdx.y;
-  const float* pml = part_ml + bh * num_splits * G * 2;
-  const float* pacc = part_acc + bh * num_splits * G * D;
-  __nv_bfloat16* og = out + bh * G * D;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D;
-    float mx = -INFINITY;
-    for (int s = 0; s < num_splits; ++s) mx = fmaxf(mx, pml[(s * G + g) * 2]);
-    float lsum = 0.f, osum = 0.f;
-    if (mx != -INFINITY) {
-      for (int s = 0; s < num_splits; ++s) {
-        const float ms = pml[(s * G + g) * 2];
-        if (ms == -INFINITY) continue;
-        const float f = expf(ms - mx);
-        lsum = fmaf(pml[(s * G + g) * 2 + 1], f, lsum);
-        osum = fmaf(pacc[(size_t)s * G * D + i], f, osum);
-      }
-    }
-    og[i] = __float2bfloat16(lsum == 0.f ? 0.f : osum / lsum);
-  }
-}
-
-// split-KV pieces the table's reach is cut into (the wrapper sizes the
-// partial buffers with the same rule)
-inline int num_splits(int max_blocks, int block_size) {
-  return (max_blocks * block_size + kSplit - 1) / kSplit;
-}
-
-template <int D, int G>
-cudaError_t launch(const void* q, const void* k_cache, const void* v_cache, const int* block_tables,
-                   const int* context_lens, void* out, float* part_acc, float* part_ml, int B,
-                   int Hkv, int num_blocks, int block_size, int max_blocks, float scale,
-                   float softcap, int window, cudaStream_t stream) {
-  const int S = num_splits(max_blocks, block_size);
-  paged_decode_kernel<D, G><<<dim3(B, Hkv, S), kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache), block_tables, context_lens, part_acc, part_ml,
-      num_blocks, block_size, max_blocks, scale, softcap, window);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_decode_combine<D, G><<<dim3(B, Hkv), kThreads, 0, stream>>>(
-      part_acc, part_ml, static_cast<__nv_bfloat16*>(out), S);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_g(int G, const void* q, const void* k_cache, const void* v_cache,
-                     const int* block_tables, const int* context_lens, void* out,
-                     float* part_acc, float* part_ml, int B, int Hkv,
-                     int num_blocks, int block_size, int max_blocks, float scale, float softcap,
-                     int window, cudaStream_t stream) {
-  switch (G) {
-    case 1: return launch<D, 1>(q, k_cache, v_cache, block_tables, context_lens, out, part_acc, part_ml, B, Hkv, num_blocks, block_size, max_blocks, scale, softcap, window, stream);
-    case 2: return launch<D, 2>(q, k_cache, v_cache, block_tables, context_lens, out, part_acc, part_ml, B, Hkv, num_blocks, block_size, max_blocks, scale, softcap, window, stream);
-    case 4: return launch<D, 4>(q, k_cache, v_cache, block_tables, context_lens, out, part_acc, part_ml, B, Hkv, num_blocks, block_size, max_blocks, scale, softcap, window, stream);
-    case 8:  // the warps' partials must fit in shared memory: G * D <= 1024
-      if constexpr (D * 8 <= 1024)
-        return launch<D, 8>(q, k_cache, v_cache, block_tables, context_lens, out, part_acc, part_ml, B, Hkv, num_blocks, block_size, max_blocks, scale, softcap, window, stream);
-      else
-        return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
 
 // C entry point bound with ctypes. softcap <= 0 and window <= 0 mean "off".
-// Returns cudaGetLastError() after the launch (0 = launched).
+// tickets: B * Hkv int32 counters, zero on entry and left zero. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int paged_decode_attention_bf16(const void* q, const void* k_cache,
                                            const void* v_cache, const int* block_tables,
                                            const int* context_lens, void* out,
-                                           float* part_acc, float* part_ml, int B, int Hq,
-                                           int Hkv, int D, int num_blocks, int block_size,
-                                           int max_blocks, float scale, float softcap,
-                                           int window, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0) return cudaErrorInvalidValue;
-  const int G = Hq / Hkv;
+                                           float* part_acc, float* part_ml, int* tickets, int B,
+                                           int Hq, int Hkv, int D, int num_blocks, int block_size,
+                                           int max_blocks, int num_splits, float scale,
+                                           float softcap, int window, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > paged::kRows || num_splits <= 0)
+    return cudaErrorInvalidValue;
+  const paged::Params p{static_cast<const __nv_bfloat16*>(q),
+                        static_cast<const __nv_bfloat16*>(k_cache),
+                        static_cast<const __nv_bfloat16*>(v_cache),
+                        block_tables,
+                        context_lens,
+                        static_cast<__nv_bfloat16*>(out),
+                        part_acc,
+                        part_ml,
+                        tickets,
+                        /*S=*/1,
+                        Hq / Hkv,
+                        Hkv,
+                        num_blocks,
+                        block_size,
+                        max_blocks,
+                        num_splits,
+                        /*slots=*/0,  // set by paged::launch
+                        scale,
+                        softcap,
+                        window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_g<64>(G, q, k_cache, v_cache, block_tables, context_lens, out, part_acc, part_ml, B, Hkv, num_blocks, block_size, max_blocks, scale, softcap, window, s);
-    case 128: return launch_g<128>(G, q, k_cache, v_cache, block_tables, context_lens, out, part_acc, part_ml, B, Hkv, num_blocks, block_size, max_blocks, scale, softcap, window, s);
-    case 256: return launch_g<256>(G, q, k_cache, v_cache, block_tables, context_lens, out, part_acc, part_ml, B, Hkv, num_blocks, block_size, max_blocks, scale, softcap, window, s);
+    case 64: return paged::launch<64, true>(p, B, s);
+    case 128: return paged::launch<128, true>(p, B, s);
+    case 256: return paged::launch<256, true>(p, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,15 +6,17 @@ kernels of the serving path, rewritten for Hopper in
 how its design answers that):
 
   * ``paged_decode_attention_cuda`` <- ``paged_decode_attention_pallas``
-    (csrc/paged_decode_attention.cu);
+    (csrc/paged_decode_attention.cu, over csrc/paged_attention.cuh);
   * ``flash_prefill_attention_cuda`` <- ``flash_prefill_attention_pallas``
     (csrc/flash_prefill_attention.cu);
   * ``paged_verify_attention_cuda`` <- ``paged_verify_attention_pallas``
-    (csrc/paged_verify_attention.cu).
+    (csrc/paged_verify_attention.cu, the same template).
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, allocates
-its output with ``torch.empty``, launches on the current stream without
-synchronising, and raises if the launch is refused. It counts its launches in
+its output with ``torch.empty`` (the paged kernels also their f32 split
+partials; their int32 tickets are cached per device), launches one kernel on
+the current stream without synchronising or reading any tensor on the host,
+and raises if the launch is refused. It counts its launches in
 a plain integer attribute, ``<wrapper>.launches`` (ops/kernels.py resets and
 reads them all), so a run can show that the serving path went through the
 kernel. There is no fallback: a failed build or
@@ -35,16 +37,39 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-_DECODE_ARGTYPES = [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P]
+_DECODE_ARGTYPES = [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P]
 _PREFILL_ARGTYPES = [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P]
-_VERIFY_ARGTYPES = [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P]
+_VERIFY_ARGTYPES = [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P]
 _DECODE_D = (64, 128, 256)
 _PREFILL_D = (64, 128)
 _VERIFY_D = (64, 128)
 _GROUPS = (1, 2, 4, 8)
-DECODE_SPLIT = 256  # keys per block of the decode kernel (kSplit in the source)
-VERIFY_SPLIT = 128  # keys per block of the verify kernel (kSplit in the source)
-VERIFY_ROWS = 16  # query rows per tile of the verify kernel (kRows)
+# The decode and verify kernels share csrc/paged_attention.cuh: query rows in
+# tiles of PAGED_ROWS (kRows), each (pair, tile) cut into splits whose count
+# the library picks from the shapes and the SM count (paged::num_splits).
+PAGED_ROWS = 16
+
+# int32 split tickets per device, shared by the decode and verify kernels:
+# zero between calls (each kernel resets the counters it used), so they are
+# allocated once and grown, never cleared per call. Calls on one device must
+# run in stream order (the engine uses one stream).
+_tickets: dict[int, torch.Tensor] = {}
+
+
+def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    t = _tickets.get(dev.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _tickets[dev.index] = t
+    return t
+
+
+def _partials(n_part: int, d: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 split partials of n_part (pair, tile, split) slots: the
+    unnormalised [PAGED_ROWS, D] accumulator and the (max, sum) of each row."""
+    acc = torch.empty(n_part * PAGED_ROWS * d, dtype=torch.float32, device=dev)
+    ml = torch.empty(n_part * PAGED_ROWS * 2, dtype=torch.float32, device=dev)
+    return acc, ml
 
 
 def _fn(lib_name: str, sym: str, argtypes):
@@ -130,19 +155,20 @@ def paged_decode_attention_cuda(
     out = torch.empty_like(q)
     if B == 0:
         return out
-    # split-KV partials: (max, sum) and the unnormalised accumulator of every
-    # (sequence, kv head, 256-key split), merged by the kernel's second pass
+    # one launch: the splits' f32 partials, and a ticket per (sequence, kv
+    # head) that tells the last split to merge them
     max_blocks = block_tables.shape[1]
-    splits = -(-max_blocks * block_size // DECODE_SPLIT)
-    part_acc = torch.empty(B * Hq * splits * D, dtype=torch.float32, device=dev)
-    part_ml = torch.empty(B * Hq * splits * 2, dtype=torch.float32, device=dev)
+    splits = _fn("paged_decode_attention", "paged_decode_num_splits", [_I] * 4)(
+        B, Hkv, max_blocks, block_size)
+    part_acc, part_ml = _partials(B * Hkv * splits, D, dev)
+    tickets = _ticket_buffer(dev, B * Hkv)
     fn = _fn("paged_decode_attention", "paged_decode_attention_bf16", _DECODE_ARGTYPES)
     sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(),
-        B, Hq, Hkv, D, num_blocks, block_size, max_blocks,
+        part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+        B, Hq, Hkv, D, num_blocks, block_size, max_blocks, splits,
         sc, float(logit_softcap or 0.0), int(window or 0),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -242,21 +268,21 @@ def paged_verify_attention_cuda(
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    # split-KV partials of every (lane, kv head, 16-row tile, 128-key split),
-    # merged by the kernel's second pass
+    # one launch: the splits' f32 partials of every (lane, kv head, 16-row
+    # tile), and a ticket per (lane, kv head, tile) for the merge
     max_blocks = block_tables.shape[1]
-    tiles = -(-S * (Hq // Hkv) // VERIFY_ROWS)
-    splits = -(-max_blocks * block_size // VERIFY_SPLIT)
-    n_part = B * Hkv * tiles * splits * VERIFY_ROWS
-    part_acc = torch.empty(n_part * D, dtype=torch.float32, device=dev)
-    part_ml = torch.empty(n_part * 2, dtype=torch.float32, device=dev)
+    tiles = -(-S * (Hq // Hkv) // PAGED_ROWS)
+    splits = _fn("paged_verify_attention", "paged_verify_num_splits", [_I] * 6)(
+        B, S, Hq, Hkv, max_blocks, block_size)
+    part_acc, part_ml = _partials(B * Hkv * tiles * splits, D, dev)
+    tickets = _ticket_buffer(dev, B * Hkv * tiles)
     fn = _fn("paged_verify_attention", "paged_verify_attention_bf16", _VERIFY_ARGTYPES)
     sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(),
-        B, S, Hq, Hkv, D, num_blocks, block_size, max_blocks,
+        part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+        B, S, Hq, Hkv, D, num_blocks, block_size, max_blocks, splits,
         sc, float(logit_softcap or 0.0), int(window or 0),
         torch.cuda.current_stream(dev).cuda_stream,
     )

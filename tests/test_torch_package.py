@@ -10,6 +10,7 @@ conftest imports) they run with:
 """
 
 import ast
+import ctypes
 import pathlib
 
 import numpy as np
@@ -291,5 +292,206 @@ def test_verify_kernel_matches_plain_on_card(feature, S):
     got = K.paged_verify_attention_cuda(*args, **VERIFY[feature]).float()
     want = A.paged_verify_attention_plain(*args, **VERIFY[feature]).float()
     torch.cuda.synchronize()
-    # the kernel rounds the softmax weights to bf16 for P @ V
+    # PR 2's kernel rounded the softmax weights to bf16 for P @ V
     assert ((got - want).abs() <= 1e-2 + 2.0 ** -6 * want.abs()).all()
+
+
+# ----------------------------------- the page-streaming decode / verify design
+
+# chip_smoke.py's decode tolerance: f32 softmax weights (a bf16 hi/lo pair on
+# the tensor cores), f32 sums; the page-streaming verify kernel meets it too
+DECODE_TOL = (1e-3, 2.0 ** -6)
+
+
+def _close(got, want, tol):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    assert (err <= tol[0] + tol[1] * want.abs()).all(), float(err.max())
+
+
+def _paged_inputs(ends, pages, S, G, D, bs, max_blocks, seed, hkv=2):
+    """Random pages of a [hkv, num_blocks, bs, D] bf16 cache on the card: lane
+    b owns pages[b] distinct, shuffled pages; q is [B, S, hkv * G, D]."""
+    g = torch.Generator().manual_seed(seed)
+    B = len(ends)
+    nb = sum(pages) + 2
+    perm = torch.randperm(nb - 1, generator=g) + 1
+    tables = torch.zeros(B, max_blocks, dtype=torch.int32)
+    off = 0
+    for b, n in enumerate(pages):
+        tables[b, :n] = perm[off:off + n].int()
+        off += n
+    q = torch.randn(B, S, hkv * G, D, generator=g).bfloat16().cuda()
+    kc = torch.randn(hkv, nb, bs, D, generator=g).bfloat16().cuda()
+    vc = torch.randn(hkv, nb, bs, D, generator=g).bfloat16().cuda()
+    return q, kc, vc, tables.cuda()
+
+
+def _decode_case(lens, G, D, bs, max_blocks, seed, hkv=2):
+    q, kc, vc, tables = _paged_inputs(
+        lens, [min(-(-n // bs), max_blocks) for n in lens], 1, G, D, bs, max_blocks, seed, hkv)
+    return q[:, 0].contiguous(), kc, vc, tables, torch.tensor(lens, dtype=torch.int32).cuda()
+
+
+def _verify_case(bases, S, G, D, bs, max_blocks, seed, hkv=2):
+    """Odd lanes drafted one token less: their tables end a position early."""
+    drafted = [S - 1 - (b % 2 if S > 1 else 0) for b in range(len(bases))]
+    pages = [(p + d) // bs + 1 for p, d in zip(bases, drafted)]
+    q, kc, vc, tables = _paged_inputs(bases, pages, S, G, D, bs, max_blocks, seed, hkv)
+    pos = (torch.tensor(bases)[:, None] + torch.arange(S)[None, :]).int().cuda()
+    return q, kc, vc, tables, pos
+
+
+GROUP_DIMS = [(g, d) for g in (1, 2, 4, 8) for d in (64, 128, 256) if g * d <= 1024]
+FEATURES = {"full": {}, "window_softcap": {"window": 100, "scale": 0.1, "logit_softcap": 4.0}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", sorted(FEATURES))
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("G,D", GROUP_DIMS)
+def test_decode_design_groups_dims_and_edges_on_card(G, D, bs, feature):
+    """Every GQA group and head dim the decode kernel takes, at contexts of
+    1, a page edge, a ring-stage edge (64 keys), three stages, and the
+    table's whole reach."""
+    _need_card()
+    mb = 20
+    lens = [1, bs, bs + 1, 64, 65, 192, mb * bs]
+    args = _decode_case(lens, G, D, bs, mb, seed=G * 100 + D + bs)
+    got = K.paged_decode_attention_cuda(*args, **FEATURES[feature])
+    want = A.paged_decode_attention_plain(*args, **FEATURES[feature])
+    torch.cuda.synchronize()
+    _close(got, want, DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_B1", "short_B64"])
+def test_decode_design_long_and_many_short_on_card(case):
+    """One 4096-key sequence alone (every split live), and 64 short ones
+    (one split each, many pairs)."""
+    _need_card()
+    if case == "long_B1":
+        lens, mb = [4096], 256
+    else:
+        lens, mb = [int(n) for n in np.random.default_rng(0).integers(1, 100, 64)], 8
+    args = _decode_case(lens, 4, 128, 16, mb, seed=len(lens), hkv=8)
+    got = K.paged_decode_attention_cuda(*args)
+    want = A.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, want, DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_verify_design_groups_dims_and_drafts_on_card(G, D, S):
+    """Every GQA group and head dim of the verify kernel at S = 1, 4 and 8
+    positions (up to four 16-row tiles), lanes whose drafts stop early."""
+    _need_card()
+    args = _verify_case([0, 15, 63, 200, 333], S, G, D, 16, 30, seed=G * 10 + D + S)
+    got = K.paged_verify_attention_cuda(*args)
+    want = A.paged_verify_attention_plain(*args)
+    torch.cuda.synchronize()
+    _close(got, want, DECODE_TOL)
+
+
+@pytest.mark.cuda
+def test_verify_at_one_position_matches_decode_on_card():
+    _need_card()
+    lens = [1, 17, 64, 65, 300, 1000]
+    q, kc, vc, tables, ctx = _decode_case(lens, 4, 128, 16, 64, seed=3, hkv=8)
+    dec = K.paged_decode_attention_cuda(q, kc, vc, tables, ctx)
+    ver = K.paged_verify_attention_cuda(q[:, None].contiguous(), kc, vc, tables,
+                                        (ctx - 1)[:, None].contiguous())
+    torch.cuda.synchronize()
+    _close(ver[:, 0], dec, DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode", "verify"])
+def test_paged_kernels_are_bitwise_repeatable_on_card(kernel):
+    """The splits merge in a fixed order, whichever finishes last."""
+    _need_card()
+    if kernel == "decode":
+        args = _decode_case([1, 300, 1777, 3001], 4, 128, 16, 200, seed=5, hkv=8)
+        fn = K.paged_decode_attention_cuda
+    else:
+        args = _verify_case([3, 511, 1500, 2996], 4, 4, 128, 16, 200, seed=5, hkv=8)
+        fn = K.paged_verify_attention_cuda
+    outs = [fn(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode", "verify"])
+def test_paged_kernels_allocate_only_output_and_partials_on_card(kernel):
+    """One call allocates its output and the f32 split partials
+    ([pairs x tiles x splits, 16, D] and [.., 16, 2]) and nothing else: the
+    tickets are cached per device."""
+    _need_card()
+    if kernel == "decode":
+        args = _decode_case([17, 1000, 3001], 4, 128, 16, 200, seed=6, hkv=8)
+        fn = K.paged_decode_attention_cuda
+        B, tiles = 3, 1
+        splits = K._fn("paged_decode_attention", "paged_decode_num_splits", [ctypes.c_int] * 4)(
+            B, 8, 200, 16)
+    else:
+        args = _verify_case([17, 1000, 3001], 4, 4, 128, 16, 200, seed=6, hkv=8)
+        fn = K.paged_verify_attention_cuda
+        B, tiles = 3, 1
+        splits = K._fn("paged_verify_attention", "paged_verify_num_splits", [ctypes.c_int] * 6)(
+            B, 4, 32, 8, 200, 16)
+    fn(*args)  # build, load and allocate the tickets first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    n_part = B * 8 * tiles * splits
+    sizes = (out.numel() * 2, n_part * 16 * 128 * 4, n_part * 16 * 2 * 4)
+    assert torch.cuda.max_memory_allocated() - before == sum(-(-n // 512) * 512 for n in sizes)
+
+
+# ------------------------------------- no host read in the decode / verify step
+
+HOST_READS = {"item", "tolist", "cpu", "numpy", "synchronize"}
+
+
+def _host_reads(tree: ast.Module, entry: str) -> list[str]:
+    """Calls of HOST_READS methods in `entry` and in every function of the
+    module it reaches by name."""
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    seen, todo, found = set(), [entry], []
+    while todo:
+        name = todo.pop()
+        if name in seen or name not in funcs:
+            continue
+        seen.add(name)
+        for node in ast.walk(funcs[name]):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            if isinstance(f, ast.Attribute) and f.attr in HOST_READS:
+                found.append(f"{name}: .{f.attr}()")
+            elif isinstance(f, ast.Name):
+                todo.append(f.id)
+    return found
+
+
+@pytest.mark.parametrize("wrapper", ["paged_decode_attention_cuda", "paged_verify_attention_cuda"])
+def test_paged_wrappers_read_nothing_back_from_the_card(wrapper):
+    """The decode and verify steps stay capturable by a CUDA graph: the
+    wrappers (and the module's helpers they call) never read a tensor on the
+    host or synchronise."""
+    src = (ROOT / "dynamo_tpu_torch" / "ops" / "cuda_attention.py").read_text()
+    tree = ast.parse(src)
+    assert wrapper in {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert _host_reads(tree, wrapper) == []
+
+
+def test_host_read_scan_finds_a_read_in_a_helper():
+    tree = ast.parse("def w(x):\n    return h(x)\n\ndef h(x):\n    return int(x.max().item())\n")
+    assert _host_reads(tree, "w") == ["h: .item()"]
