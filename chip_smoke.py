@@ -12,12 +12,17 @@ Phases, each of which must pass or the script exits non-zero:
                 at Llama-3.1-8B shapes (Hq 32, Hkv 8, D 128, block 16,
                 hidden 4096), with the window / scale / softcap variants,
                 a ragged prompt, GQA groups 1 and 8, verify lanes whose
-                drafts stop early, and a bias case;
+                drafts stop early, and a bias case; then #1-#4 at Qwen2-7B
+                heads (Hq 28, Hkv 4: G 7) and Gemma-2-9B heads (Hq 16,
+                Hkv 8, D 256), hidden 3584;
   4. serve   -- TorchEngine built by build_torch_engine at the full width of
                 Llama-3.1-8B (random bf16 weights from a seed), fused decode
-                and spec decode off, 8 concurrent generate() calls; checks
-                the outputs and that the kernels' launch counters equal
-                32 x prefills and 32 x decode steps (the other three: 0);
+                and spec decode off, 8 concurrent generate() calls, one of
+                them with frequency / presence / repetition penalties and
+                min_tokens; checks the outputs (that request: at least
+                min_tokens tokens) and that the kernels' launch counters
+                equal 32 x prefills and 32 x decode steps (the other
+                three: 0);
   5. serve_spec -- the same weights behind an engine with fused_decode and
                 spec_k=3, on repeating traffic; checks the outputs, >= 4
                 verify dispatches, the launch counters (verify 32 x verify
@@ -26,10 +31,12 @@ Phases, each of which must pass or the script exits non-zero:
                 dense reference and that the seeded request repeats;
   6. times   -- each kernel, its plain version and the PyTorch yardstick
                 timed with CUDA events, beside the kernel's bound (and the
-                kernel / yardstick ratio where the yardstick is one call);
+                kernel / yardstick ratio where the yardstick is one call),
+                #1-#3 also at the Qwen2-7B and Gemma-2-9B head shapes;
                 engine TTFT with the 2000-token prefill's device time, the
                 B=8 decode step with the fused heads off and on (wall and
-                device time), tokens/s with spec off and on.
+                device time, #1's time per launch and #4's per layer),
+                tokens/s with spec off and on.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -74,6 +81,10 @@ PREFILL_TOL = (1e-2, 2.0 ** -6)
 VERIFY_TOL = (1e-2, 2.0 ** -6)
 GEMV_TOL = (1e-2, 2.0 ** -6)
 HIDDEN = 4096  # Llama-3.1-8B hidden size
+# other models' attention heads (Hq, Hkv, D) and hidden size, from their
+# published config.json files: Qwen2-7B (a GQA group of 7) and Gemma-2-9B
+# (head_dim 256)
+HEAD_SHAPES = {"qwen2_7b": (28, 4, 128, 3584), "gemma2_9b": (16, 8, 256, 3584)}
 
 
 class SmokeError(RuntimeError):
@@ -140,9 +151,9 @@ def make_flush(torch):
 # ------------------------------------------------------------------ inputs
 
 
-def decode_inputs(torch, ctx_lens, seed: int, num_blocks: int = 2112):
+def decode_inputs(torch, ctx_lens, seed: int, num_blocks: int = 2112, hq=HQ, hkv=HKV, d=D):
     """Paged decode inputs at main-path shapes: each sequence owns distinct,
-    randomly placed pages of a [HKV, num_blocks, BLOCK, D] bf16 cache."""
+    randomly placed pages of a [hkv, num_blocks, BLOCK, d] bf16 cache."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     B = len(ctx_lens)
     pages = [(n + BLOCK - 1) // BLOCK for n in ctx_lens]
@@ -154,23 +165,24 @@ def decode_inputs(torch, ctx_lens, seed: int, num_blocks: int = 2112):
     for b, n in enumerate(pages):
         tables[b, :n] = perm[off:off + n].to(torch.int32)
         off += n
-    shape = (HKV, num_blocks, BLOCK, D)
+    shape = (hkv, num_blocks, BLOCK, d)
     k = torch.randn(shape, generator=g).to(torch.bfloat16)
     v = torch.randn(shape, generator=g).to(torch.bfloat16)
-    q = torch.randn(B, HQ, D, generator=g).to(torch.bfloat16)
+    q = torch.randn(B, hq, d, generator=g).to(torch.bfloat16)
     lens = torch.tensor(ctx_lens, dtype=torch.int32)
     return [t.cuda() for t in (q, k, v, tables, lens)]
 
 
-def prefill_inputs(torch, P: int, seed: int, hq: int = HQ):
+def prefill_inputs(torch, P: int, seed: int, hq: int = HQ, hkv: int = HKV, d: int = D):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    q = torch.randn(P, hq, D, generator=g).to(torch.bfloat16)
-    k = torch.randn(P, HKV, D, generator=g).to(torch.bfloat16)
-    v = torch.randn(P, HKV, D, generator=g).to(torch.bfloat16)
+    q = torch.randn(P, hq, d, generator=g).to(torch.bfloat16)
+    k = torch.randn(P, hkv, d, generator=g).to(torch.bfloat16)
+    v = torch.randn(P, hkv, d, generator=g).to(torch.bfloat16)
     return q.cuda(), k.cuda(), v.cuda()
 
 
-def verify_inputs(torch, bases, draft_lens, S: int, seed: int, num_blocks: int = 2112):
+def verify_inputs(torch, bases, draft_lens, S: int, seed: int, num_blocks: int = 2112,
+                  hq=HQ, hkv=HKV, d=D):
     """Paged verify inputs: lane b feeds positions bases[b] .. bases[b]+S-1;
     its table covers only positions up to bases[b] + draft_lens[b] (a lane
     whose drafts stop early has entries 0 past its last block)."""
@@ -185,35 +197,36 @@ def verify_inputs(torch, bases, draft_lens, S: int, seed: int, num_blocks: int =
     for b, n in enumerate(pages):
         tables[b, :n] = perm[off:off + n].to(torch.int32)
         off += n
-    shape = (HKV, num_blocks, BLOCK, D)
+    shape = (hkv, num_blocks, BLOCK, d)
     k = torch.randn(shape, generator=g).to(torch.bfloat16)
     v = torch.randn(shape, generator=g).to(torch.bfloat16)
-    q = torch.randn(B, S, HQ, D, generator=g).to(torch.bfloat16)
+    q = torch.randn(B, S, hq, d, generator=g).to(torch.bfloat16)
     pos = (torch.tensor(bases)[:, None] + torch.arange(S)[None, :]).to(torch.int32)
     return [t.cuda() for t in (q, k, v, tables, pos)]
 
 
-def gemv_inputs(torch, M: int, seed: int, bias: bool = False):
-    """The fused heads' inputs at Llama-3.1-8B width: residual rows x, the
-    norm weight, wq / wk / wv / wo (std 0.02, as init_params draws them),
-    cos / sin of random positions under llama3 rope scaling, and optional
-    q/k/v biases."""
+def gemv_inputs(torch, M: int, seed: int, bias: bool = False, hq=HQ, hkv=HKV, d=D,
+                hidden=HIDDEN):
+    """The fused heads' inputs (Llama-3.1-8B width by default): residual
+    rows x, the norm weight, wq / wk / wv / wo (std 0.02, as init_params
+    draws them), cos / sin of random positions under llama3 rope scaling,
+    and optional q/k/v biases."""
     from dynamo_tpu_torch.ops.basics import rope_freqs
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     bf = torch.bfloat16
-    x = torch.randn(M, HIDDEN, generator=g).to(bf)
-    norm = (1.0 + 0.1 * torch.randn(HIDDEN, generator=g)).to(bf)
-    wq = (0.02 * torch.randn(HIDDEN, HQ * D, generator=g)).to(bf)
-    wk = (0.02 * torch.randn(HIDDEN, HKV * D, generator=g)).to(bf)
-    wv = (0.02 * torch.randn(HIDDEN, HKV * D, generator=g)).to(bf)
-    wo = (0.02 * torch.randn(HQ * D, HIDDEN, generator=g)).to(bf)
-    attn = torch.randn(M, HQ * D, generator=g).to(bf)
+    x = torch.randn(M, hidden, generator=g).to(bf)
+    norm = (1.0 + 0.1 * torch.randn(hidden, generator=g)).to(bf)
+    wq = (0.02 * torch.randn(hidden, hq * d, generator=g)).to(bf)
+    wk = (0.02 * torch.randn(hidden, hkv * d, generator=g)).to(bf)
+    wv = (0.02 * torch.randn(hidden, hkv * d, generator=g)).to(bf)
+    wo = (0.02 * torch.randn(hq * d, hidden, generator=g)).to(bf)
+    attn = torch.randn(M, hq * d, generator=g).to(bf)
     pos = torch.randint(0, MAX_MODEL_LEN, (M,), generator=g)
-    inv = rope_freqs(D, LLAMA31_8B["rope_theta"], LLAMA31_8B["rope_scaling"])
+    inv = rope_freqs(d, LLAMA31_8B["rope_theta"], LLAMA31_8B["rope_scaling"])
     angles = pos[:, None].float() * inv
     biases = (
-        tuple((0.1 * torch.randn(n, generator=g)).to(bf) for n in (HQ * D, HKV * D, HKV * D))
+        tuple((0.1 * torch.randn(n, generator=g)).to(bf) for n in (hq * d, hkv * d, hkv * d))
         if bias else (None, None, None)
     )
     cuda = lambda t: None if t is None else t.cuda()  # noqa: E731
@@ -222,14 +235,16 @@ def gemv_inputs(torch, M: int, seed: int, bias: bool = False):
         "wv": cuda(wv), "wo": cuda(wo), "attn": cuda(attn),
         "cos": cuda(torch.cos(angles)), "sin": cuda(torch.sin(angles)),
         "bq": cuda(biases[0]), "bk": cuda(biases[1]), "bv": cuda(biases[2]),
+        "heads": (hq, hkv, d),
     }
 
 
 def qkv_call(fn, t):
+    hq, hkv, d = t.get("heads", (HQ, HKV, D))
     return fn(
         t["x"], t["norm"], t["wq"], t["wk"], t["wv"], t["cos"], t["sin"],
-        eps=LLAMA31_8B["rms_norm_eps"], num_heads=HQ, num_kv_heads=HKV,
-        head_dim=D, bq=t["bq"], bk=t["bk"], bv=t["bv"],
+        eps=LLAMA31_8B["rms_norm_eps"], num_heads=hq, num_kv_heads=hkv,
+        head_dim=d, bq=t["bq"], bk=t["bk"], bv=t["bv"],
     )
 
 
@@ -304,6 +319,52 @@ def phase_parity(torch) -> dict:
         log(f"parity prefill/{name}: P={P} valid_len={vl} Hq={hq} Hkv={HKV} {kw} "
             f"max|d|={e:.3e} (tol {PREFILL_TOL[0]:g} + {PREFILL_TOL[1]:g}|x|)")
     errs.update(spec_parity(torch))
+    for name, e in shape_parity(torch).items():
+        errs[name] = max(errs[name], e)
+    return errs
+
+
+def shape_parity(torch) -> dict:
+    """#1-#4 at the other models' head shapes (HEAD_SHAPES): a GQA group of
+    7 and head_dim 256, under the same tolerances."""
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops import cuda_attention as K
+    from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops import linear as L
+
+    errs = dict.fromkeys(("paged_decode_attention", "flash_prefill_attention",
+                          "paged_verify_attention", "fused_qkv_rope"), 0.0)
+
+    def check(kernel, label, got, want, tol):
+        torch.cuda.synchronize()
+        e = compare(torch, label, got, want, tol)
+        errs[kernel] = max(errs[kernel], e)
+        log(f"parity {label}: max|d|={e:.3e} (tol {tol[0]:g} + {tol[1]:g}|x|)")
+
+    for name, (hq, hkv, d, hidden) in HEAD_SHAPES.items():
+        shp = dict(hq=hq, hkv=hkv, d=d)
+        tag = f"{name} Hq={hq} Hkv={hkv} D={d}"
+        args = decode_inputs(torch, DECODE_LENS, seed=30, **shp)
+        for case, kw in DECODE_CASES:
+            check("paged_decode_attention", f"decode/{case} {tag}",
+                  K.paged_decode_attention_cuda(*args, **kw),
+                  A.paged_decode_attention_plain(*args, **kw), DECODE_TOL)
+        args = verify_inputs(torch, VERIFY_BASES, VERIFY_DRAFT_LENS, VERIFY_S, seed=31, **shp)
+        for case, kw in DECODE_CASES:
+            check("paged_verify_attention", f"verify/{case} {tag}",
+                  K.paged_verify_attention_cuda(*args, **kw),
+                  A.paged_verify_attention_plain(*args, **kw), VERIFY_TOL)
+        for case, P, vl, kw in (PREFILL_CASES[2], PREFILL_CASES[4], PREFILL_CASES[5]):
+            q, k, v = prefill_inputs(torch, P, seed=32 + P, **shp)
+            check("flash_prefill_attention", f"prefill/{case} {tag}",
+                  K.flash_prefill_attention_cuda(q, k, v, vl, **kw)[:vl],
+                  A.causal_prefill_attention_plain(q, k, v, vl, **kw)[:vl], PREFILL_TOL)
+        for M in (8, 32):
+            t = gemv_inputs(torch, M, seed=40 + M, bias=name == "qwen2_7b", hidden=hidden, **shp)
+            got = qkv_call(KL.fused_qkv_rope_cuda, t)
+            want = qkv_call(L.fused_qkv_rope_plain, t)
+            for n, a, b in zip("qkv", got, want):
+                check("fused_qkv_rope", f"qkv/M{M}/{n} {tag} hidden={hidden}", a, b, GEMV_TOL)
     return errs
 
 
@@ -346,83 +407,106 @@ def spec_parity(torch) -> dict:
     return errs
 
 
-def decode_bound(lens, B: int) -> tuple[float, str, float, float]:
+def decode_bound(lens, B: int, hq=HQ, hkv=HKV, d=D) -> tuple[float, str, float, float]:
     """Least time for one paged decode call: every live K and V row read
     once, q/tables/lens read once, the output written once; f32 work counted
     against the bf16 peak (the more generous one)."""
     keys = sum(lens)
     nbytes = (
-        2 * keys * HKV * D * 2  # K and V rows
-        + 2 * B * HQ * D * 2  # q in, out
+        2 * keys * hkv * d * 2  # K and V rows
+        + 2 * B * hq * d * 2  # q in, out
         + sum((n + BLOCK - 1) // BLOCK for n in lens) * 4 + B * 4
     )
-    flops = 4 * keys * HQ * D
+    flops = 4 * keys * hq * d
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
 
 
-def prefill_bound(P: int, vl: int, window=None) -> tuple[float, str, float, float]:
+def prefill_bound(P: int, vl: int, window=None, hq=HQ, hkv=HKV, d=D) -> tuple[float, str, float, float]:
     """Least time for one prefill attention call: the valid rows of q, k, v
     read once, the [P] output written once; 4 * D flops per (query head,
     visible key) pair over the valid rows."""
     pairs = sum(min(i + 1, window or (i + 1)) for i in range(vl))
-    flops = 4 * pairs * HQ * D
-    nbytes = (vl * (HQ + 2 * HKV) * D + P * HQ * D) * 2
+    flops = 4 * pairs * hq * d
+    nbytes = (vl * (hq + 2 * hkv) * d + P * hq * d) * 2
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
 
 
-def phase_kernel_times(torch, card: str) -> dict:
-    """Kernel / plain / yardstick times at main-path shapes."""
+def decode_row(torch, flush, hq=HQ, hkv=HKV, d=D, plain_reps=20) -> dict:
+    """#1 at chip_smoke's ragged contexts: kernel, plain and a yardstick."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops import attention as A
     from dynamo_tpu_torch.ops import cuda_attention as K
 
-    flush = make_flush(torch)
-    rows = {}
     lens = DECODE_LENS
-    q, k, v, tables, lens_t = decode_inputs(torch, lens, seed=2)
+    q, k, v, tables, lens_t = decode_inputs(torch, lens, seed=2, hq=hq, hkv=hkv, d=d)
     t_k = time_ms(torch, lambda: K.paged_decode_attention_cuda(q, k, v, tables, lens_t), flush=flush)
-    t_p = time_ms(torch, lambda: A.paged_decode_attention_plain(q, k, v, tables, lens_t), flush=flush)
+    t_p = time_ms(torch, lambda: A.paged_decode_attention_plain(q, k, v, tables, lens_t),
+                  reps=plain_reps, flush=flush)
     # yardstick: SDPA over the same keys already gathered into a dense,
     # padded [B, Hq, S, D] layout (the gather is not timed) -- no PyTorch
     # call takes the paged cache itself, so the contract's library_ms is null
     S = max(lens)
-    kd = torch.zeros(len(lens), HKV, S, D, dtype=torch.bfloat16, device="cuda")
+    kd = torch.zeros(len(lens), hkv, S, d, dtype=torch.bfloat16, device="cuda")
     vd = torch.zeros_like(kd)
     for b, n in enumerate(lens):
         pages = tables[b, : (n + BLOCK - 1) // BLOCK].long()
-        kd[b, :, :n] = k[:, pages].reshape(HKV, -1, D)[:, :n]
-        vd[b, :, :n] = v[:, pages].reshape(HKV, -1, D)[:, :n]
+        kd[b, :, :n] = k[:, pages].reshape(hkv, -1, d)[:, :n]
+        vd[b, :, :n] = v[:, pages].reshape(hkv, -1, d)[:, :n]
     mask = (torch.arange(S, device="cuda")[None, :] < lens_t[:, None].long())[:, None, None, :]
     qd = q[:, :, None, :]
     t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True), flush=flush)
-    b_ms, b_by, nbytes, flops = decode_bound(lens, len(lens))
-    rows["paged_decode_attention"] = {
+    b_ms, b_by, nbytes, flops = decode_bound(lens, len(lens), hq, hkv, d)
+    return {
         "ms": t_k, "plain_ms": t_p, "sdpa_dense_ms": t_s, "bound_ms": b_ms,
         "bound_by": b_by, "bytes": nbytes, "flops": flops,
-        "shape": f"B={len(lens)} Hq={HQ} Hkv={HKV} D={D} block={BLOCK} lens={lens}",
+        "shape": f"B={len(lens)} Hq={hq} Hkv={hkv} D={d} block={BLOCK} lens={lens}",
     }
-    rows["paged_decode_attention/step"] = decode_step_times(torch, flush)
+
+
+def prefill_row(torch, flush, hq=HQ, hkv=HKV, d=D, plain_reps=5) -> dict:
+    """#3 at P=2048, valid_len 2000: kernel, plain and causal GQA SDPA."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops import cuda_attention as K
+
     P, vl = 2048, 2000
-    q, k, v = prefill_inputs(torch, P, seed=3)
+    q, k, v = prefill_inputs(torch, P, seed=3, hq=hq, hkv=hkv, d=d)
     t_k = time_ms(torch, lambda: K.flash_prefill_attention_cuda(q, k, v, vl), flush=flush)
-    t_p = time_ms(torch, lambda: A.causal_prefill_attention_plain(q, k, v, vl), reps=5, flush=flush)
+    t_p = time_ms(torch, lambda: A.causal_prefill_attention_plain(q, k, v, vl),
+                  reps=plain_reps, warmup=1, flush=flush)
     qs = q[:vl].transpose(0, 1)[None]
     ks = k[:vl].transpose(0, 1)[None]
     vs = v[:vl].transpose(0, 1)[None]
     t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True, enable_gqa=True), flush=flush)
-    b_ms, b_by, nbytes, flops = prefill_bound(P, vl)
-    rows["flash_prefill_attention"] = {
+    b_ms, b_by, nbytes, flops = prefill_bound(P, vl, None, hq, hkv, d)
+    return {
         "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
         "bound_by": b_by, "bytes": nbytes, "flops": flops,
         "ratio_to_library": t_k["median"] / t_s["median"],
-        "shape": f"P={P} valid_len={vl} Hq={HQ} Hkv={HKV} D={D}",
+        "shape": f"P={P} valid_len={vl} Hq={hq} Hkv={hkv} D={d}",
     }
+
+
+def phase_kernel_times(torch, card: str) -> dict:
+    """Kernel / plain / yardstick times at main-path shapes, then #1-#3 at
+    the other models' head shapes (HEAD_SHAPES)."""
+    flush = make_flush(torch)
+    rows = {}
+    rows["paged_decode_attention"] = decode_row(torch, flush)
+    rows["paged_decode_attention/step"] = decode_step_times(torch, flush)
+    rows["flash_prefill_attention"] = prefill_row(torch, flush)
     rows.update(spec_kernel_times(torch, flush))
+    for name, (hq, hkv, d, _) in HEAD_SHAPES.items():
+        shp = dict(hq=hq, hkv=hkv, d=d)
+        rows[f"paged_decode_attention/{name}"] = decode_row(torch, flush, plain_reps=5, **shp)
+        rows[f"flash_prefill_attention/{name}"] = prefill_row(torch, flush, plain_reps=2, **shp)
+        rows[f"paged_verify_attention/{name}"] = verify_row(torch, flush, **shp)
     for name, row in rows.items():
         print(json.dumps({"kernel_time": name, "card": card, **row}), flush=True)
     return rows
@@ -459,17 +543,17 @@ def decode_step_times(torch, flush) -> dict:
     }
 
 
-def verify_bound(bases, S: int) -> tuple[float, str, float, float]:
+def verify_bound(bases, S: int, hq=HQ, hkv=HKV, d=D) -> tuple[float, str, float, float]:
     """Least time for one verify call: each lane's live K and V rows (its
     context, base + S keys) read once, q / tables / positions read once, the
     output written once; 4 * D flops per (query head, visible key) pair."""
     keys = sum(p + S for p in bases)
     pairs = sum(p + s + 1 for p in bases for s in range(S))
     nbytes = (
-        2 * keys * HKV * D * 2 + 2 * len(bases) * S * HQ * D * 2
+        2 * keys * hkv * d * 2 + 2 * len(bases) * S * hq * d * 2
         + sum((p + S + BLOCK - 1) // BLOCK for p in bases) * 4 + len(bases) * S * 4
     )
-    flops = 4 * pairs * HQ * D
+    flops = 4 * pairs * hq * d
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
 
@@ -484,46 +568,51 @@ def gemv_bound(M: int, K: int, N: int, extra_bytes: int) -> tuple[float, str, fl
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
 
 
-def spec_kernel_times(torch, flush) -> dict:
-    """The spec + fused path's kernels: kernel / plain / yardstick times at
-    the verify shape (B=8, S=4) and the fused heads at M = 8 (a decode
-    step) and M = 32 (a verify step)."""
+def verify_row(torch, flush, hq=HQ, hkv=HKV, d=D) -> dict:
+    """#2 at the verify shape (B=8, S=4): kernel, plain and a yardstick."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops import attention as A
     from dynamo_tpu_torch.ops import cuda_attention as K
-    from dynamo_tpu_torch.ops import cuda_linear as KL
-    from dynamo_tpu_torch.ops import linear as L
-    from dynamo_tpu_torch.ops.basics import rms_norm
 
-    rows = {}
     S, bases = VERIFY_S, VERIFY_BASES
     full = [S - 1] * len(bases)  # every lane drafted S - 1 tokens
-    q, k, v, tables, pos = verify_inputs(torch, bases, full, S, seed=5)
+    q, k, v, tables, pos = verify_inputs(torch, bases, full, S, seed=5, hq=hq, hkv=hkv, d=d)
     t_k = time_ms(torch, lambda: K.paged_verify_attention_cuda(q, k, v, tables, pos), flush=flush)
     t_p = time_ms(torch, lambda: A.paged_verify_attention_plain(q, k, v, tables, pos),
                   reps=5, flush=flush)
     # yardstick: SDPA over the same keys gathered dense beforehand (not
     # timed), [B, Hkv, ctx, D], with each query row's causal mask
     ctx = max(bases) + S
-    kd = torch.zeros(len(bases), HKV, ctx, D, dtype=torch.bfloat16, device="cuda")
+    kd = torch.zeros(len(bases), hkv, ctx, d, dtype=torch.bfloat16, device="cuda")
     vd = torch.zeros_like(kd)
     for b, p in enumerate(bases):
         n = p + S
         pages = tables[b, : (n + BLOCK - 1) // BLOCK].long()
-        kd[b, :, :n] = k[:, pages].reshape(HKV, -1, D)[:, :n]
-        vd[b, :, :n] = v[:, pages].reshape(HKV, -1, D)[:, :n]
+        kd[b, :, :n] = k[:, pages].reshape(hkv, -1, d)[:, :n]
+        vd[b, :, :n] = v[:, pages].reshape(hkv, -1, d)[:, :n]
     mask = torch.arange(ctx, device="cuda")[None, None, :] <= pos.long()[:, :, None]
     qd = q.transpose(1, 2)  # [B, Hq, S, D]
     t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask[:, None], enable_gqa=True), flush=flush)
-    b_ms, b_by, nbytes, flops = verify_bound(bases, S)
-    rows["paged_verify_attention"] = {
+    b_ms, b_by, nbytes, flops = verify_bound(bases, S, hq, hkv, d)
+    return {
         "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
         "bound_by": b_by, "bytes": nbytes, "flops": flops,
         "library": "SDPA over keys gathered dense beforehand, causal mask",
-        "shape": f"B={len(bases)} S={S} Hq={HQ} Hkv={HKV} D={D} block={BLOCK} bases={bases}",
+        "shape": f"B={len(bases)} S={S} Hq={hq} Hkv={hkv} D={d} block={BLOCK} bases={bases}",
     }
+
+
+def spec_kernel_times(torch, flush) -> dict:
+    """The spec + fused path's kernels: kernel / plain / yardstick times at
+    the verify shape (B=8, S=4) and the fused heads at M = 8 (a decode
+    step) and M = 32 (a verify step)."""
+    from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops import linear as L
+    from dynamo_tpu_torch.ops.basics import rms_norm
+
+    rows = {"paged_verify_attention": verify_row(torch, flush)}
     eps = LLAMA31_8B["rms_norm_eps"]
     for M in (8, 32):
         t = gemv_inputs(torch, M, seed=20 + M)
@@ -540,14 +629,19 @@ def spec_kernel_times(torch, flush) -> dict:
             return apply_rope(qh, p, inv), apply_rope(kh, p, inv)
 
         N = (HQ + 2 * HKV) * D
+        xn = rms_norm(t["x"], t["norm"], eps)  # normed beforehand, not timed
         t_k = time_ms(torch, lambda: qkv_call(KL.fused_qkv_rope_cuda, t), flush=flush)
         t_p = time_ms(torch, lambda: qkv_call(L.fused_qkv_rope_plain, t), flush=flush)
         t_s = time_ms(torch, chain, flush=flush)
+        t_m = time_ms(torch, lambda: torch.matmul(xn, wqkv), flush=flush)
         b_ms, b_by, nbytes, flops = gemv_bound(M, HIDDEN, N, HIDDEN * 2 + M * D * 4)
         rows[f"fused_qkv_rope/M{M}"] = {
-            "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
-            "bound_by": b_by, "bytes": nbytes, "flops": flops,
-            "library": "chain: rms_norm -> matmul on [wq|wk|wv] -> apply_rope (q, k)",
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_m, "chain_ms": t_s,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "ratio_to_library": t_k["median"] / t_m["median"],
+            "library": "torch.matmul(xn, [wq|wk|wv]) over a pre-normed x: one cuBLAS "
+                       "call for the product alone (no norm, bias or RoPE)",
+            "chain": "rms_norm -> matmul on [wq|wk|wv] -> apply_rope (q, k)",
             "shape": f"M={M} hidden={HIDDEN} N={N} (Hq {HQ}, Hkv {HKV}, D {D})",
         }
         t_k = time_ms(torch, lambda: KL.fused_attn_out_residual_cuda(t["attn"], t["wo"], t["x"]),
@@ -600,6 +694,11 @@ LLAMA31_8B = {
 PROMPT_LENS = [16, 100, 300, 517, 800, 1200, 1600, 2000]
 MAX_TOKENS = [32, 40, 48, 56, 64, 32, 48, 64]
 SAMPLED = 3  # index of the one seeded, sampled request
+# index of the one request with frequency / presence / repetition penalties
+# and min_tokens (greedy, the model's EOS id as its stop id)
+PENALIZED = 5
+PENALTIES = {"frequency_penalty": 0.5, "presence_penalty": 0.5, "repetition_penalty": 1.2}
+MIN_TOKENS = 24
 
 
 def make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions):
@@ -612,10 +711,15 @@ def make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions):
             if i == SAMPLED else SamplingOptions(greedy=True)
         )
         # no eos ids: random weights may emit any id, and every request must
-        # run to its max_tokens so the counts can be checked
+        # run to its max_tokens so the counts can be checked -- but the
+        # penalised one, whose EOS stays masked until min_tokens
+        eos, min_tokens = [], None
+        if i == PENALIZED:
+            sampling = SamplingOptions(greedy=True, **PENALTIES)
+            eos, min_tokens = [LLAMA31_8B["eos_token_id"]], MIN_TOKENS
         reqs.append(PreprocessedRequest(
             token_ids=prompt, sampling=sampling,
-            stop=StopConditions(max_tokens=m), eos_token_ids=[],
+            stop=StopConditions(max_tokens=m, min_tokens=min_tokens), eos_token_ids=eos,
         ))
     return reqs
 
@@ -713,7 +817,17 @@ def phase_serve(torch, np, card: str) -> dict:
 
     first, second, wall, wall_warm, stats, launches, peak = asyncio.run(serve())
     vocab = LLAMA31_8B["vocab_size"]
+    pen_toks, pen_reason = first[PENALIZED][0], first[PENALIZED][1]
+    if len(pen_toks) < MIN_TOKENS or pen_reason not in (FinishReason.LENGTH, FinishReason.EOS):
+        raise SmokeError(f"penalised request: {len(pen_toks)} tokens, reason {pen_reason}; "
+                         f"expected at least min_tokens {MIN_TOKENS}")
+    log(f"serve: the penalised request ({PENALTIES}, min_tokens {MIN_TOKENS}) streamed "
+        f"{len(pen_toks)} tokens, reason {pen_reason.value}")
     for i, ((toks, reason, _), req) in enumerate(zip(first, reqs)):
+        if i == PENALIZED:
+            if not all(0 <= t < vocab for t in toks) or second[i][0] != toks:
+                raise SmokeError("penalised request: bad ids, or the repeat differed")
+            continue
         if reason is not FinishReason.LENGTH or len(toks) != req.stop.max_tokens:
             raise SmokeError(
                 f"request {i}: {len(toks)} tokens, reason {reason}; expected "
@@ -742,6 +856,8 @@ def phase_serve(torch, np, card: str) -> dict:
         "wall_s_warm": wall_warm, "output_tok_per_s_warm": out_tokens / wall_warm,
         "ttft_s_concurrent_warm": [t for _, _, t in second],
         "peak_mem_bytes": peak, "reference_max_logit_gap": gap,
+        "penalized_request": {"sampling": PENALTIES, "min_tokens": MIN_TOKENS,
+                              "tokens": len(pen_toks), "reason": pen_reason.value},
     }
     log(f"serve: {len(reqs)} requests ({out_tokens} tokens) in {wall:.2f} s "
         f"({wall_warm:.2f} s warm); "
@@ -946,6 +1062,23 @@ def per_launch_us(kernels: dict, mode: str) -> dict:
     return {"us_per_launch": us / n if n else None, "launches": n}
 
 
+# #4's kernels: the one launch of the cluster design, and the earlier
+# design's three (norm, split-K product, combine + RoPE epilogue), so
+# profiles of either design compare
+QKV_KERNELS = ("fused_qkv_rope_kernel", "rmsnorm_rows", "splitk_gemm_kernel", "qkv_epilogue")
+
+
+def qkv_head_us(kernels: dict, calls: int, layers: int) -> dict:
+    """#4's device time per layer in a profile of `calls` steps, summed over
+    all its launches, and its launches per layer."""
+    us = n = 0
+    for key, (t, c) in kernels.items():
+        if any(name in key for name in QKV_KERNELS):
+            us, n = us + t, n + c
+    per = calls * layers
+    return {"us_per_layer": us / per if n else None, "launches_per_layer": n / per}
+
+
 def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     """TTFT per prompt length (one request alone, prefill + first sample +
     fetch) and the B=8 decode step (model + sampling + fetch), host clock
@@ -996,6 +1129,7 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
             step(r)
             walls[name].append((time.perf_counter() - t0) * 1e3)
     decode = {}
+    layers = runner.config.num_layers
     for name, r in runners.items():
         ts = walls[name]
         dev_ms, prof = profile_calls(torch, lambda: step(r))
@@ -1003,6 +1137,7 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
             "median": statistics.median(ts), "min": min(ts), "max": max(ts),
             "device_ms": dev_ms, "B": B, "ctx": ctx,
             "decode_attention": per_launch_us(prof, "true"),
+            "qkv_head": qkv_head_us(prof, 5, layers),
         }
     # one B=8, S=4 fused verify dispatch at the same context: each lane
     # re-feeds its token at position 1024 and scores 3 drafts after it
@@ -1017,7 +1152,8 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     verify()
     dev_ms, prof = profile_calls(torch, verify)
     verify_step = {"device_ms": dev_ms, "B": B, "S": 4, "ctx": ctx,
-                   "verify_attention": per_launch_us(prof, "false")}
+                   "verify_attention": per_launch_us(prof, "false"),
+                   "qkv_head": qkv_head_us(prof, 5, layers)}
     # where a fused decode step's device time goes (torch.profiler, by kernel)
     from torch.profiler import ProfilerActivity, profile
 
@@ -1037,9 +1173,12 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
         f"{decode['fused']['median']:.2f} ms wall / {decode['fused']['device_ms']:.2f} ms device; "
         f"decode attention per launch: unfused "
         f"{decode['unfused']['decode_attention']['us_per_launch']} us, fused "
-        f"{decode['fused']['decode_attention']['us_per_launch']} us")
+        f"{decode['fused']['decode_attention']['us_per_launch']} us; fused QKV head (#4) "
+        f"{decode['fused']['qkv_head']['us_per_layer']} us per layer in "
+        f"{decode['fused']['qkv_head']['launches_per_layer']} launch(es)")
     log(f"verify dispatch B=8 S=4 ctx 1024: {verify_step['device_ms']:.3f} ms device; "
-        f"verify attention {verify_step['verify_attention']['us_per_launch']} us per launch")
+        f"verify attention {verify_step['verify_attention']['us_per_launch']} us per launch; "
+        f"fused QKV head (#4) {verify_step['qkv_head']['us_per_layer']} us per layer")
     return res
 
 

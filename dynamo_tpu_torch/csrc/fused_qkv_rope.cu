@@ -1,5 +1,5 @@
 // Fused RMSNorm + Q/K/V projections (+ bias) + RoPE for Hopper (sm_90a),
-// bf16 weights and activations, f32 accumulation.
+// bf16 weights and activations, f32 accumulation, one launch.
 //
 // Replaces: dynamo_tpu/ops/linear.py::fused_qkv_rope (kernel body
 // _fused_qkv_kernel). For M rows of the residual stream x [M, H] (M = B on
@@ -14,152 +14,499 @@
 // weights are 4096 x 6144 bf16 = 50.3 MB per layer, 15.0 us at 3.35 TB/s,
 // and the product does only 2 * M flops per two weight bytes.
 //
-// Design (three launches on the caller's stream):
-//   1. rmsnorm_rows: one block per row writes xn [M, H] bf16 (a 0.5 MB
-//      scratch at M = 64) -- the one small pre-pass;
-//   2. splitk_gemm_kernel (hopper_common.cuh): the three weights as one
-//      logical [H, 6144] matrix, cut into 128-column tiles x contraction
-//      splits so ~4 blocks per SM stream the weights at once. Tiling by head
-//      alone would give 48 blocks for 132 SMs. Every weight element is read
-//      once for all M rows (they ride the mma M dimension), on the tensor
-//      cores with f32 accumulators, into f32 partials [splits, M, 6144];
-//   3. qkv_epilogue: one block per (row, head) sums the head's partials in
-//      split order (deterministic), then cast -> bias -> RoPE. RoPE pairs
-//      column d with d + D/2 of the same head, which is why the epilogue runs
-//      after the split-K combine and not inside the product.
+// Design (one launch, no scratch in device memory; after the o-proj kernel,
+// fused_attn_out_residual.cu):
+//   * the grid is 128-column tiles x kSplits contraction splits (x row
+//     groups of 64); the kSplits blocks of one column tile form a thread
+//     block cluster. At Llama-3.1-8B width that is 48 x 4 = 192 blocks,
+//     each streaming its [H / kSplits, 128] slice of the weights once for
+//     all rows;
+//   * a tile is two 64-column TMA boxes, placed so that it owns both halves
+//     of every RoPE pair it touches: columns d and d + D/2 of one head
+//     (D >= 128: boxes at d0 and d0 + D/2) or two whole heads (D = 64);
+//   * RMSNorm is folded in. Each rank sums x^2 over its own contraction
+//     slice, in f64, and publishes the per-row sums in shared memory; after
+//     a cluster barrier every rank adds all ranks' sums in rank order (so
+//     every rank gets the same, deterministic rsqrt per row, exact to its
+//     f32 rounding: the plain version's own f32 sum then decides most of
+//     their remaining bf16 disagreements). The producer warp does not wait
+//     for that: it starts the weight stream at once;
+//   * a producer warp keeps a kStages-deep ring of weight tiles and the
+//     matching 64-wide slices of x in flight by TMA (128-byte swizzle; rows
+//     past M and columns past H read as zeros), with full / empty mbarriers.
+//     The consumers turn each landed x slice into bf16 xn in place (the
+//     reference's two f32 products and one rounding, with the split's
+//     norm weights staged in shared memory once) before its product; no xn
+//     tensor is written to device memory. Normalising the A
+//     fragments in registers instead, after ldmatrix, saves the rewrite
+//     and the barrier per stage but measured slower (kernel_variants.py,
+//     qkv/register_normalise);
+//   * four consumer warps own 32 output columns each and run mma.sync
+//     m16n8k16 with the rows on M (bytes bound the product, so mma.sync
+//     keeps up), fragments by ldmatrix from the swizzled tiles. Each
+//     k16 step's products are summed from zero on the tensor cores and
+//     added to the running f32 sum with a round-to-nearest add: the tensor
+//     cores add into their accumulator with truncation relative to its
+//     magnitude, and over a 1024-row split that flipped bf16 roundings of
+//     y 3-4x as often as the reference's f32 product does (kFreshSteps;
+//     tools/kernel_variants.py times the other choices);
+//   * each block leaves its f32 partial tile in its own shared memory (the
+//     drained ring); after a cluster barrier, rank r sums the partials of
+//     its share of the tile's 64 RoPE pairs through distributed shared
+//     memory, in rank order (deterministic), casts, adds the bias, rotates
+//     q and k in f32 and stores; a last cluster barrier keeps every block
+//     alive until its peers have read it.
 // Rounding steps use the _rn intrinsics so nvcc contracts nothing into an
 // fma the reference does not do; the kernel and the plain version then
-// differ only in the f32 summation order of the product.
-// Not yet (later work): int8 weights with per-channel scales (A9), the
-// tensor-parallel split, TMA + wgmma for the weight stream.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// differ only in the norm's sum (f64 here) and the product's f32 order.
+// Not yet (later work): int8 weights with per-channel scales (ROADMAP A6),
+// the meshed tensor-parallel form (A9).
+#include <cooperative_groups.h>
 #include <math.h>
-
-#include <algorithm>
-#include <stdint.h>
 
 #include "hopper_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kNormThreads = 256;
+constexpr int kCols = 128;                 // output columns per block: two 64-column boxes
+constexpr int kPairs = kCols / 2;          // RoPE pairs per tile
+constexpr int kKC = 64;                    // contraction rows per ring stage
+constexpr int kStages = 3;
+constexpr int kSplits = 4;                 // contraction splits = blocks per cluster
+// k16 steps summed on the tensor cores from zero before one round-to-nearest
+// add into the running sum (0: the whole split on the tensor cores)
+constexpr int kFreshSteps = 1;
+constexpr int kRowGroup = 64;              // rows per row group (grid z)
+constexpr int kConsumers = 128;            // 4 warps, kCols / 4 output columns each
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kNT = kCols / 4 / 8;         // n8 tiles per consumer warp
+constexpr int kBoxBytes = kKC * 128;       // one [kKC][64] bf16 box
+constexpr int kWBytes = 2 * kBoxBytes;     // one weight tile
+static_assert(kPairs % (2 * kSplits) == 0 && kNT % 2 == 0, "tile shape");
 
-__global__ void __launch_bounds__(kNormThreads)
-rmsnorm_rows(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-             __nv_bfloat16* __restrict__ xn, int H, float eps) {
-  const int m = blockIdx.x;
-  const __nv_bfloat16* xr = x + (size_t)m * H;
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < H; i += kNormThreads) {
-    const float v = __bfloat162float(xr[i]);
-    ss = fmaf(v, v, ss);
+// shared memory, byte offsets from a 1024-aligned base (swizzle atoms)
+template <int MT>  // 16-row m tiles per row group: 1..4
+struct QkvLayout {
+  static constexpr int kABytes = MT * 16 * kKC * 2;  // x slice [MT*16 rows][64]
+  static constexpr int kW = 0;
+  static constexpr int kA = kW + kStages * kWBytes;
+  static constexpr int kBar = kA + kStages * kABytes;  // the ring ends here
+  static constexpr int kNormW = (kBar + 2 * kStages * 8 + 15) & ~15;  // the split's norm weights
+  // bytes for a split of n_chunks contraction chunks
+  static constexpr int bytes(int n_chunks) { return kNormW + n_chunks * kKC * 2 + 1024; }
+  // after the product the drained ring holds the f32 partial tile
+  static_assert(MT * 16 * kCols * 4 <= kBar, "the partial tile fits the ring");
+};
+
+struct QkvArgs {
+  const __nv_bfloat16* x;        // [M, H]
+  const __nv_bfloat16* norm_w;   // [H]
+  const __nv_bfloat16* bias[3];  // q / k / v biases, all null without
+  const float* cos;              // [M, D / 2]
+  const float* sin;
+  __nv_bfloat16* out[3];         // q [M, Hq * D], k / v [M, Hkv * D]
+  int width[3];                  // Hq * D, Hkv * D, Hkv * D
+  int M, H, D;
+  float eps;
+};
+
+// split arrive / wait of the cluster barrier: the producer warp arrives
+// before it streams and waits after, so the norm's exchange never holds
+// the weight loads back
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {  // the consumer warps only
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+template <int MT>
+__global__ void __cluster_dims__(1, kSplits, 1) __launch_bounds__(kThreads)
+fused_qkv_rope_kernel(const __grid_constant__ CUtensorMap tm_x,   // x [M, H], box (64, MT*16)
+                      const __grid_constant__ CUtensorMap tm_wq,  // wq [H, Hq*D], box (64, 64)
+                      const __grid_constant__ CUtensorMap tm_wk,  // wk [H, Hkv*D]
+                      const __grid_constant__ CUtensorMap tm_wv,  // wv [H, Hkv*D]
+                      const QkvArgs a) {
+  using L = QkvLayout<MT>;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.block_rank());
+  const int row0 = blockIdx.z * kRowGroup;
+  const int rows = min(MT * 16, a.M - row0);
+  const int tid = threadIdx.x;
+
+  // this block's column tile: segment (q, k or v) and its two boxes
+  int t = blockIdx.x, seg = 0;
+  const int t_q = a.width[0] / kCols, t_k = a.width[1] / kCols;
+  if (t >= t_q + t_k) {
+    seg = 2;
+    t -= t_q + t_k;
+  } else if (t >= t_q) {
+    seg = 1;
+    t -= t_q;
   }
-  __shared__ float red[kNormThreads / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
+  const CUtensorMap* tm_w = seg == 0 ? &tm_wq : seg == 1 ? &tm_wk : &tm_wv;
+  const int D = a.D;
+  int c0, c1, d0;  // the boxes' first columns in the segment; box 0's index in its head
+  if (D >= 128) {
+    const int per = D / 128;
+    c0 = (t / per) * D + (t % per) * 64;
+    c1 = c0 + D / 2;
+    d0 = (t % per) * 64;
+  } else {  // D = 64: two whole heads, each box one head
+    c0 = t * kCols;
+    c1 = c0 + 64;
+    d0 = 0;
+  }
+
+  // this split's contraction rows [k_lo, k_hi), in kKC-row chunks
+  const int chunks = (a.H + kKC - 1) / kKC;
+  const int c_begin = split * chunks / kSplits;
+  const int n = (split + 1) * chunks / kSplits - c_begin;
+  const int k_lo = c_begin * kKC;
+  const int k_hi = min(a.H, (c_begin + n) * kKC);
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);  // [kStages]
+  uint64_t* empty = full + kStages;
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L::kNormW);  // norm_w[k_lo, k_hi)
+  float* red = reinterpret_cast<float*>(smem);  // the partial tile, after the product
+  __shared__ double s_ss[kRowGroup];  // this rank's sum of x^2 per row
+  __shared__ float s_rs[kRowGroup];  // rsqrt(mean(x^2) + eps) per row
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers / 32);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  float total = 0.f;
+
+  if (tid >= kConsumers) {
+    // ---- producer warp: nothing to publish for the norm; one lane streams
+    // the split's weight and x tiles
+    cluster_arrive();
+    if (tid == kConsumers) {
+      for (int i = 0; i < n; ++i) {
+        const int st = i % kStages;
+        const int k0 = (c_begin + i) * kKC;
+        mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(full + st, kWBytes + L::kABytes);
+        unsigned char* w = smem + L::kW + st * kWBytes;
+        tma_load_2d(w, tm_w, full + st, c0, k0);
+        tma_load_2d(w + kBoxBytes, tm_w, full + st, c1, k0);
+        tma_load_2d(smem + L::kA + st * L::kABytes, &tm_x, full + st, k0, row0);
+      }
+    }
+    __syncwarp();
+    cluster_wait();
+  } else {
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    // the split's norm weights, staged in shared memory once (zeros past H,
+    // where x is zeros): the first piece is loaded here and stored after
+    // the norm's loads below, so its latency hides behind theirs
+    const int w_end = k_lo + n * kKC;
+    auto norm_w8 = [&](int k) {
+      return k < a.H ? *reinterpret_cast<const uint4*>(a.norm_w + k) : make_uint4(0u, 0u, 0u, 0u);
+    };
+    const int kw = k_lo + tid * 8;
+    const uint4 w_first = kw < w_end ? norm_w8(kw) : make_uint4(0u, 0u, 0u, 0u);
+    // ---- the norm: this rank's sum of x^2 per row over [k_lo, k_hi). Warp
+    // w sums rows w, w + 4, w + 8, w + 12 of each 16; each lane keeps the
+    // 16-byte loads of all those rows, kNormSteps k steps deep, in flight at
+    // once (they come from L2, and this pass delays the first product)
+    constexpr int kNormSteps = MT == 1 ? 4 : MT == 2 ? 2 : 1;
+    double ss[MT][4];
 #pragma unroll
-  for (int i = 0; i < kNormThreads / 32; ++i) total += red[i];
-  const float r = rsqrtf(__fadd_rn(__fdiv_rn(total, (float)H), eps));
-  for (int i = threadIdx.x; i < H; i += kNormThreads) {
-    const float v = __fmul_rn(__bfloat162float(xr[i]), r);
-    xn[(size_t)m * H + i] = __float2bfloat16(__fmul_rn(v, __bfloat162float(w[i])));
+    for (int g = 0; g < MT; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ss[g][q] = 0.0;
+    for (int k = k_lo + lane * 8; k < k_hi; k += kNormSteps * 32 * 8) {
+      uint4 u[MT][4][kNormSteps];
+#pragma unroll
+      for (int g = 0; g < MT; ++g)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int j = 0; j < kNormSteps; ++j) {
+            const int r = g * 16 + warp + 4 * q;
+            const int kj = k + j * 32 * 8;
+            u[g][q][j] = r < rows && kj < k_hi
+                             ? *reinterpret_cast<const uint4*>(a.x + (size_t)(row0 + r) * a.H + kj)
+                             : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+      for (int g = 0; g < MT; ++g)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int j = 0; j < kNormSteps; ++j) {
+            const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u[g][q][j]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(h2[e]);
+              ss[g][q] = fma((double)f.x, (double)f.x, ss[g][q]);
+              ss[g][q] = fma((double)f.y, (double)f.y, ss[g][q]);
+            }
+          }
+    }
+#pragma unroll
+    for (int g = 0; g < MT; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        double v = ss[g][q];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0) s_ss[g * 16 + warp + 4 * q] = v;
+      }
+    if (kw < w_end) *reinterpret_cast<uint4*>(s_w + (kw - k_lo)) = w_first;
+    for (int k = kw + kConsumers * 8; k < w_end; k += kConsumers * 8)
+      *reinterpret_cast<uint4*>(s_w + (k - k_lo)) = norm_w8(k);
+    cluster_arrive();
+    cluster_wait();
+    // every rank's sums, in rank order: the same rsqrt on every rank
+    if (tid < MT * 16) {
+      double total = 0.0;
+      for (int q = 0; q < kSplits; ++q) total += cluster.map_shared_rank(s_ss, q)[tid];
+      s_rs[tid] = (float)(1.0 / sqrt(total / a.H + (double)a.eps));
+    }
+    consumers_sync();
+
+    // ---- the product: columns [warp, warp + 1) * kCols / 4 of the tile
+    const int mat = lane >> 3;  // which 8x8 matrix this lane addresses in ldmatrix
+    float acc[MT][kNT][4];   // the running sum
+    float part[MT][kNT][4];  // kFreshSteps k16 steps' products
+    float (&dst)[MT][kNT][4] = kFreshSteps > 0 ? part : acc;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kStages;
+      const int k0 = (c_begin + i) * kKC;
+      mbar_wait(full + st, (i / kStages) & 1);
+      // x -> bf16 xn in place: x * rsqrt, then * norm_w, one rounding
+      unsigned char* sa_p = smem + L::kA + st * L::kABytes;
+      for (int j = tid; j < MT * 16 * 8; j += kConsumers) {
+        const int r = j >> 3;
+        const int ch = j & 7;
+        const int k = k0 + ch * 8;
+        if (k >= a.H) continue;  // TMA's zeros past H stay zeros
+        uint4* p = reinterpret_cast<uint4*>(sa_p + swz128(r, ch));
+        uint4 u = *p;
+        const uint4 wu = *reinterpret_cast<const uint4*>(s_w + (k - k_lo));
+        __nv_bfloat162* xv = reinterpret_cast<__nv_bfloat162*>(&u);
+        const __nv_bfloat162* wv = reinterpret_cast<const __nv_bfloat162*>(&wu);
+        const float rs = s_rs[r];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(xv[e]);
+          const float2 wf = __bfloat1622float2(wv[e]);
+          xv[e] = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(xf.x, rs), wf.x),
+                                        __fmul_rn(__fmul_rn(xf.y, rs), wf.y));
+        }
+        *p = u;
+      }
+      fence_proxy_async();  // before a later TMA write refills these bytes
+      consumers_sync();     // every row of xn is in place
+      const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);
+      const uint32_t sa = smem_u32(sa_p);
+#pragma unroll
+      for (int kk = 0; kk < kKC / 16; ++kk) {
+        if (kFreshSteps > 0 && kk % kFreshSteps == 0) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < kNT; ++j)
+              part[mt][j][0] = part[mt][j][1] = part[mt][j][2] = part[mt][j][3] = 0.f;
+        }
+        // A fragments: matrices (rows lo, k lo), (rows hi, k lo), (lo, hi), (hi, hi)
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_x4_at(af[mt], sa + swz128(mt * 16 + (mat & 1) * 8 + (lane & 7), kk * 2 + (mat >> 1)));
+        const int kr = kk * 16 + (mat & 1) * 8 + (lane & 7);
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          // B fragments by ldmatrix.trans: matrices (k lo, n tile 2np),
+          // (k hi, 2np), (k lo, 2np + 1), (k hi, 2np + 1)
+          const int col = warp * (kCols / 4) + np * 16 + (mat >> 1) * 8;
+          uint32_t b[4];
+          ldsm_x4_trans_at(b, sw + (col >> 6) * kBoxBytes + swz128(kr, (col & 63) >> 3));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_16816(dst[mt][2 * np], af[mt], b[0], b[1]);
+            mma_16816(dst[mt][2 * np + 1], af[mt], b[2], b[3]);
+          }
+        }
+        if (kFreshSteps > 0 && kk % kFreshSteps == kFreshSteps - 1) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < kNT; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mt][j][e] = __fadd_rn(acc[mt][j][e], part[mt][j][e]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);  // this warp is done with the stage
+    }
+    consumers_sync();  // every warp is done with the ring: it becomes the partial tile
+    const int g = lane >> 2;
+    const int c = warp * (kCols / 4) + 2 * (lane & 3);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        *reinterpret_cast<float2*>(red + (mt * 16 + g) * kCols + c + 8 * j) =
+            make_float2(acc[mt][j][0], acc[mt][j][1]);
+        *reinterpret_cast<float2*>(red + (mt * 16 + g + 8) * kCols + c + 8 * j) =
+            make_float2(acc[mt][j][2], acc[mt][j][3]);
+      }
   }
-}
+  // every split's partials are in place before any rank reads its peers'
+  cluster_arrive();
+  cluster_wait();
 
-// y = bf16(sum of the splits' partials), then + bias in bf16
-__device__ __forceinline__ float finish(const float* __restrict__ part, size_t split_stride,
-                                        int splits, size_t idx, const __nv_bfloat16* bias,
-                                        int bcol) {
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc = __fadd_rn(acc, part[s * split_stride + idx]);
-  float y = __bfloat162float(__float2bfloat16(acc));
-  if (bias != nullptr) y = __bfloat162float(__float2bfloat16(__fadd_rn(y, __bfloat162float(bias[bcol]))));
-  return y;
-}
-
-// grid (M, Hq + 2 * Hkv), D / 2 threads: thread d owns the pair (d, d + D/2)
-__global__ void qkv_epilogue(const float* __restrict__ part, int splits, int M,
-                             const __nv_bfloat16* __restrict__ bq,
-                             const __nv_bfloat16* __restrict__ bk,
-                             const __nv_bfloat16* __restrict__ bv,
-                             const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                             __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ k,
-                             __nv_bfloat16* __restrict__ v, int Hq, int Hkv, int D) {
-  const int m = blockIdx.x;
-  const int head = blockIdx.y;
+  // ---- epilogue: rank `split` finishes pairs [split, split + 1) * kPer of
+  // the tile: partials summed in rank order, cast, bias, RoPE (q and k)
+  constexpr int kPer = kPairs / kSplits;
   const int half = D / 2;
-  const int N = (Hq + 2 * Hkv) * D;
-  const size_t stride = (size_t)M * N;
-  for (int d = threadIdx.x; d < half; d += blockDim.x) {
-    const size_t lo = (size_t)m * N + (size_t)head * D + d;
-    const size_t hi = lo + half;
-    const __nv_bfloat16* bias;
-    __nv_bfloat16* out;
-    int local;  // head index inside its own output
-    if (head < Hq) {
-      bias = bq, out = q, local = head;
-    } else if (head < Hq + Hkv) {
-      bias = bk, out = k, local = head - Hq;
+  const __nv_bfloat16* bias = a.bias[seg];
+  // two adjacent pairs per item: float2 loads from the peers, bf16x2 stores
+  for (int i = tid; i < rows * (kPer / 2); i += kThreads) {
+    const int r = i / (kPer / 2);
+    const int p = split * kPer + 2 * (i % (kPer / 2));
+    // pairs p and p + 1: their local columns (lo < hi, each two wide) and
+    // lo's index in its head
+    int lo, hi, d;
+    if (D >= 128) {
+      lo = p;
+      hi = 64 + p;
+      d = d0 + p;
     } else {
-      bias = bv, out = v, local = head - Hq - Hkv;
+      lo = (p >> 5) * 64 + (p & 31);
+      hi = lo + 32;
+      d = p & 31;
     }
-    const int heads = head < Hq ? Hq : Hkv;
-    const int bcol = local * D + d;
-    const float y1 = finish(part, stride, splits, lo, bias, bcol);
-    const float y2 = finish(part, stride, splits, hi, bias, bcol + half);
-    __nv_bfloat16* o = out + ((size_t)m * heads + local) * D;
-    if (head < Hq + Hkv) {
-      const float c = cos_t[(size_t)m * half + d];
-      const float s = sin_t[(size_t)m * half + d];
-      o[d] = __float2bfloat16(__fsub_rn(__fmul_rn(y1, c), __fmul_rn(y2, s)));
-      o[d + half] = __float2bfloat16(__fadd_rn(__fmul_rn(y2, c), __fmul_rn(y1, s)));
+    float2 s1 = make_float2(0.f, 0.f), s2 = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kSplits; ++q) {
+      const float* pr = cluster.map_shared_rank(red, q) + r * kCols;
+      const float2 v1 = *reinterpret_cast<const float2*>(pr + lo);
+      const float2 v2 = *reinterpret_cast<const float2*>(pr + hi);
+      s1 = make_float2(__fadd_rn(s1.x, v1.x), __fadd_rn(s1.y, v1.y));
+      s2 = make_float2(__fadd_rn(s2.x, v2.x), __fadd_rn(s2.y, v2.y));
+    }
+    const int col1 = lo < 64 ? c0 + lo : c1 + lo - 64;
+    const int col2 = hi < 64 ? c0 + hi : c1 + hi - 64;
+    float2 y1 = make_float2(bf16_round(s1.x), bf16_round(s1.y));
+    float2 y2 = make_float2(bf16_round(s2.x), bf16_round(s2.y));
+    if (bias != nullptr) {
+      const float2 b1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col1));
+      const float2 b2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col2));
+      y1 = make_float2(bf16_round(__fadd_rn(y1.x, b1.x)), bf16_round(__fadd_rn(y1.y, b1.y)));
+      y2 = make_float2(bf16_round(__fadd_rn(y2.x, b2.x)), bf16_round(__fadd_rn(y2.y, b2.y)));
+    }
+    const size_t m = (size_t)(row0 + r);
+    __nv_bfloat16* o = a.out[seg] + m * a.width[seg];
+    if (seg < 2) {
+      const float2 cs = *reinterpret_cast<const float2*>(a.cos + m * half + d);
+      const float2 sn = *reinterpret_cast<const float2*>(a.sin + m * half + d);
+      *reinterpret_cast<__nv_bfloat162*>(o + col1) =
+          __floats2bfloat162_rn(__fsub_rn(__fmul_rn(y1.x, cs.x), __fmul_rn(y2.x, sn.x)),
+                                __fsub_rn(__fmul_rn(y1.y, cs.y), __fmul_rn(y2.y, sn.y)));
+      *reinterpret_cast<__nv_bfloat162*>(o + col2) =
+          __floats2bfloat162_rn(__fadd_rn(__fmul_rn(y2.x, cs.x), __fmul_rn(y1.x, sn.x)),
+                                __fadd_rn(__fmul_rn(y2.y, cs.y), __fmul_rn(y1.y, sn.y)));
     } else {
-      o[d] = __float2bfloat16(y1);
-      o[d + half] = __float2bfloat16(y2);
+      *reinterpret_cast<__nv_bfloat162*>(o + col1) = __floats2bfloat162_rn(y1.x, y1.y);
+      *reinterpret_cast<__nv_bfloat162*>(o + col2) = __floats2bfloat162_rn(y2.x, y2.y);
     }
   }
+  // no block leaves while a peer may still read its partials
+  cluster_arrive();
+  cluster_wait();
+}
+
+template <int MT>
+cudaError_t launch(const void* wq, const void* wk, const void* wv, const QkvArgs& a,
+                   cudaStream_t stream) {
+  using L = QkvLayout<MT>;
+  // the tensor maps carry the pointers and M, so they are built per call
+  CUtensorMap tx, tw[3];
+  const cuuint64_t dx[2] = {(cuuint64_t)a.H, (cuuint64_t)a.M};
+  const cuuint64_t sx[1] = {(cuuint64_t)a.H * 2};
+  const cuuint32_t bx[2] = {kKC, MT * 16};
+  int err = make_tensor_map_bf16(&tx, a.x, 2, dx, sx, bx);
+  const void* ws[3] = {wq, wk, wv};
+  for (int s = 0; s < 3 && !err; ++s) {
+    const cuuint64_t dw[2] = {(cuuint64_t)a.width[s], (cuuint64_t)a.H};
+    const cuuint64_t sw[1] = {(cuuint64_t)a.width[s] * 2};
+    const cuuint32_t bw[2] = {64, kKC};
+    err = make_tensor_map_bf16(&tw[s], ws[s], 2, dw, sw, bw);
+  }
+  if (err) return static_cast<cudaError_t>(err);
+  const int chunks = (a.H + kKC - 1) / kKC;
+  const int bytes = L::bytes((chunks + kSplits - 1) / kSplits);  // the longest split's
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_qkv_rope_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const int tiles = (a.width[0] + a.width[1] + a.width[2]) / kCols;
+  const dim3 grid(tiles, kSplits, (a.M + kRowGroup - 1) / kRowGroup);
+  fused_qkv_rope_kernel<MT><<<grid, kThreads, bytes, stream>>>(tx, tw[0], tw[1], tw[2], a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point bound with ctypes. Biases may all be null. xn [M, H] bf16 and
-// part [splits, M, (Hq + 2 Hkv) D] f32 are scratch buffers the wrapper owns,
-// splits = ceil(H / k_split). Returns cudaGetLastError() after the launches
-// (0 = launched).
+// C entry point bound with ctypes. x [M, H], norm_w [H], wq [H, Hq * D],
+// wk / wv [H, Hkv * D], q [M, Hq * D], k / v [M, Hkv * D], the biases
+// (all null, or [Hq * D] / [Hkv * D]) bf16; cos / sin [M, D / 2] f32; every
+// pointer 16-byte aligned. H a multiple of 8; D 64 or a multiple of 128;
+// Hq * D and Hkv * D multiples of 128. One launch, no scratch. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_qkv_rope_bf16(const void* x, const void* norm_w, const void* wq,
                                    const void* wk, const void* wv, const void* bq,
                                    const void* bk, const void* bv, const float* cos_t,
-                                   const float* sin_t, void* q, void* k, void* v, void* xn,
-                                   float* part, int M, int H, int Hq, int Hkv, int D, int k_split,
-                                   float eps, void* stream) {
-  if (M <= 0 || D % 2 || H % kGemmKC || k_split % kGemmKC || (Hq * D) % kGemmCols ||
-      (Hkv * D) % kGemmCols)
+                                   const float* sin_t, void* q, void* k, void* v, int M, int H,
+                                   int Hq, int Hkv, int D, float eps, void* stream) {
+  if (M <= 0 || H <= 0 || H % 8 || !(D == 64 || (D > 0 && D % 128 == 0)) || Hq <= 0 ||
+      Hkv <= 0 || (Hq * D) % kCols || (Hkv * D) % kCols)
     return cudaErrorInvalidValue;
+  QkvArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.norm_w = static_cast<const __nv_bfloat16*>(norm_w);
+  a.bias[0] = static_cast<const __nv_bfloat16*>(bq);
+  a.bias[1] = static_cast<const __nv_bfloat16*>(bk);
+  a.bias[2] = static_cast<const __nv_bfloat16*>(bv);
+  a.cos = cos_t;
+  a.sin = sin_t;
+  a.out[0] = static_cast<__nv_bfloat16*>(q);
+  a.out[1] = static_cast<__nv_bfloat16*>(k);
+  a.out[2] = static_cast<__nv_bfloat16*>(v);
+  a.width[0] = Hq * D;
+  a.width[1] = a.width[2] = Hkv * D;
+  a.M = M;
+  a.H = H;
+  a.D = D;
+  a.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  auto* xnb = static_cast<__nv_bfloat16*>(xn);
-  rmsnorm_rows<<<M, kNormThreads, 0, s>>>(xb, static_cast<const __nv_bfloat16*>(norm_w), xnb, H,
-                                           eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  GemmSegments seg;
-  seg.w[0] = static_cast<const __nv_bfloat16*>(wq);
-  seg.w[1] = static_cast<const __nv_bfloat16*>(wk);
-  seg.w[2] = static_cast<const __nv_bfloat16*>(wv);
-  seg.n[0] = Hq * D;
-  seg.n[1] = seg.n[2] = Hkv * D;
-  err = launch_splitk_gemm(xnb, seg, part, M, H, k_split, s);
-  if (err != cudaSuccess) return err;
-  const int splits = (H + k_split - 1) / k_split;
-  const int threads = std::min(std::max(D / 2, 32), 128);
-  qkv_epilogue<<<dim3(M, Hq + 2 * Hkv), threads, 0, s>>>(
-      part, splits, M, static_cast<const __nv_bfloat16*>(bq),
-      static_cast<const __nv_bfloat16*>(bk), static_cast<const __nv_bfloat16*>(bv), cos_t, sin_t,
-      static_cast<__nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(k),
-      static_cast<__nv_bfloat16*>(v), Hq, Hkv, D);
-  return cudaGetLastError();
+  switch (std::min((M + 15) / 16, kRowGroup / 16)) {
+    case 1: return launch<1>(wq, wk, wv, a, s);
+    case 2: return launch<2>(wq, wk, wv, a, s);
+    case 3: return launch<3>(wq, wk, wv, a, s);
+    default: return launch<4>(wq, wk, wv, a, s);
+  }
 }

@@ -1,10 +1,8 @@
 // Building blocks shared by the port's tensor-core kernels
 // (flash_prefill_attention.cu, fused_qkv_rope.cu, fused_attn_out_residual.cu,
-// paged_attention.cuh): bf16 mma.sync with f32 accumulators, cp.async
-// global -> shared copies and ldmatrix fragment loads, the split-K skinny
-// product of the fused QKV kernel, and Hopper's asynchronous machinery --
-// mbarriers, 1-D bulk copies, TMA tensor copies and the host-side tensor
-// maps they read.
+// paged_attention.cuh): bf16 mma.sync with f32 accumulators, ldmatrix
+// fragment loads, and Hopper's asynchronous machinery -- mbarriers, 1-D
+// bulk copies, TMA tensor copies and the host-side tensor maps they read.
 // Everything here is inline or a template, so each library that includes it
 // carries its own copy.
 #pragma once
@@ -139,21 +137,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16-byte global -> shared copy that bypasses registers; pred false writes
-// zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(gmem),
-               "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // four 8x8 b16 matrices from shared memory; lane l gives the address of row
 // l % 8 of matrix l / 8 and receives (row l / 4, cols 2 * (l % 4) + {0, 1})
 // of each (transposed with .trans)
@@ -184,175 +167,8 @@ __device__ __forceinline__ void ldsm_x4_trans_at(uint32_t (&r)[4], uint32_t a) {
                : "r"(a));
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // (lo, hi) -> one register, lo in the low 16 bits (the lower-indexed element)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------- split-K GEMM
-//
-// part[split, m, n] = sum over k in the split's slice of A[m, k] * W[k, n]:
-// the skinny product (M <= 64 rows per row group) of the fused QKV kernel.
-// W is bf16 [K, N] row-major, given as up to three column segments
-// (wq | wk | wv), each a multiple of kGemmCols wide. The f32 partials of the splits are
-// summed, in split order, by the caller's combine-and-epilogue kernel, so
-// the result does not depend on scheduling.
-//
-// What bounds it: weight bytes. At M <= 64 the product does 2 * M flops per
-// weight byte pair, far under the ~295 flop/byte ridge, so every weight
-// element is read once for all M rows (the rows ride the mma M dimension)
-// and the K dimension is split over enough blocks (~4 per SM) to keep
-// 3.35 TB/s of loads in flight. Chunks of kGemmKC weight rows arrive by
-// cp.async in a kGemmStages-deep ring.
-
-constexpr int kGemmThreads = 128;  // 4 warps, 32 output columns each
-constexpr int kGemmCols = 128;     // output columns per block
-constexpr int kGemmKC = 32;        // contraction rows per pipeline chunk
-constexpr int kGemmStages = 3;
-constexpr int kGemmRows = 64;      // rows per row group (grid z)
-
-struct GemmSegments {
-  const __nv_bfloat16* w[3];
-  int n[3];  // widths; unused segments have width 0
-};
-
-template <int MT>  // 16-row m tiles in a row group: 1..4
-__global__ void __launch_bounds__(kGemmThreads)
-splitk_gemm_kernel(const __nv_bfloat16* __restrict__ a,  // [M, K]
-                   GemmSegments seg, float* __restrict__ part,  // [splits, M, N]
-                   int M, int K, int k_split) {
-  constexpr int kAStride = kGemmKC + 8;    // padded rows: conflict-free fragment loads
-  constexpr int kWStride = kGemmCols + 8;
-  __shared__ __align__(16) __nv_bfloat16 sA[kGemmStages][MT * 16][kAStride];
-  __shared__ __align__(16) __nv_bfloat16 sW[kGemmStages][kGemmKC][kWStride];
-
-  const int N = seg.n[0] + seg.n[1] + seg.n[2];
-  const int col0 = blockIdx.x * kGemmCols;
-  const int split = blockIdx.y;
-  const int row0 = blockIdx.z * kGemmRows;
-  const int k_begin = split * k_split;
-  const int k_end = min(K, k_begin + k_split);
-  const int n_chunks = (k_end - k_begin) / kGemmKC;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-
-  // this block's column tile lies inside one segment
-  const __nv_bfloat16* w = seg.w[0];
-  int ld = seg.n[0], wc = col0;
-  if (col0 >= seg.n[0] + seg.n[1]) {
-    w = seg.w[2];
-    ld = seg.n[2];
-    wc = col0 - seg.n[0] - seg.n[1];
-  } else if (col0 >= seg.n[0]) {
-    w = seg.w[1];
-    ld = seg.n[1];
-    wc = col0 - seg.n[0];
-  }
-
-  auto load = [&](int c, int stage) {
-    const int k0 = k_begin + c * kGemmKC;
-    constexpr int kWPieces = kGemmKC * kGemmCols / 8;
-    for (int i = tid; i < kWPieces; i += kGemmThreads) {
-      const int r = i / (kGemmCols / 8);
-      const int cc = (i % (kGemmCols / 8)) * 8;
-      cp_async16(&sW[stage][r][cc], w + (size_t)(k0 + r) * ld + wc + cc, true);
-    }
-    constexpr int kAPieces = MT * 16 * kGemmKC / 8;
-    for (int i = tid; i < kAPieces; i += kGemmThreads) {
-      const int r = i / (kGemmKC / 8);
-      const int cc = (i % (kGemmKC / 8)) * 8;
-      const int m = row0 + r;
-      const bool live = m < M;
-      cp_async16(&sA[stage][r][cc], live ? a + (size_t)m * K + k0 + cc : a, live);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < n_chunks) load(s, s);
-    cp_async_commit();  // empty groups keep the wait counts uniform
-  }
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
-
-  const int mat = lane >> 3;
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<kGemmStages - 2>();  // chunk c has landed
-    __syncthreads();                   // ... for every thread; chunk c-1's stage is free
-    if (c + kGemmStages - 1 < n_chunks) load(c + kGemmStages - 1, (c + kGemmStages - 1) % kGemmStages);
-    cp_async_commit();
-    const int st = c % kGemmStages;
-#pragma unroll
-    for (int kk = 0; kk < kGemmKC / 16; ++kk) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r = mt * 16 + gid;
-        const int cc = kk * 16 + tig * 2;
-        af[mt][0] = ld_pair(&sA[st][r][cc]);
-        af[mt][1] = ld_pair(&sA[st][r + 8][cc]);
-        af[mt][2] = ld_pair(&sA[st][r][cc + 8]);
-        af[mt][3] = ld_pair(&sA[st][r + 8][cc + 8]);
-      }
-      // B fragments by ldmatrix.trans: matrices (k lo, n tile j), (k hi, j),
-      // (k lo, j + 1), (k hi, j + 1)
-      const __nv_bfloat16* wr = &sW[st][kk * 16 + (mat & 1) * 8 + (lane & 7)][warp * 32];
-#pragma unroll
-      for (int n = 0; n < 4; n += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, wr + (n + (mat >> 1)) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_16816(acc[mt][n], af[mt], b[0], b[1]);
-          mma_16816(acc[mt][n + 1], af[mt], b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  float* out = part + (size_t)split * M * N;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int col = col0 + warp * 32 + n * 8 + tig * 2;
-      const int m0 = row0 + mt * 16 + gid;
-      if (m0 < M)
-        *reinterpret_cast<float2*>(out + (size_t)m0 * N + col) = make_float2(acc[mt][n][0], acc[mt][n][1]);
-      if (m0 + 8 < M)
-        *reinterpret_cast<float2*>(out + (size_t)(m0 + 8) * N + col) =
-            make_float2(acc[mt][n][2], acc[mt][n][3]);
-    }
-  }
-}
-
-// Launch the split-K product over every row group; k_split is a multiple of
-// kGemmKC and every segment width a multiple of kGemmCols (the wrappers
-// check both).
-inline cudaError_t launch_splitk_gemm(const __nv_bfloat16* a, const GemmSegments& seg, float* part,
-                                      int M, int K, int k_split, cudaStream_t stream) {
-  const int N = seg.n[0] + seg.n[1] + seg.n[2];
-  const dim3 grid(N / kGemmCols, (K + k_split - 1) / k_split, (M + kGemmRows - 1) / kGemmRows);
-  const int mt = (std::min(M, kGemmRows) + 15) / 16;
-  switch (mt) {
-    case 1: splitk_gemm_kernel<1><<<grid, kGemmThreads, 0, stream>>>(a, seg, part, M, K, k_split); break;
-    case 2: splitk_gemm_kernel<2><<<grid, kGemmThreads, 0, stream>>>(a, seg, part, M, K, k_split); break;
-    case 3: splitk_gemm_kernel<3><<<grid, kGemmThreads, 0, stream>>>(a, seg, part, M, K, k_split); break;
-    case 4: splitk_gemm_kernel<4><<<grid, kGemmThreads, 0, stream>>>(a, seg, part, M, K, k_split); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
 }

@@ -5,7 +5,8 @@
 //
 // The work: a (lane b, kv head h) pair has R query rows -- decode R = G, the
 // kv head's GQA group at position base = context_lens[b] - 1; verify R = S * G,
-// row r at position base + r / G, base = positions[b, 0]. Row r sees key kpos
+// row r at position base + r / G, base = positions[b, 0]. Any group G: the
+// rows go in 16-row tiles (ceil(R / 16) of them), the last one padded. Row r sees key kpos
 // iff kpos <= its position and, with a window, position - kpos < window. The
 // keys live in pages of the cache [Hkv, num_blocks, block_size, D], found
 // through the lane's block table at min(kpos / block_size, last_page). Scale
@@ -31,7 +32,8 @@
 //   * one producer warp walks the block table and copies the split's key
 //     rows, kStageKeys consecutive positions per stage, into a ring in
 //     shared memory (kDecodeStages / kVerifyStages deep: three decode
-//     blocks or one verify block per SM, whichever measured faster) with
+//     blocks or one verify block per SM, whichever measured faster; verify
+//     at D = 256 takes 2 stages, what fits) with
 //     cp.async.bulk (1-D TMA, no tensor map), completing on the stage's
 //     "full" mbarrier; the consumers release a
 //     stage on its "empty" mbarrier. Each run of the stage's keys that lies
@@ -97,14 +99,15 @@ __host__ __device__ constexpr int row_stride() {  // bf16 elements per shared K/
   return D;  // unpadded: page runs land as they lie in the cache
 }
 
-template <bool kDecode>
+// verify's deeper ring does not fit the shared memory at D = 256: two stages
+template <int D, bool kDecode>
 __host__ __device__ constexpr int ring_stages() {
-  return kDecode ? kDecodeStages : kVerifyStages;
+  return kDecode ? kDecodeStages : (D > 128 ? 2 : kVerifyStages);
 }
 
 template <int D, bool kDecode>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return (size_t)ring_stages<kDecode>() * 2 * kStageKeys * row_stride<D>() * 2;
+  return (size_t)ring_stages<D, kDecode>() * 2 * kStageKeys * row_stride<D>() * 2;
 }
 
 template <int D, bool kDecode>
@@ -145,7 +148,7 @@ __device__ __forceinline__ uint32_t bf16_residual(float a, float b, uint32_t hi)
 template <int D, bool kDecode>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params p) {
   constexpr int kS = row_stride<D>();
-  constexpr int kStages = ring_stages<kDecode>();
+  constexpr int kStages = ring_stages<D, kDecode>();
   constexpr int kVec = D / 8;  // 16-byte pieces per row
   constexpr bool kQRegs = D <= 128;  // Q fragments in registers (else reloaded per chunk)
   const int pair = blockIdx.x;  // splits outermost: the blocks of split 0 start first

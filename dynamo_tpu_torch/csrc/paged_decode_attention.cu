@@ -14,23 +14,27 @@
 // Design: the page-streaming template of paged_attention.cuh with R = G rows
 // at the single position context_lens[b] - 1: a producer warp bulk-copies
 // the live key rows into a 2-stage shared ring, four consumer warps score
-// them on mma.sync (the G rows padded to one m16 tile) and fold P V in with
+// them on mma.sync (the G rows in 16-row m16 tiles, the last one padded;
+// a group of more than 16 streams its keys once per tile) and fold P V in with
 // P split into a bf16 hi and lo pair, so the softmax weights keep f32
 // precision; the splits of a long context are merged by the last split to
 // finish, in the same launch. Keys outside [ctx_len - window, ctx_len) are
 // never read. Not yet (later work): int8 pages with per-(head, page) scales.
 #include "paged_attention.cuh"
 
-// Splits per (sequence, kv head): the wrapper sizes the partial buffers
-// part_acc [B * Hkv, 1, splits, 16, D] and part_ml [B * Hkv, 1, splits, 16, 2]
-// with it.
-extern "C" int paged_decode_num_splits(int B, int Hkv, int max_blocks, int block_size) {
-  return paged::num_splits(B, Hkv, 1, max_blocks, block_size);
+// Splits per (sequence, kv head, 16-row tile): the wrapper sizes the partial
+// buffers part_acc [B * Hkv, T, splits, 16, D] and part_ml
+// [B * Hkv, T, splits, 16, 2] with it (T = ceil(G / 16) tiles of the group).
+extern "C" int paged_decode_num_splits(int B, int Hq, int Hkv, int max_blocks, int block_size) {
+  if (Hkv <= 0) return 1;
+  const int tiles = (Hq / Hkv + paged::kRows - 1) / paged::kRows;
+  return paged::num_splits(B, Hkv, tiles, max_blocks, block_size);
 }
 
 // C entry point bound with ctypes. softcap <= 0 and window <= 0 mean "off".
-// tickets: B * Hkv int32 counters, zero on entry and left zero. Returns
-// cudaGetLastError() after the launch (0 = launched).
+// Any GQA group G = Hq / Hkv. tickets: B * Hkv * T int32 counters, zero on
+// entry and left zero. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int paged_decode_attention_bf16(const void* q, const void* k_cache,
                                            const void* v_cache, const int* block_tables,
                                            const int* context_lens, void* out,
@@ -38,8 +42,7 @@ extern "C" int paged_decode_attention_bf16(const void* q, const void* k_cache,
                                            int Hq, int Hkv, int D, int num_blocks, int block_size,
                                            int max_blocks, int num_splits, float scale,
                                            float softcap, int window, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > paged::kRows || num_splits <= 0)
-    return cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv != 0 || num_splits <= 0) return cudaErrorInvalidValue;
   const paged::Params p{static_cast<const __nv_bfloat16*>(q),
                         static_cast<const __nv_bfloat16*>(k_cache),
                         static_cast<const __nv_bfloat16*>(v_cache),

@@ -21,8 +21,9 @@
 // ~295 flop/byte ridge.
 //
 // Design: the page-streaming template of paged_attention.cuh with R = S * G
-// rows in 16-row tiles (one tile at spec_k 3, G 4): a producer warp
-// bulk-copies each live key row once into a 4-stage shared ring for all
+// rows in 16-row tiles (one tile at spec_k 3, G 4; any G): a producer warp
+// bulk-copies each live key row once into a 4-stage shared ring (2 stages
+// at D = 256) for all
 // rows of the tile, four consumer warps run S = Q K^T and O += P V on
 // mma.sync with the causal mask per row, P split into a bf16 hi and lo
 // pair for the second product; the splits are merged by the last split to finish, in the same
@@ -76,6 +77,7 @@ extern "C" int paged_verify_attention_bf16(const void* q, const void* k_cache,
   switch (D) {
     case 64: return paged::launch<64, false>(p, B, s);
     case 128: return paged::launch<128, false>(p, B, s);
+    case 256: return paged::launch<256, false>(p, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

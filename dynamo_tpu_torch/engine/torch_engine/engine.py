@@ -17,6 +17,12 @@ finish reason. It is the JAX engine's loop with chunking off, reduced to:
   * stop conditions: ``max_tokens`` (default 16), EOS and
     ``stop_token_ids_hidden`` unless ``ignore_eos`` (the stop token itself
     is not streamed), and ``max_model_len``;
+  * frequency / presence / repetition penalties and ``min_tokens``, as the
+    JAX engine applies them (engine.py:304-345): the runner penalises the
+    logits on the device (the history goes up only when a lane has
+    penalties) and masks the first MAX_EOS_IDS stop ids until a sequence
+    has its minimum; a stop id past those that is still sampled early is
+    dropped and redrawn with a fresh key, at most four times;
   * a prompt longer than ``max_model_len`` is refused (``prompt_too_long``);
   * cancellation (``Context.kill`` or the consumer leaving the stream)
     frees the lane and its blocks at the next loop step;
@@ -32,9 +38,8 @@ on a single worker thread so the event loop keeps streaming while the card
 works.
 
 Left out (ROADMAP.md lists them): packed / chunked / mixed prefill, the
-decode horizon, penalties and min_tokens, the tiered
-block manager and KV events, disaggregation, QoS classes and deadlines,
-tracing and the watchdog.
+decode horizon, the tiered block manager and KV events, disaggregation, QoS
+classes and deadlines, tracing and the watchdog.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ import numpy as np
 from dynamo_tpu_torch.engine.torch_engine.drafter import make_drafter
 from dynamo_tpu_torch.engine.torch_engine.kv_cache import BlockAllocator, OutOfBlocks
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
-from dynamo_tpu_torch.ops.sampling import SAMPLE_CANDIDATES, make_key_data
+from dynamo_tpu_torch.ops.sampling import MAX_EOS_IDS, SAMPLE_CANDIDATES, make_key_data
 from dynamo_tpu_torch.protocols.common import (
     Context,
     FinishReason,
@@ -120,9 +125,20 @@ class _Sequence:
         # the sampler draws restricted rows from a SAMPLE_CANDIDATES pool
         self.top_k = min(s.top_k if s.top_k is not None else 0, SAMPLE_CANDIDATES)
         self.max_new = request.stop.max_tokens or 16
+        self.min_tokens = request.stop.min_tokens or 0
+        self.freq_pen = float(s.frequency_penalty or 0.0)
+        self.pres_pen = float(s.presence_penalty or 0.0)
+        self.rep_pen = float(s.repetition_penalty or 1.0) or 1.0
+        self.has_penalties = bool(self.freq_pen or self.pres_pen or self.rep_pen != 1.0)
         self.seed = s.seed
         self.want_logprobs = bool(s.logprobs)
         self.num_top_lp = min(int(s.top_logprobs or 0), 20)
+        # min_tokens: the first MAX_EOS_IDS sorted stop ids are masked on the
+        # device until the minimum is generated
+        self.eos_row = np.full(MAX_EOS_IDS, -1, np.int64)
+        for j, t in enumerate(sorted(self.eos)[:MAX_EOS_IDS]):
+            self.eos_row[j] = t
+        self.eos_drops = 0  # early stop ids past the mask, dropped and redrawn
         # spec decoding: consecutive fully rejected drafts, and dispatches
         # left before this lane drafts again
         self.spec_fail = 0
@@ -131,6 +147,10 @@ class _Sequence:
     @property
     def num_generated(self) -> int:
         return len(self.token_ids) - self.num_prompt
+
+    @property
+    def needs_eos_suppress(self) -> bool:
+        return self.min_tokens > 0 and self.num_generated < self.min_tokens and bool(self.eos)
 
     def blocks_needed(self, block_size: int) -> int:
         return (len(self.token_ids) + block_size - 1) // block_size
@@ -239,7 +259,9 @@ class TorchEngine:
 
     def _key_row(self, seq: _Sequence) -> np.ndarray:
         stream = seq.seed if seq.seed is not None else self._seed_base + seq.seq_id
-        return make_key_data(stream, seq.num_generated)
+        # dropped early stop ids ride the high counter bits, so a redraw uses
+        # a fresh key (generation counters stay far below 2^16)
+        return make_key_data(stream, seq.num_generated + (seq.eos_drops << 16))
 
     def _free_seq(self, seq: _Sequence) -> None:
         if seq.slot is not None:
@@ -328,10 +350,12 @@ class TorchEngine:
             replay = list(seq.token_ids)  # after preemption: prompt + generated
             key_row = self._key_row(seq)
             runner = self.runner
+            eos_suppress = seq.needs_eos_suppress
             sample = await self._device(
                 lambda: runner.fetch_sample(runner.prefill(
                     replay, seq.block_ids, seq.temperature, seq.top_p,
-                    seq.top_k, key_data=key_row,
+                    seq.top_k, rep_pen=seq.rep_pen, key_data=key_row,
+                    eos_ids=seq.eos_row, eos_suppress=eos_suppress,
                 ))
             )
             self.stats.prefills += 1
@@ -379,12 +403,48 @@ class TorchEngine:
                 return
         await self._decode_single_phase(active)
 
+    def _eos_rows(self, active: list[_Sequence]) -> tuple[np.ndarray, np.ndarray]:
+        """Each lane's stop-id row and whether its EOS is masked this step."""
+        B = self.config.max_batch
+        eos_ids = np.full((B, MAX_EOS_IDS), -1, np.int64)
+        eos_sup = np.zeros(B, bool)
+        for seq in active:
+            eos_ids[seq.slot] = seq.eos_row
+            eos_sup[seq.slot] = seq.needs_eos_suppress
+        return eos_ids, eos_sup
+
+    def _penalty_rows(self, active: list[_Sequence]) -> tuple[np.ndarray, ...]:
+        """(hist, hist_len, prompt_len, freq, pres, rep) of every lane, the
+        history padded to max_model_len."""
+        B, L = self.config.max_batch, self.config.max_model_len
+        hist = np.zeros((B, L), np.int64)
+        hist_len = np.zeros(B, np.int64)
+        prompt_len = np.zeros(B, np.int64)
+        freq = np.zeros(B, np.float32)
+        pres = np.zeros(B, np.float32)
+        rep = np.ones(B, np.float32)
+        for seq in active:
+            i = seq.slot
+            n = min(len(seq.token_ids), L)
+            hist[i, :n] = seq.token_ids[:n]
+            hist_len[i] = n
+            prompt_len[i] = min(seq.num_prompt, n)
+            freq[i], pres[i], rep[i] = seq.freq_pen, seq.pres_pen, seq.rep_pen
+        return hist, hist_len, prompt_len, freq, pres, rep
+
     async def _decode_single_phase(self, active: list[_Sequence]) -> None:
         bs = self.config.block_size
         self._clear_lanes()
         for seq in active:
             pos = self._fill_lane(seq)
             self._slot_indices[seq.slot] = seq.block_ids[pos // bs] * bs + pos % bs
+        # the history goes up only when a lane has penalties; a min_tokens
+        # lane alone needs only the stop-id rows
+        penalties = eos_mask = None
+        if any(s.has_penalties for s in active):
+            penalties = (*self._penalty_rows(active), *self._eos_rows(active))
+        elif any(s.needs_eos_suppress for s in active):
+            eos_mask = self._eos_rows(active)
         runner = self.runner
         args = (
             self._tokens.copy(), self._positions.copy(), self._block_tables.copy(),
@@ -392,7 +452,8 @@ class TorchEngine:
             self._top_ks.copy(), self._keys.copy(),
         )
         toks, lps, tids, tlps = await self._device(
-            lambda: runner.fetch_sample(runner.decode(*args[:7], keys=args[7]))
+            lambda: runner.fetch_sample(runner.decode(
+                *args[:7], keys=args[7], penalties=penalties, eos_mask=eos_mask))
         )
         self.stats.decode_steps += 1
         for seq in active:
@@ -404,7 +465,11 @@ class TorchEngine:
     def _collect_drafts(self, active: list[_Sequence]) -> Optional[dict[int, list[int]]]:
         """Host drafting pass: seq_id -> proposed continuation tokens, or
         None for a plain decode step (no lane drafted, or fewer than
-        ``spec_min_coverage`` of them)."""
+        ``spec_min_coverage`` of them, or a min_tokens lane holds more stop
+        ids than the device mask: its early stop ids need a redraw per
+        token, as in the JAX engine)."""
+        if any(s.needs_eos_suppress and len(s.eos) > MAX_EOS_IDS for s in active):
+            return None
         out: dict[int, list[int]] = {}
         for seq in active:
             if seq.spec_backoff > 0:
@@ -445,27 +510,35 @@ class TorchEngine:
         self._clear_lanes()
         act = np.zeros(B, bool)
         limit_rem = np.ones(B, np.int64)
+        min_rem = np.zeros(B, np.int64)
         draft_arr = np.full((B, K), -1, np.int64)
         draft_len = np.zeros(B, np.int64)
+        eos_ids, _ = self._eos_rows(active)
         for seq in active:
             i = seq.slot
             self._fill_lane(seq)
             act[i] = True
             limit_rem[i] = self._lane_remaining(seq)
+            min_rem[i] = max(0, seq.min_tokens - seq.num_generated)
             d = drafts[seq.seq_id]
             draft_len[i] = len(d)
             if d:
                 draft_arr[i, : len(d)] = d
                 self.stats.num_drafts += 1
                 self.stats.num_draft_tokens += len(d)
+        # penalties ride the verify positions: one history upload per dispatch
+        penalties = (
+            self._penalty_rows(active) if any(s.has_penalties for s in active) else None
+        )
         runner = self.runner
         args = (
             self._tokens.copy(), draft_arr, draft_len, self._positions.copy(),
             self._block_tables.copy(), self._temps.copy(), self._top_ps.copy(),
-            self._top_ks.copy(), self._keys.copy(), act, limit_rem,
+            self._top_ks.copy(), self._keys.copy(), act, limit_rem, min_rem, eos_ids,
         )
         # one device-to-host copy of the packed [S, B, 2 + 2K] samples
-        packed = await self._device(lambda: runner.spec_verify(K, 0, *args).cpu().numpy())
+        packed = await self._device(
+            lambda: runner.spec_verify(K, 0, *args, penalties=penalties).cpu().numpy())
         self.stats.verify_steps += 1
         n_top = (packed.shape[-1] - 2) // 2
         for seq in active:
@@ -506,7 +579,16 @@ class TorchEngine:
             self._finish(seq, FinishReason.CANCELLED)
             return
         if token in seq.eos:
-            self._finish(seq, FinishReason.EOS)  # the stop token stays hidden
+            if seq.num_generated >= seq.min_tokens:
+                self._finish(seq, FinishReason.EOS)  # the stop token stays hidden
+                return
+            # min_tokens not reached, yet a stop id past the device mask's
+            # MAX_EOS_IDS was sampled: drop it and redraw next step with a
+            # fresh key (_key_row); a greedy lane may repeat it, so finish
+            # after a few drops
+            seq.eos_drops += 1
+            if seq.eos_drops > 4:
+                self._finish(seq, FinishReason.EOS)
             return
         seq.token_ids.append(token)
         out = LLMEngineOutput(token_ids=[token])

@@ -18,6 +18,7 @@ from dynamo_tpu_torch.engine.torch_engine.engine import TorchEngine, TorchEngine
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
 from dynamo_tpu_torch.engine.torch_engine.weights import init_params
 from dynamo_tpu_torch.models.llama import LlamaConfig, param_count
+from dynamo_tpu_torch.ops.kernels import card_shape_problems
 
 # assumed device memory when the device cannot be asked (the CPU)
 _DEFAULT_BUDGET_BYTES = 16 * 2**30
@@ -121,9 +122,22 @@ def build_torch_engine(
     ``fused_decode``, ``spec_k`` and ``spec_min_coverage`` default to what
     ``DYN_FUSED_DECODE`` and ``DYN_SPEC_*`` say (fused and spec off when
     unset); the drafter's kind and n-gram bounds come from the
-    environment."""
-    dev = resolve_device(device)
+    environment.
+
+    On the card, a config whose shapes a kernel of its path would refuse
+    raises ValueError here, before any request (and before the card is
+    looked for), naming each refusal; nothing falls back to a plain
+    version."""
     cfg, model_dir = _resolve_config(config)
+    if fused_decode is None:
+        fused_decode = fused_decode_from_env()
+    if torch.device(device).type == "cuda":
+        problems = card_shape_problems(cfg, fused_decode)
+        if problems:
+            raise ValueError(
+                "the card's kernels do not take this model's shapes: " + "; ".join(problems)
+            )
+    dev = resolve_device(device)
     if model_dir and glob.glob(os.path.join(model_dir, "*.safetensors")):
         raise NotImplementedError(
             f"{model_dir} holds safetensors weights; loading checkpoints is "
@@ -136,8 +150,6 @@ def build_torch_engine(
             budget_bytes=device_memory_bytes(dev),
             dtype_bytes=torch.empty((), dtype=dtype).element_size(),
         )
-    if fused_decode is None:
-        fused_decode = fused_decode_from_env()
     spec = spec_decode_settings()
     if spec_k is not None:
         spec["spec_k"] = spec_k

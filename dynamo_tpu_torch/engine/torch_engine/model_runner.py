@@ -15,11 +15,15 @@ single-device path:
     reads a step's results with ONE device-to-host copy (``fetch_sample``,
     or the packed array of ``spec_verify``);
   * ``fused_decode`` runs every decode and verify step through the fused
-    norm+QKV+RoPE and o-proj+residual heads (models/llama.py).
+    norm+QKV+RoPE and o-proj+residual heads (models/llama.py);
+  * the repetition / frequency / presence penalties and the min_tokens EOS
+    mask run on the device before sampling, as the JAX runner's
+    ``_sample_one`` (:475-482), ``_decode_pen_impl`` / ``_decode_eos_impl``
+    (:889, :909) and the verify pass (:778, :800-820) apply them; the token
+    history goes up only when a lane has penalties.
 
-Not ported yet: the repetition / frequency / presence penalties and the
-min_tokens EOS mask, packed / chunked / mixed prefill, the decode horizon
-(also after a verify pass), disaggregated block moves and sharded meshes.
+Not ported yet: packed / chunked / mixed prefill, the decode horizon (also
+after a verify pass), disaggregated block moves and sharded meshes.
 """
 
 from __future__ import annotations
@@ -32,7 +36,17 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
-from dynamo_tpu_torch.ops.sampling import make_key_data, sample_args, sample_tokens_full
+from dynamo_tpu_torch.ops.sampling import (
+    MAX_EOS_IDS,
+    apply_penalties,
+    apply_penalties_from_tables,
+    apply_repetition_penalty_from_prompt,
+    make_key_data,
+    mask_eos_logits,
+    penalty_count_tables,
+    sample_args,
+    sample_tokens_full,
+)
 
 
 def default_prefill_buckets(block_size: int, max_len: int) -> list[int]:
@@ -136,11 +150,15 @@ class TorchModelRunner:
         temperature: float,
         top_p: float,
         top_k: int,
+        rep_pen: float = 1.0,
         key_data: Optional[np.ndarray] = None,
+        eos_ids: Optional[np.ndarray] = None,  # [MAX_EOS_IDS], -1 pads
+        eos_suppress: bool = False,  # min_tokens not yet reached
     ) -> SampleOut:
         """Run one prompt (its K/V lands in ``block_ids``); returns
         (token, logprob, top_ids, top_logprobs) device tensors, each with a
-        leading batch dim of 1, for the first sampled token."""
+        leading batch dim of 1, for the first sampled token, after the
+        prompt's repetition penalty and the min_tokens EOS mask."""
         T = len(token_ids)
         bucket = self.pick_bucket(T)
         tokens = np.zeros(bucket, np.int64)
@@ -150,10 +168,18 @@ class TorchModelRunner:
         table[:used] = block_ids[:used]  # padding blocks go to null block 0
         if key_data is None:
             key_data = self._next_key_data()
+        tokens_d = self._dev(tokens, np.int64)
         logits = llama.prefill(
-            self.params, self.config, self._dev(tokens, np.int64), T,
+            self.params, self.config, tokens_d, T,
             self.k_cache, self.v_cache, self._dev(table, np.int64),
         )
+        # the reference applies both always; they are bitwise no-ops when
+        # off, so they are skipped then
+        if rep_pen != 1.0:
+            logits = apply_repetition_penalty_from_prompt(logits, tokens_d, T, rep_pen)
+        if eos_suppress and eos_ids is not None:
+            logits = mask_eos_logits(
+                logits, self._dev(eos_ids, np.int64), torch.tensor(True, device=self.device))
         args = sample_args([temperature], [top_p], [top_k], [key_data], self.device)
         return sample_tokens_full(logits[None], *args, all_greedy=temperature <= 0)
 
@@ -168,6 +194,13 @@ class TorchModelRunner:
         top_ps: np.ndarray,
         top_ks: np.ndarray,
         keys: Optional[np.ndarray] = None,  # [B, 2] (stream, counter) rows
+        penalties: Optional[tuple] = None,
+        # (hist [B, L], hist_len [B], prompt_len [B], freq [B], pres [B],
+        # rep [B], eos_ids [B, MAX_EOS_IDS], eos_suppress [B]): penalties
+        # from the full history, then the EOS mask
+        eos_mask: Optional[tuple] = None,
+        # (eos_ids, eos_suppress): min_tokens without penalties, no history
+        # upload; ignored when penalties is given
     ) -> SampleOut:
         """One batched decode step. Returns (tokens, logprobs, top_ids,
         top_logprobs) device tensors, batch-major."""
@@ -179,6 +212,17 @@ class TorchModelRunner:
             self.k_cache, self.v_cache,
             self._dev(block_tables, np.int32), self._dev(slot_indices, np.int64),
         )
+        if penalties is not None:
+            hist, hist_len, prompt_len, freq, pres, rep, eos_ids, eos_sup = penalties
+            logits = apply_penalties(
+                logits, self._dev(hist, np.int64), self._dev(hist_len, np.int64),
+                self._dev(prompt_len, np.int64), self._dev(freq, np.float32),
+                self._dev(pres, np.float32), self._dev(rep, np.float32),
+            )
+            eos_mask = (eos_ids, eos_sup)
+        if eos_mask is not None:
+            logits = mask_eos_logits(
+                logits, self._dev(eos_mask[0], np.int64), self._dev(eos_mask[1], bool))
         args = sample_args(temps, top_ps, top_ks, keys, self.device)
         return sample_tokens_full(
             logits, *args, all_greedy=bool((np.asarray(temps) <= 0).all())
@@ -201,6 +245,11 @@ class TorchModelRunner:
         keys: np.ndarray,  # [B, 2] (stream, counter) rows of position 0
         active: np.ndarray,  # [B] bool
         limit_remaining: np.ndarray,  # [B] tokens the lane may still emit
+        min_remaining: Optional[np.ndarray] = None,  # [B] positions whose EOS stays masked
+        eos_ids: Optional[np.ndarray] = None,  # [B, MAX_EOS_IDS], -1 pads
+        penalties: Optional[tuple] = None,
+        # (hist [B, L], hist_len, prompt_len, freq, pres, rep): the
+        # history's count tables, advanced by each fed draft token
     ) -> torch.Tensor:
         """Speculative draft-verify dispatch: ONE weight pass
         (llama.decode_verify) scores S = spec_k + 1 positions per lane --
@@ -212,6 +261,11 @@ class TorchModelRunner:
         to the null slot 0 and come back as token -1. Rejected draft
         positions leave K/V ahead of the accepted frontier; the next fed
         token overwrites it before anything attends to it.
+
+        Position h of a lane masks its EOS ids while h < min_remaining.
+        With penalties, position h is penalised from the history plus the
+        drafts fed at positions 1..h (a rejected draft only changes
+        positions whose outputs the host discards).
 
         Returns the packed [S, B, 2 + 2 * num_top] f32 device array (token
         or -1, logprob, top ids, top logprobs per position), for one
@@ -248,6 +302,36 @@ class TorchModelRunner:
             self._dev(qpos, np.int64), self.k_cache, self.v_cache,
             self._dev(tables, np.int32), self._dev(slot, np.int64),
         )
+        V = logits.shape[-1]
+        # EOS masked at position h of a lane while h < min_remaining
+        suppress = None
+        if min_remaining is not None and eos_ids is not None:
+            sup = step < np.asarray(min_remaining, np.int64)[:, None]  # [B, S]
+            if sup.any():
+                suppress = self._dev(sup, bool)
+                eos_d = self._dev(np.asarray(eos_ids).reshape(B, MAX_EOS_IDS), np.int64)
+        if penalties is not None:
+            hist, hist_len, prompt_len, freq, pres, rep = penalties
+            out_counts, seen = penalty_count_tables(
+                self._dev(hist, np.int64), self._dev(hist_len, np.int64),
+                self._dev(prompt_len, np.int64), V)
+            freq, pres, rep = (self._dev(a, np.float32) for a in (freq, pres, rep))
+            fed_d = self._dev(fed, np.int64).clamp(0, V - 1)
+            adv = self._dev(valid, np.float32)
+            rows = []
+            for h in range(S):
+                if h >= 1:
+                    # the draft fed at position h entered the context
+                    out_counts = out_counts.scatter_add(1, fed_d[:, h:h + 1], adv[:, h:h + 1])
+                    seen = seen.scatter_reduce(1, fed_d[:, h:h + 1], adv[:, h:h + 1], reduce="amax")
+                lg = apply_penalties_from_tables(logits[:, h], out_counts, seen, freq, pres, rep)
+                if suppress is not None:
+                    lg = mask_eos_logits(lg, eos_d, suppress[:, h])
+                rows.append(lg)
+            logits = torch.stack(rows, dim=1)  # [B, S, V]
+        elif suppress is not None:
+            logits = mask_eos_logits(
+                logits.reshape(B * S, V), eos_d.repeat_interleave(S, dim=0), suppress.reshape(-1))
         # fold S into the batch and sample every position in one pass; the
         # sampler is row-wise, so this equals S single steps
         keys_rep = np.repeat(np.asarray(keys, np.int64), S, axis=0)
@@ -257,7 +341,7 @@ class TorchModelRunner:
             temps_rep, np.repeat(top_ps, S), np.repeat(top_ks, S), keys_rep, self.device
         )
         tok, lp, top_ids, top_lps = sample_tokens_full(
-            logits.reshape(B * S, -1), *args, all_greedy=bool((temps_rep <= 0).all())
+            logits.reshape(B * S, V), *args, all_greedy=bool((temps_rep <= 0).all())
         )
         tok = torch.where(self._dev(valid, bool), tok.reshape(B, S), -1)
         packed = torch.cat(

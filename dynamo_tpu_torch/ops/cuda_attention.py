@@ -40,10 +40,11 @@ _F = ctypes.c_float
 _DECODE_ARGTYPES = [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P]
 _PREFILL_ARGTYPES = [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P]
 _VERIFY_ARGTYPES = [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P]
-_DECODE_D = (64, 128, 256)
-_PREFILL_D = (64, 128)
-_VERIFY_D = (64, 128)
-_GROUPS = (1, 2, 4, 8)
+# head dims every attention kernel is instantiated for; any GQA group
+# G = Hq / Hkv, up to PREFILL_MAX_GROUP for prefill (its 128-row query tile
+# holds floor(128 / G) positions)
+HEAD_DIMS = (64, 128, 256)
+PREFILL_MAX_GROUP = 128
 # The decode and verify kernels share csrc/paged_attention.cuh: query rows in
 # tiles of PAGED_ROWS (kRows), each (pair, tile) cut into splits whose count
 # the library picks from the shapes and the SM count (paged::num_splits).
@@ -103,12 +104,25 @@ def _device_ok(t: torch.Tensor) -> None:
         )
 
 
-def _common(q: torch.Tensor, hq: int, hkv: int, d: int, ds) -> None:
+def attention_shape_problems(hq: int, hkv: int, d: int, prefill: bool = True) -> list[str]:
+    """Why the attention kernels refuse heads of this shape (empty: they
+    take it). Decode and verify take any group; prefill up to
+    PREFILL_MAX_GROUP."""
+    out = []
+    if hkv <= 0 or hq <= 0 or hq % hkv:
+        out.append(f"Hq / Hkv = {hq} / {hkv} is not a whole GQA group")
+    elif prefill and hq // hkv > PREFILL_MAX_GROUP:
+        out.append(f"GQA group {hq // hkv} exceeds the prefill kernel's {PREFILL_MAX_GROUP}")
+    if d not in HEAD_DIMS:
+        out.append(f"head_dim {d} is not one of {HEAD_DIMS}")
+    return out
+
+
+def _common(q: torch.Tensor, hq: int, hkv: int, d: int, prefill: bool = False) -> None:
     _device_ok(q)
-    if hkv <= 0 or hq % hkv or hq // hkv not in _GROUPS:
-        raise ValueError(f"GQA group Hq/Hkv = {hq}/{hkv} must be one of {_GROUPS}")
-    if d not in ds:
-        raise ValueError(f"head_dim {d} not supported (one of {ds})")
+    problems = attention_shape_problems(hq, hkv, d, prefill)
+    if problems:
+        raise ValueError("; ".join(problems))
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -136,9 +150,7 @@ def paged_decode_attention_cuda(
         )
     B, Hq, D = q.shape
     Hkv, num_blocks, block_size, Dc = k_cache.shape
-    _common(q, Hq, Hkv, D, _DECODE_D)
-    if Hq * D > 1024 * Hkv:
-        raise ValueError(f"GQA group x head_dim = {Hq // Hkv} x {D} exceeds 1024")
+    _common(q, Hq, Hkv, D)
     dev = q.device
     _check(q, "q", torch.bfloat16, 3, dev)
     _check(k_cache, "k_cache", torch.bfloat16, 4, dev)
@@ -155,13 +167,15 @@ def paged_decode_attention_cuda(
     out = torch.empty_like(q)
     if B == 0:
         return out
-    # one launch: the splits' f32 partials, and a ticket per (sequence, kv
-    # head) that tells the last split to merge them
+    # one launch: the splits' f32 partials of every (sequence, kv head,
+    # 16-row tile of the group), and a ticket per (sequence, kv head, tile)
+    # that tells the last split to merge them
     max_blocks = block_tables.shape[1]
-    splits = _fn("paged_decode_attention", "paged_decode_num_splits", [_I] * 4)(
-        B, Hkv, max_blocks, block_size)
-    part_acc, part_ml = _partials(B * Hkv * splits, D, dev)
-    tickets = _ticket_buffer(dev, B * Hkv)
+    tiles = -(-(Hq // Hkv) // PAGED_ROWS)
+    splits = _fn("paged_decode_attention", "paged_decode_num_splits", [_I] * 5)(
+        B, Hq, Hkv, max_blocks, block_size)
+    part_acc, part_ml = _partials(B * Hkv * tiles * splits, D, dev)
+    tickets = _ticket_buffer(dev, B * Hkv * tiles)
     fn = _fn("paged_decode_attention", "paged_decode_attention_bf16", _DECODE_ARGTYPES)
     sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     err = fn(
@@ -195,7 +209,7 @@ def flash_prefill_attention_cuda(
     padding tiles)."""
     P, Hq, D = q.shape
     Hkv = k.shape[1]
-    _common(q, Hq, Hkv, D, _PREFILL_D)
+    _common(q, Hq, Hkv, D, prefill=True)
     dev = q.device
     _check(q, "q", torch.bfloat16, 3, dev)
     _check(k, "k", torch.bfloat16, 3, dev)
@@ -251,7 +265,7 @@ def paged_verify_attention_cuda(
         )
     B, S, Hq, D = q.shape
     Hkv, num_blocks, block_size, Dc = k_cache.shape
-    _common(q, Hq, Hkv, D, _VERIFY_D)
+    _common(q, Hq, Hkv, D)
     dev = q.device
     _check(q, "q", torch.bfloat16, 4, dev)
     _check(k_cache, "k_cache", torch.bfloat16, 4, dev)

@@ -9,15 +9,14 @@ bounds it on the card and how its design answers that):
   * ``fused_attn_out_residual_cuda`` <- ``fused_attn_out_residual``
     (csrc/fused_attn_out_residual.cu): o-projection -> residual add.
 
-Both cut the contraction into splits so enough blocks stream the weights.
-For the QKV head the wrapper picks the split from the shapes and allocates
-the f32 partials and the normed activations with ``torch.empty``; the
-o-projection sums its splits inside one launch (a thread block cluster) and
-needs no scratch. As in
+Both cut the contraction into splits so enough blocks stream the weights,
+and sum the splits inside one launch (a thread block cluster), so neither
+needs scratch: each wrapper allocates only its outputs. As in
 ops/cuda_attention.py, each wrapper checks device, dtype, shape,
-contiguity and alignment, launches on the current stream without
-synchronising, raises if a launch is refused, and counts its launches in
-``<wrapper>.launches``. The plain PyTorch versions live in ops/linear.py.
+contiguity and alignment, launches one kernel on the current stream without
+synchronising or reading any tensor on the host, raises if the launch is
+refused, and counts its launches in ``<wrapper>.launches``. The plain
+PyTorch versions live in ops/linear.py.
 """
 
 from __future__ import annotations
@@ -33,28 +32,36 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-_QKV_ARGTYPES = [_P] * 15 + [_I] * 6 + [_F, _P]
+_QKV_ARGTYPES = [_P] * 13 + [_I] * 5 + [_F, _P]
 _OUT_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
-GEMM_COLS = 128  # output columns per block (kGemmCols in csrc/hopper_common.cuh)
-GEMM_KC = 32  # contraction rows per pipeline chunk (kGemmKC)
-GEMM_ROWS = 64  # rows per row group (kGemmRows)
-# blocks the split-K product aims for: ~4 per SM of an H100's 132, enough
-# loads in flight to stream the weights at the memory's rate
-TARGET_BLOCKS = 4 * 132
+GEMM_COLS = 128  # output widths: whole 128-column tiles (kCols of #4, H of #5)
+GEMM_KC = 32  # the o-projection's contraction: a multiple of this
 
 
-def k_split_for(K: int, n_cols: int, M: int) -> int:
-    """Contraction rows per split: the product's blocks (column tiles x row
-    groups x splits) come to about TARGET_BLOCKS; a multiple of GEMM_KC."""
-    tiles = (n_cols // GEMM_COLS) * -(-M // GEMM_ROWS)
-    splits = max(1, min(K // GEMM_KC, round(TARGET_BLOCKS / tiles)))
-    chunks = -(-(K // GEMM_KC) // splits)
-    return chunks * GEMM_KC
+def qkv_shape_problems(hidden: int, hq: int, hkv: int, d: int) -> list[str]:
+    """Why the fused QKV kernel refuses heads of this shape (empty: it
+    takes it): a column tile owns both halves of each RoPE pair, so D is 64
+    (two heads a tile) or a multiple of 128."""
+    out = []
+    if hidden % 8:
+        out.append(f"hidden size {hidden} is not a multiple of 8")
+    if d % 2 or not (d == 64 or d % 128 == 0):
+        out.append(f"head_dim {d} is neither 64 nor a multiple of 128")
+    for name, n in (("Hq * head_dim", hq * d), ("Hkv * head_dim", hkv * d)):
+        if n % GEMM_COLS:
+            out.append(f"{name} = {n} is not a multiple of {GEMM_COLS}")
+    return out
 
 
-def _widths_ok(name: str, n: int) -> None:
-    if n % GEMM_COLS:
-        raise ValueError(f"{name} width {n} is not a multiple of {GEMM_COLS}")
+def out_proj_shape_problems(k: int, hidden: int) -> list[str]:
+    """Why the fused o-proj kernel refuses an [k, hidden] projection
+    (empty: it takes it)."""
+    out = []
+    if k % GEMM_KC:
+        out.append(f"attention width {k} is not a multiple of {GEMM_KC}")
+    if hidden % GEMM_COLS:
+        out.append(f"hidden size {hidden} is not a multiple of {GEMM_COLS}")
+    return out
 
 
 def fused_qkv_rope_cuda(
@@ -100,29 +107,21 @@ def fused_qkv_rope_cuda(
                 raise ValueError(f"{name} has {b.shape[0]} entries, expected {n}")
     if tuple(attn_norm.shape) != (H,):
         raise ValueError(f"attn_norm is {tuple(attn_norm.shape)}, expected {(H,)}")
-    if head_dim % 2:
-        raise ValueError(f"head_dim {head_dim} must be even")
-    if H % GEMM_KC:
-        raise ValueError(f"hidden size {H} is not a multiple of {GEMM_KC}")
-    _widths_ok("wq", q_dim)
-    _widths_ok("wk/wv", kv_dim)
+    problems = qkv_shape_problems(H, num_heads, num_kv_heads, head_dim)
+    if problems:
+        raise ValueError("; ".join(problems))
+    # one launch; the outputs are the only allocations
     q = torch.empty(M, num_heads, head_dim, dtype=x.dtype, device=dev)
     k = torch.empty(M, num_kv_heads, head_dim, dtype=x.dtype, device=dev)
     v = torch.empty_like(k)
     if M == 0:
         return q, k, v
-    n_cols = q_dim + 2 * kv_dim
-    k_split = k_split_for(H, n_cols, M)
-    splits = -(-H // k_split)
-    xn = torch.empty_like(x)
-    part = torch.empty(splits * M * n_cols, dtype=torch.float32, device=dev)
     fn = _fn("fused_qkv_rope", "fused_qkv_rope_bf16", _QKV_ARGTYPES)
     err = fn(
         x.data_ptr(), attn_norm.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         *(b.data_ptr() if b is not None else None for b in biases),
         cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        xn.data_ptr(), part.data_ptr(),
-        M, H, num_heads, num_kv_heads, head_dim, k_split, float(eps),
+        M, H, num_heads, num_kv_heads, head_dim, float(eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "fused_qkv_rope")
@@ -151,9 +150,9 @@ def fused_attn_out_residual_cuda(
             f"shapes attn {tuple(attn.shape)}, wo {tuple(wo.shape)}, x "
             f"{tuple(x.shape)} do not chain"
         )
-    if K % GEMM_KC:
-        raise ValueError(f"attn width {K} is not a multiple of {GEMM_KC}")
-    _widths_ok("wo", H)
+    problems = out_proj_shape_problems(K, H)
+    if problems:
+        raise ValueError("; ".join(problems))
     out = torch.empty_like(x)
     if M == 0:
         return out

@@ -1,10 +1,14 @@
 """On-device batched token sampling: greedy / temperature / top-k / top-p,
+frequency / presence / repetition penalties, the min_tokens EOS mask,
 per-sequence counter-based random streams, and logprobs.
 
-Counterpart of dynamo_tpu/ops/sampling.py:202-319 (``sample_tokens``,
-``sample_tokens_full``, ``make_key_data``): the same 256-candidate pool for
-restricted rows, the same full-vocab draw for unrestricted rows and the same
-wide-nucleus rule, batched over [B, V] with per-row parameters.
+Counterpart of dynamo_tpu/ops/sampling.py: the penalty tables and appliers
+and ``mask_eos_logits`` (:28-175, the same semantics; XLA ops there, so
+these tensor ops are the card path too), and ``sample_tokens``,
+``sample_tokens_full``, ``make_key_data`` (:202-319): the same 256-candidate
+pool for restricted rows, the same full-vocab draw for unrestricted rows and
+the same wide-nucleus rule, batched over [B, V] with per-row parameters and
+no per-sequence Python.
 
 Random draws come from a key row ``(stream_id, counter)`` per sequence, as in
 the JAX package, so a request's seed gives the same token at the same output
@@ -12,7 +16,7 @@ position regardless of batch composition or preemption. The draw is a
 Gumbel-max over integer-hashed uniforms: the integer hash is exact on every
 device, so CPU and GPU draw the same noise. The bits are NOT JAX's threefry
 bits: the same seed gives different (equally distributed) tokens here and in
-the JAX engine. Penalties and the min_tokens EOS mask are not ported yet.
+the JAX engine.
 """
 
 from __future__ import annotations
@@ -26,6 +30,106 @@ NEG_INF = -1e30
 # Candidate-pool width for top-k / top-p rows (see the JAX module).
 SAMPLE_CANDIDATES = 256
 _M32 = 0xFFFFFFFF
+
+
+# eos-id slots carried into a step (the engine's per-sequence stop-id row)
+MAX_EOS_IDS = 4
+
+
+def penalty_count_tables(
+    hist: torch.Tensor,  # [B, L] int token history (prompt + generated)
+    hist_len: torch.Tensor,  # [B] valid tokens in hist
+    prompt_len: torch.Tensor,  # [B] prompt prefix length within hist
+    vocab_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The history scattered into per-vocab tables: (out_counts [B, V] f32,
+    generated-token counts; seen [B, V] f32, 1 where the token appears in
+    prompt or generated)."""
+    B, L = hist.shape
+    idx = torch.arange(L, device=hist.device)[None, :]
+    valid = idx < hist_len[:, None]
+    is_out = valid & (idx >= prompt_len[:, None])
+    safe = hist.long().clamp(0, vocab_size - 1)
+    out_counts = torch.zeros(B, vocab_size, device=hist.device).scatter_add_(
+        1, safe, is_out.float())
+    seen = torch.zeros(B, vocab_size, device=hist.device).scatter_reduce_(
+        1, safe, valid.float(), reduce="amax")
+    return out_counts, seen
+
+
+def _repetition(logits: torch.Tensor, rp: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
+    """HF-style: positive logits of seen tokens divided by rp, negative ones
+    multiplied by it."""
+    penalized = torch.where(logits > 0, logits / rp, logits * rp)
+    return torch.where(seen > 0, penalized, logits)
+
+
+def apply_penalties_from_tables(
+    logits: torch.Tensor,  # [B, V] f32
+    out_counts: torch.Tensor,  # [B, V] f32 generated-token counts
+    seen: torch.Tensor,  # [B, V] f32 (> 0 where the token appeared at all)
+    frequency_penalty: torch.Tensor,  # [B] f32; 0 disables
+    presence_penalty: torch.Tensor,  # [B] f32; 0 disables
+    repetition_penalty: torch.Tensor,  # [B] f32; 1 disables
+) -> torch.Tensor:
+    """vLLM-semantics penalties: frequency and presence over GENERATED
+    tokens only (``logits -= freq * count + pres * [count > 0]``),
+    repetition over prompt + generated tokens. A lane with 0 / 0 / 1 passes
+    through bit-exactly."""
+    logits = (
+        logits
+        - frequency_penalty[:, None] * out_counts
+        - presence_penalty[:, None] * (out_counts > 0).float()
+    )
+    return _repetition(logits, repetition_penalty[:, None], seen)
+
+
+def apply_penalties(
+    logits: torch.Tensor,  # [B, V] f32
+    hist: torch.Tensor,  # [B, L] token history (prompt + generated)
+    hist_len: torch.Tensor,  # [B]
+    prompt_len: torch.Tensor,  # [B]
+    frequency_penalty: torch.Tensor,
+    presence_penalty: torch.Tensor,
+    repetition_penalty: torch.Tensor,
+) -> torch.Tensor:
+    """One step's penalties: build the tables, then apply them."""
+    out_counts, seen = penalty_count_tables(hist, hist_len, prompt_len, logits.shape[-1])
+    return apply_penalties_from_tables(
+        logits, out_counts, seen, frequency_penalty, presence_penalty, repetition_penalty)
+
+
+def apply_repetition_penalty_from_prompt(
+    logits: torch.Tensor,  # [V] or [B, V]
+    prompt: torch.Tensor,  # [T] int (padded; positions >= valid_len ignored)
+    valid_len: int,
+    repetition_penalty: float,  # 1 disables
+) -> torch.Tensor:
+    """Prompt-only repetition penalty for the prefill-sampled first token
+    (frequency and presence are zero by definition there)."""
+    V = logits.shape[-1]
+    valid = (torch.arange(prompt.shape[0], device=prompt.device) < valid_len).float()
+    seen = torch.zeros(V, device=logits.device).scatter_reduce_(
+        0, prompt.long().clamp(0, V - 1), valid, reduce="amax")
+    rp = torch.tensor(repetition_penalty, dtype=logits.dtype, device=logits.device)
+    return _repetition(logits, rp, seen)
+
+
+def mask_eos_logits(
+    logits: torch.Tensor,  # [B, V] or [V]
+    eos_ids: torch.Tensor,  # [B, K] or [K] int; -1 pads unused slots
+    suppress: torch.Tensor,  # [B] or scalar bool: min_tokens not reached
+) -> torch.Tensor:
+    """min_tokens, the vLLM way: while a sequence has not generated its
+    minimum, its EOS logits are NEG_INF, so no EOS can be sampled."""
+    squeeze = logits.dim() == 1
+    if squeeze:
+        logits, eos_ids, suppress = logits[None], eos_ids[None], suppress.reshape(1)
+    V = logits.shape[-1]
+    is_eos = torch.zeros_like(logits).scatter_reduce_(
+        1, eos_ids.long().clamp(0, V - 1), (eos_ids >= 0).to(logits.dtype), reduce="amax") > 0
+    out = torch.where(is_eos & suppress[:, None], NEG_INF, logits)
+    return out[0] if squeeze else out
 
 
 def make_key_data(stream_id: int, counter: int) -> np.ndarray:

@@ -11,8 +11,9 @@ measures: TTFT of one request alone at 16 / 128 / 512 / 2000 tokens, the
 2000-token prefill's device time (torch.profiler), the B=8 decode step at
 context 1024 with the fused heads off and on (wall and device time), the
 device time of those steps and of one B=8, S=4 verify dispatch there with
-their paged attention kernels' share per layer (profiler), kernels #3
-(prefill, P=2048, valid 2000) and #5 (o-proj, M 8 and 32) beside their
+their paged attention kernels' and fused QKV head's (#4, all its
+launches) share per layer (profiler), kernels #3 (prefill, P=2048, valid
+2000), #4 (fused QKV, M 8 and 32) and #5 (o-proj, M 8 and 32) beside their
 one-call PyTorch yardsticks, #1 (decode) at chip_smoke.py's ragged contexts
 and at the step's shape and #2 (verify, B=8, S=4), and spec decode's warm
 tokens/s off and on (chip_smoke.py's serve_spec phase). Prints one JSON line per leg, then the
@@ -50,18 +51,25 @@ def _time_ms(torch, fn, flush, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+# #4's kernels in either design: one cluster launch, or a norm, a split-K
+# product and an epilogue
+QKV_KERNELS = ("fused_qkv_rope_kernel", "rmsnorm_rows", "splitk_gemm_kernel", "qkv_epilogue")
+
+
 def _attention_us(torch, fn, calls: int, layers: int) -> dict:
     """Device time of fn() per call, and of its paged decode / verify
-    attention kernels per layer, under torch.profiler. Kernel names of
-    either design: PR 2's paged_{decode,verify}_* kernels (with their
-    combine launches) or the paged_attention_kernel template."""
+    attention kernels and its fused QKV head per layer, under
+    torch.profiler. Kernel names of either design: the earlier
+    paged_{decode,verify}_* kernels (with their combine launches) or the
+    paged_attention_kernel template; QKV_KERNELS for #4."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
-    total = {"device_ms": 0.0, "decode_attention_us": 0.0, "verify_attention_us": 0.0}
+    total = {"device_ms": 0.0, "decode_attention_us": 0.0, "verify_attention_us": 0.0,
+             "qkv_head_us": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -71,6 +79,8 @@ def _attention_us(torch, fn, calls: int, layers: int) -> dict:
             total["decode_attention_us"] += us / calls / layers
         if "paged_verify" in e.key or ("paged_attention_kernel<" in e.key and ", false>" in e.key):
             total["verify_attention_us"] += us / calls / layers
+        if any(name in e.key for name in QKV_KERNELS):
+            total["qkv_head_us"] += us / calls / layers
     return total
 
 
@@ -86,6 +96,7 @@ def _leg(root: str, name: str) -> None:
     from dynamo_tpu_torch.ops import _build
     from dynamo_tpu_torch.ops import cuda_attention as K
     from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops.basics import rms_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.nvidia_smi_line()
@@ -136,6 +147,10 @@ def _leg(root: str, name: str) -> None:
     }
     for M in (8, 32):
         t = cs.gemv_inputs(torch, M, seed=20 + M)
+        kt[f"qkv_M{M}"] = _time_ms(torch, lambda: cs.qkv_call(KL.fused_qkv_rope_cuda, t), flush)
+        xn = rms_norm(t["x"], t["norm"], 1e-5)
+        wqkv = torch.cat([t["wq"], t["wk"], t["wv"]], dim=1)
+        kt[f"matmul_M{M}"] = _time_ms(torch, lambda: torch.matmul(xn, wqkv), flush)
         kt[f"oproj_M{M}"] = _time_ms(
             torch, lambda: KL.fused_attn_out_residual_cuda(t["attn"], t["wo"], t["x"]), flush)
         kt[f"addmm_M{M}"] = _time_ms(torch, lambda: torch.addmm(t["x"], t["attn"], t["wo"]), flush)

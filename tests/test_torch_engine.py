@@ -5,9 +5,12 @@ Slice parity: ``TorchEngine(device="cpu")`` and ``JaxEngine`` over
 ``ModelRunner.prefill``, the path whose attention is the flash prefill
 kernel), both f32 with the same parameters (the JAX init carried over by
 ``params_from_jax``), serve the same concurrent greedy requests -- more than
-``max_batch`` -- and must stream token-identical outputs. Then the engine's
-own contract: EOS, cancellation, prompt_too_long, preemption, seeded
-sampling, logprobs.
+``max_batch`` -- and must stream token-identical outputs. The same holds
+with frequency / presence / repetition penalties, with ``min_tokens`` past
+an EOS the model would emit early (also with more stop ids than the device
+mask holds), and in batches that mix plain and penalty lanes. Then the
+engine's own contract: EOS, cancellation, prompt_too_long, preemption,
+seeded sampling, logprobs.
 """
 
 import asyncio
@@ -224,3 +227,96 @@ async def test_build_torch_engine_on_cpu_serves():
         assert all(0 <= t < 64 for t in toks)
     finally:
         await eng.close()
+
+
+# ------------------------------------------------- penalties and min_tokens
+
+
+def pen_request(mod, prompt, max_tokens, eos=(), min_tokens=None, **sampling):
+    return mod.PreprocessedRequest(
+        token_ids=list(prompt),
+        sampling=mod.SamplingOptions(greedy=True, **sampling),
+        stop=mod.StopConditions(max_tokens=max_tokens, min_tokens=min_tokens),
+        eos_token_ids=list(eos),
+    )
+
+
+async def serve_both(make_reqs):
+    """The same requests through JaxEngine and TorchEngine, concurrently."""
+    jeng, teng = make_jax_engine(), make_torch_engine()
+    try:
+        jres = await asyncio.gather(*(
+            collect(jeng, r, JaxContext()) for r in make_reqs(jp)))
+        tres = await asyncio.gather(*(
+            collect(teng, r, tp.Context()) for r in make_reqs(tp)))
+    finally:
+        await jeng.close()
+        await teng.close()
+    assert teng.allocator.free_count == NB - 1
+    return [(t, r.value) for t, r, _ in jres], [(t, r.value) for t, r, _ in tres]
+
+
+PENALTIES = [
+    {"frequency_penalty": 0.9},
+    {"presence_penalty": 1.5},
+    {"repetition_penalty": 1.8},
+    {"frequency_penalty": 0.4, "presence_penalty": 0.6, "repetition_penalty": 1.3},
+    {"repetition_penalty": 0.7},
+    {"frequency_penalty": -0.5, "presence_penalty": 0.2},
+]
+
+
+async def test_penalties_token_identical_with_jax_engine():
+    def reqs(mod):
+        return [pen_request(mod, p, 14, **pen) for p, pen in zip(PROMPTS, PENALTIES)]
+
+    want, got = await serve_both(reqs)
+    assert got == want
+    # the penalties change what greedy decoding says
+    plain, _ = await serve_both(lambda mod: [pen_request(mod, p, 14) for p in PROMPTS])
+    assert sum(a != b for a, b in zip(plain, got)) >= 3
+
+
+async def test_min_tokens_past_an_early_eos_token_identical_with_jax_engine():
+    plain, _ = await serve_both(lambda mod: [pen_request(mod, p, 12) for p in PROMPTS[:4]])
+    # each request's first greedy token that is new to its stream, as its
+    # EOS: without min_tokens the stream stops there, early
+    first_new = [next(j for j in range(1, len(t)) if t[j] not in t[:j]) for t, _ in plain]
+    eos = [[t[j]] for (t, _), j in zip(plain, first_new)]
+    # lane 3: five stop ids, one more than the device mask's MAX_EOS_IDS,
+    # and the one the model emits sorts last, past the mask: it is dropped
+    # and redrawn (the same greedy token) until the engine gives up
+    t3 = eos[3][0]
+    eos[3] = [i for i in range(t3) if i not in plain[3][0]][:4] + [t3]
+    assert len(eos[3]) == 5
+
+    def reqs(mod, mins=(6, 9, 0, 5)):
+        return [pen_request(mod, p, 12, eos=e, min_tokens=m or None)
+                for p, e, m in zip(PROMPTS[:4], eos, mins)]
+
+    stopped, _ = await serve_both(lambda mod: reqs(mod, (0, 0, 0, 0)))
+    assert [(len(t), r) for t, r in stopped] == [(j, "eos") for j in first_new]
+    want, got = await serve_both(reqs)
+    assert got == want
+    for (toks, reason), m in zip(got[:2], (6, 9)):
+        assert len(toks) >= m and reason in ("eos", "length")
+    assert got[2] == stopped[2]  # no min_tokens: stops at its EOS
+    assert got[3] == stopped[3]  # the unmasked stop id: dropped, then given up
+
+
+async def test_mixed_plain_and_penalty_lanes_token_identical_with_jax_engine():
+    """More requests than lanes: plain, penalty and min_tokens lanes share
+    steps and take over each other's slots."""
+    def reqs(mod):
+        out = []
+        for i, (p, n) in enumerate(zip(PROMPTS, MAX_NEW)):
+            if i % 2:
+                out.append(pen_request(mod, p, n, **PENALTIES[i]))
+            elif i == 2:
+                out.append(pen_request(mod, p, n, eos=[p[0]], min_tokens=4))
+            else:
+                out.append(pen_request(mod, p, n))
+        return out
+
+    want, got = await serve_both(reqs)
+    assert got == want

@@ -11,6 +11,7 @@ conftest imports) they run with:
 
 import ast
 import ctypes
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -189,11 +190,14 @@ def test_prefill_kernel_matches_plain_on_card(feature, P, valid):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("feature", sorted(PREFILL))
-@pytest.mark.parametrize("G,D", [(1, 128), (2, 128), (8, 128), (1, 64), (4, 64), (8, 64)])
+@pytest.mark.parametrize("G,D", [(1, 128), (2, 128), (8, 128), (1, 64), (4, 64), (8, 64),
+                                 (3, 128), (6, 128), (7, 128), (3, 64), (7, 64),
+                                 (1, 256), (2, 256), (8, 256)])
 @pytest.mark.parametrize("P,valid", [(129, 129), (300, 257), (1000, 999)])
 def test_prefill_kernel_groups_and_head_dims_on_card(feature, G, D, P, valid):
-    """Every GQA group the kernel takes (Hkv fixed at 8, Hq = 8 G) and both
-    head dims, over ragged prompt lengths (the 128-row tile's edge)."""
+    """GQA groups (Hkv fixed at 8, Hq = 8 G) -- powers of two and groups
+    that leave 128 mod G idle rows in the query tile (3, 6, 7) -- and every
+    head dim, over ragged prompt lengths (the query tile's edge)."""
     _need_card()
     _prefill_case(P, valid, 8 * G, 8, D, PREFILL[feature], seed=G * 1000 + D + P)
 
@@ -224,6 +228,97 @@ def test_fused_kernels_match_plain_on_card(M, bias):
     for a, b in zip((*got, got_o), (*want, want_o)):
         a, b = a.float(), b.float()
         assert ((a - b).abs() <= 1e-2 + 2.0 ** -6 * b.abs()).all()
+
+
+def _qkv_inputs(M, H, hq, hkv, d, bias, seed):
+    """The QKV head's inputs; weights of std 0.02, as init_params draws them."""
+    g = torch.Generator().manual_seed(seed)
+    bf = lambda *s, sd=1.0: (sd * torch.randn(*s, generator=g)).bfloat16().cuda()  # noqa: E731
+    x, norm = bf(M, H), (1 + 0.1 * torch.randn(H, generator=g)).bfloat16().cuda()
+    wq, wk, wv = bf(H, hq * d, sd=0.02), bf(H, hkv * d, sd=0.02), bf(H, hkv * d, sd=0.02)
+    biases = (bf(hq * d, sd=0.1), bf(hkv * d, sd=0.1), bf(hkv * d, sd=0.1)) if bias else (None,) * 3
+    angles = torch.randint(0, 4000, (M, 1), generator=g).float() * rope_freqs(d, 500000.0)
+    args = (x, norm, wq, wk, wv, torch.cos(angles).cuda(), torch.sin(angles).cuda())
+    kw = dict(eps=1e-5, num_heads=hq, num_kv_heads=hkv, head_dim=d,
+              bq=biases[0], bk=biases[1], bv=biases[2])
+    return args, kw
+
+
+# (hidden, Hq, Hkv, D): a tile of two 64-wide heads; Gemma-2-9B's heads
+# (D 256: a tile is one RoPE half-pair of boxes); Qwen2-7B's (G 7)
+QKV_SHAPES = {"D64": (1024, 16, 2, 64), "D256": (3584, 16, 8, 256), "G7": (3584, 28, 4, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 70, 96])
+@pytest.mark.parametrize("shape", sorted(QKV_SHAPES))
+def test_fused_qkv_kernel_head_dims_and_groups_on_card(shape, M, bias):
+    """The one-launch QKV head at head dims 64 and 256 and a group of 7,
+    over one and two row groups."""
+    _need_card()
+    args, kw = _qkv_inputs(M, *QKV_SHAPES[shape], bias, seed=M + len(shape))
+    got = KL.fused_qkv_rope_cuda(*args, **kw)
+    want = L.fused_qkv_rope_plain(*args, **kw)
+    torch.cuda.synchronize()
+    # the f32 products (and the norm's sum of squares) are summed in another
+    # order: a bf16 rounding may flip by one ulp before RoPE
+    for name, a, b in zip("qkv", got, want):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all()
+        err = (a - b).abs()
+        bad = err > 1e-2 + 2.0 ** -6 * b.abs()
+        assert not bad.any(), (name, int(bad.sum()), float(err.max()),
+                               a[bad][:4].tolist(), b[bad][:4].tolist())
+
+
+@pytest.mark.cuda
+def test_fused_qkv_kernel_is_one_launch_on_card():
+    """Norm, product, split-K sum, bias and RoPE in one kernel: the launch
+    counter and the profiler both see one launch per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_card()
+    args, kw = _qkv_inputs(32, 4096, 32, 8, 128, True, seed=3)
+    KL.fused_qkv_rope_cuda(*args, **kw)  # build and load first
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            KL.fused_qkv_rope_cuda(*args, **kw)
+        torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_qkv_rope"] == 3
+    device = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert len(device) == 1 and "fused_qkv_rope_kernel<" in device[0][0], device
+    assert device[0][1] == 3, device
+
+
+@pytest.mark.cuda
+def test_fused_qkv_kernel_allocates_only_q_k_v_on_card():
+    """No normed activations and no f32 partials in device memory: one call
+    allocates q, k and v and nothing else."""
+    _need_card()
+    args, kw = _qkv_inputs(32, 4096, 32, 8, 128, False, seed=4)
+    KL.fused_qkv_rope_cuda(*args, **kw)  # build and load first
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = KL.fused_qkv_rope_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    sizes = [t.numel() * t.element_size() for t in outs]
+    assert torch.cuda.max_memory_allocated() - before == sum(-(-n // 512) * 512 for n in sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 96])
+def test_fused_qkv_kernel_is_bitwise_repeatable_on_card(M):
+    """The norm's sums and the splits' partials are added in rank order."""
+    _need_card()
+    args, kw = _qkv_inputs(M, 4096, 32, 8, 128, True, seed=5)
+    outs = [KL.fused_qkv_rope_cuda(*args, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
 
 
 def _out_proj_inputs(M, H, seed):
@@ -343,7 +438,10 @@ def _verify_case(bases, S, G, D, bs, max_blocks, seed, hkv=2):
     return q, kc, vc, tables, pos
 
 
-GROUP_DIMS = [(g, d) for g in (1, 2, 4, 8) for d in (64, 128, 256) if g * d <= 1024]
+# every group of the earlier grid, groups that are no power of two (3, 6, 7),
+# D 256 at larger groups, and groups of more than one 16-row tile (20, 24)
+GROUP_DIMS = [(g, d) for g in (1, 2, 3, 4, 6, 7, 8) for d in (64, 128, 256)
+              if d < 256 or g in (1, 2, 4, 8)] + [(20, 128), (24, 64)]
 FEATURES = {"full": {}, "window_softcap": {"window": 100, "scale": 0.1, "logit_softcap": 4.0}}
 
 
@@ -352,9 +450,9 @@ FEATURES = {"full": {}, "window_softcap": {"window": 100, "scale": 0.1, "logit_s
 @pytest.mark.parametrize("bs", [16, 32])
 @pytest.mark.parametrize("G,D", GROUP_DIMS)
 def test_decode_design_groups_dims_and_edges_on_card(G, D, bs, feature):
-    """Every GQA group and head dim the decode kernel takes, at contexts of
-    1, a page edge, a ring-stage edge (64 keys), three stages, and the
-    table's whole reach."""
+    """GQA groups and head dims of the decode kernel (any group: 16-row
+    tiles), at contexts of 1, a page edge, a ring-stage edge (64 keys),
+    three stages, and the table's whole reach."""
     _need_card()
     mb = 20
     lens = [1, bs, bs + 1, 64, 65, 192, mb * bs]
@@ -382,13 +480,17 @@ def test_decode_design_long_and_many_short_on_card(case):
     _close(got, want, DECODE_TOL)
 
 
+VERIFY_GROUP_DIMS = [(g, d) for g in (1, 2, 3, 4, 6, 7, 8) for d in (64, 128)] + [
+    (1, 256), (2, 256), (8, 256)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [1, 4, 8])
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G,D", VERIFY_GROUP_DIMS)
 def test_verify_design_groups_dims_and_drafts_on_card(G, D, S):
-    """Every GQA group and head dim of the verify kernel at S = 1, 4 and 8
-    positions (up to four 16-row tiles), lanes whose drafts stop early."""
+    """GQA groups (powers of two and 3, 6, 7) and head dims (D 256: a
+    2-stage ring) of the verify kernel at S = 1, 4 and 8 positions (up to
+    four 16-row tiles), lanes whose drafts stop early."""
     _need_card()
     args = _verify_case([0, 15, 63, 200, 333], S, G, D, 16, 30, seed=G * 10 + D + S)
     got = K.paged_verify_attention_cuda(*args)
@@ -436,8 +538,8 @@ def test_paged_kernels_allocate_only_output_and_partials_on_card(kernel):
         args = _decode_case([17, 1000, 3001], 4, 128, 16, 200, seed=6, hkv=8)
         fn = K.paged_decode_attention_cuda
         B, tiles = 3, 1
-        splits = K._fn("paged_decode_attention", "paged_decode_num_splits", [ctypes.c_int] * 4)(
-            B, 8, 200, 16)
+        splits = K._fn("paged_decode_attention", "paged_decode_num_splits", [ctypes.c_int] * 5)(
+            B, 32, 8, 200, 16)
     else:
         args = _verify_case([17, 1000, 3001], 4, 4, 128, 16, 200, seed=6, hkv=8)
         fn = K.paged_verify_attention_cuda
@@ -460,10 +562,10 @@ def test_paged_kernels_allocate_only_output_and_partials_on_card(kernel):
 HOST_READS = {"item", "tolist", "cpu", "numpy", "synchronize"}
 
 
-def _host_reads(tree: ast.Module, entry: str) -> list[str]:
+def _host_reads(tree: ast.Module, entry: str, *imported: ast.Module) -> list[str]:
     """Calls of HOST_READS methods in `entry` and in every function of the
-    module it reaches by name."""
-    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    module (or of the modules it imports helpers from) it reaches by name."""
+    funcs = {n.name: n for t in (*imported, tree) for n in t.body if isinstance(n, ast.FunctionDef)}
     seen, todo, found = set(), [entry], []
     while todo:
         name = todo.pop()
@@ -492,6 +594,97 @@ def test_paged_wrappers_read_nothing_back_from_the_card(wrapper):
     assert _host_reads(tree, wrapper) == []
 
 
+@pytest.mark.parametrize("wrapper", ["fused_qkv_rope_cuda", "fused_attn_out_residual_cuda"])
+def test_linear_wrappers_read_nothing_back_from_the_card(wrapper):
+    """The fused heads too: their wrappers (and the helpers they import from
+    ops/cuda_attention.py) never read a tensor on the host or synchronise."""
+    ops = ROOT / "dynamo_tpu_torch" / "ops"
+    tree = ast.parse((ops / "cuda_linear.py").read_text())
+    helpers = ast.parse((ops / "cuda_attention.py").read_text())
+    assert wrapper in {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert _host_reads(tree, wrapper, helpers) == []
+
+
 def test_host_read_scan_finds_a_read_in_a_helper():
     tree = ast.parse("def w(x):\n    return h(x)\n\ndef h(x):\n    return int(x.max().item())\n")
     assert _host_reads(tree, "w") == ["h: .item()"]
+
+
+def test_host_read_scan_follows_imported_helpers():
+    tree = ast.parse("def w(x):\n    return h(x)\n")
+    helpers = ast.parse("def h(x):\n    return x.cpu()\n")
+    assert _host_reads(tree, "w") == []
+    assert _host_reads(tree, "w", helpers) == ["h: .cpu()"]
+
+
+# --------------------------------------- shapes the card's kernels refuse
+
+def test_build_torch_engine_refuses_shapes_the_kernels_do_not_take():
+    """A head dim no kernel is built for raises at build time, naming the
+    refusal, before any request and before the card is looked for -- not at
+    the first prefill, and never by falling back to a plain version."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=64), head_dim=96)
+    with pytest.raises(ValueError, match="head_dim 96 is not one of"):
+        build_torch_engine(cfg, device="cuda", fused_decode=False)
+    with pytest.raises(ValueError, match="fused QKV head: head_dim 96"):
+        build_torch_engine(cfg, device="cuda", fused_decode=True)
+
+
+# Qwen2-7B, Qwen2-1.5B, Gemma-2B and Gemma-2-9B heads, cut to one layer
+CARD_SHAPES = {
+    "qwen2_7b": dict(hidden_size=3584, num_heads=28, num_kv_heads=4, head_dim=128, attn_bias=True),
+    "qwen2_1p5b": dict(hidden_size=1536, num_heads=12, num_kv_heads=2, head_dim=128,
+                       attn_bias=True),
+    "gemma_2b": dict(hidden_size=2048, num_heads=8, num_kv_heads=1, head_dim=256),
+    "gemma2_9b": dict(hidden_size=3584, num_heads=16, num_kv_heads=8, head_dim=256),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CARD_SHAPES))
+def test_card_kernels_take_the_qwen2_and_gemma_head_shapes(name):
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=64), **CARD_SHAPES[name])
+    assert kernels.card_shape_problems(cfg, fused_decode=True) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CARD_SHAPES))
+def test_build_torch_engine_serves_qwen2_and_gemma_head_shapes_on_card(name):
+    """One layer of each model's heads through the engine on the card, fused
+    heads and spec decode on: prefill (#3), verify (#2), the fused heads
+    (#4, #5) and decode (#1) all launch at these shapes."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.protocols import common as tp
+
+    _need_card()
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=512), num_layers=1,
+                              intermediate_size=512, **CARD_SHAPES[name])
+    engine = build_torch_engine(cfg, device="cuda", max_batch=2, max_model_len=256,
+                                fused_decode=True, spec_k=3, spec_min_coverage=0.01)
+    prompt = [int(t) for t in np.random.default_rng(0).integers(0, 512, 40)] * 2
+    req = tp.PreprocessedRequest(token_ids=prompt, sampling=tp.SamplingOptions(greedy=True),
+                                 stop=tp.StopConditions(max_tokens=24), eos_token_ids=[])
+
+    async def run():
+        toks = []
+        try:
+            kernels.reset_launch_counts()
+            async for out in engine.generate(req, tp.Context()):
+                assert out.error is None
+                toks.extend(out.token_ids)
+        finally:
+            await engine.close()
+        return toks
+
+    toks = asyncio.run(run())
+    assert len(toks) == 24 and all(0 <= t < 512 for t in toks)
+    launched = kernels.launch_counts()
+    assert launched["flash_prefill_attention"] == 1
+    assert launched["fused_qkv_rope"] == launched["fused_attn_out_residual"] > 0

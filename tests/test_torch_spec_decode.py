@@ -12,7 +12,11 @@
   ``JaxEngine`` over ``ModelRunner(prefill_chunk_tokens=0,
   fused_decode=True)`` with spec_k=3 and no horizon, both f32 and greedy,
   stream token-identical outputs with equal draft and accept counts;
-* spec on equals spec off in the port, greedy and seeded sampling alike.
+* spec on equals spec off in the port, greedy and seeded sampling alike;
+* with frequency / presence / repetition penalties and min_tokens, spec on
+  in both engines still streams token-identical outputs (the verify pass
+  penalises position h with the drafts fed before it and masks EOS while
+  h < min_tokens - generated).
 """
 
 import asyncio
@@ -336,3 +340,42 @@ def test_spec_verify_refuses_the_chained_horizon():
     with pytest.raises(NotImplementedError):
         runner.spec_verify(K, 1, z, np.full((2, K), -1), z, z, np.zeros((2, 24), np.int32),
                            z, z + 1, z, np.zeros((2, 2), np.int64), z.astype(bool), z + 1)
+
+
+SPEC_PENALTIES = [{}, {"frequency_penalty": 0.6}, {"repetition_penalty": 1.4},
+                  {"presence_penalty": 0.8, "repetition_penalty": 1.2}, {},
+                  {"frequency_penalty": 0.3}]
+
+
+def _pen_requests(mod):
+    """Plain and penalty lanes; lanes 0 and 4 carry a prompt token as EOS
+    and min_tokens 8, so verify positions mask it."""
+    out = []
+    for i, (p, n) in enumerate(zip(_prompts(), MAX_NEW)):
+        mt = i in (0, 4)
+        out.append(mod.PreprocessedRequest(
+            token_ids=list(p), sampling=mod.SamplingOptions(greedy=True, **SPEC_PENALTIES[i]),
+            stop=mod.StopConditions(max_tokens=n, min_tokens=8 if mt else None),
+            eos_token_ids=[p[1]] if mt else [],
+        ))
+    return out
+
+
+async def test_spec_with_penalties_and_min_tokens_token_identical_with_jax_engine():
+    jcfg, jparams, _, tparams = _models(vocab=VOCAB)
+    jeng, teng = _jax_engine(jcfg, jparams), _torch_engine(tparams)
+    try:
+        jres = await asyncio.gather(*(_collect(jeng, r, JaxContext()) for r in _pen_requests(jp)))
+        tres = await asyncio.gather(*(_collect(teng, r, tp.Context()) for r in _pen_requests(tp)))
+    finally:
+        await jeng.close()
+        await teng.close()
+    assert [(t, r.value) for t, r in tres] == [(t, r.value) for t, r in jres]
+    for i in (0, 4):
+        assert len(tres[i][0]) >= 8
+    js, ts = jeng.stats, teng.stats
+    assert ts.verify_steps > 0 and ts.num_drafts > 0
+    assert (ts.num_drafts, ts.num_draft_tokens, ts.num_accepted_tokens) == (
+        js.num_drafts, js.num_draft_tokens, js.num_accepted_tokens
+    )
+    assert teng.allocator.free_count == NB - 1
