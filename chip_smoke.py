@@ -29,7 +29,21 @@ Phases, each of which must pass or the script exits non-zero:
                 dispatches, the fused heads 32 x every decode and verify
                 step, decode 32 x plain steps, prefill 32 x prefills), a
                 dense reference and that the seeded request repeats;
-  6. times   -- each kernel, its plain version and the PyTorch yardstick
+  6. serve_default -- the default admission path on the serve phase's
+                weights: build_torch_engine with its defaults (chunk 512,
+                mixed steps on; fused and spec off), the serve phase's 8
+                requests twice; short prompts are packed, long ones chunked
+                inside the decode batch's mixed steps; checks mixed steps
+                and packed prefills > 0, launches (decode 32 x (decode +
+                mixed steps), the other four 0), a repeat-identical run and
+                the dense reference on the shortest and the longest
+                (chunked) prompt;
+  7. checkpoint -- a 2-layer, full-width bf16 Llama-3.1-8B checkpoint
+                written by this script's own safetensors writer, loaded by
+                build_torch_engine(<dir>): the loaded weights equal the
+                written ones bit for bit, and its greedy tokens equal an
+                engine's built from the same arrays through params=;
+  8. times   -- each kernel, its plain version and the PyTorch yardstick
                 timed with CUDA events, beside the kernel's bound (and the
                 kernel / yardstick ratio where the yardstick is one call),
                 #1-#3 also at the Qwen2-7B and Gemma-2-9B head shapes;
@@ -784,9 +798,11 @@ def phase_serve(torch, np, card: str) -> dict:
     )
 
     t0 = time.perf_counter()
+    # chunking off: every prompt through the single-shot prefill (#3), the
+    # path this phase has always measured
     engine = build_torch_engine(
         LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
-        fused_decode=False, spec_k=0,
+        fused_decode=False, spec_k=0, prefill_chunk_tokens=0,
     )
     torch.cuda.synchronize()
     runner = engine.runner
@@ -928,7 +944,7 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
         return build_torch_engine(
             LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN,
             seed=0, fused_decode=True, spec_k=spec_k, params=params,
-            spec_min_coverage=SPEC_COVERAGE,
+            spec_min_coverage=SPEC_COVERAGE, prefill_chunk_tokens=0,
         )
 
     plain, spec = build(0), build(SPEC_K)
@@ -1015,6 +1031,377 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
         f"reference gap {gap:.3f} over 32 tokens of each greedy lane")
     print(json.dumps({"serve_spec": res, "card": card}), flush=True)
     res["runner"] = spec.runner
+    return res
+
+
+# --------------------------------------------------- default admission path
+
+
+def phase_serve_default(torch, np, card: str, params) -> dict:
+    """The reference's default single-worker path: build_torch_engine with
+    its defaults over the serve phase's weights (shared), the same 8
+    requests (16-2000 tokens; prompts of up to 512 tokens are packed, the
+    others chunked, 512 tokens at a time, two chunks per mixed step)."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    engine = build_torch_engine(
+        LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
+        fused_decode=False, spec_k=0, params=params,
+    )
+    runner = engine.runner
+    if runner.prefill_chunk_tokens != 512 or not engine._mixed_enabled:
+        raise SmokeError(f"serve_default: chunk {runner.prefill_chunk_tokens}, mixed "
+                         f"{engine._mixed_enabled}; expected the defaults (512, on)")
+    reqs = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
+
+    async def serve():
+        try:
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            first = await run_requests(engine, reqs, Context)
+            wall = time.perf_counter() - t1
+            stats = copy.deepcopy(vars(engine.stats))
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            t1 = time.perf_counter()
+            second = await run_requests(engine, reqs, Context)
+            return first, second, wall, time.perf_counter() - t1, stats, launches, peak
+        finally:
+            await engine.close()
+
+    first, second, wall, wall_warm, stats, launches, peak = asyncio.run(serve())
+    vocab = LLAMA31_8B["vocab_size"]
+    for i, ((toks, reason, _), req) in enumerate(zip(first, reqs)):
+        if i == PENALIZED:
+            ok = len(toks) >= MIN_TOKENS and reason in (FinishReason.LENGTH, FinishReason.EOS)
+        else:
+            ok = reason is FinishReason.LENGTH and len(toks) == req.stop.max_tokens
+        if not ok or not all(0 <= t < vocab for t in toks):
+            raise SmokeError(f"serve_default request {i}: {len(toks)} tokens, reason {reason}")
+        if second[i][0] != toks:
+            raise SmokeError(f"serve_default request {i}: the repeated run gave other tokens")
+    if stats["mixed_steps"] <= 0 or stats["packed_prefills"] <= 0 or stats["prefills"]:
+        raise SmokeError(f"serve_default: did not pack and mix: {stats}")
+    L = runner.config.num_layers
+    want = {**dict.fromkeys(kernels.KERNELS, 0),
+            "paged_decode_attention": L * (stats["decode_steps"] + stats["mixed_steps"])}
+    if launches != want:
+        raise SmokeError(f"serve_default: kernel launches {launches} != {want}")
+    # the shortest (packed) and the longest (chunked) prompt, both greedy
+    gap = max(reference_check(torch, runner, reqs[i].token_ids, first[i][0]) for i in (0, -1))
+    out_tokens = sum(len(t) for t, _, _ in first)
+    res = {
+        "requests": len(reqs), "prompt_lens": PROMPT_LENS, "stats": stats,
+        "launches": launches, "wall_s": wall, "output_tok_per_s": out_tokens / wall,
+        "ttft_s_concurrent": [t for _, _, t in first], "wall_s_warm": wall_warm,
+        "output_tok_per_s_warm": out_tokens / wall_warm,
+        "ttft_s_concurrent_warm": [t for _, _, t in second], "peak_mem_bytes": peak,
+        "reference_max_logit_gap": gap, "chunk": runner.prefill_chunk_tokens,
+        "chunk_budget": engine._chunk_budget,
+    }
+    log(f"serve_default: {len(reqs)} requests ({out_tokens} tokens) in {wall:.2f} s "
+        f"({wall_warm:.2f} s warm); {stats['packed_prefills']} packed prefills, "
+        f"{stats['chunk_steps']} chunks alone, {stats['mixed_steps']} mixed steps, "
+        f"{stats['decode_steps']} decode steps; launches {launches}; repeat identical; "
+        f"reference gap {gap:.3f}; peak memory {peak / 1e9:.2f} GB")
+    print(json.dumps({"serve_default": res, "card": card}), flush=True)
+    res["engine"] = engine
+    return res
+
+
+def chunked_row(torch, flush, C: int = 512, start: int = 1536) -> dict:
+    """The chunked prefill attention op (a torch op on the card: the JAX
+    package's is an XLA op) at C rows from position `start`, against a
+    max_model_len-wide table, beside SDPA over the visible keys gathered
+    beforehand (not timed) with the op's causal mask."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    nb = 2112
+    kc = torch.randn(HKV, nb, BLOCK, D, generator=g).to(torch.bfloat16).cuda()
+    vc = torch.randn(HKV, nb, BLOCK, D, generator=g).to(torch.bfloat16).cuda()
+    q = torch.randn(C, HQ, D, generator=g).to(torch.bfloat16).cuda()
+    S = start + C
+    table = torch.zeros(MAX_BLOCKS, dtype=torch.int64)
+    table[:S // BLOCK] = torch.randperm(nb - 1, generator=g)[:S // BLOCK] + 1
+    table = table.cuda()
+    t_op = time_ms(torch, lambda: A.chunked_prefill_attention(q, kc, vc, table, start),
+                   reps=10, warmup=2, flush=flush)
+    ks = kc[:, table[:S // BLOCK]].reshape(HKV, S, D)[None]
+    vs = vc[:, table[:S // BLOCK]].reshape(HKV, S, D)[None]
+    qpos = start + torch.arange(C, device="cuda")
+    mask = torch.arange(S, device="cuda")[None, :] <= qpos[:, None]
+    qs = q.transpose(0, 1)[None]
+    t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
+    got = A.chunked_prefill_attention(q, kc, vc, table, start)
+    want = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    err = compare(torch, "chunked op vs SDPA", got, want[0].transpose(0, 1), PREFILL_TOL)
+    pairs = C * start + C * (C + 1) // 2
+    flops = 4 * pairs * HQ * D
+    nbytes = (2 * C * HQ * D + 2 * S * HKV * D) * 2 + (S // BLOCK) * 8
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"ms": t_op, "sdpa_pregathered_ms": t_s, "bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations", "bytes": nbytes,
+            "flops": flops, "max_abs_diff_vs_sdpa": err,
+            "shape": f"C={C} chunk_start={start} Hq={HQ} Hkv={HKV} D={D} table={MAX_BLOCKS}"}
+
+
+PACKED_SEGMENTS = [16, 100, 300]  # the serve phase's three short prompts
+
+
+def packed_row(torch, flush, P: int = 512) -> dict:
+    """The packed prefill attention op (a torch op on the card) over the
+    short prompts the default path packs into one 512-row buffer, beside
+    SDPA with the same block-diagonal causal mask."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import attention as A
+
+    q, k, v = prefill_inputs(torch, P, seed=8)
+    seg = torch.full((P,), -1, dtype=torch.int64)
+    off = 0
+    for i, n in enumerate(PACKED_SEGMENTS):
+        seg[off:off + n] = i
+        off += n
+    seg = seg.cuda()
+    t_op = time_ms(torch, lambda: A.packed_prefill_attention(q, k, v, seg),
+                   reps=10, warmup=2, flush=flush)
+    pos = torch.arange(P, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (seg[None, :] == seg[:, None])
+    qs, ks, vs = (t.transpose(0, 1)[None] for t in (q, k, v))
+    t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), flush=flush)
+    got = A.packed_prefill_attention(q, k, v, seg)[:off]
+    want = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    err = compare(torch, "packed op vs SDPA", got, want[0].transpose(0, 1)[:off], PREFILL_TOL)
+    pairs = sum(n * (n + 1) // 2 for n in PACKED_SEGMENTS)
+    flops = 4 * pairs * HQ * D
+    nbytes = (2 * P * HQ * D + 2 * P * HKV * D) * 2 + P * 8
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"ms": t_op, "sdpa_masked_ms": t_s, "bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations", "bytes": nbytes,
+            "flops": flops, "max_abs_diff_vs_sdpa": err,
+            "shape": f"P={P} segments={PACKED_SEGMENTS} Hq={HQ} Hkv={HKV} D={D}"}
+
+
+def top_kernels(kernels: dict, calls: int, n: int = 8) -> list:
+    """The n kernels with the most device time in a profile of `calls`
+    calls: [name (cut to 100 characters), us per call, launches per call]."""
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:n]
+    return [[k[:100], us / calls, c / calls] for k, (us, c) in rows]
+
+
+def admission_times(torch, np, engine, card: str) -> dict:
+    """The default path's TTFT of one 2000-token prompt alone through four
+    512-token chunks (only the last one's sample fetched), one mixed step
+    (the B=8 decode step at context 1024 plus one 512-token chunk at
+    position 1536; wall around the call and its one fetch, and device time
+    by profiler), and the packed and chunked attention ops."""
+    runner = engine.runner
+    bs, C = runner.block_size, runner.prefill_chunk_tokens
+    rng = np.random.default_rng(3)
+    vocab = runner.config.vocab_size
+    n = 2000
+    prompt = rng.integers(0, vocab, n).tolist()
+    blocks = list(range(1, (n + bs - 1) // bs + 1))
+
+    def chunked_ttft():
+        for s in range(0, n, C):
+            out = runner.prefill_chunk(prompt[s:s + C], s, n, blocks, 0.0, 1.0, 0)
+        return runner.fetch_sample(out)
+
+    chunked_ttft()  # warm
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        chunked_ttft()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, prof = profile_calls(torch, chunked_ttft)
+    ttft = {"median": statistics.median(ts), "min": min(ts), "max": max(ts),
+            "chunks": -(-n // C), "device_ms": dev_ms, "top_kernels": top_kernels(prof, 5)}
+    B, ctx = 8, STEP_CTX
+    per = (ctx + 1 + bs - 1) // bs
+    tables = np.zeros((B, runner.max_blocks_per_seq), np.int32)
+    for b in range(B):
+        tables[b, :per] = np.arange(1 + b * per, 1 + (b + 1) * per)
+    pos = np.full(B, ctx, np.int64)
+    slots = tables[np.arange(B), pos // bs].astype(np.int64) * bs + pos % bs
+    toks = rng.integers(0, vocab, B)
+    zeros, ones, kz = np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int64)
+    keys = np.zeros((B, 2), np.int64)
+    cprompt = rng.integers(0, vocab, 2048).tolist()
+    cblocks = list(range(1 + B * per, 1 + B * per + 2048 // bs))
+    chunk = [(cprompt[1536:2048], 1536, 2048, cblocks, 0.0, 1.0, 0, 1.0, None, None, False)]
+
+    def mixed():
+        c_outs, d_out = runner.mixed_step(chunk, toks, pos, tables, slots, keys, zeros,
+                                          ones, kz)
+        return runner.fetch_sample((*c_outs[0], *d_out))
+
+    for _ in range(3):
+        mixed()
+    ts = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        mixed()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, prof = profile_calls(torch, mixed)
+    step = {"median": statistics.median(ts), "min": min(ts), "max": max(ts),
+            "device_ms": dev_ms, "B": B, "ctx": ctx, "chunk": C, "chunk_start": 1536,
+            "decode_attention": per_launch_us(prof, "true"), "top_kernels": top_kernels(prof, 5)}
+    flush = make_flush(torch)
+    ops = {"chunked_prefill_attention": chunked_row(torch, flush),
+           "packed_prefill_attention": packed_row(torch, flush)}
+    res = {"ttft_ms_alone_chunked_2000": ttft, "mixed_step_ms_B8_plus_chunk": step,
+           "xla_op_ports": ops}
+    print(json.dumps({"admission_time": res, "card": card}), flush=True)
+    log(f"default path: 2000-token TTFT alone through {ttft['chunks']} chunks "
+        f"{ttft['median']:.2f} ms wall / {ttft['device_ms']:.2f} ms device; mixed step "
+        f"B=8 + one {C}-token chunk {step['median']:.2f} ms wall / {dev_ms:.2f} ms device")
+    for name, row in ops.items():
+        yard = row.get("sdpa_pregathered_ms") or row.get("sdpa_masked_ms")
+        log(f"{name} (torch op) {row['shape']}: {row['ms']['median']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}), SDPA {yard['median']:.4f} ms")
+    return res
+
+
+# ---------------------------------------------------------------- checkpoint
+
+
+SAFETENSORS_DTYPES = {"torch.bfloat16": "BF16", "torch.float16": "F16", "torch.float32": "F32"}
+
+
+def write_safetensors(torch, path: str, tensors: dict) -> None:
+    """Write CPU tensors in the safetensors format with the standard library:
+    an 8-byte little-endian header length, the JSON header (dtype, shape,
+    data_offsets), then each tensor's raw little-endian bytes."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().view(torch.uint8).numpy().data)
+
+
+def hf_checkpoint_tensors(torch, params: dict, layers: int) -> dict:
+    """The port's parameters under HF Llama names, [out, in] projections
+    (transposed on the card), moved to the host."""
+    out = {"model.embed_tokens.weight": params["embed"],
+           "model.norm.weight": params["final_norm"],
+           "lm_head.weight": params["lm_head"].t()}
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "wg": "mlp.gate_proj", "wu": "mlp.up_proj",
+             "wd": "mlp.down_proj"}
+    for i in range(layers):
+        layer, p = params["layers"][i], f"model.layers.{i}."
+        out[p + "input_layernorm.weight"] = layer["attn_norm"]
+        out[p + "post_attention_layernorm.weight"] = layer["mlp_norm"]
+        for key, name in names.items():
+            out[f"{p}{name}.weight"] = layer[key].t()
+    return {k: v.contiguous().cpu() for k, v in out.items()}
+
+
+CKPT_LAYERS = 2
+CKPT_PROMPTS = [(16, 24), (600, 16), (100, 24)]  # (prompt tokens, max tokens)
+
+
+def phase_checkpoint(torch, np, card: str) -> dict:
+    """A 2-layer, full-width bf16 Llama-3.1-8B checkpoint (random weights
+    from a seed, norm weights perturbed so that a lost norm shows) written
+    with write_safetensors in two shards, loaded through build_torch_engine
+    (<dir>); its weights must equal the written ones bit for bit, and its
+    greedy tokens an engine's built from the same arrays through params=."""
+    import shutil
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.engine.torch_engine.weights import init_params
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.protocols.common import (
+        Context, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    hf = dict(LLAMA31_8B, num_hidden_layers=CKPT_LAYERS)
+    cfg = LlamaConfig.from_hf_dict(hf)
+    params = init_params(cfg, seed=5, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    norms = [params["final_norm"]] + [
+        layer[k] for layer in params["layers"] for k in ("attn_norm", "mlp_norm")]
+    for norm in norms:
+        norm.add_(0.1 * torch.randn(norm.shape, generator=gen, device="cuda").to(norm.dtype))
+    model_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "chip_smoke_checkpoint")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    try:
+        t0 = time.perf_counter()
+        tensors = hf_checkpoint_tensors(torch, params, CKPT_LAYERS)
+        names = list(tensors)
+        for i in range(2):
+            shard = os.path.join(model_dir, f"model-0000{i + 1}-of-00002.safetensors")
+            write_safetensors(torch, shard, {n: tensors[n] for n in names[i::2]})
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(hf, f)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        del tensors
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = build_torch_engine(model_dir, device="cuda", max_batch=4, max_model_len=1024)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        same = build_torch_engine(hf, device="cuda", max_batch=4, max_model_len=1024,
+                                  params=params)
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+    def flat(tree, path=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items() for k2, v2 in flat(v, f"{path}/{k}").items()}
+        if isinstance(tree, list):
+            return {k2: v2 for i, v in enumerate(tree) for k2, v2 in flat(v, f"{path}/{i}").items()}
+        return {path: tree}
+
+    a, b = flat(loaded.runner.params), flat(params)
+    if sorted(a) != sorted(b) or not all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in b):
+        raise SmokeError("checkpoint: the loaded weights differ from the written ones")
+    rng = np.random.default_rng(9)
+    reqs = [PreprocessedRequest(token_ids=rng.integers(0, cfg.vocab_size, n).tolist(),
+                                sampling=SamplingOptions(greedy=True),
+                                stop=StopConditions(max_tokens=m), eos_token_ids=[])
+            for n, m in CKPT_PROMPTS]
+
+    async def serve(engine):
+        try:
+            return await run_requests(engine, reqs, Context)
+        finally:
+            await engine.close()
+
+    got = asyncio.run(serve(loaded))
+    want = asyncio.run(serve(same))
+    if [t for t, _, _ in got] != [t for t, _, _ in want]:
+        raise SmokeError("checkpoint: the loaded engine's tokens differ from params=")
+    if [len(t) for t, _, _ in got] != [m for _, m in CKPT_PROMPTS]:
+        raise SmokeError("checkpoint: wrong token counts")
+    res = {"layers": CKPT_LAYERS, "bytes": nbytes, "write_s": t_write, "load_s": t_load,
+           "prompts": CKPT_PROMPTS, "stats": vars(loaded.stats)}
+    log(f"checkpoint: {nbytes / 1e9:.2f} GB in 2 shards written in {t_write:.1f} s, loaded "
+        f"by build_torch_engine(<dir>) in {t_load:.1f} s; weights bit-identical; greedy "
+        f"tokens equal params= over {len(reqs)} requests")
+    print(json.dumps({"checkpoint": res, "card": card}), flush=True)
     return res
 
 
@@ -1229,14 +1616,23 @@ def main() -> int:
         engine = served.pop("engine")
         spec = phase_serve_spec(torch, np, card, engine.runner.params)
         fused_runner = spec.pop("runner")
-        # each kernel's launches on the path that owns it
+        # 6. serve_default (its counters set to 0 just before it, read just
+        # after) and 7. checkpoint
+        default = phase_serve_default(torch, np, card, engine.runner.params)
+        default_engine = default.pop("engine")
+        phase_checkpoint(torch, np, card)
+        # each kernel's launches on the path that owns it: decode (#1) on
+        # the default path, prefill (#3) on the chunking-off serve path, the
+        # other three on the spec path
         launches = {
             **served["launches"],
             **{k: spec["launches"][k] for k in SPEC_KERNELS},
+            "paged_decode_attention": default["launches"]["paged_decode_attention"],
         }
 
-        # 6. times
+        # 8. times
         phase_engine_times(torch, np, engine, fused_runner, card)
+        admission_times(torch, np, default_engine, card)
         rows = phase_kernel_times(torch, card)
         log(f"peak device memory during serve: {served['peak_mem_bytes'] / 1e9:.2f} GB")
     except Exception as e:  # noqa: BLE001 - report and fail the run

@@ -3,10 +3,24 @@
 Counterpart of dynamo_tpu/engine/jax_engine/engine.py (``JaxEngine``), with
 the same contract: ``generate(PreprocessedRequest, Context)`` streams
 ``LLMEngineOutput`` token frames and ends with one frame that carries the
-finish reason. It is the JAX engine's loop with chunking off, reduced to:
+finish reason. It is the JAX engine's single-worker loop with its defaults,
+reduced to:
 
   * a FIFO waiting queue; a prompt is admitted when a batch lane and its
-    blocks (plus a watermark reserve) are free, and prefilled on its own;
+    blocks (plus a watermark reserve) are free. With chunking on (the
+    runner's ``prefill_chunk_tokens`` C > 0, the default), admission routes
+    as ``JaxEngine._admit_phase`` does: a prompt (or, after a preemption,
+    prompt + generated tokens) longer than C is prefilled chunk by chunk,
+    and shorter ones are packed greedily, up to C tokens and ``max_batch``
+    segments, into one packed prefill per group. With C = 0 every prompt
+    is prefilled on its own (the reference's chunking-off path);
+  * per loop iteration, with prompts still being chunked and decode lanes
+    running, one mixed step (``DYN_MIXED_STEP``, on by default) carries up
+    to ``chunk_budget`` prompt tokens (``DYN_CHUNK_BUDGET``; 0 means 2 x C)
+    in at most ceil(budget / C) chunk slots together with the whole decode
+    batch. Mixing is off while a drafter is active or a lane has penalties;
+    then one chunk runs on its own, followed by the decode step. A chunk's
+    sample is read back only on the prompt's final chunk;
   * one batched decode step over every running lane per loop iteration,
     or, with ``spec_k > 0``, one speculative verify dispatch when enough
     lanes carry a draft: an n-gram drafter (drafter.py) proposes up to
@@ -25,11 +39,16 @@ finish reason. It is the JAX engine's loop with chunking off, reduced to:
     dropped and redrawn with a fresh key, at most four times;
   * a prompt longer than ``max_model_len`` is refused (``prompt_too_long``);
   * cancellation (``Context.kill`` or the consumer leaving the stream)
-    frees the lane and its blocks at the next loop step;
+    frees the lane and its blocks at the next loop step, also mid-chunk;
   * when a growing sequence finds no free block, the youngest other running
-    sequence is preempted: its blocks are freed and it is re-queued, in
-    arrival order, with its generated tokens, which are re-prefilled on
-    re-admission (recompute preemption).
+    sequence (one still being chunked included) is preempted: its blocks
+    are freed and it is re-queued, in arrival order, with its generated
+    tokens, which are re-prefilled on re-admission (recompute preemption).
+
+A ``chunk_budget`` that is not a multiple of the KV block size raises: the
+reference slices chunks by the remaining budget, so such a budget would
+start a chunk off a block boundary and scatter its K/V to the wrong
+positions.
 
 Per-token sampling keys are (request seed or engine stream + sequence id,
 number of generated tokens), as in the JAX engine, so a seeded request gives
@@ -37,9 +56,9 @@ the same tokens whatever the batch around it. Device calls run one at a time
 on a single worker thread so the event loop keeps streaming while the card
 works.
 
-Left out (ROADMAP.md lists them): packed / chunked / mixed prefill, the
-decode horizon, the tiered block manager and KV events, disaggregation, QoS
-classes and deadlines, tracing and the watchdog.
+Left out (ROADMAP.md lists them): the decode horizon, the tiered block
+manager, prefix onboarding and KV events, disaggregation, multimodal
+prompts, QoS classes, deadlines and brownout, tracing and the watchdog.
 """
 
 from __future__ import annotations
@@ -48,6 +67,7 @@ import asyncio
 import bisect
 import itertools
 import logging
+import os
 from collections.abc import AsyncIterator
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -86,11 +106,36 @@ class TorchEngineConfig:
     # least fraction of active lanes with a draft for a verify dispatch to
     # replace a plain decode step
     spec_min_coverage: float = 0.5
+    # prompt tokens that may ride one mixed step, over all its chunk slots;
+    # 0 = two chunks' worth. A multiple of block_size.
+    chunk_budget: int = field(
+        default_factory=lambda: int(os.environ.get("DYN_CHUNK_BUDGET", "0") or 0)
+    )
+    # mixed steps (chunks inside the decode batch's step); off alternates a
+    # chunk and a decode step, with the same output streams
+    mixed_step: bool = field(
+        default_factory=lambda: os.environ.get("DYN_MIXED_STEP", "1").lower()
+        not in ("0", "false", "no", "off")
+    )
+
+
+def check_chunk_budget(chunk_budget: int, block_size: int) -> None:
+    """A mixed step slices chunks by the budget left, so a budget off the
+    block grid would start a chunk mid-block."""
+    if chunk_budget > 0 and chunk_budget % block_size:
+        raise ValueError(
+            f"chunk_budget (DYN_CHUNK_BUDGET) {chunk_budget} is not a multiple of "
+            f"the KV block size {block_size}: a chunk would start off a block "
+            "boundary and its K/V would land at the wrong positions"
+        )
 
 
 @dataclass
 class EngineStats:
-    prefills: int = 0  # prefill calls (re-prefills after preemption included)
+    prefills: int = 0  # per-sequence prefill calls (re-prefills after preemption included)
+    packed_prefills: int = 0  # packed prefill calls
+    chunk_steps: int = 0  # prefill chunks run on their own
+    mixed_steps: int = 0  # mixed steps (chunk slots + the decode batch)
     decode_steps: int = 0  # batched decode calls
     generated_tokens: int = 0
     preemptions: int = 0
@@ -112,6 +157,8 @@ class _Sequence:
         self.num_prompt = len(self.token_ids)
         self.block_ids: list[int] = []
         self.slot: Optional[int] = None
+        self.prefilling = False  # admitted, chunked prefill in progress
+        self.prefill_pos = 0  # tokens chunked so far
         self.arrival_order = 0
         self.out: asyncio.Queue = asyncio.Queue()
         self.eos: set[int] = set()
@@ -169,6 +216,7 @@ class TorchEngine:
             num_blocks=runner.num_blocks,
             max_model_len=runner.max_model_len,
         )
+        check_chunk_budget(self.config.chunk_budget, self.config.block_size)
         self.allocator = BlockAllocator(self.config.num_blocks)
         self.slots: list[Optional[_Sequence]] = [None] * self.config.max_batch
         self.waiting: list[_Sequence] = []
@@ -176,6 +224,14 @@ class TorchEngine:
         self._seq_ids = itertools.count(1)
         self._arrivals = itertools.count(1)
         self._admit_order: list[_Sequence] = []  # youngest last, for preemption
+        # admitted prompts being prefilled one chunk at a time
+        self._prefilling: list[_Sequence] = []
+        # per-step prompt-token budget of a mixed step and its chunk-slot cap
+        C = runner.prefill_chunk_tokens
+        budget = self.config.chunk_budget if self.config.chunk_budget > 0 else 2 * C
+        self._chunk_budget = budget
+        self._mixed_max_slots = max(1, -(-budget // C)) if C else 0
+        self._mixed_enabled = self.config.mixed_step and C > 0
         self._loop_task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
         self._closed = False
@@ -272,6 +328,10 @@ class TorchEngine:
             seq.block_ids = []
         if seq in self._admit_order:
             self._admit_order.remove(seq)
+        if seq in self._prefilling:
+            self._prefilling.remove(seq)
+        seq.prefilling = False
+        seq.prefill_pos = 0  # a preempted sequence re-prefills from scratch
 
     def _finish(self, seq: _Sequence, reason: FinishReason) -> None:
         self._free_seq(seq)
@@ -309,8 +369,25 @@ class TorchEngine:
             while not self._closed:
                 self._reap_cancelled()
                 admitted = await self._admit_phase()
-                active = [s for s in self.slots if s is not None]
+                if self._prefilling:
+                    active = self._decode_lanes()
+                    if active and self._can_mix(active):
+                        # every decode lane and up to the budget of prompt
+                        # tokens in one step
+                        await self._mixed_step_phase(active)
+                        if not admitted:
+                            await asyncio.sleep(0)
+                        continue
+                # else at most one chunk per iteration, so the decode step
+                # below never waits longer than one chunk
+                chunked = False
+                if self._prefilling:
+                    await self._prefill_chunk_step()
+                    chunked = True
+                active = self._decode_lanes()
                 if not active:
+                    if chunked:
+                        continue
                     if not self.waiting:
                         self._wake.clear()
                         await self._wake.wait()
@@ -330,6 +407,9 @@ class TorchEngine:
             self.waiting.clear()
             raise
 
+    def _decode_lanes(self) -> list[_Sequence]:
+        return [s for s in self.slots if s is not None and not s.prefilling]
+
     def _reap_cancelled(self) -> None:
         for seq in list(self.waiting):
             if seq.ctx.is_killed() or seq.ctx.is_stopped():
@@ -340,30 +420,205 @@ class TorchEngine:
                 self._finish(seq, FinishReason.CANCELLED)
 
     async def _admit_phase(self) -> bool:
+        """Admit from the head of the queue while a lane and blocks are free
+        (``JaxEngine._admit_phase``, engine.py:1549-1760). Not ported, and
+        so not branched on here: the block manager's prefix lookup and
+        onboarding (ROADMAP A7), remote prefill (A12), multimodal prompts
+        (A11) and QoS re-admission backoff (A7)."""
         admitted = False
+        C = self.runner.prefill_chunk_tokens
+        to_pack: list[_Sequence] = []
         while self.waiting:
             seq = self.waiting[0]
             if not self._try_admit(seq):
                 break
             self.waiting.pop(0)
             admitted = True
-            replay = list(seq.token_ids)  # after preemption: prompt + generated
-            key_row = self._key_row(seq)
-            runner = self.runner
-            eos_suppress = seq.needs_eos_suppress
-            sample = await self._device(
-                lambda: runner.fetch_sample(runner.prefill(
-                    replay, seq.block_ids, seq.temperature, seq.top_p,
-                    seq.top_k, rep_pen=seq.rep_pen, key_data=key_row,
-                    eos_ids=seq.eos_row, eos_suppress=eos_suppress,
-                ))
+            # after a preemption the replay is prompt + generated tokens
+            if C and len(seq.token_ids) > C:
+                seq.prefilling = True
+                seq.prefill_pos = 0
+                self._prefilling.append(seq)
+            elif C:
+                to_pack.append(seq)
+            else:
+                await self._run_prefill(seq)
+        # greedily fill each packed prefill up to C tokens and max_batch
+        # segments, one call per group
+        while to_pack:
+            group, total = [], 0
+            while (
+                to_pack
+                and total + len(to_pack[0].token_ids) <= C
+                and len(group) < self.config.max_batch
+            ):
+                s = to_pack.pop(0)
+                if s.slot is None:  # preempted by an earlier group's growth
+                    continue
+                group.append(s)
+                total += len(s.token_ids)
+            if group:
+                await self._run_packed_prefill(group)
+        return admitted
+
+    async def _run_prefill(self, seq: _Sequence) -> None:
+        """One prompt prefilled on its own (chunking off)."""
+        replay = list(seq.token_ids)
+        key_row = self._key_row(seq)
+        runner = self.runner
+        eos_suppress = seq.needs_eos_suppress
+        sample = await self._device(
+            lambda: runner.fetch_sample(runner.prefill(
+                replay, seq.block_ids, seq.temperature, seq.top_p,
+                seq.top_k, rep_pen=seq.rep_pen, key_data=key_row,
+                eos_ids=seq.eos_row, eos_suppress=eos_suppress,
+            ))
+        )
+        self.stats.prefills += 1
+        if seq.slot is None:  # cancelled during the device call
+            return
+        tok, lp, tids, tlps = sample
+        self._append_token(seq, int(tok[0]), float(lp[0]), tids[0], tlps[0])
+
+    async def _run_packed_prefill(self, group: list[_Sequence]) -> None:
+        """Short prompts packed into one prefill (engine.py:1771)."""
+        specs = [
+            (
+                list(s.token_ids), s.block_ids, s.temperature, s.top_p, s.top_k,
+                s.rep_pen, self._key_row(s), s.eos_row, s.needs_eos_suppress,
             )
-            self.stats.prefills += 1
-            if seq.slot is None:  # cancelled during the device call
+            for s in group
+        ]
+        runner = self.runner
+        packed = runner.pack_prefill(specs)
+        toks, lps, tids, tlps = await self._device(
+            lambda: runner.fetch_sample(runner.prefill_packed_arrays(**packed)))
+        self.stats.packed_prefills += 1
+        for i, seq in enumerate(group):
+            if seq.slot is None:  # preempted by an earlier segment's growth
                 continue
+            self._append_token(seq, int(toks[i]), float(lps[i]), tids[i], tlps[i])
+
+    async def _prefill_chunk_step(self) -> None:
+        """One chunk of the oldest prompt being chunked, on its own
+        (engine.py:1804). Only the final chunk's sample is read back; the
+        earlier chunks are queued on the card without a wait."""
+        seq = self._prefilling[0]
+        C = self.runner.prefill_chunk_tokens
+        start = seq.prefill_pos
+        total = len(seq.token_ids)
+        chunk = seq.token_ids[start:start + C]
+        final = start + C >= total
+        key_row = self._key_row(seq)
+        runner = self.runner
+        eos_suppress = seq.needs_eos_suppress
+
+        def run_chunk():
+            out = runner.prefill_chunk(
+                chunk, start, total, seq.block_ids, seq.temperature, seq.top_p,
+                seq.top_k, rep_pen=seq.rep_pen, key_data=key_row,
+                eos_ids=seq.eos_row, eos_suppress=eos_suppress,
+            )
+            return runner.fetch_sample(out) if final else None
+
+        sample = await self._device(run_chunk)
+        self.stats.chunk_steps += 1
+        if seq.slot is None:  # cancelled during the device call
+            return
+        seq.prefill_pos = min(start + C, total)
+        if seq.prefill_pos >= total:
+            self._prefilling.remove(seq)
+            seq.prefilling = False
             tok, lp, tids, tlps = sample
             self._append_token(seq, int(tok[0]), float(lp[0]), tids[0], tlps[0])
-        return admitted
+
+    def _can_mix(self, active: list[_Sequence]) -> bool:
+        """Whether one mixed step can replace this iteration's chunk and
+        decode step (engine.py:1853): not while a drafter is active (the
+        port has no brownout pause of drafting), nor when a lane has
+        penalties, whose full-history program the mixed step does not
+        carry. (The port has no decode horizon, the reference's third
+        gate.) Read-only: it must not touch the drafter."""
+        if not self._mixed_enabled or self.drafter is not None:
+            return False
+        return not any(s.has_penalties for s in active)
+
+    async def _mixed_step_phase(self, active: list[_Sequence]) -> None:
+        """One step for the whole iteration (engine.py:1870-1990): every
+        decode lane plus prompt chunks, oldest prompt first, up to the
+        budget and the slot cap (several chunks of one prompt, or chunks of
+        several prompts, may share a step). One device-to-host copy brings
+        back the decode samples with the samples of every chunk that ends
+        its prompt."""
+        C = self.runner.prefill_chunk_tokens
+        budget = self._chunk_budget
+        chunks: list[tuple] = []
+        packed: list[tuple[_Sequence, int, int]] = []  # (seq, start, n)
+        plan: list[tuple[_Sequence, int]] = []  # tokens each sequence advances
+        for seq in sorted(self._prefilling, key=lambda s: s.arrival_order):
+            if budget <= 0 or len(chunks) >= self._mixed_max_slots:
+                break
+            total = len(seq.token_ids)
+            pos = seq.prefill_pos
+            advanced = 0
+            key_row = self._key_row(seq)
+            while pos < total and budget > 0 and len(chunks) < self._mixed_max_slots:
+                # the budget is a multiple of the block size, so every chunk
+                # but a prompt's last starts and ends on a block boundary
+                n = min(C, total - pos, budget)
+                chunks.append((
+                    seq.token_ids[pos:pos + n], pos, total, seq.block_ids,
+                    seq.temperature, seq.top_p, seq.top_k, seq.rep_pen, key_row,
+                    seq.eos_row, seq.needs_eos_suppress,
+                ))
+                packed.append((seq, pos, n))
+                pos += n
+                budget -= n
+                advanced += n
+            if advanced:
+                plan.append((seq, advanced))
+        # decode lanes: single-step semantics, and always the EOS-masked
+        # variant (neutral rows are a bitwise no-op)
+        bs = self.config.block_size
+        self._clear_lanes()
+        for seq in active:
+            pos = self._fill_lane(seq)
+            self._slot_indices[seq.slot] = seq.block_ids[pos // bs] * bs + pos % bs
+        eos_ids, eos_sup = self._eos_rows(active)
+        final_slots = [
+            i for i, (seq, start, n) in enumerate(packed) if start + n >= len(seq.token_ids)
+        ]
+        runner = self.runner
+        args = (
+            self._tokens.copy(), self._positions.copy(), self._block_tables.copy(),
+            self._slot_indices.copy(), self._keys.copy(), self._temps.copy(),
+            self._top_ps.copy(), self._top_ks.copy(),
+        )
+
+        def run_mixed():
+            chunk_outs, d_out = runner.mixed_step(
+                chunks, *args, eos_ids=eos_ids, eos_suppress=eos_sup)
+            fetch = [t for i in final_slots for t in chunk_outs[i]]
+            return runner.fetch_sample((*fetch, *d_out))
+
+        out = await self._device(run_mixed)
+        self.stats.mixed_steps += 1
+        final_samples = {slot: out[4 * j:4 * j + 4] for j, slot in enumerate(final_slots)}
+        toks, lps, tids, tlps = out[4 * len(final_slots):]
+        for seq, advanced in plan:
+            seq.prefill_pos = min(seq.prefill_pos + advanced, len(seq.token_ids))
+            if seq.prefill_pos >= len(seq.token_ids):
+                self._prefilling.remove(seq)
+                seq.prefilling = False
+        for i, (seq, _, _) in enumerate(packed):
+            if i in final_samples and seq.slot is not None:
+                tok, lp, tid, tlp = final_samples[i]
+                self._append_token(seq, int(tok[0]), float(lp[0]), tid[0], tlp[0])
+        for seq in active:
+            if seq.slot is None:
+                continue  # finished, cancelled or preempted meanwhile
+            i = seq.slot
+            self._append_token(seq, int(toks[i]), float(lps[i]), tids[i], tlps[i])
 
     def _lane_remaining(self, seq: _Sequence) -> int:
         """Tokens this lane may still emit (max_new and model-length caps)."""

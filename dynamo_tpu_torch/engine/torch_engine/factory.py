@@ -2,21 +2,26 @@
 
 Counterpart of dynamo_tpu/engine/jax_engine/factory.py (``build_jax_engine``
 :26-209, ``default_num_blocks`` :411, ``fused_decode_from_env`` and
-``spec_decode_settings`` :281-320) for one device.
+``spec_decode_settings`` :281-320) for one device, with the JAX factory's
+default admission path: chunked, packed and mixed-step prefill.
 """
 
 from __future__ import annotations
 
-import glob
+import json
 import os
 from typing import Optional, Union
 
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
-from dynamo_tpu_torch.engine.torch_engine.engine import TorchEngine, TorchEngineConfig
+from dynamo_tpu_torch.engine.torch_engine.engine import (
+    TorchEngine,
+    TorchEngineConfig,
+    check_chunk_budget,
+)
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
-from dynamo_tpu_torch.engine.torch_engine.weights import init_params
+from dynamo_tpu_torch.engine.torch_engine.weights import load_or_init_params
 from dynamo_tpu_torch.models.llama import LlamaConfig, param_count
 from dynamo_tpu_torch.ops.kernels import card_shape_problems
 
@@ -86,7 +91,12 @@ def _resolve_config(config) -> tuple[LlamaConfig, Optional[str]]:
         return LlamaConfig.from_hf_dict(config), None
     if isinstance(config, (str, os.PathLike)):
         path = os.fspath(config)
-        return LlamaConfig.from_model_dir(path), path
+        try:
+            return LlamaConfig.from_model_dir(path), path
+        except (OSError, json.JSONDecodeError) as e:
+            raise ValueError(
+                f"cannot read the model config of checkpoint directory {path}: {e}"
+            ) from e
     if config is None:
         return LlamaConfig.llama3_8b(), None
     raise TypeError(f"config must be a LlamaConfig, an HF config dict or a model dir, not {type(config)}")
@@ -106,18 +116,26 @@ def build_torch_engine(
     spec_k: Optional[int] = None,
     spec_min_coverage: Optional[float] = None,
     params: Optional[dict] = None,
+    prefill_chunk_tokens: int = 512,
 ) -> TorchEngine:
     """Build the serving engine on ``device`` (the card unless the caller
     asks for the CPU; raises when a card is asked for and absent).
 
     ``config`` is a LlamaConfig, an HF ``config.json`` dict, or a model
-    directory holding one (default: Llama-3.1-8B shapes). Weights are
-    ``params`` when given (a parameter dict on ``device``, e.g. another
-    engine's, shared rather than copied), else seeded random
-    (``init_params``); a directory with safetensors raises,
-    as loading checkpoints is not ported yet. The KV pool is sized like the
-    JAX factory's: every lane at full context plus 64 blocks, capped by the
-    device memory left after the weights.
+    directory holding one (default: Llama-3.1-8B shapes; a directory whose
+    config cannot be read raises). Weights are ``params`` when given (a
+    parameter dict on ``device``, e.g. another engine's, shared rather than
+    copied), else the directory's ``*.safetensors`` checkpoint in ``dtype``
+    (``load_hf_safetensors``), else seeded random (``init_params``). The
+    KV pool is sized like the JAX factory's: every lane at full context
+    plus 64 blocks, capped by the device memory left after the weights.
+
+    ``prefill_chunk_tokens`` (default 512, as the JAX runner's) is the
+    chunked prefill's chunk and the packed prefill's token buffer; 0 turns
+    chunking off, so every prompt is prefilled on its own. The mixed step
+    and its per-step budget come from ``DYN_MIXED_STEP`` (on unless "0")
+    and ``DYN_CHUNK_BUDGET`` (0: two chunks); a budget that is not a
+    multiple of ``kv_block_size`` raises ValueError here.
 
     ``fused_decode``, ``spec_k`` and ``spec_min_coverage`` default to what
     ``DYN_FUSED_DECODE`` and ``DYN_SPEC_*`` say (fused and spec off when
@@ -129,6 +147,9 @@ def build_torch_engine(
     looked for), naming each refusal; nothing falls back to a plain
     version."""
     cfg, model_dir = _resolve_config(config)
+    # DYN_CHUNK_BUDGET / DYN_MIXED_STEP, checked before any weight is made
+    chunking = TorchEngineConfig(block_size=kv_block_size)
+    check_chunk_budget(chunking.chunk_budget, kv_block_size)
     if fused_decode is None:
         fused_decode = fused_decode_from_env()
     if torch.device(device).type == "cuda":
@@ -138,11 +159,6 @@ def build_torch_engine(
                 "the card's kernels do not take this model's shapes: " + "; ".join(problems)
             )
     dev = resolve_device(device)
-    if model_dir and glob.glob(os.path.join(model_dir, "*.safetensors")):
-        raise NotImplementedError(
-            f"{model_dir} holds safetensors weights; loading checkpoints is "
-            "not ported yet (random weights serve directories without them)"
-        )
     max_len = min(max_model_len or cfg.max_position_embeddings, cfg.max_position_embeddings)
     if num_blocks is None:
         num_blocks = default_num_blocks(
@@ -156,16 +172,17 @@ def build_torch_engine(
     if spec_min_coverage is not None:
         spec["spec_min_coverage"] = spec_min_coverage
     if params is None:
-        params = init_params(cfg, seed=seed, device=dev, dtype=dtype)
+        params = load_or_init_params(model_dir, cfg, seed=seed, device=dev, dtype=dtype)
     runner = TorchModelRunner(
         cfg, params, num_blocks=num_blocks, block_size=kv_block_size,
         max_batch=max_batch, max_model_len=max_len, device=dev, rng_seed=seed,
-        fused_decode=fused_decode,
+        fused_decode=fused_decode, prefill_chunk_tokens=prefill_chunk_tokens,
     )
     return TorchEngine(
         runner,
         TorchEngineConfig(
             max_batch=max_batch, block_size=kv_block_size, num_blocks=num_blocks,
-            max_model_len=max_len, rng_seed=seed, **spec,
+            max_model_len=max_len, rng_seed=seed, chunk_budget=chunking.chunk_budget,
+            mixed_step=chunking.mixed_step, **spec,
         ),
     )

@@ -2,28 +2,45 @@
 cache) and runs prefill / decode + sampling.
 
 Counterpart of dynamo_tpu/engine/jax_engine/model_runner.py (``prefill``
-:1142 with ``_prefill_impl`` :490, ``decode`` :1603 with ``_decode_impl``
-:579, ``spec_verify`` :1696 with ``_spec_verify_impl`` :704,
-``fetch_sample`` :1049, ``default_prefill_buckets`` :41), for the
+:1142 with ``_prefill_impl`` :490, ``prefill_chunk`` :1252 with
+``_prefill_chunk_impl`` :542, ``pack_prefill`` :1323,
+``prefill_packed_arrays`` :1371 with ``_prefill_packed_impl`` :562,
+``mixed_step`` :980 with ``_mixed_impl`` :924, ``decode`` :1603 with
+``_decode_impl`` :579, ``spec_verify`` :1696 with ``_spec_verify_impl``
+:704, ``fetch_sample`` :1049, ``default_prefill_buckets`` :41), for the
 single-device path:
 
   * the caches are single buffers written IN PLACE by every call (the JAX
     runner donates them through jit; PyTorch simply updates them);
   * prompts are padded to the same power-of-two buckets of whole KV blocks,
     so the prefill shapes match the JAX program set;
+  * ``prefill_chunk_tokens`` (C, default 512, rounded up to whole blocks
+    and capped at the largest bucket; 0 turns chunking off) sizes the
+    chunked prefill's chunks and the packed prefill's token buffer; the
+    engine routes prompts longer than C through ``prefill_chunk`` /
+    ``mixed_step`` and packs shorter ones through ``pack_prefill`` /
+    ``prefill_packed_arrays``;
+  * ``mixed_step`` runs k chunk slots (in list order) and then the whole
+    decode batch in one call; its inputs have one shape per k = 1..the
+    engine's slot cap (C-wide chunks, max_model_len-wide chunk tables), the
+    closed family a CUDA-graph capture would key on;
   * sampling runs on the device right behind the model step, and the host
     reads a step's results with ONE device-to-host copy (``fetch_sample``,
-    or the packed array of ``spec_verify``);
-  * ``fused_decode`` runs every decode and verify step through the fused
-    norm+QKV+RoPE and o-proj+residual heads (models/llama.py);
+    or the packed array of ``spec_verify``); ``prefill_chunk``,
+    ``prefill_packed_arrays`` and ``mixed_step`` read nothing back: every
+    length they need is a host int;
+  * ``fused_decode`` runs every decode and verify step (and the decode half
+    of a mixed step) through the fused norm+QKV+RoPE and o-proj+residual
+    heads (models/llama.py); packed and chunked prefill keep the unfused
+    heads, as in the reference;
   * the repetition / frequency / presence penalties and the min_tokens EOS
     mask run on the device before sampling, as the JAX runner's
     ``_sample_one`` (:475-482), ``_decode_pen_impl`` / ``_decode_eos_impl``
     (:889, :909) and the verify pass (:778, :800-820) apply them; the token
     history goes up only when a lane has penalties.
 
-Not ported yet: packed / chunked / mixed prefill, the decode horizon (also
-after a verify pass), disaggregated block moves and sharded meshes.
+Not ported yet: the decode horizon (also after a verify pass),
+disaggregated block moves and sharded meshes.
 """
 
 from __future__ import annotations
@@ -41,6 +58,7 @@ from dynamo_tpu_torch.ops.sampling import (
     apply_penalties,
     apply_penalties_from_tables,
     apply_repetition_penalty_from_prompt,
+    apply_repetition_penalty_packed,
     make_key_data,
     mask_eos_logits,
     penalty_count_tables,
@@ -87,6 +105,7 @@ class TorchModelRunner:
         device="cuda",
         rng_seed: int = 0,
         fused_decode: bool = False,
+        prefill_chunk_tokens: int = 512,
     ) -> None:
         self.device = resolve_device(device)
         self.config = dataclasses.replace(
@@ -102,6 +121,9 @@ class TorchModelRunner:
         self._step_counter = 0
         self._key_offset = 0
         self.prefill_buckets = default_prefill_buckets(block_size, max_model_len)
+        # chunk size in whole KV blocks, at most the largest bucket; 0 = off
+        chunk = -(-prefill_chunk_tokens // block_size) * block_size
+        self.prefill_chunk_tokens = min(chunk, self.prefill_buckets[-1])
         # head-major layout: each (head, page) is a contiguous [bs, D] tile
         # (what the decode kernel streams); the cache takes the weights' dtype
         shape = (
@@ -173,15 +195,198 @@ class TorchModelRunner:
             self.params, self.config, tokens_d, T,
             self.k_cache, self.v_cache, self._dev(table, np.int64),
         )
-        # the reference applies both always; they are bitwise no-ops when
-        # off, so they are skipped then
+        return self._sample_first(
+            logits, tokens_d, T, key_data, temperature, top_p, top_k, rep_pen,
+            eos_ids, eos_suppress,
+        )
+
+    def _sample_first(
+        self, logits, prompt_d, n_prompt, key_data, temperature, top_p, top_k,
+        rep_pen, eos_ids, eos_suppress,
+    ) -> SampleOut:
+        """The prefill's tail (the JAX ``_sample_one``): the prompt's
+        repetition penalty, the min_tokens EOS mask, then the first sample.
+        The reference applies both always; they are bitwise no-ops when
+        off, so they are skipped then."""
         if rep_pen != 1.0:
-            logits = apply_repetition_penalty_from_prompt(logits, tokens_d, T, rep_pen)
+            logits = apply_repetition_penalty_from_prompt(logits, prompt_d, n_prompt, rep_pen)
         if eos_suppress and eos_ids is not None:
             logits = mask_eos_logits(
                 logits, self._dev(eos_ids, np.int64), torch.tensor(True, device=self.device))
         args = sample_args([temperature], [top_p], [top_k], [key_data], self.device)
         return sample_tokens_full(logits[None], *args, all_greedy=temperature <= 0)
+
+    def _chunk(
+        self, token_chunk, chunk_start, total_len, block_ids, table_blocks,
+        temperature, top_p, top_k, rep_pen, key_data, eos_ids, eos_suppress,
+    ) -> SampleOut:
+        """One chunk through the model (its table ``table_blocks`` wide,
+        padded with null block 0) and the JAX ``_prefill_chunk_impl`` tail:
+        the repetition penalty sees this chunk's tokens only (earlier chunks
+        already left the program) -- the reference's documented
+        approximation for the first token of a chunked prompt, kept for
+        parity; decode steps use the full history."""
+        C = self.prefill_chunk_tokens
+        n = len(token_chunk)
+        tokens = np.zeros(C, np.int64)
+        tokens[:n] = token_chunk
+        table = np.zeros(table_blocks, np.int64)
+        table[: len(block_ids)] = block_ids
+        if key_data is None:
+            key_data = self._next_key_data()
+        tokens_d = self._dev(tokens, np.int64)
+        logits = llama.prefill_chunk(
+            self.params, self.config, tokens_d, chunk_start, total_len,
+            self.k_cache, self.v_cache, self._dev(table, np.int64),
+        )
+        n_in_chunk = min(max(total_len - chunk_start, 0), C)
+        return self._sample_first(
+            logits, tokens_d, n_in_chunk, key_data, temperature, top_p, top_k,
+            rep_pen, eos_ids, eos_suppress,
+        )
+
+    @torch.inference_mode()
+    def prefill_chunk(
+        self,
+        token_chunk: list[int],
+        chunk_start: int,  # a multiple of block_size
+        total_len: int,
+        block_ids: list[int],
+        temperature: float,
+        top_p: float,
+        top_k: int,
+        rep_pen: float = 1.0,
+        key_data: Optional[np.ndarray] = None,
+        eos_ids: Optional[np.ndarray] = None,  # [MAX_EOS_IDS], -1 pads
+        eos_suppress: bool = False,
+    ) -> SampleOut:
+        """One chunk of a chunked prefill; chunks must arrive in order.
+        The table is as wide as the prompt's bucket, as in the reference.
+        Returns (token, logprob, top_ids, top_logprobs) device tensors, each
+        with a leading batch dim of 1, meaningful only on the final
+        chunk."""
+        return self._chunk(
+            token_chunk, chunk_start, total_len, block_ids,
+            self.pick_bucket(total_len) // self.block_size,
+            temperature, top_p, top_k, rep_pen, key_data, eos_ids, eos_suppress,
+        )
+
+    def pack_prefill(self, seqs: list[tuple]) -> dict[str, np.ndarray]:
+        """Pure host-side packing for the packed prefill, the JAX runner's
+        arrays bit for bit.
+
+        seqs: [(token_ids, block_ids, temp, top_p, top_k, rep_pen,
+        key_row [2], eos_row [MAX_EOS_IDS], suppress), ...] with at most
+        ``prefill_chunk_tokens`` tokens in all and at most ``max_batch``
+        segments. Padding carries segment -1 and writes to null slot 0."""
+        P = self.prefill_chunk_tokens
+        N = self.max_batch
+        bs = self.block_size
+        if len(seqs) > N:
+            raise ValueError(f"{len(seqs)} segments > max_batch {N}")
+        tokens = np.zeros(P, np.int32)
+        positions = np.zeros(P, np.int32)
+        segment_ids = np.full(P, -1, np.int32)
+        slot_indices = np.zeros(P, np.int32)
+        last_idx = np.zeros(N, np.int32)
+        temps = np.zeros(N, np.float32)
+        top_ps = np.ones(N, np.float32)
+        top_ks = np.zeros(N, np.int32)
+        rep_pens = np.ones(N, np.float32)
+        keys = np.zeros((N, 2), np.uint32)
+        eos_ids = np.full((N, MAX_EOS_IDS), -1, np.int32)
+        eos_suppress = np.zeros(N, bool)
+        off = 0
+        for i, (tids, bids, te, tp_, tk, rp, kd, er, sup) in enumerate(seqs):
+            T = len(tids)
+            if off + T > P:
+                raise ValueError(f"pack overflow: {off}+{T} > {P}")
+            tokens[off:off + T] = tids
+            positions[off:off + T] = np.arange(T)
+            segment_ids[off:off + T] = i
+            t_idx = np.arange(T)
+            slot_indices[off:off + T] = (
+                np.asarray(bids, np.int64)[t_idx // bs] * bs + t_idx % bs
+            )
+            last_idx[i] = off + T - 1
+            temps[i], top_ps[i], top_ks[i], rep_pens[i] = te, tp_, tk, rp
+            keys[i] = kd
+            eos_ids[i] = er
+            eos_suppress[i] = sup
+            off += T
+        return dict(
+            tokens=tokens, positions=positions, segment_ids=segment_ids,
+            slot_indices=slot_indices, last_idx=last_idx, temps=temps,
+            top_ps=top_ps, top_ks=top_ks, rep_pens=rep_pens, keys=keys,
+            eos_ids=eos_ids, eos_suppress=eos_suppress,
+        )
+
+    @torch.inference_mode()
+    def prefill_packed_arrays(
+        self, tokens, positions, segment_ids, slot_indices, last_idx,
+        temps, top_ps, top_ks, rep_pens, keys, eos_ids=None, eos_suppress=None,
+    ) -> SampleOut:
+        """The packed prefill over ``pack_prefill``'s arrays (the JAX
+        ``_prefill_packed_impl``): the model, each segment's prompt
+        repetition penalty, the EOS mask, then sampling. Returns (tokens,
+        logprobs, top_ids, top_logprobs), each [max_batch]-major; only the
+        first len(seqs) rows mean something."""
+        tokens_d = self._dev(tokens, np.int64)
+        seg_d = self._dev(segment_ids, np.int64)
+        logits = llama.prefill_packed(
+            self.params, self.config, tokens_d, self._dev(positions, np.int64), seg_d,
+            self._dev(slot_indices, np.int64), self.k_cache, self.v_cache,
+            self._dev(last_idx, np.int64),
+        )
+        # both are bitwise no-ops on neutral rows, so they are skipped when
+        # every row is neutral
+        if (np.asarray(rep_pens) != 1.0).any():
+            logits = apply_repetition_penalty_packed(
+                logits, tokens_d, seg_d, self._dev(rep_pens, np.float32))
+        if eos_suppress is not None and np.asarray(eos_suppress).any():
+            logits = mask_eos_logits(
+                logits, self._dev(eos_ids, np.int64), self._dev(eos_suppress, bool))
+        args = sample_args(temps, top_ps, top_ks, keys, self.device)
+        return sample_tokens_full(
+            logits, *args, all_greedy=bool((np.asarray(temps) <= 0).all()))
+
+    @torch.inference_mode()
+    def mixed_step(
+        self,
+        chunks: list[tuple],  # (token_chunk, chunk_start, total_len, block_ids,
+        # temperature, top_p, top_k, rep_pen, key_data, eos_ids, eos_suppress)
+        # per chunk slot
+        tokens, positions, block_tables, slot_indices, keys, temps, top_ps, top_ks,
+        eos_ids: Optional[np.ndarray] = None,  # [B, MAX_EOS_IDS], -1 pads
+        eos_suppress: Optional[np.ndarray] = None,  # [B] bool
+    ) -> tuple[tuple[SampleOut, ...], SampleOut]:
+        """One mixed step (the JAX ``mixed_step`` / ``_mixed_impl``): the k
+        chunk slots first, in list order (two slots of one sequence are
+        fine), then the whole decode batch. Every sub-computation touches
+        its own KV blocks, so the step equals the separate calls. Chunk
+        tables are max_model_len wide, so the inputs take one shape per k.
+        The decode half always runs the EOS-masked variant: a neutral row
+        (ids -1, suppress False) passes through bitwise. Returns
+        (chunk_outs, decode_out): one sample tuple per chunk slot (meaningful
+        only on a final chunk) and one for the decode batch."""
+        chunk_outs = tuple(
+            self._chunk(
+                token_chunk, chunk_start, total_len, block_ids, self.max_blocks_per_seq,
+                temperature, top_p, top_k, rep_pen, key_data, c_eos_ids, c_sup,
+            )
+            for (token_chunk, chunk_start, total_len, block_ids, temperature, top_p,
+                 top_k, rep_pen, key_data, c_eos_ids, c_sup) in chunks
+        )
+        B = len(np.asarray(tokens))
+        if eos_ids is None:
+            eos_ids = np.full((B, MAX_EOS_IDS), -1, np.int64)
+        if eos_suppress is None:
+            eos_suppress = np.zeros(B, bool)
+        d_out = self.decode(
+            tokens, positions, block_tables, slot_indices, temps, top_ps, top_ks,
+            keys=keys, eos_mask=(eos_ids, eos_suppress),
+        )
+        return chunk_outs, d_out
 
     @torch.inference_mode()
     def decode(

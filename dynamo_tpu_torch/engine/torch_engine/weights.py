@@ -1,23 +1,129 @@
-"""Model parameters for the port: seeded random init on the device, and
-conversion of a JAX parameter tree.
+"""Model parameters for the port: an HF safetensors checkpoint, seeded
+random init on the device, and conversion of a JAX parameter tree.
 
-Counterpart of dynamo_tpu/engine/jax_engine/weights.py and of
-``init_params`` in dynamo_tpu/models/llama.py:262-334. Both produce the
-JAX layout: a dict with ``embed`` [V, hidden], ``layers`` (a list of dicts
-with ``[in, out]`` weights), ``final_norm`` and, unless the embeddings are
-tied, ``lm_head`` [hidden, V]. Loading HF safetensors is not ported yet.
+Counterpart of dynamo_tpu/engine/jax_engine/weights.py
+(``load_or_init_params``, ``load_hf_safetensors``) and of ``init_params``
+in dynamo_tpu/models/llama.py:262-334. All produce the JAX layout: a dict
+with ``embed`` [V, hidden], ``layers`` (a list of dicts with ``[in, out]``
+weights), ``final_norm`` and, unless the embeddings are tied, ``lm_head``
+[hidden, V].
 """
 
 from __future__ import annotations
 
+import glob
+import logging
 import math
-from typing import Any
+import os
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine.torch_engine.safetensors_reader import read_safetensors, to_torch
 from dynamo_tpu_torch.models.llama import LlamaConfig
+
+logger = logging.getLogger("dynamo_tpu_torch.weights")
+
+
+def load_or_init_params(
+    model_dir: Optional[str],
+    cfg: LlamaConfig,
+    *,
+    seed: int = 0,
+    device="cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> dict:
+    """The checkpoint in ``model_dir`` when it holds ``*.safetensors``,
+    else seeded random weights (as the JAX loader does, with a warning when
+    a directory was given)."""
+    if model_dir:
+        if glob.glob(os.path.join(model_dir, "*.safetensors")):
+            return load_hf_safetensors(model_dir, cfg, device=device, dtype=dtype)
+        logger.warning("%s has no *.safetensors; falling back to random init", model_dir)
+    return init_params(cfg, seed=seed, device=device, dtype=dtype)
+
+
+def load_hf_safetensors(
+    model_dir: str,
+    cfg: LlamaConfig,
+    *,
+    device="cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> dict:
+    """Map an HF Llama-family checkpoint (every ``*.safetensors`` file of
+    the directory, as the reference globs a sharded one) onto the port's
+    parameters, with the JAX loader's names and arithmetic: each tensor is
+    converted to ``dtype``; HF's ``[out, in]`` projections become ``[in,
+    out]``, transposed on the device after the upload; Gemma's ``(1 + w)``
+    norms get their +1 folded in ``dtype``; Gemma2/3's
+    ``post_attention_layernorm`` is the sandwich post-attention norm and
+    ``pre_feedforward_layernorm`` the MLP's pre-norm; Gemma3's q/k norms
+    and Qwen2's q/k/v biases load when the config has them. Without
+    ``lm_head.weight`` an untied config falls back to the embeddings at
+    logits time. Tensors stream from memory-mapped files one at a time."""
+    if cfg.num_experts:
+        raise NotImplementedError("MoE parameters are not ported yet")
+    dev = resolve_device(device)
+    tensors: dict[str, Any] = {}
+    for path in sorted(glob.glob(os.path.join(model_dir, "*.safetensors"))):
+        tensors.update(read_safetensors(path))
+
+    def get(name: str) -> torch.Tensor:
+        return to_torch(tensors.pop(name), dev).to(dtype)
+
+    def norm(name: str) -> torch.Tensor:
+        w = get(name)
+        return w + 1 if cfg.norm_plus_one else w
+
+    def lin(name: str) -> torch.Tensor:
+        return get(name).t().contiguous()
+
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        layer = {
+            "attn_norm": norm(p + "input_layernorm.weight"),
+            "wq": lin(p + "self_attn.q_proj.weight"),
+            "wk": lin(p + "self_attn.k_proj.weight"),
+            "wv": lin(p + "self_attn.v_proj.weight"),
+            "wo": lin(p + "self_attn.o_proj.weight"),
+        }
+        if cfg.sandwich_norms:
+            layer.update(
+                post_attn_norm=norm(p + "post_attention_layernorm.weight"),
+                mlp_norm=norm(p + "pre_feedforward_layernorm.weight"),
+                post_mlp_norm=norm(p + "post_feedforward_layernorm.weight"),
+            )
+        else:
+            layer["mlp_norm"] = norm(p + "post_attention_layernorm.weight")
+        if cfg.qk_norm:
+            layer.update(
+                q_norm=norm(p + "self_attn.q_norm.weight"),
+                k_norm=norm(p + "self_attn.k_norm.weight"),
+            )
+        if cfg.attn_bias:
+            layer.update(
+                bq=get(p + "self_attn.q_proj.bias"),
+                bk=get(p + "self_attn.k_proj.bias"),
+                bv=get(p + "self_attn.v_proj.bias"),
+            )
+        layer.update(
+            wg=lin(p + "mlp.gate_proj.weight"),
+            wu=lin(p + "mlp.up_proj.weight"),
+            wd=lin(p + "mlp.down_proj.weight"),
+        )
+        layers.append(layer)
+    params = {
+        "embed": get("model.embed_tokens.weight"),
+        "layers": layers,
+        "final_norm": norm("model.norm.weight"),
+    }
+    if not cfg.tie_word_embeddings and "lm_head.weight" in tensors:
+        params["lm_head"] = lin("lm_head.weight")
+    logger.info("loaded %s (%d tensors unused)", model_dir, len(tensors))
+    return params
 
 
 def init_params(
@@ -93,7 +199,7 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_jax(tree: Any, device="cpu") -> Any:
+def params_from_jax(tree: Any, device="cuda") -> Any:
     """Convert a JAX parameter tree whose leaves are numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``) into the port's parameters, bit
     for bit. bf16 leaves travel through a uint16 view. The layout is the

@@ -6,15 +6,16 @@ Counterpart of dynamo_tpu/models/llama.py: ``LlamaConfig`` is the port's own
 copy of the JAX package's config (with ``from_hf_dict``), and the forward
 pass follows the JAX functions op for op (``_embed``, ``_rope_pair`` /
 ``_layer_freqs``, ``_attn_prefill``, ``_attn_decode``, ``_mlp``, ``_logits``,
-``prefill``, ``decode``, ``decode_verify``, and the fused decode heads
+``prefill``, ``prefill_chunk``, ``prefill_packed``, ``decode``,
+``decode_verify``, and the fused decode heads
 ``_use_fused_decode`` / ``_fused_qkv_dispatch`` / ``_fused_out_dispatch``).
 Parameters are a dict with the JAX layout --
 weights ``[in, out]``, ``layers`` a list of per-layer dicts -- so a JAX
 parameter tree converts leaf by leaf (engine/torch_engine/weights.py).
 
 The cache is head-major ``[L, Hkv, num_blocks, block_size, D]``. Unlike the
-JAX functions, which return updated caches, ``prefill`` and ``decode`` write
-the new K/V into the caches they are given, IN PLACE, and return only the
+JAX functions, which return updated caches, the forward functions write the
+new K/V into the caches they are given, IN PLACE, and return only the
 logits. Attention and the fused decode heads run the hand-written CUDA
 kernels for CUDA tensors and the plain versions for CPU tensors
 (ops/attention.py, ops/linear.py). MoE layers and the meshed (tensor
@@ -34,8 +35,11 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops.attention import (
     causal_prefill_attention,
+    chunked_prefill_attention,
+    packed_prefill_attention,
     paged_decode_attention,
     paged_verify_attention,
+    write_chunk_kv,
     write_decode_kv,
     write_prefill_kv,
 )
@@ -389,6 +393,70 @@ def prefill(
         )
         x = _mlp(x, layer, cfg)
     return _logits(x[valid_len - 1][None, :], params, cfg)[0]
+
+
+def prefill_chunk(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [C] int64 -- one chunk, padded to the chunk size
+    chunk_start: int,  # position of tokens[0], a multiple of block_size
+    valid_len: int,  # TOTAL prompt length
+    k_cache: torch.Tensor,  # [L, Hkv, num_blocks, block_size, D], written in place
+    v_cache: torch.Tensor,
+    block_table: torch.Tensor,  # [max_nb] block ids of the whole prompt
+) -> torch.Tensor:
+    """One chunk of a chunked prefill (dynamo_tpu/models/llama.py:670):
+    each layer writes the chunk's K/V into the paged cache, then the chunk
+    attends over everything written so far. Chunks run in order. Returns
+    the logits [V] (f32) of the prompt's last valid token in this chunk,
+    which mean something only on the final chunk."""
+    C = tokens.shape[0]
+    freqs = _rope_pair(cfg, tokens.device)
+    positions = chunk_start + torch.arange(C, device=tokens.device)
+    x = _embed(params, cfg, tokens)
+    for i, layer in enumerate(params["layers"]):
+        q, k, v = qkv_head(x, layer, cfg, _layer_freqs(cfg, i, freqs), positions)
+        write_chunk_kv(k_cache[i], v_cache[i], k, v, block_table, chunk_start)
+        attn = chunked_prefill_attention(
+            q, k_cache[i], v_cache[i], block_table, chunk_start,
+            window=cfg.layer_window(i), scale=cfg.attn_scale,
+            logit_softcap=cfg.attn_logit_softcap,
+        )
+        x = attn_out(attn, x, layer, cfg)
+        x = _mlp(x, layer, cfg)
+    idx = min(max(valid_len - 1 - chunk_start, 0), C - 1)
+    return _logits(x[idx][None, :], params, cfg)[0]
+
+
+def prefill_packed(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [P] int64 -- several prompts back to back
+    positions: torch.Tensor,  # [P] int64, restarting at 0 per segment
+    segment_ids: torch.Tensor,  # [P] int; -1 marks padding
+    slot_indices: torch.Tensor,  # [P] int64 flat cache slot of each token
+    k_cache: torch.Tensor,  # [L, Hkv, num_blocks, block_size, D], written in place
+    v_cache: torch.Tensor,
+    last_idx: torch.Tensor,  # [N] int64 index of each prompt's last token
+) -> torch.Tensor:
+    """N short prompts packed into one [P] pass
+    (dynamo_tpu/models/llama.py:715). Per-token flat slots route each
+    segment's K/V into its own blocks (``write_decode_kv`` over P tokens;
+    padding goes to the null slot 0) and attention is causal within a
+    segment. Returns logits [N, V] (f32), one row per segment's last token;
+    rows of unused ``last_idx`` entries read token 0 and are ignored."""
+    freqs = _rope_pair(cfg, tokens.device)
+    x = _embed(params, cfg, tokens)
+    for i, layer in enumerate(params["layers"]):
+        q, k, v = qkv_head(x, layer, cfg, _layer_freqs(cfg, i, freqs), positions)
+        write_decode_kv(k_cache[i], v_cache[i], k, v, slot_indices)
+        attn = packed_prefill_attention(
+            q, k, v, segment_ids, window=cfg.layer_window(i), scale=cfg.attn_scale,
+            logit_softcap=cfg.attn_logit_softcap,
+        )
+        x = attn_out(attn, x, layer, cfg)
+        x = _mlp(x, layer, cfg)
+    return _logits(x[last_idx], params, cfg)
 
 
 def decode(

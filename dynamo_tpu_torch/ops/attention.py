@@ -1,5 +1,5 @@
 """Attention over a paged KV cache: causal prefill, paged decode, the
-spec-decode verify pass and the cache writes.
+spec-decode verify pass, packed and chunked prefill, and the cache writes.
 
 Counterpart of dynamo_tpu/ops/attention.py. The cache of one layer is
 head-major and block-paged, ``[Hkv, num_blocks, block_size, D]``, addressed by
@@ -11,6 +11,11 @@ and a hand-written CUDA kernel in ops/cuda_attention.py. The dispatch is by
 where the tensors are and nothing else: CUDA tensors launch the kernel (or
 raise), CPU tensors run the plain version. The sliding window, custom score
 scale and logit softcap are carried on every path.
+
+Packed and chunked prefill attention are XLA ops in the JAX package, with no
+Pallas kernel (ops/attention.py:172, :462), so their PyTorch versions here
+are the card path too: one implementation on both devices, f32 scores as in
+the reference, so that the CPU parity tests cover the card's arithmetic.
 """
 
 from __future__ import annotations
@@ -240,3 +245,112 @@ def write_decode_kv(
     slots = slot_indices.long()
     k_cache.view(Hkv, num_blocks * block_size, D)[:, slots] = k_new.transpose(0, 1).to(k_cache.dtype)
     v_cache.view(Hkv, num_blocks * block_size, D)[:, slots] = v_new.transpose(0, 1).to(v_cache.dtype)
+
+
+def packed_prefill_attention(
+    q: torch.Tensor,  # [P, Hq, D] -- several prompts packed back to back
+    k: torch.Tensor,  # [P, Hkv, D]
+    v: torch.Tensor,  # [P, Hkv, D]
+    segment_ids: torch.Tensor,  # [P] int; -1 marks padding
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal attention over a packed buffer of independent prompts
+    (dynamo_tpu/ops/attention.py:172): token i sees j iff j <= i and both
+    lie in the same segment. Padding (segment -1) attends only to padding
+    and is never read. A segment's positions differ from the packed indices
+    by its start offset, which cancels in i - j, so the window test works on
+    packed indices."""
+    P, Hq, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    qr = q.reshape(P, Hkv, G, D).float()
+    scores = torch.einsum("qhgd,khd->hgqk", qr, k.float()) * _scale(scale, D)
+    scores = _softcap(scores, logit_softcap)
+    pos = torch.arange(P, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (segment_ids[None, :] == segment_ids[:, None])
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("hgqk,khd->qhgd", weights, v.float())
+    return out.reshape(P, Hq, D).to(q.dtype)
+
+
+def chunk_visible_blocks(chunk_start: int, chunk_len: int, block_size: int, table_len: int) -> int:
+    """Table entries a prefill chunk can see: the blocks of positions
+    [0, chunk_start + chunk_len), at most the whole table."""
+    return min(table_len, -(-(chunk_start + chunk_len) // block_size))
+
+
+def chunked_prefill_attention(
+    q: torch.Tensor,  # [C, Hq, D] -- one chunk of a prompt
+    k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] (this layer)
+    v_cache: torch.Tensor,
+    block_table: torch.Tensor,  # [max_nb] block ids of the WHOLE prompt
+    chunk_start: int,  # position of q[0] (host int)
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """One prefill chunk against everything written so far
+    (dynamo_tpu/ops/attention.py:462). The chunk's own K/V must already be
+    in the cache (``write_chunk_kv`` runs first); query c at position
+    chunk_start + c sees key kpos iff kpos <= its position and, with a
+    window, position - kpos < window.
+
+    Unlike the reference, which gathers the whole table, only the
+    ``chunk_visible_blocks`` the chunk can see are gathered: every key past
+    the chunk's last position is masked to NEG_INF and weighs exactly 0
+    after the softmax, so the result is the same (up to the f32 summation
+    order) while the scores shrink from [Hq, C, table * block_size] to
+    [Hq, C, chunk_start + C]. The width comes from host ints, so nothing is
+    read back from the device. Padded table entries point at null block 0
+    and are masked by kpos <= qpos."""
+    C, Hq, D = q.shape
+    Hkv, _, block_size, _ = k_cache.shape
+    G = Hq // Hkv
+    nb = chunk_visible_blocks(chunk_start, C, block_size, block_table.shape[0])
+    S = nb * block_size
+    tables = block_table[:nb].long()
+    k = k_cache[:, tables].reshape(Hkv, S, D)
+    v = v_cache[:, tables].reshape(Hkv, S, D)
+    qr = q.reshape(C, Hkv, G, D).float()
+    scores = torch.einsum("chgd,hsd->hgcs", qr, k.float()) * _scale(scale, D)
+    scores = _softcap(scores, logit_softcap)
+    qpos = chunk_start + torch.arange(C, device=q.device)
+    kpos = torch.arange(S, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("hgcs,hsd->chgd", weights, v.float())
+    return out.reshape(C, Hq, D).to(q.dtype)
+
+
+def write_chunk_kv(
+    k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] (this layer)
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # [C, Hkv, D], C a multiple of block_size
+    v_new: torch.Tensor,
+    block_table: torch.Tensor,  # [max_nb] block ids of the WHOLE prompt
+    chunk_start: int,  # host int, a multiple of block_size
+) -> None:
+    """Scatter one prefill chunk's K/V into its slice of the block table,
+    IN PLACE (dynamo_tpu/ops/attention.py:522). The table is padded with
+    null-block entries first, so a final chunk whose padded tail runs past
+    the table writes that tail into null block 0 and never into earlier
+    blocks. An unaligned start would scatter K/V to the wrong positions, so
+    it raises."""
+    block_size = k_cache.shape[2]
+    if chunk_start % block_size:
+        raise ValueError(
+            f"chunk_start {chunk_start} is not a multiple of the KV block size "
+            f"{block_size}: the chunk's K/V would land at the wrong positions"
+        )
+    nb = k_new.shape[0] // block_size
+    first = chunk_start // block_size
+    padded = torch.cat([block_table, block_table.new_zeros(nb)])
+    write_prefill_kv(k_cache, v_cache, k_new, v_new, padded[first:first + nb])

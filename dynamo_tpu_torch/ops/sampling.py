@@ -2,9 +2,10 @@
 frequency / presence / repetition penalties, the min_tokens EOS mask,
 per-sequence counter-based random streams, and logprobs.
 
-Counterpart of dynamo_tpu/ops/sampling.py: the penalty tables and appliers
-and ``mask_eos_logits`` (:28-175, the same semantics; XLA ops there, so
-these tensor ops are the card path too), and ``sample_tokens``,
+Counterpart of dynamo_tpu/ops/sampling.py: the penalty tables and appliers,
+``apply_repetition_penalty_packed`` and ``mask_eos_logits`` (:28-175, the
+same semantics; XLA ops there, so these tensor ops are the card path too),
+and ``sample_tokens``,
 ``sample_tokens_full``, ``make_key_data`` (:202-319): the same 256-candidate
 pool for restricted rows, the same full-vocab draw for unrestricted rows and
 the same wide-nucleus rule, batched over [B, V] with per-row parameters and
@@ -113,6 +114,22 @@ def apply_repetition_penalty_from_prompt(
         0, prompt.long().clamp(0, V - 1), valid, reduce="amax")
     rp = torch.tensor(repetition_penalty, dtype=logits.dtype, device=logits.device)
     return _repetition(logits, rp, seen)
+
+
+def apply_repetition_penalty_packed(
+    logits: torch.Tensor,  # [N, V] each segment's last-token logits
+    tokens: torch.Tensor,  # [P] int packed prompt tokens
+    segment_ids: torch.Tensor,  # [P] int; -1 marks padding
+    repetition_penalty: torch.Tensor,  # [N] f32; 1 disables
+) -> torch.Tensor:
+    """Per-segment prompt repetition penalty for the packed prefill's first
+    tokens: each segment's seen-set comes from its own tokens only."""
+    N, V = logits.shape
+    valid = (segment_ids >= 0).float()
+    flat = segment_ids.long().clamp(0, N - 1) * V + tokens.long().clamp(0, V - 1)
+    seen = torch.zeros(N * V, device=logits.device).scatter_reduce_(
+        0, flat, valid, reduce="amax").reshape(N, V)
+    return _repetition(logits, repetition_penalty[:, None], seen)
 
 
 def mask_eos_logits(

@@ -1,7 +1,7 @@
 """The port's worker engine against the JAX engine, on the CPU.
 
-Slice parity: ``TorchEngine(device="cpu")`` and ``JaxEngine`` over
-``ModelRunner(prefill_chunk_tokens=0)`` (every prompt through
+Slice parity: ``TorchEngine(device="cpu")`` and ``JaxEngine``, both over a
+runner with ``prefill_chunk_tokens=0`` (every prompt through
 ``ModelRunner.prefill``, the path whose attention is the flash prefill
 kernel), both f32 with the same parameters (the JAX init carried over by
 ``params_from_jax``), serve the same concurrent greedy requests -- more than
@@ -43,10 +43,10 @@ def _jax_params():
 def make_torch_engine(num_blocks=NB, watermark=2, params=None):
     cfg = tl.LlamaConfig.tiny(vocab_size=128)
     if params is None:
-        params = params_from_jax(jax.tree.map(np.asarray, _jax_params()[1]))
+        params = params_from_jax(jax.tree.map(np.asarray, _jax_params()[1]), device="cpu")
     runner = TorchModelRunner(
         cfg, params, num_blocks=num_blocks, block_size=BS, max_batch=MAX_BATCH,
-        max_model_len=MAX_LEN, device="cpu",
+        max_model_len=MAX_LEN, device="cpu", prefill_chunk_tokens=0,
     )
     return TorchEngine(runner, TorchEngineConfig(
         max_batch=MAX_BATCH, block_size=BS, num_blocks=num_blocks,
@@ -171,7 +171,7 @@ async def test_prompt_too_long_is_refused():
 
 
 async def test_preemption_completes_with_the_same_tokens():
-    params = params_from_jax(jax.tree.map(np.asarray, _jax_params()[1]))
+    params = params_from_jax(jax.tree.map(np.asarray, _jax_params()[1]), device="cpu")
     roomy = make_torch_engine(params=params)
     # 13 usable blocks of 4 tokens: four lanes growing to ~30 tokens each
     # cannot all fit, so the youngest are preempted and re-prefilled

@@ -133,7 +133,7 @@ def _params(variant):
             for name in ("bq", "bk", "bv"):
                 layer[name] = jnp.asarray(rng.standard_normal(layer[name].shape) * 0.5, jnp.float32)
     tcfg = dataclasses.replace(tl.LlamaConfig.tiny(vocab_size=128), **VARIANTS[variant])
-    return tcfg, params_from_jax(jax.tree.map(np.asarray, params))
+    return tcfg, params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
 
 
 def _decode_logits(cfg, params, steps=3):

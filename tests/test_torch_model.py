@@ -61,7 +61,7 @@ def _jax_params(jcfg, dtype, seed=0):
 def _run_both(variant, jdtype, tdtype):
     jcfg, tcfg = _configs(variant)
     jparams = _jax_params(jcfg, jdtype)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     shape = (jcfg.num_layers, jcfg.num_kv_heads, NB, BS, jcfg.head_dim)
     jk, jv = jnp.zeros(shape, jdtype), jnp.zeros(shape, jdtype)
     tk, tv = torch.zeros(shape, dtype=tdtype), torch.zeros(shape, dtype=tdtype)
@@ -119,7 +119,7 @@ def test_prefill_and_decode_logits_match_jax_bf16():
 def test_params_from_jax_is_bit_exact_for_bf16():
     jcfg, _ = _configs("llama")
     jparams = jl.init_params(jcfg, jax.random.PRNGKey(3), jnp.bfloat16)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     jw = np.asarray(jparams["layers"][1]["wq"]).view(np.uint16)
     tw = tparams["layers"][1]["wq"].view(torch.int16).numpy().view(np.uint16)
     assert tparams["layers"][1]["wq"].dtype == torch.bfloat16

@@ -557,6 +557,98 @@ def test_paged_kernels_allocate_only_output_and_partials_on_card(kernel):
     assert torch.cuda.max_memory_allocated() - before == sum(-(-n // 512) * 512 for n in sizes)
 
 
+# ---------------------------- packed and chunked prefill ops, the reader, on the card
+
+ADMIT_KW = {"full": {}, "window": {"window": 100}, "softcap": {"scale": 0.1, "logit_softcap": 4.0}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", sorted(ADMIT_KW))
+def test_packed_and_chunked_prefill_ops_on_card_equal_the_cpu(kw):
+    """The two ops are torch ops on both devices (the JAX package's are XLA
+    ops, not kernels): on the card, in f32 at Llama-3.1-8B heads, they give
+    what the same code gives on the CPU, up to the f32 summation order."""
+    _need_card()
+    g = torch.Generator().manual_seed(11)
+    P, Hq, Hkv, D, bs, nb = 512, 32, 8, 128, 16, 300
+    q = torch.randn(P, Hq, D, generator=g)
+    k = torch.randn(P, Hkv, D, generator=g)
+    v = torch.randn(P, Hkv, D, generator=g)
+    seg = torch.full((P,), -1, dtype=torch.int64)
+    seg[:16], seg[16:116], seg[116:416] = 0, 1, 2
+    want = A.packed_prefill_attention(q, k, v, seg, **ADMIT_KW[kw])
+    got = A.packed_prefill_attention(q.cuda(), k.cuda(), v.cuda(), seg.cuda(), **ADMIT_KW[kw])
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    kc = torch.randn(Hkv, nb, bs, D, generator=g)
+    vc = torch.randn(Hkv, nb, bs, D, generator=g)
+    table = torch.zeros(256, dtype=torch.int64)
+    table[:128] = torch.randperm(nb - 1, generator=g)[:128] + 1
+    for start in (0, 1536):
+        want = A.chunked_prefill_attention(q, kc, vc, table, start, **ADMIT_KW[kw])
+        got = A.chunked_prefill_attention(q.cuda(), kc.cuda(), vc.cuda(), table.cuda(), start,
+                                          **ADMIT_KW[kw])
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_write_chunk_kv_on_card_equals_the_cpu():
+    _need_card()
+    g = torch.Generator().manual_seed(12)
+    kc = torch.randn(8, 64, 16, 128, generator=g)
+    new = torch.randn(512, 8, 128, generator=g)
+    table = torch.randperm(63, generator=g)[:40] + 1  # the final chunk runs past it
+    want, got = kc.clone(), kc.cuda()
+    A.write_chunk_kv(want, want.clone(), new, new, table, 512)
+    A.write_chunk_kv(got, got.clone(), new.cuda(), new.cuda(), table.cuda(), 512)
+    # the tail's 24 blocks all land in null block 0, in no set order
+    assert torch.equal(got.cpu()[:, 1:], want[:, 1:])
+    assert not torch.equal(want[:, 1:], kc[:, 1:])
+
+
+@pytest.mark.cuda
+def test_checkpoint_reader_uploads_and_transposes_on_card(tmp_path):
+    """A bf16 checkpoint written in the safetensors layout by hand (the
+    card's machine has no safetensors package) loads onto the card with its
+    projections transposed there, bit for bit."""
+    import json
+    import struct
+
+    from dynamo_tpu_torch.engine.torch_engine.weights import load_hf_safetensors
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    _need_card()
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=64), num_layers=1)
+    g = torch.Generator().manual_seed(13)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"model.embed_tokens.weight": (64, H), "model.norm.weight": (H,),
+              "lm_head.weight": (64, H)}
+    p = "model.layers.0."
+    shapes.update({p + "input_layernorm.weight": (H,), p + "post_attention_layernorm.weight": (H,),
+                   p + "self_attn.q_proj.weight": (cfg.q_dim, H),
+                   p + "self_attn.k_proj.weight": (cfg.kv_dim, H),
+                   p + "self_attn.v_proj.weight": (cfg.kv_dim, H),
+                   p + "self_attn.o_proj.weight": (H, cfg.q_dim),
+                   p + "mlp.gate_proj.weight": (I, H), p + "mlp.up_proj.weight": (I, H),
+                   p + "mlp.down_proj.weight": (H, I)})
+    tensors = {n: torch.randn(s, generator=g).to(torch.bfloat16) for n, s in shapes.items()}
+    header, off, blobs = {}, 0, []
+    for n, t in tensors.items():
+        b = t.view(torch.int16).numpy().tobytes()
+        header[n] = {"dtype": "BF16", "shape": list(t.shape), "data_offsets": [off, off + len(b)]}
+        off += len(b)
+        blobs.append(b)
+    head = json.dumps(header).encode()
+    with open(tmp_path / "model.safetensors", "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+    params = load_hf_safetensors(str(tmp_path), cfg, device="cuda")
+    assert params["layers"][0]["wq"].is_cuda
+    assert torch.equal(params["layers"][0]["wq"].cpu(), tensors[p + "self_attn.q_proj.weight"].t())
+    assert torch.equal(params["layers"][0]["wd"].cpu(), tensors[p + "mlp.down_proj.weight"].t())
+    assert torch.equal(params["lm_head"].cpu(), tensors["lm_head.weight"].t())
+    assert torch.equal(params["embed"].cpu(), tensors["model.embed_tokens.weight"])
+    assert params["layers"][0]["wq"].is_contiguous()
+
+
 # ------------------------------------- no host read in the decode / verify step
 
 HOST_READS = {"item", "tolist", "cpu", "numpy", "synchronize"}
@@ -603,6 +695,57 @@ def test_linear_wrappers_read_nothing_back_from_the_card(wrapper):
     helpers = ast.parse((ops / "cuda_attention.py").read_text())
     assert wrapper in {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
     assert _host_reads(tree, wrapper, helpers) == []
+
+
+# the modules the admission path's runner methods reach
+RUNNER_PATH_MODULES = (
+    "engine/torch_engine/model_runner.py", "models/llama.py", "ops/attention.py",
+    "ops/sampling.py", "ops/layers.py", "ops/basics.py", "ops/linear.py",
+    "ops/cuda_attention.py", "ops/cuda_linear.py",
+)
+
+
+def _host_reads_from(trees: list, entry: str) -> list[str]:
+    """Like ``_host_reads``, over methods too: calls by bare name and by
+    attribute (``self.decode``, ``llama.prefill_chunk``) are followed into
+    every function or method of that name in ``trees``."""
+    funcs: dict = {}
+    for t in trees:
+        for n in ast.walk(t):
+            if isinstance(n, ast.FunctionDef):
+                funcs.setdefault(n.name, []).append(n)
+    seen, todo, found = set(), [entry], []
+    while todo:
+        name = todo.pop()
+        if name in seen or name not in funcs:
+            continue
+        seen.add(name)
+        for fn in funcs[name]:
+            for node in ast.walk(fn):
+                if not isinstance(node, ast.Call):
+                    continue
+                f = node.func
+                if isinstance(f, ast.Attribute) and f.attr in HOST_READS:
+                    found.append(f"{name}: .{f.attr}()")
+                elif isinstance(f, ast.Attribute):
+                    todo.append(f.attr)
+                elif isinstance(f, ast.Name):
+                    todo.append(f.id)
+    return found
+
+
+@pytest.mark.parametrize("method", ["prefill_chunk", "prefill_packed_arrays", "mixed_step"])
+def test_admission_runner_methods_read_nothing_back_from_the_card(method):
+    """The chunked, packed and mixed calls read nothing back: the host
+    already has every length, so no call waits for the card (and a later
+    CUDA graph could capture them); the engine reads a sample only with
+    ``fetch_sample``."""
+    trees = [ast.parse((ROOT / "dynamo_tpu_torch" / m).read_text()) for m in RUNNER_PATH_MODULES]
+    runner_methods = {n.name for n in ast.walk(trees[0]) if isinstance(n, ast.FunctionDef)}
+    assert method in runner_methods
+    assert _host_reads_from(trees, method) == []
+    # the scan does reach a read where there is one
+    assert _host_reads_from(trees, "fetch_sample") != []
 
 
 def test_host_read_scan_finds_a_read_in_a_helper():
@@ -667,7 +810,8 @@ def test_build_torch_engine_serves_qwen2_and_gemma_head_shapes_on_card(name):
     cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=512), num_layers=1,
                               intermediate_size=512, **CARD_SHAPES[name])
     engine = build_torch_engine(cfg, device="cuda", max_batch=2, max_model_len=256,
-                                fused_decode=True, spec_k=3, spec_min_coverage=0.01)
+                                fused_decode=True, spec_k=3, spec_min_coverage=0.01,
+                                prefill_chunk_tokens=0)
     prompt = [int(t) for t in np.random.default_rng(0).integers(0, 512, 40)] * 2
     req = tp.PreprocessedRequest(token_ids=prompt, sampling=tp.SamplingOptions(greedy=True),
                                  stop=tp.StopConditions(max_tokens=24), eos_token_ids=[])

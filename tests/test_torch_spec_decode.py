@@ -101,7 +101,7 @@ def _models(variant="llama", vocab=128):
             for name in ("bq", "bk", "bv"):
                 layer[name] = jnp.asarray(rng.standard_normal(layer[name].shape) * 0.5, jnp.float32)
     tcfg = dataclasses.replace(tl.LlamaConfig.tiny(vocab_size=vocab), **kw)
-    return jcfg, jparams, tcfg, params_from_jax(jax.tree.map(np.asarray, jparams))
+    return jcfg, jparams, tcfg, params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _verify_batch():
@@ -225,7 +225,7 @@ def _torch_engine(params, spec_k=K, fused=True, coverage=0.5, num_blocks=NB, wat
     cfg = tl.LlamaConfig.tiny(vocab_size=VOCAB)
     runner = TorchModelRunner(
         cfg, params, num_blocks=num_blocks, block_size=BS, max_batch=MAX_BATCH,
-        max_model_len=MAX_LEN, device="cpu", fused_decode=fused,
+        max_model_len=MAX_LEN, device="cpu", fused_decode=fused, prefill_chunk_tokens=0,
     )
     return TorchEngine(runner, TorchEngineConfig(
         max_batch=MAX_BATCH, block_size=BS, num_blocks=num_blocks, max_model_len=MAX_LEN,
