@@ -52,6 +52,28 @@ Phases, each of which must pass or the script exits non-zero:
                 device time, #1's time per launch and #4's per layer),
                 tokens/s with spec off and on.
 
+  9. serve_http -- `python -m dynamo_tpu_torch.run in=http out=torch` in
+                its own process (this process's engines freed first) over a
+                model directory written under build/serve_http/: the
+                published Llama-3.1-8B config.json (no weights: 32 layers of
+                seeded random bf16), a Llama-3-shaped byte-level BPE
+                tokenizer.json of 128256 ids made by this script, and a
+                Llama-3 chat template. Driven with stdlib http.client: one
+                lone greedy request (TTFT, ITL), 8 concurrent streamed chat
+                completions (prompts of ~16-2000 tokens, one with a stop
+                string, one with penalties and min_tokens; each stream's
+                form, finish reason and usage checked against the tokens
+                streamed), one non-streamed completion, one stream closed
+                after 4 chunks and a request after it (its lane must be
+                freed: the server's exit stats). Then the lone request
+                through an in-process build_torch_engine(<dir>) and the
+                port's preprocessor and backend: the text must equal the
+                HTTP text. The lone request's timing: 5 pairs in turns
+                through HTTP and engine-direct in a process of its own
+                alive beside the server (started as the server's is),
+                medians and the per-pair difference. Also the host time
+                of templating + tokenizing a 2000-token prompt.
+
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
 imports nothing of JAX.
@@ -61,12 +83,14 @@ from __future__ import annotations
 
 import asyncio
 import copy
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
@@ -459,9 +483,9 @@ def decode_row(torch, flush, hq=HQ, hkv=HKV, d=D, plain_reps=20) -> dict:
     t_k = time_ms(torch, lambda: K.paged_decode_attention_cuda(q, k, v, tables, lens_t), flush=flush)
     t_p = time_ms(torch, lambda: A.paged_decode_attention_plain(q, k, v, tables, lens_t),
                   reps=plain_reps, flush=flush)
-    # yardstick: SDPA over the same keys already gathered into a dense,
-    # padded [B, Hq, S, D] layout (the gather is not timed) -- no PyTorch
-    # call takes the paged cache itself, so the contract's library_ms is null
+    # library time: SDPA over the same keys already gathered into a dense,
+    # padded [B, Hq, S, D] layout with a length mask (the gather is not
+    # timed; no PyTorch call takes the paged cache itself)
     S = max(lens)
     kd = torch.zeros(len(lens), hkv, S, d, dtype=torch.bfloat16, device="cuda")
     vd = torch.zeros_like(kd)
@@ -475,7 +499,7 @@ def decode_row(torch, flush, hq=HQ, hkv=HKV, d=D, plain_reps=20) -> dict:
         qd, kd, vd, attn_mask=mask, enable_gqa=True), flush=flush)
     b_ms, b_by, nbytes, flops = decode_bound(lens, len(lens), hq, hkv, d)
     return {
-        "ms": t_k, "plain_ms": t_p, "sdpa_dense_ms": t_s, "bound_ms": b_ms,
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms,
         "bound_by": b_by, "bytes": nbytes, "flops": flops,
         "shape": f"B={len(lens)} Hq={hq} Hkv={hkv} D={d} block={BLOCK} lens={lens}",
     }
@@ -1569,6 +1593,546 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------- serve_http
+
+SERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_http")
+# Llama-3-Instruct's chat template (tokenizer_config.json as published)
+LLAMA3_CHAT_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'"
+    "+ message['content'] | trim + '<|eot_id|>' %}{% if loop.index0 == 0 %}"
+    "{% set content = bos_token + content %}{% endif %}{{ content }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}{% endif %}"
+)
+LLAMA3_SPLIT = (
+    r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+    r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+"
+)
+NAMED_SPECIALS = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                  128006: "<|start_header_id|>", 128007: "<|end_header_id|>", 128009: "<|eot_id|>"}
+SERVER_START_S = 420  # weights init + kernel loads + imports, at most
+HTTP_TIMEOUT_S = 180
+HTTP_STOP, HTTP_PENALIZED, HTTP_CLOSE_AFTER = 2, PENALIZED, 4
+
+
+def llama3_style_tokenizer_json(n_regular: int = 128000, seed: int = 0) -> str:
+    """A Llama-3-shaped tokenizer.json made here (no checkpoint's tokenizer
+    is in the repository): byte-level BPE over the Llama-3 split pattern
+    with ignore_merges, a TemplateProcessing BOS, ids 0-255 the byte
+    alphabet, 256..n_regular-1 seeded merges that each extend a word by one
+    letter, and the 256 special tokens at 128000-128255, so every id the
+    model can sample decodes."""
+    import random
+
+    from dynamo_tpu_torch.tokenizer_json import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    merges = []
+    letters = [b2u[b] for b in b"abcdefghijklmnopqrstuvwxyz"]
+    pool = []
+
+    def add(a, b):
+        merges.append([a, b])
+        vocab[a + b] = len(vocab)
+        pool.append(a + b)
+
+    for c in letters:
+        add(b2u[ord(" ")], c)
+    rng = random.Random(seed)
+    while len(vocab) < n_regular:
+        left = rng.choice(pool[-4096:] if rng.random() < 0.5 else pool)
+        new = left + rng.choice(letters)
+        if len(new) <= 12 and new not in vocab:
+            add(left, new[-1])
+    added = []
+    for i in range(n_regular, LLAMA31_8B["vocab_size"]):
+        name = NAMED_SPECIALS.get(i, f"<|reserved_special_token_{i - n_regular}|>")
+        vocab[name] = i
+        added.append({"id": i, "content": name, "single_word": False, "lstrip": False,
+                      "rstrip": False, "normalized": False, "special": True})
+    bos = NAMED_SPECIALS[128000]
+    return json.dumps({
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}}, {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [128000], "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": True, "vocab": vocab, "merges": merges},
+    })
+
+
+def write_serve_dir() -> str:
+    """The published Llama-3.1-8B config.json, the script's tokenizer.json
+    and a Llama-3-style tokenizer_config.json; no weights, so the CLI serves
+    seeded random bf16 weights."""
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    for name in os.listdir(SERVE_DIR):
+        if name.endswith(".safetensors"):
+            raise SmokeError(f"{SERVE_DIR} holds weights ({name}); this phase serves random ones")
+    with open(os.path.join(SERVE_DIR, "config.json"), "w") as f:
+        json.dump(LLAMA31_8B, f)
+    with open(os.path.join(SERVE_DIR, "tokenizer.json"), "w") as f:
+        f.write(llama3_style_tokenizer_json())
+    with open(os.path.join(SERVE_DIR, "tokenizer_config.json"), "w") as f:
+        json.dump({"chat_template": LLAMA3_CHAT_TEMPLATE, "bos_token": NAMED_SPECIALS[128000],
+                   "eos_token": NAMED_SPECIALS[128009]}, f)
+    return SERVE_DIR
+
+
+def prompt_words(tokenizer, n_tokens: int, seed: int) -> str:
+    """Text of about ``n_tokens`` tokens: random vocabulary words, some of
+    them glued in pairs so BPE has merging to do."""
+    import random
+
+    rng = random.Random(seed)
+    words, count = [], 0
+    while count < n_tokens:
+        a = tokenizer.decode([rng.randrange(256 + 26, 128000)]).strip()
+        if rng.random() < 0.3:
+            a += tokenizer.decode([rng.randrange(256 + 26, 128000)]).strip()
+        n = len(tokenizer.encode(" " + a, add_special_tokens=False).ids)
+        if count + n > n_tokens:
+            break
+        words.append(a)
+        count += n
+    return " ".join(words)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_call(port: int, method: str, path: str, body=None, timeout: float = HTTP_TIMEOUT_S):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def stream_chat(port: int, body: dict, close_after: Optional[int] = None) -> dict:
+    """One streamed chat completion over stdlib http.client: every SSE event
+    parsed, with the time of each content chunk from the request's send;
+    with ``close_after``, the socket is closed after that many chunks."""
+    import http.client
+
+    from dynamo_tpu_torch.protocols.sse import SseParser
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    parser, events, times = SseParser(), [], []
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise SmokeError(f"stream answered {resp.status}: {resp.read()[:300]!r}")
+        if not resp.getheader("Content-Type", "").startswith("text/event-stream"):
+            raise SmokeError(f"stream content type {resp.getheader('Content-Type')!r}")
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            for ev in parser.feed(line.decode("utf-8")):
+                events.append(ev)
+                if ev.data and not ev.is_done() and ev.event is None:
+                    d = ev.json()
+                    if d.get("choices") and (d["choices"][0].get("delta") or {}).get("content"):
+                        times.append(time.perf_counter() - t0)
+            if close_after is not None and len(events) >= close_after:
+                conn.sock.shutdown(2)
+                return {"events": events}
+    finally:
+        conn.close()
+    return summarize_stream(events, times)
+
+
+def summarize_stream(events: list, times: list) -> dict:
+    """Check one SSE stream's form: JSON events, a role chunk first, content
+    chunks, exactly one finish reason, a usage chunk, then [DONE]."""
+    if not events or not events[-1].is_done():
+        raise SmokeError("stream does not end in [DONE]")
+    text, finish, usage, n_lp, role = "", [], None, 0, None
+    for ev in events[:-1]:
+        if ev.event is not None:
+            raise SmokeError(f"stream carried an {ev.event!r} event: {ev.data}")
+        d = ev.json()
+        if d.get("object") != "chat.completion.chunk":
+            raise SmokeError(f"not a chat chunk: {d}")
+        if d.get("usage"):
+            usage = d["usage"]
+        for ch in d.get("choices", []):
+            delta = ch.get("delta") or {}
+            role = role or delta.get("role")
+            text += delta.get("content") or ""
+            n_lp += len((ch.get("logprobs") or {}).get("content") or [])
+            if ch.get("finish_reason"):
+                finish.append(ch["finish_reason"])
+    if role != "assistant" or len(finish) != 1 or usage is None:
+        raise SmokeError(f"malformed stream: role {role!r}, finish reasons {finish}, usage {usage}")
+    itl = [b - a for a, b in zip(times, times[1:])]
+    return {"text": text, "finish": finish[0], "usage": usage, "logprob_tokens": n_lp,
+            "ttft_s": times[0] if times else None,
+            "itl_ms_mean": statistics.mean(itl) * 1e3 if itl else None}
+
+
+def chat_body(content: str, max_tokens: int, **extra) -> dict:
+    return {"model": "llama31-8b", "messages": [{"role": "user", "content": content}],
+            "max_tokens": max_tokens, "temperature": 0, "stream": True,
+            "stream_options": {"include_usage": True}, **extra}
+
+
+async def engine_direct(execution, body: dict, Context) -> dict:
+    """The same chat request through the port's ModelExecution in-process
+    (preprocess, engine, detokenize; no HTTP), timed like the HTTP client."""
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+
+    t0 = time.perf_counter()
+    times, text = [], ""
+    async for item in execution.chat_stream(ChatCompletionRequest.from_dict(body), Context()):
+        if item.is_error():
+            raise SmokeError(f"engine-direct request failed: {item.error_message()}")
+        for ch in (item.data or {}).get("choices", []):
+            piece = (ch.get("delta") or {}).get("content")
+            if piece:
+                times.append(time.perf_counter() - t0)
+                text += piece
+    itl = [b - a for a, b in zip(times, times[1:])]
+    return {"text": text, "ttft_s": times[0], "itl_ms_mean": statistics.mean(itl) * 1e3}
+
+
+LONE_PAIRS = 5  # lone requests through HTTP and engine-direct, in turns
+
+
+def direct_server(model_dir: str) -> None:
+    """Run in a process of its own by ``DirectProcess``: build the engine
+    the server builds, print a ready line, then time each chat body read
+    from stdin engine-direct (the port's ModelExecution, no HTTP) and print
+    the result, one JSON line each, until stdin ends."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.http.service import ModelExecution
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.protocols.common import Context
+
+    mdc = ModelDeploymentCard.from_model_dir(model_dir, "llama31-8b", context_length=MAX_MODEL_LEN)
+    engine = build_torch_engine(model_dir, device="cuda", max_model_len=MAX_MODEL_LEN, num_blocks=2112)
+    execution = ModelExecution(mdc, engine.generate)
+
+    async def serve():
+        loop = asyncio.get_running_loop()
+        try:
+            print(json.dumps({"ready": True}), flush=True)
+            while True:
+                line = await loop.run_in_executor(None, sys.stdin.readline)
+                if not line.strip():
+                    return
+                print(json.dumps(await engine_direct(execution, json.loads(line), Context)), flush=True)
+        finally:
+            await engine.close()
+
+    asyncio.run(serve())
+
+
+class DirectProcess:
+    """``direct_server`` in a new process, started as the server's is and
+    alive beside it, so that HTTP and engine-direct requests can be timed
+    in turns and differ by the frontend, not by the process (every earlier
+    phase ran in this one)."""
+
+    def __init__(self, root: str, model_dir: str, env: dict, stderr) -> None:
+        code = "import sys, chip_smoke; chip_smoke.direct_server(sys.argv[1])"
+        self.proc = subprocess.Popen([sys.executable, "-c", code, model_dir], cwd=root, env=env,
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=stderr,
+                                     text=True)
+
+    def _line(self) -> dict:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(1) as pool:
+            line = pool.submit(self.proc.stdout.readline).result(timeout=SERVER_START_S)
+        if not line:
+            raise SmokeError(f"the engine-direct process exited with {self.proc.wait(30)}")
+        return json.loads(line)
+
+    def wait_ready(self) -> None:
+        self._line()
+
+    def run(self, body: dict) -> dict:
+        self.proc.stdin.write(json.dumps(body) + "\n")
+        self.proc.stdin.flush()
+        return self._line()
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.close()
+                self.proc.wait(60)
+            except (OSError, subprocess.TimeoutExpired):
+                self.proc.kill()
+                self.proc.wait(30)
+
+
+def phase_serve_http(torch, np, card: str) -> dict:
+    """The CLI's HTTP server in its own process at Llama-3.1-8B width, then
+    the lone request engine-direct in this process (see the docstring)."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.http.service import ModelExecution
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.common import Context
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+
+    t0 = time.perf_counter()
+    model_dir = write_serve_dir()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mdc = ModelDeploymentCard.from_model_dir(model_dir, "llama31-8b", context_length=MAX_MODEL_LEN)
+    t_card = time.perf_counter() - t0
+    pre = OpenAIPreprocessor(mdc)
+    tok = pre.tokenizer
+    log(f"serve_http: model dir written in {t_write:.2f} s (vocab {tok.vocab_size}); "
+        f"card + tokenizer loaded in {t_card:.2f} s")
+    if tok.vocab_size != LLAMA31_8B["vocab_size"]:
+        raise SmokeError(f"tokenizer vocab {tok.vocab_size} != {LLAMA31_8B['vocab_size']}")
+
+    # host time of templating + tokenizing a 2000-token prompt: cold (a new
+    # tokenizer, empty word cache) and warm (the same request again)
+    long_req = ChatCompletionRequest.from_dict(chat_body(prompt_words(tok, 1990, seed=99), 8))
+    fresh = OpenAIPreprocessor(mdc)
+    t0 = time.perf_counter()
+    long_pre, _ = fresh.preprocess_chat(long_req)
+    t_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh.preprocess_chat(long_req)
+    t_warm = time.perf_counter() - t0
+    log(f"serve_http: template + tokenize of a {len(long_pre.token_ids)}-token prompt: "
+        f"{t_cold * 1e3:.2f} ms cold, {t_warm * 1e3:.2f} ms warm (host; {card})")
+
+    lone = chat_body(prompt_words(tok, 490, seed=7), 64, nvext={"ignore_eos": True})
+    warm = chat_body("hello there", 4)
+    # the template's own tokens around the user's text
+    overhead = len(pre.preprocess_chat(ChatCompletionRequest.from_dict(chat_body("", 1)))[0].token_ids)
+    contents = [prompt_words(tok, max(4, n - overhead), seed=100 + i) for i, n in enumerate(PROMPT_LENS)]
+    bodies = []
+    for i, (content, m) in enumerate(zip(contents, MAX_TOKENS)):
+        extra = {"logprobs": True}
+        if i == HTTP_STOP:
+            extra["stop"] = ["e"]
+        if i == HTTP_PENALIZED:
+            extra.update(PENALTIES, min_tokens=MIN_TOKENS)
+        bodies.append(chat_body(content, m, **extra))
+    expect_prompt = [len(pre.preprocess_chat(ChatCompletionRequest.from_dict(b))[0].token_ids)
+                     for b in bodies]
+
+    port = free_port()
+    log_path = os.path.join(SERVE_DIR, "server.log")
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http", "out=torch",
+           "--model-path", model_dir, "--model-name", "llama31-8b",
+           "--context-length", str(MAX_MODEL_LEN), "--num-blocks", "2112",
+           "--http-host", "127.0.0.1", "--http-port", str(port)]
+    log("serve_http: " + " ".join(cmd[1:]))
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out: dict = {}
+    with open(log_path, "w") as logf, open(os.path.join(SERVE_DIR, "direct.log"), "w") as dlog:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT)
+        direct = DirectProcess(root, model_dir, env, dlog)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                if proc.poll() is not None:
+                    raise SmokeError(f"server exited with {proc.returncode} before /health answered")
+                try:
+                    if http_call(port, "GET", "/health", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > SERVER_START_S:
+                    raise SmokeError(f"server did not answer /health within {SERVER_START_S} s")
+                time.sleep(1.0)
+            out["server_start_s"] = time.perf_counter() - t0
+            log(f"serve_http: server up in {out['server_start_s']:.1f} s")
+            st, data = http_call(port, "GET", "/v1/models")
+            if st != 200 or json.loads(data)["data"][0]["id"] != "llama31-8b":
+                raise SmokeError(f"/v1/models answered {st}: {data[:200]!r}")
+
+            # the lone greedy request through HTTP and engine-direct in
+            # turns (after one warm-up request each), both processes alive
+            direct.wait_ready()
+            stream_chat(port, warm)
+            direct.run(warm)
+            http_runs, direct_runs = [], []
+            for k in range(LONE_PAIRS):
+                for mode in (("http", "direct") if k % 2 == 0 else ("direct", "http")):
+                    if mode == "http":
+                        http_runs.append(stream_chat(port, lone))
+                    else:
+                        direct_runs.append(direct.run(lone))
+            direct.close()
+            for r in http_runs + direct_runs:
+                if r["text"] != http_runs[0]["text"]:
+                    raise SmokeError(f"lone request texts differ:\n{http_runs[0]['text']!r}\n{r['text']!r}")
+            out["http_lone"] = http_runs[0]
+            out["lone_pairs"] = {
+                "http_ttft_ms": [r["ttft_s"] * 1e3 for r in http_runs],
+                "http_itl_ms": [r["itl_ms_mean"] for r in http_runs],
+                "direct_ttft_ms": [r["ttft_s"] * 1e3 for r in direct_runs],
+                "direct_itl_ms": [r["itl_ms_mean"] for r in direct_runs],
+            }
+
+            # 8 concurrent streams
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                results = list(pool.map(lambda b: stream_chat(port, b), bodies))
+            out["concurrent_wall_s"] = time.perf_counter() - t0
+            for i, (r, b, n_prompt) in enumerate(zip(results, bodies, expect_prompt)):
+                u = r["usage"]
+                if u["prompt_tokens"] != n_prompt:
+                    raise SmokeError(f"stream {i}: prompt_tokens {u['prompt_tokens']} != {n_prompt}")
+                if u["completion_tokens"] != r["logprob_tokens"] or not 0 < u["completion_tokens"] <= b["max_tokens"]:
+                    raise SmokeError(f"stream {i}: usage {u} vs {r['logprob_tokens']} tokens streamed")
+                if i == HTTP_STOP and "e" in r["text"]:
+                    raise SmokeError(f"stream {i}: the stop string is in the text")
+                if i == HTTP_PENALIZED and u["completion_tokens"] < MIN_TOKENS:
+                    raise SmokeError(f"stream {i}: {u['completion_tokens']} tokens < min_tokens")
+                log(f"serve_http: stream {i}: prompt {u['prompt_tokens']} tokens, "
+                    f"{u['completion_tokens']} out, finish {r['finish']}, TTFT {r['ttft_s']} s")
+            out["concurrent"] = [{k: r[k] for k in ("finish", "usage", "ttft_s", "itl_ms_mean")}
+                                 for r in results]
+
+            # one non-streamed completion
+            st, data = http_call(port, "POST", "/v1/completions", {
+                "model": "llama31-8b", "prompt": contents[2], "max_tokens": 32, "temperature": 0,
+                "stream_options": {"include_usage": True}})
+            comp = json.loads(data)
+            if st != 200 or comp.get("object") != "text_completion" or not comp["choices"][0].get(
+                    "finish_reason") or not 0 < comp["usage"]["completion_tokens"] <= 32:
+                raise SmokeError(f"non-streamed completion: {st} {data[:300]!r}")
+            out["completion_usage"] = comp["usage"]
+
+            # a stream the client closes after 4 chunks, then a request after it
+            closing = chat_body(contents[1], 2000, nvext={"ignore_eos": True})
+            stream_chat(port, closing, close_after=HTTP_CLOSE_AFTER)
+            t0 = time.perf_counter()
+            after = stream_chat(port, chat_body("after the hang up", 8))
+            out["after_close_s"] = time.perf_counter() - t0
+            log(f"serve_http: closed a stream after {HTTP_CLOSE_AFTER} chunks; the next request "
+                f"took {out['after_close_s']:.2f} s ({after['usage']['completion_tokens']} tokens)")
+        finally:
+            direct.close()
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(30)
+    stats = None
+    with open(log_path) as f:
+        for line in f:
+            if line.startswith('{"exit_stats"'):
+                stats = json.loads(line)["exit_stats"]
+    if stats is None:
+        raise SmokeError(f"the server printed no exit stats (see {log_path})")
+    streamed = (sum(r["usage"]["completion_tokens"] for r in results) + out["completion_usage"][
+        "completion_tokens"] + LONE_PAIRS * out["http_lone"]["usage"]["completion_tokens"] + 4 + 8)
+    # the closed stream may have made a few tokens more than the 4 chunks read
+    # before its lane was freed; 2000 would show a lane left running
+    if stats["busy_lanes"] or stats["free_blocks"] != stats["num_blocks"] - 1 or (
+            stats["generated_tokens"] > streamed + 200):
+        raise SmokeError(f"the closed stream's lane was not freed: {stats}, {streamed} tokens streamed")
+    out["server_exit"] = stats
+    launches = stats["kernel_launches"]
+    if launches["paged_decode_attention"] <= 0:
+        raise SmokeError(f"the HTTP phase launched no #1: {launches}")
+    log(f"serve_http: server kernel launches {launches}, generated {stats['generated_tokens']} tokens")
+
+    # the lone request engine-direct in this process, the card now free
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = build_torch_engine(model_dir, device="cuda", max_model_len=MAX_MODEL_LEN, num_blocks=2112)
+    execution = ModelExecution(mdc, engine.generate)
+
+    async def direct():
+        try:
+            await engine_direct(execution, warm, Context)
+            kernels.reset_launch_counts()
+            res = await engine_direct(execution, lone, Context)
+            res["launches"] = kernels.launch_counts()
+            # again with this process's long-lived objects (every earlier
+            # phase's) frozen out of the garbage collector's reach: the
+            # server process holds far fewer
+            gc.collect()
+            gc.freeze()
+            try:
+                res["gc_frozen"] = await engine_direct(execution, lone, Context)
+            finally:
+                gc.unfreeze()
+            return res
+        finally:
+            await engine.close()
+
+    out["direct_lone"] = asyncio.run(direct())
+    del engine, execution
+    gc.collect()
+    torch.cuda.empty_cache()
+    h, d = out["http_lone"], out["direct_lone"]
+    f = d["gc_frozen"]
+    for got in (d, f):
+        if h["text"] != got["text"]:
+            raise SmokeError(f"HTTP text differs from the engine's:\n{h['text']!r}\n{got['text']!r}")
+    lp = out["lone_pairs"]
+    med = {k: statistics.median(v) for k, v in lp.items()}
+    d_itl = statistics.median(a - b for a, b in zip(lp["http_itl_ms"], lp["direct_itl_ms"]))
+    d_ttft = statistics.median(a - b for a, b in zip(lp["http_ttft_ms"], lp["direct_ttft_ms"]))
+    log(f"serve_http: lone greedy request ({h['usage']['prompt_tokens']} + "
+        f"{h['usage']['completion_tokens']} tokens), {LONE_PAIRS} in turns, medians: HTTP TTFT "
+        f"{med['http_ttft_ms']:.2f} ms, ITL {med['http_itl_ms']:.2f} ms; engine-direct in its own "
+        f"process TTFT {med['direct_ttft_ms']:.2f} ms, ITL {med['direct_itl_ms']:.2f} ms; "
+        f"HTTP - direct per pair (median) TTFT {d_ttft:.2f} ms, ITL {d_itl:.2f} ms; ITL ranges "
+        f"HTTP {min(lp['http_itl_ms']):.2f}-{max(lp['http_itl_ms']):.2f}, direct "
+        f"{min(lp['direct_itl_ms']):.2f}-{max(lp['direct_itl_ms']):.2f} ms; engine-direct in this "
+        f"process {d['ttft_s'] * 1e3:.2f} / {d['itl_ms_mean']:.2f} ms (garbage collector frozen: "
+        f"{f['ttft_s'] * 1e3:.2f} / {f['itl_ms_mean']:.2f} ms); texts identical ({card})")
+    print(json.dumps({"serve_http": {
+        "card": card, "tokenize_template_ms": {"cold": t_cold * 1e3, "warm": t_warm * 1e3,
+                                               "prompt_tokens": len(long_pre.token_ids)},
+        "http_lone": {k: h[k] for k in ("ttft_s", "itl_ms_mean", "usage")},
+        "direct_lone": {k: d[k] for k in ("ttft_s", "itl_ms_mean", "launches")},
+        "direct_lone_gc_frozen": {k: f[k] for k in ("ttft_s", "itl_ms_mean")},
+        "lone_pairs": lp, "lone_medians": med,
+        "lone_http_minus_direct_ms": {"ttft": d_ttft, "itl": d_itl},
+        "decode_launches_server": launches["paged_decode_attention"],
+        **{k: out[k] for k in ("server_start_s", "concurrent_wall_s", "concurrent",
+                               "completion_usage", "after_close_s", "server_exit")},
+    }}), flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1635,6 +2199,14 @@ def main() -> int:
         admission_times(torch, np, default_engine, card)
         rows = phase_kernel_times(torch, card)
         log(f"peak device memory during serve: {served['peak_mem_bytes'] / 1e9:.2f} GB")
+
+        # 9. serve_http: the CLI's HTTP server in a process of its own, so
+        # this process's engines leave the card first
+        del engine, default_engine, fused_runner, spec, served, default
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"device memory held before the server starts: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        phase_serve_http(torch, np, card)
     except Exception as e:  # noqa: BLE001 - report and fail the run
         import traceback
 

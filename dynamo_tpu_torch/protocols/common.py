@@ -3,9 +3,9 @@
 Own copy of dynamo_tpu/protocols/common.py (the port imports nothing of the
 JAX package): PreprocessedRequest in (token ids plus sampling and stop
 options), LLMEngineOutput frames out, with the same to_dict / from_dict so
-the wire shapes match. ``Context`` is the minimal stand-in for
-dynamo_tpu/pipeline/context.py that the engine needs: a request id and
-stop / kill cancellation.
+the wire shapes match. ``Context`` is the part of
+dynamo_tpu/pipeline/context.py that the engine and the HTTP frontend need:
+a request id, stop / kill cancellation and child contexts.
 """
 
 from __future__ import annotations
@@ -23,6 +23,13 @@ class FinishReason(str, enum.Enum):
     STOP_SEQUENCE = "stop_sequence"
     CANCELLED = "cancelled"
     ERROR = "error"
+
+    def as_openai(self) -> str:
+        if self in (FinishReason.EOS, FinishReason.STOP_SEQUENCE):
+            return "stop"
+        if self is FinishReason.LENGTH:
+            return "length"
+        return self.value
 
 
 @dataclass
@@ -198,14 +205,24 @@ class LLMEngineOutput:
 class Context:
     """Request id plus cancellation: ``stop_generating`` asks the engine to
     end the stream (finish reason CANCELLED at the next token), ``kill``
-    also frees the sequence's slot and blocks at the next loop step."""
+    also frees the sequence's slot and blocks at the next loop step.
 
-    __slots__ = ("id", "_stopped", "_killed")
+    ``child()`` gives a context that is stopped or killed whenever its
+    parent is, while stopping or killing the child leaves the parent alone
+    (the HTTP layer runs one child per choice of an ``n > 1`` request, so a
+    finished choice does not cancel its siblings; a client that goes away
+    kills the parent and with it every choice)."""
 
-    def __init__(self, id: Optional[str] = None) -> None:
-        self.id: str = id or uuid.uuid4().hex
+    __slots__ = ("id", "_stopped", "_killed", "_parent")
+
+    def __init__(self, id: Optional[str] = None, parent: Optional["Context"] = None) -> None:
+        self.id: str = id or (parent.id if parent is not None else uuid.uuid4().hex)
         self._stopped = False
         self._killed = False
+        self._parent = parent
+
+    def child(self) -> "Context":
+        return Context(parent=self)
 
     def stop_generating(self) -> None:
         self._stopped = True
@@ -215,7 +232,7 @@ class Context:
         self._killed = True
 
     def is_stopped(self) -> bool:
-        return self._stopped
+        return self._stopped or (self._parent is not None and self._parent.is_stopped())
 
     def is_killed(self) -> bool:
-        return self._killed
+        return self._killed or (self._parent is not None and self._parent.is_killed())

@@ -27,7 +27,9 @@ from dynamo_tpu_torch.ops import linear as L
 from dynamo_tpu_torch.ops.basics import rope_freqs
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu")
+# the JAX package, and what the card's machine does not have
+FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "aiohttp", "pydantic", "jinja2", "tokenizers",
+             "prometheus_client", "msgpack", "safetensors")
 
 
 def _port_files():
@@ -51,7 +53,10 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
     scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for mod in ("ops/cuda_attention.py", "ops/cuda_linear.py", "ops/kernels.py",
                 "engine/torch_engine/drafter.py", "engine/torch_engine/engine.py",
-                "engine/torch_engine/model_runner.py", "engine/torch_engine/factory.py"):
+                "engine/torch_engine/model_runner.py", "engine/torch_engine/factory.py",
+                "http/service.py", "tokenizer_json.py", "chat_template.py", "tokenizer.py",
+                "preprocessor.py", "backend.py", "protocols/openai.py", "run.py",
+                "entrypoint/inputs.py"):
         assert f"dynamo_tpu_torch/{mod}" in scanned
     # every kernel the counters cover has its source beside the package
     for name in kernels.KERNELS:
@@ -832,3 +837,76 @@ def test_build_torch_engine_serves_qwen2_and_gemma_head_shapes_on_card(name):
     launched = kernels.launch_counts()
     assert launched["flash_prefill_attention"] == 1
     assert launched["fused_qkv_rope"] == launched["fused_attn_out_residual"] > 0
+
+
+# a hand-written WordLevel tokenizer.json: 512 ids, each of which but the
+# special </s> decodes to a word
+def _word_level_json(n: int = 512) -> str:
+    import json
+
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2, **{f"w{i}": i for i in range(3, n)}}
+    return json.dumps({
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": [
+            {"id": 2, "content": "</s>", "single_word": False, "lstrip": False, "rstrip": False,
+             "normalized": False, "special": True}],
+        "normalizer": None, "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None,
+        "decoder": None, "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"},
+    })
+
+
+@pytest.mark.cuda
+def test_http_server_streams_a_completion_from_a_card_engine():
+    """The port's server in-process over a one-layer engine on the card:
+    one streamed completion, read with http.client, ends in [DONE] with a
+    finish reason and usage that counts the streamed tokens."""
+    import asyncio
+    import http.client
+    import json
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.entrypoint.inputs import EngineConfig, run_http
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.protocols.sse import SseParser
+    from dynamo_tpu_torch.tokenizer import TokenizerWrapper
+
+    _need_card()
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=512), num_layers=1, intermediate_size=512,
+                              hidden_size=512, num_heads=4, num_kv_heads=1, head_dim=128)
+    engine = build_torch_engine(cfg, device="cuda", max_batch=2, max_model_len=256)
+    mdc = ModelDeploymentCard.from_tokenizer(
+        "card-tiny", TokenizerWrapper.from_json_str(_word_level_json(), eos_token_ids=[2]))
+    body = {"model": "card-tiny", "prompt": " ".join(f"w{i}" for i in range(3, 40)), "max_tokens": 12,
+            "stream": True, "temperature": 0, "stream_options": {"include_usage": True}}
+
+    def fetch(port):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", "/v1/completions", body=json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        finally:
+            conn.close()
+
+    async def run():
+        svc = await run_http(EngineConfig.static_(engine, mdc), host="127.0.0.1", port=0)
+        try:
+            kernels.reset_launch_counts()
+            return await asyncio.to_thread(fetch, svc.port)
+        finally:
+            await svc.close()
+            await engine.close()
+
+    status, data = asyncio.run(run())
+    assert status == 200
+    events = SseParser().feed(data.decode())
+    assert events[-1].is_done()
+    chunks = [e.json() for e in events[:-1]]
+    texts = [c["choices"][0]["text"] for c in chunks if c["choices"] and c["choices"][0]["text"]]
+    finishes = [c["choices"][0].get("finish_reason") for c in chunks if c["choices"]]
+    assert finishes[-1] in ("length", "stop") and not any(finishes[:-1])
+    usage = chunks[-1]["usage"]
+    assert usage["prompt_tokens"] == 37 and 0 < usage["completion_tokens"] <= 12
+    assert len(texts) == usage["completion_tokens"]
+    assert kernels.launch_counts()["paged_decode_attention"] > 0
