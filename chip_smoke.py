@@ -52,7 +52,25 @@ Phases, each of which must pass or the script exits non-zero:
                 device time, #1's time per launch and #4's per layer),
                 tokens/s with spec off and on.
 
-  9. serve_http -- `python -m dynamo_tpu_torch.run in=http out=torch` in
+  9. serve_int8 -- the JAX package's int8 deployment: build_torch_engine(
+                quantize=True, kv_dtype="int8", fused_decode=True) at full
+                width (seed 0: the serve phase's bf16 draws, quantized) on
+                the default admission path, the serve phase's 8 requests;
+                then an engine over the same weights built from the JAX
+                factory's variables (DYN_JAX_QUANTIZE_INT8=1,
+                DYN_KV_DTYPE=int8, DYN_FUSED_DECODE=1, DYN_SPEC_K=3) over
+                quoting traffic. Checks the outputs, the launch counters
+                (the four int8 modes' and no bf16 kernel's), the dense
+                reference over the same int8 weights (it attends the
+                unquantized K/V: gap bound INT8_REF_GAP) and the int8
+                sizing; the parity phase also holds the four int8 modes to
+                their plain versions (Llama-3.1-8B, Qwen2-7B and Gemma-2-9B
+                heads, window and softcap, pages with their own scales,
+                M = 8 and 32), and the times phase times each int8 mode,
+                the int8 B=8 fused step and 2000-token TTFT beside bf16's,
+                and the unfused int8 products' share of the step.
+
+ 10. serve_http -- `python -m dynamo_tpu_torch.run in=http out=torch` in
                 its own process (this process's engines freed first) over a
                 model directory written under build/serve_http/: the
                 published Llama-3.1-8B config.json (no weights: 32 layers of
@@ -445,15 +463,18 @@ def spec_parity(torch) -> dict:
     return errs
 
 
-def decode_bound(lens, B: int, hq=HQ, hkv=HKV, d=D) -> tuple[float, str, float, float]:
+def decode_bound(lens, B: int, hq=HQ, hkv=HKV, d=D, kv_bytes: int = 2) -> tuple[float, str, float, float]:
     """Least time for one paged decode call: every live K and V row read
-    once, q/tables/lens read once, the output written once; f32 work counted
-    against the bf16 peak (the more generous one)."""
+    once (kv_bytes 1: int8 mantissas, plus each live page's k and v scale
+    per head), q/tables/lens read once, the output written once; f32 work
+    counted against the bf16 peak (the more generous one)."""
     keys = sum(lens)
+    pages = sum((n + BLOCK - 1) // BLOCK for n in lens)
     nbytes = (
-        2 * keys * hkv * d * 2  # K and V rows
+        2 * keys * hkv * d * kv_bytes  # K and V rows
         + 2 * B * hq * d * 2  # q in, out
-        + sum((n + BLOCK - 1) // BLOCK for n in lens) * 4 + B * 4
+        + pages * 4 + B * 4
+        + (2 * pages * hkv * 4 if kv_bytes == 1 else 0)  # the pages' f32 scales
     )
     flops = 4 * keys * hq * d
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
@@ -581,26 +602,30 @@ def decode_step_times(torch, flush) -> dict:
     }
 
 
-def verify_bound(bases, S: int, hq=HQ, hkv=HKV, d=D) -> tuple[float, str, float, float]:
+def verify_bound(bases, S: int, hq=HQ, hkv=HKV, d=D, kv_bytes: int = 2) -> tuple[float, str, float, float]:
     """Least time for one verify call: each lane's live K and V rows (its
-    context, base + S keys) read once, q / tables / positions read once, the
-    output written once; 4 * D flops per (query head, visible key) pair."""
+    context, base + S keys; kv_bytes 1: int8, plus the pages' scales) read
+    once, q / tables / positions read once, the output written once;
+    4 * D flops per (query head, visible key) pair."""
     keys = sum(p + S for p in bases)
     pairs = sum(p + s + 1 for p in bases for s in range(S))
+    pages = sum((p + S + BLOCK - 1) // BLOCK for p in bases)
     nbytes = (
-        2 * keys * hkv * d * 2 + 2 * len(bases) * S * hq * d * 2
-        + sum((p + S + BLOCK - 1) // BLOCK for p in bases) * 4 + len(bases) * S * 4
+        2 * keys * hkv * d * kv_bytes + 2 * len(bases) * S * hq * d * 2
+        + pages * 4 + len(bases) * S * 4
+        + (2 * pages * hkv * 4 if kv_bytes == 1 else 0)
     )
     flops = 4 * pairs * hq * d
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
 
 
-def gemv_bound(M: int, K: int, N: int, extra_bytes: int) -> tuple[float, str, float, float]:
-    """Least time for a fused head: the [K, N] bf16 weights, the [M, K]
-    input and the [M, N] output moved once, plus `extra_bytes` (norm
-    weight, cos / sin, residual); 2 * M * K * N flops."""
-    nbytes = (K * N + M * K + M * N) * 2 + extra_bytes
+def gemv_bound(M: int, K: int, N: int, extra_bytes: int, w_bytes: int = 2) -> tuple[float, str, float, float]:
+    """Least time for a fused head: the [K, N] weights (bf16, or w_bytes 1:
+    int8 plus a bf16 scale per column), the [M, K] input and the [M, N]
+    output moved once, plus `extra_bytes` (norm weight, cos / sin,
+    residual); 2 * M * K * N flops."""
+    nbytes = K * N * w_bytes + (M * K + M * N) * 2 + extra_bytes + (N * 2 if w_bytes == 1 else 0)
     flops = 2 * M * K * N
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
@@ -778,11 +803,14 @@ async def run_requests(engine, reqs, Context):
     return await asyncio.gather(*(one(r) for r in reqs))
 
 
-def reference_check(torch, runner, prompt, generated, n_check: int = 8) -> float:
+def reference_check(torch, runner, prompt, generated, n_check: int = 8,
+                    bound: float = 0.25) -> float:
     """Dense reference of the first tokens: one forward over prompt +
-    generated[:n_check] with the plain attention version and no cache; each
+    generated[:n_check] with the plain attention version and no cache, over
+    the runner's own weights (int8 ones through the int8 products); each
     greedy token of the engine must be the reference's argmax up to bf16
-    noise. Returns the largest logit gap seen."""
+    noise (and, with an int8 cache, quantization noise: `bound`). Returns
+    the largest logit gap seen."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.ops import attention as A
     from dynamo_tpu_torch.ops.layers import attn_out, qkv_head
@@ -806,7 +834,7 @@ def reference_check(torch, runner, prompt, generated, n_check: int = 8) -> float
         worst = max(worst, gap)
         # bf16 activations: the kernel path and the dense path round
         # differently, so near-ties may flip; a real fault moves far more
-        if gap > 0.25:
+        if gap > bound:
             raise SmokeError(
                 f"engine token {generated[j]} at step {j} is {gap:.3f} below "
                 f"the reference's best logit"
@@ -822,6 +850,7 @@ def phase_serve(torch, np, card: str) -> dict:
     )
 
     t0 = time.perf_counter()
+    mem_before = torch.cuda.memory_allocated()
     # chunking off: every prompt through the single-shot prefill (#3), the
     # path this phase has always measured
     engine = build_torch_engine(
@@ -895,7 +924,8 @@ def phase_serve(torch, np, card: str) -> dict:
         "ttft_s_concurrent": [t for _, _, t in first],
         "wall_s_warm": wall_warm, "output_tok_per_s_warm": out_tokens / wall_warm,
         "ttft_s_concurrent_warm": [t for _, _, t in second],
-        "peak_mem_bytes": peak, "reference_max_logit_gap": gap,
+        "peak_mem_bytes": peak, "engine_peak_mem_bytes": peak - mem_before,
+        "reference_max_logit_gap": gap,
         "penalized_request": {"sampling": PENALTIES, "min_tokens": MIN_TOKENS,
                               "tokens": len(pen_toks), "reason": pen_reason.value},
     }
@@ -1011,6 +1041,7 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
     L, steps = spec.runner.config.num_layers, stats["decode_steps"]
     verify = stats["verify_steps"]
     want = {
+        **dict.fromkeys(kernels.KERNELS, 0),  # the int8 modes: not on this path
         "paged_decode_attention": L * steps,
         "flash_prefill_attention": L * stats["prefills"],
         "paged_verify_attention": L * verify,
@@ -1444,17 +1475,21 @@ def profile_calls(torch, fn, calls: int = 5) -> tuple[float, dict]:
     """Device time of one fn() call -- the CUDA kernels' total under
     torch.profiler over `calls` calls, per call -- and each kernel's
     (total us, launches) over them. Only the device events count: a CPU
-    op's entry repeats the time of the kernels it launched."""
+    op's entry repeats the time of the kernels it launched. The profiler
+    can drop a session's first device record (seen on the H100): a spin
+    kernel goes first and is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
     kernels = {
         e.key: (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0),
                 e.count)
-        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
     }
     return sum(us for us, _ in kernels.values()) / 1e3 / calls, kernels
 
@@ -1463,12 +1498,47 @@ def device_ms_per_call(torch, fn, calls: int = 5) -> float:
     return profile_calls(torch, fn, calls)[0]
 
 
-def per_launch_us(kernels: dict, mode: str) -> dict:
+def host_ms(torch, fn, reps: int = 20) -> float:
+    """Median host time of one fn() call (launching, not waiting), each
+    call started with the card idle."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def host_ops(torch, fn, calls: int = 3, n: int = 12) -> dict:
+    """torch.profiler's CPU self time per op over `calls` fn() calls, per
+    call: the total and the n largest ops (name, ms, calls). The profiler's
+    own bookkeeping per op inflates these; compare them only with each
+    other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"self_cpu_ms": sum(e.self_cpu_time_total for e in ev) / 1e3 / calls,
+            "top": [[e.key, e.self_cpu_time_total / 1e3 / calls, e.count // calls]
+                    for e in ev[:n]]}
+
+
+def per_launch_us(kernels: dict, mode: str, int8: bool = False) -> dict:
     """Per-launch device time of the paged attention template's decode
-    (mode "true") or verify ("false") instantiation in a profile."""
+    (mode "true") or verify ("false") instantiation, bf16 or int8 mode, in a
+    profile."""
     us = n = 0
+    tag = f", {mode}, {'true' if int8 else 'false'}>"
     for key, (t, c) in kernels.items():
-        if "paged_attention_kernel<" in key and f", {mode}>" in key:
+        if "paged_attention_kernel<" in key and tag in key:
             us, n = us + t, n + c
     return {"us_per_launch": us / n if n else None, "launches": n}
 
@@ -1590,6 +1660,521 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     log(f"verify dispatch B=8 S=4 ctx 1024: {verify_step['device_ms']:.3f} ms device; "
         f"verify attention {verify_step['verify_attention']['us_per_launch']} us per launch; "
         f"fused QKV head (#4) {verify_step['qkv_head']['us_per_layer']} us per layer")
+    return res
+
+
+# ------------------------------------------------------------------- int8
+#
+# The JAX package's int8 deployment (DYN_JAX_QUANTIZE_INT8=1,
+# DYN_KV_DTYPE=int8): int8 weight-only dense projections and an
+# int8-resident paged KV cache, through the int8 modes of #1, #2, #4, #5.
+
+INT8_KERNELS = ("paged_decode_attention_int8", "paged_verify_attention_int8",
+                "fused_qkv_rope_int8", "fused_attn_out_residual_int8")
+# the int8 engine's dense reference attends the unquantized K/V of the same
+# int8 weights, so its logits carry the cache's quantization noise on top of
+# bf16's: the engine's greedy token must lie within this of the best. The
+# largest gap read on an H100 80GB HBM3 was 0.125 (the spec leg); the bf16
+# engines read 0.031-0.062 against reference_check's default bound of 0.25
+INT8_REF_GAP = 0.5
+
+
+def int8_pages(torch, cache):
+    """A bf16 cache [Hkv, nb, bs, D] quantized the way the engine's
+    prefill writes it (each (head, page)'s exact absmax, so every page has
+    its own scale): (int8 mantissas, f32 scales [Hkv, nb])."""
+    from dynamo_tpu_torch.ops import kv_quant
+
+    layer = kv_quant.make_cache(tuple(cache.shape), cache.dtype, quantized=True,
+                                device=cache.device)
+    kv_quant.write_blocks_quant(layer, cache, torch.arange(cache.shape[1], device=cache.device))
+    return layer["q"], layer["s"]
+
+
+def int8_weights(t: dict) -> dict:
+    """gemv_inputs' weights quantized as the engine quantizes them."""
+    from dynamo_tpu_torch.ops.linear import quantize_int8
+
+    return dict(t, **{k: quantize_int8(t[k]) for k in ("wq", "wk", "wv", "wo")})
+
+
+def phase_parity_int8(torch) -> dict:
+    """Each int8 mode against its plain version on the same int8 inputs:
+    #1q / #2q at Llama-3.1-8B, Qwen2-7B (G 7) and Gemma-2-9B (D 256) heads
+    with the window and scale / softcap cases, contexts that cross pages
+    (each page its own scale), at DECODE_TOL; #4q at those widths and #5q
+    at Llama width, M = 8 and 32, at GEMV_TOL."""
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops import cuda_attention as K
+    from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops import linear as L
+
+    errs = dict.fromkeys(INT8_KERNELS, 0.0)
+
+    def check(kernel, label, got, want, tol):
+        torch.cuda.synchronize()
+        e = compare(torch, label, got, want, tol)
+        errs[kernel] = max(errs[kernel], e)
+        log(f"parity {label}: max|d|={e:.3e} (tol {tol[0]:g} + {tol[1]:g}|x|)")
+
+    shapes = {"llama31_8b": (HQ, HKV, D, HIDDEN), **HEAD_SHAPES}
+    for name, (hq, hkv, d, hidden) in shapes.items():
+        shp = dict(hq=hq, hkv=hkv, d=d)
+        tag = f"{name} Hq={hq} Hkv={hkv} D={d}"
+        q, k, v, tables, lens = decode_inputs(torch, DECODE_LENS, seed=60, **shp)
+        (kq, ks), (vq, vs) = int8_pages(torch, k), int8_pages(torch, v)
+        del k, v
+        for case, kw in DECODE_CASES:
+            check("paged_decode_attention_int8", f"int8 decode/{case} {tag}",
+                  K.paged_decode_attention_int8_cuda(q, kq, vq, tables, lens, ks, vs, **kw),
+                  A.paged_decode_attention_plain(q, kq, vq, tables, lens, k_scales=ks,
+                                                 v_scales=vs, **kw), DECODE_TOL)
+        q, k, v, tables, pos = verify_inputs(torch, VERIFY_BASES, VERIFY_DRAFT_LENS, VERIFY_S,
+                                             seed=61, **shp)
+        (kq, ks), (vq, vs) = int8_pages(torch, k), int8_pages(torch, v)
+        del k, v
+        for case, kw in DECODE_CASES:
+            check("paged_verify_attention_int8", f"int8 verify/{case} {tag}",
+                  K.paged_verify_attention_int8_cuda(q, kq, vq, tables, pos, ks, vs, **kw),
+                  A.paged_verify_attention_plain(q, kq, vq, tables, pos, k_scales=ks,
+                                                 v_scales=vs, **kw), DECODE_TOL)
+        for M in (8, 32):
+            t = int8_weights(gemv_inputs(torch, M, seed=70 + M, bias=name == "qwen2_7b",
+                                         hidden=hidden, **shp))
+            got = qkv_call(KL.fused_qkv_rope_int8_cuda, t)
+            want = qkv_call(L.fused_qkv_rope_plain, t)
+            for n, a, b in zip("qkv", got, want):
+                check("fused_qkv_rope_int8", f"int8 qkv/M{M}/{n} {tag} hidden={hidden}", a, b,
+                      GEMV_TOL)
+            if name == "llama31_8b":
+                check("fused_attn_out_residual_int8", f"int8 out/M{M} {tag}",
+                      KL.fused_attn_out_residual_int8_cuda(t["attn"], t["wo"], t["x"]),
+                      L.fused_attn_out_residual_plain(t["attn"], t["wo"], t["x"]), GEMV_TOL)
+    return errs
+
+
+def dequantized(torch, pages, scales):
+    """bf16 K / V from int8 pages (what the library call is given: the
+    dequantization is not timed)."""
+    return (pages.float() * scales[..., None, None]).to(torch.bfloat16)
+
+
+def int8_attention_times(torch, flush) -> dict:
+    """#1q at chip_smoke's ragged contexts and at the B=8 step's shape, and
+    #2q at the verify shape: kernel, plain, and SDPA over the same keys
+    gathered and dequantized to bf16 beforehand (not timed)."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops import cuda_attention as K
+
+    rows = {}
+    for name, lens in (("paged_decode_attention_int8", DECODE_LENS),
+                       ("paged_decode_attention_int8/step", [STEP_CTX + 1] * 8)):
+        q, k, v, tables, lens_t = decode_inputs(torch, lens, seed=62)
+        (kq, ks), (vq, vs) = int8_pages(torch, k), int8_pages(torch, v)
+        kd, vd = dequantized(torch, kq, ks), dequantized(torch, vq, vs)
+        del k, v
+        t_k = time_ms(torch, lambda: K.paged_decode_attention_int8_cuda(
+            q, kq, vq, tables, lens_t, ks, vs), flush=flush)
+        t_p = time_ms(torch, lambda: A.paged_decode_attention_plain(
+            q, kq, vq, tables, lens_t, k_scales=ks, v_scales=vs), reps=5, flush=flush)
+        B, S = len(lens), max(lens)
+        kg = torch.zeros(B, HKV, S, D, dtype=torch.bfloat16, device="cuda")
+        vg = torch.zeros_like(kg)
+        for b, n in enumerate(lens):
+            pages = tables[b, : (n + BLOCK - 1) // BLOCK].long()
+            kg[b, :, :n] = kd[:, pages].reshape(HKV, -1, D)[:, :n]
+            vg[b, :, :n] = vd[:, pages].reshape(HKV, -1, D)[:, :n]
+        mask = (torch.arange(S, device="cuda")[None, :] < lens_t[:, None].long())[:, None, None, :]
+        qd = q[:, :, None, :]
+        t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kg, vg, attn_mask=mask, enable_gqa=True), flush=flush)
+        b_ms, b_by, nbytes, flops = decode_bound(lens, B, kv_bytes=1)
+        rows[name] = {
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops,
+            "library": "SDPA over the keys gathered and dequantized to bf16 beforehand, "
+                       "length mask, enable_gqa",
+            "shape": f"B={B} Hq={HQ} Hkv={HKV} D={D} block={BLOCK} int8 pages, lens "
+                     f"{lens if len(set(lens)) > 1 else f'{B} x {lens[0]}'}",
+        }
+    S_, bases = VERIFY_S, VERIFY_BASES
+    q, k, v, tables, pos = verify_inputs(torch, bases, [S_ - 1] * len(bases), S_, seed=63)
+    (kq, ks), (vq, vs) = int8_pages(torch, k), int8_pages(torch, v)
+    kd, vd = dequantized(torch, kq, ks), dequantized(torch, vq, vs)
+    del k, v
+    t_k = time_ms(torch, lambda: K.paged_verify_attention_int8_cuda(
+        q, kq, vq, tables, pos, ks, vs), flush=flush)
+    t_p = time_ms(torch, lambda: A.paged_verify_attention_plain(
+        q, kq, vq, tables, pos, k_scales=ks, v_scales=vs), reps=5, flush=flush)
+    ctx = max(bases) + S_
+    kg = torch.zeros(len(bases), HKV, ctx, D, dtype=torch.bfloat16, device="cuda")
+    vg = torch.zeros_like(kg)
+    for b, p in enumerate(bases):
+        n = p + S_
+        pages = tables[b, : (n + BLOCK - 1) // BLOCK].long()
+        kg[b, :, :n] = kd[:, pages].reshape(HKV, -1, D)[:, :n]
+        vg[b, :, :n] = vd[:, pages].reshape(HKV, -1, D)[:, :n]
+    mask = torch.arange(ctx, device="cuda")[None, None, :] <= pos.long()[:, :, None]
+    t_s = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kg, vg, attn_mask=mask[:, None], enable_gqa=True), flush=flush)
+    b_ms, b_by, nbytes, flops = verify_bound(bases, S_, kv_bytes=1)
+    rows["paged_verify_attention_int8"] = {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes, "flops": flops,
+        "library": "SDPA over keys gathered and dequantized to bf16 beforehand, causal mask",
+        "shape": f"B={len(bases)} S={S_} Hq={HQ} Hkv={HKV} D={D} block={BLOCK} int8 pages",
+    }
+    return rows
+
+
+def int8_gemv_times(torch, flush) -> dict:
+    """#4q and #5q at M = 8 (a decode step) and 32 (a verify step):
+    kernel, plain, and the product alone over weights dequantized to bf16
+    beforehand (matmul of pre-normed rows; addmm with the residual)."""
+    from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops import linear as L
+    from dynamo_tpu_torch.ops.basics import rms_norm
+
+    rows = {}
+    eps = LLAMA31_8B["rms_norm_eps"]
+    for M in (8, 32):
+        t = int8_weights(gemv_inputs(torch, M, seed=80 + M))
+        deq = {k: (t[k]["q"].float() * t[k]["s"].float()).to(torch.bfloat16)
+               for k in ("wq", "wk", "wv", "wo")}
+        wqkv = torch.cat([deq["wq"], deq["wk"], deq["wv"]], dim=1)
+        xn = rms_norm(t["x"], t["norm"], eps)
+        N = (HQ + 2 * HKV) * D
+        t_k = time_ms(torch, lambda: qkv_call(KL.fused_qkv_rope_int8_cuda, t), flush=flush)
+        t_p = time_ms(torch, lambda: qkv_call(L.fused_qkv_rope_plain, t), flush=flush)
+        t_m = time_ms(torch, lambda: torch.matmul(xn, wqkv), flush=flush)
+        b_ms, b_by, nbytes, flops = gemv_bound(M, HIDDEN, N, HIDDEN * 2 + M * D * 4, w_bytes=1)
+        rows[f"fused_qkv_rope_int8/M{M}"] = {
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_m, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops, "ratio_to_library": t_k["median"] / t_m["median"],
+            "library": "torch.matmul(xn, [wq|wk|wv]) over a pre-normed x and the weights "
+                       "dequantized to bf16 beforehand: the product alone, 2 bytes a weight",
+            "shape": f"M={M} hidden={HIDDEN} N={N} int8 weights",
+        }
+        t_k = time_ms(torch, lambda: KL.fused_attn_out_residual_int8_cuda(t["attn"], t["wo"], t["x"]),
+                      flush=flush)
+        t_p = time_ms(torch, lambda: L.fused_attn_out_residual_plain(t["attn"], t["wo"], t["x"]),
+                      flush=flush)
+        t_s = time_ms(torch, lambda: torch.addmm(t["x"], t["attn"], deq["wo"]), flush=flush)
+        b_ms, b_by, nbytes, flops = gemv_bound(M, HQ * D, HIDDEN, M * HIDDEN * 2, w_bytes=1)
+        rows[f"fused_attn_out_residual_int8/M{M}"] = {
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_s, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops, "ratio_to_library": t_k["median"] / t_s["median"],
+            "library": "torch.addmm(x, attn, wo) over wo dequantized to bf16 beforehand",
+            "shape": f"M={M} K={HQ * D} N={HIDDEN} int8 weights",
+        }
+    return rows
+
+
+def phase_kernel_times_int8(torch, card: str) -> dict:
+    flush = make_flush(torch)
+    rows = {**int8_attention_times(torch, flush), **int8_gemv_times(torch, flush)}
+    for name, row in rows.items():
+        print(json.dumps({"kernel_time": name, "card": card, **row}), flush=True)
+        log(f"{name} {row['shape']}: {row['ms']['median']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']['median']:.4f} ms, library "
+            f"{row['library_ms']['median']:.4f} ms ({card})")
+    return rows
+
+
+def phase_serve_int8(torch, np, card: str, bf16_blocks: int, bf16_peak: int) -> dict:
+    """The int8 deployment: build_torch_engine(quantize=True,
+    kv_dtype="int8", fused_decode=True) at Llama-3.1-8B width on the
+    default admission path (seed 0: the serve phase's bf16 draws,
+    quantized), the serve phase's 8 requests; then an engine on the same
+    weights built from the JAX factory's variables (DYN_JAX_QUANTIZE_INT8,
+    DYN_KV_DTYPE, DYN_FUSED_DECODE, DYN_SPEC_K=3) over quoting traffic.
+    The counters are set to 0 just before each run and read just after."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import (
+        build_torch_engine, default_num_blocks, device_memory_bytes,
+    )
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    t0 = time.perf_counter()
+    # the earlier phases' engines are still on the card: the int8 engine's
+    # own peak is the peak above what they hold
+    mem_before = torch.cuda.memory_allocated()
+    engine = build_torch_engine(
+        LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
+        quantize=True, kv_dtype="int8", fused_decode=True, spec_k=0,
+    )
+    torch.cuda.synchronize()
+    runner = engine.runner
+    build_s = time.perf_counter() - t0
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(runner.params))
+    if not runner.kv_quantized or runner.prefill_chunk_tokens != 512 or not engine._mixed_enabled:
+        raise SmokeError("serve_int8: not the int8 cache on the default admission path")
+    # the JAX factory's sizing: every lane at full context (+64) fits both
+    # forms on this card; what the budget would hold shows in the caps
+    cfg = LlamaConfig.from_hf_dict(LLAMA31_8B)
+    budget = device_memory_bytes(runner.device)
+    caps = {kv: default_num_blocks(cfg, 131072, 512, budget_bytes=budget,
+                                   quantized=kv == "int8", kv_dtype=kv)
+            for kv in ("bf16", "int8")}
+    want_blocks = default_num_blocks(cfg, MAX_MODEL_LEN, 8, budget_bytes=budget, quantized=True,
+                                     kv_dtype="int8")
+    if runner.num_blocks != want_blocks:
+        raise SmokeError(f"serve_int8: {runner.num_blocks} blocks, the sizing says {want_blocks}")
+    log(f"serve_int8: engine built in {build_s:.1f} s; int8 weights {wbytes / 1e9:.2f} GB, KV "
+        f"pool {runner.num_blocks} blocks ({runner.kv_cache_bytes / 1e9:.3f} GB; bf16 engine "
+        f"{bf16_blocks} blocks); blocks the budget would hold at 512 x 131072 tokens: bf16 "
+        f"{caps['bf16']}, int8 {caps['int8']}")
+    reqs = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
+    spec_env = {"DYN_JAX_QUANTIZE_INT8": "1", "DYN_KV_DTYPE": "int8", "DYN_FUSED_DECODE": "1",
+                "DYN_SPEC_K": str(SPEC_K)}
+
+    async def serve():
+        try:
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            first = await run_requests(engine, reqs, Context)
+            wall = time.perf_counter() - t1
+            stats = copy.deepcopy(vars(engine.stats))
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            t1 = time.perf_counter()
+            second = await run_requests(engine, reqs, Context)
+            wall_warm = time.perf_counter() - t1
+            # the spec leg: the JAX factory's variables, the same weights
+            saved = {k: os.environ.get(k) for k in spec_env}
+            os.environ.update(spec_env)
+            try:
+                spec = build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+                                          max_model_len=MAX_MODEL_LEN, seed=0,
+                                          params=runner.params, spec_min_coverage=SPEC_COVERAGE)
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            try:
+                if not (spec.runner.kv_quantized and spec.config.spec_k == SPEC_K
+                        and spec.runner.config.fused_decode):
+                    raise SmokeError("serve_int8: the variables did not build the int8 spec engine")
+                sreqs = await repeating_prompts(np, engine, PreprocessedRequest, SamplingOptions,
+                                                StopConditions, Context)
+                kernels.reset_launch_counts()
+                t1 = time.perf_counter()
+                sfirst = await run_requests(spec, sreqs, Context)
+                swall = time.perf_counter() - t1
+                sstats = copy.deepcopy(vars(spec.stats))
+                slaunches = kernels.launch_counts()
+            finally:
+                await spec.close()
+            return (first, second, wall, wall_warm, stats, launches, peak, sreqs, sfirst, swall,
+                    sstats, slaunches, spec.runner)
+        finally:
+            await engine.close()
+
+    (first, second, wall, wall_warm, stats, launches, peak, sreqs, sfirst, swall, sstats,
+     slaunches, spec_runner) = asyncio.run(serve())
+    vocab = LLAMA31_8B["vocab_size"]
+    for i, ((toks, reason, _), req) in enumerate(zip(first, reqs)):
+        if i == PENALIZED:
+            ok = len(toks) >= MIN_TOKENS and reason in (FinishReason.LENGTH, FinishReason.EOS)
+        else:
+            ok = reason is FinishReason.LENGTH and len(toks) == req.stop.max_tokens
+        if not ok or not all(0 <= t < vocab for t in toks):
+            raise SmokeError(f"serve_int8 request {i}: {len(toks)} tokens, reason {reason}")
+        if second[i][0] != toks:
+            raise SmokeError(f"serve_int8 request {i}: the repeated run gave other tokens")
+    for i, (toks, reason, _) in enumerate(sfirst):
+        if reason is not FinishReason.LENGTH or len(toks) != SPEC_MAX_TOKENS:
+            raise SmokeError(f"serve_int8 spec request {i}: {len(toks)} tokens, reason {reason}")
+    if stats["mixed_steps"] <= 0 or stats["packed_prefills"] <= 0 or stats["prefills"]:
+        raise SmokeError(f"serve_int8: did not pack and mix: {stats}")
+    if sstats["verify_steps"] <= 0:
+        raise SmokeError(f"serve_int8: no verify dispatch on the spec leg: {sstats}")
+    L = runner.config.num_layers
+    steps = stats["decode_steps"] + stats["mixed_steps"]
+    want = {**dict.fromkeys(kernels.KERNELS, 0), "paged_decode_attention_int8": L * steps,
+            "fused_qkv_rope_int8": L * steps, "fused_attn_out_residual_int8": L * steps}
+    if launches != want:
+        raise SmokeError(f"serve_int8: kernel launches {launches} != {want}")
+    ssteps = sstats["decode_steps"] + sstats["mixed_steps"]
+    verify = sstats["verify_steps"]
+    swant = {**dict.fromkeys(kernels.KERNELS, 0), "paged_decode_attention_int8": L * ssteps,
+             "paged_verify_attention_int8": L * verify,
+             "fused_qkv_rope_int8": L * (ssteps + verify),
+             "fused_attn_out_residual_int8": L * (ssteps + verify)}
+    if slaunches != swant:
+        raise SmokeError(f"serve_int8 spec: kernel launches {slaunches} != {swant}")
+    # every int8 counter moved, no bf16 one, over the two runs
+    both = {k: launches[k] + slaunches[k] for k in kernels.KERNELS}
+    if any(both[k] == 0 for k in INT8_KERNELS) or any(
+            both[k] for k in kernels.KERNELS if k not in INT8_KERNELS):
+        raise SmokeError(f"serve_int8: launches {both}")
+    gap = max(reference_check(torch, runner, reqs[i].token_ids, first[i][0], bound=INT8_REF_GAP)
+              for i in (0, -1))
+    sgap = max(reference_check(torch, spec_runner, sreqs[i].token_ids, sfirst[i][0], n_check=32,
+                               bound=INT8_REF_GAP)
+               for i in range(len(sreqs)) if i != SAMPLED)
+    out_tokens = sum(len(t) for t, _, _ in first)
+    res = {
+        "requests": len(reqs), "prompt_lens": PROMPT_LENS, "stats": stats, "launches": launches,
+        "wall_s": wall, "wall_s_warm": wall_warm, "output_tok_per_s_warm": out_tokens / wall_warm,
+        "ttft_s_concurrent": [t for _, _, t in first],
+        "ttft_s_concurrent_warm": [t for _, _, t in second],
+        "engine_peak_mem_bytes": peak - mem_before, "engine_peak_mem_bytes_bf16_serve": bf16_peak,
+        "weight_bytes": wbytes, "kv_cache_bytes": runner.kv_cache_bytes,
+        "num_blocks": runner.num_blocks, "num_blocks_bf16": bf16_blocks,
+        "block_caps_512x131072": caps, "build_s": build_s,
+        "reference_max_logit_gap": gap, "reference_bound": INT8_REF_GAP,
+        "spec": {"prompt_lens": [len(r.token_ids) for r in sreqs], "stats": sstats,
+                 "launches": slaunches, "wall_s": swall,
+                 "acceptance": sstats["num_accepted_tokens"] / max(1, sstats["num_draft_tokens"]),
+                 "reference_max_logit_gap_32": sgap},
+    }
+    log(f"serve_int8: {len(reqs)} requests ({out_tokens} tokens) in {wall:.2f} s ({wall_warm:.2f} s "
+        f"warm); {stats['packed_prefills']} packed prefills, {stats['mixed_steps']} mixed steps, "
+        f"{stats['decode_steps']} decode steps; launches {launches}; repeat identical; reference "
+        f"gap {gap:.3f} (bound {INT8_REF_GAP}); the engine's peak memory {(peak - mem_before) / 1e9:.2f}"
+        f" GB (bf16 serve engine {bf16_peak / 1e9:.2f} GB)")
+    log(f"serve_int8 spec (DYN_* variables): {verify} verify dispatches, {ssteps} decode steps; "
+        f"drafts {sstats['num_drafts']}, accepted {sstats['num_accepted_tokens']}; launches "
+        f"{slaunches}; reference gap over 32 tokens {sgap:.3f}")
+    print(json.dumps({"serve_int8": res, "card": card}), flush=True)
+    res["runner"] = runner
+    res["launches_both"] = both
+    return res
+
+
+def int8_engine_times(torch, np, int8_runner, bf16_runner, bf16_chunked_runner,
+                      card: str) -> dict:
+    """The int8 deployment's step and TTFT beside bf16's, same card, in
+    turns: the B=8 fused decode step at context 1024 (wall and device time,
+    #1q per launch, #4q per layer), the 2000-token TTFT alone through four
+    512-token chunks on the default path, and the unfused int8 linear op's
+    share of the int8 step (the MLP's three products per layer and lm_head,
+    CUDA-event times at M = 8, beside the same products in bf16)."""
+    from dynamo_tpu_torch.ops import kv_quant
+    from dynamo_tpu_torch.ops.attention import write_decode_kv
+    from dynamo_tpu_torch.ops.linear import linear
+
+    rng = np.random.default_rng(11)
+    vocab = int8_runner.config.vocab_size
+    bs = int8_runner.block_size
+    B, ctx = 8, STEP_CTX
+    per = (ctx + 1 + bs - 1) // bs
+    tables = np.zeros((B, int8_runner.max_blocks_per_seq), np.int32)
+    for b in range(B):
+        tables[b, :per] = np.arange(1 + b * per, 1 + (b + 1) * per)
+    pos = np.full(B, ctx, np.int64)
+    slots = tables[np.arange(B), pos // bs].astype(np.int64) * bs + pos % bs
+    toks = rng.integers(0, vocab, B)
+    zeros, ones, kz = np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int64)
+
+    def step(r):
+        return r.fetch_sample(r.decode(toks, pos, tables, slots, zeros, ones, kz))
+
+    runners = {"bf16": bf16_runner, "int8": int8_runner}
+    walls = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        r = runners[name]
+        for _ in range(3):
+            step(r)
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step(r)
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    layers = int8_runner.config.num_layers
+    decode = {}
+    for name, r in runners.items():
+        dev_ms, prof = profile_calls(torch, lambda: step(r))
+        decode[name] = {
+            "median": statistics.median(walls[name]), "min": min(walls[name]),
+            "max": max(walls[name]), "device_ms": dev_ms, "B": B, "ctx": ctx,
+            "decode_attention": per_launch_us(prof, "true", int8=name == "int8"),
+            "qkv_head": qkv_head_us(prof, 5, layers), "top_kernels": top_kernels(prof, 5),
+        }
+    # TTFT of one 2000-token prompt alone through four chunks, in turns
+    n = 2000
+    prompt = rng.integers(0, vocab, n).tolist()
+    blocks = list(range(1, (n + bs - 1) // bs + 1))
+
+    def chunked_ttft(r):
+        C = r.prefill_chunk_tokens
+        for s in range(0, n, C):
+            out = r.prefill_chunk(prompt[s:s + C], s, n, blocks, 0.0, 1.0, 0)
+        return r.fetch_sample(out)
+
+    # the default path's runners (the fused bf16 one does not chunk)
+    chunkers = {"bf16": bf16_chunked_runner, "int8": int8_runner}
+    ttft = {"bf16": [], "int8": []}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        chunked_ttft(chunkers[name])
+        for _ in range(3):
+            t0 = time.perf_counter()
+            chunked_ttft(chunkers[name])
+            ttft[name].append((time.perf_counter() - t0) * 1e3)
+    ttft = {k: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                "device_ms": device_ms_per_call(torch, lambda: chunked_ttft(chunkers[k]), calls=2)}
+            for k, v in ttft.items()}
+    # the unfused products of one step: the MLP's three per layer and lm_head
+    flush = make_flush(torch)
+    share = {}
+    for name, r in runners.items():
+        lay, p = r.params["layers"][0], r.params
+        h = torch.randn(B, HIDDEN, device="cuda").to(torch.bfloat16)
+        a = torch.randn(B, LLAMA31_8B["intermediate_size"], device="cuda").to(torch.bfloat16)
+        t_mlp = sum(time_ms(torch, lambda w=lay[k], x=x: linear(x, w), flush=flush)["median"]
+                    for k, x in (("wg", h), ("wu", h), ("wd", a)))
+        t_head = time_ms(torch, lambda: linear(h, p["lm_head"]), flush=flush)["median"]
+        total = layers * t_mlp + t_head
+        share[name] = {"mlp_ms_per_layer": t_mlp, "lm_head_ms": t_head, "step_ms": total,
+                       "share_of_step_device": total / decode[name]["device_ms"]}
+    # where the step's host time goes: the CPU self time per op over a whole
+    # step, then the host time of one call of the step's cache write (one
+    # layer's K and V, 32 calls a step) and of the unfused products
+    # (3 x 32 MLP products and lm_head), each alone
+    host = {}
+    for name, r in runners.items():
+        lay, p = r.params["layers"][0], r.params
+        h = torch.randn(B, HIDDEN, device="cuda").to(torch.bfloat16)
+        a = torch.randn(B, LLAMA31_8B["intermediate_size"], device="cuda").to(torch.bfloat16)
+        kv = torch.randn(B, r.config.num_kv_heads, r.config.head_dim, device="cuda").to(torch.bfloat16)
+        sl = torch.from_numpy(slots).cuda()
+        kl, vl = kv_quant.cache_layer(r.k_cache, 0), kv_quant.cache_layer(r.v_cache, 0)
+        w_ms = host_ms(torch, lambda: write_decode_kv(kl, vl, kv, kv, sl))
+        mlp_ms = sum(host_ms(torch, lambda w=lay[k], x=x: linear(x, w))
+                     for k, x in (("wg", h), ("wu", h), ("wd", a)))
+        head_ms = host_ms(torch, lambda: linear(h, p["lm_head"]))
+        step_host = host_ms(torch, lambda: r.decode(toks, pos, tables, slots, zeros, ones, kz), reps=5)
+        host[name] = {"step_launch_ms": step_host, "write_ms_per_layer": w_ms,
+                      "write_ms_per_step": layers * w_ms, "mlp_linear_ms_per_layer": mlp_ms,
+                      "lm_head_ms": head_ms, "linear_ms_per_step": layers * mlp_ms + head_ms,
+                      "profile": host_ops(torch, lambda: step(r))}
+    res = {"decode_step_ms_B8_fused": decode, "ttft_ms_alone_chunked_2000": ttft,
+           "unfused_linear": share, "host_ms": host}
+    print(json.dumps({"engine_time_int8": res, "card": card}), flush=True)
+    log(f"int8 vs bf16, fused B=8 step at 1024: wall {decode['int8']['median']:.2f} / "
+        f"{decode['bf16']['median']:.2f} ms, device {decode['int8']['device_ms']:.2f} / "
+        f"{decode['bf16']['device_ms']:.2f} ms; #1 per launch "
+        f"{decode['int8']['decode_attention']['us_per_launch']} / "
+        f"{decode['bf16']['decode_attention']['us_per_launch']} us; #4 per layer "
+        f"{decode['int8']['qkv_head']['us_per_layer']} / {decode['bf16']['qkv_head']['us_per_layer']} us")
+    log(f"int8 vs bf16, 2000-token TTFT through 4 chunks: {ttft['int8']['median']:.2f} / "
+        f"{ttft['bf16']['median']:.2f} ms wall, {ttft['int8']['device_ms']:.2f} / "
+        f"{ttft['bf16']['device_ms']:.2f} ms device; the unfused products (MLP x 32 + lm_head) "
+        f"{share['int8']['step_ms']:.2f} / {share['bf16']['step_ms']:.2f} ms, "
+        f"{100 * share['int8']['share_of_step_device']:.1f}% / "
+        f"{100 * share['bf16']['share_of_step_device']:.1f}% of the step's device time ({card})")
+    log(f"int8 vs bf16, host ms of the B=8 fused step: launch {host['int8']['step_launch_ms']:.2f} / "
+        f"{host['bf16']['step_launch_ms']:.2f}; cache writes {host['int8']['write_ms_per_step']:.2f} / "
+        f"{host['bf16']['write_ms_per_step']:.2f}; unfused products "
+        f"{host['int8']['linear_ms_per_step']:.2f} / {host['bf16']['linear_ms_per_step']:.2f} ({card})")
     return res
 
 
@@ -2173,6 +2758,7 @@ def main() -> int:
 
         # 3. parity
         errs = phase_parity(torch)
+        errs.update(phase_parity_int8(torch))
 
         # 4. serve and 5. serve_spec (each path's counters set to 0 just
         # before it, read just after)
@@ -2185,24 +2771,33 @@ def main() -> int:
         default = phase_serve_default(torch, np, card, engine.runner.params)
         default_engine = default.pop("engine")
         phase_checkpoint(torch, np, card)
+        # 9. serve_int8 (each of its two runs' counters set to 0 just before
+        # it, read just after)
+        int8 = phase_serve_int8(torch, np, card, engine.runner.num_blocks,
+                                served["engine_peak_mem_bytes"])
+        int8_runner = int8.pop("runner")
         # each kernel's launches on the path that owns it: decode (#1) on
         # the default path, prefill (#3) on the chunking-off serve path, the
-        # other three on the spec path
+        # other three on the spec path, the int8 modes on serve_int8's two
+        # runs (default path, then spec)
         launches = {
             **served["launches"],
             **{k: spec["launches"][k] for k in SPEC_KERNELS},
             "paged_decode_attention": default["launches"]["paged_decode_attention"],
+            **{k: int8["launches_both"][k] for k in INT8_KERNELS},
         }
 
         # 8. times
         phase_engine_times(torch, np, engine, fused_runner, card)
         admission_times(torch, np, default_engine, card)
+        int8_engine_times(torch, np, int8_runner, fused_runner, default_engine.runner, card)
         rows = phase_kernel_times(torch, card)
+        rows.update(phase_kernel_times_int8(torch, card))
         log(f"peak device memory during serve: {served['peak_mem_bytes'] / 1e9:.2f} GB")
 
-        # 9. serve_http: the CLI's HTTP server in a process of its own, so
+        # 10. serve_http: the CLI's HTTP server in a process of its own, so
         # this process's engines leave the card first
-        del engine, default_engine, fused_runner, spec, served, default
+        del engine, default_engine, fused_runner, spec, served, default, int8_runner, int8
         gc.collect()
         torch.cuda.empty_cache()
         log(f"device memory held before the server starts: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -2214,19 +2809,24 @@ def main() -> int:
         print(f"[chip_smoke] FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
 
+    # the int8 modes replace the same Pallas kernels' int8 branches
     replaces = {
         "paged_decode_attention": "dynamo_tpu/ops/pallas_attention.py:231",
         "flash_prefill_attention": "dynamo_tpu/ops/pallas_attention.py:554",
         "paged_verify_attention": "dynamo_tpu/ops/pallas_attention.py:452",
         "fused_qkv_rope": "dynamo_tpu/ops/linear.py:206",
         "fused_attn_out_residual": "dynamo_tpu/ops/linear.py:334",
+        "paged_decode_attention_int8": "dynamo_tpu/ops/pallas_attention.py:231",
+        "paged_verify_attention_int8": "dynamo_tpu/ops/pallas_attention.py:452",
+        "fused_qkv_rope_int8": "dynamo_tpu/ops/linear.py:206",
+        "fused_attn_out_residual_int8": "dynamo_tpu/ops/linear.py:334",
     }
     kernels = []
     for name, replaced in replaces.items():
         # the fused heads' row is at the verify step's shape (M = 32)
         row = rows.get(name) or rows[f"{name}/M32"]
         kernels.append({
-            "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{name.removesuffix('_int8')}.cu",
             "replaces": replaced, "launches": launches[name],
             "max_abs_err": errs[name], "ms": row["ms"]["median"],
             "plain_ms": row["plain_ms"]["median"],

@@ -1,15 +1,17 @@
 // Fused attention-output projection + residual add for Hopper (sm_90a),
-// bf16 weights and activations, f32 accumulation, one launch.
+// bf16 activations, bf16 weights or int8 weights with per-output-channel
+// bf16 scales, f32 accumulation, one launch. Both modes are instantiations
+// of one kernel (kInt8), each with its own entry point below.
 //
 // Replaces: dynamo_tpu/ops/linear.py::fused_attn_out_residual (kernel body
-// _fused_out_kernel, partial_out=False). For M rows:
-//   out = x + bf16(attn @ wo)
-// with the product accumulated in f32, cast to bf16, and the residual added
-// after the cast, in bf16 (linear.py:327-331).
+// _fused_out_kernel, partial_out=False, both modes). For M rows:
+//   out = x + bf16(attn @ wo)          int8: x + bf16((attn @ q) * s)
+// with the product accumulated in f32, (the scale applied in f32,) cast to
+// bf16, and the residual added after the cast, in bf16 (linear.py:327-331).
 //
 // What bounds it on an H100: weight bytes. wo is 4096 x 4096 bf16 =
-// 33.6 MB per layer at Llama-3.1-8B width, 10.0 us at 3.35 TB/s; the
-// product does 2 * M flops per two weight bytes.
+// 33.6 MB per layer at Llama-3.1-8B width, 10.0 us at 3.35 TB/s (int8:
+// 16.8 MB, 5.0 us); the product does 2 * M flops per weight.
 //
 // Design (one launch, no f32 partials in device memory):
 //   * the grid is 64-column tiles x kSplits contraction splits (x row
@@ -31,16 +33,22 @@
 //   * the shape was chosen on the H100 among 64 / 128 columns, 2 / 4 / 8
 //     splits and 2-8 stages: the cluster barrier waits for the slowest
 //     rank, so fewer, longer splits win, and deeper rings lose (more
-//     requests in flight than the memory serves faster).
-// Not yet (later work): int8 weights (A9); the raw f32 partial_out mode of
-// the tensor-parallel path (A12).
+//     requests in flight than the memory serves faster);
+//   * the int8 mode (kInt8) streams the int8 weight tiles by TMA (half the
+//     bytes, unswizzled) into their own ring; after each lands, the
+//     consumer warps widen it to bf16 (exact: |q| <= 127) into the bf16
+//     slot in the swizzled layout the product reads, and meet at a barrier
+//     before the product; the split-K sum is multiplied by the channel's
+//     scale in f32 before the cast and the residual add.
+// Not yet (later work): the raw f32 partial_out mode of the tensor-parallel
+// path (A9).
 #include <cooperative_groups.h>
 
 #include "hopper_common.cuh"
 
-namespace cg = cooperative_groups;
+namespace oproj {
 
-namespace {
+namespace cg = cooperative_groups;
 
 constexpr int kCols = 64;                  // output columns per block
 constexpr int kBoxes = kCols / 64;         // 64-column (128-byte) TMA boxes per weight tile
@@ -52,27 +60,34 @@ constexpr int kConsumers = 128;            // 4 warps, kCols / 4 output columns 
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kNT = kCols / 4 / 8;         // n8 tiles per consumer warp
 constexpr int kWBytes = kKC * kCols * 2;   // one weight tile: kBoxes boxes of [kKC][64]
+constexpr int kQBytes = kKC * kCols;       // one int8 weight tile (int8 mode)
 static_assert(kCols % 64 == 0 && kNT % 2 == 0 && kCols % kSplits == 0, "tile shape");
 
+__device__ __forceinline__ void consumers_sync() {  // the consumer warps only
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
 // shared memory, byte offsets from a 1024-aligned base (swizzle atoms)
-template <int MT>  // 16-row m tiles per row group: 1..4
+template <int MT, bool kInt8>  // 16-row m tiles per row group: 1..4
 struct OutLayout {
   static constexpr int kABytes = MT * 16 * kKC * 2;  // attn slice [MT*16 rows][64]
-  static constexpr int kW = 0;
+  static constexpr int kW = 0;                       // bf16 weight tiles (int8: widened)
   static constexpr int kA = kW + kStages * kWBytes;
-  static constexpr int kRed = kA + kStages * kABytes;  // f32 partial tile [MT*16][kCols]
+  static constexpr int kQ = kA + kStages * kABytes;  // int8 mode: the int8 weight tiles
+  static constexpr int kRed = kQ + (kInt8 ? kStages * kQBytes : 0);  // f32 partial tile [MT*16][kCols]
   static constexpr int kBar = kRed + MT * 16 * kCols * 4;
   static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;
 };
 
-template <int MT>
+template <int MT, bool kInt8>
 __global__ void __cluster_dims__(1, kSplits, 1) __launch_bounds__(kThreads)
 out_proj_residual_kernel(const __grid_constant__ CUtensorMap tm_a,  // attn [M, K], box (64, MT*16)
                          const __grid_constant__ CUtensorMap tm_w,  // wo [K, H], box (64, 64)
                          const __nv_bfloat16* __restrict__ x,       // [M, H]
+                         const __nv_bfloat16* __restrict__ wscale,  // int8 mode: [H]; else null
                          __nv_bfloat16* __restrict__ out,           // [M, H]
                          int M, int K, int H) {
-  using L = OutLayout<MT>;
+  using L = OutLayout<MT, kInt8>;
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.block_rank());
   const int col0 = blockIdx.x * kCols;
@@ -103,10 +118,15 @@ out_proj_residual_kernel(const __grid_constant__ CUtensorMap tm_a,  // attn [M, 
         const int st = i % kStages;
         const int k0 = (c_begin + i) * kKC;
         mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(full + st, kWBytes + L::kABytes);
-        for (int b = 0; b < kBoxes; ++b)
-          tma_load_2d(smem + L::kW + st * kWBytes + b * kKC * 128, &tm_w, full + st,
-                      col0 + b * 64, k0);
+        mbar_expect_tx(full + st, (kInt8 ? kQBytes : kWBytes) + L::kABytes);
+        for (int b = 0; b < kBoxes; ++b) {
+          if constexpr (kInt8)
+            tma_load_2d(smem + L::kQ + st * kQBytes + b * kKC * 64, &tm_w, full + st,
+                        col0 + b * 64, k0);
+          else
+            tma_load_2d(smem + L::kW + st * kWBytes + b * kKC * 128, &tm_w, full + st,
+                        col0 + b * 64, k0);
+        }
         tma_load_2d(smem + L::kA + st * L::kABytes, &tm_a, full + st, k0, row0);
       }
     }
@@ -123,6 +143,23 @@ out_proj_residual_kernel(const __grid_constant__ CUtensorMap tm_a,  // attn [M, 
     for (int i = 0; i < n; ++i) {
       const int st = i % kStages;
       mbar_wait(full + st, (i / kStages) & 1);
+      if constexpr (kInt8) {
+        // the int8 tile -> bf16 into this stage's bf16 slot, in the swizzled
+        // layout TMA would have written; 16 columns per item
+        const unsigned char* q8 = smem + L::kQ + st * kQBytes;
+        unsigned char* w16 = smem + L::kW + st * kWBytes;
+        for (int j = tid; j < kBoxes * kKC * 4; j += kConsumers) {
+          const int b = j / (kKC * 4);
+          const int r = (j >> 2) % kKC;
+          const int g = j & 3;
+          uint4 lo, hi;
+          i8x16_to_bf16x16(*reinterpret_cast<const uint4*>(q8 + b * kKC * 64 + r * 64 + g * 16),
+                           lo, hi);
+          *reinterpret_cast<uint4*>(w16 + b * kKC * 128 + swz128(r, 2 * g)) = lo;
+          *reinterpret_cast<uint4*>(w16 + b * kKC * 128 + swz128(r, 2 * g + 1)) = hi;
+        }
+        consumers_sync();  // the whole tile is widened
+      }
       __syncwarp();  // ldmatrix / mma need the warp converged
       const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);
       const uint32_t sa = smem_u32(smem + L::kA + st * L::kABytes);
@@ -178,6 +215,7 @@ out_proj_residual_kernel(const __grid_constant__ CUtensorMap tm_a,  // attn [M, 
 #pragma unroll
     for (int q = 0; q < kSplits; ++q) s = __fadd_rn(s, cluster.map_shared_rank(red, q)[r * kCols + c]);
     const size_t o = (size_t)(row0 + r) * H + col0 + c;
+    if constexpr (kInt8) s = __fmul_rn(s, __bfloat162float(wscale[col0 + c]));  // f32, before the cast
     const float y = __bfloat162float(__float2bfloat16(s));
     out[o] = __float2bfloat16(__fadd_rn(__bfloat162float(x[o]), y));
   }
@@ -185,43 +223,65 @@ out_proj_residual_kernel(const __grid_constant__ CUtensorMap tm_a,  // attn [M, 
   cluster.sync();
 }
 
-template <int MT>
-cudaError_t launch(const void* attn, const void* wo, const void* x, void* out, int M, int K, int H,
-                   cudaStream_t stream) {
-  using L = OutLayout<MT>;
+template <int MT, bool kInt8>
+cudaError_t launch(const void* attn, const void* wo, const void* wscale, const void* x, void* out,
+                   int M, int K, int H, cudaStream_t stream) {
+  using L = OutLayout<MT, kInt8>;
   // the tensor maps carry the pointers and M, so they are built per call
   CUtensorMap ta, tw;
   const cuuint64_t da[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t sa[1] = {(cuuint64_t)K * 2};
   const cuuint32_t ba[2] = {kKC, MT * 16};
   const cuuint64_t dw[2] = {(cuuint64_t)H, (cuuint64_t)K};
-  const cuuint64_t sw[1] = {(cuuint64_t)H * 2};
+  const cuuint64_t sw[1] = {(cuuint64_t)H * (kInt8 ? 1 : 2)};
   const cuuint32_t bw[2] = {64, kKC};
   int err = make_tensor_map_bf16(&ta, attn, 2, da, sa, ba);
-  if (!err) err = make_tensor_map_bf16(&tw, wo, 2, dw, sw, bw);
+  if (!err)
+    err = kInt8 ? make_tensor_map_i8(&tw, wo, 2, dw, sw, bw)
+                : make_tensor_map_bf16(&tw, wo, 2, dw, sw, bw);
   if (err) return static_cast<cudaError_t>(err);
   const cudaError_t e = cudaFuncSetAttribute(
-      out_proj_residual_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      out_proj_residual_kernel<MT, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid(H / kCols, kSplits, (M + kRowGroup - 1) / kRowGroup);
-  out_proj_residual_kernel<MT><<<grid, kThreads, L::kBytes, stream>>>(
-      ta, tw, static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), M, K, H);
+  out_proj_residual_kernel<MT, kInt8><<<grid, kThreads, L::kBytes, stream>>>(
+      ta, tw, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wscale),
+      static_cast<__nv_bfloat16*>(out), M, K, H);
   return cudaGetLastError();
 }
 
-}  // namespace
+// out = x + bf16(attn @ wo) (int8: x + bf16((attn @ wo) * wscale)), attn
+// [M, K], wo [K, H] (bf16, or int8 with bf16 scales [H]), x / out [M, H],
+// all 16-byte aligned; K a multiple of 32, H of 128.
+template <bool kInt8>
+int run(const void* attn, const void* wo, const void* wscale, const void* x, void* out, int M,
+        int K, int H, void* stream) {
+  if (M <= 0 || K <= 0 || K % 32 || H <= 0 || H % 128 || (kInt8 && !wscale))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (std::min((M + 15) / 16, kRowGroup / 16)) {
+    case 1: return launch<1, kInt8>(attn, wo, wscale, x, out, M, K, H, s);
+    case 2: return launch<2, kInt8>(attn, wo, wscale, x, out, M, K, H, s);
+    case 3: return launch<3, kInt8>(attn, wo, wscale, x, out, M, K, H, s);
+    default: return launch<4, kInt8>(attn, wo, wscale, x, out, M, K, H, s);
+  }
+}
+
+}  // namespace oproj
 
 // C entry point bound with ctypes: out = x + bf16(attn @ wo), attn [M, K],
 // wo [K, H], x / out [M, H], all bf16 and 16-byte aligned; K a multiple of
 // 32, H of 128. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_attn_out_residual_bf16(const void* attn, const void* wo, const void* x,
                                             void* out, int M, int K, int H, void* stream) {
-  if (M <= 0 || K <= 0 || K % 32 || H <= 0 || H % 128) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (std::min((M + 15) / 16, kRowGroup / 16)) {
-    case 1: return launch<1>(attn, wo, x, out, M, K, H, s);
-    case 2: return launch<2>(attn, wo, x, out, M, K, H, s);
-    case 3: return launch<3>(attn, wo, x, out, M, K, H, s);
-    default: return launch<4>(attn, wo, x, out, M, K, H, s);
-  }
+  return oproj::run<false>(attn, wo, nullptr, x, out, M, K, H, stream);
+}
+
+// C entry point bound with ctypes: fused_attn_out_residual_bf16's arguments
+// with an int8 wo and its bf16 per-channel scales wscale [H]. Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int fused_attn_out_residual_int8(const void* attn, const void* wo, const void* wscale,
+                                            const void* x, void* out, int M, int K, int H,
+                                            void* stream) {
+  return oproj::run<true>(attn, wo, wscale, x, out, M, K, H, stream);
 }

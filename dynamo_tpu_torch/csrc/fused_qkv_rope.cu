@@ -1,18 +1,21 @@
 // Fused RMSNorm + Q/K/V projections (+ bias) + RoPE for Hopper (sm_90a),
-// bf16 weights and activations, f32 accumulation, one launch.
+// bf16 activations, bf16 weights or int8 weights with per-output-channel
+// bf16 scales, f32 accumulation, one launch. Both modes are instantiations
+// of one kernel (kInt8), each with its own entry point below.
 //
 // Replaces: dynamo_tpu/ops/linear.py::fused_qkv_rope (kernel body
-// _fused_qkv_kernel). For M rows of the residual stream x [M, H] (M = B on
-// a decode step, B * S on a spec-decode verify step):
+// _fused_qkv_kernel, both modes). For M rows of the residual stream
+// x [M, H] (M = B on a decode step, B * S on a spec-decode verify step):
 //   xn = bf16((x * rsqrt(mean(x^2) + eps)) * norm_w)      (f32 inside)
 //   y  = bf16(xn @ [wq | wk | wv])                         (f32 accumulation)
+//        int8: y = bf16((xn @ q) * s), the scale in f32 on the summed product
 //   y  = bf16(y + bias)                                    (Qwen2 only)
 //   q, k = RoPE(y) in f32, cast to bf16; v = y
 // in the reference's op and dtype order (linear.py _finish, _rope_rotate).
 //
 // What bounds it on an H100: weight bytes. At Llama-3.1-8B width the three
-// weights are 4096 x 6144 bf16 = 50.3 MB per layer, 15.0 us at 3.35 TB/s,
-// and the product does only 2 * M flops per two weight bytes.
+// weights are 4096 x 6144 bf16 = 50.3 MB per layer, 15.0 us at 3.35 TB/s
+// (int8: 25.2 MB, 7.5 us), and the product does only 2 * M flops per weight.
 //
 // Design (one launch, no scratch in device memory; after the o-proj kernel,
 // fused_attn_out_residual.cu):
@@ -39,8 +42,8 @@
 //     norm weights staged in shared memory once) before its product; no xn
 //     tensor is written to device memory. Normalising the A
 //     fragments in registers instead, after ldmatrix, saves the rewrite
-//     and the barrier per stage but measured slower (kernel_variants.py,
-//     qkv/register_normalise);
+//     and the barrier per stage but measured slower on the H100
+//     (tools/kernel_variants.py, qkv/register_normalise);
 //   * four consumer warps own 32 output columns each and run mma.sync
 //     m16n8k16 with the rows on M (bytes bound the product, so mma.sync
 //     keeps up), fragments by ldmatrix from the swizzled tiles. Each
@@ -56,19 +59,25 @@
 //     memory, in rank order (deterministic), casts, adds the bias, rotates
 //     q and k in f32 and stores; a last cluster barrier keeps every block
 //     alive until its peers have read it.
+//   * the int8 mode (kInt8) streams the int8 weight boxes by TMA (half the
+//     bytes, unswizzled) into their own landing ring; the consumers widen
+//     each landed box to bf16 (exact: |q| <= 127) into the bf16 ring slot,
+//     in the swizzled layout the product reads, in the same pass that
+//     normalises x, so the product and everything after it are the bf16
+//     mode's; the per-channel scale multiplies the split-K sum in f32
+//     before the bf16 cast, the bias and RoPE (the reference's _finish).
 // Rounding steps use the _rn intrinsics so nvcc contracts nothing into an
 // fma the reference does not do; the kernel and the plain version then
 // differ only in the norm's sum (f64 here) and the product's f32 order.
-// Not yet (later work): int8 weights with per-channel scales (ROADMAP A6),
-// the meshed tensor-parallel form (A9).
+// Not yet (later work): the meshed tensor-parallel form (A9).
 #include <cooperative_groups.h>
 #include <math.h>
 
 #include "hopper_common.cuh"
 
-namespace cg = cooperative_groups;
+namespace qkv {
 
-namespace {
+namespace cg = cooperative_groups;
 
 constexpr int kCols = 128;                 // output columns per block: two 64-column boxes
 constexpr int kPairs = kCols / 2;          // RoPE pairs per tile
@@ -84,15 +93,18 @@ constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kNT = kCols / 4 / 8;         // n8 tiles per consumer warp
 constexpr int kBoxBytes = kKC * 128;       // one [kKC][64] bf16 box
 constexpr int kWBytes = 2 * kBoxBytes;     // one weight tile
+constexpr int kQBoxBytes = kKC * 64;       // one [kKC][64] int8 box (int8 mode)
+constexpr int kQBytes = 2 * kQBoxBytes;    // one int8 weight tile
 static_assert(kPairs % (2 * kSplits) == 0 && kNT % 2 == 0, "tile shape");
 
 // shared memory, byte offsets from a 1024-aligned base (swizzle atoms)
-template <int MT>  // 16-row m tiles per row group: 1..4
+template <int MT, bool kInt8>  // 16-row m tiles per row group: 1..4
 struct QkvLayout {
   static constexpr int kABytes = MT * 16 * kKC * 2;  // x slice [MT*16 rows][64]
-  static constexpr int kW = 0;
+  static constexpr int kW = 0;                       // bf16 weight tiles (int8: widened)
   static constexpr int kA = kW + kStages * kWBytes;
-  static constexpr int kBar = kA + kStages * kABytes;  // the ring ends here
+  static constexpr int kQ = kA + kStages * kABytes;  // int8 mode: the int8 weight tiles
+  static constexpr int kBar = kQ + (kInt8 ? kStages * kQBytes : 0);  // the ring ends here
   static constexpr int kNormW = (kBar + 2 * kStages * 8 + 15) & ~15;  // the split's norm weights
   // bytes for a split of n_chunks contraction chunks
   static constexpr int bytes(int n_chunks) { return kNormW + n_chunks * kKC * 2 + 1024; }
@@ -104,6 +116,7 @@ struct QkvArgs {
   const __nv_bfloat16* x;        // [M, H]
   const __nv_bfloat16* norm_w;   // [H]
   const __nv_bfloat16* bias[3];  // q / k / v biases, all null without
+  const __nv_bfloat16* wscale[3];  // int8 mode: q / k / v per-channel scales
   const float* cos;              // [M, D / 2]
   const float* sin;
   __nv_bfloat16* out[3];         // q [M, Hq * D], k / v [M, Hkv * D]
@@ -130,14 +143,14 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <int MT>
+template <int MT, bool kInt8>
 __global__ void __cluster_dims__(1, kSplits, 1) __launch_bounds__(kThreads)
 fused_qkv_rope_kernel(const __grid_constant__ CUtensorMap tm_x,   // x [M, H], box (64, MT*16)
                       const __grid_constant__ CUtensorMap tm_wq,  // wq [H, Hq*D], box (64, 64)
                       const __grid_constant__ CUtensorMap tm_wk,  // wk [H, Hkv*D]
                       const __grid_constant__ CUtensorMap tm_wv,  // wv [H, Hkv*D]
                       const QkvArgs a) {
-  using L = QkvLayout<MT>;
+  using L = QkvLayout<MT, kInt8>;
   cg::cluster_group cluster = cg::this_cluster();
   const int split = static_cast<int>(cluster.block_rank());
   const int row0 = blockIdx.z * kRowGroup;
@@ -201,10 +214,10 @@ fused_qkv_rope_kernel(const __grid_constant__ CUtensorMap tm_x,   // x [M, H], b
         const int st = i % kStages;
         const int k0 = (c_begin + i) * kKC;
         mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);  // the first round passes at once
-        mbar_expect_tx(full + st, kWBytes + L::kABytes);
-        unsigned char* w = smem + L::kW + st * kWBytes;
+        mbar_expect_tx(full + st, (kInt8 ? kQBytes : kWBytes) + L::kABytes);
+        unsigned char* w = kInt8 ? smem + L::kQ + st * kQBytes : smem + L::kW + st * kWBytes;
         tma_load_2d(w, tm_w, full + st, c0, k0);
-        tma_load_2d(w + kBoxBytes, tm_w, full + st, c1, k0);
+        tma_load_2d(w + (kInt8 ? kQBoxBytes : kBoxBytes), tm_w, full + st, c1, k0);
         tma_load_2d(smem + L::kA + st * L::kABytes, &tm_x, full + st, k0, row0);
       }
     }
@@ -318,8 +331,24 @@ fused_qkv_rope_kernel(const __grid_constant__ CUtensorMap tm_x,   // x [M, H], b
         }
         *p = u;
       }
+      if constexpr (kInt8) {
+        // the int8 weight boxes -> bf16, into this stage's bf16 slot in the
+        // swizzled layout TMA would have written; 16 columns per item
+        const unsigned char* q8 = smem + L::kQ + st * kQBytes;
+        unsigned char* w16 = smem + L::kW + st * kWBytes;
+        for (int j = tid; j < 2 * kKC * 4; j += kConsumers) {
+          const int b = j / (kKC * 4);
+          const int r = (j >> 2) % kKC;
+          const int g = j & 3;
+          uint4 lo, hi;
+          i8x16_to_bf16x16(*reinterpret_cast<const uint4*>(q8 + b * kQBoxBytes + r * 64 + g * 16),
+                           lo, hi);
+          *reinterpret_cast<uint4*>(w16 + b * kBoxBytes + swz128(r, 2 * g)) = lo;
+          *reinterpret_cast<uint4*>(w16 + b * kBoxBytes + swz128(r, 2 * g + 1)) = hi;
+        }
+      }
       fence_proxy_async();  // before a later TMA write refills these bytes
-      consumers_sync();     // every row of xn is in place
+      consumers_sync();     // every row of xn (and the widened weights) is in place
       const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);
       const uint32_t sa = smem_u32(sa_p);
 #pragma unroll
@@ -384,6 +413,7 @@ fused_qkv_rope_kernel(const __grid_constant__ CUtensorMap tm_x,   // x [M, H], b
   constexpr int kPer = kPairs / kSplits;
   const int half = D / 2;
   const __nv_bfloat16* bias = a.bias[seg];
+  const __nv_bfloat16* wscale = a.wscale[seg];
   // two adjacent pairs per item: float2 loads from the peers, bf16x2 stores
   for (int i = tid; i < rows * (kPer / 2); i += kThreads) {
     const int r = i / (kPer / 2);
@@ -411,6 +441,12 @@ fused_qkv_rope_kernel(const __grid_constant__ CUtensorMap tm_x,   // x [M, H], b
     }
     const int col1 = lo < 64 ? c0 + lo : c1 + lo - 64;
     const int col2 = hi < 64 ? c0 + hi : c1 + hi - 64;
+    if constexpr (kInt8) {  // the per-channel scale, in f32, before the cast
+      const float2 w1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(wscale + col1));
+      const float2 w2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(wscale + col2));
+      s1 = make_float2(__fmul_rn(s1.x, w1.x), __fmul_rn(s1.y, w1.y));
+      s2 = make_float2(__fmul_rn(s2.x, w2.x), __fmul_rn(s2.y, w2.y));
+    }
     float2 y1 = make_float2(bf16_round(s1.x), bf16_round(s1.y));
     float2 y2 = make_float2(bf16_round(s2.x), bf16_round(s2.y));
     if (bias != nullptr) {
@@ -440,10 +476,10 @@ fused_qkv_rope_kernel(const __grid_constant__ CUtensorMap tm_x,   // x [M, H], b
   cluster_wait();
 }
 
-template <int MT>
+template <int MT, bool kInt8>
 cudaError_t launch(const void* wq, const void* wk, const void* wv, const QkvArgs& a,
                    cudaStream_t stream) {
-  using L = QkvLayout<MT>;
+  using L = QkvLayout<MT, kInt8>;
   // the tensor maps carry the pointers and M, so they are built per call
   CUtensorMap tx, tw[3];
   const cuuint64_t dx[2] = {(cuuint64_t)a.H, (cuuint64_t)a.M};
@@ -453,37 +489,36 @@ cudaError_t launch(const void* wq, const void* wk, const void* wv, const QkvArgs
   const void* ws[3] = {wq, wk, wv};
   for (int s = 0; s < 3 && !err; ++s) {
     const cuuint64_t dw[2] = {(cuuint64_t)a.width[s], (cuuint64_t)a.H};
-    const cuuint64_t sw[1] = {(cuuint64_t)a.width[s] * 2};
+    const cuuint64_t sw[1] = {(cuuint64_t)a.width[s] * (kInt8 ? 1 : 2)};
     const cuuint32_t bw[2] = {64, kKC};
-    err = make_tensor_map_bf16(&tw[s], ws[s], 2, dw, sw, bw);
+    err = kInt8 ? make_tensor_map_i8(&tw[s], ws[s], 2, dw, sw, bw)
+                : make_tensor_map_bf16(&tw[s], ws[s], 2, dw, sw, bw);
   }
   if (err) return static_cast<cudaError_t>(err);
   const int chunks = (a.H + kKC - 1) / kKC;
   const int bytes = L::bytes((chunks + kSplits - 1) / kSplits);  // the longest split's
   const cudaError_t e = cudaFuncSetAttribute(
-      fused_qkv_rope_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      fused_qkv_rope_kernel<MT, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   const int tiles = (a.width[0] + a.width[1] + a.width[2]) / kCols;
   const dim3 grid(tiles, kSplits, (a.M + kRowGroup - 1) / kRowGroup);
-  fused_qkv_rope_kernel<MT><<<grid, kThreads, bytes, stream>>>(tx, tw[0], tw[1], tw[2], a);
+  fused_qkv_rope_kernel<MT, kInt8><<<grid, kThreads, bytes, stream>>>(tx, tw[0], tw[1], tw[2], a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point bound with ctypes. x [M, H], norm_w [H], wq [H, Hq * D],
-// wk / wv [H, Hkv * D], q [M, Hq * D], k / v [M, Hkv * D], the biases
-// (all null, or [Hq * D] / [Hkv * D]) bf16; cos / sin [M, D / 2] f32; every
-// pointer 16-byte aligned. H a multiple of 8; D 64 or a multiple of 128;
-// Hq * D and Hkv * D multiples of 128. One launch, no scratch. Returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int fused_qkv_rope_bf16(const void* x, const void* norm_w, const void* wq,
-                                   const void* wk, const void* wv, const void* bq,
-                                   const void* bk, const void* bv, const float* cos_t,
-                                   const float* sin_t, void* q, void* k, void* v, int M, int H,
-                                   int Hq, int Hkv, int D, float eps, void* stream) {
+// Checks the shapes, fills the arguments and launches the row-group size's
+// instantiation. x [M, H], norm_w [H], wq [H, Hq * D], wk / wv [H, Hkv * D]
+// (bf16, or int8 with bf16 scales [Hq * D] / [Hkv * D]), q [M, Hq * D],
+// k / v [M, Hkv * D], the biases (all null, or [Hq * D] / [Hkv * D]) bf16;
+// cos / sin [M, D / 2] f32; every pointer 16-byte aligned. H a multiple of
+// 8; D 64 or a multiple of 128; Hq * D and Hkv * D multiples of 128.
+template <bool kInt8>
+int run(const void* x, const void* norm_w, const void* wq, const void* wk, const void* wv,
+        const void* sq, const void* sk, const void* sv, const void* bq, const void* bk,
+        const void* bv, const float* cos_t, const float* sin_t, void* q, void* k, void* v, int M,
+        int H, int Hq, int Hkv, int D, float eps, void* stream) {
   if (M <= 0 || H <= 0 || H % 8 || !(D == 64 || (D > 0 && D % 128 == 0)) || Hq <= 0 ||
-      Hkv <= 0 || (Hq * D) % kCols || (Hkv * D) % kCols)
+      Hkv <= 0 || (Hq * D) % kCols || (Hkv * D) % kCols || (kInt8 && (!sq || !sk || !sv)))
     return cudaErrorInvalidValue;
   QkvArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -491,6 +526,9 @@ extern "C" int fused_qkv_rope_bf16(const void* x, const void* norm_w, const void
   a.bias[0] = static_cast<const __nv_bfloat16*>(bq);
   a.bias[1] = static_cast<const __nv_bfloat16*>(bk);
   a.bias[2] = static_cast<const __nv_bfloat16*>(bv);
+  a.wscale[0] = static_cast<const __nv_bfloat16*>(sq);
+  a.wscale[1] = static_cast<const __nv_bfloat16*>(sk);
+  a.wscale[2] = static_cast<const __nv_bfloat16*>(sv);
   a.cos = cos_t;
   a.sin = sin_t;
   a.out[0] = static_cast<__nv_bfloat16*>(q);
@@ -504,9 +542,40 @@ extern "C" int fused_qkv_rope_bf16(const void* x, const void* norm_w, const void
   a.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (std::min((M + 15) / 16, kRowGroup / 16)) {
-    case 1: return launch<1>(wq, wk, wv, a, s);
-    case 2: return launch<2>(wq, wk, wv, a, s);
-    case 3: return launch<3>(wq, wk, wv, a, s);
-    default: return launch<4>(wq, wk, wv, a, s);
+    case 1: return launch<1, kInt8>(wq, wk, wv, a, s);
+    case 2: return launch<2, kInt8>(wq, wk, wv, a, s);
+    case 3: return launch<3, kInt8>(wq, wk, wv, a, s);
+    default: return launch<4, kInt8>(wq, wk, wv, a, s);
   }
+}
+
+}  // namespace qkv
+
+// C entry point bound with ctypes. x [M, H], norm_w [H], wq [H, Hq * D],
+// wk / wv [H, Hkv * D], q [M, Hq * D], k / v [M, Hkv * D], the biases
+// (all null, or [Hq * D] / [Hkv * D]) bf16; cos / sin [M, D / 2] f32; every
+// pointer 16-byte aligned. H a multiple of 8; D 64 or a multiple of 128;
+// Hq * D and Hkv * D multiples of 128. One launch, no scratch. Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int fused_qkv_rope_bf16(const void* x, const void* norm_w, const void* wq,
+                                   const void* wk, const void* wv, const void* bq,
+                                   const void* bk, const void* bv, const float* cos_t,
+                                   const float* sin_t, void* q, void* k, void* v, int M, int H,
+                                   int Hq, int Hkv, int D, float eps, void* stream) {
+  return qkv::run<false>(x, norm_w, wq, wk, wv, nullptr, nullptr, nullptr, bq, bk, bv, cos_t,
+                         sin_t, q, k, v, M, H, Hq, Hkv, D, eps, stream);
+}
+
+// C entry point bound with ctypes: fused_qkv_rope_bf16's arguments with
+// int8 wq / wk / wv and their bf16 per-channel scales sq [Hq * D],
+// sk / sv [Hkv * D]. Returns cudaGetLastError() after the launch
+// (0 = launched).
+extern "C" int fused_qkv_rope_int8(const void* x, const void* norm_w, const void* wq,
+                                   const void* wk, const void* wv, const void* sq,
+                                   const void* sk, const void* sv, const void* bq,
+                                   const void* bk, const void* bv, const float* cos_t,
+                                   const float* sin_t, void* q, void* k, void* v, int M, int H,
+                                   int Hq, int Hkv, int D, float eps, void* stream) {
+  return qkv::run<true>(x, norm_w, wq, wk, wv, sq, sk, sv, bq, bk, bv, cos_t, sin_t, q, k, v, M,
+                        H, Hq, Hkv, D, eps, stream);
 }

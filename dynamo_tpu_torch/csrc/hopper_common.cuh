@@ -1,8 +1,9 @@
 // Building blocks shared by the port's tensor-core kernels
 // (flash_prefill_attention.cu, fused_qkv_rope.cu, fused_attn_out_residual.cu,
 // paged_attention.cuh): bf16 mma.sync with f32 accumulators, ldmatrix
-// fragment loads, and Hopper's asynchronous machinery -- mbarriers, 1-D
-// bulk copies, TMA tensor copies and the host-side tensor maps they read.
+// fragment loads, the exact int8 -> bf16 widening of the int8 modes, and
+// Hopper's asynchronous machinery -- mbarriers, 1-D bulk copies, TMA tensor
+// copies and the host-side tensor maps they read.
 // Everything here is inline or a template, so each library that includes it
 // carries its own copy.
 #pragma once
@@ -93,15 +94,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Host: a bf16 tensor map with 128-byte swizzle (the layout wgmma and the
-// swizzled ldmatrix addressing below expect). dims and box innermost first;
-// strides[i] is the byte stride of dimension i + 1. cuTensorMapEncodeTiled
-// is a driver-API function: it is looked up in the driver library that the
-// CUDA runtime has already loaded, so no library links against libcuda.
-// Returns 0, or the cudaError_t to report.
-inline int make_tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
-                                const cuuint64_t* dims, const cuuint64_t* strides,
-                                const cuuint32_t* box) {
+// Host: a tensor map of `type` elements with the given swizzle. dims and
+// box innermost first; strides[i] is the byte stride of dimension i + 1.
+// cuTensorMapEncodeTiled is a driver-API function: it is looked up in the
+// driver library that the CUDA runtime has already loaded, so no library
+// links against libcuda. Returns 0, or the cudaError_t to report.
+inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -114,11 +114,27 @@ inline int make_tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   // out-of-bounds elements of a box read as zeros
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// a bf16 tensor map with 128-byte swizzle (the layout wgmma and the
+// swizzled ldmatrix addressing below expect)
+inline int make_tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                const cuuint64_t* dims, const cuuint64_t* strides,
+                                const cuuint32_t* box) {
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// an int8 tensor map, unswizzled: its boxes land as dense rows
+inline int make_tensor_map_i8(CUtensorMap* map, const void* base, int rank,
+                              const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box) {
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rank, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // Byte offset of 16-byte chunk `chunk` of 128-byte row `row` in a tile that
@@ -171,4 +187,25 @@ __device__ __forceinline__ void ldsm_x4_trans_at(uint32_t (&r)[4], uint32_t a) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four int8 (one word, little-endian) -> four bf16 (two words), exactly:
+// the biased byte u = q + 128 becomes the f32 2^23 + u, minus 2^23 + 128
+// leaves q, whose f32 bits end in 16 zeros (|q| <= 127 has at most 7
+// significant bits), so the high halves are q in bf16
+__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t v) {
+  const uint32_t u = v ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
+}
+
+// sixteen int8 (one 16-byte word) -> sixteen bf16 (two 16-byte words)
+__device__ __forceinline__ void i8x16_to_bf16x16(const uint4& v, uint4& lo, uint4& hi) {
+  const uint2 a = i8x4_to_bf16x4(v.x), b = i8x4_to_bf16x4(v.y);
+  const uint2 c = i8x4_to_bf16x4(v.z), d = i8x4_to_bf16x4(v.w);
+  lo = make_uint4(a.x, a.y, b.x, b.y);
+  hi = make_uint4(c.x, c.y, d.x, d.y);
 }

@@ -1,7 +1,9 @@
-// Paged attention over the head-major bf16 KV cache for Hopper (sm_90a):
-// one page-streaming design, written once, that both paged_decode_attention.cu
-// (one query position per sequence) and paged_verify_attention.cu (the S
-// draft positions of a spec-decode verify pass) instantiate.
+// Paged attention over the head-major KV cache for Hopper (sm_90a): one
+// page-streaming design, written once, that paged_decode_attention.cu (one
+// query position per sequence) and paged_verify_attention.cu (the S draft
+// positions of a spec-decode verify pass) instantiate over a bf16 cache, and
+// paged_decode_attention_int8.cu / paged_verify_attention_int8.cu over an
+// int8-resident one (int8 pages, one f32 scale per (kv head, page)).
 //
 // The work: a (lane b, kv head h) pair has R query rows -- decode R = G, the
 // kv head's GQA group at position base = context_lens[b] - 1; verify R = S * G,
@@ -14,8 +16,9 @@
 // saw no key writes 0.
 //
 // What bounds it on an H100: bytes. A pair reads ctx * D * 2 bytes of K and
-// as many of V and does 4 * R * D flops per key -- 16 flops per 512 bytes for
-// decode at G = 4, D = 128 -- far under the card's ~295 flop/byte ridge. So
+// as many of V (int8: ctx * D and the pages' scales) and does 4 * R * D flops
+// per key -- 16 flops per 512 bytes for decode at G = 4, D = 128 -- far
+// under the card's ~295 flop/byte ridge. So
 // every live K/V row is read once for all R rows, and the copies stay in
 // flight without gaps.
 //
@@ -40,7 +43,8 @@
 //     in one page (a whole page where the stage covers it) is one copy into
 //     unpadded rows. The ldmatrix reads then meet 8-way bank conflicts, but
 //     one copy per key row into padded, conflict-free rows measured slower
-//     (tools/kernel_variants.py, paged/row_copy): 16x the copies cost more;
+//     on the H100 (tools/kernel_variants.py, paged/row_copy): 16x the
+//     copies cost more;
 //   * four consumer warps take 16-key chunks of each stage in turn. Scores
 //     S = Q K^T run on mma.sync m16n8k16 (bf16 inputs, exact products, f32
 //     sums): the R rows are padded to the m16 tile, so no shuffle per key;
@@ -49,6 +53,17 @@
 //     (two products; |error| ~2^-17 of each weight), so the weights keep
 //     their f32 precision and verify at S = 1 equals decode; the second
 //     product costs nothing measurable in this memory-bound loop;
+//   * the int8 mode (kInt8: the cache holds int8 mantissas and one f32
+//     scale per (kv head, page), the reference's quantized=True) keeps all
+//     of the above. Its pages land in the ring as int8, half the bytes. The
+//     producer also writes each stage key's two scales (looked up through
+//     the block table) into shared memory beside the stage. Each consumer
+//     warp widens its own 16-key chunk of K and V to bf16 in a private,
+//     padded tile (exact: |q| <= 127) and runs the bf16 products on it; the
+//     k scale multiplies the chunk's score columns in f32 before the score
+//     scale and softcap, and the v scale multiplies the softmax weights
+//     before their hi / lo split (the softmax sum takes them unscaled), so
+//     each page's scale applies to its own keys however a stage spans pages;
 //   * the four warps' states are merged through shared memory in warp
 //     order. A (pair, tile) with one live split writes bf16 directly;
 //     otherwise each split writes its f32 partial (running max, sum,
@@ -80,8 +95,10 @@ static_assert(kStageKeys % 16 == 0, "a stage is whole 16-key chunks");
 
 struct Params {
   const __nv_bfloat16* q;        // [B, S, Hkv * G, D]
-  const __nv_bfloat16* k_cache;  // [Hkv, num_blocks, block_size, D]
-  const __nv_bfloat16* v_cache;
+  const void* k_cache;           // [Hkv, num_blocks, block_size, D] bf16 (int8 in the int8 mode)
+  const void* v_cache;
+  const float* k_scales;         // int8 mode: [Hkv, num_blocks] f32; else null
+  const float* v_scales;
   const int* tables;             // [B, max_blocks]
   const int* lens;               // decode: context_lens [B]; verify: positions [B, S]
   __nv_bfloat16* out;            // like q
@@ -105,17 +122,34 @@ __host__ __device__ constexpr int ring_stages() {
   return kDecode ? kDecodeStages : (D > 128 ? 2 : kVerifyStages);
 }
 
-template <int D, bool kDecode>
+template <int D, bool kDecode, bool kInt8>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return (size_t)ring_stages<D, kDecode>() * 2 * kStageKeys * row_stride<D>() * 2;
+  return (size_t)ring_stages<D, kDecode>() * 2 * kStageKeys * row_stride<D>() * (kInt8 ? 1 : 2);
 }
 
-template <int D, bool kDecode>
+// int8 mode: each consumer warp's bf16 K and V tiles of its 16-key chunk,
+// rows padded by 16 bytes (ldmatrix reads them without bank conflicts)
+template <int D>
+__host__ __device__ constexpr int private_stride() {
+  return D + 8;
+}
+
+template <int D, bool kDecode, bool kInt8>
+__host__ __device__ constexpr size_t stage_area_bytes() {
+  // the ring, then (int8 mode) the private tiles and each stage's K and V
+  // scales per key
+  return ring_bytes<D, kDecode, kInt8>() +
+         (kInt8 ? (size_t)kConsumers * 2 * 16 * private_stride<D>() * 2 +
+                      (size_t)ring_stages<D, kDecode>() * 2 * kStageKeys * 4
+                : 0);
+}
+
+template <int D, bool kDecode, bool kInt8>
 __host__ __device__ constexpr size_t smem_bytes() {
-  // barriers, the Q tile, then the ring (reused by the warps' merge)
-  constexpr size_t ring = ring_bytes<D, kDecode>();
+  // barriers, the Q tile, then the stage area (reused by the warps' merge)
+  constexpr size_t area = stage_area_bytes<D, kDecode, kInt8>();
   constexpr size_t merge = (size_t)kConsumers * kRows * D * 4;
-  return 128 + (size_t)kRows * row_stride<D>() * 2 + (ring > merge ? ring : merge);
+  return 128 + (size_t)kRows * row_stride<D>() * 2 + (area > merge ? area : merge);
 }
 
 __device__ __forceinline__ void consumers_sync() {  // the consumer warps only
@@ -145,11 +179,14 @@ __device__ __forceinline__ uint32_t bf16_residual(float a, float b, uint32_t hi)
   return pack_bf16(a - r.x, b - r.y);
 }
 
-template <int D, bool kDecode>
+template <int D, bool kDecode, bool kInt8>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params p) {
   constexpr int kS = row_stride<D>();
   constexpr int kStages = ring_stages<D, kDecode>();
-  constexpr int kVec = D / 8;  // 16-byte pieces per row
+  constexpr int kEB = kInt8 ? 1 : 2;  // bytes per cached element
+  constexpr int kRowB = D * kEB;      // bytes per cached K / V row
+  constexpr int kVec = D / 8;         // 16-byte pieces per bf16 row
+  constexpr int kPS = private_stride<D>();
   constexpr bool kQRegs = D <= 128;  // Q fragments in registers (else reloaded per chunk)
   const int pair = blockIdx.x;  // splits outermost: the blocks of split 0 start first
   const int tile = blockIdx.y;
@@ -219,7 +256,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kStages;
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + 128);  // [kRows][kS]
-  __nv_bfloat16* ring = sQ + kRows * kS;  // per stage: K [kStageKeys][kS], V [kStageKeys][kS]
+  // per stage: K [kStageKeys][D], V [kStageKeys][D] as cached (bf16 or int8)
+  unsigned char* ring = smem + 128 + kRows * kS * 2;
+  // int8 mode: the consumer warps' private bf16 tiles, then the scales
+  __nv_bfloat16* priv = reinterpret_cast<__nv_bfloat16*>(ring + ring_bytes<D, kDecode, kInt8>());
+  float* s_scale = reinterpret_cast<float*>(priv + (kInt8 ? kConsumers * 2 * 16 * kPS : 0));
+  // stage st's K scales at s_scale[st * 2 * kStageKeys], its V scales after them
   __shared__ float s_m[kConsumers][kRows];
   __shared__ float s_l[kConsumers][kRows];
   __shared__ int s_last;
@@ -247,34 +289,53 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
     const int bs = p.block_size;
     const int* table = p.tables + (size_t)b * p.max_blocks;
     const size_t head_row0 = (size_t)h * p.num_blocks * bs;  // this head's first cache row
+    const unsigned char* kc = static_cast<const unsigned char*>(p.k_cache);
+    const unsigned char* vc = static_cast<const unsigned char*>(p.v_cache);
     for (int j = 0; j < n_stages; ++j) {
       const int st = j % kStages;
       if (j >= kStages) mbar_wait(&empty[st], ((j / kStages) - 1) & 1);
       const int a = lo + j * kStageKeys;
       const int n = min(hi - a, kStageKeys);
-      __nv_bfloat16* dk = ring + (size_t)st * 2 * kStageKeys * kS;
-      __nv_bfloat16* dv = dk + kStageKeys * kS;
-      if (n < kStageKeys) {
-        // the split's last stage: its dead V rows read as zeros (a weight of
-        // 0 times stale bits could still be NaN on the tensor cores)
-        for (int i = n * kVec + lane; i < kStageKeys * kVec; i += 32)
-          *reinterpret_cast<uint4*>(dv + (i / kVec) * kS + (i % kVec) * 8) = make_uint4(0u, 0u, 0u, 0u);
-        fence_proxy_async();
-      }
-      __syncwarp();
-      if (lane == 0) mbar_expect_tx(&full[st], (uint32_t)n * D * 2 * 2);
-      __syncwarp();
+      unsigned char* dk = ring + (size_t)st * 2 * kStageKeys * kRowB;
+      unsigned char* dv = dk + kStageKeys * kRowB;
       // one copy per run of the stage's rows that lies in one page
       const int pg0 = a / bs;
       const int n_runs = (a + n - 1) / bs - pg0 + 1;
+      if (n < kStageKeys) {
+        // the split's last stage: its dead V rows read as zeros (a weight of
+        // 0 times stale bits could still be NaN on the tensor cores)
+        constexpr int kPieces = kRowB / 16;
+        for (int i = n * kPieces + lane; i < kStageKeys * kPieces; i += 32)
+          *reinterpret_cast<uint4*>(dv + i * 16) = make_uint4(0u, 0u, 0u, 0u);
+        fence_proxy_async();
+      }
+      if constexpr (kInt8) {
+        // each live key's k and v scale (its page's), dead keys' 0: written
+        // before the arrival below, which releases them to the consumers
+        float* sk = s_scale + st * 2 * kStageKeys;
+        for (int i = n + lane; i < kStageKeys; i += 32) sk[i] = sk[kStageKeys + i] = 0.f;
+        for (int i = lane; i < n_runs; i += 32) {
+          const int pg = pg0 + i;
+          const int page = table[min(pg, last_page)];
+          const float ks = p.k_scales[(size_t)h * p.num_blocks + page];
+          const float vs = p.v_scales[(size_t)h * p.num_blocks + page];
+          for (int r = max(a, pg * bs); r < min(a + n, (pg + 1) * bs); ++r) {
+            sk[r - a] = ks;
+            sk[kStageKeys + r - a] = vs;
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_expect_tx(&full[st], (uint32_t)n * kRowB * 2);
+      __syncwarp();
       for (int i = lane; i < n_runs; i += 32) {
         const int pg = pg0 + i;
         const int s0 = max(a, pg * bs);
         const int s1 = min(a + n, (pg + 1) * bs);
         const int page = table[min(pg, last_page)];
-        const size_t src = (head_row0 + (size_t)page * bs + (s0 - pg * bs)) * D;
-        bulk_load(dk + (s0 - a) * kS, p.k_cache + src, (s1 - s0) * D * 2, &full[st]);
-        bulk_load(dv + (s0 - a) * kS, p.v_cache + src, (s1 - s0) * D * 2, &full[st]);
+        const size_t src = (head_row0 + (size_t)page * bs + (s0 - pg * bs)) * kRowB;
+        bulk_load(dk + (s0 - a) * kRowB, kc + src, (s1 - s0) * kRowB, &full[st]);
+        bulk_load(dv + (s0 - a) * kRowB, vc + src, (s1 - s0) * kRowB, &full[st]);
       }
     }
   } else {
@@ -308,17 +369,47 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qa[kk], qrow + kk * 16);
     }
+    __nv_bfloat16* pk = priv + warp * 2 * 16 * kPS;  // int8 mode: this warp's K tile
+    __nv_bfloat16* pv = pk + 16 * kPS;               // ... and V tile
     for (int j = 0; j < n_stages; ++j) {
       const int st = j % kStages;
       mbar_wait(&full[st], (j / kStages) & 1);
       const int a = lo + j * kStageKeys;
       const int n = min(hi - a, kStageKeys);
-      const __nv_bfloat16* sk = ring + (size_t)st * 2 * kStageKeys * kS;
-      const __nv_bfloat16* sv = sk + kStageKeys * kS;
+      const unsigned char* sk = ring + (size_t)st * 2 * kStageKeys * kRowB;
+      const unsigned char* sv = sk + kStageKeys * kRowB;
       for (int c = warp; c * 16 < n; c += kConsumers) {
+        // the chunk's bf16 K and V rows: in the ring (bf16 mode), or widened
+        // from it into this warp's tiles (int8 mode)
+        const __nv_bfloat16* ck;
+        const __nv_bfloat16* cv;
+        int rs;  // their row stride in elements
+        if constexpr (kInt8) {
+          __syncwarp();  // the previous chunk's ldmatrix reads are done
+          constexpr int kPieces = D / 16;  // 16-int8 pieces per row
+#pragma unroll
+          for (int i = lane; i < 16 * kPieces; i += 32) {
+            const int r = i / kPieces;
+            const int col = (i % kPieces) * 16;
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              const uint4 w = *reinterpret_cast<const uint4*>((m ? sv : sk) + (c * 16 + r) * D + col);
+              uint4* dst = reinterpret_cast<uint4*>((m ? pv : pk) + r * kPS + col);
+              i8x16_to_bf16x16(w, dst[0], dst[1]);
+            }
+          }
+          __syncwarp();
+          ck = pk;
+          cv = pv;
+          rs = kPS;
+        } else {
+          ck = reinterpret_cast<const __nv_bfloat16*>(sk) + c * 16 * kS;
+          cv = reinterpret_cast<const __nv_bfloat16*>(sv) + c * 16 * kS;
+          rs = kS;
+        }
         // S = Q K^T: 16 rows x 16 keys, two n8 tiles
         float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        const __nv_bfloat16* kr = sk + (c * 16 + (mat >> 1) * 8 + (lane & 7)) * kS + (mat & 1) * 8;
+        const __nv_bfloat16* kr = ck + ((mat >> 1) * 8 + (lane & 7)) * rs + (mat & 1) * 8;
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           uint32_t qf[4];
@@ -335,8 +426,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
           mma_16816(s[0], qf, bf[0], bf[1]);
           mma_16816(s[1], qf, bf[2], bf[3]);
         }
-        // scale, softcap, causal / window / live mask; the new row maxima
+        // (the int8 mode's k scales,) scale, softcap, causal / window / live
+        // mask; the new row maxima
         const int key0 = a + c * 16;
+        float2 kscl[2], vscl[2];  // this thread's keys' page scales
+        if constexpr (kInt8) {
+          const float* sc = s_scale + st * 2 * kStageKeys + c * 16 + tig * 2;
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            kscl[t] = *reinterpret_cast<const float2*>(sc + t * 8);
+            vscl[t] = *reinterpret_cast<const float2*>(sc + kStageKeys + t * 8);
+          }
+        }
         float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
         for (int t = 0; t < 2; ++t) {
@@ -344,7 +445,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
           for (int e = 0; e < 4; ++e) {
             const int rr = e >> 1;
             const int kpos = key0 + t * 8 + tig * 2 + (e & 1);
-            float x = s[t][e] * p.scale;
+            float x = s[t][e];
+            if constexpr (kInt8) x *= (e & 1) ? kscl[t].y : kscl[t].x;
+            x *= p.scale;
             if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
             const bool ok = row_ok[rr] && kpos < hi && kpos <= qpos[rr] &&
                             (p.window <= 0 || qpos[rr] - kpos < p.window);
@@ -376,8 +479,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
             const int rr = e >> 1;
             // masked keys contribute exactly 0
             const float w = s[t][e] == -INFINITY ? 0.f : expf(s[t][e] - m_run[rr]);
-            s[t][e] = w;
             l_run[rr] += w;
+            // the int8 mode's v scale rides the weight into P V
+            if constexpr (kInt8)
+              s[t][e] = w * ((e & 1) ? vscl[t].y : vscl[t].x);
+            else
+              s[t][e] = w;
           }
         }
         // O += P V: the two n8 score tiles form one 16-key A fragment, P
@@ -388,7 +495,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
                                 bf16_residual(s[0][2], s[0][3], ph[1]),
                                 bf16_residual(s[1][0], s[1][1], ph[2]),
                                 bf16_residual(s[1][2], s[1][3], ph[3])};
-        const __nv_bfloat16* vr = sv + (c * 16 + (mat & 1) * 8 + (lane & 7)) * kS + (mat >> 1) * 8;
+        const __nv_bfloat16* vr = cv + ((mat & 1) * 8 + (lane & 7)) * rs + (mat >> 1) * 8;
 #pragma unroll
         for (int n = 0; n < D / 8; n += 2) {
           uint32_t bf[4];
@@ -528,6 +635,39 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params 
   if (tid == 0) p.tickets[tix] = 0;  // ready for the next call
 }
 
+// The kernel's parameters from the C entry points' arguments (slots is set
+// by launch).
+inline Params make_params(const void* q, const void* k_cache, const void* v_cache,
+                          const float* k_scales, const float* v_scales, const int* tables,
+                          const int* lens, void* out, float* part_acc, float* part_ml,
+                          int* tickets, int S, int G, int Hkv, int num_blocks, int block_size,
+                          int max_blocks, int num_splits, float scale, float softcap,
+                          int window) {
+  Params p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k_cache = k_cache;
+  p.v_cache = v_cache;
+  p.k_scales = k_scales;
+  p.v_scales = v_scales;
+  p.tables = tables;
+  p.lens = lens;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.part_acc = part_acc;
+  p.part_ml = part_ml;
+  p.tickets = tickets;
+  p.S = S;
+  p.G = G;
+  p.Hkv = Hkv;
+  p.num_blocks = num_blocks;
+  p.block_size = block_size;
+  p.max_blocks = max_blocks;
+  p.num_splits = num_splits;
+  p.scale = scale;
+  p.softcap = softcap;
+  p.window = window;
+  return p;
+}
+
 // Splits per (pair, tile), from host-known values only: about kBlocksPerSM
 // blocks per SM if every split were live, and no more splits than the
 // table's reach holds kMinSplitKeys-key pieces. The wrappers size the
@@ -549,9 +689,9 @@ inline int num_splits(int B, int Hkv, int tiles, int max_blocks, int block_size)
   return (int)std::max(1LL, std::min(want, most));
 }
 
-template <int D, bool kDecode>
+template <int D, bool kDecode, bool kInt8 = false>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<D, kDecode>();
+  constexpr size_t kSmem = smem_bytes<D, kDecode, kInt8>();
   static_assert(kSmem <= 232448, "the ring does not fit in shared memory");
   // the attribute belongs to the device's context: set once per device
   static bool attr_set[kMaxDevices];
@@ -559,11 +699,11 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices || !attr_set[dev]) {
-    err = cudaFuncSetAttribute(paged_attention_kernel<D, kDecode>,
+    err = cudaFuncSetAttribute(paged_attention_kernel<D, kDecode, kInt8>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (err != cudaSuccess) return err;
     // all of the SM's unified memory as shared: two blocks on every SM
-    err = cudaFuncSetAttribute(paged_attention_kernel<D, kDecode>,
+    err = cudaFuncSetAttribute(paged_attention_kernel<D, kDecode, kInt8>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
@@ -573,7 +713,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   int n = dev < kMaxDevices ? slots[dev] : 0;
   if (n == 0) {
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_attention_kernel<D, kDecode>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, paged_attention_kernel<D, kDecode, kInt8>,
                                                         kThreads, kSmem);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -584,7 +724,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   Params q = p;
   q.slots = n;
   const int tiles = (p.S * p.G + kRows - 1) / kRows;
-  paged_attention_kernel<D, kDecode>
+  paged_attention_kernel<D, kDecode, kInt8>
       <<<dim3(B * p.Hkv, tiles, p.num_splits), kThreads, kSmem, stream>>>(q);
   return cudaGetLastError();
 }

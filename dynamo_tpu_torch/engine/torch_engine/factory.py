@@ -1,9 +1,10 @@
 """Engine factory: model config (or HF model dir) -> TorchEngine.
 
 Counterpart of dynamo_tpu/engine/jax_engine/factory.py (``build_jax_engine``
-:26-209, ``default_num_blocks`` :411, ``fused_decode_from_env`` and
-``spec_decode_settings`` :281-320) for one device, with the JAX factory's
-default admission path: chunked, packed and mixed-step prefill.
+:26-209, ``default_num_blocks`` :411, ``kv_dtype_from_env``,
+``fused_decode_from_env`` and ``spec_decode_settings`` :271-320, the
+``DYN_JAX_QUANTIZE_INT8`` read at :80-82) for one device, with the JAX
+factory's default admission path: chunked, packed and mixed-step prefill.
 """
 
 from __future__ import annotations
@@ -44,18 +45,40 @@ def default_num_blocks(
     budget_bytes: int = _DEFAULT_BUDGET_BYTES,
     dtype_bytes: int = 2,
     utilization: float = 0.85,
+    quantized: bool = False,
+    kv_dtype: str = "bf16",
 ) -> int:
     """Blocks for every batch lane at full context plus slack, capped so
-    weights + KV fit the device memory budget (the JAX sizing rule)."""
+    weights + KV fit the device memory budget (the JAX sizing rule,
+    factory.py:411-450): int8 weights count the dense parameters at 1 byte,
+    an int8 KV cache 1 byte per value plus a 4-byte scale per (layer, kv
+    head, block) of each of K and V."""
     per_seq = (max_len + block_size - 1) // block_size
     want = max_batch * per_seq + 64
-    weight_bytes = param_count(config) * dtype_bytes
-    block_bytes = (
-        2 * config.num_layers * block_size * config.num_kv_heads
-        * config.head_dim * dtype_bytes
+    weight_bytes = param_count(config) * (1 if quantized else dtype_bytes)
+    int8_kv = kv_dtype == "int8"
+    block_bytes = 2 * (
+        config.num_layers * block_size * config.num_kv_heads * config.head_dim
+        * (1 if int8_kv else dtype_bytes)
+        + (4 * config.num_layers * config.num_kv_heads if int8_kv else 0)
     )
     budget = int(budget_bytes * utilization) - weight_bytes
     return min(want, max(16, budget // block_bytes))
+
+
+def quantize_from_env() -> bool:
+    """DYN_JAX_QUANTIZE_INT8=1: int8 weight-only quantization of the dense
+    projections, read under the JAX factory's name so that one deployment's
+    environment means the same on both packages. Off by default."""
+    return os.environ.get("DYN_JAX_QUANTIZE_INT8", "0") in ("1", "true")
+
+
+def kv_dtype_from_env() -> str:
+    """DYN_KV_DTYPE=int8|bf16 (default bf16): the paged KV cache's form,
+    int8-resident (mantissas + per-(layer, head, block) f32 scales) or
+    bf16, read as the JAX factory reads it."""
+    v = os.environ.get("DYN_KV_DTYPE", "bf16").strip().lower()
+    return "int8" if v == "int8" else "bf16"
 
 
 def fused_decode_from_env() -> bool:
@@ -117,6 +140,8 @@ def build_torch_engine(
     spec_min_coverage: Optional[float] = None,
     params: Optional[dict] = None,
     prefill_chunk_tokens: int = 512,
+    quantize: Optional[bool] = None,
+    kv_dtype: Optional[str] = None,
 ) -> TorchEngine:
     """Build the serving engine on ``device`` (the card unless the caller
     asks for the CPU; raises when a card is asked for and absent).
@@ -142,6 +167,17 @@ def build_torch_engine(
     unset); the drafter's kind and n-gram bounds come from the
     environment.
 
+    The int8 deployment: ``quantize`` (default ``DYN_JAX_QUANTIZE_INT8``)
+    quantizes the dense projections to int8 weight-only (made or loaded in
+    ``dtype``, then quantized; ``params`` given are used as they are), and
+    ``kv_dtype`` (default ``DYN_KV_DTYPE``, "bf16" or "int8") makes the KV
+    cache int8-resident; the KV pool is then sized with both at 1 byte.
+    Unlike the JAX factory, ``kv_block_size`` is not raised to 32 under an
+    int8 cache: that retune serves Mosaic's (32, 128) int8 tile, a TPU
+    limit, and the Hopper kernels take block 16. The KV scale is one per
+    block, so the quantized numbers depend on the block size: compare the
+    two packages at equal block sizes.
+
     On the card, a config whose shapes a kernel of its path would refuse
     raises ValueError here, before any request (and before the card is
     looked for), naming each refusal; nothing falls back to a plain
@@ -152,6 +188,10 @@ def build_torch_engine(
     check_chunk_budget(chunking.chunk_budget, kv_block_size)
     if fused_decode is None:
         fused_decode = fused_decode_from_env()
+    if quantize is None:
+        quantize = quantize_from_env()
+    if kv_dtype is None:
+        kv_dtype = kv_dtype_from_env()
     if torch.device(device).type == "cuda":
         problems = card_shape_problems(cfg, fused_decode)
         if problems:
@@ -165,6 +205,7 @@ def build_torch_engine(
             cfg, max_len, max_batch, block_size=kv_block_size,
             budget_bytes=device_memory_bytes(dev),
             dtype_bytes=torch.empty((), dtype=dtype).element_size(),
+            quantized=quantize, kv_dtype=kv_dtype,
         )
     spec = spec_decode_settings()
     if spec_k is not None:
@@ -172,11 +213,13 @@ def build_torch_engine(
     if spec_min_coverage is not None:
         spec["spec_min_coverage"] = spec_min_coverage
     if params is None:
-        params = load_or_init_params(model_dir, cfg, seed=seed, device=dev, dtype=dtype)
+        params = load_or_init_params(model_dir, cfg, seed=seed, device=dev, dtype=dtype,
+                                     quantize=quantize)
     runner = TorchModelRunner(
         cfg, params, num_blocks=num_blocks, block_size=kv_block_size,
         max_batch=max_batch, max_model_len=max_len, device=dev, rng_seed=seed,
         fused_decode=fused_decode, prefill_chunk_tokens=prefill_chunk_tokens,
+        kv_dtype=kv_dtype,
     )
     return TorchEngine(
         runner,

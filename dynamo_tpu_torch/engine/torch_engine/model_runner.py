@@ -33,6 +33,11 @@ single-device path:
     of a mixed step) through the fused norm+QKV+RoPE and o-proj+residual
     heads (models/llama.py); packed and chunked prefill keep the unfused
     heads, as in the reference;
+  * ``kv_dtype="int8"`` makes the paged cache int8-resident (the
+    reference's ``DYN_KV_DTYPE=int8``, :181-233): int8 mantissas and one
+    f32 scale per (layer, kv head, block), allocated on the device as the
+    ops/kv_quant.py container and handed to every attention call, which
+    takes the kernels' int8 modes; nothing is read back for it;
   * the repetition / frequency / presence penalties and the min_tokens EOS
     mask run on the device before sampling, as the JAX runner's
     ``_sample_one`` (:475-482), ``_decode_pen_impl`` / ``_decode_eos_impl``
@@ -40,7 +45,8 @@ single-device path:
     history goes up only when a lane has penalties.
 
 Not ported yet: the decode horizon (also after a verify pass),
-disaggregated block moves and sharded meshes.
+disaggregated block moves (with their int8 extract / inject) and sharded
+meshes.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.ops import kv_quant
 from dynamo_tpu_torch.ops.sampling import (
     MAX_EOS_IDS,
     apply_penalties,
@@ -106,6 +113,7 @@ class TorchModelRunner:
         rng_seed: int = 0,
         fused_decode: bool = False,
         prefill_chunk_tokens: int = 512,
+        kv_dtype: str = "bf16",
     ) -> None:
         self.device = resolve_device(device)
         self.config = dataclasses.replace(
@@ -125,18 +133,25 @@ class TorchModelRunner:
         chunk = -(-prefill_chunk_tokens // block_size) * block_size
         self.prefill_chunk_tokens = min(chunk, self.prefill_buckets[-1])
         # head-major layout: each (head, page) is a contiguous [bs, D] tile
-        # (what the decode kernel streams); the cache takes the weights' dtype
+        # (what the decode kernel streams); the cache takes the embeddings'
+        # dtype, or is the int8 + scale container
+        kv = kv_dtype.strip().lower()
+        if kv not in ("bf16", "bfloat16", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r} is neither 'bf16' nor 'int8'")
+        self.kv_quantized = kv == "int8"
         shape = (
             config.num_layers, config.num_kv_heads, num_blocks, block_size,
             config.head_dim,
         )
         dtype = params["embed"].dtype
-        self.k_cache = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_cache = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.k_cache = kv_quant.make_cache(
+            shape, dtype, quantized=self.kv_quantized, device=self.device)
+        self.v_cache = kv_quant.make_cache(
+            shape, dtype, quantized=self.kv_quantized, device=self.device)
 
     @property
     def kv_cache_bytes(self) -> int:
-        return 2 * self.k_cache.numel() * self.k_cache.element_size()
+        return kv_quant.cache_nbytes(self.k_cache) + kv_quant.cache_nbytes(self.v_cache)
 
     def _dev(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, dtype), device=self.device)

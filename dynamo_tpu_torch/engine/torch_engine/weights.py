@@ -6,7 +6,10 @@ Counterpart of dynamo_tpu/engine/jax_engine/weights.py
 in dynamo_tpu/models/llama.py:262-334. All produce the JAX layout: a dict
 with ``embed`` [V, hidden], ``layers`` (a list of dicts with ``[in, out]``
 weights), ``final_norm`` and, unless the embeddings are tied, ``lm_head``
-[hidden, V].
+[hidden, V]. With ``quantize`` the dense projections (and lm_head) become
+int8 ``{"q", "s"}`` leaves (ops/linear.quantize_int8), as the reference's
+``maybe_quantize`` makes them; embeddings, norms and biases stay in
+``dtype``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.torch_engine.safetensors_reader import read_safetensors, to_torch
 from dynamo_tpu_torch.models.llama import LlamaConfig
+from dynamo_tpu_torch.ops.linear import maybe_quantize
 
 logger = logging.getLogger("dynamo_tpu_torch.weights")
 
@@ -34,15 +38,17 @@ def load_or_init_params(
     seed: int = 0,
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
+    quantize: bool = False,
 ) -> dict:
     """The checkpoint in ``model_dir`` when it holds ``*.safetensors``,
     else seeded random weights (as the JAX loader does, with a warning when
-    a directory was given)."""
+    a directory was given); int8 dense projections with ``quantize``."""
     if model_dir:
         if glob.glob(os.path.join(model_dir, "*.safetensors")):
-            return load_hf_safetensors(model_dir, cfg, device=device, dtype=dtype)
+            return load_hf_safetensors(model_dir, cfg, device=device, dtype=dtype,
+                                       quantize=quantize)
         logger.warning("%s has no *.safetensors; falling back to random init", model_dir)
-    return init_params(cfg, seed=seed, device=device, dtype=dtype)
+    return init_params(cfg, seed=seed, device=device, dtype=dtype, quantize=quantize)
 
 
 def load_hf_safetensors(
@@ -51,6 +57,7 @@ def load_hf_safetensors(
     *,
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
+    quantize: bool = False,
 ) -> dict:
     """Map an HF Llama-family checkpoint (every ``*.safetensors`` file of
     the directory, as the reference globs a sharded one) onto the port's
@@ -62,7 +69,9 @@ def load_hf_safetensors(
     ``pre_feedforward_layernorm`` the MLP's pre-norm; Gemma3's q/k norms
     and Qwen2's q/k/v biases load when the config has them. Without
     ``lm_head.weight`` an untied config falls back to the embeddings at
-    logits time. Tensors stream from memory-mapped files one at a time."""
+    logits time. Tensors stream from memory-mapped files one at a time.
+    With ``quantize`` each projection is quantized to int8 after its
+    transpose, in ``dtype``, as the JAX loader's ``lin`` does."""
     if cfg.num_experts:
         raise NotImplementedError("MoE parameters are not ported yet")
     dev = resolve_device(device)
@@ -77,8 +86,8 @@ def load_hf_safetensors(
         w = get(name)
         return w + 1 if cfg.norm_plus_one else w
 
-    def lin(name: str) -> torch.Tensor:
-        return get(name).t().contiguous()
+    def lin(name: str):
+        return maybe_quantize(get(name).t().contiguous(), quantize)
 
     layers = []
     for i in range(cfg.num_layers):
@@ -131,12 +140,15 @@ def init_params(
     seed: int = 0,
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
+    quantize: bool = False,
 ) -> dict:
     """Random parameters with the JAX init's scales: dense weights
     N(0, 1/fan_in), embeddings N(0, 0.02^2), norm weights 1, biases 0. Drawn
     on the device from a ``torch.Generator`` seeded with ``seed`` (so the
     values differ from the JAX init's threefry draws). Never zeros: zero
-    weights make attention uniform and would hide a wrong kernel."""
+    weights make attention uniform and would hide a wrong kernel. With
+    ``quantize`` every dense weight is drawn in ``dtype`` and then
+    quantized to int8 (the reference's ``dense``)."""
     if cfg.num_experts:
         raise NotImplementedError("MoE parameters are not ported yet")
     dev = resolve_device(device)
@@ -144,7 +156,7 @@ def init_params(
 
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return w.div_(math.sqrt(fan_in)).to(dtype)
+        return maybe_quantize(w.div_(math.sqrt(fan_in)).to(dtype), quantize)
 
     def ones(n):
         return torch.ones(n, device=dev, dtype=dtype)
@@ -202,12 +214,12 @@ def _to_torch(a: np.ndarray, device) -> torch.Tensor:
 def params_from_jax(tree: Any, device="cuda") -> Any:
     """Convert a JAX parameter tree whose leaves are numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``) into the port's parameters, bit
-    for bit. bf16 leaves travel through a uint16 view. The layout is the
-    same on both sides ([in, out] weights), so nothing is transposed."""
+    for bit. bf16 leaves travel through a uint16 view; int8-quantized
+    weights (``{"q": int8, "s": bf16}``) keep their form, leaf by leaf. The
+    layout is the same on both sides ([in, out] weights), so nothing is
+    transposed."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
-        if "q" in tree and "s" in tree and len(tree) == 2:
-            raise NotImplementedError("int8-quantized weights are not ported yet")
         return {k: params_from_jax(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, dev) for v in tree]

@@ -13,10 +13,14 @@ Parameters are a dict with the JAX layout --
 weights ``[in, out]``, ``layers`` a list of per-layer dicts -- so a JAX
 parameter tree converts leaf by leaf (engine/torch_engine/weights.py).
 
-The cache is head-major ``[L, Hkv, num_blocks, block_size, D]``. Unlike the
-JAX functions, which return updated caches, the forward functions write the
-new K/V into the caches they are given, IN PLACE, and return only the
-logits. Attention and the fused decode heads run the hand-written CUDA
+The cache is head-major ``[L, Hkv, num_blocks, block_size, D]``, or the
+int8-resident ``{"q": int8 pages, "s": f32 [L, Hkv, num_blocks] scales}``
+container of ops/kv_quant.py (each layer gets ``cache_layer``'s views of
+it; the ops dispatch on its form). Unlike the JAX functions, which return
+updated caches, the forward functions write the new K/V into the caches
+they are given, IN PLACE, and return only the logits. Weights may be
+int8-quantized (``{"q", "s"}`` leaves, ops/linear.py): the dense products
+and the fused heads take either form. Attention and the fused decode heads run the hand-written CUDA
 kernels for CUDA tensors and the plain versions for CPU tensors
 (ops/attention.py, ops/linear.py). MoE layers and the meshed (tensor
 parallel) fused heads are not ported yet.
@@ -44,6 +48,7 @@ from dynamo_tpu_torch.ops.attention import (
     write_prefill_kv,
 )
 from dynamo_tpu_torch.ops.basics import rms_norm, rope_freqs, swiglu
+from dynamo_tpu_torch.ops.kv_quant import KVCache, cache_layer
 from dynamo_tpu_torch.ops.layers import attn_out, qkv_head
 from dynamo_tpu_torch.ops.linear import (
     fused_attn_out_residual,
@@ -377,8 +382,8 @@ def prefill(
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [P] int64, padded to a multiple of block_size
     valid_len: int,  # true prompt length
-    k_cache: torch.Tensor,  # [L, Hkv, num_blocks, block_size, D], written in place
-    v_cache: torch.Tensor,
+    k_cache: KVCache,  # [L, Hkv, num_blocks, block_size, D] (or int8), written in place
+    v_cache: KVCache,
     block_table: torch.Tensor,  # [P // block_size] block ids
 ) -> torch.Tensor:
     """Process a prompt; writes its K/V into the caches and returns the last
@@ -389,7 +394,7 @@ def prefill(
     for i, layer in enumerate(params["layers"]):
         x = _attn_prefill(
             x, layer, cfg, _layer_freqs(cfg, i, freqs), positions, valid_len,
-            k_cache[i], v_cache[i], block_table, li=i,
+            cache_layer(k_cache, i), cache_layer(v_cache, i), block_table, li=i,
         )
         x = _mlp(x, layer, cfg)
     return _logits(x[valid_len - 1][None, :], params, cfg)[0]
@@ -401,8 +406,8 @@ def prefill_chunk(
     tokens: torch.Tensor,  # [C] int64 -- one chunk, padded to the chunk size
     chunk_start: int,  # position of tokens[0], a multiple of block_size
     valid_len: int,  # TOTAL prompt length
-    k_cache: torch.Tensor,  # [L, Hkv, num_blocks, block_size, D], written in place
-    v_cache: torch.Tensor,
+    k_cache: KVCache,  # [L, Hkv, num_blocks, block_size, D] (or int8), written in place
+    v_cache: KVCache,
     block_table: torch.Tensor,  # [max_nb] block ids of the whole prompt
 ) -> torch.Tensor:
     """One chunk of a chunked prefill (dynamo_tpu/models/llama.py:670):
@@ -416,9 +421,10 @@ def prefill_chunk(
     x = _embed(params, cfg, tokens)
     for i, layer in enumerate(params["layers"]):
         q, k, v = qkv_head(x, layer, cfg, _layer_freqs(cfg, i, freqs), positions)
-        write_chunk_kv(k_cache[i], v_cache[i], k, v, block_table, chunk_start)
+        kl, vl = cache_layer(k_cache, i), cache_layer(v_cache, i)
+        write_chunk_kv(kl, vl, k, v, block_table, chunk_start)
         attn = chunked_prefill_attention(
-            q, k_cache[i], v_cache[i], block_table, chunk_start,
+            q, kl, vl, block_table, chunk_start,
             window=cfg.layer_window(i), scale=cfg.attn_scale,
             logit_softcap=cfg.attn_logit_softcap,
         )
@@ -435,8 +441,8 @@ def prefill_packed(
     positions: torch.Tensor,  # [P] int64, restarting at 0 per segment
     segment_ids: torch.Tensor,  # [P] int; -1 marks padding
     slot_indices: torch.Tensor,  # [P] int64 flat cache slot of each token
-    k_cache: torch.Tensor,  # [L, Hkv, num_blocks, block_size, D], written in place
-    v_cache: torch.Tensor,
+    k_cache: KVCache,  # [L, Hkv, num_blocks, block_size, D] (or int8), written in place
+    v_cache: KVCache,
     last_idx: torch.Tensor,  # [N] int64 index of each prompt's last token
 ) -> torch.Tensor:
     """N short prompts packed into one [P] pass
@@ -449,7 +455,7 @@ def prefill_packed(
     x = _embed(params, cfg, tokens)
     for i, layer in enumerate(params["layers"]):
         q, k, v = qkv_head(x, layer, cfg, _layer_freqs(cfg, i, freqs), positions)
-        write_decode_kv(k_cache[i], v_cache[i], k, v, slot_indices)
+        write_decode_kv(cache_layer(k_cache, i), cache_layer(v_cache, i), k, v, slot_indices)
         attn = packed_prefill_attention(
             q, k, v, segment_ids, window=cfg.layer_window(i), scale=cfg.attn_scale,
             logit_softcap=cfg.attn_logit_softcap,
@@ -464,8 +470,8 @@ def decode(
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [B] int64
     positions: torch.Tensor,  # [B] int64 (0-indexed position of this token)
-    k_cache: torch.Tensor,  # [L, Hkv, num_blocks, block_size, D], written in place
-    v_cache: torch.Tensor,
+    k_cache: KVCache,  # [L, Hkv, num_blocks, block_size, D] (or int8), written in place
+    v_cache: KVCache,
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     slot_indices: torch.Tensor,  # [B] flat cache slots for the new token
 ) -> torch.Tensor:
@@ -477,7 +483,7 @@ def decode(
     for i, layer in enumerate(params["layers"]):
         x = _attn_decode(
             x, layer, cfg, _layer_freqs(cfg, i, freqs), positions, context_lens,
-            k_cache[i], v_cache[i], block_tables, slot_indices, li=i,
+            cache_layer(k_cache, i), cache_layer(v_cache, i), block_tables, slot_indices, li=i,
         )
         x = _mlp(x, layer, cfg)
     return _logits(x, params, cfg)
@@ -488,8 +494,8 @@ def decode_verify(
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [B, S] int64 -- last accepted token + draft window
     positions: torch.Tensor,  # [B, S] int64 true positions, consecutive per lane
-    k_cache: torch.Tensor,  # [L, Hkv, num_blocks, block_size, D], written in place
-    v_cache: torch.Tensor,
+    k_cache: KVCache,  # [L, Hkv, num_blocks, block_size, D] (or int8), written in place
+    v_cache: KVCache,
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     slot_indices: torch.Tensor,  # [B, S] flat cache slots (0 = null sink)
 ) -> torch.Tensor:
@@ -513,9 +519,10 @@ def decode_verify(
             q, k, v = _fused_qkv_dispatch(x, layer, cfg, lf, pos_flat)
         else:
             q, k, v = qkv_head(x, layer, cfg, lf, pos_flat)
-        write_decode_kv(k_cache[i], v_cache[i], k, v, slots_flat)
+        kl, vl = cache_layer(k_cache, i), cache_layer(v_cache, i)
+        write_decode_kv(kl, vl, k, v, slots_flat)
         attn = paged_verify_attention(
-            q.reshape(B, S, cfg.num_heads, cfg.head_dim), k_cache[i], v_cache[i],
+            q.reshape(B, S, cfg.num_heads, cfg.head_dim), kl, vl,
             block_tables, positions_i32,
             window=cfg.layer_window(i), scale=cfg.attn_scale,
             logit_softcap=cfg.attn_logit_softcap,

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 Each source in ``dynamo_tpu_torch/csrc/`` becomes one shared library with a
-plain C interface, compiled for Hopper (``sm_90a``) on first use into
+plain C interface (a kernel with an int8 mode exports both modes' entry
+points from its one library), compiled for Hopper (``sm_90a``) on first use into
 ``build/kernels/`` at the root of the checkout. The library name carries a
 hash of the source, the shared ``*.cuh`` headers and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. Nothing here runs at import time: the CPU

@@ -12,6 +12,15 @@ where the tensors are and nothing else: CUDA tensors launch the kernel (or
 raise), CPU tensors run the plain version. The sliding window, custom score
 scale and logit softcap are carried on every path.
 
+A cache (or a layer of one) is either a tensor or the int8-resident
+``{"q": int8 pages, "s": f32 [Hkv, num_blocks] scales}`` container of
+ops/kv_quant.py. Over the container, the paged decode and verify ops launch
+their kernels' int8 modes on the card, and their plain versions (which take
+the scale planes as ``k_scales`` / ``v_scales``) dequantize right after the
+gather, as the reference's XLA branch does (attention.py:312-320); chunked
+prefill dequantizes its gathered blocks the same way; the writes quantize
+on write (kv_quant.write_blocks_quant / write_tokens_quant).
+
 Packed and chunked prefill attention are XLA ops in the JAX package, with no
 Pallas kernel (ops/attention.py:172, :462), so their PyTorch versions here
 are the card path too: one implementation on both devices, f32 scores as in
@@ -25,10 +34,13 @@ from typing import Optional
 
 import torch
 
+from dynamo_tpu_torch.ops import kv_quant
 from dynamo_tpu_torch.ops.cuda_attention import (
     flash_prefill_attention_cuda,
     paged_decode_attention_cuda,
+    paged_decode_attention_int8_cuda,
     paged_verify_attention_cuda,
+    paged_verify_attention_int8_cuda,
 )
 
 NEG_INF = -1e30
@@ -43,6 +55,21 @@ def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 def _scale(scale: Optional[float], d: int) -> float:
     return float(scale) if scale is not None else 1.0 / math.sqrt(d)
+
+
+def _gather(pages: torch.Tensor, scales: Optional[torch.Tensor], tables: torch.Tensor):
+    """Every table entry's page, [Hkv, *tables.shape, bs, D] in f32: int8
+    pages dequantized by their gathered scales right after the gather."""
+    if scales is None:
+        return pages[:, tables].float()
+    return kv_quant.dequantize(pages[:, tables], scales[:, tables])
+
+
+def _split(cache):
+    """(pages, scales | None) of one layer's cache."""
+    if kv_quant.is_quantized(cache):
+        return cache["q"], cache["s"]
+    return cache, None
 
 
 def causal_prefill_attention(
@@ -106,16 +133,18 @@ def paged_decode_attention(
     logit_softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Decode-step attention over each sequence's pages: the paged flash
-    kernel for CUDA tensors, the plain gather version for CPU ones."""
+    kernel (its int8 mode over an int8 cache) for CUDA tensors, the plain
+    gather version for CPU ones."""
+    kp, ks = _split(k_cache)
+    vp, vs = _split(v_cache)
+    kw = dict(window=window, scale=scale, logit_softcap=logit_softcap)
     if q.is_cuda:
-        return paged_decode_attention_cuda(
-            q, k_cache, v_cache, block_tables, context_lens,
-            window=window, scale=scale, logit_softcap=logit_softcap,
-        )
+        if ks is not None:
+            return paged_decode_attention_int8_cuda(
+                q, kp, vp, block_tables, context_lens, ks, vs, **kw)
+        return paged_decode_attention_cuda(q, kp, vp, block_tables, context_lens, **kw)
     return paged_decode_attention_plain(
-        q, k_cache, v_cache, block_tables, context_lens,
-        window=window, scale=scale, logit_softcap=logit_softcap,
-    )
+        q, kp, vp, block_tables, context_lens, k_scales=ks, v_scales=vs, **kw)
 
 
 def paged_decode_attention_plain(
@@ -127,19 +156,24 @@ def paged_decode_attention_plain(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     logit_softcap: Optional[float] = None,
+    *,
+    k_scales: Optional[torch.Tensor] = None,  # [Hkv, num_blocks] f32 with int8 pages
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the decode kernel (dynamo_tpu/ops/attention.py
-    gather branch, :304-339): gather every table entry's page into a dense
-    [Hkv, B, max_blocks * block_size, D] window and attend with a mask."""
+    """Plain version of the decode kernel in both modes
+    (dynamo_tpu/ops/attention.py gather branch, :304-339): gather every
+    table entry's page into a dense [Hkv, B, max_blocks * block_size, D]
+    window (int8 pages dequantized right after the gather) and attend with
+    a mask."""
     B, Hq, D = q.shape
     Hkv, _, block_size, _ = k_cache.shape
     G = Hq // Hkv
     S = block_tables.shape[1] * block_size
     tables = block_tables.long()
-    k = k_cache[:, tables].reshape(Hkv, B, S, D)
-    v = v_cache[:, tables].reshape(Hkv, B, S, D)
+    k = _gather(k_cache, k_scales, tables).reshape(Hkv, B, S, D)
+    v = _gather(v_cache, v_scales, tables).reshape(Hkv, B, S, D)
     qr = q.reshape(B, Hkv, G, D).float()
-    scores = torch.einsum("bhgd,hbsd->bhgs", qr, k.float()) * _scale(scale, D)
+    scores = torch.einsum("bhgd,hbsd->bhgs", qr, k) * _scale(scale, D)
     scores = _softcap(scores, logit_softcap)
     kpos = torch.arange(S, device=q.device)[None, :]
     lens = context_lens.long()[:, None]
@@ -150,7 +184,7 @@ def paged_decode_attention_plain(
         mask &= kpos >= lens - window
     scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgs,hbsd->bhgd", weights, v.float())
+    out = torch.einsum("bhgs,hbsd->bhgd", weights, v)
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
@@ -167,16 +201,18 @@ def paged_verify_attention(
     """Draft-verify attention: each lane's S new tokens, whose K/V are
     already in the cache, attend causally over the lane's pages. The paged
     verify kernel for CUDA tensors (positions must be consecutive per lane,
-    as ``decode_verify`` feeds them), the plain gather version for CPU ones."""
+    as ``decode_verify`` feeds them; its int8 mode over an int8 cache), the
+    plain gather version for CPU ones."""
+    kp, ks = _split(k_cache)
+    vp, vs = _split(v_cache)
+    kw = dict(window=window, scale=scale, logit_softcap=logit_softcap)
     if q.is_cuda:
-        return paged_verify_attention_cuda(
-            q, k_cache, v_cache, block_tables, positions,
-            window=window, scale=scale, logit_softcap=logit_softcap,
-        )
+        if ks is not None:
+            return paged_verify_attention_int8_cuda(
+                q, kp, vp, block_tables, positions, ks, vs, **kw)
+        return paged_verify_attention_cuda(q, kp, vp, block_tables, positions, **kw)
     return paged_verify_attention_plain(
-        q, k_cache, v_cache, block_tables, positions,
-        window=window, scale=scale, logit_softcap=logit_softcap,
-    )
+        q, kp, vp, block_tables, positions, k_scales=ks, v_scales=vs, **kw)
 
 
 def paged_verify_attention_plain(
@@ -188,21 +224,25 @@ def paged_verify_attention_plain(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     logit_softcap: Optional[float] = None,
+    *,
+    k_scales: Optional[torch.Tensor] = None,  # [Hkv, num_blocks] f32 with int8 pages
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the verify kernel (dynamo_tpu/ops/attention.py
-    gather branch, :426-459): every table entry's page gathered into a dense
-    [Hkv, B, max_blocks * block_size, D] window; query (b, s) sees key kpos
-    iff kpos <= positions[b, s] and, with a window,
+    """Plain version of the verify kernel in both modes
+    (dynamo_tpu/ops/attention.py gather branch, :426-459): every table
+    entry's page gathered into a dense [Hkv, B, max_blocks * block_size, D]
+    window (int8 pages dequantized right after the gather); query (b, s)
+    sees key kpos iff kpos <= positions[b, s] and, with a window,
     positions[b, s] - kpos < window."""
     B, S, Hq, D = q.shape
     Hkv, _, block_size, _ = k_cache.shape
     G = Hq // Hkv
     S_ctx = block_tables.shape[1] * block_size
     tables = block_tables.long()
-    k = k_cache[:, tables].reshape(Hkv, B, S_ctx, D)
-    v = v_cache[:, tables].reshape(Hkv, B, S_ctx, D)
+    k = _gather(k_cache, k_scales, tables).reshape(Hkv, B, S_ctx, D)
+    v = _gather(v_cache, v_scales, tables).reshape(Hkv, B, S_ctx, D)
     qr = q.reshape(B, S, Hkv, G, D).float()
-    scores = torch.einsum("bshgd,hbkd->bhgsk", qr, k.float()) * _scale(scale, D)
+    scores = torch.einsum("bshgd,hbkd->bhgsk", qr, k) * _scale(scale, D)
     scores = _softcap(scores, logit_softcap)
     kpos = torch.arange(S_ctx, device=q.device)[None, None, :]
     qpos = positions.long()[:, :, None]
@@ -211,7 +251,7 @@ def paged_verify_attention_plain(
         mask &= qpos - kpos < window
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgsk,hbkd->bshgd", weights, v.float())
+    out = torch.einsum("bhgsk,hbkd->bshgd", weights, v)
     return out.reshape(B, S, Hq, D).to(q.dtype)
 
 
@@ -224,12 +264,19 @@ def write_prefill_kv(
 ) -> None:
     """Scatter a prompt's K/V into its blocks, IN PLACE (the JAX version
     returns updated caches; here the runner owns one buffer per cache and
-    every write lands in it). Padding blocks map to the null block 0."""
-    Hkv, _, block_size, D = k_cache.shape
+    every write lands in it). Padding blocks map to the null block 0. An
+    int8 cache takes each block's exact absmax scale."""
+    Hkv, _, block_size, D = kv_quant.pages(k_cache).shape
     nb = k_new.shape[0] // block_size
+    k_blocks = k_new.reshape(nb, block_size, Hkv, D).permute(2, 0, 1, 3)
+    v_blocks = v_new.reshape(nb, block_size, Hkv, D).permute(2, 0, 1, 3)
+    if kv_quant.is_quantized(k_cache):
+        kv_quant.write_blocks_quant(k_cache, k_blocks, block_table)
+        kv_quant.write_blocks_quant(v_cache, v_blocks, block_table)
+        return
     ids = block_table.long()
-    k_cache[:, ids] = k_new.reshape(nb, block_size, Hkv, D).permute(2, 0, 1, 3).to(k_cache.dtype)
-    v_cache[:, ids] = v_new.reshape(nb, block_size, Hkv, D).permute(2, 0, 1, 3).to(v_cache.dtype)
+    k_cache[:, ids] = k_blocks.to(k_cache.dtype)
+    v_cache[:, ids] = v_blocks.to(v_cache.dtype)
 
 
 def write_decode_kv(
@@ -240,7 +287,14 @@ def write_decode_kv(
     slot_indices: torch.Tensor,  # [B] flat slot = block_id * block_size + offset
 ) -> None:
     """Scatter one new K/V token per sequence into its slot, IN PLACE.
-    Inactive lanes point at slot 0 (the null block)."""
+    Inactive lanes point at slot 0 (the null block). An int8 cache grows
+    each touched block's scale (kv_quant.write_tokens_quant; several tokens
+    of one block in one call, as verify and packed prefill write, are
+    fine)."""
+    if kv_quant.is_quantized(k_cache):
+        kv_quant.write_tokens_quant(k_cache, k_new, slot_indices)
+        kv_quant.write_tokens_quant(v_cache, v_new, slot_indices)
+        return
     Hkv, num_blocks, block_size, D = k_cache.shape
     slots = slot_indices.long()
     k_cache.view(Hkv, num_blocks * block_size, D)[:, slots] = k_new.transpose(0, 1).to(k_cache.dtype)
@@ -309,15 +363,17 @@ def chunked_prefill_attention(
     read back from the device. Padded table entries point at null block 0
     and are masked by kpos <= qpos."""
     C, Hq, D = q.shape
-    Hkv, _, block_size, _ = k_cache.shape
+    kp, ks = _split(k_cache)
+    vp, vs = _split(v_cache)
+    Hkv, _, block_size, _ = kp.shape
     G = Hq // Hkv
     nb = chunk_visible_blocks(chunk_start, C, block_size, block_table.shape[0])
     S = nb * block_size
     tables = block_table[:nb].long()
-    k = k_cache[:, tables].reshape(Hkv, S, D)
-    v = v_cache[:, tables].reshape(Hkv, S, D)
+    k = _gather(kp, ks, tables).reshape(Hkv, S, D)
+    v = _gather(vp, vs, tables).reshape(Hkv, S, D)
     qr = q.reshape(C, Hkv, G, D).float()
-    scores = torch.einsum("chgd,hsd->hgcs", qr, k.float()) * _scale(scale, D)
+    scores = torch.einsum("chgd,hsd->hgcs", qr, k) * _scale(scale, D)
     scores = _softcap(scores, logit_softcap)
     qpos = chunk_start + torch.arange(C, device=q.device)
     kpos = torch.arange(S, device=q.device)
@@ -326,7 +382,7 @@ def chunked_prefill_attention(
         mask &= qpos[:, None] - kpos[None, :] < window
     scores = torch.where(mask[None, None], scores, NEG_INF)
     weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum("hgcs,hsd->chgd", weights, v.float())
+    out = torch.einsum("hgcs,hsd->chgd", weights, v)
     return out.reshape(C, Hq, D).to(q.dtype)
 
 
@@ -344,7 +400,7 @@ def write_chunk_kv(
     the table writes that tail into null block 0 and never into earlier
     blocks. An unaligned start would scatter K/V to the wrong positions, so
     it raises."""
-    block_size = k_cache.shape[2]
+    block_size = kv_quant.pages(k_cache).shape[2]
     if chunk_start % block_size:
         raise ValueError(
             f"chunk_start {chunk_start} is not a multiple of the KV block size "

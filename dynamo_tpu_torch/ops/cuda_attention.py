@@ -10,7 +10,11 @@ how its design answers that):
   * ``flash_prefill_attention_cuda`` <- ``flash_prefill_attention_pallas``
     (csrc/flash_prefill_attention.cu);
   * ``paged_verify_attention_cuda`` <- ``paged_verify_attention_pallas``
-    (csrc/paged_verify_attention.cu, the same template).
+    (csrc/paged_verify_attention.cu, the same template);
+  * ``paged_decode_attention_int8_cuda`` / ``paged_verify_attention_int8_cuda``
+    <- the same two Pallas kernels' int8 mode (``quantized=True``: int8
+    pages and per-(head, page) f32 scale planes), the template's int8
+    instantiation, the second entry point of the same two sources.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, allocates
 its output with ``torch.empty`` (the paged kernels also their f32 split
@@ -18,8 +22,9 @@ partials; their int32 tickets are cached per device), launches one kernel on
 the current stream without synchronising or reading any tensor on the host,
 and raises if the launch is refused. It counts its launches in
 a plain integer attribute, ``<wrapper>.launches`` (ops/kernels.py resets and
-reads them all), so a run can show that the serving path went through the
-kernel. There is no fallback: a failed build or
+reads them all), raised right after the launch succeeds (a call with nothing
+to compute launches nothing and counts nothing), so a run can show that the
+serving path went through the kernel. There is no fallback: a failed build or
 launch raises. The plain PyTorch versions live in ops/attention.py.
 """
 
@@ -40,6 +45,9 @@ _F = ctypes.c_float
 _DECODE_ARGTYPES = [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P]
 _PREFILL_ARGTYPES = [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P]
 _VERIFY_ARGTYPES = [_P] * 9 + [_I] * 9 + [_F, _F, _I, _P]
+# the int8 modes: two more pointers (the scale planes) after the caches
+_DECODE_INT8_ARGTYPES = [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P]
+_VERIFY_INT8_ARGTYPES = [_P] * 11 + [_I] * 9 + [_F, _F, _I, _P]
 # head dims every attention kernel is instantiated for; any GQA group
 # G = Hq / Hkv, up to PREFILL_MAX_GROUP for prefill (its 128-row query tile
 # holds floor(128 / G) positions)
@@ -130,38 +138,37 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def paged_decode_attention_cuda(
-    q: torch.Tensor,  # [B, Hq, D] bf16
-    k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] bf16 (one layer)
-    v_cache: torch.Tensor,
-    block_tables: torch.Tensor,  # [B, max_blocks] int32
-    context_lens: torch.Tensor,  # [B] int32, INCLUDING the token just written
-    *,
-    k_scales: Optional[torch.Tensor] = None,
-    v_scales: Optional[torch.Tensor] = None,
-    window: Optional[int] = None,
-    scale: Optional[float] = None,
-    logit_softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """Flash paged decode attention on the card (see the module docstring)."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "int8-resident KV pages (per-page scales) are not ported yet"
-        )
-    B, Hq, D = q.shape
-    Hkv, num_blocks, block_size, Dc = k_cache.shape
-    _common(q, Hq, Hkv, D)
-    dev = q.device
-    _check(q, "q", torch.bfloat16, 3, dev)
-    _check(k_cache, "k_cache", torch.bfloat16, 4, dev)
-    _check(v_cache, "v_cache", torch.bfloat16, 4, dev)
-    _check(block_tables, "block_tables", torch.int32, 2, dev)
-    _check(context_lens, "context_lens", torch.int32, 1, dev)
-    if Dc != D or v_cache.shape != k_cache.shape:
+def _check_pages(q, k_cache, v_cache, k_scales, v_scales, dev) -> None:
+    """The caches (bf16, or int8 with [Hkv, num_blocks] f32 scale planes)."""
+    dtype = torch.bfloat16 if k_scales is None else torch.int8
+    _check(k_cache, "k_cache", dtype, 4, dev)
+    _check(v_cache, "v_cache", dtype, 4, dev)
+    D = q.shape[-1]
+    if k_cache.shape[-1] != D or v_cache.shape != k_cache.shape:
         raise ValueError(
             f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
             f"do not match q {tuple(q.shape)}"
         )
+    if k_scales is not None:
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            _check(t, name, torch.float32, 2, dev)
+            if tuple(t.shape) != tuple(k_cache.shape[:2]):
+                raise ValueError(
+                    f"{name} is {tuple(t.shape)}, expected {tuple(k_cache.shape[:2])}")
+
+
+def _paged_decode(counted, q, k_cache, v_cache, block_tables, context_lens, k_scales,
+                  v_scales, window, scale, logit_softcap) -> torch.Tensor:
+    """One launch of #1 in its bf16 mode (no scales) or its int8 mode,
+    counted on ``counted`` (the public wrapper of that mode)."""
+    B, Hq, D = q.shape
+    Hkv, num_blocks, block_size, _ = k_cache.shape
+    _common(q, Hq, Hkv, D)
+    dev = q.device
+    _check(q, "q", torch.bfloat16, 3, dev)
+    _check_pages(q, k_cache, v_cache, k_scales, v_scales, dev)
+    _check(block_tables, "block_tables", torch.int32, 2, dev)
+    _check(context_lens, "context_lens", torch.int32, 1, dev)
     if block_tables.shape[0] != B or context_lens.shape[0] != B:
         raise ValueError("block_tables / context_lens batch does not match q")
     out = torch.empty_like(q)
@@ -170,28 +177,72 @@ def paged_decode_attention_cuda(
     # one launch: the splits' f32 partials of every (sequence, kv head,
     # 16-row tile of the group), and a ticket per (sequence, kv head, tile)
     # that tells the last split to merge them
+    lib = "paged_decode_attention"
     max_blocks = block_tables.shape[1]
     tiles = -(-(Hq // Hkv) // PAGED_ROWS)
-    splits = _fn("paged_decode_attention", "paged_decode_num_splits", [_I] * 5)(
+    splits = _fn(lib, "paged_decode_num_splits", [_I] * 5)(
         B, Hq, Hkv, max_blocks, block_size)
     part_acc, part_ml = _partials(B * Hkv * tiles * splits, D, dev)
     tickets = _ticket_buffer(dev, B * Hkv * tiles)
-    fn = _fn("paged_decode_attention", "paged_decode_attention_bf16", _DECODE_ARGTYPES)
     sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    caches = [k_cache.data_ptr(), v_cache.data_ptr()]
+    if k_scales is None:
+        fn = _fn(lib, "paged_decode_attention_bf16", _DECODE_ARGTYPES)
+    else:
+        fn = _fn(lib, "paged_decode_attention_int8", _DECODE_INT8_ARGTYPES)
+        caches += [k_scales.data_ptr(), v_scales.data_ptr()]
     err = fn(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        q.data_ptr(), *caches,
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
         B, Hq, Hkv, D, num_blocks, block_size, max_blocks, splits,
         sc, float(logit_softcap or 0.0), int(window or 0),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "paged_decode_attention")
-    paged_decode_attention_cuda.launches += 1
+    _raise_on(err, lib)
+    counted.launches += 1
     return out
 
 
+def paged_decode_attention_cuda(
+    q: torch.Tensor,  # [B, Hq, D] bf16
+    k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] bf16 (one layer)
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    context_lens: torch.Tensor,  # [B] int32, INCLUDING the token just written
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Flash paged decode attention on the card (see the module docstring)."""
+    return _paged_decode(paged_decode_attention_cuda, q, k_cache, v_cache, block_tables,
+                         context_lens, None, None, window, scale, logit_softcap)
+
+
 paged_decode_attention_cuda.launches = 0
+
+
+def paged_decode_attention_int8_cuda(
+    q: torch.Tensor,  # [B, Hq, D] bf16
+    k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] int8 mantissas (one layer)
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    context_lens: torch.Tensor,  # [B] int32, INCLUDING the token just written
+    k_scales: torch.Tensor,  # [Hkv, num_blocks] f32, one scale per (head, page)
+    v_scales: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """#1's int8 mode: int8 pages read as such, each page's scale applied
+    to its score columns (k) and its softmax weights (v) in f32."""
+    return _paged_decode(paged_decode_attention_int8_cuda, q, k_cache, v_cache, block_tables,
+                         context_lens, k_scales, v_scales, window, scale, logit_softcap)
+
+
+paged_decode_attention_int8_cuda.launches = 0
 
 
 def flash_prefill_attention_cuda(
@@ -241,6 +292,52 @@ def flash_prefill_attention_cuda(
 flash_prefill_attention_cuda.launches = 0
 
 
+def _paged_verify(counted, q, k_cache, v_cache, block_tables, positions, k_scales, v_scales,
+                  window, scale, logit_softcap) -> torch.Tensor:
+    """One launch of #2 in its bf16 mode (no scales) or its int8 mode,
+    counted on ``counted`` (the public wrapper of that mode)."""
+    B, S, Hq, D = q.shape
+    Hkv, num_blocks, block_size, _ = k_cache.shape
+    _common(q, Hq, Hkv, D)
+    dev = q.device
+    _check(q, "q", torch.bfloat16, 4, dev)
+    _check_pages(q, k_cache, v_cache, k_scales, v_scales, dev)
+    _check(block_tables, "block_tables", torch.int32, 2, dev)
+    _check(positions, "positions", torch.int32, 2, dev)
+    if block_tables.shape[0] != B or tuple(positions.shape) != (B, S):
+        raise ValueError("block_tables / positions do not match q's [B, S]")
+    out = torch.empty_like(q)
+    if B == 0 or S == 0:
+        return out
+    # one launch: the splits' f32 partials of every (lane, kv head, 16-row
+    # tile), and a ticket per (lane, kv head, tile) for the merge
+    lib = "paged_verify_attention"
+    max_blocks = block_tables.shape[1]
+    tiles = -(-S * (Hq // Hkv) // PAGED_ROWS)
+    splits = _fn(lib, "paged_verify_num_splits", [_I] * 6)(
+        B, S, Hq, Hkv, max_blocks, block_size)
+    part_acc, part_ml = _partials(B * Hkv * tiles * splits, D, dev)
+    tickets = _ticket_buffer(dev, B * Hkv * tiles)
+    sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    caches = [k_cache.data_ptr(), v_cache.data_ptr()]
+    if k_scales is None:
+        fn = _fn(lib, "paged_verify_attention_bf16", _VERIFY_ARGTYPES)
+    else:
+        fn = _fn(lib, "paged_verify_attention_int8", _VERIFY_INT8_ARGTYPES)
+        caches += [k_scales.data_ptr(), v_scales.data_ptr()]
+    err = fn(
+        q.data_ptr(), *caches,
+        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+        B, S, Hq, Hkv, D, num_blocks, block_size, max_blocks, splits,
+        sc, float(logit_softcap or 0.0), int(window or 0),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, lib)
+    counted.launches += 1
+    return out
+
+
 def paged_verify_attention_cuda(
     q: torch.Tensor,  # [B, S, Hq, D] bf16, S consecutive positions per lane
     k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] bf16 (one layer)
@@ -248,8 +345,6 @@ def paged_verify_attention_cuda(
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     positions: torch.Tensor,  # [B, S] int32, positions[b, s] = positions[b, 0] + s
     *,
-    k_scales: Optional[torch.Tensor] = None,
-    v_scales: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     scale: Optional[float] = None,
     logit_softcap: Optional[float] = None,
@@ -259,50 +354,29 @@ def paged_verify_attention_cuda(
     lane's pages, read once for all S * G rows. The positions must be
     consecutive per lane (what ``decode_verify`` feeds); the kernel reads
     only ``positions[b, 0]`` and ``positions[b, S - 1]``."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "int8-resident KV pages (per-page scales) are not ported yet"
-        )
-    B, S, Hq, D = q.shape
-    Hkv, num_blocks, block_size, Dc = k_cache.shape
-    _common(q, Hq, Hkv, D)
-    dev = q.device
-    _check(q, "q", torch.bfloat16, 4, dev)
-    _check(k_cache, "k_cache", torch.bfloat16, 4, dev)
-    _check(v_cache, "v_cache", torch.bfloat16, 4, dev)
-    _check(block_tables, "block_tables", torch.int32, 2, dev)
-    _check(positions, "positions", torch.int32, 2, dev)
-    if Dc != D or v_cache.shape != k_cache.shape:
-        raise ValueError(
-            f"cache shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
-            f"do not match q {tuple(q.shape)}"
-        )
-    if block_tables.shape[0] != B or tuple(positions.shape) != (B, S):
-        raise ValueError("block_tables / positions do not match q's [B, S]")
-    out = torch.empty_like(q)
-    if B == 0 or S == 0:
-        return out
-    # one launch: the splits' f32 partials of every (lane, kv head, 16-row
-    # tile), and a ticket per (lane, kv head, tile) for the merge
-    max_blocks = block_tables.shape[1]
-    tiles = -(-S * (Hq // Hkv) // PAGED_ROWS)
-    splits = _fn("paged_verify_attention", "paged_verify_num_splits", [_I] * 6)(
-        B, S, Hq, Hkv, max_blocks, block_size)
-    part_acc, part_ml = _partials(B * Hkv * tiles * splits, D, dev)
-    tickets = _ticket_buffer(dev, B * Hkv * tiles)
-    fn = _fn("paged_verify_attention", "paged_verify_attention_bf16", _VERIFY_ARGTYPES)
-    sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    err = fn(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
-        B, S, Hq, Hkv, D, num_blocks, block_size, max_blocks, splits,
-        sc, float(logit_softcap or 0.0), int(window or 0),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(err, "paged_verify_attention")
-    paged_verify_attention_cuda.launches += 1
-    return out
+    return _paged_verify(paged_verify_attention_cuda, q, k_cache, v_cache, block_tables,
+                         positions, None, None, window, scale, logit_softcap)
 
 
 paged_verify_attention_cuda.launches = 0
+
+
+def paged_verify_attention_int8_cuda(
+    q: torch.Tensor,  # [B, S, Hq, D] bf16, S consecutive positions per lane
+    k_cache: torch.Tensor,  # [Hkv, num_blocks, block_size, D] int8 mantissas (one layer)
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    positions: torch.Tensor,  # [B, S] int32, positions[b, s] = positions[b, 0] + s
+    k_scales: torch.Tensor,  # [Hkv, num_blocks] f32, one scale per (head, page)
+    v_scales: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """#2's int8 mode, over int8 pages and their scale planes as #1's."""
+    return _paged_verify(paged_verify_attention_int8_cuda, q, k_cache, v_cache, block_tables,
+                         positions, k_scales, v_scales, window, scale, logit_softcap)
+
+
+paged_verify_attention_int8_cuda.launches = 0

@@ -84,25 +84,24 @@ def _paged(big_ring: bool = False, **consts) -> list:
     return edits
 
 
-_PAGE_RUNS = """      // one copy per run of the stage's rows that lies in one page
-      const int pg0 = a / bs;
-      const int n_runs = (a + n - 1) / bs - pg0 + 1;
-      for (int i = lane; i < n_runs; i += 32) {
+# the bf16 mode's page-run copies as shipped, and one copy per key row into
+# padded ring rows (the int8 mode keeps its unpadded int8 rows)
+_PAGE_RUNS = """      for (int i = lane; i < n_runs; i += 32) {
         const int pg = pg0 + i;
         const int s0 = max(a, pg * bs);
         const int s1 = min(a + n, (pg + 1) * bs);
         const int page = table[min(pg, last_page)];
-        const size_t src = (head_row0 + (size_t)page * bs + (s0 - pg * bs)) * D;
-        bulk_load(dk + (s0 - a) * kS, p.k_cache + src, (s1 - s0) * D * 2, &full[st]);
-        bulk_load(dv + (s0 - a) * kS, p.v_cache + src, (s1 - s0) * D * 2, &full[st]);
+        const size_t src = (head_row0 + (size_t)page * bs + (s0 - pg * bs)) * kRowB;
+        bulk_load(dk + (s0 - a) * kRowB, kc + src, (s1 - s0) * kRowB, &full[st]);
+        bulk_load(dv + (s0 - a) * kRowB, vc + src, (s1 - s0) * kRowB, &full[st]);
       }
 """
 _ROWS = """      for (int r = lane; r < n; r += 32) {  // one copy per key row
         const int kpos = a + r;
         const int page = table[min(kpos / bs, last_page)];
-        const size_t src = (head_row0 + (size_t)page * bs + kpos % bs) * D;
-        bulk_load(dk + r * kS, p.k_cache + src, D * 2, &full[st]);
-        bulk_load(dv + r * kS, p.v_cache + src, D * 2, &full[st]);
+        const size_t src = (head_row0 + (size_t)page * bs + kpos % bs) * (D * kEB);
+        bulk_load(dk + r * kRowB, kc + src, D * kEB, &full[st]);
+        bulk_load(dv + r * kRowB, vc + src, D * kEB, &full[st]);
       }
 """
 _LO_MMA = """          mma_16816(o[n], pl, bf[0], bf[1]);
@@ -113,7 +112,7 @@ _LO_MMA_DECODE = """          if (kDecode) {
             mma_16816(o[n + 1], pl, bf[2], bf[3]);
           }
 """
-_PV_MMA = """        const __nv_bfloat16* vr = sv + (c * 16 + (mat & 1) * 8 + (lane & 7)) * kS + (mat >> 1) * 8;
+_PV_MMA = """        const __nv_bfloat16* vr = cv + ((mat & 1) * 8 + (lane & 7)) * rs + (mat >> 1) * 8;
 #pragma unroll
         for (int n = 0; n < D / 8; n += 2) {
           uint32_t bf[4];
@@ -193,7 +192,7 @@ _QKV_NORM_SERIAL = '''    // ---- the norm: this rank's sum of x^2 per row over 
       if (lane == 0) s_ss[r] = ss;
     }
 '''
-# #4's stage normalisation as shipped (replaced by the variant below)
+# #4's stage normalisation as shipped (replaced by the variants below)
 _QKV_SMEM_NORMALISE = """      // x -> bf16 xn in place: x * rsqrt, then * norm_w, one rounding
       unsigned char* sa_p = smem + L::kA + st * L::kABytes;
       for (int j = tid; j < MT * 16 * 8; j += kConsumers) {
@@ -216,11 +215,15 @@ _QKV_SMEM_NORMALISE = """      // x -> bf16 xn in place: x * rsqrt, then * norm_
         }
         *p = u;
       }
-      fence_proxy_async();  // before a later TMA write refills these bytes
-      consumers_sync();     // every row of xn is in place
-      const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);
-      const uint32_t sa = smem_u32(sa_p);
 """
+# the stage's barrier, which then only the int8 mode's widened weights need
+_QKV_STAGE_SYNC = (
+    QF, "      fence_proxy_async();  // before a later TMA write refills these bytes\n"
+        "      consumers_sync();     // every row of xn (and the widened weights) is in place\n",
+    "      if constexpr (kInt8) {  // the widened weights are in place\n"
+    "        fence_proxy_async();\n"
+    "        consumers_sync();\n"
+    "      }\n")
 # each thread normalises its own A fragments (rows g, g + 8; k columns kc,
 # kc + 1, kc + 8, kc + 9) with two f32 products and one rounding
 _QKV_REGISTER_NORMALISE = """          ldsm_x4_at(af[mt], sa + swz128(mt * 16 + (mat & 1) * 8 + (lane & 7), kk * 2 + (mat >> 1)));
@@ -241,28 +244,26 @@ _QKV_REGISTER_NORMALISE = """          ldsm_x4_at(af[mt], sa + swz128(mt * 16 + 
         }
 """
 
-
 # #4 with the producer warp normalising each landed x tile (off the
 # consumers' path) behind a third, "ready" barrier per stage, 4 stages
 _QKV_PRODUCER_NORMALISE = [
-    (QF, 'constexpr int kKC = 64;                    // contraction rows per ring stage\nconstexpr int kStages = 3;\nconstexpr int kSplits = 4;                 // contraction splits = blocks per cluster\n',
-     'constexpr int kKC = 64;                    // contraction rows per ring stage\nconstexpr int kStages = 4;\nconstexpr int kSplits = 4;                 // contraction splits = blocks per cluster\n'),
-    (QF, "  static constexpr int kBar = kA + kStages * kABytes;  // the ring ends here\n  static constexpr int kNormW = (kBar + 2 * kStages * 8 + 15) & ~15;  // the split's norm weights\n  // bytes for a split of n_chunks contraction chunks\n",
-     "  static constexpr int kBar = kA + kStages * kABytes;  // the ring ends here\n  static constexpr int kNormW = (kBar + 3 * kStages * 8 + 15) & ~15;  // the split's norm weights\n  // bytes for a split of n_chunks contraction chunks\n"),
-    (QF, '  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);\n  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);  // [kStages]\n  uint64_t* empty = full + kStages;\n  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L::kNormW);  // norm_w[k_lo, k_hi)\n',
-     '  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);\n  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);  // [kStages]: tiles landed\n  uint64_t* ready = full + kStages;                               // x normalised\n  uint64_t* empty = ready + kStages;                              // consumers done\n  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem + L::kNormW);  // norm_w[k_lo, k_hi)\n'),
+    (QF, 'constexpr int kKC = 64;                    // contraction rows per ring stage\nconstexpr int kStages = 3;\n',
+     'constexpr int kKC = 64;                    // contraction rows per ring stage\nconstexpr int kStages = 4;\n'),
+    (QF, "  static constexpr int kNormW = (kBar + 2 * kStages * 8 + 15) & ~15;  // the split's norm weights\n",
+     "  static constexpr int kNormW = (kBar + 3 * kStages * 8 + 15) & ~15;  // the split's norm weights\n"),
+    (QF, '  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);  // [kStages]\n  uint64_t* empty = full + kStages;\n',
+     '  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);  // [kStages]: tiles landed\n  uint64_t* ready = full + kStages;                               // x normalised\n  uint64_t* empty = ready + kStages;                              // consumers done\n'),
     (QF, '      mbar_init(full + s, 1);\n      mbar_init(empty + s, kConsumers / 32);  // one arrival per consumer warp\n',
      '      mbar_init(full + s, 1);\n      mbar_init(ready + s, 1);\n      mbar_init(empty + s, kConsumers / 32);  // one arrival per consumer warp\n'),
-    (QF, "  if (tid >= kConsumers) {\n    // ---- producer warp: nothing to publish for the norm; one lane streams\n    // the split's weight and x tiles\n    cluster_arrive();\n    if (tid == kConsumers) {\n      for (int i = 0; i < n; ++i) {\n        const int st = i % kStages;\n        const int k0 = (c_begin + i) * kKC;\n        mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);  // the first round passes at once\n        mbar_expect_tx(full + st, kWBytes + L::kABytes);\n        unsigned char* w = smem + L::kW + st * kWBytes;\n        tma_load_2d(w, tm_w, full + st, c0, k0);\n        tma_load_2d(w + kBoxBytes, tm_w, full + st, c1, k0);\n        tma_load_2d(smem + L::kA + st * L::kABytes, &tm_x, full + st, k0, row0);\n      }\n    }\n",
-     "  if (tid >= kConsumers) {\n    // ---- producer warp: one lane streams the split's weight and x tiles;\n    // all 32 lanes turn each landed x tile into bf16 xn in place and\n    // signal it ready, off the consumers' path\n    const int pl = tid - kConsumers;\n    auto issue = [&](int i) {\n      const int st = i % kStages;\n      const int k0 = (c_begin + i) * kKC;\n      mbar_expect_tx(full + st, kWBytes + L::kABytes);\n      unsigned char* w = smem + L::kW + st * kWBytes;\n      tma_load_2d(w, tm_w, full + st, c0, k0);\n      tma_load_2d(w + kBoxBytes, tm_w, full + st, c1, k0);\n      tma_load_2d(smem + L::kA + st * L::kABytes, &tm_x, full + st, k0, row0);\n    };\n    cluster_arrive();  // nothing to publish for the norm\n    if (pl == 0)\n      for (int i = 0; i < min(kStages, n); ++i) issue(i);\n    __syncwarp();\n    cluster_wait();  // every rank's sums are in place\n    // every rank's sums, in rank order: the same rsqrt on every rank\n    for (int r = pl; r < MT * 16; r += 32) {\n      double total = 0.0;\n      for (int q = 0; q < kSplits; ++q) total += cluster.map_shared_rank(s_ss, q)[r];\n      s_rs[r] = (float)(1.0 / sqrt(total / a.H + (double)a.eps));\n    }\n"),
+    (QF, "  if (tid >= kConsumers) {\n    // ---- producer warp: nothing to publish for the norm; one lane streams\n    // the split's weight and x tiles\n    cluster_arrive();\n    if (tid == kConsumers) {\n      for (int i = 0; i < n; ++i) {\n        const int st = i % kStages;\n        const int k0 = (c_begin + i) * kKC;\n        mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);  // the first round passes at once\n        mbar_expect_tx(full + st, (kInt8 ? kQBytes : kWBytes) + L::kABytes);\n        unsigned char* w = kInt8 ? smem + L::kQ + st * kQBytes : smem + L::kW + st * kWBytes;\n        tma_load_2d(w, tm_w, full + st, c0, k0);\n        tma_load_2d(w + (kInt8 ? kQBoxBytes : kBoxBytes), tm_w, full + st, c1, k0);\n        tma_load_2d(smem + L::kA + st * L::kABytes, &tm_x, full + st, k0, row0);\n      }\n    }\n",
+     "  if (tid >= kConsumers) {\n    // ---- producer warp: one lane streams the split's weight and x tiles;\n    // all 32 lanes turn each landed x tile into bf16 xn in place and\n    // signal it ready, off the consumers' path\n    const int pl = tid - kConsumers;\n    auto issue = [&](int i) {\n      const int st = i % kStages;\n      const int k0 = (c_begin + i) * kKC;\n      mbar_expect_tx(full + st, (kInt8 ? kQBytes : kWBytes) + L::kABytes);\n      unsigned char* w = kInt8 ? smem + L::kQ + st * kQBytes : smem + L::kW + st * kWBytes;\n      tma_load_2d(w, tm_w, full + st, c0, k0);\n      tma_load_2d(w + (kInt8 ? kQBoxBytes : kBoxBytes), tm_w, full + st, c1, k0);\n      tma_load_2d(smem + L::kA + st * L::kABytes, &tm_x, full + st, k0, row0);\n    };\n    cluster_arrive();  // nothing to publish for the norm\n    if (pl == 0)\n      for (int i = 0; i < min(kStages, n); ++i) issue(i);\n    __syncwarp();\n    cluster_wait();  // every rank's sums are in place\n    // every rank's sums, in rank order: the same rsqrt on every rank\n    for (int r = pl; r < MT * 16; r += 32) {\n      double total = 0.0;\n      for (int q = 0; q < kSplits; ++q) total += cluster.map_shared_rank(s_ss, q)[r];\n      s_rs[r] = (float)(1.0 / sqrt(total / a.H + (double)a.eps));\n    }\n"),
     (QF, '    __syncwarp();\n    cluster_wait();\n  } else {\n',
      "    __syncwarp();\n    for (int i = 0; i < n; ++i) {\n      const int st = i % kStages;\n      const int k0 = (c_begin + i) * kKC;\n      mbar_wait(full + st, (i / kStages) & 1);\n      // x -> bf16 xn in place: x * rsqrt, then * norm_w, one rounding\n      unsigned char* sa_p = smem + L::kA + st * L::kABytes;\n      for (int j = pl; j < MT * 16 * 8; j += 32) {\n        const int r = j >> 3;\n        const int ch = j & 7;\n        const int k = k0 + ch * 8;\n        if (k >= a.H) continue;  // TMA's zeros past H stay zeros\n        uint4* p = reinterpret_cast<uint4*>(sa_p + swz128(r, ch));\n        uint4 u = *p;\n        const uint4 wu = *reinterpret_cast<const uint4*>(s_w + (k - k_lo));\n        __nv_bfloat162* xv = reinterpret_cast<__nv_bfloat162*>(&u);\n        const __nv_bfloat162* wv = reinterpret_cast<const __nv_bfloat162*>(&wu);\n        const float rs = s_rs[r];\n#pragma unroll\n        for (int e = 0; e < 4; ++e) {\n          const float2 xf = __bfloat1622float2(xv[e]);\n          const float2 wf = __bfloat1622float2(wv[e]);\n          xv[e] = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(xf.x, rs), wf.x),\n                                        __fmul_rn(__fmul_rn(xf.y, rs), wf.y));\n        }\n        *p = u;\n      }\n      fence_proxy_async();  // before a later TMA write refills these bytes\n      __syncwarp();\n      if (pl == 0) {\n        mbar_arrive(ready + st);\n        // refill the slot of tile i - 1 once the consumers are done with it\n        const int j = i - 1 + kStages;\n        if (i >= 1 && j < n) {\n          mbar_wait(empty + (i - 1) % kStages, ((i - 1) / kStages) & 1);\n          issue(j);\n        }\n      }\n      __syncwarp();\n    }\n  } else {\n"),
     (QF, "      *reinterpret_cast<uint4*>(s_w + (k - k_lo)) = norm_w8(k);\n    cluster_arrive();\n    cluster_wait();\n    // every rank's sums, in rank order: the same rsqrt on every rank\n    if (tid < MT * 16) {\n      double total = 0.0;\n      for (int q = 0; q < kSplits; ++q) total += cluster.map_shared_rank(s_ss, q)[tid];\n      s_rs[tid] = (float)(1.0 / sqrt(total / a.H + (double)a.eps));\n    }\n    consumers_sync();\n\n",
      '      *reinterpret_cast<uint4*>(s_w + (k - k_lo)) = norm_w8(k);\n    cluster_arrive();  // the sums are published; the wait comes after the product\n\n'),
-    (QF, "      const int st = i % kStages;\n      const int k0 = (c_begin + i) * kKC;\n      mbar_wait(full + st, (i / kStages) & 1);\n      // x -> bf16 xn in place: x * rsqrt, then * norm_w, one rounding\n      unsigned char* sa_p = smem + L::kA + st * L::kABytes;\n      for (int j = tid; j < MT * 16 * 8; j += kConsumers) {\n        const int r = j >> 3;\n        const int ch = j & 7;\n        const int k = k0 + ch * 8;\n        if (k >= a.H) continue;  // TMA's zeros past H stay zeros\n        uint4* p = reinterpret_cast<uint4*>(sa_p + swz128(r, ch));\n        uint4 u = *p;\n        const uint4 wu = *reinterpret_cast<const uint4*>(s_w + (k - k_lo));\n        __nv_bfloat162* xv = reinterpret_cast<__nv_bfloat162*>(&u);\n        const __nv_bfloat162* wv = reinterpret_cast<const __nv_bfloat162*>(&wu);\n        const float rs = s_rs[r];\n#pragma unroll\n        for (int e = 0; e < 4; ++e) {\n          const float2 xf = __bfloat1622float2(xv[e]);\n          const float2 wf = __bfloat1622float2(wv[e]);\n          xv[e] = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(xf.x, rs), wf.x),\n                                        __fmul_rn(__fmul_rn(xf.y, rs), wf.y));\n        }\n        *p = u;\n      }\n      fence_proxy_async();  // before a later TMA write refills these bytes\n      consumers_sync();     // every row of xn is in place\n      const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);\n",
-     '      const int st = i % kStages;\n      mbar_wait(ready + st, (i / kStages) & 1);  // landed, and x normalised\n      __syncwarp();\n      const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);\n'),
-    (QF, '      const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);\n      const uint32_t sa = smem_u32(sa_p);\n#pragma unroll\n',
-     '      const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);\n      const uint32_t sa = smem_u32(smem + L::kA + st * L::kABytes);\n#pragma unroll\n'),
+    (QF, "      const int st = i % kStages;\n      const int k0 = (c_begin + i) * kKC;\n      mbar_wait(full + st, (i / kStages) & 1);\n" + _QKV_SMEM_NORMALISE,
+     "      const int st = i % kStages;\n      mbar_wait(ready + st, (i / kStages) & 1);  // landed, and x normalised\n      __syncwarp();\n      unsigned char* sa_p = smem + L::kA + st * L::kABytes;\n"),
+    _QKV_STAGE_SYNC,
     (QF, '    }\n    consumers_sync();  // every warp is done with the ring: it becomes the partial tile\n',
      "    }\n    cluster_wait();    // the norm's exchange (arrived before the product)\n    consumers_sync();  // every warp is done with the ring: it becomes the partial tile\n"),
 ]
@@ -280,7 +281,7 @@ _PV_F32 = """        float pw[2][16];
                   __shfl_sync(0xffffffffu, s[t][e], (lane & ~3) | q4);
 #pragma unroll
         for (int k = 0; k < 16; ++k) {
-          const __nv_bfloat16* vk = sv + (c * 16 + k) * kS + tig * 2;
+          const __nv_bfloat16* vk = cv + k * rs + tig * 2;
 #pragma unroll
           for (int n = 0; n < D / 8; ++n) {
             const float2 vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vk + n * 8));
@@ -331,6 +332,10 @@ VARIANTS = {
     "paged/row_copy": ("paged", [
         (PA, "  return D;  // unpadded: page runs land as they lie in the cache",
          "  return D + 8;  // padded rows"),
+        (PA, "  constexpr int kRowB = D * kEB;      // bytes per cached K / V row",
+         "  constexpr int kRowB = kInt8 ? D : kS * 2;  // ring bytes per K / V row"),
+        (PA, "      if (lane == 0) mbar_expect_tx(&full[st], (uint32_t)n * kRowB * 2);",
+         "      if (lane == 0) mbar_expect_tx(&full[st], (uint32_t)n * D * kEB * 2);"),
         (PA, _PAGE_RUNS, _ROWS),
     ], "one bulk copy per key row into padded rows (no bank conflicts)"),
     "paged/pv_f32": ("paged", [(PA, _PV_MMA, _PV_F32)],
@@ -362,12 +367,12 @@ VARIANTS = {
                                "the producer warp normalises each landed x tile and signals it ready; "
                                "the consumers only run ldmatrix + mma (4 stages)"),
     "qkv/register_normalise": ("qkv", [
-        (QF, _QKV_SMEM_NORMALISE, "      const uint32_t sw = smem_u32(smem + L::kW + st * kWBytes);\n"
-                                  "      const uint32_t sa = smem_u32(smem + L::kA + st * L::kABytes);\n"),
+        (QF, _QKV_SMEM_NORMALISE, "      unsigned char* sa_p = smem + L::kA + st * L::kABytes;\n"),
+        _QKV_STAGE_SYNC,
         (QF, "          ldsm_x4_at(af[mt], sa + swz128(mt * 16 + (mat & 1) * 8 + (lane & 7), kk * 2 + (mat >> 1)));\n",
          _QKV_REGISTER_NORMALISE),
     ], "A fragments of raw x normalised in registers after ldmatrix (no shared rewrite, "
-       "proxy fence or consumer barrier per stage)"),
+       "proxy fence or consumer barrier per stage in the bf16 mode)"),
     "oproj/design": ("oproj", [], "as shipped: 64 columns, 4 splits, 3 stages"),
     "oproj/splits8_stages4": ("oproj", _oproj(64, 8, 4), "the first design: 8 splits, 4 stages"),
     "oproj/splits8": ("oproj", _oproj(64, 8, 3), "8 splits (512 blocks)"),

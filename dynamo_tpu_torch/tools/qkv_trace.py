@@ -43,12 +43,12 @@ extern "C" int qkv_trace_clear() {{
   cudaGetSymbolAddress(&p, g_trace);
   return cudaMemset(p, 0, sizeof(g_trace));
 }}
-namespace {{
+namespace qkv {{
 """
 
 # (text in fused_qkv_rope.cu, what it becomes)
 EDITS = [
-    ("namespace {\n\nconstexpr int kCols", _HEADER + "\nconstexpr int kCols"),
+    ("namespace qkv {\n", _HEADER),
     ("  __shared__ float s_rs[kRowGroup];  // rsqrt(mean(x^2) + eps) per row\n  if (tid == 0) {\n",
      "  __shared__ float s_rs[kRowGroup];  // rsqrt(mean(x^2) + eps) per row\n  if (tid == 0) {\n"
      "    TR(0); unsigned sm; asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));"

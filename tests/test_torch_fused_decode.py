@@ -97,15 +97,19 @@ def test_plain_fused_attn_out_residual_matches_pallas_and_unfused(M):
 
 
 def test_fused_heads_refuse_int8_weights_and_partial_out():
+    """The int8 mode is ported (tests/test_torch_int8.py), but one head
+    takes all of its weights int8 or none of them: a mixed head is refused,
+    as is a mantissa that is not int8; partial_out (the tensor-parallel raw
+    partial) is not ported yet."""
     x = torch.zeros(2, HIDDEN)
     w = torch.zeros(HIDDEN, HQ * D)
     q8 = {"q": w.to(torch.int8), "s": torch.ones(HQ * D)}
     cs = torch.zeros(2, D // 2)
     kw = dict(eps=EPS, num_heads=HQ, num_kv_heads=HQ, head_dim=D)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="all of its weights int8"):
         tlin.fused_qkv_rope(x, x[0], q8, w, w, cs, cs, **kw)
-    with pytest.raises(NotImplementedError):
-        tlin.fused_attn_out_residual(x, q8, x)
+    with pytest.raises(TypeError, match="int8 mantissas"):
+        tlin.fused_attn_out_residual(x, {"q": w.T, "s": torch.ones(HIDDEN)}, x)
     with pytest.raises(NotImplementedError):
         tlin.fused_attn_out_residual(x, w.T, x, partial_out=True)
 

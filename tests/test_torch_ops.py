@@ -134,7 +134,9 @@ def test_op_matches_jax(name):
 
 
 def test_linear_rejects_int8_weights():
+    """int8 weights are ported (tests/test_torch_int8.py); a {"q", "s"}
+    container whose mantissas are not int8 is refused, not misread."""
     from dynamo_tpu_torch.ops.linear import linear
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="int8 mantissas"):
         linear(torch.zeros(2, 4), {"q": torch.zeros(4, 4), "s": torch.ones(4)})

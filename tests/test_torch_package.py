@@ -58,9 +58,37 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
                 "preprocessor.py", "backend.py", "protocols/openai.py", "run.py",
                 "entrypoint/inputs.py"):
         assert f"dynamo_tpu_torch/{mod}" in scanned
-    # every kernel the counters cover has its source beside the package
+    # every kernel the counters cover has its source beside the package, and
+    # the build makes it: an int8 mode is its bf16 source's second entry point
+    from dynamo_tpu_torch.ops import _build
+
     for name in kernels.KERNELS:
-        assert (ROOT / "dynamo_tpu_torch" / "csrc" / f"{name}.cu").is_file()
+        stem = name.removesuffix("_int8")
+        src = ROOT / "dynamo_tpu_torch" / "csrc" / f"{stem}.cu"
+        assert src.is_file() and stem in _build.SOURCES
+        assert f'extern "C" int {stem}_{"int8" if stem != name else "bf16"}(' in src.read_text()
+
+
+def _variant_edits():
+    from dynamo_tpu_torch.tools import kernel_variants, paged_trace, qkv_trace
+
+    out = [(f"variant:{n}", edits) for n, (_, edits, _) in kernel_variants.VARIANTS.items()]
+    out.append(("paged_trace", [("paged_attention.cuh", *e) for e in paged_trace.EDITS]))
+    out.append(("qkv_trace", [(qkv_trace.SRC, *e) for e in qkv_trace.EDITS]))
+    return out
+
+
+@pytest.mark.parametrize("name,edits", _variant_edits(), ids=[n for n, _ in _variant_edits()])
+def test_design_variant_and_trace_edits_match_the_shipped_sources(name, edits):
+    """Each text edit of the design variants and the trace tools matches its
+    source exactly once (applied in order), so every variant can still be
+    built and timed beside the shipped kernel."""
+    csrc = ROOT / "dynamo_tpu_torch" / "csrc"
+    texts = {}
+    for fname, old, new in edits:
+        text = texts.get(fname) or (csrc / fname).read_text()
+        assert text.count(old) == 1, (name, fname, old[:60])
+        texts[fname] = text.replace(old, new)
 
 
 def _need_no_card():
@@ -89,14 +117,17 @@ def test_kernel_wrappers_refuse_cpu_tensors_instead_of_falling_back():
         K.paged_decode_attention_cuda(q, cache, cache, tables, lens)
     with pytest.raises(ValueError):
         K.flash_prefill_attention_cuda(q, cache[0, :2], cache[0, :2], 2)
-    with pytest.raises(NotImplementedError):
-        K.paged_decode_attention_cuda(q, cache, cache, tables, lens, k_scales=lens)
+    scales = torch.ones(2, 4)
+    with pytest.raises(ValueError):
+        K.paged_decode_attention_int8_cuda(q, cache.to(torch.int8), cache.to(torch.int8),
+                                           tables, lens, scales, scales)
     q4 = q[:, None].expand(2, 3, 8, 128).contiguous()
     pos = torch.arange(3, dtype=torch.int32).repeat(2, 1)
     with pytest.raises(ValueError):
         K.paged_verify_attention_cuda(q4, cache, cache, tables, pos)
-    with pytest.raises(NotImplementedError):
-        K.paged_verify_attention_cuda(q4, cache, cache, tables, pos, v_scales=lens)
+    with pytest.raises(ValueError):
+        K.paged_verify_attention_int8_cuda(q4, cache.to(torch.int8), cache.to(torch.int8),
+                                           tables, pos, scales, scales)
     x = torch.zeros(2, 256, dtype=torch.bfloat16)
     w = torch.zeros(256, 256, dtype=torch.bfloat16)
     cs = torch.zeros(2, 64)
@@ -105,6 +136,12 @@ def test_kernel_wrappers_refuse_cpu_tensors_instead_of_falling_back():
                                num_heads=2, num_kv_heads=1, head_dim=128)
     with pytest.raises(ValueError):
         KL.fused_attn_out_residual_cuda(x, w, x)
+    w8 = {"q": w.to(torch.int8), "s": torch.ones(256, dtype=torch.bfloat16)}
+    with pytest.raises(ValueError):
+        KL.fused_qkv_rope_int8_cuda(x, x[0], w8, w8, w8, cs, cs, eps=1e-5,
+                                    num_heads=2, num_kv_heads=2, head_dim=128)
+    with pytest.raises(ValueError):
+        KL.fused_attn_out_residual_int8_cuda(x, w8, x)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -124,6 +161,19 @@ def test_cpu_tensors_take_the_plain_versions():
     L.fused_qkv_rope(x, x[0], w, w[:, :32], w[:, :32], torch.zeros(4, 8), torch.zeros(4, 8),
                      eps=1e-5, num_heads=4, num_kv_heads=2, head_dim=16)
     L.fused_attn_out_residual(x, w, x)
+    # the int8 modes too: an int8-resident cache and int8 weights
+    from dynamo_tpu_torch.ops import kv_quant
+
+    kc = kv_quant.make_cache((2, 3, 4, 16), torch.float32, quantized=True)
+    A.paged_decode_attention(q, kc, kc, torch.ones(4, 1, dtype=torch.int32),
+                             torch.ones(4, dtype=torch.int32))
+    A.paged_verify_attention(torch.randn(4, S, 8, 16), kc, kc, torch.ones(4, 1, dtype=torch.int32),
+                             torch.arange(S, dtype=torch.int32).repeat(4, 1))
+    w8 = L.quantize_int8(w)
+    L.fused_qkv_rope(x, x[0], w8, L.quantize_int8(w[:, :32]), L.quantize_int8(w[:, :32]),
+                     torch.zeros(4, 8), torch.zeros(4, 8),
+                     eps=1e-5, num_heads=4, num_kv_heads=2, head_dim=16)
+    L.fused_attn_out_residual(x, w8, x)
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
@@ -277,24 +327,46 @@ def test_fused_qkv_kernel_head_dims_and_groups_on_card(shape, M, bias):
                                a[bad][:4].tolist(), b[bad][:4].tolist())
 
 
+def _profiled(calls):
+    """calls()'s result and the device kernels it launched, (name, records),
+    under torch.profiler. On the H100 the profiler can drop a session's
+    first device record (after other sessions in the process), so a spin
+    kernel goes first and is left out of the list."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        out = calls()
+        torch.cuda.synchronize()
+    return out, [(e.key, e.count) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+
+
+def _poisoned_calls(call, n: int = 3) -> list:
+    """n call()s, each output allocated on bytes filled with NaN just
+    before (the caching allocator hands the freed block back), so a call
+    whose kernel did not write all of its output shows."""
+    outs = []
+    for _ in range(n):
+        poison = torch.full_like(outs[-1] if outs else call(), float("nan"))
+        del poison
+        outs.append(call())
+    torch.cuda.synchronize()
+    return outs
+
+
 @pytest.mark.cuda
 def test_fused_qkv_kernel_is_one_launch_on_card():
     """Norm, product, split-K sum, bias and RoPE in one kernel: the launch
     counter and the profiler both see one launch per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     _need_card()
     args, kw = _qkv_inputs(32, 4096, 32, 8, 128, True, seed=3)
     KL.fused_qkv_rope_cuda(*args, **kw)  # build and load first
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            KL.fused_qkv_rope_cuda(*args, **kw)
-        torch.cuda.synchronize()
+    _, device = _profiled(lambda: [KL.fused_qkv_rope_cuda(*args, **kw) for _ in range(3)])
     assert kernels.launch_counts()["fused_qkv_rope"] == 3
-    device = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     assert len(device) == 1 and "fused_qkv_rope_kernel<" in device[0][0], device
     assert device[0][1] == 3, device
 
@@ -562,6 +634,254 @@ def test_paged_kernels_allocate_only_output_and_partials_on_card(kernel):
     assert torch.cuda.max_memory_allocated() - before == sum(-(-n // 512) * 512 for n in sizes)
 
 
+# ------------------------------------------------- the int8 modes on the card
+
+
+def _int8_pages(kc: torch.Tensor, seed: int):
+    """An int8-resident cache of kc's shape: random mantissas and a random
+    f32 scale per (head, page), so every page of a context scales
+    differently."""
+    g = torch.Generator().manual_seed(seed)
+    hkv, nb = kc.shape[:2]
+    q = torch.randint(-127, 128, tuple(kc.shape), generator=g, dtype=torch.int8).cuda()
+    s = (0.002 + 0.02 * torch.rand(hkv, nb, generator=g)).cuda()
+    return q, s
+
+
+def _int8_decode_case(lens, G, D, bs, max_blocks, seed, hkv=2):
+    q, kc, _, tables, ctx = _decode_case(lens, G, D, bs, max_blocks, seed, hkv)
+    (kq, ks), (vq, vs) = _int8_pages(kc, seed + 1), _int8_pages(kc, seed + 2)
+    return (q, kq, vq, tables, ctx), dict(k_scales=ks, v_scales=vs)
+
+
+def _int8_verify_case(bases, S, G, D, bs, max_blocks, seed, hkv=2):
+    q, kc, _, tables, pos = _verify_case(bases, S, G, D, bs, max_blocks, seed, hkv)
+    (kq, ks), (vq, vs) = _int8_pages(kc, seed + 1), _int8_pages(kc, seed + 2)
+    return (q, kq, vq, tables, pos), dict(k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feature", sorted(FEATURES))
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("G,D", GROUP_DIMS)
+def test_int8_decode_kernel_matches_plain_on_card(G, D, bs, feature):
+    """#1's int8 mode over the bf16 mode's groups, head dims and edges
+    (contexts of 1, a page edge, a ring-stage edge, three stages, the
+    table's reach), every page scaled differently, at the bf16 mode's
+    tolerance."""
+    _need_card()
+    mb = 20
+    args, sc = _int8_decode_case([1, bs, bs + 1, 64, 65, 192, mb * bs], G, D, bs, mb,
+                                 seed=G * 100 + D + bs)
+    got = K.paged_decode_attention_int8_cuda(*args, sc["k_scales"], sc["v_scales"],
+                                             **FEATURES[feature])
+    want = A.paged_decode_attention_plain(*args, **sc, **FEATURES[feature])
+    torch.cuda.synchronize()
+    _close(got, want, DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 4, 8])
+@pytest.mark.parametrize("G,D", VERIFY_GROUP_DIMS)
+def test_int8_verify_kernel_matches_plain_on_card(G, D, S):
+    """#2's int8 mode over the bf16 mode's groups, head dims and draft
+    counts, lanes whose drafts stop early, window and softcap on one case."""
+    _need_card()
+    args, sc = _int8_verify_case([0, 15, 63, 200, 333], S, G, D, 16, 30, seed=G * 10 + D + S)
+    kw = FEATURES["window_softcap"] if (G, S) == (4, 4) else {}
+    got = K.paged_verify_attention_int8_cuda(*args, sc["k_scales"], sc["v_scales"], **kw)
+    want = A.paged_verify_attention_plain(*args, **sc, **kw)
+    torch.cuda.synchronize()
+    _close(got, want, DECODE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["decode", "verify"])
+def test_int8_paged_kernels_are_one_launch_and_bitwise_repeatable_on_card(kernel):
+    """One launch per call (the counter, and the profiler's one kernel
+    name), the same bits on every call, and no bf16 launch. Here the
+    profiler dropped one of the three records on the H100 after other
+    sessions in the process, so it bounds the records by the calls, and
+    each call's output, allocated on NaN bytes, shows that its kernel
+    ran."""
+    _need_card()
+    if kernel == "decode":
+        args, sc = _int8_decode_case([1, 300, 1777, 3001], 4, 128, 16, 200, seed=5, hkv=8)
+        fn = K.paged_decode_attention_int8_cuda
+    else:
+        args, sc = _int8_verify_case([3, 511, 1500, 2996], 4, 4, 128, 16, 200, seed=5, hkv=8)
+        fn = K.paged_verify_attention_int8_cuda
+    fn(*args, sc["k_scales"], sc["v_scales"])  # build and load first
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs, device = _profiled(lambda: [fn(*args, sc["k_scales"], sc["v_scales"]) for _ in range(3)])
+    counts = kernels.launch_counts()
+    assert counts[f"paged_{kernel}_attention_int8"] == 3
+    assert sum(counts.values()) == 3
+    assert len(device) == 1 and "paged_attention_kernel<" in device[0][0], device
+    assert 1 <= device[0][1] <= 3, device
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    kernels.reset_launch_counts()
+    poisoned = _poisoned_calls(lambda: fn(*args, sc["k_scales"], sc["v_scales"]))
+    assert kernels.launch_counts()[f"paged_{kernel}_attention_int8"] == 4
+    assert all(torch.isfinite(o.float()).all() and torch.equal(outs[0], o) for o in poisoned)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_raise_on_what_they_refuse_on_card():
+    """A head dim no kernel is built for, mantissas that are not int8 and
+    scale planes of the wrong shape raise; nothing launches, nothing falls
+    back to a plain version."""
+    _need_card()
+    kernels.reset_launch_counts()
+    args, sc = _int8_decode_case([17, 40], 4, 128, 16, 8, seed=9)
+    q, kq, vq, tables, ctx = args
+    q96 = torch.zeros(2, 8, 96, dtype=torch.bfloat16, device="cuda")
+    k96 = torch.zeros(2, kq.shape[1], 16, 96, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        K.paged_decode_attention_int8_cuda(q96, k96, k96, tables, ctx, sc["k_scales"],
+                                           sc["v_scales"])
+    with pytest.raises(TypeError):
+        K.paged_decode_attention_int8_cuda(q, kq.bfloat16(), vq.bfloat16(), tables, ctx,
+                                           sc["k_scales"], sc["v_scales"])
+    with pytest.raises(ValueError, match="k_scales"):
+        K.paged_decode_attention_int8_cuda(q, kq, vq, tables, ctx, sc["k_scales"][:, :3],
+                                           sc["v_scales"])
+    x = torch.zeros(8, 4096, dtype=torch.bfloat16, device="cuda")
+    w8 = {"q": torch.zeros(4096, 96 * 32, dtype=torch.int8, device="cuda"),
+          "s": torch.ones(96 * 32, dtype=torch.bfloat16, device="cuda")}
+    cs = torch.zeros(8, 48, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        KL.fused_qkv_rope_int8_cuda(x, x[0], w8, w8, w8, cs, cs, eps=1e-5, num_heads=32,
+                                    num_kv_heads=32, head_dim=96)
+    wo = {"q": torch.zeros(4096, 4000, dtype=torch.int8, device="cuda"),
+          "s": torch.ones(4000, dtype=torch.bfloat16, device="cuda")}
+    with pytest.raises(ValueError):
+        KL.fused_attn_out_residual_int8_cuda(x, wo, torch.zeros(8, 4000, dtype=torch.bfloat16,
+                                                                device="cuda"))
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def _quantized(w: torch.Tensor) -> dict:
+    return L.quantize_int8(w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 70, 96])
+@pytest.mark.parametrize("shape", sorted(QKV_SHAPES) + ["llama"])
+def test_int8_fused_qkv_kernel_matches_plain_on_card(shape, M, bias):
+    """#4's int8 mode at Llama-3.1-8B's heads, head dims 64 and 256 and a
+    group of 7, over one and two row groups, at the bf16 mode's tolerance."""
+    _need_card()
+    dims = QKV_SHAPES.get(shape, (4096, 32, 8, 128))
+    args, kw = _qkv_inputs(M, *dims, bias, seed=M + len(shape))
+    x, norm, wq, wk, wv, cos, sin = args
+    args = (x, norm, _quantized(wq), _quantized(wk), _quantized(wv), cos, sin)
+    got = KL.fused_qkv_rope_int8_cuda(*args, **kw)
+    want = L.fused_qkv_rope_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", got, want):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all()
+        err = (a - b).abs()
+        bad = err > 1e-2 + 2.0 ** -6 * b.abs()
+        assert not bad.any(), (name, int(bad.sum()), float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1024, 4096])
+@pytest.mark.parametrize("M", [1, 8, 32, 64, 70, 96])
+def test_int8_out_proj_kernel_matches_plain_on_card(M, H):
+    _need_card()
+    attn, wo, x = _out_proj_inputs(M, H, seed=M + H)
+    w8 = _quantized(wo)
+    got = KL.fused_attn_out_residual_int8_cuda(attn, w8, x).float()
+    want = L.fused_attn_out_residual_plain(attn, w8, x).float()
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= 1e-2 + 2.0 ** -6 * want.abs()).all()
+
+
+@pytest.mark.cuda
+def test_int8_fused_heads_are_one_launch_repeatable_and_allocate_only_outputs_on_card():
+    """Each int8 head: one launch per call (counted), the same bits on
+    every call, and only its outputs allocated."""
+    _need_card()
+    args, kw = _qkv_inputs(32, 4096, 32, 8, 128, True, seed=6)
+    x, norm, wq, wk, wv, cos, sin = args
+    qargs = (x, norm, _quantized(wq), _quantized(wk), _quantized(wv), cos, sin)
+    attn, wo, xo = _out_proj_inputs(32, 4096, seed=7)
+    w8 = _quantized(wo)
+    calls = {"fused_qkv_rope_int8": lambda: KL.fused_qkv_rope_int8_cuda(*qargs, **kw),
+             "fused_attn_out_residual_int8": lambda: KL.fused_attn_out_residual_int8_cuda(
+                 attn, w8, xo)}
+    for name, call in calls.items():
+        call()  # build and load first
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first = call()
+        torch.cuda.synchronize()
+        outs = first if isinstance(first, tuple) else (first,)
+        sizes = [t.numel() * t.element_size() for t in outs]
+        assert torch.cuda.max_memory_allocated() - before == sum(-(-n // 512) * 512 for n in sizes)
+        again = [call() for _ in range(2)]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts[name] == 3 and sum(counts.values()) == 3, counts
+        for o in again:
+            o = o if isinstance(o, tuple) else (o,)
+            assert all(torch.equal(a, b) for a, b in zip(outs, o))
+
+
+@pytest.mark.cuda
+def test_zero_size_calls_launch_nothing_and_count_nothing_on_card():
+    """Calls with nothing to compute (B = 0 or S = 0 attention, M = 0
+    heads), in both modes, return empty outputs of the right shape without a
+    launch, so every counter stays at 0."""
+    _need_card()
+    q, kc, vc, tables, ctx = _decode_case([17, 40], 4, 128, 16, 8, seed=3)
+    (kq, ks), (vq, vs) = _int8_pages(kc, 4), _int8_pages(kc, 5)
+    qv, _, _, vtables, pos = _verify_case([3, 20], 4, 4, 128, 16, 8, seed=3)
+    x_args, kw = _qkv_inputs(8, 1024, 16, 2, 64, False, seed=3)
+    x, norm, wq, wk, wv, cos, sin = x_args
+    w8 = [_quantized(w) for w in (wq, wk, wv)]
+    attn, wo, xo = _out_proj_inputs(8, 1024, seed=3)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = [
+        K.paged_decode_attention_cuda(q[:0], kc, vc, tables[:0], ctx[:0]),
+        K.paged_decode_attention_int8_cuda(q[:0], kq, vq, tables[:0], ctx[:0], ks, vs),
+        K.paged_verify_attention_cuda(qv[:0], kc, vc, vtables[:0], pos[:0]),
+        K.paged_verify_attention_cuda(qv[:, :0], kc, vc, vtables, pos[:, :0]),
+        K.paged_verify_attention_int8_cuda(qv[:0], kq, vq, vtables[:0], pos[:0], ks, vs),
+        K.paged_verify_attention_int8_cuda(qv[:, :0], kq, vq, vtables, pos[:, :0], ks, vs),
+        *KL.fused_qkv_rope_cuda(x[:0], norm, wq, wk, wv, cos[:0], sin[:0], **kw),
+        *KL.fused_qkv_rope_int8_cuda(x[:0], norm, *w8, cos[:0], sin[:0], **kw),
+        KL.fused_attn_out_residual_cuda(attn[:0], wo, xo[:0]),
+        KL.fused_attn_out_residual_int8_cuda(attn[:0], _quantized(wo), xo[:0]),
+    ]
+    torch.cuda.synchronize()
+    assert all(o.numel() == 0 for o in outs)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+@pytest.mark.cuda
+def test_int8_linear_on_card_equals_its_f32_product():
+    """The unfused int8 product on the card (bf16 x bf16 -> f32 cuBLAS, then
+    the scale in f32, then the cast) equals the same values' f32 product up
+    to the f32 summation order: at most one bf16 rounding apart."""
+    _need_card()
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(8, 4096, generator=g).bfloat16().cuda()
+    w8 = _quantized((0.02 * torch.randn(4096, 1024, generator=g)).bfloat16().cuda())
+    got = L.linear(x, w8).float()
+    want = ((x.float() @ w8["q"].float()) * w8["s"].float()).bfloat16().float()
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6).all()
+
+
 # ---------------------------- packed and chunked prefill ops, the reader, on the card
 
 ADMIT_KW = {"full": {}, "window": {"window": 100}, "softcap": {"scale": 0.1, "logit_softcap": 4.0}}
@@ -680,7 +1000,9 @@ def _host_reads(tree: ast.Module, entry: str, *imported: ast.Module) -> list[str
     return found
 
 
-@pytest.mark.parametrize("wrapper", ["paged_decode_attention_cuda", "paged_verify_attention_cuda"])
+@pytest.mark.parametrize("wrapper", ["paged_decode_attention_cuda", "paged_verify_attention_cuda",
+                                     "paged_decode_attention_int8_cuda",
+                                     "paged_verify_attention_int8_cuda"])
 def test_paged_wrappers_read_nothing_back_from_the_card(wrapper):
     """The decode and verify steps stay capturable by a CUDA graph: the
     wrappers (and the module's helpers they call) never read a tensor on the
@@ -691,7 +1013,9 @@ def test_paged_wrappers_read_nothing_back_from_the_card(wrapper):
     assert _host_reads(tree, wrapper) == []
 
 
-@pytest.mark.parametrize("wrapper", ["fused_qkv_rope_cuda", "fused_attn_out_residual_cuda"])
+@pytest.mark.parametrize("wrapper", ["fused_qkv_rope_cuda", "fused_attn_out_residual_cuda",
+                                     "fused_qkv_rope_int8_cuda",
+                                     "fused_attn_out_residual_int8_cuda"])
 def test_linear_wrappers_read_nothing_back_from_the_card(wrapper):
     """The fused heads too: their wrappers (and the helpers they import from
     ops/cuda_attention.py) never read a tensor on the host or synchronise."""
@@ -706,11 +1030,11 @@ def test_linear_wrappers_read_nothing_back_from_the_card(wrapper):
 RUNNER_PATH_MODULES = (
     "engine/torch_engine/model_runner.py", "models/llama.py", "ops/attention.py",
     "ops/sampling.py", "ops/layers.py", "ops/basics.py", "ops/linear.py",
-    "ops/cuda_attention.py", "ops/cuda_linear.py",
+    "ops/cuda_attention.py", "ops/cuda_linear.py", "ops/kv_quant.py",
 )
 
 
-def _host_reads_from(trees: list, entry: str) -> list[str]:
+def _host_reads_from(trees: list, entry: str, reads=HOST_READS) -> list[str]:
     """Like ``_host_reads``, over methods too: calls by bare name and by
     attribute (``self.decode``, ``llama.prefill_chunk``) are followed into
     every function or method of that name in ``trees``."""
@@ -730,7 +1054,7 @@ def _host_reads_from(trees: list, entry: str) -> list[str]:
                 if not isinstance(node, ast.Call):
                     continue
                 f = node.func
-                if isinstance(f, ast.Attribute) and f.attr in HOST_READS:
+                if isinstance(f, ast.Attribute) and f.attr in reads:
                     found.append(f"{name}: .{f.attr}()")
                 elif isinstance(f, ast.Attribute):
                     todo.append(f.attr)
@@ -751,6 +1075,25 @@ def test_admission_runner_methods_read_nothing_back_from_the_card(method):
     assert _host_reads_from(trees, method) == []
     # the scan does reach a read where there is one
     assert _host_reads_from(trees, "fetch_sample") != []
+
+
+# calls whose result size depends on the data: the card would be read back
+DATA_SIZED = {"unique", "nonzero", "unique_consecutive", "masked_select", "argwhere"}
+
+
+@pytest.mark.parametrize("entry", ["write_tokens_quant", "write_blocks_quant", "linear",
+                                   "write_decode_kv", "write_prefill_kv",
+                                   "chunked_prefill_attention", "fused_qkv_rope",
+                                   "fused_attn_out_residual"])
+def test_int8_paths_read_nothing_back_from_the_card(entry):
+    """The int8 cache's writes (duplicate-safe through scatter_reduce, with
+    no unique or nonzero) and the int8 products read nothing back, so the
+    mixed and packed paths stay free of host reads with an int8 cache and
+    int8 weights."""
+    trees = [ast.parse((ROOT / "dynamo_tpu_torch" / m).read_text()) for m in RUNNER_PATH_MODULES]
+    assert _host_reads_from(trees, entry, HOST_READS | DATA_SIZED) == []
+    bad = ast.parse("def w(x):\n    return x[x.nonzero()]\n")
+    assert _host_reads_from([bad], "w", HOST_READS | DATA_SIZED) == ["w: .nonzero()"]
 
 
 def test_host_read_scan_finds_a_read_in_a_helper():
