@@ -15,6 +15,14 @@ Phases, each of which must pass or the script exits non-zero:
                 drafts stop early, and a bias case; then #1-#4 at Qwen2-7B
                 heads (Hq 28, Hkv 4: G 7) and Gemma-2-9B heads (Hq 16,
                 Hkv 8, D 256), hidden 3584;
+  3b. parity_tp -- #5's partial_out mode (the tensor-parallel o-projection:
+                the raw f32 partial, no scale, no residual) against its plain
+                version, bf16 weights and int8 mantissas, at per-rank shapes:
+                Llama-3.1-8B tp=2 ([M, 2048] @ [2048, 4096]), one ring chunk of
+                it (N 2048, a strided column slice) and Llama-3.1-70B tp=8
+                ([M, 1024] @ [1024, 8192]), M = 8 and 32, at PARTIAL_TOL; the
+                times phase times both modes at those shapes beside their bound
+                and a cuBLAS yardstick.
   4. serve   -- TorchEngine built by build_torch_engine at the full width of
                 Llama-3.1-8B (random bf16 weights from a seed), fused decode
                 and spec decode off, 8 concurrent generate() calls, one of
@@ -91,6 +99,22 @@ Phases, each of which must pass or the script exits non-zero:
                 alive beside the server (started as the server's is),
                 medians and the per-pair difference. Also the host time
                 of templating + tokenizing a 2000-token prompt.
+
+ 11. serve_tp -- tensor-parallel serving on one card (before serve_http):
+                build_torch_engine(tensor_parallel_size=2, tp_backend="gloo",
+                tp_devices=["cuda:0", "cuda:0"], fused_decode=True) at full
+                width, bf16 then int8 weights + int8 KV, each beside a one-card
+                engine on the same seeded weights: the first decode step's
+                logits within TP_LOGIT_TOL of the one-card engine's, four of
+                serve's requests served to the end, every rank's #1, #4 and 5p
+                (5pq) launched 32 x fused steps (summed over both ranks' counters,
+                the followers' read back through the step channel), the share of
+                greedy tokens that agree with one card, the B=8 step's time on
+                both, its collective share and each rank's peak memory; then a
+                one-rank NCCL group runs a fused step with
+                DYN_COLLECTIVE_OVERLAP=1 (the ring with zero hops). Two ranks on
+                one card over gloo check correctness and say nothing of
+                collective speed across cards.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -2178,6 +2202,337 @@ def int8_engine_times(torch, np, int8_runner, bf16_runner, bf16_chunked_runner,
     return res
 
 
+# ------------------------------------------------------------ tensor parallel
+
+# #5's partial_out mode (the tensor-parallel o-projection) counts under
+# these names; both are entry points of #5's source
+TP_KERNELS = ("fused_attn_out_partial", "fused_attn_out_partial_int8")
+# the raw f32 partial has no bf16 cast, so only the split-K summation order
+# differs from the plain version: |d| <= 1e-3 + 2^-10 |plain|
+PARTIAL_TOL = (1e-3, 2.0 ** -10)
+# per-rank shapes (K, N, row stride, first column): Llama-3.1-8B tp=2's o-proj
+# shard, one ring chunk of it (a strided column slice), Llama-3.1-70B tp=8's
+PARTIAL_SHAPES = {
+    "llama31_8b_tp2": (HQ * D // 2, HIDDEN, HIDDEN, 0),
+    "llama31_8b_tp2_ring_chunk": (HQ * D // 2, HIDDEN // 2, HIDDEN, HIDDEN // 2),
+    "llama31_70b_tp8": (64 * D // 8, 8192, 8192, 0),
+}
+TP = 2
+TP_BLOCKS = 2112  # per rank: two ranks share the card, so the pool is set here
+TP_REQUESTS = (0, 2, 4, 7)  # serve's 16-, 300-, 800- and 2000-token prompts
+# the tp=2 engine's first decode step against the one-card engine's on the
+# same weights: every row within 2^-4 of that row's largest |logit| (each
+# of 32 layers rounds the bf16 residual stream in other places: prefill
+# sums the ranks' f32 partials before the one cast where one card casts a
+# bf16 product, and the sums run in another order; int8 adds the per-block
+# KV scales, which follow the values written)
+TP_LOGIT_TOL = 2.0 ** -4
+
+
+def partial_inputs(torch, M: int, K: int, N: int, ldw: int, col: int, seed: int):
+    """attn [M, K] bf16 and a [K, N] column slice (first column ``col``) of
+    a [K, ldw] bf16 weight and of its int8 mantissas."""
+    from dynamo_tpu_torch.ops.linear import quantize_int8
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    attn = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    full = (torch.randn(K, ldw, generator=g, device="cuda") / K ** 0.5).to(torch.bfloat16)
+    return attn, full[:, col:col + N], quantize_int8(full)["q"][:, col:col + N]
+
+
+def phase_parity_tp(torch) -> dict:
+    """5p and 5pq against their plain version on the card at the per-rank
+    shapes of PARTIAL_SHAPES, M = 8 and 32, at PARTIAL_TOL."""
+    from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops import linear as L
+
+    errs = dict.fromkeys(TP_KERNELS, 0.0)
+    for shape, (K, N, ldw, col) in PARTIAL_SHAPES.items():
+        for M in (8, 32):
+            attn, w, q8 = partial_inputs(torch, M, K, N, ldw, col, seed=90 + M + K // 64)
+            for name, fn, ww in ((TP_KERNELS[0], KL.fused_attn_out_partial_cuda, w),
+                                 (TP_KERNELS[1], KL.fused_attn_out_partial_int8_cuda, q8)):
+                got = fn(attn, ww)
+                torch.cuda.synchronize()
+                e = compare(torch, f"{name}/{shape}/M{M}", got,
+                            L.fused_attn_out_partial_plain(attn, ww), PARTIAL_TOL)
+                errs[name] = max(errs[name], e)
+                log(f"parity {name} {shape} M={M} K={K} N={N} ldw={ldw}: max|d|={e:.3e} "
+                    f"(tol {PARTIAL_TOL[0]:g} + {PARTIAL_TOL[1]:g}|x|)")
+    return errs
+
+
+def partial_bound(M: int, K: int, N: int, w_bytes: int) -> tuple[float, str, float, float]:
+    """Least time for 5p / 5pq: the [K, N] weight (bf16 or int8) and the
+    [M, K] bf16 input read once, the [M, N] f32 output written once; 2 M K N
+    tensor-core operations (the int8 mantissas are widened to bf16)."""
+    nbytes = K * N * w_bytes + M * K * 2 + M * N * 4
+    flops = 2 * M * K * N
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", nbytes, flops
+
+
+def tp_partial_times(torch, card: str) -> dict:
+    """5p and 5pq at M = 8 (the B=8 fused step) and 32 at each per-rank
+    shape: kernel, plain, and the library yardstick: one cuBLAS bf16
+    product with f32 output (torch.mm(..., out_dtype=torch.float32)) over
+    the same shard, for 5pq over the mantissas widened to bf16
+    beforehand."""
+    from dynamo_tpu_torch.ops import cuda_linear as KL
+    from dynamo_tpu_torch.ops import linear as L
+
+    flush = make_flush(torch)
+    rows = {}
+    for shape, (K, N, ldw, col) in PARTIAL_SHAPES.items():
+        for M in (8, 32):
+            attn, w, q8 = partial_inputs(torch, M, K, N, ldw, col, seed=95 + M)
+            wide = q8.to(torch.bfloat16)
+            for name, fn, ww, lib_w, wb in (
+                    (TP_KERNELS[0], KL.fused_attn_out_partial_cuda, w, w, 2),
+                    (TP_KERNELS[1], KL.fused_attn_out_partial_int8_cuda, q8, wide, 1)):
+                t_k = time_ms(torch, lambda: fn(attn, ww), flush=flush)
+                t_p = time_ms(torch, lambda: L.fused_attn_out_partial_plain(attn, ww), flush=flush)
+                t_l = time_ms(torch, lambda: torch.mm(attn, lib_w, out_dtype=torch.float32),
+                              flush=flush)
+                b_ms, b_by, nbytes, flops = partial_bound(M, K, N, wb)
+                rows[f"{name}/{shape}/M{M}"] = {
+                    "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": b_ms,
+                    "bound_by": b_by, "bytes": nbytes, "flops": flops,
+                    "ratio_to_library": t_k["median"] / t_l["median"],
+                    "library": "torch.mm(attn, w, out_dtype=torch.float32) over the same shard"
+                               + (" (mantissas widened to bf16 beforehand)" if wb == 1 else ""),
+                    "shape": f"M={M} K={K} N={N} ldw={ldw} {'int8' if wb == 1 else 'bf16'} w",
+                }
+    for name, row in rows.items():
+        print(json.dumps({"kernel_time": name, "card": card, **row}), flush=True)
+        log(f"{name} {row['shape']}: {row['ms']['median']:.4f} ms, bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']}), plain {row['plain_ms']['median']:.4f} ms, library "
+            f"{row['library_ms']['median']:.4f} ms ({card})")
+    return rows
+
+
+def step_inputs(np, runner, prompts):
+    """A packed prefill of ``prompts`` (blocks from 1 on; at most the
+    runner's 512-token buffer) and the decode step after it:
+    (pack_prefill's arrays, decode arrays)."""
+    from dynamo_tpu_torch.ops.sampling import MAX_EOS_IDS
+
+    bs = runner.block_size
+    specs, tables, nxt = [], [], 1
+    for p in prompts:
+        n = -(-(len(p) + 1) // bs)
+        blocks = list(range(nxt, nxt + n))
+        nxt += n
+        specs.append((p, blocks, 0.0, 1.0, 0, 1.0, np.zeros(2, np.int64),
+                      np.full(MAX_EOS_IDS, -1, np.int64), False))
+        tables.append(blocks)
+    B = len(prompts)
+    table = np.zeros((B, runner.max_blocks_per_seq), np.int32)
+    for i, b in enumerate(tables):
+        table[i, :len(b)] = b
+    pos = np.array([len(p) for p in prompts], np.int64)
+    slots = table[np.arange(B), pos // bs].astype(np.int64) * bs + pos % bs
+    return runner.pack_prefill(specs), (np.arange(B, dtype=np.int64) + 7, pos, table, slots)
+
+
+def first_step_logits(torch, np, runner, prompts):
+    """The logits of the decode step right after a packed prefill of
+    ``prompts`` (every rank runs both through the engine's runner)."""
+    packed, (toks, pos, table, slots) = step_inputs(np, runner, prompts)
+    runner.fetch_sample(runner.prefill_packed_arrays(**packed))
+    with torch.inference_mode():
+        return runner.decode_logits(toks, pos, table, slots).float().cpu()
+
+
+TP_STEP_PROMPTS = 8  # the B=8 step: 8 prompts of 64 tokens
+
+
+def tp_step_times(torch, np, runner, reps: int = 5) -> dict:
+    """Wall time of the B=8 fused decode step through the engine's runner
+    (host clock around decode + fetch; on a tensor-parallel runner every
+    rank runs it) and, with a group, the leader's host time inside its
+    collectives and the bytes it staged through host memory per step."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, LLAMA31_8B["vocab_size"], 64).tolist() for _ in range(TP_STEP_PROMPTS)]
+    packed, (toks, pos, table, slots) = step_inputs(np, runner, prompts)
+    B = len(prompts)
+    args = (np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int64))
+    runner.fetch_sample(runner.prefill_packed_arrays(**packed))
+    runner.fetch_sample(runner.decode(toks, pos, table, slots, *args))  # warm
+    group = getattr(runner, "group", None)
+    times, coll, staged = [], [], []
+    for _ in range(reps):
+        c0 = group.seconds if group else 0.0
+        b0 = group.staged_bytes if group else 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.fetch_sample(runner.decode(toks, pos, table, slots, *args))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if group:
+            coll.append((group.seconds - c0) * 1e3)
+            staged.append(group.staged_bytes - b0)
+    out = {"step_ms": statistics.median(times), "step_ms_all": times, "B": B, "ctx": 64}
+    if group:
+        out.update(collective_ms=statistics.median(coll), staged_bytes=staged[0],
+                   collective_share=statistics.median(coll) / statistics.median(times))
+    return out
+
+
+def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason) -> dict:
+    """One leg of serve_tp: the one-card engine (reference logits and
+    tokens), then the tp=2 engine on the same seeded weights, two ranks on
+    cuda:0 over gloo; checks and reads each rank's counters."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.ops import kernels
+
+    kw = dict(max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0, fused_decode=True,
+              spec_k=0, quantize=quant, kv_dtype="int8" if quant else "bf16",
+              num_blocks=TP_BLOCKS)
+    tag = "int8" if quant else "bf16"
+    rng = np.random.default_rng(3)
+    probe = [rng.integers(0, LLAMA31_8B["vocab_size"], n).tolist() for n in (16, 100, 300)]
+
+    one = build_torch_engine(LLAMA31_8B, device="cuda", **kw)
+    want = first_step_logits(torch, np, one.runner, probe)
+    one_steps = tp_step_times(torch, np, one.runner)
+
+    async def serve(engine):
+        try:
+            return await run_requests(engine, reqs, Context)
+        finally:
+            await engine.close()
+
+    one_out = asyncio.run(serve(one))
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = build_torch_engine(LLAMA31_8B, device="cuda", tensor_parallel_size=TP,
+                                tp_backend="gloo", tp_devices=["cuda:0"] * TP, **kw)
+    build_s = time.perf_counter() - t0
+    runner = engine.runner
+    got = first_step_logits(torch, np, runner, probe)
+    err = (got - want).abs()
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    worst = float((err / scale).max())
+    if not torch.isfinite(got).all() or worst > TP_LOGIT_TOL:
+        raise SmokeError(f"serve_tp/{tag}: first-step logits {worst:.4f} of the row's max "
+                         f"apart from the one-card engine's (tol {TP_LOGIT_TOL})")
+    argmax_same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    steps = tp_step_times(torch, np, runner)
+    # every rank's counters to 0 just before the path, read just after
+    runner.rank_stats(reset=True)
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = asyncio.run(run_requests(engine, reqs, Context))
+    wall = time.perf_counter() - t1
+    stats = copy.deepcopy(vars(engine.stats))
+    ranks = runner.rank_stats()
+    asyncio.run(engine.close())
+    if [p.exitcode for p in runner._processes] != [0] * (TP - 1):
+        raise SmokeError(f"serve_tp/{tag}: followers ended {[p.exitcode for p in runner._processes]}")
+    for i, ((toks, reason, _), req) in enumerate(zip(out, reqs)):
+        if reason is not FinishReason.LENGTH or len(toks) != req.stop.max_tokens:
+            raise SmokeError(f"serve_tp/{tag} request {i}: {len(toks)} tokens, reason {reason}")
+    L = LLAMA31_8B["num_hidden_layers"]
+    fused_steps = stats["decode_steps"] + stats["mixed_steps"]
+    sfx = "_int8" if quant else ""
+    per_rank = L * fused_steps
+    for r, st in enumerate(ranks):
+        lc = st["launches"]
+        for k in (f"paged_decode_attention{sfx}", f"fused_qkv_rope{sfx}",
+                  f"fused_attn_out_partial{sfx}"):
+            if lc[k] != per_rank:
+                raise SmokeError(f"serve_tp/{tag} rank {r}: {k} launched {lc[k]} times, "
+                                 f"expected {L} x {fused_steps} fused steps")
+        moved = {k for k, v in lc.items() if v}
+        if moved != {f"paged_decode_attention{sfx}", f"fused_qkv_rope{sfx}",
+                     f"fused_attn_out_partial{sfx}"}:
+            raise SmokeError(f"serve_tp/{tag} rank {r}: unexpected kernels moved: {lc}")
+    launches = {k: sum(st["launches"][k] for st in ranks) for k in kernels.KERNELS}
+    if launches[f"fused_attn_out_partial{sfx}"] != L * fused_steps * TP:
+        raise SmokeError(f"serve_tp/{tag}: 5p launches {launches} != {L} x {fused_steps} x {TP}")
+    n_tok = sum(len(t) for t, _, _ in one_out)
+    agree = sum(a == b for (x, _, _), (y, _, _) in zip(one_out, out) for a, b in zip(x, y)) / n_tok
+    # random weights leave near-tied logits: after one flipped token a
+    # request's continuation differs, so the first divergence is reported too
+    diverge = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+               for (x, _, _), (y, _, _) in zip(one_out, out)]
+    res = {
+        "weights": tag, "build_s": build_s, "requests": len(reqs), "stats": stats,
+        "wall_s": wall, "output_tok_per_s": sum(len(t) for t, _, _ in out) / wall,
+        "first_step_max_rel_err": worst, "first_step_argmax_same": argmax_same,
+        "greedy_token_agreement": agree, "first_divergence": diverge,
+        "rank_launches": [st["launches"] for st in ranks],
+        "rank_peak_mem_bytes": [st.get("peak_mem_bytes") for st in ranks],
+        "rank_staged_bytes": [st["staged_bytes"] for st in ranks],
+        "rank_collective_s": [st["collective_s"] for st in ranks],
+        "step_tp2": steps, "step_one_card": one_steps, "launches_summed": launches,
+    }
+    log(f"serve_tp/{tag}: {len(reqs)} requests in {wall:.2f} s, {stats['mixed_steps']} mixed + "
+        f"{stats['decode_steps']} decode steps, {stats['packed_prefills']} packed prefills; "
+        f"first-step logits within {worst:.4f} of the row max (argmax same {argmax_same:.3f}); "
+        f"greedy tokens agreeing with one card {agree:.3f} (first divergence per request "
+        f"{diverge}); 5p launches {launches[f'fused_attn_out_partial{sfx}']}"
+        f" (= {L} x {fused_steps} x {TP}); B=8 step {steps['step_ms']:.1f} ms (one card "
+        f"{one_steps['step_ms']:.1f} ms), collectives {steps['collective_ms']:.1f} ms of it; "
+        f"peak memory per rank {[round(m / 1e9, 2) for m in res['rank_peak_mem_bytes']]} GB ({card})")
+    print(json.dumps({"serve_tp": res, "card": card}), flush=True)
+    return res
+
+
+def phase_serve_tp(torch, np, card: str) -> dict:
+    """Tensor-parallel serving on one card: build_torch_engine(
+    tensor_parallel_size=2, tp_backend="gloo", tp_devices=["cuda:0",
+    "cuda:0"], fused_decode=True) at full width on the default path, bf16
+    then int8 weights + int8 KV (four of serve's requests each); then a
+    one-rank NCCL group running fused steps with DYN_COLLECTIVE_OVERLAP=1
+    (the ring with zero hops). Two ranks on one card over gloo check
+    correctness; their times say nothing of collective speed across cards."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    every = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
+    reqs = [every[i] for i in TP_REQUESTS]
+    legs = {tag: serve_tp_leg(torch, np, card, quant, reqs, Context, FinishReason)
+            for tag, quant in (("bf16", False), ("int8", True))}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one rank over NCCL, the ring tail from DYN_COLLECTIVE_OVERLAP
+    os.environ["DYN_COLLECTIVE_OVERLAP"] = "1"
+    try:
+        engine = build_torch_engine(LLAMA31_8B, device="cuda", tensor_parallel_size=1,
+                                    tp_backend="nccl", max_batch=8, max_model_len=MAX_MODEL_LEN,
+                                    seed=0, fused_decode=True, spec_k=0, num_blocks=TP_BLOCKS)
+    finally:
+        del os.environ["DYN_COLLECTIVE_OVERLAP"]
+    runner = engine.runner
+    if runner.group.backend != "nccl" or not runner.config.collective_overlap:
+        raise SmokeError(f"serve_tp/nccl: group {runner.group}, overlap "
+                         f"{runner.config.collective_overlap}")
+    runner.rank_stats(reset=True)
+    kernels.reset_launch_counts()
+    packed, (toks, pos, table, slots) = step_inputs(np, runner, [list(range(1, 40))])
+    runner.fetch_sample(runner.prefill_packed_arrays(**packed))
+    tok = runner.fetch_sample(runner.decode(toks, pos, table, slots, np.zeros(1, np.float32),
+                                            np.ones(1, np.float32), np.zeros(1, np.int64)))[0]
+    (st,) = runner.rank_stats()
+    asyncio.run(engine.close())
+    L = LLAMA31_8B["num_hidden_layers"]
+    want = {**dict.fromkeys(kernels.KERNELS, 0), "paged_decode_attention": L,
+            "fused_qkv_rope": L, "fused_attn_out_partial": L}
+    if st["launches"] != want or not 0 <= int(tok[0]) < LLAMA31_8B["vocab_size"]:
+        raise SmokeError(f"serve_tp/nccl: launches {st['launches']} != {want}, token {tok}")
+    log(f"serve_tp/nccl: one rank over NCCL ran a fused step with the ring tail (zero hops): "
+        f"{L} 5p launches, token {int(tok[0])} ({card})")
+    return {"legs": legs, "nccl_one_rank": {"launches": st["launches"], "token": int(tok[0])}}
+
+
 # ------------------------------------------------------------- serve_http
 
 SERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_http")
@@ -2759,6 +3114,7 @@ def main() -> int:
         # 3. parity
         errs = phase_parity(torch)
         errs.update(phase_parity_int8(torch))
+        errs.update(phase_parity_tp(torch))
 
         # 4. serve and 5. serve_spec (each path's counters set to 0 just
         # before it, read just after)
@@ -2793,11 +3149,22 @@ def main() -> int:
         int8_engine_times(torch, np, int8_runner, fused_runner, default_engine.runner, card)
         rows = phase_kernel_times(torch, card)
         rows.update(phase_kernel_times_int8(torch, card))
+        rows.update(tp_partial_times(torch, card))
         log(f"peak device memory during serve: {served['peak_mem_bytes'] / 1e9:.2f} GB")
 
         # 10. serve_http: the CLI's HTTP server in a process of its own, so
         # this process's engines leave the card first
         del engine, default_engine, fused_runner, spec, served, default, int8_runner, int8
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 11. serve_tp: two ranks on this card over gloo, then one over
+        # NCCL (every rank's counters set to 0 just before each leg's
+        # requests, read just after)
+        tp = phase_serve_tp(torch, np, card)
+        launches.update({k: tp["legs"][w]["launches_summed"][k]
+                         for k, w in zip(TP_KERNELS, ("bf16", "int8"))})
+        for k in TP_KERNELS:  # the B=8 step's row of Llama-3.1-8B tp=2's shard
+            rows[k] = rows[f"{k}/llama31_8b_tp2/M8"]
         gc.collect()
         torch.cuda.empty_cache()
         log(f"device memory held before the server starts: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -2820,13 +3187,18 @@ def main() -> int:
         "paged_verify_attention_int8": "dynamo_tpu/ops/pallas_attention.py:452",
         "fused_qkv_rope_int8": "dynamo_tpu/ops/linear.py:206",
         "fused_attn_out_residual_int8": "dynamo_tpu/ops/linear.py:334",
+        # the partial_out branch of the same Pallas program (linear.py:321-325)
+        "fused_attn_out_partial": "dynamo_tpu/ops/linear.py:334",
+        "fused_attn_out_partial_int8": "dynamo_tpu/ops/linear.py:334",
     }
+    from dynamo_tpu_torch.ops.kernels import SOURCES
+
     kernels = []
     for name, replaced in replaces.items():
         # the fused heads' row is at the verify step's shape (M = 32)
         row = rows.get(name) or rows[f"{name}/M32"]
         kernels.append({
-            "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{name.removesuffix('_int8')}.cu",
+            "name": name, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{SOURCES[name][0]}.cu",
             "replaces": replaced, "launches": launches[name],
             "max_abs_err": errs[name], "ms": row["ms"]["median"],
             "plain_ms": row["plain_ms"]["median"],

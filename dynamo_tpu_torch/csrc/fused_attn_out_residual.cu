@@ -1,13 +1,20 @@
 // Fused attention-output projection + residual add for Hopper (sm_90a),
 // bf16 activations, bf16 weights or int8 weights with per-output-channel
-// bf16 scales, f32 accumulation, one launch. Both modes are instantiations
-// of one kernel (kInt8), each with its own entry point below.
+// bf16 scales, f32 accumulation, one launch. Every mode is an instantiation
+// of one kernel (kInt8, kPartial), each with its own entry point below.
 //
 // Replaces: dynamo_tpu/ops/linear.py::fused_attn_out_residual (kernel body
-// _fused_out_kernel, partial_out=False, both modes). For M rows:
+// _fused_out_kernel, both modes, partial_out False and True). For M rows:
 //   out = x + bf16(attn @ wo)          int8: x + bf16((attn @ q) * s)
 // with the product accumulated in f32, (the scale applied in f32,) cast to
 // bf16, and the residual added after the cast, in bf16 (linear.py:327-331).
+// The partial_out mode (kPartial, the tensor-parallel path's row-parallel
+// o-projection, linear.py:321-325) stores the raw f32 product attn @ w of
+// the rank's shard: no scale (an int8 w is only widened), no cast, no
+// residual; the caller sums the ranks' partials before finishing. Its w may
+// be a column slice of a wider matrix (leading dimension ldw >= N): the ring
+// tail hands it one column chunk of wo per ring step without a copy, since
+// the TMA tensor map takes the row stride as it is.
 //
 // What bounds it on an H100: weight bytes. wo is 4096 x 4096 bf16 =
 // 33.6 MB per layer at Llama-3.1-8B width, 10.0 us at 3.35 TB/s (int8:
@@ -40,8 +47,10 @@
 //     slot in the swizzled layout the product reads, and meet at a barrier
 //     before the product; the split-K sum is multiplied by the channel's
 //     scale in f32 before the cast and the residual add.
-// Not yet (later work): the raw f32 partial_out mode of the tensor-parallel
-// path (A9).
+//   * the partial_out mode keeps this design; only the epilogue differs: the
+//     split-K sum is stored as f32. Weight bytes still bound it: the rank's
+//     wo shard at Llama-3.1-8B tp=2 is 2048 x 4096, 16.8 MB of bf16
+//     (5.0 us at 3.35 TB/s; int8 8.4 MB, 2.5 us).
 #include <cooperative_groups.h>
 
 #include "hopper_common.cuh"
@@ -79,13 +88,13 @@ struct OutLayout {
   static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;
 };
 
-template <int MT, bool kInt8>
+template <int MT, bool kInt8, bool kPartial>
 __global__ void __cluster_dims__(1, kSplits, 1) __launch_bounds__(kThreads)
 out_proj_residual_kernel(const __grid_constant__ CUtensorMap tm_a,  // attn [M, K], box (64, MT*16)
-                         const __grid_constant__ CUtensorMap tm_w,  // wo [K, H], box (64, 64)
-                         const __nv_bfloat16* __restrict__ x,       // [M, H]
+                         const __grid_constant__ CUtensorMap tm_w,  // wo [K, H] (row stride ldw), box (64, 64)
+                         const __nv_bfloat16* __restrict__ x,       // [M, H]; partial: null
                          const __nv_bfloat16* __restrict__ wscale,  // int8 mode: [H]; else null
-                         __nv_bfloat16* __restrict__ out,           // [M, H]
+                         void* __restrict__ out,                    // [M, H] bf16; partial: f32
                          int M, int K, int H) {
   using L = OutLayout<MT, kInt8>;
   cg::cluster_group cluster = cg::this_cluster();
@@ -215,17 +224,21 @@ out_proj_residual_kernel(const __grid_constant__ CUtensorMap tm_a,  // attn [M, 
 #pragma unroll
     for (int q = 0; q < kSplits; ++q) s = __fadd_rn(s, cluster.map_shared_rank(red, q)[r * kCols + c]);
     const size_t o = (size_t)(row0 + r) * H + col0 + c;
-    if constexpr (kInt8) s = __fmul_rn(s, __bfloat162float(wscale[col0 + c]));  // f32, before the cast
-    const float y = __bfloat162float(__float2bfloat16(s));
-    out[o] = __float2bfloat16(__fadd_rn(__bfloat162float(x[o]), y));
+    if constexpr (kPartial) {
+      static_cast<float*>(out)[o] = s;  // the raw f32 partial: no scale, cast or residual
+    } else {
+      if constexpr (kInt8) s = __fmul_rn(s, __bfloat162float(wscale[col0 + c]));  // f32, before the cast
+      const float y = __bfloat162float(__float2bfloat16(s));
+      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(__fadd_rn(__bfloat162float(x[o]), y));
+    }
   }
   // no block leaves while a peer may still read its partials
   cluster.sync();
 }
 
-template <int MT, bool kInt8>
+template <int MT, bool kInt8, bool kPartial>
 cudaError_t launch(const void* attn, const void* wo, const void* wscale, const void* x, void* out,
-                   int M, int K, int H, cudaStream_t stream) {
+                   int M, int K, int H, int ldw, cudaStream_t stream) {
   using L = OutLayout<MT, kInt8>;
   // the tensor maps carry the pointers and M, so they are built per call
   CUtensorMap ta, tw;
@@ -233,7 +246,7 @@ cudaError_t launch(const void* attn, const void* wo, const void* wscale, const v
   const cuuint64_t sa[1] = {(cuuint64_t)K * 2};
   const cuuint32_t ba[2] = {kKC, MT * 16};
   const cuuint64_t dw[2] = {(cuuint64_t)H, (cuuint64_t)K};
-  const cuuint64_t sw[1] = {(cuuint64_t)H * (kInt8 ? 1 : 2)};
+  const cuuint64_t sw[1] = {(cuuint64_t)ldw * (kInt8 ? 1 : 2)};
   const cuuint32_t bw[2] = {64, kKC};
   int err = make_tensor_map_bf16(&ta, attn, 2, da, sa, ba);
   if (!err)
@@ -241,29 +254,33 @@ cudaError_t launch(const void* attn, const void* wo, const void* wscale, const v
                 : make_tensor_map_bf16(&tw, wo, 2, dw, sw, bw);
   if (err) return static_cast<cudaError_t>(err);
   const cudaError_t e = cudaFuncSetAttribute(
-      out_proj_residual_kernel<MT, kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+      out_proj_residual_kernel<MT, kInt8, kPartial>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid(H / kCols, kSplits, (M + kRowGroup - 1) / kRowGroup);
-  out_proj_residual_kernel<MT, kInt8><<<grid, kThreads, L::kBytes, stream>>>(
-      ta, tw, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wscale),
-      static_cast<__nv_bfloat16*>(out), M, K, H);
+  out_proj_residual_kernel<MT, kInt8, kPartial><<<grid, kThreads, L::kBytes, stream>>>(
+      ta, tw, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wscale), out,
+      M, K, H);
   return cudaGetLastError();
 }
 
 // out = x + bf16(attn @ wo) (int8: x + bf16((attn @ wo) * wscale)), attn
 // [M, K], wo [K, H] (bf16, or int8 with bf16 scales [H]), x / out [M, H],
-// all 16-byte aligned; K a multiple of 32, H of 128.
-template <bool kInt8>
+// all 16-byte aligned; K a multiple of 32, H of 128. Partial mode: out =
+// f32 attn @ wo, no x, no scale; wo's rows ldw elements apart (ldw >= H,
+// ldw bytes a multiple of 16).
+template <bool kInt8, bool kPartial>
 int run(const void* attn, const void* wo, const void* wscale, const void* x, void* out, int M,
-        int K, int H, void* stream) {
-  if (M <= 0 || K <= 0 || K % 32 || H <= 0 || H % 128 || (kInt8 && !wscale))
+        int K, int H, int ldw, void* stream) {
+  if (M <= 0 || K <= 0 || K % 32 || H <= 0 || H % 128 || ldw < H ||
+      (ldw * (kInt8 ? 1 : 2)) % 16 || (kInt8 && !kPartial && !wscale) || (!kPartial && !x))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (std::min((M + 15) / 16, kRowGroup / 16)) {
-    case 1: return launch<1, kInt8>(attn, wo, wscale, x, out, M, K, H, s);
-    case 2: return launch<2, kInt8>(attn, wo, wscale, x, out, M, K, H, s);
-    case 3: return launch<3, kInt8>(attn, wo, wscale, x, out, M, K, H, s);
-    default: return launch<4, kInt8>(attn, wo, wscale, x, out, M, K, H, s);
+    case 1: return launch<1, kInt8, kPartial>(attn, wo, wscale, x, out, M, K, H, ldw, s);
+    case 2: return launch<2, kInt8, kPartial>(attn, wo, wscale, x, out, M, K, H, ldw, s);
+    case 3: return launch<3, kInt8, kPartial>(attn, wo, wscale, x, out, M, K, H, ldw, s);
+    default: return launch<4, kInt8, kPartial>(attn, wo, wscale, x, out, M, K, H, ldw, s);
   }
 }
 
@@ -274,7 +291,7 @@ int run(const void* attn, const void* wo, const void* wscale, const void* x, voi
 // 32, H of 128. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_attn_out_residual_bf16(const void* attn, const void* wo, const void* x,
                                             void* out, int M, int K, int H, void* stream) {
-  return oproj::run<false>(attn, wo, nullptr, x, out, M, K, H, stream);
+  return oproj::run<false, false>(attn, wo, nullptr, x, out, M, K, H, H, stream);
 }
 
 // C entry point bound with ctypes: fused_attn_out_residual_bf16's arguments
@@ -283,5 +300,24 @@ extern "C" int fused_attn_out_residual_bf16(const void* attn, const void* wo, co
 extern "C" int fused_attn_out_residual_int8(const void* attn, const void* wo, const void* wscale,
                                             const void* x, void* out, int M, int K, int H,
                                             void* stream) {
-  return oproj::run<true>(attn, wo, wscale, x, out, M, K, H, stream);
+  return oproj::run<true, false>(attn, wo, wscale, x, out, M, K, H, H, stream);
+}
+
+// C entry point bound with ctypes, the partial_out mode: out = attn @ w in
+// f32, attn [M, K] bf16, w [K, N] bf16 with rows ldw elements apart (a
+// column slice of a wider matrix), out [M, N] f32 contiguous; pointers
+// 16-byte aligned, K a multiple of 32, N of 128, ldw >= N and a multiple of
+// 8. Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int fused_attn_out_partial_bf16(const void* attn, const void* w, void* out, int M,
+                                           int K, int N, int ldw, void* stream) {
+  return oproj::run<false, true>(attn, w, nullptr, nullptr, out, M, K, N, ldw, stream);
+}
+
+// C entry point bound with ctypes: fused_attn_out_partial_bf16 over int8
+// mantissas w (ldw a multiple of 16), widened exactly to bf16 and never
+// scaled: the per-channel scale applies after the ranks' partials are
+// summed. Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int fused_attn_out_partial_int8(const void* attn, const void* w, void* out, int M,
+                                           int K, int N, int ldw, void* stream) {
+  return oproj::run<true, true>(attn, w, nullptr, nullptr, out, M, K, N, ldw, stream);
 }

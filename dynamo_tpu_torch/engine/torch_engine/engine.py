@@ -300,6 +300,8 @@ class TorchEngine:
         if self._loop_task is not None:
             await asyncio.gather(self._loop_task, return_exceptions=True)
         self._executor.shutdown(wait=True)
+        # a tensor-parallel leader stops its followers here
+        self.runner.shutdown()
 
     # ---------------------------------------------------------- schedule
 

@@ -44,9 +44,19 @@ single-device path:
     (:889, :909) and the verify pass (:778, :800-820) apply them; the token
     history goes up only when a lane has penalties.
 
+  * with a ``group`` (parallel/mesh.TPGroup) the runner is one rank of a
+    tensor-parallel engine: its params are the rank's Megatron slice, its
+    KV pool (and an int8 pool's scale planes) holds the rank's Hkv / tp kv
+    heads, and every model call issues the group's collectives, so every
+    rank must make the same calls in the same order
+    (parallel/multihost.SpmdModelRunner replays the leader's on the
+    followers, with the leader's sampling keys);
+    ``collective_overlap`` runs the fused decode step's tail as the ring
+    decomposition.
+
 Not ported yet: the decode horizon (also after a verify pass),
-disaggregated block moves (with their int8 extract / inject) and sharded
-meshes.
+disaggregated block moves (with their int8 extract / inject), and spec
+decode under tensor parallelism.
 """
 
 from __future__ import annotations
@@ -114,10 +124,14 @@ class TorchModelRunner:
         fused_decode: bool = False,
         prefill_chunk_tokens: int = 512,
         kv_dtype: str = "bf16",
+        group=None,
+        collective_overlap: bool = False,
     ) -> None:
         self.device = resolve_device(device)
+        self.group = group
         self.config = dataclasses.replace(
-            config, fused_decode=bool(fused_decode) or config.fused_decode
+            config, fused_decode=bool(fused_decode) or config.fused_decode,
+            collective_overlap=bool(collective_overlap) or config.collective_overlap,
         )
         self.params = params
         self.num_blocks = num_blocks
@@ -139,8 +153,9 @@ class TorchModelRunner:
         if kv not in ("bf16", "bfloat16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r} is neither 'bf16' nor 'int8'")
         self.kv_quantized = kv == "int8"
+        tp = 1 if group is None else group.world_size
         shape = (
-            config.num_layers, config.num_kv_heads, num_blocks, block_size,
+            config.num_layers, config.num_kv_heads // tp, num_blocks, block_size,
             config.head_dim,
         )
         dtype = params["embed"].dtype
@@ -208,7 +223,7 @@ class TorchModelRunner:
         tokens_d = self._dev(tokens, np.int64)
         logits = llama.prefill(
             self.params, self.config, tokens_d, T,
-            self.k_cache, self.v_cache, self._dev(table, np.int64),
+            self.k_cache, self.v_cache, self._dev(table, np.int64), group=self.group,
         )
         return self._sample_first(
             logits, tokens_d, T, key_data, temperature, top_p, top_k, rep_pen,
@@ -252,7 +267,7 @@ class TorchModelRunner:
         tokens_d = self._dev(tokens, np.int64)
         logits = llama.prefill_chunk(
             self.params, self.config, tokens_d, chunk_start, total_len,
-            self.k_cache, self.v_cache, self._dev(table, np.int64),
+            self.k_cache, self.v_cache, self._dev(table, np.int64), group=self.group,
         )
         n_in_chunk = min(max(total_len - chunk_start, 0), C)
         return self._sample_first(
@@ -351,7 +366,7 @@ class TorchModelRunner:
         logits = llama.prefill_packed(
             self.params, self.config, tokens_d, self._dev(positions, np.int64), seg_d,
             self._dev(slot_indices, np.int64), self.k_cache, self.v_cache,
-            self._dev(last_idx, np.int64),
+            self._dev(last_idx, np.int64), group=self.group,
         )
         # both are bitwise no-ops on neutral rows, so they are skipped when
         # every row is neutral
@@ -426,12 +441,7 @@ class TorchModelRunner:
         top_logprobs) device tensors, batch-major."""
         if keys is None:
             keys = self._next_decode_keys(len(tokens))
-        logits = llama.decode(
-            self.params, self.config,
-            self._dev(tokens, np.int64), self._dev(positions, np.int64),
-            self.k_cache, self.v_cache,
-            self._dev(block_tables, np.int32), self._dev(slot_indices, np.int64),
-        )
+        logits = self.decode_logits(tokens, positions, block_tables, slot_indices)
         if penalties is not None:
             hist, hist_len, prompt_len, freq, pres, rep, eos_ids, eos_sup = penalties
             logits = apply_penalties(
@@ -447,6 +457,22 @@ class TorchModelRunner:
         return sample_tokens_full(
             logits, *args, all_greedy=bool((np.asarray(temps) <= 0).all())
         )
+
+    @torch.inference_mode()
+    def decode_logits(self, tokens, positions, block_tables, slot_indices) -> torch.Tensor:
+        """The model half of ``decode``: one step's logits [B, V] (f32) on
+        the device, no sampling (what a check compares between engines)."""
+        return llama.decode(
+            self.params, self.config,
+            self._dev(tokens, np.int64), self._dev(positions, np.int64),
+            self.k_cache, self.v_cache,
+            self._dev(block_tables, np.int32), self._dev(slot_indices, np.int64),
+            group=self.group,
+        )
+
+    def shutdown(self) -> None:
+        """Release what the runner holds beyond its tensors: nothing on one
+        device (a tensor-parallel leader stops its followers here)."""
 
     @torch.inference_mode()
     def spec_verify(
@@ -496,6 +522,8 @@ class TorchModelRunner:
                 "decode steps chained after the verify pass (the horizon) are "
                 "not ported yet"
             )
+        if self.group is not None:
+            raise NotImplementedError("spec decode under tensor parallelism is not ported yet")
         S = spec_k + 1
         tokens = np.asarray(tokens, np.int64)
         B = tokens.shape[0]

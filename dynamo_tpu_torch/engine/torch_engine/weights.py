@@ -9,7 +9,10 @@ weights), ``final_norm`` and, unless the embeddings are tied, ``lm_head``
 [hidden, V]. With ``quantize`` the dense projections (and lm_head) become
 int8 ``{"q", "s"}`` leaves (ops/linear.quantize_int8), as the reference's
 ``maybe_quantize`` makes them; embeddings, norms and biases stay in
-``dtype``.
+``dtype``. A ``shard`` function (name, leaf) -> leaf, e.g. a
+tensor-parallel rank's ``parallel/sharding.shard_leaf``, is applied to each
+layer's leaves as soon as the layer exists, and to the top-level ones, so
+the rank keeps only its slice.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import glob
 import logging
 import math
 import os
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -30,6 +33,15 @@ from dynamo_tpu_torch.ops.linear import maybe_quantize
 
 logger = logging.getLogger("dynamo_tpu_torch.weights")
 
+Shard = Optional[Callable[[str, Any], Any]]
+
+
+def _cut(leaves: dict, shard: Shard) -> dict:
+    """``shard`` over a dict's leaves (``layers``, cut already, kept)."""
+    if shard is None:
+        return leaves
+    return {k: v if k == "layers" else shard(k, v) for k, v in leaves.items()}
+
 
 def load_or_init_params(
     model_dir: Optional[str],
@@ -39,6 +51,7 @@ def load_or_init_params(
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
     quantize: bool = False,
+    shard: Shard = None,
 ) -> dict:
     """The checkpoint in ``model_dir`` when it holds ``*.safetensors``,
     else seeded random weights (as the JAX loader does, with a warning when
@@ -46,9 +59,10 @@ def load_or_init_params(
     if model_dir:
         if glob.glob(os.path.join(model_dir, "*.safetensors")):
             return load_hf_safetensors(model_dir, cfg, device=device, dtype=dtype,
-                                       quantize=quantize)
+                                       quantize=quantize, shard=shard)
         logger.warning("%s has no *.safetensors; falling back to random init", model_dir)
-    return init_params(cfg, seed=seed, device=device, dtype=dtype, quantize=quantize)
+    return init_params(cfg, seed=seed, device=device, dtype=dtype, quantize=quantize,
+                       shard=shard)
 
 
 def load_hf_safetensors(
@@ -58,6 +72,7 @@ def load_hf_safetensors(
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
     quantize: bool = False,
+    shard: Shard = None,
 ) -> dict:
     """Map an HF Llama-family checkpoint (every ``*.safetensors`` file of
     the directory, as the reference globs a sharded one) onto the port's
@@ -123,7 +138,7 @@ def load_hf_safetensors(
             wu=lin(p + "mlp.up_proj.weight"),
             wd=lin(p + "mlp.down_proj.weight"),
         )
-        layers.append(layer)
+        layers.append(_cut(layer, shard))
     params = {
         "embed": get("model.embed_tokens.weight"),
         "layers": layers,
@@ -131,6 +146,7 @@ def load_hf_safetensors(
     }
     if not cfg.tie_word_embeddings and "lm_head.weight" in tensors:
         params["lm_head"] = lin("lm_head.weight")
+    params = _cut(params, shard)
     logger.info("loaded %s (%d tensors unused)", model_dir, len(tensors))
     return params
 
@@ -141,6 +157,7 @@ def init_params(
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
     quantize: bool = False,
+    shard: Shard = None,
 ) -> dict:
     """Random parameters with the JAX init's scales: dense weights
     N(0, 1/fan_in), embeddings N(0, 0.02^2), norm weights 1, biases 0. Drawn
@@ -190,7 +207,7 @@ def init_params(
             wu=dense((c.hidden_size, c.intermediate_size), c.hidden_size),
             wd=dense((c.intermediate_size, c.hidden_size), c.intermediate_size),
         )
-        layers.append(layer)
+        layers.append(_cut(layer, shard))
     embed = torch.randn(
         (c.vocab_size, c.hidden_size), generator=gen, device=dev, dtype=torch.float32
     )
@@ -201,7 +218,7 @@ def init_params(
     }
     if not c.tie_word_embeddings:
         params["lm_head"] = dense((c.hidden_size, c.vocab_size), c.hidden_size)
-    return params
+    return _cut(params, shard)
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:

@@ -22,12 +22,25 @@ they are given, IN PLACE, and return only the logits. Weights may be
 int8-quantized (``{"q", "s"}`` leaves, ops/linear.py): the dense products
 and the fused heads take either form. Attention and the fused decode heads run the hand-written CUDA
 kernels for CUDA tensors and the plain versions for CPU tensors
-(ops/attention.py, ops/linear.py). MoE layers and the meshed (tensor
-parallel) fused heads are not ported yet.
+(ops/attention.py, ops/linear.py). MoE layers are not ported yet.
+
+Tensor parallelism (dynamo_tpu/models/llama.py:397-520 under a mesh): every
+entry point but ``decode_verify`` takes an optional ``group``
+(parallel/mesh.TPGroup). Its parameters are then the rank's Megatron slice
+(parallel/sharding.py) and its caches hold the rank's Hkv / tp kv heads;
+each rank computes its Hq / tp query heads. The row-parallel products
+(``wo``, ``wd``) are summed over the group in f32 right after the product,
+before the int8 scale and the cast, where GSPMD puts the reference's
+all-reduce (dynamo_tpu/ops/linear.py:65-70); the vocab-split logits are
+all-gathered before sampling. Fused decode under a group runs the meshed
+heads of ops/collective.py, and with ``collective_overlap`` the ring tail,
+gated as the reference gates them (``_use_fused_decode`` /
+``_use_overlap_tail``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -48,9 +61,17 @@ from dynamo_tpu_torch.ops.attention import (
     write_prefill_kv,
 )
 from dynamo_tpu_torch.ops.basics import rms_norm, rope_freqs, swiglu
+from dynamo_tpu_torch.ops.collective import (
+    fused_attn_out_residual_meshed,
+    fused_qkv_rope_meshed,
+    fused_tail_overlap,
+)
 from dynamo_tpu_torch.ops.kv_quant import KVCache, cache_layer
 from dynamo_tpu_torch.ops.layers import attn_out, qkv_head
 from dynamo_tpu_torch.ops.linear import (
+    _finish,
+    _mm_f32,
+    _parts,
     fused_attn_out_residual,
     fused_qkv_rope,
     linear,
@@ -78,6 +99,10 @@ class LlamaConfig:
     # for layers without qk-norm or a sandwich post-attention norm (those
     # keep the unfused head). The kernels keep the unfused op sequence.
     fused_decode: bool = False
+    # DYN_COLLECTIVE_OVERLAP: under tensor parallelism, the fused decode
+    # step's post-attention tail runs as the ring decomposition of
+    # ops/collective.fused_tail_overlap (inert without a group)
+    collective_overlap: bool = False
     # Gemma-family: GeGLU FFN instead of SwiGLU ("gelu_tanh"), embeddings
     # scaled by sqrt(hidden) at lookup, and (1+w) RMSNorm weights — the
     # +1 is folded into the stored weights at load time, so the forward
@@ -291,50 +316,115 @@ def _layer_freqs(cfg, li, pair):
     return pair[1] if cfg.layer_window(li) is not None else pair[0]
 
 
-def _attn_prefill(x, layer, cfg, inv_freqs, positions, valid_len, k_cache_l, v_cache_l, block_table, li=0):
+def rank_config(cfg: LlamaConfig, group) -> LlamaConfig:
+    """The config of one rank's slice: its Hq / tp query and Hkv / tp kv
+    heads (everything else is the model's). The config itself without a
+    group."""
+    if group is None:
+        return cfg
+    tp = group.world_size
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                               num_kv_heads=cfg.num_kv_heads // tp)
+
+
+def _row_linear(h, w, group):
+    """A row-parallel product (``wo``, ``wd``): the rank's f32 partial,
+    summed over the group in f32, then the int8 scale and the cast, where
+    GSPMD puts the reference's all-reduce. Plain ``linear`` without a
+    group."""
+    if group is None:
+        return linear(h, w)
+    m, sc = _parts(w)
+    acc = group.all_reduce(_mm_f32(h, m.to(h.dtype)))
+    return _finish(acc, sc, None, h.dtype)
+
+
+def _attn_out(attn, x, layer, cfg, group):
+    """ops/layers.attn_out with the row-parallel o-projection under a
+    group (``cfg`` is the rank's)."""
+    if group is None:
+        return attn_out(attn, x, layer, cfg)
+    out = _row_linear(attn.reshape(x.shape[0], cfg.q_dim), layer["wo"], group)
+    if "post_attn_norm" in layer:
+        out = rms_norm(out, layer["post_attn_norm"], cfg.rms_eps)
+    return x + out
+
+
+def _attn_prefill(x, layer, cfg, inv_freqs, positions, valid_len, k_cache_l, v_cache_l, block_table, li=0, group=None):
     q, k, v = qkv_head(x, layer, cfg, inv_freqs, positions)
     write_prefill_kv(k_cache_l, v_cache_l, k, v, block_table)
     attn = causal_prefill_attention(
         q, k, v, valid_len, window=cfg.layer_window(li), scale=cfg.attn_scale,
         logit_softcap=cfg.attn_logit_softcap,
     )
-    return attn_out(attn, x, layer, cfg)
+    return _attn_out(attn, x, layer, cfg, group)
 
 
-def _use_fused_decode(cfg, layer) -> bool:
+def _use_fused_decode(cfg, layer, group=None) -> bool:
     """Fused decode applies when enabled and for layers the fused heads
-    cover exactly: no per-head qk-norm, no sandwich post-attention norm."""
-    return (
-        cfg.fused_decode
-        and "q_norm" not in layer
-        and "post_attn_norm" not in layer
-    )
+    cover exactly: no per-head qk-norm, no sandwich post-attention norm;
+    under a group also only when the heads split evenly (``cfg`` is the
+    model's)."""
+    if not cfg.fused_decode or "q_norm" in layer or "post_attn_norm" in layer:
+        return False
+    if group is None:
+        return True
+    tp = group.world_size
+    return cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0
 
 
-def _fused_qkv_dispatch(x, layer, cfg, inv_freqs, positions):
-    """The fused norm+QKV+RoPE head. cos / sin are computed exactly as
+def _use_overlap_tail(cfg, layer, group=None) -> bool:
+    """The ring tail replaces both the fused o-proj and the dense MLP, so it
+    needs a group, the fused heads, a plain dense FFN (no MoE router, no
+    post-MLP sandwich norm) and hidden / FFN widths that split into ring
+    chunks. Unlike the reference (tp > 1), a one-rank group qualifies: its
+    ring has zero hops."""
+    if not (
+        cfg.collective_overlap
+        and group is not None
+        and _use_fused_decode(cfg, layer, group)
+        and "router" not in layer
+        and "post_mlp_norm" not in layer
+    ):
+        return False
+    tp = group.world_size
+    return cfg.hidden_size % tp == 0 and cfg.intermediate_size % tp == 0
+
+
+def _fused_qkv_dispatch(x, layer, cfg, inv_freqs, positions, group=None):
+    """The fused norm+QKV+RoPE head, on the rank's head slice under a
+    group (``cfg`` is the rank's). cos / sin are computed exactly as
     apply_rope's angle formula; the rotation runs inside the fused head."""
     angles = positions[..., None].float() * inv_freqs
-    return fused_qkv_rope(
-        x, layer["attn_norm"], layer["wq"], layer["wk"], layer["wv"],
-        torch.cos(angles), torch.sin(angles),
-        eps=cfg.rms_eps, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+    kw = dict(
+        eps=cfg.rms_eps, head_dim=cfg.head_dim,
         bq=layer.get("bq"), bk=layer.get("bk"), bv=layer.get("bv"),
     )
+    args = (x, layer["attn_norm"], layer["wq"], layer["wk"], layer["wv"],
+            torch.cos(angles), torch.sin(angles))
+    if group is not None:
+        tp = group.world_size
+        return fused_qkv_rope_meshed(group, *args, num_heads=cfg.num_heads * tp,
+                                     num_kv_heads=cfg.num_kv_heads * tp, **kw)
+    return fused_qkv_rope(*args, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads, **kw)
 
 
-def _fused_out_dispatch(attn_flat, layer, x):
-    """The fused o-proj + residual head."""
+def _fused_out_dispatch(attn_flat, layer, x, group=None):
+    """The fused o-proj + residual head (under a group: the rank's f32
+    partial, summed, then scale, cast and residual)."""
+    if group is not None:
+        return fused_attn_out_residual_meshed(group, attn_flat, layer["wo"], x)
     return fused_attn_out_residual(attn_flat, layer["wo"], x)
 
 
-def _attn_decode(x, layer, cfg, inv_freqs, positions, context_lens, k_cache_l, v_cache_l, block_tables, slot_indices, li=0):
-    """One layer's decode attention, through the fused heads where
-    ``_use_fused_decode`` says so."""
-    fused = _use_fused_decode(cfg, layer)
+def _attn_decode(x, layer, cfg, inv_freqs, positions, context_lens, k_cache_l, v_cache_l,
+                 block_tables, slot_indices, li=0, group=None, fused=False, overlap_tail=False):
+    """One layer's decode attention (``cfg`` is the rank's), through the
+    fused heads when ``fused``. With ``overlap_tail`` the layer's whole
+    post-attention tail (o-proj, residual, MLP) runs as the ring
+    decomposition and the returned x is already post-MLP."""
     if fused:
-        q, k, v = _fused_qkv_dispatch(x, layer, cfg, inv_freqs, positions)
+        q, k, v = _fused_qkv_dispatch(x, layer, cfg, inv_freqs, positions, group)
     else:
         q, k, v = qkv_head(x, layer, cfg, inv_freqs, positions)
     write_decode_kv(k_cache_l, v_cache_l, k, v, slot_indices)
@@ -343,12 +433,18 @@ def _attn_decode(x, layer, cfg, inv_freqs, positions, context_lens, k_cache_l, v
         window=cfg.layer_window(li), scale=cfg.attn_scale,
         logit_softcap=cfg.attn_logit_softcap,
     )
-    if fused:
-        return _fused_out_dispatch(attn.reshape(x.shape[0], cfg.q_dim), layer, x)
-    return attn_out(attn, x, layer, cfg)
+    if not fused:
+        return _attn_out(attn, x, layer, cfg, group)
+    attn_flat = attn.reshape(x.shape[0], cfg.q_dim)
+    if overlap_tail:
+        return fused_tail_overlap(
+            group, attn_flat, layer["wo"], x, layer["mlp_norm"],
+            layer["wg"], layer["wu"], layer["wd"], eps=cfg.rms_eps, mlp_act=cfg.mlp_act,
+        )
+    return _fused_out_dispatch(attn_flat, layer, x, group)
 
 
-def _mlp(x, layer, cfg):
+def _mlp(x, layer, cfg, group=None):
     if "router" in layer:
         raise NotImplementedError("MoE layers are not ported yet")
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
@@ -358,19 +454,21 @@ def _mlp(x, layer, cfg):
         act = F.gelu(gate.float(), approximate="tanh").to(gate.dtype) * up
     else:
         act = swiglu(gate, up)
-    y = linear(act, layer["wd"])
+    y = _row_linear(act, layer["wd"], group)
     if "post_mlp_norm" in layer:  # Gemma2/3 sandwich norm
         y = rms_norm(y, layer["post_mlp_norm"], cfg.rms_eps)
     return x + y
 
 
-def _logits(x, params, cfg):
+def _logits(x, params, cfg, group=None):
     h = rms_norm(x, params["final_norm"], cfg.rms_eps)
     w = params.get("lm_head")
     if w is None:
         out = torch.matmul(h, params["embed"].T.to(h.dtype)).float()
     else:
         out = linear(h, w).float()
+        if group is not None:  # the rank's vocab block -> every rank's
+            out = group.all_gather(out, dim=-1)
     if cfg.final_logit_softcap is not None:  # Gemma2
         cap = cfg.final_logit_softcap
         out = cap * torch.tanh(out / cap)
@@ -385,19 +483,21 @@ def prefill(
     k_cache: KVCache,  # [L, Hkv, num_blocks, block_size, D] (or int8), written in place
     v_cache: KVCache,
     block_table: torch.Tensor,  # [P // block_size] block ids
+    group=None,  # a TPGroup: params / caches are this rank's slices
 ) -> torch.Tensor:
     """Process a prompt; writes its K/V into the caches and returns the last
     valid token's logits [V] (f32)."""
+    lc = rank_config(cfg, group)
     freqs = _rope_pair(cfg, tokens.device)
     positions = torch.arange(tokens.shape[0], device=tokens.device)
     x = _embed(params, cfg, tokens)
     for i, layer in enumerate(params["layers"]):
         x = _attn_prefill(
-            x, layer, cfg, _layer_freqs(cfg, i, freqs), positions, valid_len,
-            cache_layer(k_cache, i), cache_layer(v_cache, i), block_table, li=i,
+            x, layer, lc, _layer_freqs(cfg, i, freqs), positions, valid_len,
+            cache_layer(k_cache, i), cache_layer(v_cache, i), block_table, li=i, group=group,
         )
-        x = _mlp(x, layer, cfg)
-    return _logits(x[valid_len - 1][None, :], params, cfg)[0]
+        x = _mlp(x, layer, cfg, group)
+    return _logits(x[valid_len - 1][None, :], params, cfg, group)[0]
 
 
 def prefill_chunk(
@@ -409,18 +509,20 @@ def prefill_chunk(
     k_cache: KVCache,  # [L, Hkv, num_blocks, block_size, D] (or int8), written in place
     v_cache: KVCache,
     block_table: torch.Tensor,  # [max_nb] block ids of the whole prompt
+    group=None,  # a TPGroup: params / caches are this rank's slices
 ) -> torch.Tensor:
     """One chunk of a chunked prefill (dynamo_tpu/models/llama.py:670):
     each layer writes the chunk's K/V into the paged cache, then the chunk
     attends over everything written so far. Chunks run in order. Returns
     the logits [V] (f32) of the prompt's last valid token in this chunk,
     which mean something only on the final chunk."""
+    lc = rank_config(cfg, group)
     C = tokens.shape[0]
     freqs = _rope_pair(cfg, tokens.device)
     positions = chunk_start + torch.arange(C, device=tokens.device)
     x = _embed(params, cfg, tokens)
     for i, layer in enumerate(params["layers"]):
-        q, k, v = qkv_head(x, layer, cfg, _layer_freqs(cfg, i, freqs), positions)
+        q, k, v = qkv_head(x, layer, lc, _layer_freqs(cfg, i, freqs), positions)
         kl, vl = cache_layer(k_cache, i), cache_layer(v_cache, i)
         write_chunk_kv(kl, vl, k, v, block_table, chunk_start)
         attn = chunked_prefill_attention(
@@ -428,10 +530,10 @@ def prefill_chunk(
             window=cfg.layer_window(i), scale=cfg.attn_scale,
             logit_softcap=cfg.attn_logit_softcap,
         )
-        x = attn_out(attn, x, layer, cfg)
-        x = _mlp(x, layer, cfg)
+        x = _attn_out(attn, x, layer, lc, group)
+        x = _mlp(x, layer, cfg, group)
     idx = min(max(valid_len - 1 - chunk_start, 0), C - 1)
-    return _logits(x[idx][None, :], params, cfg)[0]
+    return _logits(x[idx][None, :], params, cfg, group)[0]
 
 
 def prefill_packed(
@@ -444,6 +546,7 @@ def prefill_packed(
     k_cache: KVCache,  # [L, Hkv, num_blocks, block_size, D] (or int8), written in place
     v_cache: KVCache,
     last_idx: torch.Tensor,  # [N] int64 index of each prompt's last token
+    group=None,  # a TPGroup: params / caches are this rank's slices
 ) -> torch.Tensor:
     """N short prompts packed into one [P] pass
     (dynamo_tpu/models/llama.py:715). Per-token flat slots route each
@@ -451,18 +554,19 @@ def prefill_packed(
     padding goes to the null slot 0) and attention is causal within a
     segment. Returns logits [N, V] (f32), one row per segment's last token;
     rows of unused ``last_idx`` entries read token 0 and are ignored."""
+    lc = rank_config(cfg, group)
     freqs = _rope_pair(cfg, tokens.device)
     x = _embed(params, cfg, tokens)
     for i, layer in enumerate(params["layers"]):
-        q, k, v = qkv_head(x, layer, cfg, _layer_freqs(cfg, i, freqs), positions)
+        q, k, v = qkv_head(x, layer, lc, _layer_freqs(cfg, i, freqs), positions)
         write_decode_kv(cache_layer(k_cache, i), cache_layer(v_cache, i), k, v, slot_indices)
         attn = packed_prefill_attention(
             q, k, v, segment_ids, window=cfg.layer_window(i), scale=cfg.attn_scale,
             logit_softcap=cfg.attn_logit_softcap,
         )
-        x = attn_out(attn, x, layer, cfg)
-        x = _mlp(x, layer, cfg)
-    return _logits(x[last_idx], params, cfg)
+        x = _attn_out(attn, x, layer, lc, group)
+        x = _mlp(x, layer, cfg, group)
+    return _logits(x[last_idx], params, cfg, group)
 
 
 def decode(
@@ -474,19 +578,27 @@ def decode(
     v_cache: KVCache,
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     slot_indices: torch.Tensor,  # [B] flat cache slots for the new token
+    group=None,  # a TPGroup: params / caches are this rank's slices
 ) -> torch.Tensor:
     """One decode step for a batch; writes the new K/V into the caches and
-    returns logits [B, V] (f32)."""
+    returns logits [B, V] (f32). Under a group with ``fused_decode`` each
+    layer runs the meshed fused heads, and with ``collective_overlap`` the
+    ring tail in place of the o-proj and the MLP."""
+    lc = rank_config(cfg, group)
     freqs = _rope_pair(cfg, tokens.device)
     context_lens = (positions + 1).to(torch.int32)
     x = _embed(params, cfg, tokens)
     for i, layer in enumerate(params["layers"]):
+        fused = _use_fused_decode(cfg, layer, group)
+        overlap = _use_overlap_tail(cfg, layer, group)
         x = _attn_decode(
-            x, layer, cfg, _layer_freqs(cfg, i, freqs), positions, context_lens,
-            cache_layer(k_cache, i), cache_layer(v_cache, i), block_tables, slot_indices, li=i,
+            x, layer, lc, _layer_freqs(cfg, i, freqs), positions, context_lens,
+            cache_layer(k_cache, i), cache_layer(v_cache, i), block_tables, slot_indices,
+            li=i, group=group, fused=fused, overlap_tail=overlap,
         )
-        x = _mlp(x, layer, cfg)
-    return _logits(x, params, cfg)
+        if not overlap:
+            x = _mlp(x, layer, cfg, group)
+    return _logits(x, params, cfg, group)
 
 
 def decode_verify(

@@ -12,7 +12,13 @@ bounds it on the card and how its design answers that):
     <- the same two programs' int8 mode (weights ``{"q": int8 [in, out],
     "s": bf16 [out]}``, the per-channel scale applied before the cast):
     the kernels' int8 instantiations, the second entry point of the same
-    two sources.
+    two sources;
+  * ``fused_attn_out_partial_cuda`` / ``fused_attn_out_partial_int8_cuda``
+    <- ``fused_attn_out_residual(partial_out=True)``, the tensor-parallel
+    path's raw f32 partial product of the rank's o-projection shard (bf16
+    weights, or int8 mantissas widened and never scaled); its weight may be
+    a column slice of a wider matrix (the ring tail's chunk of ``wo``),
+    whose row stride the kernel takes as it is: no copy per ring step.
 
 Both cut the contraction into splits so enough blocks stream the weights,
 and sum the splits inside one launch (a thread block cluster), so neither
@@ -43,6 +49,8 @@ _OUT_ARGTYPES = [_P] * 4 + [_I] * 3 + [_P]
 # the int8 modes: the weights' scales after the weights
 _QKV_INT8_ARGTYPES = [_P] * 16 + [_I] * 5 + [_F, _P]
 _OUT_INT8_ARGTYPES = [_P] * 5 + [_I] * 3 + [_P]
+# the partial_out mode: attn, w, out, then M, K, N and w's row stride
+_PARTIAL_ARGTYPES = [_P] * 3 + [_I] * 4 + [_P]
 GEMM_COLS = 128  # output widths: whole 128-column tiles (kCols of #4, H of #5)
 GEMM_KC = 32  # the o-projection's contraction: a multiple of this
 
@@ -247,3 +255,64 @@ def fused_attn_out_residual_int8_cuda(
 
 
 fused_attn_out_residual_int8_cuda.launches = 0
+
+
+def _fused_partial(counted, attn, w, int8: bool) -> torch.Tensor:
+    """One launch of #5's partial_out mode, counted on ``counted``: the f32
+    product attn @ w of an [M, K] bf16 attn and a [K, N] weight whose rows
+    may lie ``w.stride(0)`` elements apart (a column slice)."""
+    _device_ok(attn)
+    M, K = attn.shape
+    dev = attn.device
+    _check(attn, "attn", torch.bfloat16, 2, dev)
+    dtype = torch.int8 if int8 else torch.bfloat16
+    if w.device != dev:
+        raise ValueError(f"w is on {w.device}, expected {dev}")
+    if w.dtype != dtype:
+        raise TypeError(f"w must be {dtype}, got {w.dtype}")
+    if w.dim() != 2 or w.shape[0] != K:
+        raise ValueError(f"w is {tuple(w.shape)}, expected ({K}, N)")
+    N, ldw = w.shape[1], w.stride(0)
+    # TMA: the base and the row pitch 16-byte aligned, the columns contiguous
+    if w.stride(1) != 1 or ldw < N or (ldw * w.element_size()) % 16 or w.data_ptr() % 16:
+        raise ValueError(
+            f"w must have contiguous columns and 16-byte aligned rows (strides {w.stride()})")
+    problems = out_proj_shape_problems(K, N)
+    if problems:
+        raise ValueError("; ".join(problems))
+    out = torch.empty(M, N, dtype=torch.float32, device=dev)
+    if M == 0:
+        return out
+    lib = "fused_attn_out_residual"
+    fn = _fn(lib, "fused_attn_out_partial_int8" if int8 else "fused_attn_out_partial_bf16",
+             _PARTIAL_ARGTYPES)
+    err = fn(attn.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, ldw,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib)
+    counted.launches += 1
+    return out
+
+
+def fused_attn_out_partial_cuda(
+    attn: torch.Tensor,  # [M, K] bf16 flattened attention output (the rank's heads)
+    w: torch.Tensor,  # [K, N] bf16, rows w.stride(0) elements apart
+) -> torch.Tensor:
+    """#5's partial_out mode on the card: the raw f32 product attn @ w
+    ([M, N] f32), no scale, no cast, no residual."""
+    return _fused_partial(fused_attn_out_partial_cuda, attn, w, int8=False)
+
+
+fused_attn_out_partial_cuda.launches = 0
+
+
+def fused_attn_out_partial_int8_cuda(
+    attn: torch.Tensor,  # [M, K] bf16 flattened attention output (the rank's heads)
+    w: torch.Tensor,  # [K, N] int8 mantissas, rows w.stride(0) elements apart
+) -> torch.Tensor:
+    """#5's partial_out mode over int8 mantissas: widened exactly to bf16,
+    not scaled (the caller applies the channel scale after the ranks'
+    partials are summed); returns attn @ w as [M, N] f32."""
+    return _fused_partial(fused_attn_out_partial_int8_cuda, attn, w, int8=True)
+
+
+fused_attn_out_partial_int8_cuda.launches = 0

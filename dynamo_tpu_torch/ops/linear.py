@@ -39,6 +39,8 @@ import torch
 
 from dynamo_tpu_torch.ops.basics import rms_norm
 from dynamo_tpu_torch.ops.cuda_linear import (
+    fused_attn_out_partial_cuda,
+    fused_attn_out_partial_int8_cuda,
     fused_attn_out_residual_cuda,
     fused_attn_out_residual_int8_cuda,
     fused_qkv_rope_cuda,
@@ -186,17 +188,29 @@ def fused_qkv_rope_plain(
 def fused_attn_out_residual(
     attn: torch.Tensor,  # [M, q_dim] flattened attention output
     wo: Params,
-    x: torch.Tensor,  # [M, hidden] residual stream
+    x: Optional[torch.Tensor] = None,  # [M, hidden] residual stream
     *,
     partial_out: bool = False,
 ) -> torch.Tensor:
     """Attention-output projection + residual add: x + (attn @ wo), what
     ops/layers.attn_out gives for layers without a sandwich norm. int8
-    weights launch the kernel's int8 mode."""
+    weights launch the kernel's int8 mode.
+
+    With ``partial_out`` (the tensor-parallel path, ops/collective.py) it
+    returns the RAW f32 product attn @ wo of a rank's shard, [M, N] f32: no
+    scale, no cast, no residual (``x`` is not taken), as the reference's
+    kernel does (linear.py:300-373). ``wo`` is then a float tensor or int8
+    mantissas (an int8 ``{"q", "s"}`` leaf gives its mantissas; the scale
+    applies after the ranks' partials are summed), and may be a column slice
+    of a wider matrix."""
     if partial_out:
-        raise NotImplementedError(
-            "partial_out (the tensor-parallel raw f32 partial) is not ported yet"
-        )
+        if x is not None:
+            raise ValueError("partial_out takes no residual: the caller adds it after the sum")
+        w = wo["q"] if _is_int8(wo) else wo
+        if attn.is_cuda:
+            fn = fused_attn_out_partial_int8_cuda if w.dtype == torch.int8 else fused_attn_out_partial_cuda
+            return fn(attn, w)
+        return fused_attn_out_partial_plain(attn, w)
     if attn.is_cuda:
         fn = fused_attn_out_residual_int8_cuda if _is_int8(wo) else fused_attn_out_residual_cuda
         return fn(attn, wo, x)
@@ -210,3 +224,11 @@ def fused_attn_out_residual_plain(attn, wo, x) -> torch.Tensor:
     m, sc = _parts(wo)
     y = _finish(torch.matmul(attn.float(), m.to(attn.dtype).float()), sc, None, x.dtype)
     return x + y
+
+
+def fused_attn_out_partial_plain(attn, w) -> torch.Tensor:
+    """Plain version of the fused o-proj kernel's partial_out mode: the
+    weights (or int8 mantissas) cast to the activations' dtype, then the
+    product accumulated and returned in f32 (the reference's ``_mm_tile``
+    over the whole contraction, stored raw)."""
+    return torch.matmul(attn.float(), w.to(attn.dtype).float())

@@ -5,7 +5,8 @@ The port's own copy of dynamo_tpu/run.py for its one engine:
     python -m dynamo_tpu_torch.run in=http out=torch --model-path <HF dir> \\
         [--model-name NAME] [--http-host 0.0.0.0] [--http-port 8080] \\
         [--kv-block-size 16] [--context-length N] [--num-blocks N] \\
-        [--max-batch 8] [--request-template FILE] [--device cuda|cpu]
+        [--max-batch 8] [--request-template FILE] [--device cuda|cpu] \\
+        [--tensor-parallel-size N]
 
 in  = http | text | batch:FILE.jsonl
 out = torch  (TorchEngine from build_torch_engine(<dir>); a directory with
@@ -13,6 +14,10 @@ out = torch  (TorchEngine from build_torch_engine(<dir>); a directory with
 
 The engine runs on the card; ``--device cpu`` runs it on the CPU, and only
 when asked for: without a card and without that flag the command raises.
+``--tensor-parallel-size N`` (the reference's flag, dynamo_tpu/run.py:55)
+serves the model across N rank processes, rank r on ``cuda:r`` over NCCL
+(on the CPU over gloo); ``DYN_FUSED_DECODE`` / ``DYN_COLLECTIVE_OVERLAP``
+pick the fused heads and the ring tail as in the reference.
 """
 
 from __future__ import annotations
@@ -46,6 +51,10 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
         "applied to requests that omit them",
     )
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument(
+        "--tensor-parallel-size", type=int, default=1,
+        help="rank processes to shard the model across (rank r on cuda:r)",
+    )
     args = parser.parse_args(argv)
     args.in_opt = "http"
     args.out_opt = "torch"
@@ -76,6 +85,7 @@ def build_config(args: argparse.Namespace):
         max_batch=args.max_batch,
         num_blocks=args.num_blocks,
         max_model_len=args.context_length,
+        tensor_parallel_size=args.tensor_parallel_size,
     )
     mdc = ModelDeploymentCard.from_model_dir(
         args.model_path,
@@ -96,8 +106,13 @@ def exit_stats(engine) -> dict:
     generated, and lanes / KV blocks still held (0 / all free when every
     request was finished or cancelled)."""
     from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.parallel.multihost import SpmdModelRunner
 
+    ranks = {}
+    if isinstance(engine.runner, SpmdModelRunner):  # every rank's, in rank order
+        ranks["rank_kernel_launches"] = [r["launches"] for r in engine.runner.rank_stats()]
     return {
+        **ranks,
         "kernel_launches": kernels.launch_counts(),
         "generated_tokens": engine.stats.generated_tokens,
         "busy_lanes": sum(s is not None for s in engine.slots),

@@ -100,7 +100,8 @@ def test_fused_heads_refuse_int8_weights_and_partial_out():
     """The int8 mode is ported (tests/test_torch_int8.py), but one head
     takes all of its weights int8 or none of them: a mixed head is refused,
     as is a mantissa that is not int8; partial_out (the tensor-parallel raw
-    partial) is not ported yet."""
+    partial, tests/test_torch_meshed_fused.py) refuses a residual, which
+    the caller adds after the ranks' sum."""
     x = torch.zeros(2, HIDDEN)
     w = torch.zeros(HIDDEN, HQ * D)
     q8 = {"q": w.to(torch.int8), "s": torch.ones(HQ * D)}
@@ -110,7 +111,7 @@ def test_fused_heads_refuse_int8_weights_and_partial_out():
         tlin.fused_qkv_rope(x, x[0], q8, w, w, cs, cs, **kw)
     with pytest.raises(TypeError, match="int8 mantissas"):
         tlin.fused_attn_out_residual(x, {"q": w.T, "s": torch.ones(HIDDEN)}, x)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no residual"):
         tlin.fused_attn_out_residual(x, w.T, x, partial_out=True)
 
 

@@ -56,17 +56,20 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
                 "engine/torch_engine/model_runner.py", "engine/torch_engine/factory.py",
                 "http/service.py", "tokenizer_json.py", "chat_template.py", "tokenizer.py",
                 "preprocessor.py", "backend.py", "protocols/openai.py", "run.py",
-                "entrypoint/inputs.py"):
+                "entrypoint/inputs.py", "ops/collective.py", "parallel/mesh.py",
+                "parallel/sharding.py", "parallel/multihost.py", "parallel/launch.py"):
         assert f"dynamo_tpu_torch/{mod}" in scanned
     # every kernel the counters cover has its source beside the package, and
-    # the build makes it: an int8 mode is its bf16 source's second entry point
+    # the build makes it: an int8 mode is its bf16 source's second entry
+    # point, #5's partial_out modes its third and fourth
     from dynamo_tpu_torch.ops import _build
 
-    for name in kernels.KERNELS:
-        stem = name.removesuffix("_int8")
+    assert set(kernels.SOURCES) == set(kernels.KERNELS)
+    for name, (stem, entry) in kernels.SOURCES.items():
         src = ROOT / "dynamo_tpu_torch" / "csrc" / f"{stem}.cu"
         assert src.is_file() and stem in _build.SOURCES
-        assert f'extern "C" int {stem}_{"int8" if stem != name else "bf16"}(' in src.read_text()
+        assert entry.startswith(name.removesuffix("_int8"))
+        assert f'extern "C" int {entry}(' in src.read_text()
 
 
 def _variant_edits():
@@ -1253,3 +1256,102 @@ def test_http_server_streams_a_completion_from_a_card_engine():
     assert usage["prompt_tokens"] == 37 and 0 < usage["completion_tokens"] <= 12
     assert len(texts) == usage["completion_tokens"]
     assert kernels.launch_counts()["paged_decode_attention"] > 0
+
+
+# ------------------------------------------- tensor parallelism (#5 partial)
+
+
+def test_partial_out_wrappers_refuse_cpu_tensors_and_cpu_takes_the_plain_version():
+    """#5's partial_out wrappers take CUDA tensors only; on CPU tensors
+    fused_attn_out_residual(partial_out=True) runs the plain version and
+    counts nothing."""
+    attn = torch.zeros(2, 256, dtype=torch.bfloat16)
+    w = torch.zeros(256, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        KL.fused_attn_out_partial_cuda(attn, w)
+    with pytest.raises(ValueError):
+        KL.fused_attn_out_partial_int8_cuda(attn, w.to(torch.int8))
+    kernels.reset_launch_counts()
+    x = torch.randn(4, 64)
+    wf = torch.randn(64, 128)
+    for ww in (wf, wf[:, 64:], L.quantize_int8(wf), L.quantize_int8(wf)["q"][:, :64]):
+        got = L.fused_attn_out_residual(x, ww, partial_out=True)
+        m = ww["q"] if isinstance(ww, dict) else ww
+        torch.testing.assert_close(got, x @ m.float(), rtol=1e-6, atol=1e-6)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+# per-rank shapes (K, N, row stride, first column): Llama-3.1-8B tp=2's
+# o-proj shard, one ring chunk of it (strided), Llama-3.1-70B tp=8's
+PARTIAL_SHAPES = {"8b_tp2": (2048, 4096, 4096, 0), "8b_tp2_chunk1": (2048, 2048, 4096, 2048),
+                  "8b_tp2_chunk0": (2048, 2048, 4096, 0), "70b_tp8": (1024, 8192, 8192, 0)}
+# the raw f32 partial: only the split-K summation order differs
+PARTIAL_TOL = (1e-3, 2.0 ** -10)
+
+
+def _partial_case(M, K, N, ldw, col, seed):
+    g = torch.Generator().manual_seed(seed)
+    attn = torch.randn(M, K, generator=g).bfloat16().cuda()
+    full = (torch.randn(K, ldw, generator=g) / K ** 0.5).bfloat16().cuda()
+    return attn, full[:, col:col + N], _quantized(full)["q"][:, col:col + N]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 32, 70])
+@pytest.mark.parametrize("shape", sorted(PARTIAL_SHAPES))
+def test_partial_out_kernel_matches_plain_on_card(shape, M):
+    """5p (bf16) and 5pq (int8 mantissas, widened, never scaled) against
+    the plain version, over whole shards and strided column chunks; each
+    call is one launch, counted on its own mode."""
+    _need_card()
+    attn, w, q8 = _partial_case(M, *PARTIAL_SHAPES[shape], seed=M)
+    kernels.reset_launch_counts()
+    got = L.fused_attn_out_residual(attn, w, partial_out=True)
+    got8 = L.fused_attn_out_residual(attn, {"q": q8, "s": torch.ones(q8.shape[1]).bfloat16().cuda()},
+                                     partial_out=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["fused_attn_out_partial"] == 1 and counts["fused_attn_out_partial_int8"] == 1
+    assert sum(counts.values()) == 2
+    for out, ww in ((got, w), (got8, q8)):
+        assert out.dtype == torch.float32 and tuple(out.shape) == (M, w.shape[1])
+        _close(out, L.fused_attn_out_partial_plain(attn, ww), PARTIAL_TOL)
+
+
+@pytest.mark.cuda
+def test_partial_out_zero_rows_launch_nothing_and_count_nothing_on_card():
+    _need_card()
+    attn, w, q8 = _partial_case(8, *PARTIAL_SHAPES["8b_tp2_chunk1"], seed=5)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = [KL.fused_attn_out_partial_cuda(attn[:0], w),
+            KL.fused_attn_out_partial_int8_cuda(attn[:0], q8)]
+    torch.cuda.synchronize()
+    assert all(tuple(o.shape) == (0, w.shape[1]) for o in outs)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def _group_ops(group):
+    """all_reduce, the tiled all_gather and both ring hops of each rank's
+    own values, read back to the host."""
+    r = group.rank
+    x = (torch.arange(12, dtype=torch.float32).reshape(3, 4) + 100 * r).to(group.device)
+    return [group.all_reduce(x.clone()).cpu(), group.all_gather(x, dim=1).cpu(),
+            group.ppermute(x, shift=-1).cpu(), group.ppermute(x, shift=1).cpu(),
+            group.broadcast(x.clone(), src=1).cpu()]
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_give_the_cpu_groups_collectives():
+    """Two ranks on cuda:0 over gloo (the ring hop staged through host
+    memory) give what two CPU ranks give."""
+    _need_card()
+    from dynamo_tpu_torch.parallel.launch import run_ranks
+
+    card = run_ranks(2, _group_ops, [(), ()], backend="gloo", devices=["cuda:0", "cuda:0"],
+                     threads=0, timeout_s=120)
+    cpu = run_ranks(2, _group_ops, [(), ()], backend="gloo", devices="cpu", timeout_s=120)
+    for c, h in zip(card, cpu):
+        for a, b in zip(c, h):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(card[0][2], card[0][3])  # 2 ranks: both hops bring rank 1's
