@@ -116,6 +116,35 @@ Phases, each of which must pass or the script exits non-zero:
                 one card over gloo check correctness and say nothing of
                 collective speed across cards.
 
+ 12. serve_horizon -- the decode horizon on CUDA graphs, build_torch_engine's
+                defaults on a card (H = 4; the decode step, the horizon and
+                the verify pass captured once per key, replayed per dispatch)
+                over the serve phase's weights: serve's 8 requests twice, then
+                eight "lockstep" requests that one packed prefill admits;
+                every launch of a graphed run must equal replays x the
+                launches its graph's capture recorded, #1 = 32 x step bodies
+                (frozen steps included), no lazy-horizon degrade; the same
+                runner eagerly at H = 4 must stream the same tokens on serve's
+                traffic, and eagerly at H = 1 the same on the lockstep
+                requests (on serve's traffic lanes join at other steps, which
+                changes the paged kernels' split sizes: the share of equal
+                tokens is reported); the same for the int8 deployment
+                (serve_int8's runner: int8 weights and cache, fused heads);
+                each graph (decode H 1, decode_multi H 4, verify S 4 with
+                E 3) replayed against the same call made eagerly on the same
+                cache contents, bitwise, in both cache forms; then, in turns,
+                serve tokens/s eager H 1 / graphed H 1 / graphed H 4, spec
+                tokens/s with E 0 and E 3, and the B=8 step eager against
+                graphed (wall, device, host), fused and unfused, bf16 and
+                int8; each graph key's capture seconds and the memory the
+                graphs hold.
+
+Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
+decode_horizon=1, cuda_graphs=False), the path they measured before the
+horizon, so their launch equalities count one step a dispatch and their
+times compare with earlier runs; checkpoint (7) and serve_http (10) run
+build_torch_engine's defaults.
+
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
 imports nothing of JAX.
@@ -125,6 +154,7 @@ from __future__ import annotations
 
 import asyncio
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -165,6 +195,14 @@ HIDDEN = 4096  # Llama-3.1-8B hidden size
 # published config.json files: Qwen2-7B (a GQA group of 7) and Gemma-2-9B
 # (head_dim 256)
 HEAD_SHAPES = {"qwen2_7b": (28, 4, 128, 3584), "gemma2_9b": (16, 8, 256, 3584)}
+
+
+# The paths of the phases before serve_horizon as they ran before the
+# decode horizon: one eager step per dispatch (their launch equalities count
+# one step a dispatch, and their times stay comparable with earlier runs).
+# serve_horizon drives build_torch_engine's defaults (H = 4 on CUDA graphs)
+# beside them; checkpoint and serve_http run the defaults too.
+EAGER = dict(decode_horizon=1, cuda_graphs=False)
 
 
 class SmokeError(RuntimeError):
@@ -879,7 +917,7 @@ def phase_serve(torch, np, card: str) -> dict:
     # path this phase has always measured
     engine = build_torch_engine(
         LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
-        fused_decode=False, spec_k=0, prefill_chunk_tokens=0,
+        fused_decode=False, spec_k=0, prefill_chunk_tokens=0, **EAGER,
     )
     torch.cuda.synchronize()
     runner = engine.runner
@@ -1022,7 +1060,7 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
         return build_torch_engine(
             LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN,
             seed=0, fused_decode=True, spec_k=spec_k, params=params,
-            spec_min_coverage=SPEC_COVERAGE, prefill_chunk_tokens=0,
+            spec_min_coverage=SPEC_COVERAGE, prefill_chunk_tokens=0, **EAGER,
         )
 
     plain, spec = build(0), build(SPEC_K)
@@ -1110,6 +1148,7 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
         f"reference gap {gap:.3f} over 32 tokens of each greedy lane")
     print(json.dumps({"serve_spec": res, "card": card}), flush=True)
     res["runner"] = spec.runner
+    res["reqs"] = reqs
     return res
 
 
@@ -1129,7 +1168,7 @@ def phase_serve_default(torch, np, card: str, params) -> dict:
 
     engine = build_torch_engine(
         LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
-        fused_decode=False, spec_k=0, params=params,
+        fused_decode=False, spec_k=0, params=params, **EAGER,
     )
     runner = engine.runner
     if runner.prefill_chunk_tokens != 512 or not engine._mixed_enabled:
@@ -1930,7 +1969,7 @@ def phase_serve_int8(torch, np, card: str, bf16_blocks: int, bf16_peak: int) -> 
     mem_before = torch.cuda.memory_allocated()
     engine = build_torch_engine(
         LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
-        quantize=True, kv_dtype="int8", fused_decode=True, spec_k=0,
+        quantize=True, kv_dtype="int8", fused_decode=True, spec_k=0, **EAGER,
     )
     torch.cuda.synchronize()
     runner = engine.runner
@@ -1976,7 +2015,8 @@ def phase_serve_int8(torch, np, card: str, bf16_blocks: int, bf16_peak: int) -> 
             try:
                 spec = build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
                                           max_model_len=MAX_MODEL_LEN, seed=0,
-                                          params=runner.params, spec_min_coverage=SPEC_COVERAGE)
+                                          params=runner.params, spec_min_coverage=SPEC_COVERAGE,
+                                          **EAGER)
             finally:
                 for k, v in saved.items():
                     if v is None:
@@ -2387,7 +2427,7 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
 
     kw = dict(max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0, fused_decode=True,
               spec_k=0, quantize=quant, kv_dtype="int8" if quant else "bf16",
-              num_blocks=TP_BLOCKS)
+              num_blocks=TP_BLOCKS, **EAGER)
     tag = "int8" if quant else "bf16"
     rng = np.random.default_rng(3)
     probe = [rng.integers(0, LLAMA31_8B["vocab_size"], n).tolist() for n in (16, 100, 300)]
@@ -3076,6 +3116,403 @@ def phase_serve_http(torch, np, card: str) -> dict:
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------ serve_horizon
+#
+# The decode horizon on CUDA graphs: build_torch_engine's defaults on a card
+# (H = 4; the decode step, the horizon and the verify pass captured once per
+# key and replayed per dispatch).
+
+HORIZON = 4
+# eight requests one packed prefill admits together (488 of its 512 tokens)
+# and that run to 20-64 tokens: an H = 1 engine's decode steps and an H = 4
+# engine's step bodies then see the same lanes step by step (a lane frozen
+# inside a horizon is fed as an empty lane is), so the two must stream the
+# same tokens. On serve's traffic they need not: there prompts are chunked
+# beside the decode batch (mixed steps, H = 1 only) and lanes join at other
+# steps, and the paged kernels size their splits from every lane's length,
+# so a lane's last bits depend on the batch around it.
+LOCKSTEP_LENS = [16, 24, 40, 48, 64, 80, 96, 120]
+LOCKSTEP_MAX = [20, 64, 33, 47, 26, 58, 41, 35]
+
+
+def lockstep_requests(np, PreprocessedRequest, SamplingOptions, StopConditions):
+    rng = np.random.default_rng(4)
+    reqs = []
+    for i, (n, m) in enumerate(zip(LOCKSTEP_LENS, LOCKSTEP_MAX)):
+        sampling, eos, min_tokens = SamplingOptions(greedy=True), [], None
+        if i == SAMPLED:
+            sampling = SamplingOptions(temperature=0.8, top_p=0.95, top_k=50, seed=1234)
+        if i == PENALIZED:
+            sampling = SamplingOptions(greedy=True, **PENALTIES)
+            eos, min_tokens = [LLAMA31_8B["eos_token_id"]], MIN_TOKENS
+        reqs.append(PreprocessedRequest(
+            token_ids=rng.integers(0, LLAMA31_8B["vocab_size"], n).tolist(), sampling=sampling,
+            stop=StopConditions(max_tokens=m, min_tokens=min_tokens), eos_token_ids=eos))
+    return reqs
+
+
+def replay_launches(kernels, before: dict, after: dict) -> dict:
+    """Kernel launches the replays between two ``graph_stats`` readings
+    make: each key's new replays x the launches its capture recorded."""
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for key, s in after.items():
+        n = s["replays"] - before.get(key, {"replays": 0})["replays"]
+        for name, c in s["launches"].items():
+            want[name] += n * c
+    return want
+
+
+def serve_runs(torch, engine, runs, Context, kernels):
+    """``runs`` [(tag, requests)] through ``engine`` one after another in
+    one event loop, then the engine closed. Per run: outputs, wall s, engine
+    stats, launch counts (set to 0 just before, read just after), the
+    replays' launches and the peak memory."""
+    runner = engine.runner
+
+    async def go():
+        out = {}
+        try:
+            for tag, reqs in runs:
+                before = runner.graph_stats()
+                kernels.reset_launch_counts()
+                s0 = copy.deepcopy(vars(engine.stats))
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                outs = await run_requests(engine, reqs, Context)
+                wall = time.perf_counter() - t0
+                s1 = vars(engine.stats)
+                out.setdefault(tag, []).append({
+                    "outs": outs, "wall": wall,
+                    "stats": {k: v - s0[k] for k, v in s1.items() if isinstance(v, int)},
+                    "launches": kernels.launch_counts(),
+                    "replayed": replay_launches(kernels, before, runner.graph_stats()),
+                    "peak": torch.cuda.max_memory_allocated()})
+        finally:
+            await engine.close()
+        return out
+
+    return asyncio.run(go())
+
+
+def check_outputs(tag, first, reqs, FinishReason) -> None:
+    vocab = LLAMA31_8B["vocab_size"]
+    for i, ((toks, reason, _), req) in enumerate(zip(first, reqs)):
+        if req.stop.min_tokens:
+            ok = len(toks) >= req.stop.min_tokens and reason in (FinishReason.LENGTH,
+                                                                 FinishReason.EOS)
+        else:
+            ok = reason is FinishReason.LENGTH and len(toks) == req.stop.max_tokens
+        if not ok or not all(0 <= t < vocab for t in toks):
+            raise SmokeError(f"{tag} request {i}: {len(toks)} tokens, reason {reason}")
+
+
+def check_horizon_launches(tag, run, L, kernels, attn) -> None:
+    """Every launch of a graphed horizon run came from a replay: the counts
+    equal replays x captured launches, and the decode attention (``attn``)
+    ran once per layer and step body, frozen steps included."""
+    st = run["stats"]
+    if st["horizon_dispatches"] <= 0 or st["horizon_degrades"] or st["mixed_steps"]:
+        raise SmokeError(f"{tag}: no horizon, a degrade or a mixed step: {st}")
+    if st["graph_replays"] != st["horizon_dispatches"] + st["decode_steps"] + st["verify_steps"]:
+        raise SmokeError(f"{tag}: {st['graph_replays']} replays for {st} dispatches")
+    if run["launches"] != run["replayed"]:
+        raise SmokeError(f"{tag}: launches {run['launches']} != replays x captured "
+                         f"{run['replayed']}")
+    bodies = st["decode_steps"] + st["horizon_steps"] + st["verify_chained_steps"]
+    if run["launches"][attn] != L * bodies:
+        raise SmokeError(f"{tag}: {attn} launched {run['launches'][attn]} != {L} x {bodies} "
+                         "step bodies")
+
+
+def rate(run) -> float:
+    return sum(len(t) for t, _, _ in run["outs"]) / run["wall"]
+
+
+def step_case(np, runner, seed: int = 12):
+    """The B=8 step at context 1024 of the engine phases: lanes' tables,
+    positions, slots and tokens."""
+    rng = np.random.default_rng(seed)
+    bs, B, ctx = runner.block_size, 8, STEP_CTX
+    per = (ctx + 1 + bs - 1) // bs
+    tables = np.zeros((B, runner.max_blocks_per_seq), np.int32)
+    for b in range(B):
+        tables[b, :per] = np.arange(1 + b * per, 1 + (b + 1) * per)
+    pos = np.full(B, ctx, np.int64)
+    slots = tables[np.arange(B), pos // bs].astype(np.int64) * bs + pos % bs
+    return rng.integers(0, runner.config.vocab_size, B), pos, tables, slots
+
+
+def graph_step_times(torch, np, runners: dict) -> dict:
+    """The B=8 decode step (model + sampling + fetch) at context 1024 of
+    each runner, eager and graphed in turns (eager, graphed, graphed,
+    eager): wall (host clock around work ending in the fetch), device time
+    (torch.profiler) and host time (launching, not waiting: the eager
+    step's ops; the graphed step's upload + replay)."""
+    out = {}
+    for name, r in runners.items():
+        toks, pos, tables, slots = step_case(np, r)
+        B = len(toks)
+        zeros, ones, kz = np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int64)
+
+        def step():
+            return r.fetch_sample(r.decode(toks, pos, tables, slots, zeros, ones, kz))
+
+        walls = {False: [], True: []}
+        for graphed in (False, True, True, False):
+            r.cuda_graphs = graphed
+            for _ in range(2):
+                step()
+            for _ in range(6):
+                t0 = time.perf_counter()
+                step()
+                walls[graphed].append((time.perf_counter() - t0) * 1e3)
+        row = {}
+        for graphed in (False, True):
+            r.cuda_graphs = graphed
+            dev_ms, _ = profile_calls(torch, step, calls=3)
+            if graphed:
+                step()
+                host = host_ms(torch, lambda: r.launch_graph("decode"), reps=10)
+            else:
+                host = host_ms(torch, lambda: r.decode(toks, pos, tables, slots, zeros, ones, kz),
+                               reps=10)
+            w = walls[graphed]
+            row["graphed" if graphed else "eager"] = {
+                "median": statistics.median(w), "min": min(w), "max": max(w),
+                "device_ms": dev_ms, "host_ms": host}
+        r.cuda_graphs = True
+        out[name] = row
+    return out
+
+
+def replay_vs_eager(torch, np, runner, tag: str) -> dict:
+    """Each graph (decode H 1, decode_multi H 4, verify S 4 with E 3) replayed
+    against the same call made eagerly, on the same cache contents (restored
+    between the two): bitwise. Lanes hold the B=8 step's context 1024; half
+    the lanes sample."""
+    toks, pos, tables, slots = step_case(np, runner, seed=13)
+    B = len(toks)
+    temps = np.where(np.arange(B) % 2 == 0, 0.0, 0.8).astype(np.float32)
+    top_ps, top_ks = np.full(B, 0.95, np.float32), np.full(B, 50, np.int64)
+    keys = np.stack([np.arange(B) + 5, np.arange(B)], 1).astype(np.int64)
+    active = np.ones(B, bool)
+    limit = np.array([4, 4, 2, 4, 1, 4, 3, 4], np.int64)
+    no_min = np.zeros(B, np.int64)
+    eos = np.full((B, 4), -1, np.int64)
+    eos[:, 0] = LLAMA31_8B["eos_token_id"]
+    drafts = np.random.default_rng(14).integers(0, LLAMA31_8B["vocab_size"], (B, 3))
+    dlen = np.array([3, 1, 0, 2, 3, 3, 1, 2], np.int64)
+    calls = {
+        "decode": lambda: np.concatenate([a.reshape(-1) for a in runner.fetch_sample(
+            runner.decode(toks, pos, tables, slots, temps, top_ps, top_ks, keys=keys))]),
+        "decode_multi": lambda: runner.decode_multi(
+            HORIZON, toks, pos, tables, temps, top_ps, top_ks, keys, active, limit, no_min,
+            eos).cpu().numpy(),
+        "verify": lambda: runner.spec_verify(
+            SPEC_K, HORIZON - 1, toks, drafts, dlen, pos, tables, temps, top_ps, top_ks, keys,
+            active, np.full(B, 16, np.int64), no_min, eos).cpu().numpy(),
+    }
+    leaves = [t for c in (runner.k_cache, runner.v_cache)
+              for t in (c.values() if isinstance(c, dict) else (c,))]
+    snap = [t.clone() for t in leaves]
+    res = {}
+    for name, call in calls.items():
+        out = {}
+        for graphed in (False, True):
+            runner.cuda_graphs = graphed
+            out[graphed] = call()
+            for t, s in zip(leaves, snap):
+                t.copy_(s)
+        runner.cuda_graphs = True
+        diff = int((out[False] != out[True]).sum())
+        if diff or not np.isfinite(out[True]).all():
+            raise SmokeError(f"serve_horizon/{tag}: the {name} graph's replay differs from the "
+                             f"eager call in {diff} of {out[True].size} values")
+        res[name] = out[True].shape
+    del snap
+    return res
+
+
+def phase_serve_horizon(torch, np, card: str, params, fused_runner, int8_runner,
+                        spec_reqs) -> dict:
+    """The decode horizon on CUDA graphs (see the module docstring, phase
+    12). ``params``: the serve phase's bf16 weights; ``fused_runner``: the
+    spec phase's fused bf16 runner; ``int8_runner``: serve_int8's runner
+    (int8 weights, int8 cache, fused heads); ``spec_reqs``: the spec phase's
+    quoting traffic."""
+    from dynamo_tpu_torch.engine.torch_engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    t_phase = time.perf_counter()
+    L = LLAMA31_8B["num_hidden_layers"]
+    reqs = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
+    lock = lockstep_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
+    res = {"card": card}
+
+    # 1. build_torch_engine's defaults over the serve phase's weights
+    engine = build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+                                max_model_len=MAX_MODEL_LEN, seed=0, params=params)
+    runner = engine.runner
+    cfg0 = engine.config
+    if not (cfg0.decode_horizon == HORIZON and runner.cuda_graphs and not cfg0.lazy_horizon
+            and cfg0.spec_k == 0 and not runner.config.fused_decode):
+        raise SmokeError(f"serve_horizon: the defaults are H {cfg0.decode_horizon}, graphs "
+                         f"{runner.cuda_graphs}; expected H {HORIZON} on graphs")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    g4 = serve_runs(torch, engine, [("serve", reqs), ("serve", reqs), ("lock", lock)],
+                    Context, kernels)
+    mem_graphs = torch.cuda.memory_allocated() - mem0
+    check_outputs("serve_horizon", g4["serve"][0]["outs"], reqs, FinishReason)
+    for run in g4["serve"] + g4["lock"]:
+        check_horizon_launches("serve_horizon", run, L, kernels, "paged_decode_attention")
+    if [t for t, _, _ in g4["serve"][1]["outs"]] != [t for t, _, _ in g4["serve"][0]["outs"]]:
+        raise SmokeError("serve_horizon: the repeated run gave other tokens")
+    gap = max(reference_check(torch, runner, reqs[i].token_ids, g4["serve"][0]["outs"][i][0])
+              for i in (0, -1))
+    log(f"serve_horizon: graphed H {HORIZON} served at {time.perf_counter() - t_phase:.1f} s")
+
+    def again(H, graphed, runs):
+        runner.cuda_graphs = graphed
+        eng = TorchEngine(runner, dataclasses.replace(cfg0, decode_horizon=H))
+        out = serve_runs(torch, eng, runs, Context, kernels)
+        runner.cuda_graphs = True
+        return out
+
+    # 2. the same runner eagerly: at H = 4 the same tokens on serve's traffic
+    # (graphs change nothing), at H = 1 the same on the lockstep traffic
+    e4 = again(HORIZON, False, [("serve", reqs)])
+    e1 = again(1, False, [("lock", lock), ("serve", reqs)])
+    toks = {k: [t for t, _, _ in v["outs"]] for k, v in (
+        ("g4", g4["serve"][0]), ("e4", e4["serve"][0]), ("g4_lock", g4["lock"][0]),
+        ("e1_lock", e1["lock"][0]), ("e1", e1["serve"][0]))}
+    if toks["g4"] != toks["e4"]:
+        raise SmokeError("serve_horizon: graphed and eager H = 4 engines streamed other tokens")
+    if toks["g4_lock"] != toks["e1_lock"]:
+        bad = [i for i, (a, b) in enumerate(zip(toks["g4_lock"], toks["e1_lock"])) if a != b]
+        raise SmokeError(f"serve_horizon: graphed H = 4 and eager H = 1 differ on lockstep "
+                         f"requests {bad}")
+    check_outputs("serve_horizon/lockstep", g4["lock"][0]["outs"], lock, FinishReason)
+    agree = sum(a == b for x, y in zip(toks["g4"], toks["e1"]) for a, b in zip(x, y)) / sum(
+        len(x) for x in toks["e1"])
+    peaks = {"graphed_h4": g4["serve"][1]["peak"] - mem0, "eager_h4": e4["serve"][0]["peak"] - mem0}
+
+    # 3. serve tokens/s in turns: eager H 1, graphed H 1, graphed H 4 (each
+    # warmed above or here first)
+    g1 = again(1, True, [("serve", reqs)])  # captures the single-step keys
+    walls = {"eager_h1": [], "graphed_h1": [], "graphed_h4": []}
+    for name in ("eager_h1", "graphed_h1", "graphed_h4", "graphed_h4", "graphed_h1", "eager_h1"):
+        H = HORIZON if name.endswith("h4") else 1
+        walls[name].append(again(H, name.startswith("graphed"), [("serve", reqs)])["serve"][0])
+    serve_rate = {k: statistics.mean(rate(r) for r in v) for k, v in walls.items()}
+    log(f"serve_horizon: bf16 compared and timed at {time.perf_counter() - t_phase:.1f} s")
+    # decode dispatches, each one fetch: tokens per fetch
+    fetches = {k: sum(v[0]["stats"][n] for n in ("horizon_dispatches", "decode_steps",
+                                                 "mixed_steps")) for k, v in walls.items()}
+    del g1
+
+    # 4. the int8 deployment: serve_int8's runner (int8 weights and cache,
+    # fused heads) as build_torch_engine's defaults would drive it
+    icfg = dataclasses.replace(cfg0, num_blocks=int8_runner.num_blocks)
+    int8_runner.cuda_graphs = True
+    ig4 = serve_runs(torch, TorchEngine(int8_runner, icfg),
+                     [("serve", reqs), ("lock", lock)], Context, kernels)
+    check_outputs("serve_horizon/int8", ig4["serve"][0]["outs"], reqs, FinishReason)
+    for run in ig4["serve"] + ig4["lock"]:
+        check_horizon_launches("serve_horizon/int8", run, L, kernels,
+                               "paged_decode_attention_int8")
+    int8_runner.cuda_graphs = False
+    ie1 = serve_runs(torch, TorchEngine(int8_runner, dataclasses.replace(icfg, decode_horizon=1)),
+                     [("lock", lock)], Context, kernels)
+    int8_runner.cuda_graphs = True
+    if [t for t, _, _ in ig4["lock"][0]["outs"]] != [t for t, _, _ in ie1["lock"][0]["outs"]]:
+        raise SmokeError("serve_horizon/int8: graphed H = 4 and eager H = 1 differ on the "
+                         "lockstep requests")
+    int8_launches = ig4["serve"][0]["launches"]
+    log(f"serve_horizon: int8 compared at {time.perf_counter() - t_phase:.1f} s")
+
+    # 5. every graph's replay against its eager call, bitwise, both forms
+    bitwise = {"bf16": replay_vs_eager(torch, np, runner, "bf16"),
+               "int8": replay_vs_eager(torch, np, int8_runner, "int8")}
+
+    # 6. spec tokens/s with E = 0 (H 1) against E = 3 (H 4), graphed, over
+    # the spec phase's quoting traffic (fused bf16 runner)
+    fused_runner.cuda_graphs = True
+    scfg = dataclasses.replace(cfg0, num_blocks=fused_runner.num_blocks, spec_k=SPEC_K,
+                               spec_min_coverage=SPEC_COVERAGE)
+    spec_runs = {}
+    for name in ("e0", "e3", "e3", "e0"):  # the first of each warms its graphs
+        H = HORIZON if name == "e3" else 1
+        spec_runs.setdefault(name, []).append(serve_runs(
+            torch, TorchEngine(fused_runner, dataclasses.replace(scfg, decode_horizon=H)),
+            [("spec", spec_reqs)], Context, kernels)["spec"][0])
+    st3 = spec_runs["e3"][-1]["stats"]
+    if st3["verify_steps"] <= 0 or st3["verify_chained_steps"] != (HORIZON - 1) * st3["verify_steps"]:
+        raise SmokeError(f"serve_horizon/spec: no chained verify dispatches: {st3}")
+    # every launch but the eager prefills' (#3, chunking off) from a replay
+    spec_launches = spec_runs["e3"][-1]["launches"]
+    want = dict(spec_runs["e3"][-1]["replayed"])
+    want["flash_prefill_attention"] += L * st3["prefills"]
+    if spec_launches != want:
+        raise SmokeError(f"serve_horizon/spec: launches {spec_launches} != replays x captured "
+                         f"+ prefills {want}")
+    spec_rate = {k: statistics.mean(rate(r) for r in v[1:]) for k, v in spec_runs.items()}
+    log(f"serve_horizon: spec timed at {time.perf_counter() - t_phase:.1f} s")
+
+    # 7. the B=8 step, eager against graphed, fused and unfused, both forms
+    int8_unfused = TorchModelRunner(
+        dataclasses.replace(int8_runner.config, fused_decode=False), int8_runner.params, num_blocks=8 * (STEP_CTX // BLOCK + 1) + 1, block_size=BLOCK,
+        max_batch=8, max_model_len=MAX_MODEL_LEN, device="cuda", kv_dtype="int8")
+    steps = graph_step_times(torch, np, {"bf16_unfused": runner, "bf16_fused": fused_runner,
+                                         "int8_unfused": int8_unfused, "int8_fused": int8_runner})
+    del int8_unfused
+    captures = {"bf16_unfused": runner.graph_stats(), "bf16_fused": fused_runner.graph_stats(),
+                "int8_fused": int8_runner.graph_stats()}
+    for r in (fused_runner, int8_runner):
+        r.cuda_graphs = False  # as their own phases left them
+    res.update({
+        "serve_graphed_h4": {"stats": g4["serve"][0]["stats"], "wall_s_cold": g4["serve"][0]["wall"],
+                             "wall_s_warm": g4["serve"][1]["wall"],
+                             "launches": g4["serve"][0]["launches"], "reference_max_logit_gap": gap},
+        "tokens_equal": {"graphed_h4_vs_eager_h4_serve": True,
+                         "graphed_h4_vs_eager_h1_lockstep_bf16": True,
+                         "graphed_h4_vs_eager_h1_lockstep_int8": True,
+                         "share_equal_graphed_h4_vs_eager_h1_serve": agree},
+        "serve_tok_per_s": serve_rate, "serve_decode_fetches": fetches,
+        "serve_tokens_per_fetch": {k: sum(len(t) for t, _, _ in walls[k][0]["outs"]) / n
+                                   for k, n in fetches.items()},
+        "serve_tokens_per_horizon": g4["serve"][1]["stats"]["horizon_tokens"]
+        / max(1, g4["serve"][1]["stats"]["horizon_dispatches"]),
+        "spec_tok_per_s": spec_rate, "spec_stats_e3": st3, "spec_launches_e3": spec_launches,
+        "int8_launches": int8_launches, "replay_vs_eager_bitwise": {
+            k: {n: list(s) for n, s in v.items()} for k, v in bitwise.items()},
+        "step_ms_B8": steps,
+        "capture_s": {k: {key: s["capture_s"] for key, s in v.items()} for k, v in captures.items()},
+        "graph_mem_bytes": mem_graphs, "serve_peak_mem_bytes": peaks,
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    print(json.dumps({"serve_horizon": res, "card": card}), flush=True)
+    log(f"serve_horizon: defaults H {HORIZON} on graphs; serve {g4['serve'][1]['wall']:.2f} s warm, "
+        f"{res['serve_tokens_per_horizon']:.2f} tokens a horizon; graphed H4 = eager H4 tokens, "
+        f"lockstep graphed H4 = eager H1 tokens (bf16, int8), {100 * agree:.1f}% equal on serve "
+        f"traffic; every replay bitwise = eager; tokens/s eager H1 {serve_rate['eager_h1']:.1f}, "
+        f"graphed H1 {serve_rate['graphed_h1']:.1f}, graphed H4 {serve_rate['graphed_h4']:.1f} "
+        f"(fetches {fetches}); spec E0 {spec_rate['e0']:.1f} / E3 {spec_rate['e3']:.1f}; graphs "
+        f"hold {mem_graphs / 1e6:.1f} MB; phase {res['phase_s']:.1f} s ({card})")
+    for name, row in steps.items():
+        log(f"serve_horizon: B=8 step {name}: eager {row['eager']['median']:.2f} ms wall / "
+            f"{row['eager']['device_ms']:.2f} device / {row['eager']['host_ms']:.2f} host; graphed "
+            f"{row['graphed']['median']:.2f} / {row['graphed']['device_ms']:.2f} / "
+            f"{row['graphed']['host_ms']:.3f} ({card})")
+    res["launches"] = g4["serve"][0]["launches"]
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3122,6 +3559,7 @@ def main() -> int:
         engine = served.pop("engine")
         spec = phase_serve_spec(torch, np, card, engine.runner.params)
         fused_runner = spec.pop("runner")
+        spec_reqs = spec.pop("reqs")
         # 6. serve_default (its counters set to 0 just before it, read just
         # after) and 7. checkpoint
         default = phase_serve_default(torch, np, card, engine.runner.params)
@@ -3152,9 +3590,22 @@ def main() -> int:
         rows.update(tp_partial_times(torch, card))
         log(f"peak device memory during serve: {served['peak_mem_bytes'] / 1e9:.2f} GB")
 
+        # 12. serve_horizon: build_torch_engine's defaults (H = 4 on CUDA
+        # graphs) beside eager runs of the same runners; each run's counters
+        # set to 0 just before it, read just after. Its runs own #1 (the
+        # default path), #2, #4 and #5 (spec with the chained horizon) and
+        # #1q, #4q, #5q (the int8 deployment), counted through replays.
+        horizon = phase_serve_horizon(torch, np, card, engine.runner.params, fused_runner,
+                                      int8_runner, spec_reqs)
+        launches["paged_decode_attention"] = horizon["launches"]["paged_decode_attention"]
+        launches.update({k: horizon["spec_launches_e3"][k] for k in SPEC_KERNELS})
+        launches.update({k: horizon["int8_launches"][k] for k in INT8_KERNELS
+                         if k != "paged_verify_attention_int8"})
+
         # 10. serve_http: the CLI's HTTP server in a process of its own, so
         # this process's engines leave the card first
         del engine, default_engine, fused_runner, spec, served, default, int8_runner, int8
+        del horizon, spec_reqs
         gc.collect()
         torch.cuda.empty_cache()
         # 11. serve_tp: two ranks on this card over gloo, then one over

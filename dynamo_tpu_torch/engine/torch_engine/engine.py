@@ -21,13 +21,28 @@ reduced to:
     batch. Mixing is off while a drafter is active or a lane has penalties;
     then one chunk runs on its own, followed by the decode step. A chunk's
     sample is read back only on the prompt's final chunk;
-  * one batched decode step over every running lane per loop iteration,
-    or, with ``spec_k > 0``, one speculative verify dispatch when enough
-    lanes carry a draft: an n-gram drafter (drafter.py) proposes up to
-    spec_k tokens per lane from its own history, one weight pass scores
-    them all, and the host accepts each lane's longest matching prefix plus
-    the model's next token (``_collect_drafts`` / ``_spec_decode_phase``,
-    after the JAX engine's, without the chained horizon);
+  * one batched decode dispatch over every running lane per loop
+    iteration: with ``decode_horizon`` H > 1 (the factory's default on a
+    card is 4) a horizon of H chained steps (``runner.decode_multi``,
+    ``_horizon_for`` / ``_decode_multi_phase``): H is capped by the largest
+    lane budget, KV blocks for every write of the horizon are allocated up
+    front (under block pressure the dispatch is a single step, whose
+    allocation may preempt), and the packed samples go through the same
+    ``_append_token`` as a single step's, frozen steps (-1) skipped; a
+    min_tokens lane with more stop ids than the device mask holds makes
+    the dispatch a single step. Mixed steps are off while H > 1, as in the
+    reference. ``lazy_horizon`` single-steps until the runner has prepared
+    H (captured its graphs on the device thread, between dispatches); a
+    horizon dispatch that then fails is logged, every lane holding a slot
+    fails with ERROR and H drops to 1 (the reference's degrade; counted in
+    ``horizon_degrades``). Or, with ``spec_k > 0``, one speculative verify
+    dispatch when enough lanes carry a draft: an n-gram drafter
+    (drafter.py) proposes up to spec_k tokens per lane from its own
+    history, one weight pass scores them all, the host accepts each lane's
+    longest matching prefix plus the model's next token, and with H > 1
+    the same dispatch chains H - 1 decode steps from the accept point the
+    device computes (not for penalty batches) (``_collect_drafts`` /
+    ``_spec_decode_phase``, after the JAX engine's);
   * stop conditions: ``max_tokens`` (default 16), EOS and
     ``stop_token_ids_hidden`` unless ``ignore_eos`` (the stop token itself
     is not streamed), and ``max_model_len``;
@@ -44,6 +59,12 @@ reduced to:
     sequence (one still being chunked included) is preempted: its blocks
     are freed and it is re-queued, in arrival order, with its generated
     tokens, which are re-prefilled on re-admission (recompute preemption).
+    The storm guard (engine.py:126-139, :1307-1350): a sequence preempted
+    more than ``max_preemptions`` times (``DYN_MAX_PREEMPTIONS``, 8) fails
+    with the structured error ``preempted_too_often``, and each re-queue
+    waits out a backoff of ``preempt_backoff_ms`` (``DYN_PREEMPT_BACKOFF_MS``,
+    25) doubled per preemption, capped at 2 s, during which later arrivals
+    may be admitted before it.
 
 A ``chunk_budget`` that is not a multiple of the KV block size raises: the
 reference slices chunks by the remaining budget, so such a budget would
@@ -56,9 +77,10 @@ the same tokens whatever the batch around it. Device calls run one at a time
 on a single worker thread so the event loop keeps streaming while the card
 works.
 
-Left out (ROADMAP.md lists them): the decode horizon, the tiered block
-manager, prefix onboarding and KV events, disaggregation, multimodal
-prompts, QoS classes, deadlines and brownout, tracing and the watchdog.
+Left out (ROADMAP.md lists them): the tiered block manager (so a
+preemption spills nothing to a host tier), prefix onboarding and KV
+events, disaggregation, multimodal prompts, QoS classes, deadlines and
+brownout, tracing and the watchdog.
 """
 
 from __future__ import annotations
@@ -68,6 +90,7 @@ import bisect
 import itertools
 import logging
 import os
+import time
 from collections.abc import AsyncIterator
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -117,6 +140,19 @@ class TorchEngineConfig:
         default_factory=lambda: os.environ.get("DYN_MIXED_STEP", "1").lower()
         not in ("0", "false", "no", "off")
     )
+    # decode steps chained in one dispatch (1 = a step per dispatch); the
+    # factory's default is 4 on a card and 1 on the CPU
+    decode_horizon: int = 1
+    # single-step until the runner has prepared the horizon's graphs
+    lazy_horizon: bool = False
+    # the preemption-storm guard: more preemptions than this fail the
+    # sequence; each re-queue waits base * 2^(n - 1) ms, at most 2 s
+    max_preemptions: int = field(
+        default_factory=lambda: int(os.environ.get("DYN_MAX_PREEMPTIONS", "8"))
+    )
+    preempt_backoff_ms: float = field(
+        default_factory=lambda: float(os.environ.get("DYN_PREEMPT_BACKOFF_MS", "25"))
+    )
 
 
 def check_chunk_budget(chunk_budget: int, block_size: int) -> None:
@@ -136,9 +172,17 @@ class EngineStats:
     packed_prefills: int = 0  # packed prefill calls
     chunk_steps: int = 0  # prefill chunks run on their own
     mixed_steps: int = 0  # mixed steps (chunk slots + the decode batch)
-    decode_steps: int = 0  # batched decode calls
+    decode_steps: int = 0  # batched single-step decode calls
+    # decode horizon: dispatches, the step bodies they ran (H each, frozen
+    # steps included) and the tokens they emitted
+    horizon_dispatches: int = 0
+    horizon_steps: int = 0
+    horizon_tokens: int = 0
+    horizon_degrades: int = 0  # lazy-horizon failures that dropped H to 1
+    graph_replays: int = 0  # CUDA graph replays of the runner's step programs
     generated_tokens: int = 0
     preemptions: int = 0
+    preempted_too_often: int = 0  # sequences the storm guard failed
     # speculative decoding: a "draft" is one lane-dispatch carrying >= 1
     # proposed token; verify_steps counts verify dispatches
     num_drafts: int = 0
@@ -146,6 +190,11 @@ class EngineStats:
     num_accepted_tokens: int = 0
     accepted_per_pos: list = field(default_factory=list)  # len spec_k
     verify_steps: int = 0
+    verify_chained_steps: int = 0  # decode steps chained after verify passes
+
+    @property
+    def tokens_per_horizon(self) -> float:
+        return self.horizon_tokens / self.horizon_dispatches if self.horizon_dispatches else 0.0
 
 
 class _Sequence:
@@ -190,6 +239,9 @@ class _Sequence:
         # left before this lane drafts again
         self.spec_fail = 0
         self.spec_backoff = 0
+        # storm guard: preemptions so far, and when it may be re-admitted
+        self.preemptions = 0
+        self.requeue_after = 0.0
 
     @property
     def num_generated(self) -> int:
@@ -354,15 +406,32 @@ class TorchEngine:
 
     def _preempt(self, victim: _Sequence) -> None:
         """Recompute preemption: drop the victim's KV and re-queue it with
-        its generated tokens (re-prefilled on re-admission)."""
-        logger.debug("preempting seq %d", victim.seq_id)
+        its generated tokens (re-prefilled on re-admission) after its
+        backoff; past ``max_preemptions`` it fails instead."""
+        victim.preemptions += 1
         self.stats.preemptions += 1
         self._free_seq(victim)
+        if victim.preemptions > self.config.max_preemptions:
+            self.stats.preempted_too_often += 1
+            victim.out.put_nowait(LLMEngineOutput.final_error(
+                victim.ctx.id, "preemption",
+                f"preempted {victim.preemptions} times under sustained pressure "
+                f"(DYN_MAX_PREEMPTIONS={self.config.max_preemptions}); giving up",
+                "preempted_too_often",
+            ))
+            return
+        logger.debug("preempting seq %d (preemption #%d)", victim.seq_id, victim.preemptions)
+        backoff_s = min(2.0, self.config.preempt_backoff_ms / 1e3 * (1 << (victim.preemptions - 1)))
+        victim.requeue_after = time.monotonic() + backoff_s
         self._enqueue(victim)
 
     async def _device(self, fn):
         """Run one device call (and its host fetch) on the worker thread."""
-        return await asyncio.get_running_loop().run_in_executor(self._executor, fn)
+        replays = self.runner.graph_replays
+        try:
+            return await asyncio.get_running_loop().run_in_executor(self._executor, fn)
+        finally:
+            self.stats.graph_replays += self.runner.graph_replays - replays
 
     # ---------------------------------------------------------- main loop
 
@@ -430,11 +499,16 @@ class TorchEngine:
         admitted = False
         C = self.runner.prefill_chunk_tokens
         to_pack: list[_Sequence] = []
-        while self.waiting:
-            seq = self.waiting[0]
+        idx = 0
+        while idx < len(self.waiting):
+            seq = self.waiting[idx]
+            if seq.requeue_after and time.monotonic() < seq.requeue_after:
+                # a preempted sequence's backoff: later arrivals go first
+                idx += 1
+                continue
             if not self._try_admit(seq):
                 break
-            self.waiting.pop(0)
+            self.waiting.pop(idx)
             admitted = True
             # after a preemption the replay is prompt + generated tokens
             if C and len(seq.token_ids) > C:
@@ -539,9 +613,11 @@ class TorchEngine:
         decode step (engine.py:1853): not while a drafter is active (the
         port has no brownout pause of drafting), nor when a lane has
         penalties, whose full-history program the mixed step does not
-        carry. (The port has no decode horizon, the reference's third
-        gate.) Read-only: it must not touch the drafter."""
+        carry, nor with a decode horizon. Read-only: it must not touch the
+        drafter."""
         if not self._mixed_enabled or self.drafter is not None:
+            return False
+        if self.config.decode_horizon > 1:
             return False
         return not any(s.has_penalties for s in active)
 
@@ -658,7 +734,125 @@ class TorchEngine:
             if drafts is not None:
                 await self._spec_decode_phase(active, drafts)
                 return
-        await self._decode_single_phase(active)
+        H = self._horizon_for(active)
+        active = [s for s in active if s.slot is not None]  # a degrade fails every lane
+        if H > 1:
+            await self._decode_multi_phase(active, H)
+        elif active:
+            await self._decode_single_phase(active)
+
+    def _horizon_ready(self, H: int) -> bool:
+        """Under ``lazy_horizon``, whether the runner has prepared H (its
+        preparation queued on the device thread when not); a failed
+        preparation degrades the horizon."""
+        if not self.config.lazy_horizon:
+            return True
+        try:
+            if self.runner.decode_multi_ready(H):
+                return True
+        except Exception:  # noqa: BLE001 - the reference's degrade
+            logger.exception("preparing decode_multi@H%d failed; degrading to single-step", H)
+            self._degrade_horizon()
+            return False
+        self.runner.prepare_decode_multi_async(H, self._executor)
+        return False
+
+    def _degrade_horizon(self) -> None:
+        """The reference's lazy-horizon degrade (engine.py:3064-3081): H
+        drops to 1 for good and every lane holding a slot fails with ERROR
+        (its cache may hold the failed dispatch's partial writes)."""
+        self.config.decode_horizon = 1
+        self.stats.horizon_degrades += 1
+        for seq in list(self._admit_order):
+            if seq.slot is not None:
+                self._finish(seq, FinishReason.ERROR)
+
+    def _horizon_for(self, active: list[_Sequence]) -> int:
+        """This iteration's decode horizon, 1 for a single step
+        (engine.py:2634-2685)."""
+        H = self.config.decode_horizon
+        if H <= 1 or not self._horizon_ready(H):
+            return 1
+        # a min_tokens lane whose stop ids overflow the device mask needs a
+        # redraw per token (_append_token), which a horizon cannot do
+        if any(s.needs_eos_suppress and len(s.eos) > MAX_EOS_IDS for s in active):
+            return 1
+        # no lane emits more than its budget: no all-frozen steps
+        H = max(1, min(H, max(self._lane_remaining(s) for s in active)))
+        if H == 1:
+            return 1
+        # blocks for every write of the horizon, each lane capped by its own
+        # budget; under pressure a single step (its allocation may preempt)
+        bs = self.config.block_size
+        for seq in active:
+            last_write = len(seq.token_ids) - 1 + min(H, self._lane_remaining(seq)) - 1
+            need = last_write // bs + 1 - len(seq.block_ids)
+            if need > 0:
+                try:
+                    seq.block_ids.extend(self.allocator.alloc(need))
+                except OutOfBlocks:
+                    return 1
+        return H
+
+    def _horizon_rows(self, active: list[_Sequence]):
+        """The per-lane rows a horizon or verify dispatch takes beside the
+        batch arrays: (active, limit_remaining, min_remaining, eos_ids)."""
+        B = self.config.max_batch
+        act = np.zeros(B, bool)
+        limit_rem = np.ones(B, np.int64)
+        min_rem = np.zeros(B, np.int64)
+        eos_ids, _ = self._eos_rows(active)
+        for seq in active:
+            i = seq.slot
+            act[i] = True
+            limit_rem[i] = self._lane_remaining(seq)
+            min_rem[i] = max(0, seq.min_tokens - seq.num_generated)
+        return act, limit_rem, min_rem, eos_ids
+
+    def _append_row(self, seq: _Sequence, row: np.ndarray, n_top: int) -> None:
+        self._append_token(seq, int(row[0]), float(row[1]),
+                           row[2:2 + n_top].astype(np.int32), row[2 + n_top:])
+
+    async def _decode_multi_phase(self, active: list[_Sequence], H: int) -> None:
+        """H chained steps in one dispatch, one packed fetch
+        (engine.py:2996-3101): the device freezes a lane at its EOS or
+        budget and emits -1 after; the host replays the [H, B, .] samples
+        through ``_append_token``, as single steps would."""
+        self._clear_lanes()
+        for seq in active:
+            self._fill_lane(seq)
+        rows = self._horizon_rows(active)
+        # one history upload per horizon; the device keeps the count tables
+        penalties = (
+            self._penalty_rows(active) if any(s.has_penalties for s in active) else None
+        )
+        runner = self.runner
+        args = (
+            self._tokens.copy(), self._positions.copy(), self._block_tables.copy(),
+            self._temps.copy(), self._top_ps.copy(), self._top_ks.copy(), self._keys.copy(),
+            *rows,
+        )
+        try:
+            packed = await self._device(
+                lambda: runner.decode_multi(H, *args, penalties=penalties).cpu().numpy())
+        except Exception:
+            if not self.config.lazy_horizon:
+                raise
+            logger.exception("decode_multi@H%d failed at run time; degrading to single-step", H)
+            self._degrade_horizon()
+            return
+        self.stats.horizon_dispatches += 1
+        self.stats.horizon_steps += H
+        n_top = (packed.shape[-1] - 2) // 2
+        for h in range(H):
+            for seq in active:
+                if seq.slot is None:
+                    continue  # finished earlier in this horizon
+                row = packed[h, seq.slot]
+                if row[0] < 0:
+                    continue  # frozen on the device
+                self.stats.horizon_tokens += 1
+                self._append_row(seq, row, n_top)
 
     def _eos_rows(self, active: list[_Sequence]) -> tuple[np.ndarray, np.ndarray]:
         """Each lane's stop-id row and whether its EOS is masked this step."""
@@ -744,19 +938,29 @@ class TorchEngine:
     async def _spec_decode_phase(
         self, active: list[_Sequence], drafts: dict[int, list[int]]
     ) -> None:
-        """One verify dispatch, then host-side accept: each lane's samples
-        go in order through ``_append_token`` (streaming, stops and block
-        growth as on every other step) and the lane stops at its first
-        draft mismatch. Every emitted token is the model's own sample; the
-        draft only decides how many weight passes those tokens cost."""
+        """One verify dispatch (with H > 1 and no penalty lane, H - 1
+        decode steps chained after it on the device, engine.py:2826-2870),
+        then host-side accept: each lane's samples go in order through
+        ``_append_token`` (streaming, stops and block growth as on every
+        other step) and the lane stops at its first draft mismatch; then
+        the chained rows, frozen steps (-1) skipped. Every emitted token is
+        the model's own sample; the draft only decides how many weight
+        passes those tokens cost."""
         B = self.config.max_batch
         K = self.config.spec_k
         bs = self.config.block_size
+        any_pen = any(s.has_penalties for s in active)
+        # the chained continuation; penalty batches verify alone (the count
+        # tables cannot take a rejected draft back out)
+        H = self.config.decode_horizon
+        E = H - 1 if H > 1 and not any_pen and self._horizon_ready(H) else 0
+        if any(s.slot is None for s in active):
+            return  # the horizon degraded and failed every lane
         # blocks for every write of this dispatch: the last emitted token is
         # not fed, so the writes reach lane_steps - 1 positions past the fed
         # one; under block pressure a plain step (its allocation preempts)
         for seq in active:
-            lane_steps = min(len(drafts[seq.seq_id]) + 1, self._lane_remaining(seq))
+            lane_steps = min(len(drafts[seq.seq_id]) + 1 + E, self._lane_remaining(seq))
             need = (len(seq.token_ids) - 1 + lane_steps - 1) // bs + 1 - len(seq.block_ids)
             if need > 0:
                 try:
@@ -765,18 +969,12 @@ class TorchEngine:
                     await self._decode_single_phase(active)
                     return
         self._clear_lanes()
-        act = np.zeros(B, bool)
-        limit_rem = np.ones(B, np.int64)
-        min_rem = np.zeros(B, np.int64)
         draft_arr = np.full((B, K), -1, np.int64)
         draft_len = np.zeros(B, np.int64)
-        eos_ids, _ = self._eos_rows(active)
+        act, limit_rem, min_rem, eos_ids = self._horizon_rows(active)
         for seq in active:
             i = seq.slot
             self._fill_lane(seq)
-            act[i] = True
-            limit_rem[i] = self._lane_remaining(seq)
-            min_rem[i] = max(0, seq.min_tokens - seq.num_generated)
             d = drafts[seq.seq_id]
             draft_len[i] = len(d)
             if d:
@@ -784,19 +982,18 @@ class TorchEngine:
                 self.stats.num_drafts += 1
                 self.stats.num_draft_tokens += len(d)
         # penalties ride the verify positions: one history upload per dispatch
-        penalties = (
-            self._penalty_rows(active) if any(s.has_penalties for s in active) else None
-        )
+        penalties = self._penalty_rows(active) if any_pen else None
         runner = self.runner
         args = (
             self._tokens.copy(), draft_arr, draft_len, self._positions.copy(),
             self._block_tables.copy(), self._temps.copy(), self._top_ps.copy(),
             self._top_ks.copy(), self._keys.copy(), act, limit_rem, min_rem, eos_ids,
         )
-        # one device-to-host copy of the packed [S, B, 2 + 2K] samples
+        # one device-to-host copy of the packed [S + E, B, 2 + 2K] samples
         packed = await self._device(
-            lambda: runner.spec_verify(K, 0, *args, penalties=penalties).cpu().numpy())
+            lambda: runner.spec_verify(K, E, *args, penalties=penalties).cpu().numpy())
         self.stats.verify_steps += 1
+        self.stats.verify_chained_steps += E
         n_top = (packed.shape[-1] - 2) // 2
         for seq in active:
             if seq.slot is None:
@@ -810,10 +1007,7 @@ class TorchEngine:
                 if tok < 0:
                     break  # the device marked the position invalid
                 accept = h < len(d) and d[h] == tok
-                self._append_token(
-                    seq, tok, float(row[1]), row[2:2 + n_top].astype(np.int32),
-                    row[2 + n_top:],
-                )
+                self._append_row(seq, row, n_top)
                 if accept:
                     accepted += 1
                     self.stats.num_accepted_tokens += 1
@@ -828,6 +1022,15 @@ class TorchEngine:
                     # drafting exponentially
                     seq.spec_fail += 1
                     seq.spec_backoff = min(1 << seq.spec_fail, 32)
+        # the chained steps from each lane's accept point (a lane finished
+        # above holds no slot and skips them)
+        for e in range(E):
+            for seq in active:
+                if seq.slot is None:
+                    continue
+                row = packed[K + 1 + e, seq.slot]
+                if row[0] >= 0:
+                    self._append_row(seq, row, n_top)
 
     def _append_token(self, seq: _Sequence, token: int, lp: float, top_ids, top_lps) -> None:
         """Record a newly generated token: stream it, grow blocks, stop."""

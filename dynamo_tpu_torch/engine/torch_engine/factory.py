@@ -3,9 +3,10 @@
 Counterpart of dynamo_tpu/engine/jax_engine/factory.py (``build_jax_engine``
 :26-209, ``default_num_blocks`` :411, ``kv_dtype_from_env``,
 ``fused_decode_from_env``, ``collective_overlap_from_env`` and
-``spec_decode_settings`` :271-320, the ``DYN_JAX_QUANTIZE_INT8`` read at
+``spec_decode_settings`` :271-320, ``default_lazy_horizon`` /
+``default_decode_horizon`` :323-344, the ``DYN_JAX_QUANTIZE_INT8`` read at
 :80-82), with the JAX factory's default admission path: chunked, packed and
-mixed-step prefill.
+mixed-step prefill, and its default decode horizon on the accelerator.
 
 Tensor parallelism (``tensor_parallel_size``, the reference's mesh and
 Megatron sharding, :113-163): this process becomes rank 0, the leader, and
@@ -127,6 +128,23 @@ def collective_overlap_from_env() -> bool:
     return os.environ.get("DYN_COLLECTIVE_OVERLAP", "0") in ("1", "true", "yes")
 
 
+def default_lazy_horizon() -> bool:
+    """DYN_LAZY_HORIZON=1: single-step until the horizon's graphs are
+    captured (on the engine's device thread, between dispatches). Off by
+    default, as in the JAX package."""
+    return os.environ.get("DYN_LAZY_HORIZON", "0") in ("1", "true", "yes")
+
+
+def default_decode_horizon(device) -> int:
+    """DYN_DECODE_HORIZON when set, else 4 on a card and 1 on the CPU: the
+    JAX package's 4 on its accelerator, 1 elsewhere, mapped onto the
+    port's accelerator (so CPU tests single-step unless they ask)."""
+    override = os.environ.get("DYN_DECODE_HORIZON")
+    if override:
+        return max(1, int(override))
+    return 4 if torch.device(device).type == "cuda" else 1
+
+
 def spec_decode_settings() -> dict:
     """Self-drafting speculative decoding knobs (TorchEngineConfig fields):
 
@@ -200,7 +218,7 @@ def _follower_main(rank: int, world: int, method: str, backend: str, devices,
     """A follower rank's process: join the group, build the rank's runner,
     replay the leader's calls until it stops (or is lost)."""
     group = TPGroup(rank, world, init_method=method, backend=backend, devices=devices,
-                    timeout_s=TP_TIMEOUT_S)
+                    timeout_s=TP_TIMEOUT_S, idle_timeout_s=spec["idle_timeout_s"])
     try:
         follower_loop(_rank_runner(group, spec), SpmdStepChannel(group))
     except LeaderLostError as e:
@@ -232,6 +250,10 @@ def build_torch_engine(
     tp_backend: Optional[str] = None,
     tp_devices=None,
     collective_overlap: Optional[bool] = None,
+    tp_idle_timeout_s: float = 86400.0,
+    decode_horizon: Optional[int] = None,
+    lazy_horizon: Optional[bool] = None,
+    cuda_graphs: Optional[bool] = None,
 ) -> TorchEngine:
     """Build the serving engine on ``device`` (the card unless the caller
     asks for the CPU; raises when a card is asked for and absent).
@@ -281,8 +303,18 @@ def build_torch_engine(
     ``num_blocks``). ``params`` given must then lie on the CPU: each rank
     copies its slice to its device. ``collective_overlap`` (default
     ``DYN_COLLECTIVE_OVERLAP``) runs the fused decode step's tail as the
-    ring decomposition. Spec decode under tensor parallelism is not ported
-    yet: ``spec_k`` > 0 with a group raises ValueError.
+    ring decomposition. A follower gives its leader up after
+    ``tp_idle_timeout_s`` without a broadcast; an idle leader sends
+    keep-alives four times as often. Spec decode under tensor parallelism
+    is not ported yet: ``spec_k`` > 0 with a group raises ValueError.
+
+    The decode horizon: ``decode_horizon`` (default
+    ``default_decode_horizon``: ``DYN_DECODE_HORIZON``, else 4 on a card
+    and 1 on the CPU) decode steps chained per dispatch, and
+    ``lazy_horizon`` (default ``DYN_LAZY_HORIZON``). ``cuda_graphs``
+    (default: on for a card without a group) runs the decode step, the
+    horizon and the verify pass as CUDA graphs; False runs them eagerly
+    (a group always does; True with a group raises ValueError).
 
     On the card, a config whose shapes a kernel of its path would refuse
     raises ValueError here, before any request (and before the card is
@@ -331,6 +363,10 @@ def build_torch_engine(
                 "the card's kernels do not take this model's shapes: " + "; ".join(problems)
             )
     dev = resolve_device(devs[0] if grouped else device)
+    if decode_horizon is None:
+        decode_horizon = default_decode_horizon(dev)
+    if lazy_horizon is None:
+        lazy_horizon = default_lazy_horizon()
     max_len = min(max_model_len or cfg.max_position_embeddings, cfg.max_position_embeddings)
     if num_blocks is None:
         num_blocks = default_num_blocks(
@@ -345,23 +381,26 @@ def build_torch_engine(
         prefill_chunk_tokens=prefill_chunk_tokens, kv_dtype=kv_dtype,
     )
     if grouped:
+        if cuda_graphs:
+            raise ValueError("CUDA graphs are not captured under a tensor-parallel group")
         runner = _build_tp_runner(
             tp, tp_backend, tp_devices, on_card,
             dict(cfg=cfg, params=params, model_dir=model_dir, seed=seed, dtype=dtype,
-                 quantize=quantize,
+                 quantize=quantize, idle_timeout_s=tp_idle_timeout_s,
                  runner=dict(runner_kw, collective_overlap=collective_overlap)),
         )
     else:
         if params is None:
             params = load_or_init_params(model_dir, cfg, seed=seed, device=dev, dtype=dtype,
                                          quantize=quantize)
-        runner = TorchModelRunner(cfg, params, device=dev, **runner_kw)
+        runner = TorchModelRunner(cfg, params, device=dev, cuda_graphs=cuda_graphs, **runner_kw)
     return TorchEngine(
         runner,
         TorchEngineConfig(
             max_batch=max_batch, block_size=kv_block_size, num_blocks=num_blocks,
             max_model_len=max_len, rng_seed=seed, chunk_budget=chunking.chunk_budget,
-            mixed_step=chunking.mixed_step, **spec,
+            mixed_step=chunking.mixed_step, decode_horizon=decode_horizon,
+            lazy_horizon=lazy_horizon, **spec,
         ),
     )
 
@@ -387,7 +426,7 @@ def _build_tp_runner(tp, backend, devices, on_card, spec) -> SpmdModelRunner:
     group = None
     try:
         group = TPGroup(0, tp, init_method=method, backend=backend, devices=devices,
-                        timeout_s=TP_TIMEOUT_S)
+                        timeout_s=TP_TIMEOUT_S, idle_timeout_s=spec["idle_timeout_s"])
         runner = _rank_runner(group, spec)
     except BaseException:
         for p in procs:

@@ -6,9 +6,10 @@ Counterpart of dynamo_tpu/engine/jax_engine/model_runner.py (``prefill``
 ``_prefill_chunk_impl`` :542, ``pack_prefill`` :1323,
 ``prefill_packed_arrays`` :1371 with ``_prefill_packed_impl`` :562,
 ``mixed_step`` :980 with ``_mixed_impl`` :924, ``decode`` :1603 with
-``_decode_impl`` :579, ``spec_verify`` :1696 with ``_spec_verify_impl``
-:704, ``fetch_sample`` :1049, ``default_prefill_buckets`` :41), for the
-single-device path:
+``_decode_impl`` :579, ``decode_multi`` :1646 with ``_decode_multi_impl``
+:593, ``spec_verify`` :1696 with ``_spec_verify_impl`` :704,
+``decode_multi_ready`` / ``prepare_decode_multi_async`` :1760-1767,
+``fetch_sample`` :1049, ``default_prefill_buckets`` :41):
 
   * the caches are single buffers written IN PLACE by every call (the JAX
     runner donates them through jit; PyTorch simply updates them);
@@ -26,9 +27,23 @@ single-device path:
     closed family a CUDA-graph capture would key on;
   * sampling runs on the device right behind the model step, and the host
     reads a step's results with ONE device-to-host copy (``fetch_sample``,
-    or the packed array of ``spec_verify``); ``prefill_chunk``,
-    ``prefill_packed_arrays`` and ``mixed_step`` read nothing back: every
-    length they need is a host int;
+    or the packed array of ``decode_multi`` and ``spec_verify``);
+    ``prefill_chunk``, ``prefill_packed_arrays`` and ``mixed_step`` read
+    nothing back: every length they need is a host int;
+  * ``decode_multi`` chains H decode steps in one dispatch (the decode
+    horizon): each step's sample feeds the next on the device, a lane
+    freezes at an unsuppressed EOS or when its budget runs out, and the
+    [H, B, 2 + 2 * num_top] samples come back in one copy; ``spec_verify``
+    chains ``extras`` such steps after the verify pass, from the accept
+    point the device computes;
+  * ``decode``, ``decode_multi`` and ``spec_verify`` run one plain
+    function of their inputs (``_decode_body``, ``_decode_multi_body``,
+    ``_verify_body``), whose inputs are uploaded in one copy
+    (graphs.StepInputs). With ``cuda_graphs`` (on by default on a card
+    without a tensor-parallel group) each is captured once per key as a
+    CUDA graph (graphs.py) and replayed per dispatch, and the call returns
+    its samples already on the host; otherwise the function runs eagerly
+    and returns device tensors. ``mixed_step`` and the prefills stay eager;
   * ``fused_decode`` runs every decode and verify step (and the decode half
     of a mixed step) through the fused norm+QKV+RoPE and o-proj+residual
     heads (models/llama.py); packed and chunked prefill keep the unfused
@@ -54,24 +69,28 @@ single-device path:
     ``collective_overlap`` runs the fused decode step's tail as the ring
     decomposition.
 
-Not ported yet: the decode horizon (also after a verify pass),
-disaggregated block moves (with their int8 extract / inject), and spec
-decode under tensor parallelism.
+Not ported yet: disaggregated block moves (with their int8 extract /
+inject), spec decode under tensor parallelism, and graphs of the mixed
+step or under a tensor-parallel group (both run eagerly).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.engine.torch_engine.graphs import StepGraphs, StepInputs
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.ops import kv_quant
 from dynamo_tpu_torch.ops.sampling import (
     MAX_EOS_IDS,
+    advance_count_tables,
+    advance_keys,
     apply_penalties,
     apply_penalties_from_tables,
     apply_repetition_penalty_from_prompt,
@@ -81,6 +100,7 @@ from dynamo_tpu_torch.ops.sampling import (
     penalty_count_tables,
     sample_args,
     sample_tokens_full,
+    spec_accept_len,
 )
 
 
@@ -103,6 +123,22 @@ def default_prefill_buckets(block_size: int, max_len: int) -> list[int]:
 
 
 SampleOut = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# top logprobs carried per sample (sample_tokens_full's num_top)
+NUM_TOP = 20
+
+
+def pack_samples(tok, lp, top_ids, top_lps) -> torch.Tensor:
+    """One step's samples as [B, 2 + 2 * num_top] f32 (token ids < 2^24 are
+    exact in f32): token, logprob, top ids, top logprobs."""
+    return torch.cat([tok[:, None].float(), lp[:, None].float(), top_ids.float(),
+                      top_lps.float()], dim=-1)
+
+
+def unpack_samples(packed: torch.Tensor) -> SampleOut:
+    """``pack_samples`` undone, each piece in sample_tokens_full's dtype."""
+    k = (packed.shape[-1] - 2) // 2
+    return (packed[..., 0].to(torch.int32), packed[..., 1], packed[..., 2:2 + k].to(torch.int32),
+            packed[..., 2 + k:])
 
 
 class TorchModelRunner:
@@ -126,9 +162,27 @@ class TorchModelRunner:
         kv_dtype: str = "bf16",
         group=None,
         collective_overlap: bool = False,
+        cuda_graphs: Optional[bool] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.group = group
+        # CUDA graphs of decode / decode_multi / spec_verify: on by default
+        # on a card without a group; the attribute may be flipped later
+        # there (eager and graphed runs of the same programs, to time or
+        # compare the two)
+        capable = self.device.type == "cuda" and group is None
+        if cuda_graphs is None:
+            cuda_graphs = capable
+        if cuda_graphs and not capable:
+            raise ValueError("cuda_graphs needs a CUDA device and no tensor-parallel group")
+        self.cuda_graphs = bool(cuda_graphs)
+        self._graphs = StepGraphs(self.device) if capable else None
+        self._inputs: dict[tuple, StepInputs] = {}
+        self._last: dict[str, tuple] = {}  # kind -> key of its last dispatch
+        # horizons prepared for the engine's lazy ramp, and a failed capture
+        self._prepared: set[int] = set()
+        self._pending: set[int] = set()
+        self._prepare_error: Optional[BaseException] = None
         self.config = dataclasses.replace(
             config, fused_decode=bool(fused_decode) or config.fused_decode,
             collective_overlap=bool(collective_overlap) or config.collective_overlap,
@@ -412,9 +466,11 @@ class TorchModelRunner:
             eos_ids = np.full((B, MAX_EOS_IDS), -1, np.int64)
         if eos_suppress is None:
             eos_suppress = np.zeros(B, bool)
-        d_out = self.decode(
+        # eager: the chunks above are eager, and all of it comes back in
+        # one copy
+        d_out = self._decode(
             tokens, positions, block_tables, slot_indices, temps, top_ps, top_ks,
-            keys=keys, eos_mask=(eos_ids, eos_suppress),
+            keys, None, (eos_ids, eos_suppress), graphed=False,
         )
         return chunk_outs, d_out
 
@@ -438,25 +494,53 @@ class TorchModelRunner:
         # upload; ignored when penalties is given
     ) -> SampleOut:
         """One batched decode step. Returns (tokens, logprobs, top_ids,
-        top_logprobs) device tensors, batch-major."""
+        top_logprobs), batch-major: on the host when the step ran as a
+        graph, else device tensors (``fetch_sample`` takes either)."""
+        return self._decode(tokens, positions, block_tables, slot_indices, temps, top_ps,
+                            top_ks, keys, penalties, eos_mask, self.cuda_graphs)
+
+    def _decode(self, tokens, positions, block_tables, slot_indices, temps, top_ps, top_ks,
+                keys, penalties, eos_mask, graphed: bool) -> SampleOut:
+        B = len(tokens)
         if keys is None:
-            keys = self._next_decode_keys(len(tokens))
-        logits = self.decode_logits(tokens, positions, block_tables, slot_indices)
+            keys = self._next_decode_keys(B)
+        arrays = dict(tokens=tokens, positions=positions, block_tables=block_tables,
+                      slot_indices=slot_indices, temps=temps, top_ps=top_ps, top_ks=top_ks,
+                      keys=keys)
         if penalties is not None:
-            hist, hist_len, prompt_len, freq, pres, rep, eos_ids, eos_sup = penalties
-            logits = apply_penalties(
-                logits, self._dev(hist, np.int64), self._dev(hist_len, np.int64),
-                self._dev(prompt_len, np.int64), self._dev(freq, np.float32),
-                self._dev(pres, np.float32), self._dev(rep, np.float32),
-            )
-            eos_mask = (eos_ids, eos_sup)
-        if eos_mask is not None:
-            logits = mask_eos_logits(
-                logits, self._dev(eos_mask[0], np.int64), self._dev(eos_mask[1], bool))
-        args = sample_args(temps, top_ps, top_ks, keys, self.device)
-        return sample_tokens_full(
-            logits, *args, all_greedy=bool((np.asarray(temps) <= 0).all())
+            arrays.update(zip(("hist", "hist_len", "prompt_len", "freq", "pres", "rep",
+                               "eos_ids", "eos_sup"), penalties))
+        elif eos_mask is not None and np.asarray(eos_mask[1]).any():
+            # a neutral mask is a bitwise no-op: skipped
+            arrays.update(eos_ids=eos_mask[0], eos_sup=eos_mask[1])
+        pen, mask = penalties is not None, "eos_ids" in arrays
+        greedy = bool((np.asarray(temps) <= 0).all())
+        fields = self._sampling_fields(B, np.shape(block_tables)[1])
+        fields["slot_indices"] = (torch.int64, (B,))
+        if pen:
+            fields.update(self._penalty_fields(B, np.shape(penalties[0])[1]))
+        if mask:
+            fields.update(self._eos_fields(B))
+            fields["eos_sup"] = (torch.bool, (B,))
+        key = self._key("decode", fields, pen=pen, mask=mask, greedy=greedy)
+        out = self._run(key, fields, arrays, graphed,
+                        lambda v: self._decode_body(v, pen, mask, greedy))
+        return unpack_samples(out)
+
+    def _decode_body(self, v: dict, pen: bool, mask: bool, greedy: bool) -> torch.Tensor:
+        """One step as a function of its inputs: the model, the penalties
+        from the history, the EOS mask, the sample. [B, 2 + 2 * num_top]."""
+        logits = llama.decode(
+            self.params, self.config, v["tokens"], v["positions"], self.k_cache, self.v_cache,
+            v["block_tables"], v["slot_indices"], group=self.group,
         )
+        if pen:
+            logits = apply_penalties(logits, v["hist"], v["hist_len"], v["prompt_len"],
+                                     v["freq"], v["pres"], v["rep"])
+        if mask:
+            logits = mask_eos_logits(logits, v["eos_ids"], v["eos_sup"])
+        return pack_samples(*sample_tokens_full(
+            logits, v["temps"], v["top_ps"], v["top_ks"], v["keys"], NUM_TOP, all_greedy=greedy))
 
     @torch.inference_mode()
     def decode_logits(self, tokens, positions, block_tables, slot_indices) -> torch.Tensor:
@@ -475,6 +559,109 @@ class TorchModelRunner:
         device (a tensor-parallel leader stops its followers here)."""
 
     @torch.inference_mode()
+    def decode_multi(
+        self,
+        H: int,
+        tokens: np.ndarray,  # [B] last sampled token per lane
+        positions: np.ndarray,  # [B] its position
+        block_tables: np.ndarray,  # [B, max_blocks_per_seq], covering every
+        # write of the horizon (the engine preallocates)
+        temps: np.ndarray,
+        top_ps: np.ndarray,
+        top_ks: np.ndarray,
+        keys: np.ndarray,  # [B, 2] (stream, counter) rows of step 0
+        active: np.ndarray,  # [B] bool: lane live at the horizon's start
+        limit_remaining: np.ndarray,  # [B] tokens the lane may still emit
+        min_remaining: np.ndarray,  # [B] steps during which its EOS stays masked
+        eos_ids: np.ndarray,  # [B, MAX_EOS_IDS], -1 pads
+        penalties: Optional[tuple] = None,
+        # (hist [B, L], hist_len, prompt_len, freq, pres, rep): uploaded
+        # once per horizon and scattered into count tables on the device
+    ) -> torch.Tensor:
+        """H chained decode steps in one dispatch (see ``_decode_multi_body``
+        for the freeze rules). Returns the packed [H, B, 2 + 2 * num_top]
+        f32 samples (token or -1, logprob, top ids, top logprobs per step):
+        on the host when the horizon ran as a graph, else on the device."""
+        H = int(H)
+        if H < 1:
+            raise ValueError(f"decode_multi needs H >= 1, got {H}")
+        B = len(tokens)
+        arrays = dict(tokens=tokens, positions=positions, block_tables=block_tables,
+                      temps=temps, top_ps=top_ps, top_ks=top_ks, keys=keys, active=active,
+                      limit_remaining=limit_remaining, min_remaining=min_remaining,
+                      eos_ids=eos_ids)
+        pen = penalties is not None
+        if pen:
+            arrays.update(zip(("hist", "hist_len", "prompt_len", "freq", "pres", "rep"),
+                              penalties))
+        mask = bool((np.asarray(min_remaining) > 0).any())
+        greedy = bool((np.asarray(temps) <= 0).all())
+        fields = self._multi_fields(B, np.shape(block_tables)[1])
+        if pen:
+            fields.update(self._penalty_fields(B, np.shape(penalties[0])[1]))
+        key = self._key("decode_multi", fields, H, pen=pen, mask=mask, greedy=greedy)
+        return self._run(key, fields, arrays, self.cuda_graphs,
+                         lambda v: self._decode_multi_body(v, H, pen, mask, greedy))
+
+    def _chain_feed(self, v: dict, tokens, positions, done):
+        """One chained step's inputs: a frozen lane feeds token 0 at
+        position 0 and writes to the null slot 0, as an empty lane of a
+        single step does (the paged kernels size their splits from every
+        lane's length, so a frozen lane must look like an empty one for the
+        live lanes to compute what single steps compute)."""
+        tables = v["block_tables"]
+        tok = torch.where(done, 0, tokens)
+        pos = torch.where(done, 0, positions)
+        page = (pos // self.block_size).clamp(max=tables.shape[1] - 1)
+        slot = tables.gather(1, page[:, None])[:, 0].long() * self.block_size + pos % self.block_size
+        return tok, pos, torch.where(done, 0, slot)
+
+    def _decode_multi_body(self, v: dict, H: int, pen: bool, mask: bool,
+                           greedy: bool) -> torch.Tensor:
+        """H chained steps as a function of their inputs (the reference's
+        ``_decode_multi_impl``, unrolled): each step's sample feeds the
+        next. A lane freezes once it samples an unsuppressed EOS or has
+        emitted ``limit_remaining`` tokens; a frozen step writes its K/V to
+        the null slot 0 and emits -1. The EOS is emitted (the engine hides
+        it) and never fed back. Step h masks a lane's EOS while h <
+        ``min_remaining`` and samples with the counter advanced by h. With
+        penalties the history is scattered into count tables once, and each
+        step adds its own non-EOS token; lanes without penalties (0 / 0 / 1)
+        pass through bit-exactly."""
+        tokens, positions = v["tokens"], v["positions"]
+        eos_ids = v["eos_ids"]
+        eos_valid = eos_ids >= 0
+        if pen:
+            out_counts, seen = penalty_count_tables(
+                v["hist"], v["hist_len"], v["prompt_len"], self.config.vocab_size)
+        done = ~v["active"]
+        rows = []
+        for h in range(H):
+            tok_in, pos_in, slot = self._chain_feed(v, tokens, positions, done)
+            logits = llama.decode(
+                self.params, self.config, tok_in, pos_in, self.k_cache, self.v_cache,
+                v["block_tables"], slot, group=self.group,
+            )
+            if pen:
+                logits = apply_penalties_from_tables(
+                    logits, out_counts, seen, v["freq"], v["pres"], v["rep"])
+            if mask:
+                logits = mask_eos_logits(logits, eos_ids, h < v["min_remaining"])
+            tok, lp, top_ids, top_lps = sample_tokens_full(
+                logits, v["temps"], v["top_ps"], v["top_ks"], advance_keys(v["keys"], h),
+                NUM_TOP, all_greedy=greedy)
+            tok = tok.long()
+            is_eos = ((tok[:, None] == eos_ids) & eos_valid).any(dim=-1)
+            rows.append(pack_samples(torch.where(done, -1, tok), lp, top_ids, top_lps))
+            if pen:
+                # an EOS finishes the lane before it is appended
+                out_counts, seen = advance_count_tables(out_counts, seen, tok, ~done & ~is_eos)
+            tokens = torch.where(done | is_eos, tokens, tok)
+            positions = torch.where(done, positions, positions + 1)
+            done = done | is_eos | (h + 1 >= v["limit_remaining"])
+        return torch.stack(rows)
+
+    @torch.inference_mode()
     def spec_verify(
         self,
         spec_k: int,
@@ -484,7 +671,7 @@ class TorchModelRunner:
         draft_len: np.ndarray,  # [B] valid drafts per lane (0 = none)
         positions: np.ndarray,  # [B] position of `tokens`
         block_tables: np.ndarray,  # [B, max_blocks_per_seq], covering every
-        # position up to positions + draft_len
+        # position up to positions + draft_len + extras
         temps: np.ndarray,
         top_ps: np.ndarray,
         top_ks: np.ndarray,
@@ -497,111 +684,268 @@ class TorchModelRunner:
         # (hist [B, L], hist_len, prompt_len, freq, pres, rep): the
         # history's count tables, advanced by each fed draft token
     ) -> torch.Tensor:
-        """Speculative draft-verify dispatch: ONE weight pass
-        (llama.decode_verify) scores S = spec_k + 1 positions per lane --
-        position 0 re-feeds the last accepted token, 1..draft_len the
-        drafts. Every position is sampled with the key the per-token path
-        would use, (stream, counter + h), so the emitted stream equals
-        non-speculative decoding under greedy and seeded sampling alike.
-        Positions past a lane's drafts, and inactive lanes, write their K/V
-        to the null slot 0 and come back as token -1. Rejected draft
-        positions leave K/V ahead of the accepted frontier; the next fed
-        token overwrites it before anything attends to it.
-
-        Position h of a lane masks its EOS ids while h < min_remaining.
-        With penalties, position h is penalised from the history plus the
-        drafts fed at positions 1..h (a rejected draft only changes
-        positions whose outputs the host discards).
-
-        Returns the packed [S, B, 2 + 2 * num_top] f32 device array (token
-        or -1, logprob, top ids, top logprobs per position), for one
-        device-to-host copy. ``extras`` (decode steps chained after the
-        verify pass) must be 0: the horizon is not ported yet."""
-        if extras:
-            raise NotImplementedError(
-                "decode steps chained after the verify pass (the horizon) are "
-                "not ported yet"
-            )
+        """Speculative draft-verify dispatch (see ``_verify_body``): ONE
+        weight pass scores S = spec_k + 1 positions per lane, then
+        ``extras`` E chained decode steps run from the accept point the
+        device computes. Returns the packed [S + E, B, 2 + 2 * num_top] f32
+        samples (token or -1, logprob, top ids, top logprobs per position):
+        on the host when the dispatch ran as a graph, else on the device.
+        Penalties ride the verify positions only: with them E must be 0, as
+        the reference's engine sends it (the count tables cannot take a
+        rejected draft back out)."""
         if self.group is not None:
             raise NotImplementedError("spec decode under tensor parallelism is not ported yet")
-        S = spec_k + 1
-        tokens = np.asarray(tokens, np.int64)
-        B = tokens.shape[0]
-        draft_len = np.asarray(draft_len, np.int64)
+        S, E = spec_k + 1, int(extras)
+        if E < 0:
+            raise ValueError(f"extras must be >= 0, got {E}")
+        if penalties is not None and E:
+            raise ValueError("penalty batches verify without chained steps (extras=0)")
+        B = len(tokens)
         active = np.asarray(active, bool)
-        if (active & (draft_len >= np.asarray(limit_remaining))).any():
+        if (active & (np.asarray(draft_len) >= np.asarray(limit_remaining))).any():
             raise ValueError("a lane drafts past the tokens it may still emit")
-        step = np.arange(S)[None, :]
+        if min_remaining is None:
+            min_remaining = np.zeros(B, np.int64)
+        if eos_ids is None:
+            eos_ids = np.full((B, MAX_EOS_IDS), -1, np.int64)
+        arrays = dict(tokens=tokens, drafts=np.asarray(drafts).reshape(B, spec_k),
+                      draft_len=draft_len, positions=positions, block_tables=block_tables,
+                      temps=temps, top_ps=top_ps, top_ks=top_ks, keys=keys, active=active,
+                      limit_remaining=limit_remaining, min_remaining=min_remaining,
+                      eos_ids=eos_ids)
+        pen = penalties is not None
+        if pen:
+            arrays.update(zip(("hist", "hist_len", "prompt_len", "freq", "pres", "rep"),
+                              penalties))
+        mask = bool((np.asarray(min_remaining) > 0).any())
+        greedy = bool((np.asarray(temps) <= 0).all())
+        fields = self._multi_fields(B, np.shape(block_tables)[1])
+        fields.update(drafts=(torch.int64, (B, spec_k)), draft_len=(torch.int64, (B,)))
+        if pen:
+            fields.update(self._penalty_fields(B, np.shape(penalties[0])[1]))
+        key = self._key("verify", fields, S, E, pen=pen, mask=mask, greedy=greedy)
+        return self._run(key, fields, arrays, self.cuda_graphs,
+                         lambda v: self._verify_body(v, S, E, pen, mask, greedy))
+
+    def _verify_body(self, v: dict, S: int, E: int, pen: bool, mask: bool,
+                     greedy: bool) -> torch.Tensor:
+        """The verify dispatch as a function of its inputs (the reference's
+        ``_spec_verify_impl``): ONE weight pass (llama.decode_verify) scores
+        S positions per lane -- position 0 re-feeds the last accepted
+        token, 1..draft_len the drafts -- each sampled with the key the
+        per-token path would use, (stream, counter + h), so the emitted
+        stream equals non-speculative decoding under greedy and seeded
+        sampling alike. Positions past a lane's drafts, and inactive lanes,
+        write their K/V to the null slot 0 and come back as -1. Rejected
+        draft positions leave K/V ahead of the accepted frontier; the next
+        fed token overwrites it before anything attends to it. Position h
+        masks its EOS while h < min_remaining; with penalties, position h is
+        penalised from the history plus the drafts fed at 1..h.
+
+        Then E chained steps (``_decode_multi_body``'s freeze rules) start
+        from the bonus token at the accept point ``spec_accept_len`` gives;
+        a lane whose accepted region holds an EOS is frozen."""
+        tokens, drafts, draft_len = v["tokens"], v["drafts"], v["draft_len"]
+        positions, tables, active = v["positions"], v["block_tables"], v["active"]
+        eos_ids, min_rem = v["eos_ids"], v["min_remaining"]
+        eos_valid = eos_ids >= 0
+        B = tokens.shape[0]
+        dev = tokens.device
+        step = torch.arange(S, device=dev)[None, :]
         valid = active[:, None] & (step <= draft_len[:, None])  # [B, S]
-        fed = np.concatenate(
-            [tokens[:, None], np.asarray(drafts, np.int64).reshape(B, spec_k)], axis=1
-        )
-        fed = np.where(valid, fed, 0)  # pads are never embedded as -1
-        qpos = np.asarray(positions, np.int64)[:, None] + step
-        tables = np.asarray(block_tables, np.int32)
-        page = np.minimum(qpos // self.block_size, tables.shape[1] - 1)
-        slot = (
-            tables[np.arange(B)[:, None], page].astype(np.int64) * self.block_size
-            + qpos % self.block_size
-        )
-        slot = np.where(valid, slot, 0)  # invalid positions hit the null sink
+        fed = torch.where(valid, torch.cat([tokens[:, None], drafts], dim=1), 0)
+        qpos = positions[:, None] + step
+        page = (qpos // self.block_size).clamp(max=tables.shape[1] - 1)
+        slot = torch.where(
+            valid, tables.gather(1, page).long() * self.block_size + qpos % self.block_size, 0)
         logits = llama.decode_verify(
-            self.params, self.config, self._dev(fed, np.int64),
-            self._dev(qpos, np.int64), self.k_cache, self.v_cache,
-            self._dev(tables, np.int32), self._dev(slot, np.int64),
-        )
+            self.params, self.config, fed, qpos, self.k_cache, self.v_cache, tables, slot)
         V = logits.shape[-1]
-        # EOS masked at position h of a lane while h < min_remaining
-        suppress = None
-        if min_remaining is not None and eos_ids is not None:
-            sup = step < np.asarray(min_remaining, np.int64)[:, None]  # [B, S]
-            if sup.any():
-                suppress = self._dev(sup, bool)
-                eos_d = self._dev(np.asarray(eos_ids).reshape(B, MAX_EOS_IDS), np.int64)
-        if penalties is not None:
-            hist, hist_len, prompt_len, freq, pres, rep = penalties
-            out_counts, seen = penalty_count_tables(
-                self._dev(hist, np.int64), self._dev(hist_len, np.int64),
-                self._dev(prompt_len, np.int64), V)
-            freq, pres, rep = (self._dev(a, np.float32) for a in (freq, pres, rep))
-            fed_d = self._dev(fed, np.int64).clamp(0, V - 1)
-            adv = self._dev(valid, np.float32)
+        suppress = step < min_rem[:, None]  # [B, S]
+        if pen:
+            out_counts, seen = penalty_count_tables(v["hist"], v["hist_len"], v["prompt_len"], V)
             rows = []
             for h in range(S):
                 if h >= 1:
                     # the draft fed at position h entered the context
-                    out_counts = out_counts.scatter_add(1, fed_d[:, h:h + 1], adv[:, h:h + 1])
-                    seen = seen.scatter_reduce(1, fed_d[:, h:h + 1], adv[:, h:h + 1], reduce="amax")
-                lg = apply_penalties_from_tables(logits[:, h], out_counts, seen, freq, pres, rep)
-                if suppress is not None:
-                    lg = mask_eos_logits(lg, eos_d, suppress[:, h])
+                    out_counts, seen = advance_count_tables(out_counts, seen, fed[:, h], valid[:, h])
+                lg = apply_penalties_from_tables(
+                    logits[:, h], out_counts, seen, v["freq"], v["pres"], v["rep"])
+                if mask:
+                    lg = mask_eos_logits(lg, eos_ids, suppress[:, h])
                 rows.append(lg)
             logits = torch.stack(rows, dim=1)  # [B, S, V]
-        elif suppress is not None:
+        elif mask:
             logits = mask_eos_logits(
-                logits.reshape(B * S, V), eos_d.repeat_interleave(S, dim=0), suppress.reshape(-1))
+                logits.reshape(B * S, V), eos_ids.repeat_interleave(S, dim=0),
+                suppress.reshape(-1)).reshape(B, S, V)
         # fold S into the batch and sample every position in one pass; the
         # sampler is row-wise, so this equals S single steps
-        keys_rep = np.repeat(np.asarray(keys, np.int64), S, axis=0)
-        keys_rep[:, 1] = (keys_rep[:, 1] + np.tile(np.arange(S), B)) & 0xFFFFFFFF
-        temps_rep = np.repeat(np.asarray(temps, np.float32), S)
-        args = sample_args(
-            temps_rep, np.repeat(top_ps, S), np.repeat(top_ks, S), keys_rep, self.device
-        )
+        keys_rep = advance_keys(v["keys"].repeat_interleave(S, dim=0), step.repeat(B, 1).reshape(-1))
         tok, lp, top_ids, top_lps = sample_tokens_full(
-            logits.reshape(B * S, V), *args, all_greedy=bool((temps_rep <= 0).all())
-        )
-        tok = torch.where(self._dev(valid, bool), tok.reshape(B, S), -1)
-        packed = torch.cat(
-            [
-                tok[..., None].float(),
-                lp.reshape(B, S, 1),
-                top_ids.reshape(B, S, -1).float(),
-                top_lps.reshape(B, S, -1),
-            ],
-            dim=-1,
-        )
-        return packed.transpose(0, 1).contiguous()  # [S, B, 2 + 2K]
+            logits.reshape(B * S, V), v["temps"].repeat_interleave(S),
+            v["top_ps"].repeat_interleave(S), v["top_ks"].repeat_interleave(S), keys_rep,
+            NUM_TOP, all_greedy=greedy)
+        t = tok.long().reshape(B, S)
+        packed = torch.cat([
+            torch.where(valid, t, -1)[..., None].float(), lp.reshape(B, S, 1),
+            top_ids.reshape(B, S, -1).float(), top_lps.reshape(B, S, -1),
+        ], dim=-1).transpose(0, 1)  # [S, B, 2 + 2K]
+        if not E:
+            return packed.contiguous()
+        m = spec_accept_len(t, drafts, draft_len)  # [B] accepted drafts
+        lanes = torch.arange(B, device=dev)
+        # an EOS anywhere in the accepted region freezes the continuation
+        t_eos = ((t[:, :, None] == eos_ids[:, None, :]) & eos_valid[:, None, :]).any(dim=-1)
+        done = ~active | (t_eos & (step <= m[:, None]) & valid).any(dim=1)
+        count = m + 1  # tokens the verify pass emitted
+        last = t[lanes, m]  # the bonus token, fed next
+        rows = [packed]
+        for _ in range(E):
+            alive = ~done & (count < v["limit_remaining"])
+            tok_in, pos_in, slot_e = self._chain_feed(v, last, positions + count, ~alive)
+            lg = llama.decode(self.params, self.config, tok_in, pos_in, self.k_cache,
+                              self.v_cache, tables, slot_e)
+            if mask:
+                lg = mask_eos_logits(lg, eos_ids, count < min_rem)
+            tok_e, lp_e, ids_e, lps_e = sample_tokens_full(
+                lg, v["temps"], v["top_ps"], v["top_ks"], advance_keys(v["keys"], count),
+                NUM_TOP, all_greedy=greedy)
+            tok_e = tok_e.long()
+            is_eos = ((tok_e[:, None] == eos_ids) & eos_valid).any(dim=-1)
+            rows.append(pack_samples(torch.where(alive, tok_e, -1), lp_e, ids_e, lps_e)[None])
+            last = torch.where(alive & ~is_eos, tok_e, last)
+            done = done | (alive & is_eos)
+            count = count + alive.long()
+        return torch.cat(rows).contiguous()
+
+    # ------------------------------------------------- inputs and graphs
+
+    def _sampling_fields(self, B: int, nb: int) -> dict:
+        i64, f32 = torch.int64, torch.float32
+        return dict(tokens=(i64, (B,)), positions=(i64, (B,)), block_tables=(torch.int32, (B, nb)),
+                    temps=(f32, (B,)), top_ps=(f32, (B,)), top_ks=(i64, (B,)), keys=(i64, (B, 2)))
+
+    def _eos_fields(self, B: int) -> dict:
+        return dict(eos_ids=(torch.int64, (B, MAX_EOS_IDS)))
+
+    def _multi_fields(self, B: int, nb: int) -> dict:
+        i64 = torch.int64
+        return dict(self._sampling_fields(B, nb), **self._eos_fields(B), active=(torch.bool, (B,)),
+                    limit_remaining=(i64, (B,)), min_remaining=(i64, (B,)))
+
+    def _penalty_fields(self, B: int, L: int) -> dict:
+        i64, f32 = torch.int64, torch.float32
+        return dict(hist=(i64, (B, L)), hist_len=(i64, (B,)), prompt_len=(i64, (B,)),
+                    freq=(f32, (B,)), pres=(f32, (B,)), rep=(f32, (B,)))
+
+    def _key(self, kind: str, fields: dict, *dims, pen: bool, mask: bool, greedy: bool) -> tuple:
+        """A graph key: the kind and its static sizes, the cache form, the
+        fused heads, penalties, the EOS mask, the sampler, then the inputs'
+        shapes."""
+        return (kind, *dims, "int8" if self.kv_quantized else "bf16",
+                "fused" if self.config.fused_decode else "unfused",
+                "pen" if pen else "nopen", "eos" if mask else "noeos",
+                "greedy" if greedy else "sampled",
+                *(tuple(shape) for _, shape in fields.values()))
+
+    @staticmethod
+    def _inert(fields: dict) -> dict:
+        """Inputs under which every lane is inactive or empty: every K/V
+        write goes to the null slot 0."""
+        fill = {"top_ps": 1.0, "rep": 1.0, "eos_ids": -1, "drafts": -1, "limit_remaining": 1}
+        return {name: np.full(shape, fill.get(name, 0)) for name, (_, shape) in fields.items()}
+
+    def _run(self, key: tuple, fields: dict, arrays: dict, graphed: bool, body) -> torch.Tensor:
+        """One dispatch of ``body`` over ``arrays``, uploaded in one copy:
+        replayed from its graph (captured on first use), or run eagerly."""
+        inputs = self._inputs.get(key)
+        if inputs is None:
+            inputs = self._inputs[key] = StepInputs(fields, self.device)
+        self._last[key[0]] = key
+        if not graphed:
+            inputs.fill(arrays)
+            inputs.upload()
+            return body(inputs.views)
+        if self._graphs is None:
+            raise RuntimeError("this runner was built without CUDA graphs")
+        if key not in self._graphs:
+            self._reserve_tickets(key, fields)
+            self._graphs.capture(key, inputs, self._inert(fields), body)
+        return self._graphs.replay(key, inputs, arrays)
+
+    def _reserve_tickets(self, key: tuple, fields: dict) -> None:
+        """The paged kernels' split tickets, sized before a capture for the
+        graph's largest (lanes, kv heads, 16-row tiles): decode steps and,
+        for a verify graph, its S positions per lane."""
+        from dynamo_tpu_torch.ops.cuda_attention import PAGED_ROWS, reserve_tickets
+
+        B = fields["tokens"][1][0]
+        G = self.config.num_heads // self.config.num_kv_heads
+        S = key[1] if key[0] == "verify" else 1
+        hkv = self.config.num_kv_heads
+        reserve_tickets(self.device, B * hkv * -(-S * G // PAGED_ROWS))
+
+    @property
+    def graph_replays(self) -> int:
+        return self._graphs.replays if self._graphs is not None else 0
+
+    @torch.inference_mode()
+    def launch_graph(self, kind: str) -> None:
+        """Launch the graph of the last ``kind`` dispatch ("decode",
+        "decode_multi" or "verify") again on its inputs as they are, without
+        waiting for the card: the host's cost of a graphed dispatch, for
+        timing. It counts as a replay."""
+        key = self._last[kind]
+        self._graphs.launch(key, self._inputs[key])
+
+    def graph_stats(self) -> dict[str, dict]:
+        """Each captured graph's capture seconds, replays and the kernel
+        launches one replay makes, by key (graphs.StepGraphs.stats)."""
+        return self._graphs.stats() if self._graphs is not None else {}
+
+    def decode_multi_ready(self, H: int) -> bool:
+        """Whether the horizon H is prepared (``prepare_decode_multi_async``):
+        its plain graphs captured, or, without graphs, nothing to prepare.
+        Raises the preparation's error if it failed."""
+        if self._prepare_error is not None:
+            raise RuntimeError(f"preparing decode_multi@H{H} failed") from self._prepare_error
+        return H in self._prepared
+
+    def prepare_decode_multi_async(self, H: int, executor) -> None:
+        """Queue the capture of the horizon H's plain graphs (no penalties,
+        no EOS mask; greedy and sampled) on ``executor``: the engine's one
+        device thread, so the capture runs between dispatches and never
+        beside one. Idempotent. Without graphs it only marks H ready."""
+        if H in self._prepared or H in self._pending:
+            return
+        self._pending.add(H)
+        executor.submit(self._prepare_decode_multi, H)
+
+    @torch.inference_mode()
+    def _prepare_decode_multi(self, H: int) -> None:
+        try:
+            if self.cuda_graphs:
+                B, nb = self.max_batch, self.max_blocks_per_seq
+                fields = self._multi_fields(B, nb)
+                for greedy in (True, False):
+                    key = self._key("decode_multi", fields, H, pen=False, mask=False,
+                                    greedy=greedy)
+                    if key in self._graphs:
+                        continue
+                    inputs = self._inputs.get(key)
+                    if inputs is None:
+                        inputs = self._inputs[key] = StepInputs(fields, self.device)
+                    self._reserve_tickets(key, fields)
+                    self._graphs.capture(
+                        key, inputs, self._inert(fields),
+                        functools.partial(self._decode_multi_body, H=H, pen=False, mask=False,
+                                          greedy=greedy))
+            self._prepared.add(H)
+        except Exception as e:  # noqa: BLE001 - surfaced by decode_multi_ready
+            self._prepare_error = e
+        finally:
+            self._pending.discard(H)
 
     def fetch_sample(self, out: SampleOut) -> tuple[np.ndarray, ...]:
         """Bring a sample tuple to the host with ONE device-to-host copy: the

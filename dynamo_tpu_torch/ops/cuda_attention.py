@@ -61,16 +61,29 @@ PAGED_ROWS = 16
 # int32 split tickets per device, shared by the decode and verify kernels:
 # zero between calls (each kernel resets the counters it used), so they are
 # allocated once and grown, never cleared per call. Calls on one device must
-# run in stream order (the engine uses one stream).
+# run in stream order (the engine uses one stream). A buffer that is grown
+# past stays allocated: a captured CUDA graph keeps launching on the
+# buffer it was captured with (engine/torch_engine/graphs.py), so none is
+# ever freed, and none is grown inside a capture (``reserve_tickets``
+# sizes it before).
 _tickets: dict[int, torch.Tensor] = {}
+_outgrown: list[torch.Tensor] = []
 
 
-def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
+def reserve_tickets(dev: torch.device, n: int) -> torch.Tensor:
+    """The device's ticket buffer, at least ``n`` long."""
     t = _tickets.get(dev.index)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the split-ticket buffer would grow to {n} inside a CUDA graph capture; "
+                "reserve_tickets must size it before")
+        if t is not None:
+            _outgrown.append(t)
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
         _tickets[dev.index] = t
     return t
+
 
 
 def _partials(n_part: int, d: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -183,7 +196,7 @@ def _paged_decode(counted, q, k_cache, v_cache, block_tables, context_lens, k_sc
     splits = _fn(lib, "paged_decode_num_splits", [_I] * 5)(
         B, Hq, Hkv, max_blocks, block_size)
     part_acc, part_ml = _partials(B * Hkv * tiles * splits, D, dev)
-    tickets = _ticket_buffer(dev, B * Hkv * tiles)
+    tickets = reserve_tickets(dev, B * Hkv * tiles)
     sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     caches = [k_cache.data_ptr(), v_cache.data_ptr()]
     if k_scales is None:
@@ -317,7 +330,7 @@ def _paged_verify(counted, q, k_cache, v_cache, block_tables, positions, k_scale
     splits = _fn(lib, "paged_verify_num_splits", [_I] * 6)(
         B, S, Hq, Hkv, max_blocks, block_size)
     part_acc, part_ml = _partials(B * Hkv * tiles * splits, D, dev)
-    tickets = _ticket_buffer(dev, B * Hkv * tiles)
+    tickets = reserve_tickets(dev, B * Hkv * tiles)
     sc = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     caches = [k_cache.data_ptr(), v_cache.data_ptr()]
     if k_scales is None:

@@ -58,6 +58,20 @@ def penalty_count_tables(
     return out_counts, seen
 
 
+def advance_count_tables(
+    out_counts: torch.Tensor,  # [B, V] f32
+    seen: torch.Tensor,  # [B, V] f32
+    tokens: torch.Tensor,  # [B] int token each lane appended
+    advance: torch.Tensor,  # [B] bool: whether it did
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The count tables after each advancing lane appended its token (a
+    chained step's history update, the reference's ``.at[rows, tok]``
+    add / max)."""
+    idx = tokens.long().clamp(0, out_counts.shape[-1] - 1)[:, None]
+    adv = advance.to(out_counts.dtype)[:, None]
+    return out_counts.scatter_add(1, idx, adv), seen.scatter_reduce(1, idx, adv, reduce="amax")
+
+
 def _repetition(logits: torch.Tensor, rp: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
     """HF-style: positive logits of seen tokens divided by rp, negative ones
     multiplied by it."""
@@ -152,6 +166,27 @@ def mask_eos_logits(
 def make_key_data(stream_id: int, counter: int) -> np.ndarray:
     """Host-side key row (stream, counter) for ``sample_tokens(keys=...)``."""
     return np.array([stream_id & _M32, counter & _M32], np.int64)
+
+
+def advance_keys(keys: torch.Tensor, h) -> torch.Tensor:
+    """[B, 2] key rows with each counter advanced by ``h`` (an int or a [B]
+    tensor) on the device: the row the per-token path would send h tokens
+    later (the reference's ``keys.at[:, 1].add(h)``)."""
+    return torch.stack([keys[:, 0], (keys[:, 1] + h) & _M32], dim=1)
+
+
+def spec_accept_len(
+    sampled: torch.Tensor,  # [B, S] model tokens at the verify positions
+    drafts: torch.Tensor,  # [B, S - 1] drafts fed at positions 1..S-1
+    draft_len: torch.Tensor,  # [B] valid drafts per lane
+) -> torch.Tensor:
+    """Accepted drafts per lane [B]: draft h+1 is accepted iff it equals the
+    model's token at position h and every earlier draft was accepted (the
+    reference's longest-matching-prefix rule, ops/sampling.py:146)."""
+    S = sampled.shape[1]
+    step = torch.arange(1, S, device=sampled.device)[None, :]
+    match = (sampled[:, :-1].long() == drafts.long()) & (step <= draft_len[:, None])
+    return torch.cumprod(match.long(), dim=1).sum(dim=1)
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:

@@ -29,9 +29,10 @@ host copies and this staging included).
 
 Besides the data group, the ranks share a control group (gloo, CPU tensors)
 for the leader's step broadcasts (parallel/multihost.py). A follower waits
-there between steps, so its timeout is how long a leader may stay idle
-(``idle_timeout_s``); a leader that dies closes its connections, which a
-waiting follower sees at once. The data group's ``timeout_s`` bounds every
+there between steps, so its timeout (``idle_timeout_s``) bounds the gap
+between two broadcasts; an idle leader keeps the gap shorter with
+keep-alive broadcasts, and a leader that dies closes its connections,
+which a waiting follower sees at once. The data group's ``timeout_s`` bounds every
 collective of a step, so a rank never wedges inside one.
 
 A single card without a group (``tp = 1`` and no ``TPGroup``) is the
@@ -103,6 +104,7 @@ class TPGroup:
             backend, init_method=init_method, rank=rank, world_size=world_size,
             timeout=timedelta(seconds=timeout_s),
         )
+        self.idle_timeout_s = idle_timeout_s
         self.control = dist.new_group(backend="gloo", timeout=timedelta(seconds=idle_timeout_s))
         # gloo with CUDA tensors: send / recv go through host memory here
         self.staged = backend == "gloo" and self.device.type == "cuda"

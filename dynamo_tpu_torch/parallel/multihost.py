@@ -17,7 +17,14 @@ The channel broadcasts over the group's control group
 (``TPGroup.broadcast(..., control=True)``): a header tensor [opcode,
 payload bytes], then the pickled (args, kwargs) of the call as a uint8
 tensor. A follower whose leader dies sees the broken connection in that
-broadcast and raises ``LeaderLostError`` instead of waiting on.
+broadcast and raises ``LeaderLostError`` instead of waiting on. A leader
+that stays idle keeps its followers: after a quarter of the control
+group's ``idle_timeout_s`` without a broadcast it sends ``OP_KEEPALIVE``,
+which a follower receives and ignores (the counterpart of the reference's
+barrier lease, :535-555, which a waiting follower checks instead of
+leaving). The horizon (``decode_multi``, ``OP_DECODE_MULTI``) replays as
+any other call: every rank runs its H steps eagerly, with the leader's
+keys.
 
 Multi-node bring-up (the fabric rendezvous and ``jax.distributed``-style
 initialisation) is not ported: ranks are processes of one node
@@ -28,6 +35,8 @@ from __future__ import annotations
 
 import logging
 import pickle
+import threading
+import time
 
 import numpy as np
 import torch
@@ -47,15 +56,18 @@ OP_DECODE = 1
 OP_PREFILL = 2
 OP_CHUNK = 3
 OP_PACKED = 6
+OP_DECODE_MULTI = 9
 OP_MIXED = 10
 OP_LOGITS = 11
 OP_STATS = 12
+OP_KEEPALIVE = 13
 
 _METHODS = {
     OP_DECODE: "decode",
     OP_PREFILL: "prefill",
     OP_CHUNK: "prefill_chunk",
     OP_PACKED: "prefill_packed_arrays",
+    OP_DECODE_MULTI: "decode_multi",
     OP_MIXED: "mixed_step",
     OP_LOGITS: "decode_logits",
 }
@@ -67,11 +79,18 @@ class SpmdStepChannel:
     def __init__(self, group) -> None:
         self.group = group
         self.is_leader = group.rank == 0
+        # the leader's control-group traffic (step broadcasts, keep-alives,
+        # stats gathers) one exchange at a time, and when it last spoke
+        self.lock = threading.RLock()
+        self.last_send = time.monotonic()
 
     def send(self, op: int, args: tuple = (), kwargs: dict | None = None) -> None:
         payload = pickle.dumps((args, kwargs or {}), protocol=pickle.HIGHEST_PROTOCOL)
-        self.group.broadcast(torch.tensor([op, len(payload)], dtype=torch.int64), control=True)
-        self.group.broadcast(torch.frombuffer(bytearray(payload), dtype=torch.uint8), control=True)
+        with self.lock:
+            self.group.broadcast(torch.tensor([op, len(payload)], dtype=torch.int64), control=True)
+            self.group.broadcast(torch.frombuffer(bytearray(payload), dtype=torch.uint8),
+                                 control=True)
+            self.last_send = time.monotonic()
 
     def recv(self) -> tuple[int, tuple, dict]:
         try:
@@ -115,6 +134,21 @@ class SpmdModelRunner:
         self._processes = list(processes)
         self.final_stats: list[dict] | None = None
         self._stopped = False
+        # keep-alives while idle: a quarter of the followers' wait limit
+        self._keepalive_s = runner.group.idle_timeout_s / 4
+        self._halt = threading.Event()
+        self._keepalive = threading.Thread(target=self._keep_alive, daemon=True,
+                                           name="tp-keepalive")
+        self._keepalive.start()
+
+    def _keep_alive(self) -> None:
+        ch = self._channel
+        while not self._halt.wait(self._keepalive_s / 4):
+            with ch.lock:
+                if self._halt.is_set():
+                    return
+                if time.monotonic() - ch.last_send >= self._keepalive_s:
+                    ch.send(OP_KEEPALIVE)
 
     def __getattr__(self, name):  # delegate everything not intercepted
         return getattr(self._runner, name)
@@ -167,6 +201,14 @@ class SpmdModelRunner:
     def decode_logits(self, tokens, positions, block_tables, slot_indices):
         return self._call(OP_LOGITS, tokens, positions, block_tables, slot_indices)
 
+    def decode_multi(self, H, tokens, positions, block_tables, temps, top_ps, top_ks, keys,
+                     active, limit_remaining, min_remaining, eos_ids, penalties=None):
+        # every rank runs the same H steps; a penalty batch's history rides
+        # the payload (the reference's OP_DECODE_MULTI, multihost.py:311-346)
+        return self._call(OP_DECODE_MULTI, int(H), tokens, positions, block_tables, temps,
+                          top_ps, top_ks, keys, active, limit_remaining, min_remaining,
+                          eos_ids, penalties=penalties)
+
     def spec_verify(self, *args, **kwargs):
         raise NotImplementedError("spec decode under tensor parallelism is not ported yet")
 
@@ -174,8 +216,9 @@ class SpmdModelRunner:
         """Every rank's ``rank_stats`` (launch counters, peak memory,
         collective counters), in rank order; each set to 0 after reading
         with ``reset``."""
-        self._channel.send(OP_STATS, (reset,))
-        return self._runner.group.gather_objects(rank_stats(self._runner.group, reset))
+        with self._channel.lock:
+            self._channel.send(OP_STATS, (reset,))
+            return self._runner.group.gather_objects(rank_stats(self._runner.group, reset))
 
     def shutdown(self, timeout_s: float = 60.0) -> None:
         """Stop the followers: each hands its ``rank_stats`` (its launch
@@ -184,6 +227,8 @@ class SpmdModelRunner:
         if self._stopped:
             return
         self._stopped = True
+        self._halt.set()
+        self._keepalive.join()
         group = self._runner.group
         self._channel.send(OP_STOP)
         self.final_stats = group.gather_objects(rank_stats(group))
@@ -208,6 +253,8 @@ def follower_loop(runner, channel: SpmdStepChannel) -> list[dict]:
             return group.gather_objects(rank_stats(group))
         if op == OP_STATS:
             group.gather_objects(rank_stats(group, *args))
+            continue
+        if op == OP_KEEPALIVE:
             continue
         if op not in _METHODS:
             raise RuntimeError(f"unknown step opcode {op}")

@@ -260,7 +260,7 @@ def _normalizer(d: Optional[dict]) -> Callable[[str], str]:
             return s
         return seq
     if t in ("NFC", "NFKC", "NFD", "NFKD"):
-        return lambda s: unicodedata.normalize(t, s)
+        return functools.partial(hf_normalize, t)
     if t == "Prepend":
         pre = d["prepend"]
         return lambda s: pre + s if s else s
@@ -268,6 +268,37 @@ def _normalizer(d: Optional[dict]) -> Callable[[str], str]:
         rx, content = _compile(d["pattern"]), d["content"]
         return lambda s: rx.sub(lambda _m: content, s)
     raise ValueError(f"tokenizer.json: unsupported normalizer type {t!r}")
+
+
+# Code points that Python's Unicode tables (15.0.0 on Python 3.12) map under
+# a form and HF tokenizers' tables (0.22.2) leave as they are, as inclusive
+# ranges; `python3 -m tests.test_torch_unicode_forms` sweeps every code
+# point against `tokenizers` and prints this table. NFC has none.
+HF_KEEPS = {
+    "NFKC": ((0x32FF, 0x32FF), (0xA7F2, 0xA7F4), (0xAB69, 0xAB69), (0x10781, 0x10785),
+             (0x10787, 0x107B0), (0x107B2, 0x107BA), (0x1E030, 0x1E06D), (0x1F16C, 0x1F16C),
+             (0x1FBF0, 0x1FBF9)),
+    "NFD": ((0x11938, 0x11938),),
+    "NFKD": ((0x32FF, 0x32FF), (0xA7F2, 0xA7F4), (0xAB69, 0xAB69), (0x10781, 0x10785),
+             (0x10787, 0x107B0), (0x107B2, 0x107BA), (0x11938, 0x11938), (0x1E030, 0x1E06D),
+             (0x1F16C, 0x1F16C), (0x1FBF0, 0x1FBF9)),
+}
+_KEEP_RE = {
+    form: re.compile("([" + "".join(f"{re.escape(chr(a))}-{re.escape(chr(b))}" for a, b in rs) + "])")
+    for form, rs in HF_KEEPS.items()
+}
+
+
+def hf_normalize(form: str, s: str) -> str:
+    """``unicodedata.normalize(form, s)`` with HF's tables: a code point of
+    ``HF_KEEPS[form]`` stays as it is. HF's tables leave each such code
+    point a starter that decomposes to nothing and composes with nothing,
+    so the text on either side of it is normalized on its own."""
+    keep = _KEEP_RE.get(form)
+    if keep is None or not keep.search(s):
+        return unicodedata.normalize(form, s)
+    parts = keep.split(s)  # text, kept code point, text, ...
+    return "".join(p if i % 2 else unicodedata.normalize(form, p) for i, p in enumerate(parts))
 
 
 # --------------------------------------------------------- pre-tokenizers

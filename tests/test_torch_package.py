@@ -54,6 +54,7 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
     for mod in ("ops/cuda_attention.py", "ops/cuda_linear.py", "ops/kernels.py",
                 "engine/torch_engine/drafter.py", "engine/torch_engine/engine.py",
                 "engine/torch_engine/model_runner.py", "engine/torch_engine/factory.py",
+                "engine/torch_engine/graphs.py",
                 "http/service.py", "tokenizer_json.py", "chat_template.py", "tokenizer.py",
                 "preprocessor.py", "backend.py", "protocols/openai.py", "run.py",
                 "entrypoint/inputs.py", "ops/collective.py", "parallel/mesh.py",
@@ -1355,3 +1356,144 @@ def test_two_gloo_ranks_on_one_card_give_the_cpu_groups_collectives():
         for a, b in zip(c, h):
             np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(card[0][2], card[0][3])  # 2 ranks: both hops bring rank 1's
+
+
+# ------------------------------------------------- CUDA graphs on the card
+
+# two layers with Llama-3.1-8B's head shape (D 128, a GQA group of 4) at a
+# width every kernel takes
+GRAPH_CFG = dict(hidden_size=1024, intermediate_size=2048, num_layers=2, num_heads=8,
+                 num_kv_heads=2, head_dim=128)
+GRAPH_LENS = [5, 17, 33, 64, 100, 130, 200, 250]
+GRAPH_B, GRAPH_BS, GRAPH_LEN, GRAPH_VOCAB = 8, 16, 512, 2048
+
+
+def _graph_runner(kv: str, fused: bool):
+    """A card runner whose 8 lanes hold prompts of GRAPH_LENS tokens, with
+    blocks for 16 more each; returns (runner, tables, last tokens)."""
+    from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
+    from dynamo_tpu_torch.engine.torch_engine.weights import load_or_init_params
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=GRAPH_VOCAB), **GRAPH_CFG)
+    assert kernels.card_shape_problems(cfg, fused_decode=fused) == []
+    params = load_or_init_params(None, cfg, seed=0, device="cuda", quantize=kv == "int8")
+    runner = TorchModelRunner(cfg, params, num_blocks=256, block_size=GRAPH_BS,
+                              max_batch=GRAPH_B, max_model_len=GRAPH_LEN, device="cuda",
+                              fused_decode=fused, kv_dtype=kv, prefill_chunk_tokens=0)
+    assert runner.cuda_graphs
+    rng = np.random.default_rng(0)
+    tables = np.zeros((GRAPH_B, GRAPH_LEN // GRAPH_BS), np.int32)
+    nxt = 1
+    for b, n in enumerate(GRAPH_LENS):
+        used = -(-(n + 16) // GRAPH_BS)
+        tables[b, :used] = np.arange(nxt, nxt + used)
+        nxt += used
+        runner.prefill(rng.integers(0, GRAPH_VOCAB, n).tolist(), list(tables[b, :used]),
+                       0.0, 1.0, 0)
+    return runner, tables, rng.integers(0, GRAPH_VOCAB, GRAPH_B)
+
+
+def _cache_leaves(runner):
+    return [t for c in (runner.k_cache, runner.v_cache)
+            for t in (c.values() if isinstance(c, dict) else (c,))]
+
+
+def _graph_calls(runner, tables, last, sampled: bool):
+    """Every graph key of the three kinds: (name, call) pairs, each call
+    returning its samples as one host array."""
+    B = GRAPH_B
+    pos = np.array(GRAPH_LENS, np.int64)
+    temps = np.full(B, 0.8 if sampled else 0.0, np.float32)
+    temps[::2] = 0.0  # greedy and sampled lanes side by side
+    top_ps, top_ks = np.full(B, 0.95, np.float32), np.full(B, 40, np.int64)
+    keys = np.stack([np.arange(B) + 7, np.arange(B) * 3], 1).astype(np.int64)
+    slots = tables[np.arange(B), pos // GRAPH_BS].astype(np.int64) * GRAPH_BS + pos % GRAPH_BS
+    eos = np.full((B, 4), -1, np.int64)
+    eos[:, 0] = 11
+    sup = np.arange(B) % 3 == 0
+    hist = np.zeros((B, GRAPH_LEN), np.int64)
+    hist[:, :4] = [1, 2, 3, 2]
+    pen = (hist, np.full(B, 4), np.full(B, 2), np.full(B, 0.5, np.float32),
+           np.full(B, 0.3, np.float32), np.full(B, 1.2, np.float32))
+    active = np.arange(B) != 5
+    limit = np.array([4, 1, 2, 3, 4, 4, 4, 2], np.int64)
+    min_rem = np.where(sup, 2, 0).astype(np.int64)
+    no_min = np.zeros(B, np.int64)
+    drafts = np.random.default_rng(1).integers(0, GRAPH_VOCAB, (B, 3)).astype(np.int64)
+    dlen = np.array([3, 0, 1, 2, 3, 3, 0, 1], np.int64)
+    vlimit = np.full(B, 8, np.int64)
+    d = (last, pos, tables, slots, temps, top_ps, top_ks)
+    m = (last, pos, tables, temps, top_ps, top_ks, keys, active)
+    v = (last, drafts, dlen, pos, tables, temps, top_ps, top_ks, keys, active, vlimit)
+
+    def fetch(out):
+        return np.concatenate([a.reshape(-1) for a in runner.fetch_sample(out)])
+
+    return [
+        ("decode", lambda: fetch(runner.decode(*d, keys=keys))),
+        ("decode/eos", lambda: fetch(runner.decode(*d, keys=keys, eos_mask=(eos, sup)))),
+        ("decode/pen", lambda: fetch(runner.decode(*d, keys=keys, penalties=(*pen, eos, sup)))),
+        ("decode_multi", lambda: runner.decode_multi(4, *m, limit, no_min, eos).cpu().numpy()),
+        ("decode_multi/eos", lambda: runner.decode_multi(4, *m, limit, min_rem, eos).cpu().numpy()),
+        ("decode_multi/pen", lambda: runner.decode_multi(
+            4, *m, limit, min_rem, eos, penalties=pen).cpu().numpy()),
+        ("verify", lambda: runner.spec_verify(3, 3, *v, no_min, eos).cpu().numpy()),
+        ("verify/eos", lambda: runner.spec_verify(3, 3, *v, min_rem, eos).cpu().numpy()),
+        ("verify/pen", lambda: runner.spec_verify(
+            3, 0, *v, min_rem, eos, penalties=pen).cpu().numpy()),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_graph_replays_equal_eager_calls_bitwise_on_card(kv, fused):
+    """Every graph key (decode, decode_multi H 4 and verify S 4 with E 3,
+    each plain, EOS-masked and with penalties, all-greedy and sampled)
+    replayed against the same call made eagerly on the same cache contents:
+    bitwise equal, in both cache forms (int8 weights with the int8 cache)."""
+    _need_card()
+    runner, tables, last = _graph_runner(kv, fused)
+    snap = [t.clone() for t in _cache_leaves(runner)]
+    for sampled in (False, True):
+        for name, call in _graph_calls(runner, tables, last, sampled):
+            out = {}
+            for graphed in (False, True):
+                runner.cuda_graphs = graphed
+                out[graphed] = call()
+                for t, s in zip(_cache_leaves(runner), snap):
+                    t.copy_(s)
+            assert np.array_equal(out[False], out[True], equal_nan=True), (name, sampled)
+            assert (out[True] != 0).any(), name
+    runner.cuda_graphs = True
+    assert len(runner.graph_stats()) == 18
+
+
+@pytest.mark.cuda
+def test_graph_launch_counts_are_replays_times_captured_launches_on_card():
+    """A capture counts no launch; each replay adds the launches its capture
+    recorded: #1 once per layer and step body (frozen steps included), #2
+    once per layer and verify pass, the fused heads once per layer and
+    body."""
+    _need_card()
+    runner, tables, last = _graph_runner("bf16", True)
+    calls = dict(_graph_calls(runner, tables, last, False))
+    L = GRAPH_CFG["num_layers"]
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        calls["decode_multi"]()
+        calls["verify"]()
+    stats = runner.graph_stats()
+    (multi,) = [s for k, s in stats.items() if k.startswith("decode_multi")]
+    (verify,) = [s for k, s in stats.items() if k.startswith("verify")]
+    assert multi["replays"] == verify["replays"] == 3 and runner.graph_replays == 6
+    assert multi["launches"] == {"paged_decode_attention": 4 * L, "fused_qkv_rope": 4 * L,
+                                 "fused_attn_out_residual": 4 * L}
+    assert verify["launches"] == {"paged_verify_attention": L, "paged_decode_attention": 3 * L,
+                                  "fused_qkv_rope": 4 * L, "fused_attn_out_residual": 4 * L}
+    want = dict.fromkeys(kernels.KERNELS, 0)
+    for s in (multi, verify):
+        for k, n in s["launches"].items():
+            want[k] += 3 * n
+    assert kernels.launch_counts() == want

@@ -333,13 +333,21 @@ async def test_spec_stops_at_eos_and_max_tokens_inside_a_draft():
 
 
 def test_spec_verify_refuses_the_chained_horizon():
+    """The chained horizon rides penalty-free verify passes only: with
+    penalties ``extras`` > 0 raises (the count tables cannot take a
+    rejected draft back out); without them the dispatch returns S + E
+    rows."""
     _, _, cfg, params = _models()
     runner = TorchModelRunner(cfg, params, num_blocks=NB, block_size=BS, max_batch=2,
                               max_model_len=MAX_LEN, device="cpu")
     z = np.zeros(2, np.int64)
-    with pytest.raises(NotImplementedError):
-        runner.spec_verify(K, 1, z, np.full((2, K), -1), z, z, np.zeros((2, 24), np.int32),
-                           z, z + 1, z, np.zeros((2, 2), np.int64), z.astype(bool), z + 1)
+    args = (z, np.full((2, K), -1), z, z, np.zeros((2, 24), np.int32),
+            z, z + 1, z, np.zeros((2, 2), np.int64), z.astype(bool), z + 1)
+    pen = (np.zeros((2, MAX_LEN), np.int64), z, z, z.astype(np.float32),
+           z.astype(np.float32), np.ones(2, np.float32))
+    with pytest.raises(ValueError, match="extras=0"):
+        runner.spec_verify(K, 1, *args, penalties=pen)
+    assert tuple(runner.spec_verify(K, 1, *args).shape) == (K + 2, 2, 42)
 
 
 SPEC_PENALTIES = [{}, {"frequency_penalty": 0.6}, {"repetition_penalty": 1.4},

@@ -66,6 +66,8 @@ FIXED = [
     "<|start_header_id|>user<|end_header_id|>\n\nhello<|eot_id|>",
     "emoji 🇯🇵🇯🇵 and ‍ joiners", " nbsp　ideographic",
     "a\x1cb\x1fc", "  leading and trailing  ", "ünïcödé ÇÀ", "Ǆ ǅ ǆ ﬁ",
+    # code points Python's Unicode 15.0 tables normalize and HF's keep
+    "\U0001e030 \u32ff x\U0001e030\u0301y \U00011938",
 ]
 
 
