@@ -139,11 +139,31 @@ Phases, each of which must pass or the script exits non-zero:
                 int8; each graph key's capture seconds and the memory the
                 graphs hold.
 
+ 13. serve_moe -- Mixtral-8x7B (its published config.json) at 16 of its 32
+                layers (all 32 hold 93.4 GB of bf16, more than the card's 80;
+                random weights from seed 0) through build_torch_engine's
+                defaults: H = 4 on CUDA graphs, chunk 512, mixed steps. The
+                grouped SwiGLU FFN kernel (csrc/grouped_swiglu_ffn.cu) against
+                its plain version at Mixtral's width on layer 0's experts (R 2,
+                16, 64 and 1024 rows, every row on one expert, empty experts)
+                at GEMV_TOL, and moe_ffn_dropless against an f32 per-token
+                oracle at the B=8 step's shape; serve's 8 requests (ids below
+                32000) twice: outputs, repeat-identical, launches = replays x
+                captured (+ the grouped kernel once per layer of each eager
+                packed prefill and chunk), the grouped kernel once per layer
+                and step body, the dense reference on one stream (bound
+                MOE_REF_GAP); every graph's replay bitwise its eager call; then
+                the graphed step at B = 8 and 1 (wall, device, the grouped
+                kernel's and the MoE layers' share) and the kernel at the
+                step's routing and a chunk's beside its bound (the routed
+                experts' bytes), its plain version and torch._grouped_mm. Runs
+                after serve_tp, before serve_http.
+
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
-times compare with earlier runs; checkpoint (7) and serve_http (10) run
-build_torch_engine's defaults.
+times compare with earlier runs; checkpoint (7), serve_http (10) and
+serve_moe (13) run build_torch_engine's defaults.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -156,6 +176,7 @@ import asyncio
 import copy
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import statistics
@@ -826,11 +847,12 @@ PENALTIES = {"frequency_penalty": 0.5, "presence_penalty": 0.5, "repetition_pena
 MIN_TOKENS = 24
 
 
-def make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions):
+def make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions,
+                  vocab: int = LLAMA31_8B["vocab_size"], eos_id: int = LLAMA31_8B["eos_token_id"]):
     rng = np.random.default_rng(0)
     reqs = []
     for i, (n, m) in enumerate(zip(PROMPT_LENS, MAX_TOKENS)):
-        prompt = rng.integers(0, LLAMA31_8B["vocab_size"], n).tolist()
+        prompt = rng.integers(0, vocab, n).tolist()
         sampling = (
             SamplingOptions(temperature=0.8, top_p=0.95, top_k=50, seed=1234)
             if i == SAMPLED else SamplingOptions(greedy=True)
@@ -841,7 +863,7 @@ def make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions):
         eos, min_tokens = [], None
         if i == PENALIZED:
             sampling = SamplingOptions(greedy=True, **PENALTIES)
-            eos, min_tokens = [LLAMA31_8B["eos_token_id"]], MIN_TOKENS
+            eos, min_tokens = [eos_id], MIN_TOKENS
         reqs.append(PreprocessedRequest(
             token_ids=prompt, sampling=sampling,
             stop=StopConditions(max_tokens=m, min_tokens=min_tokens), eos_token_ids=eos,
@@ -3194,8 +3216,7 @@ def serve_runs(torch, engine, runs, Context, kernels):
     return asyncio.run(go())
 
 
-def check_outputs(tag, first, reqs, FinishReason) -> None:
-    vocab = LLAMA31_8B["vocab_size"]
+def check_outputs(tag, first, reqs, FinishReason, vocab: int = LLAMA31_8B["vocab_size"]) -> None:
     for i, ((toks, reason, _), req) in enumerate(zip(first, reqs)):
         if req.stop.min_tokens:
             ok = len(toks) >= req.stop.min_tokens and reason in (FinishReason.LENGTH,
@@ -3206,18 +3227,22 @@ def check_outputs(tag, first, reqs, FinishReason) -> None:
             raise SmokeError(f"{tag} request {i}: {len(toks)} tokens, reason {reason}")
 
 
-def check_horizon_launches(tag, run, L, kernels, attn) -> None:
-    """Every launch of a graphed horizon run came from a replay: the counts
-    equal replays x captured launches, and the decode attention (``attn``)
-    ran once per layer and step body, frozen steps included."""
+def check_horizon_launches(tag, run, L, kernels, attn, eager=None) -> None:
+    """Every launch of a graphed horizon run came from a replay (or from the
+    run's eager prefills: ``eager``, name -> launches): the counts equal
+    replays x captured launches, and the decode attention (``attn``) ran
+    once per layer and step body, frozen steps included."""
     st = run["stats"]
     if st["horizon_dispatches"] <= 0 or st["horizon_degrades"] or st["mixed_steps"]:
         raise SmokeError(f"{tag}: no horizon, a degrade or a mixed step: {st}")
     if st["graph_replays"] != st["horizon_dispatches"] + st["decode_steps"] + st["verify_steps"]:
         raise SmokeError(f"{tag}: {st['graph_replays']} replays for {st} dispatches")
-    if run["launches"] != run["replayed"]:
+    want = dict(run["replayed"])
+    for name, n in (eager or {}).items():
+        want[name] += n
+    if run["launches"] != want:
         raise SmokeError(f"{tag}: launches {run['launches']} != replays x captured "
-                         f"{run['replayed']}")
+                         f"(+ eager prefills) {want}")
     bodies = st["decode_steps"] + st["horizon_steps"] + st["verify_chained_steps"]
     if run["launches"][attn] != L * bodies:
         raise SmokeError(f"{tag}: {attn} launched {run['launches'][attn]} != {L} x {bodies} "
@@ -3228,11 +3253,11 @@ def rate(run) -> float:
     return sum(len(t) for t, _, _ in run["outs"]) / run["wall"]
 
 
-def step_case(np, runner, seed: int = 12):
-    """The B=8 step at context 1024 of the engine phases: lanes' tables,
-    positions, slots and tokens."""
+def step_case(np, runner, seed: int = 12, B: int = 8):
+    """The B=8 step (or B lanes) at context 1024 of the engine phases:
+    lanes' tables, positions, slots and tokens."""
     rng = np.random.default_rng(seed)
-    bs, B, ctx = runner.block_size, 8, STEP_CTX
+    bs, ctx = runner.block_size, STEP_CTX
     per = (ctx + 1 + bs - 1) // bs
     tables = np.zeros((B, runner.max_blocks_per_seq), np.int32)
     for b in range(B):
@@ -3285,7 +3310,7 @@ def graph_step_times(torch, np, runners: dict) -> dict:
     return out
 
 
-def replay_vs_eager(torch, np, runner, tag: str) -> dict:
+def replay_vs_eager(torch, np, runner, tag: str, eos_id: int = LLAMA31_8B["eos_token_id"]) -> dict:
     """Each graph (decode H 1, decode_multi H 4, verify S 4 with E 3) replayed
     against the same call made eagerly, on the same cache contents (restored
     between the two): bitwise. Lanes hold the B=8 step's context 1024; half
@@ -3299,8 +3324,8 @@ def replay_vs_eager(torch, np, runner, tag: str) -> dict:
     limit = np.array([4, 4, 2, 4, 1, 4, 3, 4], np.int64)
     no_min = np.zeros(B, np.int64)
     eos = np.full((B, 4), -1, np.int64)
-    eos[:, 0] = LLAMA31_8B["eos_token_id"]
-    drafts = np.random.default_rng(14).integers(0, LLAMA31_8B["vocab_size"], (B, 3))
+    eos[:, 0] = eos_id
+    drafts = np.random.default_rng(14).integers(0, runner.config.vocab_size, (B, 3))
     dlen = np.array([3, 1, 0, 2, 3, 3, 1, 2], np.int64)
     calls = {
         "decode": lambda: np.concatenate([a.reshape(-1) for a in runner.fetch_sample(
@@ -3513,6 +3538,328 @@ def phase_serve_horizon(torch, np, card: str, params, fused_runner, int8_runner,
     return res
 
 
+# ------------------------------------------------------------ serve_moe
+
+# mistralai/Mixtral-8x7B-v0.1's published config.json; the phase serves
+# MOE_LAYERS of its 32 layers: all 32 hold 93.4 GB of bf16 weights (90.2 GB
+# of experts, never quantized), more than one card's 80 GB
+MIXTRAL_8X7B = {
+    "architectures": ["MixtralForCausalLM"],
+    "attention_dropout": 0.0,
+    "bos_token_id": 1,
+    "eos_token_id": 2,
+    "hidden_act": "silu",
+    "hidden_size": 4096,
+    "initializer_range": 0.02,
+    "intermediate_size": 14336,
+    "max_position_embeddings": 32768,
+    "model_type": "mixtral",
+    "num_attention_heads": 32,
+    "num_experts_per_tok": 2,
+    "num_hidden_layers": 32,
+    "num_key_value_heads": 8,
+    "num_local_experts": 8,
+    "output_router_logits": False,
+    "rms_norm_eps": 1e-05,
+    "rope_theta": 1000000.0,
+    "router_aux_loss_coef": 0.02,
+    "sliding_window": None,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+    "vocab_size": 32000,
+}
+MOE_LAYERS = 16
+MOE_KERNEL = "grouped_swiglu_ffn"
+# the dense reference attends the cache-free plain way, the engine through
+# the paged kernels: a last-bit difference can flip a token's routing at a
+# near-tie of its router logits, which moves its logits more than bf16 noise
+# does (INT8_REF_GAP's bound, not serve's 0.25)
+MOE_REF_GAP = 0.5
+# rows per expert (E 8) the kernel is held to its plain version at: decode
+# B = 1 and B = 8, verify B = 8 x S = 4, one 512-token chunk; every row on
+# one expert; experts left empty
+MOE_PARITY = {
+    "R2": [0, 1, 0, 0, 0, 1, 0, 0],
+    "R16": [2, 3, 1, 0, 4, 2, 2, 2],
+    "R64": [8, 12, 4, 9, 7, 8, 6, 10],
+    "R1024": [130, 120, 140, 100, 134, 150, 110, 140],
+    "one_expert": [0, 0, 0, 16, 0, 0, 0, 0],
+    "empty_experts": [0, 0, 30, 1, 0, 33, 0, 0],
+}
+
+
+def grouped_inputs(torch, counts, D: int, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn(sum(counts), D, device="cuda", generator=g).bfloat16()
+    offsets = torch.tensor([0] + [int(c) for c in itertools.accumulate(counts)],
+                           dtype=torch.int32, device="cuda")
+    return xs, offsets
+
+
+def grouped_bound(counts, D: int, F: int) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, bytes, flops) of one grouped FFN: the
+    weights of the experts that received rows (read once), the rows read,
+    the output written, the offsets; 3 products of 2 R D F flops."""
+    R = sum(counts)
+    nbytes = sum(1 for c in counts if c) * 3 * D * F * 2 + 2 * R * D * 2 + 4 * (len(counts) + 1)
+    flops = 2.0 * R * D * F * 3
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), nbytes, flops
+
+
+def grouped_library(torch, xs, offsets, wg, wu, wd):
+    """One PyTorch grouped product per projection, where the card's torch
+    has one (torch._grouped_mm, CUTLASS grouped GEMMs; SwiGLU between them),
+    else None."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    ends = offsets[1:]
+
+    def call():
+        gate = fn(xs, wg, offs=ends)
+        up = fn(xs, wu, offs=ends)
+        return fn(torch.nn.functional.silu(gate) * up, wd, offs=ends)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as e:  # not built for this card / these shapes
+        log(f"serve_moe: torch._grouped_mm refused the grouped FFN ({type(e).__name__}: {e})")
+        return None
+    return call
+
+
+def moe_kernel_row(torch, flush, layer, counts, seed: int) -> dict:
+    """The grouped kernel at one routing, CUDA-event timed beside its bound,
+    its plain version and the library's grouped products (or, without them,
+    the per-expert cuBLAS loop, which is the plain version)."""
+    from dynamo_tpu_torch.ops import moe
+    from dynamo_tpu_torch.ops.cuda_moe import grouped_swiglu_ffn_cuda
+
+    wg, wu, wd = layer["wg"], layer["wu"], layer["wd"]
+    D, F = wg.shape[1], wg.shape[2]
+    xs, off = grouped_inputs(torch, counts, D, seed)
+    bound, by, nbytes, flops = grouped_bound(counts, D, F)
+    row = {"rows": sum(counts), "experts_routed": sum(1 for c in counts if c),
+           "ms": time_ms(torch, lambda: grouped_swiglu_ffn_cuda(xs, off, wg, wu, wd), flush=flush),
+           "plain_ms": time_ms(torch, lambda: moe.grouped_ffn_plain(xs, off, wg, wu, wd), reps=5,
+                               flush=flush),
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops}
+    lib = grouped_library(torch, xs, off, wg, wu, wd)
+    if lib is not None:
+        row["library_ms"] = time_ms(torch, lib, flush=flush)
+        row["library"] = "torch._grouped_mm x 3 + silu * up"
+    else:
+        row["library_ms"] = row["plain_ms"]
+        row["library"] = "per-expert cuBLAS loop (grouped_ffn_plain): no torch._grouped_mm"
+    return row
+
+
+def step_routing(torch, np, runner) -> list:
+    """Rows per expert of layer 0 at the B=8 step: its router over the
+    normed hidden states of 8 random tokens' embeddings."""
+    from dynamo_tpu_torch.ops import moe
+    from dynamo_tpu_torch.ops.basics import rms_norm
+
+    cfg, p = runner.config, runner.params
+    toks = torch.tensor(np.random.default_rng(12).integers(0, cfg.vocab_size, 8), device="cuda")
+    h = rms_norm(p["embed"][toks], p["layers"][0]["mlp_norm"], cfg.rms_eps)
+    idx, _ = moe._router(h, p["layers"][0]["router"], cfg.num_experts_per_tok)
+    _, _, offsets = moe.expert_order(idx.reshape(-1), cfg.num_experts)
+    return np.diff(offsets.cpu().numpy()).tolist()
+
+
+def moe_oracle_check(torch, np, runner) -> float:
+    """moe_ffn_dropless at the B=8 step's shape on the card against an f32
+    loop over tokens and their top-2 experts that rounds where the kernel
+    rounds (gate, up, silu(gate), act and each expert's output to bf16),
+    with the port's routing (the same f32 router product); held to
+    GEMV_TOL. Returns the largest |difference|."""
+    from dynamo_tpu_torch.ops import moe
+
+    cfg, layer = runner.config, runner.params["layers"][0]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(8, cfg.hidden_size, device="cuda", generator=g).bfloat16()
+    got = moe.moe_ffn_dropless(x, layer["router"], layer["wg"], layer["wu"], layer["wd"],
+                               cfg.num_experts_per_tok)
+    idx, w = moe._router(x, layer["router"], cfg.num_experts_per_tok)
+    want = torch.zeros(x.shape, device="cuda")
+    for t in range(x.shape[0]):
+        for e, we in zip(idx[t].tolist(), w[t]):
+            gate = (x[t].float() @ layer["wg"][e].float()).bfloat16()
+            up = (x[t].float() @ layer["wu"][e].float()).bfloat16()
+            act = (torch.nn.functional.silu(gate) * up).float()
+            want[t] += we * (act @ layer["wd"][e].float()).bfloat16().float()
+    return compare(torch, "serve_moe/dropless_vs_f32_oracle", got, want.bfloat16(), GEMV_TOL)
+
+
+def moe_step_times(torch, np, runner) -> dict:
+    """The graphed decode step (model + sampling + fetch) at context 1024,
+    B = 8 and B = 1: wall (host clock around work ending in the fetch),
+    device time and the grouped kernel's share of it (torch.profiler), and
+    the whole MoE layer's share (moe_ffn_dropless's device time at the
+    step's rows under the profiler, x layers)."""
+    from dynamo_tpu_torch.ops import moe
+    from dynamo_tpu_torch.ops.basics import rms_norm
+
+    cfg, L = runner.config, runner.config.num_layers
+    layer = runner.params["layers"][0]
+    out = {}
+    for B in (8, 1):
+        toks, pos, tables, slots = step_case(np, runner, B=B)
+        z, o, kz = np.zeros(B, np.float32), np.ones(B, np.float32), np.zeros(B, np.int64)
+
+        def step():
+            return runner.fetch_sample(runner.decode(toks, pos, tables, slots, z, o, kz))
+
+        for _ in range(3):  # the first captures this B's graph
+            step()
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        dev_ms, kern = profile_calls(torch, step, calls=3)
+        grouped = sum(us for k, (us, _) in kern.items() if "grouped_ffn_kernel" in k) / 3 / 1e3
+        g = torch.Generator(device="cuda").manual_seed(30 + B)
+        h = rms_norm(torch.randn(B, cfg.hidden_size, device="cuda", generator=g).bfloat16(),
+                     layer["mlp_norm"], cfg.rms_eps)
+        layer_ms = device_ms_per_call(torch, lambda: moe.moe_ffn_dropless(
+            h, layer["router"], layer["wg"], layer["wu"], layer["wd"], cfg.num_experts_per_tok))
+        out[f"B{B}"] = {"wall_ms": statistics.median(walls), "wall_min_ms": min(walls),
+                        "device_ms": dev_ms, "grouped_kernel_ms": grouped,
+                        "grouped_kernel_share": grouped / dev_ms,
+                        "moe_layer_device_ms": layer_ms,
+                        "moe_layers_share": L * layer_ms / dev_ms}
+    return out
+
+
+def phase_serve_moe(torch, np, card: str) -> dict:
+    """Mixtral-8x7B's width at MOE_LAYERS layers through build_torch_engine's
+    defaults on a card (see the module docstring, phase 13)."""
+    from dynamo_tpu_torch.engine.torch_engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.ops import kernels, moe
+    from dynamo_tpu_torch.ops.cuda_moe import grouped_swiglu_ffn_cuda
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    t_phase = time.perf_counter()
+    mem_before = torch.cuda.memory_allocated()
+    conf = dict(MIXTRAL_8X7B, num_hidden_layers=MOE_LAYERS)
+    engine = build_torch_engine(conf, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN,
+                                seed=0)
+    runner = engine.runner
+    cfg0, cfg = engine.config, runner.config
+    L = cfg.num_layers
+    if not (cfg0.decode_horizon == HORIZON and runner.cuda_graphs and cfg0.mixed_step
+            and runner.prefill_chunk_tokens == 512 and cfg.num_experts == 8 and L == MOE_LAYERS):
+        raise SmokeError(f"serve_moe: defaults H {cfg0.decode_horizon}, graphs "
+                         f"{runner.cuda_graphs}, chunk {runner.prefill_chunk_tokens}, experts "
+                         f"{cfg.num_experts}, layers {L}")
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(runner.params))
+    experts = sum(runner.params["layers"][i][k].numel() * 2 for i in range(L)
+                  for k in ("wg", "wu", "wd"))
+    log(f"serve_moe: engine built in {time.perf_counter() - t_phase:.1f} s; weights "
+        f"{wbytes / 1e9:.2f} GB ({experts / 1e9:.2f} GB of experts), KV pool "
+        f"{runner.num_blocks} blocks ({runner.kv_cache_bytes / 1e9:.2f} GB)")
+
+    # 1. the kernel against its plain version at Mixtral's width (layer 0's
+    # experts), then the dropless layer against an f32 per-token oracle
+    layer = runner.params["layers"][0]
+    errs = {}
+    for i, (name, counts) in enumerate(MOE_PARITY.items()):
+        xs, off = grouped_inputs(torch, counts, cfg.hidden_size, seed=40 + i)
+        errs[name] = compare(torch, f"{MOE_KERNEL}/{name}",
+                             grouped_swiglu_ffn_cuda(xs, off, layer["wg"], layer["wu"], layer["wd"]),
+                             moe.grouped_ffn_plain(xs, off, layer["wg"], layer["wu"], layer["wd"]),
+                             GEMV_TOL)
+    oracle_err = moe_oracle_check(torch, np, runner)
+    log(f"serve_moe: {MOE_KERNEL} vs plain {errs}; dropless vs f32 oracle {oracle_err:.5f}")
+
+    # 2. serve's 8 requests (ids below 32000) twice through the defaults
+    reqs = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions,
+                         vocab=cfg.vocab_size, eos_id=MIXTRAL_8X7B["eos_token_id"])
+    mem0 = torch.cuda.memory_allocated()
+    g4 = serve_runs(torch, engine, [("serve", reqs), ("serve", reqs)], Context, kernels)
+    mem_graphs = torch.cuda.memory_allocated() - mem0
+    for run in g4["serve"]:
+        check_outputs("serve_moe", run["outs"], reqs, FinishReason, vocab=cfg.vocab_size)
+        st = run["stats"]
+        eager = L * (st["packed_prefills"] + st["chunk_steps"] + st["prefills"])
+        check_horizon_launches("serve_moe", run, L, kernels, "paged_decode_attention",
+                               eager={MOE_KERNEL: eager})
+        bodies = st["decode_steps"] + st["horizon_steps"] + st["verify_chained_steps"]
+        if run["replayed"][MOE_KERNEL] != L * bodies or run["launches"][MOE_KERNEL] <= 0:
+            raise SmokeError(f"serve_moe: {MOE_KERNEL} replayed {run['replayed'][MOE_KERNEL]} "
+                             f"!= {L} x {bodies} step bodies")
+    first, warm = g4["serve"]
+    if [t for t, _, _ in warm["outs"]] != [t for t, _, _ in first["outs"]]:
+        raise SmokeError("serve_moe: the repeated run gave other tokens")
+    gap = reference_check(torch, runner, reqs[0].token_ids, first["outs"][0][0], bound=MOE_REF_GAP)
+    log(f"serve_moe: served at {time.perf_counter() - t_phase:.1f} s; reference gap {gap:.3f}")
+
+    # 3. every graph's replay against its eager call, bitwise
+    bitwise = replay_vs_eager(torch, np, runner, "moe", eos_id=MIXTRAL_8X7B["eos_token_id"])
+
+    # 4. times: the graphed step at B = 8 and 1, the kernel at the step's
+    # routing (B = 8: layer 0's router over 8 tokens; B = 1: its first
+    # token's two experts) and at a 512-token chunk's
+    steps = moe_step_times(torch, np, runner)
+    flush = make_flush(torch)
+    counts8 = step_routing(torch, np, runner)
+    counts1 = [0] * cfg.num_experts
+    for e in (i for i, c in enumerate(counts8) if c):
+        if sum(counts1) < cfg.num_experts_per_tok:
+            counts1[e] = 1
+    rows = {f"{MOE_KERNEL}/step_B8": moe_kernel_row(torch, flush, layer, counts8, 50),
+            f"{MOE_KERNEL}/step_B1": moe_kernel_row(torch, flush, layer, counts1, 51),
+            f"{MOE_KERNEL}/chunk_512": moe_kernel_row(torch, flush, layer,
+                                                      MOE_PARITY["R1024"], 52)}
+    rows[MOE_KERNEL] = rows[f"{MOE_KERNEL}/step_B8"]
+    del flush
+    walls = [run["wall"] for run in g4["serve"]]
+    out_tokens = sum(len(t) for t, _, _ in first["outs"])
+    res = {
+        "card": card, "layers": L, "config": "Mixtral-8x7B (published config.json), "
+        f"{L} of 32 layers, random bf16 weights from seed 0",
+        "weights_bytes": wbytes, "expert_bytes": experts, "kv_blocks": runner.num_blocks,
+        "parity_max_abs_err": errs, "dropless_vs_f32_oracle_max_abs_err": oracle_err,
+        "stats": first["stats"], "launches": first["launches"],
+        "serve_wall_s": walls, "output_tok_per_s_warm": out_tokens / walls[1],
+        "ttft_s_warm": [t for _, _, t in warm["outs"]],
+        "reference_max_logit_gap": gap, "reference_bound": MOE_REF_GAP,
+        "replay_vs_eager_bitwise": {n: list(s) for n, s in bitwise.items()},
+        "step_ms": steps, "kernel_rows": rows, "step_routing_B8": counts8,
+        "graph_mem_bytes": mem_graphs, "serve_peak_mem_bytes": first["peak"],
+        "engine_peak_mem_bytes": first["peak"] - mem_before,
+        "capture_s": {k: s["capture_s"] for k, s in runner.graph_stats().items()},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(json.dumps({"serve_moe": res}), flush=True)
+    r8 = rows[MOE_KERNEL]
+    log(f"serve_moe: {len(reqs)} requests ({out_tokens} tokens) warm {walls[1]:.2f} s "
+        f"({res['output_tok_per_s_warm']:.1f} tokens/s); launches {first['launches']}; "
+        f"every replay bitwise = eager; graphs hold {mem_graphs / 1e6:.1f} MB; serve peak "
+        f"{first['peak'] / 1e9:.2f} GB; phase {res['phase_s']:.1f} s ({card})")
+    for name, row in steps.items():
+        log(f"serve_moe: graphed step {name}: {row['wall_ms']:.2f} ms wall / "
+            f"{row['device_ms']:.2f} device; grouped kernel {row['grouped_kernel_ms']:.2f} ms "
+            f"({100 * row['grouped_kernel_share']:.1f}%), MoE layers "
+            f"{100 * row['moe_layers_share']:.1f}% ({card})")
+    for name, row in rows.items():
+        log(f"serve_moe: {name}: {row['ms']['median']:.4f} ms (bound {row['bound_ms']:.4f}, "
+            f"{row['bound_by']}; {row['experts_routed']} experts), plain "
+            f"{row['plain_ms']['median']:.4f}, library {row['library_ms']['median']:.4f} "
+            f"[{row['library']}] ({card})")
+    res["errs"] = {MOE_KERNEL: max(errs.values())}
+    res["rows"] = rows
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3618,6 +3965,18 @@ def main() -> int:
             rows[k] = rows[f"{k}/llama31_8b_tp2/M8"]
         gc.collect()
         torch.cuda.empty_cache()
+        # 13. serve_moe: Mixtral-8x7B's width at 16 layers on the card freed
+        # by the phases before (its counters set to 0 just before each of
+        # its two serve runs, read just after; the grouped kernel launched by
+        # replays and by the eager prefills)
+        log(f"device memory held before serve_moe: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        moe = phase_serve_moe(torch, np, card)
+        launches[MOE_KERNEL] = moe["launches"][MOE_KERNEL]
+        errs.update(moe.pop("errs"))
+        rows.update(moe.pop("rows"))
+        del moe
+        gc.collect()
+        torch.cuda.empty_cache()
         log(f"device memory held before the server starts: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
         phase_serve_http(torch, np, card)
     except Exception as e:  # noqa: BLE001 - report and fail the run
@@ -3641,6 +4000,8 @@ def main() -> int:
         # the partial_out branch of the same Pallas program (linear.py:321-325)
         "fused_attn_out_partial": "dynamo_tpu/ops/linear.py:334",
         "fused_attn_out_partial_int8": "dynamo_tpu/ops/linear.py:334",
+        # no Pallas kernel upstream: the dropless MoE FFN's grouped products
+        MOE_KERNEL: "dynamo_tpu/ops/moe.py:111 (_grouped_ffn, lax.ragged_dot: XLA, no pallas_call)",
     }
     from dynamo_tpu_torch.ops.kernels import SOURCES
 

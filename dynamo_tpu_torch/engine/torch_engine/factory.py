@@ -19,6 +19,7 @@ Closing the engine stops the followers.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -76,17 +77,25 @@ def default_num_blocks(
     quantized: bool = False,
     kv_dtype: str = "bf16",
     tp: int = 1,
+    reserve_bytes: int = 0,
 ) -> int:
     """Blocks for every batch lane at full context plus slack, capped so
     weights + KV fit the device memory budget (the JAX sizing rule,
-    factory.py:411-450): int8 weights count the dense parameters at 1 byte,
-    an int8 KV cache 1 byte per value plus a 4-byte scale per (layer, kv
-    head, block) of each of K and V; under tensor parallelism of ``tp``
-    ranks, per rank: the weights divided by tp, the rank's Hkv / tp heads
-    per block (ranks sharing a card must pass ``num_blocks`` themselves)."""
+    factory.py:411-450): int8 weights count the dense parameters at 1 byte
+    (an MoE model's experts, never quantized, at ``dtype_bytes`` whatever
+    ``quantized`` says, :427-437), an int8 KV cache 1 byte per value plus a
+    4-byte scale per (layer, kv head, block) of each of K and V; under
+    tensor parallelism of ``tp`` ranks, per rank: the weights divided by
+    tp, the rank's Hkv / tp heads per block (ranks sharing a card must pass
+    ``num_blocks`` themselves). ``reserve_bytes`` more are kept out of the
+    budget (the factory's room for the captured graphs' pool; 0 is the JAX
+    rule)."""
     per_seq = (max_len + block_size - 1) // block_size
     want = max_batch * per_seq + 64
-    weight_bytes = param_count(config) * (1 if quantized else dtype_bytes) // tp
+    dense_params = param_count(dataclasses.replace(config, num_experts=0))
+    expert_params = param_count(config) - dense_params
+    weight_bytes = (dense_params * (1 if quantized else dtype_bytes)
+                    + expert_params * dtype_bytes) // tp
     int8_kv = kv_dtype == "int8"
     heads = config.num_kv_heads // tp
     block_bytes = 2 * (
@@ -94,8 +103,28 @@ def default_num_blocks(
         * (1 if int8_kv else dtype_bytes)
         + (4 * config.num_layers * heads if int8_kv else 0)
     )
-    budget = int(budget_bytes * utilization) - weight_bytes
+    budget = int(budget_bytes * utilization) - weight_bytes - reserve_bytes
     return min(want, max(16, budget // block_bytes))
+
+
+def graph_pool_bytes(config: LlamaConfig, max_batch: int, spec_k: int = 0) -> int:
+    """Room for the captured step graphs' shared memory pool: twice the
+    transient activations of the widest captured pass (the verify pass's
+    max_batch x (spec_k + 1) rows, else the decode step's max_batch), each
+    row's layer temporaries counted in f32 -- the QKV and attention rows,
+    the residual stream, the FFN's gate / up / product (an MoE layer's
+    routed rows k times over, its act scratch and sorted copies) -- plus its
+    f32 logits and the sampler's copies of them. An estimate from the
+    shapes (the graphs share one pool, whose captures reuse each other's
+    freed transients); chip_smoke's serve_horizon and serve_moe log what the
+    graphs hold on the card."""
+    c = config
+    rows = max_batch * (spec_k + 1)
+    ffn = c.intermediate_size * 3
+    if c.num_experts:
+        ffn = c.num_experts_per_tok * (ffn + 2 * c.hidden_size)
+    per_row = 4 * (c.q_dim + 2 * c.kv_dim + 4 * c.hidden_size + ffn + 4 * c.vocab_size)
+    return 2 * rows * per_row
 
 
 def quantize_from_env() -> bool:
@@ -254,6 +283,7 @@ def build_torch_engine(
     decode_horizon: Optional[int] = None,
     lazy_horizon: Optional[bool] = None,
     cuda_graphs: Optional[bool] = None,
+    expert_parallel_size: int = 1,
 ) -> TorchEngine:
     """Build the serving engine on ``device`` (the card unless the caller
     asks for the CPU; raises when a card is asked for and absent).
@@ -314,13 +344,25 @@ def build_torch_engine(
     ``lazy_horizon`` (default ``DYN_LAZY_HORIZON``). ``cuda_graphs``
     (default: on for a card without a group) runs the decode step, the
     horizon and the verify pass as CUDA graphs; False runs them eagerly
-    (a group always does; True with a group raises ValueError).
+    (a group always does; True with a group raises ValueError). With graphs
+    the KV pool leaves ``graph_pool_bytes`` of the budget to their pool.
+
+    MoE (a config with ``num_experts``, the Mixtral family): the dropless
+    grouped FFN on one card or under tensor parallelism, where each rank
+    holds every expert's FFN slice. ``expert_parallel_size`` > 1 (the JAX
+    factory's experts over an ``ep`` mesh axis: ``moe_ffn_shard_map`` /
+    ``moe_ffn_ep_a2a``) is not ported and raises NotImplementedError.
 
     On the card, a config whose shapes a kernel of its path would refuse
     raises ValueError here, before any request (and before the card is
     looked for), naming each refusal; nothing falls back to a plain
     version."""
     cfg, model_dir = _resolve_config(config)
+    if expert_parallel_size > 1:
+        raise NotImplementedError(
+            f"expert parallelism (expert_parallel_size={expert_parallel_size}): the "
+            "expert-parallel MoE forms moe_ffn_shard_map / moe_ffn_ep_a2a are not ported yet"
+        )
     # DYN_CHUNK_BUDGET / DYN_MIXED_STEP, checked before any weight is made
     chunking = TorchEngineConfig(block_size=kv_block_size)
     check_chunk_budget(chunking.chunk_budget, kv_block_size)
@@ -357,7 +399,7 @@ def build_torch_engine(
     else:
         on_card = torch.device(device).type == "cuda"
     if on_card:
-        problems = card_shape_problems(cfg, fused_decode, tp)
+        problems = card_shape_problems(cfg, fused_decode, tp, dtype)
         if problems:
             raise ValueError(
                 "the card's kernels do not take this model's shapes: " + "; ".join(problems)
@@ -369,11 +411,13 @@ def build_torch_engine(
         lazy_horizon = default_lazy_horizon()
     max_len = min(max_model_len or cfg.max_position_embeddings, cfg.max_position_embeddings)
     if num_blocks is None:
+        graphed = on_card and not grouped if cuda_graphs is None else cuda_graphs
         num_blocks = default_num_blocks(
             cfg, max_len, max_batch, block_size=kv_block_size,
             budget_bytes=device_memory_bytes(dev),
             dtype_bytes=torch.empty((), dtype=dtype).element_size(),
             quantized=quantize, kv_dtype=kv_dtype, tp=tp,
+            reserve_bytes=graph_pool_bytes(cfg, max_batch, spec["spec_k"]) if graphed else 0,
         )
     runner_kw = dict(
         num_blocks=num_blocks, block_size=kv_block_size, max_batch=max_batch,

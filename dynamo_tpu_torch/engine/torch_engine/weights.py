@@ -6,10 +6,13 @@ Counterpart of dynamo_tpu/engine/jax_engine/weights.py
 in dynamo_tpu/models/llama.py:262-334. All produce the JAX layout: a dict
 with ``embed`` [V, hidden], ``layers`` (a list of dicts with ``[in, out]``
 weights), ``final_norm`` and, unless the embeddings are tied, ``lm_head``
-[hidden, V]. With ``quantize`` the dense projections (and lm_head) become
-int8 ``{"q", "s"}`` leaves (ops/linear.quantize_int8), as the reference's
-``maybe_quantize`` makes them; embeddings, norms and biases stay in
-``dtype``. A ``shard`` function (name, leaf) -> leaf, e.g. a
+[hidden, V]. An MoE layer (``cfg.num_experts`` > 0, the Mixtral family)
+holds ``router`` [hidden, E] and the expert stacks ``wg`` / ``wu`` [E,
+hidden, F] and ``wd`` [E, F, hidden] in place of the dense FFN. With
+``quantize`` the dense projections (and lm_head) become int8 ``{"q", "s"}``
+leaves (ops/linear.quantize_int8), as the reference's ``maybe_quantize``
+makes them; embeddings, norms, biases, the router and the experts stay in
+``dtype`` (the reference never quantizes experts). A ``shard`` function (name, leaf) -> leaf, e.g. a
 tensor-parallel rank's ``parallel/sharding.shard_leaf``, is applied to each
 layer's leaves as soon as the layer exists, and to the top-level ones, so
 the rank keeps only its slice.
@@ -82,13 +85,14 @@ def load_hf_safetensors(
     norms get their +1 folded in ``dtype``; Gemma2/3's
     ``post_attention_layernorm`` is the sandwich post-attention norm and
     ``pre_feedforward_layernorm`` the MLP's pre-norm; Gemma3's q/k norms
-    and Qwen2's q/k/v biases load when the config has them. Without
+    and Qwen2's q/k/v biases load when the config has them. A Mixtral
+    ``block_sparse_moe`` layer maps ``gate`` to the router and each
+    expert's ``w1`` / ``w3`` / ``w2`` to its slice of the gate / up / down
+    stacks, transposed and stacked on the device, never quantized. Without
     ``lm_head.weight`` an untied config falls back to the embeddings at
     logits time. Tensors stream from memory-mapped files one at a time.
     With ``quantize`` each projection is quantized to int8 after its
     transpose, in ``dtype``, as the JAX loader's ``lin`` does."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE parameters are not ported yet")
     dev = resolve_device(device)
     tensors: dict[str, Any] = {}
     for path in sorted(glob.glob(os.path.join(model_dir, "*.safetensors"))):
@@ -133,11 +137,21 @@ def load_hf_safetensors(
                 bk=get(p + "self_attn.k_proj.bias"),
                 bv=get(p + "self_attn.v_proj.bias"),
             )
-        layer.update(
-            wg=lin(p + "mlp.gate_proj.weight"),
-            wu=lin(p + "mlp.up_proj.weight"),
-            wd=lin(p + "mlp.down_proj.weight"),
-        )
+        if cfg.num_experts:
+            m = p + "block_sparse_moe."
+
+            def stack(w: str) -> torch.Tensor:
+                return torch.stack([get(f"{m}experts.{e}.{w}.weight").t()
+                                    for e in range(cfg.num_experts)])
+
+            layer.update(router=get(m + "gate.weight").t().contiguous(),
+                         wg=stack("w1"), wu=stack("w3"), wd=stack("w2"))
+        else:
+            layer.update(
+                wg=lin(p + "mlp.gate_proj.weight"),
+                wu=lin(p + "mlp.up_proj.weight"),
+                wd=lin(p + "mlp.down_proj.weight"),
+            )
         layers.append(_cut(layer, shard))
     params = {
         "embed": get("model.embed_tokens.weight"),
@@ -165,15 +179,20 @@ def init_params(
     values differ from the JAX init's threefry draws). Never zeros: zero
     weights make attention uniform and would hide a wrong kernel. With
     ``quantize`` every dense weight is drawn in ``dtype`` and then
-    quantized to int8 (the reference's ``dense``)."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE parameters are not ported yet")
+    quantized to int8 (the reference's ``dense``). An MoE layer draws its
+    router [hidden, E] and expert stacks at the reference's scales
+    (N(0, 1/hidden) for the router, wg and wu, N(0, 1/F) for wd), never
+    quantized."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         return maybe_quantize(w.div_(math.sqrt(fan_in)).to(dtype), quantize)
+
+    def expert(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return w.div_(math.sqrt(fan_in)).to(dtype)
 
     def ones(n):
         return torch.ones(n, device=dev, dtype=dtype)
@@ -202,11 +221,20 @@ def init_params(
             )
         if c.qk_norm:
             layer.update(q_norm=ones(c.head_dim), k_norm=ones(c.head_dim))
-        layer.update(
-            wg=dense((c.hidden_size, c.intermediate_size), c.hidden_size),
-            wu=dense((c.hidden_size, c.intermediate_size), c.hidden_size),
-            wd=dense((c.intermediate_size, c.hidden_size), c.intermediate_size),
-        )
+        if c.num_experts:
+            E, D, F = c.num_experts, c.hidden_size, c.intermediate_size
+            layer.update(
+                router=expert((D, E), D),
+                wg=expert((E, D, F), D),
+                wu=expert((E, D, F), D),
+                wd=expert((E, F, D), F),
+            )
+        else:
+            layer.update(
+                wg=dense((c.hidden_size, c.intermediate_size), c.hidden_size),
+                wu=dense((c.hidden_size, c.intermediate_size), c.hidden_size),
+                wd=dense((c.intermediate_size, c.hidden_size), c.intermediate_size),
+            )
         layers.append(_cut(layer, shard))
     embed = torch.randn(
         (c.vocab_size, c.hidden_size), generator=gen, device=dev, dtype=torch.float32

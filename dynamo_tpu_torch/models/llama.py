@@ -22,7 +22,11 @@ they are given, IN PLACE, and return only the logits. Weights may be
 int8-quantized (``{"q", "s"}`` leaves, ops/linear.py): the dense products
 and the fused heads take either form. Attention and the fused decode heads run the hand-written CUDA
 kernels for CUDA tensors and the plain versions for CPU tensors
-(ops/attention.py, ops/linear.py). MoE layers are not ported yet.
+(ops/attention.py, ops/linear.py). An MoE layer (a ``router`` beside
+stacked expert weights ``wg`` / ``wu`` [E, D, F], ``wd`` [E, F, D]; the
+Mixtral family, models/mixtral.py) routes its FFN through ops/moe.py: the
+dropless grouped FFN by default, the GShard capacity path with
+``moe_impl="gshard"``.
 
 Tensor parallelism (dynamo_tpu/models/llama.py:397-520 under a mesh): every
 entry point but ``decode_verify`` takes an optional ``group``
@@ -76,6 +80,7 @@ from dynamo_tpu_torch.ops.linear import (
     fused_qkv_rope,
     linear,
 )
+from dynamo_tpu_torch.ops.moe import moe_ffn, moe_ffn_dropless
 
 
 @dataclass(frozen=True)
@@ -132,11 +137,13 @@ class LlamaConfig:
     # Gemma3: local (sliding) layers use their own rope theta (10k) with
     # no scaling; global layers use rope_theta (1M) + rope_scaling.
     rope_local_theta: Optional[float] = None
-    # MoE (Mixtral-style): num_experts == 0 means dense SwiGLU FFN. Read
-    # from config.json so an MoE checkpoint is refused, not misread: MoE
-    # layers are not ported yet.
+    # MoE (Mixtral-style): num_experts == 0 means dense SwiGLU FFN
     num_experts: int = 0
     num_experts_per_tok: int = 2
+    moe_capacity_factor: float = 1.25
+    # None -> the dropless grouped FFN (one card or a pure-TP group);
+    # "gshard" -> force the capacity-bucketed einsum dispatch
+    moe_impl: Optional[str] = None
 
     @classmethod
     def from_hf_dict(cls, d: dict[str, Any]) -> "LlamaConfig":
@@ -280,6 +287,9 @@ class LlamaConfig:
 def param_count(config: LlamaConfig) -> int:
     c = config
     ffn = 3 * c.hidden_size * c.intermediate_size
+    if c.num_experts:
+        # MoE: E expert FFNs + the router table
+        ffn = c.num_experts * ffn + c.hidden_size * c.num_experts
     per_layer = (
         c.hidden_size * (c.q_dim + 2 * c.kv_dim)
         + c.q_dim * c.hidden_size
@@ -445,9 +455,19 @@ def _attn_decode(x, layer, cfg, inv_freqs, positions, context_lens, k_cache_l, v
 
 
 def _mlp(x, layer, cfg, group=None):
-    if "router" in layer:
-        raise NotImplementedError("MoE layers are not ported yet")
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    if "router" in layer:
+        # one card or a pure-TP group (the reference's branch without an ep
+        # axis, models/llama.py:527-567): the dropless grouped FFN, or the
+        # GShard capacity path on request; under a group each rank's experts
+        # are its FFN slice and the f32 partials are summed before the cast
+        args = (h, layer["router"], layer["wg"], layer["wu"], layer["wd"])
+        k = cfg.num_experts_per_tok
+        if cfg.moe_impl == "gshard":
+            y = moe_ffn(*args, top_k=k, capacity_factor=cfg.moe_capacity_factor, group=group)
+        else:
+            y = moe_ffn_dropless(*args, top_k=k, group=group)
+        return x + y
     gate = linear(h, layer["wg"])
     up = linear(h, layer["wu"])
     if cfg.mlp_act == "gelu_tanh":  # Gemma GeGLU

@@ -29,6 +29,7 @@ SOURCES = (
     "paged_verify_attention",
     "fused_qkv_rope",
     "fused_attn_out_residual",
+    "grouped_swiglu_ffn",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -7,6 +7,8 @@ which kernels it went through.
 
 from __future__ import annotations
 
+import torch
+
 from dynamo_tpu_torch.ops.cuda_attention import (
     attention_shape_problems,
     flash_prefill_attention_cuda,
@@ -25,13 +27,15 @@ from dynamo_tpu_torch.ops.cuda_linear import (
     out_proj_shape_problems,
     qkv_shape_problems,
 )
+from dynamo_tpu_torch.ops.cuda_moe import grouped_ffn_shape_problems, grouped_swiglu_ffn_cuda
 
 # name -> wrapper; the names are the csrc/ sources' stems. The int8 modes
 # are second entry points of the same sources; they count under their own
 # names (the stem + "_int8"), so a run shows which mode it went through.
 # #5's partial_out mode (the tensor-parallel o-projection) counts as
 # "fused_attn_out_partial" and "fused_attn_out_partial_int8", entry points
-# of #5's source.
+# of #5's source. The grouped SwiGLU FFN (the MoE layer's expert products;
+# no TPU kernel upstream) counts one per call, which is its two launches.
 KERNELS = {
     "paged_decode_attention": paged_decode_attention_cuda,
     "flash_prefill_attention": flash_prefill_attention_cuda,
@@ -44,6 +48,7 @@ KERNELS = {
     "fused_attn_out_residual_int8": fused_attn_out_residual_int8_cuda,
     "fused_attn_out_partial": fused_attn_out_partial_cuda,
     "fused_attn_out_partial_int8": fused_attn_out_partial_int8_cuda,
+    "grouped_swiglu_ffn": grouped_swiglu_ffn_cuda,
 }
 
 
@@ -66,7 +71,8 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def card_shape_problems(cfg, fused_decode: bool = False, tp: int = 1) -> list[str]:
+def card_shape_problems(cfg, fused_decode: bool = False, tp: int = 1,
+                        dtype=torch.bfloat16) -> list[str]:
     """Why the card's kernels would refuse a model config's shapes at its
     first request (empty: every kernel on its path takes them). The fused
     heads count only with ``fused_decode`` and for models whose layers they
@@ -76,7 +82,10 @@ def card_shape_problems(cfg, fused_decode: bool = False, tp: int = 1) -> list[st
     and width allowed here), so the int8 deployment adds no refusal. Under
     tensor parallelism of ``tp`` ranks each rank's kernels see its own head
     slice (Hq / tp, Hkv / tp heads), and #5's partial_out mode the rank's
-    [Hq * D / tp, hidden] o-projection and its hidden / tp column chunks."""
+    [Hq * D / tp, hidden] o-projection and its hidden / tp column chunks.
+    An MoE model's grouped FFN kernel takes bf16 experts whose hidden size
+    and per-rank FFN width (intermediate_size / tp: each rank holds every
+    expert's FFN slice) lie on its tile grid; the experts are never int8."""
     hq, hkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
     out = attention_shape_problems(hq, hkv, cfg.head_dim)
     if fused_decode and not (cfg.qk_norm or cfg.sandwich_norms):
@@ -84,4 +93,7 @@ def card_shape_problems(cfg, fused_decode: bool = False, tp: int = 1) -> list[st
             cfg.hidden_size, hq, hkv, cfg.head_dim)]
         out += [f"fused o-proj head: {p}" for p in out_proj_shape_problems(
             hq * cfg.head_dim, cfg.hidden_size // tp)]
+    if cfg.num_experts:
+        out += [f"grouped MoE FFN: {p}" for p in grouped_ffn_shape_problems(
+            cfg.hidden_size, cfg.intermediate_size // tp, dtype)]
     return out

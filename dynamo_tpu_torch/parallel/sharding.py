@@ -12,6 +12,11 @@ issues the collectives itself. The layout is the reference's
   wg / wu       [E, F]          -> column parallel
   wd            [F, E]          -> row parallel
   lm_head       [E, V]          -> vocab split; the logits all-gathered
+  MoE wg / wu   [n_exp, E, F]   -> every expert's FFN columns split
+  MoE wd        [n_exp, F, E]   -> every expert's FFN rows split (the
+                                   dropless combine's f32 partials are
+                                   summed, ops/moe.py)
+  MoE router    [E, n_exp]      -> replicated
   embed, norms                  -> replicated
   Qwen2 bq / bk / bv            -> split with their columns
   kv cache      [L, Hkv, N, Bs, D] -> kv heads split (each rank's runner
@@ -20,7 +25,9 @@ issues the collectives itself. The layout is the reference's
 int8 weights (``{"q": int8 [in, out], "s": bf16 [out]}``) keep their
 per-output-channel scales beside their mantissas: a column split cuts both,
 a row split cuts the mantissas and keeps every scale (``_shard_linear``,
-:52-60). Rank r's slice is block r of tp equal blocks.
+:52-60). The experts are placed as the reference places them on a mesh
+whose ep axis is 1 (:101-109): each rank holds every expert's FFN slice.
+Rank r's slice is block r of tp equal blocks.
 """
 
 from __future__ import annotations
@@ -32,15 +39,16 @@ import torch
 COLUMN = ("wq", "wk", "wv", "wg", "wu", "lm_head")
 ROW = ("wo", "wd")
 BIAS = ("bq", "bk", "bv")
+# an MoE layer's expert stacks (bf16, never int8): the dim its FFN width is on
+EXPERTS = {"wg": 2, "wu": 2, "wd": 1}
 
 
 def check_shardable(cfg, tp: int) -> None:
     """Raise ValueError when ``cfg``'s shapes do not split into ``tp``
     equal slices (the reference checks the kv heads, :72-76; the port also
     needs whole query heads, FFN and vocab blocks, since each rank holds
-    plain tensors rather than padded shards)."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+    plain tensors rather than padded shards; an MoE model's experts split
+    on the same intermediate_size)."""
     for what, n in (
         ("num_kv_heads", cfg.num_kv_heads),
         ("num_heads", cfg.num_heads),
@@ -63,6 +71,8 @@ def shard_leaf(name: str, w: Any, rank: int, tp: int) -> Any:
     key, or ``embed`` / ``final_norm`` / ``lm_head``)."""
     if tp == 1:
         return w
+    if name in EXPERTS and isinstance(w, torch.Tensor) and w.dim() == 3:  # an MoE [E, in, out] stack
+        return _block(w, EXPERTS[name], rank, tp)
     if name in COLUMN:
         if isinstance(w, dict):
             return {"q": _block(w["q"], 1, rank, tp), "s": _block(w["s"], 0, rank, tp)}
@@ -73,7 +83,7 @@ def shard_leaf(name: str, w: Any, rank: int, tp: int) -> Any:
         return _block(w, 0, rank, tp)
     if name in BIAS:
         return _block(w, 0, rank, tp)
-    return w  # embed, norms: replicated
+    return w  # embed, norms, the MoE router: replicated
 
 
 def shard_llama(group, cfg, params: dict) -> dict:

@@ -1368,14 +1368,15 @@ GRAPH_LENS = [5, 17, 33, 64, 100, 130, 200, 250]
 GRAPH_B, GRAPH_BS, GRAPH_LEN, GRAPH_VOCAB = 8, 16, 512, 2048
 
 
-def _graph_runner(kv: str, fused: bool):
+def _graph_runner(kv: str, fused: bool, **over):
     """A card runner whose 8 lanes hold prompts of GRAPH_LENS tokens, with
-    blocks for 16 more each; returns (runner, tables, last tokens)."""
+    blocks for 16 more each (``over``: config fields to change); returns
+    (runner, tables, last tokens)."""
     from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
     from dynamo_tpu_torch.engine.torch_engine.weights import load_or_init_params
     from dynamo_tpu_torch.models.llama import LlamaConfig
 
-    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=GRAPH_VOCAB), **GRAPH_CFG)
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=GRAPH_VOCAB), **GRAPH_CFG, **over)
     assert kernels.card_shape_problems(cfg, fused_decode=fused) == []
     params = load_or_init_params(None, cfg, seed=0, device="cuda", quantize=kv == "int8")
     runner = TorchModelRunner(cfg, params, num_blocks=256, block_size=GRAPH_BS,
@@ -1497,3 +1498,214 @@ def test_graph_launch_counts_are_replays_times_captured_launches_on_card():
         for k, n in s["launches"].items():
             want[k] += 3 * n
     assert kernels.launch_counts() == want
+
+
+# ------------------------------------------------ the MoE layer's grouped FFN
+
+# the fused heads' tolerance: f32 sums in another order, so a bf16 rounding
+# of gate, up, the SwiGLU product or the output may flip by one ulp
+GROUPED_TOL = (1e-2, 2.0 ** -6)
+# rows per expert (E = 8): decode B = 1 and B = 8, verify B = 8 x S = 4, a
+# 512-token chunk; every row on one expert; experts left empty at both ends
+GROUPED_CASES = {
+    "R2": [0, 1, 0, 0, 0, 1, 0, 0],
+    "R16": [2, 3, 1, 0, 4, 2, 2, 2],
+    "R64": [8, 12, 4, 9, 7, 8, 6, 10],
+    "R1024": [130, 120, 140, 100, 134, 150, 110, 140],
+    "one_expert": [0, 0, 0, 16, 0, 0, 0, 0],
+    "empty_ends": [0, 0, 30, 1, 0, 33, 0, 0],
+}
+
+
+def _grouped_case(counts, D, F, seed):
+    g = torch.Generator().manual_seed(seed)
+    E = len(counts)
+    R = sum(counts)
+    xs = torch.randn(R, D, generator=g).bfloat16().cuda()
+    wg, wu = ((torch.randn(E, D, F, generator=g) / D ** 0.5).bfloat16().cuda() for _ in range(2))
+    wd = (torch.randn(E, F, D, generator=g) / F ** 0.5).bfloat16().cuda()
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32).cuda()
+    return xs, offsets, wg, wu, wd
+
+
+def test_grouped_ffn_wrapper_refuses_cpu_tensors_and_cpu_takes_the_plain_version():
+    from dynamo_tpu_torch.ops import cuda_moe, moe
+
+    xs = torch.zeros(4, 64, dtype=torch.bfloat16)
+    w = torch.zeros(2, 64, 64, dtype=torch.bfloat16)
+    off = torch.tensor([0, 1, 4], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cuda_moe.grouped_swiglu_ffn_cuda(xs, off, w, w, w)
+    kernels.reset_launch_counts()
+    x = torch.randn(6, 64)
+    out = moe.moe_ffn_dropless(x, torch.randn(64, 4), *(torch.randn(4, 64, 64) for _ in range(3)),
+                               top_k=2)
+    assert out.shape == (6, 64) and torch.isfinite(out).all()
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_the_dropless_moe_layer_reads_nothing_back_from_the_card():
+    """Routing, the device-side expert order, the kernel's wrapper and the
+    combine read nothing back (no host read, no data-sized result, no
+    bincount): only the CPU branch's plain version reads its offsets."""
+    ops = ROOT / "dynamo_tpu_torch" / "ops"
+    trees = [ast.parse((ops / m).read_text()) for m in ("moe.py", "cuda_moe.py",
+                                                         "cuda_attention.py", "basics.py")]
+    found = _host_reads_from(trees, "moe_ffn_dropless", HOST_READS | DATA_SIZED | {"bincount"})
+    assert found == ["grouped_ffn_plain: .tolist()"]
+
+
+@pytest.mark.cuda
+def test_the_grouped_ffn_library_is_built_on_card():
+    """The sixth library: built by nvcc with the other five (one process per
+    source), exporting its entry point."""
+    _need_card()
+    from dynamo_tpu_torch.ops import _build
+
+    assert len(_build.SOURCES) == 6 and "grouped_swiglu_ffn" in _build.SOURCES
+    info = _build.build_all()
+    assert set(info) >= set(_build.SOURCES)
+    assert hasattr(_build.load("grouped_swiglu_ffn"), "grouped_swiglu_ffn_bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_grouped_ffn_kernel_matches_plain_on_card(case):
+    """The kernel against grouped_ffn_plain (cuBLAS products over the host's
+    row slices, SwiGLU on bf16) at the decode, verify and chunk row counts,
+    with empty experts and with every row on one expert; one count per call."""
+    _need_card()
+    from dynamo_tpu_torch.ops import cuda_moe, moe
+
+    xs, off, wg, wu, wd = _grouped_case(GROUPED_CASES[case], 1024, 2048, seed=len(case))
+    kernels.reset_launch_counts()
+    got = cuda_moe.grouped_swiglu_ffn_cuda(xs, off, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == dict(dict.fromkeys(kernels.KERNELS, 0),
+                                           grouped_swiglu_ffn=1)
+    assert got.dtype == torch.bfloat16 and got.shape == xs.shape
+    _close(got, moe.grouped_ffn_plain(xs, off, wg, wu, wd), GROUPED_TOL)
+
+
+@pytest.mark.cuda
+def test_grouped_ffn_kernel_at_mixtral_width_and_zero_rows_on_card():
+    """Mixtral-8x7B's experts (D 4096, F 14336) at the B = 8 step's 16 rows;
+    zero rows launch nothing and count nothing; refused shapes raise."""
+    _need_card()
+    from dynamo_tpu_torch.ops import cuda_moe, moe
+
+    xs, off, wg, wu, wd = _grouped_case(GROUPED_CASES["R16"], 4096, 14336, seed=3)
+    _close(cuda_moe.grouped_swiglu_ffn_cuda(xs, off, wg, wu, wd),
+           moe.grouped_ffn_plain(xs, off, wg, wu, wd), GROUPED_TOL)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    empty = cuda_moe.grouped_swiglu_ffn_cuda(xs[:0], torch.zeros_like(off), wg, wu, wd)
+    torch.cuda.synchronize()
+    assert empty.shape == (0, 4096)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    with pytest.raises(ValueError, match="not a multiple of 64"):
+        cuda_moe.grouped_swiglu_ffn_cuda(xs[:, :4064].contiguous(), off, wg[:, :4064].contiguous(),
+                                         wu[:, :4064].contiguous(), wd[:, :, :4064].contiguous())
+    with pytest.raises(TypeError):
+        cuda_moe.grouped_swiglu_ffn_cuda(xs.float(), off, wg, wu, wd)
+
+
+@pytest.mark.cuda
+def test_moe_dropless_layer_on_card_matches_an_f32_per_token_oracle():
+    """moe_ffn_dropless at the B = 8 step's shape (Mixtral widths, random
+    routing) against an f32 loop over tokens and their top-2 experts that
+    rounds where the kernel rounds: within 2^-5 of each row's largest value
+    (bf16 inputs, one bf16 rounding of gate, up, act and the output)."""
+    _need_card()
+    from dynamo_tpu_torch.ops import moe
+
+    g = torch.Generator().manual_seed(9)
+    T, D, F, E = 8, 4096, 14336, 8
+    x = torch.randn(T, D, generator=g).bfloat16().cuda()
+    rw = (torch.randn(D, E, generator=g) / D ** 0.5).bfloat16().cuda()
+    xs, _, wg, wu, wd = _grouped_case([1] * E, D, F, seed=10)
+    got = moe.moe_ffn_dropless(x, rw, wg, wu, wd, 2).float()
+    logits = x.float() @ rw.float()
+    want = torch.zeros(T, D, device="cuda")
+    for t in range(T):
+        top = torch.sort(logits[t], descending=True, stable=True)
+        w = torch.softmax(top.values[:2], 0)
+        for e, we in zip(top.indices[:2].tolist(), w):
+            gate = (x[t].float() @ wg[e].float()).bfloat16().float()
+            up = (x[t].float() @ wu[e].float()).bfloat16().float()
+            act = (torch.nn.functional.silu(gate).bfloat16().float() * up).bfloat16().float()
+            want[t] += we * (act @ wd[e].float()).bfloat16().float()
+    err = (got - want).abs().amax(1)
+    assert (err <= 2.0 ** -5 * want.abs().amax(1)).all(), err
+
+
+@pytest.mark.cuda
+def test_moe_graph_replays_equal_eager_calls_bitwise_on_card():
+    """An MoE model's decode step, horizon and verify pass captured and
+    replayed against the same call made eagerly on the same cache contents:
+    bitwise equal (routing, the expert order and the combine run on the
+    card with no host read); each replay counts the grouped kernel once per
+    layer and step body."""
+    _need_card()
+    runner, tables, last = _graph_runner("bf16", False, num_experts=4)
+    assert "router" in runner.params["layers"][0]
+    snap = [t.clone() for t in _cache_leaves(runner)]
+    for name, call in _graph_calls(runner, tables, last, True):
+        out = {}
+        for graphed in (False, True):
+            runner.cuda_graphs = graphed
+            out[graphed] = call()
+            for t, s in zip(_cache_leaves(runner), snap):
+                t.copy_(s)
+        assert np.array_equal(out[False], out[True], equal_nan=True), name
+    runner.cuda_graphs = True
+    L = GRAPH_CFG["num_layers"]
+    for key, s in runner.graph_stats().items():
+        bodies = (s["launches"].get("paged_decode_attention", 0)
+                  + s["launches"].get("paged_verify_attention", 0)) // L
+        assert s["launches"]["grouped_swiglu_ffn"] == L * bodies, key
+
+
+@pytest.mark.cuda
+def test_an_moe_engine_serves_on_card_without_the_plain_grouped_ffn(monkeypatch):
+    """build_torch_engine's defaults (H 4 on graphs, chunk 512, mixed steps)
+    serve an MoE model with the plain grouped FFN patched to raise: every
+    expert product went through the kernel."""
+    _need_card()
+    import asyncio
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.ops import moe
+    from dynamo_tpu_torch.protocols.common import (Context, PreprocessedRequest,
+                                                   SamplingOptions, StopConditions)
+
+    def refuse(*a, **k):
+        raise AssertionError("the card path reached grouped_ffn_plain")
+
+    monkeypatch.setattr(moe, "grouped_ffn_plain", refuse)
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(vocab_size=GRAPH_VOCAB), num_experts=4,
+                              **GRAPH_CFG)
+    engine = build_torch_engine(cfg, device="cuda", max_batch=4, max_model_len=512)
+    assert engine.runner.cuda_graphs and engine.config.decode_horizon == 4
+    kernels.reset_launch_counts()
+
+    async def go():
+        try:
+            out = []
+            for n in (7, 40):
+                req = PreprocessedRequest(token_ids=list(range(1, n + 1)),
+                                          sampling=SamplingOptions(greedy=True),
+                                          stop=StopConditions(max_tokens=9, ignore_eos=True))
+                toks = []
+                async for o in engine.generate(req, Context()):
+                    toks.extend(o.token_ids)
+                out.append(toks)
+            return out
+        finally:
+            await engine.close()
+
+    out = asyncio.run(go())
+    assert [len(t) for t in out] == [9, 9]
+    assert kernels.launch_counts()["grouped_swiglu_ffn"] > 0

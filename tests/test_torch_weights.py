@@ -3,16 +3,18 @@
 * ``read_safetensors`` (standard library and numpy only) reads what the
   ``safetensors`` package writes and reads: F32, BF16, F16, I32 and I64
   tensors over two shards, with a ``__metadata__`` entry, bit for bit;
-* ``load_hf_safetensors`` maps tiny Llama, Qwen2 (q/k/v biases) and
-  Gemma2 (+1 norm fold, sandwich norms, tied embeddings) checkpoints,
-  written here with random numpy weights, onto the same parameters as the
-  JAX ``load_hf_safetensors``, bit for bit in f32 and in bf16; an untied
+* ``load_hf_safetensors`` maps tiny Llama, Qwen2 (q/k/v biases), Gemma2
+  (+1 norm fold, sandwich norms, tied embeddings) and Mixtral
+  (``block_sparse_moe``: router and stacked experts) checkpoints, written
+  here with random numpy weights, onto the same parameters as the JAX
+  ``load_hf_safetensors``, bit for bit in f32 and in bf16; an untied
   config without ``lm_head.weight`` falls back to the embeddings on both
-  sides; an MoE checkpoint raises;
+  sides;
 * ``build_torch_engine(<dir>, device="cpu")`` streams the tokens of a
   ``JaxEngine`` over the JAX loader's parameters from the same directory,
-  both with their default admission path; a checkpoint directory whose
-  config cannot be read raises.
+  both with their default admission path, for a Llama and a Mixtral
+  (``tiny_moe``-shaped) checkpoint; a checkpoint directory whose config
+  cannot be read raises.
 """
 
 import asyncio
@@ -112,6 +114,14 @@ HF_CONFIGS = {
         "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
         "query_pre_attn_scalar": 8,
     },
+    # tiny_moe's shapes (dynamo_tpu/models/mixtral.py) under Mixtral's names
+    "mixtral": {
+        "architectures": ["MixtralForCausalLM"], "model_type": "mixtral", "vocab_size": 256,
+        "hidden_size": 64, "intermediate_size": 128, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "rope_theta": 10000.0,
+        "max_position_embeddings": 512, "tie_word_embeddings": False,
+        "num_local_experts": 4, "num_experts_per_tok": 2,
+    },
 }
 
 
@@ -136,6 +146,13 @@ def _hf_tensors(cfg: LlamaConfig, rng, lm_head=True) -> dict:
         if cfg.attn_bias:
             for name, n in (("q_proj", cfg.q_dim), ("k_proj", cfg.kv_dim), ("v_proj", cfg.kv_dim)):
                 t[p + f"self_attn.{name}.bias"] = w(n, scale=0.5)
+        if cfg.num_experts:
+            m = p + "block_sparse_moe."
+            t[m + "gate.weight"] = w(cfg.num_experts, H)
+            for e in range(cfg.num_experts):
+                for name, shape in (("w1", (I, H)), ("w3", (I, H)), ("w2", (H, I))):
+                    t[f"{m}experts.{e}.{name}.weight"] = w(*shape)
+            continue
         for name, shape in (("gate_proj", (I, H)), ("up_proj", (I, H)), ("down_proj", (H, I))):
             t[p + f"mlp.{name}.weight"] = w(*shape)
     if lm_head and not cfg.tie_word_embeddings:
@@ -190,6 +207,10 @@ def test_loader_matches_the_jax_loader_bit_for_bit(tmp_path, family, dtype):
         assert "/layers/0/post_attn_norm" in got and "/layers/0/post_mlp_norm" in got
     if family == "qwen2":
         assert "/layers/1/bq" in got
+    if family == "mixtral":  # the router and the [E, in, out] expert stacks
+        assert got["/layers/1/router"].shape == (64, 4)
+        assert got["/layers/0/wg"].shape == (4, 64, 128)
+        assert got["/layers/0/wd"].shape == (4, 128, 64)
 
 
 def test_untied_config_without_lm_head_falls_back_to_the_embeddings(tmp_path):
@@ -199,14 +220,6 @@ def test_untied_config_without_lm_head_falls_back_to_the_embeddings(tmp_path):
     want = jax_load(model_dir, JaxConfig.from_model_dir(model_dir), dtype=jnp.float32)
     got = load_hf_safetensors(model_dir, cfg, device="cpu", dtype=torch.float32)
     assert "lm_head" not in want and "lm_head" not in got
-
-
-def test_moe_checkpoint_raises(tmp_path):
-    model_dir = _write_checkpoint(tmp_path, "llama")
-    conf = dict(HF_CONFIGS["llama"], num_local_experts=4, model_type="mixtral")
-    (tmp_path / "llama" / "config.json").write_text(json.dumps(conf))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_torch_engine(model_dir, device="cpu")
 
 
 def test_a_directory_without_a_readable_config_raises(tmp_path):
@@ -230,8 +243,10 @@ PROMPTS = [[5, 9, 17, 23, 2, 40], [1, 2, 3], list(range(30, 50)), [42] * 9]
 MAX_NEW = [8, 12, 6, 10]
 
 
-async def test_engine_from_a_checkpoint_dir_streams_the_jax_engines_tokens(tmp_path):
-    model_dir = _write_checkpoint(tmp_path, "llama")
+async def _serve_checkpoint_both_ways(tmp_path, family):
+    """The family's checkpoint through build_torch_engine(<dir>) and through
+    a JaxEngine over the JAX loader's parameters; returns the port's engine."""
+    model_dir = _write_checkpoint(tmp_path, family)
     jcfg = JaxConfig.from_model_dir(model_dir)
     jparams = jax_load(model_dir, jcfg, dtype=jnp.float32)
     runner = ModelRunner(jcfg, jparams, num_blocks=64, block_size=4, max_batch=4,
@@ -259,3 +274,18 @@ async def test_engine_from_a_checkpoint_dir_streams_the_jax_engines_tokens(tmp_p
     got = await serve(teng, tp, tp.Context)
     assert got == want and [len(t) for t in got] == MAX_NEW
     assert teng.stats.packed_prefills > 0 and teng.stats.prefills == 0
+    return teng
+
+
+async def test_engine_from_a_checkpoint_dir_streams_the_jax_engines_tokens(tmp_path):
+    teng = await _serve_checkpoint_both_ways(tmp_path, "llama")
+    assert "router" not in teng.runner.params["layers"][0]
+
+
+async def test_engine_from_a_mixtral_checkpoint_dir_streams_the_jax_engines_tokens(tmp_path):
+    """A tiny_moe-shaped Mixtral checkpoint (replacing the MoE refusal the
+    port had before its MoE layers): served by build_torch_engine(<dir>,
+    device="cpu") through the dropless MoE FFN, token for token."""
+    teng = await _serve_checkpoint_both_ways(tmp_path, "mixtral")
+    layer = teng.runner.params["layers"][0]
+    assert layer["wg"].shape == (4, 64, 128) and layer["router"].shape == (64, 4)
