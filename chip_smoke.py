@@ -159,6 +159,43 @@ Phases, each of which must pass or the script exits non-zero:
                 experts' bytes), its plain version and torch._grouped_mm. Runs
                 after serve_tp, before serve_http.
 
+ 14. serve_disagg -- disaggregated prefill/decode on this card (after
+                serve_horizon): a decode engine and a prefill engine, both from
+                build_torch_engine's defaults (H = 4 on CUDA graphs, chunk 512,
+                2112 blocks) sharing serve's bf16 weights, the decode engine's
+                router at the reference's DisaggConfig() (prompts over 50 tokens
+                ship); serve's 8 requests through four legs, each leg's counters
+                set to 0 just before it, read just after: (a) the device path
+                (ColocatedPrefillClient: prefill_only_device, blocks moved card to
+                card, twice), (c) the host payload, monolithic (prefill_only
+                through HostPrefillClient, every payload through its wire dict),
+                (d) the host payload streamed (prefill_only_stream's frames into
+                the decode engine's on_frame), and (b) the device path between
+                two int8 engines (serve_int8's int8 weights, int8 KV: #1q, twice).
+                Checks per leg: the outputs, remote prefills = the 7 prompts over
+                50 tokens with no local fallback and no local prefill of a shipped
+                prompt, #3 launched 32 x the prompts the prefill engine prefilled
+                single-shot, every other launch a decode graph's replay, every
+                landing's blocks against the blocks the prefill engine wrote for
+                the same prompt (LandingProbe: bitwise; int8 quantized again on
+                landing: within a quantization step), every block of every
+                shipped prompt compared, one landing per prompt plus one per
+                streamed frame, each streamed prompt landed through frames, the
+                decode cache's addresses unchanged, the payload bytes and
+                frames landed = shipped on the host legs and none on the device
+                path (the monolithic leg runs under DYN_KV_STREAM=0), and the
+                dense reference on every greedy stream (bf16 0.25, int8
+                INT8_REF_GAP). Then the yardsticks in the same run, twice each:
+                the decode engine serving alone (chunks) and an engine from the
+                defaults with prefill_chunk_tokens=0 (#3 single-shot on its own
+                thread). Times: tokens/s, the inter-token gap (p50 / p99 / max
+                over every gap of every request) and peak memory per leg; the
+                2000-token TTFT disaggregated, local through chunks and local
+                single-shot, in turns, with each one's device time; the extract
+                and the inject of its 125 blocks beside their byte bound and
+                index_select / index_copy_; the host payload's device-to-host /
+                encode / checksum / decode / host-to-device split.
+
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
@@ -871,12 +908,19 @@ def make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions,
     return reqs
 
 
-async def run_requests(engine, reqs, Context):
+async def run_requests(engine, reqs, Context, gaps: Optional[list] = None):
+    """Each request's (tokens, finish reason, TTFT s), served concurrently;
+    ``gaps`` gathers every inter-token gap (s) of every request."""
     async def one(req):
-        toks, reason, t0, ttft = [], None, time.perf_counter(), None
+        toks, reason, t0, ttft, last = [], None, time.perf_counter(), None, None
         async for out in engine.generate(req, Context()):
+            now = time.perf_counter()
             if out.token_ids and ttft is None:
-                ttft = time.perf_counter() - t0
+                ttft = now - t0
+            for _ in out.token_ids:
+                if gaps is not None and last is not None:
+                    gaps.append(now - last)
+                last = now
             toks.extend(out.token_ids)
             if out.finish_reason is not None:
                 reason = out.finish_reason
@@ -3538,6 +3582,492 @@ def phase_serve_horizon(torch, np, card: str, params, fused_runner, int8_runner,
     return res
 
 
+# ---------------------------------------------------------- serve_disagg
+
+# the reference's DisaggConfig(): prompts longer than this ship
+DISAGG_LOCAL_MAX = 50
+TTFT_ROUNDS = 2  # of local, disagg, disagg, local
+
+
+class LandingProbe:
+    """Holds every landing of a leg to the blocks the prefill engine wrote.
+    While armed, the prefill engine's scratch blocks are known by prompt and
+    position (its ``_prefill_request``), and each of its block reads (the
+    extracts) first copies the blocks it reads on the card. Each inject of
+    the decode runner then compares every block it landed with the copy of
+    the same prompt's same block, found through the decode engine's sequence
+    that holds the landed blocks: bitwise for bf16 and for int8 mantissas
+    and scales moved verbatim; an int8 block quantized again on landing (the
+    device path dequantizes to bf16) within one quantization step. A landed
+    block with no copy fails."""
+
+    def __init__(self, torch, prefill, decode) -> None:
+        self.torch = torch
+        self.decode = decode
+        self.owner: dict = {}  # prefill scratch block -> (prompt, block index)
+        self.src: dict = {}  # (prompt, block index) -> (copied blocks, column)
+        self.landings: list = []
+        self.armed = False
+        real = prefill._prefill_request
+
+        def alloc(req):
+            ids, error = real(req)
+            if self.armed:
+                prompt = tuple(req.token_ids)
+                self.owner.update({b: (prompt, i) for i, b in enumerate(ids)})
+            return ids, error
+
+        prefill._prefill_request = alloc
+        pr, dr = prefill.runner, decode.runner
+        for name in ("extract_blocks", "extract_blocks_quant", "extract_blocks_device"):
+            setattr(pr, name, self._stash(pr, getattr(pr, name)))
+        for name in ("inject_blocks", "inject_blocks_quant", "inject_blocks_device"):
+            setattr(dr, name, self._check(dr, getattr(dr, name), name))
+
+    def arm(self) -> None:
+        self.owner, self.src, self.landings, self.armed = {}, {}, [], True
+
+    def disarm(self) -> dict:
+        """Stops the probe, frees its copies and returns the leg's landings
+        summed: per prompt length the landings and the blocks compared."""
+        self.armed, self.src, self.owner = False, {}, {}
+        rows = self.landings
+        per_prompt: dict = {}
+        for r in rows:
+            n = per_prompt.setdefault(r.get("prompt_len", 0), [0, 0])
+            n[0] += 1
+            n[1] += r["blocks"]
+        return {"ok": bool(rows) and all(r["ok"] for r in rows), "landings": len(rows),
+                "blocks": sum(r["blocks"] for r in rows), "via": sorted({r["via"] for r in rows}),
+                "bitwise": all(r.get("bitwise", False) for r in rows),
+                "max_mantissa_step": max((r.get("max_mantissa_step", 0) for r in rows), default=0),
+                "max_scale_rel": max((r.get("max_scale_rel", 0.0) for r in rows), default=0.0),
+                "per_prompt": per_prompt, "failed": [r for r in rows if not r["ok"]][:3]}
+
+    def _blocks(self, runner, ids):
+        idx = self.torch.tensor(list(ids), device=runner.device)
+        caches = (runner.k_cache, runner.v_cache)
+        if runner.kv_quantized:
+            return [c[p].index_select(2, idx) for c in caches for p in ("q", "s")]
+        return [c.index_select(2, idx) for c in caches]
+
+    def _stash(self, runner, real):
+        def stash(ids, *a, **k):
+            if self.armed:
+                blocks = self._blocks(runner, ids)
+                for j, b in enumerate(ids):
+                    self.src[self.owner[b]] = (blocks, j)
+            return real(ids, *a, **k)
+        return stash
+
+    def _check(self, runner, real, name):
+        def check(ids, *a, **k):
+            out = real(ids, *a, **k)
+            if self.armed:
+                self.landings.append(self._landing(runner, list(ids), name))
+            return out
+        return check
+
+    def _landing(self, runner, ids, name) -> dict:
+        row = {"via": name, "blocks": len(ids)}
+        seq = next((s for s in list(self.decode.slots) if s is not None and ids[0] in s.block_ids),
+                   None)
+        if seq is None:
+            return {**row, "ok": False, "why": "no sequence holds the landed blocks"}
+        prompt = tuple(seq.token_ids[:seq.num_prompt])
+        first = seq.block_ids.index(ids[0])
+        row.update(prompt_len=len(prompt), first_block=first)
+        keys = [(prompt, first + j) for j in range(len(ids))]
+        missing = [first + j for j, key in enumerate(keys) if key not in self.src]
+        if seq.block_ids[first:first + len(ids)] != ids or missing:
+            return {**row, "ok": False, "why": f"no copy of blocks {missing[:4]} or not in order"}
+        got = self._blocks(runner, ids)
+        want = [self.torch.cat([self.src[key][0][t].narrow(2, self.src[key][1], 1)
+                                for key in keys], dim=2) for t in range(len(got))]
+        return {**row, **self._compare(got, want, name)}
+
+    def _compare(self, got, want, name) -> dict:
+        torch = self.torch
+        if len(got) == 2 or name == "inject_blocks_quant":
+            return {"bitwise": True, "ok": all(torch.equal(g, w) for g, w in zip(got, want))}
+        # int8 quantized again on landing: (q, s) of K, then of V
+        steps, rel, ok = 0, 0.0, True
+        for (q1, s1), (q0, s0) in zip((got[:2], got[2:]), (want[:2], want[2:])):
+            steps = max(steps, int((q1.int() - q0.int()).abs().max()))
+            rel = max(rel, float(((s1 - s0).abs() / s0.clamp_min(1e-30)).max()))
+            d1 = q1.float() * s1[..., None, None]
+            d0 = q0.float() * s0[..., None, None]
+            ok &= bool(((d1 - d0).abs() <= 1.01 * s0[..., None, None] + 1e-6).all())
+        return {"bitwise": False, "ok": ok, "max_mantissa_step": steps, "max_scale_rel": rel}
+
+
+def cache_ptrs(runner) -> list:
+    return [t.data_ptr() for c in (runner.k_cache, runner.v_cache)
+            for t in (c.values() if isinstance(c, dict) else (c,))]
+
+
+def _int_stats(stats) -> dict:
+    return {k: v for k, v in vars(stats).items() if isinstance(v, int)}
+
+
+async def serve_leg(torch, engine, reqs, Context, kernels, probe=None, prefill=None) -> dict:
+    """The requests through ``engine`` as it is set up; counters set to 0
+    just before, read just after; every inter-token gap kept."""
+    before = engine.runner.graph_stats()
+    s0 = _int_stats(engine.stats)
+    p0 = _int_stats(prefill.stats) if prefill is not None else {}
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    if probe is not None:
+        probe.arm()
+    gaps: list = []
+    t0 = time.perf_counter()
+    try:
+        outs = await run_requests(engine, reqs, Context, gaps)
+    finally:
+        landing = probe.disarm() if probe is not None else None
+    wall = time.perf_counter() - t0
+    return {
+        "outs": outs, "wall": wall, "launches": kernels.launch_counts(),
+        "replayed": replay_launches(kernels, before, engine.runner.graph_stats()),
+        "stats": {k: v - s0[k] for k, v in _int_stats(engine.stats).items()},
+        "prefill_stats": ({k: v - p0[k] for k, v in _int_stats(prefill.stats).items()}
+                          if prefill is not None else {}),
+        "peak": torch.cuda.max_memory_allocated(), "landing": landing, "gaps": gaps,
+    }
+
+
+def gap_stats(gaps) -> dict:
+    """Inter-token gaps (s) of every request of a run, in ms: p50, p99, the
+    largest and the mean. A horizon of H delivers its tokens together, so
+    most gaps inside one are near 0; p99 and the largest show the stalls."""
+    ms = sorted(g * 1e3 for g in gaps)
+    return {"n": len(ms), "p50_ms": statistics.median(ms),
+            "p99_ms": statistics.quantiles(ms, n=100, method="inclusive")[98], "max_ms": ms[-1],
+            "mean_ms": statistics.fmean(ms)}
+
+
+def leg_row(run) -> dict:
+    tokens = sum(len(t) for t, _, _ in run["outs"])
+    return {"stats": run["stats"], "launches": run["launches"], "wall_s": run["wall"],
+            "output_tok_per_s": tokens / run["wall"], "peak_mem_bytes": run["peak"],
+            "itl": gap_stats(run["gaps"]), "ttft_s_concurrent": [t for _, _, t in run["outs"]]}
+
+
+def check_local_leg(tag, run, reqs, L, kernels, attn, FinishReason, single_shot: bool) -> dict:
+    """A single engine serving the requests itself: outputs, no remote
+    prefill, every launch a replay but #3 (32 x its single-shot prefills
+    when ``single_shot``, else none: chunks)."""
+    check_outputs(tag, run["outs"], reqs, FinishReason)
+    st = run["stats"]
+    if st["remote_prefills"] or st["remote_fallbacks"] or bool(st["prefills"]) != single_shot:
+        raise SmokeError(f"{tag}: not a local {'single-shot' if single_shot else 'chunked'} "
+                         f"engine: {st}")
+    check_horizon_launches(tag, run, L, kernels, attn,
+                           eager={"flash_prefill_attention": L * st["prefills"]})
+    return leg_row(run)
+
+
+def check_disagg_leg(torch, tag, run, decode, reqs, ptrs, attn, want3, bound, FinishReason,
+                     kernels, host, frames) -> dict:
+    """Every check of one leg (see the module docstring, phase 14)."""
+    L = LLAMA31_8B["num_hidden_layers"]
+    check_outputs(tag, run["outs"], reqs, FinishReason)
+    st, pst = run["stats"], run["prefill_stats"]
+    shipped = [len(r.token_ids) for r in reqs if len(r.token_ids) > DISAGG_LOCAL_MAX]
+    local = len(reqs) - len(shipped)
+    if st["remote_prefills"] != len(shipped) or st["remote_fallbacks"]:
+        raise SmokeError(f"{tag}: {st['remote_prefills']} remote prefills, "
+                         f"{st['remote_fallbacks']} local fallbacks; expected {len(shipped)} and 0")
+    if st["prefills"] or st["chunk_steps"] or st["packed_prefills"] != local \
+            or pst["prefills_served"] != len(shipped):
+        raise SmokeError(f"{tag}: a local prefill of a shipped prompt: decode {st}, "
+                         f"prefill {pst}")
+    check_horizon_launches(tag, run, L, kernels, attn, eager={"flash_prefill_attention": want3})
+    landing = run["landing"]
+    # every block of every shipped prompt compared, in one landing per
+    # prompt, or, streamed, one more per frame
+    want_blocks = {T: -(-T // BLOCK) for T in shipped}
+    if not landing["ok"] or {T: n[1] for T, n in landing["per_prompt"].items()} != want_blocks:
+        raise SmokeError(f"{tag}: landed blocks differ from the prefill engine's or were not "
+                         f"all compared (want {want_blocks}): {landing}")
+    frames_rx = st["kv_frames_rx"]
+    if landing["landings"] != len(shipped) + frames_rx:
+        raise SmokeError(f"{tag}: {landing['landings']} landings compared for {len(shipped)} "
+                         f"prompts and {frames_rx} frames")
+    if frames and any(n[0] < 2 for T, n in landing["per_prompt"].items() if T > 512):
+        raise SmokeError(f"{tag}: a prompt over one chunk landed without a frame: {landing}")
+    if cache_ptrs(decode.runner) != ptrs:
+        raise SmokeError(f"{tag}: the decode cache moved; its graphs read stale blocks")
+    if host and not st["kv_wire_bytes_rx"] == pst["kv_wire_bytes_tx"] > 0:
+        raise SmokeError(f"{tag}: {st['kv_wire_bytes_rx']} payload bytes landed of "
+                         f"{pst['kv_wire_bytes_tx']} shipped")
+    if frames != (frames_rx > 0) or frames_rx != pst["kv_frames_tx"]:
+        raise SmokeError(f"{tag}: {frames_rx} frames landed of {pst['kv_frames_tx']}")
+    if not host and (st["kv_wire_bytes_rx"] or pst["kv_wire_bytes_tx"]):
+        raise SmokeError(f"{tag}: the device path used the wire codec")
+    gap = max(reference_check(torch, decode.runner, r.token_ids, run["outs"][i][0], bound=bound)
+              for i, r in enumerate(reqs) if i not in (SAMPLED, PENALIZED))
+    return {**leg_row(run), "prefill_stats": pst, "landing": landing,
+            "reference_max_logit_gap": gap, "reference_bound": bound, "shipped": len(shipped)}
+
+
+async def ttft_s(engine, req, Context) -> float:
+    """Wall time to the first token of ``req`` alone (max_tokens 1), the
+    engine idle before and after."""
+    t0 = time.perf_counter()
+    async for out in engine.generate(req, Context()):
+        if out.token_ids:
+            break
+    t = time.perf_counter() - t0
+    while any(s is not None for s in engine.slots) or engine.waiting:
+        await asyncio.sleep(0.005)
+    return t
+
+
+async def profiled_ttft(torch, engine, req, Context) -> tuple[float, dict]:
+    """One TTFT under torch.profiler: the card's kernel time until the
+    first token (every engine on the card), by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        await ttft_s(engine, req, Context)
+        torch.cuda.synchronize()
+    kernels = {
+        e.key: (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0),
+                e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
+    }
+    return sum(us for us, _ in kernels.values()) / 1e3, kernels
+
+
+def block_move_times(torch, prefill, decode, n_blocks: int) -> dict:
+    """The device path's two copies of one n-block prompt (the extract on
+    the prefill runner, the inject on the decode runner), CUDA-event
+    medians with L2 flushed, beside their byte bound (each reads n blocks
+    of K and V and writes them once) and the one PyTorch call each is
+    (index_select / index_copy_ of both caches)."""
+    flush = make_flush(torch)
+    ids = list(range(1, n_blocks + 1))
+    idx = torch.tensor(ids, device="cuda")
+    k, v, _ = prefill.runner.extract_blocks_device(ids)
+    nbytes = k.numel() * k.element_size() + v.numel() * v.element_size()
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    pk, pv, dk, dv = prefill.runner.k_cache, prefill.runner.v_cache, decode.runner.k_cache, \
+        decode.runner.v_cache
+    rows = {
+        "extract": time_ms(torch, lambda: prefill.runner.extract_blocks_device(ids), flush=flush),
+        "inject": time_ms(torch, lambda: decode.runner.inject_blocks_device(ids, k, v),
+                          flush=flush),
+        "index_select": time_ms(torch, lambda: (pk.index_select(2, idx), pv.index_select(2, idx)),
+                                flush=flush),
+        "index_copy_": time_ms(torch, lambda: (dk.index_copy_(2, idx, k), dv.index_copy_(2, idx, v)),
+                               flush=flush),
+    }
+    return {"blocks": n_blocks, "kv_bytes": nbytes, "bound_ms_each": bound, "bound_by": "bytes",
+            **rows}
+
+
+def host_payload_split(torch, prefill, decode, n_blocks: int, reps: int = 3) -> dict:
+    """The host legs' steps for one n-block bf16 payload, host clock,
+    medians of ``reps``: the extract to the host (gather + device-to-host
+    copy), the encode (bytes + checksums), the checksums alone, the decode
+    (verify + views) and the inject (host-to-device copy + scatter)."""
+    from dynamo_tpu_torch import integrity
+    from dynamo_tpu_torch.disagg.protocols import KvBlockPayload
+
+    ids = list(range(1, n_blocks + 1))
+    steps = {"d2h": [], "encode": [], "checksum": [], "decode": [], "h2d": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        k, v = prefill.runner.extract_blocks(ids)
+        steps["d2h"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        payload = KvBlockPayload.encode(k, v, "raw", "bfloat16")
+        steps["encode"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        integrity.checksum(payload.k_bytes)
+        integrity.checksum(payload.v_bytes)
+        steps["checksum"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        kd, vd = payload.decode()
+        steps["decode"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        decode.runner.inject_blocks(ids, kd, vd)
+        torch.cuda.synchronize()
+        steps["h2d"].append(time.perf_counter() - t)
+    return {"blocks": n_blocks, "wire_bytes": payload.wire_nbytes, "checksum": integrity.ALGO,
+            **{f"{k}_ms": statistics.median(v) * 1e3 for k, v in steps.items()}}
+
+
+def phase_serve_disagg(torch, np, card: str, params, int8_params) -> dict:
+    """Disaggregated prefill/decode on one card (see the module docstring,
+    phase 14). ``params``: the serve phase's bf16 weights; ``int8_params``:
+    serve_int8's int8 weights. Both engines of a pair come from
+    build_torch_engine's defaults and share the weights."""
+    from dynamo_tpu_torch.disagg.colocated import ColocatedPrefillClient, HostPrefillClient
+    from dynamo_tpu_torch.disagg.router import DisaggConfig, DisaggregatedRouter
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    t_phase = time.perf_counter()
+    L = LLAMA31_8B["num_hidden_layers"]
+    reqs = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
+    if DisaggConfig().max_local_prefill_length != DISAGG_LOCAL_MAX:
+        raise SmokeError("serve_disagg: DisaggConfig's default threshold moved")
+    shipped = [r for r in reqs if len(r.token_ids) > DISAGG_LOCAL_MAX]
+    one_shot = sum(1 for r in shipped if len(r.token_ids) <= 512)  # prefill_only_stream's
+    longest = max(reqs, key=lambda r: len(r.token_ids))
+    n_long = -(-len(longest.token_ids) // BLOCK)
+    ttft_req = PreprocessedRequest(token_ids=longest.token_ids,
+                                   sampling=SamplingOptions(greedy=True),
+                                   stop=StopConditions(max_tokens=1))
+
+    def build(**kw):
+        return build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+                                  max_model_len=MAX_MODEL_LEN, seed=0, **kw)
+
+    def pair(**kw):
+        decode, prefill = build(**kw), build(**kw)
+        cfg = decode.config
+        if not (cfg.decode_horizon == HORIZON and decode.runner.cuda_graphs
+                and decode.runner.prefill_chunk_tokens == 512 and cfg.num_blocks == 2112):
+            raise SmokeError(f"serve_disagg: not the defaults: {cfg}")
+        decode.disagg_router = DisaggregatedRouter(DisaggConfig())
+        return decode, prefill, LandingProbe(torch, prefill, decode)
+
+    res = {"card": card, "threshold": DISAGG_LOCAL_MAX, "prompt_lens": PROMPT_LENS,
+           "shipped": len(shipped)}
+
+    def logged(tag, row):
+        itl = row["itl"]
+        log(f"serve_disagg: {tag}: {row['output_tok_per_s']:.1f} tokens/s, inter-token gap "
+            f"p50 {itl['p50_ms']:.2f} / p99 {itl['p99_ms']:.2f} / max {itl['max_ms']:.2f} ms, "
+            f"{row['stats']['remote_prefills']} remote prefills, "
+            f"{row['stats']['remote_fallbacks']} fallbacks"
+            + (f", landings {({k: row['landing'][k] for k in ('landings', 'blocks', 'via')})}, "
+               f"gap {row['reference_max_logit_gap']:.3f}" if "landing" in row else "")
+            + f" ({card})")
+
+    async def go():
+        legs = {}
+        decode, prefill, probe = pair(params=params)
+        # the same weights served by one engine that prefills every prompt
+        # single-shot (#3) itself: the yardstick of shipping alone
+        single = build(params=params, prefill_chunk_tokens=0)
+        router = decode.disagg_router
+        ptrs = cache_ptrs(decode.runner)
+        device = ColocatedPrefillClient(prefill, BLOCK)
+        host = HostPrefillClient(prefill, BLOCK)
+        try:
+            # (tag, client, #3 launches on the prefill engine, host, frames,
+            # DYN_KV_STREAM)
+            plan = [("device_bf16", device, len(shipped), False, False, "1"),
+                    ("device_bf16", device, len(shipped), False, False, "1"),
+                    ("host_monolithic", host, len(shipped), True, False, "0"),
+                    ("host_stream", host, one_shot, True, True, "1")]
+            for tag, client, n3, on_host, frames, stream in plan:
+                decode.remote_prefill_client = client
+                os.environ["DYN_KV_STREAM"] = stream
+                try:
+                    run = await serve_leg(torch, decode, reqs, Context, kernels, probe, prefill)
+                finally:
+                    os.environ.pop("DYN_KV_STREAM")
+                row = check_disagg_leg(torch, f"serve_disagg/{tag}", run, decode, reqs, ptrs,
+                                       "paged_decode_attention", L * n3, 0.25, FinishReason,
+                                       kernels, on_host, frames)
+                legs.setdefault(tag, []).append(row)
+                logged(tag, row)
+            decode.remote_prefill_client = device
+            # the same decode engine serving alone (chunks), and the
+            # single-shot engine, each twice, in the same run
+            for tag, engine, single_shot in (("local_chunks", decode, False),
+                                             ("local_chunks", decode, False),
+                                             ("local_single_shot", single, True),
+                                             ("local_single_shot", single, True)):
+                decode.disagg_router = None
+                run = await serve_leg(torch, engine, reqs, Context, kernels)
+                decode.disagg_router = router
+                row = check_local_leg(f"serve_disagg/{tag}", run, reqs, L, kernels,
+                                      "paged_decode_attention", FinishReason, single_shot)
+                legs.setdefault(tag, []).append(row)
+                logged(tag, row)
+            # the 2000-token TTFT: the decode engine local (four chunks
+            # alone at H 4) and disaggregated, and the single-shot engine,
+            # in turns
+            ways = {"local": (decode, None), "disagg": (decode, router), "single_shot": (single, None)}
+            walls = {way: [] for way in ways}
+            for way in ("local", "disagg", "single_shot", "single_shot", "disagg",
+                        "local") * TTFT_ROUNDS:
+                engine, decode.disagg_router = ways[way]
+                walls[way].append(await ttft_s(engine, ttft_req, Context))
+            device_ms = {}
+            for way, (engine, r) in ways.items():
+                decode.disagg_router = r
+                ms, by_kernel = await profiled_ttft(torch, engine, ttft_req, Context)
+                device_ms[way] = {"ms": ms, "top": top_kernels(by_kernel, 1)}
+            decode.disagg_router = router
+            res["ttft_2000"] = {"wall_ms": {k: [t * 1e3 for t in v] for k, v in walls.items()},
+                                "wall_ms_median": {k: statistics.median(v) * 1e3
+                                                   for k, v in walls.items()},
+                                "device": device_ms}
+            res["block_move"] = block_move_times(torch, prefill, decode, n_long)
+            res["host_split"] = host_payload_split(torch, prefill, decode, n_long)
+        finally:
+            for engine in (decode, prefill, single):
+                await engine.close()
+        del decode, prefill, single, probe, device, host
+        gc.collect()
+        torch.cuda.empty_cache()
+        decode, prefill, probe = pair(params=int8_params, quantize=True, kv_dtype="int8")
+        ptrs = cache_ptrs(decode.runner)
+        decode.remote_prefill_client = ColocatedPrefillClient(prefill, BLOCK)
+        try:
+            for _ in range(2):
+                run = await serve_leg(torch, decode, reqs, Context, kernels, probe, prefill)
+                row = check_disagg_leg(torch, "serve_disagg/device_int8", run, decode, reqs, ptrs,
+                                       "paged_decode_attention_int8", L * len(shipped),
+                                       INT8_REF_GAP, FinishReason, kernels, False, False)
+                legs.setdefault("device_int8", []).append(row)
+                logged("device_int8", row)
+        finally:
+            await decode.close()
+            await prefill.close()
+        return legs
+
+    legs = asyncio.run(go())
+    res["legs"] = {k: [{n: x for n, x in row.items() if n != "launches"} for row in v]
+                   for k, v in legs.items()}
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"serve_disagg": res}), flush=True)
+    t, bm, hs = res["ttft_2000"], res["block_move"], res["host_split"]
+    med, dev = t["wall_ms_median"], t["device"]
+    log(f"serve_disagg: 2000-token TTFT disaggregated {med['disagg']:.2f} ms "
+        f"(device {dev['disagg']['ms']:.2f}), the decode engine local through chunks "
+        f"{med['local']:.2f} ms (device {dev['local']['ms']:.2f}), a single-shot engine "
+        f"{med['single_shot']:.2f} ms (device {dev['single_shot']['ms']:.2f}); "
+        f"{bm['blocks']} blocks ({bm['kv_bytes'] / 1e6:.1f} MB of K/V): extract "
+        f"{bm['extract']['median']:.4f} ms, inject {bm['inject']['median']:.4f} ms, bound "
+        f"{bm['bound_ms_each']:.4f} ms each (index_select {bm['index_select']['median']:.4f}, "
+        f"index_copy_ {bm['index_copy_']['median']:.4f}); host payload d2h "
+        f"{hs['d2h_ms']:.1f} / encode {hs['encode_ms']:.1f} / {hs['checksum']} checksums "
+        f"{hs['checksum_ms']:.1f} / decode {hs['decode_ms']:.1f} / h2d {hs['h2d_ms']:.1f} ms; "
+        f"tokens/s {', '.join(f'{k} {v[-1]['output_tok_per_s']:.1f}' for k, v in legs.items())}; "
+        f"inter-token gap p99 ms "
+        f"{', '.join(f'{k} {v[-1]['itl']['p99_ms']:.2f}' for k, v in legs.items())}; "
+        f"phase {res['phase_s']:.1f} s ({card})")
+    res["launches"] = {k: [row["launches"] for row in v] for k, v in legs.items()
+                       if k.startswith(("device", "host"))}
+    return res
+
+
 # ------------------------------------------------------------ serve_moe
 
 # mistralai/Mixtral-8x7B-v0.1's published config.json; the phase serves
@@ -3949,10 +4479,23 @@ def main() -> int:
         launches.update({k: horizon["int8_launches"][k] for k in INT8_KERNELS
                          if k != "paged_verify_attention_int8"})
 
+        # 14. serve_disagg: a decode engine and a prefill engine from
+        # build_torch_engine's defaults on this card, every shipped prompt
+        # prefilled by #3 on the prefill engine (each leg's counters set to 0
+        # just before it, read just after); #3's row adds the launches of the
+        # two legs whose prefill engine runs the single-shot prefill (the
+        # device path's and the monolithic host path's last runs) to serve's
+        disagg = phase_serve_disagg(torch, np, card, engine.runner.params, int8_runner.params)
+        from_disagg = {leg: disagg["launches"][leg][-1]["flash_prefill_attention"]
+                       for leg in ("device_bf16", "host_monolithic")}
+        log(f"flash_prefill_attention launches: serve {launches['flash_prefill_attention']}, "
+            f"serve_disagg {from_disagg}")
+        launches["flash_prefill_attention"] += sum(from_disagg.values())
+
         # 10. serve_http: the CLI's HTTP server in a process of its own, so
         # this process's engines leave the card first
         del engine, default_engine, fused_runner, spec, served, default, int8_runner, int8
-        del horizon, spec_reqs
+        del horizon, spec_reqs, disagg
         gc.collect()
         torch.cuda.empty_cache()
         # 11. serve_tp: two ranks on this card over gloo, then one over

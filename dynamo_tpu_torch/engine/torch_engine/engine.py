@@ -65,6 +65,22 @@ reduced to:
     waits out a backoff of ``preempt_backoff_ms`` (``DYN_PREEMPT_BACKOFF_MS``,
     25) doubled per preemption, capped at 2 s, during which later arrivals
     may be admitted before it.
+  * disaggregated prefill (engine.py:1631-1659, :2003-2607). As a decode
+    worker, with a ``disagg_router`` and a ``remote_prefill_client``
+    (disagg/), an admitted sequence whose prompt the router ships holds its
+    lane and blocks while a task awaits the remote prefill
+    (``_remote_prefill_task``); its KV lands in its blocks (streamed frames
+    as they come, then the final payload, or the device payload of a
+    colocated prefill engine) and the sequence joins the decode batch at the
+    next loop iteration (``_process_landed``): with a horizon, the next
+    dispatch. It is skipped by the decode batch and by preemption while it
+    waits, and a killed one keeps its blocks until its task ends. A remote
+    prefill that fails, or a stream that lost a frame, falls back to a local
+    prefill of the prompt on this engine's device, counted in
+    ``remote_fallbacks`` and logged. As a prefill worker, ``prefill_only``
+    (host payload), ``prefill_only_stream`` (frames per chunk) and
+    ``prefill_only_device`` (blocks left on the card) prefill a request on
+    scratch blocks of this engine's pool, freed when the call returns.
 
 A ``chunk_budget`` that is not a multiple of the KV block size raises: the
 reference slices chunks by the remaining budget, so such a budget would
@@ -75,29 +91,46 @@ Per-token sampling keys are (request seed or engine stream + sequence id,
 number of generated tokens), as in the JAX engine, so a seeded request gives
 the same tokens whatever the batch around it. Device calls run one at a time
 on a single worker thread so the event loop keeps streaming while the card
-works.
+works; every engine on one device runs them holding that device's lock
+(``_card_lock``), so two engines sharing a card (a colocated prefill and
+decode pair) never overlap a graph capture with the other's work; their
+device jobs run one after the other, so a shipped prompt's prefill holds
+the decode engine's running lanes until it ends.
 
 Left out (ROADMAP.md lists them): the tiered block manager (so a
-preemption spills nothing to a host tier), prefix onboarding and KV
-events, disaggregation, multimodal prompts, QoS classes, deadlines and
-brownout, tracing and the watchdog.
+preemption spills nothing to a host tier, and a remote prefill ships every
+block: ``cached_blocks`` is 0), KV events, the fabric transport of remote
+prefill and disaggregation under a tensor-parallel group (A8, which
+raises), multimodal prompts, QoS classes, deadlines and brownout, tracing
+and the watchdog.
 """
 
 from __future__ import annotations
 
 import asyncio
 import bisect
+import concurrent.futures
 import itertools
 import logging
 import os
+import threading
 import time
 from collections.abc import AsyncIterator
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 
+from dynamo_tpu_torch.disagg.colocated import DevicePrefillResponse
+from dynamo_tpu_torch.disagg.protocols import (
+    KvBlockPayload,
+    KvStreamFrame,
+    PrefillStreamCancelled,
+    RemotePrefillResponse,
+    dtype_name,
+    wire_codec_from_env,
+)
 from dynamo_tpu_torch.engine.torch_engine.drafter import make_drafter
 from dynamo_tpu_torch.engine.torch_engine.kv_cache import BlockAllocator, OutOfBlocks
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
@@ -191,10 +224,30 @@ class EngineStats:
     accepted_per_pos: list = field(default_factory=list)  # len spec_k
     verify_steps: int = 0
     verify_chained_steps: int = 0  # decode steps chained after verify passes
+    # disaggregated prefill, decode role: prompts shipped to the remote
+    # prefill client, and those that fell back to a local prefill
+    remote_prefills: int = 0
+    remote_fallbacks: int = 0
+    # prefill role: requests served by prefill_only*
+    prefills_served: int = 0
+    # the KV data plane (engine.py:185-195): tx = frames / payload bytes
+    # this worker ships as a prefill worker, rx = those it lands as a decode
+    # worker; kv_bytes_overlapped = bytes landed before the final frame
+    kv_frames_tx: int = 0
+    kv_frames_rx: int = 0
+    kv_wire_bytes_tx: int = 0
+    kv_wire_bytes_rx: int = 0
+    kv_bytes_overlapped: int = 0
 
     @property
     def tokens_per_horizon(self) -> float:
         return self.horizon_tokens / self.horizon_dispatches if self.horizon_dispatches else 0.0
+
+    @property
+    def kv_stream_overlap(self) -> float:
+        """Share of the received KV wire bytes that landed before the final
+        frame (transfer hidden behind the remote prefill's compute)."""
+        return self.kv_bytes_overlapped / max(1, self.kv_wire_bytes_rx)
 
 
 class _Sequence:
@@ -207,6 +260,7 @@ class _Sequence:
         self.block_ids: list[int] = []
         self.slot: Optional[int] = None
         self.prefilling = False  # admitted, chunked prefill in progress
+        self.pending_remote = False  # admitted, awaiting its remote prefill's KV
         self.prefill_pos = 0  # tokens chunked so far
         self.arrival_order = 0
         self.out: asyncio.Queue = asyncio.Queue()
@@ -255,11 +309,50 @@ class _Sequence:
         return (len(self.token_ids) + block_size - 1) // block_size
 
 
+# One lock per device, shared by every engine of the process on it: a CUDA
+# graph capture (global capture mode) fails when another thread touches the
+# device meanwhile, so engines sharing a card take turns at it.
+_CARD_LOCKS: dict[str, threading.Lock] = {}
+_CARD_LOCKS_GUARD = threading.Lock()
+
+
+def _card_lock(device) -> threading.Lock:
+    with _CARD_LOCKS_GUARD:
+        return _CARD_LOCKS.setdefault(str(device), threading.Lock())
+
+
+class _DeviceThread(concurrent.futures.Executor):
+    """The engine's one device thread; each job runs holding its device's
+    lock."""
+
+    def __init__(self, lock: threading.Lock) -> None:
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
+        self._lock = lock
+
+    def submit(self, fn, /, *args, **kwargs):
+        def locked():
+            with self._lock:
+                return fn(*args, **kwargs)
+
+        return self._pool.submit(locked)
+
+    def shutdown(self, wait: bool = True, *, cancel_futures: bool = False) -> None:
+        self._pool.shutdown(wait=wait, cancel_futures=cancel_futures)
+
+
+_TP_DISAGG = ("disaggregated prefill under a tensor-parallel group is not ported yet "
+              "(the step channel's extract / inject and the reshard: ROADMAP.md A8)")
+
+
 class TorchEngine:
-    """AsyncEngine over a TorchModelRunner (see the module docstring)."""
+    """AsyncEngine over a TorchModelRunner (see the module docstring).
+    ``disagg_router`` and ``remote_prefill_client`` make it a decode worker
+    of disaggregated prefill; an engine under a tensor-parallel group
+    refuses them."""
 
     def __init__(
-        self, runner: TorchModelRunner, config: Optional[TorchEngineConfig] = None
+        self, runner: TorchModelRunner, config: Optional[TorchEngineConfig] = None,
+        disagg_router: Optional[Any] = None, remote_prefill_client: Optional[Any] = None,
     ) -> None:
         self.runner = runner
         self.config = config or TorchEngineConfig(
@@ -287,7 +380,14 @@ class TorchEngine:
         self._loop_task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
         self._closed = False
-        self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
+        self._executor = _DeviceThread(_card_lock(runner.device))
+        # disaggregated prefill: the remote-prefill tasks, and what they
+        # landed (sequence, first sample or None, failure reason or None),
+        # completed on the engine loop
+        self.disagg_router = disagg_router
+        self.remote_prefill_client = remote_prefill_client
+        self._remote_tasks: set[asyncio.Task] = set()
+        self._landed: list[tuple[_Sequence, Optional[tuple], Optional[FinishReason]]] = []
         # persistent host-side decode arrays
         B = self.config.max_batch
         self._tokens = np.zeros(B, np.int64)
@@ -307,6 +407,30 @@ class TorchEngine:
                 min_n=self.config.spec_ngram_min, max_n=self.config.spec_ngram_max,
             )
             self.stats.accepted_per_pos = [0] * self.config.spec_k
+
+    @property
+    def disagg_router(self) -> Optional[Any]:
+        return self._disagg_router
+
+    @disagg_router.setter
+    def disagg_router(self, router: Optional[Any]) -> None:
+        if router is not None:
+            self._refuse_under_tp()
+        self._disagg_router = router
+
+    @property
+    def remote_prefill_client(self) -> Optional[Any]:
+        return self._remote_prefill_client
+
+    @remote_prefill_client.setter
+    def remote_prefill_client(self, client: Optional[Any]) -> None:
+        if client is not None:
+            self._refuse_under_tp()
+        self._remote_prefill_client = client
+
+    def _refuse_under_tp(self) -> None:
+        if getattr(self.runner, "group", None) is not None:
+            raise NotImplementedError(_TP_DISAGG)
 
     # --------------------------------------------------------------- api
 
@@ -349,6 +473,9 @@ class TorchEngine:
     async def close(self) -> None:
         self._closed = True
         self._wake.set()
+        for t in list(self._remote_tasks):
+            t.cancel()
+        await asyncio.gather(*self._remote_tasks, return_exceptions=True)
         if self._loop_task is not None:
             await asyncio.gather(self._loop_task, return_exceptions=True)
         self._executor.shutdown(wait=True)
@@ -426,12 +553,19 @@ class TorchEngine:
         self._enqueue(victim)
 
     async def _device(self, fn):
-        """Run one device call (and its host fetch) on the worker thread."""
-        replays = self.runner.graph_replays
-        try:
-            return await asyncio.get_running_loop().run_in_executor(self._executor, fn)
-        finally:
-            self.stats.graph_replays += self.runner.graph_replays - replays
+        """Run one device call (and its host fetch) on the worker thread.
+        Its graph replays are counted there: calls of the loop and of
+        remote-prefill landings may be queued at once."""
+        runner, stats = self.runner, self.stats
+
+        def counted():
+            replays = runner.graph_replays
+            try:
+                return fn()
+            finally:
+                stats.graph_replays += runner.graph_replays - replays
+
+        return await asyncio.get_running_loop().run_in_executor(self._executor, counted)
 
     # ---------------------------------------------------------- main loop
 
@@ -439,6 +573,7 @@ class TorchEngine:
         try:
             while not self._closed:
                 self._reap_cancelled()
+                self._process_landed()
                 admitted = await self._admit_phase()
                 if self._prefilling:
                     active = self._decode_lanes()
@@ -459,7 +594,8 @@ class TorchEngine:
                 if not active:
                     if chunked:
                         continue
-                    if not self.waiting:
+                    if not self.waiting and not self._landed:
+                        # a landing remote prefill sets the wake too
                         self._wake.clear()
                         await self._wake.wait()
                     else:
@@ -471,7 +607,13 @@ class TorchEngine:
         except Exception as e:
             logger.exception("engine loop crashed")
             for seq in [s for s in self.slots if s is not None] + list(self.waiting):
-                self._free_seq(seq)
+                # a sequence awaiting its remote prefill keeps its blocks
+                # until the task ends (a late inject would land in blocks
+                # handed to another sequence); its killed context reaps it
+                if seq.pending_remote:
+                    seq.ctx.kill()
+                else:
+                    self._free_seq(seq)
                 seq.out.put_nowait(LLMEngineOutput.final_error(
                     seq.ctx.id, "decode", f"{type(e).__name__}: {e}", "engine_loop_crash"
                 ))
@@ -479,7 +621,8 @@ class TorchEngine:
             raise
 
     def _decode_lanes(self) -> list[_Sequence]:
-        return [s for s in self.slots if s is not None and not s.prefilling]
+        return [s for s in self.slots
+                if s is not None and not s.prefilling and not s.pending_remote]
 
     def _reap_cancelled(self) -> None:
         for seq in list(self.waiting):
@@ -487,15 +630,18 @@ class TorchEngine:
                 self.waiting.remove(seq)
                 seq.out.put_nowait(LLMEngineOutput.final(FinishReason.CANCELLED))
         for seq in list(self._admit_order):
-            if seq.ctx.is_killed():
+            # a sequence awaiting its remote prefill keeps its blocks until
+            # the task lands (engine.py:1506-1510), which finishes it
+            if seq.ctx.is_killed() and not seq.pending_remote:
                 self._finish(seq, FinishReason.CANCELLED)
 
     async def _admit_phase(self) -> bool:
         """Admit from the head of the queue while a lane and blocks are free
-        (``JaxEngine._admit_phase``, engine.py:1549-1760). Not ported, and
-        so not branched on here: the block manager's prefix lookup and
-        onboarding (ROADMAP A7), remote prefill (A12), multimodal prompts
-        (A11) and QoS re-admission backoff (A7)."""
+        (``JaxEngine._admit_phase``, engine.py:1549-1760); a prompt the
+        disagg router ships goes to a remote-prefill task (:1631-1659), the
+        others to the chunk / pack routing. Not ported, and so not branched
+        on here: the block manager's prefix lookup and onboarding (ROADMAP
+        A7), multimodal prompts (A6) and QoS re-admission backoff (A7)."""
         admitted = False
         C = self.runner.prefill_chunk_tokens
         to_pack: list[_Sequence] = []
@@ -510,6 +656,15 @@ class TorchEngine:
                 break
             self.waiting.pop(idx)
             admitted = True
+            if await self._use_remote(seq):
+                # the sequence holds its lane and blocks and joins the
+                # decode batch when its KV lands
+                seq.pending_remote = True
+                self.stats.remote_prefills += 1
+                task = asyncio.get_running_loop().create_task(self._remote_prefill_task(seq))
+                self._remote_tasks.add(task)
+                task.add_done_callback(self._remote_tasks.discard)
+                continue
             # after a preemption the replay is prompt + generated tokens
             if C and len(seq.token_ids) > C:
                 seq.prefilling = True
@@ -764,7 +919,8 @@ class TorchEngine:
         self.config.decode_horizon = 1
         self.stats.horizon_degrades += 1
         for seq in list(self._admit_order):
-            if seq.slot is not None:
+            # a sequence awaiting its remote prefill had no write in it
+            if seq.slot is not None and not seq.pending_remote:
                 self._finish(seq, FinishReason.ERROR)
 
     def _horizon_for(self, active: list[_Sequence]) -> int:
@@ -1073,7 +1229,8 @@ class TorchEngine:
                 seq.block_ids.extend(self.allocator.alloc(1))
             except OutOfBlocks:
                 victim = next(
-                    (v for v in reversed(self._admit_order) if v is not seq), None
+                    (v for v in reversed(self._admit_order)
+                     if v is not seq and not v.pending_remote), None
                 )
                 if victim is not None:
                     self._preempt(victim)
@@ -1085,3 +1242,328 @@ class TorchEngine:
                         "out of KV blocks with no preemptable sequence",
                         "out_of_kv_blocks",
                     ))
+
+    # ------------------------------------------ disaggregated prefill: decode
+
+    async def _use_remote(self, seq: _Sequence) -> bool:
+        """Whether the router ships this sequence's prefill (the queue depth
+        refreshed first when the router has a queue)."""
+        router = self.disagg_router
+        if router is None or self.remote_prefill_client is None:
+            return False
+        refresh = getattr(router, "maybe_refresh", None)
+        if refresh is not None:
+            await refresh()
+        return router.prefill_remote(len(seq.token_ids), 0)
+
+    @staticmethod
+    def _kv_stream_enabled() -> bool:
+        """Streaming KV frames, on unless ``DYN_KV_STREAM=0``."""
+        return os.environ.get("DYN_KV_STREAM", "1") not in ("0", "false", "no")
+
+    def _land(self, seq: _Sequence, sample: Optional[tuple],
+              fail: Optional[FinishReason]) -> None:
+        self._landed.append((seq, sample, fail))
+        self._wake.set()
+
+    def _process_landed(self) -> None:
+        """Complete the landed remote prefills on the engine loop, between
+        dispatches (engine.py:2003-2028): each joins the decode batch with
+        its first token, or finishes."""
+        landed, self._landed = self._landed, []
+        for seq, sample, fail in landed:
+            if seq.slot is None:  # freed meanwhile (close, a loop crash)
+                continue
+            seq.pending_remote = False
+            if sample is None:
+                if fail is FinishReason.CANCELLED:
+                    self._finish(seq, fail)
+                else:
+                    self._free_seq(seq)
+                    seq.out.put_nowait(LLMEngineOutput.final_error(
+                        seq.ctx.id, "remote_prefill", "landing remote prefill failed",
+                        "remote_prefill_failed"))
+                continue
+            token, lp, top = sample
+            top_ids = np.array([t for t, _ in top or []], np.int32)
+            top_lps = np.array([v for _, v in top or []], np.float32)
+            self._append_token(seq, int(token), float(lp or 0.0), top_ids, top_lps)
+
+    async def _remote_prefill_task(self, seq: _Sequence) -> None:
+        """Await the remote prefill, land its KV and hand the sequence to
+        the loop (engine.py:2088-2193). The client gets the whole keyword
+        surface of the reference's call. A killed sequence or a cancelled
+        stream finishes it; a failure, an error answer or a stream that
+        lost a frame falls back to a local prefill on this device."""
+        stream = self._kv_stream_enabled()
+        landed: set[int] = set()
+
+        async def on_frame(frame: KvStreamFrame) -> None:
+            await self._land_stream_frame(seq, frame, landed)
+
+        try:
+            resp = await self.remote_prefill_client.prefill(
+                list(seq.token_ids), temperature=seq.temperature, top_p=seq.top_p,
+                top_k=seq.top_k, cached_blocks=0, rep_pen=seq.rep_pen,
+                key_data=self._key_row(seq), eos_ids=seq.eos_row,
+                eos_suppress=seq.needs_eos_suppress, stream=stream,
+                on_frame=on_frame if stream else None, deadline=None, ctx=seq.ctx, extra=None,
+            )
+        except PrefillStreamCancelled:
+            self._land(seq, None, FinishReason.CANCELLED)
+            return
+        except asyncio.CancelledError:
+            if self._closed:
+                raise
+            logger.warning("remote prefill of seq %d cancelled; falling back local", seq.seq_id)
+            resp = None
+        except Exception as e:  # noqa: BLE001 - any failure of the remote side
+            logger.warning("remote prefill of seq %d failed (%s: %s); falling back local",
+                           seq.seq_id, type(e).__name__, e)
+            resp = None
+        if resp is not None and resp.code == "deadline_exceeded":
+            seq.ctx.kill()
+            self._land(seq, None, FinishReason.CANCELLED)
+            return
+        if seq.slot is None:
+            return
+        if seq.ctx.is_killed() or seq.ctx.is_stopped():
+            self._land(seq, None, FinishReason.CANCELLED)
+            return
+        if resp is not None and resp.error is not None:
+            logger.warning("remote prefill of seq %d answered %r; falling back local",
+                           seq.seq_id, resp.error)
+        elif resp is not None and resp.streamed_blocks:
+            # every block before the final payload must have landed from a
+            # frame: a lost frame would leave a hole in the KV
+            missing = set(range(resp.first_block)) - landed
+            if missing:
+                logger.warning("seq %d: the stream lost %d block(s); falling back local",
+                               seq.seq_id, len(missing))
+                resp = None
+        try:
+            self._land(seq, await self._land_prefill(seq, resp), None)
+        except Exception:  # noqa: BLE001 - never strand the consumer
+            logger.exception("landing the prefill of seq %d failed", seq.seq_id)
+            self._land(seq, None, FinishReason.ERROR)
+
+    async def _land_prefill(self, seq: _Sequence, resp) -> tuple:
+        """Land a response's KV in the sequence's blocks (device payload,
+        or the host payload's blocks not streamed), or prefill locally when
+        there is none to land (engine.py:2239-2294). Returns (first token,
+        logprob, top)."""
+        runner = self.runner
+        if resp is not None and resp.error is None:
+            if isinstance(resp, DevicePrefillResponse):
+                ids = seq.block_ids[resp.first_block:resp.first_block + resp.num_blocks]
+                if ids:
+                    k, v = resp.k_dev[:, :, :len(ids)], resp.v_dev[:, :, :len(ids)]
+                    await self._device(lambda: runner.inject_blocks_device(ids, k, v))
+            elif resp.payload is not None:
+                self.stats.kv_wire_bytes_rx += resp.payload.wire_nbytes
+                ids = seq.block_ids[resp.first_block:resp.first_block + resp.payload.num_blocks]
+                if ids:
+                    await self._inject_payload(ids, resp.payload)
+            return resp.first_token, resp.first_logprob, resp.first_top
+        self.stats.remote_fallbacks += 1
+        self.stats.prefills += 1
+        replay = list(seq.token_ids)
+        key_row = self._key_row(seq)
+        eos_suppress = seq.needs_eos_suppress
+        tok, lp, tids, tlps = await self._device(
+            lambda: runner.fetch_sample(runner.prefill(
+                replay, seq.block_ids, seq.temperature, seq.top_p, seq.top_k,
+                rep_pen=seq.rep_pen, key_data=key_row, eos_ids=seq.eos_row,
+                eos_suppress=eos_suppress,
+            ))
+        )
+        return int(tok[0]), float(lp[0]), [[int(t), float(v)] for t, v in zip(tids[0], tlps[0])]
+
+    async def _inject_payload(self, ids: list[int], payload: KvBlockPayload) -> None:
+        """Land a host payload in ``ids`` (engine.py:2037-2063): an int8
+        payload verbatim into an int8-resident cache, every other through
+        ``decode()`` and the (quantize-on-inject) scatter. Verifying and
+        decoding run off the event loop."""
+        n = len(ids)
+        runner = self.runner
+        if payload.codec == "int8" and runner.kv_quantized:
+            kq, ks, vq, vs = await asyncio.to_thread(payload.quantized_arrays)
+            await self._device(lambda: runner.inject_blocks_quant(
+                ids, kq[:, :, :n], ks[:, :, :n], vq[:, :, :n], vs[:, :, :n]))
+            return
+        k, v = await asyncio.to_thread(payload.decode)
+        await self._device(lambda: runner.inject_blocks(ids, k[:, :, :n], v[:, :, :n]))
+
+    async def _land_stream_frame(self, seq: _Sequence, frame: KvStreamFrame,
+                                 landed: set) -> None:
+        """Land one streamed frame while later chunks still compute
+        (engine.py:2065-2086); a cancelled sequence drops it."""
+        if seq.slot is None or seq.ctx.is_killed() or seq.ctx.is_stopped():
+            return
+        n = frame.payload.num_blocks
+        ids = seq.block_ids[frame.first_block:frame.first_block + n]
+        if not ids:
+            return
+        await self._inject_payload(ids, frame.payload)
+        landed.update(range(frame.first_block, frame.first_block + len(ids)))
+        nbytes = frame.payload.wire_nbytes
+        self.stats.kv_frames_rx += 1
+        self.stats.kv_wire_bytes_rx += nbytes
+        self.stats.kv_bytes_overlapped += nbytes
+
+    # ----------------------------------------- disaggregated prefill: prefill
+
+    def _prefill_request(self, req) -> tuple[list[int], Optional[Any]]:
+        """(scratch blocks, None) for a request, or (None, the error
+        answer) when the prompt is too long."""
+        self._refuse_under_tp()
+        T = len(req.token_ids)
+        if T > self.config.max_model_len:
+            return [], f"prompt {T} exceeds max_model_len"
+        bs = self.config.block_size
+        return self.allocator.alloc(-(-T // bs)), None
+
+    @staticmethod
+    def _first_token_args(req) -> dict:
+        """The requester's first-token identity as the runner takes it."""
+        return dict(
+            rep_pen=req.rep_pen,
+            key_data=np.asarray(req.key_data, np.int64) if req.key_data is not None else None,
+            eos_ids=np.asarray(req.eos_ids, np.int64) if req.eos_ids is not None else None,
+            eos_suppress=req.eos_suppress,
+        )
+
+    def _served(self, req, sample, cls, **kw):
+        tok, lp, tids, tlps = sample
+        self.stats.generated_tokens += 1
+        self.stats.prefills_served += 1
+        return cls(request_id=req.request_id, first_token=int(tok[0]),
+                   first_logprob=float(lp[0]),
+                   first_top=[[int(t), float(v)] for t, v in zip(tids[0], tlps[0])], **kw)
+
+    def _payload_builder(self) -> tuple[Callable, Callable]:
+        """(extract, build): the host payload of some blocks, read verbatim
+        from an int8-resident cache, else encoded with ``DYN_KV_WIRE``'s
+        codec."""
+        runner = self.runner
+        if runner.kv_quantized:
+            return runner.extract_blocks_quant, lambda data: KvBlockPayload.from_quantized(*data)
+        codec, dtype = wire_codec_from_env(), dtype_name(runner.kv_logical_dtype)
+        return runner.extract_blocks, lambda data: KvBlockPayload.encode(*data, codec, dtype)
+
+    async def prefill_only(self, req) -> RemotePrefillResponse:
+        """Serve one RemotePrefillRequest, the prefill-worker role
+        (engine.py:2296-2383): the whole prompt through the single-shot
+        prefill on scratch blocks, the blocks from ``req.cached_blocks`` on
+        shipped as a host payload."""
+        block_ids, error = self._prefill_request(req)
+        if error:
+            return RemotePrefillResponse(request_id=req.request_id, first_token=-1, error=error)
+        runner = self.runner
+        extract, build = self._payload_builder()
+        ship = block_ids[req.cached_blocks:]
+        args = self._first_token_args(req)
+        try:
+            def run():
+                sample = runner.fetch_sample(runner.prefill(
+                    list(req.token_ids), block_ids, req.temperature, req.top_p, req.top_k,
+                    **args))
+                return sample, extract(ship) if ship else None
+
+            sample, data = await self._device(run)
+        finally:
+            self.allocator.free(block_ids)
+        payload = None
+        if ship:
+            payload = await asyncio.to_thread(build, data)
+            self.stats.kv_wire_bytes_tx += payload.wire_nbytes
+        return self._served(req, sample, RemotePrefillResponse, payload=payload,
+                            first_block=req.cached_blocks)
+
+    async def prefill_only_stream(
+        self, req, emit, cancelled: Optional[Callable[[], bool]] = None
+    ) -> Optional[RemotePrefillResponse]:
+        """The streaming prefill-worker role (engine.py:2385-2530): the
+        prompt through the chunked prefill, and after each chunk but the
+        last a KvStreamFrame of the blocks it completed goes to ``emit``
+        (which may await). A truthy ``cancelled()`` between chunks ends the
+        stream: the scratch blocks are freed and None is returned. A prompt
+        that fits one chunk is answered by ``prefill_only``."""
+        C = self.runner.prefill_chunk_tokens
+        T = len(req.token_ids)
+        if not C or T <= C:
+            return await self.prefill_only(req)
+        block_ids, error = self._prefill_request(req)
+        if error:
+            return RemotePrefillResponse(request_id=req.request_id, first_token=-1, error=error)
+        runner = self.runner
+        extract, build = self._payload_builder()
+        args = self._first_token_args(req)
+        bs = self.config.block_size
+        # cached leading blocks are never shipped; `shipped` is the block
+        # cursor of the stream
+        shipped = min(int(req.cached_blocks or 0), len(block_ids) - 1)
+        streamed = frames = 0
+        try:
+            out = None
+            pos = 0
+            while pos < T:
+                if cancelled is not None and cancelled():
+                    return None
+                chunk = req.token_ids[pos:pos + C]
+                start = pos
+                out = await self._device(lambda: runner.prefill_chunk(
+                    chunk, start, T, block_ids, req.temperature, req.top_p, req.top_k, **args))
+                pos += len(chunk)
+                # the blocks this chunk completed; the partial tail waits for
+                # the final frame, so each block lands exactly once
+                upto = pos // bs
+                if pos < T and upto > shipped:
+                    ids = block_ids[shipped:upto]
+                    data = await self._device(lambda: extract(ids))
+                    payload = await asyncio.to_thread(build, data)
+                    frame = KvStreamFrame(request_id=req.request_id, seq=frames,
+                                          first_block=shipped, payload=payload)
+                    frames += 1
+                    self.stats.kv_frames_tx += 1
+                    self.stats.kv_wire_bytes_tx += payload.wire_nbytes
+                    await emit(frame)
+                    streamed += len(ids)
+                    shipped = upto
+            if cancelled is not None and cancelled():
+                return None
+            ship = block_ids[shipped:]
+            sample, data = await self._device(
+                lambda: (runner.fetch_sample(out), extract(ship) if ship else None))
+        finally:
+            self.allocator.free(block_ids)
+        payload = None
+        if ship:
+            payload = await asyncio.to_thread(build, data)
+            self.stats.kv_wire_bytes_tx += payload.wire_nbytes
+        return self._served(req, sample, RemotePrefillResponse, payload=payload,
+                            first_block=shipped, streamed_blocks=streamed)
+
+    async def prefill_only_device(self, req) -> DevicePrefillResponse:
+        """The colocated prefill-worker role (engine.py:2541-2607): as
+        ``prefill_only``, but the shipped blocks stay on this engine's
+        device (``extract_blocks_device``) for the decode engine's
+        ``inject_blocks_device``: no host copy."""
+        block_ids, error = self._prefill_request(req)
+        if error:
+            return DevicePrefillResponse(request_id=req.request_id, first_token=-1, error=error)
+        runner = self.runner
+        ship = block_ids[req.cached_blocks:]
+        args = self._first_token_args(req)
+        try:
+            def run():
+                sample = runner.fetch_sample(runner.prefill(
+                    list(req.token_ids), block_ids, req.temperature, req.top_p, req.top_k,
+                    **args))
+                return sample, runner.extract_blocks_device(ship) if ship else (None, None, 0)
+
+            sample, (k, v, n) = await self._device(run)
+        finally:
+            self.allocator.free(block_ids)
+        return self._served(req, sample, DevicePrefillResponse, k_dev=k, v_dev=v, num_blocks=n,
+                            first_block=req.cached_blocks)

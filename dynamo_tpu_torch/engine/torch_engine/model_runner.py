@@ -9,7 +9,9 @@ Counterpart of dynamo_tpu/engine/jax_engine/model_runner.py (``prefill``
 ``_decode_impl`` :579, ``decode_multi`` :1646 with ``_decode_multi_impl``
 :593, ``spec_verify`` :1696 with ``_spec_verify_impl`` :704,
 ``decode_multi_ready`` / ``prepare_decode_multi_async`` :1760-1767,
-``fetch_sample`` :1049, ``default_prefill_buckets`` :41):
+``fetch_sample`` :1049, ``default_prefill_buckets`` :41, the block data
+plane ``extract_blocks*`` / ``inject_blocks*`` :1407-1601 over
+:366-460):
 
   * the caches are single buffers written IN PLACE by every call (the JAX
     runner donates them through jit; PyTorch simply updates them);
@@ -67,23 +69,40 @@ Counterpart of dynamo_tpu/engine/jax_engine/model_runner.py (``prefill``
     (parallel/multihost.SpmdModelRunner replays the leader's on the
     followers, with the leader's sampling keys);
     ``collective_overlap`` runs the fused decode step's tail as the ring
-    decomposition.
+    decomposition;
+  * the KV block data plane of disaggregated prefill moves whole blocks
+    [L, Hkv, n, bs, D] out of and into the paged cache: ``extract_blocks``
+    to the host, ``extract_blocks_device`` to tensors on
+    the card, ``inject_blocks`` / ``inject_blocks_device`` back. Over an
+    int8-resident cache these dequantize (to bf16, as the reference's) on
+    the way out and quantize whole blocks on the way in (the reference's
+    absmax scheme), while the ``_quant`` pair moves mantissas and scales
+    verbatim. Exactly the n blocks asked for move (the reference pads to a
+    bucket to bound its compiled programs, and pads a streamed frame's
+    gather less in ``extract_blocks_tight`` / ``tight=True``, which this
+    runner needs no form of; a padding lane there writes null block 0,
+    which nothing here writes). An inject writes IN PLACE
+    (``index_copy_``): the captured graphs hold the cache's addresses, so a
+    rebound cache would leave every replay reading stale blocks.
 
-Not ported yet: disaggregated block moves (with their int8 extract /
-inject), spec decode under tensor parallelism, and graphs of the mixed
-step or under a tensor-parallel group (both run eagerly).
+Not ported yet: the block moves under a tensor-parallel group (each rank
+holds Hkv / tp heads: ROADMAP.md A8), spec decode under tensor parallelism,
+and graphs of the mixed step or under a tensor-parallel group (both run
+eagerly).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.disagg.protocols import to_wire_array
 from dynamo_tpu_torch.engine.torch_engine.graphs import StepGraphs, StepInputs
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.ops import kv_quant
@@ -213,6 +232,9 @@ class TorchModelRunner:
             config.head_dim,
         )
         dtype = params["embed"].dtype
+        # the values an extract gives: an int8 cache's dequantize to bf16,
+        # as the reference's (its kv_dtype, model_runner.py:197)
+        self.kv_logical_dtype = torch.bfloat16 if self.kv_quantized else dtype
         self.k_cache = kv_quant.make_cache(
             shape, dtype, quantized=self.kv_quantized, device=self.device)
         self.v_cache = kv_quant.make_cache(
@@ -818,6 +840,153 @@ class TorchModelRunner:
             done = done | (alive & is_eos)
             count = count + alive.long()
         return torch.cat(rows).contiguous()
+
+    # ------------------------------------------------- KV block data plane
+    #
+    # Ordering between two engines on one card (disaggregated prefill): each
+    # engine issues its device calls from its own worker thread on that
+    # thread's current stream, which is the device's default stream (no call
+    # of the runner or the engine sets another; a graph capture runs on
+    # StepGraphs' side stream, joined to the default stream before and after
+    # it, and a replay runs on the default stream). The prefill engine's
+    # extract is enqueued before its answer reaches the decode engine, whose
+    # inject is enqueued after it: stream order puts the copy out before the
+    # read. The extract is a copy (``index_select``), so the prefill engine
+    # may free and reuse its scratch blocks at once: a later prefill writes
+    # them after the copy in the same order. A caller on a side stream is
+    # joined to the default stream: the extract's result is made ready on it,
+    # and an inject waits on it.
+
+    def _block_index(self, block_ids, *, writes: bool = False) -> torch.Tensor:
+        if self.group is not None:
+            raise NotImplementedError(
+                "KV block moves under a tensor-parallel group are not ported yet "
+                "(each rank holds Hkv / tp heads; ROADMAP.md A8)")
+        ids = np.asarray(block_ids, np.int64).reshape(-1)
+        if writes and (ids <= 0).any():
+            raise ValueError(f"block ids {ids.tolist()} include null block 0 (or a negative id)")
+        return torch.as_tensor(ids, device=self.device)
+
+    def _gather(self, idx: torch.Tensor) -> list[torch.Tensor]:
+        """The blocks ``idx`` of K and V, [L, Hkv, n, bs, D] in the cache's
+        logical dtype (an int8 cache's dequantized, as the reference's
+        ``_extract``)."""
+        out = []
+        for c in (self.k_cache, self.v_cache):
+            if self.kv_quantized:
+                q, s = c["q"].index_select(2, idx), c["s"].index_select(2, idx)
+                out.append(kv_quant.dequantize(q, s).to(self.kv_logical_dtype))
+            else:
+                out.append(c.index_select(2, idx))
+        return out
+
+    def _scatter(self, idx: torch.Tensor, blocks: tuple) -> None:
+        """Write [L, Hkv, n, bs, D] K and V blocks at ``idx`` in place; an
+        int8 cache quantizes each whole block by its exact absmax (the
+        reference's quantize-on-inject)."""
+        n = idx.shape[0]
+        for c, b in zip((self.k_cache, self.v_cache), blocks):
+            if b.dim() != 5 or b.shape[2] != n:
+                raise ValueError(f"blocks of shape {tuple(b.shape)} for {n} block ids")
+            if self.kv_quantized:
+                xf = b.float()
+                scale = kv_quant.block_scale(xf.abs().amax(dim=(-2, -1)))
+                c["q"].index_copy_(
+                    2, idx, kv_quant.quantize_with(xf, kv_quant.scale_inv(scale)[..., None, None]))
+                c["s"].index_copy_(2, idx, scale)
+            else:
+                c.index_copy_(2, idx, b.to(c.dtype))
+
+    def _host_blocks(self, a, dtype=None) -> torch.Tensor:
+        """A host array of blocks (or scales) on this device: numpy uint16
+        words are bfloat16, every other numpy dtype is its own (``dtype``:
+        the one it must have)."""
+        if isinstance(a, np.ndarray):
+            a = np.ascontiguousarray(a, dtype)
+            bf16 = a.dtype == np.uint16
+            with warnings.catch_warnings():
+                # a payload's arrays view its read-only wire bytes; they are
+                # only read (copied to the device or into the cache)
+                warnings.simplefilter("ignore", UserWarning)
+                a = torch.from_numpy(a.view(np.int16) if bf16 else a)
+            if bf16:
+                a = a.view(torch.bfloat16)
+        return a.to(self.device)
+
+    @torch.inference_mode()
+    def extract_blocks(self, block_ids: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """Dense KV blocks [L, Hkv, n, bs, D] on the host, for a host
+        payload: numpy in the logical dtype's wire form (bfloat16 as uint16
+        words, where the reference gives ml_dtypes.bfloat16)."""
+        k, v = self._gather(self._block_index(block_ids))
+        return to_wire_array(k), to_wire_array(v)
+
+    @torch.inference_mode()
+    def extract_blocks_quant(self, block_ids: list[int]) -> tuple:
+        """An int8-resident cache's blocks verbatim, on the host: (kq [L,
+        Hkv, n, bs, D] int8, ks [L, Hkv, n] f32, vq, vs), the exact
+        mantissas and scales the wire codec would make."""
+        if not self.kv_quantized:
+            raise ValueError("extract_blocks_quant needs an int8-resident cache")
+        idx = self._block_index(block_ids)
+        return tuple(c[part].index_select(2, idx).cpu().numpy()
+                     for c in (self.k_cache, self.v_cache) for part in ("q", "s"))
+
+    @torch.inference_mode()
+    def inject_blocks_quant(self, block_ids: list[int], kq, ks, vq, vs) -> None:
+        """Write int8 mantissas [L, Hkv, n, bs, D] and scales [L, Hkv, n]
+        verbatim into an int8-resident cache, in place (the landing half of
+        the no-recode path)."""
+        if not self.kv_quantized:
+            raise ValueError("inject_blocks_quant needs an int8-resident cache")
+        idx = self._block_index(block_ids, writes=True)
+        n = idx.shape[0]
+        for c, q, s in ((self.k_cache, kq, ks), (self.v_cache, vq, vs)):
+            q, s = self._host_blocks(q, np.int8), self._host_blocks(s, np.float32)
+            if q.dim() != 5 or q.shape[2] != n or tuple(s.shape) != tuple(q.shape[:3]):
+                raise ValueError(f"mantissas {tuple(q.shape)} / scales {tuple(s.shape)} "
+                                 f"for {n} block ids")
+            c["q"].index_copy_(2, idx, q)
+            c["s"].index_copy_(2, idx, s)
+
+    @torch.inference_mode()
+    def extract_blocks_device(self, block_ids: list[int]) -> tuple[torch.Tensor, torch.Tensor, int]:
+        """Dense KV blocks left on the device: (k, v, n), k / v [L, Hkv, n,
+        bs, D] copies in the cache's logical dtype (an int8 cache's
+        dequantized). The device-native disagg path: a colocated decode
+        engine lands them with ``inject_blocks_device`` and they never leave
+        the card. Never reads anything back to the host."""
+        k, v = self._gather(self._block_index(block_ids))
+        if self.device.type == "cuda":
+            default = torch.cuda.default_stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            if current != default:
+                default.wait_stream(current)
+        return k, v, len(block_ids)
+
+    @torch.inference_mode()
+    def inject_blocks_device(self, block_ids: list[int], k_dev: torch.Tensor,
+                             v_dev: torch.Tensor) -> None:
+        """Write device KV blocks (a colocated prefill engine's
+        ``extract_blocks_device``) into this cache at ``block_ids``, in
+        place: moved onto this runner's device first (nothing on one card, a
+        peer copy from another), then the same scatter as ``inject_blocks``.
+        No host copy."""
+        idx = self._block_index(block_ids, writes=True)
+        if self.device.type == "cuda":
+            current = torch.cuda.current_stream(self.device)
+            if current != torch.cuda.default_stream(self.device):
+                current.wait_stream(torch.cuda.default_stream(self.device))
+        self._scatter(idx, (k_dev.to(self.device), v_dev.to(self.device)))
+
+    @torch.inference_mode()
+    def inject_blocks(self, block_ids: list[int], k_blocks, v_blocks) -> None:
+        """Write received dense KV blocks [L, Hkv, n, bs, D] (host numpy in
+        the wire form: uint16 words are bfloat16; or tensors) into this cache
+        at ``block_ids``, in place; an int8-resident cache quantizes each
+        whole block."""
+        idx = self._block_index(block_ids, writes=True)
+        self._scatter(idx, (self._host_blocks(k_blocks), self._host_blocks(v_blocks)))
 
     # ------------------------------------------------- inputs and graphs
 

@@ -58,7 +58,9 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
                 "http/service.py", "tokenizer_json.py", "chat_template.py", "tokenizer.py",
                 "preprocessor.py", "backend.py", "protocols/openai.py", "run.py",
                 "entrypoint/inputs.py", "ops/collective.py", "parallel/mesh.py",
-                "parallel/sharding.py", "parallel/multihost.py", "parallel/launch.py"):
+                "parallel/sharding.py", "parallel/multihost.py", "parallel/launch.py",
+                "integrity.py", "disagg/protocols.py", "disagg/router.py",
+                "disagg/colocated.py"):
         assert f"dynamo_tpu_torch/{mod}" in scanned
     # every kernel the counters cover has its source beside the package, and
     # the build makes it: an int8 mode is its bf16 source's second entry
@@ -1498,6 +1500,84 @@ def test_graph_launch_counts_are_replays_times_captured_launches_on_card():
         for k, n in s["launches"].items():
             want[k] += 3 * n
     assert kernels.launch_counts() == want
+
+
+# ------------------------------------------- the KV block plane on the card
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_an_inject_lands_in_place_under_a_captured_decode_graph_on_card(kv):
+    """Disaggregated prefill lands KV in a cache the decode graphs recorded:
+    the inject must write where the graph reads. Every cache tensor keeps
+    its address, and the replay after an inject into lane 0's blocks equals
+    the eager step on the same cache, bitwise, and differs from the replay
+    before it."""
+    _need_card()
+    runner, tables, last = _graph_runner(kv, False)
+    decode = dict(_graph_calls(runner, tables, last, False))["decode"]
+    ptrs = [t.data_ptr() for t in _cache_leaves(runner)]
+    snap = [t.clone() for t in _cache_leaves(runner)]
+    before = decode()  # captured here, then replayed below
+    ids = [int(b) for b in tables[0, :-(-GRAPH_LENS[0] // GRAPH_BS)]]
+    k, v, n = runner.extract_blocks_device([int(b) for b in tables[7, :len(ids)]])
+    for t, s in zip(_cache_leaves(runner), snap):
+        t.copy_(s)
+    runner.inject_blocks_device(ids, k, v)
+    landed = [t.clone() for t in _cache_leaves(runner)]
+    graphed = decode()
+    for t, s in zip(_cache_leaves(runner), landed):
+        t.copy_(s)
+    runner.cuda_graphs = False
+    eager = decode()
+    runner.cuda_graphs = True
+    assert [t.data_ptr() for t in _cache_leaves(runner)] == ptrs
+    assert runner.graph_replays >= 1
+    assert np.array_equal(graphed, eager, equal_nan=True)
+    assert not np.array_equal(graphed, before, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_blocks_move_between_two_runners_on_one_card(kv):
+    """A prefill on runner A, its blocks moved into other blocks of runner
+    B on the same card: bitwise through the device path (bf16) and the
+    verbatim int8 pair; an int8 cache's device path (dequantized to bf16,
+    quantized again on landing) within one quantization step of each
+    block."""
+    _need_card()
+    a, tables, _ = _graph_runner(kv, False)
+    b = _runner_like(a)
+    src = [int(x) for x in tables[6, :8]]
+    dst = list(range(200, 208))
+    k, v, n = a.extract_blocks_device(src)
+    assert n == 8 and k.device == a.device and k.dtype == torch.bfloat16
+    b.inject_blocks_device(dst, k, v)
+    ka, kb = a.k_cache, b.k_cache
+    if kv == "bf16":
+        assert torch.equal(kb[:, :, dst], ka[:, :, src])
+        assert torch.equal(b.v_cache[:, :, dst], a.v_cache[:, :, src])
+        return
+    from dynamo_tpu_torch.ops.kv_quant import dequantize
+
+    want = dequantize(ka["q"][:, :, src], ka["s"][:, :, src])
+    got = dequantize(kb["q"][:, :, dst], kb["s"][:, :, dst])
+    step = ka["s"][:, :, src][..., None, None]
+    assert ((got - want).abs() <= 1.01 * step + 1e-6).all()
+    b.inject_blocks_quant(dst, *a.extract_blocks_quant(src))
+    for part in ("q", "s"):
+        assert torch.equal(kb[part][:, :, dst], ka[part][:, :, src])
+        assert torch.equal(b.v_cache[part][:, :, dst], a.v_cache[part][:, :, src])
+
+
+def _runner_like(runner):
+    """A second runner on the same card and weights, its cache empty."""
+    from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
+
+    return TorchModelRunner(runner.config, runner.params, num_blocks=runner.num_blocks,
+                            block_size=runner.block_size, max_batch=runner.max_batch,
+                            max_model_len=runner.max_model_len, device=runner.device,
+                            kv_dtype="int8" if runner.kv_quantized else "bf16",
+                            prefill_chunk_tokens=0)
 
 
 # ------------------------------------------------ the MoE layer's grouped FFN
