@@ -196,6 +196,36 @@ Phases, each of which must pass or the script exits non-zero:
                 index_select / index_copy_; the host payload's device-to-host /
                 encode / checksum / decode / host-to-device split.
 
+ 15. serve_offload -- the tiered block manager (after serve_disagg):
+                build_torch_engine's defaults (H = 4 on graphs, chunk 512) on
+                serve's bf16 weights with DYN_KV_HOST_OFFLOAD_GB=4 (2048
+                pinned host blocks of 2 MiB). (a) Wave 1: 8 requests of one
+                1024-token prefix (64 blocks) + distinct 64-448-token
+                suffixes, 32 out; wave 2: 8 new suffixes, each onboarding
+                the 64 blocks, every onboarded block bitwise the page stored
+                under its hash (OnboardProbe); the 1280-token TTFT miss
+                against hit in turns (wall, device); the tier's store / load
+                of 64 blocks and the pinned / pageable copies beside the PCIe
+                bound. (b) A 1024-token request still decoding is
+                prefix-hit by a later one. (c) 99 usable blocks for three
+                lanes: preemptions resumed by onboarding, with the
+                mid-generation drain and without it (the spill path). (d)
+                int8 weights, an int8-resident cache and fused decode: int8
+                tiers, pages verbatim both ways. (e) A 16-block host tier
+                over DYN_KV_DISK_DIR under build/: spills and promotions. (f)
+                serve_disagg's colocated pair with the tier on the decode
+                engine: a shipped prompt with a cached prefix sends
+                cached_blocks 64 and gets the rest. (g) POST /clear_kv_blocks
+                through the HTTP server (a later lookup misses), then a
+                decode dispatch patched to sleep 3 s past a 0.5 s warm budget
+                trips the watchdog (watchdog_stuck, then worker_unavailable);
+                every label's first dispatch under the 300 s cold budget.
+                Every leg: no offload or onboard exception, no local
+                fallback, no checksum failure; KV events counted, each hash
+                recomputed on the CPU from its tokens; the dense reference on
+                the greedy streams. ``python3 chip_smoke.py --only
+                serve_offload`` runs the build and this phase alone.
+
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
@@ -4068,6 +4098,558 @@ def phase_serve_disagg(torch, np, card: str, params, int8_params) -> dict:
     return res
 
 
+# ---------------------------------------------------------- serve_offload
+
+OFFLOAD_GB = 4  # DYN_KV_HOST_OFFLOAD_GB: 2048 host blocks of 2 MiB
+BLOCK_BYTES = 2 * LLAMA31_8B["num_hidden_layers"] * 8 * BLOCK * 128 * 2  # K + V, bf16
+PREFIX = 1024  # the shared prefix: 64 blocks
+WAVE_SUFFIXES = [64, 112, 160, 208, 256, 320, 384, 448]
+WAVE_OUT = 32
+TTFT_SUFFIX = 256
+# PCIe Gen5 x16 between the H100 SXM and its host, one direction (NVIDIA's
+# data sheet: 128 GB/s both ways)
+PCIE_BYTES_PER_S = 64e9
+PREEMPT_BLOCKS = 100  # leg (c): 99 usable blocks for four lanes of 35
+DISK_HOST_BLOCKS = 16  # leg (e)
+OFFLOAD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_offload")
+
+
+class OnboardProbe:
+    """Holds every onboarded block to the pages stored under its hash:
+    while a hash is watched, the tier's device store keeps a copy of its
+    page on the card, and every ``inject_pages`` of the engine then compares
+    each landed block whose hash was stored with that copy, bitwise (K, V
+    and an int8 cache's scales). A landed block of a watched hash that was
+    never stored fails."""
+
+    def __init__(self, torch, engine) -> None:
+        self.torch, self.engine = torch, engine
+        self.watch: set = set()
+        self.stash: dict = {}
+        self.compared = self.mismatched = self.unstored = self.injects = 0
+        bm, runner = engine.block_manager, engine.runner
+        real_store, real_inject = bm.store_blocks_device, runner.inject_pages
+
+        def store(hashes, *pages):
+            for i, h in enumerate(hashes):
+                if h in self.watch and h not in self.stash:
+                    self.stash[h] = [p[i].clone() for p in pages]
+            return real_store(hashes, *pages)
+
+        def inject(ids, *pages):
+            out = real_inject(ids, *pages)
+            self.injects += 1
+            seq = next(s for s in engine.slots if s is not None and s.block_ids[:len(ids)] == ids)
+            planes = runner._pages()
+            for j, h in enumerate(seq.prefix_hashes[:len(ids)]):
+                if h not in self.watch:
+                    continue
+                if h not in self.stash:
+                    self.unstored += 1
+                    continue
+                self.compared += 1
+                same = all(torch.equal(p[:, :, ids[j]].contiguous().view(torch.uint8),
+                                       s.view(torch.uint8))
+                           for p, s in zip(planes, self.stash[h]))
+                self.mismatched += not same
+            return out
+
+        bm.store_blocks_device = store
+        runner.inject_pages = inject
+
+    def reset(self, watch) -> None:
+        self.watch, self.stash = set(watch), {}
+        self.compared = self.mismatched = self.unstored = self.injects = 0
+
+    def row(self) -> dict:
+        return {"compared": self.compared, "mismatched": self.mismatched,
+                "unstored": self.unstored, "injects": self.injects}
+
+
+class EventLog:
+    """An engine's KV events: each Stored event's hash must be BLAKE2b of
+    its parent and tokens (the CPU recomputation), and each prompt's hash
+    chain must be among the Stored hashes."""
+
+    def __init__(self, engine) -> None:
+        self.stored: list = []
+        self.removed: list = []
+        engine.on_blocks_stored = self.stored.extend
+        engine.on_blocks_removed = self.removed.extend
+
+    def take(self, prompts) -> dict:
+        from dynamo_tpu_torch.tokens import compute_block_hash, compute_seq_hash_chain
+
+        bad = sum(compute_block_hash(e["parent_hash"], e["tokens"]) != e["block_hash"]
+                  for e in self.stored)
+        known = {e["block_hash"] for e in self.stored}
+        missing = sum(h not in known for p in prompts for h in compute_seq_hash_chain(p, BLOCK))
+        row = {"stored": len(self.stored), "removed": len(self.removed), "bad_hash": bad,
+               "prompt_blocks_missing": missing}
+        self.stored.clear()
+        self.removed.clear()
+        if bad or missing or not row["stored"]:
+            raise SmokeError(f"serve_offload: KV events disagree with the tokens: {row}")
+        return row
+
+
+def tier_errors(tag, engine) -> dict:
+    """The leg's failures that the best-effort paths would hide: offload and
+    onboard exceptions, local fallbacks and checksum failures must be 0."""
+    st, bs = engine.stats, engine.block_manager.stats
+    row = {"kv_offload_errors": st.kv_offload_errors, "kv_onboard_errors": st.kv_onboard_errors,
+           "remote_fallbacks": st.remote_fallbacks, "integrity_failures": bs.integrity_failures,
+           "quarantined": bs.quarantined}
+    if any(row.values()):
+        raise SmokeError(f"serve_offload/{tag}: {row}")
+    return row
+
+
+def tier_times(torch, engine, n: int = PREFIX // BLOCK, reps: int = 5) -> dict:
+    """The host tier's moves of n blocks on the card, medians of ``reps``
+    host-clock timings that end in a synchronize: the copies alone into
+    and out of pinned and pageable host memory, then the manager's store
+    (extract + copies + sync + checksums) and load (checksums + copies +
+    sync), each beside the PCIe byte bound; the checksums alone."""
+    from dynamo_tpu_torch import integrity
+
+    bm, runner = engine.block_manager, engine.runner
+    ids = list(range(1, n + 1))
+    pages = runner.extract_pages(ids)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in pages)
+    pinned = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in pages]
+    pageable = [torch.empty(p.shape, dtype=p.dtype) for p in pages]
+    dev = [p.clone() for p in pages]
+
+    def copies(dsts, srcs):
+        for d, s in zip(dsts, srcs):
+            d.copy_(s, non_blocking=True)
+        torch.cuda.synchronize()
+
+    def med(fn):
+        fn()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    out = {"blocks": n, "bytes": nbytes, "bound_ms": nbytes / PCIE_BYTES_PER_S * 1e3,
+           "pinned_arena": bm.pinned, "arena_host_bytes": bm.host_bytes,
+           "checksum_algo": integrity.ALGO}
+    out["d2h_pinned_ms"] = med(lambda: copies(pinned, pages))
+    out["h2d_pinned_ms"] = med(lambda: copies(dev, pinned))
+    out["d2h_pageable_ms"] = med(lambda: copies(pageable, pages))
+    out["h2d_pageable_ms"] = med(lambda: copies(dev, pageable))
+    store, load = [], []
+    for r in range(reps + 1):
+        hashes = [(1 << 62) + r * n + i for i in range(n)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if bm.store_blocks_device(hashes, *runner.extract_pages(ids)) != n:
+            raise SmokeError("serve_offload: the timed store did not store every block")
+        t1 = time.perf_counter()
+        got = bm.load_blocks_device(hashes, runner.device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not all(torch.equal(g.view(torch.uint8), p.view(torch.uint8))
+                   for g, p in zip(got, pages)):
+            raise SmokeError("serve_offload: a timed load differs from the stored pages")
+        if r:  # the first is a warm-up
+            store.append((t1 - t0) * 1e3)
+            load.append((t2 - t1) * 1e3)
+    slots = [bm._host[(1 << 62) + i].index for i in range(n)]
+    t0 = time.perf_counter()
+    for s in slots:
+        bm._slot_sums(s)
+    out["checksum_ms"] = (time.perf_counter() - t0) * 1e3
+    out["store_ms"], out["load_ms"] = statistics.median(store), statistics.median(load)
+    for k in ("d2h_pinned", "h2d_pinned", "d2h_pageable", "h2d_pageable", "store", "load"):
+        out[f"{k}_GBps"] = nbytes / (out[f"{k}_ms"] / 1e3) / 1e9
+    return out
+
+
+def offload_engine_check(engine) -> None:
+    """build_torch_engine's defaults on the card (H = 4 on CUDA graphs)
+    with a pinned host tier."""
+    bm = engine.block_manager
+    if bm is None or not bm.pinned or engine.config.decode_horizon != HORIZON \
+            or not engine.runner.cuda_graphs:
+        raise SmokeError(f"serve_offload: not the defaults with a pinned tier: {engine.config}")
+
+
+def phase_serve_offload(torch, np, card: str, params, int8_params) -> dict:
+    """The tiered block manager on the card (see the module docstring,
+    phase 15): legs (a) prefix reuse, (b) a mid-generation hit, (c)
+    preemption spills, (d) int8 tiers, (e) the disk tier, (f) disaggregated
+    with KVBM on the decode engine, (g) POST /clear_kv_blocks and the
+    watchdog."""
+    import shutil
+
+    from dynamo_tpu_torch.disagg.colocated import ColocatedPrefillClient
+    from dynamo_tpu_torch.disagg.router import DisaggConfig, DisaggregatedRouter
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.entrypoint.inputs import EngineConfig, run_http
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.tokens import compute_seq_hash_chain
+
+    t_phase = time.perf_counter()
+    L = LLAMA31_8B["num_hidden_layers"]
+    rng = np.random.default_rng(15)
+    n_prefix = PREFIX // BLOCK
+
+    def tokens(n):
+        return rng.integers(0, LLAMA31_8B["vocab_size"], n).tolist()
+
+    def greedy(prompt, n):
+        return PreprocessedRequest(token_ids=list(prompt), sampling=SamplingOptions(greedy=True),
+                                   stop=StopConditions(max_tokens=n))
+
+    def build(gb, disk_dir=None, **kw):
+        env = {"DYN_KV_HOST_OFFLOAD_GB": repr(gb)}
+        if disk_dir:
+            env["DYN_KV_DISK_DIR"] = disk_dir
+        os.environ.update(env)
+        try:
+            engine = build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+                                        max_model_len=MAX_MODEL_LEN, seed=0, **kw)
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        offload_engine_check(engine)
+        return engine
+
+    async def leg(tag, engine, reqs, check=True) -> dict:
+        """The requests through ``engine``, counters set to 0 just before,
+        read just after; the offloads drained."""
+        before = engine.runner.graph_stats()
+        s0 = _int_stats(engine.stats)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = await run_requests(engine, reqs, Context)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        await engine.drain_offloads()
+        run = {"outs": outs, "wall": wall, "launches": launches,
+               "replayed": replay_launches(kernels, before, engine.runner.graph_stats()),
+               "stats": {k: v - s0[k] for k, v in _int_stats(engine.stats).items()}}
+        if check:
+            check_outputs(f"serve_offload/{tag}", outs, reqs, FinishReason)
+        return run
+
+    res = {"card": card, "host_gb": OFFLOAD_GB, "prefix_tokens": PREFIX, "wave": WAVE_SUFFIXES}
+
+    async def go():
+        legs = {}
+        # (a) prefix reuse, the tier's times, (b) a mid-generation hit and
+        # (g) the clear route and the watchdog, on one engine
+        engine = build(OFFLOAD_GB, params=params)
+        bm, runner = engine.block_manager, engine.runner
+        probe, events = OnboardProbe(torch, engine), EventLog(engine)
+        ptrs = cache_ptrs(runner)
+        res["host_blocks"], res["arena_host_bytes"] = bm.host_blocks, bm.host_bytes
+        try:
+            prefix = tokens(PREFIX)
+            probe.reset(compute_seq_hash_chain(prefix, BLOCK))
+            rows = {}
+            for wave in (1, 2):
+                reqs = [greedy(prefix + tokens(n), WAVE_OUT) for n in WAVE_SUFFIXES]
+                run = await leg(f"prefix_wave{wave}", engine, reqs)
+                check_horizon_launches(f"serve_offload/wave{wave}", run, L, kernels,
+                                       "paged_decode_attention")
+                st = run["stats"]
+                # wave 1 arrives together: every lookup misses the prefix
+                want = 0 if wave == 1 else len(reqs) * n_prefix
+                if st["kv_onboarded_blocks"] != want:
+                    raise SmokeError(f"serve_offload/wave{wave}: {st['kv_onboarded_blocks']} "
+                                     f"blocks onboarded, want {want}")
+                if wave == 1 and not all(h in bm for h in probe.watch):
+                    raise SmokeError("serve_offload: wave 1 left the prefix out of the tier")
+                gap = reference_check(torch, runner, reqs[-1].token_ids, run["outs"][-1][0])
+                rows[f"wave{wave}"] = {
+                    "stats": st, "launches": run["launches"], "wall_s": run["wall"],
+                    "ttft_s": [t for _, _, t in run["outs"]], "reference_max_logit_gap": gap,
+                    "events": events.take([r.token_ids for r in reqs])}
+            if probe.compared != len(WAVE_SUFFIXES) * n_prefix or probe.mismatched \
+                    or probe.unstored:
+                raise SmokeError(f"serve_offload: onboarded blocks differ from the stored "
+                                 f"ones: {probe.row()}")
+            rows["onboarded_vs_stored"] = probe.row()
+            # TTFT of a 1280-token prompt: a miss (a fresh prefix: three
+            # chunks) against a hit (64 blocks onboarded, one chunk), in turns
+            walls = {"miss": [], "hit": []}
+            for way in ("miss", "hit", "hit", "miss") * 2:
+                p = (prefix if way == "hit" else tokens(PREFIX)) + tokens(TTFT_SUFFIX)
+                walls[way].append(await ttft_s(engine, greedy(p, 1), Context) * 1e3)
+                await engine.drain_offloads()
+            device = {}
+            for way in ("miss", "hit"):
+                p = (prefix if way == "hit" else tokens(PREFIX)) + tokens(TTFT_SUFFIX)
+                ms, by_kernel = await profiled_ttft(torch, engine, greedy(p, 1), Context)
+                device[way] = {"ms": ms, "top": top_kernels(by_kernel, 3)}
+                await engine.drain_offloads()
+            rows["ttft_1280"] = {"wall_ms": walls,
+                                 "wall_ms_median": {k: statistics.median(v)
+                                                    for k, v in walls.items()},
+                                 "device": device}
+            rows["tier_times"] = tier_times(torch, engine)
+            legs["a_prefix_reuse"] = rows
+            # (b) A's 1024-token prompt is onboarded by B while A decodes
+            pfx = tokens(PREFIX)
+            hashes = compute_seq_hash_chain(pfx, BLOCK)
+            probe.reset(hashes)
+            s0 = _int_stats(engine.stats)
+            a_task = asyncio.ensure_future(run_requests(engine, [greedy(pfx, 160)], Context))
+            while not all(h in bm for h in hashes):
+                if a_task.done():
+                    raise SmokeError("serve_offload/midgen: A ended before its prompt blocks "
+                                     "reached the tier")
+                await asyncio.sleep(0.002)
+            b_req = greedy(pfx + tokens(100), 16)
+            b_out = await run_requests(engine, [b_req], Context)
+            a_live = not a_task.done()
+            a_out = await a_task
+            st = {k: v - s0[k] for k, v in _int_stats(engine.stats).items()}
+            if not a_live or st["kv_onboarded_blocks"] != n_prefix or probe.compared != n_prefix \
+                    or probe.mismatched:
+                raise SmokeError(f"serve_offload/midgen: A live {a_live}, {st}, {probe.row()}")
+            check_outputs("serve_offload/midgen", a_out + b_out, [greedy(pfx, 160), b_req],
+                          FinishReason)
+            legs["b_midgen"] = {
+                "stats": st, "a_live_at_b_end": a_live, "onboarded_vs_stored": probe.row(),
+                "reference_max_logit_gap": reference_check(torch, runner, b_req.token_ids,
+                                                           b_out[0][0]),
+                "events": events.take([pfx, b_req.token_ids])}
+            await engine.drain_offloads()
+            # (g) the HTTP server's clear route, then the watchdog
+            mdc = ModelDeploymentCard.from_model_dir(write_serve_dir(), "llama-3.1-8b-offload")
+            cleared = []
+            engine.on_cache_cleared = lambda: cleared.append(1)
+            held = bm.stats.host_blocks_used + bm.stats.disk_blocks_used
+            svc = await run_http(EngineConfig.static_(engine, mdc), host="127.0.0.1", port=0)
+            try:
+                status, body = await asyncio.to_thread(http_call, svc.port, "POST",
+                                                       "/clear_kv_blocks")
+            finally:
+                await svc.close()
+            body = json.loads(body)
+            worker = body["cleared_worker_groups"][0]["workers"][0]
+            if status != 200 or body["failed_worker_groups"] or worker["status"] != "cleared" \
+                    or worker["offload_blocks_dropped"] != held or cleared != [1] \
+                    or bm.lookup_prefix(compute_seq_hash_chain(prefix, BLOCK)) != 0:
+                raise SmokeError(f"serve_offload/clear: {status} {body}, cleared {cleared}, "
+                                 f"{bm.stats}")
+            cold = engine.config.watchdog_cold_s
+            first = dict(engine.dispatch_first_s)
+            if max(first.values()) >= cold:
+                raise SmokeError(f"serve_offload: a first dispatch outran the cold budget "
+                                 f"{cold} s: {first}")
+            engine.config.watchdog_min_s, engine.config.watchdog_mult = 0.5, 1.0
+            name = "decode_multi" if engine.config.decode_horizon > 1 else "decode"
+            real = getattr(runner, name)
+
+            def stuck(*a, **k):
+                time.sleep(3.0)
+                return real(*a, **k)
+
+            setattr(runner, name, stuck)
+            tripped = []
+            engine.on_watchdog_trip = lambda: tripped.append(time.perf_counter())
+            finals = []
+            t0 = time.perf_counter()
+            for prompt in (tokens(40), tokens(8)):
+                async for out in engine.generate(greedy(prompt, 24), Context()):
+                    if out.finish_reason is not None:
+                        finals.append((out.error or {}).get("code"))
+            if finals != ["watchdog_stuck", "worker_unavailable"] or len(tripped) != 1 \
+                    or engine.stats.watchdog_trips != 1:
+                raise SmokeError(f"serve_offload/watchdog: {finals}, trips {tripped}")
+            legs["g_clear_and_watchdog"] = {
+                "clear_body": body, "dropped": held, "first_dispatch_s": first,
+                "cold_budget_s": cold, "trip_after_s": tripped[0] - t0, "finals": finals}
+            if cache_ptrs(runner) != ptrs:
+                raise SmokeError("serve_offload: the cache moved under its graphs")
+            legs["a_prefix_reuse"]["errors"] = tier_errors("a", engine)
+        finally:
+            await engine.close()
+        del engine, probe, runner, bm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) preemption: three lanes of 300 + 256 tokens (35 blocks each at
+        # the end) in 99 blocks, twice: with the mid-generation drain (the
+        # victim's blocks are mostly in the tier already) and without it
+        # (offload_per_step 0: the victim's blocks spill at preemption)
+        rows = []
+        for per_step in (4, 0):
+            small = build(1, params=params, num_blocks=PREEMPT_BLOCKS)
+            small.config.offload_per_step = per_step
+            events = EventLog(small)
+            try:
+                reqs = [greedy(tokens(300), 256) for _ in range(3)]
+                run = await leg(f"preempt{per_step}", small, reqs)
+                st = run["stats"]
+                if not (st["preemptions"] and st["kv_onboarded_blocks"]
+                        and (per_step or st["preempt_spills"])):
+                    raise SmokeError(f"serve_offload/preempt: no resumption by onboarding "
+                                     f"(offload_per_step {per_step}): {st}")
+                rows.append({
+                    "offload_per_step": per_step, "stats": st, "wall_s": run["wall"],
+                    "launches": run["launches"],
+                    "reference_max_logit_gap": max(
+                        reference_check(torch, small.runner, r.token_ids, o[0])
+                        for r, o in zip(reqs, run["outs"])),
+                    "events": events.take([r.token_ids for r in reqs]),
+                    "errors": tier_errors("c", small)})
+                if small.allocator.free_count != PREEMPT_BLOCKS - 1:
+                    raise SmokeError("serve_offload/preempt: blocks still held")
+            finally:
+                await small.close()
+            del small
+        legs["c_preempt_spill"] = rows
+
+        # (d) int8 weights, an int8-resident cache and fused decode: int8
+        # tiers, pages verbatim both ways
+        e8 = build(1, params=int8_params, quantize=True, kv_dtype="int8", fused_decode=True)
+        probe, events = OnboardProbe(torch, e8), EventLog(e8)
+        try:
+            p = tokens(600)
+            probe.reset(compute_seq_hash_chain(p, BLOCK))
+            first = await leg("int8_first", e8, [greedy(p, 32)])
+            second = await leg("int8_second", e8, [greedy(p, 32)])
+            n = (len(p) - 1) // BLOCK
+            if e8.block_manager.wire_codec != "int8" \
+                    or second["stats"]["kv_onboarded_blocks"] != n or probe.compared != n \
+                    or probe.mismatched:
+                raise SmokeError(f"serve_offload/int8: {second['stats']}, {probe.row()}")
+            legs["d_int8"] = {
+                "stats": [first["stats"], second["stats"]],
+                "launches": [first["launches"], second["launches"]],
+                "onboarded_vs_stored": probe.row(), "mantissa_steps": 0,
+                "reference_max_logit_gap": max(
+                    reference_check(torch, e8.runner, p, r["outs"][0][0], bound=INT8_REF_GAP)
+                    for r in (first, second)),
+                "events": events.take([p]), "errors": tier_errors("d", e8)}
+        finally:
+            await e8.close()
+        del e8, probe
+
+        # (e) a 16-block host tier over a disk tier
+        disk = os.path.join(OFFLOAD_DIR, "disk")
+        shutil.rmtree(disk, ignore_errors=True)
+        ed = build(DISK_HOST_BLOCKS * BLOCK_BYTES / 2**30, disk_dir=disk, params=params)
+        probe, events = OnboardProbe(torch, ed), EventLog(ed)
+        bm = ed.block_manager
+        try:
+            p = tokens(PREFIX)
+            hashes = compute_seq_hash_chain(p, BLOCK)
+            probe.reset(hashes)
+            first = await leg("disk_first", ed, [greedy(p, 32)])
+            spilled = bm.stats.spilled_g3
+            on_disk = sum(h in bm._disk for h in hashes)
+            second = await leg("disk_second", ed, [greedy(p + tokens(64), 16)])
+            if bm.host_blocks != DISK_HOST_BLOCKS or spilled < n_prefix - DISK_HOST_BLOCKS \
+                    or on_disk < n_prefix - DISK_HOST_BLOCKS \
+                    or second["stats"]["kv_onboarded_blocks"] != n_prefix \
+                    or probe.compared != n_prefix or probe.mismatched:
+                raise SmokeError(f"serve_offload/disk: spilled {spilled}, on disk {on_disk}, "
+                                 f"{second['stats']}, {probe.row()}, {bm.stats}")
+            legs["e_disk"] = {
+                "host_blocks": bm.host_blocks, "spilled_g3": spilled,
+                "promoted": on_disk, "stats": second["stats"], "manager": vars(bm.stats),
+                "onboarded_vs_stored": probe.row(),
+                "reference_max_logit_gap": reference_check(torch, ed.runner, p, first["outs"][0][0]),
+                "events": events.take([p]), "errors": tier_errors("e", ed)}
+        finally:
+            await ed.close()
+            shutil.rmtree(disk, ignore_errors=True)
+        del ed, probe, bm
+
+        # (f) disaggregated: the colocated pair of serve_disagg with the
+        # tier on the decode engine; a shipped prompt with a cached prefix
+        decode = build(1, params=params)
+        prefill = build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+                                     max_model_len=MAX_MODEL_LEN, seed=0, params=params)
+        decode.disagg_router = DisaggregatedRouter(DisaggConfig())
+        shipped = []
+
+        class Recording(ColocatedPrefillClient):
+            async def prefill(self, token_ids, **kw):
+                resp = await super().prefill(token_ids, **kw)
+                shipped.append((kw["cached_blocks"], resp.first_block, resp.num_blocks))
+                return resp
+
+        decode.remote_prefill_client = Recording(prefill, BLOCK)
+        probe, events = OnboardProbe(torch, decode), EventLog(decode)
+        try:
+            pfx = tokens(PREFIX)
+            probe.reset(compute_seq_hash_chain(pfx, BLOCK))
+            reqs = [greedy(pfx + tokens(100), 16), greedy(pfx + tokens(200), 16)]
+            runs = [await leg(f"disagg{i}", decode, [r]) for i, r in enumerate(reqs)]
+            n2 = -(-len(reqs[1].token_ids) // BLOCK)
+            st = runs[1]["stats"]
+            if [s[0] for s in shipped] != [0, n_prefix] or shipped[1][1:] != (n_prefix,
+                                                                             n2 - n_prefix) \
+                    or st["remote_prefills"] != 1 or st["kv_onboarded_blocks"] != n_prefix \
+                    or probe.compared != n_prefix or probe.mismatched \
+                    or prefill.stats.prefills_served != 2:
+                raise SmokeError(f"serve_offload/disagg: shipped {shipped}, {st}, {probe.row()}")
+            legs["f_disagg"] = {
+                "shipped": shipped, "stats": [r["stats"] for r in runs],
+                "launches": [r["launches"] for r in runs], "onboarded_vs_stored": probe.row(),
+                "reference_max_logit_gap": max(
+                    reference_check(torch, decode.runner, r.token_ids, run["outs"][0][0])
+                    for r, run in zip(reqs, runs)),
+                "events": events.take([r.token_ids for r in reqs]),
+                "errors": tier_errors("f", decode)}
+        finally:
+            await decode.close()
+            await prefill.close()
+        return legs
+
+    legs = asyncio.run(go())
+    res["legs"] = legs
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"serve_offload": res}, default=str), flush=True)
+    a = legs["a_prefix_reuse"]
+    t, tt = a["ttft_1280"], a["tier_times"]
+    log(f"serve_offload: wave 2 onboarded {a['wave2']['stats']['kv_onboarded_blocks']} blocks, "
+        f"all bitwise the stored ones; 1280-token TTFT miss "
+        f"{t['wall_ms_median']['miss']:.2f} ms (device {t['device']['miss']['ms']:.2f}), hit "
+        f"{t['wall_ms_median']['hit']:.2f} ms (device {t['device']['hit']['ms']:.2f}); "
+        f"{tt['blocks']} blocks ({tt['bytes'] / 1e6:.1f} MB): store {tt['store_ms']:.2f} ms "
+        f"({tt['store_GBps']:.1f} GB/s), load {tt['load_ms']:.2f} ms ({tt['load_GBps']:.1f} "
+        f"GB/s), copies pinned d2h {tt['d2h_pinned_ms']:.2f} / h2d {tt['h2d_pinned_ms']:.2f} ms, "
+        f"pageable {tt['d2h_pageable_ms']:.2f} / {tt['h2d_pageable_ms']:.2f} ms, "
+        f"{tt['checksum_algo']} checksums {tt['checksum_ms']:.2f} ms, PCIe bound "
+        f"{tt['bound_ms']:.2f} ms; arena {res['arena_host_bytes'] / 2**30:.2f} GiB pinned "
+        f"{tt['pinned_arena']}; phase {res['phase_s']:.1f} s ({card})")
+    for tag, rows in legs.items():
+        for row in rows if isinstance(rows, list) else [rows]:
+            if tag != "a_prefix_reuse":
+                log(f"serve_offload/{tag}: " + json.dumps(
+                    {k: v for k, v in row.items() if k not in ("launches", "clear_body", "manager")},
+                    default=str))
+    return res
+
+
+def offload_params(torch) -> tuple:
+    """The serve phase's bf16 weights (seed 0) and serve_int8's int8 ones,
+    made here for a run of serve_offload alone."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import _resolve_config
+    from dynamo_tpu_torch.engine.torch_engine.weights import load_or_init_params
+
+    cfg, _ = _resolve_config(LLAMA31_8B)
+    return tuple(load_or_init_params(None, cfg, seed=0, device="cuda", dtype=torch.bfloat16,
+                                     quantize=q) for q in (False, True))
+
+
 # ------------------------------------------------------------ serve_moe
 
 # mistralai/Mixtral-8x7B-v0.1's published config.json; the phase serves
@@ -4407,6 +4989,9 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # ``--only serve_offload``: the device, the build and that phase alone
+    # (a quicker call while the phase is worked on; no kernels line)
+    only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     try:
         # 1. device
         kind = torch.cuda.get_device_name(0)
@@ -4424,6 +5009,14 @@ def main() -> int:
             for line in row["ptxas"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+        if only == "serve_offload":
+            phase_serve_offload(torch, np, card, *offload_params(torch))
+            print(card, flush=True)
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                     "count": count}}), flush=True)
+            return 0
+        if only is not None:
+            raise SmokeError(f"--only takes serve_offload, not {only}")
 
         # 3. parity
         errs = phase_parity(torch)
@@ -4491,6 +5084,10 @@ def main() -> int:
         log(f"flash_prefill_attention launches: serve {launches['flash_prefill_attention']}, "
             f"serve_disagg {from_disagg}")
         launches["flash_prefill_attention"] += sum(from_disagg.values())
+
+        # 15. serve_offload: the tiered block manager (each leg's counters
+        # set to 0 just before it, read just after)
+        phase_serve_offload(torch, np, card, engine.runner.params, int8_runner.params)
 
         # 10. serve_http: the CLI's HTTP server in a process of its own, so
         # this process's engines leave the card first

@@ -58,7 +58,9 @@ reduced to:
   * when a growing sequence finds no free block, the youngest other running
     sequence (one still being chunked included) is preempted: its blocks
     are freed and it is re-queued, in arrival order, with its generated
-    tokens, which are re-prefilled on re-admission (recompute preemption).
+    tokens, which are re-prefilled on re-admission (recompute preemption;
+    with a block manager its KV-complete blocks go to the host tier first
+    and re-admission onboards them).
     The storm guard (engine.py:126-139, :1307-1350): a sequence preempted
     more than ``max_preemptions`` times (``DYN_MAX_PREEMPTIONS``, 8) fails
     with the structured error ``preempted_too_often``, and each re-queue
@@ -81,6 +83,32 @@ reduced to:
     (host payload), ``prefill_only_stream`` (frames per chunk) and
     ``prefill_only_device`` (blocks left on the card) prefill a request on
     scratch blocks of this engine's pool, freed when the call returns.
+  * the tiered block manager (engine.py:940-1410, :1586-1690, :2195), with a
+    ``block_manager`` (block_manager/): each sequence carries its block-hash
+    chain (tokens.py); a block offloads to the host tier as soon as its KV
+    is complete (the bounded ``OffloadQueue``, at most ``offload_per_step``
+    blocks a loop iteration), a preempted sequence's blocks spill to it
+    instead of being dropped, and a finished one's go there before its
+    device blocks recycle; at admission the prompt's chain is looked up in
+    the host and disk tiers, the hit is onboarded into the sequence's
+    leading blocks in place and the prompt is chunked from after it (a
+    shipped prompt's hit is onboarded and not shipped: ``cached_blocks``).
+    Blocks move as the cache's own pages between the card and the pinned
+    host arena (int8 pages verbatim into int8 tiers), or through the host
+    codec when the tiers' form differs. Offloads and onboards are
+    best-effort, as in the reference, and every failure is counted
+    (``kv_offload_errors`` / ``kv_onboard_errors``) and logged;
+  * KV events: ``on_blocks_stored`` gets a Stored event per newly complete
+    block (hash, parent hash, tokens, block id), ``on_blocks_removed`` the
+    hashes whose last holding sequence freed them, ``on_cache_cleared``
+    fires on ``clear_kv_blocks``;
+  * the stuck-dispatch watchdog (engine.py:710-870): every device call is
+    labelled and timed into a per-label EMA; one running past
+    max(``watchdog_min_s``, ``watchdog_mult`` x EMA), or a label's first
+    past ``watchdog_cold_s`` (``DYN_WATCHDOG_*``: 30 s, 8, 300 s), fails
+    every lane with ``watchdog_stuck``, closes the engine (new requests get
+    ``worker_unavailable``), fires ``on_watchdog_trip`` and counts
+    ``watchdog_trips``.
 
 A ``chunk_budget`` that is not a multiple of the KV block size raises: the
 reference slices chunks by the remaining budget, so such a budget would
@@ -97,12 +125,11 @@ decode pair) never overlap a graph capture with the other's work; their
 device jobs run one after the other, so a shipped prompt's prefill holds
 the decode engine's running lanes until it ends.
 
-Left out (ROADMAP.md lists them): the tiered block manager (so a
-preemption spills nothing to a host tier, and a remote prefill ships every
-block: ``cached_blocks`` is 0), KV events, the fabric transport of remote
-prefill and disaggregation under a tensor-parallel group (A8, which
-raises), multimodal prompts, QoS classes, deadlines and brownout, tracing
-and the watchdog.
+Left out (ROADMAP.md lists them): the peer tier (G4-lite) and the KV event
+publisher (A10), the fabric transport of remote prefill, disaggregation and
+the block manager under a tensor-parallel group (A8, which raises),
+multimodal prompts, QoS classes, deadlines and brownout, tracing and fault
+injection.
 """
 
 from __future__ import annotations
@@ -122,6 +149,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from dynamo_tpu_torch.block_manager.offload import OffloadQueue
 from dynamo_tpu_torch.disagg.colocated import DevicePrefillResponse
 from dynamo_tpu_torch.disagg.protocols import (
     KvBlockPayload,
@@ -141,6 +169,7 @@ from dynamo_tpu_torch.protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
 )
+from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger("dynamo_tpu_torch.engine")
 
@@ -185,6 +214,22 @@ class TorchEngineConfig:
     )
     preempt_backoff_ms: float = field(
         default_factory=lambda: float(os.environ.get("DYN_PREEMPT_BACKOFF_MS", "25"))
+    )
+    # mid-generation offload: at most this many blocks copied to the host
+    # tier per loop iteration (0: offload at a sequence's end only)
+    offload_per_step: int = 4
+    # the stuck-dispatch watchdog: a dispatch past max(watchdog_min_s,
+    # watchdog_mult x its label's EMA), or a label's first past
+    # watchdog_cold_s, fails every lane and closes the engine;
+    # watchdog_min_s <= 0 turns it off
+    watchdog_mult: float = field(
+        default_factory=lambda: float(os.environ.get("DYN_WATCHDOG_MULT", "8"))
+    )
+    watchdog_min_s: float = field(
+        default_factory=lambda: float(os.environ.get("DYN_WATCHDOG_MIN_S", "30"))
+    )
+    watchdog_cold_s: float = field(
+        default_factory=lambda: float(os.environ.get("DYN_WATCHDOG_COLD_S", "300"))
     )
 
 
@@ -238,6 +283,17 @@ class EngineStats:
     kv_wire_bytes_tx: int = 0
     kv_wire_bytes_rx: int = 0
     kv_bytes_overlapped: int = 0
+    # the tiered block manager: blocks newly stored by offloads (mid-
+    # generation, preemption spills and ends), preemptions that spilled,
+    # blocks onboarded into admitted sequences, and the offloads / onboards
+    # that raised (best-effort: the prefix is recomputed)
+    kv_offloaded_blocks: int = 0
+    kv_offload_errors: int = 0
+    preempt_spills: int = 0
+    kv_onboarded_blocks: int = 0
+    kv_onboard_errors: int = 0
+    # the stuck-dispatch watchdog
+    watchdog_trips: int = 0
 
     @property
     def tokens_per_horizon(self) -> float:
@@ -296,10 +352,28 @@ class _Sequence:
         # storm guard: preemptions so far, and when it may be re-admitted
         self.preemptions = 0
         self.requeue_after = 0.0
+        # the block-hash chain (KV events, offload) and how many of its
+        # blocks were published; the chain built at admission for the prefix
+        # lookup, its hashes, and the leading blocks found in the tiers
+        self.hash_seq: Optional[TokenBlockSequence] = None
+        self.emitted_hashes = 0
+        self.pending_chain: Optional[TokenBlockSequence] = None
+        self.prefix_hashes: list[int] = []
+        self.cached_prefix_blocks = 0
+        self.offload_mark = 0  # chain blocks already queued for offload
 
     @property
     def num_generated(self) -> int:
         return len(self.token_ids) - self.num_prompt
+
+    @property
+    def kv_written(self) -> int:
+        """Positions whose KV is in the device cache. A sampled token's KV
+        is written when it is fed to the next step (within a horizon or a
+        verify pass too: every appended token but the newest was fed), so
+        the newest is never written: offloading a block holding it would
+        store a hole under its hash."""
+        return self.num_prompt + max(0, self.num_generated - 1)
 
     @property
     def needs_eos_suppress(self) -> bool:
@@ -340,19 +414,25 @@ class _DeviceThread(concurrent.futures.Executor):
         self._pool.shutdown(wait=wait, cancel_futures=cancel_futures)
 
 
-_TP_DISAGG = ("disaggregated prefill under a tensor-parallel group is not ported yet "
-              "(the step channel's extract / inject and the reshard: ROADMAP.md A8)")
+_TP_DISAGG = ("disaggregated prefill and the tiered block manager under a tensor-parallel "
+              "group are not ported yet (the step channel's extract / inject and the "
+              "reshard: ROADMAP.md A8)")
 
 
 class TorchEngine:
     """AsyncEngine over a TorchModelRunner (see the module docstring).
     ``disagg_router`` and ``remote_prefill_client`` make it a decode worker
-    of disaggregated prefill; an engine under a tensor-parallel group
-    refuses them."""
+    of disaggregated prefill; ``block_manager`` (a
+    ``block_manager.TieredBlockManager``) gives it host and disk tiers;
+    ``on_blocks_stored`` / ``on_blocks_removed`` receive its KV events. An
+    engine under a tensor-parallel group refuses the first three."""
 
     def __init__(
         self, runner: TorchModelRunner, config: Optional[TorchEngineConfig] = None,
         disagg_router: Optional[Any] = None, remote_prefill_client: Optional[Any] = None,
+        block_manager: Optional[Any] = None,
+        on_blocks_stored: Optional[Callable[[list[dict]], None]] = None,
+        on_blocks_removed: Optional[Callable[[list[int]], None]] = None,
     ) -> None:
         self.runner = runner
         self.config = config or TorchEngineConfig(
@@ -388,6 +468,30 @@ class TorchEngine:
         self.remote_prefill_client = remote_prefill_client
         self._remote_tasks: set[asyncio.Task] = set()
         self._landed: list[tuple[_Sequence, Optional[tuple], Optional[FinishReason]]] = []
+        # the tiered block manager: blocks offloaded mid-generation through
+        # the bounded queue (drained each loop iteration), at preemption and
+        # at a sequence's end by offload tasks, and onboarded on prefix hits
+        self.block_manager = block_manager
+        self._offload_queue = OffloadQueue() if block_manager is not None else None
+        self._tier_tasks: set[asyncio.Task] = set()
+        # KV events: a Stored event per newly complete block of a sequence,
+        # a Removed one when the last sequence holding a hash frees it;
+        # on_cache_cleared fires on clear_kv_blocks
+        self.on_blocks_stored = on_blocks_stored
+        self.on_blocks_removed = on_blocks_removed
+        self.on_cache_cleared: Optional[Callable[[], None]] = None
+        self._hash_refs: dict[int, int] = {}
+        # the stuck-dispatch watchdog: the dispatch running on the device
+        # thread (label, start), each label's EMA of its durations; a trip
+        # fires on_watchdog_trip once
+        self.on_watchdog_trip: Optional[Callable[[], None]] = None
+        self._dispatch_info: Optional[tuple[str, float]] = None
+        self._dispatch_ema: dict[str, float] = {}
+        # each label's first dispatch in seconds: what the cold budget covers
+        # (a graph capture rides a graphed label's first)
+        self.dispatch_first_s: dict[str, float] = {}
+        self._watchdog_task: Optional[asyncio.Task] = None
+        self._tripped = False
         # persistent host-side decode arrays
         B = self.config.max_batch
         self._tokens = np.zeros(B, np.int64)
@@ -407,6 +511,16 @@ class TorchEngine:
                 min_n=self.config.spec_ngram_min, max_n=self.config.spec_ngram_max,
             )
             self.stats.accepted_per_pos = [0] * self.config.spec_k
+
+    @property
+    def block_manager(self) -> Optional[Any]:
+        return self._block_manager
+
+    @block_manager.setter
+    def block_manager(self, manager: Optional[Any]) -> None:
+        if manager is not None:
+            self._refuse_under_tp()
+        self._block_manager = manager
 
     @property
     def disagg_router(self) -> Optional[Any]:
@@ -439,7 +553,8 @@ class TorchEngine:
     ) -> AsyncIterator[LLMEngineOutput]:
         if self._closed:
             yield LLMEngineOutput.final_error(
-                context.id, "admission", "engine is closed", "worker_unavailable"
+                context.id, "admission", "engine is closed or marked unhealthy",
+                "worker_unavailable"
             )
             return
         n = len(request.token_ids)
@@ -473,9 +588,14 @@ class TorchEngine:
     async def close(self) -> None:
         self._closed = True
         self._wake.set()
+        if self._watchdog_task is not None:
+            self._watchdog_task.cancel()
+            await asyncio.gather(self._watchdog_task, return_exceptions=True)
         for t in list(self._remote_tasks):
             t.cancel()
         await asyncio.gather(*self._remote_tasks, return_exceptions=True)
+        # offloads in flight end on their own (their device jobs are queued)
+        await asyncio.gather(*self._tier_tasks, return_exceptions=True)
         if self._loop_task is not None:
             await asyncio.gather(self._loop_task, return_exceptions=True)
         self._executor.shutdown(wait=True)
@@ -493,6 +613,9 @@ class TorchEngine:
     def _ensure_loop(self) -> None:
         if self._loop_task is None or self._loop_task.done():
             self._loop_task = asyncio.get_running_loop().create_task(self._engine_loop())
+        if (self.config.watchdog_min_s > 0 and not self._tripped
+                and (self._watchdog_task is None or self._watchdog_task.done())):
+            self._watchdog_task = asyncio.get_running_loop().create_task(self._watchdog_loop())
 
     def _key_row(self, seq: _Sequence) -> np.ndarray:
         stream = seq.seed if seq.seed is not None else self._seed_base + seq.seq_id
@@ -501,6 +624,10 @@ class TorchEngine:
         return make_key_data(stream, seq.num_generated + (seq.eos_drops << 16))
 
     def _free_seq(self, seq: _Sequence) -> None:
+        if self._offload_queue is not None:
+            # queued candidates name blocks about to be recycled; dropping
+            # them lets their hashes enqueue again through another holder
+            self._offload_queue.forget_seq(seq, cancelled=seq.ctx.is_stopped())
         if seq.slot is not None:
             self.slots[seq.slot] = None
             seq.slot = None
@@ -513,8 +640,10 @@ class TorchEngine:
             self._prefilling.remove(seq)
         seq.prefilling = False
         seq.prefill_pos = 0  # a preempted sequence re-prefills from scratch
+        self._emit_removed(seq)
 
     def _finish(self, seq: _Sequence, reason: FinishReason) -> None:
+        self._maybe_offload(seq, reason)
         self._free_seq(seq)
         seq.out.put_nowait(LLMEngineOutput.final(reason))
 
@@ -532,12 +661,19 @@ class TorchEngine:
         return True
 
     def _preempt(self, victim: _Sequence) -> None:
-        """Recompute preemption: drop the victim's KV and re-queue it with
-        its generated tokens (re-prefilled on re-admission) after its
-        backoff; past ``max_preemptions`` it fails instead."""
+        """Preempt the victim and re-queue it with its generated tokens
+        after its backoff; past ``max_preemptions`` it fails instead. With a
+        block manager its KV-complete blocks spill to the host tier first
+        (``_spill_preempted``), so re-admission onboards them; without one,
+        or for the rest, they are recomputed on re-admission."""
         victim.preemptions += 1
         self.stats.preemptions += 1
+        if victim.preemptions <= self.config.max_preemptions:
+            self._spill_preempted(victim)
         self._free_seq(victim)
+        victim.hash_seq = None
+        victim.emitted_hashes = 0
+        victim.offload_mark = 0
         if victim.preemptions > self.config.max_preemptions:
             self.stats.preempted_too_often += 1
             victim.out.put_nowait(LLMEngineOutput.final_error(
@@ -552,20 +688,317 @@ class TorchEngine:
         victim.requeue_after = time.monotonic() + backoff_s
         self._enqueue(victim)
 
-    async def _device(self, fn):
-        """Run one device call (and its host fetch) on the worker thread.
-        Its graph replays are counted there: calls of the loop and of
-        remote-prefill landings may be queued at once."""
-        runner, stats = self.runner, self.stats
+    async def _device(self, fn, label: str):
+        """Run one device call (and its host fetch) on the worker thread,
+        visible to the watchdog under ``label`` from the moment it holds the
+        device. Its graph replays are counted there: calls of the loop, of
+        remote-prefill landings and of offloads may be queued at once."""
+        runner, stats, ema = self.runner, self.stats, self._dispatch_ema
 
         def counted():
             replays = runner.graph_replays
+            t0 = time.monotonic()
+            self._dispatch_info = (label, t0)
             try:
                 return fn()
             finally:
+                elapsed = time.monotonic() - t0
+                self._dispatch_info = None
+                prev = ema.get(label)
+                if prev is None:
+                    self.dispatch_first_s[label] = elapsed
+                ema[label] = elapsed if prev is None else 0.8 * prev + 0.2 * elapsed
                 stats.graph_replays += runner.graph_replays - replays
 
         return await asyncio.get_running_loop().run_in_executor(self._executor, counted)
+
+    # ------------------------------------------------------------ watchdog
+
+    async def _watchdog_loop(self) -> None:
+        """Poll the running dispatch (engine.py:800-819): a label's first
+        dispatch gets ``watchdog_cold_s`` (a graph capture may ride it; the
+        factory builds the kernels before the first request), later ones
+        max(``watchdog_min_s``, ``watchdog_mult`` x the label's EMA)."""
+        cfg = self.config
+        poll = max(0.02, min(1.0, cfg.watchdog_min_s / 4))
+        while not self._closed:
+            await asyncio.sleep(poll)
+            info = self._dispatch_info
+            if info is None:
+                continue
+            label, t0 = info
+            elapsed = time.monotonic() - t0
+            ema = self._dispatch_ema.get(label)
+            budget = (cfg.watchdog_cold_s if ema is None
+                      else max(cfg.watchdog_min_s, cfg.watchdog_mult * ema))
+            if elapsed > budget:
+                self._trip_watchdog(label, elapsed, budget)
+                return
+
+    def _trip_watchdog(self, label: str, elapsed: float, budget: float) -> None:
+        """A dispatch wedged past its budget: every lane fails with
+        ``watchdog_stuck``, new work is refused (``worker_unavailable``)
+        and ``on_watchdog_trip`` fires, instead of every stream hanging.
+        Admitted sequences keep their blocks: the wedged dispatch may still
+        write them, and this engine serves no more."""
+        self.stats.watchdog_trips += 1
+        self._tripped = True
+        self._closed = True  # the loop ends when (if) the dispatch returns
+        cause = f"watchdog: {label} dispatch stuck {elapsed:.1f}s (budget {budget:.1f}s)"
+        logger.error("%s -- failing all lanes, marking the worker unhealthy", cause)
+        for seq in list(self.waiting):
+            self.waiting.remove(seq)
+            seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, "queue", cause,
+                                                           "watchdog_stuck"))
+        for seq in list(self._admit_order):
+            seq.ctx.kill()
+            seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, label, cause,
+                                                           "watchdog_stuck"))
+        if self.on_watchdog_trip is not None:
+            try:
+                self.on_watchdog_trip()
+            except Exception:  # noqa: BLE001 - the trip itself must complete
+                logger.exception("on_watchdog_trip raised")
+
+    # ------------------------------------------------- tiers and KV events
+
+    def checkpoint_tiers(self, directory: Optional[str] = None) -> Optional[dict]:
+        """Warm restart (engine.py:881-893): checkpoint the tiers and the
+        prefix index to ``directory`` (default ``DYN_WARM_RESTART_DIR``);
+        None without tiers or a directory, or when the checkpoint failed
+        (logged: it must not block an exit)."""
+        d = directory or os.environ.get("DYN_WARM_RESTART_DIR")
+        if not d or self.block_manager is None:
+            return None
+        try:
+            return self.block_manager.checkpoint(d)
+        except Exception:  # noqa: BLE001
+            logger.exception("warm-restart checkpoint failed")
+            return None
+
+    def restore_tiers(self, directory: Optional[str] = None) -> Optional[dict]:
+        """Boot side of a warm restart (engine.py:895-907): verified
+        checkpoint pages back into the tiers (corrupt ones refused); call it
+        before serving. A failed restore is a cold boot (logged)."""
+        d = directory or os.environ.get("DYN_WARM_RESTART_DIR")
+        if not d or self.block_manager is None:
+            return None
+        try:
+            return self.block_manager.restore(d)
+        except Exception:  # noqa: BLE001
+            logger.exception("warm-restart restore failed")
+            return None
+
+    async def clear_kv_blocks(self) -> dict:
+        """Drop the reusable KV state (engine.py:909-936): the host and disk
+        tiers and the hash bookkeeping of the KV events. Running sequences
+        keep their device blocks; their chains are published (and queued
+        for offload) again from their next block on."""
+        tier_blocks = 0
+        if self.block_manager is not None:
+            s = self.block_manager.stats
+            tier_blocks = s.host_blocks_used + s.disk_blocks_used
+            self.block_manager.clear()
+        self._hash_refs.clear()
+        for seq in self._admit_order:
+            seq.emitted_hashes = 0
+            seq.offload_mark = 0
+        if self.on_cache_cleared is not None:
+            self.on_cache_cleared()
+        return {
+            "status": "cleared",
+            "offload_blocks_dropped": tier_blocks,
+            "active_sequences_kept": sum(1 for s in self.slots if s is not None),
+        }
+
+    def _set_chain(self, seq: _Sequence) -> None:
+        """The sequence's prefill is done: its hash chain (the one built for
+        the prefix lookup when there was one) and the Stored events of its
+        complete blocks."""
+        seq.hash_seq = seq.pending_chain or TokenBlockSequence(
+            list(seq.token_ids), self.config.block_size)
+        seq.pending_chain = None
+        self._emit_stored(seq)
+
+    def _emit_stored(self, seq: _Sequence) -> None:
+        """Stored events for the newly complete blocks, and their offload
+        once KV-complete (engine.py:940-995)."""
+        if seq.hash_seq is None:
+            return
+        blocks = seq.hash_seq.blocks
+        new = blocks[seq.emitted_hashes:]
+        for b in new:
+            self._hash_refs[b.block_hash] = self._hash_refs.get(b.block_hash, 0) + 1
+        bm = self.block_manager
+        if self._offload_queue is not None:
+            # mid-generation offload: a block becomes a host-tier candidate
+            # as soon as its KV is complete, which lags its hash by a token
+            # (kv_written), hence the separate offload_mark cursor
+            ready = min(len(blocks), seq.kv_written // self.config.block_size)
+            if ready > seq.offload_mark:
+                self._offload_queue.enqueue(seq, [
+                    (b.block_hash, b.position) for b in blocks[seq.offload_mark:ready]
+                    if b.block_hash not in bm and not bm.is_quarantined(b.block_hash)
+                ])
+                seq.offload_mark = ready
+        seq.emitted_hashes = len(blocks)
+        if not new or self.on_blocks_stored is None:
+            return
+        # a quarantined hash is never offered for prefix reuse again
+        self.on_blocks_stored([
+            {"block_hash": b.block_hash, "parent_hash": b.parent_hash, "tokens": b.tokens,
+             "block_id": seq.block_ids[b.position] if b.position < len(seq.block_ids) else -1}
+            for b in new if bm is None or not bm.is_quarantined(b.block_hash)
+        ])
+
+    def _emit_removed(self, seq: _Sequence) -> None:
+        """Removed events for the hashes whose last holder this sequence
+        was."""
+        if seq.hash_seq is None:
+            return
+        last_refs: list[int] = []
+        for b in seq.hash_seq.blocks[:seq.emitted_hashes]:
+            n = self._hash_refs.get(b.block_hash, 0) - 1
+            if n <= 0:
+                self._hash_refs.pop(b.block_hash, None)
+                last_refs.append(b.block_hash)
+            else:
+                self._hash_refs[b.block_hash] = n
+        if last_refs and self.on_blocks_removed is not None:
+            self.on_blocks_removed(last_refs)
+
+    def _tier_on_device(self) -> bool:
+        """Whether blocks move between the cache and the tiers as the
+        cache's own pages (a raw tier of the cache's dtype, or int8 tiers
+        over an int8-resident cache: verbatim); else the tier codec runs on
+        the host, over ``extract_blocks`` / ``inject_blocks``."""
+        runner, bm = self.runner, self.block_manager
+        if runner.kv_quantized:
+            return bm.wire_codec == "int8"
+        return bm.wire_codec == "raw" and bm.layout.dtype == dtype_name(runner.kv_logical_dtype)
+
+    def _offload_pairs(self, seq: _Sequence) -> list[tuple[int, int]]:
+        """(hash, chain index) of the sequence's offloadable blocks:
+        KV-complete (``kv_written``), on the device and not in a tier yet."""
+        kv_complete = seq.kv_written // self.config.block_size
+        n = min(len(seq.block_ids), kv_complete)
+        return [(b.block_hash, i) for i, b in enumerate(seq.hash_seq.blocks[:n])
+                if b.block_hash not in self.block_manager]
+
+    def _maybe_offload(self, seq: _Sequence, reason: FinishReason) -> None:
+        """At a normal end, the sequence's full blocks go to the host tier
+        before its device blocks are recycled (engine.py:1108-1127): the
+        offload task owns them until the copy is done."""
+        if (self.block_manager is None or self._closed or seq.hash_seq is None
+                or not seq.block_ids or reason in (FinishReason.ERROR, FinishReason.CANCELLED)):
+            return
+        pairs = [(h, seq.block_ids[i]) for h, i in self._offload_pairs(seq)]
+        if not pairs:
+            return
+        owned, seq.block_ids = seq.block_ids, []
+        self._spawn_tier_task(self._offload_task(owned, pairs))
+
+    def _spill_preempted(self, victim: _Sequence) -> None:
+        """A preempted sequence's KV-complete blocks not in a tier yet go to
+        an offload task; the rest free at once (engine.py:1364-1397). At
+        least one block always frees now (the newest spill candidate is
+        given up: dropping the oldest would leave the spill unreachable,
+        lookups count only leading hits), so the preemptor's allocation
+        succeeds without waiting for the copy."""
+        if (self.block_manager is None or self._closed or victim.hash_seq is None
+                or not victim.block_ids):
+            return
+        pairs = self._offload_pairs(victim)
+        if len(pairs) >= len(victim.block_ids):
+            pairs = pairs[:-1]
+        if not pairs:
+            return
+        spill = {i for _, i in pairs}
+        owned = [victim.block_ids[i] for _, i in pairs]
+        hash_block = [(h, victim.block_ids[i]) for h, i in pairs]
+        victim.block_ids = [b for i, b in enumerate(victim.block_ids) if i not in spill]
+        self.stats.preempt_spills += 1
+        self._spawn_tier_task(self._offload_task(owned, hash_block))
+
+    def _spawn_tier_task(self, coro) -> asyncio.Task:
+        t = asyncio.get_running_loop().create_task(coro)
+        self._tier_tasks.add(t)
+        t.add_done_callback(self._tier_tasks.discard)
+        return t
+
+    async def drain_offloads(self) -> None:
+        """Wait until no offload task is in flight (the mid-generation
+        queue is drained by the loop between dispatches)."""
+        while self._tier_tasks:
+            await asyncio.gather(*list(self._tier_tasks), return_exceptions=True)
+
+    async def _offload_task(self, owned: list[int], pairs: list[tuple[int, int]]) -> None:
+        try:
+            await self._copy_blocks_to_tier([b for _, b in pairs], [h for h, _ in pairs])
+        finally:
+            # the copy is done (or failed): the device blocks recycle now
+            self.allocator.free(owned)
+            self._wake.set()
+
+    async def _copy_blocks_to_tier(self, ids: list[int], hashes: list[int]) -> None:
+        """Device blocks ``ids`` into the host tier under ``hashes``, on the
+        device thread: the pages straight into arena slots, or through the
+        host codec. Best-effort as in the reference (a failure loses reuse,
+        never output), but every failure is counted in
+        ``kv_offload_errors`` and logged."""
+        bm, runner = self.block_manager, self.runner
+        try:
+            if self._tier_on_device():
+                stored = await self._device(
+                    lambda: bm.store_blocks_device(hashes, *runner.extract_pages(ids)),
+                    "kv_offload")
+            else:
+                k, v = await self._device(lambda: runner.extract_blocks(ids), "kv_offload")
+                stored = await asyncio.to_thread(bm.store_blocks, hashes, k, v)
+        except Exception:  # noqa: BLE001 - best-effort, counted
+            self.stats.kv_offload_errors += 1
+            logger.exception("offloading %d block(s) failed", len(ids))
+            return
+        self.stats.kv_offloaded_blocks += stored
+        self._offload_queue.stats.offloaded += stored
+
+    async def _drain_offload(self) -> None:
+        """Copy up to ``offload_per_step`` queued mid-generation blocks to
+        the host tier (engine.py:1226-1241). On the loop between phases, so
+        a candidate cannot go stale before its copy is queued."""
+        q = self._offload_queue
+        if q is None or not len(q) or self.config.offload_per_step <= 0:
+            return
+        cands = q.pop_valid(self.config.offload_per_step, self.block_manager)
+        if cands:
+            await self._copy_blocks_to_tier([b for _, _, b in cands], [h for _, h, _ in cands])
+
+    async def _onboard_prefix(self, seq: _Sequence) -> int:
+        """Inject the sequence's cached prefix blocks from the tiers into
+        its leading device blocks, in place (engine.py:2195-2237); returns
+        how many. A failure (a checksum, a race with eviction) onboards
+        nothing: the prefix is recomputed, and the failure is counted in
+        ``kv_onboard_errors`` and logged."""
+        cached = seq.cached_prefix_blocks
+        bm, runner = self.block_manager, self.runner
+        if bm is None or not cached:
+            return 0
+        hashes, ids = seq.prefix_hashes[:cached], seq.block_ids[:cached]
+        try:
+            if self._tier_on_device():
+                await self._device(
+                    lambda: runner.inject_pages(ids, *bm.load_blocks_device(hashes, runner.device)),
+                    "kv_onboard")
+            else:
+                k, v = await asyncio.to_thread(bm.load_blocks, hashes)
+                await self._device(lambda: runner.inject_blocks(ids, k, v), "kv_onboard")
+        except Exception:  # noqa: BLE001 - the prefix is recomputed, counted
+            self.stats.kv_onboard_errors += 1
+            logger.exception("onboarding %d prefix block(s) of seq %d failed", cached,
+                             seq.seq_id)
+            return 0
+        self.stats.kv_onboarded_blocks += cached
+        return cached
 
     # ---------------------------------------------------------- main loop
 
@@ -574,6 +1007,7 @@ class TorchEngine:
             while not self._closed:
                 self._reap_cancelled()
                 self._process_landed()
+                await self._drain_offload()
                 admitted = await self._admit_phase()
                 if self._prefilling:
                     active = self._decode_lanes()
@@ -637,13 +1071,20 @@ class TorchEngine:
 
     async def _admit_phase(self) -> bool:
         """Admit from the head of the queue while a lane and blocks are free
-        (``JaxEngine._admit_phase``, engine.py:1549-1760); a prompt the
-        disagg router ships goes to a remote-prefill task (:1631-1659), the
-        others to the chunk / pack routing. Not ported, and so not branched
-        on here: the block manager's prefix lookup and onboarding (ROADMAP
-        A7), multimodal prompts (A6) and QoS re-admission backoff (A7)."""
+        (``JaxEngine._admit_phase``, engine.py:1549-1760). With a block
+        manager the prompt's hash chain is looked up in the tiers first
+        (:1586-1632); a prompt the disagg router ships (given the hit's
+        length) goes to a remote-prefill task (:1633-1655), the others to
+        the chunk / pack routing, where a hit that skips at least one full
+        block is onboarded and chunked from after it, even a short prompt:
+        the chunked prefill is the one that starts at an offset, and the
+        final chunk keeps at least one token (:1662-1690). Not ported, and
+        so not branched on here: multimodal prompts (A6), QoS re-admission
+        backoff and the peer tier (A7)."""
         admitted = False
         C = self.runner.prefill_chunk_tokens
+        bs = self.config.block_size
+        bm = self.block_manager
         to_pack: list[_Sequence] = []
         idx = 0
         while idx < len(self.waiting):
@@ -656,7 +1097,13 @@ class TorchEngine:
                 break
             self.waiting.pop(idx)
             admitted = True
-            if await self._use_remote(seq):
+            hit_len = 0
+            if bm is not None:
+                seq.pending_chain = TokenBlockSequence(list(seq.token_ids), bs)
+                seq.prefix_hashes = [b.block_hash for b in seq.pending_chain.blocks]
+                seq.cached_prefix_blocks = bm.lookup_prefix(seq.prefix_hashes)
+                hit_len = seq.cached_prefix_blocks * bs
+            if await self._use_remote(seq, hit_len):
                 # the sequence holds its lane and blocks and joins the
                 # decode batch when its KV lands
                 seq.pending_remote = True
@@ -666,9 +1113,14 @@ class TorchEngine:
                 task.add_done_callback(self._remote_tasks.discard)
                 continue
             # after a preemption the replay is prompt + generated tokens
-            if C and len(seq.token_ids) > C:
+            n = len(seq.token_ids)
+            skippable = min(seq.cached_prefix_blocks, (n - 1) // bs) if bm is not None else 0
+            if C and (n > C or skippable > 0):
                 seq.prefilling = True
                 seq.prefill_pos = 0
+                if skippable:
+                    onboarded = await self._onboard_prefix(seq)
+                    seq.prefill_pos = min(onboarded, (n - 1) // bs) * bs
                 self._prefilling.append(seq)
             elif C:
                 to_pack.append(seq)
@@ -703,11 +1155,12 @@ class TorchEngine:
                 replay, seq.block_ids, seq.temperature, seq.top_p,
                 seq.top_k, rep_pen=seq.rep_pen, key_data=key_row,
                 eos_ids=seq.eos_row, eos_suppress=eos_suppress,
-            ))
+            )), "prefill"
         )
         self.stats.prefills += 1
         if seq.slot is None:  # cancelled during the device call
             return
+        self._set_chain(seq)
         tok, lp, tids, tlps = sample
         self._append_token(seq, int(tok[0]), float(lp[0]), tids[0], tlps[0])
 
@@ -723,11 +1176,12 @@ class TorchEngine:
         runner = self.runner
         packed = runner.pack_prefill(specs)
         toks, lps, tids, tlps = await self._device(
-            lambda: runner.fetch_sample(runner.prefill_packed_arrays(**packed)))
+            lambda: runner.fetch_sample(runner.prefill_packed_arrays(**packed)), "prefill_packed")
         self.stats.packed_prefills += 1
         for i, seq in enumerate(group):
             if seq.slot is None:  # preempted by an earlier segment's growth
                 continue
+            self._set_chain(seq)
             self._append_token(seq, int(toks[i]), float(lps[i]), tids[i], tlps[i])
 
     async def _prefill_chunk_step(self) -> None:
@@ -752,7 +1206,7 @@ class TorchEngine:
             )
             return runner.fetch_sample(out) if final else None
 
-        sample = await self._device(run_chunk)
+        sample = await self._device(run_chunk, "prefill_chunk")
         self.stats.chunk_steps += 1
         if seq.slot is None:  # cancelled during the device call
             return
@@ -760,6 +1214,7 @@ class TorchEngine:
         if seq.prefill_pos >= total:
             self._prefilling.remove(seq)
             seq.prefilling = False
+            self._set_chain(seq)
             tok, lp, tids, tlps = sample
             self._append_token(seq, int(tok[0]), float(lp[0]), tids[0], tlps[0])
 
@@ -834,7 +1289,7 @@ class TorchEngine:
             fetch = [t for i in final_slots for t in chunk_outs[i]]
             return runner.fetch_sample((*fetch, *d_out))
 
-        out = await self._device(run_mixed)
+        out = await self._device(run_mixed, "mixed_step")
         self.stats.mixed_steps += 1
         final_samples = {slot: out[4 * j:4 * j + 4] for j, slot in enumerate(final_slots)}
         toks, lps, tids, tlps = out[4 * len(final_slots):]
@@ -843,6 +1298,7 @@ class TorchEngine:
             if seq.prefill_pos >= len(seq.token_ids):
                 self._prefilling.remove(seq)
                 seq.prefilling = False
+                self._set_chain(seq)
         for i, (seq, _, _) in enumerate(packed):
             if i in final_samples and seq.slot is not None:
                 tok, lp, tid, tlp = final_samples[i]
@@ -990,7 +1446,8 @@ class TorchEngine:
         )
         try:
             packed = await self._device(
-                lambda: runner.decode_multi(H, *args, penalties=penalties).cpu().numpy())
+                lambda: runner.decode_multi(H, *args, penalties=penalties).cpu().numpy(),
+                f"decode_multi@H{H}")
         except Exception:
             if not self.config.lazy_horizon:
                 raise
@@ -1060,7 +1517,7 @@ class TorchEngine:
         )
         toks, lps, tids, tlps = await self._device(
             lambda: runner.fetch_sample(runner.decode(
-                *args[:7], keys=args[7], penalties=penalties, eos_mask=eos_mask))
+                *args[:7], keys=args[7], penalties=penalties, eos_mask=eos_mask)), "decode"
         )
         self.stats.decode_steps += 1
         for seq in active:
@@ -1147,7 +1604,8 @@ class TorchEngine:
         )
         # one device-to-host copy of the packed [S + E, B, 2 + 2K] samples
         packed = await self._device(
-            lambda: runner.spec_verify(K, E, *args, penalties=penalties).cpu().numpy())
+            lambda: runner.spec_verify(K, E, *args, penalties=penalties).cpu().numpy(),
+            "spec_verify")
         self.stats.verify_steps += 1
         self.stats.verify_chained_steps += E
         n_top = (packed.shape[-1] - 2) // 2
@@ -1207,6 +1665,9 @@ class TorchEngine:
                 self._finish(seq, FinishReason.EOS)
             return
         seq.token_ids.append(token)
+        if seq.hash_seq is not None:
+            seq.hash_seq.append(token)
+            self._emit_stored(seq)
         out = LLMEngineOutput(token_ids=[token])
         if seq.want_logprobs:
             out.log_probs = [lp]
@@ -1245,16 +1706,17 @@ class TorchEngine:
 
     # ------------------------------------------ disaggregated prefill: decode
 
-    async def _use_remote(self, seq: _Sequence) -> bool:
-        """Whether the router ships this sequence's prefill (the queue depth
-        refreshed first when the router has a queue)."""
+    async def _use_remote(self, seq: _Sequence, hit_len: int) -> bool:
+        """Whether the router ships this sequence's prefill, given the
+        tokens its tier hit covers (the queue depth refreshed first when the
+        router has a queue)."""
         router = self.disagg_router
         if router is None or self.remote_prefill_client is None:
             return False
         refresh = getattr(router, "maybe_refresh", None)
         if refresh is not None:
             await refresh()
-        return router.prefill_remote(len(seq.token_ids), 0)
+        return router.prefill_remote(len(seq.token_ids), hit_len)
 
     @staticmethod
     def _kv_stream_enabled() -> bool:
@@ -1284,6 +1746,7 @@ class TorchEngine:
                         seq.ctx.id, "remote_prefill", "landing remote prefill failed",
                         "remote_prefill_failed"))
                 continue
+            self._set_chain(seq)
             token, lp, top = sample
             top_ids = np.array([t for t, _ in top or []], np.int32)
             top_lps = np.array([v for _, v in top or []], np.float32)
@@ -1294,7 +1757,10 @@ class TorchEngine:
         the loop (engine.py:2088-2193). The client gets the whole keyword
         surface of the reference's call. A killed sequence or a cancelled
         stream finishes it; a failure, an error answer or a stream that
-        lost a frame falls back to a local prefill on this device."""
+        lost a frame falls back to a local prefill on this device. The
+        sequence's cached prefix is onboarded first and not shipped
+        (``cached_blocks``, :2102-2127)."""
+        cached = await self._onboard_prefix(seq)
         stream = self._kv_stream_enabled()
         landed: set[int] = set()
 
@@ -1304,7 +1770,7 @@ class TorchEngine:
         try:
             resp = await self.remote_prefill_client.prefill(
                 list(seq.token_ids), temperature=seq.temperature, top_p=seq.top_p,
-                top_k=seq.top_k, cached_blocks=0, rep_pen=seq.rep_pen,
+                top_k=seq.top_k, cached_blocks=cached, rep_pen=seq.rep_pen,
                 key_data=self._key_row(seq), eos_ids=seq.eos_row,
                 eos_suppress=seq.needs_eos_suppress, stream=stream,
                 on_frame=on_frame if stream else None, deadline=None, ctx=seq.ctx, extra=None,
@@ -1336,7 +1802,7 @@ class TorchEngine:
         elif resp is not None and resp.streamed_blocks:
             # every block before the final payload must have landed from a
             # frame: a lost frame would leave a hole in the KV
-            missing = set(range(resp.first_block)) - landed
+            missing = set(range(cached, resp.first_block)) - landed
             if missing:
                 logger.warning("seq %d: the stream lost %d block(s); falling back local",
                                seq.seq_id, len(missing))
@@ -1358,7 +1824,7 @@ class TorchEngine:
                 ids = seq.block_ids[resp.first_block:resp.first_block + resp.num_blocks]
                 if ids:
                     k, v = resp.k_dev[:, :, :len(ids)], resp.v_dev[:, :, :len(ids)]
-                    await self._device(lambda: runner.inject_blocks_device(ids, k, v))
+                    await self._device(lambda: runner.inject_blocks_device(ids, k, v), "kv_inject")
             elif resp.payload is not None:
                 self.stats.kv_wire_bytes_rx += resp.payload.wire_nbytes
                 ids = seq.block_ids[resp.first_block:resp.first_block + resp.payload.num_blocks]
@@ -1375,7 +1841,7 @@ class TorchEngine:
                 replay, seq.block_ids, seq.temperature, seq.top_p, seq.top_k,
                 rep_pen=seq.rep_pen, key_data=key_row, eos_ids=seq.eos_row,
                 eos_suppress=eos_suppress,
-            ))
+            )), "prefill"
         )
         return int(tok[0]), float(lp[0]), [[int(t), float(v)] for t, v in zip(tids[0], tlps[0])]
 
@@ -1389,10 +1855,10 @@ class TorchEngine:
         if payload.codec == "int8" and runner.kv_quantized:
             kq, ks, vq, vs = await asyncio.to_thread(payload.quantized_arrays)
             await self._device(lambda: runner.inject_blocks_quant(
-                ids, kq[:, :, :n], ks[:, :, :n], vq[:, :, :n], vs[:, :, :n]))
+                ids, kq[:, :, :n], ks[:, :, :n], vq[:, :, :n], vs[:, :, :n]), "kv_inject")
             return
         k, v = await asyncio.to_thread(payload.decode)
-        await self._device(lambda: runner.inject_blocks(ids, k[:, :, :n], v[:, :, :n]))
+        await self._device(lambda: runner.inject_blocks(ids, k[:, :, :n], v[:, :, :n]), "kv_inject")
 
     async def _land_stream_frame(self, seq: _Sequence, frame: KvStreamFrame,
                                  landed: set) -> None:
@@ -1470,7 +1936,7 @@ class TorchEngine:
                     **args))
                 return sample, extract(ship) if ship else None
 
-            sample, data = await self._device(run)
+            sample, data = await self._device(run, "prefill")
         finally:
             self.allocator.free(block_ids)
         payload = None
@@ -1513,14 +1979,15 @@ class TorchEngine:
                 chunk = req.token_ids[pos:pos + C]
                 start = pos
                 out = await self._device(lambda: runner.prefill_chunk(
-                    chunk, start, T, block_ids, req.temperature, req.top_p, req.top_k, **args))
+                    chunk, start, T, block_ids, req.temperature, req.top_p, req.top_k, **args),
+                    "prefill_chunk")
                 pos += len(chunk)
                 # the blocks this chunk completed; the partial tail waits for
                 # the final frame, so each block lands exactly once
                 upto = pos // bs
                 if pos < T and upto > shipped:
                     ids = block_ids[shipped:upto]
-                    data = await self._device(lambda: extract(ids))
+                    data = await self._device(lambda: extract(ids), "kv_extract")
                     payload = await asyncio.to_thread(build, data)
                     frame = KvStreamFrame(request_id=req.request_id, seq=frames,
                                           first_block=shipped, payload=payload)
@@ -1534,7 +2001,7 @@ class TorchEngine:
                 return None
             ship = block_ids[shipped:]
             sample, data = await self._device(
-                lambda: (runner.fetch_sample(out), extract(ship) if ship else None))
+                lambda: (runner.fetch_sample(out), extract(ship) if ship else None), "kv_extract")
         finally:
             self.allocator.free(block_ids)
         payload = None
@@ -1562,7 +2029,7 @@ class TorchEngine:
                     **args))
                 return sample, runner.extract_blocks_device(ship) if ship else (None, None, 0)
 
-            sample, (k, v, n) = await self._device(run)
+            sample, (k, v, n) = await self._device(run, "prefill")
         finally:
             self.allocator.free(block_ids)
         return self._served(req, sample, DevicePrefillResponse, k_dev=k, v_dev=v, num_blocks=n,

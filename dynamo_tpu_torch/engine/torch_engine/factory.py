@@ -15,6 +15,13 @@ spawn, rendezvous on a free local port); each rank builds its own slice of
 the same seeded or loaded parameters and its own KV pool, and the leader's
 engine drives every rank through parallel/multihost.SpmdModelRunner.
 Closing the engine stops the followers.
+
+The tiered block manager (``_maybe_block_manager``, the JAX factory's
+:212-270): ``DYN_KV_HOST_OFFLOAD_GB`` > 0 gives the engine a host tier of
+that many GiB in whole blocks of its own KV block size (pinned on a card),
+``DYN_KV_DISK_DIR`` a disk tier capped at ``DYN_KV_DISK_GB`` (0: no cap);
+``DYN_KV_WIRE=int8`` stores the tiers quantized, and an int8-resident cache
+forces int8 tiers (its pages move verbatim). Unset, there is none.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from typing import Optional, Union
 import torch
 import torch.multiprocessing as mp
 
+from dynamo_tpu_torch.block_manager import LayoutConfig, TieredBlockManager
 from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.disagg.protocols import dtype_name, wire_codec_from_env
 from dynamo_tpu_torch.engine.torch_engine.engine import (
     TorchEngine,
     TorchEngineConfig,
@@ -191,6 +200,36 @@ def spec_decode_settings() -> dict:
         "spec_ngram_max": max(1, int(env("DYN_SPEC_NGRAM_MAX", "4") or 4)),
         "spec_min_coverage": float(env("DYN_SPEC_COVERAGE", "0.5") or 0.5),
     }
+
+
+def _maybe_block_manager(cfg: LlamaConfig, runner: TorchModelRunner) -> Optional[TieredBlockManager]:
+    """The host (and disk) tiers the environment asks for, sized in whole
+    blocks of the runner's KV block; None when ``DYN_KV_HOST_OFFLOAD_GB``
+    is unset or 0."""
+    gb = float(os.environ.get("DYN_KV_HOST_OFFLOAD_GB", "0") or 0)
+    if gb <= 0:
+        return None
+    if getattr(runner, "group", None) is not None:
+        raise NotImplementedError(
+            "the tiered block manager (DYN_KV_HOST_OFFLOAD_GB) under a tensor-parallel group is "
+            "not ported yet (each rank holds Hkv / tp heads; ROADMAP.md A8)")
+    layout = LayoutConfig(num_layers=cfg.num_layers, page_size=runner.block_size,
+                          num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                          dtype=dtype_name(runner.kv_logical_dtype))
+    codec = "int8" if runner.kv_quantized else wire_codec_from_env()
+    block_nbytes = layout.block_nbytes
+    if codec == "int8":
+        block_nbytes //= layout.itemsize  # int8 mantissas
+    host_blocks = max(1, int(gb * 2**30 // block_nbytes))
+    disk_dir = os.environ.get("DYN_KV_DISK_DIR") or None
+    disk_blocks = 0
+    if disk_dir:
+        disk_blocks = int(float(os.environ.get("DYN_KV_DISK_GB", "0") or 0) * 2**30 // block_nbytes)
+    logger.info("KV offload tiers: host %d blocks (%.2f GiB, codec %s)%s", host_blocks, gb, codec,
+                f", disk at {disk_dir} ({disk_blocks or 'unbounded'} blocks)" if disk_dir else "")
+    return TieredBlockManager(layout, host_blocks=host_blocks, disk_dir=disk_dir,
+                              disk_blocks=disk_blocks, wire_codec=codec,
+                              pin_memory=runner.device.type == "cuda")
 
 
 def _resolve_config(config) -> tuple[LlamaConfig, Optional[str]]:
@@ -356,7 +395,12 @@ def build_torch_engine(
     On the card, a config whose shapes a kernel of its path would refuse
     raises ValueError here, before any request (and before the card is
     looked for), naming each refusal; nothing falls back to a plain
-    version."""
+    version. Every kernel library is built here, before the first request,
+    so no dispatch waits for nvcc under the watchdog's budget.
+
+    The tiered block manager comes from ``DYN_KV_HOST_OFFLOAD_GB`` and the
+    other knobs of the module docstring; under a tensor-parallel group it
+    raises NotImplementedError (ROADMAP A8)."""
     cfg, model_dir = _resolve_config(config)
     if expert_parallel_size > 1:
         raise NotImplementedError(
@@ -437,6 +481,10 @@ def build_torch_engine(
         if params is None:
             params = load_or_init_params(model_dir, cfg, seed=seed, device=dev, dtype=dtype,
                                          quantize=quantize)
+        if on_card:
+            from dynamo_tpu_torch.ops import _build
+
+            _build.build_all()
         runner = TorchModelRunner(cfg, params, device=dev, cuda_graphs=cuda_graphs, **runner_kw)
     return TorchEngine(
         runner,
@@ -446,6 +494,7 @@ def build_torch_engine(
             mixed_step=chunking.mixed_step, decode_horizon=decode_horizon,
             lazy_horizon=lazy_horizon, **spec,
         ),
+        block_manager=_maybe_block_manager(cfg, runner),
     )
 
 

@@ -988,6 +988,37 @@ class TorchModelRunner:
         idx = self._block_index(block_ids, writes=True)
         self._scatter(idx, (self._host_blocks(k_blocks), self._host_blocks(v_blocks)))
 
+    def _pages(self) -> list[torch.Tensor]:
+        """The cache's own planes: K, V (or K, V mantissas and their
+        scales for an int8 cache)."""
+        if self.kv_quantized:
+            return [self.k_cache["q"], self.v_cache["q"], self.k_cache["s"], self.v_cache["s"]]
+        return [self.k_cache, self.v_cache]
+
+    @torch.inference_mode()
+    def extract_pages(self, block_ids: list[int]) -> tuple[torch.Tensor, ...]:
+        """The blocks in the cache's own form, blocks first, left on the
+        device for the tiered block manager: (k, v) [n, L, Hkv, bs, D], or
+        for an int8 cache (kq, vq, ks, vs) with [n, L, Hkv] scales: one
+        gather per plane, no dequantize."""
+        idx = self._block_index(block_ids)
+        return tuple(p.movedim(2, 0).index_select(0, idx) for p in self._pages())
+
+    @torch.inference_mode()
+    def inject_pages(self, block_ids: list[int], *pages: torch.Tensor) -> None:
+        """``extract_pages``' inverse, in place: blocks-first planes (on any
+        device) written at ``block_ids``, so captured graphs keep the
+        cache's addresses."""
+        idx = self._block_index(block_ids, writes=True)
+        planes = self._pages()
+        if len(pages) != len(planes):
+            raise ValueError(f"{len(pages)} planes for a cache of {len(planes)}")
+        for c, p in zip(planes, pages):
+            if tuple(p.shape) != (idx.shape[0], *c.movedim(2, 0).shape[1:]) or p.dtype != c.dtype:
+                raise ValueError(f"pages {tuple(p.shape)} {p.dtype} for {idx.shape[0]} block ids "
+                                 f"of a {c.dtype} cache")
+            c.index_copy_(2, idx, p.to(self.device).movedim(0, 2))
+
     # ------------------------------------------------- inputs and graphs
 
     def _sampling_fields(self, B: int, nb: int) -> dict:

@@ -40,7 +40,23 @@ class EngineConfig:
         return cls(engine=engine, mdc=mdc)
 
     def execution(self) -> ModelExecution:
-        return ModelExecution(self.mdc, self.engine.generate)
+        return ModelExecution(self.mdc, self.engine.generate,
+                              clear_fn=_local_clear_fn(self.engine))
+
+
+def _local_clear_fn(engine: Any) -> Optional[Any]:
+    """A local engine's ``clear_kv_blocks()`` (one dict) as the
+    ``ModelExecution.clear_fn`` contract (a list of per-worker dicts), as
+    dynamo_tpu/entrypoint/inputs.py:129-139; None when the engine has
+    none."""
+    inner = getattr(engine, "clear_kv_blocks", None)
+    if inner is None:
+        return None
+
+    async def clear_fn() -> list[dict]:
+        return [{"instance": "local", **await inner()}]
+
+    return clear_fn
 
 
 async def run_input(

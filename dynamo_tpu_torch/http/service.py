@@ -6,7 +6,9 @@ on ``asyncio.start_server`` in place of aiohttp, which the card's machine
 lacks. Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
 (SSE when ``stream`` is set, else one JSON body folded from the same
 stream; ``n`` >= 1 choices merged into one stream), ``GET /v1/models`` and
-``GET /health``; any other route gets 404 with the reference's error
+``GET /health``, and the admin route ``POST /clear_kv_blocks`` (every
+model's ``clear_fn``: its engine's reusable KV state dropped, the
+reference's per-worker-group answer); any other route gets 404 with the reference's error
 payload. A malformed body gets 400 ``invalid_request_error``, an unknown
 model 404 ``not_found_error``, image parts and tools 501
 ``not_implemented``.
@@ -125,9 +127,12 @@ def _error_body(payload: dict) -> dict:
 class ModelExecution:
     """Per-model chain: preprocess -> engine -> detokenize -> OpenAI chunks."""
 
-    def __init__(self, mdc: ModelDeploymentCard, engine_fn: EngineFn) -> None:
+    def __init__(self, mdc: ModelDeploymentCard, engine_fn: EngineFn,
+                 clear_fn: Optional[Callable] = None) -> None:
         self.mdc = mdc
         self.engine_fn = engine_fn
+        # async () -> [per-worker dict]: drops the workers' reusable KV
+        self.clear_fn = clear_fn
         self.preprocessor = OpenAIPreprocessor(mdc)
         self.backend = Backend(self.preprocessor.tokenizer)
 
@@ -436,6 +441,7 @@ class HttpService:
             ("POST", "/v1/completions"): self._completions,
             ("GET", "/v1/models"): self._models,
             ("GET", "/health"): self._health,
+            ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
         }
 
     # ---------------------------------------------------------- lifecycle
@@ -639,6 +645,30 @@ class HttpService:
     async def _health(self, conn: _Connection, req: _Request, ctx: Context) -> None:
         await conn.send_json(200, {"status": "healthy", "models": self.manager.list_models()},
                              keep_alive=req.keep_alive)
+
+    async def _clear_kv_blocks(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """Drop every worker group's reusable KV state (the reference's
+        service.py:1431-1460): per model, cleared with its workers' answers,
+        or failed (no ``clear_fn``, or it raised)."""
+        models = self.manager.list_models()
+        if not models:
+            await conn.send_json(200, {"message": "No active worker groups found"},
+                                 keep_alive=req.keep_alive)
+            return
+        cleared, failed = [], []
+        for name in models:
+            execution = self.manager.get(name)
+            if execution is None or execution.clear_fn is None:
+                failed.append({"name": name,
+                               "status": "worker group doesn't support clear_kv_blocks"})
+                continue
+            try:
+                results = await execution.clear_fn()
+                cleared.append({"name": name, "status": "cleared", "workers": results})
+            except Exception as e:  # noqa: BLE001 - reported per group
+                failed.append({"name": name, "status": "error", "error": str(e)})
+        await conn.send_json(200, {"cleared_worker_groups": cleared,
+                                   "failed_worker_groups": failed}, keep_alive=req.keep_alive)
 
 
 async def _prepend(first: Optional[Annotated], rest: AsyncIterator[Annotated]) -> AsyncIterator[Annotated]:

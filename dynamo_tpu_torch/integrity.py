@@ -16,8 +16,11 @@ the same number as the JAX package's, so payloads cross between the two.
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 from typing import Optional
+
+logger = logging.getLogger("dynamo_tpu_torch.integrity")
 
 try:  # GB/s-class non-cryptographic hash when the wheel is around
     import xxhash as _xxhash
@@ -71,3 +74,32 @@ def checksum_with(algo: str, *chunks: bytes) -> Optional[int]:
     if algo == "xxh3" and _xxhash is not None:
         return _xxh3(chunks)
     return None
+
+
+class IntegrityCounters:
+    """Process-wide integrity counters, all monotonic (the JAX package's
+    ``IntegrityCounters`` without its fencing plane): verification failures
+    per path (``tier_host``, ``tier_disk``, ``warm_restore``) and hashes
+    quarantined."""
+
+    def __init__(self) -> None:
+        self.failures: dict[str, int] = {}
+        self.blocks_quarantined = 0
+
+    def integrity_failure(self, path: str, detail: str = "") -> None:
+        self.failures[path] = self.failures.get(path, 0) + 1
+        logger.warning("KV integrity failure on %s%s", path, f": {detail}" if detail else "")
+
+    def quarantine(self, n: int = 1) -> None:
+        self.blocks_quarantined += n
+
+    def snapshot(self) -> dict:
+        return {"integrity_failures_by_path": dict(self.failures),
+                "blocks_quarantined": self.blocks_quarantined}
+
+    def reset(self) -> None:
+        self.failures.clear()
+        self.blocks_quarantined = 0
+
+
+COUNTERS = IntegrityCounters()

@@ -18,6 +18,13 @@ when asked for: without a card and without that flag the command raises.
 serves the model across N rank processes, rank r on ``cuda:r`` over NCCL
 (on the CPU over gloo); ``DYN_FUSED_DECODE`` / ``DYN_COLLECTIVE_OVERLAP``
 pick the fused heads and the ring tail as in the reference.
+
+KV offload tiers come from the environment (``DYN_KV_HOST_OFFLOAD_GB``,
+``DYN_KV_DISK_DIR``, ``DYN_KV_DISK_GB``, ``DYN_KV_WIRE``: the factory's
+module docstring). With ``DYN_WARM_RESTART_DIR`` set, the tiers are
+restored from that directory's checkpoint before serving and checkpointed
+there again on a clean shutdown (SIGINT / SIGTERM, the end of a batch or
+of stdin).
 """
 
 from __future__ import annotations
@@ -125,10 +132,14 @@ async def amain(args: argparse.Namespace) -> None:
     from dynamo_tpu_torch.entrypoint.inputs import run_input
 
     config = build_config(args)
+    restored = config.engine.restore_tiers()
+    if restored is not None:
+        logging.getLogger("dynamo_tpu_torch.run").info("warm restart: %s", restored)
     try:
         await run_input(args.in_opt, config, args.http_port, args.http_host)
     finally:
         print(json.dumps({"exit_stats": exit_stats(config.engine)}), flush=True)
+        config.engine.checkpoint_tiers()
         await config.engine.close()
 
 

@@ -60,7 +60,9 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
                 "entrypoint/inputs.py", "ops/collective.py", "parallel/mesh.py",
                 "parallel/sharding.py", "parallel/multihost.py", "parallel/launch.py",
                 "integrity.py", "disagg/protocols.py", "disagg/router.py",
-                "disagg/colocated.py"):
+                "disagg/colocated.py", "tokens.py", "block_manager/__init__.py",
+                "block_manager/block.py", "block_manager/layout.py",
+                "block_manager/offload.py", "block_manager/manager.py"):
         assert f"dynamo_tpu_torch/{mod}" in scanned
     # every kernel the counters cover has its source beside the package, and
     # the build makes it: an int8 mode is its bf16 source's second entry
@@ -1567,6 +1569,60 @@ def test_blocks_move_between_two_runners_on_one_card(kv):
     for part in ("q", "s"):
         assert torch.equal(kb[part][:, :, dst], ka[part][:, :, src])
         assert torch.equal(b.v_cache[part][:, :, dst], a.v_cache[part][:, :, src])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_a_pinned_tier_round_trip_lands_in_place_under_a_captured_graph_on_card(kv):
+    """The tiered block manager's card path: a graphed runner's pages
+    (``extract_pages``) into a pinned host arena (``store_blocks_device``),
+    back onto the card (``load_blocks_device``, in another order too) and
+    into other blocks (``inject_pages``): every plane bitwise at every hop
+    (an int8 cache's mantissas and scales verbatim into int8 tiers), the
+    arena's numpy view holding the same bytes, the cache's addresses
+    unchanged, and the decode graph's replay over the landed blocks equal
+    to the eager step."""
+    _need_card()
+    from dynamo_tpu_torch.block_manager import LayoutConfig, TieredBlockManager
+
+    runner, tables, last = _graph_runner(kv, False)
+    decode = dict(_graph_calls(runner, tables, last, False))["decode"]
+    ptrs = [t.data_ptr() for t in _cache_leaves(runner)]
+    decode()  # captured here
+    cfg = runner.config
+    bm = TieredBlockManager(
+        LayoutConfig(num_layers=cfg.num_layers, page_size=GRAPH_BS, num_kv_heads=cfg.num_kv_heads,
+                     head_dim=cfg.head_dim, dtype="bfloat16"),
+        host_blocks=32, pin_memory=True, wire_codec="int8" if kv == "int8" else "raw")
+    assert bm.pinned
+    src = [int(b) for b in tables[7, :9]]  # 250 tokens' first 9 blocks
+    dst = [int(b) for b in tables[5, :9]]  # lane 5's 130 tokens' blocks
+    pages = runner.extract_pages(src)
+    hashes = list(range(1000, 1009))
+    assert bm.store_blocks_device(hashes, *pages) == 9
+    arenas = [bm._k_host, bm._v_host] + ([bm._k_scales_host, bm._v_scales_host]
+                                          if kv == "int8" else [])
+    for arena, page in zip(arenas, pages):
+        assert page.device.type == "cuda"
+        assert torch.equal(arena[:9], page.cpu().view(arena.dtype))
+    back = bm.load_blocks_device(hashes[::-1], runner.device)
+    for got, page in zip(back, pages):
+        assert got.device == page.device and torch.equal(got.flip(0).view(torch.uint8),
+                                                         page.view(torch.uint8))
+    loaded = bm.load_blocks_device(hashes, runner.device)
+    runner.inject_pages(dst, *loaded)
+    for plane in runner._pages():
+        assert torch.equal(plane[:, :, dst].view(torch.uint8), plane[:, :, src].view(torch.uint8))
+    landed = [t.clone() for t in _cache_leaves(runner)]
+    graphed = decode()
+    for t, s in zip(_cache_leaves(runner), landed):
+        t.copy_(s)
+    runner.cuda_graphs = False
+    eager = decode()
+    runner.cuda_graphs = True
+    assert [t.data_ptr() for t in _cache_leaves(runner)] == ptrs
+    assert np.array_equal(graphed, eager, equal_nan=True)
+    assert bm.stats.onboarded == 18 and bm.stats.integrity_failures == 0
 
 
 def _runner_like(runner):
