@@ -225,12 +225,38 @@ Phases, each of which must pass or the script exits non-zero:
                 recomputed on the CPU from its tokens; the dense reference on
                 the greedy streams. ``python3 chip_smoke.py --only
                 serve_offload`` runs the build and this phase alone.
+ 16. serve_fabric -- the port as a distributed deployment (last, after
+                serve_http, whose model directory it serves): the port's
+                fabric server, two ``run in=dyn://dynamo.backend.generate
+                out=torch`` workers at Llama-3.1-8B width (random weights,
+                ``--num-blocks 2048`` each, the defaults otherwise: H = 4
+                on graphs) and a ``run in=http out=dyn`` frontend (round
+                robin), all processes on cuda:0, beside an engine-direct
+                process. The lone greedy request through the fabric and
+                engine-direct, 5 times each in turns (TTFT, ITL; every text
+                equal, and equal to serve_http's); serve_http's 8
+                concurrent streams and a non-streamed completion; each
+                worker's stats (SIGUSR1): both served, #1 launched in both.
+                The codec's microseconds per token frame (encode + decode).
+                Migration: SIGKILL the worker serving a 256-token greedy
+                stream; the stream completes with no token dropped or
+                repeated (the prefix up to the kill equal to the unfaulted
+                run, 256 tokens) and the share of the tail that agrees is
+                printed; the killed instance leaves discovery within the
+                lease TTL (plus the janitor's 0.5 s pass and the 0.25 s
+                of this script's poll); the next 4
+                requests land on the survivor; SIGTERM drains the survivor
+                (its stream in flight finishes, it leaves discovery at once,
+                exits 0 with every lane and block free); the frontend counts
+                the migration. ``python3 chip_smoke.py --only serve_fabric``
+                runs the build and this phase alone.
 
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
-times compare with earlier runs; checkpoint (7), serve_http (10) and
-serve_moe (13) run build_torch_engine's defaults.
+times compare with earlier runs; checkpoint (7), serve_http (10),
+serve_moe (13) and serve_fabric's workers (16) run build_torch_engine's
+defaults.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -3209,6 +3235,439 @@ def phase_serve_http(torch, np, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ serve_fabric
+#
+# The port as a distributed deployment: the fabric server, two TorchEngine
+# workers and an out=dyn frontend, each a process of its own on cuda:0.
+
+FABRIC_BLOCKS = 2048  # per worker: two 8B workers (16.1 GB of weights each) share the card
+FABRIC_TTL_S = 4.0  # DYN_LEASE_TTL_S: keepalives every 1.33 s
+JANITOR_S = 0.5  # the fabric server's expiry pass
+POLL_S = 0.25  # this script's discovery poll: a 50 ms sleep, a connect and a read
+MIGRATE_TOKENS = 256
+MIGRATE_KILL_AFTER = 48  # tokens the client has read when the worker is killed
+SURVIVOR_REQUESTS = 4
+FRAME_REPS = 20000
+
+
+def codec_frame_us() -> dict:
+    """Host microseconds per streamed token frame through the port's stdlib
+    codec, as the request plane builds one (the engine's output dict with
+    its fencing stamp, packed into an Annotated, framed) and reads it back."""
+    from dynamo_tpu_torch.fabric import mpack, wire
+
+    item = {"data": {"token_ids": [91234], "index": 0, "log_probs": [-0.6931471805599453],
+                     "stamp": {"iid": 0x6B8B4567327B, "ep": 0x6B8B4567327B}}}
+    header = {"t": "data"}
+    t0 = time.perf_counter()
+    for _ in range(FRAME_REPS):
+        frame = wire.pack([header, mpack.packb(item)])
+    t_enc = (time.perf_counter() - t0) / FRAME_REPS
+    body = frame[5:]
+    t0 = time.perf_counter()
+    for _ in range(FRAME_REPS):
+        _, payload = mpack.unpackb(body)
+        got = mpack.unpackb(payload)
+    t_dec = (time.perf_counter() - t0) / FRAME_REPS
+    if got != item:
+        raise SmokeError(f"codec round trip changed the frame: {got}")
+    return {"encode_us": t_enc * 1e6, "decode_us": t_dec * 1e6,
+            "frame_us": (t_enc + t_dec) * 1e6, "frame_bytes": len(frame)}
+
+
+class LogTail:
+    """A process's log file, read for the JSON lines it prints."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+
+    def json_lines(self, key: str) -> list:
+        with open(self.path) as f:
+            return [json.loads(line)[key] for line in f if line.startswith('{"' + key + '"')]
+
+    def wait_json(self, key: str, n: int, proc, timeout: float) -> list:
+        t0 = time.perf_counter()
+        while True:
+            got = self.json_lines(key)
+            if len(got) >= n:
+                return got
+            if proc.poll() is not None:
+                raise SmokeError(f"{self.path}: exited with {proc.returncode} before printing {key}")
+            if time.perf_counter() - t0 > timeout:
+                raise SmokeError(f"{self.path}: no {key} line within {timeout} s")
+            time.sleep(0.02)
+
+
+def stream_tokens(port: int, body: dict, marks: dict) -> dict:
+    """A streamed chat completion with logprobs: every token (the logprob
+    entries' token strings) and its arrival on time.perf_counter's clock;
+    ``marks["n"]`` is kept at the number of tokens read so far."""
+    import http.client
+
+    from dynamo_tpu_torch.protocols.sse import SseParser
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    parser, tokens, times, usage, finish, errors = SseParser(), [], [], None, [], []
+    try:
+        conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise SmokeError(f"stream answered {resp.status}: {resp.read()[:300]!r}")
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            for ev in parser.feed(line.decode("utf-8")):
+                if ev.is_done():
+                    continue
+                if ev.event is not None:
+                    errors.append(ev.data)
+                    continue
+                d = ev.json()
+                usage = d.get("usage") or usage
+                for ch in d.get("choices", []):
+                    for lp in (ch.get("logprobs") or {}).get("content") or []:
+                        tokens.append(lp["token"])
+                        times.append(time.perf_counter())
+                    if ch.get("finish_reason"):
+                        finish.append(ch["finish_reason"])
+                marks["n"] = len(tokens)
+    finally:
+        conn.close()
+    if errors:
+        raise SmokeError(f"the stream carried error events: {errors}")
+    return {"tokens": tokens, "times": times, "usage": usage, "finish": finish}
+
+
+def first_log_time(path: str, needle: str) -> float:
+    """Epoch seconds of the first line of a process's log (the CLI's
+    ``%(asctime)s`` format, local time, ms resolution) holding ``needle``."""
+    with open(path) as f:
+        for line in f:
+            if needle in line:
+                stamp, ms = line[:23].split(",")
+                return time.mktime(time.strptime(stamp, "%Y-%m-%d %H:%M:%S")) + int(ms) / 1e3
+    raise SmokeError(f"{path}: no line with {needle!r}")
+
+
+def fabric_instances(fport: int) -> dict:
+    """The endpoint's live instances in the fabric: {instance id: key}."""
+    from dynamo_tpu_torch.fabric.client import FabricClient
+
+    async def get():
+        c = await FabricClient.connect(f"127.0.0.1:{fport}")
+        try:
+            keys = await c.kv_get_prefix("instances/dynamo/backend/generate:")
+            return {int(k.rsplit(":", 1)[1], 16): k for k in keys}
+        finally:
+            await c.close()
+
+    return asyncio.run(get())
+
+
+def phase_serve_fabric(torch, np, card: str, http_lone_text: Optional[str] = None) -> dict:
+    """The fabric server, two workers and an out=dyn frontend as processes
+    on this card, beside an engine-direct process (see the docstring)."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+
+    t_phase = time.perf_counter()
+    model_dir = write_serve_dir()
+    mdc = ModelDeploymentCard.from_model_dir(model_dir, "llama31-8b", context_length=MAX_MODEL_LEN)
+    pre = OpenAIPreprocessor(mdc)
+    tok = pre.tokenizer
+    codec = codec_frame_us()
+    log(f"serve_fabric: codec {codec['frame_us']:.2f} us per token frame (encode "
+        f"{codec['encode_us']:.2f} + decode {codec['decode_us']:.2f}; {codec['frame_bytes']} bytes; "
+        f"host of this process, {card})")
+    lone = chat_body(prompt_words(tok, 490, seed=7), 64, nvext={"ignore_eos": True})
+    warm = chat_body("hello there", 4)
+    overhead = len(pre.preprocess_chat(ChatCompletionRequest.from_dict(chat_body("", 1)))[0].token_ids)
+    contents = [prompt_words(tok, max(4, n - overhead), seed=100 + i) for i, n in enumerate(PROMPT_LENS)]
+    bodies = []
+    for i, (content, m) in enumerate(zip(contents, MAX_TOKENS)):
+        extra = {"logprobs": True}
+        if i == HTTP_STOP:
+            extra["stop"] = ["e"]
+        if i == HTTP_PENALIZED:
+            extra.update(PENALTIES, min_tokens=MIN_TOKENS)
+        bodies.append(chat_body(content, m, **extra))
+    expect_prompt = [len(pre.preprocess_chat(ChatCompletionRequest.from_dict(b))[0].token_ids)
+                     for b in bodies]
+    migrate = chat_body(prompt_words(tok, 300, seed=11), MIGRATE_TOKENS, logprobs=True,
+                        nvext={"ignore_eos": True})
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    fport, hport = free_port(), free_port()
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DYN_FABRIC_ADDR=f"127.0.0.1:{fport}", DYN_LEASE_TTL_S=str(FABRIC_TTL_S))
+    py = sys.executable
+    cmds = {
+        "fabric": [py, "-m", "dynamo_tpu_torch.fabric.server", "--host", "127.0.0.1", "--port", str(fport)],
+        **{f"worker{i}": [py, "-m", "dynamo_tpu_torch.run", "in=dyn://dynamo.backend.generate", "out=torch",
+                          "--model-path", model_dir, "--model-name", "llama31-8b",
+                          "--context-length", str(MAX_MODEL_LEN), "--num-blocks", str(FABRIC_BLOCKS)]
+           for i in range(2)},
+        "frontend": [py, "-m", "dynamo_tpu_torch.run", "in=http", "out=dyn", "--router-mode", "round_robin",
+                     "--http-host", "127.0.0.1", "--http-port", str(hport)],
+    }
+    for name in ("worker0", "frontend"):
+        log("serve_fabric: " + " ".join(cmds[name][1:]))
+    procs, logs, files = {}, {}, []
+    out: dict = {"card": card, "codec": codec}
+    direct = None
+    try:
+        for name, cmd in cmds.items():
+            path = os.path.join(SERVE_DIR, f"fabric_{name}.log")
+            f = open(path, "w")
+            files.append(f)
+            logs[name] = LogTail(path)
+            procs[name] = subprocess.Popen(cmd, cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT)
+            if name == "fabric":
+                time.sleep(1.0)
+        dlog = open(os.path.join(SERVE_DIR, "fabric_direct.log"), "w")
+        files.append(dlog)
+        direct = DirectProcess(root, model_dir, dict(os.environ, PYTHONPATH=env["PYTHONPATH"]), dlog)
+        t0 = time.perf_counter()
+        workers = [f"worker{i}" for i in range(2)]
+        iid = {w: logs[w].wait_json("worker", 1, procs[w], SERVER_START_S)[0]["instance_id"] for w in workers}
+        while True:
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    raise SmokeError(f"{name} exited with {p.returncode} (see {logs[name].path})")
+            try:
+                st, data = http_call(hport, "GET", "/v1/models", timeout=5)
+                if st == 200 and json.loads(data)["data"] and len(fabric_instances(fport)) == 2:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > SERVER_START_S:
+                raise SmokeError("the fabric deployment did not come up")
+            time.sleep(0.5)
+        out["start_s"] = time.perf_counter() - t0
+        log(f"serve_fabric: fabric, 2 workers ({', '.join(f'{w} {iid[w]:x}' for w in workers)}) and "
+            f"the frontend up in {out['start_s']:.1f} s")
+        log(f"serve_fabric: device memory held by this process {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+        # the lone greedy request through the fabric and engine-direct, in
+        # turns, after warm-ups (round robin: the fabric runs alternate workers)
+        direct.wait_ready()
+        for _ in range(2):
+            stream_chat(hport, warm)
+        direct.run(warm)
+        fab_runs, direct_runs = [], []
+        for k in range(LONE_PAIRS):
+            for mode in (("fabric", "direct") if k % 2 == 0 else ("direct", "fabric")):
+                if mode == "fabric":
+                    fab_runs.append(stream_chat(hport, lone))
+                else:
+                    direct_runs.append(direct.run(lone))
+        direct.close()
+        texts = {r["text"] for r in fab_runs + direct_runs}
+        if len(texts) != 1:
+            raise SmokeError(f"lone request texts differ through the fabric and engine-direct: {texts}")
+        if http_lone_text is not None and http_lone_text not in texts:
+            raise SmokeError(f"the fabric's lone text differs from serve_http's:\n{http_lone_text!r}\n{texts}")
+        lp = {"fabric_ttft_ms": [r["ttft_s"] * 1e3 for r in fab_runs],
+              "fabric_itl_ms": [r["itl_ms_mean"] for r in fab_runs],
+              "direct_ttft_ms": [r["ttft_s"] * 1e3 for r in direct_runs],
+              "direct_itl_ms": [r["itl_ms_mean"] for r in direct_runs]}
+        med = {k: statistics.median(v) for k, v in lp.items()}
+        d_ttft = statistics.median(a - b for a, b in zip(lp["fabric_ttft_ms"], lp["direct_ttft_ms"]))
+        d_itl = statistics.median(a - b for a, b in zip(lp["fabric_itl_ms"], lp["direct_itl_ms"]))
+        out.update(lone_pairs=lp, lone_medians=med, lone_fabric_minus_direct_ms={"ttft": d_ttft, "itl": d_itl})
+        log(f"serve_fabric: lone greedy request, {LONE_PAIRS} in turns, medians: fabric TTFT "
+            f"{med['fabric_ttft_ms']:.2f} ms, ITL {med['fabric_itl_ms']:.2f} ms; engine-direct TTFT "
+            f"{med['direct_ttft_ms']:.2f} ms, ITL {med['direct_itl_ms']:.2f} ms; fabric - direct per pair "
+            f"(median) TTFT {d_ttft:.2f} ms, ITL {d_itl:.2f} ms; texts identical"
+            f"{' (and to serve_http)' if http_lone_text is not None else ''} ({card})")
+
+        # serve_http's 8 concurrent streams and a non-streamed completion
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            results = list(pool.map(lambda b: stream_chat(hport, b), bodies))
+        out["concurrent_wall_s"] = time.perf_counter() - t0
+        for i, (r, b, n_prompt) in enumerate(zip(results, bodies, expect_prompt)):
+            u = r["usage"]
+            if u["prompt_tokens"] != n_prompt:
+                raise SmokeError(f"stream {i}: prompt_tokens {u['prompt_tokens']} != {n_prompt}")
+            if u["completion_tokens"] != r["logprob_tokens"] or not 0 < u["completion_tokens"] <= b["max_tokens"]:
+                raise SmokeError(f"stream {i}: usage {u} vs {r['logprob_tokens']} tokens streamed")
+            if i == HTTP_STOP and "e" in r["text"]:
+                raise SmokeError(f"stream {i}: the stop string is in the text")
+            if i == HTTP_PENALIZED and u["completion_tokens"] < MIN_TOKENS:
+                raise SmokeError(f"stream {i}: {u['completion_tokens']} tokens < min_tokens")
+        out["concurrent"] = [{k: r[k] for k in ("finish", "usage", "ttft_s", "itl_ms_mean")} for r in results]
+        st, data = http_call(hport, "POST", "/v1/completions", {
+            "model": "llama31-8b", "prompt": contents[2], "max_tokens": 32, "temperature": 0,
+            "stream_options": {"include_usage": True}})
+        comp = json.loads(data)
+        if st != 200 or comp.get("object") != "text_completion" or not 0 < comp["usage"]["completion_tokens"] <= 32:
+            raise SmokeError(f"non-streamed completion through the fabric: {st} {data[:300]!r}")
+        log(f"serve_fabric: 8 concurrent streams in {out['concurrent_wall_s']:.2f} s "
+            f"({sum(r['usage']['completion_tokens'] for r in results)} tokens), a non-streamed "
+            f"completion of {comp['usage']['completion_tokens']} tokens")
+
+        def worker_stats(names) -> dict:
+            """Each worker's stats line, printed on SIGUSR1."""
+            seen = {w: len(logs[w].json_lines("worker_stats")) for w in names}
+            for w in names:
+                procs[w].send_signal(signal.SIGUSR1)
+            return {w: logs[w].wait_json("worker_stats", seen[w] + 1, procs[w], 30)[-1] for w in names}
+
+        stats = worker_stats(workers)
+        for w in workers:
+            s = stats[w]
+            if s["generated_tokens"] <= 0 or s["kernel_launches"]["paged_decode_attention"] <= 0:
+                raise SmokeError(f"{w} served nothing or launched no #1: {s}")
+        out["worker_stats_before_kill"] = stats
+        log("serve_fabric: both workers served; #1 launches "
+            + ", ".join(f"{w} {stats[w]['kernel_launches']['paged_decode_attention']}" for w in workers))
+
+        # migration: the unfaulted stream, then the same one with its worker
+        # SIGKILLed after MIGRATE_KILL_AFTER tokens
+        base = stream_tokens(hport, migrate, {})
+        if len(base["tokens"]) != MIGRATE_TOKENS:
+            raise SmokeError(f"the unfaulted stream gave {len(base['tokens'])} tokens")
+        marks = {"n": 0}
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(stream_tokens, hport, migrate, marks)
+            t_wait = time.perf_counter()
+            while marks["n"] < MIGRATE_KILL_AFTER:
+                if fut.done():
+                    fut.result()
+                    raise SmokeError("the migrating stream ended before the kill")
+                if time.perf_counter() - t_wait > HTTP_TIMEOUT_S:
+                    raise SmokeError("the migrating stream did not start")
+                time.sleep(0.002)
+            busy = worker_stats(workers)
+            serving = [w for w in workers if busy[w]["busy_lanes"]]
+            if len(serving) != 1:
+                raise SmokeError(f"expected one worker serving the stream: {busy}")
+            victim = serving[0]
+            survivor = next(w for w in workers if w != victim)
+            n_cut = marks["n"]
+            t_kill, t_kill_wall = time.perf_counter(), time.time()
+            procs[victim].send_signal(signal.SIGKILL)
+            procs[victim].wait(30)
+            got = fut.result(timeout=HTTP_TIMEOUT_S)
+        t_gone = None
+        while t_gone is None:
+            if iid[victim] not in fabric_instances(fport):
+                t_gone = time.perf_counter()
+            elif time.perf_counter() - t_kill > FABRIC_TTL_S + 10:
+                raise SmokeError(f"the killed instance {iid[victim]:x} stayed in discovery")
+            else:
+                time.sleep(0.05)
+        toks = got["tokens"]
+        cut = sum(1 for t in got["times"] if t < t_kill)
+        if toks[:cut] != base["tokens"][:cut]:
+            raise SmokeError("the migrated stream's prefix differs from the unfaulted run")
+        if len(toks) != MIGRATE_TOKENS or got["usage"]["completion_tokens"] != MIGRATE_TOKENS or (
+                got["finish"] != ["length"]):
+            raise SmokeError(f"the migrated stream has {len(toks)} tokens, usage {got['usage']}, "
+                             f"finish {got['finish']}")
+        agree = sum(a == b for a, b in zip(toks[cut:], base["tokens"][cut:]))
+        resumed = [t for t in got["times"] if t >= t_kill]
+        gone_s = t_gone - t_kill
+        mig = {"victim": victim, "read_at_kill": n_cut, "prefix_tokens": cut,
+               "tail_agree": agree, "tail_tokens": MIGRATE_TOKENS - cut,
+               "tail_agree_share": agree / max(1, MIGRATE_TOKENS - cut),
+               "first_diverging": next((i for i, (a, b) in enumerate(zip(toks, base["tokens"])) if a != b), None),
+               "kill_to_first_resumed_ms": (resumed[0] - t_kill) * 1e3 if resumed else None,
+               "kill_to_detect_ms": (first_log_time(logs["frontend"].path, "failed mid-stream")
+                                     - t_kill_wall) * 1e3,
+               "kill_to_stream_end_s": got["times"][-1] - t_kill,
+               "kill_to_discovery_gone_s": gone_s}
+        out["migration"] = mig
+        if gone_s > FABRIC_TTL_S + JANITOR_S + POLL_S:
+            raise SmokeError(f"the killed instance left discovery after {gone_s:.2f} s (TTL "
+                             f"{FABRIC_TTL_S} s + the janitor's {JANITOR_S} s + the poll's {POLL_S} s)")
+        log(f"serve_fabric: SIGKILL of {victim} after {n_cut} tokens read: stream completed "
+            f"({MIGRATE_TOKENS} tokens, prefix of {cut} equal to the unfaulted run); tail agreement "
+            f"{agree}/{MIGRATE_TOKENS - cut} ({mig['tail_agree_share']:.3f}); kill -> the frontend's "
+            f"failure log {mig['kill_to_detect_ms']:.1f} ms (wall clock, ms resolution), -> first resumed token "
+            f"{mig['kill_to_first_resumed_ms']:.1f} ms, -> stream end {mig['kill_to_stream_end_s']:.2f} s, "
+            f"-> gone from discovery {gone_s:.2f} s (TTL {FABRIC_TTL_S} s) ({card})")
+
+        # the next requests all land on the survivor
+        time.sleep(0.2)  # the frontend's watch applies the delete
+        # (the first a fresh prompt as long as the replay's: its TTFT is what
+        # the replay's prefill and first horizon cost, through the fabric)
+        before = worker_stats([survivor])[survivor]["generated_tokens"]
+        n_after, ttfts = 0, []
+        for k in range(SURVIVOR_REQUESTS):
+            body = (chat_body(prompt_words(tok, 300 + cut, seed=12), 8, nvext={"ignore_eos": True})
+                    if k == 0 else chat_body(f"request {k} after the kill", 8))
+            r = stream_chat(hport, body)
+            n_after += r["usage"]["completion_tokens"]
+            ttfts.append(r["ttft_s"] * 1e3)
+        after = worker_stats([survivor])[survivor]["generated_tokens"]
+        if after - before != n_after:
+            raise SmokeError(f"the survivor generated {after - before} tokens for {n_after} streamed")
+        mig["replay_length_ttft_ms"] = ttfts[0]
+        log(f"serve_fabric: the next {SURVIVOR_REQUESTS} requests ({n_after} tokens) all on {survivor}; "
+            f"a fresh prompt of the replay's length took {ttfts[0]:.1f} ms to its first token ({card})")
+
+        # SIGTERM drains the survivor: its stream in flight finishes
+        marks = {"n": 0}
+        drain_body = chat_body("a stream in flight across the drain", 64, logprobs=True,
+                               nvext={"ignore_eos": True})
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(stream_tokens, hport, drain_body, marks)
+            while marks["n"] < 4 and not fut.done():
+                time.sleep(0.002)
+            t_term = time.perf_counter()
+            procs[survivor].send_signal(signal.SIGTERM)
+            t_left = None
+            while t_left is None and time.perf_counter() - t_term < FABRIC_TTL_S:
+                if iid[survivor] not in fabric_instances(fport):
+                    t_left = time.perf_counter() - t_term
+                else:
+                    time.sleep(0.02)
+            drained = fut.result(timeout=HTTP_TIMEOUT_S)
+        rc = procs[survivor].wait(120)
+        t_exit = time.perf_counter() - t_term
+        if len(drained["tokens"]) != 64 or drained["finish"] != ["length"]:
+            raise SmokeError(f"the stream across the drain: {len(drained['tokens'])} tokens, {drained['finish']}")
+        if t_left is None or rc != 0:
+            raise SmokeError(f"the drained survivor: left discovery after {t_left} s, exit code {rc}")
+        exit_s = logs[survivor].json_lines("exit_stats")
+        if not exit_s or exit_s[-1]["busy_lanes"] or exit_s[-1]["free_blocks"] != exit_s[-1]["num_blocks"] - 1:
+            raise SmokeError(f"the drained survivor's exit stats: {exit_s}")
+        out["drain"] = {"left_discovery_s": t_left, "exit_s": t_exit, "exit_stats": exit_s[-1]}
+        log(f"serve_fabric: SIGTERM drained {survivor}: out of discovery in {t_left * 1e3:.0f} ms, its "
+            f"stream in flight finished (64 tokens), exited 0 after {t_exit:.2f} s, every lane and block "
+            f"free; #1 launches {exit_s[-1]['kernel_launches']['paged_decode_attention']}")
+    finally:
+        if direct is not None:
+            direct.close()
+        for name in ("frontend", "worker0", "worker1", "fabric"):
+            p = procs.get(name)
+            if p is not None and p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+                try:
+                    p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(30)
+        for f in files:
+            f.close()
+    front = logs["frontend"].json_lines("exit_stats")
+    if not front or front[-1]["migrations"].get("llama31-8b", 0) < 1:
+        raise SmokeError(f"the frontend counted no migration: {front}")
+    out["frontend_exit"] = front[-1]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve_fabric: frontend migrations {front[-1]['migrations']}; phase {out['phase_s']:.1f} s")
+    print(json.dumps({"serve_fabric": out}), flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -4989,8 +5448,9 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # ``--only serve_offload``: the device, the build and that phase alone
-    # (a quicker call while the phase is worked on; no kernels line)
+    # ``--only serve_offload`` / ``serve_fabric``: the device, the build and
+    # that phase alone (a quicker call while the phase is worked on; no
+    # kernels line)
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     try:
         # 1. device
@@ -5009,14 +5469,17 @@ def main() -> int:
             for line in row["ptxas"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
-        if only == "serve_offload":
-            phase_serve_offload(torch, np, card, *offload_params(torch))
+        if only in ("serve_offload", "serve_fabric"):
+            if only == "serve_offload":
+                phase_serve_offload(torch, np, card, *offload_params(torch))
+            else:
+                phase_serve_fabric(torch, np, card)
             print(card, flush=True)
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                      "count": count}}), flush=True)
             return 0
         if only is not None:
-            raise SmokeError(f"--only takes serve_offload, not {only}")
+            raise SmokeError(f"--only takes serve_offload or serve_fabric, not {only}")
 
         # 3. parity
         errs = phase_parity(torch)
@@ -5118,7 +5581,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         log(f"device memory held before the server starts: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-        phase_serve_http(torch, np, card)
+        http = phase_serve_http(torch, np, card)
+        # 16. serve_fabric: the fabric server, two workers and an out=dyn
+        # frontend, processes of their own on this card
+        phase_serve_fabric(torch, np, card, http["http_lone"]["text"])
     except Exception as e:  # noqa: BLE001 - report and fail the run
         import traceback
 

@@ -19,8 +19,9 @@ from typing import Any, Optional
 
 logger = logging.getLogger("dynamo_tpu_torch.disagg.router")
 
-_FABRIC = ("needs the fabric transport, which the port does not have yet "
-           "(ROADMAP.md A10, out=dyn)")
+_FABRIC = ("needs disaggregation's fabric transport (the config watch, "
+           "RemotePrefillClient, PrefillQueue), which the port does not have yet "
+           "(ROADMAP.md A10)")
 
 
 @dataclass

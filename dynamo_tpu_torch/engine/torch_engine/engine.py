@@ -53,6 +53,14 @@ reduced to:
     has its minimum; a stop id past those that is still sampled early is
     dropped and redrawn with a fresh key, at most four times;
   * a prompt longer than ``max_model_len`` is refused (``prompt_too_long``);
+  * the migration resume contract (engine.py:251-260): a request whose
+    ``extra["resume_prompt_len"]`` is shorter than its token ids replays a
+    dead worker's stream; the tail past it counts as generated output, so
+    ``max_tokens``, ``min_tokens``, the penalties' history and the
+    per-token sampling counter continue where that worker stopped;
+  * ``fence(reason)`` (engine.py:3237-3251; the distributed runtime's
+    self-fence on primary-lease loss): admission stops, every lane fails
+    with ``worker_fenced`` and new requests are refused with it;
   * cancellation (``Context.kill`` or the consumer leaving the stream)
     frees the lane and its blocks at the next loop step, also mid-chunk;
   * when a growing sequence finds no free block, the youngest other running
@@ -126,10 +134,12 @@ device jobs run one after the other, so a shipped prompt's prefill holds
 the decode engine's running lanes until it ends.
 
 Left out (ROADMAP.md lists them): the peer tier (G4-lite) and the KV event
-publisher (A10), the fabric transport of remote prefill, disaggregation and
-the block manager under a tensor-parallel group (A8, which raises),
-multimodal prompts, QoS classes, deadlines and brownout, tracing and fault
-injection.
+and worker-metrics publishers (A10: the callbacks stay unsubscribed), the
+fabric transport of remote prefill, disaggregation and the block manager
+under a tensor-parallel group (A8, which raises), multimodal prompts, QoS
+classes, deadline enforcement (a request's deadlines ride its Context over
+the wire, but the loop does not shed on them) and brownout, tracing and
+fault injection.
 """
 
 from __future__ import annotations
@@ -313,6 +323,14 @@ class _Sequence:
         self.ctx = ctx
         self.token_ids = list(request.token_ids)  # prompt + generated
         self.num_prompt = len(self.token_ids)
+        # in-flight migration replay (engine.py:251-260): the tail past
+        # resume_prompt_len is output a dead worker already streamed;
+        # counted as generated, it keeps max_tokens, min_tokens, penalties'
+        # history split and the per-token sampling counter where the
+        # unfaulted run has them
+        resume = int(request.extra.get("resume_prompt_len") or 0)
+        if 0 < resume < len(self.token_ids):
+            self.num_prompt = resume
         self.block_ids: list[int] = []
         self.slot: Optional[int] = None
         self.prefilling = False  # admitted, chunked prefill in progress
@@ -492,6 +510,7 @@ class TorchEngine:
         self.dispatch_first_s: dict[str, float] = {}
         self._watchdog_task: Optional[asyncio.Task] = None
         self._tripped = False
+        self._fenced = False  # self-fenced on primary-lease loss
         # persistent host-side decode arrays
         B = self.config.max_batch
         self._tokens = np.zeros(B, np.int64)
@@ -551,6 +570,13 @@ class TorchEngine:
     async def generate(
         self, request: PreprocessedRequest, context: Context
     ) -> AsyncIterator[LLMEngineOutput]:
+        if self._fenced:
+            yield LLMEngineOutput.final_error(
+                context.id, "admission",
+                "worker is fenced (primary lease lost); request must be served elsewhere",
+                "worker_fenced",
+            )
+            return
         if self._closed:
             yield LLMEngineOutput.final_error(
                 context.id, "admission", "engine is closed or marked unhealthy",
@@ -746,19 +772,38 @@ class TorchEngine:
         self._closed = True  # the loop ends when (if) the dispatch returns
         cause = f"watchdog: {label} dispatch stuck {elapsed:.1f}s (budget {budget:.1f}s)"
         logger.error("%s -- failing all lanes, marking the worker unhealthy", cause)
-        for seq in list(self.waiting):
-            self.waiting.remove(seq)
-            seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, "queue", cause,
-                                                           "watchdog_stuck"))
-        for seq in list(self._admit_order):
-            seq.ctx.kill()
-            seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, label, cause,
-                                                           "watchdog_stuck"))
+        self._fail_lanes(cause, "watchdog_stuck", label)
         if self.on_watchdog_trip is not None:
             try:
                 self.on_watchdog_trip()
             except Exception:  # noqa: BLE001 - the trip itself must complete
                 logger.exception("on_watchdog_trip raised")
+
+    def _fail_lanes(self, cause: str, code: str, phase: str) -> None:
+        """Every waiting and admitted sequence gets a structured final error.
+        Admitted ones keep their blocks: a dispatch in flight may still
+        write them, and the caller has closed the engine."""
+        for seq in list(self.waiting):
+            self.waiting.remove(seq)
+            seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, "queue", cause, code))
+        for seq in list(self._admit_order):
+            seq.ctx.kill()
+            seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, phase, cause, code))
+
+    def fence(self, reason: str) -> None:
+        """Worker self-fence (engine.py:3237-3251; the runtime's
+        ``on_fence``): the primary lease is gone, so the cluster has declared
+        this worker dead and is migrating its streams. Stop admitting, fail
+        every lane with a structured ``worker_fenced`` error (consumers
+        replay onto a live worker), refuse new requests with it, and decode
+        no further token: the loop ends after the dispatch in flight."""
+        if self._fenced:
+            return
+        self._fenced = True
+        self._closed = True
+        logger.error("engine fenced: %s -- failing all lanes", reason)
+        self._fail_lanes(f"worker fenced: {reason}", "worker_fenced", "decode")
+        self._wake.set()
 
     # ------------------------------------------------- tiers and KV events
 

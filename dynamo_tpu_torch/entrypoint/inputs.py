@@ -1,43 +1,82 @@
-"""Input modes of the port's CLI: http server, interactive text, jsonl batch.
+"""Input modes of the port's CLI: http server, interactive text, jsonl batch,
+dyn:// worker.
 
-The port's own copy of dynamo_tpu/entrypoint/inputs.py for a static local
-engine (``EngineConfig.static_``, ``run_http``, ``run_text``,
-``run_batch``). The reference's dynamic mode (workers found through
-discovery) and ``dyn://`` endpoints wait for the port's distributed
-runtime.
+The port's own copy of dynamo_tpu/entrypoint/inputs.py.
+``EngineConfig.static_(engine, mdc)`` wires a local engine;
+``EngineConfig.dynamic(router_mode)`` serves whatever workers register
+through discovery (``discovery.ModelWatcher``). ``run_endpoint`` hosts a
+static engine as a ``dyn://ns.comp.ep`` worker: it serves the endpoint,
+registers the model (``register_llm``), stamps every frame with its fencing
+epoch, re-registers after a fabric heal, self-fences through
+``engine.fence``, deregisters and finishes its requests on a drain, then
+checkpoints the KV tiers (``DYN_WARM_RESTART_DIR``). Left out (ROADMAP.md
+Queue A item 10): the worker's KV event and load-metrics publishers (the
+engine's ``on_blocks_*`` callbacks stay unsubscribed), and the frontend's
+SLO, brownout and planner publishers.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import logging
+import os
 import signal
 import sys
 import time
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, AsyncIterator, Optional
 
 from dynamo_tpu_torch.http.service import HttpService, ModelExecution, ModelManager
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
-from dynamo_tpu_torch.protocols.common import Context
+from dynamo_tpu_torch.pipeline.router import RouterMode
+from dynamo_tpu_torch.protocols.common import Context, PreprocessedRequest
 from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest, ChatMessage
 
 logger = logging.getLogger("dynamo_tpu_torch.entrypoint")
 
 
+def make_engine_handler(engine: Any, stamp: Optional[dict] = None):
+    """Worker-side request handler hosting an engine on a dyn:// endpoint
+    (inputs.py:36). Every yielded frame carries the worker's epoch-fencing
+    ``stamp`` (``(instance_id, epoch)``, runtime/fencing.py): the frontend's
+    RemoteEngine rejects frames whose epoch the cluster has fenced, so a
+    partitioned zombie's tokens never reach a client stream."""
+
+    async def handler(request: dict, ctx: Context) -> AsyncIterator[dict]:
+        pre = PreprocessedRequest.from_dict(request)
+        async for out in engine.generate(pre, ctx):
+            d = out.to_dict()
+            if stamp is not None:
+                d["stamp"] = stamp
+            yield d
+
+    return handler
+
+
 @dataclass
 class EngineConfig:
-    """A local engine (anything with ``generate(request, context)``) and
-    the model card its frontend serves it under."""
+    """Either a static local engine (anything with ``generate(request,
+    context)``) and the model card its frontend serves it under, or dynamic:
+    the models that workers register through discovery."""
 
-    engine: Any
-    mdc: ModelDeploymentCard
+    engine: Optional[Any] = None
+    mdc: Optional[ModelDeploymentCard] = None
+    router_mode: RouterMode = RouterMode.ROUND_ROBIN
     request_template: Optional[Any] = None  # request_template.RequestTemplate
 
     @classmethod
     def static_(cls, engine: Any, mdc: ModelDeploymentCard) -> "EngineConfig":
         return cls(engine=engine, mdc=mdc)
+
+    @classmethod
+    def dynamic(cls, router_mode: RouterMode = RouterMode.ROUND_ROBIN) -> "EngineConfig":
+        return cls(router_mode=router_mode)
+
+    @property
+    def is_static(self) -> bool:
+        return self.engine is not None
 
     def execution(self) -> ModelExecution:
         return ModelExecution(self.mdc, self.engine.generate,
@@ -60,51 +99,91 @@ def _local_clear_fn(engine: Any) -> Optional[Any]:
 
 
 async def run_input(
-    in_opt: str, config: EngineConfig, http_port: int = 8080, http_host: str = "0.0.0.0"
-) -> None:
-    """Dispatch on the input flavor."""
+    in_opt: str,
+    config: EngineConfig,
+    http_port: int = 8080,
+    http_host: str = "0.0.0.0",
+    drt: Optional[Any] = None,
+) -> Optional[HttpService]:
+    """Dispatch on the input flavor (``drt``: the process's
+    ``runtime.distributed.DistributedRuntime``, which a dynamic config and
+    a dyn:// input need). Returns the HTTP server, closed, after an
+    ``http`` input."""
     if in_opt == "http":
-        await serve_http_forever(config, http_host, http_port)
-    elif in_opt in ("text", "stdin"):
-        await run_text(config)
+        return await serve_http_forever(config, http_host, http_port, drt=drt)
+    if in_opt in ("text", "stdin"):
+        await run_text(config, drt=drt)
     elif in_opt.startswith("batch:"):
-        await run_batch(config, in_opt[len("batch:"):])
+        await run_batch(config, in_opt[len("batch:"):], drt=drt)
+    elif in_opt.startswith("dyn://") or "." in in_opt:
+        await run_endpoint(drt, config, in_opt)
     else:
-        raise ValueError(f"unknown input {in_opt!r} (http, text or batch:FILE)")
+        raise ValueError(f"unknown input {in_opt!r} (http, text, batch:FILE or dyn://ns.comp.ep)")
+    return None
 
 
 # ------------------------------------------------------------------ http
 
 
-async def run_http(config: EngineConfig, host: str = "0.0.0.0", port: int = 8080) -> HttpService:
+async def run_http(
+    config: EngineConfig, host: str = "0.0.0.0", port: int = 8080, drt: Optional[Any] = None
+) -> HttpService:
+    """The OpenAI server over a static engine, or (dynamic config) over a
+    ``ModelWatcher`` of ``drt``'s fabric, whose workers it routes to with
+    ``config.router_mode``; the watcher is ``service.watcher``. With a
+    ``drt``, its drain (SIGTERM) drains the server: new requests 503,
+    in-flight streams finish within ``DYN_DRAIN_TIMEOUT_S`` (10)."""
     manager = ModelManager()
-    manager.add_model(config.mdc.name, config.execution())
     service = HttpService(manager, host=host, port=port, template=config.request_template)
+    if config.is_static:
+        manager.add_model(config.mdc.name, config.execution())
+    else:
+        from dynamo_tpu_torch.discovery import ModelWatcher
+
+        if drt is None:
+            raise ValueError("a dynamic frontend (out=dyn) needs a DistributedRuntime")
+        watcher = ModelWatcher(drt, manager, config.router_mode)
+        await watcher.start()
+        service.watcher = watcher
     await service.start()
+    if drt is not None:
+        drain_timeout = float(os.environ.get("DYN_DRAIN_TIMEOUT_S", "10"))
+        drt.on_drain(lambda: service.drain(drain_timeout))
     return service
 
 
-async def serve_http_forever(config: EngineConfig, host: str, port: int) -> None:
-    """Serve until SIGINT / SIGTERM, then close the server (the caller
-    owns the engine)."""
-    service = await run_http(config, host, port)
+async def serve_http_forever(
+    config: EngineConfig, host: str, port: int, drt: Optional[Any] = None
+) -> HttpService:
+    """Serve until SIGINT / SIGTERM (the caller owns the engine). Without a
+    runtime the server closes; with one, the runtime drains (the server
+    among its drain callbacks) and shuts down."""
+    service = await run_http(config, host, port, drt=drt)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
-    print(f"serving {config.mdc.name!r} on http://{host}:{service.port}", flush=True)
+    name = config.mdc.name if config.is_static else "discovered models"
+    print(f"serving {name!r} on http://{host}:{service.port}", flush=True)
     try:
         await stop.wait()
+        if drt is not None:
+            await drt.drain(float(os.environ.get("DYN_DRAIN_TIMEOUT_S", "10")) + 5.0)
     finally:
         await service.close()
+        if service.watcher is not None:
+            await service.watcher.stop()
+    return service
 
 
 # ------------------------------------------------------------------ text
 
 
-async def run_text(config: EngineConfig, prompt_once: Optional[str] = None) -> None:
+async def run_text(
+    config: EngineConfig, prompt_once: Optional[str] = None, drt: Optional[Any] = None
+) -> None:
     """Interactive chat REPL on stdin/stdout."""
-    execution, model_name = config.execution(), config.mdc.name
+    execution, model_name = await _resolve_execution(config, drt)
     messages: list[ChatMessage] = []
     loop = asyncio.get_running_loop()
 
@@ -146,11 +225,12 @@ async def run_batch(
     path: str,
     output_path: Optional[str] = None,
     concurrency: int = 8,
+    drt: Optional[Any] = None,
 ) -> dict[str, Any]:
     """JSONL batch eval with TTFT/ITL stats: one chat request per line
     (``text`` or ``prompt``, optional ``max_tokens``); results go to
     ``output_path`` (default ``<path>.out.jsonl``), one JSON line each."""
-    execution, model_name = config.execution(), config.mdc.name
+    execution, model_name = await _resolve_execution(config, drt)
     with open(path) as f:
         requests = [json.loads(line) for line in f if line.strip()]
     sem = asyncio.Semaphore(concurrency)
@@ -206,3 +286,121 @@ async def run_batch(
         summary["ttft_ms_mean"] or -1,
     )
     return summary
+
+
+# -------------------------------------------------------------- endpoint
+
+
+async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> None:
+    """Host a static engine as a dyn:// worker and register its model
+    (inputs.py:456-555; reference input/endpoint.rs:26-96 + bindings
+    register_llm). Returns when the runtime drains or shuts down."""
+    from dynamo_tpu_torch.discovery import register_llm
+    from dynamo_tpu_torch.runtime.fencing import make_stamp
+    from dynamo_tpu_torch.runtime.protocols import EndpointId
+
+    if drt is None:
+        raise ValueError("in=dyn:// needs a DistributedRuntime")
+    if not config.is_static:
+        raise ValueError("in=dyn:// requires a static engine (the worker owns it)")
+    eid = EndpointId.parse(endpoint_str, drt.config.namespace)
+    endpoint = drt.namespace(eid.namespace).component(eid.component).endpoint(eid.name)
+    engine = config.engine
+    # epoch-fencing stamp: (instance_id, epoch) rides every reply frame so
+    # frontends can reject a fenced incarnation's tokens
+    stamp = make_stamp(drt.primary_lease, drt.fencing_epoch)
+    service = await endpoint.serve_endpoint(make_engine_handler(engine, stamp=stamp))
+    await register_llm(drt, endpoint, config.mdc)
+
+    # reconcile-on-heal: when the fabric comes back from a blackout (or a
+    # promoted standby's snapshot missed our registration), re-register the
+    # instance + model entry idempotently under the still-valid lease. If
+    # the lease died during the outage the puts fail and the keepalive loop
+    # self-fences — the conservative rule.
+    async def _reconcile_registration() -> None:
+        with contextlib.suppress(Exception):
+            await drt.fabric.kv_put(
+                endpoint.id.instance_key(service.instance_id),
+                service.instance.to_bytes(),
+                lease_id=service.instance_id,
+            )
+            await register_llm(drt, endpoint, config.mdc)
+            logger.info("reconciled %s registration after fabric heal", eid)
+
+    drt.on_reconnect(_reconcile_registration)
+
+    loop = asyncio.get_running_loop()
+    # self-fence: the moment a keepalive reports the lease gone (the
+    # cluster declared us dead), the engine fails every lane with a
+    # structured `worker_fenced` error and the worker leaves discovery —
+    # closing the window where a zombie would double-serve alongside its
+    # migrated replacement
+    if hasattr(engine, "fence"):
+        def _on_fence(reason: str) -> None:
+            engine.fence(reason)
+            loop.create_task(service.stop(drain=False))
+
+        drt.on_fence(_on_fence)
+
+    # stuck-dispatch watchdog: a tripped engine pulls this worker out of
+    # discovery at once (routers stop sending; the lease would take a TTL)
+    if hasattr(engine, "on_watchdog_trip"):
+        def _on_trip() -> None:
+            logger.error("watchdog tripped: deregistering %s from discovery", eid)
+            loop.create_task(service.stop(drain=False))
+
+        engine.on_watchdog_trip = _on_trip
+
+    # graceful drain (SIGTERM -> drt.drain): deregister from discovery and
+    # finish in-flight requests; then checkpoint the KV tiers, their
+    # completion offloads in, for a warm restart
+    drt.on_drain(lambda: service.stop(drain=True))
+    warm_dir = drt.config.warm_restart_dir
+    if warm_dir and hasattr(engine, "checkpoint_tiers"):
+        async def _warm_checkpoint() -> None:
+            await loop.run_in_executor(None, engine.checkpoint_tiers, warm_dir)
+
+        drt.on_drain(_warm_checkpoint)
+
+    # admin control plane: the frontend's POST /clear_kv_blocks fans out to
+    # this per-worker endpoint (ref http/service/clear_kv_blocks.rs:23)
+    clear_service = None
+    if hasattr(engine, "clear_kv_blocks"):
+        async def clear_handler(request: dict, ctx: Context):
+            yield await engine.clear_kv_blocks()
+
+        clear_service = await endpoint.component.endpoint("clear_kv_blocks").serve_endpoint(
+            clear_handler)
+
+    logger.info("worker serving %s (model %s) as instance %x", eid, config.mdc.name,
+                service.instance_id)
+    print(json.dumps({"worker": {"endpoint": str(eid), "instance_id": service.instance_id}}),
+          flush=True)
+    try:
+        await service.wait()
+    finally:
+        if clear_service is not None:
+            await clear_service.stop(drain=False)
+
+
+# ----------------------------------------------------------------- util
+
+
+async def _resolve_execution(config: EngineConfig, drt: Optional[Any]) -> tuple[ModelExecution, str]:
+    """The static engine's chain, or the first model discovery finds
+    (within 30 s)."""
+    if config.is_static:
+        return config.execution(), config.mdc.name
+    from dynamo_tpu_torch.discovery import ModelWatcher
+
+    if drt is None:
+        raise ValueError("a dynamic config (out=dyn) needs a DistributedRuntime")
+    manager = ModelManager()
+    watcher = ModelWatcher(drt, manager, config.router_mode)
+    await watcher.start()
+    for _ in range(300):
+        models = manager.list_models()
+        if models:
+            return manager.get(models[0]), models[0]
+        await asyncio.sleep(0.1)
+    raise TimeoutError("no models discovered within 30s")

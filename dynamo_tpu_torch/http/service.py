@@ -34,6 +34,7 @@ import dataclasses
 import json
 import logging
 import re
+import time
 from typing import Any, AsyncIterator, Callable, Optional
 
 from dynamo_tpu_torch.backend import Backend, EngineFn, detokenize
@@ -263,17 +264,35 @@ class ModelExecution:
 
 
 class ModelManager:
-    """Registry of live models."""
+    """Registry of live models, each held by one or more refs (a discovered
+    model by every worker's registration key; a local one by "local")."""
 
     def __init__(self) -> None:
-        self._models: dict[str, ModelExecution] = {}
+        self._models: dict[str, dict[str, Any]] = {}
 
-    def add_model(self, name: str, execution: ModelExecution) -> None:
-        self._models[name] = execution
-        logger.info("model added: %s", name)
+    def add_model(self, name: str, execution: ModelExecution, ref: str = "local") -> None:
+        entry = self._models.get(name)
+        if entry is None:
+            self._models[name] = {"execution": execution, "refs": {ref}}
+            logger.info("model added: %s", name)
+        else:
+            entry["refs"].add(ref)
+
+    def remove_ref(self, name: str, ref: str) -> bool:
+        """Drop one ref; the model goes with its last. True when it went."""
+        entry = self._models.get(name)
+        if entry is None:
+            return False
+        entry["refs"].discard(ref)
+        if not entry["refs"]:
+            del self._models[name]
+            logger.info("model removed: %s", name)
+            return True
+        return False
 
     def get(self, name: str) -> Optional[ModelExecution]:
-        return self._models.get(name)
+        entry = self._models.get(name)
+        return entry["execution"] if entry else None
 
     def list_models(self) -> list[str]:
         return sorted(self._models)
@@ -436,6 +455,10 @@ class HttpService:
         self.template = template
         self._server: Optional[asyncio.base_events.Server] = None
         self._conns: set[asyncio.Task] = set()
+        self._inflight = 0  # requests being answered
+        self._draining = False
+        # a dynamic frontend's discovery.ModelWatcher (entrypoint.run_http)
+        self.watcher: Optional[Any] = None
         self._routes = {
             ("POST", "/v1/chat/completions"): self._chat,
             ("POST", "/v1/completions"): self._completions,
@@ -460,6 +483,21 @@ class HttpService:
             await asyncio.gather(*self._conns, return_exceptions=True)
             await self._server.wait_closed()
             self._server = None
+
+    async def drain(self, timeout_s: float = 10.0) -> None:
+        """Graceful drain (SIGTERM): stop listening, answer new requests on
+        open connections 503, wait (bounded) for the requests in flight to
+        finish, then close."""
+        self._draining = True
+        if self._server is not None:
+            self._server.close()  # stops listening; open connections stay
+        deadline = time.monotonic() + timeout_s
+        while self._inflight and time.monotonic() < deadline:
+            await asyncio.sleep(0.05)
+        if self._inflight:
+            logger.warning("drain timeout (%.1fs): %d request(s) still in flight",
+                           timeout_s, self._inflight)
+        await self.close()
 
     # -------------------------------------------------------- connections
 
@@ -500,11 +538,16 @@ class HttpService:
                 await conn.send_json(404, {"error": {"message": f"no route {req.method} {req.path}",
                                                      "type": "not_found_error"}}, keep_alive=req.keep_alive)
             return True
+        if self._draining and req.method == "POST":
+            await conn.send_json(503, {"error": {"message": "server is draining", "type": "unavailable"}},
+                                 keep_alive=False, headers={"Retry-After": "2"})
+            return False
         rid = client_request_id(req.headers)
         ctx = Context(id=rid) if rid else Context()
         conn.head_sent = False
         work = asyncio.ensure_future(handler(conn, req, ctx))
         watch = asyncio.ensure_future(conn.watch_eof())
+        self._inflight += 1
         try:
             await asyncio.wait({work, watch}, return_when=asyncio.FIRST_COMPLETED)
             if not work.done():
@@ -528,6 +571,7 @@ class HttpService:
                 return False
             return not conn.eof
         finally:
+            self._inflight -= 1
             watch.cancel()
             await asyncio.gather(watch, return_exceptions=True)
 

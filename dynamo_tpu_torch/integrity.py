@@ -77,14 +77,16 @@ def checksum_with(algo: str, *chunks: bytes) -> Optional[int]:
 
 
 class IntegrityCounters:
-    """Process-wide integrity counters, all monotonic (the JAX package's
-    ``IntegrityCounters`` without its fencing plane): verification failures
-    per path (``tier_host``, ``tier_disk``, ``warm_restore``) and hashes
-    quarantined."""
+    """Process-wide integrity and fence counters, all monotonic (the JAX
+    package's ``IntegrityCounters``): verification failures per path
+    (``tier_host``, ``tier_disk``, ``warm_restore``), hashes quarantined, and
+    frames refused per plane because their worker's epoch is fenced
+    (``runtime/fencing.py``)."""
 
     def __init__(self) -> None:
         self.failures: dict[str, int] = {}
         self.blocks_quarantined = 0
+        self.fenced_rejects: dict[str, int] = {}
 
     def integrity_failure(self, path: str, detail: str = "") -> None:
         self.failures[path] = self.failures.get(path, 0) + 1
@@ -93,13 +95,19 @@ class IntegrityCounters:
     def quarantine(self, n: int = 1) -> None:
         self.blocks_quarantined += n
 
+    def fenced_reject(self, plane: str, epoch: int = 0) -> None:
+        """A frame stamped with a fenced epoch was refused on ``plane``."""
+        self.fenced_rejects[plane] = self.fenced_rejects.get(plane, 0) + 1
+
     def snapshot(self) -> dict:
         return {"integrity_failures_by_path": dict(self.failures),
-                "blocks_quarantined": self.blocks_quarantined}
+                "blocks_quarantined": self.blocks_quarantined,
+                "fenced_rejects_by_plane": dict(self.fenced_rejects)}
 
     def reset(self) -> None:
         self.failures.clear()
         self.blocks_quarantined = 0
+        self.fenced_rejects.clear()
 
 
 COUNTERS = IntegrityCounters()

@@ -1,19 +1,21 @@
-"""Engine-side request/response types of the port, and a minimal Context.
+"""Engine-side request/response types of the port.
 
 Own copy of dynamo_tpu/protocols/common.py (the port imports nothing of the
 JAX package): PreprocessedRequest in (token ids plus sampling and stop
 options), LLMEngineOutput frames out, with the same to_dict / from_dict so
-the wire shapes match. ``Context`` is the part of
-dynamo_tpu/pipeline/context.py that the engine and the HTTP frontend need:
-a request id, stop / kill cancellation and child contexts.
+the wire shapes match. ``Context`` (``pipeline/context.py``: request id,
+metadata, deadlines, stop / kill cancellation, children and its wire form)
+is re-exported here, where the engine, the HTTP frontend and the disagg
+modules import it from.
 """
 
 from __future__ import annotations
 
-import uuid
 import enum
 from dataclasses import asdict, dataclass, field
 from typing import Any, Optional
+
+from dynamo_tpu_torch.pipeline.context import Context  # noqa: F401 (re-exported)
 
 
 class FinishReason(str, enum.Enum):
@@ -200,39 +202,3 @@ class LLMEngineOutput:
                 "code": code,
             },
         )
-
-
-class Context:
-    """Request id plus cancellation: ``stop_generating`` asks the engine to
-    end the stream (finish reason CANCELLED at the next token), ``kill``
-    also frees the sequence's slot and blocks at the next loop step.
-
-    ``child()`` gives a context that is stopped or killed whenever its
-    parent is, while stopping or killing the child leaves the parent alone
-    (the HTTP layer runs one child per choice of an ``n > 1`` request, so a
-    finished choice does not cancel its siblings; a client that goes away
-    kills the parent and with it every choice)."""
-
-    __slots__ = ("id", "_stopped", "_killed", "_parent")
-
-    def __init__(self, id: Optional[str] = None, parent: Optional["Context"] = None) -> None:
-        self.id: str = id or (parent.id if parent is not None else uuid.uuid4().hex)
-        self._stopped = False
-        self._killed = False
-        self._parent = parent
-
-    def child(self) -> "Context":
-        return Context(parent=self)
-
-    def stop_generating(self) -> None:
-        self._stopped = True
-
-    def kill(self) -> None:
-        self._stopped = True
-        self._killed = True
-
-    def is_stopped(self) -> bool:
-        return self._stopped or (self._parent is not None and self._parent.is_stopped())
-
-    def is_killed(self) -> bool:
-        return self._killed or (self._parent is not None and self._parent.is_killed())

@@ -1,16 +1,35 @@
 """`python -m dynamo_tpu_torch.run` — the port's serving CLI.
 
-The port's own copy of dynamo_tpu/run.py for its one engine:
+The port's own copy of dynamo_tpu/run.py:
 
     python -m dynamo_tpu_torch.run in=http out=torch --model-path <HF dir> \\
         [--model-name NAME] [--http-host 0.0.0.0] [--http-port 8080] \\
         [--kv-block-size 16] [--context-length N] [--num-blocks N] \\
         [--max-batch 8] [--request-template FILE] [--device cuda|cpu] \\
-        [--tensor-parallel-size N]
+        [--tensor-parallel-size N] [--router-mode round_robin|random|kv] \\
+        [--endpoint ns.comp.ep]
 
-in  = http | text | batch:FILE.jsonl
+in  = http | text | batch:FILE.jsonl | dyn://ns.comp.ep (serve the engine as
+      a worker of that endpoint; ``in=dyn`` alone serves ``--endpoint``)
 out = torch  (TorchEngine from build_torch_engine(<dir>); a directory with
       config.json and no *.safetensors serves seeded random weights)
+    | dyn  (route to the workers discovery finds, with --router-mode;
+      ``kv`` raises: the KV-aware router is not ported yet)
+
+A distributed deployment (the fabric at ``DYN_FABRIC_ADDR``, which both
+roles require: without it a worker would register where no frontend sees it,
+so the command refuses to start):
+
+    python -m dynamo_tpu_torch.fabric.server --port 6650 &
+    DYN_FABRIC_ADDR=127.0.0.1:6650 python -m dynamo_tpu_torch.run \\
+        in=dyn://dynamo.backend.generate out=torch --model-path <dir> --num-blocks N &
+    DYN_FABRIC_ADDR=127.0.0.1:6650 python -m dynamo_tpu_torch.run in=http out=dyn
+
+The engine is built before the runtime connects and takes its lease, so a
+long build cannot starve the lease's keepalive. A worker drains on SIGTERM
+(leaves discovery, finishes its requests, checkpoints the tiers under
+``DYN_WARM_RESTART_DIR``) and prints its stats (``{"worker_stats": ...}``)
+on SIGUSR1; every serving process prints ``{"exit_stats": ...}`` last.
 
 The engine runs on the card; ``--device cpu`` runs it on the CPU, and only
 when asked for: without a card and without that flag the command raises.
@@ -33,8 +52,12 @@ import argparse
 import asyncio
 import json
 import logging
+import os
+import signal
 import sys
 from typing import Optional
+
+from dynamo_tpu_torch.pipeline.router import RouterMode
 
 
 def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
@@ -62,6 +85,15 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
         "--tensor-parallel-size", type=int, default=1,
         help="rank processes to shard the model across (rank r on cuda:r)",
     )
+    parser.add_argument(
+        "--router-mode", choices=[m.value for m in RouterMode if m is not RouterMode.DIRECT],
+        default="round_robin",
+        help="out=dyn: how requests pick a worker (kv is not ported yet and raises)",
+    )
+    parser.add_argument(
+        "--endpoint", default="dynamo.backend.generate",
+        help="the endpoint a worker serves when given in=dyn alone",
+    )
     args = parser.parse_args(argv)
     args.in_opt = "http"
     args.out_opt = "torch"
@@ -72,17 +104,46 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
             args.out_opt = tok[4:]
         elif args.model_path is None:
             args.model_path = tok
+    if args.in_opt == "dyn":
+        args.in_opt = "dyn://" + args.endpoint
+    elif "." in args.in_opt and not args.in_opt.startswith(("dyn://", "batch:")):
+        args.in_opt = "dyn://" + args.in_opt  # ns.comp.ep
     return args
 
 
+def uses_runtime(args: argparse.Namespace) -> bool:
+    """A dyn:// worker and an out=dyn frontend live in a distributed runtime."""
+    return args.out_opt == "dyn" or args.in_opt.startswith("dyn://")
+
+
+def require_fabric(args: argparse.Namespace) -> None:
+    """A dyn:// worker or an out=dyn frontend exists to reach other
+    processes, so it refuses to start on a process-local fabric."""
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+
+    if uses_runtime(args) and not RuntimeConfig.from_settings().fabric_addr:
+        raise SystemExit(
+            f"in={args.in_opt} out={args.out_opt} needs the fabric: set DYN_FABRIC_ADDR=host:port "
+            "(python -m dynamo_tpu_torch.fabric.server --port P)"
+        )
+
+
 def build_config(args: argparse.Namespace):
-    """The engine and model card ``out=torch`` serves."""
-    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    """The engine and model card ``out=torch`` serves, or the dynamic config of
+    ``out=dyn``."""
     from dynamo_tpu_torch.entrypoint.inputs import EngineConfig
     from dynamo_tpu_torch.model_card import ModelDeploymentCard
 
+    if args.out_opt == "dyn":
+        if args.in_opt.startswith("dyn://"):
+            raise SystemExit("in=dyn:// serves an engine: give it out=torch")
+        config = EngineConfig.dynamic(RouterMode(args.router_mode))
+        _add_template(config, args)
+        return config
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+
     if args.out_opt != "torch":
-        raise SystemExit(f"unknown out={args.out_opt} (the port serves out=torch)")
+        raise SystemExit(f"unknown out={args.out_opt} (torch or dyn)")
     if not args.model_path:
         raise SystemExit("out=torch requires a --model-path (HF dir)")
     engine = build_torch_engine(
@@ -101,11 +162,15 @@ def build_config(args: argparse.Namespace):
         context_length=engine.config.max_model_len,
     )
     config = EngineConfig.static_(engine, mdc)
+    _add_template(config, args)
+    return config
+
+
+def _add_template(config, args: argparse.Namespace) -> None:
     if args.request_template:
         from dynamo_tpu_torch.request_template import RequestTemplate
 
         config.request_template = RequestTemplate.load(args.request_template)
-    return config
 
 
 def exit_stats(engine) -> dict:
@@ -131,16 +196,66 @@ def exit_stats(engine) -> dict:
 async def amain(args: argparse.Namespace) -> None:
     from dynamo_tpu_torch.entrypoint.inputs import run_input
 
+    log = logging.getLogger("dynamo_tpu_torch.run")
+    require_fabric(args)
+    # the engine first: its build (seconds to minutes) must not run while a
+    # lease's keepalive waits on this loop
     config = build_config(args)
-    restored = config.engine.restore_tiers()
-    if restored is not None:
-        logging.getLogger("dynamo_tpu_torch.run").info("warm restart: %s", restored)
+    engine = config.engine
+    torch_engine = engine is not None and hasattr(engine, "restore_tiers")
+    if torch_engine:
+        restored = engine.restore_tiers()
+        if restored is not None:
+            log.info("warm restart: %s", restored)
+    drt = None
+    if uses_runtime(args):
+        from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+        drt = await DistributedRuntime.from_settings()
+        if args.in_opt.startswith("dyn://"):
+            _worker_signals(drt, engine if torch_engine else None)
+    served = None
     try:
-        await run_input(args.in_opt, config, args.http_port, args.http_host)
+        served = await run_input(args.in_opt, config, args.http_port, args.http_host, drt=drt)
     finally:
-        print(json.dumps({"exit_stats": exit_stats(config.engine)}), flush=True)
-        config.engine.checkpoint_tiers()
-        await config.engine.close()
+        if torch_engine:
+            print(json.dumps({"exit_stats": exit_stats(engine)}), flush=True)
+            if drt is None:  # a worker's drain checkpointed them
+                engine.checkpoint_tiers()
+            await engine.close()
+        elif drt is not None and not args.in_opt.startswith("dyn://"):
+            print(json.dumps({"exit_stats": frontend_stats(served)}), flush=True)
+        if drt is not None:
+            await drt.close()
+
+
+def frontend_stats(service) -> dict:
+    """What a dynamic frontend did: in-flight migrations per model, frames
+    refused from fenced workers."""
+    from dynamo_tpu_torch.integrity import COUNTERS
+
+    watcher = getattr(service, "watcher", None)
+    return {"migrations": dict(watcher.migrations) if watcher is not None else {},
+            "fenced_rejects": dict(COUNTERS.fenced_rejects)}
+
+
+def _worker_signals(drt, engine) -> None:
+    """SIGTERM / SIGINT: drain (leave discovery, finish the requests in
+    flight, checkpoint the tiers), then shut down. SIGUSR1: print the
+    engine's stats line."""
+    loop = asyncio.get_running_loop()
+    timeout = float(os.environ.get("DYN_DRAIN_TIMEOUT_S", "10"))
+
+    async def drain_then_stop() -> None:
+        await drt.drain(timeout + 5.0)
+        drt.shutdown()
+
+    tasks = []  # the loop holds tasks weakly
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, lambda: tasks.append(loop.create_task(drain_then_stop())))
+    if engine is not None:
+        loop.add_signal_handler(signal.SIGUSR1, lambda: print(
+            json.dumps({"worker_stats": exit_stats(engine)}), flush=True))
 
 
 def main(argv: Optional[list[str]] = None) -> None:

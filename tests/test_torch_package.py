@@ -62,7 +62,14 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
                 "integrity.py", "disagg/protocols.py", "disagg/router.py",
                 "disagg/colocated.py", "tokens.py", "block_manager/__init__.py",
                 "block_manager/block.py", "block_manager/layout.py",
-                "block_manager/offload.py", "block_manager/manager.py"):
+                "block_manager/offload.py", "block_manager/manager.py",
+                "fabric/__init__.py", "fabric/mpack.py", "fabric/wire.py", "fabric/state.py",
+                "fabric/server.py", "fabric/client.py", "runtime/__init__.py", "runtime/clock.py",
+                "runtime/backoff.py", "runtime/cancellation.py", "runtime/protocols.py",
+                "runtime/fencing.py", "runtime/config.py", "runtime/distributed.py",
+                "runtime/component.py", "runtime/barrier.py", "pipeline/context.py",
+                "pipeline/tcp.py", "pipeline/ingress.py", "pipeline/router.py", "discovery.py",
+                "model_card.py", "engine/echo.py"):
         assert f"dynamo_tpu_torch/{mod}" in scanned
     # every kernel the counters cover has its source beside the package, and
     # the build makes it: an int8 mode is its bf16 source's second entry
