@@ -250,13 +250,44 @@ Phases, each of which must pass or the script exits non-zero:
                 exits 0 with every lane and block free); the frontend counts
                 the migration. ``python3 chip_smoke.py --only serve_fabric``
                 runs the build and this phase alone.
+ 17. serve_kv -- KV-aware routing (last): the fabric server, two ``run
+                in=dyn://dynamo.backend.generate out=torch`` workers at
+                Llama-3.1-8B width (``--num-blocks 2048``,
+                ``DYN_KV_HOST_OFFLOAD_GB=4``, the defaults otherwise: H = 4 on
+                graphs), a ``run in=http out=dyn --router-mode kv
+                --router-temperature 0`` frontend, a round-robin frontend over
+                the same workers (driven only in turns with the kv one) and
+                ``python -m dynamo_tpu_torch.router``, all on cuda:0. Traffic:
+                4 groups a mode, each a fresh 1024-token prefix (64 blocks) and
+                4 suffixes of 64-256 tokens, 128 greedy tokens out, the leader
+                first and its 3 followers 0.3 s apart while it decodes; the
+                worker that admitted each request (its id in the workers'
+                SIGUSR1 stats) and the prefix blocks its tier held. Prints the
+                share of followers on their leader's worker, follower TTFT
+                (median, max) and each worker's onboarded blocks per mode;
+                checks both workers served and launched #1 in that traffic
+                (the warm-up's launches subtracted), at least 11 of kv's 12
+                followers on their leader's worker, the kv frontend's router
+                matching cached blocks, no tier error or checksum failure,
+                the standalone router's find_best (asked
+                while kv's first group runs) naming the leader's worker and its
+                free answering, its index empty once every stream ended, and
+                every stream's first 8 tokens against the dense reference (the
+                workers' seed-0 weights in this process once they are gone).
+                Then the agg graph (``python -m dynamo_tpu_torch.serve
+                dynamo_tpu_torch.graphs.agg``, tiny-torch workers on the card,
+                kv, the default lease): a request, Worker-0 (started once)
+                SIGKILLed and restarted by its supervisor, the next request,
+                exit 0 on SIGTERM. ``python3
+                chip_smoke.py --only serve_kv`` runs the build and this phase
+                alone.
 
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
 times compare with earlier runs; checkpoint (7), serve_http (10),
-serve_moe (13) and serve_fabric's workers (16) run build_torch_engine's
-defaults.
+serve_moe (13) and the workers of serve_fabric (16) and serve_kv (17) run
+build_torch_engine's defaults.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -987,20 +1018,14 @@ async def run_requests(engine, reqs, Context, gaps: Optional[list] = None):
     return await asyncio.gather(*(one(r) for r in reqs))
 
 
-def reference_check(torch, runner, prompt, generated, n_check: int = 8,
-                    bound: float = 0.25) -> float:
-    """Dense reference of the first tokens: one forward over prompt +
-    generated[:n_check] with the plain attention version and no cache, over
-    the runner's own weights (int8 ones through the int8 products); each
-    greedy token of the engine must be the reference's argmax up to bf16
-    noise (and, with an int8 cache, quantization noise: `bound`). Returns
-    the largest logit gap seen."""
+def dense_logits(torch, runner, seq: list):
+    """The plain reference's logits over ``seq``: one forward, the plain
+    attention version, no cache, the runner's own weights."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.ops import attention as A
     from dynamo_tpu_torch.ops.layers import attn_out, qkv_head
 
     cfg, params = runner.config, runner.params
-    seq = prompt + generated[:n_check]
     with torch.inference_mode():
         tokens = torch.tensor(seq, device=runner.device)
         positions = torch.arange(len(seq), device=runner.device)
@@ -1010,7 +1035,18 @@ def reference_check(torch, runner, prompt, generated, n_check: int = 8,
             q, k, v = qkv_head(x, layer, cfg, llama._layer_freqs(cfg, i, freqs), positions)
             attn = A.causal_prefill_attention_plain(q, k, v, len(seq))
             x = llama._mlp(attn_out(attn, x, layer, cfg), layer, cfg)
-        logits = llama._logits(x, params, cfg)
+        return llama._logits(x, params, cfg)
+
+
+def reference_check(torch, runner, prompt, generated, n_check: int = 8,
+                    bound: float = 0.25) -> float:
+    """Dense reference of the first tokens: one forward over prompt +
+    generated[:n_check] with the plain attention version and no cache, over
+    the runner's own weights (int8 ones through the int8 products); each
+    greedy token of the engine must be the reference's argmax up to bf16
+    noise (and, with an int8 cache, quantization noise: `bound`). Returns
+    the largest logit gap seen."""
+    logits = dense_logits(torch, runner, prompt + generated[:n_check])
     worst = 0.0
     for j in range(n_check):
         row = logits[len(prompt) - 1 + j]
@@ -3298,10 +3334,12 @@ class LogTail:
             time.sleep(0.02)
 
 
-def stream_tokens(port: int, body: dict, marks: dict) -> dict:
-    """A streamed chat completion with logprobs: every token (the logprob
-    entries' token strings) and its arrival on time.perf_counter's clock;
-    ``marks["n"]`` is kept at the number of tokens read so far."""
+def stream_tokens(port: int, body: dict, marks: dict, path: str = "/v1/chat/completions",
+                  headers: dict | None = None) -> dict:
+    """A streamed chat completion (or, with ``path``, completion) with
+    logprobs: every token (the logprob entries' token strings) and its
+    arrival on time.perf_counter's clock; ``marks["n"]`` is kept at the
+    number of tokens read so far."""
     import http.client
 
     from dynamo_tpu_torch.protocols.sse import SseParser
@@ -3309,11 +3347,11 @@ def stream_tokens(port: int, body: dict, marks: dict) -> dict:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
     parser, tokens, times, usage, finish, errors = SseParser(), [], [], None, [], []
     try:
-        conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
-                     headers={"Content-Type": "application/json"})
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         if resp.status != 200:
-            raise SmokeError(f"stream answered {resp.status}: {resp.read()[:300]!r}")
+            raise SmokeError(f"stream {headers or ''} answered {resp.status}: {resp.read()[:300]!r}")
         while True:
             line = resp.readline()
             if not line:
@@ -3327,8 +3365,10 @@ def stream_tokens(port: int, body: dict, marks: dict) -> dict:
                 d = ev.json()
                 usage = d.get("usage") or usage
                 for ch in d.get("choices", []):
-                    for lp in (ch.get("logprobs") or {}).get("content") or []:
-                        tokens.append(lp["token"])
+                    lp = ch.get("logprobs") or {}
+                    # chat: one entry per token; completions: a list of strings
+                    for t in [e["token"] for e in lp.get("content") or []] or lp.get("tokens") or []:
+                        tokens.append(t)
                         times.append(time.perf_counter())
                     if ch.get("finish_reason"):
                         finish.append(ch["finish_reason"])
@@ -3665,6 +3705,423 @@ def phase_serve_fabric(torch, np, card: str, http_lone_text: Optional[str] = Non
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"serve_fabric: frontend migrations {front[-1]['migrations']}; phase {out['phase_s']:.1f} s")
     print(json.dumps({"serve_fabric": out}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- serve_kv
+#
+# KV-aware routing: two 8B workers with host tiers behind a KV frontend and
+# a round-robin one, a standalone router beside them, then the agg graph.
+
+KV_GROUPS = 4  # per mode, each with a fresh 1024-token prefix
+KV_FOLLOWERS = 3
+KV_SUFFIX = (64, 256)  # follower (and leader) suffix lengths, tokens
+KV_OUT = 128  # greedy tokens out per request
+KV_GAP_S = 0.3  # leader -> follower 1 -> 2 -> 3
+KV_CHECK = 8  # tokens of every stream held to the dense reference
+KV_HOST_GB = "4"  # DYN_KV_HOST_OFFLOAD_GB per worker
+KV_FOLLOWERS_ON_LEADER = 11  # of the KV_GROUPS * KV_FOLLOWERS kv followers, at least
+
+
+def kv_stream(port: int, ids: list, rid: str) -> dict:
+    """One streamed /v1/completions of token ids (greedy, ``KV_OUT`` tokens,
+    their strings through ``logprobs``) under the request id ``rid``: the
+    token strings, the time to the first one and the usage."""
+    body = {"model": "llama31-8b", "prompt": ids, "max_tokens": KV_OUT, "temperature": 0,
+            "stream": True, "logprobs": 0, "nvext": {"ignore_eos": True},
+            "stream_options": {"include_usage": True}}
+    t0 = time.perf_counter()
+    got = stream_tokens(port, body, {}, "/v1/completions", {"x-request-id": rid})
+    tokens, usage = got["tokens"], got["usage"]
+    if len(tokens) != KV_OUT or got["finish"] != ["length"] or usage["completion_tokens"] != KV_OUT:
+        raise SmokeError(f"{rid}: {len(tokens)} tokens, finish {got['finish']}, usage {usage}")
+    return {"tokens": tokens, "ttft_ms": (got["times"][0] - t0) * 1e3, "usage": usage}
+
+
+def router_calls(fport: int, bodies: list) -> list:
+    """Each body's answer from the standalone router's find_best endpoint."""
+    from dynamo_tpu_torch.pipeline.context import Context
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    async def go():
+        drt = await DistributedRuntime.from_settings(RuntimeConfig(fabric_addr=f"127.0.0.1:{fport}"))
+        try:
+            client = await drt.namespace("dynamo").component("router").endpoint("find_best").client()
+            await client.wait_for_instances(30.0)
+            out = []
+            for body in bodies:
+                stream = await client.direct(body, client.instance_ids()[0], Context())
+                async for item in stream:
+                    if item.is_error():
+                        raise SmokeError(f"the router answered an error: {item.error_message()}")
+                    out.append(item.data)
+                    break
+                await stream.close()
+            await client.close()
+            return out
+        finally:
+            await drt.close()
+
+    return asyncio.run(go())
+
+
+def kv_reference_check(torch, runner, prompt: list, pieces: list, ids_of: dict,
+                       bound: float = 0.25) -> float:
+    """``reference_check`` for a stream seen through HTTP: its first
+    KV_CHECK token strings name their ids through ``ids_of`` (string ->
+    every id that decodes to it); where one string has several ids, the one
+    the reference rates best is taken. Returns the largest logit gap."""
+    cands = []
+    for s in pieces[:KV_CHECK]:
+        c = ids_of.get(s) or ids_of.get(s.lstrip("\ufffd"))
+        if not c:
+            raise SmokeError(f"the streamed token {s!r} decodes from no id")
+        cands.append(c)
+    chosen = [c[0] if len(c) == 1 else None for c in cands]
+    while True:
+        gen = [x if x is not None else cands[j][0] for j, x in enumerate(chosen)]
+        logits = dense_logits(torch, runner, prompt + gen)
+        open_ = [j for j, x in enumerate(chosen) if x is None]
+        if not open_:
+            break
+        row = logits[len(prompt) - 1 + open_[0]]
+        chosen[open_[0]] = max(cands[open_[0]], key=lambda i: float(row[i]))
+    worst = 0.0
+    for j in range(KV_CHECK):
+        row = logits[len(prompt) - 1 + j]
+        gap = float(row.max() - row[chosen[j]])
+        worst = max(worst, gap)
+        if gap > bound:
+            raise SmokeError(f"streamed token {pieces[j]!r} at step {j} is {gap:.3f} below the "
+                             "reference's best logit")
+    return worst
+
+
+def kv_graph_leg(root: str, env: dict, card: str) -> dict:
+    """``python -m dynamo_tpu_torch.serve dynamo_tpu_torch.graphs.agg`` with
+    tiny-torch workers on this card and a KV frontend: a request, a worker
+    SIGKILLed and restarted by the supervisor, the next request, SIGTERM."""
+    import re
+    import signal
+
+    hport = free_port()
+    path = os.path.join(SERVE_DIR, "kv_graph.log")
+    # the graph's own fabric, on the default lease
+    genv = {k: v for k, v in env.items() if k not in ("DYN_FABRIC_ADDR", "DYN_LEASE_TTL_S")}
+    body = {"model": "graph-model", "prompt": "w1 w2 w3 w4 " * 8, "max_tokens": 16, "temperature": 0}
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.serve", "dynamo_tpu_torch.graphs.agg",
+             "--env", f"DYN_HTTP_PORT={hport}", "--env", "DYN_HTTP_HOST=127.0.0.1",
+             "--env", "DYN_GRAPH_ENGINE=tiny-torch", "--env", "DYN_ROUTER_MODE=kv"],
+            cwd=root, env=genv, stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            def started(name: str) -> list:
+                with open(path) as g:
+                    return re.findall(rf"\[{name}\] started pid (\d+)", g.read())
+
+            def ask() -> str:
+                st, data = http_call(hport, "POST", "/v1/completions", body, timeout=60)
+                if st != 200:
+                    raise SmokeError(f"serve_kv/graph: answered {st}: {data[:300]!r}")
+                return json.loads(data)["choices"][0]["text"]
+
+            while True:
+                if proc.poll() is not None:
+                    raise SmokeError(f"serve_kv/graph: the graph exited with {proc.returncode} ({path})")
+                try:
+                    st, data = http_call(hport, "GET", "/v1/models", timeout=5)
+                    if st == 200 and json.loads(data)["data"]:
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > SERVER_START_S:
+                    raise SmokeError("serve_kv/graph: the graph did not come up")
+                time.sleep(0.25)
+            up_s = time.perf_counter() - t0
+            first = ask()
+            pids = started("Worker-0")
+            if len(pids) != 1:
+                raise SmokeError(f"serve_kv/graph: Worker-0 started {len(pids)} times before the kill "
+                                 f"({path})")
+            os.kill(int(pids[0]), signal.SIGKILL)
+            t_kill = time.perf_counter()
+            while len(started("Worker-0")) <= len(pids):
+                if time.perf_counter() - t_kill > 60:
+                    raise SmokeError("serve_kv/graph: the supervisor did not restart Worker-0")
+                time.sleep(0.1)
+            restart_s = time.perf_counter() - t_kill
+            second = ask()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(90)
+        finally:
+            # the supervisor's children too (processes on the card), whatever
+            # happened to it: SIGTERM its group, then SIGKILL what is left
+            for sig, wait in ((signal.SIGTERM, 60), (signal.SIGKILL, 30)):
+                try:
+                    os.killpg(proc.pid, sig)
+                    proc.wait(wait)
+                except ProcessLookupError:
+                    break
+                except subprocess.TimeoutExpired:
+                    pass
+    if rc != 0 or not first or not second:
+        raise SmokeError(f"serve_kv/graph: exit code {rc}, texts {first!r} / {second!r}")
+    out = {"up_s": up_s, "restart_s": restart_s, "texts_equal": first == second, "exit_code": rc}
+    log(f"serve_kv/graph: agg graph (tiny-torch on the card, kv) up in {up_s:.1f} s, served; "
+        f"Worker-0 SIGKILLed and restarted by the supervisor in {restart_s:.2f} s; the next request "
+        f"served (same greedy text: {first == second}); exit 0 on SIGTERM ({card})")
+    return out
+
+
+def phase_serve_kv(torch, np, card: str) -> dict:
+    """The KV-aware router on this card (see the docstring's phase 17)."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.tokenizer import TokenizerWrapper
+
+    t_phase = time.perf_counter()
+    model_dir = write_serve_dir()
+    root = os.path.dirname(os.path.abspath(__file__))
+    fport, kport, rport = free_port(), free_port(), free_port()
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DYN_FABRIC_ADDR=f"127.0.0.1:{fport}", DYN_LEASE_TTL_S=str(FABRIC_TTL_S))
+    py = sys.executable
+    worker = [py, "-m", "dynamo_tpu_torch.run", "in=dyn://dynamo.backend.generate", "out=torch",
+              "--model-path", model_dir, "--model-name", "llama31-8b", "--context-length",
+              str(MAX_MODEL_LEN), "--num-blocks", str(FABRIC_BLOCKS)]
+    front = [py, "-m", "dynamo_tpu_torch.run", "in=http", "out=dyn", "--http-host", "127.0.0.1"]
+    cmds = {
+        "fabric": [py, "-m", "dynamo_tpu_torch.fabric.server", "--host", "127.0.0.1", "--port", str(fport)],
+        "worker0": worker, "worker1": worker,
+        "kv": front + ["--router-mode", "kv", "--router-temperature", "0", "--http-port", str(kport)],
+        "rr": front + ["--router-mode", "round_robin", "--http-port", str(rport)],
+        "router": [py, "-m", "dynamo_tpu_torch.router", "--block-size", str(BLOCK)],
+    }
+    for name in ("worker0", "kv", "rr", "router"):
+        log("serve_kv: " + " ".join(cmds[name][1:]))
+    workers = ["worker0", "worker1"]
+    procs, logs, files = {}, {}, []
+    out: dict = {"card": card}
+    rng = np.random.default_rng(16)
+    cases = []  # (mode, group, prompts, request ids)
+    for g in range(KV_GROUPS):
+        for mode in ("kv", "rr"):
+            pfx = [int(t) for t in rng.integers(256 + 26, 128000, size=PREFIX)]
+            sfx = [[int(t) for t in rng.integers(256 + 26, 128000, size=int(rng.integers(*KV_SUFFIX)))]
+                   for _ in range(1 + KV_FOLLOWERS)]
+            cases.append((mode, g, [pfx + s for s in sfx],
+                          [f"{mode}-g{g}-{'leader' if k == 0 else f'f{k}'}" for k in range(1 + KV_FOLLOWERS)]))
+    streams: dict = {}
+    try:
+        for name, cmd in cmds.items():
+            path = os.path.join(SERVE_DIR, f"kv_{name}.log")
+            f = open(path, "w")
+            files.append(f)
+            logs[name] = LogTail(path)
+            penv = dict(env, DYN_KV_HOST_OFFLOAD_GB=KV_HOST_GB) if name in workers else env
+            procs[name] = subprocess.Popen(cmd, cwd=root, env=penv, stdout=f, stderr=subprocess.STDOUT)
+            if name == "fabric":
+                time.sleep(1.0)
+        t0 = time.perf_counter()
+        iid = {w: logs[w].wait_json("worker", 1, procs[w], SERVER_START_S)[0]["instance_id"] for w in workers}
+        name_of = {v: k for k, v in iid.items()}
+        while True:
+            for name, p in procs.items():
+                if p.poll() is not None:
+                    raise SmokeError(f"{name} exited with {p.returncode} (see {logs[name].path})")
+            try:
+                ok = all(json.loads(http_call(port, "GET", "/v1/models", timeout=5)[1])["data"]
+                         for port in (kport, rport))
+                if ok and len(fabric_instances(fport)) == 2:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > SERVER_START_S:
+                raise SmokeError("the KV deployment did not come up")
+            time.sleep(0.5)
+        out["start_s"] = time.perf_counter() - t0
+        log(f"serve_kv: fabric, 2 workers ({', '.join(f'{w} {iid[w]:x}' for w in workers)}, host tier "
+            f"{KV_HOST_GB} GB each), kv + round-robin frontends and the standalone router up in "
+            f"{out['start_s']:.1f} s")
+
+        def worker_stats() -> dict:
+            seen = {w: len(logs[w].json_lines("worker_stats")) for w in workers}
+            for w in workers:
+                procs[w].send_signal(signal.SIGUSR1)
+            return {w: logs[w].wait_json("worker_stats", seen[w] + 1, procs[w], 30)[-1] for w in workers}
+
+        # warm both workers: their first dispatches at each batch size capture
+        # graphs (seconds), which would hold a cold leader's prefill, and so
+        # its KV events, past its followers' routing. Round robin puts 4 of
+        # 8 concurrent requests on each, then one a worker and one via kv.
+        warm = [[int(t) for t in rng.integers(256 + 26, 128000, size=int(n))]
+                for n in rng.integers(64, 1100, size=11)]
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda k: kv_stream(rport, warm[k], f"warm-{k}"), range(8)))
+        for k in range(8, 11):
+            kv_stream(rport if k < 10 else kport, warm[k], f"warm-{k}")
+        base = worker_stats()
+        warmed = {w: base[w]["generated_tokens"] for w in workers}
+        if not all(warmed.values()):
+            raise SmokeError(f"the warm-up missed a worker: {warmed}")
+        probes = {}
+        for mode, g, prompts, rids in cases:
+            port = kport if mode == "kv" else rport
+            with ThreadPoolExecutor(len(prompts)) as pool:
+                t_g = time.perf_counter()
+                futs = []
+                for k, (ids, rid) in enumerate(zip(prompts, rids)):
+                    time.sleep(max(0.0, t_g + k * KV_GAP_S - time.perf_counter()))
+                    futs.append(pool.submit(kv_stream, port, ids, rid))
+                if mode == "kv" and g == 0:
+                    # the standalone router, asked while the group runs: a new
+                    # suffix on the group's prefix, then its free; its index
+                    ask = prompts[0][:PREFIX] + prompts[1][PREFIX:PREFIX + 64]
+                    found, freed, index = router_calls(fport, [
+                        {"token_ids": ask, "request_id": "probe"},
+                        {"op": "free", "request_id": "probe"}, {"op": "index"}])
+                    probes["during"] = {"find_best": found, "free": freed, "index": index}
+                for rid, fut in zip(rids, futs):
+                    streams[rid] = fut.result()
+            streams[rids[0]]["group_s"] = time.perf_counter() - t_g
+        stats = worker_stats()
+        # every stream ended: the Removed events must have emptied the index
+        t_wait = time.perf_counter()
+        while True:
+            (index,) = router_calls(fport, [{"op": "index"}])
+            if not any(index["index_blocks"].values()) or time.perf_counter() - t_wait > 10:
+                break
+            time.sleep(0.1)
+        probes["after"] = index
+        served = {}
+        for w in workers:
+            for a in stats[w]["admissions"]:
+                served.setdefault(a["id"], []).append((w, a["cached_blocks"]))
+        rows = {}
+        for mode, g, prompts, rids in cases:
+            lead = served.get(rids[0])
+            if not lead or len(lead) != 1:
+                raise SmokeError(f"{rids[0]}: admitted {lead}")
+            for rid in rids:
+                if len(served.get(rid, [])) != 1:
+                    raise SmokeError(f"{rid}: admitted {served.get(rid)} (expected once, on one worker)")
+                w, cached = served[rid][0]
+                rows[rid] = {"worker": w, "cached_blocks": cached, "ttft_ms": streams[rid]["ttft_ms"],
+                             "same_as_leader": w == lead[0][0]}
+        summary = {}
+        for mode in ("kv", "rr"):
+            fol = [r for rid, r in rows.items() if rid.startswith(mode) and "leader" not in rid]
+            ttft = [r["ttft_ms"] for r in fol]
+            summary[mode] = {
+                "followers_on_leader_worker": sum(r["same_as_leader"] for r in fol),
+                "followers": len(fol),
+                "follower_cached_blocks": [r["cached_blocks"] for r in fol],
+                "follower_ttft_ms_median": statistics.median(ttft),
+                "follower_ttft_ms_max": max(ttft),
+                "leader_ttft_ms": [r["ttft_ms"] for rid, r in rows.items()
+                                   if rid.startswith(mode) and "leader" in rid],
+                "group_s": [streams[rids[0]]["group_s"] for m, _, _, rids in cases if m == mode],
+            }
+        delta = {w: {k: stats[w][k] - base[w][k] for k in (
+            "generated_tokens", "kv_onboarded_blocks", "kv_offloaded_blocks", "kv_offload_errors",
+            "kv_onboard_errors")} for w in workers}
+        for w in workers:  # the measured traffic's launches, as every counter above
+            delta[w]["paged_decode_attention"] = (stats[w]["kernel_launches"]["paged_decode_attention"]
+                                                  - base[w]["kernel_launches"]["paged_decode_attention"])
+        d = probes["during"]
+        out.update(summary=summary, requests=rows, workers=delta, router=probes)
+        for mode in ("kv", "rr"):
+            s = summary[mode]
+            log(f"serve_kv: {mode}: {s['followers_on_leader_worker']}/{s['followers']} followers on their "
+                f"leader's worker; follower TTFT median {s['follower_ttft_ms_median']:.1f} ms, max "
+                f"{s['follower_ttft_ms_max']:.1f} ms; prefix blocks found in the tier per follower "
+                f"{s['follower_cached_blocks']}; leaders' TTFT "
+                f"{', '.join(f'{t:.1f}' for t in s['leader_ttft_ms'])} ms ({card})")
+        for mode, g, prompts, rids in cases:
+            log(f"serve_kv: {mode}-g{g}: " + ", ".join(
+                f"{rid.split('-')[-1]} {rows[rid]['worker']} (cached {rows[rid]['cached_blocks']}, "
+                f"TTFT {rows[rid]['ttft_ms']:.1f} ms)" for rid in rids))
+        log("serve_kv: per worker " + "; ".join(
+            f"{w}: onboarded {delta[w]['kv_onboarded_blocks']} blocks, offloaded "
+            f"{delta[w]['kv_offloaded_blocks']}, #1 launches {delta[w]['paged_decode_attention']}"
+            for w in workers))
+        log(f"serve_kv: standalone router during kv-g0: find_best -> {name_of[d['find_best']['worker_id']]} "
+            f"({d['find_best']['overlap_blocks']} blocks overlap), free ok, index blocks per worker "
+            f"{ {name_of[int(k, 16)]: n for k, n in d['index']['index_blocks'].items()} }, "
+            f"{d['index']['events']} events applied; after every stream "
+            f"{ {name_of[int(k, 16)]: n for k, n in probes['after']['index_blocks'].items()} }")
+        print(json.dumps({"serve_kv_routing": out}), flush=True)
+        for w in workers:
+            integ = stats[w]["integrity"]
+            if delta[w]["generated_tokens"] <= 0 or delta[w]["paged_decode_attention"] <= 0:
+                raise SmokeError(f"{w} served nothing or launched no #1: {stats[w]}")
+            if delta[w]["kv_offload_errors"] or delta[w]["kv_onboard_errors"] or integ["integrity_failures_by_path"]:
+                raise SmokeError(f"{w}: tier errors {delta[w]}, integrity {integ}")
+        kv = summary["kv"]
+        if kv["followers_on_leader_worker"] < KV_FOLLOWERS_ON_LEADER:
+            raise SmokeError(f"kv routing put {kv['followers_on_leader_worker']} of {kv['followers']} "
+                             f"followers on their leader's worker (at least {KV_FOLLOWERS_ON_LEADER} "
+                             "required)")
+        holder = iid[rows[cases[0][3][0]]["worker"]]  # kv-g0's leader's worker
+        if d["find_best"].get("worker_id") != holder or not d["free"].get("ok"):
+            raise SmokeError(f"the standalone router's find_best / free while kv-g0 ran: {d} "
+                             f"(the leader's worker is {holder:x})")
+        if any(probes["after"]["index_blocks"].values()):
+            raise SmokeError(f"the router's index still holds blocks after every stream: {probes['after']}")
+    finally:
+        for name in ("kv", "rr", "router", "worker0", "worker1", "fabric"):
+            p = procs.get(name)
+            if p is not None and p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+                try:
+                    p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(30)
+        for f in files:
+            f.close()
+    fronts = {m: logs[m].json_lines("exit_stats") for m in ("kv", "rr")}
+    kv_exit = (fronts["kv"] or [{}])[-1].get("kv_routers", {}).get("dyn://dynamo.backend.generate")
+    if not kv_exit:
+        raise SmokeError(f"the kv frontend printed no router stats: {fronts['kv']}")
+    out["kv_frontend_router"] = kv_exit
+    if kv_exit["matched_blocks"] <= 0:
+        raise SmokeError(f"the kv frontend's router matched no cached block on any decision: {kv_exit}")
+    log(f"serve_kv: the kv frontend's router: {kv_exit['decisions']} decisions, "
+        f"{kv_exit['matched_blocks']} of {kv_exit['isl_blocks']} prompt blocks on the chosen worker "
+        f"(fleet best {kv_exit['fleet_blocks']}), {kv_exit['events']} events, index at exit "
+        f"{kv_exit['index_blocks']}")
+
+    # every stream's first tokens against the dense reference, on the
+    # workers' weights (seed 0), in this process once the workers are gone
+    t_ref = time.perf_counter()
+    engine = build_torch_engine(model_dir, device="cuda", max_model_len=MAX_MODEL_LEN, num_blocks=64)
+    tok = TokenizerWrapper.from_file(os.path.join(model_dir, "tokenizer.json"))
+    ids_of: dict = {}
+    for i in range(LLAMA31_8B["vocab_size"]):
+        ids_of.setdefault(tok.decode([i], skip_special_tokens=False), []).append(i)
+    gaps = []
+    try:
+        for mode, g, prompts, rids in cases:
+            for ids, rid in zip(prompts, rids):
+                gaps.append(kv_reference_check(torch, engine.runner, ids, streams[rid]["tokens"], ids_of))
+    finally:
+        asyncio.run(engine.close())
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["reference_max_logit_gap"] = max(gaps)
+    log(f"serve_kv: every stream's first {KV_CHECK} tokens agree with the dense reference "
+        f"({len(gaps)} streams, largest logit gap {max(gaps):.4f}; {time.perf_counter() - t_ref:.1f} s)")
+    out["graph"] = kv_graph_leg(root, env, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve_kv: phase {out['phase_s']:.1f} s")
+    print(json.dumps({"serve_kv": out}), flush=True)
     return out
 
 
@@ -5448,8 +5905,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # ``--only serve_offload`` / ``serve_fabric``: the device, the build and
-    # that phase alone (a quicker call while the phase is worked on; no
+    # ``--only serve_offload`` / ``serve_fabric`` / ``serve_kv``: the device,
+    # the build and that phase alone (a quicker call while the phase is worked on; no
     # kernels line)
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     try:
@@ -5469,17 +5926,19 @@ def main() -> int:
             for line in row["ptxas"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
-        if only in ("serve_offload", "serve_fabric"):
+        if only in ("serve_offload", "serve_fabric", "serve_kv"):
             if only == "serve_offload":
                 phase_serve_offload(torch, np, card, *offload_params(torch))
-            else:
+            elif only == "serve_fabric":
                 phase_serve_fabric(torch, np, card)
+            else:
+                phase_serve_kv(torch, np, card)
             print(card, flush=True)
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                      "count": count}}), flush=True)
             return 0
         if only is not None:
-            raise SmokeError(f"--only takes serve_offload or serve_fabric, not {only}")
+            raise SmokeError(f"--only takes serve_offload, serve_fabric or serve_kv, not {only}")
 
         # 3. parity
         errs = phase_parity(torch)
@@ -5585,6 +6044,9 @@ def main() -> int:
         # 16. serve_fabric: the fabric server, two workers and an out=dyn
         # frontend, processes of their own on this card
         phase_serve_fabric(torch, np, card, http["http_lone"]["text"])
+        # 17. serve_kv: KV-aware routing over two workers with host tiers, the
+        # standalone router and the agg graph (each worker's #1 counted)
+        phase_serve_kv(torch, np, card)
     except Exception as e:  # noqa: BLE001 - report and fail the run
         import traceback
 

@@ -9,10 +9,12 @@ card, builds the preprocessor -> router -> remote engine chain, and
 registers it with its ModelManager. Lease death removes the entry and (on
 the last ref) the model.
 
-Left out (ROADMAP.md Queue A item 10): hedged first tokens and health
-scoring (``_hedged_first``, ``telemetry/health``), the worker capacity
-poller, the ejection publisher, trace ingest and provenance records, and
-the KV-aware router (``--router-mode kv`` raises, ``pipeline/router.py``).
+In KV mode (``RouterMode.KV``) the watcher keeps one ``kv_router.KvRouter``
+per worker endpoint, fed by the workers' KV events, and closes it when the
+endpoint's last model goes. Left out (ROADMAP.md A10 part 2 and A12): hedged
+first tokens and health scoring (``_hedged_first``, ``telemetry/health``),
+the worker capacity poller, the ejection publisher, trace ingest and
+provenance records.
 
 Role-equivalent of lib/llm/src/discovery/{watcher,model_manager,model_entry}.rs
 and the bindings' ``register_llm``.
@@ -31,7 +33,7 @@ from typing import Any, AsyncIterator, Callable, Optional
 from dynamo_tpu_torch.http.service import ModelExecution, ModelManager
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.pipeline.context import Context
-from dynamo_tpu_torch.pipeline.router import KV_ROUTER_MISSING, PushRouter, RouterMode
+from dynamo_tpu_torch.pipeline.router import PushRouter, RouterMode
 from dynamo_tpu_torch.protocols.common import (
     FinishReason,
     LLMEngineOutput,
@@ -283,10 +285,9 @@ class ModelWatcher:
         drt: DistributedRuntime,
         manager: ModelManager,
         router_mode: RouterMode = RouterMode.ROUND_ROBIN,
+        kv_router_config: Optional[Any] = None,  # kv_router.KvRouterConfig
     ) -> None:
         # refuse at start, not at the first worker's registration
-        if router_mode is RouterMode.KV:
-            raise NotImplementedError(KV_ROUTER_MISSING)
         if router_mode is RouterMode.DIRECT:
             raise ValueError(
                 "router mode 'direct' needs an instance id with every request, "
@@ -295,11 +296,15 @@ class ModelWatcher:
         self.drt = drt
         self.manager = manager
         self.router_mode = router_mode
+        self.kv_router_config = kv_router_config
         self.migrations: dict[str, int] = {}
         self._task: Optional[asyncio.Task] = None
         self._watch = None
         self._clients: dict[str, Any] = {}  # endpoint str -> Client
         self._key_to_model: dict[str, str] = {}
+        # KV mode: endpoint str -> KvRouter, and each model's endpoint
+        self.kv_routers: dict[str, Any] = {}
+        self._model_endpoint: dict[str, str] = {}
 
     async def start(self) -> None:
         self._watch = await self.drt.fabric.watch_prefix(MODEL_ROOT)
@@ -312,6 +317,9 @@ class ModelWatcher:
             await self._watch.cancel()
         if self._task is not None:
             self._task.cancel()
+        # the routers stay listed (closed) for the frontend's exit stats
+        for kv_router in self.kv_routers.values():
+            await kv_router.close()
         for client in self._clients.values():
             await client.close()
         self._clients.clear()
@@ -343,7 +351,18 @@ class ModelWatcher:
         if client is None:
             client = await endpoint.client()
             self._clients[entry.endpoint] = client
-        router = PushRouter(client, self.router_mode)
+        if self.router_mode is RouterMode.KV:
+            from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
+
+            kv_router = self.kv_routers.get(entry.endpoint)
+            if kv_router is None:
+                kv_router = KvRouter(endpoint.component, client, block_size=mdc.kv_block_size,
+                                     config=self.kv_router_config)
+                await kv_router.start()
+                self.kv_routers[entry.endpoint] = kv_router
+            router = PushRouter(client, RouterMode.KV, selector=KvPushRouter(kv_router))
+        else:
+            router = PushRouter(client, self.router_mode)
         # admin fan-out: POST /clear_kv_blocks on the frontend round-trips
         # every worker's clear_kv_blocks endpoint (ref clear_kv_blocks.rs:88)
         clear_endpoint = endpoint.component.endpoint("clear_kv_blocks")
@@ -390,10 +409,18 @@ class ModelWatcher:
         )
         self.manager.add_model(entry.name, execution, ref=key)
         self._key_to_model[key] = entry.name
+        self._model_endpoint[entry.name] = entry.endpoint
         logger.info("watcher wired model %s via %s", entry.name, entry.endpoint)
 
     async def _on_delete(self, key: str) -> None:
         model = self._key_to_model.pop(key, None)
         if model is None:
             return
-        self.manager.remove_ref(model, key)
+        if self.manager.remove_ref(model, key):
+            # the model is gone: close its endpoint's KV router unless
+            # another model still routes through that endpoint
+            ep = self._model_endpoint.pop(model, None)
+            if ep is not None and ep not in self._model_endpoint.values():
+                kv_router = self.kv_routers.pop(ep, None)
+                if kv_router is not None:
+                    await kv_router.close()

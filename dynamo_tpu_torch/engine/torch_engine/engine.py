@@ -6,8 +6,13 @@ the same contract: ``generate(PreprocessedRequest, Context)`` streams
 finish reason. It is the JAX engine's single-worker loop with its defaults,
 reduced to:
 
-  * a FIFO waiting queue; a prompt is admitted when a batch lane and its
-    blocks (plus a watermark reserve) are free. With chunking on (the
+  * a waiting queue ordered by (QoS class rank, deadline, arrival), as the
+    JAX engine's ``_queue_key`` (engine.py:1013-1026): the class resolved at
+    the edge (``qos.priority_of``: the Context's decision metadata, else the
+    request's ``extra["priority"]``), interactive before standard before
+    bulk, then the earlier deadline (none last), then arrival; a prompt is
+    admitted when a batch lane and its blocks (plus a watermark reserve)
+    are free. With chunking on (the
     runner's ``prefill_chunk_tokens`` C > 0, the default), admission routes
     as ``JaxEngine._admit_phase`` does: a prompt (or, after a preemption,
     prompt + generated tokens) longer than C is prefilled chunk by chunk,
@@ -53,6 +58,15 @@ reduced to:
     has its minimum; a stop id past those that is still sampled early is
     dropped and redrawn with a fresh key, at most four times;
   * a prompt longer than ``max_model_len`` is refused (``prompt_too_long``);
+  * deadlines (the Context's ``deadline`` and ``ttft_deadline``), shed at
+    the JAX engine's four points with its phases, messages and code
+    ``deadline_exceeded``, each counted in ``deadline_exceeded``: at submit
+    (engine.py:593-598, phase ``admission``), while queued (:1489-1503,
+    ``queue``; the TTFT budget too), while awaiting a remote prefill
+    (:1509-1523, ``remote_prefill``: the sequence keeps its blocks until its
+    task ends) and admitted (:1525-1538, ``decode``: the TTFT budget until
+    the first token), the last three checked once per loop iteration (with
+    a horizon, once per dispatch); a shed lane frees its lane and blocks;
   * the migration resume contract (engine.py:251-260): a request whose
     ``extra["resume_prompt_len"]`` is shorter than its token ids replays a
     dead worker's stream; the tail past it counts as generated output, so
@@ -64,8 +78,10 @@ reduced to:
   * cancellation (``Context.kill`` or the consumer leaving the stream)
     frees the lane and its blocks at the next loop step, also mid-chunk;
   * when a growing sequence finds no free block, the youngest other running
-    sequence (one still being chunked included) is preempted: its blocks
-    are freed and it is re-queued, in arrival order, with its generated
+    sequence (one still being chunked included) is preempted, whatever its
+    class (the class orders admission only; class-aware victims come with
+    ROADMAP.md A7): its blocks are freed and it is re-queued, at its place
+    in the queue order (it keeps its arrival number), with its generated
     tokens, which are re-prefilled on re-admission (recompute preemption;
     with a block manager its KV-complete blocks go to the host tier first
     and re-admission onboards them).
@@ -133,20 +149,23 @@ decode pair) never overlap a graph capture with the other's work; their
 device jobs run one after the other, so a shipped prompt's prefill holds
 the decode engine's running lanes until it ends.
 
-Left out (ROADMAP.md lists them): the peer tier (G4-lite) and the KV event
-and worker-metrics publishers (A10: the callbacks stay unsubscribed), the
-fabric transport of remote prefill, disaggregation and the block manager
-under a tensor-parallel group (A8, which raises), multimodal prompts, QoS
-classes, deadline enforcement (a request's deadlines ride its Context over
-the wire, but the loop does not shed on them) and brownout, tracing and
-fault injection.
+A worker (``entrypoint/inputs.run_endpoint``) subscribes its KV event
+callbacks to a ``kv_router.KvEventPublisher`` and publishes
+``inputs.load_metrics(engine)`` for the KV-aware router.
+
+Left out (ROADMAP.md lists them): the peer tier (G4-lite, A7), class-aware
+preemption and brownout (A7), the fabric transport of remote prefill,
+disaggregation and the block manager under a tensor-parallel group (A8,
+which raises), multimodal prompts, tracing and fault injection.
 """
 
 from __future__ import annotations
 
 import asyncio
 import bisect
+import collections
 import concurrent.futures
+import contextlib
 import itertools
 import logging
 import os
@@ -159,6 +178,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
+from dynamo_tpu_torch import qos
 from dynamo_tpu_torch.block_manager.offload import OffloadQueue
 from dynamo_tpu_torch.disagg.colocated import DevicePrefillResponse
 from dynamo_tpu_torch.disagg.protocols import (
@@ -179,6 +199,7 @@ from dynamo_tpu_torch.protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
 )
+from dynamo_tpu_torch.runtime import clock as dclock
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger("dynamo_tpu_torch.engine")
@@ -304,6 +325,8 @@ class EngineStats:
     kv_onboard_errors: int = 0
     # the stuck-dispatch watchdog
     watchdog_trips: int = 0
+    # requests shed on their deadline or TTFT budget (the four points)
+    deadline_exceeded: int = 0
 
     @property
     def tokens_per_horizon(self) -> float:
@@ -337,6 +360,10 @@ class _Sequence:
         self.pending_remote = False  # admitted, awaiting its remote prefill's KV
         self.prefill_pos = 0  # tokens chunked so far
         self.arrival_order = 0
+        # the QoS class resolved at the edge orders the waiting queue
+        self.priority = qos.priority_of(ctx, request)
+        self.rank = qos.rank_of(self.priority)
+        self.deadline_fired = False  # the deadline error was sent (remote prefill)
         self.out: asyncio.Queue = asyncio.Queue()
         self.eos: set[int] = set()
         if not request.stop.ignore_eos:
@@ -464,6 +491,9 @@ class TorchEngine:
         self.slots: list[Optional[_Sequence]] = [None] * self.config.max_batch
         self.waiting: list[_Sequence] = []
         self.stats = EngineStats()
+        # the latest admissions (re-admissions too): request id, prompt
+        # tokens and the prefix blocks found in the tiers
+        self.admissions: collections.deque = collections.deque(maxlen=1024)
         self._seq_ids = itertools.count(1)
         self._arrivals = itertools.count(1)
         self._admit_order: list[_Sequence] = []  # youngest last, for preemption
@@ -583,6 +613,12 @@ class TorchEngine:
                 "worker_unavailable"
             )
             return
+        if context.expired() or context.ttft_expired():
+            self.stats.deadline_exceeded += 1
+            yield LLMEngineOutput.final_error(
+                context.id, "admission", "deadline expired before admission", "deadline_exceeded"
+            )
+            return
         n = len(request.token_ids)
         if n == 0:
             yield LLMEngineOutput.final_error(
@@ -630,11 +666,19 @@ class TorchEngine:
 
     # ---------------------------------------------------------- schedule
 
+    @staticmethod
+    def _queue_key(seq: _Sequence) -> tuple:
+        """Class rank, then the request deadline (unbounded last), then
+        arrival (engine.py:1013-1022)."""
+        dl = seq.ctx.deadline
+        return (seq.rank, dl if dl is not None else float("inf"), seq.arrival_order)
+
     def _enqueue(self, seq: _Sequence) -> None:
         if not seq.arrival_order:
             seq.arrival_order = next(self._arrivals)
         # a preempted sequence keeps its arrival number: back at the head
-        bisect.insort(self.waiting, seq, key=lambda s: s.arrival_order)
+        # of its class
+        bisect.insort(self.waiting, seq, key=self._queue_key)
 
     def _ensure_loop(self) -> None:
         if self._loop_task is None or self._loop_task.done():
@@ -672,6 +716,12 @@ class TorchEngine:
         self._maybe_offload(seq, reason)
         self._free_seq(seq)
         seq.out.put_nowait(LLMEngineOutput.final(reason))
+
+    def _finish_error(self, seq: _Sequence, phase: str, cause: str, code: str) -> None:
+        """Fail one admitted sequence with a structured error: free its lane
+        and blocks (publishing Removed) and send the typed final."""
+        self._free_seq(seq)
+        seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, phase, cause, code))
 
     def _try_admit(self, seq: _Sequence) -> bool:
         free_slots = [i for i, s in enumerate(self.slots) if s is None]
@@ -1074,9 +1124,10 @@ class TorchEngine:
                     if chunked:
                         continue
                     if not self.waiting and not self._landed:
-                        # a landing remote prefill sets the wake too
+                        # a landing remote prefill sets the wake too; a
+                        # deadline of one still in flight ends the wait
                         self._wake.clear()
-                        await self._wake.wait()
+                        await self._idle_wait()
                     else:
                         await asyncio.sleep(0.001)  # backlog waits for blocks
                     continue
@@ -1099,19 +1150,58 @@ class TorchEngine:
             self.waiting.clear()
             raise
 
+    async def _idle_wait(self) -> None:
+        """Wait for new work, or until the earliest deadline of a sequence
+        awaiting its remote prefill, which the next iteration sheds."""
+        deadlines = [s.ctx.deadline for s in self.slots
+                     if s is not None and s.pending_remote and s.ctx.deadline is not None
+                     and not s.deadline_fired]
+        if not deadlines:
+            await self._wake.wait()
+            return
+        with contextlib.suppress(asyncio.TimeoutError):
+            await asyncio.wait_for(self._wake.wait(), max(0.0, min(deadlines) - dclock.wall()) + 1e-3)
+
     def _decode_lanes(self) -> list[_Sequence]:
         return [s for s in self.slots
                 if s is not None and not s.prefilling and not s.pending_remote]
 
     def _reap_cancelled(self) -> None:
+        """Cancelled and expired sequences leave, once per loop iteration
+        (engine.py:1486-1547)."""
         for seq in list(self.waiting):
             if seq.ctx.is_killed() or seq.ctx.is_stopped():
                 self.waiting.remove(seq)
                 seq.out.put_nowait(LLMEngineOutput.final(FinishReason.CANCELLED))
+            elif seq.ctx.expired() or seq.ctx.ttft_expired():
+                # queued past its deadline, or past the point where its
+                # first token could still arrive in budget: shed before it
+                # costs a prefill
+                self.waiting.remove(seq)
+                self.stats.deadline_exceeded += 1
+                seq.ctx.kill()
+                seq.out.put_nowait(LLMEngineOutput.final_error(
+                    seq.ctx.id, "queue", "deadline exceeded while queued", "deadline_exceeded"))
         for seq in list(self._admit_order):
-            # a sequence awaiting its remote prefill keeps its blocks until
-            # the task lands (engine.py:1506-1510), which finishes it
-            if seq.ctx.is_killed() and not seq.pending_remote:
+            if seq.pending_remote:
+                # it keeps its blocks until its task lands (a late inject
+                # would write into blocks handed to another sequence); the
+                # killed context cancels the remote prefill and the landing
+                # finishes it
+                if seq.ctx.expired() and not seq.deadline_fired:
+                    seq.deadline_fired = True
+                    self.stats.deadline_exceeded += 1
+                    seq.ctx.kill()
+                    seq.out.put_nowait(LLMEngineOutput.final_error(
+                        seq.ctx.id, "remote_prefill", "deadline exceeded awaiting remote prefill",
+                        "deadline_exceeded"))
+                continue
+            if seq.ctx.expired() or (seq.num_generated == 0 and seq.ctx.ttft_expired()):
+                self.stats.deadline_exceeded += 1
+                seq.ctx.kill()
+                self._finish_error(seq, "decode", "deadline exceeded mid-generation",
+                                   "deadline_exceeded")
+            elif seq.ctx.is_killed():
                 self._finish(seq, FinishReason.CANCELLED)
 
     async def _admit_phase(self) -> bool:
@@ -1148,6 +1238,8 @@ class TorchEngine:
                 seq.prefix_hashes = [b.block_hash for b in seq.pending_chain.blocks]
                 seq.cached_prefix_blocks = bm.lookup_prefix(seq.prefix_hashes)
                 hit_len = seq.cached_prefix_blocks * bs
+            self.admissions.append({"id": seq.ctx.id, "prompt_tokens": len(seq.token_ids),
+                                    "cached_blocks": seq.cached_prefix_blocks})
             if await self._use_remote(seq, hit_len):
                 # the sequence holds its lane and blocks and joins the
                 # decode batch when its KV lands
@@ -1288,7 +1380,7 @@ class TorchEngine:
         chunks: list[tuple] = []
         packed: list[tuple[_Sequence, int, int]] = []  # (seq, start, n)
         plan: list[tuple[_Sequence, int]] = []  # tokens each sequence advances
-        for seq in sorted(self._prefilling, key=lambda s: s.arrival_order):
+        for seq in sorted(self._prefilling, key=self._queue_key):
             if budget <= 0 or len(chunks) >= self._mixed_max_slots:
                 break
             total = len(seq.token_ids)
@@ -1818,7 +1910,8 @@ class TorchEngine:
                 top_k=seq.top_k, cached_blocks=cached, rep_pen=seq.rep_pen,
                 key_data=self._key_row(seq), eos_ids=seq.eos_row,
                 eos_suppress=seq.needs_eos_suppress, stream=stream,
-                on_frame=on_frame if stream else None, deadline=None, ctx=seq.ctx, extra=None,
+                on_frame=on_frame if stream else None, deadline=seq.ctx.deadline, ctx=seq.ctx,
+                extra=None,
             )
         except PrefillStreamCancelled:
             self._land(seq, None, FinishReason.CANCELLED)

@@ -3,16 +3,18 @@ dyn:// worker.
 
 The port's own copy of dynamo_tpu/entrypoint/inputs.py.
 ``EngineConfig.static_(engine, mdc)`` wires a local engine;
-``EngineConfig.dynamic(router_mode)`` serves whatever workers register
-through discovery (``discovery.ModelWatcher``). ``run_endpoint`` hosts a
-static engine as a ``dyn://ns.comp.ep`` worker: it serves the endpoint,
-registers the model (``register_llm``), stamps every frame with its fencing
-epoch, re-registers after a fabric heal, self-fences through
-``engine.fence``, deregisters and finishes its requests on a drain, then
-checkpoints the KV tiers (``DYN_WARM_RESTART_DIR``). Left out (ROADMAP.md
-Queue A item 10): the worker's KV event and load-metrics publishers (the
-engine's ``on_blocks_*`` callbacks stay unsubscribed), and the frontend's
-SLO, brownout and planner publishers.
+``EngineConfig.dynamic(router_mode, kv_router_config)`` serves whatever
+workers register through discovery (``discovery.ModelWatcher``; in KV mode
+routed by the KV-aware router). ``run_endpoint`` hosts a static engine as a
+``dyn://ns.comp.ep`` worker: it serves the endpoint, registers the model
+(``register_llm``), stamps every frame with its fencing epoch, publishes the
+engine's KV events (``kv_router.KvEventPublisher``; the warm-restored
+blocks too) and its load metrics every second
+(``kv_router.WorkerMetricsPublisher`` over ``load_metrics(engine)``),
+re-registers after a fabric heal, self-fences through ``engine.fence``,
+deregisters and finishes its requests on a drain, then checkpoints the KV
+tiers (``DYN_WARM_RESTART_DIR``). Left out (ROADMAP.md A7 and A10 part 2):
+the worker's brownout ladder and the frontend's SLO and planner publishers.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class EngineConfig:
     engine: Optional[Any] = None
     mdc: Optional[ModelDeploymentCard] = None
     router_mode: RouterMode = RouterMode.ROUND_ROBIN
+    kv_router_config: Optional[Any] = None  # kv_router.KvRouterConfig when mode=KV
     request_template: Optional[Any] = None  # request_template.RequestTemplate
 
     @classmethod
@@ -71,8 +74,11 @@ class EngineConfig:
         return cls(engine=engine, mdc=mdc)
 
     @classmethod
-    def dynamic(cls, router_mode: RouterMode = RouterMode.ROUND_ROBIN) -> "EngineConfig":
-        return cls(router_mode=router_mode)
+    def dynamic(
+        cls, router_mode: RouterMode = RouterMode.ROUND_ROBIN,
+        kv_router_config: Optional[Any] = None,
+    ) -> "EngineConfig":
+        return cls(router_mode=router_mode, kv_router_config=kv_router_config)
 
     @property
     def is_static(self) -> bool:
@@ -142,7 +148,7 @@ async def run_http(
 
         if drt is None:
             raise ValueError("a dynamic frontend (out=dyn) needs a DistributedRuntime")
-        watcher = ModelWatcher(drt, manager, config.router_mode)
+        watcher = ModelWatcher(drt, manager, config.router_mode, config.kv_router_config)
         await watcher.start()
         service.watcher = watcher
     await service.start()
@@ -362,6 +368,30 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
 
         drt.on_drain(_warm_checkpoint)
 
+    # KV-routing feeds: the engine's cache events and its load metrics, so
+    # a KV-mode router can prefix-route to this worker
+    from dynamo_tpu_torch.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
+
+    kv_pub = KvEventPublisher(endpoint.component, service.instance_id)
+    if hasattr(engine, "on_blocks_stored"):
+        engine.on_blocks_stored = kv_pub.on_blocks_stored
+        engine.on_blocks_removed = kv_pub.on_blocks_removed
+    if hasattr(engine, "on_cache_cleared"):
+        engine.on_cache_cleared = kv_pub.publish_cleared
+    # blocks restored from a warm-restart checkpoint are invisible to the
+    # routers until advertised: republish their chains now
+    bm = getattr(engine, "block_manager", None)
+    if bm is not None and bm.stats.warm_restored:
+        adverts = bm.advert_blocks()
+        if adverts:
+            kv_pub.on_blocks_stored(adverts)
+            logger.info("republished %d warm-restored block advert(s)", len(adverts))
+    metrics_pub = None
+    if hasattr(engine, "allocator"):
+        metrics_pub = WorkerMetricsPublisher(endpoint.component, endpoint.id, service.instance_id,
+                                             stamp=stamp)
+        await metrics_pub.start(lambda: load_metrics(engine))
+
     # admin control plane: the frontend's POST /clear_kv_blocks fans out to
     # this per-worker endpoint (ref http/service/clear_kv_blocks.rs:23)
     clear_service = None
@@ -379,8 +409,62 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
     try:
         await service.wait()
     finally:
+        if metrics_pub is not None:
+            await metrics_pub.stop()
+        await kv_pub.drain()
         if clear_service is not None:
             await clear_service.stop(drain=False)
+
+
+def load_metrics(engine: Any):
+    """A ``TorchEngine``'s load and counters as the reference's
+    ``ForwardPassMetrics`` (dynamo_tpu/entrypoint/inputs.py:610-705, under
+    its field names; the fields the port's engine does not keep stay at
+    their defaults)."""
+    from dynamo_tpu_torch.integrity import COUNTERS
+    from dynamo_tpu_torch.kv_router.protocols import (
+        ForwardPassMetrics,
+        KvStats,
+        KvTransferStats,
+        SpecDecodeStats,
+        WorkerStats,
+    )
+
+    st, cfg = engine.stats, engine.config
+    total = cfg.num_blocks - 1  # block 0 is the allocator's pad block
+    used = total - engine.allocator.free_count
+    spec = None
+    if cfg.spec_k:
+        spec = SpecDecodeStats(
+            num_spec_tokens=cfg.spec_k, num_drafts=st.num_drafts,
+            num_draft_tokens=st.num_draft_tokens, num_accepted_tokens=st.num_accepted_tokens,
+            num_accepted_tokens_per_pos=list(st.accepted_per_pos) or None,
+        )
+    xfer = None
+    if st.kv_frames_tx or st.kv_frames_rx or st.kv_wire_bytes_tx or st.kv_wire_bytes_rx:
+        xfer = KvTransferStats(
+            kv_frames_tx=st.kv_frames_tx, kv_frames_rx=st.kv_frames_rx,
+            kv_wire_bytes_tx=st.kv_wire_bytes_tx, kv_wire_bytes_rx=st.kv_wire_bytes_rx,
+            kv_bytes_overlapped=st.kv_bytes_overlapped,
+        )
+    integ = COUNTERS.snapshot()
+    return ForwardPassMetrics(
+        worker_stats=WorkerStats(
+            request_active_slots=sum(s is not None for s in engine.slots),
+            request_total_slots=cfg.max_batch,
+            num_requests_waiting=len(engine.waiting),
+            num_deadline_exceeded=st.deadline_exceeded,
+            num_watchdog_trips=st.watchdog_trips,
+            num_preempted_too_often=st.preempted_too_often,
+            integrity_failures_by_path=integ["integrity_failures_by_path"] or None,
+            num_blocks_quarantined=integ["blocks_quarantined"],
+            fenced_rejects_by_plane=integ["fenced_rejects_by_plane"] or None,
+        ),
+        kv_stats=KvStats(kv_active_blocks=used, kv_total_blocks=total,
+                         gpu_cache_usage_perc=used / max(1, total)),
+        spec_decode_stats=spec,
+        kv_transfer_stats=xfer,
+    )
 
 
 # ----------------------------------------------------------------- util
@@ -396,7 +480,7 @@ async def _resolve_execution(config: EngineConfig, drt: Optional[Any]) -> tuple[
     if drt is None:
         raise ValueError("a dynamic config (out=dyn) needs a DistributedRuntime")
     manager = ModelManager()
-    watcher = ModelWatcher(drt, manager, config.router_mode)
+    watcher = ModelWatcher(drt, manager, config.router_mode, config.kv_router_config)
     await watcher.start()
     for _ in range(300):
         models = manager.list_models()

@@ -20,10 +20,17 @@ While a request is served, the connection is watched: a client that closes
 it (EOF on the reader, or a write that fails) kills the request's
 ``Context``, and the engine frees its lane at its next step.
 
+The edge resolves each request's QoS class (the ``x-dyn-priority`` header,
+then ``ext.priority``, then ``DYN_PRIORITY_DEFAULT``: ``qos.py``) onto its
+Context and arms its deadlines (``ext.timeout_ms`` / ``ext.ttft_timeout_ms``,
+else ``DYN_DEFAULT_DEADLINE_MS`` for the whole request): an engine sheds an
+expired request with the typed ``deadline_exceeded`` error, a 504 when not
+streamed and an SSE ``event: error`` when streamed.
+
 Tokenizing, templating and detokenizing run on the event loop, per request,
 as in the reference; the engine keeps its device calls on its own thread.
 Not ported: Prometheus ``/metrics``, admission and brownout, SLO tracking,
-tracing, embeddings, ``/v1/responses``, tool calling and QoS classes.
+tracing, embeddings, ``/v1/responses`` and tool calling.
 """
 
 from __future__ import annotations
@@ -33,10 +40,12 @@ import contextlib
 import dataclasses
 import json
 import logging
+import os
 import re
 import time
 from typing import Any, AsyncIterator, Callable, Optional
 
+from dynamo_tpu_torch import qos
 from dynamo_tpu_torch.backend import Backend, EngineFn, detokenize
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.pipeline.annotated import Annotated
@@ -234,6 +243,7 @@ class ModelExecution:
 
     async def chat_stream(self, request: ChatCompletionRequest, ctx: Context) -> AsyncIterator[Annotated]:
         pre, prompt = self.preprocessor.preprocess_chat(request)
+        qos.stamp_priority(pre, ctx)  # the QoS class onto every wire hop
         for ann in self.preprocessor.requested_annotations(pre, prompt):
             yield ann
         gen = ChatDeltaGenerator(request.model)
@@ -249,6 +259,7 @@ class ModelExecution:
 
     async def completion_stream(self, request: CompletionRequest, ctx: Context) -> AsyncIterator[Annotated]:
         pre, prompt = self.preprocessor.preprocess_completion(request)
+        qos.stamp_priority(pre, ctx)
         gen = CompletionDeltaGenerator(request.model)
         if request.echo and prompt:
             for i in range(max(1, pre.sampling.n or 1)):
@@ -581,6 +592,28 @@ class HttpService:
     def _resp_headers(ctx: Context) -> dict[str, str]:
         return {"x-request-id": ctx.id}
 
+    @staticmethod
+    def _resolve_priority(req: _Request, api_req: Any, ctx: Context) -> None:
+        """The QoS class at the edge: ``x-dyn-priority``, then
+        ``ext.priority``, then ``DYN_PRIORITY_DEFAULT``, onto the Context."""
+        ext = api_req.ext
+        ctx.decisions().priority = qos.resolve_priority(
+            req.headers.get("x-dyn-priority"), ext.priority if ext else None, api_req.model)
+
+    @staticmethod
+    def _arm_deadline(ctx: Context, api_req: Any) -> None:
+        """Arm the request / TTFT budgets from the ext block, falling back
+        to DYN_DEFAULT_DEADLINE_MS for the overall deadline
+        (dynamo_tpu/http/service.py:1064-1074)."""
+        ext = api_req.ext
+        timeout_ms = ext.timeout_ms if ext else None
+        ttft_ms = ext.ttft_timeout_ms if ext else None
+        if timeout_ms is None:
+            default = os.environ.get("DYN_DEFAULT_DEADLINE_MS")
+            if default:
+                timeout_ms = float(default)
+        ctx.set_deadline_ms(timeout_ms, ttft_ms)
+
     def _parse(self, req: _Request, cls, apply_template: Optional[Callable]):
         try:
             body = json.loads(req.body)
@@ -655,6 +688,8 @@ class HttpService:
                 raise _Reply(501, "this model does not accept image input", "not_implemented")
             if chat_req.tools:
                 raise _Reply(501, "tool calling is not supported", "not_implemented")
+            self._resolve_priority(req, chat_req, ctx)
+            self._arm_deadline(ctx, chat_req)
             stream = execution.chat_stream(chat_req, ctx)
             try:
                 # render and tokenize before any byte goes out, so a
@@ -675,6 +710,8 @@ class HttpService:
         async def run():
             comp_req, execution = self._parse(
                 req, CompletionRequest, self.template and self.template.apply_completion)
+            self._resolve_priority(req, comp_req, ctx)
+            self._arm_deadline(ctx, comp_req)
             stream = execution.completion_stream(comp_req, ctx)
             if comp_req.stream:
                 await self._stream_sse(conn, req, ctx, stream)

@@ -1,10 +1,10 @@
 """Request-scoped context: id, metadata, cancellation, deadlines — propagated
 across process boundaries in the request header.
 
-The port's own copy of dynamo_tpu/pipeline/context.py's ``Context`` (its
-``DecisionCarrier``, the QoS class and the KV router's pull plan, comes with
-the KV-aware router). The port's engine does not enforce the deadlines yet:
-they ride the wire, and ``expired()`` answers for whoever checks.
+The port's own copy of dynamo_tpu/pipeline/context.py: ``Context`` and
+the ``DecisionCarrier`` over its metadata (the QoS class, the KV router's
+prefix-pull plan and fleet prefix coverage, under the reference's wire
+keys).
 
 Role-equivalent of the reference's Context<T>/Controller
 (lib/runtime/src/pipeline/context.rs:33,324) and AsyncEngineContext
@@ -134,3 +134,72 @@ class Context:
 
     def child(self) -> "Context":
         return Context(id=self.id, metadata=self.metadata, parent=self)
+
+    def decisions(self) -> "DecisionCarrier":
+        """Typed view over the decision metadata riding this context."""
+        return DecisionCarrier(self.metadata)
+
+
+class DecisionCarrier:
+    """Typed accessor for the per-request decision metadata that rides
+    ``Context.metadata`` across wire hops: the resolved QoS class, the
+    router's cross-worker prefix pull plan, and the fleet prefix-coverage
+    fraction. The wire keys are the reference's, so headers stay
+    compatible."""
+
+    PRIORITY = "priority"
+    PREFIX_PULL = "prefix_pull"
+    KV_FLEET_FRAC = "kv_fleet_frac"
+
+    __slots__ = ("_md",)
+
+    def __init__(self, metadata: Optional[dict[str, Any]]) -> None:
+        self._md: dict[str, Any] = metadata if metadata is not None else {}
+
+    # --- QoS class -----------------------------------------------------
+
+    @property
+    def priority(self) -> Optional[str]:
+        return self._md.get(self.PRIORITY)
+
+    @priority.setter
+    def priority(self, value: Optional[str]) -> None:
+        if value is None:
+            self._md.pop(self.PRIORITY, None)
+        else:
+            self._md[self.PRIORITY] = value
+
+    # --- router prefix pull plan ---------------------------------------
+
+    @property
+    def pull_plan(self) -> Optional[dict[str, Any]]:
+        return self._md.get(self.PREFIX_PULL)
+
+    @pull_plan.setter
+    def pull_plan(self, plan: Optional[dict[str, Any]]) -> None:
+        if plan is None:
+            self._md.pop(self.PREFIX_PULL, None)
+        else:
+            self._md[self.PREFIX_PULL] = plan
+
+    def take_pull_plan(self) -> Optional[dict[str, Any]]:
+        """Pop the pull plan (consumed exactly once, by the prefill edge)."""
+        return self._md.pop(self.PREFIX_PULL, None)
+
+    # --- fleet prefix coverage -----------------------------------------
+
+    @property
+    def kv_fleet_frac(self) -> Optional[float]:
+        return self._md.get(self.KV_FLEET_FRAC)
+
+    @kv_fleet_frac.setter
+    def kv_fleet_frac(self, frac: Optional[float]) -> None:
+        if frac is None:
+            self._md.pop(self.KV_FLEET_FRAC, None)
+        else:
+            self._md[self.KV_FLEET_FRAC] = frac
+
+
+def decisions_of(ctx: Any) -> DecisionCarrier:
+    """Carrier for any Context-like object (None-safe: detached dict)."""
+    return DecisionCarrier(getattr(ctx, "metadata", None))

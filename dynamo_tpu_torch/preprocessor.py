@@ -126,8 +126,8 @@ class OpenAIPreprocessor:
             annotations=list(ext.annotations) if ext else [],
         )
         if ext is not None and ext.priority is not None:
-            # the raw ext stamp, as the reference carries it (the port has no
-            # QoS classes yet, so nothing reads it)
+            # the raw ext stamp; the HTTP edge resolves the class (header >
+            # ext > DYN_PRIORITY_DEFAULT) through qos.stamp_priority
             pre.extra["priority"] = ext.priority
         return pre
 

@@ -7,14 +7,19 @@ The port's own copy of dynamo_tpu/run.py:
         [--kv-block-size 16] [--context-length N] [--num-blocks N] \\
         [--max-batch 8] [--request-template FILE] [--device cuda|cpu] \\
         [--tensor-parallel-size N] [--router-mode round_robin|random|kv] \\
-        [--endpoint ns.comp.ep]
+        [--kv-overlap-score-weight 1.0] [--router-temperature 0.5] \\
+        [--no-kv-events] [--endpoint ns.comp.ep]
 
 in  = http | text | batch:FILE.jsonl | dyn://ns.comp.ep (serve the engine as
       a worker of that endpoint; ``in=dyn`` alone serves ``--endpoint``)
 out = torch  (TorchEngine from build_torch_engine(<dir>); a directory with
       config.json and no *.safetensors serves seeded random weights)
-    | dyn  (route to the workers discovery finds, with --router-mode;
-      ``kv`` raises: the KV-aware router is not ported yet)
+    | dyn  (route to the workers discovery finds, with --router-mode; ``kv``
+      sends each request to the worker whose KV cache holds most of its
+      prompt, weighed against its load: cost = weight x blocks to prefill +
+      predicted blocks held, softmax-sampled at --router-temperature (0 =
+      the cheapest); ``--no-kv-events`` indexes the router's own decisions
+      for 120 s instead of the workers' KV events)
 
 A distributed deployment (the fabric at ``DYN_FABRIC_ADDR``, which both
 roles require: without it a worker would register where no frontend sees it,
@@ -23,7 +28,13 @@ so the command refuses to start):
     python -m dynamo_tpu_torch.fabric.server --port 6650 &
     DYN_FABRIC_ADDR=127.0.0.1:6650 python -m dynamo_tpu_torch.run \\
         in=dyn://dynamo.backend.generate out=torch --model-path <dir> --num-blocks N &
-    DYN_FABRIC_ADDR=127.0.0.1:6650 python -m dynamo_tpu_torch.run in=http out=dyn
+    DYN_FABRIC_ADDR=127.0.0.1:6650 python -m dynamo_tpu_torch.run in=http out=dyn \\
+        --router-mode kv
+
+A worker publishes its KV events and load metrics for the KV-aware router
+(``python -m dynamo_tpu_torch.router`` serves one on its own). The graph
+``python -m dynamo_tpu_torch.serve dynamo_tpu_torch.graphs.agg`` starts the
+fabric, the workers and the frontend under one supervisor.
 
 The engine is built before the runtime connects and takes its lease, so a
 long build cannot starve the lease's keepalive. A worker drains on SIGTERM
@@ -88,7 +99,19 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     parser.add_argument(
         "--router-mode", choices=[m.value for m in RouterMode if m is not RouterMode.DIRECT],
         default="round_robin",
-        help="out=dyn: how requests pick a worker (kv is not ported yet and raises)",
+        help="out=dyn: how requests pick a worker",
+    )
+    parser.add_argument(
+        "--kv-overlap-score-weight", type=float, default=1.0,
+        help="KV router: weight on prefill (non-cached) blocks in the cost",
+    )
+    parser.add_argument(
+        "--router-temperature", type=float, default=0.5,
+        help="KV router: softmax sampling temperature (0 = argmin)",
+    )
+    parser.add_argument(
+        "--no-kv-events", action="store_true",
+        help="KV router: index its own routing decisions (ApproxKvIndexer) instead of events",
     )
     parser.add_argument(
         "--endpoint", default="dynamo.backend.generate",
@@ -137,7 +160,16 @@ def build_config(args: argparse.Namespace):
     if args.out_opt == "dyn":
         if args.in_opt.startswith("dyn://"):
             raise SystemExit("in=dyn:// serves an engine: give it out=torch")
-        config = EngineConfig.dynamic(RouterMode(args.router_mode))
+        from dynamo_tpu_torch.kv_router.scheduler import KvRouterConfig
+
+        config = EngineConfig.dynamic(
+            RouterMode(args.router_mode),
+            kv_router_config=KvRouterConfig(
+                overlap_score_weight=args.kv_overlap_score_weight,
+                router_temperature=args.router_temperature,
+                use_kv_events=not args.no_kv_events,
+            ),
+        )
         _add_template(config, args)
         return config
     from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
@@ -175,8 +207,12 @@ def _add_template(config, args: argparse.Namespace) -> None:
 
 def exit_stats(engine) -> dict:
     """What the engine did in this process: each kernel's launches, tokens
-    generated, and lanes / KV blocks still held (0 / all free when every
-    request was finished or cancelled)."""
+    generated, lanes / KV blocks still held (0 / all free when every
+    request was finished or cancelled), the tiers' traffic, the requests
+    shed on their deadline, its latest admissions (request id, prompt
+    tokens, prefix blocks found in the tiers) and the process's integrity
+    counters (checksum failures, quarantined blocks, fenced frames)."""
+    from dynamo_tpu_torch.integrity import COUNTERS
     from dynamo_tpu_torch.ops import kernels
     from dynamo_tpu_torch.parallel.multihost import SpmdModelRunner
 
@@ -190,6 +226,11 @@ def exit_stats(engine) -> dict:
         "busy_lanes": sum(s is not None for s in engine.slots),
         "free_blocks": engine.allocator.free_count,
         "num_blocks": engine.config.num_blocks,
+        **{k: getattr(engine.stats, k) for k in (
+            "kv_offloaded_blocks", "kv_offload_errors", "kv_onboarded_blocks",
+            "kv_onboard_errors", "deadline_exceeded")},
+        "admissions": list(engine.admissions),
+        "integrity": COUNTERS.snapshot(),
     }
 
 
@@ -231,12 +272,20 @@ async def amain(args: argparse.Namespace) -> None:
 
 def frontend_stats(service) -> dict:
     """What a dynamic frontend did: in-flight migrations per model, frames
-    refused from fenced workers."""
+    refused from fenced workers and, in KV mode, its routers' decisions."""
     from dynamo_tpu_torch.integrity import COUNTERS
 
     watcher = getattr(service, "watcher", None)
-    return {"migrations": dict(watcher.migrations) if watcher is not None else {},
-            "fenced_rejects": dict(COUNTERS.fenced_rejects)}
+    out = {"migrations": dict(watcher.migrations) if watcher is not None else {},
+           "fenced_rejects": dict(COUNTERS.fenced_rejects)}
+    if watcher is not None and watcher.kv_routers:
+        # KV mode: each endpoint's routing decisions and the blocks its index
+        # still holds per worker
+        out["kv_routers"] = {ep: {**r.scheduler.hit_stats, "events": r.events_applied,
+                                  "index_blocks": {f"{w:x}": n for w, n in
+                                                   r.indexer.block_counts().items()}}
+                             for ep, r in watcher.kv_routers.items()}
+    return out
 
 
 def _worker_signals(drt, engine) -> None:

@@ -14,7 +14,7 @@
   ``JaxEngine``'s at cuts 1 / 4 / 9, seeded equal to its own unfaulted run),
   a worker killed mid-stream (the stream completes token-identical, the
   migration counted), ``fence`` as ``JaxEngine.fence``, a worker's drain,
-  and ``RouterMode.KV`` refused.
+  ``RouterMode.KV`` wired through the KV router and ``direct`` refused.
 - The CLI: the fabric server, a ``run in=dyn:// out=torch --device cpu``
   worker and a ``run in=http out=dyn`` frontend as processes; a streamed
   completion arrives, and a SIGKILLed worker leaves discovery within the
@@ -745,20 +745,40 @@ async def test_worker_drain_leaves_discovery_and_finishes_in_flight(model_dir, m
         await drt.close()
 
 
-async def test_router_mode_kv_raises_naming_the_roadmap_item():
+async def test_router_mode_kv_builds_the_kv_router_and_direct_is_refused(model_dir, capsys):
+    """``RouterMode.KV`` builds a PushRouter over a selector and a
+    ModelWatcher; ``run_http`` and ``run_text`` start in KV mode and serve
+    an echo worker through a KvRouter; ``direct`` stays refused."""
+    from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
+
+    worker = await DistributedRuntime.detached()
     drt = await DistributedRuntime.detached()
+    service = None
     try:
-        client = await drt.namespace("k").component("w").endpoint("e").client()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ep = worker.namespace("k").component("w").endpoint("generate")
+        await ep.serve_endpoint(t_inputs.make_engine_handler(EchoEngineCore()))
+        await register_llm(worker, ep, echo_card(model_dir, "kv-echo"))
+        client = await drt.namespace("k").component("w").endpoint("generate").client()
+        with pytest.raises(ValueError, match="WorkerSelector"):
             PushRouter(client, RouterMode.KV)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ModelWatcher(drt, ModelManager(), RouterMode.KV)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            await t_inputs.run_http(t_inputs.EngineConfig.dynamic(RouterMode.KV), host="127.0.0.1",
-                                    port=0, drt=drt)
+        kv = KvRouter(drt.namespace("k").component("w"), client, block_size=4)
+        assert PushRouter(client, RouterMode.KV, selector=KvPushRouter(kv)).mode is RouterMode.KV
+        await kv.close()
+        watcher = ModelWatcher(drt, ModelManager(), RouterMode.KV)
+        await watcher.start()
+        assert list(watcher.kv_routers) == ["dyn://k.w.generate"]
+        await watcher.stop()
+        service = await t_inputs.run_http(t_inputs.EngineConfig.dynamic(RouterMode.KV), host="127.0.0.1",
+                                          port=0, drt=drt)
+        await wait_models(service.port)
+        st, _, data = await afetch(service.port, "POST", "/v1/completions",
+                                   {"model": "kv-echo", "prompt": "fox jumps over", "max_tokens": 3})
+        assert st == 200 and json.loads(data)["choices"][0]["text"].split() == ["fox", "jumps", "over"]
+        assert service.watcher.kv_routers["dyn://k.w.generate"].scheduler.hit_stats["decisions"] == 1
         config = port_run.build_config(port_run.parse_args(["in=http", "out=dyn", "--router-mode", "kv"]))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            await t_inputs.run_text(config, drt=drt)
+        assert config.router_mode is RouterMode.KV and config.kv_router_config.router_temperature == 0.5
+        await t_inputs.run_text(config, prompt_once="lazy dog", drt=drt)
+        assert "lazy dog" in capsys.readouterr().out
         # direct needs an instance id a frontend never picks: refused at start too
         with pytest.raises(ValueError, match="round_robin or random"):
             ModelWatcher(drt, ModelManager(), RouterMode.DIRECT)
@@ -766,7 +786,11 @@ async def test_router_mode_kv_raises_naming_the_roadmap_item():
             port_run.parse_args(["in=http", "out=dyn", "--router-mode", "direct"])
         await client.close()
     finally:
+        if service:
+            await service.close()
+            await service.watcher.stop()
         await drt.close()
+        await worker.close()
 
 
 @pytest.mark.parametrize("inout", [["in=http", "out=dyn"], ["in=dyn://dynamo.backend.generate", "out=torch"]])
