@@ -112,9 +112,18 @@ Phases, each of which must pass or the script exits non-zero:
                 greedy tokens that agree with one card, the B=8 step's time on
                 both, its collective share and each rank's peak memory; then a
                 one-rank NCCL group runs a fused step with
-                DYN_COLLECTIVE_OVERLAP=1 (the ring with zero hops). Two ranks on
-                one card over gloo check correctness and say nothing of
-                collective speed across cards.
+                DYN_COLLECTIVE_OVERLAP=1 (the ring with zero hops). Between
+                them, disaggregation and tiers under the group: a tp = 1
+                engine ships serve's two longest prompts to a tp = 2 group
+                (HostPrefillClient, streamed and monolithic, 16 tokens out),
+                the group ships the longest to the tp = 1 engine, then the
+                group (DYN_KV_HOST_OFFLOAD_GB=4) onboards a 1024-token prefix
+                its first request offloaded; every landing and onboarded page
+                bitwise on each rank (the group's gather, and the leader's own
+                head slice), every stream within 0.25 of the dense reference.
+                Two ranks on one card over gloo check correctness and say
+                nothing of collective speed across cards; ``--only serve_tp``
+                runs the build and this phase alone.
 
  12. serve_horizon -- the decode horizon on CUDA graphs, build_torch_engine's
                 defaults on a card (H = 4; the decode step, the horizon and
@@ -185,7 +194,7 @@ Phases, each of which must pass or the script exits non-zero:
                 frames landed = shipped on the host legs and none on the device
                 path (the monolithic leg runs under DYN_KV_STREAM=0), and the
                 dense reference on every greedy stream (bf16 0.25, int8
-                INT8_REF_GAP). Then the yardsticks in the same run, twice each:
+                INT8_REF_GAP). Then the yardsticks in the same run, once each:
                 the decode engine serving alone (chunks) and an engine from the
                 defaults with prefill_chunk_tokens=0 (#3 single-shot on its own
                 thread). Times: tokens/s, the inter-token gap (p50 / p99 / max
@@ -281,13 +290,47 @@ Phases, each of which must pass or the script exits non-zero:
                 exit 0 on SIGTERM. ``python3
                 chip_smoke.py --only serve_kv`` runs the build and this phase
                 alone.
+ 18. serve_disagg_fabric -- disaggregation across processes (last): the
+                port's fabric server and the disagg graph (``python -m
+                dynamo_tpu_torch.serve dynamo_tpu_torch.graphs.disagg``,
+                DYN_GRAPH_ENGINE=torch on serve_http's Llama-3.1-8B
+                directory, DYN_MAX_LOCAL_PREFILL=50, DYN_HBM_GB=21 a worker so
+                three 8B engines share the card, the defaults otherwise:
+                H = 4 on graphs, chunk 512) under two supervisors: two
+                PrefillWorkers and the frontend, and the DecodeWorker. (a)
+                Streamed frames: serve_http's 8 requests; the workers' SIGUSR1
+                stats read just before and just after must show 7 remote
+                prefills (the prompts over 50 tokens) and no local fallback,
+                #3 launched 32 x the shipped prompts of at most 512 tokens on
+                the prefill workers (longer ones stream chunks), #1 on the
+                decode worker only by graph replays, frames and bytes received
+                equal to those sent, no integrity failure or fenced frame; the
+                2000-token TTFT through the graph 3 times; the transport alone
+                in turns (this process's RemotePrefillClient to the prefill
+                workers, streamed and monolithic, every payload landed on the
+                card); the host path of the 125-block payload (d2h, encode,
+                checksum, pack, publish through the server, unpack, decode,
+                h2d); a request hung up on while four 3000-token prompts hold
+                the prefill workers: a prefill worker counts the cancelled
+                stream, the decode worker frees every block. (b) A new
+                DecodeWorker with DYN_KV_STREAM=0: the same 8 requests (#3 =
+                32 x 7), the TTFT 3 times, a 256-block prompt (512 MiB of K/V,
+                over the fabric's frame limit) answered too_large and prefilled
+                locally at once, and the prefill worker holding a 2000-token
+                prompt SIGKILLed: the queue redelivers it after 30 s
+                (DYN_PREFILL_TIMEOUT_S=45) and the stream completes; whether
+                the decode worker landed it or fell back is printed. Streams
+                whose text differs from serve_http's, and the redelivered one,
+                are held to the dense reference (first 8 tokens, 0.25).
+                ``python3 chip_smoke.py --only serve_disagg_fabric`` runs the
+                build and this phase alone.
 
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
 times compare with earlier runs; checkpoint (7), serve_http (10),
-serve_moe (13) and the workers of serve_fabric (16) and serve_kv (17) run
-build_torch_engine's defaults.
+serve_moe (13) and the workers of serve_fabric (16), serve_kv (17) and
+serve_disagg_fabric (18) run build_torch_engine's defaults.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -2418,6 +2461,7 @@ PARTIAL_SHAPES = {
 TP = 2
 TP_BLOCKS = 2112  # per rank: two ranks share the card, so the pool is set here
 TP_REQUESTS = (0, 2, 4, 7)  # serve's 16-, 300-, 800- and 2000-token prompts
+TP_TIER_GB = "4"  # DYN_KV_HOST_OFFLOAD_GB of the tp = 2 group's tiers leg
 # the tp=2 engine's first decode step against the one-card engine's on the
 # same weights: every row within 2^-4 of that row's largest |logit| (each
 # of 32 layers rounds the bf16 residual stream in other places: prefill
@@ -2680,6 +2724,204 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
     return res
 
 
+class TPLandingCheck:
+    """Holds every landing of a disaggregated leg across tensor-parallel
+    sizes to the blocks the prefill side wrote: each host extract of the
+    prefill runner (a group's gathers every rank's heads) is kept, each
+    inject of the decode runner must carry one of them (and takes it); the
+    blocks the decode side then holds, read back (a group gathers rank r's
+    heads into [r Hkv / tp, (r + 1) Hkv / tp)), must equal them bitwise,
+    and the decode leader's own cache must hold exactly its head slice."""
+
+    def __init__(self, torch, np, prefill, decode) -> None:
+        import collections
+
+        self.sent: collections.deque = collections.deque()
+        self.landings: list = []
+        pr, dr = prefill.runner, decode.runner
+        real_extract, real_inject = pr.extract_blocks, dr.inject_blocks
+
+        def extract(ids):
+            got = real_extract(ids)
+            self.sent.append([np.array(a) for a in got])
+            return got
+
+        def inject(ids, k, v):
+            real_inject(ids, k, v)
+            n = len(ids)
+            # the extract these blocks came from (streams may interleave)
+            at = next((i for i, w in enumerate(self.sent) if w[0].shape[2] >= n
+                       and np.array_equal(np.asarray(k), w[0][:, :, :n])), None)
+            if at is None:
+                self.landings.append({"blocks": n, "heads_per_rank": 0, "ok": False})
+                return
+            sent = self.sent[at]
+            del self.sent[at]
+            want = [w[:, :, :n] for w in sent]
+            back = dr.extract_blocks(ids)
+            kc = dr.k_cache
+            h = kc.shape[1]
+            lead = kc[:, :, list(ids)].contiguous().view(torch.int16).cpu().numpy().view(np.uint16)
+            ok = (all(np.array_equal(np.asarray(x), w) for x, w in zip((k, v), want))
+                  and all(np.array_equal(b, w) for b, w in zip(back, want))
+                  and np.array_equal(lead, want[0][:, :h]))
+            self.landings.append({"blocks": n, "heads_per_rank": h, "ok": bool(ok)})
+
+        pr.extract_blocks = extract
+        dr.inject_blocks = inject
+
+    def take(self, tag: str) -> dict:
+        rows, self.landings = self.landings, []
+        if not rows or not all(r["ok"] for r in rows) or self.sent:
+            raise SmokeError(f"{tag}: landings {rows}, {len(self.sent)} extracts never landed")
+        return {"landings": len(rows), "blocks": sum(r["blocks"] for r in rows),
+                "heads_per_rank": rows[0]["heads_per_rank"]}
+
+
+def serve_tp_disagg(torch, np, card: str, every, Context, FinishReason) -> dict:
+    """Disaggregation and the tiers under a tensor-parallel group (the
+    docstring's phase 11, its last legs): a tp = 1 engine and a tp = 2 group
+    (two gloo ranks on cuda:0, host tiers of DYN_KV_HOST_OFFLOAD_GB) at 8B
+    width on the same seeded weights; the tp = 1 engine ships serve's two
+    longest prompts to the group, streamed and monolithic, the group ships
+    the longest to the tp = 1 engine, then the group onboards a 1024-token
+    prefix from its tier. Every landing bitwise per rank, every stream held
+    to the dense reference. gloo time-slices one card: the times are
+    printed and compared with nothing."""
+    from dynamo_tpu_torch.disagg.colocated import HostPrefillClient
+    from dynamo_tpu_torch.disagg.router import DisaggConfig, DisaggregatedRouter
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
+
+    def greedy(prompt, n=16):
+        return PreprocessedRequest(token_ids=list(prompt), sampling=SamplingOptions(greedy=True),
+                                   stop=StopConditions(max_tokens=n, ignore_eos=True))
+
+    kw = dict(max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0, num_blocks=TP_BLOCKS, **EAGER)
+    t0 = time.perf_counter()
+    one = build_torch_engine(LLAMA31_8B, device="cuda", **kw)
+    os.environ["DYN_KV_HOST_OFFLOAD_GB"] = TP_TIER_GB
+    try:
+        grp = build_torch_engine(LLAMA31_8B, device="cuda", tensor_parallel_size=TP, tp_backend="gloo",
+                                 tp_devices=["cuda:0"] * TP, **kw)
+    finally:
+        del os.environ["DYN_KV_HOST_OFFLOAD_GB"]
+    build_s = time.perf_counter() - t0
+    longest = sorted(every, key=lambda r: len(r.token_ids))[-2:]
+    res: dict = {"card": card, "build_s": build_s, "legs": {}}
+    gaps = []
+
+    async def leg(tag, prefill, decode, prompts, stream):
+        # the group's tier would hold the prompts of an earlier leg, and a
+        # prompt found there is not shipped
+        await grp.drain_offloads()
+        await grp.clear_kv_blocks()
+        shipped0, fell0 = decode.stats.remote_prefills, decode.stats.remote_fallbacks
+        probe = TPLandingCheck(torch, np, prefill, decode)
+        decode.disagg_router = DisaggregatedRouter(DisaggConfig())
+        decode.remote_prefill_client = HostPrefillClient(prefill, BLOCK)
+        os.environ["DYN_KV_STREAM"] = "1" if stream else "0"
+        try:
+            t = time.perf_counter()
+            out = [(await run_requests(decode, [greedy(r.token_ids)], Context))[0] for r in prompts]
+            wall = time.perf_counter() - t
+        finally:
+            del os.environ["DYN_KV_STREAM"]
+            decode.disagg_router = decode.remote_prefill_client = None
+            for runner in (prefill.runner, decode.runner):
+                for name in ("extract_blocks", "inject_blocks"):
+                    runner.__dict__.pop(name, None)
+        for (toks, reason, _), r in zip(out, prompts):
+            if reason is not FinishReason.LENGTH or len(toks) != 16:
+                raise SmokeError(f"serve_tp/{tag}: {len(toks)} tokens, {reason}")
+            gaps.append(reference_check(torch, one.runner, list(r.token_ids), toks))
+        row = {**probe.take(f"serve_tp/{tag}"), "wall_s": wall,
+               "remote_prefills": decode.stats.remote_prefills - shipped0,
+               "remote_fallbacks": decode.stats.remote_fallbacks - fell0}
+        if row["remote_fallbacks"] or row["remote_prefills"] != len(prompts):
+            raise SmokeError(f"serve_tp/{tag}: {row['remote_prefills']} remote prefills, "
+                             f"{row['remote_fallbacks']} fallbacks for {len(prompts)} prompts")
+        res["legs"][tag] = row
+        log(f"serve_tp/{tag}: {len(prompts)} prompt(s) of {[len(r.token_ids) for r in prompts]} tokens "
+            f"shipped, {row['landings']} landings of {row['blocks']} blocks, each rank's "
+            f"{row['heads_per_rank']} heads bitwise; {wall:.2f} s with 16 tokens out ({card})")
+
+    async def tiers():
+        """The group onboards a 1024-token prefix its first request
+        offloaded: the tier's pages land on every rank bitwise."""
+        bm, runner = grp.block_manager, grp.runner
+        stored, checked = {}, []
+        real_store, real_load, real_inject = bm.store_blocks_device, bm.load_blocks_device, runner.inject_pages
+        loaded = []
+
+        def store(hashes, *pages):
+            for i, h in enumerate(hashes):
+                stored[h] = [p[i].clone() for p in pages]
+            return real_store(hashes, *pages)
+
+        def load(hashes, device):
+            pages = real_load(hashes, device)
+            loaded.append(list(hashes))
+            return pages
+
+        def inject(ids, *pages):
+            real_inject(ids, *pages)
+            hashes = loaded.pop(0)
+            back = runner.extract_pages(ids)
+            ok = all(torch.equal(p[j].cpu(), stored[h][c].cpu()) and torch.equal(b[j].cpu(), p[j].cpu())
+                     for j, h in enumerate(hashes) for c, (p, b) in enumerate(zip(pages, back)))
+            checked.append((len(ids), ok))
+
+        bm.store_blocks_device, bm.load_blocks_device, runner.inject_pages = store, load, inject
+        await grp.drain_offloads()
+        await grp.clear_kv_blocks()
+        rng = np.random.default_rng(11)
+        pfx = rng.integers(0, LLAMA31_8B["vocab_size"], 1024).tolist()
+        prompts = [pfx + rng.integers(0, LLAMA31_8B["vocab_size"], 64).tolist() for _ in range(2)]
+        try:
+            walls = []
+            for p in prompts:
+                t = time.perf_counter()
+                (toks, reason, _), = await run_requests(grp, [greedy(p)], Context)
+                walls.append(time.perf_counter() - t)
+                await grp.drain_offloads()
+                gaps.append(reference_check(torch, one.runner, p, toks))
+        finally:
+            for name in ("store_blocks_device", "load_blocks_device"):
+                bm.__dict__.pop(name, None)
+            runner.__dict__.pop("inject_pages", None)
+        s = grp.stats
+        if not checked or not all(ok for _, ok in checked) or sum(n for n, _ in checked) != 64 or (
+                s.kv_offload_errors or s.kv_onboard_errors):
+            raise SmokeError(f"serve_tp/tiers: onboards {checked}, stats onboarded "
+                             f"{s.kv_onboarded_blocks}, errors {s.kv_offload_errors} / {s.kv_onboard_errors}")
+        res["tiers"] = {"onboarded_blocks": s.kv_onboarded_blocks, "offloaded_blocks": s.kv_offloaded_blocks,
+                        "wall_s": walls, "pages_checked": sum(n for n, _ in checked)}
+        log(f"serve_tp/tiers: the tp=2 group (DYN_KV_HOST_OFFLOAD_GB={TP_TIER_GB}) offloaded "
+            f"{s.kv_offloaded_blocks} blocks in all, onboarded {res['tiers']['pages_checked']} of the "
+            f"1024-token prefix for the second request, every page bitwise on both ranks; walls miss / hit "
+            f"{walls[0]:.2f} / {walls[1]:.2f} s ({card})")
+
+    async def go():
+        try:
+            for stream in (True, False):
+                await leg(f"tp1_to_tp2_{'streamed' if stream else 'monolithic'}", one, grp, longest, stream)
+            await leg("tp2_to_tp1_streamed", grp, one, longest[-1:], True)
+            await tiers()
+        finally:
+            await grp.close()
+            await one.close()
+
+    asyncio.run(go())
+    res["reference_max_logit_gap"] = max(gaps)
+    if [p.exitcode for p in grp.runner._processes] != [0] * (TP - 1):
+        raise SmokeError(f"serve_tp/disagg: followers ended {[p.exitcode for p in grp.runner._processes]}")
+    log(f"serve_tp/disagg: every stream within {max(gaps):.4f} of the dense reference's best logit; "
+        f"build {build_s:.1f} s ({card})")
+    print(json.dumps({"serve_tp_disagg": res}), flush=True)
+    return res
+
+
 def phase_serve_tp(torch, np, card: str) -> dict:
     """Tensor-parallel serving on one card: build_torch_engine(
     tensor_parallel_size=2, tp_backend="gloo", tp_devices=["cuda:0",
@@ -2698,6 +2940,9 @@ def phase_serve_tp(torch, np, card: str) -> dict:
     reqs = [every[i] for i in TP_REQUESTS]
     legs = {tag: serve_tp_leg(torch, np, card, quant, reqs, Context, FinishReason)
             for tag, quant in (("bf16", False), ("int8", True))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg = serve_tp_disagg(torch, np, card, every, Context, FinishReason)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2728,7 +2973,8 @@ def phase_serve_tp(torch, np, card: str) -> dict:
         raise SmokeError(f"serve_tp/nccl: launches {st['launches']} != {want}, token {tok}")
     log(f"serve_tp/nccl: one rank over NCCL ran a fused step with the ring tail (zero hops): "
         f"{L} 5p launches, token {int(tok[0])} ({card})")
-    return {"legs": legs, "nccl_one_rank": {"launches": st["launches"], "token": int(tok[0])}}
+    return {"legs": legs, "disagg": disagg,
+            "nccl_one_rank": {"launches": st["launches"], "token": int(tok[0])}}
 
 
 # ------------------------------------------------------------- serve_http
@@ -3159,7 +3405,8 @@ def phase_serve_http(torch, np, card: str) -> dict:
                     raise SmokeError(f"stream {i}: {u['completion_tokens']} tokens < min_tokens")
                 log(f"serve_http: stream {i}: prompt {u['prompt_tokens']} tokens, "
                     f"{u['completion_tokens']} out, finish {r['finish']}, TTFT {r['ttft_s']} s")
-            out["concurrent"] = [{k: r[k] for k in ("finish", "usage", "ttft_s", "itl_ms_mean")}
+            out["concurrent"] = [{k: r[k] for k in ("finish", "usage", "ttft_s", "itl_ms_mean",
+                                                    "text")}
                                  for r in results]
 
             # one non-streamed completion
@@ -3338,14 +3585,15 @@ def stream_tokens(port: int, body: dict, marks: dict, path: str = "/v1/chat/comp
                   headers: dict | None = None) -> dict:
     """A streamed chat completion (or, with ``path``, completion) with
     logprobs: every token (the logprob entries' token strings) and its
-    arrival on time.perf_counter's clock; ``marks["n"]`` is kept at the
-    number of tokens read so far."""
+    arrival on time.perf_counter's clock, and the streamed text;
+    ``marks["n"]`` is kept at the number of tokens read so far."""
     import http.client
 
     from dynamo_tpu_torch.protocols.sse import SseParser
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
     parser, tokens, times, usage, finish, errors = SseParser(), [], [], None, [], []
+    text = ""
     try:
         conn.request("POST", path, body=json.dumps(body),
                      headers={"Content-Type": "application/json", **(headers or {})})
@@ -3365,6 +3613,7 @@ def stream_tokens(port: int, body: dict, marks: dict, path: str = "/v1/chat/comp
                 d = ev.json()
                 usage = d.get("usage") or usage
                 for ch in d.get("choices", []):
+                    text += (ch.get("delta") or {}).get("content") or ch.get("text") or ""
                     lp = ch.get("logprobs") or {}
                     # chat: one entry per token; completions: a list of strings
                     for t in [e["token"] for e in lp.get("content") or []] or lp.get("tokens") or []:
@@ -3377,7 +3626,7 @@ def stream_tokens(port: int, body: dict, marks: dict, path: str = "/v1/chat/comp
         conn.close()
     if errors:
         raise SmokeError(f"the stream carried error events: {errors}")
-    return {"tokens": tokens, "times": times, "usage": usage, "finish": finish}
+    return {"tokens": tokens, "times": times, "usage": usage, "finish": finish, "text": text}
 
 
 def first_log_time(path: str, needle: str) -> float:
@@ -3767,13 +4016,15 @@ def router_calls(fport: int, bodies: list) -> list:
 
 
 def kv_reference_check(torch, runner, prompt: list, pieces: list, ids_of: dict,
-                       bound: float = 0.25) -> float:
+                       bound: float = 0.25, n_check: int = 0) -> float:
     """``reference_check`` for a stream seen through HTTP: its first
-    KV_CHECK token strings name their ids through ``ids_of`` (string ->
-    every id that decodes to it); where one string has several ids, the one
-    the reference rates best is taken. Returns the largest logit gap."""
+    ``n_check`` (KV_CHECK unless given) token strings name their ids through
+    ``ids_of`` (string -> every id that decodes to it); where one string has
+    several ids, the one the reference rates best is taken. Returns the
+    largest logit gap."""
+    n_check = n_check or KV_CHECK
     cands = []
-    for s in pieces[:KV_CHECK]:
+    for s in pieces[:n_check]:
         c = ids_of.get(s) or ids_of.get(s.lstrip("\ufffd"))
         if not c:
             raise SmokeError(f"the streamed token {s!r} decodes from no id")
@@ -3788,7 +4039,7 @@ def kv_reference_check(torch, runner, prompt: list, pieces: list, ids_of: dict,
         row = logits[len(prompt) - 1 + open_[0]]
         chosen[open_[0]] = max(cands[open_[0]], key=lambda i: float(row[i]))
     worst = 0.0
-    for j in range(KV_CHECK):
+    for j in range(n_check):
         row = logits[len(prompt) - 1 + j]
         gap = float(row.max() - row[chosen[j]])
         worst = max(worst, gap)
@@ -4122,6 +4373,586 @@ def phase_serve_kv(torch, np, card: str) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"serve_kv: phase {out['phase_s']:.1f} s")
     print(json.dumps({"serve_kv": out}), flush=True)
+    return out
+
+
+# ------------------------------------------------------ serve_disagg_fabric
+#
+# Disaggregation across processes: the port's disagg graph (python -m
+# dynamo_tpu_torch.serve dynamo_tpu_torch.graphs.disagg) at Llama-3.1-8B
+# width on this card, its services supervised in two groups on the phase's
+# own fabric server: two PrefillWorkers and the HTTP frontend, and the
+# DecodeWorker (streamed frames, then a second one with DYN_KV_STREAM=0).
+
+# DYN_HBM_GB per worker: three 8B engines (16.1 GB of weights each) share the
+# card, each with ~3.1 GB of KV (1464 blocks), leaving room for the prefill
+# workers' activations and cached allocations
+GRAPH_HBM_GB = "21"
+GRAPH_PREFILL_TIMEOUT_S = "45"  # DYN_PREFILL_TIMEOUT_S: past the queue's redelivery
+GRAPH_REDELIVER_S = 30.0  # the fabric queue redelivers an unacked request after this long
+FABRIC_TTFT_RUNS = 3  # the 2000-token TTFT through the graph, per decode mode
+TRANSPORT_PAIRS = 2  # the transport alone, streamed and monolithic in turns
+OVERSIZE_BLOCKS = 256  # 512 MiB of K/V: over the fabric's frame limit once framed
+CANCEL_FILLERS = 4  # 3000-token prompts that hold both prefill workers (two in flight each)
+GRAPH_ENV_NAME = "llama31-8b"
+
+
+def http_bodies(pre, tok) -> tuple:
+    """serve_http's 8 chat bodies (logprobs on; one with a stop string, one
+    with penalties and min_tokens), their contents and their prompt tokens
+    after the chat template."""
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+
+    overhead = len(pre.preprocess_chat(ChatCompletionRequest.from_dict(chat_body("", 1)))[0].token_ids)
+    contents = [prompt_words(tok, max(4, n - overhead), seed=100 + i) for i, n in enumerate(PROMPT_LENS)]
+    bodies = []
+    for i, (content, m) in enumerate(zip(contents, MAX_TOKENS)):
+        extra = {"logprobs": True}
+        if i == HTTP_STOP:
+            extra["stop"] = ["e"]
+        if i == HTTP_PENALIZED:
+            extra.update(PENALTIES, min_tokens=MIN_TOKENS)
+        bodies.append(chat_body(content, m, **extra))
+    expect_prompt = [len(pre.preprocess_chat(ChatCompletionRequest.from_dict(b))[0].token_ids)
+                     for b in bodies]
+    return contents, bodies, expect_prompt
+
+
+def body_of_len(pre, tok, lo: int, hi: int, seed: int, max_tokens: int, **extra) -> tuple:
+    """A chat body whose templated prompt is lo..hi tokens long, and its ids."""
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+
+    n = hi
+    for _ in range(64):
+        body = chat_body(prompt_words(tok, n, seed=seed), max_tokens, **extra)
+        ids = pre.preprocess_chat(ChatCompletionRequest.from_dict(body))[0].token_ids
+        if lo <= len(ids) <= hi:
+            return body, list(ids)
+        n += (hi - len(ids)) // 2 or (1 if len(ids) < lo else -1)
+    raise SmokeError(f"no prompt of {lo}..{hi} tokens")
+
+
+class GraphProc:
+    """One supervisor of the disagg graph's services (``python -m
+    dynamo_tpu_torch.serve dynamo_tpu_torch.graphs.disagg --only ...``),
+    its log holding its children's output: their pids by service, their
+    JSON lines and their stats on SIGUSR1."""
+
+    def __init__(self, root: str, env: dict, only: list, path: str, extra: tuple = ()) -> None:
+        cmd = [sys.executable, "-m", "dynamo_tpu_torch.serve", "dynamo_tpu_torch.graphs.disagg"]
+        for name in only:
+            cmd += ["--only", name]
+        cmd += list(extra)
+        log("serve_disagg_fabric: " + " ".join(cmd[1:]))
+        self.path, self.tail = path, LogTail(path)
+        self.f = open(path, "w")
+        self.proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=self.f,
+                                     stderr=subprocess.STDOUT, start_new_session=True)
+
+    def text(self) -> str:
+        with open(self.path, errors="replace") as f:
+            return f.read()
+
+    def names(self) -> dict:
+        """Every pid the supervisor started: {pid: service name}."""
+        import re
+
+        return {int(p): n for n, p in re.findall(r"\[([\w-]+)\] started pid (\d+)", self.text())}
+
+    def pid(self, name: str) -> int:
+        """The latest pid the supervisor started for ``name`` (e.g.
+        PrefillWorker-0)."""
+        import re
+
+        got = re.findall(rf"\[{name}\] started pid (\d+)", self.text())
+        if not got:
+            raise SmokeError(f"{self.path}: {name} was never started")
+        return int(got[-1])
+
+    def check(self) -> None:
+        if self.proc.poll() is not None:
+            raise SmokeError(f"the graph's supervisor exited with {self.proc.returncode} ({self.path})")
+
+    def lines(self, key: str, pid: Optional[int] = None) -> list:
+        return [d for d in self.tail.json_lines(key) if pid is None or d.get("pid") == pid]
+
+    def stats(self, pids: list) -> dict:
+        """Each pid's ``disagg_stats`` line, printed on SIGUSR1 (one worker
+        at a time: they share the log)."""
+        import signal
+
+        out = {}
+        for p in pids:
+            seen = len(self.lines("disagg_stats", p))
+            os.kill(p, signal.SIGUSR1)
+            t0 = time.perf_counter()
+            while len(got := self.lines("disagg_stats", p)) <= seen:
+                self.check()
+                if time.perf_counter() - t0 > 30:
+                    raise SmokeError(f"{self.path}: no stats from pid {p} within 30 s")
+                time.sleep(0.02)
+            out[p] = got[-1]
+        return out
+
+    def stop(self) -> int:
+        """SIGTERM the group (the supervisor and its children drain), then
+        SIGKILL what is left; the supervisor's exit code."""
+        import signal
+
+        for sig, wait in ((signal.SIGTERM, 60), (signal.SIGKILL, 30)):
+            try:
+                os.killpg(self.proc.pid, sig)
+                self.proc.wait(wait)
+            except ProcessLookupError:
+                break
+            except subprocess.TimeoutExpired:
+                pass
+        self.f.close()
+        return self.proc.returncode
+
+
+def delta(after: dict, before: dict, *path) -> int:
+    for k in path:
+        after, before = after.get(k, 0), before.get(k, 0)
+    return after - before
+
+
+def graph_replay_launches(stats: dict, kernel: str) -> int:
+    """Launches of ``kernel`` a worker made by graph replays."""
+    return sum(g["replays"] * g["launches"].get(kernel, 0) for g in stats.get("graphs", {}).values())
+
+
+def no_integrity_faults(tag: str, stats: dict) -> None:
+    i = stats["integrity"]
+    if i["integrity_failures_by_path"] or i["fenced_rejects_by_plane"]:
+        raise SmokeError(f"{tag}: integrity failures or fenced frames: {i}")
+
+
+def hang_up(port: int, body: dict, after_s: float) -> None:
+    """Send a streamed chat request and close the socket ``after_s`` later."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        time.sleep(after_s)
+        conn.sock.shutdown(2)
+    finally:
+        conn.close()
+
+
+def to_card(torch, np, arrays) -> None:
+    """Host wire arrays (bfloat16 as uint16 words) onto the card, waited for."""
+    for a in arrays:
+        torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).to("cuda")
+    torch.cuda.synchronize()
+
+
+def transport_turns(torch, np, fport: int, ids: list) -> dict:
+    """The transport alone, in turns: this process's RemotePrefillClient
+    sends ``ids`` to the graph's prefill workers over the fabric, streamed
+    and monolithic, and lands every payload on the card (verify, decode,
+    host-to-device); ms from the call to the last block on the card."""
+    from dynamo_tpu_torch.disagg.transfer import RemotePrefillClient
+    from dynamo_tpu_torch.fabric.client import FabricClient
+
+    async def go():
+        fabric = await FabricClient.connect(f"127.0.0.1:{fport}")
+        client = RemotePrefillClient(fabric, "dynamo", block_size=BLOCK, timeout=60)
+        await client.start()
+        rows = {"streamed": [], "monolithic": []}
+        frames = {"streamed": [], "monolithic": []}
+
+        async def on_frame(frame):
+            to_card(torch, np, frame.payload.decode())
+            frames["streamed"][-1] += 1
+
+        try:
+            for i in range(TRANSPORT_PAIRS):
+                for mode in (("streamed", "monolithic") if i % 2 == 0 else ("monolithic", "streamed")):
+                    frames[mode].append(0)
+                    t0 = time.perf_counter()
+                    resp = await client.prefill(ids, stream=mode == "streamed",
+                                                on_frame=on_frame if mode == "streamed" else None)
+                    if resp.error is not None or resp.payload is None:
+                        raise SmokeError(f"transport {mode}: {resp.error}")
+                    to_card(torch, np, resp.payload.decode())
+                    rows[mode].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            await client.close()
+            await fabric.close()
+        return {"ms": rows, "frames": frames, "wire_bytes_rx": client.stats.bytes_rx}
+
+    return asyncio.run(go())
+
+
+def fabric_payload_split(torch, np, fport: int, n_blocks: int, reps: int = 2) -> dict:
+    """The host path of one monolithic payload of ``n_blocks`` 8B blocks
+    through the phase's fabric server, step by step (medians of ``reps``):
+    device-to-host (pageable), encode (with its checksums), checksum (a
+    verify alone), pack (the port's msgpack), publish (to a subscriber of
+    this process: two hops through the server), unpack, decode (with its
+    verify) and host-to-device."""
+    from dynamo_tpu_torch.disagg.protocols import KvBlockPayload, RemotePrefillResponse, to_wire_array
+    from dynamo_tpu_torch.fabric import mpack
+    from dynamo_tpu_torch.fabric.client import FabricClient
+
+    shape = (LLAMA31_8B["num_hidden_layers"], 8, n_blocks, BLOCK, 128)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    k = torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+    rows: dict = {n: [] for n in ("d2h", "encode", "checksum", "pack", "publish", "unpack", "decode",
+                                  "h2d")}
+
+    async def go():
+        fabric = await FabricClient.connect(f"127.0.0.1:{fport}")
+        sub = await fabric.subscribe("split.reply")
+        try:
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                kh, vh = to_wire_array(k), to_wire_array(v)
+                rows["d2h"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                payload = KvBlockPayload.encode(kh, vh, "raw", "bfloat16")
+                rows["encode"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                payload.verify()
+                rows["checksum"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                data = mpack.packb(RemotePrefillResponse(request_id="split", first_token=0,
+                                                         payload=payload).to_wire())
+                rows["pack"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                await fabric.publish("split.reply", data)
+                got = await sub.next(timeout=120)
+                rows["publish"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                resp = RemotePrefillResponse.from_wire(mpack.unpackb(got[1]))
+                rows["unpack"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                arrays = resp.payload.decode()
+                rows["decode"].append(time.perf_counter() - t)
+                t = time.perf_counter()
+                to_card(torch, np, arrays)
+                rows["h2d"].append(time.perf_counter() - t)
+                if not np.array_equal(arrays[0], kh):
+                    raise SmokeError("the payload changed on its way through the fabric")
+        finally:
+            await sub.unsubscribe()
+            await fabric.close()
+        return len(data)
+
+    nbytes = asyncio.run(go())
+    out = {f"{n}_ms": statistics.median(r) * 1e3 for n, r in rows.items()}
+    out.update(blocks=n_blocks, wire_bytes=nbytes, kv_bytes=2 * k.numel() * 2)
+    return out
+
+
+def phase_serve_disagg_fabric(torch, np, card: str, http_texts: Optional[list] = None) -> dict:
+    """The disagg graph across processes on this card (see the docstring's
+    phase 18). ``http_texts``: serve_http's 8 texts, when it ran."""
+    import re
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.tokenizer import TokenizerWrapper
+
+    t_phase = time.perf_counter()
+    L = LLAMA31_8B["num_hidden_layers"]
+    model_dir = write_serve_dir()
+    mdc = ModelDeploymentCard.from_model_dir(model_dir, GRAPH_ENV_NAME, context_length=MAX_MODEL_LEN)
+    pre = OpenAIPreprocessor(mdc)
+    tok = pre.tokenizer
+    _, bodies, expect_prompt = http_bodies(pre, tok)
+    prompt_ids = [list(pre.preprocess_chat(ChatCompletionRequest.from_dict(b))[0].token_ids)
+                  for b in bodies]
+    shipped = [i for i, n in enumerate(expect_prompt) if n > DISAGG_LOCAL_MAX]
+    one_shot = [i for i in shipped if expect_prompt[i] <= 512]  # prefill_only_stream's
+    long_body, long_ids = body_of_len(pre, tok, 1990, 2000, 31, 2)
+    redeliver_body, redeliver_ids = body_of_len(pre, tok, 1990, 2000, 32, 16, logprobs=True,
+                                                nvext={"ignore_eos": True})
+    over_hi = OVERSIZE_BLOCKS * BLOCK - 8
+    oversize_body, oversize_ids = body_of_len(pre, tok, over_hi - BLOCK + 9, over_hi, 33, 8,
+                                              nvext={"ignore_eos": True})
+    n_long = -(-len(long_ids) // BLOCK)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    fport, hport = free_port(), free_port()
+    genv = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                DYN_FABRIC_ADDR=f"127.0.0.1:{fport}", DYN_GRAPH_ENGINE="torch",
+                DYN_MODEL_PATH=model_dir, DYN_MODEL_NAME=GRAPH_ENV_NAME, DYN_HBM_GB=GRAPH_HBM_GB,
+                DYN_MAX_LOCAL_PREFILL=str(DISAGG_LOCAL_MAX),
+                DYN_PREFILL_TIMEOUT_S=GRAPH_PREFILL_TIMEOUT_S,
+                DYN_HTTP_HOST="127.0.0.1", DYN_HTTP_PORT=str(hport))
+    genv.pop("DYN_KV_STREAM", None)
+    out: dict = {"card": card, "shipped": len(shipped), "one_shot": len(one_shot),
+                 "hbm_gb_per_worker": float(GRAPH_HBM_GB)}
+    fab_log = open(os.path.join(SERVE_DIR, "disagg_fabric.log"), "w")
+    fabric = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch.fabric.server", "--host",
+                               "127.0.0.1", "--port", str(fport)], cwd=root, env=genv,
+                              stdout=fab_log, stderr=subprocess.STDOUT)
+    time.sleep(1.0)
+    graphs: list = []
+    texts: dict = {}
+    try:
+        pre_graph = GraphProc(root, genv, ["PrefillWorker", "Frontend"],
+                              os.path.join(SERVE_DIR, "disagg_prefill.log"),
+                              ("--replicas", "PrefillWorker=2"))
+        graphs.append(pre_graph)
+
+        def prefill_pids() -> list:
+            return [pre_graph.pid(f"PrefillWorker-{r}") for r in range(2)]
+
+        def start_decode(stream: bool) -> GraphProc:
+            env = dict(genv) if stream else dict(genv, DYN_KV_STREAM="0")
+            g = GraphProc(root, env, ["DecodeWorker"],
+                          os.path.join(SERVE_DIR, f"disagg_decode_{'stream' if stream else 'mono'}.log"))
+            graphs.append(g)
+            t0 = time.perf_counter()
+            while True:
+                for p in (pre_graph, g):
+                    p.check()
+                if fabric.poll() is not None:
+                    raise SmokeError(f"the fabric server exited with {fabric.returncode}")
+                try:
+                    up = (len(pre_graph.lines("prefill_worker")) >= 2 and g.tail.json_lines("worker")
+                          and json.loads(http_call(hport, "GET", "/v1/models", timeout=5)[1])["data"])
+                except (OSError, ValueError):
+                    up = False
+                if up:
+                    return g, time.perf_counter() - t0
+                if time.perf_counter() - t0 > SERVER_START_S:
+                    raise SmokeError("the disagg graph did not come up")
+                time.sleep(0.25)
+
+        def all_stats(decode: GraphProc) -> tuple:
+            dp = decode.pid("DecodeWorker-0")
+            pp = prefill_pids()
+            return dp, pp, {**pre_graph.stats(pp), **decode.stats([dp])}
+
+        def traffic(tag: str, decode: GraphProc, stream: bool) -> dict:
+            """serve_http's 8 requests at once through the frontend, checked
+            against the workers' counters read just before and just after."""
+            dp, pp, before = all_stats(decode)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                results = list(pool.map(lambda b: stream_tokens(hport, b, {}), bodies))
+            wall = time.perf_counter() - t0
+            _, _, after = all_stats(decode)
+            for i, (r, b) in enumerate(zip(results, bodies)):
+                u = r["usage"]
+                if u["prompt_tokens"] != expect_prompt[i] or u["completion_tokens"] != len(r["tokens"]) or (
+                        not 0 < len(r["tokens"]) <= b["max_tokens"]):
+                    raise SmokeError(f"{tag} stream {i}: usage {u}, {len(r['tokens'])} tokens")
+            d, a = after[dp], before[dp]
+            row = {"wall_s": wall, "tokens": sum(len(r["tokens"]) for r in results),
+                   "remote_prefills": delta(d, a, "remote_prefills"),
+                   "remote_fallbacks": delta(d, a, "remote_fallbacks"),
+                   "decode_launches": delta(d, a, "kernel_launches", "paged_decode_attention"),
+                   "decode_replay_launches": (graph_replay_launches(d, "paged_decode_attention")
+                                              - graph_replay_launches(a, "paged_decode_attention")),
+                   "prefill_launches": sum(delta(after[p], before[p], "kernel_launches",
+                                                 "flash_prefill_attention") for p in pp),
+                   "frames_rx": delta(d, a, "transfer", "frames_rx"),
+                   "bytes_rx": delta(d, a, "transfer", "bytes_rx"),
+                   "frames_tx": sum(delta(after[p], before[p], "transfer", "frames_tx") for p in pp),
+                   "bytes_tx": sum(delta(after[p], before[p], "transfer", "bytes_tx") for p in pp),
+                   "served_per_worker": [delta(after[p], before[p], "prefills_served") for p in pp]}
+            want3 = L * len(shipped if not stream else one_shot)
+            if row["remote_prefills"] != len(shipped) or row["remote_fallbacks"]:
+                raise SmokeError(f"{tag}: {row['remote_prefills']} remote prefills, "
+                                 f"{row['remote_fallbacks']} fallbacks; {len(shipped)} prompts ship")
+            if not 0 < row["decode_launches"] == row["decode_replay_launches"]:
+                raise SmokeError(f"{tag}: the decode worker's #1 launches {row['decode_launches']}, "
+                                 f"by replays {row['decode_replay_launches']}")
+            if row["prefill_launches"] != want3:
+                raise SmokeError(f"{tag}: the prefill workers launched #3 {row['prefill_launches']} "
+                                 f"times, expected {want3}")
+            if (row["frames_rx"], row["bytes_rx"]) != (row["frames_tx"], row["bytes_tx"]) or (
+                    (row["frames_rx"] > 0) != stream or row["bytes_rx"] <= 0):
+                raise SmokeError(f"{tag}: frames / bytes received {row['frames_rx']} / "
+                                 f"{row['bytes_rx']}, sent {row['frames_tx']} / {row['bytes_tx']}")
+            for p in [dp, *pp]:
+                no_integrity_faults(f"{tag} pid {p}", after[p])
+            texts[tag] = results
+            same = [http_texts is not None and r["text"] == http_texts[i] for i, r in enumerate(results)]
+            row["texts_equal_serve_http"] = sum(same)
+            log(f"serve_disagg_fabric/{tag}: serve_http's 8 requests in {wall:.2f} s "
+                f"({row['tokens']} tokens); {row['remote_prefills']} remote prefills, "
+                f"{row['remote_fallbacks']} fallbacks; #3 on the prefill workers {row['prefill_launches']} "
+                f"(= {L} x {want3 // L}), prefills served per worker {row['served_per_worker']}; #1 on the "
+                f"decode worker {row['decode_launches']}, all by replays; frames {row['frames_rx']}, "
+                f"wire bytes {row['bytes_rx']} (= sent); texts equal to serve_http's "
+                f"{row['texts_equal_serve_http']} of 8 ({card})")
+            return row
+
+        def ttfts() -> list:
+            return [stream_chat(hport, long_body)["ttft_s"] * 1e3 for _ in range(FABRIC_TTFT_RUNS)]
+
+        # (a) streamed frames
+        decode, out["start_s"] = start_decode(True)
+        log(f"serve_disagg_fabric: fabric, 2 PrefillWorkers, the DecodeWorker and the frontend up in "
+            f"{out['start_s']:.1f} s (DYN_HBM_GB {GRAPH_HBM_GB} each)")
+        out["streamed"] = traffic("streamed", decode, True)
+        out["ttft_2000_streamed_ms"] = ttfts()
+        out["transport"] = transport_turns(torch, np, fport, long_ids)
+        out["host_split"] = fabric_payload_split(torch, np, fport, n_long)
+        gc.collect()
+        torch.cuda.empty_cache()  # the payloads this process landed: the card is the workers'
+
+        # a decode-side cancel: four long prompts hold both prefill workers,
+        # a fifth is hung up on while it waits or streams
+        dp, pp, before = all_stats(decode)
+        fillers = [body_of_len(pre, tok, 2900, 3000, 40 + i, 4)[0] for i in range(CANCEL_FILLERS)]
+        victim = body_of_len(pre, tok, 1990, 2000, 45, 4)[0]
+        with ThreadPoolExecutor(CANCEL_FILLERS) as pool:
+            futs = [pool.submit(stream_chat, hport, b) for b in fillers]
+            time.sleep(0.2)
+            hang_up(hport, victim, 0.3)
+            for f in futs:
+                f.result()
+        t0 = time.perf_counter()
+        while True:
+            _, _, after = all_stats(decode)
+            d = after[dp]
+            cancelled = sum(delta(after[p], before[p], "transfer", "streams_cancelled") for p in pp)
+            if not d["busy_lanes"] and d["free_blocks"] == d["num_blocks"] - 1 and cancelled:
+                break
+            if time.perf_counter() - t0 > 30:
+                raise SmokeError(f"cancel: the decode worker holds {d['busy_lanes']} lanes, "
+                                 f"{d['num_blocks'] - 1 - d['free_blocks']} blocks; prefill workers "
+                                 f"cancelled {cancelled} streams")
+            time.sleep(0.5)
+        out["cancel"] = {"prefill_streams_cancelled": cancelled,
+                         "decode_streams_cancelled": delta(d, before[dp], "transfer", "streams_cancelled"),
+                         "decode_free_blocks": d["free_blocks"], "num_blocks": d["num_blocks"]}
+        log(f"serve_disagg_fabric: a hung-up request: the prefill workers cancelled {cancelled} stream(s), "
+            f"the decode worker's client {out['cancel']['decode_streams_cancelled']}; the decode worker "
+            f"holds no lane and every block is free ({d['free_blocks']} of {d['num_blocks']} - 1)")
+        if decode.stop() != 0:
+            raise SmokeError("the streamed DecodeWorker's supervisor did not exit 0")
+
+        # (b) monolithic payloads (DYN_KV_STREAM=0 on a new decode worker)
+        decode, out["mono_start_s"] = start_decode(False)
+        out["monolithic"] = traffic("monolithic", decode, False)
+        out["ttft_2000_monolithic_ms"] = ttfts()
+
+        # a 256-block payload, over the fabric's frame limit
+        dp, pp, before = all_stats(decode)
+        t0 = time.perf_counter()
+        r = stream_chat(hport, oversize_body)
+        over_s = time.perf_counter() - t0
+        _, _, after = all_stats(decode)
+        too_large = sum(delta(after[p], before[p], "transfer", "too_large") for p in pp)
+        fell = delta(after[dp], before[dp], "remote_fallbacks")
+        if r["usage"]["completion_tokens"] != 8 or too_large != 1 or fell != 1 or (
+                over_s > float(GRAPH_PREFILL_TIMEOUT_S)):
+            raise SmokeError(f"oversize: {r['usage']}, too_large {too_large}, fallbacks {fell}, "
+                             f"{over_s:.1f} s")
+        out["oversize"] = {"prompt_tokens": len(oversize_ids), "blocks": -(-len(oversize_ids) // BLOCK),
+                           "too_large": too_large, "fallbacks": fell, "request_s": over_s}
+        log(f"serve_disagg_fabric: a {len(oversize_ids)}-token prompt ({out['oversize']['blocks']} blocks, "
+            f"over the fabric's 512 MiB frame): the prefill worker answered too_large, the decode "
+            f"worker prefilled locally at once; {over_s:.2f} s for 8 tokens")
+
+        # redelivery: SIGKILL the prefill worker holding a 2000-token prompt
+        dp, pp, before = all_stats(decode)
+        mark = len(pre_graph.text())
+        took = re.compile(r"prefill worker pid (\d+) took (\w+): (\d+) tokens")
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(stream_tokens, hport, redeliver_body, {})
+            t0 = time.perf_counter()
+            while True:
+                hit = [m for m in took.finditer(pre_graph.text()[mark:])
+                       if int(m.group(3)) == len(redeliver_ids)]
+                if hit:
+                    break
+                if fut.done() or time.perf_counter() - t0 > 60:
+                    raise SmokeError("redelivery: no prefill worker took the 2000-token prompt")
+                time.sleep(0.005)
+            victim_pid, rid = int(hit[0].group(1)), hit[0].group(2)
+            t_kill = time.perf_counter()
+            os.kill(victim_pid, signal.SIGKILL)
+            names = pre_graph.names()
+            got = fut.result(timeout=GRAPH_REDELIVER_S + 90)
+            end_s = time.perf_counter() - t_kill
+        if len(got["tokens"]) != 16 or got["finish"] != ["length"]:
+            raise SmokeError(f"redelivery: the stream ended with {len(got['tokens'])} tokens, {got['finish']}")
+        again = [int(m.group(1)) for m in took.finditer(pre_graph.text()[mark:]) if m.group(2) == rid][1:]
+        _, _, after = all_stats(decode)
+        fell = delta(after[dp], before[dp], "remote_fallbacks")
+        out["redelivery"] = {"killed": names.get(victim_pid, str(victim_pid)), "redelivered_to": again,
+                             "decode_fell_back": bool(fell), "kill_to_stream_end_s": end_s}
+        log(f"serve_disagg_fabric: SIGKILL of {out['redelivery']['killed']} (pid {victim_pid}) holding "
+            f"the 2000-token prompt: the queue redelivered it to pid(s) {again}; the decode worker "
+            f"{'fell back to a local prefill' if fell else 'landed the redelivered prefill'}; the stream "
+            f"completed ({len(got['tokens'])} tokens) {end_s:.1f} s after the kill")
+        texts["redelivery"] = [got]
+        if decode.stop() != 0:
+            raise SmokeError("the monolithic DecodeWorker's supervisor did not exit 0")
+        exit_d = decode.lines("disagg_exit_stats")
+        if not exit_d or exit_d[-1]["busy_lanes"] or exit_d[-1]["free_blocks"] != exit_d[-1]["num_blocks"] - 1:
+            raise SmokeError(f"the decode worker's exit stats: {exit_d[-1:]}")
+    finally:
+        for g in reversed(graphs):
+            if g.proc.poll() is None:
+                g.stop()
+        fabric.send_signal(signal.SIGTERM)
+        try:
+            fabric.wait(30)
+        except subprocess.TimeoutExpired:
+            fabric.kill()
+            fabric.wait(30)
+        fab_log.close()
+
+    # streams whose text differs from serve_http's: the dense reference on
+    # their first tokens, over the workers' weights, once the graph is gone
+    check = [(tag, i) for tag in ("streamed", "monolithic") for i, r in enumerate(texts[tag])
+             if i != HTTP_PENALIZED and (http_texts is None or r["text"] != http_texts[i])]
+    check.append(("redelivery", 0))
+    gaps = []
+    engine = build_torch_engine(model_dir, device="cuda", max_model_len=MAX_MODEL_LEN, num_blocks=64)
+    try:
+        rtok = TokenizerWrapper.from_file(os.path.join(model_dir, "tokenizer.json"))
+        ids_of: dict = {}
+        for i in range(LLAMA31_8B["vocab_size"]):
+            ids_of.setdefault(rtok.decode([i], skip_special_tokens=False), []).append(i)
+        for tag, i in check:
+            prompt = redeliver_ids if tag == "redelivery" else prompt_ids[i]
+            pieces = texts[tag][i]["tokens"]
+            gaps.append(kv_reference_check(torch, engine.runner, prompt, pieces, ids_of,
+                                           n_check=min(KV_CHECK, len(pieces))))
+    finally:
+        asyncio.run(engine.close())
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["reference"] = {"streams_checked": [f"{t}/{i}" for t, i in check], "max_logit_gap": max(gaps)}
+    s, m, tr, hs = out["streamed"], out["monolithic"], out["transport"], out["host_split"]
+    log(f"serve_disagg_fabric: dense reference on {len(check)} streams (those whose text differs from "
+        f"serve_http's, and the redelivered one): largest logit gap {max(gaps):.4f} (bound 0.25)")
+    log(f"serve_disagg_fabric: 2000-token TTFT through the graph, streamed {statistics.median(out['ttft_2000_streamed_ms']):.1f} ms "
+        f"(runs {[round(x, 1) for x in out['ttft_2000_streamed_ms']]}), monolithic "
+        f"{statistics.median(out['ttft_2000_monolithic_ms']):.1f} ms "
+        f"({[round(x, 1) for x in out['ttft_2000_monolithic_ms']]}); the transport alone in turns "
+        f"(this process's client, landing on the card): streamed "
+        f"{statistics.median(tr['ms']['streamed']):.1f} ms, monolithic "
+        f"{statistics.median(tr['ms']['monolithic']):.1f} ms; host path of {hs['blocks']} blocks "
+        f"({hs['kv_bytes'] / 1e6:.1f} MB of K/V, {hs['wire_bytes']} wire bytes): d2h {hs['d2h_ms']:.1f} / "
+        f"encode {hs['encode_ms']:.1f} / checksum {hs['checksum_ms']:.1f} / pack {hs['pack_ms']:.1f} / "
+        f"publish {hs['publish_ms']:.1f} / unpack {hs['unpack_ms']:.1f} / decode {hs['decode_ms']:.1f} / "
+        f"h2d {hs['h2d_ms']:.1f} ms; traffic {s['wall_s']:.2f} s streamed, {m['wall_s']:.2f} s monolithic ({card})")
+    out["launches"] = {"flash_prefill_attention": s["prefill_launches"] + m["prefill_launches"],
+                       "paged_decode_attention": s["decode_launches"] + m["decode_launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve_disagg_fabric: phase {out['phase_s']:.1f} s")
+    print(json.dumps({"serve_disagg_fabric": {k: v for k, v in out.items()}}), flush=True)
     return out
 
 
@@ -4933,10 +5764,8 @@ def phase_serve_disagg(torch, np, card: str, params, int8_params) -> dict:
                 logged(tag, row)
             decode.remote_prefill_client = device
             # the same decode engine serving alone (chunks), and the
-            # single-shot engine, each twice, in the same run
+            # single-shot engine, once each, in the same run
             for tag, engine, single_shot in (("local_chunks", decode, False),
-                                             ("local_chunks", decode, False),
-                                             ("local_single_shot", single, True),
                                              ("local_single_shot", single, True)):
                 decode.disagg_router = None
                 run = await serve_leg(torch, engine, reqs, Context, kernels)
@@ -5905,8 +6734,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # ``--only serve_offload`` / ``serve_fabric`` / ``serve_kv``: the device,
-    # the build and that phase alone (a quicker call while the phase is worked on; no
+    # ``--only serve_offload`` / ``serve_fabric`` / ``serve_kv`` / ``serve_tp``
+    # / ``serve_disagg_fabric``: the device, the build and that phase alone (a quicker call while the phase is worked on; no
     # kernels line)
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     try:
@@ -5926,11 +6755,15 @@ def main() -> int:
             for line in row["ptxas"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
-        if only in ("serve_offload", "serve_fabric", "serve_kv"):
+        if only in ("serve_offload", "serve_fabric", "serve_kv", "serve_tp", "serve_disagg_fabric"):
             if only == "serve_offload":
                 phase_serve_offload(torch, np, card, *offload_params(torch))
             elif only == "serve_fabric":
                 phase_serve_fabric(torch, np, card)
+            elif only == "serve_tp":
+                phase_serve_tp(torch, np, card)
+            elif only == "serve_disagg_fabric":
+                phase_serve_disagg_fabric(torch, np, card)
             else:
                 phase_serve_kv(torch, np, card)
             print(card, flush=True)
@@ -5938,7 +6771,8 @@ def main() -> int:
                                                      "count": count}}), flush=True)
             return 0
         if only is not None:
-            raise SmokeError(f"--only takes serve_offload, serve_fabric or serve_kv, not {only}")
+            raise SmokeError(f"--only takes serve_offload, serve_fabric, serve_kv, serve_tp or "
+                             f"serve_disagg_fabric, not {only}")
 
         # 3. parity
         errs = phase_parity(torch)
@@ -6047,6 +6881,16 @@ def main() -> int:
         # 17. serve_kv: KV-aware routing over two workers with host tiers, the
         # standalone router and the agg graph (each worker's #1 counted)
         phase_serve_kv(torch, np, card)
+        # 18. serve_disagg_fabric: the disagg graph across processes (each
+        # worker's counters read just before and just after its traffic);
+        # #3's row adds its prefill workers' launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"device memory held before serve_disagg_fabric: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        fab = phase_serve_disagg_fabric(torch, np, card, [c["text"] for c in http["concurrent"]])
+        log(f"flash_prefill_attention launches: serve_disagg_fabric's prefill workers "
+            f"{fab['launches']['flash_prefill_attention']}")
+        launches["flash_prefill_attention"] += fab["launches"]["flash_prefill_attention"]
     except Exception as e:  # noqa: BLE001 - report and fail the run
         import traceback
 

@@ -20,9 +20,9 @@ payload is whole, so this client never streams.
 engine's ``prefill_only`` (or, when the decode engine asks to stream, as it does
 unless ``DYN_KV_STREAM=0``, ``prefill_only_stream``) encodes the blocks, and every frame and the
 final response go through ``to_wire()`` / ``from_wire()`` before they
-land, as they would cross a transport. The fabric transport itself
-(``RemotePrefillClient``, ``PrefillWorkerService``, the prefill queue) is
-not ported yet.
+land, as they would cross a transport. Across processes the same roles
+run over the fabric (transfer.py: ``RemotePrefillClient``,
+``PrefillWorkerService`` and the prefill queue).
 """
 
 from __future__ import annotations

@@ -3,25 +3,27 @@ dynamo_tpu/disagg/router.py.
 
 ``prefill_remote(prefill_len, prefix_hit_len)`` is True when the prompt's
 non-cached part is longer than ``max_local_prefill_length`` and the prefill
-queue holds fewer than ``max_prefill_queue_size`` requests. The queue is
-any object with an ``async depth()``; without one the depth stays 0, as
-the reference's in-process tests set it. Publishing and watching live
-thresholds need the fabric, which the port does not have yet: those two
-methods raise.
+queue holds fewer than ``max_prefill_queue_size`` requests. With a
+``fabric`` the router reads its namespace's ``PrefillQueue`` (as the
+reference's does) and its thresholds are live: ``publish_config`` writes
+them under ``disagg_router/{namespace}/{component}`` in the fabric's KV
+store, and ``start_watching`` adopts the value there now and every later
+put, so operators retune the split without restarting decode workers.
+Without a fabric the queue is any object with an ``async depth()`` (the
+depth stays 0 without one, as the in-process clients use it), and the two
+live-threshold methods raise ValueError.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import json
 import logging
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Any, Optional
 
 logger = logging.getLogger("dynamo_tpu_torch.disagg.router")
-
-_FABRIC = ("needs disaggregation's fabric transport (the config watch, "
-           "RemotePrefillClient, PrefillQueue), which the port does not have yet "
-           "(ROADMAP.md A10)")
 
 
 @dataclass
@@ -37,17 +39,29 @@ class DisaggConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+def _config_key(namespace: str, component: str) -> str:
+    return f"disagg_router/{namespace}/{component}"
+
+
 class DisaggregatedRouter:
     """Decides local against remote prefill for one decode worker."""
 
     def __init__(self, config: Optional[DisaggConfig] = None, queue: Optional[Any] = None,
-                 namespace: str = "dynamo", component: str = "decode") -> None:
+                 namespace: str = "dynamo", component: str = "decode", *,
+                 fabric: Optional[Any] = None) -> None:
+        self._fabric = fabric
         self.namespace = namespace
         self.component = component
         self.config = config or DisaggConfig()
+        if queue is None and fabric is not None:
+            from dynamo_tpu_torch.disagg.prefill_queue import PrefillQueue
+
+            queue = PrefillQueue(fabric, namespace)
         self.queue = queue
         self._queue_depth_cache = 0
         self._depth_checked_at = -1.0
+        self._watch = None
+        self._watch_task: Optional[asyncio.Task] = None
 
     def prefill_remote(self, prefill_len: int, prefix_hit_len: int = 0) -> bool:
         """True: ship the prefill; False: prefill locally."""
@@ -75,11 +89,51 @@ class DisaggregatedRouter:
                 logger.warning("queue depth refresh failed: %s", e)
                 self._queue_depth_cache = self.config.max_prefill_queue_size
 
+    # ------------------------------------------------ live thresholds
+
+    def _need_fabric(self, what: str):
+        if self._fabric is None:
+            raise ValueError(f"{what} needs a fabric: build the router with "
+                             "DisaggregatedRouter(..., fabric=<FabricClient>)")
+        return self._fabric
+
     async def publish_config(self, config: DisaggConfig) -> None:
-        raise NotImplementedError(f"publish_config {_FABRIC}")
+        """Write thresholds to the fabric's KV store (any process may)."""
+        fabric = self._need_fabric("publish_config")
+        await fabric.kv_put(_config_key(self.namespace, self.component),
+                            json.dumps(asdict(config)).encode())
 
     async def start_watching(self) -> None:
-        raise NotImplementedError(f"start_watching {_FABRIC}")
+        """Adopt the published thresholds now and on every later change.
+        The initial value comes from the watch's own snapshot, not from a
+        separate get, so a put landing between the two is never missed."""
+        fabric = self._need_fabric("start_watching")
+        watch = await fabric.watch_prefix(_config_key(self.namespace, self.component))
+        for ev in watch.initial:
+            if ev.type == "put" and ev.value:
+                self._apply(ev.value)
+
+        async def loop() -> None:
+            async for ev in watch:
+                if ev.type == "put" and ev.value:
+                    self._apply(ev.value)
+
+        self._watch = watch
+        self._watch_task = asyncio.get_running_loop().create_task(loop())
+
+    def _apply(self, raw: bytes) -> None:
+        try:
+            self.config = DisaggConfig.from_dict(json.loads(raw))
+            logger.info("disagg thresholds updated: local<=%d, queue<%d",
+                        self.config.max_local_prefill_length,
+                        self.config.max_prefill_queue_size)
+        except (ValueError, TypeError) as e:
+            logger.warning("bad disagg config update ignored: %s", e)
 
     async def close(self) -> None:
-        return None
+        if self._watch_task is not None:
+            await self._watch.cancel()
+            self._watch_task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await self._watch_task
+            self._watch_task = None

@@ -153,10 +153,13 @@ A worker (``entrypoint/inputs.run_endpoint``) subscribes its KV event
 callbacks to a ``kv_router.KvEventPublisher`` and publishes
 ``inputs.load_metrics(engine)`` for the KV-aware router.
 
+Under a tensor-parallel group the engine serves every role above (a decode
+worker, a prefill worker, tiers): its runner's block moves run on every rank
+through the step channel (parallel/multihost.py).
+
 Left out (ROADMAP.md lists them): the peer tier (G4-lite, A7), class-aware
-preemption and brownout (A7), the fabric transport of remote prefill,
-disaggregation and the block manager under a tensor-parallel group (A8,
-which raises), multimodal prompts, tracing and fault injection.
+preemption and brownout (A7), multimodal prompts, tracing and fault
+injection.
 """
 
 from __future__ import annotations
@@ -314,6 +317,11 @@ class EngineStats:
     kv_wire_bytes_tx: int = 0
     kv_wire_bytes_rx: int = 0
     kv_bytes_overlapped: int = 0
+    # prefill role over the fabric (disagg/transfer.PrefillWorkerService):
+    # frames encoded but not yet published (a gauge, bounded by the frame
+    # window), and queued requests dropped past their deadline
+    kv_frames_inflight: int = 0
+    prefill_dropped_expired: int = 0
     # the tiered block manager: blocks newly stored by offloads (mid-
     # generation, preemption spills and ends), preemptions that spilled,
     # blocks onboarded into admitted sequences, and the offloads / onboards
@@ -459,18 +467,14 @@ class _DeviceThread(concurrent.futures.Executor):
         self._pool.shutdown(wait=wait, cancel_futures=cancel_futures)
 
 
-_TP_DISAGG = ("disaggregated prefill and the tiered block manager under a tensor-parallel "
-              "group are not ported yet (the step channel's extract / inject and the "
-              "reshard: ROADMAP.md A8)")
-
-
 class TorchEngine:
     """AsyncEngine over a TorchModelRunner (see the module docstring).
     ``disagg_router`` and ``remote_prefill_client`` make it a decode worker
     of disaggregated prefill; ``block_manager`` (a
     ``block_manager.TieredBlockManager``) gives it host and disk tiers;
     ``on_blocks_stored`` / ``on_blocks_removed`` receive its KV events. An
-    engine under a tensor-parallel group refuses the first three."""
+    engine under a tensor-parallel group takes all of them: its runner's
+    block moves run on every rank (parallel/multihost.py)."""
 
     def __init__(
         self, runner: TorchModelRunner, config: Optional[TorchEngineConfig] = None,
@@ -560,40 +564,6 @@ class TorchEngine:
                 min_n=self.config.spec_ngram_min, max_n=self.config.spec_ngram_max,
             )
             self.stats.accepted_per_pos = [0] * self.config.spec_k
-
-    @property
-    def block_manager(self) -> Optional[Any]:
-        return self._block_manager
-
-    @block_manager.setter
-    def block_manager(self, manager: Optional[Any]) -> None:
-        if manager is not None:
-            self._refuse_under_tp()
-        self._block_manager = manager
-
-    @property
-    def disagg_router(self) -> Optional[Any]:
-        return self._disagg_router
-
-    @disagg_router.setter
-    def disagg_router(self, router: Optional[Any]) -> None:
-        if router is not None:
-            self._refuse_under_tp()
-        self._disagg_router = router
-
-    @property
-    def remote_prefill_client(self) -> Optional[Any]:
-        return self._remote_prefill_client
-
-    @remote_prefill_client.setter
-    def remote_prefill_client(self, client: Optional[Any]) -> None:
-        if client is not None:
-            self._refuse_under_tp()
-        self._remote_prefill_client = client
-
-    def _refuse_under_tp(self) -> None:
-        if getattr(self.runner, "group", None) is not None:
-            raise NotImplementedError(_TP_DISAGG)
 
     # --------------------------------------------------------------- api
 
@@ -2020,7 +1990,6 @@ class TorchEngine:
     def _prefill_request(self, req) -> tuple[list[int], Optional[Any]]:
         """(scratch blocks, None) for a request, or (None, the error
         answer) when the prompt is too long."""
-        self._refuse_under_tp()
         T = len(req.token_ids)
         if T > self.config.max_model_len:
             return [], f"prompt {T} exceeds max_model_len"

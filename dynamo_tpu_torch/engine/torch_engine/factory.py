@@ -5,8 +5,9 @@ Counterpart of dynamo_tpu/engine/jax_engine/factory.py (``build_jax_engine``
 ``fused_decode_from_env``, ``collective_overlap_from_env`` and
 ``spec_decode_settings`` :271-320, ``default_lazy_horizon`` /
 ``default_decode_horizon`` :323-344, the ``DYN_JAX_QUANTIZE_INT8`` read at
-:80-82), with the JAX factory's default admission path: chunked, packed and
-mixed-step prefill, and its default decode horizon on the accelerator.
+:80-82, the ``DYN_HBM_GB`` budget of ``hbm_budget_bytes`` :393-407), with
+the JAX factory's default admission path: chunked, packed and mixed-step
+prefill, and its default decode horizon on the accelerator.
 
 Tensor parallelism (``tensor_parallel_size``, the reference's mesh and
 Megatron sharding, :113-163): this process becomes rank 0, the leader, and
@@ -69,6 +70,13 @@ TP_TIMEOUT_S = 600.0
 
 
 def device_memory_bytes(device: torch.device) -> int:
+    """The memory budget one engine sizes its KV pool from: ``DYN_HBM_GB``
+    GiB when set (the JAX factory's ``hbm_budget_bytes``, :393-407; e.g.
+    several engines sharing one card), else the card's total memory (16 GiB
+    assumed for the CPU)."""
+    override = os.environ.get("DYN_HBM_GB")
+    if override:
+        return int(float(override) * 2**30)
     if device.type == "cuda":
         return torch.cuda.get_device_properties(device).total_memory
     return _DEFAULT_BUDGET_BYTES
@@ -209,10 +217,6 @@ def _maybe_block_manager(cfg: LlamaConfig, runner: TorchModelRunner) -> Optional
     gb = float(os.environ.get("DYN_KV_HOST_OFFLOAD_GB", "0") or 0)
     if gb <= 0:
         return None
-    if getattr(runner, "group", None) is not None:
-        raise NotImplementedError(
-            "the tiered block manager (DYN_KV_HOST_OFFLOAD_GB) under a tensor-parallel group is "
-            "not ported yet (each rank holds Hkv / tp heads; ROADMAP.md A8)")
     layout = LayoutConfig(num_layers=cfg.num_layers, page_size=runner.block_size,
                           num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
                           dtype=dtype_name(runner.kv_logical_dtype))
@@ -399,8 +403,9 @@ def build_torch_engine(
     so no dispatch waits for nvcc under the watchdog's budget.
 
     The tiered block manager comes from ``DYN_KV_HOST_OFFLOAD_GB`` and the
-    other knobs of the module docstring; under a tensor-parallel group it
-    raises NotImplementedError (ROADMAP A8)."""
+    other knobs of the module docstring; under a tensor-parallel group the
+    tiers hold dense pages (every kv head), which the leader gathers from
+    and scatters to the ranks."""
     cfg, model_dir = _resolve_config(config)
     if expert_parallel_size > 1:
         raise NotImplementedError(

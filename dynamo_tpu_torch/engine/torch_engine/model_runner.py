@@ -83,12 +83,14 @@ plane ``extract_blocks*`` / ``inject_blocks*`` :1407-1601 over
     runner needs no form of; a padding lane there writes null block 0,
     which nothing here writes). An inject writes IN PLACE
     (``index_copy_``): the captured graphs hold the cache's addresses, so a
-    rebound cache would leave every replay reading stale blocks.
+    rebound cache would leave every replay reading stale blocks. Under a
+    tensor-parallel group every block move runs on every rank: the leader
+    gathers the ranks' heads into the dense array on the way out and
+    scatters each rank its own heads on the way in (see the data plane's
+    section below).
 
-Not ported yet: the block moves under a tensor-parallel group (each rank
-holds Hkv / tp heads: ROADMAP.md A8), spec decode under tensor parallelism,
-and graphs of the mixed step or under a tensor-parallel group (both run
-eagerly).
+Not ported yet: spec decode under tensor parallelism, and graphs of the
+mixed step or under a tensor-parallel group (both run eagerly).
 """
 
 from __future__ import annotations
@@ -121,6 +123,23 @@ from dynamo_tpu_torch.ops.sampling import (
     sample_tokens_full,
     spec_accept_len,
 )
+from dynamo_tpu_torch.parallel.mesh import ScatterSpec
+
+
+def host_tensor(a, dtype=None):
+    """A block array as a tensor: host numpy in the wire form (uint16 words
+    are bfloat16, every other dtype its own; ``dtype`` the one it must have)
+    as a CPU tensor over the same bytes, a tensor as it is."""
+    if not isinstance(a, np.ndarray):
+        return a
+    a = np.ascontiguousarray(a, dtype)
+    bf16 = a.dtype == np.uint16
+    with warnings.catch_warnings():
+        # a payload's arrays view its read-only wire bytes; they are only
+        # read (copied to the device or into the cache)
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(a.view(np.int16) if bf16 else a)
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 def default_prefill_buckets(block_size: int, max_len: int) -> list[int]:
@@ -858,19 +877,44 @@ class TorchModelRunner:
     # and an inject waits on it.
 
     def _block_index(self, block_ids, *, writes: bool = False) -> torch.Tensor:
-        if self.group is not None:
-            raise NotImplementedError(
-                "KV block moves under a tensor-parallel group are not ported yet "
-                "(each rank holds Hkv / tp heads; ROADMAP.md A8)")
         ids = np.asarray(block_ids, np.int64).reshape(-1)
         if writes and (ids <= 0).any():
             raise ValueError(f"block ids {ids.tolist()} include null block 0 (or a negative id)")
         return torch.as_tensor(ids, device=self.device)
 
+    # Under a tensor-parallel group each rank's cache holds Hkv / tp heads.
+    # Every block move runs on every rank (the step channel's OP_EXTRACT /
+    # OP_INJECT, parallel/multihost.py): an extract gathers the ranks' heads
+    # into the dense array on the leader (rank 0), which alone returns it
+    # (a follower returns None); an inject cuts the leader's dense array by
+    # head and scatters it, each rank receiving only its own heads, which it
+    # writes in place. A dense payload is what crosses the wire, so a
+    # prefill group and a decode group of different sizes reshard by this
+    # slicing alone.
+
+    def _heads_out(self, t: torch.Tensor, dim: int = 1) -> Optional[torch.Tensor]:
+        """``t`` (this rank's heads of some blocks) as the dense array:
+        itself without a group, else gathered on the leader (on the host for
+        gloo); None on a follower."""
+        return t if self.group is None else self.group.gather(t, dim)
+
+    def _heads_in(self, a, dim: int = 1, dtype=None) -> torch.Tensor:
+        """This rank's heads, on its device, of a dense block array (host
+        numpy in the wire form, where uint16 words are bfloat16 and every
+        other dtype is its own, ``dtype`` the one it must have; or a tensor).
+        Under a group the leader passes the dense array and a follower its
+        part's ``ScatterSpec``."""
+        if isinstance(a, ScatterSpec):
+            return self.group.scatter(None, dim, part=a)
+        a = host_tensor(a, dtype)
+        if self.group is None:
+            return a.to(self.device)
+        return self.group.scatter(a, dim)
+
     def _gather(self, idx: torch.Tensor) -> list[torch.Tensor]:
         """The blocks ``idx`` of K and V, [L, Hkv, n, bs, D] in the cache's
         logical dtype (an int8 cache's dequantized, as the reference's
-        ``_extract``)."""
+        ``_extract``), this rank's heads."""
         out = []
         for c in (self.k_cache, self.v_cache):
             if self.kv_quantized:
@@ -881,9 +925,9 @@ class TorchModelRunner:
         return out
 
     def _scatter(self, idx: torch.Tensor, blocks: tuple) -> None:
-        """Write [L, Hkv, n, bs, D] K and V blocks at ``idx`` in place; an
-        int8 cache quantizes each whole block by its exact absmax (the
-        reference's quantize-on-inject)."""
+        """Write [L, Hkv, n, bs, D] K and V blocks (this rank's heads) at
+        ``idx`` in place; an int8 cache quantizes each whole block by its
+        exact absmax (the reference's quantize-on-inject)."""
         n = idx.shape[0]
         for c, b in zip((self.k_cache, self.v_cache), blocks):
             if b.dim() != 5 or b.shape[2] != n:
@@ -897,40 +941,31 @@ class TorchModelRunner:
             else:
                 c.index_copy_(2, idx, b.to(c.dtype))
 
-    def _host_blocks(self, a, dtype=None) -> torch.Tensor:
-        """A host array of blocks (or scales) on this device: numpy uint16
-        words are bfloat16, every other numpy dtype is its own (``dtype``:
-        the one it must have)."""
-        if isinstance(a, np.ndarray):
-            a = np.ascontiguousarray(a, dtype)
-            bf16 = a.dtype == np.uint16
-            with warnings.catch_warnings():
-                # a payload's arrays view its read-only wire bytes; they are
-                # only read (copied to the device or into the cache)
-                warnings.simplefilter("ignore", UserWarning)
-                a = torch.from_numpy(a.view(np.int16) if bf16 else a)
-            if bf16:
-                a = a.view(torch.bfloat16)
-        return a.to(self.device)
-
     @torch.inference_mode()
-    def extract_blocks(self, block_ids: list[int]) -> tuple[np.ndarray, np.ndarray]:
+    def extract_blocks(self, block_ids: list[int]) -> Optional[tuple[np.ndarray, np.ndarray]]:
         """Dense KV blocks [L, Hkv, n, bs, D] on the host, for a host
         payload: numpy in the logical dtype's wire form (bfloat16 as uint16
-        words, where the reference gives ml_dtypes.bfloat16)."""
-        k, v = self._gather(self._block_index(block_ids))
+        words, where the reference gives ml_dtypes.bfloat16). None on a
+        follower."""
+        k, v = (self._heads_out(t) for t in self._gather(self._block_index(block_ids)))
+        if k is None:
+            return None
         return to_wire_array(k), to_wire_array(v)
 
     @torch.inference_mode()
-    def extract_blocks_quant(self, block_ids: list[int]) -> tuple:
+    def extract_blocks_quant(self, block_ids: list[int]) -> Optional[tuple]:
         """An int8-resident cache's blocks verbatim, on the host: (kq [L,
         Hkv, n, bs, D] int8, ks [L, Hkv, n] f32, vq, vs), the exact
-        mantissas and scales the wire codec would make."""
+        mantissas and scales the wire codec would make. None on a
+        follower."""
         if not self.kv_quantized:
             raise ValueError("extract_blocks_quant needs an int8-resident cache")
         idx = self._block_index(block_ids)
-        return tuple(c[part].index_select(2, idx).cpu().numpy()
-                     for c in (self.k_cache, self.v_cache) for part in ("q", "s"))
+        parts = [self._heads_out(c[part].index_select(2, idx))
+                 for c in (self.k_cache, self.v_cache) for part in ("q", "s")]
+        if parts[0] is None:
+            return None
+        return tuple(p.cpu().numpy() for p in parts)
 
     @torch.inference_mode()
     def inject_blocks_quant(self, block_ids: list[int], kq, ks, vq, vs) -> None:
@@ -942,7 +977,7 @@ class TorchModelRunner:
         idx = self._block_index(block_ids, writes=True)
         n = idx.shape[0]
         for c, q, s in ((self.k_cache, kq, ks), (self.v_cache, vq, vs)):
-            q, s = self._host_blocks(q, np.int8), self._host_blocks(s, np.float32)
+            q, s = self._heads_in(q, 1, np.int8), self._heads_in(s, 1, np.float32)
             if q.dim() != 5 or q.shape[2] != n or tuple(s.shape) != tuple(q.shape[:3]):
                 raise ValueError(f"mantissas {tuple(q.shape)} / scales {tuple(s.shape)} "
                                  f"for {n} block ids")
@@ -950,13 +985,18 @@ class TorchModelRunner:
             c["s"].index_copy_(2, idx, s)
 
     @torch.inference_mode()
-    def extract_blocks_device(self, block_ids: list[int]) -> tuple[torch.Tensor, torch.Tensor, int]:
+    def extract_blocks_device(self, block_ids: list[int]) -> tuple:
         """Dense KV blocks left on the device: (k, v, n), k / v [L, Hkv, n,
         bs, D] copies in the cache's logical dtype (an int8 cache's
         dequantized). The device-native disagg path: a colocated decode
         engine lands them with ``inject_blocks_device`` and they never leave
-        the card. Never reads anything back to the host."""
-        k, v = self._gather(self._block_index(block_ids))
+        the card (under a gloo group the ranks' heads meet on the host;
+        a follower gets (None, None, n)). Without a group never reads
+        anything back to the host."""
+        k, v = (self._heads_out(t) for t in self._gather(self._block_index(block_ids)))
+        if k is None:
+            return None, None, len(block_ids)
+        k, v = k.to(self.device), v.to(self.device)
         if self.device.type == "cuda":
             default = torch.cuda.default_stream(self.device)
             current = torch.cuda.current_stream(self.device)
@@ -965,19 +1005,18 @@ class TorchModelRunner:
         return k, v, len(block_ids)
 
     @torch.inference_mode()
-    def inject_blocks_device(self, block_ids: list[int], k_dev: torch.Tensor,
-                             v_dev: torch.Tensor) -> None:
+    def inject_blocks_device(self, block_ids: list[int], k_dev, v_dev) -> None:
         """Write device KV blocks (a colocated prefill engine's
         ``extract_blocks_device``) into this cache at ``block_ids``, in
         place: moved onto this runner's device first (nothing on one card, a
         peer copy from another), then the same scatter as ``inject_blocks``.
-        No host copy."""
+        No host copy without a group."""
         idx = self._block_index(block_ids, writes=True)
         if self.device.type == "cuda":
             current = torch.cuda.current_stream(self.device)
             if current != torch.cuda.default_stream(self.device):
                 current.wait_stream(torch.cuda.default_stream(self.device))
-        self._scatter(idx, (k_dev.to(self.device), v_dev.to(self.device)))
+        self._scatter(idx, (self._heads_in(k_dev), self._heads_in(v_dev)))
 
     @torch.inference_mode()
     def inject_blocks(self, block_ids: list[int], k_blocks, v_blocks) -> None:
@@ -986,7 +1025,7 @@ class TorchModelRunner:
         at ``block_ids``, in place; an int8-resident cache quantizes each
         whole block."""
         idx = self._block_index(block_ids, writes=True)
-        self._scatter(idx, (self._host_blocks(k_blocks), self._host_blocks(v_blocks)))
+        self._scatter(idx, (self._heads_in(k_blocks), self._heads_in(v_blocks)))
 
     def _pages(self) -> list[torch.Tensor]:
         """The cache's own planes: K, V (or K, V mantissas and their
@@ -996,16 +1035,19 @@ class TorchModelRunner:
         return [self.k_cache, self.v_cache]
 
     @torch.inference_mode()
-    def extract_pages(self, block_ids: list[int]) -> tuple[torch.Tensor, ...]:
-        """The blocks in the cache's own form, blocks first, left on the
-        device for the tiered block manager: (k, v) [n, L, Hkv, bs, D], or
-        for an int8 cache (kq, vq, ks, vs) with [n, L, Hkv] scales: one
-        gather per plane, no dequantize."""
+    def extract_pages(self, block_ids: list[int]) -> Optional[tuple[torch.Tensor, ...]]:
+        """The blocks in the cache's own form, blocks first, for the tiered
+        block manager: (k, v) [n, L, Hkv, bs, D], or for an int8 cache (kq,
+        vq, ks, vs) with [n, L, Hkv] scales: one gather per plane, no
+        dequantize. Left on the device without a group; under one the dense
+        pages are the leader's (on the host for gloo), None a follower's."""
         idx = self._block_index(block_ids)
-        return tuple(p.movedim(2, 0).index_select(0, idx) for p in self._pages())
+        pages = tuple(self._heads_out(p.movedim(2, 0).index_select(0, idx), 2)
+                      for p in self._pages())
+        return None if pages[0] is None else pages
 
     @torch.inference_mode()
-    def inject_pages(self, block_ids: list[int], *pages: torch.Tensor) -> None:
+    def inject_pages(self, block_ids: list[int], *pages) -> None:
         """``extract_pages``' inverse, in place: blocks-first planes (on any
         device) written at ``block_ids``, so captured graphs keep the
         cache's addresses."""
@@ -1014,10 +1056,11 @@ class TorchModelRunner:
         if len(pages) != len(planes):
             raise ValueError(f"{len(pages)} planes for a cache of {len(planes)}")
         for c, p in zip(planes, pages):
+            p = self._heads_in(p, 2)
             if tuple(p.shape) != (idx.shape[0], *c.movedim(2, 0).shape[1:]) or p.dtype != c.dtype:
                 raise ValueError(f"pages {tuple(p.shape)} {p.dtype} for {idx.shape[0]} block ids "
                                  f"of a {c.dtype} cache")
-            c.index_copy_(2, idx, p.to(self.device).movedim(0, 2))
+            c.index_copy_(2, idx, p.movedim(0, 2))
 
     # ------------------------------------------------- inputs and graphs
 

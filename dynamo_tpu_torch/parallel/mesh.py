@@ -7,7 +7,8 @@ per rank, so a ``TPGroup`` is this process's place in a group of ``tp``
 ranks: its rank, the world size, its device and a ``torch.distributed``
 process group, with the four collectives the sharded model needs
 (``all_reduce`` (sum), ``all_gather`` (tiled on a dim), ``broadcast`` and
-the ring ``ppermute``).
+the ring ``ppermute``), and the two that move KV blocks' heads to and from
+the leader (``gather`` and ``scatter``, rank 0 by default).
 
 The backend and the devices are the caller's explicit choice. By default
 rank r sits on ``cuda:r`` over NCCL, and a group larger than the card
@@ -23,7 +24,9 @@ an H100 its all_reduce, broadcast and all_gather take them
 aborts the process (``gloo::IoException``: writev "Bad address"). So when
 the caller chose gloo with CUDA devices, the ring hop (``ppermute``) stages
 its tensor through host memory here, explicitly, and counts it
-(``staged_ops``, ``staged_bytes``); NCCL and CPU tensors are never staged.
+(``staged_ops``, ``staged_bytes``); ``gather`` and ``scatter`` run on the
+host for gloo in every case (a card's tensor staged and counted the same
+way). NCCL and CPU tensors are never staged.
 ``seconds`` sums the host time spent inside every collective (gloo's own
 host copies and this staging included).
 
@@ -43,12 +46,19 @@ from __future__ import annotations
 
 import time
 from datetime import timedelta
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
 Devices = Union[None, str, Sequence[str]]
+
+
+class ScatterSpec(NamedTuple):
+    """The shape and dtype of the part a rank receives from a scatter."""
+
+    shape: tuple
+    dtype: torch.dtype
 
 
 def rank_devices(world_size: int, devices: Devices = None) -> list[torch.device]:
@@ -168,6 +178,53 @@ class TPGroup:
             out = out.to(self.device)
         self.seconds += time.perf_counter() - t0
         return out
+
+    def _comm(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` where this group's collectives take it: on the host for
+        gloo (counted as staged when this rank sits on a card), on the
+        rank's device for NCCL."""
+        if self.backend == "gloo":
+            if t.device.type != "cpu":
+                self.staged_ops += 1
+                self.staged_bytes += t.numel() * t.element_size()
+            return t.cpu()
+        return t.to(self.device)
+
+    def gather(self, t: torch.Tensor, dim: int, dst: int = 0) -> Optional[torch.Tensor]:
+        """Every rank's ``t`` (the same shape and dtype on each)
+        concatenated along ``dim`` in rank order, on rank ``dst``, which
+        returns it on the host for gloo and on its device for NCCL; every
+        other rank returns None. One rank: ``t`` itself."""
+        if self.world_size == 1:
+            return t
+        t0 = time.perf_counter()
+        h = self._comm(t.contiguous())
+        parts = [torch.empty_like(h) for _ in range(self.world_size)] if self.rank == dst else None
+        dist.gather(h, parts, dst=dst)
+        self.seconds += time.perf_counter() - t0
+        return torch.cat(parts, dim=dim) if parts is not None else None
+
+    def scatter(self, t: Optional[torch.Tensor], dim: int, part: Optional["ScatterSpec"] = None,
+                src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` cut into ``world_size`` equal parts along
+        ``dim``; rank r gets part r, on its device. The other ranks pass
+        ``part``, the shape and dtype of the part they receive. One rank:
+        ``t`` itself."""
+        if self.world_size == 1:
+            return t.to(self.device)
+        t0 = time.perf_counter()
+        if self.rank == src:
+            if t.shape[dim] % self.world_size:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split into "
+                                 f"{self.world_size} parts")
+            parts = [self._comm(p.contiguous()) for p in t.chunk(self.world_size, dim)]
+            out = torch.empty_like(parts[src])
+        else:
+            parts = None
+            out = self._comm(torch.empty(part.shape, dtype=part.dtype))
+        dist.scatter(out, parts, src=src)
+        self.seconds += time.perf_counter() - t0
+        return out.to(self.device)
 
     def gather_objects(self, obj) -> list:
         """Every rank's picklable ``obj``, in rank order, over the control

@@ -24,7 +24,13 @@ which a follower receives and ignores (the counterpart of the reference's
 barrier lease, :535-555, which a waiting follower checks instead of
 leaving). The horizon (``decode_multi``, ``OP_DECODE_MULTI``) replays as
 any other call: every rank runs its H steps eagerly, with the leader's
-keys.
+keys. The KV block moves of disaggregation and the tiers ride
+``OP_EXTRACT`` / ``OP_INJECT`` (the reference's numbers, :53-54): the
+payload names the runner's method and the block ids, and for an inject the
+shape and dtype of each rank's part; the runner's method then gathers the
+ranks' heads into the dense array on the leader, or scatters each rank only
+its own heads of the leader's (where the reference broadcasts the whole
+payload to every host, :390-427, :707-720).
 
 Multi-node bring-up (the fabric rendezvous and ``jax.distributed``-style
 initialisation) is not ported: ranks are processes of one node
@@ -41,6 +47,8 @@ import time
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.parallel.mesh import ScatterSpec
+
 logger = logging.getLogger("dynamo_tpu_torch.parallel.multihost")
 
 
@@ -55,6 +63,8 @@ OP_STOP = 0
 OP_DECODE = 1
 OP_PREFILL = 2
 OP_CHUNK = 3
+OP_EXTRACT = 4
+OP_INJECT = 5
 OP_PACKED = 6
 OP_DECODE_MULTI = 9
 OP_MIXED = 10
@@ -70,6 +80,17 @@ _METHODS = {
     OP_DECODE_MULTI: "decode_multi",
     OP_MIXED: "mixed_step",
     OP_LOGITS: "decode_logits",
+}
+
+# the block moves (OP_EXTRACT / OP_INJECT), ridden by the method's name
+_EXTRACTS = ("extract_blocks", "extract_blocks_quant", "extract_blocks_device", "extract_pages")
+# inject method -> (its arrays' head dim, their block dim, each array's
+# dtype when it comes as numpy: None keeps its own)
+_INJECTS = {
+    "inject_blocks": (1, 2, (None, None)),
+    "inject_blocks_device": (1, 2, (None, None)),
+    "inject_blocks_quant": (1, 2, (np.int8, np.float32, np.int8, np.float32)),
+    "inject_pages": (2, 0, None),
 }
 
 
@@ -209,6 +230,62 @@ class SpmdModelRunner:
                           top_ps, top_ks, keys, active, limit_remaining, min_remaining,
                           eos_ids, penalties=penalties)
 
+    # The block moves: the leader sends the method and the block ids (and,
+    # for an inject, the shape and dtype of each rank's part), then every
+    # rank runs the runner's method, whose gather / scatter of the heads
+    # meets the others' (model_runner.py's data plane). Everything an
+    # inject could refuse is checked here, before any rank moves.
+
+    def _extract(self, method: str, block_ids):
+        ids = [int(b) for b in block_ids]
+        self._channel.send(OP_EXTRACT, (method, ids))
+        return getattr(self._runner, method)(ids)
+
+    def extract_blocks(self, block_ids):
+        return self._extract("extract_blocks", block_ids)
+
+    def extract_blocks_quant(self, block_ids):
+        return self._extract("extract_blocks_quant", block_ids)
+
+    def extract_blocks_device(self, block_ids):
+        return self._extract("extract_blocks_device", block_ids)
+
+    def extract_pages(self, block_ids):
+        return self._extract("extract_pages", block_ids)
+
+    def _inject(self, method: str, block_ids, *arrays):
+        from dynamo_tpu_torch.engine.torch_engine.model_runner import host_tensor
+
+        head_dim, n_dim, dtypes = _INJECTS[method]
+        ids = [int(b) for b in block_ids]
+        self._runner._block_index(ids, writes=True)
+        tp = self._runner.group.world_size
+        arrays = [host_tensor(a, dtypes[i] if dtypes else None) for i, a in enumerate(arrays)]
+        parts = []
+        for a in arrays:
+            shape = list(a.shape)
+            if len(shape) <= max(head_dim, n_dim) or shape[n_dim] != len(ids) or shape[head_dim] % tp:
+                raise ValueError(f"{method}: an array of shape {tuple(a.shape)} for {len(ids)} "
+                                 f"block ids does not split into {tp} ranks' heads")
+            shape[head_dim] //= tp
+            parts.append(ScatterSpec(tuple(shape), a.dtype))
+        self._channel.send(OP_INJECT, (method, ids, parts))
+        return getattr(self._runner, method)(ids, *arrays)
+
+    def inject_blocks(self, block_ids, k_blocks, v_blocks):
+        return self._inject("inject_blocks", block_ids, k_blocks, v_blocks)
+
+    def inject_blocks_quant(self, block_ids, kq, ks, vq, vs):
+        return self._inject("inject_blocks_quant", block_ids, kq, ks, vq, vs)
+
+    def inject_blocks_device(self, block_ids, k_dev, v_dev):
+        return self._inject("inject_blocks_device", block_ids, k_dev, v_dev)
+
+    def inject_pages(self, block_ids, *pages):
+        if len(pages) != len(self._runner._pages()):
+            raise ValueError(f"{len(pages)} planes for a cache of {len(self._runner._pages())}")
+        return self._inject("inject_pages", block_ids, *pages)
+
     def spec_verify(self, *args, **kwargs):
         raise NotImplementedError("spec decode under tensor parallelism is not ported yet")
 
@@ -255,6 +332,12 @@ def follower_loop(runner, channel: SpmdStepChannel) -> list[dict]:
             group.gather_objects(rank_stats(group, *args))
             continue
         if op == OP_KEEPALIVE:
+            continue
+        if op == OP_EXTRACT and args[0] in _EXTRACTS:
+            getattr(runner, args[0])(args[1])  # this rank's heads go to the leader
+            continue
+        if op == OP_INJECT and args[0] in _INJECTS:
+            getattr(runner, args[0])(args[1], *args[2])  # receives its heads
             continue
         if op not in _METHODS:
             raise RuntimeError(f"unknown step opcode {op}")

@@ -9,8 +9,10 @@ push_handler.rs) and of the Python bindings' `endpoint.serve_endpoint(fn)`.
 Flow per request: fabric bus delivers msgpack [header, payload]; we decode the
 Context from the header, call the handler (an async generator), connect a
 StreamSender back to the caller's TCP response server, and stream each yielded
-item as an Annotated wire dict. A broken pipe (caller went away) kills the
-request context so the engine stops generating.
+item as an Annotated wire dict. The caller closing the connection (it went
+away, also before the first item) or a broken pipe kills the request context
+so the engine stops generating. The reference sees only the broken pipe, at
+its next send, so a request abandoned before its first item ran on to it.
 """
 
 from __future__ import annotations
@@ -86,6 +88,10 @@ class PushEndpointWorker:
             logger.exception("failed to accept request")
             self.inflight -= 1
             return
+        # a caller that goes away kills the context at once, also while the
+        # handler has not produced its first item (a remote prefill in flight)
+        gone = asyncio.ensure_future(sender.peer_closed())
+        gone.add_done_callback(lambda f: f.cancelled() or ctx.kill())
         try:
             gen = self.handler(request, ctx)
             try:
@@ -107,6 +113,7 @@ class PushEndpointWorker:
             with contextlib.suppress(Exception):
                 await sender.send_error(f"{type(e).__name__}: {e}")
         finally:
+            gone.cancel()
             await sender.finish()
             self.inflight -= 1
 

@@ -11,7 +11,8 @@ the caller's per-process stream server — no broker hop on the hot token path.
 Frame = length-prefixed msgpack [header: dict, payload: bytes] (wire.py).
 Header "t" field: "hello" (handshake w/ stream subject), "data", "err", "end".
 Caller-side cancellation: dropping the receiver closes the connection; the
-sending worker observes the broken pipe and kills the request context.
+sending worker observes the closed connection (at once, also before its
+first frame) or the broken pipe and kills the request context.
 """
 
 from __future__ import annotations
@@ -163,6 +164,14 @@ class StreamSender:
         except (ConnectionResetError, BrokenPipeError, ConnectionAbortedError):
             self.broken = True
             raise
+
+    async def peer_closed(self) -> None:
+        """Returns once the caller closes the connection (it never writes
+        on it): how a caller that abandons the stream before the first
+        frame is seen."""
+        with contextlib.suppress(Exception):
+            while await self._reader.read(4096):
+                pass
 
     async def send_data(self, payload: bytes) -> None:
         await self._send({"t": "data"}, payload)

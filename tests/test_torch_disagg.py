@@ -21,7 +21,10 @@ from the JAX init carried over bit for bit; inputs from numpy seeds.
   block, and int8-resident engines on both roles; the colocated path runs
   ``prefill_only_device`` once per shipped prompt with no fallback and no
   wire codec;
-* a cancel mid remote prefill returns every block on both engines.
+* a cancel mid remote prefill returns every block on both engines;
+* the router's live thresholds over the port's in-process fabric (and
+  ValueError without one); an engine under a tensor-parallel group serving
+  as a decode engine with a block manager, and as a prefill engine.
 """
 
 import asyncio
@@ -181,6 +184,13 @@ def test_router_decision_table_equals_the_reference():
 
 
 async def test_router_refreshes_its_queue_depth_and_refuses_the_fabric():
+    """The queue depth (any ``async depth()``) refreshes and a failed read
+    counts as full; with the port's in-process fabric the thresholds are
+    live (the published value, then a later put); without a fabric the two
+    live-threshold methods raise ValueError."""
+    from dynamo_tpu_torch.disagg.prefill_queue import PrefillQueue
+    from dynamo_tpu_torch.fabric.client import FabricClient as TFabric
+
     class Queue:
         def __init__(self, depth):
             self.d = depth
@@ -199,8 +209,22 @@ async def test_router_refreshes_its_queue_depth_and_refuses_the_fabric():
     assert r._queue_depth_cache == r.config.max_prefill_queue_size
     assert await DisaggregatedRouter().refresh_queue_depth() == 0
     for call in (r.publish_config(DisaggConfig()), r.start_watching()):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(ValueError, match="needs a fabric"):
             await call
+    fabric = TFabric.in_process()
+    live = DisaggregatedRouter(namespace="ns", fabric=fabric)
+    assert isinstance(live.queue, PrefillQueue) and await live.refresh_queue_depth() == 0
+    await live.publish_config(DisaggConfig(max_local_prefill_length=7))
+    await live.start_watching()
+    assert live.config == DisaggConfig(max_local_prefill_length=7)
+    await DisaggregatedRouter(namespace="ns", fabric=fabric).publish_config(
+        DisaggConfig(max_local_prefill_length=3, max_prefill_queue_size=5))
+    for _ in range(100):
+        if live.config.max_local_prefill_length == 3:
+            break
+        await asyncio.sleep(0.01)
+    assert live.config == DisaggConfig(3, 5) and live.prefill_remote(4)
+    await live.close()
 
 
 # ------------------------------------------------------------ block plane
@@ -633,16 +657,49 @@ async def test_a_landed_lane_joins_a_horizon_beside_running_lanes():
     await prefill.close()
 
 
-def test_an_engine_under_a_tensor_parallel_group_refuses_disaggregation():
-    _, _, tparams = _models()
-    engine = _torch_engine(tparams)
-    engine.runner.group = object()  # as a rank of a tensor-parallel group
-    with pytest.raises(NotImplementedError, match="A8"):
+async def test_an_engine_under_a_tensor_parallel_group_refuses_disaggregation(monkeypatch):
+    """Once refused, now served: a tp = 2 TorchEngine (gloo ranks on the
+    CPU) takes a router, a remote prefill client and a block manager, and
+    streams a shipped prompt's greedy tokens equal to a JaxEngine over a
+    tp = 2 mesh; as a prefill engine its device role gives the dense
+    blocks."""
+    from dynamo_tpu.parallel.mesh import build_mesh
+    from dynamo_tpu.parallel.sharding import shard_llama
+    from dynamo_tpu_torch.block_manager import LayoutConfig, TieredBlockManager
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the spawned follower's threads
+    jcfg, jparams, tparams = _models()
+    mesh = build_mesh(tp=2)
+    sp, kv_sharding = shard_llama(mesh, jcfg, jparams)
+    ref = JaxEngine(ModelRunner(jcfg, sp, num_blocks=NB, block_size=BS, max_batch=MAX_BATCH,
+                                max_model_len=MAX_LEN, kv_dtype=jnp.float32,
+                                prefill_chunk_tokens=0, mesh=mesh, kv_sharding=kv_sharding),
+                    JaxEngineConfig(max_batch=MAX_BATCH, block_size=BS, num_blocks=NB,
+                                    max_model_len=MAX_LEN, watermark_blocks=2))
+    want = (await _tokens(ref, PROMPTS[1], jp))[0]
+    await ref.close()
+    cfg = tl.LlamaConfig.tiny(vocab_size=VOCAB)
+    engine = build_torch_engine(cfg, device="cpu", params=tparams, dtype=torch.float32,
+                                kv_block_size=BS, max_batch=MAX_BATCH, num_blocks=NB,
+                                max_model_len=MAX_LEN, prefill_chunk_tokens=0,
+                                tensor_parallel_size=2)
+    prefill = _torch_engine(tparams)
+    try:
+        assert engine.runner.group.world_size == 2
         engine.disagg_router = _router()
-    with pytest.raises(NotImplementedError, match="A8"):
-        TorchEngine(engine.runner, engine.config,
-                    remote_prefill_client=ColocatedPrefillClient(engine))
-    with pytest.raises(NotImplementedError, match="A8"):
-        asyncio.run(engine.prefill_only_device(_remote_req([1, 2, 3])))
-    with pytest.raises(NotImplementedError, match="A8"):
-        engine.runner.extract_blocks([1])
+        engine.remote_prefill_client = HostPrefillClient(prefill, BS)
+        engine.block_manager = TieredBlockManager(LayoutConfig(
+            num_layers=cfg.num_layers, page_size=BS, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, dtype="float32"), 32)
+        got, reason = await _tokens(engine, PROMPTS[1])
+        assert got == want and reason == "length"
+        assert engine.stats.remote_prefills == 1 and engine.stats.remote_fallbacks == 0
+        resp = await engine.prefill_only_device(_remote_req(PROMPTS[1]))
+        assert resp.error is None and resp.num_blocks == 5
+        assert tuple(resp.k_dev.shape) == (cfg.num_layers, cfg.num_kv_heads, 5, BS, cfg.head_dim)
+        k, _ = engine.runner.extract_blocks([1])
+        assert k.shape[1] == cfg.num_kv_heads
+    finally:
+        await engine.close()
+        await prefill.close()

@@ -308,6 +308,40 @@ async def test_stream_cancellation_kills_context():
         await server.close()
 
 
+async def test_a_caller_gone_before_the_first_item_kills_the_context():
+    """Over the TCP response plane: a caller that closes its stream before
+    the worker's first item (a remote prefill in flight) kills the worker's
+    context at once, not at the worker's first send. (In-process, the
+    handler runs only while the caller iterates.)"""
+    server = FabricServer("127.0.0.1", 0)
+    await server.start()
+    drts = [await port_drt(server.addr)]
+    try:
+        for drt in drts:
+            killed = asyncio.Event()
+
+            async def waiting_handler(request, context, killed=killed):
+                for _ in range(1000):
+                    if context.is_killed():
+                        killed.set()
+                        return
+                    await asyncio.sleep(0.01)
+                yield {"late": True}
+
+            ep = drt.namespace("cx").component("wait").endpoint("gen")
+            await ep.serve_endpoint(waiting_handler)
+            client = await ep.client()
+            stream = await client.random({})
+            await asyncio.sleep(0.2)
+            await stream.close()
+            await asyncio.wait_for(killed.wait(), 5.0)
+            await client.close()
+    finally:
+        for drt in drts:
+            await drt.close()
+        await server.close()
+
+
 def test_runtime_config_reads_toml_and_env_as_the_jax_package(tmp_path, monkeypatch):
     path = tmp_path / "runtime.toml"
     path.write_text('[runtime]\nnamespace = "prod"\nlease_ttl_s = 7.5\ntcp_port = 7000\nunknown = 1\n')

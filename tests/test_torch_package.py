@@ -60,7 +60,8 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
                 "entrypoint/inputs.py", "ops/collective.py", "parallel/mesh.py",
                 "parallel/sharding.py", "parallel/multihost.py", "parallel/launch.py",
                 "integrity.py", "disagg/protocols.py", "disagg/router.py",
-                "disagg/colocated.py", "tokens.py", "block_manager/__init__.py",
+                "disagg/colocated.py", "disagg/prefill_queue.py", "disagg/transfer.py",
+                "graphs/disagg.py", "tokens.py", "block_manager/__init__.py",
                 "block_manager/block.py", "block_manager/layout.py",
                 "block_manager/offload.py", "block_manager/manager.py",
                 "fabric/__init__.py", "fabric/mpack.py", "fabric/wire.py", "fabric/state.py",
@@ -1576,6 +1577,68 @@ def test_blocks_move_between_two_runners_on_one_card(kv):
     for part in ("q", "s"):
         assert torch.equal(kb[part][:, :, dst], ka[part][:, :, src])
         assert torch.equal(b.v_cache[part][:, :, dst], a.v_cache[part][:, :, src])
+
+
+@pytest.mark.cuda
+def test_a_remote_prefill_over_the_fabric_between_two_engines_on_card():
+    """``PrefillQueue`` / ``RemotePrefillClient`` / ``PrefillWorkerService``
+    over an in-process fabric between two tiny engines on the card: the
+    prefill engine's single-shot prefill launches #3 once per layer, the
+    shipped blocks land in the decode engine's cache bitwise as the payload
+    carries them, and the decode engine streams a local prefill's greedy
+    tokens with the prompt prefilled remotely."""
+    _need_card()
+    import asyncio
+
+    from dynamo_tpu_torch.disagg.router import DisaggConfig, DisaggregatedRouter
+    from dynamo_tpu_torch.disagg.transfer import PrefillWorkerService, RemotePrefillClient
+    from dynamo_tpu_torch.fabric.client import FabricClient
+    from dynamo_tpu_torch.graphs.common import build_tiny_torch_engine
+    from dynamo_tpu_torch.protocols import common as tp
+
+    prompt = [int(t) for t in np.random.default_rng(4).integers(3, 60, 70)]
+
+    async def tokens(engine):
+        req = tp.PreprocessedRequest(token_ids=prompt, sampling=tp.SamplingOptions(greedy=True),
+                                     stop=tp.StopConditions(max_tokens=8, ignore_eos=True))
+        out = []
+        async for o in engine.generate(req, tp.Context()):
+            out.extend(o.token_ids)
+        return out
+
+    async def run():
+        fabric = FabricClient.in_process()
+        prefill = build_tiny_torch_engine(device="cuda", prefill_chunk_tokens=0)
+        decode = build_tiny_torch_engine(device="cuda", prefill_chunk_tokens=0)
+        local = build_tiny_torch_engine(device="cuda", prefill_chunk_tokens=0)
+        service = PrefillWorkerService(fabric, "card", prefill)
+        client = RemotePrefillClient(fabric, "card", block_size=decode.config.block_size)
+        await service.start()
+        await client.start()
+        try:
+            L = prefill.runner.config.num_layers
+            kernels.reset_launch_counts()
+            resp = await client.prefill(prompt)
+            assert resp.error is None and resp.payload.num_blocks == 5
+            assert kernels.launch_counts()["flash_prefill_attention"] == L
+            ids = decode.allocator.alloc(5)
+            k, v = resp.payload.decode()
+            decode.runner.inject_blocks(ids, k, v)
+            for c, want in ((decode.runner.k_cache, k), (decode.runner.v_cache, v)):
+                got = c[:, :, ids].view(torch.int16).cpu().numpy().view(np.uint16)
+                assert np.array_equal(got, want)
+            decode.allocator.free(ids)
+            decode.disagg_router = DisaggregatedRouter(DisaggConfig(8, 100))
+            decode.remote_prefill_client = client
+            got = await tokens(decode)
+            assert got == await tokens(local)
+            assert decode.stats.remote_prefills == 1 and decode.stats.remote_fallbacks == 0
+            assert service.served == 2 and client.stats.bytes_rx == service.stats.bytes_tx
+        finally:
+            for o in (decode, local, client, service, prefill):
+                await o.close()
+
+    asyncio.run(run())
 
 
 @pytest.mark.cuda

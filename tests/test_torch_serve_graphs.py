@@ -80,7 +80,7 @@ def test_word_level_card_tokenizes_as_the_reference():
     assert t_common.word_level_mdc("m").eos_token_ids == [2]
 
 
-@pytest.mark.parametrize("graph", ["agg", "hello_world"])
+@pytest.mark.parametrize("graph", ["agg", "disagg", "hello_world"])
 def test_load_graph_orders_services_as_the_reference(graph):
     ours = [(s.name, s.replicas, s.deps) for s in load_graph(f"dynamo_tpu_torch.graphs.{graph}")]
     ref = [(s.name, s.replicas, s.deps) for s in j_load_graph(f"dynamo_tpu.graphs.{graph}")]
