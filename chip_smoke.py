@@ -305,7 +305,7 @@ Phases, each of which must pass or the script exits non-zero:
                 the prefill workers (longer ones stream chunks), #1 on the
                 decode worker only by graph replays, frames and bytes received
                 equal to those sent, no integrity failure or fenced frame; the
-                2000-token TTFT through the graph 3 times; the transport alone
+                2000-token TTFT through the graph twice; the transport alone
                 in turns (this process's RemotePrefillClient to the prefill
                 workers, streamed and monolithic, every payload landed on the
                 card); the host path of the 125-block payload (d2h, encode,
@@ -314,7 +314,7 @@ Phases, each of which must pass or the script exits non-zero:
                 the prefill workers: a prefill worker counts the cancelled
                 stream, the decode worker frees every block. (b) A new
                 DecodeWorker with DYN_KV_STREAM=0: the same 8 requests (#3 =
-                32 x 7), the TTFT 3 times, a 256-block prompt (512 MiB of K/V,
+                32 x 7), the TTFT twice, a 256-block prompt (512 MiB of K/V,
                 over the fabric's frame limit) answered too_large and prefilled
                 locally at once, and the prefill worker holding a 2000-token
                 prompt SIGKILLed: the queue redelivers it after 30 s
@@ -324,13 +324,51 @@ Phases, each of which must pass or the script exits non-zero:
                 are held to the dense reference (first 8 tokens, 0.25).
                 ``python3 chip_smoke.py --only serve_disagg_fabric`` runs the
                 build and this phase alone.
+  19. serve_trace_faults (last): request tracing and fault injection
+                (``telemetry/trace.py``, ``testing/faults.py``). (a) The
+                fabric server, an out=dyn frontend in kv mode and two
+                in=dyn:// workers, every process with DYN_TRACE=1: serve_http's
+                8 requests streamed at once, each with a traceparent; every
+                request's ``GET /debug/traces/{request_id}`` must give one
+                trace id over at least two process tracks, every parent inside
+                the trace, the spans http_request, route, worker_generate,
+                queue_wait and decode, and ``usage.timing`` on the final chunk;
+                the medians of TTFT split by hop (edge to the route decision,
+                to the worker, queue_wait, prefill, first frame back). (c) One
+                worker drained and started again under
+                DYN_FAULT=kill_after_tokens=40: four 128-token streams at once
+                all complete with no error frame and no token lost after it
+                kills itself, the frontend's exit stats count the migrations.
+                (b) The disagg graph (one PrefillWorker with
+                DYN_FAULT=corrupt_kv=bits,every=2, the DecodeWorker, the
+                frontend; DYN_TRACE=1 everywhere, DYN_HBM_GB=21): the
+                2000-token prompt and serve_http's 800- and 1600-token ones;
+                every corrupted payload is refused by its checksum (the
+                prefill worker's fired count equals the decode worker's
+                integrity failures), those prompts are prefilled locally, and
+                the 2000-token trace spans three process tracks (prefill_serve
+                and kv_frame_tx on the prefill worker, remote_prefill on the
+                decode worker), its split printed. The first 8 tokens of each
+                migrated stream's replay (after its cut, read from the
+                frontend's log), of the other streams and of the disagg ones
+                are held to the dense reference (0.25). In this process, on
+                build_torch_engine's defaults over the same weights:
+                slow_decode=3 on the eager serve_default configuration (the
+                same tokens, the ITL and the decode label's EMA stretched, the
+                watchdog quiet), abort_after_tokens=50 over serve's 8 requests
+                (every lane fails with injected_fault, every block free, the
+                next request whole), and (d) tracing on against off, 3 turns
+                each, on the graphed B=8 serve: tokens/s and the horizon step's
+                EMA, their ratio (no bound). ``python3 chip_smoke.py --only
+                serve_trace_faults`` runs the build and this phase alone.
 
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
 times compare with earlier runs; checkpoint (7), serve_http (10),
-serve_moe (13) and the workers of serve_fabric (16), serve_kv (17) and
-serve_disagg_fabric (18) run build_torch_engine's defaults.
+serve_moe (13) and the workers of serve_fabric (16), serve_kv (17),
+serve_disagg_fabric (18) and serve_trace_faults (19) run
+build_torch_engine's defaults.
 
 The line before the last is one JSON object with a row per kernel; the last
 line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
@@ -4016,12 +4054,12 @@ def router_calls(fport: int, bodies: list) -> list:
 
 
 def kv_reference_check(torch, runner, prompt: list, pieces: list, ids_of: dict,
-                       bound: float = 0.25, n_check: int = 0) -> float:
+                       bound: float = 0.25, n_check: int = 0, start: int = 0) -> float:
     """``reference_check`` for a stream seen through HTTP: its first
     ``n_check`` (KV_CHECK unless given) token strings name their ids through
     ``ids_of`` (string -> every id that decodes to it); where one string has
-    several ids, the one the reference rates best is taken. Returns the
-    largest logit gap."""
+    several ids, the one the reference rates best is taken. The tokens from
+    ``start`` on are held to ``bound``. Returns the largest logit gap."""
     n_check = n_check or KV_CHECK
     cands = []
     for s in pieces[:n_check]:
@@ -4039,7 +4077,7 @@ def kv_reference_check(torch, runner, prompt: list, pieces: list, ids_of: dict,
         row = logits[len(prompt) - 1 + open_[0]]
         chosen[open_[0]] = max(cands[open_[0]], key=lambda i: float(row[i]))
     worst = 0.0
-    for j in range(n_check):
+    for j in range(start, n_check):
         row = logits[len(prompt) - 1 + j]
         gap = float(row.max() - row[chosen[j]])
         worst = max(worst, gap)
@@ -4390,8 +4428,11 @@ def phase_serve_kv(torch, np, card: str) -> dict:
 GRAPH_HBM_GB = "21"
 GRAPH_PREFILL_TIMEOUT_S = "45"  # DYN_PREFILL_TIMEOUT_S: past the queue's redelivery
 GRAPH_REDELIVER_S = 30.0  # the fabric queue redelivers an unacked request after this long
-FABRIC_TTFT_RUNS = 3  # the 2000-token TTFT through the graph, per decode mode
-TRANSPORT_PAIRS = 2  # the transport alone, streamed and monolithic in turns
+# the 2000-token TTFT through the graph, per decode mode, and the transport
+# alone, streamed and monolithic in turns (cut from 3 and 2 when phase 19
+# joined the script, for its time limit)
+FABRIC_TTFT_RUNS = 2
+TRANSPORT_PAIRS = 1
 OVERSIZE_BLOCKS = 256  # 512 MiB of K/V: over the fabric's frame limit once framed
 CANCEL_FILLERS = 4  # 3000-token prompts that hold both prefill workers (two in flight each)
 GRAPH_ENV_NAME = "llama31-8b"
@@ -4955,6 +4996,544 @@ def phase_serve_disagg_fabric(torch, np, card: str, http_texts: Optional[list] =
     print(json.dumps({"serve_disagg_fabric": {k: v for k, v in out.items()}}), flush=True)
     return out
 
+
+# ------------------------------------------------------- serve_trace_faults
+#
+# Request tracing and fault injection: a traced fleet (fabric, a KV frontend,
+# two workers, every process with DYN_TRACE=1), one worker restarted under
+# DYN_FAULT=kill_after_tokens, a traced disagg graph whose prefill worker
+# corrupts its KV payloads, then in this process slow_decode,
+# abort_after_tokens and tracing on against off on the graphed engine.
+
+TF_KILL_AFTER = 40  # DYN_FAULT=kill_after_tokens on the restarted worker
+TF_MIGRATE_TOKENS = 128
+TF_MIGRATE_STREAMS = 4  # at once: the KV router spreads them over both workers
+MIGRATED = r"request (tfm-\d+): worker \w+ failed mid-stream .* replaying (\d+) emitted"
+TF_CORRUPT = "corrupt_kv=bits,every=2"
+# serve_http's 800- and 1600-token prompts (not its 1200-token one, whose
+# penalties the dense reference does not apply)
+TF_DISAGG_LONG = (4, 6)
+TF_SLOW = 3.0  # slow_decode's factor
+TF_ABORT_AFTER = 50
+TF_TURNS = 3  # tracing on / off, in turns
+TF_SPANS = ("http_request", "route", "worker_generate", "queue_wait", "decode")
+
+
+def traceparent(tag: str, i: int) -> tuple:
+    """A W3C traceparent whose trace id is the run's tag and the request's
+    index (and the id): each run's requests get traces of their own."""
+    import zlib
+
+    tid = f"{zlib.crc32(tag.encode()):08x}{i + 1:024x}"
+    return f"00-{tid}-{i + 1:016x}-01", tid
+
+
+def trace_slices(port: int, rid: str) -> tuple:
+    """``GET /debug/traces/{rid}``: (document, {name: [span slices in start
+    order]}, {span id: slice})."""
+    st, data = http_call(port, "GET", f"/debug/traces/{rid}")
+    if st != 200:
+        raise SmokeError(f"/debug/traces/{rid} answered {st}: {data[:300]!r}")
+    doc = json.loads(data)
+    xs = sorted((e for e in doc["traceEvents"] if e["ph"] == "X"), key=lambda e: e["ts"])
+    by_name: dict = {}
+    for e in xs:
+        by_name.setdefault(e["name"], []).append(e)
+    return doc, by_name, {e["args"]["span_id"]: e for e in xs}
+
+
+def check_trace(tag: str, doc: dict, by_name: dict, by_id: dict, tid: str, parent: str,
+                names, min_tracks: int) -> int:
+    """One trace id, every parent inside the trace (the root's is the
+    inbound traceparent's span), the span names asked for, and at least
+    ``min_tracks`` process tracks; returns the number of tracks."""
+    if doc["otherData"]["trace_id"] != tid or doc["otherData"].get("partial"):
+        raise SmokeError(f"{tag}: trace {doc['otherData']}")
+    for sid, e in by_id.items():
+        want = parent if e["name"] == "http_request" else None
+        if (want is not None and e["args"]["parent_id"] != want) or (
+                want is None and e["args"]["parent_id"] not in by_id):
+            raise SmokeError(f"{tag}: span {e['name']} {sid} has its parent "
+                             f"{e['args']['parent_id']} outside the trace")
+    missing = [n for n in names if n not in by_name]
+    tracks = {e["args"]["name"] for e in doc["traceEvents"] if e["ph"] == "M"}
+    if missing or len(tracks) < min_tracks:
+        raise SmokeError(f"{tag}: spans {sorted(by_name)} lack {missing}, or tracks {tracks}")
+    return len(tracks)
+
+
+def ttft_hops(by_name: dict, first_wall_s: float, prefill: str = "prefill") -> dict:
+    """A request's TTFT split by hop from its spans (ms): edge to the route
+    decision's end, to the worker's span, its queue wait, its prefill (the
+    admission to the first token), and the first frame back to the client."""
+    def end(e):
+        return e["ts"] + e["dur"]
+
+    root, pf = by_name["http_request"][0], by_name[prefill][0]
+    wg, qw = by_name["worker_generate"][0], by_name["queue_wait"][0]
+    # without a kv router (no route span) the edge hands straight on
+    routed = end(by_name["route"][0]) if "route" in by_name else root["ts"]
+    return {"edge_to_route": (routed - root["ts"]) / 1e3,
+            "route_to_worker": (wg["ts"] - routed) / 1e3,
+            "queue_wait": qw["dur"] / 1e3, "prefill": pf["dur"] / 1e3,
+            "first_frame_back": (first_wall_s * 1e6 - end(pf)) / 1e3,
+            "ttft": (first_wall_s * 1e6 - root["ts"]) / 1e3}
+
+
+def start_procs(cmds: dict, env: dict, root: str, prefix: str, procs: dict, logs: dict,
+                files: list) -> None:
+    for name, cmd in cmds.items():
+        path = os.path.join(SERVE_DIR, f"{prefix}_{name}.log")
+        f = open(path, "w")
+        files.append(f)
+        logs[name] = LogTail(path)
+        procs[name] = subprocess.Popen(cmd, cwd=root, env=env.get(name, env["*"]), stdout=f,
+                                       stderr=subprocess.STDOUT)
+        if name == "fabric":
+            time.sleep(1.0)
+
+
+def wait_fleet(procs: dict, logs: dict, workers: list, hport: int, fport: int) -> float:
+    t0 = time.perf_counter()
+    for w in workers:
+        logs[w].wait_json("worker", 1, procs[w], SERVER_START_S)
+    while True:
+        for name, p in procs.items():
+            if p.poll() is not None and name in workers + ["fabric", "frontend"]:
+                raise SmokeError(f"{name} exited with {p.returncode} (see {logs[name].path})")
+        try:
+            st, data = http_call(hport, "GET", "/v1/models", timeout=5)
+            if st == 200 and json.loads(data)["data"] and len(fabric_instances(fport)) == len(workers):
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > SERVER_START_S:
+            raise SmokeError("the traced fleet did not come up")
+        time.sleep(0.25)
+
+
+def stop_procs(procs: dict, order) -> None:
+    import signal
+
+    for name in order:
+        p = procs.get(name)
+        if p is not None and p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+            try:
+                p.wait(60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(30)
+
+
+def traced_streams(hport: int, bodies: list, tag: str) -> list:
+    """``bodies`` streamed at once, each with its traceparent and request
+    id; (result, request id, trace id, parent span id, first token wall s)
+    per body."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    offset = time.time() - time.perf_counter()
+
+    def one(i_body):
+        i, body = i_body
+        tp, tid = traceparent(tag, i)
+        rid = f"{tag}-{i}"
+        r = stream_tokens(hport, dict(body, stream_options={"include_usage": True}), {},
+                          headers={"traceparent": tp, "x-request-id": rid})
+        if not r["times"] or not (r["usage"] or {}).get("timing"):
+            raise SmokeError(f"{tag} {i}: no tokens or no usage.timing: {r['usage']}")
+        return r, rid, tid, tp.split("-")[2], r["times"][0] + offset
+
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        return list(pool.map(one, enumerate(bodies)))
+
+
+def median_hops(rows: list) -> dict:
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+
+def phase_serve_trace_faults(torch, np, card: str) -> dict:
+    """Tracing and fault injection across processes and in this one (see
+    the module docstring, phase 19)."""
+    import re
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine.torch_engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.telemetry import trace as dtrace
+    from dynamo_tpu_torch.testing import faults
+    from dynamo_tpu_torch.tokenizer import TokenizerWrapper
+
+    t_phase = time.perf_counter()
+    model_dir = write_serve_dir()
+    mdc = ModelDeploymentCard.from_model_dir(model_dir, GRAPH_ENV_NAME, context_length=MAX_MODEL_LEN)
+    pre = OpenAIPreprocessor(mdc)
+    tok = pre.tokenizer
+
+    def ids_of_body(body) -> list:
+        return list(pre.preprocess_chat(ChatCompletionRequest.from_dict(body))[0].token_ids)
+
+    _, bodies, _ = http_bodies(pre, tok)
+    mig_bodies = [chat_body(prompt_words(tok, 300, seed=60 + i), TF_MIGRATE_TOKENS, logprobs=True,
+                            nvext={"ignore_eos": True}) for i in range(TF_MIGRATE_STREAMS)]
+    long_body, long_ids = body_of_len(pre, tok, 1990, 2000, 31, 8, logprobs=True)
+    disagg_bodies = [long_body] + [dict(bodies[i], max_tokens=8) for i in TF_DISAGG_LONG]
+    root = os.path.dirname(os.path.abspath(__file__))
+    py = sys.executable
+    base_env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                    DYN_TRACE="1", DYN_LEASE_TTL_S=str(FABRIC_TTL_S))
+    for k in ("DYN_FAULT", "DYN_KV_STREAM", "DYN_TRACE_DIR"):
+        base_env.pop(k, None)
+    out: dict = {"card": card}
+    checks: list = []  # (tag, prompt ids, token strings, tokens checked) for the dense reference
+
+    # (a) the traced fleet, then (c) a worker restarted under kill_after_tokens
+    fport, hport = free_port(), free_port()
+    env = dict(base_env, DYN_FABRIC_ADDR=f"127.0.0.1:{fport}")
+
+    def worker_cmd() -> list:
+        return [py, "-m", "dynamo_tpu_torch.run", "in=dyn://dynamo.backend.generate", "out=torch",
+                "--model-path", model_dir, "--model-name", GRAPH_ENV_NAME,
+                "--context-length", str(MAX_MODEL_LEN), "--num-blocks", str(FABRIC_BLOCKS)]
+
+    cmds = {
+        "fabric": [py, "-m", "dynamo_tpu_torch.fabric.server", "--host", "127.0.0.1", "--port", str(fport)],
+        "worker0": worker_cmd(), "worker1": worker_cmd(),
+        "frontend": [py, "-m", "dynamo_tpu_torch.run", "in=http", "out=dyn", "--router-mode", "kv",
+                     "--http-host", "127.0.0.1", "--http-port", str(hport)],
+    }
+    procs, logs, files = {}, {}, []
+    try:
+        start_procs(cmds, {"*": env}, root, "tf", procs, logs, files)
+        out["fleet_start_s"] = wait_fleet(procs, logs, ["worker0", "worker1"], hport, fport)
+        log(f"serve_trace_faults: fabric, a kv frontend and 2 workers, DYN_TRACE=1 in each, up in "
+            f"{out['fleet_start_s']:.1f} s")
+        # a first pass of the same traffic captures the workers' graphs and
+        # compiles their shapes; the second is the one read
+        stream_chat(hport, chat_body("hello there", 4))
+        traced_streams(hport, bodies, "tf-warm")
+        got = traced_streams(hport, bodies, "tf")
+        hops, tracks = [], []
+        for i, (r, rid, tid, parent, first) in enumerate(got):
+            doc, by_name, by_id = trace_slices(hport, rid)
+            tracks.append(check_trace(f"traced fleet {i}", doc, by_name, by_id, tid, parent,
+                                      TF_SPANS, 2))
+            hops.append(ttft_hops(by_name, first))
+        out["fleet"] = {"traces": len(got), "tracks": tracks, "hops_ms": hops,
+                        "hops_median_ms": median_hops(hops)}
+        for i, h in enumerate(hops):
+            log(f"serve_trace_faults/fleet: request {i} ({PROMPT_LENS[i]} tokens): "
+                + ", ".join(f"{k} {v:.2f}" for k, v in h.items()) + " ms")
+        m = out["fleet"]["hops_median_ms"]
+        log(f"serve_trace_faults/fleet: {len(got)} of {len(bodies)} traces assembled by "
+            f"/debug/traces, each one trace id over {min(tracks)}-{max(tracks)} process tracks, every "
+            f"parent inside it, spans {', '.join(TF_SPANS)} present, usage.timing on every final chunk")
+        log(f"serve_trace_faults/fleet: TTFT by hop, medians of 8 (ms): edge -> route "
+            f"{m['edge_to_route']:.2f}, route -> worker {m['route_to_worker']:.2f}, queue_wait "
+            f"{m['queue_wait']:.2f}, prefill {m['prefill']:.2f}, first frame back "
+            f"{m['first_frame_back']:.2f}; TTFT {m['ttft']:.2f} ({card})")
+
+        # (c) worker1 drained, then started again under kill_after_tokens
+        procs["worker1"].send_signal(signal.SIGTERM)
+        if procs["worker1"].wait(120) != 0:
+            raise SmokeError("the traced worker1 did not drain to exit 0")
+        killer = dict(env, DYN_FAULT=f"kill_after_tokens={TF_KILL_AFTER}")
+        start_procs({"worker1f": worker_cmd()}, {"*": killer}, root, "tf", procs, logs, files)
+        out["fault_worker_start_s"] = wait_fleet(procs, logs, ["worker0", "worker1f"], hport, fport)
+        with ThreadPoolExecutor(len(mig_bodies)) as pool:
+            mig = list(pool.map(lambda ib: stream_tokens(hport, ib[1], {}, headers={
+                "x-request-id": f"tfm-{ib[0]}"}), enumerate(mig_bodies)))
+        rc = procs["worker1f"].wait(60)
+        if rc != -signal.SIGKILL:
+            raise SmokeError(f"the faulted worker exited with {rc}, not by its SIGKILL")
+        stop_procs(procs, ("frontend",))
+        # where each migrated stream was cut: its tokens from there on came
+        # from the replay on the survivor
+        with open(logs["frontend"].path) as f:
+            cuts = {rid: int(n) for rid, n in re.findall(MIGRATED, f.read())}
+        for i, r in enumerate(mig):
+            if len(r["tokens"]) != TF_MIGRATE_TOKENS or r["finish"] != ["length"] or (
+                    r["usage"]["completion_tokens"] != TF_MIGRATE_TOKENS):
+                raise SmokeError(f"migrating stream {i}: {len(r['tokens'])} tokens, {r['finish']}, "
+                                 f"{r['usage']}")
+            # a migrated stream: the first tokens of its replay; else its first
+            cut = cuts.get(f"tfm-{i}", 0)
+            checks.append((f"migrate/{i}", ids_of_body(mig_bodies[i]), r["tokens"],
+                           (cut, cut + KV_CHECK)))
+        front = logs["frontend"].json_lines("exit_stats")
+        n_mig = sum(front[-1]["migrations"].values()) if front else 0
+        if n_mig < 1:
+            raise SmokeError(f"the frontend counted no migration: {front}")
+        if not cuts:
+            raise SmokeError("the frontend logged no migrated stream")
+        out["kill"] = {"kill_after_tokens": TF_KILL_AFTER, "streams": len(mig), "migrations": n_mig,
+                       "cuts": cuts, "worker_exit": rc, "restart_s": out["fault_worker_start_s"]}
+        log(f"serve_trace_faults/kill: worker1 restarted under DYN_FAULT=kill_after_tokens="
+            f"{TF_KILL_AFTER} (up in {out['fault_worker_start_s']:.1f} s) SIGKILLed itself; "
+            f"{len(mig)} streams of {TF_MIGRATE_TOKENS} tokens at once all complete, no error frame, "
+            f"no token lost; the frontend counted {n_mig} migration(s) (streams cut after {cuts} "
+            f"tokens)")
+    finally:
+        stop_procs(procs, ("frontend", "worker0", "worker1", "worker1f", "fabric"))
+        for f in files:
+            f.close()
+
+    # (b) the traced disagg graph, its prefill worker corrupting payloads
+    fport, hport = free_port(), free_port()
+    # the graph's services take their lease before they build their engines
+    # (a build blocks the loop): the default TTL, as serve_disagg_fabric
+    genv = dict(base_env, DYN_FABRIC_ADDR=f"127.0.0.1:{fport}", DYN_GRAPH_ENGINE="torch",
+                DYN_MODEL_PATH=model_dir, DYN_MODEL_NAME=GRAPH_ENV_NAME, DYN_HBM_GB=GRAPH_HBM_GB,
+                DYN_MAX_LOCAL_PREFILL=str(DISAGG_LOCAL_MAX),
+                DYN_PREFILL_TIMEOUT_S=GRAPH_PREFILL_TIMEOUT_S,
+                DYN_HTTP_HOST="127.0.0.1", DYN_HTTP_PORT=str(hport))
+    genv.pop("DYN_LEASE_TTL_S")
+    fab_log = open(os.path.join(SERVE_DIR, "tf_disagg_fabric.log"), "w")
+    fabric = subprocess.Popen([py, "-m", "dynamo_tpu_torch.fabric.server", "--host", "127.0.0.1",
+                               "--port", str(fport)], cwd=root, env=genv, stdout=fab_log,
+                              stderr=subprocess.STDOUT)
+    time.sleep(1.0)
+    graphs: list = []
+    try:
+        pre_graph = GraphProc(root, dict(genv, DYN_FAULT=TF_CORRUPT), ["PrefillWorker", "Frontend"],
+                              os.path.join(SERVE_DIR, "tf_disagg_prefill.log"))
+        graphs.append(pre_graph)
+        decode = GraphProc(root, genv, ["DecodeWorker"], os.path.join(SERVE_DIR, "tf_disagg_decode.log"))
+        graphs.append(decode)
+        t0 = time.perf_counter()
+        while True:
+            for g in graphs:
+                g.check()
+            try:
+                up = (pre_graph.lines("prefill_worker") and decode.tail.json_lines("worker")
+                      and json.loads(http_call(hport, "GET", "/v1/models", timeout=5)[1])["data"])
+            except (OSError, ValueError):
+                up = False
+            if up:
+                break
+            if time.perf_counter() - t0 > SERVER_START_S:
+                raise SmokeError("the traced disagg graph did not come up")
+            time.sleep(0.25)
+        out["disagg_start_s"] = time.perf_counter() - t0
+        dp, pp = decode.pid("DecodeWorker-0"), pre_graph.pid("PrefillWorker-0")
+        got = traced_streams(hport, disagg_bodies, "tfd")
+        stats = {**pre_graph.stats([pp]), **decode.stats([dp])}
+        d, p = stats[dp], stats[pp]
+        corrupted = p["faults_fired"].get("corrupt_kv", 0)
+        failed = d["integrity"]["integrity_failures_by_path"]
+        refused = failed.get("disagg_frame", 0) + failed.get("disagg_final", 0)
+        if corrupted < 1 or refused != corrupted:
+            raise SmokeError(f"corrupt_kv: the prefill worker corrupted {corrupted} payloads, the decode "
+                             f"worker refused {refused}: {d['integrity']}")
+        # every frame sent was received; the refused ones never reached a block
+        received = d["transfer"]["frames_rx"]
+        if (received != p["transfer"]["frames_tx"] or d["kv_frames_rx"] != received - failed.get(
+                "disagg_frame", 0) or d["remote_prefills"] != len(disagg_bodies)):
+            raise SmokeError(f"corrupt_kv: frames received {received}, landed {d['kv_frames_rx']}, sent "
+                             f"{p['transfer']['frames_tx']}; remote prefills {d['remote_prefills']}")
+        if d["remote_fallbacks"] < 1:
+            raise SmokeError("corrupt_kv: no shipped prompt was prefilled locally after a refusal")
+        doc, by_name, by_id = trace_slices(hport, got[0][1])
+        tracks = check_trace("disagg 2000", doc, by_name, by_id, got[0][2], got[0][3],
+                             ("http_request", "remote_prefill", "prefill_serve", "kv_frame_tx"), 3)
+        hops = ttft_hops(by_name, got[0][4], prefill="remote_prefill")
+        ps = by_name["prefill_serve"][0]
+        rp = by_name["remote_prefill"][0]
+        hops.update(prefill_serve=ps["dur"] / 1e3,
+                    remote_to_serve=(ps["ts"] - rp["ts"]) / 1e3,
+                    serve_end_to_first=(rp["ts"] + rp["dur"] - ps["ts"] - ps["dur"]) / 1e3,
+                    frames=len(by_name["kv_frame_tx"]),
+                    kv_frame_tx=sum(e["dur"] for e in by_name["kv_frame_tx"]) / 1e3,
+                    kv_land=sum(e["dur"] for e in by_name.get("kv_land", [])) / 1e3,
+                    kv_lands=len(by_name.get("kv_land", [])))
+        for i, (r, *_rest) in enumerate(got):
+            checks.append((f"disagg/{i}", long_ids if i == 0 else ids_of_body(disagg_bodies[i]),
+                           r["tokens"], (0, min(KV_CHECK, len(r["tokens"])))))
+        out["disagg"] = {"corrupted": corrupted, "refused": refused,
+                         "fallbacks": d["remote_fallbacks"], "frames_received": received,
+                         "frames_landed": d["kv_frames_rx"],
+                         "tracks": tracks, "hops_2000_ms": hops, "start_s": out["disagg_start_s"]}
+        log(f"serve_trace_faults/disagg: DYN_FAULT={TF_CORRUPT} on the PrefillWorker: {corrupted} "
+            f"payloads corrupted after their checksums, {refused} refused by the decode worker "
+            f"(frames {d['integrity']['integrity_failures_by_path'].get('disagg_frame', 0)}, finals "
+            f"{d['integrity']['integrity_failures_by_path'].get('disagg_final', 0)}), "
+            f"{d['remote_fallbacks']} of {len(disagg_bodies)} prompts prefilled locally; {received} "
+            f"frames received (= sent), {d['kv_frames_rx']} landed: the clean ones")
+        log(f"serve_trace_faults/disagg: the 2000-token trace over {tracks} process tracks: route -> "
+            f"worker {hops['route_to_worker']:.2f} ms, queue_wait {hops['queue_wait']:.2f}, remote_prefill "
+            f"{hops['prefill']:.2f} (its start -> prefill_serve {hops['remote_to_serve']:.2f}, prefill_serve "
+            f"{hops['prefill_serve']:.2f}, {hops['frames']} kv_frame_tx {hops['kv_frame_tx']:.2f}, "
+            f"{hops['kv_lands']} kv_land {hops['kv_land']:.2f}; prefill_serve's end -> the first "
+            f"token {hops['serve_end_to_first']:.2f}), first frame back "
+            f"{hops['first_frame_back']:.2f}; TTFT {hops['ttft']:.2f} ms ({card})")
+    finally:
+        for g in reversed(graphs):
+            if g.proc.poll() is None:
+                g.stop()
+        fabric.send_signal(signal.SIGTERM)
+        try:
+            fabric.wait(30)
+        except subprocess.TimeoutExpired:
+            fabric.kill()
+            fabric.wait(30)
+        fab_log.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # in this process: the workers' weights (seed 0) on build_torch_engine's
+    # defaults (graphed, H = 4)
+    engine = build_torch_engine(model_dir, device="cuda", max_model_len=MAX_MODEL_LEN, max_batch=8,
+                                num_blocks=2112)
+    runner, cfg0 = engine.runner, engine.config
+    asyncio.run(engine.close())
+    rtok = TokenizerWrapper.from_file(os.path.join(model_dir, "tokenizer.json"))
+    ids_of: dict = {}
+    for i in range(LLAMA31_8B["vocab_size"]):
+        ids_of.setdefault(rtok.decode([i], skip_special_tokens=False), []).append(i)
+    gaps = {}
+    for tag, prompt, pieces, (lo, hi) in checks:
+        try:
+            gaps[tag] = kv_reference_check(torch, runner, prompt, pieces, ids_of, n_check=hi, start=lo)
+        except SmokeError as e:
+            raise SmokeError(f"{tag}, tokens {lo}-{hi}: {e}") from None
+    out["reference_max_logit_gap"] = gaps
+    log(f"serve_trace_faults: the dense reference on {len(gaps)} streams (a migrated stream's first "
+        f"{KV_CHECK} tokens after its cut, the others' and the corrupted disagg ones' first "
+        f"{KV_CHECK}): largest logit gap {max(gaps.values()):.4f} (bound 0.25)")
+
+    reqs = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
+    eager = dataclasses.replace(cfg0, decode_horizon=1)
+
+    async def lone(cfg, graphed: bool):
+        """serve's first request alone: tokens, inter-token gaps, the decode
+        label's EMA and the watchdog's trips."""
+        prev, runner.cuda_graphs = runner.cuda_graphs, graphed
+        eng = TorchEngine(runner, cfg)
+        gaps_s: list = []
+        try:
+            (toks, _, _), = await run_requests(eng, reqs[:1], Context, gaps_s)
+            return toks, gaps_s, dict(eng._dispatch_ema), eng.stats.watchdog_trips
+        finally:
+            await eng.close()
+            runner.cuda_graphs = prev
+
+    # (c) slow_decode on the serve_default configuration (eager, H = 1)
+    base_toks, base_gaps, base_ema, _ = asyncio.run(lone(eager, False))
+    base_toks, base_gaps, base_ema, _ = asyncio.run(lone(eager, False))
+    inj = faults.FaultInjector(faults.FaultSpec(slow_decode_factor=TF_SLOW))
+    faults.set_injector(inj)
+    try:
+        slow_toks, slow_gaps, slow_ema, trips = asyncio.run(lone(eager, False))
+    finally:
+        faults.set_injector(None)
+    itl = (statistics.median(base_gaps) * 1e3, statistics.median(slow_gaps) * 1e3)
+    ema = (base_ema["decode"] * 1e3, slow_ema["decode"] * 1e3)
+    if slow_toks != base_toks or trips or itl[1] < 2.0 * itl[0] or ema[1] < 2.0 * ema[0]:
+        raise SmokeError(f"slow_decode={TF_SLOW}: tokens equal {slow_toks == base_toks}, watchdog trips "
+                         f"{trips}, ITL {itl}, decode EMA {ema} ms")
+    out["slow_decode"] = {"factor": TF_SLOW, "itl_median_ms": itl, "decode_ema_ms": ema,
+                          "fired": inj.fired.get("slow_decode", 0), "watchdog_trips": trips}
+    log(f"serve_trace_faults/slow_decode={TF_SLOW:g} (serve_default's eager engine): the same "
+        f"{len(slow_toks)} tokens; ITL median {itl[0]:.2f} -> {itl[1]:.2f} ms, the decode label's EMA "
+        f"{ema[0]:.2f} -> {ema[1]:.2f} ms; the watchdog quiet (trips {trips}) ({card})")
+
+    # (c) abort_after_tokens: every lane fails, every block comes back
+    async def abort():
+        eng = TorchEngine(runner, eager)
+        finals: list = []
+
+        async def one(req):
+            async for o in eng.generate(req, Context()):
+                if o.finish_reason is not None:
+                    finals.append((o.error or {}).get("code"))
+
+        prev, runner.cuda_graphs = runner.cuda_graphs, False
+        try:
+            faults.set_injector(faults.FaultInjector(faults.FaultSpec(abort_after_tokens=TF_ABORT_AFTER)))
+            try:
+                await asyncio.gather(*(one(r) for r in reqs))
+            finally:
+                faults.set_injector(None)
+            free = eng.allocator.free_count
+            (toks, reason, _), = await run_requests(eng, reqs[:1], Context)
+            return finals, free, toks, reason, eng.config.num_blocks
+        finally:
+            await eng.close()
+            runner.cuda_graphs = prev
+
+    finals, free, after_toks, after_reason, nb = asyncio.run(abort())
+    if finals.count("injected_fault") != len(reqs) or free != nb - 1 or (
+            after_reason is not FinishReason.LENGTH or after_toks != base_toks):
+        raise SmokeError(f"abort_after_tokens: finals {finals}, free blocks {free} of {nb - 1}, "
+                         f"the next request {after_reason} with {len(after_toks)} tokens")
+    out["abort"] = {"after_tokens": TF_ABORT_AFTER, "lanes_failed": len(finals), "free_blocks": free}
+    log(f"serve_trace_faults/abort_after_tokens={TF_ABORT_AFTER}: all {len(finals)} lanes failed with "
+        f"injected_fault, every block free ({free}), the next request served whole")
+
+    # (d) tracing on against off, in turns, on the graphed B=8 engine-direct serve
+    async def serve_once(traced: bool):
+        eng = TorchEngine(runner, cfg0)
+        try:
+            async def one(req):
+                ctx = Context()
+                with dtrace.root_span("request", ctx, proc="engine"):
+                    toks = []
+                    async for o in eng.generate(req, ctx):
+                        toks.extend(o.token_ids)
+                return toks
+
+            dtrace.set_enabled(traced)
+            t0 = time.perf_counter()
+            outs = await asyncio.gather(*(one(r) for r in reqs))
+            wall = time.perf_counter() - t0
+            ema = eng._dispatch_ema
+            return outs, wall, ema.get(f"decode_multi@H{cfg0.decode_horizon}") or ema["decode"]
+        finally:
+            dtrace.set_enabled(False)
+            await eng.close()
+
+    asyncio.run(serve_once(False))  # captures
+    dtrace.reset(proc="engine")
+    turns: dict = {"off": [], "on": []}
+    outs_seen = {}
+    for k in range(TF_TURNS):
+        for mode in (("off", "on") if k % 2 == 0 else ("on", "off")):
+            outs, wall, step = asyncio.run(serve_once(mode == "on"))
+            outs_seen.setdefault(mode, outs)
+            turns[mode].append({"tok_s": sum(map(len, outs)) / wall, "step_ms": step * 1e3})
+    if outs_seen["on"] != outs_seen["off"]:
+        raise SmokeError("tracing on changed the tokens")
+    short = [i for i, (t, r) in enumerate(zip(outs_seen["on"], reqs))
+             if i != PENALIZED and len(t) != r.stop.max_tokens]
+    if short:
+        raise SmokeError(f"tracing on / off: requests {short} ended short")
+    spans = dtrace.tracer().ring_len()
+    if not spans:
+        raise SmokeError("tracing on recorded no span")
+    med = {m: {k: statistics.median(t[k] for t in v) for k in ("tok_s", "step_ms")}
+           for m, v in turns.items()}
+    out["tracing_on_off"] = {"turns": turns, "median": med, "spans_recorded": spans,
+                             "tok_s_ratio": med["on"]["tok_s"] / med["off"]["tok_s"],
+                             "step_ratio": med["on"]["step_ms"] / med["off"]["step_ms"]}
+    log(f"serve_trace_faults/tracing: serve's 8 requests on the graphed H {cfg0.decode_horizon} engine, "
+        f"{TF_TURNS} turns each: off {med['off']['tok_s']:.1f} tokens/s (step EMA "
+        f"{med['off']['step_ms']:.2f} ms), on {med['on']['tok_s']:.1f} ({med['on']['step_ms']:.2f} ms); "
+        f"on / off tokens/s {out['tracing_on_off']['tok_s_ratio']:.4f}, step "
+        f"{out['tracing_on_off']['step_ratio']:.4f}; {spans} spans recorded; tokens identical ({card})")
+    del runner, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve_trace_faults: phase {out['phase_s']:.1f} s")
+    print(json.dumps({"serve_trace_faults": out}), flush=True)
+    return out
 
 # ------------------------------------------------------------------ main
 
@@ -6735,7 +7314,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # ``--only serve_offload`` / ``serve_fabric`` / ``serve_kv`` / ``serve_tp``
-    # / ``serve_disagg_fabric``: the device, the build and that phase alone (a quicker call while the phase is worked on; no
+    # / ``serve_disagg_fabric`` / ``serve_trace_faults``: the device, the build
+    # and that phase alone (a quicker call while the phase is worked on; no
     # kernels line)
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
     try:
@@ -6755,7 +7335,8 @@ def main() -> int:
             for line in row["ptxas"].splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
-        if only in ("serve_offload", "serve_fabric", "serve_kv", "serve_tp", "serve_disagg_fabric"):
+        if only in ("serve_offload", "serve_fabric", "serve_kv", "serve_tp", "serve_disagg_fabric",
+                    "serve_trace_faults"):
             if only == "serve_offload":
                 phase_serve_offload(torch, np, card, *offload_params(torch))
             elif only == "serve_fabric":
@@ -6764,6 +7345,8 @@ def main() -> int:
                 phase_serve_tp(torch, np, card)
             elif only == "serve_disagg_fabric":
                 phase_serve_disagg_fabric(torch, np, card)
+            elif only == "serve_trace_faults":
+                phase_serve_trace_faults(torch, np, card)
             else:
                 phase_serve_kv(torch, np, card)
             print(card, flush=True)
@@ -6771,8 +7354,8 @@ def main() -> int:
                                                      "count": count}}), flush=True)
             return 0
         if only is not None:
-            raise SmokeError(f"--only takes serve_offload, serve_fabric, serve_kv, serve_tp or "
-                             f"serve_disagg_fabric, not {only}")
+            raise SmokeError(f"--only takes serve_offload, serve_fabric, serve_kv, serve_tp, "
+                             f"serve_disagg_fabric or serve_trace_faults, not {only}")
 
         # 3. parity
         errs = phase_parity(torch)
@@ -6891,6 +7474,13 @@ def main() -> int:
         log(f"flash_prefill_attention launches: serve_disagg_fabric's prefill workers "
             f"{fab['launches']['flash_prefill_attention']}")
         launches["flash_prefill_attention"] += fab["launches"]["flash_prefill_attention"]
+        # 19. serve_trace_faults: a traced fleet, a worker killed by
+        # DYN_FAULT, a traced disagg graph under corrupt_kv, then in this
+        # process slow_decode, abort_after_tokens and tracing on / off
+        del fab
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_trace_faults(torch, np, card)
     except Exception as e:  # noqa: BLE001 - report and fail the run
         import traceback
 

@@ -12,6 +12,7 @@ disambiguated), recognizes hidden eos tokens, and enforces max_tokens.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 from dataclasses import dataclass
 from typing import AsyncIterator, Callable, Optional
@@ -23,6 +24,7 @@ from dynamo_tpu_torch.protocols.common import (
     PreprocessedRequest,
     StopConditions,
 )
+from dynamo_tpu_torch.telemetry import trace as dtrace
 from dynamo_tpu_torch.tokenizer import TokenizerWrapper
 
 # engine_fn(PreprocessedRequest, Context) -> AsyncIterator[LLMEngineOutput]
@@ -197,9 +199,24 @@ async def detokenize(
     try:
         async for out in agen:
             step = decoder.step(out)
+            if (step.finish_reason is FinishReason.LENGTH and out.finish_reason is None
+                    and dtrace.enabled()):
+                # max_tokens counted here, one frame before the engine's own
+                # LENGTH final: with tracing on, drain briefly toward that
+                # final so the worker's spans (they ride it) are consumed
+                # (backend.py:203-215). Bounded; no change with DYN_TRACE=0.
+                await _drain_for_final(agen)
             yield step
             if step.finish_reason is not None:
                 return
     finally:
         with contextlib.suppress(Exception):
             await agen.aclose()
+
+
+async def _drain_for_final(agen, frames: int = 4, timeout_s: float = 0.25) -> None:
+    with contextlib.suppress(StopAsyncIteration, asyncio.TimeoutError, Exception):
+        for _ in range(frames):
+            out = await asyncio.wait_for(agen.__anext__(), timeout_s)
+            if out.finish_reason is not None:
+                return

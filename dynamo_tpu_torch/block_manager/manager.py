@@ -16,6 +16,11 @@ between the card and the arena through ``store_blocks_device`` and
 (the runner's ``extract_pages`` / ``inject_pages``), one copy each way per
 run of consecutive arena slots, and an explicit sync of the device's stream
 before a checksum reads a slot or the lock lets a slot go.
+
+The ``corrupt_kv`` fault point (``testing/faults.py``) flips a bit of each
+newly stored block's K plane in the host arena, after its checksums were
+taken (every store: numpy, int8 verbatim and the card's), and tears each
+newly written G3 page, so load-time verification must catch it.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from dynamo_tpu_torch import integrity
 from dynamo_tpu_torch.block_manager.layout import LayoutConfig
 from dynamo_tpu_torch.disagg.protocols import kv_dequantize_int8, kv_quantize_int8
+from dynamo_tpu_torch.testing import faults
 
 logger = logging.getLogger("dynamo_tpu_torch.block_manager")
 
@@ -294,6 +300,7 @@ class TieredBlockManager:
         is written by ``fill([(index, slot), ...])``, then checksummed and
         registered, so no batch evicts a block that is not written yet."""
         checks = integrity.enabled()
+        inj = faults.get_injector() if faults.active() else None
         stored: list[int] = []
         with self._lock:
             i = 0
@@ -325,6 +332,10 @@ class TieredBlockManager:
                         k_sum, v_sum = self._slot_sums(slot) if checks else (0, 0)
                         self._host[h] = BlockHandle(h, tier=2, index=slot, k_sum=k_sum,
                                                     v_sum=v_sum)
+                        if inj is not None:
+                            # corrupt_kv fault point (a host-RAM bit flip):
+                            # after the checksums, so a load must catch it
+                            inj.corrupt_array(self._k_arena[slot])
                         stored.append(h)
                 if full:
                     break
@@ -389,6 +400,11 @@ class TieredBlockManager:
                 # at promote time even after a restart lost the handles
                 f.write(_PAGE_HDR.pack(_PAGE_MAGIC, handle.k_sum, handle.v_sum))
             self._write_page(f, handle.index)
+        if faults.active():
+            inj = faults.get_injector()
+            if inj is not None:
+                # corrupt_kv fault point: tear the just-written G3 page
+                inj.corrupt_file(path)
         self._disk[seq_hash] = path
         self.stats.spilled_g3 += 1
         self.stats.disk_blocks_used = len(self._disk)

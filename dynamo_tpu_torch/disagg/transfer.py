@@ -28,10 +28,14 @@ would is not sent: the decode worker then prefills locally at once, where
 the oversized frame would break the worker's fabric connection and leave
 the request to be redelivered again and again.
 
-Not ported here (ROADMAP.md A7): the fault-injection points (the
-``corrupt_kv`` corruption of published payloads) and the trace spans. A
-response's ``trace`` field still travels on the wire; this client does not
-read it.
+Tracing (``telemetry/trace.py``): the worker serves each request under a
+``prefill_serve`` span parented from the request's ``extra["trace"]`` (the
+decode engine's ``remote_prefill`` span), each published frame under a
+``kv_frame_tx`` wire span, and ships its spans on the final response's
+``trace``, which the client ingests. The ``corrupt_kv`` fault point
+(``testing/faults.py``) corrupts each frame's payload and the final
+response's after they were checksummed, so the decode side's verification
+must refuse them.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ from dynamo_tpu_torch.fabric import mpack, wire
 from dynamo_tpu_torch.fabric.client import FabricClient
 from dynamo_tpu_torch.runtime import clock as dclock
 from dynamo_tpu_torch.runtime.backoff import Backoff
+from dynamo_tpu_torch.telemetry import trace as dtrace
+from dynamo_tpu_torch.testing import faults
 
 logger = logging.getLogger("dynamo_tpu_torch.disagg.transfer")
 
@@ -95,6 +101,20 @@ class TransferStats:
 
 def _fits(data: bytes) -> bool:
     return len(data) <= wire.MAX_FRAME - _FRAME_SLACK
+
+
+def _corrupted(wire_d: dict) -> dict:
+    """The ``corrupt_kv`` fault point: a frame's or final response's
+    payload K bytes flipped or truncated after checksumming (the decode
+    side's verify must catch it); the dict unchanged when the fault is off
+    or does not fire."""
+    if faults.active() and wire_d.get("payload"):
+        inj = faults.get_injector()
+        if inj is not None:
+            bad = inj.corrupt_bytes(wire_d["payload"]["k"])
+            if bad is not None:
+                wire_d["payload"]["k"] = bad
+    return wire_d
 
 
 class RemotePrefillClient:
@@ -159,6 +179,11 @@ class RemotePrefillClient:
             except integrity.IntegrityError as e:
                 integrity.COUNTERS.integrity_failure("disagg_final", str(e))
                 resp.payload, resp.error, resp.code = None, str(e), "integrity"
+        if resp.trace:
+            # the prefill worker's spans ride the final response: into this
+            # process's ring, and onward on the decode stream's final frame
+            dtrace.ingest(resp.trace)
+            resp.trace = None
         if resp.payload is not None:
             self.stats.bytes_rx += resp.payload.wire_nbytes
 
@@ -388,7 +413,7 @@ class PrefillWorkerService:
             self._bump_engine_stat("kv_frames_inflight", 1)
             if self.stamp is not None:
                 frame.stamp = self.stamp
-            data = mpack.packb(frame.to_wire())
+            data = mpack.packb(_corrupted(frame.to_wire()))
 
             async def publish() -> None:
                 try:
@@ -399,7 +424,11 @@ class PrefillWorkerService:
                         logger.warning("frame %d of %s is %d bytes, over the fabric's limit; "
                                        "not sent", frame.seq, req.request_id, len(data))
                         return
-                    await self._fabric.publish(req.reply_subject, data)
+                    # the task inherits the serving span's context, so the
+                    # frame's wire time lands on the prefill worker's track
+                    with dtrace.wire_span("kv_frame_tx", seq=frame.seq,
+                                          nbytes=frame.payload.wire_nbytes):
+                        await self._fabric.publish(req.reply_subject, data)
                     self.stats.frames_tx += 1
                     self.stats.bytes_tx += frame.payload.wire_nbytes
                 finally:
@@ -448,11 +477,23 @@ class PrefillWorkerService:
 
     async def _serve_one(self, msg_id: int, req: RemotePrefillRequest) -> None:
         try:
-            resp = await self._run_prefill(req)
+            # trace context rides RemotePrefillRequest.extra["trace"]; the
+            # serving span closes before the final response is published,
+            # so the shipped export holds it
+            tc = (req.extra or {}).get("trace")
+            with dtrace.span_from_wire(
+                "prefill_serve", tc, proc=getattr(self.engine, "trace_proc", None),
+                request_id=req.request_id, tokens=len(req.token_ids), stream=bool(req.stream),
+            ) as psp:
+                resp = await self._run_prefill(req)
+                if resp is not None and resp.code:
+                    psp.set(code=resp.code)
             if resp is not None:
+                if dtrace.enabled() and isinstance(tc, dict) and tc.get("tid"):
+                    resp.trace = dtrace.export_for_trace(tc["tid"], include_remote=False)
                 if self.stamp is not None:
                     resp.stamp = self.stamp
-                data = mpack.packb(resp.to_wire())
+                data = mpack.packb(_corrupted(resp.to_wire()))
                 if not _fits(data):
                     self.stats.too_large += 1
                     logger.warning("the response to %s is %d bytes, over the fabric's limit; "

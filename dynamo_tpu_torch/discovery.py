@@ -11,10 +11,18 @@ the last ref) the model.
 
 In KV mode (``RouterMode.KV``) the watcher keeps one ``kv_router.KvRouter``
 per worker endpoint, fed by the workers' KV events, and closes it when the
-endpoint's last model goes. Left out (ROADMAP.md A10 part 2 and A12): hedged
-first tokens and health scoring (``_hedged_first``, ``telemetry/health``),
-the worker capacity poller, the ejection publisher, trace ingest and
-provenance records.
+endpoint's last model goes.
+
+Tracing (``telemetry/trace.py``): every dispatch attempt runs under its own
+``dispatch`` span parented on the request's root, so a migrated stream stays
+one trace (a ``migration`` event marks each failover, ``degraded_hold`` a
+replay held through a control-plane blackout); the spans a worker ships on
+its final frame are ingested, and with tracing on the watcher subscribes to
+each namespace's ``trace-export`` subject, the fallback for streams torn
+down before their final frame. Left out (ROADMAP.md A10 part 2 and A12):
+hedged first tokens and their events, health scoring (``_hedged_first``,
+``telemetry/health``), the worker capacity poller, the ejection publisher
+and provenance records.
 
 Role-equivalent of lib/llm/src/discovery/{watcher,model_manager,model_entry}.rs
 and the bindings' ``register_llm``.
@@ -30,6 +38,7 @@ import os
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Callable, Optional
 
+from dynamo_tpu_torch.fabric import mpack
 from dynamo_tpu_torch.http.service import ModelExecution, ModelManager
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.pipeline.context import Context
@@ -43,6 +52,7 @@ from dynamo_tpu_torch.runtime.backoff import full_jitter_delay
 from dynamo_tpu_torch.runtime.component import Endpoint, NoInstancesError
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.protocols import MODEL_ROOT, EndpointId
+from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.discovery")
 
@@ -144,69 +154,88 @@ class RemoteEngine:
         can_replay = not any(
             k in request.extra for k in ("mm", "mm_images", "mm_videos")
         )
+        attempt = 0
         while True:
             # per-attempt child context: closing a dead attempt's stream
             # kills only the child, not the request
             attempt_ctx = ctx.child()
+            attempt += 1
             failure: Optional[str] = None
             progressed = False
             no_instances = False
             stream = None
-            try:
-                # bounded dispatch, raced against runtime shutdown: a dead
-                # fabric's failover hunt must not hang the replay past the
-                # frontend's own teardown
-                dispatch = self.router.generate(
-                    req_dict, attempt_ctx, exclude=exclude or None
-                )
-                if self.cancel_token is not None:
-                    stream = await asyncio.wait_for(
-                        self.cancel_token.run_until_cancelled(dispatch),
-                        self.dispatch_timeout_s,
-                    )
-                    if stream is None:
-                        failure = "frontend runtime shutting down"
-                else:
-                    stream = await asyncio.wait_for(dispatch, self.dispatch_timeout_s)
-            except asyncio.TimeoutError:
-                failure = f"dispatch timed out after {self.dispatch_timeout_s:.1f}s"
-            except Exception as e:  # noqa: BLE001 — dispatch failure
-                failure = f"dispatch failed: {type(e).__name__}: {e}"
-                no_instances = isinstance(e, NoInstancesError)
-            if stream is not None:
-                finished = False
+            # per-attempt dispatch span: replays share the request's trace
+            # id (ctx carries it), so a migrated stream is one trace with
+            # one dispatch span per attempt, all parented on the root
+            with dtrace.span(
+                "dispatch", ctx=attempt_ctx, attach=True, attempt=attempt,
+                replayed_tokens=len(emitted),
+            ) as dsp:
                 try:
-                    async for item in stream:
-                        if item.is_error():
-                            failure = item.error_message() or "worker stream error"
-                            break
-                        if item.data is None:
-                            continue
-                        stamp = item.data.get("stamp") if isinstance(item.data, dict) else None
-                        if self.fences is not None and self.fences.check_stamp(stamp, "dispatch"):
-                            # zombie worker: the cluster fenced its epoch —
-                            # refuse the frame and migrate
-                            failure = f"worker epoch {stamp.get('ep', 0):x} is fenced"
-                            if self.on_fenced_reject is not None:
-                                with contextlib.suppress(Exception):
-                                    self.on_fenced_reject()
-                            break
-                        out = LLMEngineOutput.from_dict(item.data)
-                        if out.token_ids:
-                            emitted.extend(out.token_ids)
-                            progressed = True
-                        yield out
-                        if out.finish_reason is not None:
-                            finished = True
-                            return
-                except (ConnectionError, OSError) as e:
-                    failure = f"stream broke: {e}"
-                finally:
-                    with contextlib.suppress(Exception):
-                        await stream.close()
-                if failure is None and not finished:
-                    # EOF with no final: the response plane died
-                    failure = "stream ended without a finish reason"
+                    # bounded dispatch, raced against runtime shutdown: a
+                    # dead fabric's failover hunt must not hang the replay
+                    # past the frontend's own teardown
+                    dispatch = self.router.generate(
+                        req_dict, attempt_ctx, exclude=exclude or None
+                    )
+                    if self.cancel_token is not None:
+                        stream = await asyncio.wait_for(
+                            self.cancel_token.run_until_cancelled(dispatch),
+                            self.dispatch_timeout_s,
+                        )
+                        if stream is None:
+                            failure = "frontend runtime shutting down"
+                    else:
+                        stream = await asyncio.wait_for(dispatch, self.dispatch_timeout_s)
+                except asyncio.TimeoutError:
+                    failure = f"dispatch timed out after {self.dispatch_timeout_s:.1f}s"
+                except Exception as e:  # noqa: BLE001 — dispatch failure
+                    failure = f"dispatch failed: {type(e).__name__}: {e}"
+                    no_instances = isinstance(e, NoInstancesError)
+                if stream is not None:
+                    wid = attempt_ctx.metadata.get("worker_instance_id")
+                    if wid is not None:
+                        dsp.set(worker=f"{wid:x}")
+                    finished = False
+                    try:
+                        async for item in stream:
+                            if item.is_error():
+                                failure = item.error_message() or "worker stream error"
+                                break
+                            if item.data is None:
+                                continue
+                            stamp = (item.data.get("stamp")
+                                     if isinstance(item.data, dict) else None)
+                            if self.fences is not None and self.fences.check_stamp(
+                                    stamp, "dispatch"):
+                                # zombie worker: the cluster fenced its
+                                # epoch — refuse the frame and migrate
+                                failure = f"worker epoch {stamp.get('ep', 0):x} is fenced"
+                                if self.on_fenced_reject is not None:
+                                    with contextlib.suppress(Exception):
+                                        self.on_fenced_reject()
+                                break
+                            out = LLMEngineOutput.from_dict(item.data)
+                            if out.trace:
+                                # the worker shipped its completed spans on
+                                # the final frame: into this process's ring
+                                dtrace.ingest(out.trace)
+                                out.trace = None
+                            if out.token_ids:
+                                emitted.extend(out.token_ids)
+                                progressed = True
+                            yield out
+                            if out.finish_reason is not None:
+                                finished = True
+                                return
+                    except (ConnectionError, OSError) as e:
+                        failure = f"stream broke: {e}"
+                    finally:
+                        with contextlib.suppress(Exception):
+                            await stream.close()
+                    if failure is None and not finished:
+                        # EOF with no final: the response plane died
+                        failure = "stream ended without a finish reason"
             # ---- the attempt failed; decide whether to migrate ----
             if ctx.is_killed() or ctx.is_stopped():
                 yield LLMEngineOutput.final(FinishReason.CANCELLED)
@@ -237,6 +266,7 @@ class RemoteEngine:
                 # replay (without burning its retry budget) until the fabric
                 # heals — bounded by the kill checks above each pass and by
                 # the client's own degraded budget.
+                dtrace.event("degraded_hold", cause=failure)
                 await fab.wait_connected(2.0)
                 continue
             failures = 1 if progressed else failures + 1
@@ -254,6 +284,11 @@ class RemoteEngine:
                 "request %s: worker %s failed mid-stream (%s) — replaying %d "
                 "emitted token(s) onto another worker (attempt %d/%d)",
                 ctx.id, bad, failure, len(emitted), failures, self.max_retries,
+            )
+            dtrace.event(
+                "migration",
+                failed_worker=f"{bad:x}" if bad is not None else None,
+                emitted=len(emitted), cause=failure,
             )
             if emitted:
                 req_dict = dict(req_dict)
@@ -305,6 +340,9 @@ class ModelWatcher:
         # KV mode: endpoint str -> KvRouter, and each model's endpoint
         self.kv_routers: dict[str, Any] = {}
         self._model_endpoint: dict[str, str] = {}
+        # the trace-export subscriptions (one per worker namespace)
+        self._trace_subs: set[str] = set()
+        self._trace_tasks: list[asyncio.Task] = []
 
     async def start(self) -> None:
         self._watch = await self.drt.fabric.watch_prefix(MODEL_ROOT)
@@ -320,6 +358,9 @@ class ModelWatcher:
         # the routers stay listed (closed) for the frontend's exit stats
         for kv_router in self.kv_routers.values():
             await kv_router.close()
+        for t in self._trace_tasks:
+            t.cancel()
+        self._trace_tasks.clear()
         for client in self._clients.values():
             await client.close()
         self._clients.clear()
@@ -336,6 +377,26 @@ class ModelWatcher:
                 except Exception:  # noqa: BLE001 — keep watching
                     logger.exception("model watcher failed applying %s", ev.key)
 
+    async def _ensure_trace_ingest(self, namespace: str) -> None:
+        """Subscribe (once per namespace, with tracing on) to the workers'
+        ``trace-export`` subject: the fallback for spans whose response
+        stream was torn down before its final frame could carry them."""
+        if namespace in self._trace_subs or not dtrace.enabled():
+            return
+        self._trace_subs.add(namespace)
+        sub = await self.drt.namespace(namespace).subscribe_event(dtrace.EXPORT_SUBJECT)
+
+        async def ingest_loop() -> None:
+            async for _subject, payload in sub:
+                try:
+                    data = mpack.unpackb(payload)
+                    if dtrace.enabled():
+                        dtrace.ingest(data.get("trace") or [])
+                except Exception:  # noqa: BLE001 — a malformed export
+                    continue
+
+        self._trace_tasks.append(asyncio.get_running_loop().create_task(ingest_loop()))
+
     async def _on_put(self, key: str, value: bytes) -> None:
         entry = ModelEntry.from_bytes(value)
         if self.manager.get(entry.name) is not None:
@@ -347,6 +408,7 @@ class ModelWatcher:
         endpoint = (
             self.drt.namespace(eid.namespace).component(eid.component).endpoint(eid.name)
         )
+        await self._ensure_trace_ingest(eid.namespace)
         client = self._clients.get(entry.endpoint)
         if client is None:
             client = await endpoint.client()

@@ -1,8 +1,10 @@
 """Echo engines: deterministic fake engines for tests and pipeline bring-up.
 
 The port's own copy of dynamo_tpu/engine/echo.py (the JAX CLI's
-``out=echo_core`` / ``out=echo_full``), without its trace span and fault
-hook: a model-free worker for the distributed runtime's tests.
+``out=echo_core`` / ``out=echo_full``), with its ``decode`` span and its
+``on_token`` fault point (``DYN_FAULT=kill_after_tokens`` kills the worker
+mid-stream): a model-free worker for the distributed runtime's tests and
+the fault-tolerance twins.
 
 Role-equivalent of lib/llm/src/engines.rs:66-128 (EchoEngineCore /
 EchoEngineFull, ~100 tok/s paced by DYN_TOKEN_ECHO_DELAY_MS): echo_core
@@ -22,6 +24,8 @@ from dynamo_tpu_torch.protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
 )
+from dynamo_tpu_torch.telemetry import trace as dtrace
+from dynamo_tpu_torch.testing import faults
 
 
 def _delay_s() -> float:
@@ -48,20 +52,32 @@ class EchoEngineCore:
             count = len(prompt) - resume
             prompt = prompt[:resume]
         limit = request.stop.max_tokens or len(prompt)
-        for tok in prompt[count:]:
-            if context.is_stopped() or count >= limit:
-                break
-            if context.expired():
-                context.kill()
-                yield LLMEngineOutput.final_error(
-                    context.id, "decode",
-                    "deadline exceeded mid-generation",
-                    "deadline_exceeded",
-                )
-                return
-            await asyncio.sleep(delay)
-            yield LLMEngineOutput(token_ids=[tok])
-            count += 1
+        with dtrace.span(
+            "decode", ctx=context, proc=self.trace_proc,
+            resumed_at=count or None,
+        ) as sp:
+            for tok in prompt[count:]:
+                if faults.active():
+                    # DYN_FAULT kill_after_tokens: the worker process dies
+                    # exactly as a crashed decode worker would, mid-stream
+                    inj = faults.get_injector()
+                    if inj is not None:
+                        inj.on_token()
+                if context.is_stopped() or count >= limit:
+                    break
+                if context.expired():
+                    context.kill()
+                    sp.event("deadline_exceeded", phase="decode")
+                    yield LLMEngineOutput.final_error(
+                        context.id, "decode",
+                        "deadline exceeded mid-generation",
+                        "deadline_exceeded",
+                    )
+                    return
+                await asyncio.sleep(delay)
+                yield LLMEngineOutput(token_ids=[tok])
+                count += 1
+            sp.set(tokens=count)
         reason = (
             FinishReason.CANCELLED
             if context.is_killed()

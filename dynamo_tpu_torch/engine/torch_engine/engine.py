@@ -157,9 +157,27 @@ Under a tensor-parallel group the engine serves every role above (a decode
 worker, a prefill worker, tiers): its runner's block moves run on every rank
 through the step channel (parallel/multihost.py).
 
+Request tracing (engine.py:526-552; ``telemetry/trace.py``, on with
+``DYN_TRACE=1``): each sequence carries its open phase spans, parented
+under the trace context riding its Context, on the ``trace_proc`` track:
+``queue_wait`` (again after a preemption), ``prefill`` (a ``prefill_chunk``
+event per chunk) or ``remote_prefill`` (its ``kv_land`` child spans per
+streamed frame), then ``decode``, which gets a ``decode_step``,
+``decode_horizon`` or ``spec_verify`` event per dispatch, on the host after
+the fetch (at most 64 a span). The events ``preempted``,
+``preempted_too_often``, ``deadline_exceeded``, ``watchdog_trip``, ``error``
+and ``worker_fenced`` mark the lane's fate. Fault injection
+(``testing/faults.py``, armed by ``DYN_FAULT``): ``on_dispatch`` and the
+gray-worker stretch (``slow_decode`` / ``gray_flap``, folded into the
+watchdog's EMA) around every device call, ``on_transfer`` before an offload
+and before a remote prefill lands, ``on_token`` per emitted token
+(``kill_after_tokens`` SIGKILLs the process, ``abort_after_tokens`` fails
+every lane with ``injected_fault`` through ``_abort_all`` and keeps
+serving). Off, each hook costs one flag check.
+
 Left out (ROADMAP.md lists them): the peer tier (G4-lite, A7), class-aware
-preemption and brownout (A7), multimodal prompts, tracing and fault
-injection.
+preemption (A7), brownout and ``DYN_TRACE=auto`` (A10 part 2), the goodput
+counters on the trace timeline (A12), multimodal prompts.
 """
 
 from __future__ import annotations
@@ -203,6 +221,8 @@ from dynamo_tpu_torch.protocols.common import (
     PreprocessedRequest,
 )
 from dynamo_tpu_torch.runtime import clock as dclock
+from dynamo_tpu_torch.telemetry import trace as dtrace
+from dynamo_tpu_torch.testing import faults
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 logger = logging.getLogger("dynamo_tpu_torch.engine")
@@ -414,6 +434,8 @@ class _Sequence:
         self.prefix_hashes: list[int] = []
         self.cached_prefix_blocks = 0
         self.offload_mark = 0  # chain blocks already queued for offload
+        # open telemetry phase spans (queue_wait / prefill / decode / ...)
+        self.spans: dict = {}
 
     @property
     def num_generated(self) -> int:
@@ -564,6 +586,41 @@ class TorchEngine:
                 min_n=self.config.spec_ngram_min, max_n=self.config.spec_ngram_max,
             )
             self.stats.accepted_per_pos = [0] * self.config.spec_k
+        # trace process track (set by the worker host; None = process name)
+        self.trace_proc: Optional[str] = None
+
+    # ----------------------------------------------------------- telemetry
+
+    def _sp_begin(self, seq: _Sequence, name: str, **attrs) -> None:
+        sp = dtrace.begin(name, ctx=seq.ctx, proc=self.trace_proc, **attrs)
+        if sp is not None:
+            seq.spans[name] = sp
+
+    def _sp_finish(self, seq: _Sequence, name: str, **attrs) -> None:
+        dtrace.finish(seq.spans.pop(name, None), **attrs)
+
+    def _sp_event(self, seq: _Sequence, name: str, **attrs) -> None:
+        """A point event on the sequence's (single) open span."""
+        for sp in seq.spans.values():
+            sp.event(name, **attrs)
+            return
+
+    def _sp_close_all(self, seq: _Sequence) -> None:
+        for name in list(seq.spans):
+            self._sp_finish(seq, name)
+
+    @staticmethod
+    def _sp_span_event(seq: _Sequence, span: str, label: str, **attrs) -> None:
+        """An event on one named open span, at most 64 a span (long
+        generations must not grow a span without limit)."""
+        sp = seq.spans.get(span)
+        if sp is not None and len(sp.events) < 64:
+            sp.event(label, **attrs)
+
+    def _sp_batch_event(self, active: list, label: str, **attrs) -> None:
+        """Mark one batched device dispatch on every member's decode span."""
+        for seq in active:
+            self._sp_span_event(seq, "decode", label, **attrs)
 
     # --------------------------------------------------------------- api
 
@@ -603,6 +660,8 @@ class TorchEngine:
             )
             return
         seq = _Sequence(next(self._seq_ids), request, context)
+        if dtrace.enabled():
+            self._sp_begin(seq, "queue_wait", tokens=n, priority=seq.priority)
         self._enqueue(seq)
         self._ensure_loop()
         self._wake.set()
@@ -685,12 +744,18 @@ class TorchEngine:
     def _finish(self, seq: _Sequence, reason: FinishReason) -> None:
         self._maybe_offload(seq, reason)
         self._free_seq(seq)
+        if seq.spans:
+            self._sp_finish(seq, "decode", tokens=seq.num_generated)
+            self._sp_close_all(seq)
         seq.out.put_nowait(LLMEngineOutput.final(reason))
 
     def _finish_error(self, seq: _Sequence, phase: str, cause: str, code: str) -> None:
         """Fail one admitted sequence with a structured error: free its lane
         and blocks (publishing Removed) and send the typed final."""
         self._free_seq(seq)
+        if seq.spans:
+            self._sp_event(seq, "error", phase=phase, code=code)
+            self._sp_close_all(seq)
         seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, phase, cause, code))
 
     def _try_admit(self, seq: _Sequence) -> bool:
@@ -722,6 +787,10 @@ class TorchEngine:
         victim.offload_mark = 0
         if victim.preemptions > self.config.max_preemptions:
             self.stats.preempted_too_often += 1
+            if victim.spans:
+                self._sp_event(victim, "preempted_too_often")
+                self._sp_event(victim, "error", phase="preemption", code="preempted_too_often")
+                self._sp_close_all(victim)
             victim.out.put_nowait(LLMEngineOutput.final_error(
                 victim.ctx.id, "preemption",
                 f"preempted {victim.preemptions} times under sustained pressure "
@@ -730,6 +799,12 @@ class TorchEngine:
             ))
             return
         logger.debug("preempting seq %d (preemption #%d)", victim.seq_id, victim.preemptions)
+        if victim.spans:
+            self._sp_event(victim, "preempted", count=victim.preemptions)
+            self._sp_close_all(victim)
+        if dtrace.enabled():
+            # re-queued: its wait for re-admission is a fresh phase
+            self._sp_begin(victim, "queue_wait", resumed=True)
         backoff_s = min(2.0, self.config.preempt_backoff_ms / 1e3 * (1 << (victim.preemptions - 1)))
         victim.requeue_after = time.monotonic() + backoff_s
         self._enqueue(victim)
@@ -738,25 +813,58 @@ class TorchEngine:
         """Run one device call (and its host fetch) on the worker thread,
         visible to the watchdog under ``label`` from the moment it holds the
         device. Its graph replays are counted there: calls of the loop, of
-        remote-prefill landings and of offloads may be queued at once."""
-        runner, stats, ema = self.runner, self.stats, self._dispatch_ema
+        remote-prefill landings and of offloads may be queued at once.
+
+        Fault injection (engine.py:724-756): ``on_dispatch`` first, and an
+        injected gray-worker factor F stretches the call to F times its
+        duration by an asyncio sleep after it returns (the device thread
+        and its card lock are free meanwhile); the label stays the running
+        dispatch until the stretch ends and its EMA takes the stretched
+        time, so the watchdog's budget tracks a throttled worker."""
+        runner, stats = self.runner, self.stats
+        slow = 1.0
+        if faults.active():
+            inj = faults.get_injector()
+            if inj is not None:
+                await inj.on_dispatch()
+                slow = inj.dispatch_slow_factor()
+        started: list[tuple[str, float]] = []
 
         def counted():
             replays = runner.graph_replays
-            t0 = time.monotonic()
-            self._dispatch_info = (label, t0)
+            info = (label, time.monotonic())
+            started.append(info)
+            self._dispatch_info = info
             try:
                 return fn()
             finally:
-                elapsed = time.monotonic() - t0
-                self._dispatch_info = None
-                prev = ema.get(label)
-                if prev is None:
-                    self.dispatch_first_s[label] = elapsed
-                ema[label] = elapsed if prev is None else 0.8 * prev + 0.2 * elapsed
                 stats.graph_replays += runner.graph_replays - replays
+                if slow <= 1.0:
+                    self._dispatch_done(info)
 
-        return await asyncio.get_running_loop().run_in_executor(self._executor, counted)
+        loop = asyncio.get_running_loop()
+        if slow <= 1.0:
+            return await loop.run_in_executor(self._executor, counted)
+        try:
+            result = await loop.run_in_executor(self._executor, counted)
+            await asyncio.sleep((slow - 1.0) * (time.monotonic() - started[0][1]))
+            return result
+        finally:
+            if started:
+                self._dispatch_done(started[0])
+
+    def _dispatch_done(self, info: tuple[str, float]) -> None:
+        """A dispatch ended: it stops being the running one and its
+        duration goes into its label's EMA."""
+        label, t0 = info
+        elapsed = time.monotonic() - t0
+        if self._dispatch_info is info:
+            self._dispatch_info = None
+        ema = self._dispatch_ema
+        prev = ema.get(label)
+        if prev is None:
+            self.dispatch_first_s[label] = elapsed
+        ema[label] = elapsed if prev is None else 0.8 * prev + 0.2 * elapsed
 
     # ------------------------------------------------------------ watchdog
 
@@ -792,23 +900,54 @@ class TorchEngine:
         self._closed = True  # the loop ends when (if) the dispatch returns
         cause = f"watchdog: {label} dispatch stuck {elapsed:.1f}s (budget {budget:.1f}s)"
         logger.error("%s -- failing all lanes, marking the worker unhealthy", cause)
-        self._fail_lanes(cause, "watchdog_stuck", label)
+        self._fail_lanes(cause, "watchdog_stuck", label, trip_label=label)
         if self.on_watchdog_trip is not None:
             try:
                 self.on_watchdog_trip()
             except Exception:  # noqa: BLE001 - the trip itself must complete
                 logger.exception("on_watchdog_trip raised")
 
-    def _fail_lanes(self, cause: str, code: str, phase: str) -> None:
+    def _fail_lanes(self, cause: str, code: str, phase: str,
+                    trip_label: Optional[str] = None) -> None:
         """Every waiting and admitted sequence gets a structured final error.
         Admitted ones keep their blocks: a dispatch in flight may still
-        write them, and the caller has closed the engine."""
+        write them, and the caller has closed the engine. Their spans close
+        with a ``watchdog_trip`` event (``trip_label``), else an admitted
+        lane's with an ``error`` event, as the reference's fence does."""
         for seq in list(self.waiting):
             self.waiting.remove(seq)
+            if trip_label is not None:
+                self._sp_event(seq, "watchdog_trip", label=trip_label)
+            self._sp_close_all(seq)
             seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, "queue", cause, code))
         for seq in list(self._admit_order):
             seq.ctx.kill()
+            if seq.spans:
+                if trip_label is not None:
+                    self._sp_event(seq, "watchdog_trip", label=trip_label)
+                else:
+                    self._sp_event(seq, "error", phase=phase, code=code)
+                self._sp_close_all(seq)
             seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, phase, cause, code))
+
+    def _abort_all(self, cause: str, code: str = "injected_fault") -> None:
+        """In-process crash injection (``abort_after_tokens``,
+        engine.py:3212-3233): every waiting and running sequence fails with
+        a structured error and its lane and blocks free, as a loop crash
+        would, but the engine keeps serving new requests. A sequence
+        awaiting its remote prefill keeps its blocks until its task ends
+        (its killed context finishes it there)."""
+        for seq in list(self.waiting):
+            self.waiting.remove(seq)
+            self._sp_close_all(seq)
+            seq.out.put_nowait(LLMEngineOutput.final_error(seq.ctx.id, "queue", cause, code))
+        for seq in list(self._admit_order):
+            if seq.pending_remote:
+                seq.ctx.kill()
+                seq.out.put_nowait(LLMEngineOutput.final_error(
+                    seq.ctx.id, "remote_prefill", cause, code))
+            else:
+                self._finish_error(seq, "decode", cause, code)
 
     def fence(self, reason: str) -> None:
         """Worker self-fence (engine.py:3237-3251; the runtime's
@@ -822,6 +961,7 @@ class TorchEngine:
         self._fenced = True
         self._closed = True
         logger.error("engine fenced: %s -- failing all lanes", reason)
+        dtrace.event("worker_fenced", reason=reason)
         self._fail_lanes(f"worker fenced: {reason}", "worker_fenced", "decode")
         self._wake.set()
 
@@ -1012,6 +1152,10 @@ class TorchEngine:
         never output), but every failure is counted in
         ``kv_offload_errors`` and logged."""
         bm, runner = self.block_manager, self.runner
+        if faults.active():
+            inj = faults.get_injector()
+            if inj is not None:
+                await inj.on_transfer()
         try:
             if self._tier_on_device():
                 stored = await self._device(
@@ -1093,9 +1237,11 @@ class TorchEngine:
                 if not active:
                     if chunked:
                         continue
-                    if not self.waiting and not self._landed:
+                    if not self.waiting and not self._landed and not self._closed:
                         # a landing remote prefill sets the wake too; a
-                        # deadline of one still in flight ends the wait
+                        # deadline of one still in flight ends the wait (a
+                        # close or fence during the last dispatch set it
+                        # already: the loop ends instead)
                         self._wake.clear()
                         await self._idle_wait()
                     else:
@@ -1114,6 +1260,9 @@ class TorchEngine:
                     seq.ctx.kill()
                 else:
                     self._free_seq(seq)
+                if seq.spans:
+                    self._sp_event(seq, "error", phase="decode", code="engine_loop_crash")
+                    self._sp_close_all(seq)
                 seq.out.put_nowait(LLMEngineOutput.final_error(
                     seq.ctx.id, "decode", f"{type(e).__name__}: {e}", "engine_loop_crash"
                 ))
@@ -1142,6 +1291,7 @@ class TorchEngine:
         for seq in list(self.waiting):
             if seq.ctx.is_killed() or seq.ctx.is_stopped():
                 self.waiting.remove(seq)
+                self._sp_close_all(seq)
                 seq.out.put_nowait(LLMEngineOutput.final(FinishReason.CANCELLED))
             elif seq.ctx.expired() or seq.ctx.ttft_expired():
                 # queued past its deadline, or past the point where its
@@ -1150,6 +1300,8 @@ class TorchEngine:
                 self.waiting.remove(seq)
                 self.stats.deadline_exceeded += 1
                 seq.ctx.kill()
+                self._sp_event(seq, "deadline_exceeded", phase="queue")
+                self._sp_close_all(seq)
                 seq.out.put_nowait(LLMEngineOutput.final_error(
                     seq.ctx.id, "queue", "deadline exceeded while queued", "deadline_exceeded"))
         for seq in list(self._admit_order):
@@ -1162,6 +1314,7 @@ class TorchEngine:
                     seq.deadline_fired = True
                     self.stats.deadline_exceeded += 1
                     seq.ctx.kill()
+                    self._sp_event(seq, "deadline_exceeded", phase="remote_prefill")
                     seq.out.put_nowait(LLMEngineOutput.final_error(
                         seq.ctx.id, "remote_prefill", "deadline exceeded awaiting remote prefill",
                         "deadline_exceeded"))
@@ -1169,6 +1322,7 @@ class TorchEngine:
             if seq.ctx.expired() or (seq.num_generated == 0 and seq.ctx.ttft_expired()):
                 self.stats.deadline_exceeded += 1
                 seq.ctx.kill()
+                self._sp_event(seq, "deadline_exceeded", phase="decode")
                 self._finish_error(seq, "decode", "deadline exceeded mid-generation",
                                    "deadline_exceeded")
             elif seq.ctx.is_killed():
@@ -1202,6 +1356,8 @@ class TorchEngine:
                 break
             self.waiting.pop(idx)
             admitted = True
+            if seq.spans:
+                self._sp_finish(seq, "queue_wait")
             hit_len = 0
             if bm is not None:
                 seq.pending_chain = TokenBlockSequence(list(seq.token_ids), bs)
@@ -1215,10 +1371,16 @@ class TorchEngine:
                 # decode batch when its KV lands
                 seq.pending_remote = True
                 self.stats.remote_prefills += 1
+                if dtrace.enabled():
+                    self._sp_begin(seq, "remote_prefill", tokens=len(seq.token_ids),
+                                   cached_blocks=seq.cached_prefix_blocks)
                 task = asyncio.get_running_loop().create_task(self._remote_prefill_task(seq))
                 self._remote_tasks.add(task)
                 task.add_done_callback(self._remote_tasks.discard)
                 continue
+            if dtrace.enabled():
+                self._sp_begin(seq, "prefill", tokens=len(seq.token_ids),
+                               cached_blocks=seq.cached_prefix_blocks)
             # after a preemption the replay is prompt + generated tokens
             n = len(seq.token_ids)
             skippable = min(seq.cached_prefix_blocks, (n - 1) // bs) if bm is not None else 0
@@ -1315,6 +1477,8 @@ class TorchEngine:
 
         sample = await self._device(run_chunk, "prefill_chunk")
         self.stats.chunk_steps += 1
+        if seq.spans:
+            self._sp_span_event(seq, "prefill", "prefill_chunk", pos=start, tokens=len(chunk))
         if seq.slot is None:  # cancelled during the device call
             return
         seq.prefill_pos = min(start + C, total)
@@ -1398,6 +1562,9 @@ class TorchEngine:
 
         out = await self._device(run_mixed, "mixed_step")
         self.stats.mixed_steps += 1
+        for seq, start, n in packed:
+            if seq.spans:
+                self._sp_span_event(seq, "prefill", "prefill_chunk", pos=start, tokens=n)
         final_samples = {slot: out[4 * j:4 * j + 4] for j, slot in enumerate(final_slots)}
         toks, lps, tids, tlps = out[4 * len(final_slots):]
         for seq, advanced in plan:
@@ -1410,6 +1577,8 @@ class TorchEngine:
             if i in final_samples and seq.slot is not None:
                 tok, lp, tid, tlp = final_samples[i]
                 self._append_token(seq, int(tok[0]), float(lp[0]), tid[0], tlp[0])
+        if dtrace.enabled():
+            self._sp_batch_event(active, "decode_step", batch=len(active))
         for seq in active:
             if seq.slot is None:
                 continue  # finished, cancelled or preempted meanwhile
@@ -1563,6 +1732,8 @@ class TorchEngine:
             return
         self.stats.horizon_dispatches += 1
         self.stats.horizon_steps += H
+        if dtrace.enabled():
+            self._sp_batch_event(active, "decode_horizon", H=H, batch=len(active))
         n_top = (packed.shape[-1] - 2) // 2
         for h in range(H):
             for seq in active:
@@ -1627,6 +1798,8 @@ class TorchEngine:
                 *args[:7], keys=args[7], penalties=penalties, eos_mask=eos_mask)), "decode"
         )
         self.stats.decode_steps += 1
+        if dtrace.enabled():
+            self._sp_batch_event(active, "decode_step", batch=len(active))
         for seq in active:
             if seq.slot is None:
                 continue  # finished, cancelled or preempted meanwhile
@@ -1715,6 +1888,8 @@ class TorchEngine:
             "spec_verify")
         self.stats.verify_steps += 1
         self.stats.verify_chained_steps += E
+        if dtrace.enabled():
+            self._sp_batch_event(active, "spec_verify", K=K, E=E, batch=len(active))
         n_top = (packed.shape[-1] - 2) // 2
         for seq in active:
             if seq.slot is None:
@@ -1756,6 +1931,16 @@ class TorchEngine:
     def _append_token(self, seq: _Sequence, token: int, lp: float, top_ids, top_lps) -> None:
         """Record a newly generated token: stream it, grow blocks, stop."""
         self.stats.generated_tokens += 1
+        if seq.spans and "decode" not in seq.spans:
+            # first token: the prefill phase (local or remote) is over
+            self._sp_finish(seq, "prefill")
+            self._sp_finish(seq, "remote_prefill")
+            self._sp_begin(seq, "decode")
+        if faults.active():
+            inj = faults.get_injector()
+            if inj is not None and inj.on_token():
+                self._abort_all("injected engine fault (abort_after_tokens)")
+                return
         if seq.ctx.is_stopped():
             self._finish(seq, FinishReason.CANCELLED)
             return
@@ -1804,12 +1989,8 @@ class TorchEngine:
                     self._preempt(victim)
                     seq.block_ids.extend(self.allocator.alloc(1))
                 else:
-                    self._free_seq(seq)
-                    seq.out.put_nowait(LLMEngineOutput.final_error(
-                        seq.ctx.id, "decode",
-                        "out of KV blocks with no preemptable sequence",
-                        "out_of_kv_blocks",
-                    ))
+                    self._finish_error(seq, "decode", "out of KV blocks with no preemptable "
+                                       "sequence", "out_of_kv_blocks")
 
     # ------------------------------------------ disaggregated prefill: decode
 
@@ -1848,10 +2029,8 @@ class TorchEngine:
                 if fail is FinishReason.CANCELLED:
                     self._finish(seq, fail)
                 else:
-                    self._free_seq(seq)
-                    seq.out.put_nowait(LLMEngineOutput.final_error(
-                        seq.ctx.id, "remote_prefill", "landing remote prefill failed",
-                        "remote_prefill_failed"))
+                    self._finish_error(seq, "remote_prefill", "landing remote prefill failed",
+                                       "remote_prefill_failed")
                 continue
             self._set_chain(seq)
             token, lp, top = sample
@@ -1870,9 +2049,17 @@ class TorchEngine:
         cached = await self._onboard_prefix(seq)
         stream = self._kv_stream_enabled()
         landed: set[int] = set()
+        rsp = seq.spans.get("remote_prefill")
 
         async def on_frame(frame: KvStreamFrame) -> None:
-            await self._land_stream_frame(seq, frame, landed)
+            with dtrace.span("kv_land", parent=rsp, proc=self.trace_proc, seq=frame.seq,
+                             blocks=frame.payload.num_blocks, nbytes=frame.payload.wire_nbytes):
+                await self._land_stream_frame(seq, frame, landed)
+
+        extra = None
+        if rsp is not None:
+            # the prefill worker parents its serving span under this one
+            extra = {"trace": {"tid": rsp.trace_id, "sid": rsp.span_id}}
 
         try:
             resp = await self.remote_prefill_client.prefill(
@@ -1881,7 +2068,7 @@ class TorchEngine:
                 key_data=self._key_row(seq), eos_ids=seq.eos_row,
                 eos_suppress=seq.needs_eos_suppress, stream=stream,
                 on_frame=on_frame if stream else None, deadline=seq.ctx.deadline, ctx=seq.ctx,
-                extra=None,
+                extra=extra,
             )
         except PrefillStreamCancelled:
             self._land(seq, None, FinishReason.CANCELLED)
@@ -1915,6 +2102,12 @@ class TorchEngine:
                 logger.warning("seq %d: the stream lost %d block(s); falling back local",
                                seq.seq_id, len(missing))
                 resp = None
+        if faults.active():
+            inj = faults.get_injector()
+            if inj is not None:
+                await inj.on_transfer()
+        if rsp is not None:
+            rsp.set(blocks_landed=len(landed), fallback_local=resp is None)
         try:
             self._land(seq, await self._land_prefill(seq, resp), None)
         except Exception:  # noqa: BLE001 - never strand the consumer

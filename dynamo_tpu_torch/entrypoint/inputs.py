@@ -13,8 +13,11 @@ blocks too) and its load metrics every second
 (``kv_router.WorkerMetricsPublisher`` over ``load_metrics(engine)``),
 re-registers after a fabric heal, self-fences through ``engine.fence``,
 deregisters and finishes its requests on a drain, then checkpoints the KV
-tiers (``DYN_WARM_RESTART_DIR``). Left out (ROADMAP.md A7 and A10 part 2):
-the worker's brownout ladder and the frontend's SLO and planner publishers.
+tiers (``DYN_WARM_RESTART_DIR``). With ``DYN_TRACE=1`` a worker serves
+each request under a ``worker_generate`` span on its own track and ships
+the request's spans on the final frame (``make_engine_handler``). Left out
+(ROADMAP.md A10 part 2): the worker's brownout ladder and the frontend's
+SLO and planner publishers.
 """
 
 from __future__ import annotations
@@ -35,24 +38,78 @@ from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.pipeline.router import RouterMode
 from dynamo_tpu_torch.protocols.common import Context, PreprocessedRequest
 from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest, ChatMessage
+from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.entrypoint")
 
 
-def make_engine_handler(engine: Any, stamp: Optional[dict] = None):
+def make_engine_handler(
+    engine: Any,
+    proc_label: Optional[str] = None,
+    namespace: Any = None,
+    stamp: Optional[dict] = None,
+):
     """Worker-side request handler hosting an engine on a dyn:// endpoint
-    (inputs.py:36). Every yielded frame carries the worker's epoch-fencing
-    ``stamp`` (``(instance_id, epoch)``, runtime/fencing.py): the frontend's
-    RemoteEngine rejects frames whose epoch the cluster has fenced, so a
-    partitioned zombie's tokens never reach a client stream."""
+    (inputs.py:36-123). Every yielded frame carries the worker's
+    epoch-fencing ``stamp`` (``(instance_id, epoch)``, runtime/fencing.py):
+    the frontend's RemoteEngine rejects frames whose epoch the cluster has
+    fenced, so a partitioned zombie's tokens never reach a client stream.
+
+    With tracing on, the request is served under a ``worker_generate`` span
+    on the worker's own process track (``proc_label``), and the request's
+    completed spans (this worker's and any it ingested from a prefill
+    worker) ride the stream's final frame, held until the span closed. When
+    the consumer tears the stream down before that frame, the export is
+    published on ``namespace``'s ``trace-export`` event subject instead,
+    which the frontend's ModelWatcher subscribes to."""
 
     async def handler(request: dict, ctx: Context) -> AsyncIterator[dict]:
         pre = PreprocessedRequest.from_dict(request)
-        async for out in engine.generate(pre, ctx):
-            d = out.to_dict()
-            if stamp is not None:
-                d["stamp"] = stamp
-            yield d
+        if not dtrace.enabled():
+            async for out in engine.generate(pre, ctx):
+                d = out.to_dict()
+                if stamp is not None:
+                    d["stamp"] = stamp
+                yield d
+            return
+        label = proc_label or getattr(engine, "trace_proc", None)
+        final_d: Optional[dict] = None
+        shipped = False
+        agen = engine.generate(pre, ctx)
+        try:
+            with dtrace.process_scope(label), dtrace.span(
+                "worker_generate", ctx=ctx, attach=True, request_id=ctx.id
+            ):
+                async for out in agen:
+                    d = out.to_dict()
+                    if stamp is not None:
+                        d["stamp"] = stamp
+                    if out.finish_reason is not None:
+                        # hold the final frame until the worker span has
+                        # closed, so the shipped export includes it
+                        final_d = d
+                        break
+                    yield d
+            if final_d is not None:
+                tid = dtrace.ctx_trace_id(ctx)
+                if tid:
+                    final_d["trace"] = dtrace.export_for_trace(tid)
+                yield final_d
+                shipped = bool(final_d.get("trace"))
+        finally:
+            with contextlib.suppress(Exception):
+                await agen.aclose()
+            if namespace is not None and dtrace.enabled() and not shipped:
+                tid = dtrace.ctx_trace_id(ctx)
+                wire = dtrace.export_for_trace(tid) if tid else None
+                if wire:
+                    # the stream is gone (or never reached its final
+                    # frame): fire and forget the export onto the event plane
+                    async def _publish(p={"trace": wire}):
+                        with contextlib.suppress(Exception):
+                            await namespace.publish_event(dtrace.EXPORT_SUBJECT, p)
+
+                    asyncio.get_running_loop().create_task(_publish())
 
     return handler
 
@@ -312,10 +369,16 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
     eid = EndpointId.parse(endpoint_str, drt.config.namespace)
     endpoint = drt.namespace(eid.namespace).component(eid.component).endpoint(eid.name)
     engine = config.engine
+    # worker identity on trace timelines: a track per instance, so an
+    # assembled cross-process trace shows which worker served which hop
+    worker_label = f"{eid.component}:{drt.primary_lease & 0xFFFFFF:x}"
+    with contextlib.suppress(Exception):
+        engine.trace_proc = worker_label
     # epoch-fencing stamp: (instance_id, epoch) rides every reply frame so
     # frontends can reject a fenced incarnation's tokens
     stamp = make_stamp(drt.primary_lease, drt.fencing_epoch)
-    service = await endpoint.serve_endpoint(make_engine_handler(engine, stamp=stamp))
+    service = await endpoint.serve_endpoint(make_engine_handler(
+        engine, worker_label, namespace=endpoint.component.namespace, stamp=stamp))
     await register_llm(drt, endpoint, config.mdc)
 
     # reconcile-on-heal: when the fabric comes back from a blackout (or a

@@ -1,9 +1,12 @@
 """Unified fabric client: identical async API in-process or over TCP.
 
-The port's own copy of dynamo_tpu/fabric/client.py, whole but for the
-fault-injection hooks (injected blackouts, swallowed keepalives, dropped
-connections) and the trace spans: version negotiation, degraded-mode
-buffering, failover and stream re-establishment are all here.
+The port's own copy of dynamo_tpu/fabric/client.py, whole: version
+negotiation, degraded-mode buffering, failover and stream re-establishment,
+the ``fabric:<op>`` wire spans of calls made under a request's span, and the
+fault points of ``testing/faults.py`` (``fabric_blackout`` / ``fabric_flap``:
+every store operation raises ConnectionError inside the window;
+``zombie_partition``: keepalives swallowed; ``drop_fabric_conn``: the TCP
+link severed once after N publishes).
 
 In-process mode wraps a process-local FabricState (the reference's "static
 mode" / in-memory KeyValueStore, lib/runtime/src/storage/key_value_store/mem.rs
@@ -24,6 +27,8 @@ from typing import Any, Callable, Optional
 from dynamo_tpu_torch.fabric import wire
 from dynamo_tpu_torch.fabric.state import FabricState, WatchEvent
 from dynamo_tpu_torch.runtime import clock as dclock
+from dynamo_tpu_torch.telemetry import trace as dtrace
+from dynamo_tpu_torch.testing import faults
 
 logger = logging.getLogger("dynamo_tpu_torch.fabric.client")
 
@@ -389,10 +394,16 @@ class FabricClient:
                 await asyncio.sleep(min(remaining, 0.05))
 
     def _outage_check(self) -> None:
-        """Heal detection, consulted at every store operation: on the first
-        call after a blackout window closed with the connection still up,
-        flush the degraded buffers and fire the reconnect callbacks (remote
-        natural losses heal through the failover hunt instead)."""
+        """Injected-blackout fault point and heal detection, consulted at
+        every store operation. Raises ConnectionError while the window is
+        open; on the first call after it closed with the connection still
+        up, flush the degraded buffers and fire the reconnect callbacks
+        (remote natural losses heal through the failover hunt instead)."""
+        if faults.active():
+            inj = faults.get_injector()
+            if inj is not None and inj.fabric_unreachable():
+                self._note_lost("injected blackout")
+                raise ConnectionError("fabric blackout (injected)")
         if self.degraded_since is not None and (
             self._state is not None or self._conn_ready.is_set()
         ):
@@ -752,7 +763,13 @@ class FabricClient:
                 raise ConnectionError("fabric connection lost")
         if self._conn_lost and self._read_task and self._read_task.done():
             raise ConnectionError("fabric connection lost")
-        return await self._call_raw(op, **kwargs)
+        if not dtrace.enabled():
+            return await self._call_raw(op, **kwargs)
+        # pulls and publishes issued while a request span is active on this
+        # task show up as wire hops on its timeline; background fabric
+        # traffic (leases, watches) records nothing
+        with dtrace.wire_span("fabric:" + op):
+            return await self._call_raw(op, **kwargs)
 
     # ------------------------------------------------------------- leases
 
@@ -764,6 +781,13 @@ class FabricClient:
         return await self._call("lease_grant", ttl=ttl)
 
     async def lease_keepalive(self, lease_id: int) -> bool:
+        if faults.active():
+            inj = faults.get_injector()
+            if inj is not None and inj.keepalive_swallowed(lease_id):
+                # zombie_partition fault: the refresh is silently lost, and
+                # True keeps the worker oblivious while the fabric's janitor
+                # expires the lease and fences the epoch
+                return True
         # a blackout raises ConnectionError here — STORE-UNREACHABLE, which
         # the keepalive loop treats as "keep serving, retry" (bounded by
         # the degraded budget), distinct from alive=False = LEASE-DEAD
@@ -933,6 +957,13 @@ class FabricClient:
                 self._buffer_publish(subject, payload)
                 return 0
             raise
+        if faults.active():
+            inj = faults.get_injector()
+            if inj is not None and inj.should_drop_fabric() and self._writer is not None:
+                # injected connection drop: sever the TCP link so the
+                # failover path (connection loss -> hunt the primary ->
+                # re-establish watches and subscriptions) runs
+                self._writer.close()
         try:
             return await self._call(
                 "publish", subject=subject, payload=payload,

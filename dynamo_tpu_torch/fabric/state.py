@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 from dynamo_tpu_torch.runtime import clock as dclock
+from dynamo_tpu_torch.testing import faults
 
 logger = logging.getLogger("dynamo_tpu_torch.fabric")
 
@@ -198,10 +199,23 @@ class FabricState:
             self._janitor = None
 
     async def _janitor_loop(self) -> None:
-        """Expire dead leases and redeliver unacked queue messages."""
+        """Expire dead leases and redeliver unacked queue messages. During
+        an injected blackout (``testing/faults.py``) the store is down and
+        so is its janitor; at the heal every lease gets the grace window a
+        promoted standby grants, so a worker dark with the store is not
+        expired before its first keepalive after the heal lands."""
+        was_dark = False
         try:
             while True:
                 await asyncio.sleep(0.5)
+                if faults.active():
+                    inj = faults.get_injector()
+                    if inj is not None and inj.fabric_unreachable():
+                        was_dark = True
+                        continue
+                if was_dark:
+                    was_dark = False
+                    self.grace_all_leases(10.0)
                 self.expire_due(dclock.now())
         except asyncio.CancelledError:
             pass

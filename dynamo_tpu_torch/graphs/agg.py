@@ -4,8 +4,9 @@ Launch:  python -m dynamo_tpu_torch.serve dynamo_tpu_torch.graphs.agg
 
 The port's own copy of dynamo_tpu/graphs/agg.py. The frontend routes with
 ``DYN_ROUTER_MODE`` (round_robin, random or kv) and serves on
-``DYN_HTTP_HOST`` / ``DYN_HTTP_PORT``; the workers' engine is
-``DYN_GRAPH_ENGINE``'s (``graphs/common.py``).
+``DYN_HTTP_HOST`` / ``DYN_HTTP_PORT`` and prints its ``{"exit_stats": ...}``
+line (``run.frontend_stats``: migrations per model) when it stops; the
+workers' engine is ``DYN_GRAPH_ENGINE``'s (``graphs/common.py``).
 
 Mirrors the reference's examples/llm/graphs/agg.py (Frontend -> Processor
 -> Worker chain; our frontend folds the processor role in, as the
@@ -13,6 +14,7 @@ reference's Rust frontend does)."""
 
 from __future__ import annotations
 
+import json
 import os
 
 from dynamo_tpu_torch.sdk import depends, service
@@ -63,3 +65,8 @@ class Frontend:
         finally:
             await service.close()
             await service.watcher.stop()
+            # the frontend's own record, last: migrations per model, frames
+            # refused from fenced workers, its KV routers' decisions
+            from dynamo_tpu_torch.run import frontend_stats
+
+            print(json.dumps({"exit_stats": frontend_stats(service)}), flush=True)

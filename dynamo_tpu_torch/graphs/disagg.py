@@ -89,6 +89,8 @@ class PrefillWorker:
         from dynamo_tpu_torch.runtime.fencing import make_stamp
 
         engine, _mdc = await _build_engine()
+        # the prefill worker's own track on an assembled trace
+        engine.trace_proc = f"PrefillWorker:{runtime.primary_lease & 0xFFFFFF:x}"
         svc = PrefillWorkerService(
             runtime.fabric, _ns(), engine,
             stamp=make_stamp(runtime.primary_lease, runtime.fencing_epoch),

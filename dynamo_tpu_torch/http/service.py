@@ -27,10 +27,21 @@ else ``DYN_DEFAULT_DEADLINE_MS`` for the whole request): an engine sheds an
 expired request with the typed ``deadline_exceeded`` error, a 504 when not
 streamed and an SSE ``event: error`` when streamed.
 
+Tracing (``DYN_TRACE=1``, ``telemetry/trace.py``): each completion runs
+under an ``http_request`` root span that honours an inbound W3C
+``traceparent`` (else mints a trace id) and is echoed as ``x-dyn-trace-id``;
+the per-phase breakdown rides ``usage.timing`` on the final SSE usage chunk
+and on unary responses; ``DYN_TRACE_DIR`` gets one Chrome trace file per
+request; ``GET /debug/traces/{request_id}`` (a request id or a trace id)
+serves the assembled cross-process trace as Chrome trace-event JSON, waiting
+up to ``DYN_TRACE_ASSEMBLE_MS`` (250) for spans still on their way, and
+answers 404 "tracing is disabled" when off.
+
 Tokenizing, templating and detokenizing run on the event loop, per request,
 as in the reference; the engine keeps its device calls on its own thread.
-Not ported: Prometheus ``/metrics``, admission and brownout, SLO tracking,
-tracing, embeddings, ``/v1/responses`` and tool calling.
+Not ported: Prometheus ``/metrics``, admission and brownout, SLO tracking
+and ``DYN_TRACE=auto``, the ``/debug/traces`` exemplar list, embeddings,
+``/v1/responses`` and tool calling.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ from dynamo_tpu_torch.protocols.openai import (
     ModelList,
 )
 from dynamo_tpu_torch.protocols.sse import encode_done, encode_json_event
+from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.http")
 
@@ -122,6 +134,14 @@ def _error_payload(message: Optional[str]) -> dict:
         except (ValueError, TypeError):
             pass
     return {"cause": message or "engine error", "code": "internal_error"}
+
+
+def _usage_timing_block(ctx: Context) -> dict:
+    """The ``usage.timing`` payload of a finished request: the trace's
+    per-phase breakdown ({} with tracing off)."""
+    if dtrace.enabled():
+        return dtrace.breakdown(dtrace.ctx_trace_id(ctx)) or {}
+    return {}
 
 
 def _error_body(payload: dict) -> dict:
@@ -237,9 +257,13 @@ class ModelExecution:
         if ctx.is_killed():
             return
         if include_usage:
-            yield Annotated.from_data(
-                gen.usage_chunk(len(pre.token_ids), counters["completion"]).to_dict()
-            )
+            chunk = gen.usage_chunk(len(pre.token_ids), counters["completion"]).to_dict()
+            # the final SSE chunk carries the per-request phase breakdown
+            # (the workers' spans arrived on their final frames)
+            tb = _usage_timing_block(ctx)
+            if tb and chunk.get("usage") is not None:
+                chunk["usage"]["timing"] = tb
+            yield Annotated.from_data(chunk)
 
     async def chat_stream(self, request: ChatCompletionRequest, ctx: Context) -> AsyncIterator[Annotated]:
         pre, prompt = self.preprocessor.preprocess_chat(request)
@@ -541,6 +565,8 @@ class HttpService:
     async def _dispatch(self, conn: _Connection, req: _Request) -> bool:
         """Serve one request; False when the connection must close."""
         handler = self._routes.get((req.method, req.path))
+        if handler is None and req.method == "GET" and req.path.startswith("/debug/traces/"):
+            handler = self._debug_trace
         if handler is None:
             if any(path == req.path for _, path in self._routes):
                 await conn.send_json(405, {"error": {"message": f"method {req.method} not allowed",
@@ -590,7 +616,36 @@ class HttpService:
 
     @staticmethod
     def _resp_headers(ctx: Context) -> dict[str, str]:
-        return {"x-request-id": ctx.id}
+        h = {"x-request-id": ctx.id}
+        tid = dtrace.ctx_trace_id(ctx)
+        if tid:
+            h["x-dyn-trace-id"] = tid
+        return h
+
+    @staticmethod
+    def _trace_root(req: _Request, ctx: Context, endpoint: str):
+        """Open the request's trace root, honouring an inbound W3C
+        ``traceparent`` (a fresh trace id otherwise)."""
+        if not dtrace.enabled():
+            return dtrace.NULL_CM
+        tid = sid = None
+        tp = req.headers.get("traceparent")
+        if tp:
+            tid, sid = dtrace.parse_traceparent(tp)
+        return dtrace.root_span(
+            "http_request", ctx, trace_id=tid, parent_id=sid,
+            proc="frontend", endpoint=endpoint, request_id=ctx.id,
+        )
+
+    @staticmethod
+    def _finish_trace(ctx: Context) -> None:
+        """Request-completion hook: with DYN_TRACE=1 the assembled trace
+        goes to DYN_TRACE_DIR when it is set."""
+        if not dtrace.enabled():
+            return
+        tid = dtrace.ctx_trace_id(ctx)
+        if tid:
+            dtrace.maybe_write_trace(tid, ctx.id)
 
     @staticmethod
     def _resolve_priority(req: _Request, api_req: Any, ctx: Context) -> None:
@@ -674,7 +729,13 @@ class HttpService:
         finally:
             with contextlib.suppress(Exception):
                 await stream.aclose()
-        await conn.send_json(200, agg.finish().to_dict(), self._resp_headers(ctx), req.keep_alive)
+        d = agg.finish().to_dict()
+        tb = _usage_timing_block(ctx)
+        if tb:
+            usage = d.get("usage") or {}
+            usage["timing"] = tb
+            d["usage"] = usage
+        await conn.send_json(200, d, self._resp_headers(ctx), req.keep_alive)
 
     # ------------------------------------------------------------ handlers
 
@@ -690,20 +751,26 @@ class HttpService:
                 raise _Reply(501, "tool calling is not supported", "not_implemented")
             self._resolve_priority(req, chat_req, ctx)
             self._arm_deadline(ctx, chat_req)
-            stream = execution.chat_stream(chat_req, ctx)
             try:
-                # render and tokenize before any byte goes out, so a
-                # template's raise_exception is a 400 (the reference lets
-                # it escape as a 500 or a cut stream)
-                first = await anext(stream, None)
-            except ValueError as e:
-                await stream.aclose()
-                raise _Reply(400, f"invalid request: {e}") from None
-            stream = _prepend(first, stream)
-            if chat_req.stream:
-                await self._stream_sse(conn, req, ctx, stream)
-            else:
-                await self._unary(conn, req, ctx, stream, ChatDeltaAggregator())
+                with self._trace_root(req, ctx, "chat_completions") as root:
+                    root.set(model=chat_req.model, stream=bool(chat_req.stream),
+                             priority=ctx.decisions().priority)
+                    stream = execution.chat_stream(chat_req, ctx)
+                    try:
+                        # render and tokenize before any byte goes out, so a
+                        # template's raise_exception is a 400 (the reference
+                        # lets it escape as a 500 or a cut stream)
+                        first = await anext(stream, None)
+                    except ValueError as e:
+                        await stream.aclose()
+                        raise _Reply(400, f"invalid request: {e}") from None
+                    stream = _prepend(first, stream)
+                    if chat_req.stream:
+                        await self._stream_sse(conn, req, ctx, stream)
+                    else:
+                        await self._unary(conn, req, ctx, stream, ChatDeltaAggregator())
+            finally:
+                self._finish_trace(ctx)
         await self._reply(conn, req, ctx, run)
 
     async def _completions(self, conn: _Connection, req: _Request, ctx: Context) -> None:
@@ -712,11 +779,16 @@ class HttpService:
                 req, CompletionRequest, self.template and self.template.apply_completion)
             self._resolve_priority(req, comp_req, ctx)
             self._arm_deadline(ctx, comp_req)
-            stream = execution.completion_stream(comp_req, ctx)
-            if comp_req.stream:
-                await self._stream_sse(conn, req, ctx, stream)
-            else:
-                await self._unary(conn, req, ctx, stream, CompletionAggregator())
+            try:
+                with self._trace_root(req, ctx, "completions") as root:
+                    root.set(model=comp_req.model, stream=bool(comp_req.stream))
+                    stream = execution.completion_stream(comp_req, ctx)
+                    if comp_req.stream:
+                        await self._stream_sse(conn, req, ctx, stream)
+                    else:
+                        await self._unary(conn, req, ctx, stream, CompletionAggregator())
+            finally:
+                self._finish_trace(ctx)
         await self._reply(conn, req, ctx, run)
 
     async def _models(self, conn: _Connection, req: _Request, ctx: Context) -> None:
@@ -726,6 +798,55 @@ class HttpService:
     async def _health(self, conn: _Connection, req: _Request, ctx: Context) -> None:
         await conn.send_json(200, {"status": "healthy", "models": self.manager.list_models()},
                              keep_alive=req.keep_alive)
+
+    @staticmethod
+    async def _wait_assembled(probe: Callable[[], Any]) -> Any:
+        """Wait-bounded assembly (``DYN_TRACE_ASSEMBLE_MS``, 250 ms): spans
+        that arrive only through the ``trace-export`` fallback race the
+        watcher's ingest, so ``probe`` is polled until it yields something
+        or the budget lapses."""
+        try:
+            budget_ms = float(os.environ.get("DYN_TRACE_ASSEMBLE_MS", "250") or 250)
+        except ValueError:
+            budget_ms = 250.0
+        deadline = time.monotonic() + max(0.0, budget_ms) / 1e3
+        out = probe()
+        while not out and time.monotonic() < deadline:
+            await asyncio.sleep(0.02)
+            out = probe()
+        return out
+
+    async def _debug_trace(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """One request's assembled cross-process trace as Chrome
+        trace-event JSON (Perfetto, chrome://tracing); the path takes the
+        request id (x-request-id / Context id) or a raw trace id."""
+        if not dtrace.enabled():
+            await conn.send_json(404, {"error": {"message": "tracing is disabled (set DYN_TRACE=1)",
+                                                 "type": "not_found_error"}},
+                                 keep_alive=req.keep_alive)
+            return
+        rid = req.path[len("/debug/traces/"):]
+        spans = await self._wait_assembled(
+            lambda: dtrace.spans_for_trace(dtrace.trace_for_request(rid) or rid))
+        tid = dtrace.trace_for_request(rid) or rid
+        if not spans:
+            if dtrace.trace_for_request(rid) is None:
+                await conn.send_json(404, {"error": {"message": f"no trace for request {rid!r}",
+                                                     "type": "not_found_error"}},
+                                     keep_alive=req.keep_alive)
+                return
+            # the request is known (its root opened here) but its spans did
+            # not land within the budget: partial, not 404
+            await conn.send_json(200, {"traceEvents": [], "displayTimeUnit": "ms",
+                                       "otherData": {"trace_id": tid, "request_id": rid,
+                                                     "partial": True}},
+                                 keep_alive=req.keep_alive)
+            return
+        doc = dtrace.chrome_trace(tid)
+        doc["otherData"]["request_id"] = rid
+        doc["otherData"]["breakdown"] = dtrace.breakdown(tid)
+        doc["otherData"]["partial"] = False
+        await conn.send_json(200, doc, keep_alive=req.keep_alive)
 
     async def _clear_kv_blocks(self, conn: _Connection, req: _Request, ctx: Context) -> None:
         """Drop every worker group's reusable KV state (the reference's

@@ -20,6 +20,8 @@ import logging
 import os
 from typing import Optional
 
+from dynamo_tpu_torch.telemetry import trace as dtrace
+
 logger = logging.getLogger("dynamo_tpu_torch.integrity")
 
 try:  # GB/s-class non-cryptographic hash when the wheel is around
@@ -89,8 +91,11 @@ class IntegrityCounters:
         self.fenced_rejects: dict[str, int] = {}
 
     def integrity_failure(self, path: str, detail: str = "") -> None:
+        """One payload failed verification on ``path``; an
+        ``integrity_failure`` event marks the current span."""
         self.failures[path] = self.failures.get(path, 0) + 1
         logger.warning("KV integrity failure on %s%s", path, f": {detail}" if detail else "")
+        dtrace.event("integrity_failure", path=path, detail=detail or None)
 
     def quarantine(self, n: int = 1) -> None:
         self.blocks_quarantined += n
@@ -98,6 +103,7 @@ class IntegrityCounters:
     def fenced_reject(self, plane: str, epoch: int = 0) -> None:
         """A frame stamped with a fenced epoch was refused on ``plane``."""
         self.fenced_rejects[plane] = self.fenced_rejects.get(plane, 0) + 1
+        dtrace.event("fenced_reject", plane=plane, epoch=f"{epoch:x}" if epoch else None)
 
     def snapshot(self) -> dict:
         return {"integrity_failures_by_path": dict(self.failures),

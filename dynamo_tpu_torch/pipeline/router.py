@@ -3,8 +3,8 @@
 The port's own copy of dynamo_tpu/pipeline/router.py: random, round_robin,
 direct, and kv, which delegates the choice to a ``WorkerSelector`` (the
 KV-aware router's ``kv_router.KvPushRouter``) and releases the request's
-predicted load when its stream ends. Left out: the route span of the
-reference's tracing (ROADMAP.md A12).
+predicted load when its stream ends. A kv choice runs under a ``route``
+span (``telemetry/trace.py``) when the request is traced.
 
 Role-equivalent of lib/runtime/src/pipeline/network/egress/push_router.rs
 (RouterMode {Random, RoundRobin, Direct, KV} :74, constructors :113-177).
@@ -16,6 +16,7 @@ import enum
 from typing import TYPE_CHECKING, Any, Optional, Protocol
 
 from dynamo_tpu_torch.pipeline.context import Context
+from dynamo_tpu_torch.telemetry import trace as dtrace
 
 if TYPE_CHECKING:
     from dynamo_tpu_torch.runtime.component import Client, ResponseStream
@@ -67,7 +68,9 @@ class PushRouter:
             return await self.client.round_robin(request, ctx, exclude=exclude)
         # KV mode: requests expose token_ids for prefix matching
         token_ids = request.get("token_ids", []) if isinstance(request, dict) else []
-        worker_id, overlap = await self.selector.select_worker(token_ids, ctx)
+        with dtrace.span("route", ctx=ctx, tokens=len(token_ids)) as rsp:
+            worker_id, overlap = await self.selector.select_worker(token_ids, ctx)
+            rsp.set(worker=f"{worker_id:x}", overlap_blocks=overlap)
         if exclude and worker_id in exclude:
             # the KV-preferred worker just failed this request: any other
             # live instance beats replaying into the same failure

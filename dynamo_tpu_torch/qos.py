@@ -3,7 +3,7 @@
 The port's own copy of dynamo_tpu/qos.py: the three classes, their
 resolution at the edge and the drain-rate estimator behind a shed's
 Retry-After. Left out: ``effective_chunk_budget`` (the brownout ladder's
-prefill cap, ROADMAP.md A7) and the decision-provenance record that the
+prefill cap, ROADMAP.md A10 part 2) and the decision-provenance record that the
 reference's ``stamp_priority`` writes (A12).
 
 Three classes, strictly ordered:
@@ -25,7 +25,7 @@ The resolved class rides ``Context.metadata["priority"]`` (so it survives
 every wire hop the Context header already crosses) and is mirrored into
 ``PreprocessedRequest.extra["priority"]`` for engines reached without a
 Context-bearing transport. The port's engine orders its waiting queue by
-it; class-aware preemption and brownout come with A7.
+it; class-aware preemption comes with A7, brownout with A10 part 2.
 """
 
 from __future__ import annotations

@@ -5,12 +5,15 @@ index (worker cache events -> radix tree -> cost-based selection) and serves
 routing decisions on a fabric endpoint, so N stateless frontends share one
 routing brain. Left out (ROADMAP.md A10 part 2): the router's own
 ``/metrics`` and ``/health`` server (``--metrics-port`` is refused) and the
-health scorer's ejection of slow workers; the decision provenance and trace
-spans in a reply come with A12.
+health scorer's ejection of slow workers; the decision provenance in a
+reply comes with A12. A traced request's decision runs under a
+``route_decision`` span on the ``router`` track, shipped back in the reply's
+``trace``.
 
 Endpoint: ``<namespace>.router.find_best``
   request : {"token_ids": [...], "request_id": "..."}   (or {"tokens": ...})
-  response: {"worker_id": int, "overlap_blocks": int, "fleet_frac": float}
+  response: {"worker_id": int, "overlap_blocks": int, "fleet_frac": float,
+             "trace": [span dicts]}   (trace: only for a traced request)
            | {"shed": true, "retry_after_ms": int}   (fleet overloaded)
   request : {"op": "free", "request_id": "..."}  -> {"ok": true}
   request : {"op": "index"} -> {"index_blocks": {worker hex id: blocks},
@@ -39,6 +42,7 @@ import time
 from typing import Any, Optional
 
 from dynamo_tpu_torch import qos
+from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.router")
 
@@ -139,17 +143,27 @@ class StandaloneRouter:
             yield {"index_blocks": {f"{w:x}": n for w, n in self.router.indexer.block_counts().items()},
                    "decisions": self.decisions_total, "events": self.router.events_applied}
             return
-        if await self._overloaded():
-            self.shed_total += 1
-            yield {"shed": True, "retry_after_ms": self._retry_after_ms()}
-            return
-        tokens = request.get("token_ids") or request.get("tokens") or []
-        request_id = str(request.get("request_id", ""))
-        result = await self.router.route(list(tokens), request_id=request_id or None)
-        self.decisions_total += 1
+        # the trace context rides Context.metadata over the find_best hop,
+        # so the decision lands on the request's assembled timeline; the
+        # span ships back in the reply (this process has no final frame of
+        # its own on the response plane)
+        with dtrace.span("route_decision", ctx=ctx, proc="router") as rsp:
+            if await self._overloaded():
+                self.shed_total += 1
+                retry_ms = self._retry_after_ms()
+                rsp.set(shed=True, retry_after_ms=retry_ms)
+                yield {"shed": True, "retry_after_ms": retry_ms}
+                return
+            tokens = request.get("token_ids") or request.get("tokens") or []
+            request_id = str(request.get("request_id", ""))
+            result = await self.router.route(list(tokens), request_id=request_id or None)
+            self.decisions_total += 1
+            rsp.set(worker=f"{result.worker_id:x}", overlap_blocks=result.overlap_blocks)
         out = {"worker_id": result.worker_id, "overlap_blocks": result.overlap_blocks}
         if result.required_blocks:
             out["fleet_frac"] = round(result.fleet_blocks / result.required_blocks, 4)
+        if rsp.trace_id:
+            out["trace"] = dtrace.export_for_trace(rsp.trace_id, include_remote=False)
         yield out
 
     async def close(self) -> None:

@@ -211,10 +211,12 @@ def exit_stats(engine) -> dict:
     request was finished or cancelled), the tiers' traffic, the requests
     shed on their deadline, its latest admissions (request id, prompt
     tokens, prefix blocks found in the tiers) and the process's integrity
-    counters (checksum failures, quarantined blocks, fenced frames)."""
+    counters (checksum failures, quarantined blocks, fenced frames) and the
+    injected faults that fired (``DYN_FAULT``), by name."""
     from dynamo_tpu_torch.integrity import COUNTERS
     from dynamo_tpu_torch.ops import kernels
     from dynamo_tpu_torch.parallel.multihost import SpmdModelRunner
+    from dynamo_tpu_torch.testing import faults
 
     ranks = {}
     if isinstance(engine.runner, SpmdModelRunner):  # every rank's, in rank order
@@ -231,6 +233,7 @@ def exit_stats(engine) -> dict:
             "kv_onboard_errors", "deadline_exceeded")},
         "admissions": list(engine.admissions),
         "integrity": COUNTERS.snapshot(),
+        "faults_fired": dict(faults.get_injector().fired) if faults.active() else {},
     }
 
 

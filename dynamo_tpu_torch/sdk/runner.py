@@ -2,10 +2,10 @@
 
     python -m dynamo_tpu_torch.sdk.runner pkg.graphmodule:ClassName
 
-The port's own copy of dynamo_tpu/sdk/runner.py. The reference's fault
-hooks (``DYN_FAULT``, ``testing/faults.py``) are not ported (ROADMAP.md A7):
-a child started with ``DYN_FAULT`` set refuses to start rather than run
-without its fault.
+The port's own copy of dynamo_tpu/sdk/runner.py. A child started with
+``DYN_FAULT`` set arms its fault injector (``testing/faults.py``) before it
+serves: the spec is parsed at once, so a malformed one ends the child with
+its parse error instead of serving without the fault.
 
 Builds a fabric-connected DistributedRuntime from the environment
 (DYN_FABRIC_ADDR et al.), instantiates the @service class, and awaits its
@@ -59,24 +59,14 @@ async def _amain(target: str) -> None:
     await runtime.close()
 
 
-FAULTS_MISSING = (
-    "DYN_FAULT asks for the fault-injection hooks (testing/faults.py), which the port "
-    "does not have yet: ROADMAP.md A7"
-)
-
-
-def refuse_faults(env=None) -> None:
-    """A service asked to inject a fault must not run without it."""
-    if (env if env is not None else os.environ).get("DYN_FAULT"):
-        raise NotImplementedError(FAULTS_MISSING)
-
-
 def main() -> None:
     if len(sys.argv) != 2 or ":" not in sys.argv[1]:
         raise SystemExit("usage: python -m dynamo_tpu_torch.sdk.runner module:Class")
-    refuse_faults()
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from dynamo_tpu_torch.testing import faults
+
+    faults.get_injector()  # DYN_FAULT: parsed (a typo raises) and armed
     asyncio.run(_amain(sys.argv[1]))
 
 

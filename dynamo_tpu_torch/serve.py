@@ -1,8 +1,10 @@
 """`python -m dynamo_tpu_torch.serve <graph>` — launch a serve graph supervised.
 
 The port's own copy of dynamo_tpu/serve.py (its graphs are
-``dynamo_tpu_torch.graphs``). A graph started with ``DYN_FAULT`` set is
-refused: the fault hooks are not ported (ROADMAP.md A7).
+``dynamo_tpu_torch.graphs``). ``DYN_FAULT`` (in the environment, ``--env``
+or a service's own env) arms the fault injector in every child
+(``testing/faults.py``); its spec is parsed here first, so a typo fails the
+launch instead of running the graph without its fault.
 
 Role-equivalent of the reference's `dynamo serve graphs.disagg:Frontend`
 (deploy/sdk/src/dynamo/sdk/cli/serving.py:152): one command starts the
@@ -25,7 +27,7 @@ import socket
 from typing import Optional
 
 from dynamo_tpu_torch.sdk import Supervisor, load_graph
-from dynamo_tpu_torch.sdk.runner import refuse_faults
+from dynamo_tpu_torch.testing.faults import FaultSpec
 
 logger = logging.getLogger("dynamo_tpu_torch.serve")
 
@@ -57,6 +59,14 @@ async def _wait_port(host: str, port: int, timeout: float = 10.0) -> None:
     raise TimeoutError(f"fabric server not reachable on {host}:{port}")
 
 
+def check_faults(env) -> None:
+    """Parse a ``DYN_FAULT`` spec bound for the children (FaultSpecError,
+    a ValueError, on an unknown action or a bad value)."""
+    spec = (env or {}).get("DYN_FAULT", "").strip()
+    if spec:
+        FaultSpec.parse(spec)
+
+
 async def serve_graph(
     graph_module: str,
     *,
@@ -69,7 +79,7 @@ async def serve_graph(
     entry point — tests kill members and assert recovery)."""
     if "." not in graph_module:
         graph_module = f"dynamo_tpu_torch.graphs.{graph_module}"
-    refuse_faults({**os.environ, **(extra_env or {})})
+    check_faults({**os.environ, **(extra_env or {})})
     sup = Supervisor()
     addr = fabric_addr or os.environ.get("DYN_FABRIC_ADDR")
     if not addr:
@@ -82,7 +92,7 @@ async def serve_graph(
         addr = f"127.0.0.1:{port}"
     specs = load_graph(graph_module)
     for spec in specs:
-        refuse_faults(spec.env)
+        check_faults(spec.env)
     if only:
         # one service of the graph per process — how the k8s operator
         # deploys graphs (each spec.services entry is its own Deployment)

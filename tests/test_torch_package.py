@@ -61,7 +61,8 @@ def test_scan_covers_every_kernel_wrapper_and_engine_module():
                 "parallel/sharding.py", "parallel/multihost.py", "parallel/launch.py",
                 "integrity.py", "disagg/protocols.py", "disagg/router.py",
                 "disagg/colocated.py", "disagg/prefill_queue.py", "disagg/transfer.py",
-                "graphs/disagg.py", "tokens.py", "block_manager/__init__.py",
+                "graphs/disagg.py", "tokens.py", "telemetry/__init__.py", "telemetry/trace.py",
+                "testing/__init__.py", "testing/faults.py", "block_manager/__init__.py",
                 "block_manager/block.py", "block_manager/layout.py",
                 "block_manager/offload.py", "block_manager/manager.py",
                 "fabric/__init__.py", "fabric/mpack.py", "fabric/wire.py", "fabric/state.py",
@@ -1693,6 +1694,106 @@ def test_a_pinned_tier_round_trip_lands_in_place_under_a_captured_graph_on_card(
     assert [t.data_ptr() for t in _cache_leaves(runner)] == ptrs
     assert np.array_equal(graphed, eager, equal_nan=True)
     assert bm.stats.onboarded == 18 and bm.stats.integrity_failures == 0
+
+
+@pytest.mark.cuda
+def test_a_traced_graphed_dispatch_closes_its_span_after_the_fetch_on_card():
+    """Tracing on a card engine's defaults (H = 4 on CUDA graphs, captured
+    lazily while traced requests run): every ``decode_horizon`` event and
+    the ``decode`` span's end fall after the host fetch of their dispatch
+    (no hook inside a captured region, no synchronize of its own), the
+    graphs replay, and the tokens equal an untraced run's."""
+    _need_card()
+    import asyncio
+    import time
+
+    from dynamo_tpu_torch.graphs.common import build_tiny_torch_engine
+    from dynamo_tpu_torch.protocols import common as tp
+    from dynamo_tpu_torch.telemetry import trace as dtrace
+
+    prompt = [int(t) for t in np.random.default_rng(5).integers(3, 60, 40)]
+    fetched: list = []
+
+    class Fetch:
+        def __init__(self, t):
+            self.t = t
+
+        def cpu(self):
+            out = self.t.cpu()
+            fetched.append(time.monotonic_ns())
+            return out
+
+    async def tokens(engine, traced):
+        req = tp.PreprocessedRequest(token_ids=prompt, sampling=tp.SamplingOptions(greedy=True),
+                                     stop=tp.StopConditions(max_tokens=64, ignore_eos=True))
+        ctx, out = tp.Context(), []
+        dtrace.set_enabled(traced)
+        try:
+            with dtrace.root_span("request", ctx) as root:
+                async for o in engine.generate(req, ctx):
+                    out.extend(o.token_ids)
+        finally:
+            dtrace.set_enabled(False)
+        return out, root.trace_id
+
+    async def run():
+        plain = build_tiny_torch_engine(device="cuda")
+        want, _ = await tokens(plain, False)
+        await plain.close()
+        engine = build_tiny_torch_engine(device="cuda", lazy_horizon=True)
+        assert engine.config.decode_horizon == 4 and engine.runner.cuda_graphs
+        real = engine.runner.decode_multi
+        engine.runner.decode_multi = lambda *a, **k: Fetch(real(*a, **k))
+        dtrace.reset(proc="card")
+        got, tid = await tokens(engine, True)
+        await engine.close()
+        return want, got, tid, engine
+
+    want, got, tid, engine = asyncio.run(run())
+    assert got == want and engine.stats.graph_replays > 0 and engine.stats.horizon_dispatches
+    spans = {s.name: s for s in dtrace.spans_for_trace(tid)}
+    assert {"request", "queue_wait", "prefill", "decode"} <= set(spans)
+    events = [e["ns"] for e in spans["decode"].events if e["name"] == "decode_horizon"]
+    assert len(events) == engine.stats.horizon_dispatches == len(fetched)
+    assert all(ev >= f for ev, f in zip(events, fetched))
+    assert spans["decode"].end_ns >= fetched[-1]
+    dtrace.reset()
+
+
+@pytest.mark.cuda
+def test_a_corrupted_device_store_fails_its_load_and_quarantines_on_card():
+    """``corrupt_kv`` on the card path of the tiers: ``store_blocks_device``
+    copies the pages into the pinned arena on the device's stream, takes
+    the checksums after the stream is synchronized, then the fault flips a
+    host byte; the load fails its checksum, a second corrupted store of the
+    same hash quarantines it, and the device cache is never touched."""
+    _need_card()
+    from dynamo_tpu_torch import integrity
+    from dynamo_tpu_torch.block_manager import LayoutConfig, TieredBlockManager
+    from dynamo_tpu_torch.testing import faults
+
+    runner, tables, _ = _graph_runner("bf16", False)
+    cfg = runner.config
+    bm = TieredBlockManager(
+        LayoutConfig(num_layers=cfg.num_layers, page_size=GRAPH_BS, num_kv_heads=cfg.num_kv_heads,
+                     head_dim=cfg.head_dim, dtype="bfloat16"), host_blocks=8, pin_memory=True)
+    src = [int(b) for b in tables[7, :3]]
+    before = [t.clone() for t in _cache_leaves(runner)]
+    pages = runner.extract_pages(src)
+    try:
+        for attempt in range(2):
+            inj = faults.FaultInjector(faults.FaultSpec(corrupt_kv="bits"))
+            faults.set_injector(inj)
+            assert bm.store_blocks_device([77, 78, 79], *pages) == (3 if attempt == 0 else 1)
+            faults.set_injector(None)
+            assert inj.fired["corrupt_kv"] == (3 if attempt == 0 else 1)
+            with pytest.raises(integrity.IntegrityError):
+                bm.load_blocks_device([77], runner.device)
+    finally:
+        faults.set_injector(None)
+    assert bm.is_quarantined(77) and bm.stats.integrity_failures == 2
+    assert bm.store_blocks_device([77], *(p[:1] for p in pages)) == 0  # refused for good
+    assert all(torch.equal(a, b) for a, b in zip(_cache_leaves(runner), before))
 
 
 def _runner_like(runner):

@@ -7,7 +7,8 @@
   brought up, asked, and exit 0 on SIGTERM; ``agg`` with the echo engine and
   with ``tiny-torch`` on the CPU in KV mode (its greedy text equal to an
   in-process engine's), each brought up, asked and shut down.
-- ``DYN_FAULT`` is refused, naming ROADMAP.md A7.
+- ``DYN_FAULT`` arms the fault injector in a graph's child; a malformed spec
+  fails the launch and the child.
 - ``slow``, as their module's: twins of ``tests/test_fault_tolerance.py``'s
   agg-graph kill cases (a worker, the fabric) and its three supervisor cases.
 """
@@ -27,9 +28,9 @@ from dynamo_tpu.graphs import common as j_common
 from dynamo_tpu.sdk import load_graph as j_load_graph
 from dynamo_tpu_torch.graphs import common as t_common
 from dynamo_tpu_torch.sdk import load_graph
-from dynamo_tpu_torch.sdk.runner import refuse_faults
 from dynamo_tpu_torch.sdk.supervisor import ManagedProcess
-from dynamo_tpu_torch.serve import _free_port, serve_graph
+from dynamo_tpu_torch.serve import _free_port, check_faults, serve_graph
+from dynamo_tpu_torch.testing.faults import FaultSpecError
 from tests.test_torch_frontend import afetch, sse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,17 +170,37 @@ async def test_agg_graph_with_tiny_torch_workers_in_kv_mode():
     assert texts == [local, local] and local
 
 
-async def test_dyn_fault_is_refused_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A7"):
-        await serve_graph("hello_world", extra_env={"DYN_FAULT": "kill_after_tokens=3"})
-    with pytest.raises(NotImplementedError, match="A7"):
-        refuse_faults({"DYN_FAULT": "delay_dispatch=1"})
-    refuse_faults({})
-    rc = subprocess.run(
-        [sys.executable, "-m", "dynamo_tpu_torch.sdk.runner", "dynamo_tpu_torch.graphs.agg:Worker"],
-        cwd=ROOT, env=dict(os.environ, DYN_FAULT="kill_after_tokens=3"), capture_output=True, text=True,
-        timeout=60)
-    assert rc.returncode != 0 and "ROADMAP.md A7" in rc.stderr
+async def test_dyn_fault_arms_the_injector_in_a_graphs_child():
+    """``DYN_FAULT`` reaches every child and arms its injector there (the
+    child logs it before it serves); a malformed spec fails the launch and a
+    child alike, with the parser's error, instead of running unfaulted."""
+    with pytest.raises(FaultSpecError, match="unknown DYN_FAULT action"):
+        await serve_graph("hello_world", extra_env={"DYN_FAULT": "kill_after_tokns=3"})
+    check_faults({"DYN_FAULT": "delay_dispatch=1,every=2"})
+    check_faults({})
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.sdk.runner", "dynamo_tpu_torch.graphs.agg:Worker"]
+    rc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, DYN_FAULT="corrupt_kv=rot"),
+                        capture_output=True, text=True, timeout=60)
+    assert rc.returncode != 0 and "corrupt_kv mode must be bits|truncate" in rc.stderr
+    # a good spec: the child arms it, then goes on to serve (no fabric here;
+    # it is stopped once the line is seen)
+    env = dict(os.environ, DYN_FAULT="kill_after_tokens=3")
+    env.pop("DYN_FABRIC_ADDR", None)
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        armed = await asyncio.wait_for(asyncio.to_thread(_line_with, proc.stderr, "armed"), 60)
+    finally:
+        proc.kill()
+        proc.wait(10)
+    assert "fault injection armed: DYN_FAULT=kill_after_tokens=3" in armed
+
+
+def _line_with(stream, text: str) -> str:
+    for line in stream:
+        if text in line:
+            return line
+    return ""
 
 
 # ------------------------------------ twins of tests/test_fault_tolerance.py
