@@ -362,6 +362,36 @@ Phases, each of which must pass or the script exits non-zero:
                 EMA, their ratio (no bound). ``python3 chip_smoke.py --only
                 serve_trace_faults`` runs the build and this phase alone.
 
+  20. serve_peer -- the peer tier (G4-lite, block_manager/peer.py), run
+                after serve_offload on the serve phase's weights: the
+                port's fabric server as a child process and two engines from
+                build_torch_engine's defaults (H = 4 on graphs, chunk 512,
+                2112 blocks) with 4 GiB pinned host tiers, each engine on a
+                DistributedRuntime of its own, so every pull crosses the TCP
+                response plane; a PeerBlockService on A's tier, a
+                PeerBlockClient on B's. (a) A serves a 1024-token prompt and
+                offloads it; B serves it pulling from A (every onboarded
+                page bitwise A's tier page, B's tier pages bitwise A's),
+                with no client (recomputed) and from its own tier: the three
+                TTFTs, the pull split (A's load_blocks, encode, send and
+                receive, decode with verify, B's store_blocks), bytes and
+                the onboard time. (b) The KV router's scheduler over an
+                indexer fed by both engines' KV events, three 64-block
+                requests counted on A: a follower of A's live prefix routed
+                to B with a plan naming A, pull_stats.plans 1, the pull
+                directed and `pulled`, the plan's fleet heat in B's tier.
+                (c) corrupt_kv=bits on A's replies (the injector seen by
+                the peer module alone): fallback_integrity, the stream equal
+                to A's; DYN_KV_WIRE=int8: the bytes and the time; a
+                3200-token prompt (200 blocks) against the 5 s pull
+                timeout. (d) Four bulk and four interactive lanes in 63
+                usable blocks: every preemption on bulk. (e) The native
+                block hash loaded on this machine, microseconds per
+                4096-token chain against Python, digests equal. Every
+                stream within 0.25 of the dense reference (the int8 pull's
+                INT8_REF_GAP). ``python3 chip_smoke.py --only serve_peer``
+                runs the build and this phase alone.
+
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
@@ -370,9 +400,11 @@ serve_moe (13) and the workers of serve_fabric (16), serve_kv (17),
 serve_disagg_fabric (18) and serve_trace_faults (19) run
 build_torch_engine's defaults.
 
-The line before the last is one JSON object with a row per kernel; the last
-line is {"ok": true, "device": {...}}. Needs torch, numpy and the checkout;
-imports nothing of JAX.
+Before its last lines the script stops every process the run left alive
+(each one logged; SIGTERM, then SIGKILL) and waits until it is gone; a
+process that survives fails the run. The line before the last is one JSON
+object with a row per kernel; the last line is {"ok": true, "device":
+{...}}. Needs torch, numpy and the checkout; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -388,6 +420,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -445,6 +478,116 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------- processes
+
+# main() marks its environment with this run's id; every process the run
+# starts inherits it, also one whose parent exited before it did
+RUN_MARK = "CHIP_SMOKE_RUN"
+
+
+def run_processes() -> dict:
+    """{pid: command line} of every live process of this run but this one:
+    the descendants of this process and every process that carries the
+    run's mark in its environment. Zombies are left out: they hold nothing,
+    and this process's own are reaped by stop_run_processes."""
+    me = os.getpid()
+    tag = os.environ.get(RUN_MARK)
+    mark = f"{RUN_MARK}={tag}".encode() if tag else None
+    parent, found = {}, set()
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == me:
+            continue
+        pid = int(d)
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            if state in ("Z", "X"):
+                continue
+            parent[pid] = int(ppid)
+            if mark is not None:
+                with open(f"/proc/{pid}/environ", "rb") as f:
+                    if mark in f.read().split(b"\0"):
+                        found.add(pid)
+        except (OSError, ValueError):
+            continue
+    grown = True
+    while grown:
+        grown = False
+        for pid, ppid in parent.items():
+            if pid not in found and (ppid == me or ppid in found):
+                found.add(pid)
+                grown = True
+    out = {}
+    for pid in found:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                out[pid] = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+    return out
+
+
+def reap_children() -> None:
+    """Collects the exit status of every child of this process that ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_run_processes(grace_s: float = 15.0) -> dict:
+    """Stops every process this run left alive and waits until each is gone:
+    multiprocessing's resource tracker through its own shutdown, the rest
+    by SIGTERM and, ``grace_s`` later, SIGKILL (a process leaving the card
+    may take seconds). Logs each one it stops; returns those still alive,
+    which fail the run."""
+    import signal
+
+    gc.collect()
+    rt = sys.modules.get("multiprocessing.resource_tracker")
+    tracker = getattr(rt, "_resource_tracker", None)
+    if tracker is not None and hasattr(tracker, "_stop"):
+        pid = getattr(tracker, "_pid", None)
+        tracker._stop()  # closes its pipe; it exits and is waited for
+        if pid is not None:
+            log(f"stopped multiprocessing's resource tracker (pid {pid})")
+    left = run_processes()
+    if left:
+        log(f"stopping {len(left)} process(es) this run left alive: "
+            + "; ".join(f"pid {p}: {c[:200]}" for p, c in sorted(left.items())))
+    for sig, wait_s in ((signal.SIGTERM, grace_s), (signal.SIGKILL, 30.0)):
+        if not left:
+            break
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        t0 = time.perf_counter()
+        while left and time.perf_counter() - t0 < wait_s:
+            time.sleep(0.1)
+            reap_children()
+            left = run_processes()
+    reap_children()
+    return left
+
+
+def finish_run(lines: list) -> int:
+    """Stops what the run left alive; prints ``lines`` (the run's last
+    lines) and returns 0, or fails the run if a process survived."""
+    left = stop_run_processes()
+    if left:
+        print(f"[chip_smoke] FAIL: processes of this run survived SIGKILL: {left}",
+              file=sys.stderr)
+        return 1
+    for line in lines:
+        print(line, flush=True)
+    return 0
 
 
 # ------------------------------------------------------------------ timing
@@ -6974,6 +7117,475 @@ def offload_params(torch) -> tuple:
                                      quantize=q) for q in (False, True))
 
 
+# ------------------------------------------------------------ serve_peer
+
+PEER_BLOCKS = 2112  # each engine's KV pool (two 8B engines share the card)
+PEER_HOST_GB = 4  # DYN_KV_HOST_OFFLOAD_GB of each engine: 2048 pinned host blocks of 2 MiB
+PEER_PREFIX = 1024  # 64 blocks: 128 MiB of K/V in bf16
+PEER_WARM = 160  # the warm-up pull: 10 blocks
+PEER_LONG = 3200  # 200 blocks: 400 MiB
+PEER_OUT = 16
+PEER_LEADER_OUT = 160  # leg (b): the leader still decodes while the follower is routed
+PEER_LOAD = 3  # leg (b): requests of 64 blocks the scheduler counts on A
+PEER_PREEMPT_BLOCKS = 64  # leg (d): 63 usable blocks for eight lanes growing to 9-11
+PEER_PREEMPT_PROMPTS = [40, 56, 72, 48, 64, 80, 44, 60]  # bulk, interactive, ...
+PEER_PREEMPT_OUT = 96
+HASH_TOKENS = 4096
+HASH_REPS = 200
+
+
+class PullSplit:
+    """Times each peer pull's pieces while installed: the serving tier's
+    ``load_blocks``, the payload's encode, the puller's decode with verify,
+    its ``store_blocks`` and the whole ``fetch_remote_prefix``; what is left
+    is the request's hop through the fabric and the reply's pack, send,
+    receive and unpack (``send_receive_ms``). Both engines run in this
+    process, so the pieces run one after the other on its event loop and
+    executor threads."""
+
+    def __init__(self, serving_manager, client) -> None:
+        from dynamo_tpu_torch.disagg.protocols import KvBlockPayload
+
+        self.P, self.m_src, self.client = KvBlockPayload, serving_manager, client
+        self.rows: list = []
+        self._cur: dict = {}
+        self._saved = (KvBlockPayload.__dict__["encode"], KvBlockPayload.__dict__["decode"])
+
+    def _timed(self, key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self._cur[key] = self._cur.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return run
+
+    def install(self) -> None:
+        enc, dec = self._saved
+        self.P.encode = classmethod(self._timed("encode_ms", enc.__func__))
+        self.P.decode = self._timed("decode_verify_ms", dec)
+        self.m_src.load_blocks = self._timed("load_ms", type(self.m_src).load_blocks.__get__(self.m_src))
+        m_dst = self.client.manager
+        m_dst.store_blocks = self._timed("store_ms", type(m_dst).store_blocks.__get__(m_dst))
+        client, fetch = self.client, type(self.client).fetch_remote_prefix.__get__(self.client)
+
+        async def timed_fetch(seq_hashes, plan=None):
+            self._cur = {}
+            b0, o0 = client.fetched_bytes, dict(client.pull_outcomes)
+            t0 = time.perf_counter()
+            n = await fetch(seq_hashes, plan=plan)
+            row = dict(self._cur, total_ms=(time.perf_counter() - t0) * 1e3, blocks=n,
+                       bytes=client.fetched_bytes - b0, planned=plan is not None,
+                       outcomes={k: v - o0.get(k, 0) for k, v in client.pull_outcomes.items()
+                                 if v != o0.get(k, 0)})
+            row["send_receive_ms"] = row["total_ms"] - sum(
+                row.get(k, 0.0) for k in ("load_ms", "encode_ms", "decode_verify_ms", "store_ms"))
+            self.rows.append(row)
+            return n
+
+        client.fetch_remote_prefix = timed_fetch
+
+    def uninstall(self) -> None:
+        self.P.encode, self.P.decode = self._saved
+        for obj, name in ((self.m_src, "load_blocks"), (self.client.manager, "store_blocks"),
+                          (self.client, "fetch_remote_prefix")):
+            obj.__dict__.pop(name, None)
+
+    def take(self, tag: str, outcome: Optional[str] = None) -> dict:
+        """The one pull since the last take (fetches that found no peer
+        holding the prompt, which count no outcome, are dropped)."""
+        self.rows = [r for r in self.rows if r["outcomes"]]
+        if len(self.rows) != 1:
+            raise SmokeError(f"serve_peer/{tag}: {len(self.rows)} pulls, want 1: {self.rows}")
+        row = self.rows.pop()
+        if outcome is not None and set(row["outcomes"]) != {outcome}:
+            raise SmokeError(f"serve_peer/{tag}: pull outcomes {row['outcomes']}, want "
+                             f"only {outcome}")
+        return row
+
+
+def hash_times(rng) -> dict:
+    """The native block-hash chain against the Python one over a 4096-token
+    prompt (128256-id vocabulary, block 16): microseconds per chain, the
+    median of ``HASH_REPS``, and the digests compared."""
+    from dynamo_tpu_torch import native
+    from dynamo_tpu_torch.tokens import _py_seq_hash_chain, compute_seq_hash_chain
+
+    if not native.native_available():
+        raise SmokeError("serve_peer: the native block hash did not load on this machine")
+    toks = rng.integers(0, LLAMA31_8B["vocab_size"], HASH_TOKENS).tolist()
+    if compute_seq_hash_chain(toks, BLOCK) != _py_seq_hash_chain(toks, BLOCK):
+        raise SmokeError("serve_peer: native and Python hash chains differ")
+
+    def med_us(fn):
+        ts = []
+        for _ in range(HASH_REPS):
+            t0 = time.perf_counter()
+            fn(toks, BLOCK)
+            ts.append((time.perf_counter() - t0) * 1e6)
+        return statistics.median(ts)
+
+    nat, py = med_us(compute_seq_hash_chain), med_us(_py_seq_hash_chain)
+    return {"tokens": HASH_TOKENS, "native_us": nat, "python_us": py, "speedup": py / nat,
+            "library": str(native.library_path())}
+
+
+def phase_serve_peer(torch, np, card: str, params) -> dict:
+    """The peer tier (G4-lite) on the card (see the module docstring, phase
+    20): a fabric server process, two engines with pinned host tiers whose
+    pulls cross the TCP response plane; (a) undirected pulls, (b) a pull
+    directed by the KV router's plan, (c) faults and limits, (d)
+    class-aware preemption, (e) the native block hash."""
+    from dynamo_tpu_torch.block_manager import PeerBlockClient, PeerBlockService
+    from dynamo_tpu_torch.block_manager import peer as peer_mod
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.kv_router.indexer import KvIndexer
+    from dynamo_tpu_torch.kv_router.protocols import RouterEvent
+    from dynamo_tpu_torch.kv_router.publisher import KvEventPublisher
+    from dynamo_tpu_torch.kv_router.scheduler import (
+        DefaultWorkerSelector, KvRouterConfig, KvScheduler,
+    )
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.testing import faults
+    from dynamo_tpu_torch.tokens import compute_seq_hash_chain
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20)
+
+    def tokens(n):
+        return rng.integers(0, LLAMA31_8B["vocab_size"], n).tolist()
+
+    def greedy(prompt, n, priority=None):
+        extra = {"priority": priority} if priority else {}
+        return PreprocessedRequest(token_ids=list(prompt), sampling=SamplingOptions(greedy=True),
+                                   stop=StopConditions(max_tokens=n), extra=extra)
+
+    def build(gb, **kw):
+        os.environ["DYN_KV_HOST_OFFLOAD_GB"] = repr(gb)
+        try:
+            engine = build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+                                        max_model_len=MAX_MODEL_LEN, seed=0, params=params, **kw)
+        finally:
+            os.environ.pop("DYN_KV_HOST_OFFLOAD_GB")
+        offload_engine_check(engine)
+        return engine
+
+    async def serve(tag, engine, reqs, ctxs=None, bound=0.25) -> list:
+        """The requests through ``engine``, checked; each greedy stream held
+        to the dense reference; the offloads drained."""
+        async def one(req, ctx):
+            toks, reason, t0, ttft = [], None, time.perf_counter(), None
+            async for out in engine.generate(req, ctx):
+                if out.token_ids and ttft is None:
+                    ttft = time.perf_counter() - t0
+                toks.extend(out.token_ids)
+                if out.finish_reason is not None:
+                    reason = out.finish_reason
+                    if out.error:
+                        raise SmokeError(f"serve_peer/{tag}: request failed: {out.error}")
+            return toks, reason, ttft
+
+        ctxs = ctxs or [Context() for _ in reqs]
+        outs = await asyncio.gather(*(one(r, c) for r, c in zip(reqs, ctxs)))
+        check_outputs(f"serve_peer/{tag}", outs, reqs, FinishReason)
+        for r, (toks, _, _) in zip(reqs, outs):
+            reference_check(torch, engine.runner, r.token_ids, toks, bound=bound)
+        await engine.drain_offloads()
+        return outs
+
+    async def until_held(bm, hashes, tag, timeout=30.0):
+        t0 = time.perf_counter()
+        while not all(h in bm for h in hashes):
+            if time.perf_counter() - t0 > timeout:
+                raise SmokeError(f"serve_peer/{tag}: the tier never held the prompt's blocks")
+            await asyncio.sleep(0.005)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    fport = free_port()
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    flog = open(os.path.join(SERVE_DIR, "peer_fabric.log"), "w")
+    fabric = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch.fabric.server", "--host",
+                               "127.0.0.1", "--port", str(fport)], cwd=root, env=env, stdout=flog,
+                              stderr=subprocess.STDOUT)
+    res: dict = {"card": card, "host_gb": PEER_HOST_GB, "blocks": PEER_BLOCKS,
+                 "block_bytes": BLOCK_BYTES}
+
+    async def go():
+        import socket
+
+        t0 = time.perf_counter()
+        while True:  # the server accepts connections
+            try:
+                socket.create_connection(("127.0.0.1", fport), timeout=1).close()
+                break
+            except OSError:
+                if fabric.poll() is not None or time.perf_counter() - t0 > 30:
+                    raise SmokeError("serve_peer: the fabric server did not start")
+                await asyncio.sleep(0.1)
+        addr = f"127.0.0.1:{fport}"
+        drt_a = await DistributedRuntime.from_settings(RuntimeConfig(fabric_addr=addr))
+        drt_b = await DistributedRuntime.from_settings(RuntimeConfig(fabric_addr=addr))
+        wa, wb = drt_a.primary_lease, drt_b.primary_lease
+        a = build(PEER_HOST_GB, num_blocks=PEER_BLOCKS)
+        b = build(PEER_HOST_GB, num_blocks=PEER_BLOCKS)
+        bm_a, bm_b = a.block_manager, b.block_manager
+        svc = PeerBlockService(drt_a, "peer", bm_a, publish_interval_s=0.05, worker_id=wa)
+        client = PeerBlockClient(drt_b, "peer", bm_b)
+        split = PullSplit(bm_a, client)
+        legs: dict = {}
+        try:
+            await svc.start()
+            b.peer_block_client = client
+            split.install()
+            # warm both engines (graph captures) and the pull path (the
+            # endpoint client, the fence watch, the response server)
+            for e in (a, b):
+                await serve("warm", e, [greedy(tokens(64), 8)])
+            split.rows.clear()
+            w = tokens(PEER_WARM)
+            await serve("warm_a", a, [greedy(w, 8)])
+            await until_held(bm_a, compute_seq_hash_chain(w, BLOCK), "warm")
+            await asyncio.sleep(0.2)  # the advert publishes
+            await serve("warm_pull", b, [greedy(w, 8)])
+            legs["warm_pull"] = split.take("warm_pull", "pulled")
+
+            # (a) undirected: A serves the prompt; B pulls it, recomputes
+            # it with no client, then hits its own tier
+            p = tokens(PEER_PREFIX)
+            chain = compute_seq_hash_chain(p, BLOCK)
+            a_out = await serve("a_source", a, [greedy(p, PEER_OUT)])
+            await until_held(bm_a, chain, "a")
+            await asyncio.sleep(0.2)
+            pages_a = bm_a.load_blocks_device(chain, a.runner.device)
+            probe = OnboardProbe(torch, b)
+            probe.reset(chain)
+            probe.stash = {h: [t[i].clone() for t in pages_a] for i, h in enumerate(chain)}
+            s0 = _int_stats(b.stats)
+            t_on = []
+            onboard = b._onboard_prefix
+
+            async def timed_onboard(seq):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                n = await onboard(seq)
+                torch.cuda.synchronize()
+                t_on.append((time.perf_counter() - t1) * 1e3)
+                return n
+
+            b._onboard_prefix = timed_onboard
+            pulled = await serve("a_pulled", b, [greedy(p, PEER_OUT)])
+            del b._onboard_prefix
+            st = {k: v - s0[k] for k, v in _int_stats(b.stats).items()}
+            pull = split.take("a_pulled", "pulled")
+            pages_b = bm_b.load_blocks_device(chain, b.runner.device)
+            same_tier = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                            for x, y in zip(pages_a, pages_b))
+            want_on = len(chain)  # every block onboarded; the last one's tokens are prefilled again
+            if pull["blocks"] != len(chain) or not same_tier or probe.compared != want_on \
+                    or probe.mismatched or probe.unstored or st["kv_onboarded_blocks"] != want_on:
+                raise SmokeError(f"serve_peer/a: pulled {pull}, tier pages equal {same_tier}, "
+                                 f"{probe.row()}, {st}")
+            landed = probe.row()
+            probe.reset(())
+            b.peer_block_client = None
+            bm_b.clear()
+            recomputed = await serve("a_recompute", b, [greedy(p, PEER_OUT)])
+            if any(r["outcomes"] for r in split.rows):
+                raise SmokeError("serve_peer/a: the client pulled with no client set")
+            await until_held(bm_b, chain, "a_recompute")
+            s0 = _int_stats(b.stats)
+            hit = await serve("a_local_hit", b, [greedy(p, PEER_OUT)])
+            if _int_stats(b.stats)["kv_onboarded_blocks"] - s0["kv_onboarded_blocks"] != want_on:
+                raise SmokeError("serve_peer/a: the local hit did not onboard the prefix")
+            b.peer_block_client = client
+            legs["a_undirected"] = {
+                "prompt_tokens": len(p), "pull": pull, "onboard_ms": t_on,
+                "onboarded_vs_source_tier": landed, "tier_pages_equal": same_tier,
+                "ttft_ms": {"source": a_out[0][2] * 1e3, "pulled": pulled[0][2] * 1e3,
+                            "recomputed": recomputed[0][2] * 1e3, "local_hit": hit[0][2] * 1e3},
+                "tokens_equal_source": {"pulled": pulled[0][0] == a_out[0][0],
+                                        "recomputed": recomputed[0][0] == a_out[0][0],
+                                        "local_hit": hit[0][0] == a_out[0][0]},
+                "stats": st}
+
+            # (b) directed: the KV router's scheduler over both engines'
+            # events routes a follower to B through the load term (A counts
+            # three 64-block requests more) and plans a pull from A
+            indexer = KvIndexer(BLOCK, expiration_duration=600.0)
+
+            class Events(KvEventPublisher):
+                def _publish(self, event):
+                    indexer.apply_event(RouterEvent(self.worker_id, event))
+
+            for e, wid in ((a, wa), (b, wb)):
+                pub = Events(None, wid)
+                e.on_blocks_stored, e.on_blocks_removed = pub.on_blocks_stored, pub.on_blocks_removed
+            cfg = KvRouterConfig(router_temperature=0.0, prefix_pull=True)
+            sched = KvScheduler(BLOCK, DefaultWorkerSelector(cfg), config=cfg)
+            sched.update_workers([wa, wb])
+            for i in range(PEER_LOAD):
+                sched.sequences.add_request_chain(wa, compute_seq_hash_chain(tokens(PEER_PREFIX),
+                                                                             BLOCK), 0, f"load{i}")
+            p2 = tokens(PEER_PREFIX)
+            chain2 = compute_seq_hash_chain(p2, BLOCK)
+            leader = asyncio.ensure_future(serve("b_leader", a, [greedy(p2 + tokens(64),
+                                                                         PEER_LEADER_OUT)]))
+            await until_held(bm_a, chain2, "b_leader")
+            follower = p2 + tokens(64)
+            overlap = indexer.find_matches_for_request(follower)
+            if overlap.scores.get(wa, 0) < len(chain2):
+                raise SmokeError(f"serve_peer/b: the index holds {overlap.scores} of A's prefix")
+            await asyncio.sleep(0.2)  # A's advert names the prefix
+            route = sched.schedule(follower, overlap, request_id="follower")
+            plan = route.pull_plan
+            if route.worker_id != wb or not plan or plan["src"] != wa \
+                    or plan["blocks"] != len(chain2) or sched.pull_stats["plans"] != 1:
+                raise SmokeError(f"serve_peer/b: routed to {route.worker_id:x} (B {wb:x}) with "
+                                 f"plan {plan and {k: plan[k] for k in ('src', 'blocks', 'avoid')}}, "
+                                 f"{sched.pull_stats}")
+            ctx = Context()
+            ctx.decisions().pull_plan = plan
+            directed = await serve("b_follower", b, [greedy(follower, PEER_OUT)], [ctx])
+            await leader
+            row = split.take("b_directed", "pulled")
+            if not row["planned"] or row["blocks"] != len(chain2) \
+                    or any(h not in bm_b._fleet_heat for h in chain2):
+                raise SmokeError(f"serve_peer/b: {row}, fleet heat noted "
+                                 f"{sum(h in bm_b._fleet_heat for h in chain2)}")
+            for e in (a, b):
+                e.on_blocks_stored = e.on_blocks_removed = None
+            legs["b_directed"] = {
+                "routed_to_b": True, "plan": {k: plan[k] for k in ("blocks", "avoid")},
+                "plan_src_is_a": True, "freq_head": plan.get("freq", [])[:4],
+                "pull_stats": dict(sched.pull_stats), "pull": row,
+                "ttft_ms": directed[0][2] * 1e3}
+
+            # (c) faults and limits: corrupt_kv=bits on A's replies (the
+            # injector seen by the peer module alone: both engines' tiers
+            # run in this process), the int8 wire, ~200 blocks
+            p3 = tokens(PEER_PREFIX)
+            src3 = await serve("c_source", a, [greedy(p3, PEER_OUT)])
+            await until_held(bm_a, compute_seq_hash_chain(p3, BLOCK), "c")
+            await asyncio.sleep(0.2)
+            inj = faults.FaultInjector(faults.FaultSpec.parse("corrupt_kv=bits"))
+            peer_mod.faults = types.SimpleNamespace(active=lambda: True, get_injector=lambda: inj)
+            try:
+                corrupt = await serve("c_corrupt", b, [greedy(p3, PEER_OUT)])
+            finally:
+                peer_mod.faults = faults
+            crow = split.take("c_corrupt", "fallback_integrity")
+            if corrupt[0][0] != src3[0][0]:
+                raise SmokeError("serve_peer/c: the stream after a refused pull differs from the "
+                                 "source's")
+            p4 = tokens(PEER_PREFIX)
+            src4 = await serve("c_source_int8", a, [greedy(p4, PEER_OUT)])
+            await until_held(bm_a, compute_seq_hash_chain(p4, BLOCK), "c_int8")
+            await asyncio.sleep(0.2)
+            os.environ["DYN_KV_WIRE"] = "int8"
+            try:
+                int8 = await serve("c_int8", b, [greedy(p4, PEER_OUT)], bound=INT8_REF_GAP)
+            finally:
+                os.environ.pop("DYN_KV_WIRE")
+            irow = split.take("c_int8", "pulled")
+            p5 = tokens(PEER_LONG)
+            src5 = await serve("c_source_long", a, [greedy(p5, PEER_OUT)])
+            await until_held(bm_a, compute_seq_hash_chain(p5, BLOCK), "c_long", timeout=60)
+            await asyncio.sleep(0.2)
+            long = await serve("c_long", b, [greedy(p5, PEER_OUT)])
+            lrow = split.take("c_long")
+            if set(lrow["outcomes"]) - {"pulled", "fallback_timeout"}:
+                raise SmokeError(f"serve_peer/c_long: {lrow}")
+            legs["c_faults_limits"] = {
+                "corrupt": {"pull": crow, "ttft_ms": corrupt[0][2] * 1e3,
+                            "source_ttft_ms": src3[0][2] * 1e3, "stream_equal_source": True,
+                            "faults_fired": inj.fired},
+                "int8_wire": {"pull": irow, "ttft_ms": int8[0][2] * 1e3,
+                              "source_ttft_ms": src4[0][2] * 1e3,
+                              "bytes_vs_bf16": irow["bytes"] / pull["bytes"]},
+                "long": {"prompt_tokens": len(p5), "pull": lrow, "ttft_ms": long[0][2] * 1e3,
+                         "source_ttft_ms": src5[0][2] * 1e3,
+                         "timeout_s": float(os.environ.get("DYN_PULL_TIMEOUT_S", "5.0"))}}
+            legs["errors"] = {"a": tier_errors("a", a), "b": tier_errors("b", b)}
+            legs["pull_outcomes_b"] = dict(b.stats.kv_pull_outcomes)
+            legs["capped_replies"] = svc.capped_replies
+        finally:
+            split.uninstall()
+            await svc.close()
+            await a.close()
+            await b.close()
+            await drt_a.close()
+            await drt_b.close()
+        del a, b, bm_a, bm_b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) class-aware preemption: four bulk and four interactive lanes
+        # in 63 usable blocks
+        c = build(1, num_blocks=PEER_PREEMPT_BLOCKS)
+        try:
+            reqs = [greedy(tokens(n), PEER_PREEMPT_OUT, "bulk" if i % 2 == 0 else "interactive")
+                    for i, n in enumerate(PEER_PREEMPT_PROMPTS)]
+            s0 = _int_stats(c.stats)
+            outs = await serve("d_preempt", c, reqs)
+            st = {k: v - s0[k] for k, v in _int_stats(c.stats).items()}
+            by_class = dict(c.stats.preemptions_by_class)
+            if not by_class.get("bulk") or by_class.get("interactive") or by_class.get("standard"):
+                raise SmokeError(f"serve_peer/d: preemptions by class {by_class}")
+            if c.allocator.free_count != PEER_PREEMPT_BLOCKS - 1:
+                raise SmokeError("serve_peer/d: blocks still held")
+            legs["d_preempt"] = {
+                "preemptions_by_class": by_class, "preempt_spills": st["preempt_spills"],
+                "onboarded": st["kv_onboarded_blocks"],
+                "ttft_ms": {r.extra["priority"]: [] for r in reqs},
+                "errors": tier_errors("d", c)}
+            for r, o in zip(reqs, outs):
+                legs["d_preempt"]["ttft_ms"][r.extra["priority"]].append(o[2] * 1e3)
+        finally:
+            await c.close()
+        return legs
+
+    try:
+        legs = asyncio.run(go())
+    finally:
+        fabric.terminate()
+        try:
+            fabric.wait(10)
+        except subprocess.TimeoutExpired:
+            fabric.kill()
+            fabric.wait()
+        flog.close()
+    legs["e_native_hash"] = hash_times(rng)
+    res["legs"] = legs
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"serve_peer": res}, default=str), flush=True)
+    a, pull = legs["a_undirected"], legs["a_undirected"]["pull"]
+    log(f"serve_peer: {pull['blocks']} blocks ({pull['bytes'] / 2**20:.1f} MiB) pulled in "
+        f"{pull['total_ms']:.1f} ms: load {pull.get('load_ms', 0):.1f}, encode "
+        f"{pull.get('encode_ms', 0):.1f}, send+receive {pull['send_receive_ms']:.1f}, decode+verify "
+        f"{pull.get('decode_verify_ms', 0):.1f}, store {pull.get('store_ms', 0):.1f} ms; onboard "
+        f"{a['onboard_ms']} ms; TTFT pulled {a['ttft_ms']['pulled']:.1f} / recomputed "
+        f"{a['ttft_ms']['recomputed']:.1f} / local hit {a['ttft_ms']['local_hit']:.1f} ms "
+        f"(source {a['ttft_ms']['source']:.1f}); phase {res['phase_s']:.1f} s ({card})")
+    for tag in ("b_directed", "c_faults_limits", "d_preempt", "e_native_hash"):
+        log(f"serve_peer/{tag}: " + json.dumps(legs[tag], default=str))
+    return res
+
+
+def peer_params(torch) -> dict:
+    """The serve phase's bf16 weights (seed 0), made here for a run of
+    serve_peer alone."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import _resolve_config
+    from dynamo_tpu_torch.engine.torch_engine.weights import load_or_init_params
+
+    cfg, _ = _resolve_config(LLAMA31_8B)
+    return load_or_init_params(None, cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+
+
 # ------------------------------------------------------------ serve_moe
 
 # mistralai/Mixtral-8x7B-v0.1's published config.json; the phase serves
@@ -7305,6 +7917,7 @@ def main() -> int:
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    os.environ[RUN_MARK] = f"{os.getpid()}-{time.time_ns()}"
     try:
         from dynamo_tpu_torch.ops import _build
     except ImportError as e:
@@ -7314,10 +7927,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # ``--only serve_offload`` / ``serve_fabric`` / ``serve_kv`` / ``serve_tp``
-    # / ``serve_disagg_fabric`` / ``serve_trace_faults``: the device, the build
-    # and that phase alone (a quicker call while the phase is worked on; no
+    # / ``serve_disagg_fabric`` / ``serve_trace_faults`` / ``serve_peer``: the
+    # device, the build and that phase alone (a quicker call while the phase is worked on; no
     # kernels line)
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
+    t_lap = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Each phase's wall time, so a later phase can be sized to the
+        script's time limit."""
+        now = time.perf_counter()
+        log(f"time: {name} {now - t_lap[0]:.1f} s (script {now - t_start:.1f} s)")
+        t_lap[0] = now
+
+    t_start = t_lap[0]
     try:
         # 1. device
         kind = torch.cuda.get_device_name(0)
@@ -7329,6 +7952,7 @@ def main() -> int:
         # 2. build
         t0 = time.perf_counter()
         info = _build.build_all()
+        lap("build")
         log(f"build: {len(info)} kernels in {time.perf_counter() - t0:.1f} s")
         for name, row in info.items():
             log(f"build {name}: {row['seconds']:.1f} s")
@@ -7336,7 +7960,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
         if only in ("serve_offload", "serve_fabric", "serve_kv", "serve_tp", "serve_disagg_fabric",
-                    "serve_trace_faults"):
+                    "serve_trace_faults", "serve_peer"):
             if only == "serve_offload":
                 phase_serve_offload(torch, np, card, *offload_params(torch))
             elif only == "serve_fabric":
@@ -7347,38 +7971,44 @@ def main() -> int:
                 phase_serve_disagg_fabric(torch, np, card)
             elif only == "serve_trace_faults":
                 phase_serve_trace_faults(torch, np, card)
+            elif only == "serve_peer":
+                phase_serve_peer(torch, np, card, peer_params(torch))
             else:
                 phase_serve_kv(torch, np, card)
-            print(card, flush=True)
-            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                                     "count": count}}), flush=True)
-            return 0
+            return finish_run([card, json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": kind, "count": count}})])
         if only is not None:
             raise SmokeError(f"--only takes serve_offload, serve_fabric, serve_kv, serve_tp, "
-                             f"serve_disagg_fabric or serve_trace_faults, not {only}")
+                             f"serve_disagg_fabric, serve_trace_faults or serve_peer, not {only}")
 
         # 3. parity
         errs = phase_parity(torch)
         errs.update(phase_parity_int8(torch))
         errs.update(phase_parity_tp(torch))
+        lap("parity")
 
         # 4. serve and 5. serve_spec (each path's counters set to 0 just
         # before it, read just after)
         served = phase_serve(torch, np, card)
         engine = served.pop("engine")
+        lap("serve")
         spec = phase_serve_spec(torch, np, card, engine.runner.params)
         fused_runner = spec.pop("runner")
         spec_reqs = spec.pop("reqs")
+        lap("serve_spec")
         # 6. serve_default (its counters set to 0 just before it, read just
         # after) and 7. checkpoint
         default = phase_serve_default(torch, np, card, engine.runner.params)
         default_engine = default.pop("engine")
+        lap("serve_default")
         phase_checkpoint(torch, np, card)
+        lap("checkpoint")
         # 9. serve_int8 (each of its two runs' counters set to 0 just before
         # it, read just after)
         int8 = phase_serve_int8(torch, np, card, engine.runner.num_blocks,
                                 served["engine_peak_mem_bytes"])
         int8_runner = int8.pop("runner")
+        lap("serve_int8")
         # each kernel's launches on the path that owns it: decode (#1) on
         # the default path, prefill (#3) on the chunking-off serve path, the
         # other three on the spec path, the int8 modes on serve_int8's two
@@ -7398,6 +8028,7 @@ def main() -> int:
         rows.update(phase_kernel_times_int8(torch, card))
         rows.update(tp_partial_times(torch, card))
         log(f"peak device memory during serve: {served['peak_mem_bytes'] / 1e9:.2f} GB")
+        lap("times")
 
         # 12. serve_horizon: build_torch_engine's defaults (H = 4 on CUDA
         # graphs) beside eager runs of the same runners; each run's counters
@@ -7410,6 +8041,7 @@ def main() -> int:
         launches.update({k: horizon["spec_launches_e3"][k] for k in SPEC_KERNELS})
         launches.update({k: horizon["int8_launches"][k] for k in INT8_KERNELS
                          if k != "paged_verify_attention_int8"})
+        lap("serve_horizon")
 
         # 14. serve_disagg: a decode engine and a prefill engine from
         # build_torch_engine's defaults on this card, every shipped prompt
@@ -7423,10 +8055,16 @@ def main() -> int:
         log(f"flash_prefill_attention launches: serve {launches['flash_prefill_attention']}, "
             f"serve_disagg {from_disagg}")
         launches["flash_prefill_attention"] += sum(from_disagg.values())
+        lap("serve_disagg")
 
         # 15. serve_offload: the tiered block manager (each leg's counters
         # set to 0 just before it, read just after)
         phase_serve_offload(torch, np, card, engine.runner.params, int8_runner.params)
+        lap("serve_offload")
+        # 20. serve_peer: the peer tier over a fabric server process, the KV
+        # router's pull plan, class-aware preemption and the native hash
+        phase_serve_peer(torch, np, card, engine.runner.params)
+        lap("serve_peer")
 
         # 10. serve_http: the CLI's HTTP server in a process of its own, so
         # this process's engines leave the card first
@@ -7442,6 +8080,7 @@ def main() -> int:
                          for k, w in zip(TP_KERNELS, ("bf16", "int8"))})
         for k in TP_KERNELS:  # the B=8 step's row of Llama-3.1-8B tp=2's shard
             rows[k] = rows[f"{k}/llama31_8b_tp2/M8"]
+        lap("serve_tp")
         gc.collect()
         torch.cuda.empty_cache()
         # 13. serve_moe: Mixtral-8x7B's width at 16 layers on the card freed
@@ -7454,16 +8093,20 @@ def main() -> int:
         errs.update(moe.pop("errs"))
         rows.update(moe.pop("rows"))
         del moe
+        lap("serve_moe")
         gc.collect()
         torch.cuda.empty_cache()
         log(f"device memory held before the server starts: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
         http = phase_serve_http(torch, np, card)
+        lap("serve_http")
         # 16. serve_fabric: the fabric server, two workers and an out=dyn
         # frontend, processes of their own on this card
         phase_serve_fabric(torch, np, card, http["http_lone"]["text"])
+        lap("serve_fabric")
         # 17. serve_kv: KV-aware routing over two workers with host tiers, the
         # standalone router and the agg graph (each worker's #1 counted)
         phase_serve_kv(torch, np, card)
+        lap("serve_kv")
         # 18. serve_disagg_fabric: the disagg graph across processes (each
         # worker's counters read just before and just after its traffic);
         # #3's row adds its prefill workers' launches
@@ -7474,6 +8117,7 @@ def main() -> int:
         log(f"flash_prefill_attention launches: serve_disagg_fabric's prefill workers "
             f"{fab['launches']['flash_prefill_attention']}")
         launches["flash_prefill_attention"] += fab["launches"]["flash_prefill_attention"]
+        lap("serve_disagg_fabric")
         # 19. serve_trace_faults: a traced fleet, a worker killed by
         # DYN_FAULT, a traced disagg graph under corrupt_kv, then in this
         # process slow_decode, abort_after_tokens and tracing on / off
@@ -7481,11 +8125,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_serve_trace_faults(torch, np, card)
+        lap("serve_trace_faults")
     except Exception as e:  # noqa: BLE001 - report and fail the run
         import traceback
 
         traceback.print_exc()
         print(f"[chip_smoke] FAIL: {type(e).__name__}: {e}", file=sys.stderr)
+        stop_run_processes()
         return 1
 
     # the int8 modes replace the same Pallas kernels' int8 branches
@@ -7519,10 +8165,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]["median"] if "library_ms" in row else None,
         })
-    print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
-    return 0
+    return finish_run([card, json.dumps({"kernels": kernels}), json.dumps(
+        {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})])
 
 
 if __name__ == "__main__":

@@ -77,14 +77,19 @@ reduced to:
     with ``worker_fenced`` and new requests are refused with it;
   * cancellation (``Context.kill`` or the consumer leaving the stream)
     frees the lane and its blocks at the next loop step, also mid-chunk;
-  * when a growing sequence finds no free block, the youngest other running
-    sequence (one still being chunked included) is preempted, whatever its
-    class (the class orders admission only; class-aware victims come with
-    ROADMAP.md A7): its blocks are freed and it is re-queued, at its place
-    in the queue order (it keeps its arrival number), with its generated
-    tokens, which are re-prefilled on re-admission (recompute preemption;
-    with a block manager its KV-complete blocks go to the host tier first
-    and re-admission onboards them).
+  * when a growing sequence finds no free block, another running sequence
+    (one still being chunked included, one awaiting a remote prefill not) is
+    preempted, chosen by class (``_preempt_victim``, engine.py:1263-1300):
+    the lowest class first (bulk, then standard, then interactive), the
+    youngest within a class, and never one whose class outranks the
+    grower's. When every other lane outranks it, the grower yields itself
+    (engine.py:3184-3200). A preempted sequence's blocks are freed and it is
+    re-queued, at its place in the queue order (it keeps its arrival
+    number), with its generated tokens, which are re-prefilled on
+    re-admission (recompute preemption; with a block manager its
+    KV-complete blocks go to the host tier first and re-admission onboards
+    them). ``preemptions_by_class`` counts every preemption by the victim's
+    class.
     The storm guard (engine.py:126-139, :1307-1350): a sequence preempted
     more than ``max_preemptions`` times (``DYN_MAX_PREEMPTIONS``, 8) fails
     with the structured error ``preempted_too_often``, and each re-queue
@@ -122,6 +127,16 @@ reduced to:
     codec when the tiers' form differs. Offloads and onboards are
     best-effort, as in the reference, and every failure is counted
     (``kv_offload_errors`` / ``kv_onboard_errors``) and logged;
+  * the peer tier (G4-lite; engine.py:1596-1631), with a ``peer_block_client``
+    (block_manager/peer.py) beside the block manager: at admission, after
+    the tier lookup, the router's pull plan (riding the Context) gives the
+    tier its fleet heat (``note_fleet_heat``), and while the tiers miss part
+    of the prompt's chain the client pulls it from the peer the plan names
+    (or the best advertised one) into the local tier under a ``peer_fetch``
+    span; the lookup then runs again, so onboarding injects the pulled
+    blocks. The client's counts by outcome are mirrored into
+    ``kv_pull_outcomes`` after each fetch. As in the reference, only library
+    code builds the peer tier (no worker flag);
   * KV events: ``on_blocks_stored`` gets a Stored event per newly complete
     block (hash, parent hash, tokens, block id), ``on_blocks_removed`` the
     hashes whose last holding sequence freed them, ``on_cache_cleared``
@@ -175,9 +190,8 @@ and before a remote prefill lands, ``on_token`` per emitted token
 every lane with ``injected_fault`` through ``_abort_all`` and keeps
 serving). Off, each hook costs one flag check.
 
-Left out (ROADMAP.md lists them): the peer tier (G4-lite, A7), class-aware
-preemption (A7), brownout and ``DYN_TRACE=auto`` (A10 part 2), the goodput
-counters on the trace timeline (A12), multimodal prompts.
+Left out (ROADMAP.md lists them): brownout and ``DYN_TRACE=auto`` (A10 part
+2), the goodput counters on the trace timeline (A12), multimodal prompts.
 """
 
 from __future__ import annotations
@@ -214,6 +228,7 @@ from dynamo_tpu_torch.engine.torch_engine.drafter import make_drafter
 from dynamo_tpu_torch.engine.torch_engine.kv_cache import BlockAllocator, OutOfBlocks
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
 from dynamo_tpu_torch.ops.sampling import MAX_EOS_IDS, SAMPLE_CANDIDATES, make_key_data
+from dynamo_tpu_torch.pipeline.context import decisions_of
 from dynamo_tpu_torch.protocols.common import (
     Context,
     FinishReason,
@@ -315,6 +330,7 @@ class EngineStats:
     generated_tokens: int = 0
     preemptions: int = 0
     preempted_too_often: int = 0  # sequences the storm guard failed
+    preemptions_by_class: dict = field(default_factory=dict)  # the victim's class
     # speculative decoding: a "draft" is one lane-dispatch carrying >= 1
     # proposed token; verify_steps counts verify dispatches
     num_drafts: int = 0
@@ -351,6 +367,9 @@ class EngineStats:
     preempt_spills: int = 0
     kv_onboarded_blocks: int = 0
     kv_onboard_errors: int = 0
+    # the peer tier: prefix blocks pulled from peers by outcome
+    # (block_manager/peer.PULL_OUTCOMES), mirrored from the client
+    kv_pull_outcomes: dict = field(default_factory=dict)
     # the stuck-dispatch watchdog
     watchdog_trips: int = 0
     # requests shed on their deadline or TTFT budget (the four points)
@@ -493,10 +512,12 @@ class TorchEngine:
     """AsyncEngine over a TorchModelRunner (see the module docstring).
     ``disagg_router`` and ``remote_prefill_client`` make it a decode worker
     of disaggregated prefill; ``block_manager`` (a
-    ``block_manager.TieredBlockManager``) gives it host and disk tiers;
-    ``on_blocks_stored`` / ``on_blocks_removed`` receive its KV events. An
-    engine under a tensor-parallel group takes all of them: its runner's
-    block moves run on every rank (parallel/multihost.py)."""
+    ``block_manager.TieredBlockManager``) gives it host and disk tiers, and
+    ``peer_block_client`` (a ``block_manager.PeerBlockClient`` over the same
+    manager) the peer tier; ``on_blocks_stored`` / ``on_blocks_removed``
+    receive its KV events. An engine under a tensor-parallel group takes all
+    of them: its runner's block moves run on every rank
+    (parallel/multihost.py)."""
 
     def __init__(
         self, runner: TorchModelRunner, config: Optional[TorchEngineConfig] = None,
@@ -504,6 +525,7 @@ class TorchEngine:
         block_manager: Optional[Any] = None,
         on_blocks_stored: Optional[Callable[[list[dict]], None]] = None,
         on_blocks_removed: Optional[Callable[[list[int]], None]] = None,
+        peer_block_client: Optional[Any] = None,
     ) -> None:
         self.runner = runner
         self.config = config or TorchEngineConfig(
@@ -548,6 +570,9 @@ class TorchEngine:
         self.block_manager = block_manager
         self._offload_queue = OffloadQueue() if block_manager is not None else None
         self._tier_tasks: set[asyncio.Task] = set()
+        # the peer tier: pulls the part of a prompt's chain the tiers miss
+        # from another worker's tier
+        self.peer_block_client = peer_block_client
         # KV events: a Stored event per newly complete block of a sequence,
         # a Removed one when the last sequence holding a hash frees it;
         # on_cache_cleared fires on clear_kv_blocks
@@ -779,6 +804,8 @@ class TorchEngine:
         or for the rest, they are recomputed on re-admission."""
         victim.preemptions += 1
         self.stats.preemptions += 1
+        by_class = self.stats.preemptions_by_class
+        by_class[victim.priority] = by_class.get(victim.priority, 0) + 1
         if victim.preemptions <= self.config.max_preemptions:
             self._spill_preempted(victim)
         self._free_seq(victim)
@@ -798,7 +825,8 @@ class TorchEngine:
                 "preempted_too_often",
             ))
             return
-        logger.debug("preempting seq %d (preemption #%d)", victim.seq_id, victim.preemptions)
+        logger.debug("preempting seq %d (%s, preemption #%d)", victim.seq_id, victim.priority,
+                     victim.preemptions)
         if victim.spans:
             self._sp_event(victim, "preempted", count=victim.preemptions)
             self._sp_close_all(victim)
@@ -808,6 +836,23 @@ class TorchEngine:
         backoff_s = min(2.0, self.config.preempt_backoff_ms / 1e3 * (1 << (victim.preemptions - 1)))
         victim.requeue_after = time.monotonic() + backoff_s
         self._enqueue(victim)
+
+    def _preempt_victim(self, exclude: _Sequence) -> bool:
+        """Preempt a lane for ``exclude``'s growth, class-aware
+        (engine.py:1263-1300): the lowest class first (bulk absorbs
+        pressure before standard before interactive), the youngest within a
+        class, and never one whose class outranks the grower's; a lane
+        awaiting a remote prefill is skipped. False when no lane may be
+        taken."""
+        worst = max(qos.CLASS_RANK.values())
+        for rank in range(worst, exclude.rank - 1, -1):
+            for victim in reversed(self._admit_order):
+                if (victim is exclude or victim.slot is None or victim.pending_remote
+                        or victim.rank != rank):
+                    continue
+                self._preempt(victim)
+                return True
+        return False
 
     async def _device(self, fn, label: str):
         """Run one device call (and its host fetch) on the worker thread,
@@ -1337,9 +1382,10 @@ class TorchEngine:
         the chunk / pack routing, where a hit that skips at least one full
         block is onboarded and chunked from after it, even a short prompt:
         the chunked prefill is the one that starts at an offset, and the
-        final chunk keeps at least one token (:1662-1690). Not ported, and
-        so not branched on here: multimodal prompts (A6), QoS re-admission
-        backoff and the peer tier (A7)."""
+        final chunk keeps at least one token (:1662-1690). Between the
+        lookup and the routing, the peer tier (``_peer_fetch``) may pull the
+        rest of the chain into the tiers. Not ported, and so not branched on
+        here: multimodal prompts (A6)."""
         admitted = False
         C = self.runner.prefill_chunk_tokens
         bs = self.config.block_size
@@ -1363,6 +1409,7 @@ class TorchEngine:
                 seq.pending_chain = TokenBlockSequence(list(seq.token_ids), bs)
                 seq.prefix_hashes = [b.block_hash for b in seq.pending_chain.blocks]
                 seq.cached_prefix_blocks = bm.lookup_prefix(seq.prefix_hashes)
+                await self._peer_fetch(seq)
                 hit_len = seq.cached_prefix_blocks * bs
             self.admissions.append({"id": seq.ctx.id, "prompt_tokens": len(seq.token_ids),
                                     "cached_blocks": seq.cached_prefix_blocks})
@@ -1412,6 +1459,27 @@ class TorchEngine:
             if group:
                 await self._run_packed_prefill(group)
         return admitted
+
+    async def _peer_fetch(self, seq: _Sequence) -> None:
+        """The router's plan and the peer tier at admission
+        (engine.py:1596-1631): the plan's fleet heat goes to the tier's
+        eviction scoring; while the tiers miss part of the chain, the peer
+        client pulls it (directed by the plan when there is one) and the
+        lookup runs again."""
+        bm = self.block_manager
+        plan = decisions_of(seq.ctx).pull_plan
+        if plan and plan.get("freq"):
+            bm.note_fleet_heat([int(h) for h in plan.get("hashes", [])], plan["freq"])
+        client = self.peer_block_client
+        if client is None or seq.cached_prefix_blocks >= len(seq.prefix_hashes):
+            return
+        with dtrace.span("peer_fetch", ctx=seq.ctx, proc=self.trace_proc,
+                         blocks_missing=len(seq.prefix_hashes) - seq.cached_prefix_blocks,
+                         planned=bool(plan)):
+            fetched = await client.fetch_remote_prefix(seq.prefix_hashes, plan=plan)
+        self.stats.kv_pull_outcomes = dict(client.pull_outcomes)
+        if fetched:
+            seq.cached_prefix_blocks = bm.lookup_prefix(seq.prefix_hashes)
 
     async def _run_prefill(self, seq: _Sequence) -> None:
         """One prompt prefilled on its own (chunking off)."""
@@ -1981,13 +2049,14 @@ class TorchEngine:
             try:
                 seq.block_ids.extend(self.allocator.alloc(1))
             except OutOfBlocks:
-                victim = next(
-                    (v for v in reversed(self._admit_order)
-                     if v is not seq and not v.pending_remote), None
-                )
-                if victim is not None:
-                    self._preempt(victim)
+                if self._preempt_victim(exclude=seq):
                     seq.block_ids.extend(self.allocator.alloc(1))
+                elif any(v is not seq and v.slot is not None and not v.pending_remote
+                         for v in self._admit_order):
+                    # every other lane outranks this one: it yields itself
+                    # (engine.py:3184-3200), its KV to the host tier when
+                    # there is one, and resumes by re-admission
+                    self._preempt(seq)
                 else:
                     self._finish_error(seq, "decode", "out of KV blocks with no preemptable "
                                        "sequence", "out_of_kv_blocks")

@@ -518,10 +518,13 @@ def load_metrics(engine: Any):
             num_requests_waiting=len(engine.waiting),
             num_deadline_exceeded=st.deadline_exceeded,
             num_watchdog_trips=st.watchdog_trips,
+            preemptions_by_class=dict(st.preemptions_by_class) or None,
             num_preempted_too_often=st.preempted_too_often,
             integrity_failures_by_path=integ["integrity_failures_by_path"] or None,
             num_blocks_quarantined=integ["blocks_quarantined"],
             fenced_rejects_by_plane=integ["fenced_rejects_by_plane"] or None,
+            # the peer tier's pulled blocks by outcome
+            kv_pulled_blocks_by_outcome=dict(st.kv_pull_outcomes) or None,
         ),
         kv_stats=KvStats(kv_active_blocks=used, kv_total_blocks=total,
                          gpu_cache_usage_perc=used / max(1, total)),

@@ -2,8 +2,8 @@
 
 The port's own copy of dynamo_tpu/kv_router/indexer.py, and the prefix-pull
 source ranking of the reference's ``KvScheduler._plan_pull``
-(``rank_pull_sources``): a pure function of the tree's overlap scores, kept
-here for A7's peer tier, which consumes it.
+(``rank_pull_sources``): a pure function of the tree's overlap scores, which
+the scheduler's ``_plan_pull`` ranks its sources by.
 
 Role-equivalent of lib/llm/src/kv_router/indexer.rs (RadixTree :187-430,
 KvIndexer :518-690) and approx.rs (ApproxKvIndexer :166): a radix/prefix

@@ -167,11 +167,14 @@ class KvPushRouter:
 
     async def select_worker(self, token_ids: list[int], context: Context) -> tuple[int, float]:
         result = await self.router.route(token_ids, request_id=context.id)
-        # the fleet-matched fraction rides Context.metadata across the hop
-        # (the reference's admission reads it as prefix heat)
+        # the pull plan and the fleet-matched fraction ride Context.metadata
+        # across the hop: the engine reads the plan (its peer tier pulls the
+        # gap, its tier takes the plan's fleet heat)
+        carrier = context.decisions()
+        if result.pull_plan is not None:
+            carrier.pull_plan = result.pull_plan
         if result.required_blocks:
-            context.decisions().kv_fleet_frac = round(
-                result.fleet_blocks / result.required_blocks, 4)
+            carrier.kv_fleet_frac = round(result.fleet_blocks / result.required_blocks, 4)
         return result.worker_id, float(result.overlap_blocks)
 
     def on_request_complete(self, context: Context) -> None:

@@ -1,13 +1,15 @@
 """Worker selection: overlap-vs-load cost with softmax sampling.
 
-The port's own copy of dynamo_tpu/kv_router/scheduler.py. Left out: the
-prefix-pull plan (``prefix_pull``, ``prefix_pull_min_blocks``,
-``_plan_pull``, a result's ``pull_plan``), which needs the peer tier
-(ROADMAP.md A7); the ranking of pull sources is
-``indexer.rank_pull_sources``. Also the health scorer's hook (the route set
-and the ``health_factors`` deweighting, A10 part 2) and the decision
-provenance records (A12). Seeded, it picks what the reference picks: both
-draw from Python's ``random``.
+The port's own copy of dynamo_tpu/kv_router/scheduler.py, with the
+prefix-pull plan (``_plan_pull``, scheduler.py:369-427): when the routed
+worker trails the fleet's best match by ``prefix_pull_min_blocks`` or more,
+the result carries a ``pull_plan`` naming the source (ranked by
+``indexer.rank_pull_sources``), which the engine's peer tier
+(block_manager/peer.py) pulls from. Left out: the health scorer's hook (the
+route set and the ``health_factors`` deweighting, A10 part 2; until then no
+worker is a suspect, as in the reference with no scorer attached) and the
+decision provenance records (A12). Seeded, it picks what the reference
+picks: both draw from Python's ``random``.
 
 Role-equivalent of lib/llm/src/kv_router/scheduler.rs (:100-446): per worker
 logit = overlap_score_weight * prefill_blocks + potential_active_blocks
@@ -24,7 +26,7 @@ import random
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Protocol
 
-from dynamo_tpu_torch.kv_router.indexer import OverlapScores
+from dynamo_tpu_torch.kv_router.indexer import OverlapScores, rank_pull_sources
 from dynamo_tpu_torch.kv_router.protocols import KVHitRateEvent
 from dynamo_tpu_torch.kv_router.sequence import ActiveSequencesMultiWorker
 from dynamo_tpu_torch.tokens import compute_seq_hash_chain
@@ -40,6 +42,17 @@ class KvRouterConfig:
     router_temperature: float = 0.5
     use_kv_events: bool = True
     ttl_secs: float = 120.0  # ApproxKvIndexer TTL when use_kv_events=False
+    # the fleet prefix cache: when the routed worker's overlap trails the
+    # fleet's best match by at least this many blocks, the dispatch carries
+    # a prefix-pull plan so the engine pulls the gap from a peer instead of
+    # recomputing it (the threshold is the pull's cost model)
+    prefix_pull: bool = field(
+        default_factory=lambda: str(os.environ.get("DYN_PREFIX_PULL", "1")).lower()
+        not in ("0", "false", "no", "off")
+    )
+    prefix_pull_min_blocks: int = field(
+        default_factory=lambda: int(os.environ.get("DYN_PREFIX_PULL_MIN_BLOCKS", "4"))
+    )
     # sliding window of the radix tree's frequency plane (recent_uses):
     # per-block fleet access counts; 0 turns the tracking off
     frequency_horizon_s: float = field(
@@ -62,6 +75,10 @@ class WorkerSelectionResult:
     overlap_blocks: int
     # best (capped) overlap held anywhere in the fleet for this request
     fleet_blocks: int = 0
+    # the prefix-pull plan, when the routed worker trails the fleet's best
+    # by the threshold: {"src": worker_id, "blocks": n, "hashes": chain[:n],
+    # "avoid": [worker_id, ...], "freq": [recent uses per depth]}; advisory
+    pull_plan: Optional[dict] = None
 
 
 class NoEndpointsError(RuntimeError):
@@ -171,6 +188,7 @@ class KvScheduler:
             "matched_blocks": 0,
             "fleet_blocks": 0,
         }
+        self.pull_stats: dict[str, int] = {"plans": 0, "planned_blocks": 0}
 
     def update_workers(self, worker_ids: list[int]) -> None:
         self.sequences.update_workers(worker_ids)
@@ -195,6 +213,7 @@ class KvScheduler:
         )
         result = self.selector.select_worker(worker_ids, request, self.block_size)
         result.fleet_blocks = min(result.required_blocks, max(overlap.scores.values(), default=0))
+        result.pull_plan = self._plan_pull(result, overlap, chain, set(worker_ids), {})
         self.sequences.add_request_chain(result.worker_id, chain, partial, request_id)
         self.hit_stats["decisions"] += 1
         self.hit_stats["isl_blocks"] += result.required_blocks
@@ -208,6 +227,43 @@ class KvScheduler:
                 fleet_blocks=result.fleet_blocks,
             ))
         return result
+
+    def _plan_pull(
+        self,
+        result: WorkerSelectionResult,
+        overlap: OverlapScores,
+        chain: list[int],
+        live: set[int],
+        health_factors: dict[int, float],
+    ) -> Optional[dict]:
+        """A prefix-pull plan when the routed worker's overlap trails the
+        fleet's best match by at least ``prefix_pull_min_blocks``: the best
+        source (a live healthy holder before a suspect before a dead one),
+        and every other unhealthy holder on the ``avoid`` list."""
+        cfg = self.config
+        gap = result.fleet_blocks - result.overlap_blocks
+        if not cfg.prefix_pull or not chain or gap < max(1, cfg.prefix_pull_min_blocks):
+            return None
+        suspects = {w for w, f in health_factors.items() if f > 1.0}
+        ranked = rank_pull_sources(overlap, result.worker_id, result.required_blocks,
+                                   result.overlap_blocks, live, suspects)
+        if not ranked:
+            return None
+        src = ranked[0]
+        n = min(overlap.scores[src], result.required_blocks)
+        plan: dict = {
+            "src": src,
+            "blocks": n,
+            "hashes": list(chain[:n]),
+            "avoid": sorted(w for w in set(overlap.scores) - live | suspects if w != src),
+        }
+        if overlap.frequencies:
+            # fleet access counts along the matched path: the destination's
+            # eviction keeps a block hot fleet-wide over a locally idle one
+            plan["freq"] = list(overlap.frequencies[:n])
+        self.pull_stats["plans"] += 1
+        self.pull_stats["planned_blocks"] += n - result.overlap_blocks
+        return plan
 
     def free(self, request_id: str) -> None:
         self.sequences.free(request_id)

@@ -77,6 +77,9 @@ class PushRouter:
             others = [i for i in self.client.instance_ids() if i not in exclude]
             if others:
                 worker_id, overlap = others[0], 0.0
+                # a pull plan was made against the dead pick's overlap:
+                # stale for this worker
+                ctx.decisions().pull_plan = None
         ctx.metadata["kv_overlap_blocks"] = overlap
         on_complete = getattr(self.selector, "on_request_complete", None)
         try:

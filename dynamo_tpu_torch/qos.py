@@ -25,7 +25,8 @@ The resolved class rides ``Context.metadata["priority"]`` (so it survives
 every wire hop the Context header already crosses) and is mirrored into
 ``PreprocessedRequest.extra["priority"]`` for engines reached without a
 Context-bearing transport. The port's engine orders its waiting queue by
-it; class-aware preemption comes with A7, brownout with A10 part 2.
+it and picks preemption victims by it (the lowest class first); brownout
+comes with A10 part 2.
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ reply comes with A12. A traced request's decision runs under a
 Endpoint: ``<namespace>.router.find_best``
   request : {"token_ids": [...], "request_id": "..."}   (or {"tokens": ...})
   response: {"worker_id": int, "overlap_blocks": int, "fleet_frac": float,
-             "trace": [span dicts]}   (trace: only for a traced request)
+             "prefix_pull": {plan}, "trace": [span dicts]}   (prefix_pull:
+             only when the scheduler made a pull plan; trace: only for a
+             traced request)
            | {"shed": true, "retry_after_ms": int}   (fleet overloaded)
   request : {"op": "free", "request_id": "..."}  -> {"ok": true}
   request : {"op": "index"} -> {"index_blocks": {worker hex id: blocks},
@@ -160,6 +162,10 @@ class StandaloneRouter:
             self.decisions_total += 1
             rsp.set(worker=f"{result.worker_id:x}", overlap_blocks=result.overlap_blocks)
         out = {"worker_id": result.worker_id, "overlap_blocks": result.overlap_blocks}
+        # the caller's dispatch puts the plan on its Context, so the chosen
+        # engine pulls the missing prefix from the named holder first
+        if result.pull_plan is not None:
+            out["prefix_pull"] = result.pull_plan
         if result.required_blocks:
             out["fleet_frac"] = round(result.fleet_blocks / result.required_blocks, 4)
         if rsp.trace_id:

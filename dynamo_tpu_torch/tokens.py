@@ -7,7 +7,9 @@ that the KV events, the KV-aware router and the tiered block manager share:
 an equal prefix of the hash chain is a reusable KV prefix. Routers across
 the fleet key on these numbers, so they are bit-identical to the JAX
 package's (64 bits of BLAKE2b over the parent hash, the salt and the tokens
-as little-endian u32 words).
+as little-endian u32 words). Both functions run the C code of ``native/``
+when its library loads, and the pure-Python path otherwise: the same
+digests.
 """
 
 from __future__ import annotations
@@ -17,10 +19,19 @@ import struct
 from dataclasses import dataclass, field
 from typing import Iterable, Optional
 
+from dynamo_tpu_torch import native
+
 DEFAULT_BLOCK_SIZE = 16
 
 
 def compute_block_hash(parent_hash: int, tokens: list[int], salt: int = 0) -> int:
+    got = native.block_hash(parent_hash, tokens, salt)
+    if got is not None:
+        return got
+    return _py_block_hash(parent_hash, tokens, salt)
+
+
+def _py_block_hash(parent_hash: int, tokens: list[int], salt: int = 0) -> int:
     h = hashlib.blake2b(digest_size=8)
     h.update(struct.pack("<QQ", parent_hash & 0xFFFFFFFFFFFFFFFF, salt))
     h.update(struct.pack(f"<{len(tokens)}I", *tokens))
@@ -31,11 +42,20 @@ def compute_seq_hash_chain(
     tokens: list[int], block_size: int = DEFAULT_BLOCK_SIZE, salt: int = 0
 ) -> list[int]:
     """Hashes of every COMPLETE block of the sequence (a partial tail has
-    none)."""
+    none); the C chain (native/) when it is loaded."""
+    got = native.hash_chain(tokens, block_size, salt)
+    if got is not None:
+        return got
+    return _py_seq_hash_chain(tokens, block_size, salt)
+
+
+def _py_seq_hash_chain(
+    tokens: list[int], block_size: int = DEFAULT_BLOCK_SIZE, salt: int = 0
+) -> list[int]:
     hashes: list[int] = []
     parent = 0
     for start in range(0, len(tokens) - len(tokens) % block_size, block_size):
-        parent = compute_block_hash(parent, tokens[start:start + block_size], salt)
+        parent = _py_block_hash(parent, tokens[start:start + block_size], salt)
         hashes.append(parent)
     return hashes
 

@@ -959,3 +959,183 @@ async def test_standalone_router_sheds_past_watermark():
     finally:
         await drt.close()
         await engine.close()
+
+
+# ------------------------------------------------------- the prefix-pull plan
+
+
+def _plan_case(mod_s, mod_i, scores, freqs, routed, req, live, suspects, min_blocks=1):
+    sched = mod_s.KvScheduler(block_size=BS, config=mod_s.KvRouterConfig(
+        prefix_pull=True, prefix_pull_min_blocks=min_blocks))
+    ov = _overlap(scores, mod_i)
+    ov.frequencies.extend(freqs)
+    routed_blocks = min(scores.get(routed, 0), req)
+    plan = sched._plan_pull(
+        result=mod_s.WorkerSelectionResult(
+            worker_id=routed, required_blocks=req, overlap_blocks=routed_blocks,
+            fleet_blocks=min(req, max(scores.values(), default=0))),
+        overlap=ov, chain=list(range(100, 100 + req)), live=live,
+        health_factors={w: 2.0 for w in suspects})
+    return plan, dict(sched.pull_stats)
+
+
+def test_plan_pull_and_pull_stats_equal_the_reference():
+    """``KvScheduler._plan_pull`` gives the reference's plan (source,
+    blocks, hashes, avoid list, fleet frequencies) and pull_stats on the
+    same overlap scores: the reference's ranking case, then random ones."""
+    case = ({2: 6, 3: 6, 9: 8}, [], 1, 8, {1, 2, 3}, {3})
+    plan, stats = _plan_case(t_scheduler, t_indexer, *case)
+    assert plan == _plan_case(j_scheduler, j_indexer, *case)[0]
+    assert (plan["src"], plan["blocks"], plan["avoid"]) == (2, 6, [3, 9])
+    assert plan["hashes"] == list(range(100, 106)) and "freq" not in plan
+    assert stats == {"plans": 1, "planned_blocks": 6}
+    rng = random.Random(19)
+    plans = 0
+    for _ in range(400):
+        scores = {w: rng.randrange(0, 12) for w in rng.sample(range(8), rng.randrange(1, 7))}
+        routed, req = rng.randrange(8), rng.randrange(0, 12)
+        freqs = [rng.randrange(0, 9) for _ in range(rng.randrange(0, 12))]
+        live = set(rng.sample(range(8), rng.randrange(1, 8))) | {routed}
+        suspects = {w for w in live if rng.random() < 0.3}
+        min_blocks = rng.choice([0, 1, 4])
+        args = (scores, freqs, routed, req, live, suspects, min_blocks)
+        got = _plan_case(t_scheduler, t_indexer, *args)
+        assert got == _plan_case(j_scheduler, j_indexer, *args), args
+        plans += got[0] is not None
+    assert plans > 50
+
+
+def test_prefix_pull_knobs_read_the_reference_env(monkeypatch):
+    assert KvRouterConfig().prefix_pull is True
+    assert KvRouterConfig().prefix_pull_min_blocks == 4
+    monkeypatch.setenv("DYN_PREFIX_PULL", "off")
+    monkeypatch.setenv("DYN_PREFIX_PULL_MIN_BLOCKS", "9")
+    for mod in (t_scheduler, j_scheduler):
+        cfg = mod.KvRouterConfig()
+        assert (cfg.prefix_pull, cfg.prefix_pull_min_blocks) == (False, 9)
+
+
+@pytest.mark.parametrize("min_blocks", [1, 4])
+def test_scheduler_plans_equal_the_reference_on_random_streams(min_blocks):
+    """``schedule`` on the same indexed events and queries, prefix_pull on
+    (temperature 0, frequency tracking on): the same picks, plans (with
+    the radix tree's recent-use counts) and pull_stats."""
+    events, queries = random_event_stream(11, BS, n_workers=4)
+    got = {}
+    for name, ix_mod, sc_mod, pr_mod in (("ref", j_indexer, j_scheduler, j_protocols),
+                                         ("port", t_indexer, t_scheduler, t_protocols)):
+        ix = ix_mod.KvIndexer(BS, expiration_duration=600.0)
+        for d in events[:250]:
+            ix.apply_event(pr_mod.RouterEvent.from_dict(d))
+        cfg = sc_mod.KvRouterConfig(router_temperature=0.0, prefix_pull=True,
+                                    prefix_pull_min_blocks=min_blocks)
+        sched = sc_mod.KvScheduler(BS, sc_mod.DefaultWorkerSelector(cfg), config=cfg)
+        sched.update_workers([0, 1, 2, 3])
+        random.seed(77)
+        out = []
+        for i, q in enumerate(queries[:150]):
+            r = sched.schedule(q, ix.find_matches_for_request(q), request_id=f"r{i}")
+            out.append((r.worker_id, r.overlap_blocks, r.fleet_blocks, r.pull_plan))
+            if i % 4 == 3:
+                sched.free(f"r{i - 2}")
+        got[name] = (out, dict(sched.pull_stats))
+    assert got["port"] == got["ref"]
+    if min_blocks == 1:  # these short chains trail by fewer than 4 blocks
+        assert got["port"][1]["plans"] > 0
+        assert any(p and p.get("freq") for *_, p in got["port"][0])
+
+
+class _StubKvRouter:
+    """``route`` answers a fixed selection (a plan attached)."""
+
+    def __init__(self, mod, plan):
+        self.mod, self.plan, self.freed = mod, plan, []
+
+    async def route(self, token_ids, request_id=None):
+        return self.mod.WorkerSelectionResult(worker_id=5, required_blocks=10, overlap_blocks=2,
+                                              fleet_blocks=9, pull_plan=dict(self.plan))
+
+    def free(self, request_id):
+        self.freed.append(request_id)
+
+
+PLAN = {"src": 7, "blocks": 9, "hashes": list(range(9)), "avoid": [3], "freq": [4] * 9}
+
+
+async def test_kv_push_router_puts_the_plan_on_the_context():
+    """KvPushRouter carries the result's plan and fleet fraction on the
+    Context's decision metadata, under the reference's wire keys."""
+    got = {}
+    for name, r_mod, s_mod, Ctx in (("ref", j_router, j_scheduler, JContext),
+                                    ("port", t_router, t_scheduler, Context)):
+        ctx = Ctx()
+        picked = await r_mod.KvPushRouter(_StubKvRouter(s_mod, PLAN)).select_worker([1, 2, 3], ctx)
+        got[name] = (picked, dict(ctx.metadata))
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == (5, 2.0)
+    ctx_md = got["port"][1]
+    assert Context(metadata=ctx_md).decisions().pull_plan == PLAN
+
+
+class _StubClient:
+    def __init__(self, ids):
+        self.ids, self.calls = ids, []
+
+    def instance_ids(self):
+        return list(self.ids)
+
+    async def direct(self, request, iid, ctx):
+        self.calls.append(iid)
+        return []
+
+
+class _PlanningSelector:
+    """Picks worker 5 and attaches a plan, as KvPushRouter does."""
+
+    async def select_worker(self, token_ids, context):
+        context.decisions().pull_plan = dict(PLAN)
+        return 5, 2.0
+
+
+@pytest.mark.parametrize("dead", [True, False])
+async def test_a_fallback_pick_clears_the_pull_plan(dead):
+    """When the KV pick is a worker that just failed this request, the push
+    router sends to another instance and drops the plan (made against the
+    dead pick's overlap), as the reference's does; otherwise the plan
+    stays."""
+    from dynamo_tpu.pipeline.router import PushRouter as JPushRouter
+    from dynamo_tpu_torch.pipeline.router import PushRouter
+
+    got = {}
+    for name, Router, Mode, Ctx in (("ref", JPushRouter, JRouterMode, JContext),
+                                    ("port", PushRouter, RouterMode, Context)):
+        client = _StubClient([5, 6])
+        ctx = Ctx()
+        await Router(client, Mode.KV, _PlanningSelector()).generate(
+            {"token_ids": [1, 2, 3]}, ctx, exclude={5} if dead else None)
+        got[name] = (client.calls, ctx.decisions().pull_plan)
+    assert got["port"] == got["ref"]
+    assert got["port"] == (([6], None) if dead else ([5], PLAN))
+
+
+async def test_standalone_router_returns_the_prefix_pull():
+    """find_best's reply carries the scheduler's plan as ``prefix_pull``,
+    as the reference's does."""
+    from dynamo_tpu.router import StandaloneRouter as JStandaloneRouter
+    from dynamo_tpu.runtime.distributed import DistributedRuntime as JDistributedRuntime
+
+    replies = {}
+    for name, Router, DRT, s_mod, Ctx in (
+            ("ref", JStandaloneRouter, JDistributedRuntime, j_scheduler, JContext),
+            ("port", StandaloneRouter, DistributedRuntime, t_scheduler, Context)):
+        drt = await DRT.detached()
+        try:
+            router = Router(drt, namespace="pp")
+            router.router = _StubKvRouter(s_mod, PLAN)
+            replies[name] = [r async for r in router._handler({"token_ids": [1, 2, 3],
+                                                               "request_id": "q"}, Ctx())]
+        finally:
+            await drt.close()
+    assert replies["port"] == replies["ref"]
+    assert replies["port"] == [{"worker_id": 5, "overlap_blocks": 2, "prefix_pull": PLAN,
+                                "fleet_frac": 0.9}]

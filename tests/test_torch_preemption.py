@@ -8,6 +8,15 @@ preempted more often than the limit fails with the structured
 and the ``preempted_too_often`` counts are equal. Then the backoff: a
 preempted sequence waits ``preempt_backoff_ms`` doubled per preemption
 before it may be admitted again.
+
+Class-aware preemption, the contract of tests/test_priority.py:197 and :317:
+with 9 usable blocks for a bulk and an interactive sequence that want 6
+each, every preemption lands on bulk (an interactive grower takes bulk's
+blocks; a bulk grower facing only interactive lanes yields itself), the
+interactive stream is untouched and equal to JaxEngine's greedy tokens, the
+greedy bulk stream equals JaxEngine's and the seeded one the port's own
+unpressured run; the victims and self-yields equal JaxEngine's, and
+``preemptions_by_class`` reaches ``load_metrics``.
 """
 
 import asyncio
@@ -26,6 +35,7 @@ from dynamo_tpu.protocols import common as jp
 from dynamo_tpu_torch.engine.torch_engine.engine import TorchEngine, TorchEngineConfig
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
 from dynamo_tpu_torch.engine.torch_engine.weights import params_from_jax
+from dynamo_tpu_torch.entrypoint.inputs import load_metrics
 from dynamo_tpu_torch.models import llama as tl
 from dynamo_tpu_torch.protocols import common as tp
 
@@ -99,3 +109,121 @@ async def test_a_preempted_sequence_waits_out_its_backoff():
     assert teng.stats.preemptions > 0 and admitted
     assert all(lag >= 0 for lag in admitted.values())
     assert all(final == ("length", None) and len(toks) == 20 for toks, final in got)
+
+
+# ------------------------------------------------ class-aware preemption
+
+
+def _class_engines(num_blocks):
+    """(JaxEngine, TorchEngine) with the reference test's shapes: block 4,
+    4 lanes, watermark 2, backoff 1 ms."""
+    cfg = jl.LlamaConfig.tiny(vocab_size=64)
+    jparams = jl.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
+    dims = dict(num_blocks=num_blocks, block_size=4, max_batch=4, max_model_len=64)
+    kw = dict(dims, watermark_blocks=2, preempt_backoff_ms=1.0)
+    jeng = JaxEngine(ModelRunner(cfg, jparams, kv_dtype=jnp.float32, prefill_chunk_tokens=0, **dims),
+                     JaxEngineConfig(**kw))
+    trunner = TorchModelRunner(
+        tl.LlamaConfig.tiny(vocab_size=64),
+        params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu"), device="cpu",
+        prefill_chunk_tokens=0, **dims)
+    return jeng, TorchEngine(trunner, TorchEngineConfig(**kw))
+
+
+def _spy_preemptions(engine, seq_preempt: str):
+    """Record each preemption as (victim class, chosen by the victim search
+    or a self-yield)."""
+    log, inside = [], []
+    victim_fn, preempt_fn = engine._preempt_victim, getattr(engine, seq_preempt)
+
+    def victim(exclude):
+        inside.append(True)
+        try:
+            return victim_fn(exclude)
+        finally:
+            inside.pop()
+
+    def preempt(seq):
+        log.append((seq.priority, "victim" if inside else "self_yield"))
+        return preempt_fn(seq)
+
+    engine._preempt_victim = victim
+    setattr(engine, seq_preempt, preempt)
+    return log
+
+
+def _class_req(mod, prompt, priority, sampling):
+    return mod.PreprocessedRequest(
+        token_ids=list(prompt), sampling=mod.SamplingOptions(**sampling),
+        stop=mod.StopConditions(max_tokens=20, ignore_eos=True), extra={"priority": priority})
+
+
+async def _class_stream(engine, mod, ctx, prompt, priority, sampling):
+    toks = []
+    async for out in engine.generate(_class_req(mod, prompt, priority, sampling), ctx()):
+        toks.extend(out.token_ids)
+    return toks
+
+
+PB, PI = [5, 9, 17, 23], [40, 41, 42, 43]
+GREEDY = dict(greedy=True)
+SEEDED = dict(temperature=0.9, top_k=8, seed=424242)
+
+
+@pytest.mark.parametrize("sampling", [GREEDY, SEEDED], ids=["greedy", "seeded"])
+async def test_class_aware_preemption_lands_on_bulk(sampling):
+    runs = {}
+    for pressured in (False, True):
+        jeng, teng = _class_engines(10 if pressured else 64)
+        logs = {"jax": _spy_preemptions(jeng, "_preempt_seq"),
+                "torch": _spy_preemptions(teng, "_preempt")}
+        for name, eng, mod, ctx in (("jax", jeng, jp, JaxContext), ("torch", teng, tp, tp.Context)):
+            if pressured:
+                got = await asyncio.wait_for(asyncio.gather(
+                    _class_stream(eng, mod, ctx, PB, "bulk", sampling),
+                    _class_stream(eng, mod, ctx, PI, "interactive", sampling)), timeout=60)
+            else:
+                got = [await _class_stream(eng, mod, ctx, PB, "bulk", sampling),
+                       await _class_stream(eng, mod, ctx, PI, "interactive", sampling)]
+            runs[(name, pressured)] = (got, logs[name], eng)
+            await eng.close()
+    (t_bulk, t_inter), t_log, teng = runs[("torch", True)]
+    (j_bulk, j_inter), j_log, jeng = runs[("jax", True)]
+    (u_bulk, u_inter), _, _ = runs[("torch", False)]
+    by_class = teng.stats.preemptions_by_class
+    assert by_class.get("bulk", 0) >= 1 and "interactive" not in by_class, by_class
+    assert by_class == jeng.stats.preemptions_by_class
+    assert t_log == j_log and all(c == "bulk" for c, _ in t_log)
+    # interactive never preempted: untouched
+    assert t_inter == u_inter and len(t_inter) == 20
+    # bulk was preempted and resumed to the same tokens
+    assert t_bulk == u_bulk and len(t_bulk) == 20
+    if sampling is GREEDY:
+        assert t_inter == j_inter == runs[("jax", False)][0][1]
+        assert t_bulk == j_bulk == runs[("jax", False)][0][0]
+    ws = load_metrics(teng).worker_stats
+    assert ws.preemptions_by_class == by_class
+    assert teng.allocator.free_count == teng.config.num_blocks - 1
+
+
+async def test_a_bulk_grower_yields_itself_to_interactive_lanes():
+    """A bulk lane and two interactive lanes on 11 usable blocks: the bulk
+    grower finds only lanes that outrank it and yields itself (its tokens
+    kept, re-queued), then an interactive grower takes the younger
+    interactive lane, the same preemptions as JaxEngine's in the same
+    order; every stream ends whole with JaxEngine's greedy tokens."""
+    logs, outs, stats = {}, {}, {}
+    reqs = [(PB, "bulk"), ([40, 41, 42, 43], "interactive"), ([50, 51, 52, 53], "interactive")]
+    for name in ("jax", "torch"):
+        jeng, teng = _class_engines(12)
+        eng, mod, ctx = (jeng, jp, JaxContext) if name == "jax" else (teng, tp, tp.Context)
+        logs[name] = _spy_preemptions(eng, "_preempt_seq" if name == "jax" else "_preempt")
+        outs[name] = await asyncio.wait_for(asyncio.gather(
+            *(_class_stream(eng, mod, ctx, p, c, GREEDY) for p, c in reqs)), timeout=60)
+        stats[name] = dict(eng.stats.preemptions_by_class)
+        await jeng.close()
+        await teng.close()
+    assert outs["torch"] == outs["jax"]
+    assert all(len(t) == 20 for t in outs["torch"])
+    assert logs["torch"] == logs["jax"] == [("bulk", "self_yield"), ("interactive", "victim")]
+    assert stats["torch"] == stats["jax"] == {"bulk": 1, "interactive": 1}
