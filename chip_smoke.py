@@ -94,7 +94,7 @@ Phases, each of which must pass or the script exits non-zero:
                 freed: the server's exit stats). Then the lone request
                 through an in-process build_torch_engine(<dir>) and the
                 port's preprocessor and backend: the text must equal the
-                HTTP text. The lone request's timing: 5 pairs in turns
+                HTTP text. The lone request's timing: 3 pairs in turns
                 through HTTP and engine-direct in a process of its own
                 alive beside the server (started as the server's is),
                 medians and the per-pair difference. Also the host time
@@ -103,11 +103,12 @@ Phases, each of which must pass or the script exits non-zero:
  11. serve_tp -- tensor-parallel serving on one card (before serve_http):
                 build_torch_engine(tensor_parallel_size=2, tp_backend="gloo",
                 tp_devices=["cuda:0", "cuda:0"], fused_decode=True) at full
-                width, bf16 then int8 weights + int8 KV, each beside a one-card
-                engine on the same seeded weights: the first decode step's
-                logits within TP_LOGIT_TOL of the one-card engine's, four of
-                serve's requests served to the end, every rank's #1, #4 and 5p
-                (5pq) launched 32 x fused steps (summed over both ranks' counters,
+                width and 8 of the 32 layers (TP_MODEL), bf16 then int8
+                weights + int8 KV, each beside a one-card engine on the same
+                seeded weights: the first decode step's logits within
+                TP_LOGIT_TOL of the one-card engine's, four of serve's
+                requests served to the end, every rank's #1, #4 and 5p (5pq)
+                launched layers x fused steps (summed over both ranks' counters,
                 the followers' read back through the step channel), the share of
                 greedy tokens that agree with one card, the B=8 step's time on
                 both, its collective share and each rank's peak memory; then a
@@ -141,8 +142,8 @@ Phases, each of which must pass or the script exits non-zero:
                 (serve_int8's runner: int8 weights and cache, fused heads);
                 each graph (decode H 1, decode_multi H 4, verify S 4 with
                 E 3) replayed against the same call made eagerly on the same
-                cache contents, bitwise, in both cache forms; then, in turns,
-                serve tokens/s eager H 1 / graphed H 1 / graphed H 4, spec
+                cache contents, bitwise, in both cache forms; then serve
+                tokens/s eager H 1 / graphed H 1 / graphed H 4 (one run each), spec
                 tokens/s with E 0 and E 3, and the B=8 step eager against
                 graphed (wall, device, host), fused and unfused, bf16 and
                 int8; each graph key's capture seconds and the memory the
@@ -242,7 +243,7 @@ Phases, each of which must pass or the script exits non-zero:
                 on graphs) and a ``run in=http out=dyn`` frontend (round
                 robin), all processes on cuda:0, beside an engine-direct
                 process. The lone greedy request through the fabric and
-                engine-direct, 5 times each in turns (TTFT, ITL; every text
+                engine-direct, 3 times each in turns (TTFT, ITL; every text
                 equal, and equal to serve_http's); serve_http's 8
                 concurrent streams and a non-streamed completion; each
                 worker's stats (SIGUSR1): both served, #1 launched in both.
@@ -324,7 +325,7 @@ Phases, each of which must pass or the script exits non-zero:
                 are held to the dense reference (first 8 tokens, 0.25).
                 ``python3 chip_smoke.py --only serve_disagg_fabric`` runs the
                 build and this phase alone.
-  19. serve_trace_faults (last): request tracing and fault injection
+  19. serve_trace_faults: request tracing and fault injection
                 (``telemetry/trace.py``, ``testing/faults.py``). (a) The
                 fabric server, an out=dyn frontend in kv mode and two
                 in=dyn:// workers, every process with DYN_TRACE=1: serve_http's
@@ -357,7 +358,7 @@ Phases, each of which must pass or the script exits non-zero:
                 same tokens, the ITL and the decode label's EMA stretched, the
                 watchdog quiet), abort_after_tokens=50 over serve's 8 requests
                 (every lane fails with injected_fault, every block free, the
-                next request whole), and (d) tracing on against off, 3 turns
+                next request whole), and (d) tracing on against off, one turn
                 each, on the graphed B=8 serve: tokens/s and the horizon step's
                 EMA, their ratio (no bound). ``python3 chip_smoke.py --only
                 serve_trace_faults`` runs the build and this phase alone.
@@ -392,12 +393,51 @@ Phases, each of which must pass or the script exits non-zero:
                 INT8_REF_GAP). ``python3 chip_smoke.py --only serve_peer``
                 runs the build and this phase alone.
 
+  21. serve_ops (last) -- the frontend's operating plane across processes:
+                the fabric server, two in=dyn:// workers at Llama-3.1-8B width
+                (random bf16 weights from seed 0; DYN_RUNTIME_HTTP_ENABLED=1,
+                so each serves /health, /live and /metrics), an out=dyn kv
+                frontend (DYN_ADMISSION_MAX_INFLIGHT=6, DYN_TRACE=auto,
+                DYN_LOGGING_JSONL=1) and the standalone router with
+                --metrics-port. (a) The frontend's request, TTFT-count and
+                inflight families equal the traffic sent, the workers'
+                phase_histograms count their streams, the router's decisions
+                counter its 3 decisions; each /metrics scrape's ms, and four
+                streams' tokens/s with one scrape a second against none, in
+                turns. (b) Three standard streams hold the slots, then a burst
+                of 3 bulk, 2 standard and 1 interactive: every bulk request
+                answered 429 (Retry-After 1-60 s), bulk shed first; the ms of
+                a 429; every admitted stream held to the dense reference. (c) A
+                second frontend whose TTFT objective (1 ms) nothing meets: its
+                /debug/slo reads breached, its slo-status events step every
+                ladder (the kv frontend's and both workers') rung by rung to 3
+                (bulk shed at the kv frontend; spec paused; a 2000-token prompt
+                prefilled in 8 chunks of 256 on the workers), then back to 0
+                once its traffic stops, each transition's time after the breach
+                event; DYN_TRACE=auto keeps the slow requests (slo_ttft) and an
+                errored one (error:deadline_exceeded) and drops the fast ones.
+                (d) One worker drained (its exit stats hold no lane or block)
+                and started again with DYN_FAULT=slow_decode=3, warmed
+                directly; six interactive 2000-token prompts through a
+                round-robin frontend without hedging, then through one with
+                DYN_HEDGE=1 (DYN_HEDGE_MIN_MS=350, DYN_HEDGE_BUDGET=1.0; both
+                keep every worker in rotation): every hedged
+                stream equals its unhedged twin, at least one hedge won; the
+                TTFT p50 / p99 of both; a third round-robin frontend's scorer
+                (DYN_EJECT_RATIO=2.0) ejects the gray worker, and at most 2 of
+                the next 12 requests reach it (probes). (e) A tools request
+                and /v1/responses answer 200; a JSONL with_fields line under a
+                span carries the trace id. The workers' exit stats hold no
+                lane or block; their kernel launches are printed.
+                ``python3 chip_smoke.py --only serve_ops`` runs the build and
+                this phase alone.
+
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
 times compare with earlier runs; checkpoint (7), serve_http (10),
 serve_moe (13) and the workers of serve_fabric (16), serve_kv (17),
-serve_disagg_fabric (18) and serve_trace_faults (19) run
+serve_disagg_fabric (18), serve_trace_faults (19) and serve_ops (21) run
 build_torch_engine's defaults.
 
 Before its last lines the script stops every process the run left alive
@@ -594,6 +634,13 @@ def finish_run(lines: list) -> int:
 
 
 HOLD_CYCLES = 2_000_000  # ~1 ms of an idle spin kernel at the H100's clocks
+
+
+def stats_dict(stats) -> dict:
+    """A snapshot of an engine's stats as JSON: the phase histograms as their
+    wire dict."""
+    return copy.deepcopy({k: v.to_dict() if hasattr(v, "to_dict") else v
+                          for k, v in vars(stats).items()})
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3, flush=None) -> dict:
@@ -1316,7 +1363,7 @@ def phase_serve(torch, np, card: str) -> dict:
             t1 = time.perf_counter()
             first = await run_requests(engine, reqs, Context)
             wall = time.perf_counter() - t1
-            stats = copy.deepcopy(vars(engine.stats))
+            stats = stats_dict(engine.stats)
             launches = kernels.launch_counts()
             peak = torch.cuda.max_memory_allocated()
             # the same requests again: must repeat, and time the engine warm
@@ -1458,7 +1505,7 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
             t1 = time.perf_counter()
             first = await run_requests(spec, reqs, Context)
             wall = time.perf_counter() - t1
-            stats = copy.deepcopy(vars(spec.stats))
+            stats = stats_dict(spec.stats)
             launches = kernels.launch_counts()
             # warm: the same traffic through spec off, spec on, spec on,
             # spec off (the host's speed drifts; the pairs straddle it)
@@ -1565,7 +1612,7 @@ def phase_serve_default(torch, np, card: str, params) -> dict:
             t1 = time.perf_counter()
             first = await run_requests(engine, reqs, Context)
             wall = time.perf_counter() - t1
-            stats = copy.deepcopy(vars(engine.stats))
+            stats = stats_dict(engine.stats)
             launches = kernels.launch_counts()
             peak = torch.cuda.max_memory_allocated()
             t1 = time.perf_counter()
@@ -1602,7 +1649,7 @@ def phase_serve_default(torch, np, card: str, params) -> dict:
         "output_tok_per_s_warm": out_tokens / wall_warm,
         "ttft_s_concurrent_warm": [t for _, _, t in second], "peak_mem_bytes": peak,
         "reference_max_logit_gap": gap, "chunk": runner.prefill_chunk_tokens,
-        "chunk_budget": engine._chunk_budget,
+        "chunk_budget": engine._chunk_budget_base,
     }
     log(f"serve_default: {len(reqs)} requests ({out_tokens} tokens) in {wall:.2f} s "
         f"({wall_warm:.2f} s warm); {stats['packed_prefills']} packed prefills, "
@@ -1897,7 +1944,7 @@ def phase_checkpoint(torch, np, card: str) -> dict:
     if [len(t) for t, _, _ in got] != [m for _, m in CKPT_PROMPTS]:
         raise SmokeError("checkpoint: wrong token counts")
     res = {"layers": CKPT_LAYERS, "bytes": nbytes, "write_s": t_write, "load_s": t_load,
-           "prompts": CKPT_PROMPTS, "stats": vars(loaded.stats)}
+           "prompts": CKPT_PROMPTS, "stats": stats_dict(loaded.stats)}
     log(f"checkpoint: {nbytes / 1e9:.2f} GB in 2 shards written in {t_write:.1f} s, loaded "
         f"by build_torch_engine(<dir>) in {t_load:.1f} s; weights bit-identical; greedy "
         f"tokens equal params= over {len(reqs)} requests")
@@ -1926,7 +1973,9 @@ def profile_calls(torch, fn, calls: int = 5) -> tuple[float, dict]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity alone: the host ops' events would only be read to be
+    # dropped, and recording them takes most of a session's time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
@@ -2010,7 +2059,7 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     fetch) and the B=8 decode step (model + sampling + fetch), host clock
     around work that ends in a device-to-host copy; the step with the fused
     heads off (`engine`'s runner) and on (`fused_runner`, the same weights),
-    in turns off, on, on, off, with the device time of each."""
+    off then on, with the device time of each."""
     runner = engine.runner
     bs = runner.block_size
     rng = np.random.default_rng(1)
@@ -2046,7 +2095,7 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
 
     runners = {"unfused": runner, "fused": fused_runner}
     walls = {"unfused": [], "fused": []}
-    for name in ("unfused", "fused", "fused", "unfused"):
+    for name in ("unfused", "fused"):
         r = runners[name]
         for _ in range(3):
             step(r)
@@ -2080,13 +2129,6 @@ def phase_engine_times(torch, np, engine, fused_runner, card: str) -> dict:
     verify_step = {"device_ms": dev_ms, "B": B, "S": 4, "ctx": ctx,
                    "verify_attention": per_launch_us(prof, "false"),
                    "qkv_head": qkv_head_us(prof, 5, layers)}
-    # where a fused decode step's device time goes (torch.profiler, by kernel)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            step(fused_runner)
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12), flush=True)
     res = {
         "ttft_ms_alone": ttft, "decode_step_ms_B8": decode, "verify_dispatch_B8_S4": verify_step,
         "decode_output_tok_per_s_B8": {k: B / (v["median"] / 1e3) for k, v in decode.items()},
@@ -2385,7 +2427,7 @@ def phase_serve_int8(torch, np, card: str, bf16_blocks: int, bf16_peak: int) -> 
             t1 = time.perf_counter()
             first = await run_requests(engine, reqs, Context)
             wall = time.perf_counter() - t1
-            stats = copy.deepcopy(vars(engine.stats))
+            stats = stats_dict(engine.stats)
             launches = kernels.launch_counts()
             peak = torch.cuda.max_memory_allocated()
             t1 = time.perf_counter()
@@ -2415,7 +2457,7 @@ def phase_serve_int8(torch, np, card: str, bf16_blocks: int, bf16_peak: int) -> 
                 t1 = time.perf_counter()
                 sfirst = await run_requests(spec, sreqs, Context)
                 swall = time.perf_counter() - t1
-                sstats = copy.deepcopy(vars(spec.stats))
+                sstats = stats_dict(spec.stats)
                 slaunches = kernels.launch_counts()
             finally:
                 await spec.close()
@@ -2527,7 +2569,7 @@ def int8_engine_times(torch, np, int8_runner, bf16_runner, bf16_chunked_runner,
 
     runners = {"bf16": bf16_runner, "int8": int8_runner}
     walls = {"bf16": [], "int8": []}
-    for name in ("bf16", "int8", "int8", "bf16"):
+    for name in ("bf16", "int8"):
         r = runners[name]
         for _ in range(3):
             step(r)
@@ -2559,7 +2601,7 @@ def int8_engine_times(torch, np, int8_runner, bf16_runner, bf16_chunked_runner,
     # the default path's runners (the fused bf16 one does not chunk)
     chunkers = {"bf16": bf16_chunked_runner, "int8": int8_runner}
     ttft = {"bf16": [], "int8": []}
-    for name in ("bf16", "int8", "int8", "bf16"):
+    for name in ("bf16", "int8"):
         chunked_ttft(chunkers[name])
         for _ in range(3):
             t0 = time.perf_counter()
@@ -2640,6 +2682,9 @@ PARTIAL_SHAPES = {
     "llama31_70b_tp8": (64 * D // 8, 8192, 8192, 0),
 }
 TP = 2
+# serve_tp runs Llama-3.1-8B's width at 8 of its 32 layers (its legs'
+# checks hold at any depth; PERF.md keeps the 32-layer rows)
+TP_MODEL = dict(LLAMA31_8B, num_hidden_layers=8)
 TP_BLOCKS = 2112  # per rank: two ranks share the card, so the pool is set here
 TP_REQUESTS = (0, 2, 4, 7)  # serve's 16-, 300-, 800- and 2000-token prompts
 TP_TIER_GB = "4"  # DYN_KV_HOST_OFFLOAD_GB of the tp = 2 group's tiers leg
@@ -2815,7 +2860,7 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
     rng = np.random.default_rng(3)
     probe = [rng.integers(0, LLAMA31_8B["vocab_size"], n).tolist() for n in (16, 100, 300)]
 
-    one = build_torch_engine(LLAMA31_8B, device="cuda", **kw)
+    one = build_torch_engine(TP_MODEL, device="cuda", **kw)
     want = first_step_logits(torch, np, one.runner, probe)
     one_steps = tp_step_times(torch, np, one.runner)
 
@@ -2831,7 +2876,7 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    engine = build_torch_engine(LLAMA31_8B, device="cuda", tensor_parallel_size=TP,
+    engine = build_torch_engine(TP_MODEL, device="cuda", tensor_parallel_size=TP,
                                 tp_backend="gloo", tp_devices=["cuda:0"] * TP, **kw)
     build_s = time.perf_counter() - t0
     runner = engine.runner
@@ -2850,7 +2895,7 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
     t1 = time.perf_counter()
     out = asyncio.run(run_requests(engine, reqs, Context))
     wall = time.perf_counter() - t1
-    stats = copy.deepcopy(vars(engine.stats))
+    stats = stats_dict(engine.stats)
     ranks = runner.rank_stats()
     asyncio.run(engine.close())
     if [p.exitcode for p in runner._processes] != [0] * (TP - 1):
@@ -2858,7 +2903,7 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
     for i, ((toks, reason, _), req) in enumerate(zip(out, reqs)):
         if reason is not FinishReason.LENGTH or len(toks) != req.stop.max_tokens:
             raise SmokeError(f"serve_tp/{tag} request {i}: {len(toks)} tokens, reason {reason}")
-    L = LLAMA31_8B["num_hidden_layers"]
+    L = TP_MODEL["num_hidden_layers"]
     fused_steps = stats["decode_steps"] + stats["mixed_steps"]
     sfx = "_int8" if quant else ""
     per_rank = L * fused_steps
@@ -2980,10 +3025,10 @@ def serve_tp_disagg(torch, np, card: str, every, Context, FinishReason) -> dict:
 
     kw = dict(max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0, num_blocks=TP_BLOCKS, **EAGER)
     t0 = time.perf_counter()
-    one = build_torch_engine(LLAMA31_8B, device="cuda", **kw)
+    one = build_torch_engine(TP_MODEL, device="cuda", **kw)
     os.environ["DYN_KV_HOST_OFFLOAD_GB"] = TP_TIER_GB
     try:
-        grp = build_torch_engine(LLAMA31_8B, device="cuda", tensor_parallel_size=TP, tp_backend="gloo",
+        grp = build_torch_engine(TP_MODEL, device="cuda", tensor_parallel_size=TP, tp_backend="gloo",
                                  tp_devices=["cuda:0"] * TP, **kw)
     finally:
         del os.environ["DYN_KV_HOST_OFFLOAD_GB"]
@@ -3130,7 +3175,7 @@ def phase_serve_tp(torch, np, card: str) -> dict:
     # one rank over NCCL, the ring tail from DYN_COLLECTIVE_OVERLAP
     os.environ["DYN_COLLECTIVE_OVERLAP"] = "1"
     try:
-        engine = build_torch_engine(LLAMA31_8B, device="cuda", tensor_parallel_size=1,
+        engine = build_torch_engine(TP_MODEL, device="cuda", tensor_parallel_size=1,
                                     tp_backend="nccl", max_batch=8, max_model_len=MAX_MODEL_LEN,
                                     seed=0, fused_decode=True, spec_k=0, num_blocks=TP_BLOCKS)
     finally:
@@ -3147,7 +3192,7 @@ def phase_serve_tp(torch, np, card: str) -> dict:
                                             np.ones(1, np.float32), np.zeros(1, np.int64)))[0]
     (st,) = runner.rank_stats()
     asyncio.run(engine.close())
-    L = LLAMA31_8B["num_hidden_layers"]
+    L = TP_MODEL["num_hidden_layers"]
     want = {**dict.fromkeys(kernels.KERNELS, 0), "paged_decode_attention": L,
             "fused_qkv_rope": L, "fused_attn_out_partial": L}
     if st["launches"] != want or not 0 <= int(tok[0]) < LLAMA31_8B["vocab_size"]:
@@ -3386,7 +3431,7 @@ async def engine_direct(execution, body: dict, Context) -> dict:
     return {"text": text, "ttft_s": times[0], "itl_ms_mean": statistics.mean(itl) * 1e3}
 
 
-LONE_PAIRS = 5  # lone requests through HTTP and engine-direct, in turns
+LONE_PAIRS = 3  # lone requests through HTTP and engine-direct, in turns
 
 
 def direct_server(model_dir: str) -> None:
@@ -4574,7 +4619,7 @@ GRAPH_REDELIVER_S = 30.0  # the fabric queue redelivers an unacked request after
 # the 2000-token TTFT through the graph, per decode mode, and the transport
 # alone, streamed and monolithic in turns (cut from 3 and 2 when phase 19
 # joined the script, for its time limit)
-FABRIC_TTFT_RUNS = 2
+FABRIC_TTFT_RUNS = 1
 TRANSPORT_PAIRS = 1
 OVERSIZE_BLOCKS = 256  # 512 MiB of K/V: over the fabric's frame limit once framed
 CANCEL_FILLERS = 4  # 3000-token prompts that hold both prefill workers (two in flight each)
@@ -5158,7 +5203,7 @@ TF_CORRUPT = "corrupt_kv=bits,every=2"
 TF_DISAGG_LONG = (4, 6)
 TF_SLOW = 3.0  # slow_decode's factor
 TF_ABORT_AFTER = 50
-TF_TURNS = 3  # tracing on / off, in turns
+TF_TURNS = 1  # tracing on / off, in turns
 TF_SPANS = ("http_request", "route", "worker_generate", "queue_wait", "decode")
 
 
@@ -5740,7 +5785,7 @@ def serve_runs(torch, engine, runs, Context, kernels):
             for tag, reqs in runs:
                 before = runner.graph_stats()
                 kernels.reset_launch_counts()
-                s0 = copy.deepcopy(vars(engine.stats))
+                s0 = stats_dict(engine.stats)
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 outs = await run_requests(engine, reqs, Context)
@@ -5826,7 +5871,7 @@ def graph_step_times(torch, np, runners: dict) -> dict:
             return r.fetch_sample(r.decode(toks, pos, tables, slots, zeros, ones, kz))
 
         walls = {False: [], True: []}
-        for graphed in (False, True, True, False):
+        for graphed in (False, True):
             r.cuda_graphs = graphed
             for _ in range(2):
                 step()
@@ -5970,13 +6015,11 @@ def phase_serve_horizon(torch, np, card: str, params, fused_runner, int8_runner,
         len(x) for x in toks["e1"])
     peaks = {"graphed_h4": g4["serve"][1]["peak"] - mem0, "eager_h4": e4["serve"][0]["peak"] - mem0}
 
-    # 3. serve tokens/s in turns: eager H 1, graphed H 1, graphed H 4 (each
-    # warmed above or here first)
+    # 3. serve tokens/s: eager H 1 and graphed H 4 from the runs above (the
+    # graphed one warm), graphed H 1 once its single-step keys are captured
     g1 = again(1, True, [("serve", reqs)])  # captures the single-step keys
-    walls = {"eager_h1": [], "graphed_h1": [], "graphed_h4": []}
-    for name in ("eager_h1", "graphed_h1", "graphed_h4", "graphed_h4", "graphed_h1", "eager_h1"):
-        H = HORIZON if name.endswith("h4") else 1
-        walls[name].append(again(H, name.startswith("graphed"), [("serve", reqs)])["serve"][0])
+    walls = {"eager_h1": [e1["serve"][0]], "graphed_h4": [g4["serve"][1]],
+             "graphed_h1": [again(1, True, [("serve", reqs)])["serve"][0]]}
     serve_rate = {k: statistics.mean(rate(r) for r in v) for k, v in walls.items()}
     log(f"serve_horizon: bf16 compared and timed at {time.perf_counter() - t_phase:.1f} s")
     # decode dispatches, each one fetch: tokens per fetch
@@ -6085,7 +6128,7 @@ def phase_serve_horizon(torch, np, card: str, params, fused_runner, int8_runner,
 
 # the reference's DisaggConfig(): prompts longer than this ship
 DISAGG_LOCAL_MAX = 50
-TTFT_ROUNDS = 2  # of local, disagg, disagg, local
+TTFT_ROUNDS = 1  # of local, disagg, disagg, local
 
 
 class LandingProbe:
@@ -7908,6 +7951,761 @@ def phase_serve_moe(torch, np, card: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ serve_ops
+
+OPS_INFLIGHT = 6  # DYN_ADMISSION_MAX_INFLIGHT: bulk sheds at 3, standard at 5, interactive at 6
+OPS_OUT = 16  # greedy tokens per request
+OPS_CHECK = 8  # tokens of an admitted stream held to the dense reference
+OPS_SCRAPE_TURNS = ("none", "scrape", "scrape", "none")
+OPS_STREAMS = 4  # concurrent standard streams of a tokens/s turn
+OPS_SLOW = 3  # DYN_FAULT=slow_decode on the gray worker
+OPS_PAIRS = 6  # interactive prompts sent unhedged, then hedged
+OPS_LONG = 2000  # their length: a prefill long enough to tell the gray worker apart
+OPS_AFTER = 12  # requests sent after the ejection
+OPS_BROWNOUT = {"DYN_BROWNOUT_STEP_UP_S": "0.5", "DYN_BROWNOUT_STEP_DOWN_S": "1.0",
+                "DYN_BROWNOUT_MAX_LEVEL": "3"}
+OPS_WORKER_ARGS: list = []  # extra worker CLI flags (none on the card)
+OPS_WORKER_ENV: dict = {}  # extra worker environment (none on the card)
+
+
+def parse_prom(text: str) -> dict:
+    """The Prometheus text format, read with the standard library:
+    {family: {"type": t, "samples": [(sample name, {label: value}, value)]}}."""
+    fams: dict = {}
+    cur = None
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            name, typ = line[7:].split(" ", 1)
+            base = name[:-6] if typ == "counter" and name.endswith("_total") else name
+            cur = fams.setdefault(base, {"type": typ, "samples": []})
+            continue
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, labels = head, {}
+        if "{" in head:
+            name, body = head[:-1].split("{", 1)
+            for part in body.split('",'):
+                k, _, v = part.partition('="')
+                labels[k.strip(",")] = v.rstrip('"').replace('\\"', '"').replace("\\\\", "\\")
+        if cur is None:
+            raise SmokeError(f"a sample before any TYPE line: {line!r}")
+        cur["samples"].append((name, labels, float(value)))
+    return fams
+
+
+def prom_value(fams: dict, family: str, suffix: str = "", **labels) -> float:
+    """The sum of a family's samples named ``family + suffix`` whose labels
+    include ``labels``."""
+    fam = fams.get(family)
+    if fam is None:
+        raise SmokeError(f"no {family} family")
+    want = family + (suffix or ("_total" if fam["type"] == "counter" else ""))
+    return sum(v for n, lab, v in fam["samples"]
+               if n == want and all(lab.get(k) == str(x) for k, x in labels.items()))
+
+
+def scrape(port: int) -> tuple:
+    """(parsed families, ms) of one GET /metrics."""
+    t0 = time.perf_counter()
+    st, data = http_call(port, "GET", "/metrics", timeout=30)
+    ms = (time.perf_counter() - t0) * 1e3
+    if st != 200:
+        raise SmokeError(f"GET /metrics on :{port} answered {st}")
+    return parse_prom(data.decode()), ms
+
+
+def ops_stream(port: int, ids: list, rid: str, priority: str = "standard",
+               max_tokens: int = OPS_OUT) -> dict:
+    """One streamed greedy /v1/completions of token ids under a class: the
+    token strings (through logprobs) and the TTFT, or, when the frontend
+    answers otherwise than 200, the status, Retry-After and error body."""
+    import http.client
+
+    from dynamo_tpu_torch.protocols.sse import SseParser
+
+    body = {"model": "llama31-8b", "prompt": ids, "max_tokens": max_tokens, "temperature": 0,
+            "stream": True, "logprobs": 0, "nvext": {"ignore_eos": True},
+            "stream_options": {"include_usage": True}}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    parser, tokens, times, finish = SseParser(), [], [], []
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/completions", body=json.dumps(body), headers={
+            "Content-Type": "application/json", "x-request-id": rid, "x-dyn-priority": priority})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            data = resp.read()
+            return {"status": resp.status, "ms": (time.perf_counter() - t0) * 1e3,
+                    "retry_after": resp.getheader("Retry-After"), "body": json.loads(data)}
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            for ev in parser.feed(line.decode("utf-8")):
+                if ev.is_done():
+                    continue
+                if ev.event is not None:
+                    raise SmokeError(f"{rid}: the stream carried an error event: {ev.data}")
+                for ch in ev.json().get("choices", []):
+                    for t in (ch.get("logprobs") or {}).get("tokens") or []:
+                        tokens.append(t)
+                        times.append(time.perf_counter())
+                    if ch.get("finish_reason"):
+                        finish.append(ch["finish_reason"])
+    finally:
+        conn.close()
+    if len(tokens) != max_tokens or finish != ["length"]:
+        raise SmokeError(f"{rid}: {len(tokens)} tokens, finish {finish}")
+    return {"status": 200, "tokens": tokens, "ttft_ms": (times[0] - t0) * 1e3,
+            "wall_s": time.perf_counter() - t0}
+
+
+def shed_once(port: int, ids: list, rid: str, priority: str) -> dict:
+    """One request that the frontend is expected to answer at once: its
+    status, Retry-After and milliseconds to the answer."""
+    import http.client
+
+    body = {"model": "llama31-8b", "prompt": ids, "max_tokens": OPS_OUT, "temperature": 0,
+            "stream": False}
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT_S)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/completions", body=json.dumps(body), headers={
+            "Content-Type": "application/json", "x-request-id": rid, "x-dyn-priority": priority})
+        resp = conn.getresponse()
+        data = resp.read()
+        return {"status": resp.status, "ms": (time.perf_counter() - t0) * 1e3,
+                "retry_after": resp.getheader("Retry-After"), "body": json.loads(data)}
+    finally:
+        conn.close()
+
+
+def direct_calls(fport: int, calls: list) -> None:
+    """Each (instance id, token ids, max tokens) served by that worker
+    directly over the fabric, greedy, one after another (warm-ups that no
+    frontend sees)."""
+    from dynamo_tpu_torch.pipeline.context import Context
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    async def go():
+        drt = await DistributedRuntime.from_settings(RuntimeConfig(fabric_addr=f"127.0.0.1:{fport}"))
+        try:
+            client = await drt.namespace("dynamo").component("backend").endpoint("generate").client()
+            await client.wait_for_instances(30.0)
+            for iid, ids, n in calls:
+                req = PreprocessedRequest(token_ids=list(ids), sampling=SamplingOptions(greedy=True),
+                                          stop=StopConditions(max_tokens=n, ignore_eos=True))
+                stream = await client.direct(req.to_dict(), iid, Context())
+                async for item in stream:
+                    if item.is_error():
+                        raise SmokeError(f"a direct call to {iid:x}: {item.error_message()}")
+                    if (item.data or {}).get("finish_reason"):
+                        break
+                await stream.close()
+            await client.close()
+        finally:
+            await drt.close()
+
+    asyncio.run(go())
+
+
+class EventTap:
+    """A subscription, in a thread of its own, to namespace events: each
+    event with its arrival on time.perf_counter's clock."""
+
+    def __init__(self, fport: int, subjects: tuple) -> None:
+        import threading
+
+        self.events: list = []
+        self._stop = threading.Event()
+        self._ready = threading.Event()
+        self._thread = threading.Thread(target=lambda: asyncio.run(self._run(fport, subjects)),
+                                        daemon=True)
+        self._thread.start()
+        if not self._ready.wait(30):
+            raise SmokeError("the event subscription did not come up")
+
+    async def _run(self, fport: int, subjects: tuple) -> None:
+        from dynamo_tpu_torch.fabric import mpack
+        from dynamo_tpu_torch.runtime.config import RuntimeConfig
+        from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+        drt = await DistributedRuntime.from_settings(RuntimeConfig(fabric_addr=f"127.0.0.1:{fport}"))
+        ns = drt.namespace("dynamo")
+
+        async def pump(sub, subject):
+            async for _s, payload in sub:
+                self.events.append((time.perf_counter(), subject, mpack.unpackb(payload)))
+
+        subs = [(await ns.subscribe_event(s), s) for s in subjects]
+        tasks = [asyncio.get_running_loop().create_task(pump(sub, s)) for sub, s in subs]
+        self._ready.set()
+        while not self._stop.is_set():
+            await asyncio.sleep(0.05)
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        await drt.close()
+
+    def of(self, subject: str) -> list:
+        return [(t, p) for t, s, p in list(self.events) if s == subject]
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(30)
+
+
+def phase_serve_ops(torch, np, card: str) -> dict:
+    """The frontend's operating plane across processes (see the module
+    docstring, phase 21)."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.runtime import logging as dlog
+    from dynamo_tpu_torch.telemetry import trace as dtrace
+    from dynamo_tpu_torch.tokenizer import TokenizerWrapper
+
+    t_phase = time.perf_counter()
+    model_dir = write_serve_dir()
+    root = os.path.dirname(os.path.abspath(__file__))
+    py = sys.executable
+    fport, hport, bport, cport, dport, eport, rport = (free_port() for _ in range(7))
+    wports = {"worker0": free_port(), "worker1": free_port()}
+    trace_dirs = {k: os.path.join(SERVE_DIR, f"ops_traces_{k}") for k in ("a", "b")}
+    base = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                DYN_FABRIC_ADDR=f"127.0.0.1:{fport}", DYN_LEASE_TTL_S=str(FABRIC_TTL_S),
+                **OPS_BROWNOUT)
+    for k in ("DYN_FAULT", "DYN_TRACE", "DYN_SLO_TTFT_MS", "DYN_SLO_ITL_MS", "DYN_HEDGE"):
+        base.pop(k, None)
+
+    def worker(name: str, fault: Optional[str] = None) -> tuple:
+        # no local objective: the worker's ladder steps on the fleet's
+        # slo-status events and its tick (DYN_SLO_TICK_S)
+        env = dict(base, DYN_RUNTIME_HTTP_ENABLED="1", DYN_RUNTIME_HTTP_PORT=str(wports[name]),
+                   DYN_SLO_TICK_S="0.25", **OPS_WORKER_ENV)
+        if fault:
+            env["DYN_FAULT"] = fault
+        return ([py, "-m", "dynamo_tpu_torch.run", "in=dyn://dynamo.backend.generate", "out=torch",
+                 "--model-path", model_dir, "--model-name", "llama31-8b", "--context-length",
+                 str(MAX_MODEL_LEN), "--num-blocks", str(FABRIC_BLOCKS), *OPS_WORKER_ARGS], env)
+
+    def frontend(port: int, mode: str, **env) -> tuple:
+        return ([py, "-m", "dynamo_tpu_torch.run", "in=http", "out=dyn", "--router-mode", mode,
+                 "--http-host", "127.0.0.1", "--http-port", str(port)], dict(base, **env))
+
+    specs = {
+        "fabric": ([py, "-m", "dynamo_tpu_torch.fabric.server", "--host", "127.0.0.1",
+                    "--port", str(fport)], base),
+        "worker0": worker("worker0"), "worker1": worker("worker1"),
+        # the kv frontend: admission bounded, DYN_TRACE=auto with a loose
+        # TTFT objective (its own SLO state stays ok), JSONL logs
+        "frontend": frontend(hport, "kv", DYN_ADMISSION_MAX_INFLIGHT=str(OPS_INFLIGHT),
+                             DYN_TRACE="auto", DYN_TRACE_SAMPLE="0", DYN_TRACE_DIR=trace_dirs["a"],
+                             DYN_SLO_TTFT_MS="60000", DYN_SLO_TICK_S="0.25", DYN_LOGGING_JSONL="1"),
+        "router": ([py, "-m", "dynamo_tpu_torch.router", "--block-size", str(BLOCK),
+                    "--metrics-port", str(rport)], base),
+    }
+    procs, logs, files = {}, {}, []
+    out: dict = {"card": card}
+    rng = np.random.default_rng(21)
+
+    def ids(n: int) -> list:
+        return [int(t) for t in rng.integers(256 + 26, 128000, size=n)]
+
+    def start(names) -> None:
+        for name in names:
+            cmd, env = specs[name]
+            path = os.path.join(SERVE_DIR, f"ops_{name}.log")
+            f = open(path, "w")
+            files.append(f)
+            logs[name] = LogTail(path)
+            procs[name] = subprocess.Popen(cmd, cwd=root, env=env, stdout=f, stderr=subprocess.STDOUT)
+            if name == "fabric":
+                time.sleep(1.0)
+
+    def up(port: int, workers: int, names) -> None:
+        t0 = time.perf_counter()
+        while True:
+            for name in names:
+                if procs[name].poll() is not None:
+                    raise SmokeError(f"{name} exited with {procs[name].returncode} "
+                                     f"(see {logs[name].path})")
+            try:
+                st, data = http_call(port, "GET", "/v1/models", timeout=5)
+                if st == 200 and json.loads(data)["data"] and len(fabric_instances(fport)) == workers:
+                    return
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > SERVER_START_S:
+                raise SmokeError(f"the frontend on :{port} did not see {workers} workers")
+            time.sleep(0.2)
+
+    def stop(names) -> None:
+        for name in names:
+            p = procs.get(name)
+            if p is not None and p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for name in names:
+            p = procs.get(name)
+            if p is not None:
+                try:
+                    p.wait(60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(30)
+
+    checks: list = []  # (prompt ids, token strings) for the dense reference
+    tap = None
+    try:
+        start(["fabric", "worker0", "worker1", "frontend", "router"])
+        iid = {w: logs[w].wait_json("worker", 1, procs[w], SERVER_START_S)[0]["instance_id"]
+               for w in ("worker0", "worker1")}
+        up(hport, 2, ["fabric", "worker0", "worker1", "frontend", "router"])
+        tap = EventTap(fport, ("slo-status", "brownout-status", "health-status"))
+        out["start_s"] = time.perf_counter() - t_phase
+        log(f"serve_ops: fabric, 2 workers (status servers :{wports['worker0']} / "
+            f":{wports['worker1']}), the kv frontend (admission at {OPS_INFLIGHT}, DYN_TRACE=auto) "
+            f"and the router (--metrics-port {rport}) up in {out['start_s']:.1f} s")
+        sent = 0
+        # warm both workers' graphs (their first dispatches capture them)
+        with ThreadPoolExecutor(4) as pool:
+            warm = list(pool.map(lambda k: ops_stream(hport, ids(64 + 32 * k), f"ops-warm-{k}"),
+                                 range(4)))
+        sent += len(warm)
+
+        # (a) scrapes, and tokens/s with one scrape a second against none
+        import threading
+
+        walls = {"none": [], "scrape": []}
+        scrape_ms: dict = {"frontend": [], "worker0": [], "worker1": [], "router": []}
+        for turn, mode in enumerate(OPS_SCRAPE_TURNS):
+            stop_scraping = threading.Event()
+
+            def scraper():
+                while not stop_scraping.wait(1.0):
+                    scrape_ms["frontend"].append(scrape(hport)[1])
+
+            th = threading.Thread(target=scraper) if mode == "scrape" else None
+            if th is not None:
+                th.start()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(OPS_STREAMS) as pool:
+                got = list(pool.map(lambda k: ops_stream(hport, ids(128), f"ops-a{turn}-{k}",
+                                                         max_tokens=64), range(OPS_STREAMS)))
+            walls[mode].append(OPS_STREAMS * 64 / (time.perf_counter() - t0))
+            stop_scraping.set()
+            if th is not None:
+                th.join()
+            sent += len(got)
+        for _ in range(10):
+            for name, port in (("frontend", hport), ("worker0", wports["worker0"]),
+                               ("worker1", wports["worker1"]), ("router", rport)):
+                scrape_ms[name].append(scrape(port)[1])
+        fam, _ = scrape(hport)
+        done = prom_value(fam, "dyn_llm_http_service_requests", status="success")
+        ttft_n = prom_value(fam, "dyn_llm_http_service_time_to_first_token_seconds", "_count")
+        inflight = prom_value(fam, "dyn_llm_http_service_inflight_requests")
+        if (done, ttft_n, inflight) != (sent, sent, 0):
+            raise SmokeError(f"serve_ops (a): the frontend counted {done} requests, {ttft_n} TTFTs, "
+                             f"{inflight} in flight; the script sent {sent}, all done")
+        per_worker, gaps = {}, {}
+        for w in ("worker0", "worker1"):
+            wf, _ = scrape(wports[w])
+            per_worker[w] = {ph: prom_value(wf, "dyn_llm_phase_duration_seconds", "_count", phase=ph)
+                             for ph in ("ttft", "e2e", "queue_wait")}
+            # the inter-token gaps as the engine marks them (per fetch): the
+            # share under 2 ms and the p50 / p99
+            n = prom_value(wf, "dyn_llm_phase_duration_seconds", "_count", phase="inter_token")
+            near0 = max((v for name, lab, v in wf["dyn_llm_phase_duration_seconds"]["samples"]
+                         if name.endswith("_bucket") and lab.get("phase") == "inter_token"
+                         and lab["le"] != "+Inf" and float(lab["le"]) <= 0.002), default=0.0)
+            gaps[w] = {"n": n, "under_2ms": near0 / max(1.0, n), **{
+                q: 1e3 * prom_value(wf, "dyn_llm_phase_latency_seconds", phase="inter_token", quantile=q)
+                for q in ("p50", "p99")}}
+        if sum(v["e2e"] for v in per_worker.values()) != sent or any(
+                v["ttft"] != v["e2e"] or v["queue_wait"] != v["e2e"] for v in per_worker.values()):
+            raise SmokeError(f"serve_ops (a): the workers' phase histograms count {per_worker}; "
+                             f"the script sent {sent} streams")
+        found = router_calls(fport, [{"token_ids": ids(64), "request_id": f"ops-r{k}"} for k in range(3)])
+        rf, _ = scrape(rport)
+        if prom_value(rf, "dyn_llm_router_decisions") != 3 or "dyn_llm_kv_hit_rate" not in rf:
+            raise SmokeError(f"serve_ops (a): the router's /metrics after 3 decisions: "
+                             f"{rf.get('dyn_llm_router_decisions')}")
+        rate = {k: statistics.mean(v) for k, v in walls.items()}
+        out["a"] = {"families": len(fam), "scrape_ms": {k: statistics.median(v) for k, v in scrape_ms.items()},
+                    "tok_per_s": rate, "scraped_over_none": rate["scrape"] / rate["none"],
+                    "worker_phase_counts": per_worker, "inter_token_ms": gaps,
+                    "router_workers": [f["worker_id"] for f in found]}
+        log(f"serve_ops (a): {len(fam)} families on the frontend's /metrics; requests {done:.0f}, TTFT "
+            f"count {ttft_n:.0f}, inflight {inflight:.0f} = the {sent} sent; the workers' phase "
+            f"histograms count {per_worker['worker0']['e2e']:.0f} + {per_worker['worker1']['e2e']:.0f} "
+            f"streams; scrape median ms: " + ", ".join(f"{k} {v:.2f}" for k, v in out["a"]["scrape_ms"].items())
+            + f"; {OPS_STREAMS} streams' tokens/s with a scrape a second / none "
+            f"{rate['scrape']:.1f} / {rate['none']:.1f} = {out['a']['scraped_over_none']:.4f} ({card}); "
+            f"at {time.perf_counter() - t_phase:.1f} s")
+        log("serve_ops (a): the workers' inter_token histograms (marked per fetch, H = 4): "
+            + "; ".join(f"{w} {g['n']:.0f} gaps, {100 * g['under_2ms']:.1f}% under 2 ms, p50 "
+                        f"{g['p50']:.2f} ms, p99 {g['p99']:.2f} ms" for w, g in gaps.items()))
+
+        # (b) admission: three long standard streams hold the slots, then a
+        # burst of every class at once
+        holders = [ids(96) for _ in range(3)]
+        with ThreadPoolExecutor(16) as pool:
+            held = [pool.submit(ops_stream, hport, holders[k], f"ops-hold-{k}", "standard", 160)
+                    for k in range(3)]
+            t_wait = time.perf_counter()
+            while prom_value(scrape(hport)[0], "dyn_llm_http_service_inflight_requests") < 3:
+                if time.perf_counter() - t_wait > 60:
+                    raise SmokeError("serve_ops (b): the holding streams never became inflight")
+                time.sleep(0.05)
+            burst = [("bulk", ids(80)) for _ in range(3)] + [("standard", ids(80)) for _ in range(2)] \
+                + [("interactive", ids(80))]
+            futs = [pool.submit(ops_stream, hport, p, f"ops-b{k}-{c}", c) for k, (c, p) in enumerate(burst)]
+            results = [f.result() for f in futs]
+            held = [f.result() for f in held]
+        shed = {c: sum(1 for (cc, _), r in zip(burst, results) if cc == c and r["status"] == 429)
+                for c in ("bulk", "standard", "interactive")}
+        retry = [int(r["retry_after"]) for r in results if r["status"] == 429]
+        if shed["bulk"] != 3 or not shed["bulk"] >= shed["standard"] >= shed["interactive"]:
+            raise SmokeError(f"serve_ops (b): sheds by class {shed}: bulk must go first and whole")
+        if not retry or not all(1 <= r <= 60 for r in retry):
+            raise SmokeError(f"serve_ops (b): Retry-After values {retry}")
+        for (c, p), r in zip(burst, results):
+            if r["status"] == 200:
+                checks.append((p, r["tokens"]))
+            elif r["body"]["error"]["type"] != "overloaded":
+                raise SmokeError(f"serve_ops (b): a shed answered {r['body']}")
+        for p, r in zip(holders, held):
+            checks.append((p, r["tokens"]))
+        one = shed_once(hport, ids(80), "ops-b-one", "bulk")  # nothing in flight: admitted
+        sent += 1 + sum(r["status"] == 200 for r in results) + len(held)
+        # a 429's answer time: hold the slots again and time bulk sheds alone
+        with ThreadPoolExecutor(4) as pool:
+            held2 = [pool.submit(ops_stream, hport, ids(96), f"ops-hold2-{k}", "standard", 96)
+                     for k in range(3)]
+            while prom_value(scrape(hport)[0], "dyn_llm_http_service_inflight_requests") < 3:
+                time.sleep(0.05)
+            sheds = [shed_once(hport, ids(80), f"ops-b429-{k}", "bulk") for k in range(5)]
+            for f in held2:
+                f.result()
+        if one["status"] != 200 or any(s["status"] != 429 for s in sheds):
+            raise SmokeError(f"serve_ops (b): an idle bulk request answered {one['status']}, bulk "
+                             f"past the watermark {[s['status'] for s in sheds]}")
+        fam, _ = scrape(hport)
+        out["b"] = {"shed_by_class": shed, "retry_after_s": retry,
+                    "shed_answer_ms": statistics.median(s["ms"] for s in sheds),
+                    "class_shed_metric": {c: prom_value(fam, "dyn_llm_class_requests_shed", priority=c)
+                                          for c in ("bulk", "standard", "interactive")}}
+        log(f"serve_ops (b): with 3 standard streams in flight (watermark {OPS_INFLIGHT}), a burst of "
+            f"3 bulk, 2 standard, 1 interactive: 429 by class {shed}; Retry-After {retry} s; a 429 "
+            f"answered in {out['b']['shed_answer_ms']:.2f} ms (median of 5) ({card}); at "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
+        # (c) SLO and brownout: a second frontend with a TTFT objective no
+        # request meets breaches; its slo-status events drive every ladder
+        specs["frontend_b"] = frontend(bport, "round_robin", DYN_SLO_TTFT_MS="1",
+                                       DYN_SLO_FAST_WINDOW_S="2", DYN_SLO_SLOW_WINDOW_S="4",
+                                       DYN_SLO_TICK_S="0.25", DYN_TRACE="auto", DYN_TRACE_SAMPLE="0",
+                                       DYN_TRACE_DIR=trace_dirs["b"])
+        start(["frontend_b"])
+        up(bport, 2, ["frontend_b"])
+        def worker_stats() -> dict:
+            seen = {w: len(logs[w].json_lines("worker_stats")) for w in ("worker0", "worker1")}
+            for w in ("worker0", "worker1"):
+                procs[w].send_signal(signal.SIGUSR1)
+            return {w: logs[w].wait_json("worker_stats", seen[w] + 1, procs[w], 30)[-1]
+                    for w in ("worker0", "worker1")}
+
+        stats_before = worker_stats()
+        keep = threading.Event()
+
+        def breach_traffic():
+            k = 0
+            while not keep.is_set():
+                ops_stream(bport, ids(32), f"ops-c-slow-{k}", max_tokens=4)
+                k += 1
+                keep.wait(0.3)
+
+        t_c = time.perf_counter()
+        traffic = threading.Thread(target=breach_traffic)
+        traffic.start()
+        try:
+            deadline = time.perf_counter() + 30
+            while True:
+                levels = {w: prom_value(scrape(wports[w])[0], "dyn_llm_brownout_level")
+                          for w in ("worker0", "worker1")}
+                slo_a = json.loads(http_call(hport, "GET", "/debug/slo")[1])
+                if min(levels.values()) >= 3 and slo_a["brownout"]["level"] >= 3:
+                    break
+                if time.perf_counter() > deadline:
+                    raise SmokeError(f"serve_ops (c): the ladders reached {levels}, frontend "
+                                     f"{slo_a['brownout']['level']}")
+                time.sleep(0.1)
+            slo_b = json.loads(http_call(bport, "GET", "/debug/slo")[1])
+            if slo_b["models"]["llama31-8b"]["state"] != "breached":
+                raise SmokeError(f"serve_ops (c): the SLO frontend's /debug/slo: {slo_b}")
+            bulk = shed_once(hport, ids(40), "ops-c-bulk", "bulk")
+            if bulk["status"] != 429:
+                raise SmokeError(f"serve_ops (c): bulk under brownout answered {bulk['status']}")
+            # rung 3 on the workers: a 2000-token prompt runs in chunks of 256
+            ops_stream(hport, ids(2000), "ops-c-capped", max_tokens=4)
+            sent += 1
+            stats_capped = worker_stats()
+        finally:
+            keep.set()
+            traffic.join()
+        chunks = sum(stats_capped[w]["chunk_steps"] - stats_before[w]["chunk_steps"]
+                     for w in ("worker0", "worker1"))
+        if chunks != -(-2000 // 256):
+            raise SmokeError(f"serve_ops (c): the capped 2000-token prompt ran {chunks} chunks, "
+                             f"not {-(-2000 // 256)} of 256")
+        deadline = time.perf_counter() + 40
+        while True:
+            levels = {w: prom_value(scrape(wports[w])[0], "dyn_llm_brownout_level")
+                      for w in ("worker0", "worker1")}
+            slo_a = json.loads(http_call(hport, "GET", "/debug/slo")[1])
+            if max(levels.values()) == 0 and slo_a["brownout"]["level"] == 0:
+                break
+            if time.perf_counter() > deadline:
+                raise SmokeError(f"serve_ops (c): the ladders stayed at {levels}, frontend "
+                                 f"{slo_a['brownout']['level']}")
+            time.sleep(0.1)
+        t_rec = time.perf_counter()
+        slo_ev = tap.of("slo-status")
+        ladder = tap.of("brownout-status")
+        if not any(p.get("new") == "breached" for _, p in slo_ev) or not any(
+                p.get("new") == "ok" for _, p in slo_ev):
+            raise SmokeError(f"serve_ops (c): slo-status events {[p for _, p in slo_ev]}")
+        t_breach = min(t for t, p in slo_ev if p.get("new") == "breached")
+        scopes: dict = {}
+        for t, p in ladder:
+            scopes.setdefault(p["scope"], []).append((round((t - t_breach) * 1e3, 1), p["level"],
+                                                      p["spec_off"], p["chunk_cap"]))
+        workers_ev = {s: v for s, v in scopes.items() if s.startswith("backend")}
+        for s, v in workers_ev.items():
+            lv = [x[1] for x in v]
+            if lv != [1, 2, 3, 2, 1, 0] or not (v[1][2] and v[2][3]):
+                raise SmokeError(f"serve_ops (c): worker {s}'s ladder went {v}")
+        if len(workers_ev) != 2:
+            raise SmokeError(f"serve_ops (c): ladder events from {list(scopes)}")
+        # DYN_TRACE=auto: the slow requests kept at the SLO frontend, the
+        # fast ones dropped at the kv frontend, an errored one kept there
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", hport, timeout=60)
+        try:
+            conn.request("POST", "/v1/completions", body=json.dumps({
+                "model": "llama31-8b", "prompt": ids(16), "max_tokens": 64, "stream": False,
+                "ext": {"timeout_ms": 1}}), headers={"Content-Type": "application/json",
+                                                     "x-request-id": "ops-c-err"})
+            resp = conn.getresponse()
+            err = (resp.status, json.loads(resp.read()))
+        finally:
+            conn.close()
+        traces_a = json.loads(http_call(hport, "GET", "/debug/traces")[1])
+        traces_b = json.loads(http_call(bport, "GET", "/debug/traces")[1])
+        kept_a = {e["request_id"]: e["reason"] for e in traces_a["traces"]}
+        kept_b = {e["request_id"]: e["reason"] for e in traces_b["traces"]}
+        if err[0] != 504 or kept_a != {"ops-c-err": "error:deadline_exceeded"} or \
+                traces_a["stats"]["dropped"] < sent or not kept_b or \
+                set(kept_b.values()) != {"slo_ttft"}:
+            raise SmokeError(f"serve_ops (c): DYN_TRACE=auto kept {kept_a} (dropped "
+                             f"{traces_a['stats']['dropped']}) at the kv frontend, {len(kept_b)} "
+                             f"{set(kept_b.values())} at the SLO frontend; the errored request "
+                             f"answered {err[0]}")
+        stop(["frontend_b"])
+        out["c"] = {"ladders_ms_from_breach": scopes, "recovered_s": t_rec - t_c,
+                    "chunk_steps_capped": chunks, "auto_kept": {"kv": kept_a, "slo": len(kept_b)},
+                    "auto_dropped_kv": traces_a["stats"]["dropped"]}
+        log(f"serve_ops (c): the SLO frontend breached and published slo-status; ladder transitions "
+            f"(ms after the breach event, level, spec_off, chunk_cap): "
+            + "; ".join(f"{s} {v}" for s, v in scopes.items())
+            + f"; bulk shed at the kv frontend, a 2000-token prompt in {chunks} chunks of 256 on "
+              f"the workers at rung 3; every ladder back at 0 {t_rec - t_c:.1f} s after the breach "
+              f"traffic began; DYN_TRACE=auto kept {len(kept_b)} slow (slo_ttft) at the SLO "
+              f"frontend, the errored one (error:deadline_exceeded) at the kv frontend and dropped "
+              f"its {traces_a['stats']['dropped']} fast ones; at {time.perf_counter() - t_phase:.1f} s")
+
+        # (d) tail tolerance: worker1 drained and started again gray
+        # (slow_decode=3); three round-robin frontends: C with DYN_HEDGE=1
+        # and D without, both keeping every worker in rotation
+        # (DYN_EJECT_INTERVALS), and E, whose scorer ejects (at 2x the fleet
+        # median); the warm-ups go to the workers directly, so C's hedge
+        # delay learns from its own interactive requests only
+        stop(["worker1"])
+        w1_exit = logs["worker1"].json_lines("exit_stats")[-1]
+        specs["worker1g"] = worker("worker1", fault=f"slow_decode={OPS_SLOW}")
+        keep_all = {"DYN_EJECT_INTERVALS": "1000000"}
+        # the hedge delay's floor between the healthy worker's 2000-token
+        # TTFT (~200-330 ms) and the gray one's less the healthy one's, so
+        # only gray primaries hedge and their hedges can win; every
+        # dispatch may hedge
+        specs["frontend_c"] = frontend(cport, "round_robin", DYN_HEDGE="1", DYN_HEDGE_BUDGET="1.0",
+                                       DYN_HEDGE_MIN_MS="350", **keep_all)
+        specs["frontend_d"] = frontend(dport, "round_robin", **keep_all)
+        specs["frontend_e"] = frontend(eport, "round_robin", DYN_EJECT_RATIO="2.0")
+        start(["worker1g", "frontend_c", "frontend_d", "frontend_e"])
+        gray = logs["worker1g"].wait_json("worker", 1, procs["worker1g"], SERVER_START_S)[0]["instance_id"]
+        for port, name in ((cport, "frontend_c"), (dport, "frontend_d"), (eport, "frontend_e")):
+            up(port, 2, ["worker1g", name])
+        t_gray = time.perf_counter()
+        direct_calls(fport, [(gray, ids(OPS_LONG), 4) for _ in range(2)]
+                     + [(iid["worker0"], ids(OPS_LONG), 4)])
+        prompts = [ids(OPS_LONG) for _ in range(OPS_PAIRS)]
+        plain = [ops_stream(dport, p, f"ops-d{k}-plain", "interactive") for k, p in enumerate(prompts)]
+        hedged = []
+        for k, p in enumerate(prompts):
+            hedged.append(ops_stream(cport, p, f"ops-d{k}-hedged", "interactive"))
+            if hedged[-1]["tokens"] != plain[k]["tokens"]:
+                raise SmokeError(f"serve_ops (d): prompt {k}: the hedged stream's tokens differ from "
+                                 f"the unhedged one's")
+        checks.append((prompts[0], hedged[0]["tokens"]))
+        log("serve_ops (d): TTFT ms per prompt, unhedged "
+            + str([round(r["ttft_ms"], 1) for r in plain]) + ", hedged "
+            + str([round(r["ttft_ms"], 1) for r in hedged]))
+        fam, _ = scrape(cport)
+        hedges = {o: prom_value(fam, "dyn_llm_hedges", outcome=o) for o in ("won", "lost", "budget_denied")}
+        if hedges["won"] < 1:
+            raise SmokeError(f"serve_ops (d): no hedge won over {len(prompts)} requests: {hedges}")
+        deadline = time.perf_counter() + 40
+        while prom_value(scrape(eport)[0], "dyn_llm_workers_ejected") < 1:
+            if time.perf_counter() > deadline:
+                raise SmokeError(f"serve_ops (d): the gray worker was not ejected: "
+                                 f"{scrape(eport)[0].get('dyn_llm_worker_health_score')}")
+            ops_stream(eport, ids(32), f"ops-d-tick-{time.perf_counter():.3f}", max_tokens=4)
+        t_eject = time.perf_counter() - t_gray
+        fam, _ = scrape(eport)
+        scores = {lab["instance"]: v for _, lab, v in fam["dyn_llm_worker_health_score"]["samples"]}
+        if scores.get(f"{gray:x}", 0) < 2.0:
+            raise SmokeError(f"serve_ops (d): ejected, but the gray worker scores {scores}")
+        before = prom_value(scrape(wports["worker1"])[0], "dyn_llm_phase_duration_seconds", "_count",
+                            phase="e2e")
+        for k in range(OPS_AFTER):
+            ops_stream(eport, ids(32), f"ops-d-after-{k}", max_tokens=4)
+        reached = prom_value(scrape(wports["worker1"])[0], "dyn_llm_phase_duration_seconds", "_count",
+                             phase="e2e") - before
+        if reached > 2:
+            raise SmokeError(f"serve_ops (d): {reached:.0f} of {OPS_AFTER} requests after the "
+                             f"ejection reached the gray worker (probes: 1 in 16)")
+        stop(["frontend_c", "frontend_d", "frontend_e"])
+
+        def pct(xs, p):
+            return sorted(xs)[min(len(xs) - 1, int(p * len(xs)))]
+
+        ttft = {"hedged": [r["ttft_ms"] for r in hedged], "unhedged": [r["ttft_ms"] for r in plain]}
+        out["d"] = {"requests": len(prompts), "hedges": hedges, "worker1_drained": {
+            k: w1_exit[k] for k in ("busy_lanes", "free_blocks", "num_blocks")},
+            "ttft_ms": {k: {"p50": pct(v, 0.5), "p99": pct(v, 0.99)} for k, v in ttft.items()},
+            "gray_score": scores.get(f"{gray:x}"), "eject_s": t_eject,
+            "after_ejection_reached_gray": reached}
+        t = out["d"]["ttft_ms"]
+        log(f"serve_ops (d): the gray worker {gray:x} (slow_decode={OPS_SLOW}); {len(prompts)} "
+            f"interactive {OPS_LONG}-token prompts through round robin: hedged streams equal the "
+            f"unhedged ones; hedges {hedges}; TTFT p50 / p99 hedged {t['hedged']['p50']:.1f} / "
+            f"{t['hedged']['p99']:.1f} ms, unhedged {t['unhedged']['p50']:.1f} / "
+            f"{t['unhedged']['p99']:.1f} ms; the third frontend's scorer ejected it by "
+            f"{t_eject:.1f} s after it registered (score "
+            f"{scores.get(f'{gray:x}'):.2f}), then {reached:.0f} of {OPS_AFTER} requests reached it "
+            f"({card}); at {time.perf_counter() - t_phase:.1f} s")
+
+        # (e) a tools request and /v1/responses at the kv frontend; JSONL logs
+        st, data = http_call(hport, "POST", "/v1/chat/completions", {
+            "model": "llama31-8b", "messages": [{"role": "user", "content": "weather in Paris?"}],
+            "max_tokens": 8, "temperature": 0, "stream": False,
+            "tools": [{"type": "function", "function": {"name": "get_weather", "parameters": {}}}]})
+        st2, data2 = http_call(hport, "POST", "/v1/responses", {
+            "model": "llama31-8b", "input": "hello", "max_output_tokens": 8, "temperature": 0})
+        if st != 200 or st2 != 200 or json.loads(data2)["object"] != "response":
+            raise SmokeError(f"serve_ops (e): tools answered {st} {data[:200]!r}, responses {st2} "
+                             f"{data2[:200]!r}")
+        out["e"] = {"tools_finish": json.loads(data)["choices"][0]["finish_reason"],
+                    "responses_text": json.loads(data2)["output"][0]["content"][0]["text"]}
+    finally:
+        if tap is not None:
+            tap.close()
+        stop(["frontend_c", "frontend_d", "frontend_e", "frontend_b", "frontend", "router"])
+        stop(["worker0", "worker1g", "worker1"])
+        stop(["fabric"])
+        for f in files:
+            f.close()
+    exits = {w: logs[w].json_lines("exit_stats")[-1] for w in ("worker0", "worker1g")}
+    for w, st in exits.items():
+        if st["busy_lanes"] or st["free_blocks"] != st["num_blocks"] - 1:
+            raise SmokeError(f"serve_ops: {w} exited holding {st['busy_lanes']} lanes, "
+                             f"{st['num_blocks'] - 1 - st['free_blocks']} blocks")
+    if out["d"]["worker1_drained"]["busy_lanes"] or (out["d"]["worker1_drained"]["free_blocks"]
+                                                     != out["d"]["worker1_drained"]["num_blocks"] - 1):
+        raise SmokeError(f"serve_ops: the drained worker1 held {out['d']['worker1_drained']}")
+    launches = {w: {k: v for k, v in st["kernel_launches"].items() if v} for w, st in exits.items()}
+    log(f"serve_ops: kernel launches (workers' exit stats; #1 by graph replays, #3 only where a "
+        f"worker runs a prompt single-shot): {launches}; graph replays "
+        f"{ {w: st['graph_replays'] for w, st in exits.items()} }")
+    jsonl = other = 0
+    with open(logs["frontend"].path) as f:
+        for line in f:
+            if line.startswith('{"time"'):
+                json.loads(line)
+                jsonl += 1
+            elif line.strip() and not line.startswith(("{", "serving ")):
+                other += 1
+    # a with_fields line under a trace span carries the trace id (the JSONL
+    # formatter of the frontend's DYN_LOGGING_JSONL=1, in this process)
+    import io
+    import logging as pylog
+
+    buf = io.StringIO()
+    handler = pylog.StreamHandler(buf)
+    handler.setFormatter(dlog.JsonlFormatter())
+    lg = dlog.get_logger("chip_smoke.serve_ops")
+    lg.addHandler(handler)
+    lg.setLevel(pylog.INFO)
+    was = dtrace.enabled()
+    dtrace.set_enabled(True)
+    try:
+        from dynamo_tpu_torch.pipeline.context import Context
+
+        ctx = Context(id="ops-log")
+        with dtrace.root_span("http_request", ctx, request_id=ctx.id):
+            dlog.with_fields(lg, pylog.INFO, "served", tokens=OPS_OUT)
+        line = json.loads(buf.getvalue().splitlines()[0])
+        if line.get("trace_id") != dtrace.ctx_trace_id(ctx) or line.get("request_id") != "ops-log":
+            raise SmokeError(f"serve_ops (e): a JSONL with_fields line {line}")
+    finally:
+        dtrace.set_enabled(was)
+        lg.removeHandler(handler)
+    out["e"]["frontend_jsonl_lines"] = jsonl
+    log(f"serve_ops (e): a tools request answered 200 (finish {out['e']['tools_finish']}), "
+        f"/v1/responses 200; the kv frontend wrote {jsonl} JSONL log lines (DYN_LOGGING_JSONL=1; "
+        f"{other} other), a with_fields line under a span carries its trace and request ids")
+
+    # every admitted and hedged stream checked against the dense reference
+    t_ref = time.perf_counter()
+    engine = build_torch_engine(model_dir, device="cuda", max_model_len=MAX_MODEL_LEN, num_blocks=64)
+    tok = TokenizerWrapper.from_file(os.path.join(model_dir, "tokenizer.json"))
+    ids_of: dict = {}
+    for i in range(LLAMA31_8B["vocab_size"]):
+        ids_of.setdefault(tok.decode([i], skip_special_tokens=False), []).append(i)
+    try:
+        gaps = [kv_reference_check(torch, engine.runner, p, toks, ids_of, n_check=OPS_CHECK)
+                for p, toks in checks]
+    finally:
+        asyncio.run(engine.close())
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["reference_max_logit_gap"] = max(gaps)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serve_ops: {len(gaps)} streams agree with the dense reference (first {OPS_CHECK} tokens, "
+        f"largest logit gap {max(gaps):.4f}; {time.perf_counter() - t_ref:.1f} s); phase "
+        f"{out['phase_s']:.1f} s")
+    print(json.dumps({"serve_ops": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7927,7 +8725,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # ``--only serve_offload`` / ``serve_fabric`` / ``serve_kv`` / ``serve_tp``
-    # / ``serve_disagg_fabric`` / ``serve_trace_faults`` / ``serve_peer``: the
+    # / ``serve_disagg_fabric`` / ``serve_trace_faults`` / ``serve_peer`` /
+    # ``serve_ops``: the
     # device, the build and that phase alone (a quicker call while the phase is worked on; no
     # kernels line)
     only = sys.argv[sys.argv.index("--only") + 1] if "--only" in sys.argv else None
@@ -7960,7 +8759,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
         if only in ("serve_offload", "serve_fabric", "serve_kv", "serve_tp", "serve_disagg_fabric",
-                    "serve_trace_faults", "serve_peer"):
+                    "serve_trace_faults", "serve_peer", "serve_ops"):
             if only == "serve_offload":
                 phase_serve_offload(torch, np, card, *offload_params(torch))
             elif only == "serve_fabric":
@@ -7973,13 +8772,16 @@ def main() -> int:
                 phase_serve_trace_faults(torch, np, card)
             elif only == "serve_peer":
                 phase_serve_peer(torch, np, card, peer_params(torch))
+            elif only == "serve_ops":
+                phase_serve_ops(torch, np, card)
             else:
                 phase_serve_kv(torch, np, card)
             return finish_run([card, json.dumps({"ok": True, "device": {
                 "platform": "gpu", "kind": kind, "count": count}})])
         if only is not None:
             raise SmokeError(f"--only takes serve_offload, serve_fabric, serve_kv, serve_tp, "
-                             f"serve_disagg_fabric, serve_trace_faults or serve_peer, not {only}")
+                             f"serve_disagg_fabric, serve_trace_faults, serve_peer or serve_ops, "
+                             f"not {only}")
 
         # 3. parity
         errs = phase_parity(torch)
@@ -8020,13 +8822,26 @@ def main() -> int:
             **{k: int8["launches_both"][k] for k in INT8_KERNELS},
         }
 
-        # 8. times
+        # 8. times (each part's wall time logged)
+        t_part = [time.perf_counter()]
+
+        def part(name: str) -> None:
+            now = time.perf_counter()
+            log(f"time: times/{name} {now - t_part[0]:.1f} s")
+            t_part[0] = now
+
         phase_engine_times(torch, np, engine, fused_runner, card)
+        part("engine")
         admission_times(torch, np, default_engine, card)
+        part("admission")
         int8_engine_times(torch, np, int8_runner, fused_runner, default_engine.runner, card)
+        part("int8_engine")
         rows = phase_kernel_times(torch, card)
+        part("kernels")
         rows.update(phase_kernel_times_int8(torch, card))
+        part("kernels_int8")
         rows.update(tp_partial_times(torch, card))
+        part("tp_partial")
         log(f"peak device memory during serve: {served['peak_mem_bytes'] / 1e9:.2f} GB")
         lap("times")
 
@@ -8126,6 +8941,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_serve_trace_faults(torch, np, card)
         lap("serve_trace_faults")
+        # 21. serve_ops: the operating plane (metrics, admission, the SLO
+        # plane and brownout, hedging and ejection, tools) across processes
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_ops(torch, np, card)
+        lap("serve_ops")
     except Exception as e:  # noqa: BLE001 - report and fail the run
         import traceback
 

@@ -37,6 +37,7 @@ from typing import Any, Optional
 
 from dynamo_tpu_torch import integrity
 from dynamo_tpu_torch.fabric import mpack, wire
+from dynamo_tpu_torch.kv_router.protocols import PULL_OUTCOMES  # noqa: F401 (re-exported)
 from dynamo_tpu_torch.pipeline.context import Context
 from dynamo_tpu_torch.testing import faults
 
@@ -47,16 +48,6 @@ _ADVERT_PREFIX = "kvbm/adverts"
 # the payload's header and the stamp
 _FRAME_SLACK = 1 << 20
 
-# outcome keys of the pulled-block counts: the wire-name contract shared with
-# WorkerStats.kv_pulled_blocks_by_outcome
-PULL_OUTCOMES = (
-    "pulled",
-    "fallback_miss",
-    "fallback_timeout",
-    "fallback_integrity",
-    "fallback_fenced",
-    "fallback_error",
-)
 
 
 def _advert_key(namespace: str, instance_id: int) -> str:

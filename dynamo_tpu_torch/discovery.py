@@ -19,10 +19,23 @@ one trace (a ``migration`` event marks each failover, ``degraded_hold`` a
 replay held through a control-plane blackout); the spans a worker ships on
 its final frame are ingested, and with tracing on the watcher subscribes to
 each namespace's ``trace-export`` subject, the fallback for streams torn
-down before their final frame. Left out (ROADMAP.md A10 part 2 and A12):
-hedged first tokens and their events, health scoring (``_hedged_first``,
-``telemetry/health``), the worker capacity poller, the ejection publisher
-and provenance records.
+down before their final frame.
+
+The tail-tolerance plane (``telemetry/health.py``): each worker endpoint
+gets one ``HealthScorer`` and one ``HedgeController``, shared by its
+Client (ejected workers leave ``_eligible``), its KV scheduler (route set
+and deweighting) and its ``RemoteEngine``, which records every dispatch,
+first-frame and inter-frame latency against the serving worker. With
+``DYN_HEDGE=1`` an interactive request whose first token has not come
+within the hedge delay gets one hedge dispatch on another worker
+(``_hedged_first``): the first good first frame wins, the loser's stream
+is closed (its worker frees the lane and blocks), and the events
+``hedge_dispatch_failed`` and ``hedge_won`` mark the trace. A
+``WorkerCapacityPoller`` per model scrapes the workers' load metrics every
+2 s: their slots set the admission watermark, their phase histograms feed
+the scorer, and each scrape ticks it; an ejection is published on the
+namespace's ``health-status`` subject. Left out (ROADMAP.md A12): the
+decision provenance records.
 
 Role-equivalent of lib/llm/src/discovery/{watcher,model_manager,model_entry}.rs
 and the bindings' ``register_llm``.
@@ -48,10 +61,13 @@ from dynamo_tpu_torch.protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
 )
+from dynamo_tpu_torch import qos
+from dynamo_tpu_torch.runtime import clock as dclock
 from dynamo_tpu_torch.runtime.backoff import full_jitter_delay
 from dynamo_tpu_torch.runtime.component import Endpoint, NoInstancesError
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.protocols import MODEL_ROOT, EndpointId
+from dynamo_tpu_torch.telemetry import health as dhealth
 from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.discovery")
@@ -98,6 +114,57 @@ async def register_llm(
     return key
 
 
+class _ResumedStream:
+    """A response-stream facade that resumes iteration after the hedging
+    logic pulled (or started pulling) the first frame: yields the pending
+    first item, then the underlying iterator's. close() cancels the pending
+    pull and closes the inner stream (killing its per-attempt context: the
+    cancellation cascade the engines honour for consumer disconnects)."""
+
+    def __init__(self, inner: Any, it: Any, pending: Optional[asyncio.Task]):
+        self._inner = inner
+        self._it = it
+        self._pending = pending
+        self.context = inner.context
+
+    def __aiter__(self):
+        async def gen():
+            try:
+                if self._pending is not None:
+                    item = await self._pending
+                    self._pending = None
+                    yield item
+                while True:
+                    yield await self._it.__anext__()
+            except StopAsyncIteration:
+                return
+
+        return gen()
+
+    async def close(self) -> None:
+        if self._pending is not None:
+            self._pending.cancel()
+            self._pending = None
+        await self._inner.close()
+
+
+def _first_frame_tokens(task: asyncio.Task) -> int:
+    """Tokens carried by a completed first-frame pull (0 for errors)."""
+    if not task.done() or task.cancelled() or task.exception() is not None:
+        return 0
+    data = getattr(task.result(), "data", None)
+    if isinstance(data, dict):
+        return len(data.get("token_ids") or ())
+    return 0
+
+
+def _is_good_first_frame(task: asyncio.Task) -> bool:
+    """A completed pull that yielded a non-error frame."""
+    if not task.done() or task.cancelled() or task.exception() is not None:
+        return False
+    return not task.result().is_error()
+
+
 class RemoteEngine:
     """EngineFn adapter with in-flight migration: forwards
     PreprocessedRequests over a PushRouter; when the serving worker dies
@@ -113,7 +180,15 @@ class RemoteEngine:
     and per-token sampling counters continue exactly where the dead worker
     stopped. Frames stamped with a fenced epoch (a partitioned zombie still
     streaming after the cluster declared it dead) are refused and the
-    request migrates. ``migrations`` counts the replays."""
+    request migrates. ``migrations`` counts the replays.
+
+    Tail tolerance: with a ``health`` scorer, every dispatch / first-frame
+    / inter-frame latency is recorded against the serving worker. With
+    ``DYN_HEDGE=1`` and a ``hedger``, an interactive request's first
+    attempt is hedged (``_hedged_first``). A hedge is a fresh dispatch of
+    the same request, not a replay, so the port's counter-based sampling
+    keys line up and hedged streams are token-identical under greedy and
+    seeded sampling."""
 
     def __init__(
         self,
@@ -122,9 +197,15 @@ class RemoteEngine:
         cancel_token: Optional[Any] = None,
         fences: Optional[Any] = None,  # runtime.fencing.FenceRegistry
         on_fenced_reject: Optional[Callable[[], None]] = None,
+        health: Optional[Any] = None,  # telemetry.health.HealthScorer
+        hedger: Optional[Any] = None,  # telemetry.health.HedgeController
     ) -> None:
         self.router = router
         self.on_migration = on_migration
+        self.health = health
+        self.hedger = hedger
+        # DYN_HEDGE resolved once: the disabled path is one attribute check
+        self._hedge = hedger is not None and dhealth.hedge_enabled()
         # the hosting runtime's CancellationToken: when the frontend itself
         # is dying (fabric/lease loss), replays must abort IMMEDIATELY so
         # the structured error still reaches the client before teardown
@@ -141,6 +222,77 @@ class RemoteEngine:
     def _runtime_dying(self) -> bool:
         return self.cancel_token is not None and self.cancel_token.is_cancelled()
 
+    async def _hedged_first(self, stream: Any, ctx: Context, attempt_ctx: Context,
+                            req_dict: dict, exclude: set[int], dsp: Any) -> Any:
+        """Hedged first token (discovery.py:202-335, "The Tail at Scale"):
+        wait the dynamic hedge delay for the primary's first frame; past
+        it, launch one hedge dispatch on another eligible worker (budget
+        permitting), race the two first frames, keep the winner and close
+        the loser. Always returns a stream to iterate: on any internal
+        failure the primary passes through."""
+        hedger = self.hedger
+        it = stream.__aiter__()
+        first_task = asyncio.ensure_future(it.__anext__())
+        done, _ = await asyncio.wait({first_task}, timeout=hedger.delay_ms() / 1e3)
+        if done:
+            # the primary answered inside the delay: no hedge
+            return _ResumedStream(stream, it, first_task)
+        if not hedger.try_acquire():  # counts outcome=budget_denied
+            dsp.set(hedge="budget_denied")
+            return _ResumedStream(stream, it, first_task)
+        primary_wid = attempt_ctx.metadata.get("worker_instance_id")
+        hx = set(exclude)
+        if primary_wid is not None:
+            hx.add(primary_wid)
+        # the hedge context is a sibling of the primary's attempt context
+        # (both children of the request's): closing the loser must not
+        # cascade into the winner
+        hedge_ctx = ctx.child()
+        hstream = None
+        try:
+            hstream = await asyncio.wait_for(self.router.generate(req_dict, hedge_ctx, exclude=hx),
+                                             self.dispatch_timeout_s)
+        except Exception as e:  # noqa: BLE001 — a failed hedge is a no-op
+            dtrace.event("hedge_dispatch_failed", cause=str(e))
+        if hstream is None:
+            hedger.note_outcome("lost")
+            return _ResumedStream(stream, it, first_task)
+        hedge_wid = hedge_ctx.metadata.get("worker_instance_id")
+        dsp.set(hedged=True, hedge_worker=f"{hedge_wid:x}" if hedge_wid is not None else None)
+        hit = hstream.__aiter__()
+        hedge_task = asyncio.ensure_future(hit.__anext__())
+        await asyncio.wait({first_task, hedge_task}, return_when=asyncio.FIRST_COMPLETED)
+        # the winner is the first good frame, the primary on a tie; a side
+        # whose pull errored loses even if first
+        if _is_good_first_frame(first_task):
+            hedge_wins = False
+        elif _is_good_first_frame(hedge_task):
+            hedge_wins = True
+        else:
+            # the primary's pull failed while the hedge is in flight: ride
+            # the hedge; the hedge failed first (or both): stay, and the
+            # migration logic decides what comes next
+            hedge_wins = first_task.done() and not hedge_task.done()
+        if hedge_wins:
+            wasted = _first_frame_tokens(first_task)
+            first_task.cancel()
+            with contextlib.suppress(Exception):
+                await stream.close()
+            hedger.note_outcome("won", wasted_tokens=wasted)
+            dsp.set(hedge="won")
+            dtrace.event("hedge_won", loser=f"{primary_wid:x}" if primary_wid is not None else None)
+            # exclusion and health attribution follow the serving worker
+            if hedge_wid is not None:
+                attempt_ctx.metadata["worker_instance_id"] = hedge_wid
+            return _ResumedStream(hstream, hit, hedge_task)
+        wasted = _first_frame_tokens(hedge_task)
+        hedge_task.cancel()
+        with contextlib.suppress(Exception):
+            await hstream.close()
+        hedger.note_outcome("lost", wasted_tokens=wasted)
+        dsp.set(hedge="lost")
+        return _ResumedStream(stream, it, first_task)
+
     async def __call__(
         self, request: PreprocessedRequest, ctx: Context
     ) -> AsyncIterator[LLMEngineOutput]:
@@ -154,6 +306,10 @@ class RemoteEngine:
         can_replay = not any(
             k in request.extra for k in ("mm", "mm_images", "mm_videos")
         )
+        # hedging applies to interactive first attempts only (tail latency
+        # is an interactive problem), and needs replayability for the same
+        # reason migration does: the hedge must reproduce the stream
+        hedge_this = self._hedge and can_replay and qos.priority_of(ctx, request) == "interactive"
         attempt = 0
         while True:
             # per-attempt child context: closing a dead attempt's stream
@@ -164,8 +320,11 @@ class RemoteEngine:
             progressed = False
             no_instances = False
             stream = None
+            t_attempt = dclock.now()
+            t_first: Optional[float] = None
+            t_last_frame: Optional[float] = None
             # per-attempt dispatch span: replays share the request's trace
-            # id (ctx carries it), so a migrated stream is one trace with
+            # id (ctx carries it), so a migrated stream stays one trace with
             # one dispatch span per attempt, all parented on the root
             with dtrace.span(
                 "dispatch", ctx=attempt_ctx, attach=True, attempt=attempt,
@@ -194,6 +353,16 @@ class RemoteEngine:
                     no_instances = isinstance(e, NoInstancesError)
                 if stream is not None:
                     wid = attempt_ctx.metadata.get("worker_instance_id")
+                    if self.health is not None and wid is not None:
+                        self.health.record(wid, "dispatch", (dclock.now() - t_attempt) * 1e3)
+                    if self.hedger is not None:
+                        self.hedger.note_dispatch()
+                    if hedge_this and attempt == 1 and not emitted:
+                        stream = await self._hedged_first(stream, ctx, attempt_ctx, req_dict,
+                                                          exclude, dsp)
+                        # the hedge may have won: exclusion and health
+                        # attribution follow the serving worker
+                        wid = attempt_ctx.metadata.get("worker_instance_id")
                     if wid is not None:
                         dsp.set(worker=f"{wid:x}")
                     finished = False
@@ -224,6 +393,19 @@ class RemoteEngine:
                             if out.token_ids:
                                 emitted.extend(out.token_ids)
                                 progressed = True
+                                if self.health is not None:
+                                    now = dclock.now()
+                                    if t_first is None:
+                                        t_first = now
+                                        ms = (now - t_attempt) * 1e3
+                                        if wid is not None:
+                                            self.health.record(wid, "first_frame", ms)
+                                        if self.hedger is not None:
+                                            self.hedger.note_first_frame(ms)
+                                    elif wid is not None and t_last_frame is not None:
+                                        self.health.record(wid, "inter_frame",
+                                                           (now - t_last_frame) * 1e3)
+                                    t_last_frame = now
                             yield out
                             if out.finish_reason is not None:
                                 finished = True
@@ -310,6 +492,55 @@ class RemoteEngine:
             await asyncio.sleep(full_jitter_delay(failures, self.backoff_base_s, cap_s=2.0))
 
 
+class WorkerCapacityPoller:
+    """Background scrape of one endpoint's aggregated worker load metrics
+    (discovery.py:602-665): the fleet's total request slots feed the
+    frontend's AdmissionController (the base of the shed watermark), and
+    with a HealthScorer each worker's self-reported phase histograms feed
+    the tail-tolerance plane and each scrape advances its score tick."""
+
+    def __init__(self, component: Any, endpoint_id: EndpointId, interval_s: float = 2.0,
+                 health: Optional[Any] = None) -> None:
+        from dynamo_tpu_torch.kv_router.publisher import KvMetricsAggregator
+
+        self.aggregator = KvMetricsAggregator(component, endpoint_id)
+        self.interval_s = interval_s
+        self.health = health
+        self.total_slots: Optional[int] = None
+        self.waiting: int = 0
+        self._task: Optional[asyncio.Task] = None
+
+    def start(self) -> None:
+        self._task = asyncio.get_running_loop().create_task(self._loop())
+
+    async def poll_once(self) -> None:
+        try:
+            per_worker = await self.aggregator.collect()
+            self.total_slots = sum(m.worker_stats.request_total_slots
+                                   for m in per_worker.values()) or None
+            self.waiting = sum(m.worker_stats.num_requests_waiting for m in per_worker.values())
+            if self.health is not None:
+                for wid, m in per_worker.items():
+                    self.health.observe_worker_hists(wid, m.phase_histograms)
+        except Exception:  # noqa: BLE001 — scrape gaps are tolerated
+            self.total_slots = None
+        if self.health is not None:
+            # tick even on a failed scrape: staleness must age scores
+            self.health.tick()
+
+    async def _loop(self) -> None:
+        with contextlib.suppress(asyncio.CancelledError):
+            while True:
+                await self.poll_once()
+                await asyncio.sleep(self.interval_s)
+
+    async def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await self._task
+
+
 class ModelWatcher:
     """Watches ``models/`` and keeps a ModelManager in sync
     (reference discovery/watcher.rs:69-346). ``migrations`` counts each
@@ -321,6 +552,8 @@ class ModelWatcher:
         manager: ModelManager,
         router_mode: RouterMode = RouterMode.ROUND_ROBIN,
         kv_router_config: Optional[Any] = None,  # kv_router.KvRouterConfig
+        metrics: Optional[Any] = None,  # http.metrics.ServiceMetrics
+        admission: Optional[Any] = None,  # http.service.AdmissionController
     ) -> None:
         # refuse at start, not at the first worker's registration
         if router_mode is RouterMode.DIRECT:
@@ -332,6 +565,8 @@ class ModelWatcher:
         self.manager = manager
         self.router_mode = router_mode
         self.kv_router_config = kv_router_config
+        self.metrics = metrics
+        self.admission = admission
         self.migrations: dict[str, int] = {}
         self._task: Optional[asyncio.Task] = None
         self._watch = None
@@ -343,6 +578,29 @@ class ModelWatcher:
         # the trace-export subscriptions (one per worker namespace)
         self._trace_subs: set[str] = set()
         self._trace_tasks: list[asyncio.Task] = []
+        # the tail-tolerance plane: one HealthScorer and HedgeController per
+        # worker endpoint (shared by its Client, KV scheduler and
+        # RemoteEngine, so ejection and hedging see one truth), and a
+        # capacity poller per model
+        self.health: dict[str, Any] = {}
+        self.hedgers: dict[str, Any] = {}
+        self.capacity_pollers: dict[str, WorkerCapacityPoller] = {}
+
+    def _make_eject_publisher(self, namespace: str):
+        """Ejections are fleet events: published on ``health-status``
+        (discovery.py:705-725), where a planner can read them."""
+
+        def on_eject(worker_id: int, cause: str) -> None:
+            async def _pub() -> None:
+                with contextlib.suppress(Exception):
+                    await self.drt.namespace(namespace).publish_event(
+                        dhealth.HEALTH_SUBJECT,
+                        {"event": "ejected", "worker": worker_id, "cause": cause})
+
+            with contextlib.suppress(RuntimeError):  # no running loop
+                asyncio.get_running_loop().create_task(_pub())
+
+        return on_eject
 
     async def start(self) -> None:
         self._watch = await self.drt.fabric.watch_prefix(MODEL_ROOT)
@@ -361,6 +619,9 @@ class ModelWatcher:
         for t in self._trace_tasks:
             t.cancel()
         self._trace_tasks.clear()
+        for poller in self.capacity_pollers.values():
+            await poller.stop()
+        self.capacity_pollers.clear()
         for client in self._clients.values():
             await client.close()
         self._clients.clear()
@@ -413,6 +674,16 @@ class ModelWatcher:
         if client is None:
             client = await endpoint.client()
             self._clients[entry.endpoint] = client
+        health = self.health.get(entry.endpoint)
+        if health is None:
+            health = self.health[entry.endpoint] = dhealth.HealthScorer(
+                on_eject=self._make_eject_publisher(eid.namespace))
+            # latency-ejected workers leave round-robin / random selection
+            # and migration replays beside the dead-worker exclusions
+            client.health = health
+        hedger = self.hedgers.get(entry.endpoint)
+        if hedger is None:
+            hedger = self.hedgers[entry.endpoint] = dhealth.HedgeController()
         if self.router_mode is RouterMode.KV:
             from dynamo_tpu_torch.kv_router.router import KvPushRouter, KvRouter
 
@@ -421,7 +692,12 @@ class ModelWatcher:
                 kv_router = KvRouter(endpoint.component, client, block_size=mdc.kv_block_size,
                                      config=self.kv_router_config)
                 await kv_router.start()
+                kv_router.scheduler.health = health
                 self.kv_routers[entry.endpoint] = kv_router
+                if self.metrics is not None:
+                    # the in-process router's hit accounting on the
+                    # frontend's /metrics (dyn_llm_kv_hit_rate)
+                    self.metrics.attach_kv_hit_stats(kv_router.scheduler)
             router = PushRouter(client, RouterMode.KV, selector=KvPushRouter(kv_router))
         else:
             router = PushRouter(client, self.router_mode)
@@ -456,6 +732,8 @@ class ModelWatcher:
 
         def on_migration() -> None:
             self.migrations[model_name] += 1
+            if self.metrics is not None:
+                self.metrics.request_migrations.labels(model_name).inc()
 
         # epoch fencing: the frontend's registry of cluster-declared-dead
         # epochs (fence/ tombstones) — dispatch frames from a fenced worker
@@ -466,11 +744,24 @@ class ModelWatcher:
         execution = ModelExecution(
             mdc,
             RemoteEngine(router, on_migration=on_migration,
-                         cancel_token=self.drt.token, fences=fences),
+                         cancel_token=self.drt.token, fences=fences,
+                         health=health, hedger=hedger),
             clear_fn=clear_fn,
         )
         self.manager.add_model(entry.name, execution, ref=key)
         self._key_to_model[key] = entry.name
+        if self.metrics is not None:
+            # the tail families (attach-once: the first endpoint wins)
+            self.metrics.attach_health(health, hedger)
+        if entry.name not in self.capacity_pollers:
+            # the poller is also the health plane's scrape loop, so it runs
+            # with or without admission control
+            poller = WorkerCapacityPoller(endpoint.component, eid, health=health)
+            poller.start()
+            self.capacity_pollers[entry.name] = poller
+            if self.admission is not None:
+                # the admission watermark follows the fleet's slot count
+                self.admission.set_capacity_fn(entry.name, lambda p=poller: p.total_slots)
         self._model_endpoint[entry.name] = entry.endpoint
         logger.info("watcher wired model %s via %s", entry.name, entry.endpoint)
 
@@ -479,6 +770,11 @@ class ModelWatcher:
         if model is None:
             return
         if self.manager.remove_ref(model, key):
+            poller = self.capacity_pollers.pop(model, None)
+            if poller is not None:
+                await poller.stop()
+            if self.admission is not None:
+                self.admission.remove_capacity_fn(model)
             # the model is gone: close its endpoint's KV router unless
             # another model still routes through that endpoint
             ep = self._model_endpoint.pop(model, None)

@@ -190,8 +190,24 @@ and before a remote prefill lands, ``on_token`` per emitted token
 every lane with ``injected_fault`` through ``_abort_all`` and keeps
 serving). Off, each hook costs one flag check.
 
-Left out (ROADMAP.md lists them): brownout and ``DYN_TRACE=auto`` (A10 part
-2), the goodput counters on the trace timeline (A12), multimodal prompts.
+Always-on phase histograms (engine.py:334, :559-571, :1570;
+``telemetry/histogram.py``): ``queue_wait`` at a first admission, and at the
+stream edge ``ttft``, ``prefill`` (admitted to first token), ``inter_token``
+and ``e2e``, in ``EngineStats.phase_histograms``. They are marked on the host
+when a fetch hands tokens to the stream, as in the reference: under a
+decode horizon of H, one fetch delivers up to H tokens, so ``inter_token``
+holds one gap of ~H steps and H - 1 gaps near 0 per dispatch.
+
+The brownout ladder (``apply_brownout``, engine.py:1029-1060;
+``telemetry/brownout.py``): level >= 1 sheds bulk arrivals with the typed
+``brownout_shed`` error (``stats.shed_brownout``), >= 2 pauses drafting (the
+decode phase runs the decode step or horizon instead, captured as a graph on
+its first use like any other), >= 3 halves the chunk width and the per-step
+chunk budget (``qos.effective_chunk_budget``, on the KV block grid; latched
+once per loop iteration), >= 4 sheds standard arrivals too.
+
+Left out (ROADMAP.md lists them): the goodput counters on the trace timeline
+(A12), multimodal prompts.
 """
 
 from __future__ import annotations
@@ -236,7 +252,9 @@ from dynamo_tpu_torch.protocols.common import (
     PreprocessedRequest,
 )
 from dynamo_tpu_torch.runtime import clock as dclock
+from dynamo_tpu_torch.telemetry import brownout as dbrownout
 from dynamo_tpu_torch.telemetry import trace as dtrace
+from dynamo_tpu_torch.telemetry.histogram import PhaseHistograms
 from dynamo_tpu_torch.testing import faults
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
@@ -374,6 +392,12 @@ class EngineStats:
     watchdog_trips: int = 0
     # requests shed on their deadline or TTFT budget (the four points)
     deadline_exceeded: int = 0
+    # engine-side brownout sheds and the live brownout rung (a gauge)
+    shed_brownout: int = 0
+    brownout_level: int = 0
+    # always-on per-phase latency histograms (queue_wait / ttft / prefill /
+    # inter_token / e2e), shipped on ForwardPassMetrics
+    phase_histograms: PhaseHistograms = field(default_factory=PhaseHistograms)
 
     @property
     def tokens_per_horizon(self) -> float:
@@ -455,6 +479,11 @@ class _Sequence:
         self.offload_mark = 0  # chain blocks already queued for offload
         # open telemetry phase spans (queue_wait / prefill / decode / ...)
         self.spans: dict = {}
+        # always-on phase-timing marks (feed EngineStats.phase_histograms)
+        self.t_arrival = time.monotonic()
+        self.t_admitted: Optional[float] = None
+        self.t_first: Optional[float] = None
+        self.t_last: Optional[float] = None
 
     @property
     def num_generated(self) -> int:
@@ -550,7 +579,14 @@ class TorchEngine:
         # per-step prompt-token budget of a mixed step and its chunk-slot cap
         C = runner.prefill_chunk_tokens
         budget = self.config.chunk_budget if self.config.chunk_budget > 0 else 2 * C
-        self._chunk_budget = budget
+        self._chunk_budget_base = budget
+        # the chunk width and per-step budget, latched once per loop
+        # iteration (a brownout chunk cap lands at a step boundary)
+        self._step_chunk_tokens = C
+        self._step_chunk_budget = budget
+        # brownout ladder rung applied by the host wiring (apply_brownout)
+        self._brownout_level = 0
+        self._spec_paused = False
         self._mixed_max_slots = max(1, -(-budget // C)) if C else 0
         self._mixed_enabled = self.config.mixed_step and C > 0
         self._loop_task: Optional[asyncio.Task] = None
@@ -684,6 +720,19 @@ class TorchEngine:
                 "prompt_too_long",
             )
             return
+        if self._brownout_level:
+            # engine-side brownout shed (direct-engine deployments; a fronted
+            # fleet sheds at the HTTP AdmissionController first)
+            prio = qos.priority_of(context, request)
+            if prio in dbrownout.shed_classes_for(self._brownout_level):
+                self.stats.shed_brownout += 1
+                yield LLMEngineOutput.final_error(
+                    context.id, "admission",
+                    f"brownout level {self._brownout_level} "
+                    f"({dbrownout.LADDER[self._brownout_level]}) sheds {prio}-class requests",
+                    "brownout_shed",
+                )
+                return
         seq = _Sequence(next(self._seq_ids), request, context)
         if dtrace.enabled():
             self._sp_begin(seq, "queue_wait", tokens=n, priority=seq.priority)
@@ -693,6 +742,7 @@ class TorchEngine:
         try:
             while True:
                 item = await seq.out.get()
+                self._observe_stream(seq, item)
                 yield item
                 if item.finish_reason is not None:
                     return
@@ -700,6 +750,52 @@ class TorchEngine:
             # consumer went away (or the stream ended): let the loop reap it
             context.kill()
             self._wake.set()
+
+    def _observe_stream(self, seq: _Sequence, item: LLMEngineOutput) -> None:
+        """Always-on phase histograms at the stream edge (what a consumer of
+        this worker sees): TTFT, prefill (admitted to first token),
+        inter-token gaps, end to end (engine.py:555-571)."""
+        ph = self.stats.phase_histograms
+        now = time.monotonic()
+        if item.token_ids:
+            if seq.t_first is None:
+                seq.t_first = now
+                ph.observe("ttft", (now - seq.t_arrival) * 1e3)
+                if seq.t_admitted is not None:
+                    ph.observe("prefill", (now - seq.t_admitted) * 1e3)
+            elif seq.t_last is not None:
+                ph.observe("inter_token", (now - seq.t_last) * 1e3)
+            seq.t_last = now
+        if item.finish_reason is not None:
+            ph.observe("e2e", (now - seq.t_arrival) * 1e3)
+
+    # ---------------------------------------------------------- brownout
+
+    def apply_brownout(self, level: int) -> None:
+        """Apply one brownout-ladder rung (telemetry/brownout.py; wired by
+        the worker host from ``slo-status`` events and local burn rates):
+        >= 1 sheds bulk arrivals, >= 2 pauses drafting, >= 3 halves the
+        prefill chunk and its per-step budget, >= 4 sheds standard arrivals
+        too. Idempotent; a lower level restores everything."""
+        self._brownout_level = max(0, int(level))
+        self._spec_paused = self._brownout_level >= 2
+        self.stats.brownout_level = self._brownout_level
+
+    def _chunk_tokens(self) -> int:
+        """Tokens per prefill chunk, halved (on the block grid) under the
+        chunk-cap rung (engine.py:1041-1048)."""
+        c = self.runner.prefill_chunk_tokens
+        if c and dbrownout.chunk_capped(self._brownout_level):
+            return qos.effective_chunk_budget(c, chunk_cap=True, block_size=self.config.block_size)
+        return c
+
+    def _chunk_budget(self) -> int:
+        """The per-step prefill token budget (engine.py:1050-1062)."""
+        return qos.effective_chunk_budget(
+            self._chunk_budget_base,
+            chunk_cap=dbrownout.chunk_capped(self._brownout_level),
+            block_size=self.config.block_size,
+        )
 
     async def close(self) -> None:
         self._closed = True
@@ -1262,6 +1358,11 @@ class TorchEngine:
                 self._reap_cancelled()
                 self._process_landed()
                 await self._drain_offload()
+                # latch the degraded chunk width and budget once per
+                # iteration: apply_brownout may land while a dispatch below
+                # is awaited, and must wait for the next step boundary
+                self._step_chunk_tokens = self._chunk_tokens()
+                self._step_chunk_budget = self._chunk_budget()
                 admitted = await self._admit_phase()
                 if self._prefilling:
                     active = self._decode_lanes()
@@ -1387,7 +1488,7 @@ class TorchEngine:
         rest of the chain into the tiers. Not ported, and so not branched on
         here: multimodal prompts (A6)."""
         admitted = False
-        C = self.runner.prefill_chunk_tokens
+        C = self._step_chunk_tokens
         bs = self.config.block_size
         bm = self.block_manager
         to_pack: list[_Sequence] = []
@@ -1402,6 +1503,10 @@ class TorchEngine:
                 break
             self.waiting.pop(idx)
             admitted = True
+            if seq.t_admitted is None:  # a first admission (not a resume)
+                seq.t_admitted = time.monotonic()
+                self.stats.phase_histograms.observe(
+                    "queue_wait", (seq.t_admitted - seq.t_arrival) * 1e3)
             if seq.spans:
                 self._sp_finish(seq, "queue_wait")
             hit_len = 0
@@ -1526,7 +1631,7 @@ class TorchEngine:
         (engine.py:1804). Only the final chunk's sample is read back; the
         earlier chunks are queued on the card without a wait."""
         seq = self._prefilling[0]
-        C = self.runner.prefill_chunk_tokens
+        C = self._step_chunk_tokens
         start = seq.prefill_pos
         total = len(seq.token_ids)
         chunk = seq.token_ids[start:start + C]
@@ -1564,7 +1669,9 @@ class TorchEngine:
         penalties, whose full-history program the mixed step does not
         carry, nor with a decode horizon. Read-only: it must not touch the
         drafter."""
-        if not self._mixed_enabled or self.drafter is not None:
+        if not self._mixed_enabled or not self._step_chunk_budget:
+            return False
+        if self.drafter is not None and not self._spec_paused:
             return False
         if self.config.decode_horizon > 1:
             return False
@@ -1577,8 +1684,8 @@ class TorchEngine:
         several prompts, may share a step). One device-to-host copy brings
         back the decode samples with the samples of every chunk that ends
         its prompt."""
-        C = self.runner.prefill_chunk_tokens
-        budget = self._chunk_budget
+        C = self._step_chunk_tokens
+        budget = self._step_chunk_budget
         chunks: list[tuple] = []
         packed: list[tuple[_Sequence, int, int]] = []  # (seq, start, n)
         plan: list[tuple[_Sequence, int]] = []  # tokens each sequence advances
@@ -1684,7 +1791,9 @@ class TorchEngine:
         return pos
 
     async def _decode_phase(self, active: list[_Sequence]) -> None:
-        if self.drafter is not None:
+        # brownout >= spec_off pauses drafting: the verify premium and the
+        # drafter's host time go back to real tokens while the SLO burns
+        if self.drafter is not None and not self._spec_paused:
             drafts = self._collect_drafts(active)
             if drafts is not None:
                 await self._spec_decode_phase(active, drafts)

@@ -15,9 +15,21 @@ re-registers after a fabric heal, self-fences through ``engine.fence``,
 deregisters and finishes its requests on a drain, then checkpoints the KV
 tiers (``DYN_WARM_RESTART_DIR``). With ``DYN_TRACE=1`` a worker serves
 each request under a ``worker_generate`` span on its own track and ships
-the request's spans on the final frame (``make_engine_handler``). Left out
-(ROADMAP.md A10 part 2): the worker's brownout ladder and the frontend's
-SLO and planner publishers.
+the request's spans on the final frame (``make_engine_handler``).
+
+The operating plane: ``run_http`` wires the frontend's admission capacity
+(a static engine's ``max_batch``; discovery's capacity poller otherwise),
+its SLO plane (transitions published on ``slo-status``, fleet
+``slo-status`` events fed to its brownout ladder, ladder transitions
+published on ``brownout-status``), the control-plane and engine metric
+families, and chains a colocated engine's ``apply_brownout`` onto the
+ladder. ``run_endpoint`` runs the worker's own ladder (inputs.py:714-780),
+fed by fleet ``slo-status`` events and its local burn rates over the
+engine's phase histograms, applies it through ``engine.apply_brownout``
+and publishes its transitions on ``brownout-status``; with
+``DYN_RUNTIME_HTTP_ENABLED=1`` it serves ``/health``, ``/live`` and
+``/metrics`` on ``DYN_RUNTIME_HTTP_PORT`` (``runtime/http_server.py``).
+Left out: the planner's status row on the frontend (ROADMAP.md A12).
 """
 
 from __future__ import annotations
@@ -33,11 +45,14 @@ import time
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Optional
 
+from dynamo_tpu_torch.fabric import mpack
 from dynamo_tpu_torch.http.service import HttpService, ModelExecution, ModelManager
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.pipeline.router import RouterMode
 from dynamo_tpu_torch.protocols.common import Context, PreprocessedRequest
 from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest, ChatMessage
+from dynamo_tpu_torch.telemetry import brownout as dbrownout
+from dynamo_tpu_torch.telemetry import slo as dslo
 from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.entrypoint")
@@ -200,19 +215,84 @@ async def run_http(
     service = HttpService(manager, host=host, port=port, template=config.request_template)
     if config.is_static:
         manager.add_model(config.mdc.name, config.execution())
+        _wire_local_engine(service, config)
     else:
         from dynamo_tpu_torch.discovery import ModelWatcher
 
         if drt is None:
             raise ValueError("a dynamic frontend (out=dyn) needs a DistributedRuntime")
-        watcher = ModelWatcher(drt, manager, config.router_mode, config.kv_router_config)
+        watcher = ModelWatcher(drt, manager, config.router_mode, config.kv_router_config,
+                               metrics=service.metrics, admission=service.admission)
         await watcher.start()
         service.watcher = watcher
+    if drt is not None:
+        ns = drt.namespace(drt.config.namespace)
+        # the SLO plane's transitions and the brownout ladder's go out on
+        # the runtime namespace (inputs.py:266-298)
+        service.slo_publisher = _event_publisher(ns, dslo.SLO_STATUS_SUBJECT)
+        service.brownout_publisher = _event_publisher(ns, dbrownout.BROWNOUT_SUBJECT)
+        # dyn_fabric_connected / dyn_llm_degraded_* off this process's client
+        service.metrics.attach_control_plane(drt.fabric.status)
     await service.start()
     if drt is not None:
+        # fleet slo-status events feed this frontend's ladder too
+        service.add_background_task(asyncio.get_running_loop().create_task(
+            _slo_events(ns, service.note_remote_slo)))
         drain_timeout = float(os.environ.get("DYN_DRAIN_TIMEOUT_S", "10"))
         drt.on_drain(lambda: service.drain(drain_timeout))
     return service
+
+
+def _wire_local_engine(service: HttpService, config: EngineConfig) -> None:
+    """A colocated engine's counters on the frontend's /metrics, its slots
+    as the admission capacity, and its brownout rungs chained onto the
+    frontend's ladder (inputs.py:211-257)."""
+    engine = config.engine
+    stats = getattr(engine, "stats", None)
+    if stats is None:
+        return
+    if getattr(engine, "config", None) is not None and getattr(engine.config, "spec_k", 0):
+        service.metrics.attach_spec_stats(stats)
+    if hasattr(stats, "kv_wire_bytes_rx"):
+        service.metrics.attach_kv_transfer_stats(stats)
+    service.metrics.attach_engine_qos(stats)
+    slots = getattr(getattr(engine, "config", None), "max_batch", None)
+    if slots:
+        service.admission.set_capacity_fn(config.mdc.name, lambda: slots)
+    if hasattr(engine, "apply_brownout"):
+        base_change = service.brownout.on_change
+
+        def _chained_change(old: int, new: int, rung: str) -> None:
+            if base_change is not None:
+                base_change(old, new, rung)
+            engine.apply_brownout(new)
+
+        service.brownout.on_change = _chained_change
+
+
+def _event_publisher(ns: Any, subject: str):
+    """A fire-and-forget publisher of dict events on ``ns``'s ``subject``."""
+    def publish(payload: dict) -> None:
+        async def _send() -> None:
+            with contextlib.suppress(Exception):
+                await ns.publish_event(subject, payload)
+
+        with contextlib.suppress(RuntimeError):  # no running loop
+            asyncio.get_running_loop().create_task(_send())
+
+    return publish
+
+
+async def _slo_events(ns: Any, on_state) -> None:
+    """Feed every ``slo-status`` event's new state to ``on_state``."""
+    with contextlib.suppress(asyncio.CancelledError, Exception):
+        sub = await ns.subscribe_event(dslo.SLO_STATUS_SUBJECT)
+        async for _subject, payload in sub:
+            try:
+                data = mpack.unpackb(payload)
+            except Exception:  # noqa: BLE001 — a malformed event
+                continue
+            on_state(data.get("new"))
 
 
 async def serve_http_forever(
@@ -455,6 +535,56 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
                                              stamp=stamp)
         await metrics_pub.start(lambda: load_metrics(engine))
 
+    background: list[asyncio.Task] = []
+    controller = None
+    ns = endpoint.component.namespace
+    if hasattr(engine, "apply_brownout"):
+        # the worker's own brownout ladder (inputs.py:714-780), fed by fleet
+        # slo-status events and local burn rates over the engine's phase
+        # histograms; rungs apply through engine.apply_brownout
+        publish = _event_publisher(ns, dbrownout.BROWNOUT_SUBJECT)
+
+        def _on_change(old: int, new: int, rung: str) -> None:
+            engine.apply_brownout(new)
+            publish({"scope": worker_label, "old_level": old, "level": new, "rung": rung,
+                     **controller.actions()})
+
+        controller = dbrownout.BrownoutController(scope=worker_label, on_change=_on_change)
+        slo_states = {"remote": "ok", "local": "ok"}
+
+        def _feed(source: str, state: Any) -> None:
+            if state in dslo._SEVERITY:
+                slo_states[source] = state
+            controller.observe(max(slo_states.values(), key=lambda st: dslo._SEVERITY[st]))
+
+        background.append(loop.create_task(_slo_events(ns, lambda st: _feed("remote", st))))
+        slo_cfg = dslo.SloConfig.from_env(config.mdc.name)
+        local_slo = (dslo.SloEngine(slo_cfg, model=config.mdc.name)
+                     if slo_cfg.enabled and hasattr(engine, "stats") else None)
+        tick_s = float(os.environ.get("DYN_SLO_TICK_S", "1.0"))
+
+        async def _tick() -> None:
+            # the local burn rates when the worker has an objective; without
+            # one the tick still observes the last states, so the ladder
+            # steps back down after the fleet's ok (the reference ticks only
+            # with an objective: ROADMAP C11)
+            with contextlib.suppress(asyncio.CancelledError):
+                while True:
+                    await asyncio.sleep(tick_s)
+                    try:
+                        state = None
+                        if local_slo is not None:
+                            state = local_slo.observe(engine.stats.phase_histograms).get("state")
+                        _feed("local", state)
+                    except Exception:  # noqa: BLE001 — telemetry only
+                        logger.exception("local SLO tick failed")
+
+        background.append(loop.create_task(_tick()))
+
+    status_server = None
+    if drt.config.http_enabled:
+        status_server = await _start_status_server(drt.config.http_port, engine, controller)
+
     # admin control plane: the frontend's POST /clear_kv_blocks fans out to
     # this per-worker endpoint (ref http/service/clear_kv_blocks.rs:23)
     clear_service = None
@@ -472,11 +602,44 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
     try:
         await service.wait()
     finally:
+        for t in background:
+            t.cancel()
+        await asyncio.gather(*background, return_exceptions=True)
+        if status_server is not None:
+            await status_server.close()
         if metrics_pub is not None:
             await metrics_pub.stop()
         await kv_pub.drain()
         if clear_service is not None:
             await clear_service.stop(drain=False)
+
+
+async def _start_status_server(port: int, engine: Any, controller: Any):
+    """The worker's system status server (runtime/http_server.py):
+    ``/health``, ``/live`` and ``/metrics`` with the process's families, the
+    engine's QoS, spec and KV data-plane counters, its phase histograms,
+    the integrity counters and the brownout ladder."""
+    from dynamo_tpu_torch.http.metrics import PhaseCollector, ServiceMetrics
+    from dynamo_tpu_torch.integrity import COUNTERS
+    from dynamo_tpu_torch.runtime.http_server import SystemStatusServer
+
+    server = SystemStatusServer(port=port)
+    fams = ServiceMetrics(server.registry)
+    stats = getattr(engine, "stats", None)
+    if stats is not None:
+        fams.attach_engine_qos(stats)
+        if getattr(getattr(engine, "config", None), "spec_k", 0):
+            fams.attach_spec_stats(stats)
+        if hasattr(stats, "kv_wire_bytes_rx"):
+            fams.attach_kv_transfer_stats(stats)
+        if hasattr(stats, "phase_histograms"):
+            server.registry.register(PhaseCollector(lambda: stats.phase_histograms))
+    fams.attach_integrity(COUNTERS)
+    if controller is not None:
+        fams.attach_brownout(controller)
+    await server.start()
+    print(json.dumps({"status_server": {"port": server.port}}), flush=True)
+    return server
 
 
 def load_metrics(engine: Any):
@@ -520,6 +683,8 @@ def load_metrics(engine: Any):
             num_watchdog_trips=st.watchdog_trips,
             preemptions_by_class=dict(st.preemptions_by_class) or None,
             num_preempted_too_often=st.preempted_too_often,
+            num_shed_brownout=st.shed_brownout,
+            brownout_level=st.brownout_level,
             integrity_failures_by_path=integ["integrity_failures_by_path"] or None,
             num_blocks_quarantined=integ["blocks_quarantined"],
             fenced_rejects_by_plane=integ["fenced_rejects_by_plane"] or None,
@@ -530,6 +695,9 @@ def load_metrics(engine: Any):
                          gpu_cache_usage_perc=used / max(1, total)),
         spec_decode_stats=spec,
         kv_transfer_stats=xfer,
+        # the always-on phase histograms, shipped once anything is recorded,
+        # so the aggregator and the health scorer see this worker's own view
+        phase_histograms=(st.phase_histograms if st.phase_histograms.total_count() else None),
     )
 
 

@@ -498,7 +498,10 @@ def main() -> None:
         help="this member's address as the peer sees it (tie-break key)",
     )
     args = parser.parse_args()
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # DYN_LOG filters, DYN_LOGGING_JSONL=1 for JSON lines (runtime/logging.py)
+    from dynamo_tpu_torch.runtime import logging as dlog
+
+    dlog.init(force=True)
 
     async def run() -> None:
         server = FabricServer(

@@ -6,12 +6,18 @@ on ``asyncio.start_server`` in place of aiohttp, which the card's machine
 lacks. Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
 (SSE when ``stream`` is set, else one JSON body folded from the same
 stream; ``n`` >= 1 choices merged into one stream), ``GET /v1/models`` and
-``GET /health``, and the admin route ``POST /clear_kv_blocks`` (every
+``POST /v1/responses`` (unary: the body as a chat request, the answer
+reshaped into a Response object), ``GET /v1/models``, ``GET /health`` and
+``GET /live``, the Prometheus text at ``GET /metrics`` (``http/metrics.py``),
+``GET /debug/slo``, and the admin route ``POST /clear_kv_blocks`` (every
 model's ``clear_fn``: its engine's reusable KV state dropped, the
-reference's per-worker-group answer); any other route gets 404 with the reference's error
-payload. A malformed body gets 400 ``invalid_request_error``, an unknown
-model 404 ``not_found_error``, image parts and tools 501
-``not_implemented``.
+reference's per-worker-group answer); any other route gets 404 with the
+reference's error payload. A malformed body gets 400
+``invalid_request_error``, an unknown model 404 ``not_found_error``, image
+parts 501 ``not_implemented``. A chat request that declares ``tools`` has
+them rendered by its template, and a choice whose text parses as tool calls
+(``tool_calling.parse_tool_calls``: Hermes, Mistral or Llama-3 JSON) is
+answered with ``tool_calls`` deltas and the ``tool_calls`` finish.
 
 The server speaks enough HTTP/1.1 for OpenAI clients: a request line and
 headers, ``Content-Length`` bodies (with ``Expect: 100-continue``),
@@ -37,27 +43,55 @@ serves the assembled cross-process trace as Chrome trace-event JSON, waiting
 up to ``DYN_TRACE_ASSEMBLE_MS`` (250) for spans still on their way, and
 answers 404 "tracing is disabled" when off.
 
+Admission (``AdmissionController``, service.py:171-385): each model's
+inflight requests are bounded by a watermark, the fleet's request slots
+(a capacity function: the static engine's ``max_batch``, or discovery's
+``WorkerCapacityPoller``) times ``DYN_ADMISSION_QUEUE_FACTOR`` (2.0),
+capped by ``DYN_ADMISSION_MAX_INFLIGHT``; each class sheds at its fraction
+of it (``DYN_ADMISSION_CLASS_FRACTIONS``: bulk 0.5, standard 0.8,
+interactive 1.0), a known-cold bulk prefix (the KV router's fleet-matched
+fraction, an EWMA per prefix signature) at ``DYN_COLD_PREFIX_FRACTION`` of
+that, and the brownout ladder sheds whole classes. A shed is answered 429
+``overloaded`` before the prompt is tokenized, with a ``Retry-After`` from
+the measured drain rate (``DYN_ADMISSION_RETRY_AFTER_S`` without one).
+
+The SLO plane (``telemetry/slo.py``): with ``DYN_SLO_TTFT_MS`` /
+``DYN_SLO_ITL_MS`` (or ``DYN_SLO_CONFIG``) set, a loop every
+``DYN_SLO_TICK_S`` evaluates each model's burn rates over this frontend's
+phase histograms, publishes state transitions through ``slo_publisher``
+(the ``slo-status`` event) and steps the brownout ladder with the worse of
+its own state and the fleet's (``note_remote_slo``); ladder transitions
+publish through ``brownout_publisher``. ``GET /debug/slo`` shows both. With
+``DYN_TRACE=auto`` every request is traced and its completion keeps the
+trace only when it errored, breached its SLO, migrated or was sampled
+(``retention_reason``; the flight recorder, ``DYN_TRACE_DIR``), listed at
+``GET /debug/traces``.
+
 Tokenizing, templating and detokenizing run on the event loop, per request,
 as in the reference; the engine keeps its device calls on its own thread.
-Not ported: Prometheus ``/metrics``, admission and brownout, SLO tracking
-and ``DYN_TRACE=auto``, the ``/debug/traces`` exemplar list, embeddings,
-``/v1/responses`` and tool calling.
+Left out: ``/v1/embeddings`` (ROADMAP A6), ``/debug/goodput``,
+``/debug/decisions``, ``/debug/fleet`` and the admission's provenance
+records (A12), ``/debug/profile`` (A11).
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import json
 import logging
+import math
 import os
 import re
 import time
+import uuid
 from typing import Any, AsyncIterator, Callable, Optional
 
 from dynamo_tpu_torch import qos
 from dynamo_tpu_torch.backend import Backend, EngineFn, detokenize
+from dynamo_tpu_torch.http.metrics import ServiceMetrics, TokenTimer
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.pipeline.annotated import Annotated
 from dynamo_tpu_torch.preprocessor import (
@@ -74,7 +108,11 @@ from dynamo_tpu_torch.protocols.openai import (
     ModelList,
 )
 from dynamo_tpu_torch.protocols.sse import encode_done, encode_json_event
+from dynamo_tpu_torch.runtime.prom import CONTENT_TYPE_LATEST
+from dynamo_tpu_torch.telemetry import brownout as dbrownout
+from dynamo_tpu_torch.telemetry import slo as dslo
 from dynamo_tpu_torch.telemetry import trace as dtrace
+from dynamo_tpu_torch.tool_calling import parse_tool_calls
 
 logger = logging.getLogger("dynamo_tpu_torch.http")
 
@@ -144,6 +182,187 @@ def _usage_timing_block(ctx: Context) -> dict:
     return {}
 
 
+def _parse_class_fractions(raw: Optional[str]) -> dict[str, float]:
+    """DYN_ADMISSION_CLASS_FRACTIONS: ``class=frac,...``, the fraction of
+    the model watermark at which that class starts shedding. The defaults
+    give bulk half the queue, standard 80%, interactive the whole."""
+    out = {"bulk": 0.5, "standard": 0.8, "interactive": 1.0}
+    for entry in (raw or "").split(","):
+        entry = entry.strip()
+        if not entry or "=" not in entry:
+            continue
+        cls, _, frac = entry.partition("=")
+        cls = qos.normalize_priority(cls)
+        if cls is None:
+            continue
+        try:
+            out[cls] = max(0.0, min(1.0, float(frac)))
+        except ValueError:
+            continue
+    return out
+
+
+def _prefix_sig(text: str) -> Optional[int]:
+    """A cheap request-prefix signature for admission heat: a hash of the
+    leading characters (the system prompt and template region, the likely
+    fleet-shared prefix). Process-local (str hashing is salted); the heat
+    it keys is learned from the router's match, so it only needs to be
+    stable within this frontend."""
+    if not text:
+        return None
+    return hash(text[:256])
+
+
+def _chat_prefix_sig(chat_req) -> Optional[int]:
+    try:
+        m = chat_req.messages[0]
+        c = m.content
+        if not isinstance(c, str):
+            c = json.dumps(c, sort_keys=True, default=str)
+        return _prefix_sig(f"{m.role}:{c}")
+    except Exception:  # noqa: BLE001 — heat is advisory
+        return None
+
+
+def _completion_prefix_sig(comp_req) -> Optional[int]:
+    try:
+        p = comp_req.prompt
+        if isinstance(p, list):
+            p = ",".join(str(t) for t in p[:64])
+        return _prefix_sig(str(p))
+    except Exception:  # noqa: BLE001 — heat is advisory
+        return None
+
+
+class AdmissionController:
+    """Frontend admission control and load shedding (service.py:171-385).
+    Per-model inflight is bounded by a watermark from the fleet's request
+    slots (a capacity fn) times DYN_ADMISSION_QUEUE_FACTOR, capped by the
+    static DYN_ADMISSION_MAX_INFLIGHT. Each class sheds at its own fraction
+    of the watermark, a known-cold bulk prefix earlier, and the brownout
+    ladder can force whole classes shed whatever the load. The 429's
+    Retry-After comes from the measured drain rate: how long the backlog
+    above this class's threshold takes to clear (DYN_ADMISSION_RETRY_AFTER_S
+    until there is a drain signal)."""
+
+    def __init__(
+        self,
+        metrics: Optional[ServiceMetrics] = None,
+        max_inflight: Optional[int] = None,
+        queue_factor: Optional[float] = None,
+    ) -> None:
+        env = os.environ
+        self.metrics = metrics
+        if max_inflight is None:
+            max_inflight = int(env.get("DYN_ADMISSION_MAX_INFLIGHT", "0")) or None
+        self.max_inflight = max_inflight
+        self.queue_factor = (queue_factor if queue_factor is not None
+                             else float(env.get("DYN_ADMISSION_QUEUE_FACTOR", "2.0")))
+        self.retry_after_s = float(env.get("DYN_ADMISSION_RETRY_AFTER_S", "1"))
+        self.class_fractions = _parse_class_fractions(env.get("DYN_ADMISSION_CLASS_FRACTIONS"))
+        # classes force-shed by the brownout ladder (the service's hook)
+        self.brownout_shed: frozenset[str] = frozenset()
+        self.drain = qos.DrainRateEstimator()
+        self._inflight: dict[str, int] = {}
+        # model -> zero-arg fn giving the fleet's total request slots
+        # (None = unknown), installed by the static or discovery wiring
+        self._capacity_fns: dict[str, Callable[[], Optional[int]]] = {}
+        self.shed_total = 0
+        self.shed_by_class: dict[str, int] = {}
+        # fleet prefix heat: EWMA of the router's fleet-matched fraction per
+        # (model, prefix signature), LRU-capped; a known-cold bulk prefix
+        # sheds at a reduced watermark, a first-seen one never does
+        self.heat_max = max(1, int(env.get("DYN_ADMISSION_HEAT_MAX", "4096") or 4096))
+        self.cold_prefix_fraction = float(env.get("DYN_COLD_PREFIX_FRACTION", "0.6"))
+        self.cold_prefix_heat = float(env.get("DYN_COLD_PREFIX_HEAT", "0.25"))
+        self._prefix_heat: collections.OrderedDict = collections.OrderedDict()
+
+    def set_capacity_fn(self, model: str, fn: Callable[[], Optional[int]]) -> None:
+        self._capacity_fns[model] = fn
+
+    def remove_capacity_fn(self, model: str) -> None:
+        self._capacity_fns.pop(model, None)
+
+    def watermark(self, model: str) -> Optional[int]:
+        slots: Optional[int] = None
+        fn = self._capacity_fns.get(model)
+        if fn is not None:
+            try:
+                slots = fn()
+            except Exception:  # noqa: BLE001 — stale capacity is tolerable
+                slots = None
+        if slots:
+            wm = max(1, int(math.ceil(slots * self.queue_factor)))
+            if self.max_inflight:
+                wm = min(wm, self.max_inflight)
+            return wm
+        return self.max_inflight
+
+    def class_watermark(self, model: str, priority: str) -> Optional[int]:
+        """The inflight count at which ``priority``-class requests shed."""
+        wm = self.watermark(model)
+        if wm is None:
+            return None
+        return max(1, int(math.ceil(wm * self.class_fractions.get(priority, 1.0))))
+
+    def _shed_one(self, model: str, priority: str, reason: str, excess: int) -> float:
+        self.shed_total += 1
+        self.shed_by_class[priority] = self.shed_by_class.get(priority, 0) + 1
+        if self.metrics is not None:
+            self.metrics.requests_shed.labels(model).inc()
+            self.metrics.class_shed.labels(model, priority, reason).inc()
+        return self.drain.retry_after_s(max(1, excess), self.retry_after_s)
+
+    def note_prefix_heat(self, model: str, prefix_sig: Optional[int], frac: float) -> None:
+        """Learn the router's fleet-matched fraction for this request's
+        prefix signature (EWMA, LRU-capped table)."""
+        if prefix_sig is None:
+            return
+        key = (model, prefix_sig)
+        prev = self._prefix_heat.pop(key, None)
+        self._prefix_heat[key] = float(frac) if prev is None else 0.5 * prev + 0.5 * float(frac)
+        while len(self._prefix_heat) > self.heat_max:
+            self._prefix_heat.popitem(last=False)
+
+    def prefix_heat(self, model: str, prefix_sig: Optional[int]) -> Optional[float]:
+        if prefix_sig is None:
+            return None
+        return self._prefix_heat.get((model, prefix_sig))
+
+    def try_acquire(self, model: str, priority: str = qos.DEFAULT_CLASS,
+                    prefix_sig: Optional[int] = None,
+                    request_id: Optional[str] = None) -> Optional[float]:
+        """None = admitted (the caller must release()); else shed, and the
+        value is the Retry-After hint in seconds."""
+        priority = qos.normalize_priority(priority) or qos.DEFAULT_CLASS
+        if priority in self.brownout_shed:
+            return self._shed_one(model, priority, "brownout", 1)
+        wm = self.class_watermark(model, priority)
+        cur = self._inflight.get(model, 0)
+        if wm is not None and priority == "bulk":
+            heat = self.prefix_heat(model, prefix_sig)
+            if heat is not None and heat < self.cold_prefix_heat:
+                # a known-cold bulk prefix reuses no fleet KV: under
+                # pressure it costs the full prefill that hot traffic skips
+                cold_wm = max(1, int(math.ceil(wm * self.cold_prefix_fraction)))
+                if cur >= cold_wm:
+                    return self._shed_one(model, priority, "cold_prefix", cur - cold_wm + 1)
+        if wm is not None and cur >= wm:
+            return self._shed_one(model, priority, "watermark", cur - wm + 1)
+        self._inflight[model] = cur + 1
+        return None
+
+    def release(self, model: str) -> None:
+        self._inflight[model] = max(0, self._inflight.get(model, 1) - 1)
+        # a completion is one queue slot drained: feeds the Retry-After hint
+        self.drain.note()
+
+    def inflight(self, model: Optional[str] = None) -> int:
+        if model is not None:
+            return self._inflight.get(model, 0)
+        return sum(self._inflight.values())
+
+
 def _error_body(payload: dict) -> dict:
     return {
         "error": {
@@ -186,6 +405,7 @@ class ModelExecution:
         self,
         choices: list[PreprocessedRequest],
         ctx: Context,
+        timer: Optional[TokenTimer],
         emit_chunk: Callable,
         emit_finish: Callable,
         counters: dict,
@@ -204,6 +424,8 @@ class ModelExecution:
                 async for step in agen:
                     counters["completion"] += step.tokens_emitted
                     if step.text or step.logprobs:
+                        if timer:
+                            timer.on_token(max(step.tokens_emitted, 1))
                         for chunk in emit_chunk(step, i):
                             queue.put_nowait(("chunk", chunk))
                     if step.finish_reason is not None:
@@ -240,11 +462,12 @@ class ModelExecution:
                 t.cancel()
             await asyncio.gather(*tasks, return_exceptions=True)
 
-    async def _stream(self, pre, gen, ctx, emit_chunk, emit_finish, include_usage) -> AsyncIterator[Annotated]:
+    async def _stream(self, pre, gen, ctx, timer, emit_chunk, emit_finish,
+                      include_usage) -> AsyncIterator[Annotated]:
         counters = {"completion": 0}
         try:
             async for chunk in self._merged_choices(
-                self._fanout(pre), ctx, emit_chunk, emit_finish, counters
+                self._fanout(pre), ctx, timer, emit_chunk, emit_finish, counters
             ):
                 yield Annotated.from_data(chunk.to_dict())
         except EngineStreamError as e:
@@ -265,24 +488,58 @@ class ModelExecution:
                 chunk["usage"]["timing"] = tb
             yield Annotated.from_data(chunk)
 
-    async def chat_stream(self, request: ChatCompletionRequest, ctx: Context) -> AsyncIterator[Annotated]:
+    async def chat_stream(self, request: ChatCompletionRequest, ctx: Context,
+                          timer: Optional[TokenTimer] = None) -> AsyncIterator[Annotated]:
         pre, prompt = self.preprocessor.preprocess_chat(request)
+        pre.extra["echo_text"] = prompt  # feeds the echo_full test engine
         qos.stamp_priority(pre, ctx)  # the QoS class onto every wire hop
         for ann in self.preprocessor.requested_annotations(pre, prompt):
             yield ann
         gen = ChatDeltaGenerator(request.model)
         for i in range(max(1, pre.sampling.n or 1)):
             yield Annotated.from_data(gen.role_chunk(i).to_dict())
+        # tool calling: a request that declares tools has each choice's text
+        # buffered and parsed at its end; parsed calls become tool_calls
+        # deltas and the "tool_calls" finish, anything else is released as
+        # ordinary text (service.py:555-585)
+        buffer_tools = bool(request.tools)
+        buffers: dict[int, list] = {}
+
+        def emit_chat(step, i):
+            if buffer_tools:
+                slot = buffers.setdefault(i, [[], []])
+                if step.text:
+                    slot[0].append(step.text)
+                if step.logprobs:
+                    slot[1].extend(step.logprobs)
+                return []
+            return [gen.text_chunk(step.text, index=i, logprobs=step.logprobs)]
+
+        def finish_chat(reason, i):
+            if not buffer_tools:
+                return [gen.finish_chunk(reason, index=i)]
+            texts, lps = buffers.get(i, [[], []])
+            text = "".join(texts)
+            calls = parse_tool_calls(text) if text else None
+            if calls:
+                return [gen.tool_calls_chunk([c.to_openai(j) for j, c in enumerate(calls)], index=i),
+                        gen.finish_chunk(reason, index=i, literal="tool_calls")]
+            out = []
+            if text or lps:
+                out.append(gen.text_chunk(text, index=i, logprobs=lps or None))
+            out.append(gen.finish_chunk(reason, index=i))
+            return out
+
         async for item in self._stream(
-            pre, gen, ctx,
-            lambda step, i: [gen.text_chunk(step.text, index=i, logprobs=step.logprobs)],
-            lambda reason, i: [gen.finish_chunk(reason, index=i)],
+            pre, gen, ctx, timer, emit_chat, finish_chat,
             bool(request.stream_options and request.stream_options.get("include_usage")),
         ):
             yield item
 
-    async def completion_stream(self, request: CompletionRequest, ctx: Context) -> AsyncIterator[Annotated]:
+    async def completion_stream(self, request: CompletionRequest, ctx: Context,
+                                timer: Optional[TokenTimer] = None) -> AsyncIterator[Annotated]:
         pre, prompt = self.preprocessor.preprocess_completion(request)
+        pre.extra["echo_text"] = prompt
         qos.stamp_priority(pre, ctx)
         gen = CompletionDeltaGenerator(request.model)
         if request.echo and prompt:
@@ -290,7 +547,7 @@ class ModelExecution:
                 gen.note_echo(prompt, index=i)
                 yield Annotated.from_data(gen.text_chunk(prompt, index=i).to_dict())
         async for item in self._stream(
-            pre, gen, ctx,
+            pre, gen, ctx, timer,
             lambda step, i: [gen.text_chunk(step.text, index=i, logprobs=step.logprobs)],
             lambda reason, i: [gen.finish_chunk(reason, index=i)],
             bool(request.stream_options and request.stream_options.get("include_usage")),
@@ -459,6 +716,15 @@ class _Connection:
         })
         await self.send_raw(data)
 
+    async def send_text(self, status: int, data: bytes, content_type: str,
+                        keep_alive: bool = True) -> None:
+        await self.send_head(status, {
+            "Content-Type": content_type,
+            "Content-Length": str(len(data)),
+            "Connection": "keep-alive" if keep_alive else "close",
+        })
+        await self.send_raw(data)
+
     async def send_chunk(self, text: str) -> None:
         data = text.encode("utf-8")
         if data:
@@ -471,9 +737,11 @@ class _Connection:
 class _Reply(Exception):
     """A complete JSON reply decided before any byte was sent."""
 
-    def __init__(self, status: int, message: str, typ: str = "invalid_request_error") -> None:
+    def __init__(self, status: int, message: str, typ: str = "invalid_request_error",
+                 headers: Optional[dict[str, str]] = None) -> None:
         super().__init__(message)
         self.status, self.body = status, {"error": {"message": message, "type": typ}}
+        self.headers = headers or {}
 
 
 class HttpService:
@@ -483,11 +751,20 @@ class HttpService:
         host: str = "0.0.0.0",
         port: int = 8080,
         template: Optional[Any] = None,  # request_template.RequestTemplate
+        metrics: Optional[ServiceMetrics] = None,
+        admission: Optional[AdmissionController] = None,
     ) -> None:
         self.manager = manager or ModelManager()
         self.host = host
         self.port = port
         self.template = template
+        self.metrics = metrics or ServiceMetrics()
+        # integrity / fence counters (process-wide): a frontend's share is
+        # chiefly dispatch-plane fenced rejects from zombie workers
+        from dynamo_tpu_torch.integrity import COUNTERS
+
+        self.metrics.attach_integrity(COUNTERS)
+        self.admission = admission or AdmissionController(self.metrics)
         self._server: Optional[asyncio.base_events.Server] = None
         self._conns: set[asyncio.Task] = set()
         self._inflight = 0  # requests being answered
@@ -497,10 +774,33 @@ class HttpService:
         self._routes = {
             ("POST", "/v1/chat/completions"): self._chat,
             ("POST", "/v1/completions"): self._completions,
+            ("POST", "/v1/responses"): self._responses,
             ("GET", "/v1/models"): self._models,
             ("GET", "/health"): self._health,
+            ("GET", "/live"): self._health,
+            ("GET", "/metrics"): self._metrics,
+            ("GET", "/debug/slo"): self._debug_slo,
+            ("GET", "/debug/traces"): self._debug_traces_list,
             ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
         }
+        # the SLO plane: an engine per model fed from this frontend's own
+        # phase observations; transitions go to slo_publisher (the
+        # `slo-status` event, wired by run_http; None = logged only)
+        self._slo_engines: dict[str, dslo.SloEngine] = {}
+        self._slo_task: Optional[asyncio.Task] = None
+        self._slo_tick_s = float(os.environ.get("DYN_SLO_TICK_S", "1.0"))
+        self.slo_publisher: Optional[Callable[[dict], None]] = None
+        # the brownout ladder, fed by this frontend's SLO state and the
+        # fleet's (note_remote_slo); rungs 1 and 4 force-shed whole classes
+        # at the AdmissionController; transitions go to brownout_publisher
+        self.brownout = dbrownout.BrownoutController(scope="frontend",
+                                                     on_change=self._on_brownout_change)
+        self.brownout_publisher: Optional[Callable[[dict], None]] = None
+        self._local_slo_state = "ok"
+        self._remote_slo_state = "ok"
+        self.metrics.attach_brownout(self.brownout)
+        # auxiliary background tasks (event subscriptions) cancelled on close
+        self._aux_tasks: list[asyncio.Task] = []
 
     # ---------------------------------------------------------- lifecycle
 
@@ -508,9 +808,26 @@ class HttpService:
         self._server = await asyncio.start_server(self._serve_conn, self.host, self.port)
         if self.port == 0:
             self.port = self._server.sockets[0].getsockname()[1]
+        # the loop also ticks the brownout ladder without a local objective:
+        # fleet slo-status events fire on transitions only, and the ladder
+        # steps on observations (the reference runs it only with an SLO, so
+        # its ladder never steps back down after a remote ok; ROADMAP C11)
+        if (dslo.SloConfig.from_env().enabled or self.brownout.config.enabled) \
+                and self._slo_task is None:
+            self._slo_task = asyncio.get_running_loop().create_task(self._slo_loop())
         logger.info("openai http service on %s:%d", self.host, self.port)
 
+    def add_background_task(self, task: asyncio.Task) -> None:
+        """Track an auxiliary task (an event subscription loop) for close()."""
+        self._aux_tasks.append(task)
+
     async def close(self) -> None:
+        for t in ([self._slo_task] if self._slo_task is not None else []) + self._aux_tasks:
+            t.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await t
+        self._slo_task = None
+        self._aux_tasks.clear()
         if self._server is not None:
             self._server.close()
             for t in list(self._conns):
@@ -637,23 +954,128 @@ class HttpService:
             proc="frontend", endpoint=endpoint, request_id=ctx.id,
         )
 
+    # ---------------------------------------------------------------- slo
+
+    def _slo_engine(self, model: str) -> dslo.SloEngine:
+        eng = self._slo_engines.get(model)
+        if eng is None:
+            def on_transition(old: str, new: str, status: dict) -> None:
+                logger.warning("SLO state for %s: %s -> %s", model, old, new)
+                if self.slo_publisher is not None:
+                    self.slo_publisher({"old": old, "new": new, **status})
+
+            eng = self._slo_engines[model] = dslo.SloEngine(
+                dslo.SloConfig.from_env(model), model=model, on_transition=on_transition)
+        return eng
+
+    def _slo_observe_all(self) -> dict[str, dict]:
+        out = {model: self._slo_engine(model).observe(self.metrics.phase_hist_for(model))
+               for model in self.manager.list_models()}
+        worst = "ok"
+        for status in out.values():
+            st = status.get("state", "ok")
+            if dslo._SEVERITY.get(st, 0) > dslo._SEVERITY.get(worst, 0):
+                worst = st
+        self._local_slo_state = worst
+        return out
+
+    async def _slo_loop(self) -> None:
+        local = dslo.SloConfig.from_env().enabled
+        while True:
+            try:
+                if local:
+                    self._slo_observe_all()
+                self._observe_brownout()
+            except Exception:  # noqa: BLE001 — telemetry must not crash the server
+                logger.exception("slo evaluation failed")
+            await asyncio.sleep(self._slo_tick_s)
+
+    def note_remote_slo(self, state: Optional[str]) -> None:
+        """Feed a fleet ``slo-status`` transition into the brownout ladder.
+        Events fire on transitions only, so the last remote state holds
+        until the next event flips it back."""
+        if state in dslo._SEVERITY:
+            self._remote_slo_state = state
+            self._observe_brownout()
+
+    def _observe_brownout(self) -> None:
+        """Step the ladder with the worse of the local and remote states."""
+        local, remote = self._local_slo_state, self._remote_slo_state
+        self.brownout.observe(
+            local if dslo._SEVERITY.get(local, 0) >= dslo._SEVERITY.get(remote, 0) else remote)
+
+    def _on_brownout_change(self, old: int, new: int, rung: str) -> None:
+        self.admission.brownout_shed = dbrownout.shed_classes_for(new)
+        if self.brownout_publisher is not None:
+            self.brownout_publisher({"scope": "frontend", "old_level": old, "level": new,
+                                     "rung": rung, **self.brownout.actions()})
+
+    # ---------------------------------------------------------- completion
+
     @staticmethod
-    def _finish_trace(ctx: Context) -> None:
-        """Request-completion hook: with DYN_TRACE=1 the assembled trace
-        goes to DYN_TRACE_DIR when it is set."""
+    def _trace_migrated(trace_id: Optional[str]) -> bool:
+        """Did a span of this trace record a migration event?"""
+        if not trace_id:
+            return False
+        return any(ev.get("name") == "migration"
+                   for sp in dtrace.spans_for_trace(trace_id) for ev in sp.events)
+
+    def _finish_trace(self, ctx: Context, model: str = "",
+                      timer: Optional[TokenTimer] = None) -> None:
+        """Request-completion hook (service.py:992-1023). DYN_TRACE=1: the
+        assembled trace goes to DYN_TRACE_DIR when it is set. DYN_TRACE=auto:
+        the flight recorder keeps it only when the request breached its SLO,
+        errored or hit its deadline, migrated, or hit the 1-in-N sample
+        (DYN_TRACE_SAMPLE)."""
         if not dtrace.enabled():
             return
         tid = dtrace.ctx_trace_id(ctx)
-        if tid:
+        if not tid:
+            return
+        if not dtrace.auto():
             dtrace.maybe_write_trace(tid, ctx.id)
+            return
+        reason = dslo.retention_reason(
+            dslo.SloConfig.from_env(model) if model else None,
+            error_code=ctx.metadata.get("error_code"),
+            ttft_ms=getattr(timer, "ttft_ms", None),
+            max_itl_ms=getattr(timer, "max_itl_ms", None),
+            migrated=self._trace_migrated(tid),
+        )
+        rec = dslo.recorder()
+        if reason is not None:
+            rec.retain(tid, ctx.id, reason)
+        else:
+            rec.note_dropped()
 
     @staticmethod
-    def _resolve_priority(req: _Request, api_req: Any, ctx: Context) -> None:
+    def _resolve_priority(req: _Request, api_req: Any, ctx: Context) -> str:
         """The QoS class at the edge: ``x-dyn-priority``, then
-        ``ext.priority``, then ``DYN_PRIORITY_DEFAULT``, onto the Context."""
+        ``ext.priority``, then ``DYN_PRIORITY_DEFAULT``."""
         ext = api_req.ext
-        ctx.decisions().priority = qos.resolve_priority(
+        return qos.resolve_priority(
             req.headers.get("x-dyn-priority"), ext.priority if ext else None, api_req.model)
+
+    def _admit(self, req: _Request, api_req: Any, ctx: Context, sig: Optional[int]) -> str:
+        """Resolve the class and take an admission slot, or raise the 429
+        (service.py:_shed, :1049-1056) before the prompt is tokenized."""
+        prio = self._resolve_priority(req, api_req, ctx)
+        retry_after = self.admission.try_acquire(api_req.model, prio, prefix_sig=sig,
+                                                 request_id=ctx.id)
+        if retry_after is not None:
+            raise _Reply(429, "server overloaded: admission watermark reached, retry later",
+                         "overloaded",
+                         {"Retry-After": str(max(1, int(math.ceil(retry_after))))})
+        ctx.decisions().priority = prio
+        return prio
+
+    def _release(self, model: str, ctx: Context, sig: Optional[int],
+                 timer: Optional[TokenTimer]) -> None:
+        frac = ctx.decisions().kv_fleet_frac
+        if frac is not None:
+            self.admission.note_prefix_heat(model, sig, frac)
+        self.admission.release(model)
+        self._finish_trace(ctx, model=model, timer=timer)
 
     @staticmethod
     def _arm_deadline(ctx: Context, api_req: Any) -> None:
@@ -686,10 +1108,17 @@ class HttpService:
         try:
             await fn()
         except _Reply as r:
-            await conn.send_json(r.status, r.body, self._resp_headers(ctx), req.keep_alive)
+            await conn.send_json(r.status, r.body, {**self._resp_headers(ctx), **r.headers},
+                                 req.keep_alive)
+
+    def _note_error(self, model: str, ctx: Context, err: dict) -> None:
+        # DYN_TRACE=auto retention: an errored request keeps its trace
+        ctx.metadata["error_code"] = err.get("code", "internal_error")
+        if err.get("code") == "deadline_exceeded" and model:
+            self.metrics.deadline_exceeded.labels(model).inc()
 
     async def _stream_sse(self, conn: _Connection, req: _Request, ctx: Context,
-                          stream: AsyncIterator[Annotated]) -> None:
+                          stream: AsyncIterator[Annotated], model: str = "") -> None:
         await conn.send_head(200, {
             "Content-Type": "text/event-stream",
             "Cache-Control": "no-cache",
@@ -702,6 +1131,7 @@ class HttpService:
                 if item.is_error():
                     err = _error_payload(item.error_message())
                     err.setdefault("request_id", ctx.id)
+                    self._note_error(model, ctx, err)
                     await conn.send_chunk(encode_json_event(_error_body(err), event="error"))
                     break
                 if item.event is not None:
@@ -714,22 +1144,34 @@ class HttpService:
             with contextlib.suppress(Exception):
                 await stream.aclose()
 
-    async def _unary(self, conn: _Connection, req: _Request, ctx: Context,
-                     stream: AsyncIterator[Annotated], agg) -> None:
+    async def _fold(self, conn: _Connection, req: _Request, ctx: Context,
+                    stream: AsyncIterator[Annotated], agg, model: str = "") -> Optional[dict]:
+        """Fold a stream into one response dict; an engine error is sent as
+        its mapped status and gives None."""
         try:
             async for item in stream:
                 if item.is_error():
                     payload = _error_payload(item.error_message())
                     payload.setdefault("request_id", ctx.id)
+                    self._note_error(model, ctx, payload)
                     status = _CODE_STATUS.get(payload.get("code", "internal_error"), 500)
-                    await conn.send_json(status, _error_body(payload), self._resp_headers(ctx), req.keep_alive)
-                    return
+                    headers = self._resp_headers(ctx)
+                    if status == 429:
+                        headers["Retry-After"] = "1"
+                    await conn.send_json(status, _error_body(payload), headers, req.keep_alive)
+                    return None
                 if item.data is not None:
                     agg.add(item.data)
         finally:
             with contextlib.suppress(Exception):
                 await stream.aclose()
-        d = agg.finish().to_dict()
+        return agg.finish().to_dict()
+
+    async def _unary(self, conn: _Connection, req: _Request, ctx: Context,
+                     stream: AsyncIterator[Annotated], agg, model: str = "") -> None:
+        d = await self._fold(conn, req, ctx, stream, agg, model)
+        if d is None:
+            return
         tb = _usage_timing_block(ctx)
         if tb:
             usage = d.get("usage") or {}
@@ -747,15 +1189,15 @@ class HttpService:
                     p.get("type") in ("image_url", "video_url") for p in m.content)
                     for m in chat_req.messages):
                 raise _Reply(501, "this model does not accept image input", "not_implemented")
-            if chat_req.tools:
-                raise _Reply(501, "tool calling is not supported", "not_implemented")
-            self._resolve_priority(req, chat_req, ctx)
-            self._arm_deadline(ctx, chat_req)
+            sig = _chat_prefix_sig(chat_req)
+            prio = self._admit(req, chat_req, ctx, sig)
+            timer = TokenTimer(self.metrics, chat_req.model)
             try:
-                with self._trace_root(req, ctx, "chat_completions") as root:
-                    root.set(model=chat_req.model, stream=bool(chat_req.stream),
-                             priority=ctx.decisions().priority)
-                    stream = execution.chat_stream(chat_req, ctx)
+                self._arm_deadline(ctx, chat_req)
+                with self.metrics.track(chat_req.model, "chat_completions"), \
+                        self._trace_root(req, ctx, "chat_completions") as root:
+                    root.set(model=chat_req.model, stream=bool(chat_req.stream), priority=prio)
+                    stream = execution.chat_stream(chat_req, ctx, timer)
                     try:
                         # render and tokenize before any byte goes out, so a
                         # template's raise_exception is a 400 (the reference
@@ -766,29 +1208,102 @@ class HttpService:
                         raise _Reply(400, f"invalid request: {e}") from None
                     stream = _prepend(first, stream)
                     if chat_req.stream:
-                        await self._stream_sse(conn, req, ctx, stream)
+                        await self._stream_sse(conn, req, ctx, stream, chat_req.model)
                     else:
-                        await self._unary(conn, req, ctx, stream, ChatDeltaAggregator())
+                        await self._unary(conn, req, ctx, stream, ChatDeltaAggregator(),
+                                          chat_req.model)
             finally:
-                self._finish_trace(ctx)
+                self._release(chat_req.model, ctx, sig, timer)
         await self._reply(conn, req, ctx, run)
 
     async def _completions(self, conn: _Connection, req: _Request, ctx: Context) -> None:
         async def run():
             comp_req, execution = self._parse(
                 req, CompletionRequest, self.template and self.template.apply_completion)
-            self._resolve_priority(req, comp_req, ctx)
-            self._arm_deadline(ctx, comp_req)
+            sig = _completion_prefix_sig(comp_req)
+            self._admit(req, comp_req, ctx, sig)
+            timer = TokenTimer(self.metrics, comp_req.model)
             try:
-                with self._trace_root(req, ctx, "completions") as root:
+                self._arm_deadline(ctx, comp_req)
+                with self.metrics.track(comp_req.model, "completions"), \
+                        self._trace_root(req, ctx, "completions") as root:
                     root.set(model=comp_req.model, stream=bool(comp_req.stream))
-                    stream = execution.completion_stream(comp_req, ctx)
+                    stream = execution.completion_stream(comp_req, ctx, timer)
                     if comp_req.stream:
-                        await self._stream_sse(conn, req, ctx, stream)
+                        await self._stream_sse(conn, req, ctx, stream, comp_req.model)
                     else:
-                        await self._unary(conn, req, ctx, stream, CompletionAggregator())
+                        await self._unary(conn, req, ctx, stream, CompletionAggregator(),
+                                          comp_req.model)
             finally:
-                self._finish_trace(ctx)
+                self._release(comp_req.model, ctx, sig, timer)
+        await self._reply(conn, req, ctx, run)
+
+    async def _responses(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """The OpenAI Responses API, unary (service.py:1318-1430): a text
+        ``input`` becomes a chat request run through the chat chain, and
+        the aggregate is reshaped into a Response object. Items input,
+        ``tools``, ``tool_choice`` and ``previous_response_id`` get 501."""
+        async def run():
+            try:
+                body = json.loads(req.body)
+            except ValueError as e:
+                raise _Reply(400, f"invalid request: {e}") from None
+            if not isinstance(body, dict):
+                raise _Reply(400, "request body must be a JSON object")
+            if self.template is not None:
+                body = self.template.apply_responses(body)
+            inp = body.get("input")
+            if not isinstance(inp, str):
+                raise _Reply(501, "only text input is supported", "not_implemented")
+            for fld in ("tools", "tool_choice", "previous_response_id"):
+                if body.get(fld):
+                    raise _Reply(501, f"`{fld}` is not supported", "not_implemented")
+            chat_body: dict[str, Any] = {"model": body.get("model", ""),
+                                         "messages": [{"role": "user", "content": inp}],
+                                         "stream": False}
+            for src, dst in (("temperature", "temperature"), ("top_p", "top_p"),
+                             ("max_output_tokens", "max_completion_tokens")):
+                if body.get(src) is not None:
+                    chat_body[dst] = body[src]
+            if body.get("top_logprobs") is not None:
+                chat_body["logprobs"] = True
+                chat_body["top_logprobs"] = min(int(body["top_logprobs"]), 20)
+            try:
+                chat_req = ChatCompletionRequest.from_dict(chat_body)
+            except ValueError as e:
+                raise _Reply(400, f"invalid request: {e}") from None
+            execution = self.manager.get(chat_req.model)
+            if execution is None:
+                raise _Reply(404, f"model {chat_req.model!r} not found", "not_found_error")
+            sig = _chat_prefix_sig(chat_req)
+            self._admit(req, chat_req, ctx, sig)
+            timer = TokenTimer(self.metrics, chat_req.model)
+            try:
+                self._arm_deadline(ctx, chat_req)
+                with self.metrics.track(chat_req.model, "responses"), \
+                        self._trace_root(req, ctx, "responses"):
+                    d = await self._fold(conn, req, ctx, execution.chat_stream(chat_req, ctx, timer),
+                                         ChatDeltaAggregator(), chat_req.model)
+            finally:
+                self._release(chat_req.model, ctx, sig, timer)
+            if d is None:
+                return
+            choices = d.get("choices") or []
+            content = (choices[0].get("message") or {}).get("content") or "" if choices else ""
+            await conn.send_json(200, {
+                "id": f"resp_{uuid.uuid4().hex}",
+                "object": "response",
+                "created_at": int(time.time()),
+                "model": chat_req.model,
+                "status": "completed",
+                "output": [{
+                    "type": "message",
+                    "id": f"msg_{uuid.uuid4().hex}",
+                    "role": "assistant",
+                    "status": "completed",
+                    "content": [{"type": "output_text", "text": content, "annotations": []}],
+                }],
+            }, self._resp_headers(ctx), req.keep_alive)
         await self._reply(conn, req, ctx, run)
 
     async def _models(self, conn: _Connection, req: _Request, ctx: Context) -> None:
@@ -797,6 +1312,37 @@ class HttpService:
 
     async def _health(self, conn: _Connection, req: _Request, ctx: Context) -> None:
         await conn.send_json(200, {"status": "healthy", "models": self.manager.list_models()},
+                             keep_alive=req.keep_alive)
+
+    async def _metrics(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        await conn.send_text(200, self.metrics.render(), CONTENT_TYPE_LATEST,
+                             keep_alive=req.keep_alive)
+
+    async def _debug_slo(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """The frontend's SLO status: per-model burn rates, window
+        percentiles and the ok / burning / breached state, evaluated on
+        demand, beside the brownout ladder's status."""
+        if not dslo.SloConfig.from_env().enabled:
+            body = {"enabled": False,
+                    "hint": "set DYN_SLO_TTFT_MS / DYN_SLO_ITL_MS or DYN_SLO_CONFIG",
+                    # brownout can still step off remote slo-status events
+                    "brownout": self.brownout.status()}
+        else:
+            body = {"enabled": True, "scope": "frontend", "models": self._slo_observe_all(),
+                    "brownout": self.brownout.status()}
+        await conn.send_json(200, body, keep_alive=req.keep_alive)
+
+    async def _debug_traces_list(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """The retained trace exemplars (DYN_TRACE=auto's flight recorder)
+        with their retention reasons, newest last."""
+        if not dtrace.enabled():
+            await conn.send_json(404, {"error": {"message": "tracing is disabled (set DYN_TRACE=1 or auto)",
+                                                 "type": "not_found_error"}},
+                                 keep_alive=req.keep_alive)
+            return
+        rec = dslo.recorder()
+        await conn.send_json(200, {"mode": "auto" if dtrace.auto() else "always",
+                                   "stats": rec.stats(), "traces": rec.entries()},
                              keep_alive=req.keep_alive)
 
     @staticmethod

@@ -1,11 +1,12 @@
 """Wire types for KV events and worker load metrics.
 
 The port's own copy of dynamo_tpu/kv_router/protocols.py, with the same
-dicts on the wire. ``ForwardPassMetrics.phase_histograms`` and ``goodput``
-stay plain dicts here: a worker of the JAX package may send them, and the
-port passes them through unchanged (``from_dict`` then ``to_dict`` gives
-the same dict back). Their typed classes (``telemetry/histogram.py``,
-``telemetry/goodput.py``) come with ROADMAP.md A10 part 2 and A12.
+dicts on the wire. ``ForwardPassMetrics.phase_histograms`` is typed
+(``telemetry/histogram.PhaseHistograms``, its wire dict on the wire).
+``goodput`` stays a plain dict: a worker of the JAX package may send it,
+and the port passes it through unchanged (``from_dict`` then ``to_dict``
+gives the same dict back); its typed class (``telemetry/goodput.py``)
+comes with ROADMAP.md A12.
 
 Role-equivalent of lib/llm/src/kv_router/protocols.rs: KvCacheEvent
 {Stored, Removed, Cleared} (:142-183) and ForwardPassMetrics
@@ -23,6 +24,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Optional
+
+from dynamo_tpu_torch.telemetry.histogram import PhaseHistograms
 
 
 @dataclass
@@ -109,6 +112,18 @@ class RouterEvent:
 
 
 # --------------------------------------------------------------- load metrics
+
+# outcome keys of the pulled-block counts (block_manager/peer.py): the
+# wire-name contract of WorkerStats.kv_pulled_blocks_by_outcome, here where
+# the frontend and the router read it without the block manager (and torch)
+PULL_OUTCOMES = (
+    "pulled",
+    "fallback_miss",
+    "fallback_timeout",
+    "fallback_integrity",
+    "fallback_fenced",
+    "fallback_error",
+)
 
 
 @dataclass
@@ -226,9 +241,10 @@ class ForwardPassMetrics:
     kv_stats: KvStats = field(default_factory=KvStats)
     spec_decode_stats: Optional[SpecDecodeStats] = None
     kv_transfer_stats: Optional[KvTransferStats] = None
-    # the reference's per-phase latency histograms and goodput ledger, as
-    # their wire dicts (see the module docstring)
-    phase_histograms: Optional[dict[str, Any]] = None
+    # per-phase latency distributions on the shared fixed-log bucket grid
+    # (telemetry/histogram.py): merged across the fleet by bucket addition
+    phase_histograms: Optional[PhaseHistograms] = None
+    # the reference's goodput ledger as its wire dict (module docstring)
     goodput: Optional[dict[str, Any]] = None
 
     def to_dict(self) -> dict[str, Any]:
@@ -241,7 +257,7 @@ class ForwardPassMetrics:
         if self.kv_transfer_stats is not None:
             d["kv_transfer_stats"] = self.kv_transfer_stats.__dict__
         if self.phase_histograms is not None:
-            d["phase_histograms"] = self.phase_histograms
+            d["phase_histograms"] = self.phase_histograms.to_dict()
         if self.goodput is not None:
             d["goodput"] = self.goodput
         return d
@@ -255,7 +271,7 @@ class ForwardPassMetrics:
             kv_stats=KvStats(**d.get("kv_stats", {})),
             spec_decode_stats=SpecDecodeStats(**spec) if spec else None,
             kv_transfer_stats=KvTransferStats(**xfer) if xfer else None,
-            phase_histograms=d.get("phase_histograms") or None,
+            phase_histograms=PhaseHistograms.from_dict(ph) if (ph := d.get("phase_histograms")) else None,
             goodput=d.get("goodput") or None,
         )
 

@@ -5,9 +5,9 @@ The port's own copy of dynamo_tpu/kv_router/publisher.py: payloads packed
 by the port's codec (``fabric/mpack.py``), byte for byte what
 ``msgpack.packb(d, use_bin_type=True)`` writes, so a router of either
 package reads a worker of either. ``KvMetricsAggregator.aggregate`` sums
-everything the reference sums except the per-phase histograms and the
-goodput ledger: the port keeps those as wire dicts and their merge comes
-with their typed classes (ROADMAP.md A10 part 2, A12); ``collect`` passes
+everything the reference sums, the per-phase histograms merged by bucket
+addition, except the goodput ledger: the port keeps it as a wire dict and
+its merge comes with its typed class (ROADMAP.md A12); ``collect`` passes
 each worker's through unchanged.
 
 Role-equivalent of lib/llm/src/kv_router/publisher.rs (KvEventPublisher :99,
@@ -36,6 +36,7 @@ from dynamo_tpu_torch.kv_router.protocols import (
     SpecDecodeStats,
 )
 from dynamo_tpu_torch.runtime.protocols import EndpointId
+from dynamo_tpu_torch.telemetry.histogram import PhaseHistograms
 
 logger = logging.getLogger("dynamo_tpu_torch.kv_router.publisher")
 
@@ -238,6 +239,12 @@ class KvMetricsAggregator:
                 if agg.kv_transfer_stats is None:
                     agg.kv_transfer_stats = KvTransferStats()
                 agg.kv_transfer_stats.merge(m.kv_transfer_stats)
+            if m.phase_histograms is not None:
+                # bucket addition over the shared fixed-log grid: the merged
+                # distribution is exact, so fleet percentiles are true ones
+                if agg.phase_histograms is None:
+                    agg.phase_histograms = PhaseHistograms()
+                agg.phase_histograms.merge(m.phase_histograms)
         n = len(per_worker)
         if n:
             kv.gpu_cache_usage_perc /= n

@@ -5,10 +5,10 @@ prefix-pull plan (``_plan_pull``, scheduler.py:369-427): when the routed
 worker trails the fleet's best match by ``prefix_pull_min_blocks`` or more,
 the result carries a ``pull_plan`` naming the source (ranked by
 ``indexer.rank_pull_sources``), which the engine's peer tier
-(block_manager/peer.py) pulls from. Left out: the health scorer's hook (the
-route set and the ``health_factors`` deweighting, A10 part 2; until then no
-worker is a suspect, as in the reference with no scorer attached) and the
-decision provenance records (A12). Seeded, it picks what the reference
+(block_manager/peer.py) pulls from, and the health scorer's hook
+(``KvScheduler.health``, telemetry/health.py): ejected workers leave the
+route set and suspects are deweighted by their ``health_factors``. Left
+out: the decision provenance records (A12). Seeded, it picks what the reference
 picks: both draw from Python's ``random``.
 
 Role-equivalent of lib/llm/src/kv_router/scheduler.rs (:100-446): per worker
@@ -66,6 +66,10 @@ class SchedulingRequest:
     overlap: OverlapScores
     # worker_id -> blocks the worker would hold if this request landed there
     potential_blocks: dict[int, int] = field(default_factory=dict)
+    # tail-tolerance deweight (telemetry/health.py): worker_id -> factor
+    # >= 1.0 multiplying its cost logit — suspect (slow but not ejected)
+    # workers get proportionally less traffic without leaving the pool
+    health_factors: dict[int, float] = field(default_factory=dict)
 
 
 @dataclass
@@ -147,6 +151,12 @@ class DefaultWorkerSelector:
             prefill_blocks = request_blocks - cached
             potential = float(request.potential_blocks.get(worker_id, 0))
             logit = self.config.overlap_score_weight * prefill_blocks + potential
+            factor = request.health_factors.get(worker_id)
+            if factor is not None and factor != 1.0:
+                # cost logits are non-negative (cached <= request blocks),
+                # so multiplying deweights; the additive term keeps a
+                # suspect strictly worse even at zero load and overlap
+                logit = logit * factor + (factor - 1.0)
             logits[worker_id] = logit
             max_logit = max(max_logit, logit)
             logger.debug("worker %d: logit %.3f = %.1f * %.1f + %.1f (cached %d)", worker_id,
@@ -180,6 +190,10 @@ class KvScheduler:
         self.config = config or getattr(self.selector, "config", None) or KvRouterConfig()
         self.sequences = ActiveSequencesMultiWorker(block_size, [])
         self.on_hit_rate_event = on_hit_rate_event
+        # tail-tolerance plane (telemetry/health.HealthScorer, optional):
+        # ejected workers leave the candidate set (probation trickle and
+        # min-healthy floor inside the scorer), suspects are deweighted
+        self.health = None
         # per-decision accounting: how many of the request's blocks the
         # chosen worker (and the fleet's best holder) already held
         self.hit_stats: dict[str, int] = {
@@ -189,6 +203,18 @@ class KvScheduler:
             "fleet_blocks": 0,
         }
         self.pull_stats: dict[str, int] = {"plans": 0, "planned_blocks": 0}
+
+    @property
+    def hit_rate(self) -> float:
+        """Cumulative matched / ISL blocks over every routing decision."""
+        isl = self.hit_stats["isl_blocks"]
+        return self.hit_stats["matched_blocks"] / isl if isl else 0.0
+
+    @property
+    def fleet_hit_rate(self) -> float:
+        """Cumulative fleet-best matched / ISL blocks."""
+        isl = self.hit_stats["isl_blocks"]
+        return self.hit_stats["fleet_blocks"] / isl if isl else 0.0
 
     def update_workers(self, worker_ids: list[int]) -> None:
         self.sequences.update_workers(worker_ids)
@@ -206,14 +232,19 @@ class KvScheduler:
             chain = compute_seq_hash_chain(token_ids, self.block_size)
         partial = 1 if len(token_ids) % self.block_size else 0
         worker_ids = list(self.sequences.workers.keys())
+        health_factors: dict[int, float] = {}
+        if self.health is not None:
+            worker_ids = self.health.route_set(worker_ids)
+            health_factors = {w: f for w in worker_ids if (f := self.health.penalty(w)) != 1.0}
         request = SchedulingRequest(
             isl_tokens=len(token_ids),
             overlap=overlap,
             potential_blocks=self.sequences.potential_blocks_chain(chain, partial),
+            health_factors=health_factors,
         )
         result = self.selector.select_worker(worker_ids, request, self.block_size)
         result.fleet_blocks = min(result.required_blocks, max(overlap.scores.values(), default=0))
-        result.pull_plan = self._plan_pull(result, overlap, chain, set(worker_ids), {})
+        result.pull_plan = self._plan_pull(result, overlap, chain, set(worker_ids), health_factors)
         self.sequences.add_request_chain(result.worker_id, chain, partial, request_id)
         self.hit_stats["decisions"] += 1
         self.hit_stats["isl_blocks"] += result.required_blocks

@@ -5,9 +5,10 @@ The port's own copy of dynamo_tpu/preprocessor.py (``OpenAIPreprocessor``,
 ``ChatDeltaGenerator``, ``CompletionDeltaGenerator``): chat template +
 tokenize -> PreprocessedRequest, and the OpenAI chunks built from the
 detokenized engine deltas, with the same annotation events
-("formatted_prompt", "token_ids"). Left out: the multimodal content parts
-(the port's engine takes no images; the HTTP layer refuses them) and the
-tool-call chunks (tool calling is not ported).
+("formatted_prompt", "token_ids"), and the tool-call chunks of a request
+that declares tools (``tool_calls_chunk``, the ``tool_calls`` finish).
+Left out: the multimodal content parts (the port's engine takes no images;
+the HTTP layer refuses them; ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -174,9 +175,18 @@ class ChatDeltaGenerator:
             )
         ])
 
-    def finish_chunk(self, reason: FinishReason, index: int = 0) -> ChatCompletionChunk:
+    def tool_calls_chunk(self, calls: list[dict], index: int = 0) -> ChatCompletionChunk:
+        """Structured tool-call deltas lifted from generated text
+        (tool_calling.parse_tool_calls)."""
+        return self._chunk([StreamChoice(index=index, delta=ChoiceDelta(tool_calls=calls))])
+
+    def finish_chunk(self, reason: FinishReason, index: int = 0,
+                     literal: Optional[str] = None) -> ChatCompletionChunk:
+        """``literal`` overrides the finish reason's OpenAI string
+        (``"tool_calls"``)."""
         return self._chunk([
-            StreamChoice(index=index, delta=ChoiceDelta(), finish_reason=reason.as_openai())
+            StreamChoice(index=index, delta=ChoiceDelta(),
+                         finish_reason=literal or reason.as_openai())
         ])
 
     def usage_chunk(self, prompt_tokens: int, completion_tokens: int) -> ChatCompletionChunk:

@@ -1,10 +1,10 @@
 """Request priority classes: the QoS vocabulary shared by every layer.
 
 The port's own copy of dynamo_tpu/qos.py: the three classes, their
-resolution at the edge and the drain-rate estimator behind a shed's
-Retry-After. Left out: ``effective_chunk_budget`` (the brownout ladder's
-prefill cap, ROADMAP.md A10 part 2) and the decision-provenance record that the
-reference's ``stamp_priority`` writes (A12).
+resolution at the edge, the brownout ladder's prefill cap
+(``effective_chunk_budget``) and the drain-rate estimator behind a shed's
+Retry-After. Left out: the decision-provenance record that the reference's
+``stamp_priority`` writes (A12).
 
 Three classes, strictly ordered:
 
@@ -25,8 +25,8 @@ The resolved class rides ``Context.metadata["priority"]`` (so it survives
 every wire hop the Context header already crosses) and is mirrored into
 ``PreprocessedRequest.extra["priority"]`` for engines reached without a
 Context-bearing transport. The port's engine orders its waiting queue by
-it and picks preemption victims by it (the lowest class first); brownout
-comes with A10 part 2.
+it, picks preemption victims by it (the lowest class first), and its
+brownout rungs shed by it (``telemetry/brownout.py``).
 """
 
 from __future__ import annotations
@@ -124,6 +124,25 @@ def priority_source(header: Any = None, ext_value: Any = None) -> str:
 
 def rank_of(priority: Optional[str]) -> int:
     return CLASS_RANK.get(priority or DEFAULT_CLASS, CLASS_RANK[DEFAULT_CLASS])
+
+
+def effective_chunk_budget(base: int, *, chunk_cap: bool, block_size: int) -> int:
+    """The per-step prefill token budget after QoS degradation.
+
+    ``base`` is the engine's configured chunk budget (tokens of prefill
+    allowed to ride along each device step; 0 = chunking off). The brownout
+    ladder's ``chunk_cap`` rung halves it (decode lanes get the chip back at
+    the cost of new-prompt TTFT), never below one KV block, so an in-flight
+    prefill keeps making progress. The half is rounded down to the KV block
+    grid, where the engine's chunks must start: the reference's value
+    whenever half the budget is on the grid (the default 2 x 512 at any
+    power-of-two block size), a budget on the grid where the reference's
+    would not be. Engines latch the result once per step boundary."""
+    if not base:
+        return 0
+    if chunk_cap:
+        return max(block_size, (base // 2) // block_size * block_size)
+    return base
 
 
 def stamp_priority(pre: Any, ctx: Any) -> str:

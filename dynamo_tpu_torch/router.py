@@ -3,12 +3,16 @@
 The port's own copy of dynamo_tpu/router.py: one process owns the KV-overlap
 index (worker cache events -> radix tree -> cost-based selection) and serves
 routing decisions on a fabric endpoint, so N stateless frontends share one
-routing brain. Left out (ROADMAP.md A10 part 2): the router's own
-``/metrics`` and ``/health`` server (``--metrics-port`` is refused) and the
-health scorer's ejection of slow workers; the decision provenance in a
-reply comes with A12. A traced request's decision runs under a
-``route_decision`` span on the ``router`` track, shipped back in the reply's
-``trace``.
+routing brain. With ``--metrics-port`` it serves ``/metrics``, ``/health``
+and ``/live`` (``runtime/http_server.py``) from ``build_router_registry``:
+the KV hit rates, the pull-planning counters, the decision and shed
+counters, and its health scorer's families. The scorer is fed by the same
+load scrape that decides sheds (the workers' self-reported phase
+histograms, one tick a scrape), and its ejected workers leave the router's
+candidate set. A traced request's decision runs under a ``route_decision``
+span on the ``router`` track, shipped back in the reply's ``trace``. Left
+out (ROADMAP.md A12): the decision provenance in a reply and the decision
+families on ``/metrics``.
 
 Endpoint: ``<namespace>.router.find_best``
   request : {"token_ids": [...], "request_id": "..."}   (or {"tokens": ...})
@@ -44,15 +48,94 @@ import time
 from typing import Any, Optional
 
 from dynamo_tpu_torch import qos
+from dynamo_tpu_torch.runtime import logging as dlog
 from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.router")
 
-METRICS_PORT_MISSING = (
-    "--metrics-port needs the router's Prometheus registry and status server "
-    "(prometheus_client, runtime/http_server.py), which the port does not have yet: "
-    "ROADMAP.md A10 part 2"
-)
+
+def build_router_registry(scheduler, decisions_fn, shed_fn, health=None):
+    """The standalone router's Prometheus registry (router.py:37-160): the
+    hit-rate gauges and monotonic counters with counter semantics, and the
+    health scorer's families. Factored out so a lint can walk it without a
+    live router."""
+    from dynamo_tpu_torch.kv_router.protocols import PULL_OUTCOMES
+    from dynamo_tpu_torch.runtime.prom import (
+        CallbackCounter,
+        CollectorRegistry,
+        CounterMetricFamily,
+        Gauge,
+        GaugeMetricFamily,
+    )
+
+    registry = CollectorRegistry()
+    if health is not None:
+        # per-worker health scores and ejections as this router's scorer
+        # sees them (the frontend exports the same families from its own)
+        class _HealthCollector:
+            def collect(self):
+                score = GaugeMetricFamily(
+                    "dyn_llm_worker_health_score",
+                    "Worker slowness ratio vs the fleet median "
+                    "(1.0 typical; >= DYN_EJECT_RATIO is an outlier)",
+                    labels=["instance"],
+                )
+                for wid, v in sorted(health.scores().items()):
+                    score.add_metric([f"{wid:x}"], float(v))
+                yield score
+                yield GaugeMetricFamily(
+                    "dyn_llm_workers_ejected",
+                    "Workers currently ejected from routing as latency "
+                    "outliers (probation trickle still flows)",
+                    value=float(len(health.ejected())),
+                )
+                ej = CounterMetricFamily(
+                    "dyn_llm_ejections",
+                    "Latency-outlier ejections by dominant slow signal",
+                    labels=["cause"],
+                )
+                for cause, v in sorted(health.ejections_total.items()):
+                    ej.add_metric([str(cause)], float(v))
+                yield ej
+
+        registry.register(_HealthCollector())
+    g = Gauge("dyn_llm_kv_hit_rate", "Router KV hit rate: matched / required prefill blocks",
+              registry=registry)
+    g.set_function(lambda: scheduler.hit_rate)
+    CallbackCounter(registry, "dyn_llm_kv_matched_blocks_total",
+                    "Prefill blocks served from a routed worker's cache",
+                    lambda: scheduler.hit_stats["matched_blocks"])
+    # the fleet-best match rate and the router-side pull planning; realized
+    # pull outcomes are engine-side, so that family stays zero here
+    g_fleet = Gauge("dyn_llm_kv_fleet_hit_rate",
+                    "Fleet-best KV match rate: best matched / required prefill "
+                    "blocks held anywhere in the fleet", registry=registry)
+    g_fleet.set_function(lambda: scheduler.fleet_hit_rate)
+    CallbackCounter(registry, "dyn_llm_kv_pull_plans_total",
+                    "Prefix-pull plans attached to routing decisions",
+                    lambda: scheduler.pull_stats["plans"])
+    CallbackCounter(registry, "dyn_llm_kv_pull_planned_blocks_total",
+                    "Prefix blocks the router planned to pull from peers",
+                    lambda: scheduler.pull_stats["planned_blocks"])
+
+    class _PullCollector:
+        def collect(self):
+            fam = CounterMetricFamily(
+                "dyn_llm_kv_pulled_blocks",
+                "Prefix blocks resolved by peer pull (or fallen back "
+                "to local compute), by outcome",
+                labels=["outcome"],
+            )
+            for key in PULL_OUTCOMES:
+                fam.add_metric([key], 0.0)
+            yield fam
+
+    registry.register(_PullCollector())
+    CallbackCounter(registry, "dyn_llm_router_decisions_total", "Routing decisions served",
+                    decisions_fn)
+    CallbackCounter(registry, "dyn_llm_requests_shed_total",
+                    "Requests shed by admission control (429)", shed_fn)
+    return registry
 
 
 class StandaloneRouter:
@@ -70,8 +153,6 @@ class StandaloneRouter:
         queue_factor: Optional[float] = None,
         metrics_port: Optional[int] = None,
     ) -> None:
-        if metrics_port is not None:
-            raise NotImplementedError(METRICS_PORT_MISSING)
         self.drt = drt
         self.namespace = namespace
         self.component = drt.namespace(namespace).component(component)
@@ -91,20 +172,44 @@ class StandaloneRouter:
         self.decisions_total = 0
         # completions (op=free) feed the Retry-After of a shed
         self._drain = qos.DrainRateEstimator()
+        # the tail-tolerance plane, scored from the workers' self-reported
+        # phase histograms (the same load scrape), so latency-ejected
+        # stragglers leave this router's candidate set too
+        from dynamo_tpu_torch.telemetry.health import HealthScorer
+
+        self.health = HealthScorer()
+        # /metrics and /health of the router itself (None: off)
+        self.metrics_port = metrics_port
+        self._status_server = None
 
     async def start(self) -> None:
         from dynamo_tpu_torch.kv_router.publisher import KvMetricsAggregator
         from dynamo_tpu_torch.kv_router.router import KvRouter
 
         client = await self.worker_endpoint.client()
+        client.health = self.health
         self.router = KvRouter(self.component, client, block_size=self.block_size,
                                config=self.kv_config)
         await self.router.start()
+        self.router.scheduler.health = self.health
         self._aggregator = KvMetricsAggregator(self.component, self.worker_endpoint.id)
         serve_ep = self.drt.namespace(self.namespace).component("router").endpoint("find_best")
         self._service = await serve_ep.serve_endpoint(self._handler)
+        if self.metrics_port is not None:
+            await self._start_status_server()
         logger.info("standalone router serving %s.router.find_best for %s", self.namespace,
                     self.worker_endpoint.id)
+
+    async def _start_status_server(self) -> int:
+        """The router's own observability plane on ``metrics_port``."""
+        from dynamo_tpu_torch.runtime.http_server import SystemStatusServer
+
+        registry = build_router_registry(self.router.scheduler, lambda: self.decisions_total,
+                                         lambda: self.shed_total, health=self.health)
+        self._status_server = SystemStatusServer(port=self.metrics_port, registry=registry)
+        port = await self._status_server.start()
+        logger.info("standalone router /metrics on :%d", port)
+        return port
 
     async def _overloaded(self) -> bool:
         """Fleet past the admission watermark? From a load snapshot cached
@@ -119,9 +224,13 @@ class StandaloneRouter:
                 load = sum(m.worker_stats.request_active_slots + m.worker_stats.num_requests_waiting
                            for m in per_worker.values())
                 self._load = (slots, load)
+                # the same scrape feeds the health plane
+                for wid, m in per_worker.items():
+                    self.health.observe_worker_hists(wid, m.phase_histograms)
             except Exception:  # noqa: BLE001 - missing stats = no shedding
                 self._load = (0, 0)
             self._load_at = now
+            self.health.tick()
         slots, load = self._load
         return bool(slots) and load >= slots * self.queue_factor
 
@@ -173,6 +282,8 @@ class StandaloneRouter:
         yield out
 
     async def close(self) -> None:
+        if self._status_server is not None:
+            await self._status_server.close()
         if self._service is not None:
             await self._service.stop()
         if self.router is not None:
@@ -200,6 +311,8 @@ async def _amain(args) -> None:
         )
         await router.start()
         print(f"standalone router on {args.namespace}.router.find_best", flush=True)
+        if router._status_server is not None:
+            print(f"router metrics on :{router._status_server.port}", flush=True)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGINT, signal.SIGTERM):
@@ -212,7 +325,7 @@ async def _amain(args) -> None:
 
 
 def main(argv: Optional[list[str]] = None) -> None:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    dlog.init(force=True)
     ap = argparse.ArgumentParser(prog="dynamo_tpu_torch.router", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--namespace", default="dynamo")
@@ -222,10 +335,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--kv-overlap-score-weight", type=float, default=1.0)
     ap.add_argument("--router-temperature", type=float, default=0.0)
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="refused: the router's /metrics comes with ROADMAP.md A10 part 2")
+                    help="serve /metrics and /health on this port (0: any free port)")
     args = ap.parse_args(argv)
-    if args.metrics_port is not None:
-        raise SystemExit(METRICS_PORT_MISSING)
     from dynamo_tpu_torch.runtime.config import RuntimeConfig
 
     if not RuntimeConfig.from_settings().fabric_addr:

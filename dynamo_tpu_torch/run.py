@@ -211,8 +211,9 @@ def exit_stats(engine) -> dict:
     request was finished or cancelled), the tiers' traffic, the requests
     shed on their deadline, its latest admissions (request id, prompt
     tokens, prefix blocks found in the tiers) and the process's integrity
-    counters (checksum failures, quarantined blocks, fenced frames) and the
-    injected faults that fired (``DYN_FAULT``), by name."""
+    counters (checksum failures, quarantined blocks, fenced frames), the
+    brownout rung and sheds, the step counts, the phase histograms' counts
+    and the injected faults that fired (``DYN_FAULT``), by name."""
     from dynamo_tpu_torch.integrity import COUNTERS
     from dynamo_tpu_torch.ops import kernels
     from dynamo_tpu_torch.parallel.multihost import SpmdModelRunner
@@ -230,7 +231,10 @@ def exit_stats(engine) -> dict:
         "num_blocks": engine.config.num_blocks,
         **{k: getattr(engine.stats, k) for k in (
             "kv_offloaded_blocks", "kv_offload_errors", "kv_onboarded_blocks",
-            "kv_onboard_errors", "deadline_exceeded")},
+            "kv_onboard_errors", "deadline_exceeded", "shed_brownout", "brownout_level",
+            "decode_steps", "verify_steps", "chunk_steps", "graph_replays")},
+        # the always-on phase histograms' counts (streams, gaps) by phase
+        "phase_counts": {k: h.count for k, h in engine.stats.phase_histograms.phases.items()},
         "admissions": list(engine.admissions),
         "integrity": COUNTERS.snapshot(),
         "faults_fired": dict(faults.get_injector().fired) if faults.active() else {},
@@ -311,7 +315,10 @@ def _worker_signals(drt, engine) -> None:
 
 
 def main(argv: Optional[list[str]] = None) -> None:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # DYN_LOG filters, DYN_LOGGING_JSONL=1 for JSON lines (runtime/logging.py)
+    from dynamo_tpu_torch.runtime import logging as dlog
+
+    dlog.init(force=True)
     args = parse_args(argv)
     try:
         asyncio.run(amain(args))

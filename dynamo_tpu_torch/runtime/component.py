@@ -200,6 +200,9 @@ class Client:
         self._watch: Optional[Watch] = None
         self._watch_task: Optional[asyncio.Task] = None
         self._rr_counter = 0
+        # the tail-tolerance plane (telemetry/health.HealthScorer), wired by
+        # the ModelWatcher: its ejected workers leave _eligible
+        self.health = None
         self._change = asyncio.Event()
 
     @property
@@ -269,15 +272,22 @@ class Client:
 
     def _eligible(self, exclude: Optional[set[int]]) -> list[int]:
         """Live instances minus an exclusion set (workers a migrating
-        request just watched die). If exclusion would empty the pool, fall
-        back to the full list — a restarted worker may be healthy again.
-        (The reference also excludes latency-ejected workers; health
-        scoring is not ported yet.)"""
+        request just watched die) and minus latency-ejected workers (the
+        tail-tolerance plane's gray stragglers, ``self.health``: alive but
+        slow, so replaying onto them burns the backoff budget for another
+        slow stream). If that would empty the pool, the ejected workers come
+        back first, then the excluded ones: a slow worker beats one just
+        seen dying (the reference returns the whole list at once, so a
+        replay can go back to the dead worker while a live ejected one
+        waits: ROADMAP C13), and a restarted worker may be healthy again."""
         ids = self.instance_ids()
-        if exclude:
-            kept = [i for i in ids if i not in exclude]
-            if kept:
-                return kept
+        exclude = set(exclude) if exclude else set()
+        ejected = self.health.routing_excluded() if self.health is not None else set()
+        for avoid in (exclude | ejected, exclude):
+            if avoid:
+                kept = [i for i in ids if i not in avoid]
+                if kept:
+                    return kept
         return ids
 
     async def random(

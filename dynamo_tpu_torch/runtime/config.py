@@ -2,10 +2,10 @@
 
 The port's own copy of dynamo_tpu/runtime/config.py's ``RuntimeConfig``.
 Left out: the JAX compilation cache (``setup_jax_compilation_cache``,
-``default_jax_cache_dir``) and the runtime HTTP server's knobs: nothing in
-the port serves health or metrics yet, so ``DYN_RUNTIME_HTTP_ENABLED=1``
-(or ``http_enabled = true`` in the TOML file) is refused rather than
-ignored.
+``default_jax_cache_dir``; a kernel-cache directory takes its place with
+ROADMAP A11). ``http_enabled`` / ``http_port`` (``DYN_RUNTIME_HTTP_ENABLED``,
+``DYN_RUNTIME_HTTP_PORT``) start a worker's system status server
+(``runtime/http_server.py``), off by default as in the reference.
 
 Role-equivalent of the reference's Figment-based RuntimeConfig/WorkerConfig
 (lib/runtime/src/config.rs:30-130).
@@ -35,14 +35,6 @@ def _env_int(name: str, default: int) -> int:
     return int(v) if v is not None else default
 
 
-def _refuse_http() -> None:
-    raise NotImplementedError(
-        "the runtime's health/metrics HTTP server is not ported yet "
-        "(ROADMAP Queue A, item 10: runtime/http_server.py and /metrics); "
-        "unset DYN_RUNTIME_HTTP_ENABLED"
-    )
-
-
 @dataclass
 class RuntimeConfig:
     """Per-process runtime settings.
@@ -61,6 +53,7 @@ class RuntimeConfig:
                             drain writes the KV offload tiers + prefix
                             index as checksummed pages; boot restores
                             them so restarts rejoin warm
+      DYN_RUNTIME_HTTP_ENABLED / DYN_RUNTIME_HTTP_PORT  system health/metrics server
     """
 
     fabric_addr: str = ""
@@ -70,6 +63,8 @@ class RuntimeConfig:
     namespace: str = "dynamo"
     degraded_max_s: float = 45.0
     warm_restart_dir: str = ""
+    http_enabled: bool = False
+    http_port: int = 9090
 
     @classmethod
     def from_settings(cls, config_path: Optional[str] = None) -> "RuntimeConfig":
@@ -81,10 +76,6 @@ class RuntimeConfig:
             section = doc.get("runtime", doc)
             known = {f.name for f in fields(cls)}
             values.update({k: v for k, v in section.items() if k in known})
-            if section.get("http_enabled"):
-                _refuse_http()
-        if _env_bool("DYN_RUNTIME_HTTP_ENABLED", False):
-            _refuse_http()
         cfg = cls(**values)
         cfg.fabric_addr = _env("DYN_FABRIC_ADDR", cfg.fabric_addr) or ""
         cfg.tcp_host = _env("DYN_TCP_HOST", cfg.tcp_host) or cfg.tcp_host
@@ -97,4 +88,6 @@ class RuntimeConfig:
         if degraded:
             cfg.degraded_max_s = float(degraded)
         cfg.warm_restart_dir = _env("DYN_WARM_RESTART_DIR", cfg.warm_restart_dir) or ""
+        cfg.http_enabled = _env_bool("DYN_RUNTIME_HTTP_ENABLED", cfg.http_enabled)
+        cfg.http_port = _env_int("DYN_RUNTIME_HTTP_PORT", cfg.http_port)
         return cfg

@@ -138,8 +138,10 @@ async def serve_graph(
 
 
 def main(argv: Optional[list[str]] = None) -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # DYN_LOG filters, DYN_LOGGING_JSONL=1 for JSON lines (runtime/logging.py)
+    from dynamo_tpu_torch.runtime import logging as dlog
+
+    dlog.init(force=True)
     parser = argparse.ArgumentParser(prog="dynamo_tpu_torch.serve")
     parser.add_argument("graph", help="graph module (e.g. dynamo_tpu_torch.graphs.agg)")
     parser.add_argument(

@@ -21,11 +21,11 @@ Design constraints:
 W3C interop: HTTP ingress honors/mints ``traceparent``; trace ids are
 32-hex, span ids 16-hex, so exported traces splice into external tooling.
 
-``DYN_TRACE`` takes ``0`` (off, the default) and ``1`` (every request's
-spans retained). ``auto`` (tail-sampled retention decided per request) needs
-the SLO plane's retention rules and recorder (ROADMAP.md A10 part 2) and is
-refused. Log-line injection of the trace identity (``with_fields``) needs
-the runtime's logging module (A10) and is not here either.
+``DYN_TRACE`` takes ``0`` (off, the default), ``1`` (every request's
+spans retained) and ``auto`` (spans recorded for every request, retention
+decided at completion by the SLO plane's ``retention_reason`` and kept in
+its flight recorder, ``telemetry/slo.py``). Every ``with_fields`` log line
+(``runtime/logging.py``) carries the ambient trace and request ids.
 """
 
 from __future__ import annotations
@@ -51,21 +51,12 @@ EXPORT_SUBJECT = "trace-export"
 
 _TRUTHY = ("1", "true", "on", "yes")
 
-AUTO_REFUSED = (
-    "DYN_TRACE=auto (per-request retention) needs the SLO plane's retention rules "
-    "and recorder, which the port does not have yet (ROADMAP.md A10 part 2); "
-    "use DYN_TRACE=1 or 0"
-)
-
-
-def _parse_mode(mode: Optional[str]) -> bool:
-    m = (mode or "0").strip().lower()
-    if m == "auto":
-        raise ValueError(AUTO_REFUSED)
-    return m in _TRUTHY
-
-
-_enabled: bool = _parse_mode(os.environ.get("DYN_TRACE", "0"))
+# DYN_TRACE modes: "0" off, truthy = always-retain, "auto" = record spans
+# for every request but decide RETENTION at completion (the flight-
+# recorder tail-sampling mode, telemetry/slo.py).
+_mode: str = os.environ.get("DYN_TRACE", "0").strip().lower()
+_auto: bool = _mode == "auto"
+_enabled: bool = _auto or _mode in _TRUTHY
 
 # current span (for nesting) and current logical process label (lets one OS
 # process host several logical roles in tests and colocated deployments
@@ -82,16 +73,25 @@ def enabled() -> bool:
     return _enabled
 
 
+def auto() -> bool:
+    """True when retention is decided per request (DYN_TRACE=auto)."""
+    return _auto
+
+
 def set_enabled(on: bool) -> None:
-    """Flip tracing at runtime (tests, benchmarks)."""
-    global _enabled
+    """Flip tracing at runtime (tests, benchmarks). Clears auto mode:
+    set_enabled(True) is the always-retain mode."""
+    global _enabled, _auto
     _enabled = bool(on)
+    _auto = False
 
 
 def set_mode(mode: str) -> None:
-    """Set the DYN_TRACE mode by name: '0' or '1'; 'auto' raises."""
-    global _enabled
-    _enabled = _parse_mode(mode)
+    """Set the DYN_TRACE mode by name: '0' / '1' / 'auto'."""
+    global _enabled, _auto
+    m = (mode or "0").strip().lower()
+    _auto = m == "auto"
+    _enabled = _auto or m in _TRUTHY
 
 
 def _new_trace_id() -> str:
@@ -419,6 +419,19 @@ def process_scope(label: Optional[str]) -> Iterator[None]:
 
 
 # -------------------------------------------------------- context plumbing
+
+
+def current_fields() -> dict[str, Any]:
+    """The ambient trace / request identity for log-line injection
+    (runtime/logging.py)."""
+    sp = _current_span.get()
+    if sp is None:
+        return {}
+    out: dict[str, Any] = {"trace_id": sp.trace_id}
+    rid = sp.attrs.get("request_id")
+    if rid:
+        out["request_id"] = rid
+    return out
 
 
 def ctx_trace(ctx: Any) -> tuple[Optional[str], Optional[str]]:
@@ -766,6 +779,13 @@ def breakdown(trace_id: Optional[str]) -> dict[str, Any]:
         "spans": len(spans),
         "phases": phases,
     }
+
+
+# Join logs to traces: every with_fields log line picks up the ambient
+# trace_id / request_id of the task that emitted it ({} when no span).
+from dynamo_tpu_torch.runtime import logging as _dlog  # noqa: E402
+
+_dlog.set_context_fields_provider(current_fields)
 
 
 def maybe_write_trace(

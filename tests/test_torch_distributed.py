@@ -524,7 +524,11 @@ async def serve_workers(drts, engines, mdc, register):
         await register(drt, ep, mdc)
 
 
-async def test_port_frontend_over_two_torch_workers_matches_the_jax_frontend(model_dir):
+async def test_port_frontend_over_two_torch_workers_matches_the_jax_frontend(model_dir, monkeypatch):
+    # the round-robin check below needs both workers in the route set: a
+    # loaded CPU can make one look 3x slower for the health scorer's three
+    # ticks, which would eject it (the tail plane's own tests cover that)
+    monkeypatch.setenv("DYN_EJECT_INTERVALS", "1000000")
     ref_mdc, port_mdc = cards(model_dir)
     log_j, log_t = [], []
     jserver, tserver = JFabricServer("127.0.0.1", 0), FabricServer("127.0.0.1", 0)
@@ -836,15 +840,25 @@ def test_cli_refuses_a_distributed_role_without_a_fabric_address(inout, monkeypa
 
 
 def test_runtime_http_server_knob_is_refused_not_ignored(tmp_path, monkeypatch):
+    # the status server is ported: the knob is honoured (never ignored),
+    # read as the JAX package's RuntimeConfig reads it
+    from dynamo_tpu.runtime.config import RuntimeConfig as JRuntimeConfig
+
     monkeypatch.delenv("DYN_RUNTIME_CONFIG", raising=False)
+    monkeypatch.delenv("DYN_RUNTIME_HTTP_PORT", raising=False)
+    monkeypatch.delenv("DYN_RUNTIME_HTTP_ENABLED", raising=False)
+    cfg = RuntimeConfig.from_settings()
+    assert (cfg.http_enabled, cfg.http_port) == (False, 9090)
     monkeypatch.setenv("DYN_RUNTIME_HTTP_ENABLED", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RuntimeConfig.from_settings()
+    monkeypatch.setenv("DYN_RUNTIME_HTTP_PORT", "9191")
+    cfg, ref = RuntimeConfig.from_settings(), JRuntimeConfig.from_settings()
+    assert (cfg.http_enabled, cfg.http_port) == (ref.http_enabled, ref.http_port) == (True, 9191)
     monkeypatch.delenv("DYN_RUNTIME_HTTP_ENABLED")
+    monkeypatch.delenv("DYN_RUNTIME_HTTP_PORT")
     path = tmp_path / "runtime.toml"
-    path.write_text("[runtime]\nhttp_enabled = true\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RuntimeConfig.from_settings(str(path))
+    path.write_text("[runtime]\nhttp_enabled = true\nhttp_port = 9292\n")
+    cfg, ref = RuntimeConfig.from_settings(str(path)), JRuntimeConfig.from_settings(str(path))
+    assert (cfg.http_enabled, cfg.http_port) == (ref.http_enabled, ref.http_port) == (True, 9292)
     path.write_text("[runtime]\nhttp_enabled = false\nnamespace = \"x\"\n")
     assert RuntimeConfig.from_settings(str(path)).namespace == "x"
 

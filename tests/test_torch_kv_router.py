@@ -646,10 +646,18 @@ async def test_event_and_metric_payloads_are_the_reference_bytes():
     pd = port_m.to_dict()
     pd["stamp"] = {"iid": 5, "ep": 7}
     assert mpack.packb(pd) == msgpack.packb(d, use_bin_type=True)
-    # the reference's histogram / goodput dicts pass through unchanged
-    passthrough = {**ref_m.to_dict(), "phase_histograms": {"ttft": {"b": [1, 2], "n": 3}},
-                   "goodput": {"steps": 4}}
-    assert ForwardPassMetrics.from_dict(passthrough).to_dict() == passthrough
+    # the reference's phase histograms read back typed, to the same wire
+    # dict; its goodput dict passes through unchanged
+    from dynamo_tpu.telemetry.histogram import PhaseHistograms as JPhaseHistograms
+
+    jph = JPhaseHistograms()
+    for v in (0.3, 12.5, 80.0, 80.0, 4000.0):
+        jph.observe("ttft", v)
+    jph.observe("inter_token", 9.75)
+    passthrough = {**ref_m.to_dict(), "phase_histograms": jph.to_dict(), "goodput": {"steps": 4}}
+    back = ForwardPassMetrics.from_dict(passthrough)
+    assert back.phase_histograms.phases["ttft"].count == 5
+    assert back.to_dict() == passthrough
 
 
 async def _serve_worker(drt, engine, pub_mod, namespace="kv", component="backend"):
@@ -916,8 +924,16 @@ async def test_standalone_router_serves_decisions():
                 break
             await asyncio.sleep(0.02)
         assert not any(index["index_blocks"].values())
-        with pytest.raises(NotImplementedError, match="A10 part 2"):
-            StandaloneRouter(drt, metrics_port=0)
+        # --metrics-port is served now: the registry reads this router's
+        # decisions and its scheduler's hit accounting
+        from dynamo_tpu_torch.router import build_router_registry
+        from dynamo_tpu_torch.runtime.prom import generate_latest
+
+        text = generate_latest(build_router_registry(
+            router.router.scheduler, lambda: router.decisions_total, lambda: router.shed_total,
+            health=router.health)).decode()
+        assert "dyn_llm_router_decisions_total 1.0" in text
+        assert f"dyn_llm_kv_matched_blocks_total {float(8)}" in text
         await router.close()
     finally:
         for d in [drt] + wdrts:

@@ -2016,3 +2016,95 @@ def test_an_moe_engine_serves_on_card_without_the_plain_grouped_ffn(monkeypatch)
     out = asyncio.run(go())
     assert [len(t) for t in out] == [9, 9]
     assert kernels.launch_counts()["grouped_swiglu_ffn"] > 0
+
+
+# ------------------------------------------- the operating plane, jax-free
+
+
+def _get(port: int, path: str):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def test_prometheus_text_writer_renders_the_text_format():
+    from dynamo_tpu_torch.runtime.prom import (
+        CallbackCounter, CollectorRegistry, Counter, Gauge, Histogram, generate_latest)
+
+    reg = CollectorRegistry()
+    c = Counter("a_requests_total", 'Total\\ req\nx', ["model", "status"], registry=reg)
+    c.labels('m"1', "ok").inc()
+    Counter("b_empty", "doc", ["x"], registry=reg)
+    Gauge("g_x", "gd", registry=reg).set(1234567.0)
+    Histogram("h_s", "hd", ["m"], buckets=(0.5, 1.0), registry=reg).labels("q").observe(0.7)
+    CallbackCounter(reg, "dd_total", "dd", lambda: 3)
+    assert generate_latest(reg).decode() == (
+        '# HELP a_requests_total Total\\\\ req\\nx\n# TYPE a_requests_total counter\n'
+        'a_requests_total{model="m\\"1",status="ok"} 1.0\n'
+        "# HELP b_empty_total doc\n# TYPE b_empty_total counter\n"
+        "# HELP g_x gd\n# TYPE g_x gauge\ng_x 1.234567e+06\n"
+        "# HELP h_s hd\n# TYPE h_s histogram\n"
+        'h_s_bucket{le="0.5",m="q"} 0.0\nh_s_bucket{le="1.0",m="q"} 1.0\n'
+        'h_s_bucket{le="+Inf",m="q"} 1.0\nh_s_count{m="q"} 1.0\nh_s_sum{m="q"} 0.7\n'
+        "# HELP dd_total dd\n# TYPE dd_total counter\ndd_total 3.0\n")
+
+
+def test_status_server_serves_health_live_and_metrics():
+    import asyncio
+    import json
+
+    from dynamo_tpu_torch.runtime.http_server import SystemStatusServer
+
+    async def run():
+        server = SystemStatusServer(port=0, host="127.0.0.1")
+        ok = {"v": True}
+
+        async def check():
+            return ok["v"]
+
+        server.add_health_check("engine", check)
+        port = await server.start()
+        try:
+            got = [await asyncio.to_thread(_get, port, p) for p in ("/health", "/live", "/metrics")]
+            ok["v"] = False
+            got.append(await asyncio.to_thread(_get, port, "/health"))
+            got.append(await asyncio.to_thread(_get, port, "/nope"))
+        finally:
+            await server.close()
+        return got
+
+    health, live, metrics, sick, missing = asyncio.run(run())
+    assert health[0] == 200 and json.loads(health[2])["checks"] == {"engine": True}
+    assert live[0] == 200 and json.loads(live[2]) == {"status": "live"}
+    assert metrics[0] == 200 and metrics[1].startswith("text/plain; version=0.0.4")
+    assert b"dyn_runtime_uptime_seconds " in metrics[2] and b"dyn_runtime_health 1.0" in metrics[2]
+    assert sick[0] == 503 and json.loads(sick[2])["status"] == "unhealthy"
+    assert missing[0] == 404
+
+
+def test_http_service_serves_metrics_live_and_debug_slo():
+    import asyncio
+    import json
+
+    from dynamo_tpu_torch.http.service import HttpService
+
+    async def run():
+        svc = HttpService(host="127.0.0.1", port=0)
+        await svc.start()
+        try:
+            return [await asyncio.to_thread(_get, svc.port, p)
+                    for p in ("/metrics", "/live", "/debug/slo", "/debug/traces")]
+        finally:
+            await svc.close()
+
+    metrics, live, slo, traces = asyncio.run(run())
+    assert metrics[0] == 200 and b"# TYPE dyn_llm_http_service_requests_total counter" in metrics[2]
+    assert b"dyn_llm_brownout_level 0.0" in metrics[2]
+    assert live[0] == 200 and json.loads(live[2])["status"] == "healthy"
+    assert slo[0] == 200 and json.loads(slo[2])["brownout"]["level"] == 0
+    assert traces[0] == 404  # tracing off

@@ -10,7 +10,7 @@ against the JAX package's, on the CPU, and the twins of the seed's
   events; times left out): chunked admission with packed and mixed steps, a
   preemption, deadline sheds while queued and mid-decode, and a colocated
   remote prefill.
-- ``DYN_TRACE=auto`` is refused naming ROADMAP.md A10 part 2, and the
+- ``DYN_TRACE=auto`` sets the same flags as the JAX package's, and the
   disabled ``span()`` costs a flag check (the reference's
   ``test_disabled_overhead_guard``).
 - Twins of the core cases, of the one-trace-across-processes disagg case
@@ -149,13 +149,18 @@ def test_disabled_overhead_guard():
 
 
 def test_dyn_trace_auto_is_refused_naming_the_roadmap_item(traced):
-    with pytest.raises(ValueError, match="A10 part 2"):
-        dtrace.set_mode("auto")
-    assert dtrace.enabled()  # the refused call changed nothing
-    dtrace.set_mode("0")
-    assert not dtrace.enabled()
-    dtrace.set_mode("1")
-    assert dtrace.enabled()
+    # auto is no longer refused (the SLO plane decides retention): every
+    # mode sets the same (enabled, auto) flags as the JAX package's
+    from dynamo_tpu.telemetry import trace as jtrace
+
+    for mode in ("auto", "0", "1", "AUTO", "on", "auto"):
+        dtrace.set_mode(mode)
+        jtrace.set_mode(mode)
+        assert (dtrace.enabled(), dtrace.auto()) == (jtrace.enabled(), jtrace.auto())
+    assert dtrace.enabled() and dtrace.auto()
+    dtrace.set_enabled(True)
+    assert dtrace.enabled() and not dtrace.auto()
+    jtrace.set_mode("0")
 
 
 def test_phase_spans_without_trace_context_are_noops(traced):
