@@ -22,27 +22,31 @@ Phases, each of which must pass or the script exits non-zero:
                 it (N 2048, a strided column slice) and Llama-3.1-70B tp=8
                 ([M, 1024] @ [1024, 8192]), M = 8 and 32, at PARTIAL_TOL; the
                 times phase times both modes at those shapes beside their bound
-                and a cuBLAS yardstick.
+                and a cuBLAS yardstick (and #2 on one rank's heads of
+                Llama-3.1-8B tp=2). Meanwhile, on two gloo ranks of cuda:0 of
+                their own: ring attention, both expert-parallel forms (kernel
+                g on each rank's experts) and prefill_pp / decode_pp against
+                their one-device versions (``parallel_parity``).
   4. serve   -- TorchEngine built by build_torch_engine at the full width of
                 Llama-3.1-8B (random bf16 weights from a seed), fused decode
                 and spec decode off, 8 concurrent generate() calls, one of
                 them with frequency / presence / repetition penalties and
                 min_tokens; checks the outputs (that request: at least
                 min_tokens tokens) and that the kernels' launch counters
-                equal 32 x prefills and 32 x decode steps (the other
+                equal L x prefills and L x decode steps (the other
                 three: 0);
   5. serve_spec -- the same weights behind an engine with fused_decode and
                 spec_k=3, on repeating traffic; checks the outputs, >= 4
-                verify dispatches, the launch counters (verify 32 x verify
-                dispatches, the fused heads 32 x every decode and verify
-                step, decode 32 x plain steps, prefill 32 x prefills), a
+                verify dispatches, the launch counters (verify L x verify
+                dispatches, the fused heads L x every decode and verify
+                step, decode L x plain steps, prefill L x prefills), a
                 dense reference and that the seeded request repeats;
   6. serve_default -- the default admission path on the serve phase's
                 weights: build_torch_engine with its defaults (chunk 512,
                 mixed steps on; fused and spec off), the serve phase's 8
                 requests twice; short prompts are packed, long ones chunked
                 inside the decode batch's mixed steps; checks mixed steps
-                and packed prefills > 0, launches (decode 32 x (decode +
+                and packed prefills > 0, launches (decode L x (decode +
                 mixed steps), the other four 0), a repeat-identical run and
                 the dense reference on the shortest and the longest
                 (chunked) prompt;
@@ -123,7 +127,23 @@ Phases, each of which must pass or the script exits non-zero:
                 bitwise on each rank (the group's gather, and the leader's own
                 head slice), every stream within 0.25 of the dense reference.
                 Two ranks on one card over gloo check correctness and say
-                nothing of collective speed across cards; ``--only serve_tp``
+                nothing of collective speed across cards. The parallel legs
+                (PR 21): on the bf16 leg's engines, spec decode under the
+                group -- the verify pass's logits (``verify_logits``) within
+                TP_LOGIT_TOL of one card's, then eight greedy prompts served
+                by the group at H 4 with spec off and with spec_k 3, the
+                spec engine drafting each lane's spec-off continuation, so
+                drafts are accepted and every verify chains 3 steps over
+                OP_VERIFY (each rank's #2 once a layer per verify dispatch;
+                spec on equals spec off up to a near-tie of the dense
+                reference); then the CP leg: a
+                fabric server, this process as node 0 and ``chip_smoke.py
+                --cp-node`` as node 1 (DYN_NUM_NODES=2) meet through the
+                multi-node rendezvous into an sp = 2 grid on cuda:0 over gloo,
+                whose ring prefill of a CP_PROMPT-token prompt and the decode
+                step after it give logits within TP_LOGIT_TOL of the one-card
+                engine's #3 prefill (each rank's #3 at 0), and the prompt is
+                served; logs build/serve_http/cp_*.log. ``--only serve_tp``
                 runs the build and this phase alone.
 
  12. serve_horizon -- the decode horizon on CUDA graphs, build_torch_engine's
@@ -132,7 +152,7 @@ Phases, each of which must pass or the script exits non-zero:
                 over the serve phase's weights: serve's 8 requests twice, then
                 eight "lockstep" requests that one packed prefill admits;
                 every launch of a graphed run must equal replays x the
-                launches its graph's capture recorded, #1 = 32 x step bodies
+                launches its graph's capture recorded, #1 = L x step bodies
                 (frozen steps included), no lazy-horizon degrade; the same
                 runner eagerly at H = 4 must stream the same tokens on serve's
                 traffic, and eagerly at H = 1 the same on the lockstep
@@ -166,8 +186,15 @@ Phases, each of which must pass or the script exits non-zero:
                 the graphed step at B = 8 and 1 (wall, device, the grouped
                 kernel's and the MoE layers' share) and the kernel at the
                 step's routing and a chunk's beside its bound (the routed
-                experts' bytes), its plain version and torch._grouped_mm. Runs
-                after serve_tp, before serve_http.
+                experts' bytes), its plain version and torch._grouped_mm; then
+                the EP leg (PR 21): EP_LAYERS layers at the same width on one
+                card, then an ep = 2 grid (two gloo ranks on cuda:0, 4
+                experts each): the decode step's logits after a packed
+                prefill (the all-to-all form, then the psum form) within
+                TP_LOGIT_TOL of one card's, four of serve's requests served,
+                kernel g launched on every rank. Runs after serve_tp, before
+                serve_http; ``--only serve_moe`` runs the build and this
+                phase alone.
 
  14. serve_disagg -- disaggregated prefill/decode on this card (after
                 serve_horizon): a decode engine and a prefill engine, both from
@@ -184,7 +211,7 @@ Phases, each of which must pass or the script exits non-zero:
                 two int8 engines (serve_int8's int8 weights, int8 KV: #1q, twice).
                 Checks per leg: the outputs, remote prefills = the 7 prompts over
                 50 tokens with no local fallback and no local prefill of a shipped
-                prompt, #3 launched 32 x the prompts the prefill engine prefilled
+                prompt, #3 launched L x the prompts the prefill engine prefilled
                 single-shot, every other launch a decode graph's replay, every
                 landing's blocks against the blocks the prefill engine wrote for
                 the same prompt (LandingProbe: bitwise; int8 quantized again on
@@ -270,7 +297,10 @@ Phases, each of which must pass or the script exits non-zero:
                 ``python -m dynamo_tpu_torch.router``, all on cuda:0. Traffic:
                 4 groups a mode, each a fresh 1024-token prefix (64 blocks) and
                 4 suffixes of 64-256 tokens, 128 greedy tokens out, the leader
-                first and its 3 followers 0.3 s apart while it decodes; the
+                first and, once its first token is back, its 3 followers 0.3 s
+                apart while it decodes (the frontends' and the router's
+                health planes score without deweighting or ejecting:
+                ``KV_HEALTH_ENV``); the
                 worker that admitted each request (its id in the workers'
                 SIGUSR1 stats) and the prefix blocks its tier held. Prints the
                 share of followers on their leader's worker, follower TTFT
@@ -432,13 +462,22 @@ Phases, each of which must pass or the script exits non-zero:
                 ``python3 chip_smoke.py --only serve_ops`` runs the build and
                 this phase alone.
 
+L is the layer count of the phase's model: Llama-3.1-8B's width at
+MAIN_LAYERS (16) of its 32 layers in serve, serve_spec, serve_default,
+serve_int8, times, serve_horizon and serve_disagg (and the fleet phases
+below), every kernel at its full-width shapes; serve_offload, serve_peer,
+serve_disagg_fabric and serve_ops run all 32, serve_tp 8 (TP_MODEL),
+checkpoint 2.
+
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
 horizon, so their launch equalities count one step a dispatch and their
 times compare with earlier runs; checkpoint (7), serve_http (10),
 serve_moe (13) and the workers of serve_fabric (16), serve_kv (17),
 serve_disagg_fabric (18), serve_trace_faults (19) and serve_ops (21) run
-build_torch_engine's defaults.
+build_torch_engine's defaults. serve_http, serve_fabric, serve_kv and
+serve_trace_faults serve FLEET_MODEL (Llama-3.1-8B's width at 16 of its 32
+layers); serve_disagg_fabric and serve_ops the full 32.
 
 Before its last lines the script stops every process the run left alive
 (each one logged; SIGTERM, then SIGKILL) and waits until it is gone; a
@@ -461,6 +500,7 @@ import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1232,6 +1272,13 @@ LLAMA31_8B = {
     "torch_dtype": "bfloat16",
     "vocab_size": 128256,
 }
+# the main phases' model (serve, serve_spec, serve_default, serve_int8, times,
+# serve_horizon, serve_disagg; see the module docstring): Llama-3.1-8B's
+# width, every kernel at its shapes, at half its depth, so the script fits
+# its time limit beside the parallel legs; serve_offload and serve_peer (whose
+# tiers are sized in GiB of full-depth blocks) build the full 32 layers
+MAIN_LAYERS = 16
+MAIN_MODEL = dict(LLAMA31_8B, num_hidden_layers=MAIN_LAYERS)
 PROMPT_LENS = [16, 100, 300, 517, 800, 1200, 1600, 2000]
 MAX_TOKENS = [32, 40, 48, 56, 64, 32, 48, 64]
 SAMPLED = 3  # index of the one seeded, sampled request
@@ -1345,7 +1392,7 @@ def phase_serve(torch, np, card: str) -> dict:
     # chunking off: every prompt through the single-shot prefill (#3), the
     # path this phase has always measured
     engine = build_torch_engine(
-        LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
+        MAIN_MODEL, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
         fused_decode=False, spec_k=0, prefill_chunk_tokens=0, **EAGER,
     )
     torch.cuda.synchronize()
@@ -1404,7 +1451,7 @@ def phase_serve(torch, np, card: str) -> dict:
         "flash_prefill_attention": n_layers * stats["prefills"],
     }
     if launches != want:
-        raise SmokeError(f"kernel launches {launches} != 32 x steps {want}")
+        raise SmokeError(f"kernel launches {launches} != layers x steps {want}")
     # the shortest and the longest prompt, both greedy
     gap = max(reference_check(torch, runner, reqs[i].token_ids, first[i][0]) for i in (0, -1))
     out_tokens = sum(len(t) for t, _, _ in first)
@@ -1487,7 +1534,7 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
 
     def build(spec_k):
         return build_torch_engine(
-            LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN,
+            MAIN_MODEL, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN,
             seed=0, fused_decode=True, spec_k=spec_k, params=params,
             spec_min_coverage=SPEC_COVERAGE, prefill_chunk_tokens=0, **EAGER,
         )
@@ -1540,7 +1587,7 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
         "fused_attn_out_residual": L * (steps + verify),
     }
     if launches != want:
-        raise SmokeError(f"spec: kernel launches {launches} != 32 x dispatches {want}")
+        raise SmokeError(f"spec: kernel launches {launches} != layers x dispatches {want}")
     # every greedy lane's first 32 tokens, most of them from verify
     # dispatches, against a dense reference of the same weights
     gap = max(
@@ -1596,7 +1643,7 @@ def phase_serve_default(torch, np, card: str, params) -> dict:
     )
 
     engine = build_torch_engine(
-        LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
+        MAIN_MODEL, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
         fused_decode=False, spec_k=0, params=params, **EAGER,
     )
     runner = engine.runner
@@ -2392,7 +2439,7 @@ def phase_serve_int8(torch, np, card: str, bf16_blocks: int, bf16_peak: int) -> 
     # own peak is the peak above what they hold
     mem_before = torch.cuda.memory_allocated()
     engine = build_torch_engine(
-        LLAMA31_8B, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
+        MAIN_MODEL, device="cuda", max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0,
         quantize=True, kv_dtype="int8", fused_decode=True, spec_k=0, **EAGER,
     )
     torch.cuda.synchronize()
@@ -2403,7 +2450,7 @@ def phase_serve_int8(torch, np, card: str, bf16_blocks: int, bf16_peak: int) -> 
         raise SmokeError("serve_int8: not the int8 cache on the default admission path")
     # the JAX factory's sizing: every lane at full context (+64) fits both
     # forms on this card; what the budget would hold shows in the caps
-    cfg = LlamaConfig.from_hf_dict(LLAMA31_8B)
+    cfg = LlamaConfig.from_hf_dict(MAIN_MODEL)
     budget = device_memory_bytes(runner.device)
     caps = {kv: default_num_blocks(cfg, 131072, 512, budget_bytes=budget,
                                    quantized=kv == "int8", kv_dtype=kv)
@@ -2437,7 +2484,7 @@ def phase_serve_int8(torch, np, card: str, bf16_blocks: int, bf16_peak: int) -> 
             saved = {k: os.environ.get(k) for k in spec_env}
             os.environ.update(spec_env)
             try:
-                spec = build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+                spec = build_torch_engine(MAIN_MODEL, device="cuda", max_batch=8,
                                           max_model_len=MAX_MODEL_LEN, seed=0,
                                           params=runner.params, spec_min_coverage=SPEC_COVERAGE,
                                           **EAGER)
@@ -2710,7 +2757,8 @@ def partial_inputs(torch, M: int, K: int, N: int, ldw: int, col: int, seed: int)
 
 def phase_parity_tp(torch) -> dict:
     """5p and 5pq against their plain version on the card at the per-rank
-    shapes of PARTIAL_SHAPES, M = 8 and 32, at PARTIAL_TOL."""
+    shapes of PARTIAL_SHAPES, M = 8 and 32, at PARTIAL_TOL (main() runs
+    ``parallel_parity`` beside the parity phase)."""
     from dynamo_tpu_torch.ops import cuda_linear as KL
     from dynamo_tpu_torch.ops import linear as L
 
@@ -2727,6 +2775,144 @@ def phase_parity_tp(torch) -> dict:
                 errs[name] = max(errs[name], e)
                 log(f"parity {name} {shape} M={M} K={K} N={N} ldw={ldw}: max|d|={e:.3e} "
                     f"(tol {PARTIAL_TOL[0]:g} + {PARTIAL_TOL[1]:g}|x|)")
+    return errs
+
+
+# the parallel forms' parity (phase_parity_tp): two gloo ranks on cuda:0,
+# each form over the pair's one axis line; small shapes
+RING_CASES = {"P256_valid250": (256, 250, {}),
+              "P256_window64_softcap": (256, 200, {"window": 64, "logit_softcap": 30.0})}
+RING_TOL = 1e-4  # f32 on the card against f32 on the CPU
+A2A_SHAPE = (64, 128, 128, 8)  # T, D, F, E (kernel g takes D and F on its 64-wide grid)
+PP_TOL = 2e-3  # the reference tests' bar for the pipelined forward (f32)
+PP_CFG = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_layers=4, num_heads=4,
+              num_kv_heads=2, head_dim=32, rope_theta=10000.0, max_position_embeddings=128)
+
+
+def parallel_parity_inputs(torch, np):
+    """Host inputs of the three forms, from numpy seeds: ring q / k / v
+    (f32), the all-to-all's tokens and experts (bf16), a tiny f32 llama for
+    the pipeline, its prompt and one decode step of four lanes."""
+    from dynamo_tpu_torch.engine.torch_engine.weights import init_params
+    from dynamo_tpu_torch.models import llama
+
+    rng = np.random.default_rng(31)
+    ring = {name: tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                        for s in ((P, 8, 64), (P, 2, 64), (P, 2, 64)))
+            for name, (P, _, _) in RING_CASES.items()}
+    T, Dm, Fm, E = A2A_SHAPE
+    moe_in = tuple(torch.from_numpy((rng.standard_normal(s) / np.sqrt(s[-2] if len(s) > 2 else 1))
+                                    .astype(np.float32)).bfloat16()
+                   for s in ((T, Dm), (Dm, E), (E, Dm, Fm), (E, Dm, Fm), (E, Fm, Dm)))
+    cfg = llama.LlamaConfig(**PP_CFG)
+    params = init_params(cfg, seed=3, device="cpu", dtype=torch.float32)
+    return ring, moe_in, cfg, params
+
+
+def parallel_parity_rank(group, ring, moe_in, cfg, params):
+    """One of two gloo ranks on cuda:0: the ring over the pair (sp), both
+    expert-parallel forms over it (ep; kernel g on each rank's 4 experts),
+    and prefill_pp / decode_pp over it (pp), every input moved to the card
+    here."""
+    import types
+
+    import torch
+
+    from dynamo_tpu_torch.ops import moe
+    from dynamo_tpu_torch.parallel import pipeline
+    from dynamo_tpu_torch.parallel.ring_attention import ring_prefill_attention
+
+    dev, line = group.device, group.tp
+    out = {}
+    sp = types.SimpleNamespace(axis=lambda name: line)
+    for name, (P, valid, kw) in RING_CASES.items():
+        q, k, v = (t.to(dev) for t in ring[name])
+        out[f"ring/{name}"] = ring_prefill_attention(sp, q, k, v, valid, **kw)
+    ep = types.SimpleNamespace(ep=line, tp=group.dp)  # dp: a one-rank axis
+    x, rw, wg, wu, wd = (t.to(dev) for t in moe_in)
+    e = wg.shape[0] // 2
+    mine = [w[line.rank * e:(line.rank + 1) * e].contiguous() for w in (wg, wu, wd)]
+    before = moe.grouped_swiglu_ffn_cuda.launches
+    out["ep/a2a"] = moe.moe_ffn_ep_a2a(ep, x, rw, *mine, 2)
+    out["ep/psum"] = moe.moe_ffn_shard_map(ep, x, rw, *mine, 2)
+    out["ep/kernel_g_launches"] = moe.grouped_swiglu_ffn_cuda.launches - before
+    if dev.type == "cpu":  # the plain version runs there (a rehearsal)
+        out["ep/kernel_g_launches"] = 2
+    pp = types.SimpleNamespace(pp=line)
+    stacked = pipeline.shard_stacked_pp(pp, pipeline.stack_layer_params(
+        {k: ([{n: t.to(dev) for n, t in lyr.items()} for lyr in v] if k == "layers" else v.to(dev))
+         for k, v in params.items()}))
+    shape = (cfg.num_layers // 2, cfg.num_kv_heads, 16, 16, cfg.head_dim)
+    kc, vc = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+    prompt = torch.arange(3, 3 + 64, device=dev) % cfg.vocab_size
+    out["pp/prefill"] = pipeline.prefill_pp(stacked, cfg, pp, prompt, 60, kc, vc,
+                                            torch.arange(1, 5, device=dev))
+    toks, pos, tables, slots = pp_step(torch, dev)
+    out["pp/decode"] = pipeline.decode_pp(stacked, cfg, pp, toks, pos, kc, vc, tables, slots)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out
+
+
+def pp_step(torch, dev):
+    """Four lanes after the 60-token prompt (blocks 1-4): tokens, positions,
+    block tables and the slots of block 5."""
+    toks = torch.tensor([5, 9, 11, 3], device=dev)
+    pos = torch.full((4,), 60, device=dev)
+    tables = torch.tensor([[1, 2, 3, 4, 5]] * 4, device=dev)
+    slots = torch.tensor([5 * 16 + i for i in range(4)], device=dev)
+    return toks, pos, tables, slots
+
+
+def parallel_parity(torch, np, device: str = "cuda") -> dict:
+    """Ring attention, the two expert-parallel forms and the pipelined
+    forward on two gloo ranks of cuda:0, against one-device versions: the
+    ring against the plain causal attention on the CPU (f32, RING_TOL), the
+    all-to-all and psum forms against the one-card dropless layer (bf16,
+    kernel g on both sides, GEMV_TOL), prefill_pp / decode_pp against the
+    serial forward on the CPU (f32, PP_TOL). Returns each check's max |d|."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops import moe
+    from dynamo_tpu_torch.parallel.launch import run_ranks
+
+    ring, moe_in, cfg, params = parallel_parity_inputs(torch, np)
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, parallel_parity_rank, [(ring, moe_in, cfg, params)] * 2,
+                      backend="gloo", devices=[f"{device}:0" if device == "cuda" else device] * 2,
+                      timeout_s=300)
+    errs = {}
+    for name, (P, valid, kw) in RING_CASES.items():
+        want = A.causal_prefill_attention_plain(*ring[name], valid, **kw)
+        for r in ranks:
+            errs[f"ring/{name}"] = max(errs.get(f"ring/{name}", 0.0), compare(
+                torch, f"ring/{name}", torch.from_numpy(r[f"ring/{name}"])[:valid],
+                want[:valid], (RING_TOL, RING_TOL)))
+    x, rw, wg, wu, wd = (t.to(device) for t in moe_in)
+    want = moe.moe_ffn_dropless(x, rw, wg, wu, wd, 2).float().cpu()
+    for r in ranks:
+        if r["ep/kernel_g_launches"] != 2:
+            raise SmokeError(f"parity_tp/ep: kernel g launched {r['ep/kernel_g_launches']} "
+                             "times on a rank, want once per form")
+        for form in ("ep/a2a", "ep/psum"):
+            errs[form] = max(errs.get(form, 0.0), compare(
+                torch, f"parity_tp/{form}", torch.from_numpy(r[form]), want, GEMV_TOL))
+    shape = (cfg.num_layers, cfg.num_kv_heads, 16, 16, cfg.head_dim)
+    kc, vc = torch.zeros(shape), torch.zeros(shape)
+    prompt = torch.arange(3, 3 + 64) % cfg.vocab_size
+    want_p = llama.prefill(params, cfg, prompt, 60, kc, vc, torch.arange(1, 5))
+    toks, pos, tables, slots = pp_step(torch, "cpu")
+    want_d = llama.decode(params, cfg, toks, pos, kc, vc, tables, slots)
+    for r in ranks:
+        errs["pp/prefill"] = max(errs.get("pp/prefill", 0.0), compare(
+            torch, "parity_tp/pp/prefill", torch.from_numpy(r["pp/prefill"]), want_p,
+            (PP_TOL, PP_TOL)))
+        errs["pp/decode"] = max(errs.get("pp/decode", 0.0), compare(
+            torch, "parity_tp/pp/decode", torch.from_numpy(r["pp/decode"]), want_d,
+            (PP_TOL, PP_TOL)))
+    log(f"parity_tp/parallel: ring (sp 2), a2a + psum (ep 2, kernel g per rank) and "
+        f"prefill_pp / decode_pp (pp 2) on two gloo ranks of cuda:0 against one device: "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} } in {time.perf_counter() - t0:.1f} s")
     return errs
 
 
@@ -2771,6 +2957,10 @@ def tp_partial_times(torch, card: str) -> dict:
                                + (" (mantissas widened to bf16 beforehand)" if wb == 1 else ""),
                     "shape": f"M={M} K={K} N={N} ldw={ldw} {'int8' if wb == 1 else 'bf16'} w",
                 }
+    # #2 on one rank's heads of Llama-3.1-8B tp=2 (Hq 16, Hkv 4): what each
+    # rank of serve_tp's spec leg verifies with
+    rows["paged_verify_attention/llama31_8b_tp2"] = verify_row(torch, flush, hq=HQ // TP,
+                                                               hkv=HKV // TP)
     for name, row in rows.items():
         print(json.dumps({"kernel_time": name, "card": card, **row}), flush=True)
         log(f"{name} {row['shape']}: {row['ms']['median']:.4f} ms, bound {row['bound_ms']:.5f} ms "
@@ -2846,10 +3036,13 @@ def tp_step_times(torch, np, runner, reps: int = 5) -> dict:
     return out
 
 
-def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason) -> dict:
+def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason,
+                 after=None) -> dict:
     """One leg of serve_tp: the one-card engine (reference logits and
     tokens), then the tp=2 engine on the same seeded weights, two ranks on
-    cuda:0 over gloo; checks and reads each rank's counters."""
+    cuda:0 over gloo; checks and reads each rank's counters. ``after(one,
+    engine)``, when given, runs next with both engines still open (its
+    result under the key "after"); then both close."""
     from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
     from dynamo_tpu_torch.ops import kernels
 
@@ -2864,16 +3057,12 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
     want = first_step_logits(torch, np, one.runner, probe)
     one_steps = tp_step_times(torch, np, one.runner)
 
-    async def serve(engine):
-        try:
-            return await run_requests(engine, reqs, Context)
-        finally:
-            await engine.close()
-
-    one_out = asyncio.run(serve(one))
-    del one
-    gc.collect()
-    torch.cuda.empty_cache()
+    one_out = asyncio.run(run_requests(one, reqs, Context))
+    if after is None:
+        asyncio.run(one.close())
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     engine = build_torch_engine(TP_MODEL, device="cuda", tensor_parallel_size=TP,
@@ -2897,6 +3086,9 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
     wall = time.perf_counter() - t1
     stats = stats_dict(engine.stats)
     ranks = runner.rank_stats()
+    done = after(one, engine) if after is not None else None
+    if after is not None:
+        asyncio.run(one.close())
     asyncio.run(engine.close())
     if [p.exitcode for p in runner._processes] != [0] * (TP - 1):
         raise SmokeError(f"serve_tp/{tag}: followers ended {[p.exitcode for p in runner._processes]}")
@@ -2947,6 +3139,7 @@ def serve_tp_leg(torch, np, card: str, quant: bool, reqs, Context, FinishReason)
         f"{one_steps['step_ms']:.1f} ms), collectives {steps['collective_ms']:.1f} ms of it; "
         f"peak memory per rank {[round(m / 1e9, 2) for m in res['rank_peak_mem_bytes']]} GB ({card})")
     print(json.dumps({"serve_tp": res, "card": card}), flush=True)
+    res["after"] = done
     return res
 
 
@@ -3148,6 +3341,394 @@ def serve_tp_disagg(torch, np, card: str, every, Context, FinishReason) -> dict:
     return res
 
 
+TP_SPEC_LANES = 8  # serve_tp's spec leg: greedy prompts of 200-1200 tokens
+CP = 2  # the CP leg's sp ranks: two node processes on cuda:0 over gloo
+CP_PROMPT = 4000  # its prompt: bucket 4096, past cp_min_tokens (512), so the ring runs
+CP_OUT = 8
+CP_LEASE_TTL_S = 10.0  # each node's bring-up lease; keepalives every third of it
+CP_KW = dict(max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0, num_blocks=TP_BLOCKS,
+             prefill_chunk_tokens=0, **EAGER)  # every node builds its rank with these
+
+
+def greedy_request(prompt, n: int):
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
+
+    return PreprocessedRequest(token_ids=list(prompt), sampling=SamplingOptions(greedy=True),
+                               stop=StopConditions(max_tokens=n, ignore_eos=True))
+
+
+def rel_logit_err(torch, got, want) -> float:
+    """The largest |got - want| of a row over that row's largest |want|
+    (serve_tp's measure against one card), or inf when got is not finite."""
+    if not torch.isfinite(got).all():
+        return float("inf")
+    return float(((got - want).abs() / want.abs().amax(dim=-1, keepdim=True)).max())
+
+
+def verify_logits_after(torch, np, runner, prompts, fed):
+    """Each prompt prefilled into its own blocks (from block 1 on), then
+    one verify pass of the [B, S] ``fed`` tokens right after the prompts:
+    its logits [B, S, V] on the host."""
+    bs, S = runner.block_size, fed.shape[1]
+    B = len(prompts)
+    tables = np.zeros((B, runner.max_blocks_per_seq), np.int32)
+    nxt = 1
+    for i, p in enumerate(prompts):
+        n = -(-(len(p) + S) // bs)
+        blocks = list(range(nxt, nxt + n))
+        nxt += n
+        tables[i, :n] = blocks
+        runner.fetch_sample(runner.prefill(list(p), blocks, 0.0, 1.0, 0))
+    positions = np.array([len(p) for p in prompts])[:, None] + np.arange(S)[None, :]
+    slots = tables[np.arange(B)[:, None], positions // bs].astype(np.int64) * bs + positions % bs
+    with torch.inference_mode():
+        return runner.verify_logits(fed, positions, tables, slots).float().cpu()
+
+
+def rank_launch_check(tag: str, ranks: list, want: dict) -> None:
+    """Every rank launched exactly ``want`` (kernel -> count) and nothing
+    else."""
+    for r, st in enumerate(ranks):
+        moved = {k: v for k, v in st["launches"].items() if v}
+        if moved != {k: v for k, v in want.items() if v}:
+            raise SmokeError(f"{tag} rank {r}: launches {moved} != {want}")
+
+
+class ContinuationDrafter:
+    """Drafts each lane's known continuation: the tokens the same group
+    served for the same prompt with spec off, from the lane's own position
+    on (a prompt-lookup drafter whose table is that continuation). While a
+    lane agrees with it the verify pass accepts the drafts; past a near-tie
+    that flipped, its drafts are rejected, and every dispatch still
+    verifies."""
+
+    def __init__(self, k: int, conts: list) -> None:
+        self.max_k = k
+        self.conts = conts  # [(prompt, continuation)]
+
+    def draft(self, token_ids: list, k: Optional[int] = None) -> list:
+        k = self.max_k if k is None else min(k, self.max_k)
+        for prompt, cont in self.conts:
+            if len(token_ids) >= len(prompt) and token_ids[:len(prompt)] == prompt:
+                n = len(token_ids) - len(prompt)
+                return list(cont[n:n + k])
+        return []
+
+
+def serve_tp_spec(torch, np, card: str, one, engine, Context, FinishReason) -> dict:
+    """Spec decode under tensor parallelism, on the bf16 leg's engines (its
+    ``after``): the verify pass's logits of the tp = 2 group (two gloo
+    ranks on cuda:0, fused heads on) against the one-card runner's on the
+    same prompts and fed tokens, within TP_LOGIT_TOL of each row's max;
+    then TP_SPEC_LANES greedy prompts served by the group with spec off and
+    with spec_k 3, both at the decode horizon HORIZON (every verify chains
+    HORIZON - 1 decode steps over OP_VERIFY). The spec engine drafts each
+    lane's spec-off continuation (``ContinuationDrafter``), so accepted
+    drafts, chained steps and the accepted tokens' K/V all run; every
+    rank's counters are set to 0 just before it serves and read just after
+    (#2 once a layer per verify dispatch, #1 once a layer per step body,
+    #4 and 5p once a layer per body or verify dispatch). Each lane's spec-on
+    tokens equal its spec-off ones up to their first difference, which must
+    be a near-tie of the dense reference (one card's weights), and the
+    first 32 of each stream pass ``reference_check``. Closing the engines
+    stops the followers."""
+    from dynamo_tpu_torch.engine.torch_engine.engine import TorchEngine
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    vocab = LLAMA31_8B["vocab_size"]
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(200, 1200, TP_SPEC_LANES)]
+    fed = rng.integers(0, vocab, (len(prompts), SPEC_K + 1))
+    runner = engine.runner
+    want = verify_logits_after(torch, np, one.runner, prompts, fed)
+    got = verify_logits_after(torch, np, runner, prompts, fed)
+    worst = rel_logit_err(torch, got, want)
+    if worst > TP_LOGIT_TOL:
+        raise SmokeError(f"serve_tp/spec: verify logits {worst:.4f} of the row's max apart from "
+                         f"one card's (tol {TP_LOGIT_TOL})")
+    argmax_same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+    reqs = [greedy_request(p, SPEC_MAX_TOKENS) for p in prompts]
+    cfg = dataclasses.replace(engine.config, decode_horizon=HORIZON)
+
+    async def serve():  # both engines in one event loop; closing either stops the followers
+        plain = TorchEngine(runner, cfg)
+        spec = TorchEngine(runner, dataclasses.replace(cfg, spec_k=SPEC_K,
+                                                       spec_min_coverage=SPEC_COVERAGE))
+        try:
+            off = await run_requests(plain, reqs, Context)
+            spec.drafter = ContinuationDrafter(SPEC_K, [(p, t) for p, (t, _, _) in zip(prompts, off)])
+            runner.rank_stats(reset=True)
+            t1 = time.perf_counter()
+            out = await run_requests(spec, reqs, Context)
+            wall = time.perf_counter() - t1
+            return off, out, wall, stats_dict(spec.stats), runner.rank_stats()
+        finally:
+            await spec.close()
+            await plain.close()
+
+    off, out, wall, stats, ranks = asyncio.run(serve())
+    for i, (toks, reason, _) in enumerate(out + off):
+        if reason is not FinishReason.LENGTH or len(toks) != SPEC_MAX_TOKENS:
+            raise SmokeError(f"serve_tp/spec stream {i}: {len(toks)} tokens, reason {reason}")
+    L = TP_MODEL["num_hidden_layers"]
+    verify, chained = stats["verify_steps"], stats["verify_chained_steps"]
+    accepted = stats["num_accepted_tokens"]
+    if verify < 4 or accepted < 1 or chained != (HORIZON - 1) * verify:
+        raise SmokeError(f"serve_tp/spec: {verify} verify dispatches (want >= 4), {accepted} "
+                         f"accepted drafts (want > 0), {chained} chained steps (want "
+                         f"{HORIZON - 1} a dispatch): {stats}")
+    bodies = stats["decode_steps"] + stats["mixed_steps"] + stats["horizon_steps"] + chained
+    rank_launch_check("serve_tp/spec", ranks, {
+        "paged_verify_attention": L * verify, "paged_decode_attention": L * bodies,
+        "fused_qkv_rope": L * (verify + bodies), "fused_attn_out_partial": L * (verify + bodies),
+        "flash_prefill_attention": L * stats["prefills"]})
+    # spec on against spec off, both on the group: equal up to the first
+    # difference, a near-tie of the dense reference there
+    prefix, gaps = [], []
+    for p, (a, _, _), (b, _, _) in zip(prompts, out, off):
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        prefix.append(j)
+        gaps.append(reference_check(torch, one.runner, p, a, n_check=32))
+        if j < len(a):
+            row = dense_logits(torch, one.runner, p + a[:j])[len(p) + j - 1].float()
+            tie = float(row.max()) - min(float(row[a[j]]), float(row[b[j]]))
+            gaps.append(tie)
+            if tie > 0.25:
+                raise SmokeError(f"serve_tp/spec: spec on and off part at token {j} by {tie:.3f} "
+                                 f"below the dense reference's best logit: not a near-tie")
+    res = {
+        "requests": len(reqs), "prompt_lens": [len(p) for p in prompts], "stats": stats,
+        "verify_logits_max_rel_err": worst, "verify_argmax_same": argmax_same, "wall_s": wall,
+        "acceptance": accepted / max(1, stats["num_draft_tokens"]),
+        "common_prefix_spec_on_off": prefix, "reference_max_logit_gap": max(gaps),
+        "rank_launches": [st["launches"] for st in ranks],
+        "rank_staged_bytes": [st["staged_bytes"] for st in ranks],
+        "rank_collective_s": [st["collective_s"] for st in ranks],
+        "leg_s": time.perf_counter() - t0,
+    }
+    log(f"serve_tp/spec: tp=2 verify logits within {worst:.4f} of one card's row max (argmax "
+        f"same {argmax_same:.3f}); {len(reqs)} greedy requests at H {HORIZON} in {wall:.2f} s: "
+        f"{verify} verify dispatches ({chained} chained steps), {stats['horizon_dispatches']} "
+        f"horizon dispatches, {stats['decode_steps']} decode steps; drafts "
+        f"{stats['num_draft_tokens']} tokens, accepted {accepted} per position "
+        f"{stats['accepted_per_pos']} (acceptance {res['acceptance']:.3f}); spec on = off for "
+        f"the first {prefix} tokens, reference gap {max(gaps):.3f}; per rank #2 "
+        f"{ranks[0]['launches']['paged_verify_attention']}, 5p "
+        f"{ranks[0]['launches']['fused_attn_out_partial']}, #1 "
+        f"{ranks[0]['launches']['paged_decode_attention']}; collectives "
+        f"{[round(st['collective_s'], 2) for st in ranks]} s, staged "
+        f"{[st['staged_bytes'] for st in ranks]} B ({card})")
+    print(json.dumps({"serve_tp_spec": res, "card": card}), flush=True)
+    return res
+
+
+def cp_reference(torch, np, one, Context) -> dict:
+    """One card's side of the CP leg, on the bf16 leg's one-card engine:
+    #3's prefill logits of the CP prompt (its launches counted), the decode
+    step's after it, and the prompt served greedily."""
+    from dynamo_tpu_torch.engine.torch_engine.engine import TorchEngine
+    from dynamo_tpu_torch.ops import kernels
+
+    prompt = np.random.default_rng(21).integers(0, LLAMA31_8B["vocab_size"], CP_PROMPT).tolist()
+    blocks = list(range(1, 2 + CP_PROMPT // BLOCK))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want_p = one.runner.prefill_logits(prompt, blocks).float().cpu()
+    ref = {"prompt": prompt, "prefill_s": time.perf_counter() - t, "prefill": want_p,
+           "launches": kernels.launch_counts()}
+    with torch.inference_mode():
+        ref["decode"] = one.runner.decode_logits(*cp_step(np, len(blocks))).float().cpu()
+
+    async def serve():  # an engine serves in one event loop: a fresh one over one's runner
+        eng = TorchEngine(one.runner, one.config)
+        try:
+            return await run_requests(eng, [greedy_request(prompt, CP_OUT)], Context)
+        finally:
+            await eng.close()
+
+    (ref["tokens"], _, _), = asyncio.run(serve())
+    return ref
+
+
+def cp_step(np, runner_blocks: int):
+    """The decode step right after the CP prompt: token 7 at position
+    CP_PROMPT in the prompt's blocks (1..)."""
+    table = np.zeros((1, MAX_BLOCKS), np.int32)
+    table[0, :runner_blocks] = np.arange(1, runner_blocks + 1)
+    pos = np.array([CP_PROMPT], np.int64)
+    slots = table[0, CP_PROMPT // BLOCK].astype(np.int64)[None] * BLOCK + pos % BLOCK
+    return np.array([7], np.int64), pos, table, slots
+
+
+async def cp_grid_leader(torch, np, fport: int, prompt, Context):
+    """Node 0 of the CP leg: its fabric lease (kept alive while its engine
+    lives: the other node follows it), the grid brought up by
+    build_torch_engine(multinode=...) off the event loop, then the prefill
+    and decode logits, and one request served; the engine closed last (its
+    follower stops)."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.fabric.client import FabricClient
+    from dynamo_tpu_torch.parallel.multinode import MultiNodeConfig
+
+    fabric = await FabricClient.connect(f"127.0.0.1:{fport}")
+    lease = await fabric.lease_grant(CP_LEASE_TTL_S)
+
+    async def keepalive():
+        while True:
+            await asyncio.sleep(CP_LEASE_TTL_S / 3)
+            await fabric.lease_keepalive(lease)
+
+    ka = asyncio.get_running_loop().create_task(keepalive())
+    loop = asyncio.get_running_loop()
+    t0 = time.perf_counter()
+    engine = await loop.run_in_executor(None, lambda: build_torch_engine(
+        TP_MODEL, device="cuda", context_parallel_size=CP, tp_backend="gloo",
+        multinode=MultiNodeConfig(num_nodes=CP, node_rank=0), fabric=fabric, lease_id=lease,
+        **CP_KW))
+    out = {"bringup_s": time.perf_counter() - t0}
+    try:
+        runner = engine.runner
+        blocks = list(range(1, 2 + CP_PROMPT // BLOCK))
+
+        def logits():
+            runner.rank_stats(reset=True)
+            t = time.perf_counter()
+            p = runner.prefill_logits(prompt, blocks).float().cpu()
+            out["prefill_s"] = time.perf_counter() - t
+            with torch.inference_mode():
+                d = runner.decode_logits(*cp_step(np, len(blocks))).float().cpu()
+            return p, d, runner.rank_stats()
+
+        out["prefill"], out["decode"], out["logit_ranks"] = await loop.run_in_executor(None, logits)
+        await loop.run_in_executor(None, lambda: runner.rank_stats(reset=True))
+        t = time.perf_counter()
+        out["served"] = await run_requests(engine, [greedy_request(prompt, CP_OUT)], Context)
+        out["serve_s"] = time.perf_counter() - t
+        out["stats"] = stats_dict(engine.stats)
+        out["serve_ranks"] = await loop.run_in_executor(None, lambda: runner.rank_stats())
+        out["sp"] = runner.group.sp.world_size
+    finally:
+        await engine.close()
+        ka.cancel()
+        await fabric.close()
+    return out
+
+
+def serve_tp_cp(torch, np, card: str, ref: dict, Context, FinishReason) -> dict:
+    """Context-parallel prefill over sp = 2, against ``ref`` (one card's #3
+    prefill logits of a CP_PROMPT-token prompt, the decode step's after it
+    and its greedy tokens, ``cp_reference``): a grid of two node processes
+    on cuda:0 over gloo brought up through the multi-node rendezvous (a
+    fabric server, this process node 0, ``--cp-node`` node 1,
+    DYN_NUM_NODES=2): its ring prefill's logits and the decode step's after
+    it (on the cache the ring wrote) within TP_LOGIT_TOL of one card's,
+    every rank's #3 at 0 and #1 once a layer per decode step, and the prompt
+    served."""
+    t0 = time.perf_counter()
+    prompt, want_p, want_d = ref["prompt"], ref["prefill"], ref["decode"]
+    one_prefill_s, one_launches, one_toks = ref["prefill_s"], ref["launches"], ref["tokens"]
+    L = TP_MODEL["num_hidden_layers"]
+    if one_launches["flash_prefill_attention"] != L:
+        raise SmokeError(f"serve_tp/cp: one card's prefill launched {one_launches}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    fport = free_port()
+    env = dict(os.environ)
+    logs = {n: open(os.path.join(SERVE_DIR, f"cp_{n}.log"), "w") for n in ("fabric", "node1")}
+    server = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch.fabric.server", "--host",
+                               "127.0.0.1", "--port", str(fport)], cwd=here, env=env,
+                              stdout=logs["fabric"], stderr=subprocess.STDOUT)
+    node1 = None
+    try:
+        wait_port(fport, 30, server)
+        node1 = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cp-node"], cwd=here,
+            env={**env, "DYN_FABRIC_ADDR": f"127.0.0.1:{fport}", "DYN_NUM_NODES": str(CP),
+                 "DYN_NODE_RANK": "1"}, stdout=logs["node1"], stderr=subprocess.STDOUT)
+        got = asyncio.run(cp_grid_leader(torch, np, fport, prompt, Context))
+        node1.wait(120)
+    finally:
+        for proc in (node1, server):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+    if node1.returncode != 0:
+        raise SmokeError(f"serve_tp/cp: node 1 ended {node1.returncode} (log "
+                         f"{os.path.join(SERVE_DIR, 'cp_node1.log')})")
+    errs = {"prefill": rel_logit_err(torch, got["prefill"], want_p[None]),
+            "decode": rel_logit_err(torch, got["decode"], want_d)}
+    if got["sp"] != CP or max(errs.values()) > TP_LOGIT_TOL:
+        raise SmokeError(f"serve_tp/cp: sp {got['sp']}, logits {errs} of the row's max apart from "
+                         f"one card's (tol {TP_LOGIT_TOL})")
+    rank_launch_check("serve_tp/cp logits", got["logit_ranks"], {"paged_decode_attention": L})
+    (toks, reason, ttft), = got["served"]
+    st = got["stats"]
+    if reason is not FinishReason.LENGTH or len(toks) != CP_OUT or st["prefills"] != 1:
+        raise SmokeError(f"serve_tp/cp: {len(toks)} tokens, {reason}, stats {st}")
+    rank_launch_check("serve_tp/cp serve", got["serve_ranks"],
+                      {"paged_decode_attention": L * (st["decode_steps"] + st["mixed_steps"])})
+    same = next((j for j, (a, b) in enumerate(zip(toks, one_toks)) if a != b), len(toks))
+    res = {
+        "prompt": CP_PROMPT, "sp": CP, "logit_max_rel_err": errs, "bringup_s": got["bringup_s"],
+        "prefill_s_cp": got["prefill_s"], "prefill_s_one_card": one_prefill_s,
+        "ttft_s_served": ttft, "serve_s": got["serve_s"], "stats": st,
+        "tokens_agree_with_one_card_for": same,
+        "logit_rank_stats": got["logit_ranks"], "serve_rank_stats": got["serve_ranks"],
+        "leg_s": time.perf_counter() - t0,
+    }
+    log(f"serve_tp/cp: two nodes met through the fabric barrier in {got['bringup_s']:.1f} s; ring "
+        f"prefill of {CP_PROMPT} tokens over sp={CP} {got['prefill_s']:.2f} s (one card's #3 "
+        f"{one_prefill_s:.2f} s); logits within {errs['prefill']:.4f} (prefill) / "
+        f"{errs['decode']:.4f} (the decode step on the ring's cache) of one card's row max; per "
+        f"rank #3 0, #1 {L}; collectives "
+        f"{[round(r['collective_s'], 2) for r in got['logit_ranks']]} s, staged "
+        f"{[r['staged_bytes'] for r in got['logit_ranks']]} B; served {CP_OUT} tokens (TTFT "
+        f"{ttft:.2f} s), equal to one card's for the first {same} ({card})")
+    print(json.dumps({"serve_tp_cp": {k: v for k, v in res.items()}, "card": card}), flush=True)
+    return res
+
+
+def cp_node_main() -> int:
+    """Node 1 of serve_tp's CP leg (``--cp-node``, started by serve_tp_cp
+    with DYN_FABRIC_ADDR, DYN_NUM_NODES and DYN_NODE_RANK): its lease, its
+    rank built through the rendezvous, then the leader's steps replayed
+    until its engine closes."""
+    import torch  # noqa: F401 -- the card's context before the group forms
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.fabric.client import FabricClient
+    from dynamo_tpu_torch.parallel.multinode import MultiNodeConfig
+
+    async def run():
+        fabric = await FabricClient.connect(os.environ["DYN_FABRIC_ADDR"])
+        lease = await fabric.lease_grant(CP_LEASE_TTL_S)
+
+        async def keepalive():
+            while True:
+                await asyncio.sleep(CP_LEASE_TTL_S / 3)
+                await fabric.lease_keepalive(lease)
+
+        ka = asyncio.get_running_loop().create_task(keepalive())
+        handle = await asyncio.get_running_loop().run_in_executor(None, lambda: build_torch_engine(
+            TP_MODEL, device="cuda", context_parallel_size=CP, tp_backend="gloo",
+            multinode=MultiNodeConfig.from_env(), fabric=fabric, lease_id=lease, **CP_KW))
+        stats = await handle.serve_async()
+        print(json.dumps({"cp_node": {"ranks": len(stats), "launches": stats[1]["launches"]}}),
+              flush=True)
+        ka.cancel()
+        await fabric.close()
+
+    asyncio.run(run())
+    return 0
+
+
 def phase_serve_tp(torch, np, card: str) -> dict:
     """Tensor-parallel serving on one card: build_torch_engine(
     tensor_parallel_size=2, tp_backend="gloo", tp_devices=["cuda:0",
@@ -3164,8 +3745,20 @@ def phase_serve_tp(torch, np, card: str) -> dict:
 
     every = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
     reqs = [every[i] for i in TP_REQUESTS]
-    legs = {tag: serve_tp_leg(torch, np, card, quant, reqs, Context, FinishReason)
-            for tag, quant in (("bf16", False), ("int8", True))}
+    def spec_and_cp_reference(one, engine):
+        return {"spec": serve_tp_spec(torch, np, card, one, engine, Context, FinishReason),
+                "cp_reference": cp_reference(torch, np, one, Context)}
+
+    legs = {"bf16": serve_tp_leg(torch, np, card, False, reqs, Context, FinishReason,
+                                 after=spec_and_cp_reference)}
+    done = legs["bf16"].pop("after")
+    legs["spec"] = done["spec"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs["int8"] = serve_tp_leg(torch, np, card, True, reqs, Context, FinishReason)
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs["cp"] = serve_tp_cp(torch, np, card, done["cp_reference"], Context, FinishReason)
     gc.collect()
     torch.cuda.empty_cache()
     disagg = serve_tp_disagg(torch, np, card, every, Context, FinishReason)
@@ -3282,16 +3875,24 @@ def llama3_style_tokenizer_json(n_regular: int = 128000, seed: int = 0) -> str:
     })
 
 
-def write_serve_dir() -> str:
-    """The published Llama-3.1-8B config.json, the script's tokenizer.json
-    and a Llama-3-style tokenizer_config.json; no weights, so the CLI serves
-    seeded random bf16 weights."""
+# the fleet phases' model (serve_http, serve_fabric, serve_kv,
+# serve_trace_faults): the main phases' cut depth, so their processes start,
+# prefill and ship K/V in half the time; serve_disagg_fabric (whose 256-block
+# payload must pass the fabric's 512 MiB frame) and serve_ops (whose hedging
+# leg is sized to the full depth's TTFT) keep 32
+FLEET_MODEL = MAIN_MODEL
+
+
+def write_serve_dir(config: Optional[dict] = None) -> str:
+    """``config`` (default: the published Llama-3.1-8B config.json), the
+    script's tokenizer.json and a Llama-3-style tokenizer_config.json; no
+    weights, so the CLI serves seeded random bf16 weights."""
     os.makedirs(SERVE_DIR, exist_ok=True)
     for name in os.listdir(SERVE_DIR):
         if name.endswith(".safetensors"):
             raise SmokeError(f"{SERVE_DIR} holds weights ({name}); this phase serves random ones")
     with open(os.path.join(SERVE_DIR, "config.json"), "w") as f:
-        json.dump(LLAMA31_8B, f)
+        json.dump(config or LLAMA31_8B, f)
     with open(os.path.join(SERVE_DIR, "tokenizer.json"), "w") as f:
         f.write(llama3_style_tokenizer_json())
     with open(os.path.join(SERVE_DIR, "tokenizer_config.json"), "w") as f:
@@ -3319,12 +3920,54 @@ def prompt_words(tokenizer, n_tokens: int, seed: int) -> str:
     return " ".join(words)
 
 
+_PORTS_GIVEN: set = set()
+
+
 def free_port() -> int:
+    """A port nothing listens on, for a server started later. It comes from
+    below the kernel's ephemeral range, so the outgoing connections made
+    meanwhile cannot take it (one did: a frontend started a minute after its
+    port was picked found it in use); no port is handed out twice."""
+    import random
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random(os.urandom(8))
+    for _ in range(1000):
+        # an ephemeral range reaching down to 10000 leaves no room: bind 0
+        port = rng.randrange(10000, low) if low > 11000 else 0
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            port = s.getsockname()[1]
+        if port not in _PORTS_GIVEN:
+            _PORTS_GIVEN.add(port)
+            return port
+    raise SmokeError(f"no free port below {low}")
+
+
+def wait_port(port: int, timeout_s: float, proc=None) -> None:
+    """Until a server accepts connections on ``port`` (raises when ``proc``
+    ends first or ``timeout_s`` passes)."""
+    import socket
+
+    t0 = time.perf_counter()
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            if (proc is not None and proc.poll() is not None) or time.perf_counter() - t0 > timeout_s:
+                raise SmokeError(f"nothing listens on port {port}") from None
+            time.sleep(0.1)
 
 
 def http_call(port: int, method: str, path: str, body=None, timeout: float = HTTP_TIMEOUT_S):
@@ -3517,7 +4160,7 @@ def phase_serve_http(torch, np, card: str) -> dict:
     from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
 
     t0 = time.perf_counter()
-    model_dir = write_serve_dir()
+    model_dir = write_serve_dir(FLEET_MODEL)
     t_write = time.perf_counter() - t0
     t0 = time.perf_counter()
     mdc = ModelDeploymentCard.from_model_dir(model_dir, "llama31-8b", context_length=MAX_MODEL_LEN)
@@ -3892,7 +4535,7 @@ def phase_serve_fabric(torch, np, card: str, http_lone_text: Optional[str] = Non
     from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
 
     t_phase = time.perf_counter()
-    model_dir = write_serve_dir()
+    model_dir = write_serve_dir(FLEET_MODEL)
     mdc = ModelDeploymentCard.from_model_dir(model_dir, "llama31-8b", context_length=MAX_MODEL_LEN)
     pre = OpenAIPreprocessor(mdc)
     tok = pre.tokenizer
@@ -4196,21 +4839,43 @@ KV_GAP_S = 0.3  # leader -> follower 1 -> 2 -> 3
 KV_CHECK = 8  # tokens of every stream held to the dense reference
 KV_HOST_GB = "4"  # DYN_KV_HOST_OFFLOAD_GB per worker
 KV_FOLLOWERS_ON_LEADER = 11  # of the KV_GROUPS * KV_FOLLOWERS kv followers, at least
+# the frontends' and the router's health planes keep scoring but neither
+# deweight nor eject: right after the warm-up a worker's graph captures read
+# as 31x the fleet's median inter-token latency (on an H100), decaying over
+# tens of seconds, so that transient, not the prefix, would decide where a
+# request lands (and round robin kept to one worker); serve_ops drives
+# deweighting and ejection
+KV_HEALTH_ENV = {"DYN_DEWEIGHT_RATIO": "1e9", "DYN_EJECT_INTERVALS": "1000000"}
 
 
-def kv_stream(port: int, ids: list, rid: str) -> dict:
+def kv_stream(port: int, ids: list, rid: str, marks: Optional[dict] = None) -> dict:
     """One streamed /v1/completions of token ids (greedy, ``KV_OUT`` tokens,
     their strings through ``logprobs``) under the request id ``rid``: the
-    token strings, the time to the first one and the usage."""
+    token strings, the time to the first one and the usage; ``marks["n"]``
+    counts the tokens read so far."""
     body = {"model": "llama31-8b", "prompt": ids, "max_tokens": KV_OUT, "temperature": 0,
             "stream": True, "logprobs": 0, "nvext": {"ignore_eos": True},
             "stream_options": {"include_usage": True}}
     t0 = time.perf_counter()
-    got = stream_tokens(port, body, {}, "/v1/completions", {"x-request-id": rid})
+    got = stream_tokens(port, body, {} if marks is None else marks, "/v1/completions",
+                        {"x-request-id": rid})
     tokens, usage = got["tokens"], got["usage"]
     if len(tokens) != KV_OUT or got["finish"] != ["length"] or usage["completion_tokens"] != KV_OUT:
         raise SmokeError(f"{rid}: {len(tokens)} tokens, finish {got['finish']}, usage {usage}")
     return {"tokens": tokens, "ttft_ms": (got["times"][0] - t0) * 1e3, "usage": usage}
+
+
+def health_view(port: int) -> dict:
+    """A frontend's health plane from its /metrics: each worker's slowness
+    score (instance id in hex) and how many are ejected."""
+    import re
+
+    text = http_call(port, "GET", "/metrics", timeout=5)[1]
+    text = text.decode() if isinstance(text, bytes) else text
+    scores = {m.group(1): round(float(m.group(2)), 2) for m in re.finditer(
+        r'^dyn_llm_worker_health_score\{instance="([0-9a-f]+)"\} (\S+)$', text, re.M)}
+    ejected = re.search(r"^dyn_llm_workers_ejected (\S+)$", text, re.M)
+    return {"scores": scores, "ejected": float(ejected.group(1)) if ejected else None}
 
 
 def router_calls(fport: int, bodies: list) -> list:
@@ -4362,7 +5027,7 @@ def phase_serve_kv(torch, np, card: str) -> dict:
     from dynamo_tpu_torch.tokenizer import TokenizerWrapper
 
     t_phase = time.perf_counter()
-    model_dir = write_serve_dir()
+    model_dir = write_serve_dir(FLEET_MODEL)
     root = os.path.dirname(os.path.abspath(__file__))
     fport, kport, rport = free_port(), free_port(), free_port()
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
@@ -4400,7 +5065,8 @@ def phase_serve_kv(torch, np, card: str) -> dict:
             f = open(path, "w")
             files.append(f)
             logs[name] = LogTail(path)
-            penv = dict(env, DYN_KV_HOST_OFFLOAD_GB=KV_HOST_GB) if name in workers else env
+            penv = dict(env, DYN_KV_HOST_OFFLOAD_GB=KV_HOST_GB) if name in workers else dict(
+                env, **KV_HEALTH_ENV)
             procs[name] = subprocess.Popen(cmd, cwd=root, env=penv, stdout=f, stderr=subprocess.STDOUT)
             if name == "fabric":
                 time.sleep(1.0)
@@ -4446,15 +5112,25 @@ def phase_serve_kv(torch, np, card: str) -> dict:
         warmed = {w: base[w]["generated_tokens"] for w in workers}
         if not all(warmed.values()):
             raise SmokeError(f"the warm-up missed a worker: {warmed}")
-        probes = {}
+        out["health_after_warmup"] = {m: health_view(p) for m, p in (("kv", kport), ("rr", rport))}
+        log(f"serve_kv: the frontends' health planes after the warm-up: {out['health_after_warmup']}")
+        probes, health = {}, {}
         for mode, g, prompts, rids in cases:
             port = kport if mode == "kv" else rport
             with ThreadPoolExecutor(len(prompts)) as pool:
                 t_g = time.perf_counter()
-                futs = []
-                for k, (ids, rid) in enumerate(zip(prompts, rids)):
-                    time.sleep(max(0.0, t_g + k * KV_GAP_S - time.perf_counter()))
-                    futs.append(pool.submit(kv_stream, port, ids, rid))
+                lead_marks: dict = {}
+                futs = [pool.submit(kv_stream, port, prompts[0], rids[0], lead_marks)]
+                # the followers share a cached prefix: they go once the
+                # leader's first token is back (its prefill done, its Stored
+                # events published), KV_GAP_S apart while it decodes
+                while not lead_marks.get("n") and not futs[0].done():
+                    time.sleep(0.002)
+                t_f = time.perf_counter()
+                for k in range(1, len(prompts)):
+                    time.sleep(max(0.0, t_f + k * KV_GAP_S - time.perf_counter()))
+                    health[rids[k]] = health_view(port)
+                    futs.append(pool.submit(kv_stream, port, prompts[k], rids[k]))
                 if mode == "kv" and g == 0:
                     # the standalone router, asked while the group runs: a new
                     # suffix on the group's prefix, then its free; its index
@@ -4490,6 +5166,8 @@ def phase_serve_kv(torch, np, card: str) -> dict:
                 w, cached = served[rid][0]
                 rows[rid] = {"worker": w, "cached_blocks": cached, "ttft_ms": streams[rid]["ttft_ms"],
                              "same_as_leader": w == lead[0][0]}
+                if rid in health:  # the frontend's health plane as the follower was sent
+                    rows[rid]["health"] = health[rid]
         summary = {}
         for mode in ("kv", "rr"):
             fol = [r for rid, r in rows.items() if rid.startswith(mode) and "leader" not in rid]
@@ -4522,7 +5200,9 @@ def phase_serve_kv(torch, np, card: str) -> dict:
         for mode, g, prompts, rids in cases:
             log(f"serve_kv: {mode}-g{g}: " + ", ".join(
                 f"{rid.split('-')[-1]} {rows[rid]['worker']} (cached {rows[rid]['cached_blocks']}, "
-                f"TTFT {rows[rid]['ttft_ms']:.1f} ms)" for rid in rids))
+                f"TTFT {rows[rid]['ttft_ms']:.1f} ms"
+                + (f", health scores {rows[rid]['health']['scores']}" if "health" in rows[rid] else "")
+                + ")" for rid in rids))
         log("serve_kv: per worker " + "; ".join(
             f"{w}: onboarded {delta[w]['kv_onboarded_blocks']} blocks, offloaded "
             f"{delta[w]['kv_offloaded_blocks']}, #1 launches {delta[w]['paged_decode_attention']}"
@@ -4541,9 +5221,10 @@ def phase_serve_kv(torch, np, card: str) -> dict:
                 raise SmokeError(f"{w}: tier errors {delta[w]}, integrity {integ}")
         kv = summary["kv"]
         if kv["followers_on_leader_worker"] < KV_FOLLOWERS_ON_LEADER:
+            missed = {rid: r for rid, r in rows.items() if rid.startswith("kv") and not r["same_as_leader"]}
             raise SmokeError(f"kv routing put {kv['followers_on_leader_worker']} of {kv['followers']} "
                              f"followers on their leader's worker (at least {KV_FOLLOWERS_ON_LEADER} "
-                             "required)")
+                             f"required); missed: {missed}")
         holder = iid[rows[cases[0][3][0]]["worker"]]  # kv-g0's leader's worker
         if d["find_best"].get("worker_id") != holder or not d["free"].get("ok"):
             raise SmokeError(f"the standalone router's find_best / free while kv-g0 ran: {d} "
@@ -4816,7 +5497,7 @@ def transport_turns(torch, np, fport: int, ids: list) -> dict:
     return asyncio.run(go())
 
 
-def fabric_payload_split(torch, np, fport: int, n_blocks: int, reps: int = 2) -> dict:
+def fabric_payload_split(torch, np, fport: int, n_blocks: int, reps: int = 1) -> dict:
     """The host path of one monolithic payload of ``n_blocks`` 8B blocks
     through the phase's fabric server, step by step (medians of ``reps``):
     device-to-host (pageable), encode (with its checksums), checksum (a
@@ -5360,7 +6041,7 @@ def phase_serve_trace_faults(torch, np, card: str) -> dict:
     from dynamo_tpu_torch.tokenizer import TokenizerWrapper
 
     t_phase = time.perf_counter()
-    model_dir = write_serve_dir()
+    model_dir = write_serve_dir(FLEET_MODEL)
     mdc = ModelDeploymentCard.from_model_dir(model_dir, GRAPH_ENV_NAME, context_length=MAX_MODEL_LEN)
     pre = OpenAIPreprocessor(mdc)
     tok = pre.tokenizer
@@ -5962,13 +6643,13 @@ def phase_serve_horizon(torch, np, card: str, params, fused_runner, int8_runner,
     )
 
     t_phase = time.perf_counter()
-    L = LLAMA31_8B["num_hidden_layers"]
+    L = MAIN_LAYERS
     reqs = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
     lock = lockstep_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
     res = {"card": card}
 
     # 1. build_torch_engine's defaults over the serve phase's weights
-    engine = build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+    engine = build_torch_engine(MAIN_MODEL, device="cuda", max_batch=8,
                                 max_model_len=MAX_MODEL_LEN, seed=0, params=params)
     runner = engine.runner
     cfg0 = engine.config
@@ -6298,7 +6979,7 @@ def leg_row(run) -> dict:
 
 def check_local_leg(tag, run, reqs, L, kernels, attn, FinishReason, single_shot: bool) -> dict:
     """A single engine serving the requests itself: outputs, no remote
-    prefill, every launch a replay but #3 (32 x its single-shot prefills
+    prefill, every launch a replay but #3 (L x its single-shot prefills
     when ``single_shot``, else none: chunks)."""
     check_outputs(tag, run["outs"], reqs, FinishReason)
     st = run["stats"]
@@ -6313,7 +6994,7 @@ def check_local_leg(tag, run, reqs, L, kernels, attn, FinishReason, single_shot:
 def check_disagg_leg(torch, tag, run, decode, reqs, ptrs, attn, want3, bound, FinishReason,
                      kernels, host, frames) -> dict:
     """Every check of one leg (see the module docstring, phase 14)."""
-    L = LLAMA31_8B["num_hidden_layers"]
+    L = MAIN_LAYERS
     check_outputs(tag, run["outs"], reqs, FinishReason)
     st, pst = run["stats"], run["prefill_stats"]
     shipped = [len(r.token_ids) for r in reqs if len(r.token_ids) > DISAGG_LOCAL_MAX]
@@ -6460,7 +7141,7 @@ def phase_serve_disagg(torch, np, card: str, params, int8_params) -> dict:
     )
 
     t_phase = time.perf_counter()
-    L = LLAMA31_8B["num_hidden_layers"]
+    L = MAIN_LAYERS
     reqs = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
     if DisaggConfig().max_local_prefill_length != DISAGG_LOCAL_MAX:
         raise SmokeError("serve_disagg: DisaggConfig's default threshold moved")
@@ -6473,7 +7154,7 @@ def phase_serve_disagg(torch, np, card: str, params, int8_params) -> dict:
                                    stop=StopConditions(max_tokens=1))
 
     def build(**kw):
-        return build_torch_engine(LLAMA31_8B, device="cuda", max_batch=8,
+        return build_torch_engine(MAIN_MODEL, device="cuda", max_batch=8,
                                   max_model_len=MAX_MODEL_LEN, seed=0, **kw)
 
     def pair(**kw):
@@ -7826,6 +8507,95 @@ def moe_step_times(torch, np, runner) -> dict:
     return out
 
 
+EP = 2  # the EP leg's ranks: two gloo ranks on cuda:0
+EP_LAYERS = 4  # Mixtral-8x7B's width at 4 layers: ~12 GB of bf16, half the experts a rank
+EP_BLOCKS = 1024
+
+
+def serve_moe_ep(torch, np, card: str) -> dict:
+    """Expert parallelism: Mixtral-8x7B's width at EP_LAYERS layers on one
+    card (the grouped path), then an ep = 2 grid (two gloo ranks on cuda:0,
+    4 experts each) on the same seeded weights: the decode step's logits
+    after a packed prefill (512 tokens: the all-to-all form; B = 3: the
+    psum form) within TP_LOGIT_TOL of one card's, then serve's four
+    requests (every rank's counters set to 0 just before, read just after:
+    kernel g launched on every rank, #1 once a layer per decode or mixed
+    step)."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    t0 = time.perf_counter()
+    conf = dict(MIXTRAL_8X7B, num_hidden_layers=EP_LAYERS)
+    kw = dict(max_batch=8, max_model_len=MAX_MODEL_LEN, seed=0, num_blocks=EP_BLOCKS, **EAGER)
+    every = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions,
+                          vocab=conf["vocab_size"], eos_id=MIXTRAL_8X7B["eos_token_id"])
+    reqs = [every[i] for i in TP_REQUESTS]
+    rng = np.random.default_rng(3)
+    probe = [rng.integers(0, conf["vocab_size"], n).tolist() for n in (16, 100, 300)]
+    one = build_torch_engine(conf, device="cuda", **kw)
+    want = first_step_logits(torch, np, one.runner, probe)
+    one_out = asyncio.run(run_requests(one, reqs, Context))
+    asyncio.run(one.close())
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = build_torch_engine(conf, device="cuda", expert_parallel_size=EP, tp_backend="gloo",
+                                tp_devices=["cuda:0"] * EP, **kw)
+    runner = engine.runner
+    if runner.params["layers"][0]["wg"].shape[0] != MIXTRAL_8X7B["num_local_experts"] // EP:
+        raise SmokeError(f"serve_moe/ep: a rank holds {runner.params['layers'][0]['wg'].shape}")
+    got = first_step_logits(torch, np, runner, probe)
+    worst = rel_logit_err(torch, got, want)
+    if worst > TP_LOGIT_TOL:
+        raise SmokeError(f"serve_moe/ep: first-step logits {worst:.4f} of the row's max apart "
+                         f"from one card's (tol {TP_LOGIT_TOL})")
+    runner.rank_stats(reset=True)
+    t1 = time.perf_counter()
+    out = asyncio.run(run_requests(engine, reqs, Context))
+    wall = time.perf_counter() - t1
+    stats = stats_dict(engine.stats)
+    ranks = runner.rank_stats()
+    asyncio.run(engine.close())
+    if [p.exitcode for p in runner._processes] != [0] * (EP - 1):
+        raise SmokeError(f"serve_moe/ep: followers ended {[p.exitcode for p in runner._processes]}")
+    for i, ((toks, reason, _), req) in enumerate(zip(out, reqs)):
+        if reason is not FinishReason.LENGTH or len(toks) != req.stop.max_tokens:
+            raise SmokeError(f"serve_moe/ep request {i}: {len(toks)} tokens, reason {reason}")
+    steps = stats["decode_steps"] + stats["mixed_steps"]
+    for r, st in enumerate(ranks):
+        lc = st["launches"]
+        moved = {k for k, v in lc.items() if v}
+        if (lc[MOE_KERNEL] <= 0 or lc["paged_decode_attention"] != EP_LAYERS * steps
+                or moved != {MOE_KERNEL, "paged_decode_attention"}):
+            raise SmokeError(f"serve_moe/ep rank {r}: launches {lc} ({EP_LAYERS} x {steps} "
+                             f"decode / mixed steps)")
+    n_tok = sum(len(t) for t, _, _ in one_out)
+    agree = sum(a == b for (x, _, _), (y, _, _) in zip(one_out, out) for a, b in zip(x, y)) / n_tok
+    res = {
+        "layers": EP_LAYERS, "ep": EP, "first_step_max_rel_err": worst,
+        "first_step_argmax_same": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+        "requests": len(reqs), "stats": stats, "wall_s": wall, "greedy_token_agreement": agree,
+        "rank_launches": [st["launches"] for st in ranks],
+        "rank_peak_mem_bytes": [st.get("peak_mem_bytes") for st in ranks],
+        "rank_staged_bytes": [st["staged_bytes"] for st in ranks],
+        "rank_collective_s": [st["collective_s"] for st in ranks],
+        "leg_s": time.perf_counter() - t0,
+    }
+    log(f"serve_moe/ep: ep=2 first-step logits within {worst:.4f} of one card's row max; "
+        f"{len(reqs)} requests in {wall:.2f} s ({stats['packed_prefills']} packed prefills, "
+        f"{stats['chunk_steps']} chunks, {stats['mixed_steps']} mixed + {stats['decode_steps']} "
+        f"decode steps); per rank kernel g {[st['launches'][MOE_KERNEL] for st in ranks]}, #1 "
+        f"{[st['launches']['paged_decode_attention'] for st in ranks]}; collectives "
+        f"{[round(st['collective_s'], 2) for st in ranks]} s, staged "
+        f"{[st['staged_bytes'] for st in ranks]} B; greedy tokens agreeing with one card "
+        f"{agree:.3f}; peak memory per rank "
+        f"{[round((m or 0) / 1e9, 2) for m in res['rank_peak_mem_bytes']]} GB ({card})")
+    print(json.dumps({"serve_moe_ep": res, "card": card}), flush=True)
+    return res
+
+
 def phase_serve_moe(torch, np, card: str) -> dict:
     """Mixtral-8x7B's width at MOE_LAYERS layers through build_torch_engine's
     defaults on a card (see the module docstring, phase 13)."""
@@ -7948,6 +8718,11 @@ def phase_serve_moe(torch, np, card: str) -> dict:
             f"[{row['library']}] ({card})")
     res["errs"] = {MOE_KERNEL: max(errs.values())}
     res["rows"] = rows
+    # the ep leg on the card this phase's engine frees
+    del engine, runner, layer, g4, first, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["ep"] = serve_moe_ep(torch, np, card)
     return res
 
 
@@ -8707,6 +9482,8 @@ def phase_serve_ops(torch, np, card: str) -> dict:
 
 
 def main() -> int:
+    if "--cp-node" in sys.argv:  # node 1 of serve_tp's CP leg, started by that leg
+        return cp_node_main()
     import numpy as np
     import torch
 
@@ -8759,7 +9536,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
         if only in ("serve_offload", "serve_fabric", "serve_kv", "serve_tp", "serve_disagg_fabric",
-                    "serve_trace_faults", "serve_peer", "serve_ops"):
+                    "serve_trace_faults", "serve_peer", "serve_ops", "serve_moe"):
             if only == "serve_offload":
                 phase_serve_offload(torch, np, card, *offload_params(torch))
             elif only == "serve_fabric":
@@ -8774,19 +9551,25 @@ def main() -> int:
                 phase_serve_peer(torch, np, card, peer_params(torch))
             elif only == "serve_ops":
                 phase_serve_ops(torch, np, card)
+            elif only == "serve_moe":
+                phase_serve_moe(torch, np, card)
             else:
                 phase_serve_kv(torch, np, card)
             return finish_run([card, json.dumps({"ok": True, "device": {
                 "platform": "gpu", "kind": kind, "count": count}})])
         if only is not None:
             raise SmokeError(f"--only takes serve_offload, serve_fabric, serve_kv, serve_tp, "
-                             f"serve_disagg_fabric, serve_trace_faults, serve_peer or serve_ops, "
-                             f"not {only}")
+                             f"serve_disagg_fabric, serve_trace_faults, serve_peer, serve_ops or "
+                             f"serve_moe, not {only}")
 
-        # 3. parity
-        errs = phase_parity(torch)
-        errs.update(phase_parity_int8(torch))
-        errs.update(phase_parity_tp(torch))
+        # 3. parity; the parallel forms' parity on two rank processes of
+        # their own meanwhile (their start-up overlaps the kernel checks)
+        with ThreadPoolExecutor(1) as pool:
+            parallel = pool.submit(parallel_parity, torch, np)
+            errs = phase_parity(torch)
+            errs.update(phase_parity_int8(torch))
+            errs.update(phase_parity_tp(torch))
+            print(json.dumps({"parity_tp_parallel": parallel.result()}), flush=True)
         lap("parity")
 
         # 4. serve and 5. serve_spec (each path's counters set to 0 just
@@ -8874,11 +9657,14 @@ def main() -> int:
 
         # 15. serve_offload: the tiered block manager (each leg's counters
         # set to 0 just before it, read just after)
-        phase_serve_offload(torch, np, card, engine.runner.params, int8_runner.params)
+        # (at the full 32 layers: their tiers are sized in GiB of its blocks)
+        full = offload_params(torch)
+        phase_serve_offload(torch, np, card, *full)
         lap("serve_offload")
         # 20. serve_peer: the peer tier over a fabric server process, the KV
         # router's pull plan, class-aware preemption and the native hash
-        phase_serve_peer(torch, np, card, engine.runner.params)
+        phase_serve_peer(torch, np, card, full[0])
+        del full
         lap("serve_peer")
 
         # 10. serve_http: the CLI's HTTP server in a process of its own, so

@@ -9,13 +9,18 @@ Counterpart of dynamo_tpu/engine/jax_engine/factory.py (``build_jax_engine``
 the JAX factory's default admission path: chunked, packed and mixed-step
 prefill, and its default decode horizon on the accelerator.
 
-Tensor parallelism (``tensor_parallel_size``, the reference's mesh and
-Megatron sharding, :113-163): this process becomes rank 0, the leader, and
-spawns the other ranks as follower processes (``torch.multiprocessing``,
+The parallel configurations (the reference's mesh and sharding, :26-163):
+``tensor_parallel_size``, ``data_parallel_size``, ``context_parallel_size``
+and ``expert_parallel_size`` make a rank grid dp x sp x ep x tp
+(parallel/mesh.py). On one node this process becomes rank 0, the leader,
+and spawns the other ranks as follower processes (``torch.multiprocessing``,
 spawn, rendezvous on a free local port); each rank builds its own slice of
 the same seeded or loaded parameters and its own KV pool, and the leader's
 engine drives every rank through parallel/multihost.SpmdModelRunner.
-Closing the engine stops the followers.
+Closing the engine stops the followers. With ``multinode`` (num_nodes > 1)
+each node is one rank process: the nodes meet through the fabric barrier
+(or a static ``leader_addr``, parallel/multinode.py), the leader gets the
+engine, and every other node a ``FollowerHandle`` to serve.
 
 The tiered block manager (``_maybe_block_manager``, the JAX factory's
 :212-270): ``DYN_KV_HOST_OFFLOAD_GB`` > 0 gives the engine a host tier of
@@ -27,6 +32,7 @@ forces int8 tiers (its pages move verbatim). Unset, there is none.
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import logging
@@ -50,12 +56,18 @@ from dynamo_tpu_torch.engine.torch_engine.weights import load_or_init_params
 from dynamo_tpu_torch.models.llama import LlamaConfig, param_count
 from dynamo_tpu_torch.ops.kernels import card_shape_problems
 from dynamo_tpu_torch.parallel.launch import free_port, init_method
-from dynamo_tpu_torch.parallel.mesh import TPGroup, rank_devices
+from dynamo_tpu_torch.parallel.mesh import TPGroup, grid_shape, rank_devices
 from dynamo_tpu_torch.parallel.multihost import (
+    FollowerHandle,
     LeaderLostError,
     SpmdModelRunner,
     SpmdStepChannel,
     follower_loop,
+)
+from dynamo_tpu_torch.parallel.multinode import (
+    MultiNodeConfig,
+    rendezvous_and_initialize,
+    static_init_method,
 )
 from dynamo_tpu_torch.parallel.sharding import check_shardable, shard_leaf
 
@@ -95,6 +107,7 @@ def default_num_blocks(
     kv_dtype: str = "bf16",
     tp: int = 1,
     reserve_bytes: int = 0,
+    ep: int = 1,
 ) -> int:
     """Blocks for every batch lane at full context plus slack, capped so
     weights + KV fit the device memory budget (the JAX sizing rule,
@@ -103,8 +116,9 @@ def default_num_blocks(
     ``quantized`` says, :427-437), an int8 KV cache 1 byte per value plus a
     4-byte scale per (layer, kv head, block) of each of K and V; under
     tensor parallelism of ``tp`` ranks, per rank: the weights divided by
-    tp, the rank's Hkv / tp heads per block (ranks sharing a card must pass
-    ``num_blocks`` themselves). ``reserve_bytes`` more are kept out of the
+    tp (an MoE model's experts by ep x tp over an ``ep`` axis), the rank's
+    Hkv / tp heads per block (ranks sharing a card must pass ``num_blocks``
+    themselves). ``reserve_bytes`` more are kept out of the
     budget (the factory's room for the captured graphs' pool; 0 is the JAX
     rule)."""
     per_seq = (max_len + block_size - 1) // block_size
@@ -112,7 +126,7 @@ def default_num_blocks(
     dense_params = param_count(dataclasses.replace(config, num_experts=0))
     expert_params = param_count(config) - dense_params
     weight_bytes = (dense_params * (1 if quantized else dtype_bytes)
-                    + expert_params * dtype_bytes) // tp
+                    + expert_params * dtype_bytes // ep) // tp
     int8_kv = kv_dtype == "int8"
     heads = config.num_kv_heads // tp
     block_bytes = 2 * (
@@ -269,10 +283,11 @@ def _rank_runner(group, spec: dict) -> TorchModelRunner:
     KV pool of Hkv / tp heads."""
     cfg = spec["cfg"]
     rank, tp = group.rank, group.world_size
+    ep_rank, ep = group.ep.rank, group.ep.world_size
     dev = group.device
 
     def shard(name, w):
-        return shard_leaf(name, w, rank, tp)
+        return shard_leaf(name, w, rank, tp, ep_rank, ep)
 
     if spec["params"] is not None:
         full = spec["params"]
@@ -287,10 +302,11 @@ def _rank_runner(group, spec: dict) -> TorchModelRunner:
 
 def _follower_main(rank: int, world: int, method: str, backend: str, devices,
                    spec: dict) -> None:
-    """A follower rank's process: join the group, build the rank's runner,
+    """A follower rank's process: join the grid, build the rank's runner,
     replay the leader's calls until it stops (or is lost)."""
     group = TPGroup(rank, world, init_method=method, backend=backend, devices=devices,
-                    timeout_s=TP_TIMEOUT_S, idle_timeout_s=spec["idle_timeout_s"])
+                    timeout_s=TP_TIMEOUT_S, idle_timeout_s=spec["idle_timeout_s"],
+                    axes=spec["axes"])
     try:
         follower_loop(_rank_runner(group, spec), SpmdStepChannel(group))
     except LeaderLostError as e:
@@ -327,7 +343,12 @@ def build_torch_engine(
     lazy_horizon: Optional[bool] = None,
     cuda_graphs: Optional[bool] = None,
     expert_parallel_size: int = 1,
-) -> TorchEngine:
+    data_parallel_size: int = 1,
+    context_parallel_size: int = 1,
+    multinode: Optional[MultiNodeConfig] = None,
+    fabric=None,
+    lease_id: int = 0,
+) -> Union[TorchEngine, FollowerHandle]:
     """Build the serving engine on ``device`` (the card unless the caller
     asks for the CPU; raises when a card is asked for and absent).
 
@@ -378,8 +399,34 @@ def build_torch_engine(
     ``DYN_COLLECTIVE_OVERLAP``) runs the fused decode step's tail as the
     ring decomposition. A follower gives its leader up after
     ``tp_idle_timeout_s`` without a broadcast; an idle leader sends
-    keep-alives four times as often. Spec decode under tensor parallelism
-    is not ported yet: ``spec_k`` > 0 with a group raises ValueError.
+    keep-alives four times as often. Spec decode runs under a group too:
+    the leader drafts, every rank verifies on its heads.
+
+    The rank grid (the reference's mesh axes, :33-47): with
+    ``data_parallel_size`` (dp), ``context_parallel_size`` (sp) and
+    ``expert_parallel_size`` (ep) the ranks form a dp x sp x ep x tp grid
+    (tp innermost), placed by ``tp_devices`` as above (one entry per rank).
+    Over dp the parameters and the cache are replicated (the reference's
+    mesh plumbing: serving data parallelism is replicas behind the router);
+    over sp a prompt whose bucket is at least the runner's ``cp_min_tokens``
+    (512, as the reference runner's) is prefilled context parallel (ring
+    attention), the cache replicated; over ep an MoE model's experts are
+    split in equal blocks (the all-to-all dispatch for prefill-sized
+    batches, the psum form for decode-sized ones), everything else
+    replicated. A grid needs ``num_experts`` divisible by ep.
+
+    Multi-node (``multinode``, a ``MultiNodeConfig`` with num_nodes > 1,
+    ``DYN_NUM_NODES`` / ``DYN_NODE_RANK`` / ``DYN_LEADER_ADDR``): each node is
+    one rank process, node_rank its global rank, and the grid's sizes must
+    multiply to num_nodes. The nodes meet through ``fabric``'s barrier
+    under ``lease_id`` (the leader's lease must live as long as its engine:
+    the followers follow it), or at ``leader_addr`` without a fabric. With a
+    fabric this call blocks on the fabric's event loop, so call it from
+    another thread (``loop.run_in_executor``). The rank sits on ``device``
+    (or ``tp_devices[node_rank]``). The leader (node 0) gets its engine;
+    every other node gets a ``parallel.multihost.FollowerHandle``, whose
+    ``serve()`` / ``serve_async()`` replays the leader's step channel until
+    the leader's engine closes.
 
     The decode horizon: ``decode_horizon`` (default
     ``default_decode_horizon``: ``DYN_DECODE_HORIZON``, else 4 on a card
@@ -392,9 +439,8 @@ def build_torch_engine(
 
     MoE (a config with ``num_experts``, the Mixtral family): the dropless
     grouped FFN on one card or under tensor parallelism, where each rank
-    holds every expert's FFN slice. ``expert_parallel_size`` > 1 (the JAX
-    factory's experts over an ``ep`` mesh axis: ``moe_ffn_shard_map`` /
-    ``moe_ffn_ep_a2a``) is not ported and raises NotImplementedError.
+    holds every expert's FFN slice; over an ep axis the expert-parallel
+    forms (above).
 
     On the card, a config whose shapes a kernel of its path would refuse
     raises ValueError here, before any request (and before the card is
@@ -407,11 +453,14 @@ def build_torch_engine(
     tiers hold dense pages (every kv head), which the leader gathers from
     and scatters to the ranks."""
     cfg, model_dir = _resolve_config(config)
-    if expert_parallel_size > 1:
-        raise NotImplementedError(
-            f"expert parallelism (expert_parallel_size={expert_parallel_size}): the "
-            "expert-parallel MoE forms moe_ffn_shard_map / moe_ffn_ep_a2a are not ported yet"
-        )
+    tp, ep = tensor_parallel_size, expert_parallel_size
+    axes = {"dp": data_parallel_size, "sp": context_parallel_size, "ep": ep, "tp": tp}
+    world = data_parallel_size * context_parallel_size * ep * tp
+    grid_shape(world, axes)  # raises on a size below 1
+    multi = multinode is not None and multinode.num_nodes > 1
+    if multi and world != multinode.num_nodes:
+        raise ValueError(f"a grid of {world} ranks ({axes}) over {multinode.num_nodes} nodes: "
+                         "each node is one rank")
     # DYN_CHUNK_BUDGET / DYN_MIXED_STEP, checked before any weight is made
     chunking = TorchEngineConfig(block_size=kv_block_size)
     check_chunk_budget(chunking.chunk_budget, kv_block_size)
@@ -428,23 +477,22 @@ def build_torch_engine(
         spec["spec_k"] = spec_k
     if spec_min_coverage is not None:
         spec["spec_min_coverage"] = spec_min_coverage
-    tp = tensor_parallel_size
-    grouped = tp > 1 or tp_backend is not None
+    grouped = world > 1 or tp_backend is not None or multi
     if grouped:
-        if spec["spec_k"] > 0:
-            raise ValueError(
-                f"spec decode (spec_k={spec['spec_k']}) under tensor parallelism "
-                f"(tensor_parallel_size={tp}) is not ported yet"
-            )
-        check_shardable(cfg, tp)
-        if tp_devices is None and torch.device(device).type == "cpu":
-            tp_devices = "cpu"
-        devs = rank_devices(tp, tp_devices)
+        check_shardable(cfg, tp, ep)
+        if multi:  # this node's rank alone lives here
+            here = (tp_devices[multinode.node_rank] if isinstance(tp_devices, (list, tuple))
+                    else tp_devices or device)
+            devs = tp_devices = [resolve_device(here)] * world
+        else:
+            if tp_devices is None and torch.device(device).type == "cpu":
+                tp_devices = "cpu"
+            devs = rank_devices(world, tp_devices)
         on_card = devs[0].type == "cuda"
         if tp_backend is None:
             tp_backend = "nccl" if on_card else "gloo"
         if params is not None and params["embed"].device.type != "cpu":
-            raise ValueError("params given to a tensor-parallel engine must lie on the CPU")
+            raise ValueError("params given to a parallel engine must lie on the CPU")
     else:
         on_card = torch.device(device).type == "cuda"
     if on_card:
@@ -465,7 +513,7 @@ def build_torch_engine(
             cfg, max_len, max_batch, block_size=kv_block_size,
             budget_bytes=device_memory_bytes(dev),
             dtype_bytes=torch.empty((), dtype=dtype).element_size(),
-            quantized=quantize, kv_dtype=kv_dtype, tp=tp,
+            quantized=quantize, kv_dtype=kv_dtype, tp=tp, ep=ep,
             reserve_bytes=graph_pool_bytes(cfg, max_batch, spec["spec_k"]) if graphed else 0,
         )
     runner_kw = dict(
@@ -476,12 +524,16 @@ def build_torch_engine(
     if grouped:
         if cuda_graphs:
             raise ValueError("CUDA graphs are not captured under a tensor-parallel group")
-        runner = _build_tp_runner(
-            tp, tp_backend, tp_devices, on_card,
-            dict(cfg=cfg, params=params, model_dir=model_dir, seed=seed, dtype=dtype,
-                 quantize=quantize, idle_timeout_s=tp_idle_timeout_s,
-                 runner=dict(runner_kw, collective_overlap=collective_overlap)),
-        )
+        rank_spec = dict(cfg=cfg, params=params, model_dir=model_dir, seed=seed, dtype=dtype,
+                         quantize=quantize, idle_timeout_s=tp_idle_timeout_s, axes=axes,
+                         runner=dict(runner_kw, collective_overlap=collective_overlap))
+        if multi:
+            runner = _join_nodes(world, multinode, fabric, lease_id, tp_backend, tp_devices,
+                                 on_card, rank_spec)
+            if isinstance(runner, FollowerHandle):
+                return runner
+        else:
+            runner = _build_tp_runner(world, tp_backend, tp_devices, on_card, rank_spec)
     else:
         if params is None:
             params = load_or_init_params(model_dir, cfg, seed=seed, device=dev, dtype=dtype,
@@ -503,11 +555,58 @@ def build_torch_engine(
     )
 
 
-def _build_tp_runner(tp, backend, devices, on_card, spec) -> SpmdModelRunner:
-    """The leader's side of a tensor-parallel engine: every kernel library
-    built first (one nvcc per source, here, so N ranks do not build N
-    times), the followers spawned, this process joined as rank 0, its
+def _rendezvous(cfg: MultiNodeConfig, fabric, lease_id: int) -> str:
+    """The grid's init address: ``leader_addr`` without a fabric, else the
+    fabric barrier's, run on the fabric's event loop from this thread."""
+    if fabric is None:
+        return static_init_method(cfg)
+    coro = rendezvous_and_initialize(cfg, fabric, lease_id)
+    loop = fabric.loop
+    try:
+        running = asyncio.get_running_loop()
+    except RuntimeError:
+        running = None
+    if running is not None and (loop is None or running is loop):
+        coro.close()
+        raise RuntimeError("build_torch_engine blocks on the fabric's rendezvous: call it off "
+                           "the fabric's event loop (e.g. loop.run_in_executor)")
+    if loop is None:  # an in-process fabric: no loop of its own
+        return asyncio.run(coro)
+    return asyncio.run_coroutine_threadsafe(coro, loop).result()
+
+
+def _join_nodes(world, multinode, fabric, lease_id, backend, devices, on_card, spec):
+    """This node's side of a multi-node engine: meet the other nodes, join
+    the grid as rank ``node_rank``, build the rank's runner (the kernel
+    libraries first); the leader's runner wrapped to replay on the others,
+    any other node's handed back as a FollowerHandle."""
+    method = _rendezvous(multinode, fabric, lease_id)
+    logger.info("multi-node bring-up: node %d/%d at %s", multinode.node_rank,
+                multinode.num_nodes, method)
+    if on_card:
+        from dynamo_tpu_torch.ops import _build
+
+        _build.build_all()
+    group = TPGroup(multinode.node_rank, world, init_method=method, backend=backend,
+                    devices=devices, timeout_s=TP_TIMEOUT_S,
+                    idle_timeout_s=spec["idle_timeout_s"], axes=spec["axes"])
+    try:
+        runner = _rank_runner(group, spec)
+    except BaseException:
+        group.close()
+        raise
+    channel = SpmdStepChannel(group)
+    if not multinode.is_leader:
+        return FollowerHandle(runner, channel, fabric=fabric)
+    return SpmdModelRunner(runner, channel)
+
+
+def _build_tp_runner(world, backend, devices, on_card, spec) -> SpmdModelRunner:
+    """The leader's side of a parallel engine on one node: every kernel
+    library built first (one nvcc per source, here, so N ranks do not build
+    N times), the followers spawned, this process joined as rank 0, its
     runner wrapped to replay on them."""
+    tp = world
     if on_card:
         from dynamo_tpu_torch.ops import _build
 
@@ -524,7 +623,8 @@ def _build_tp_runner(tp, backend, devices, on_card, spec) -> SpmdModelRunner:
     group = None
     try:
         group = TPGroup(0, tp, init_method=method, backend=backend, devices=devices,
-                        timeout_s=TP_TIMEOUT_S, idle_timeout_s=spec["idle_timeout_s"])
+                        timeout_s=TP_TIMEOUT_S, idle_timeout_s=spec["idle_timeout_s"],
+                        axes=spec["axes"])
         runner = _rank_runner(group, spec)
     except BaseException:
         for p in procs:

@@ -62,9 +62,9 @@ plane ``extract_blocks*`` / ``inject_blocks*`` :1407-1601 over
     history goes up only when a lane has penalties.
 
   * with a ``group`` (parallel/mesh.TPGroup) the runner is one rank of a
-    tensor-parallel engine: its params are the rank's Megatron slice, its
-    KV pool (and an int8 pool's scale planes) holds the rank's Hkv / tp kv
-    heads, and every model call issues the group's collectives, so every
+    parallel engine: its params are the rank's Megatron slice (its experts'
+    block on a grid with an ep axis), its KV pool (and an int8 pool's scale
+    planes) holds the rank's Hkv / tp kv heads, and every model call issues the group's collectives, so every
     rank must make the same calls in the same order
     (parallel/multihost.SpmdModelRunner replays the leader's on the
     followers, with the leader's sampling keys);
@@ -89,8 +89,15 @@ plane ``extract_blocks*`` / ``inject_blocks*`` :1407-1601 over
     scatters each rank its own heads on the way in (see the data plane's
     section below).
 
-Not ported yet: spec decode under tensor parallelism, and graphs of the
-mixed step or under a tensor-parallel group (both run eagerly).
+  * on a grid with an ``sp`` axis (parallel/mesh.py) ``prefill`` runs
+    context parallel (``llama.prefill_context_parallel``, ring attention)
+    for buckets of at least ``cp_min_tokens`` that split over sp, as the
+    reference's ``_prefill_cp_impl`` (:524-541, chosen at :1166-1174); every
+    other call is replicated over sp. The verify pass runs under a group
+    too, on the rank's heads.
+
+Not ported yet: graphs of the mixed step or under a group (both run
+eagerly).
 """
 
 from __future__ import annotations
@@ -201,9 +208,11 @@ class TorchModelRunner:
         group=None,
         collective_overlap: bool = False,
         cuda_graphs: Optional[bool] = None,
+        cp_min_tokens: int = 512,
     ) -> None:
         self.device = resolve_device(device)
         self.group = group
+        self.cp_min_tokens = cp_min_tokens
         # CUDA graphs of decode / decode_multi / spec_verify: on by default
         # on a card without a group; the attribute may be flipped later
         # there (eager and graphed runs of the same programs, to time or
@@ -306,6 +315,19 @@ class TorchModelRunner:
         (token, logprob, top_ids, top_logprobs) device tensors, each with a
         leading batch dim of 1, for the first sampled token, after the
         prompt's repetition penalty and the min_tokens EOS mask."""
+        if key_data is None:
+            key_data = self._next_key_data()
+        logits, tokens_d = self._prefill(token_ids, block_ids)
+        T = len(token_ids)
+        return self._sample_first(
+            logits, tokens_d, T, key_data, temperature, top_p, top_k, rep_pen,
+            eos_ids, eos_suppress,
+        )
+
+    def _prefill(self, token_ids: list[int], block_ids: list[int]):
+        """The model half of ``prefill``: (last token's logits [V] f32, the
+        padded prompt on the device), context parallel where
+        ``uses_cp_prefill`` says so."""
         T = len(token_ids)
         bucket = self.pick_bucket(T)
         tokens = np.zeros(bucket, np.int64)
@@ -313,17 +335,33 @@ class TorchModelRunner:
         table = np.zeros(bucket // self.block_size, np.int64)
         used = (T + self.block_size - 1) // self.block_size
         table[:used] = block_ids[:used]  # padding blocks go to null block 0
-        if key_data is None:
-            key_data = self._next_key_data()
         tokens_d = self._dev(tokens, np.int64)
-        logits = llama.prefill(
-            self.params, self.config, tokens_d, T,
-            self.k_cache, self.v_cache, self._dev(table, np.int64), group=self.group,
-        )
-        return self._sample_first(
-            logits, tokens_d, T, key_data, temperature, top_p, top_k, rep_pen,
-            eos_ids, eos_suppress,
-        )
+        table_d = self._dev(table, np.int64)
+        if self.uses_cp_prefill(bucket):
+            logits = llama.prefill_context_parallel(
+                self.params, self.config, self.group, tokens_d, T,
+                k_cache=self.k_cache, v_cache=self.v_cache, block_table=table_d)
+        else:
+            logits = llama.prefill(self.params, self.config, tokens_d, T, self.k_cache,
+                                   self.v_cache, table_d, group=self.group)
+        return logits, tokens_d
+
+    @torch.inference_mode()
+    def prefill_logits(self, token_ids: list[int], block_ids: list[int]) -> torch.Tensor:
+        """The model half of ``prefill`` (its K/V lands in ``block_ids``):
+        the last token's logits [V] (f32) on the device, no sampling (what a
+        check compares between engines)."""
+        return self._prefill(token_ids, block_ids)[0]
+
+    def uses_cp_prefill(self, bucket: int) -> bool:
+        """Whether a prompt padded to ``bucket`` is prefilled context
+        parallel (ring attention over the grid's sp axis): under a grid
+        with sp > 1, for buckets of at least ``cp_min_tokens`` that split
+        over sp (the reference runner's rule, model_runner.py:1166-1174);
+        shorter prompts skip the ring's hops and run the serial path."""
+        sp = getattr(self.group, "sp", None)
+        return (sp is not None and sp.world_size > 1 and bucket >= self.cp_min_tokens
+                and bucket % sp.world_size == 0)
 
     def _sample_first(
         self, logits, prompt_d, n_prompt, key_data, temperature, top_p, top_k,
@@ -595,6 +633,20 @@ class TorchModelRunner:
             group=self.group,
         )
 
+    @torch.inference_mode()
+    def verify_logits(self, tokens, positions, block_tables, slot_indices) -> torch.Tensor:
+        """The model half of the verify pass: [B, S] fed tokens at
+        ``positions`` (their K/V written to ``slot_indices``, 0 the null
+        sink) scored in one weight pass; logits [B, S, V] (f32) on the
+        device, no sampling (what a check compares between engines)."""
+        return llama.decode_verify(
+            self.params, self.config,
+            self._dev(tokens, np.int64), self._dev(positions, np.int64),
+            self.k_cache, self.v_cache,
+            self._dev(block_tables, np.int32), self._dev(slot_indices, np.int64),
+            group=self.group,
+        )
+
     def shutdown(self) -> None:
         """Release what the runner holds beyond its tensors: nothing on one
         device (a tensor-parallel leader stops its followers here)."""
@@ -734,8 +786,6 @@ class TorchModelRunner:
         Penalties ride the verify positions only: with them E must be 0, as
         the reference's engine sends it (the count tables cannot take a
         rejected draft back out)."""
-        if self.group is not None:
-            raise NotImplementedError("spec decode under tensor parallelism is not ported yet")
         S, E = spec_k + 1, int(extras)
         if E < 0:
             raise ValueError(f"extras must be >= 0, got {E}")
@@ -800,7 +850,8 @@ class TorchModelRunner:
         slot = torch.where(
             valid, tables.gather(1, page).long() * self.block_size + qpos % self.block_size, 0)
         logits = llama.decode_verify(
-            self.params, self.config, fed, qpos, self.k_cache, self.v_cache, tables, slot)
+            self.params, self.config, fed, qpos, self.k_cache, self.v_cache, tables, slot,
+            group=self.group)
         V = logits.shape[-1]
         suppress = step < min_rem[:, None]  # [B, S]
         if pen:
@@ -846,7 +897,7 @@ class TorchModelRunner:
             alive = ~done & (count < v["limit_remaining"])
             tok_in, pos_in, slot_e = self._chain_feed(v, last, positions + count, ~alive)
             lg = llama.decode(self.params, self.config, tok_in, pos_in, self.k_cache,
-                              self.v_cache, tables, slot_e)
+                              self.v_cache, tables, slot_e, group=self.group)
             if mask:
                 lg = mask_eos_logits(lg, eos_ids, count < min_rem)
             tok_e, lp_e, ids_e, lps_e = sample_tokens_full(

@@ -215,6 +215,20 @@ class FabricClient:
         # closed: consumers holding for a heal must stop waiting
         self.failed_permanently = False
 
+    @property
+    def loop(self) -> Optional[asyncio.AbstractEventLoop]:
+        """The event loop a connected client's read loop runs on (None in
+        process): another thread runs this client's coroutines there."""
+        return self._read_task.get_loop() if self._read_task is not None else None
+
+    @property
+    def local_host(self) -> str:
+        """This end's address of the connection to the fabric server: an
+        address the fabric's other clients can reach this host at
+        ("127.0.0.1" in process)."""
+        sock = self._writer.get_extra_info("sockname") if self._writer is not None else None
+        return sock[0] if sock else "127.0.0.1"
+
     # ------------------------------------------------------- construction
 
     @classmethod

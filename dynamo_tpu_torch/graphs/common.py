@@ -63,16 +63,20 @@ async def build_engine_from_env():
         engine = await loop.run_in_executor(None, build_tiny_torch_engine)
         return engine, word_level_mdc(model_name())
     if kind == "torch":
-        from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
-
         path = os.environ.get("DYN_MODEL_PATH")
         if not path:
             raise SystemExit("DYN_GRAPH_ENGINE=torch requires DYN_MODEL_PATH")
-        engine = await loop.run_in_executor(None, lambda: build_torch_engine(
-            path, device=os.environ.get("DYN_DEVICE", "cuda"),
-            tensor_parallel_size=int(os.environ.get("DYN_TP", "1")),
-            max_batch=int(os.environ.get("DYN_MAX_BATCH", "8")),
-        ))
+
+        def build():  # the factory's import (torch, seconds) off the loop too
+            from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+
+            return build_torch_engine(
+                path, device=os.environ.get("DYN_DEVICE", "cuda"),
+                tensor_parallel_size=int(os.environ.get("DYN_TP", "1")),
+                max_batch=int(os.environ.get("DYN_MAX_BATCH", "8")),
+            )
+
+        engine = await loop.run_in_executor(None, build)
         mdc = ModelDeploymentCard.from_model_dir(path, model_name(),
                                                  context_length=engine.config.max_model_len)
         return engine, mdc

@@ -85,10 +85,12 @@ def _print_stats_on_sigusr1(role: str, engine, transfer) -> None:
 @service(name="PrefillWorker", replicas=1)
 class PrefillWorker:
     async def serve(self, runtime) -> None:
+        # the engine first, off the loop: the transport's modules import
+        # torch, which would stall the lease's keepalive here for seconds
+        engine, _mdc = await _build_engine()
         from dynamo_tpu_torch.disagg.transfer import PrefillWorkerService
         from dynamo_tpu_torch.runtime.fencing import make_stamp
 
-        engine, _mdc = await _build_engine()
         # the prefill worker's own track on an assembled trace
         engine.trace_proc = f"PrefillWorker:{runtime.primary_lease & 0xFFFFFF:x}"
         svc = PrefillWorkerService(
@@ -111,11 +113,11 @@ class DecodeWorker:
     prefill = depends(PrefillWorker)
 
     async def serve(self, runtime) -> None:
+        engine, mdc = await _build_engine()  # first, as the PrefillWorker's
         from dynamo_tpu_torch.disagg.router import DisaggConfig, DisaggregatedRouter
         from dynamo_tpu_torch.disagg.transfer import RemotePrefillClient
         from dynamo_tpu_torch.entrypoint.inputs import EngineConfig, run_endpoint
 
-        engine, mdc = await _build_engine()
         client = RemotePrefillClient(
             runtime.fabric, _ns(),
             block_size=engine.config.block_size,

@@ -29,8 +29,9 @@ dropless grouped FFN by default, the GShard capacity path with
 ``moe_impl="gshard"``.
 
 Tensor parallelism (dynamo_tpu/models/llama.py:397-520 under a mesh): every
-entry point but ``decode_verify`` takes an optional ``group``
-(parallel/mesh.TPGroup). Its parameters are then the rank's Megatron slice
+entry point takes an optional ``group`` (parallel/mesh.TPGroup, the rank
+grid; the model reads its ``tp`` line as the group, and its ``ep`` and
+``sp`` lines where named below). Its parameters are then the rank's Megatron slice
 (parallel/sharding.py) and its caches hold the rank's Hkv / tp kv heads;
 each rank computes its Hq / tp query heads. The row-parallel products
 (``wo``, ``wd``) are summed over the group in f32 right after the product,
@@ -39,7 +40,10 @@ all-reduce (dynamo_tpu/ops/linear.py:65-70); the vocab-split logits are
 all-gathered before sampling. Fused decode under a group runs the meshed
 heads of ops/collective.py, and with ``collective_overlap`` the ring tail,
 gated as the reference gates them (``_use_fused_decode`` /
-``_use_overlap_tail``).
+``_use_overlap_tail``). On a grid with an ``ep`` axis an MoE layer takes
+the expert-parallel forms (``_mlp``, the reference's dispatch rule), and
+``prefill_context_parallel`` (:760 upstream) runs a prompt's chunks over
+the ``sp`` axis with ring attention.
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ from dynamo_tpu_torch.ops.linear import (
     fused_qkv_rope,
     linear,
 )
-from dynamo_tpu_torch.ops.moe import moe_ffn, moe_ffn_dropless
+from dynamo_tpu_torch.ops.moe import moe_ffn, moe_ffn_dropless, moe_ffn_ep_a2a, moe_ffn_shard_map
 
 
 @dataclass(frozen=True)
@@ -454,16 +458,33 @@ def _attn_decode(x, layer, cfg, inv_freqs, positions, context_lens, k_cache_l, v
     return _fused_out_dispatch(attn_flat, layer, x, group)
 
 
+def _ep_size(group) -> int:
+    """The size of the group's ep axis (1 without a group or an ep axis)."""
+    ep = getattr(group, "ep", None)
+    return ep.world_size if ep is not None else 1
+
+
 def _mlp(x, layer, cfg, group=None):
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
     if "router" in layer:
-        # one card or a pure-TP group (the reference's branch without an ep
-        # axis, models/llama.py:527-567): the dropless grouped FFN, or the
-        # GShard capacity path on request; under a group each rank's experts
-        # are its FFN slice and the f32 partials are summed before the cast
+        # the reference's dispatch rule (models/llama.py:527-567): with the
+        # experts split over an ep axis, the all-to-all form for batches of
+        # at least 4 tokens per ep rank that split evenly, else the psum
+        # form; on one card or a pure-TP group the dropless grouped FFN, or
+        # the GShard capacity path on request (under a group each rank's
+        # experts are its FFN slice and the f32 partials are summed before
+        # the cast)
         args = (h, layer["router"], layer["wg"], layer["wu"], layer["wd"])
         k = cfg.num_experts_per_tok
-        if cfg.moe_impl == "gshard":
+        ep = _ep_size(group)
+        if ep > 1:
+            T = x.shape[0]
+            if T % ep == 0 and T >= 4 * ep:
+                y = moe_ffn_ep_a2a(group, *args, top_k=k,
+                                   capacity_factor=cfg.moe_capacity_factor)
+            else:
+                y = moe_ffn_shard_map(group, *args, top_k=k)
+        elif cfg.moe_impl == "gshard":
             y = moe_ffn(*args, top_k=k, capacity_factor=cfg.moe_capacity_factor, group=group)
         else:
             y = moe_ffn_dropless(*args, top_k=k, group=group)
@@ -630,12 +651,17 @@ def decode_verify(
     v_cache: KVCache,
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     slot_indices: torch.Tensor,  # [B, S] flat cache slots (0 = null sink)
+    group=None,  # a TPGroup: params / caches are this rank's slices
 ) -> torch.Tensor:
     """Draft-verify forward for speculative decoding: ONE weight pass scores
     S positions per lane. Each lane's S tokens write their K/V into their
     slots first, then attend causally over the lane's paged context (the
     drafts see each other through the cache). Returns logits [B, S, V]
-    (f32)."""
+    (f32). Under a group (the reference's verify under its mesh,
+    models/llama.py:849) each rank runs the verify attention on its Hq / tp
+    query and Hkv / tp kv heads, the fused heads on its slice when enabled
+    (the o-proj as its f32 partial), and the partials are summed."""
+    lc = rank_config(cfg, group)
     freqs = _rope_pair(cfg, tokens.device)
     B, S = tokens.shape
     pos_flat = positions.reshape(-1)
@@ -643,25 +669,89 @@ def decode_verify(
     positions_i32 = positions.to(torch.int32)
     x = _embed(params, cfg, tokens.reshape(-1))  # [B*S, hidden]
     for i, layer in enumerate(params["layers"]):
-        fused = _use_fused_decode(cfg, layer)
+        fused = _use_fused_decode(cfg, layer, group)
         lf = _layer_freqs(cfg, i, freqs)
         if fused:
             # the fused heads are row-count generic: the window's flat [B*S]
             # rows ride the same heads decode uses
-            q, k, v = _fused_qkv_dispatch(x, layer, cfg, lf, pos_flat)
+            q, k, v = _fused_qkv_dispatch(x, layer, lc, lf, pos_flat, group)
         else:
-            q, k, v = qkv_head(x, layer, cfg, lf, pos_flat)
+            q, k, v = qkv_head(x, layer, lc, lf, pos_flat)
         kl, vl = cache_layer(k_cache, i), cache_layer(v_cache, i)
         write_decode_kv(kl, vl, k, v, slots_flat)
         attn = paged_verify_attention(
-            q.reshape(B, S, cfg.num_heads, cfg.head_dim), kl, vl,
+            q.reshape(B, S, lc.num_heads, lc.head_dim), kl, vl,
             block_tables, positions_i32,
             window=cfg.layer_window(i), scale=cfg.attn_scale,
             logit_softcap=cfg.attn_logit_softcap,
         )
         if fused:
-            x = _fused_out_dispatch(attn.reshape(B * S, cfg.q_dim), layer, x)
+            x = _fused_out_dispatch(attn.reshape(B * S, lc.q_dim), layer, x, group)
         else:
-            x = attn_out(attn.reshape(B * S, cfg.num_heads, cfg.head_dim), x, layer, cfg)
-        x = _mlp(x, layer, cfg)
-    return _logits(x, params, cfg).reshape(B, S, -1)
+            x = _attn_out(attn.reshape(B * S, lc.num_heads, lc.head_dim), x, layer, lc, group)
+        x = _mlp(x, layer, cfg, group)
+    return _logits(x, params, cfg, group).reshape(B, S, -1)
+
+
+def prefill_context_parallel(
+    params: dict,
+    cfg: LlamaConfig,
+    group,  # the rank's TPGroup, with an sp axis (and optionally tp)
+    tokens: torch.Tensor,  # [P] int64, P divisible by sp (padded with 0s)
+    valid_len: int,
+    *,
+    k_cache: Optional[KVCache] = None,  # [L, Hkv / tp, nb, bs, D]: paginate per layer
+    v_cache: Optional[KVCache] = None,
+    block_table: Optional[torch.Tensor] = None,  # [P // bs] block ids
+):
+    """Long-context prefill with the sequence cut over the grid's ``sp``
+    axis (reference models/llama.py:760): every rank of an sp line runs its
+    chunk of C = P / sp tokens through every layer -- its projections, the
+    MLP (and the row-parallel sums over tp) on its C rows alone, attention
+    as ring attention (parallel/ring_attention.py) on its tp heads.
+
+    With a cache: each layer's K/V chunks are all-gathered over sp and
+    written into the rank's cache (replicated over sp) inside the layer
+    loop, so the transient is one layer's [P, Hkv / tp, D]. Returns the
+    logits [V] (f32) of the last valid token. Without a cache: returns
+    (logits, k_new, v_new), the K/V of every layer [L, P, Hkv / tp, D], for
+    shipping to a decode worker."""
+    from dynamo_tpu_torch.parallel.ring_attention import ring_attention_body
+
+    sp = group.sp
+    paginate = k_cache is not None
+    P = tokens.shape[0]
+    if P % sp.world_size:
+        raise ValueError(f"a prompt of {P} does not split into sp={sp.world_size}")
+    C = P // sp.world_size
+    lo = sp.rank * C
+    lc = rank_config(cfg, group)
+    freqs = _rope_pair(cfg, tokens.device)
+    positions = lo + torch.arange(C, device=tokens.device)
+    x = _embed(params, cfg, tokens[lo:lo + C])
+    k_all, v_all = [], []
+    for i, layer in enumerate(params["layers"]):
+        q, k, v = qkv_head(x, layer, lc, _layer_freqs(cfg, i, freqs), positions)
+        # sliding layers ride the same ring: hops wholly outside the window
+        # skip their update
+        attn = ring_attention_body(
+            sp, q, k, v, valid_len, window=cfg.layer_window(i), scale=cfg.attn_scale,
+            logit_softcap=cfg.attn_logit_softcap,
+        )
+        x = _attn_out(attn, x, layer, lc, group)
+        x = _mlp(x, layer, cfg, group)
+        k_full, v_full = sp.all_gather(k, dim=0), sp.all_gather(v, dim=0)
+        if paginate:
+            write_prefill_kv(cache_layer(k_cache, i), cache_layer(v_cache, i), k_full, v_full,
+                             block_table)
+        else:
+            k_all.append(k_full)
+            v_all.append(v_full)
+    # the last valid row lives on one rank of the line: the others add zeros
+    owner, row = divmod(valid_len - 1, C)
+    last = x[row][None, :] if sp.rank == owner else torch.zeros_like(x[:1])
+    last = sp.all_reduce(last.float()).to(x.dtype) if sp.world_size > 1 else last
+    logits = _logits(last, params, cfg, group)[0]
+    if paginate:
+        return logits
+    return logits, torch.stack(k_all), torch.stack(v_all)

@@ -2,8 +2,9 @@
 
 Counterpart of dynamo_tpu/models/mixtral.py: a Mixtral-style model is a
 ``LlamaConfig`` with ``num_experts`` > 0. The attention stack, the paged
-cache and the engine are the dense family's (models/llama.py); each layer's
-FFN routes through ops/moe.py. An HF ``config.json`` with
+cache, the context-parallel prefill and the engine are the dense family's
+(models/llama.py); each layer's FFN routes through ops/moe.py (its experts
+over the grid's ``ep`` axis when there is one). An HF ``config.json`` with
 ``num_local_experts`` reads into the same config (``from_hf_dict``), and
 engine/torch_engine/weights.py loads ``block_sparse_moe`` checkpoints.
 """
@@ -14,6 +15,7 @@ from dynamo_tpu_torch.models.llama import (  # noqa: F401 -- re-exported surface
     LlamaConfig,
     decode,
     prefill,
+    prefill_context_parallel,
 )
 
 MixtralConfig = LlamaConfig  # one family; num_experts > 0 is MoE

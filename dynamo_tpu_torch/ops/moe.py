@@ -1,7 +1,7 @@
 """Mixture-of-Experts: the top-k router and the experts' FFN dispatch.
 
-Counterpart of dynamo_tpu/ops/moe.py for one card or a tensor-parallel
-group (the JAX package's pure-TP mesh, ep = 1):
+Counterpart of dynamo_tpu/ops/moe.py, on one card, under a tensor-parallel
+group, and with the experts split over the grid's ``ep`` axis:
 
   * ``moe_ffn_dropless`` (the default): assignments sorted by expert, the
     three grouped products of ``_grouped_ffn``, a weighted combine. Exact
@@ -35,9 +35,19 @@ What differs from the JAX functions, and why:
     combined partials, which the dense MLP's row-parallel all-reduce takes
     (models/llama.py ``_mlp``).
 
-The expert-parallel forms (``moe_ffn_shard_map``, ``moe_ffn_ep_a2a``) need
-an ``ep`` axis the port's one-dimensional group does not have; they are not
-ported (the factory refuses ``expert_parallel_size`` > 1).
+  * the expert-parallel forms take the rank's TPGroup (parallel/mesh.py),
+    whose ``ep`` line holds the experts in equal blocks (each rank's wg /
+    wu / wd its block of n_exp / ep experts, each cut on F by ``tp``):
+    ``moe_ffn_shard_map`` (decode-sized batches) routes every token on every
+    rank, keeps only the assignments to its own experts and sums the ranks'
+    f32 outputs over ``tp`` then ``ep``; ``moe_ffn_ep_a2a`` (prefill-sized
+    batches) cuts the replicated tokens into ``ep`` blocks, routes its own,
+    ships them to their experts' ranks with ``all_to_all``, runs the grouped
+    FFN (the CUDA kernel on the card), sums its ``tp`` partials, ships the
+    results back, combines at the source and all-gathers the ``ep`` blocks
+    back into the replicated stream the rest of the layer reads (upstream the
+    output stays ep-sharded and GSPMD gathers it where it is read). The ep
+    sum runs in f32 before the cast, where the reference casts first.
 """
 
 from __future__ import annotations
@@ -250,3 +260,109 @@ def moe_ffn_dropless(
     if group is not None:
         y = group.all_reduce(y)
     return y.to(x.dtype)
+
+
+def moe_ffn_shard_map(
+    group,  # the rank's TPGroup; its ep line holds the experts
+    x: torch.Tensor,  # [T, D] replicated over the grid's ep line
+    router_w: torch.Tensor,  # [D, E] replicated
+    wg: torch.Tensor,  # [E / ep, D, F / tp] the rank's experts
+    wu: torch.Tensor,
+    wd: torch.Tensor,  # [E / ep, F / tp, D]
+    top_k: int,
+) -> torch.Tensor:
+    """Expert-parallel dropless MoE FFN with every token on every rank
+    (reference moe.py:235): each rank routes all T tokens (the router is
+    replicated, so every rank picks the same experts), computes only its
+    own experts' assignments (the others weighted 0), and the f32 outputs
+    are summed over ``tp`` (each expert's FFN slice) and then over ``ep``.
+    One sum of [T, D] in place of two all-to-alls: the form for decode-sized
+    batches."""
+    ep = group.ep
+    E = router_w.shape[-1]
+    if E % ep.world_size:
+        raise ValueError(f"{E} experts do not split into ep={ep.world_size}")
+    e_loc = wg.shape[0]
+    lo = ep.rank * e_loc
+    idx, weights = _router(x, router_w, top_k)
+    # the other ranks' assignments ride local expert 0's rows, weighted 0
+    local = (idx >= lo) & (idx < lo + e_loc)
+    y = _sorted_dispatch_combine(x, torch.where(local, idx - lo, 0),
+                                 torch.where(local, weights, 0.0), e_loc, wg, wu, wd)
+    y = group.tp.all_reduce(y)
+    return ep.all_reduce(y).to(x.dtype)
+
+
+def moe_ffn_ep_a2a(
+    group,  # the rank's TPGroup; its ep line holds the experts
+    x: torch.Tensor,  # [T, D] replicated over the ep line, T % ep == 0
+    router_w: torch.Tensor,  # [D, E]
+    wg: torch.Tensor,  # [E / ep, D, F / tp]
+    wu: torch.Tensor,
+    wd: torch.Tensor,  # [E / ep, F / tp, D]
+    top_k: int,
+    capacity_factor: Optional[float] = None,
+) -> torch.Tensor:
+    """Token-sharded expert-parallel MoE FFN (reference moe.py:304): this
+    rank takes block ``ep.rank`` of the T / ep tokens, routes them, buckets
+    each assignment into a [ep, cap, D] send buffer by its expert's rank (in
+    order of arrival), ships the buffers, the local expert ids and the valid
+    flags with three ``all_to_all``s, runs the grouped FFN over the rows it
+    received (sorted by local expert; invalid rows are zeros on expert 0),
+    sums the ``tp`` partials, ships the results back with one more
+    ``all_to_all``, and combines each token's kept assignments in f32,
+    renormalized over the weight that survived capacity. ``cap`` is
+    T_loc * k when ``capacity_factor`` is None (dropless), else
+    max(int(factor * T_loc * k / ep), k), assignments past it dropped.
+    Returns [T, D], the ep blocks all-gathered back into the replicated
+    stream."""
+    ep = group.ep
+    n = ep.world_size
+    E = router_w.shape[-1]
+    T, D = x.shape
+    if E % n or T % n:
+        raise ValueError(f"{E} experts and {T} tokens must both split into ep={n}")
+    e_loc = E // n
+    T_loc = T // n
+    xl = x[ep.rank * T_loc:(ep.rank + 1) * T_loc]
+    dev = x.device
+    idx, weights = _router(xl, router_w, top_k)  # [T_loc, k]
+    A = T_loc * top_k
+    dest = (idx // e_loc).reshape(A)
+    le = (idx % e_loc).reshape(A)
+    w_f = weights.reshape(A)
+    rows = torch.arange(A, device=dev) // top_k
+    onehot = F.one_hot(dest, n).to(torch.int64)  # [A, ep]
+    pos = (torch.cumsum(onehot, 0) - onehot).gather(1, dest[:, None])[:, 0]
+    if capacity_factor is None:
+        cap = T_loc * top_k  # dropless
+    else:
+        cap = max(int(capacity_factor * T_loc * top_k / n), top_k)
+    in_cap = pos < cap
+    slot = torch.where(in_cap, pos, cap)  # overflow -> the spill row
+    send_x = x.new_zeros(n, cap + 1, D)
+    send_x[dest, slot] = xl[rows]
+    send_le = torch.zeros(n, cap + 1, dtype=torch.int64, device=dev)
+    send_le[dest, slot] = le
+    send_ok = torch.zeros(n, cap + 1, dtype=torch.bool, device=dev)
+    send_ok[dest, slot] = in_cap
+    R = n * cap
+    recv_x = ep.all_to_all(send_x[:, :cap].reshape(R, D))
+    recv_le = ep.all_to_all(send_le[:, :cap].reshape(R))
+    recv_ok = ep.all_to_all(send_ok[:, :cap].reshape(R))
+    rle = torch.where(recv_ok, recv_le, 0)
+    rx = torch.where(recv_ok[:, None], recv_x, 0)
+    order, pos_sorted, offsets = expert_order(rle, e_loc)
+    ys = _grouped_ffn(rx.index_select(0, order).contiguous(), offsets, wg, wu, wd)
+    if group.tp.world_size > 1:  # each expert's wd rows are split over tp
+        ys = group.tp.all_reduce(ys.float()).to(x.dtype)
+    ys = ys.index_select(0, pos_sorted)  # back in received order
+    back = ep.all_to_all(ys).reshape(n, cap, D)
+    back = torch.cat([back, back.new_zeros(n, 1, D)], dim=1)  # the spill row reads zeros
+    contrib = back[dest, slot].float()  # [A, D]
+    w_kept = torch.where(in_cap, w_f, 0.0)
+    y = torch.zeros(T_loc, D, dtype=torch.float32, device=dev)
+    y.index_add_(0, rows, contrib * w_kept[:, None])
+    kept = torch.zeros(T_loc, dtype=torch.float32, device=dev).index_add_(0, rows, w_kept)
+    y = (y / kept.clamp_min(1e-9)[:, None]).to(x.dtype)
+    return ep.all_gather(y, dim=0)

@@ -57,7 +57,7 @@ def call_each(group, calls: Sequence[tuple]) -> list:
     return [fn(group, *args, **kwargs) for fn, args, kwargs in calls]
 
 
-def _rank_main(rank, world, method, backend, devices, timeout_s, threads, target, args,
+def _rank_main(rank, world, method, backend, devices, timeout_s, threads, axes, target, args,
                results) -> None:
     from dynamo_tpu_torch.parallel.mesh import TPGroup
 
@@ -66,7 +66,7 @@ def _rank_main(rank, world, method, backend, devices, timeout_s, threads, target
     group = None
     try:
         group = TPGroup(rank, world, init_method=method, backend=backend, devices=devices,
-                        timeout_s=timeout_s, idle_timeout_s=timeout_s)
+                        timeout_s=timeout_s, idle_timeout_s=timeout_s, axes=axes)
         with torch.inference_mode():
             out = target(group, *args)
         results.put((rank, True, to_host(out)))
@@ -86,8 +86,10 @@ def run_ranks(
     devices="cpu",
     timeout_s: float = 120.0,
     threads: int = 1,
+    axes=None,
 ) -> list:
-    """Spawn ``world`` ranks of a new group; rank r runs
+    """Spawn ``world`` ranks of a new group (a grid of ``axes`` sizes,
+    TPGroup's; default tp = world); global rank r runs
     ``target(group, *rank_args[r])`` (``target`` importable by name) and its
     result comes back through ``to_host``. Returns the results in rank
     order; raises RuntimeError with a rank's traceback when one fails, and
@@ -98,8 +100,8 @@ def run_ranks(
     method = init_method(free_port())
     procs = [
         ctx.Process(target=_rank_main, daemon=True, args=(
-            r, world, method, backend, devices, timeout_s, threads, target, tuple(rank_args[r]),
-            results))
+            r, world, method, backend, devices, timeout_s, threads, axes, target,
+            tuple(rank_args[r]), results))
         for r in range(world)
     ]
     for p in procs:

@@ -32,13 +32,27 @@ ranks' heads into the dense array on the leader, or scatters each rank only
 its own heads of the leader's (where the reference broadcasts the whole
 payload to every host, :390-427, :707-720).
 
-Multi-node bring-up (the fabric rendezvous and ``jax.distributed``-style
-initialisation) is not ported: ranks are processes of one node
-(engine/torch_engine/factory.py spawns them).
+The verify pass of speculative decoding rides ``OP_VERIFY``, which the
+reference's channel lacks (:50-59) because its verify pass runs as one
+program under its mesh (models/llama.py:849): here the leader's drafter
+proposes the drafts, the channel broadcasts the verify inputs and the
+number of chained steps E, and every rank runs the verify body on its head
+shard, the partials summed.
+
+The channel spans the whole rank grid (parallel/mesh.py): the leader is
+global rank 0, and every rank -- whatever its dp, sp, ep or tp coordinate
+-- replays every call; the collectives inside each call run over the axis
+lines the model names. Ranks may be processes of one node
+(engine/torch_engine/factory.py spawns them) or one process per node
+(multi-node bring-up, parallel/multinode.py): a node that is not the
+leader gets a ``FollowerHandle`` (:474 upstream) whose ``serve`` replays the
+channel, and whose ``serve_async`` follows the leader's liveness by its
+bring-up lease as well as by the broken broadcast.
 """
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import pickle
 import threading
@@ -48,6 +62,7 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.parallel.mesh import ScatterSpec
+from dynamo_tpu_torch.parallel.multinode import BARRIER_ID
 
 logger = logging.getLogger("dynamo_tpu_torch.parallel.multihost")
 
@@ -71,6 +86,9 @@ OP_MIXED = 10
 OP_LOGITS = 11
 OP_STATS = 12
 OP_KEEPALIVE = 13
+OP_VERIFY = 14
+OP_PREFILL_LOGITS = 15
+OP_VERIFY_LOGITS = 16
 
 _METHODS = {
     OP_DECODE: "decode",
@@ -80,6 +98,9 @@ _METHODS = {
     OP_DECODE_MULTI: "decode_multi",
     OP_MIXED: "mixed_step",
     OP_LOGITS: "decode_logits",
+    OP_VERIFY: "spec_verify",
+    OP_PREFILL_LOGITS: "prefill_logits",
+    OP_VERIFY_LOGITS: "verify_logits",
 }
 
 # the block moves (OP_EXTRACT / OP_INJECT), ridden by the method's name
@@ -99,7 +120,7 @@ class SpmdStepChannel:
 
     def __init__(self, group) -> None:
         self.group = group
-        self.is_leader = group.rank == 0
+        self.is_leader = group.global_rank == 0
         # the leader's control-group traffic (step broadcasts, keep-alives,
         # stats gathers) one exchange at a time, and when it last spoke
         self.lock = threading.RLock()
@@ -119,7 +140,7 @@ class SpmdStepChannel:
             buf = self.group.broadcast(torch.empty(int(header[1]), dtype=torch.uint8), control=True)
         except Exception as e:  # noqa: BLE001 - any broken broadcast means the leader is gone
             raise LeaderLostError(
-                f"rank {self.group.rank}: the leader's step broadcast failed ({e})") from e
+                f"rank {self.group.global_rank}: the leader's step broadcast failed ({e})") from e
         args, kwargs = pickle.loads(buf.numpy().tobytes())
         return int(header[0]), args, kwargs
 
@@ -222,6 +243,12 @@ class SpmdModelRunner:
     def decode_logits(self, tokens, positions, block_tables, slot_indices):
         return self._call(OP_LOGITS, tokens, positions, block_tables, slot_indices)
 
+    def prefill_logits(self, token_ids, block_ids):
+        return self._call(OP_PREFILL_LOGITS, list(token_ids), list(block_ids))
+
+    def verify_logits(self, tokens, positions, block_tables, slot_indices):
+        return self._call(OP_VERIFY_LOGITS, tokens, positions, block_tables, slot_indices)
+
     def decode_multi(self, H, tokens, positions, block_tables, temps, top_ps, top_ks, keys,
                      active, limit_remaining, min_remaining, eos_ids, penalties=None):
         # every rank runs the same H steps; a penalty batch's history rides
@@ -286,13 +313,15 @@ class SpmdModelRunner:
             raise ValueError(f"{len(pages)} planes for a cache of {len(self._runner._pages())}")
         return self._inject("inject_pages", block_ids, *pages)
 
-    def spec_verify(self, *args, **kwargs):
-        raise NotImplementedError("spec decode under tensor parallelism is not ported yet")
+    def spec_verify(self, spec_k, extras, *args, **kwargs):
+        # the drafts, the sampling keys and the chained steps' count ride
+        # the payload; every rank runs the verify body on its heads
+        return self._call(OP_VERIFY, int(spec_k), int(extras), *args, **kwargs)
 
     def rank_stats(self, reset: bool = False) -> list[dict]:
         """Every rank's ``rank_stats`` (launch counters, peak memory,
-        collective counters), in rank order; each set to 0 after reading
-        with ``reset``."""
+        collective counters), in global rank order; each set to 0 after
+        reading with ``reset``."""
         with self._channel.lock:
             self._channel.send(OP_STATS, (reset,))
             return self._runner.group.gather_objects(rank_stats(self._runner.group, reset))
@@ -318,14 +347,88 @@ class SpmdModelRunner:
         group.close()
 
 
-def follower_loop(runner, channel: SpmdStepChannel) -> list[dict]:
+class FollowerHandle:
+    """What a node that is not the leader gets from the factory in place of
+    an engine (the reference's, multihost.py:474): ``serve()`` replays the
+    leader's runner calls until it stops, then leaves the grid.
+
+    ``serve_async()`` runs that replay on a daemon thread and follows the
+    leader's liveness: a leader that dies closes its connections, which the
+    waiting broadcast sees (LeaderLostError); with a fabric, a follower that
+    has seen no step for ``idle_grace_s`` also looks for the barrier's data
+    key, which lives under the leader's bring-up lease, and raises
+    LeaderLostError when it is gone. The leader keeps that lease alive for
+    the engine's lifetime; a quiet leader whose key is there is waited for.
+    After LeaderLostError the replay thread may still sit inside a
+    collective: leave the process (``os._exit``)."""
+
+    def __init__(self, runner, channel: SpmdStepChannel, fabric=None,
+                 barrier_id: str = BARRIER_ID, idle_grace_s: float = 10.0) -> None:
+        self.runner = runner
+        self.channel = channel
+        self.fabric = fabric
+        self.barrier_id = barrier_id
+        self.idle_grace_s = idle_grace_s
+        self.final_stats: list[dict] | None = None
+        self._progress = 0
+
+    def _bump(self) -> None:
+        self._progress += 1
+
+    def serve(self) -> list[dict]:
+        """Replay until OP_STOP, leave the grid, return every rank's final
+        stats. Raises LeaderLostError when the leader goes away."""
+        self.final_stats = follower_loop(self.runner, self.channel, progress_cb=self._bump)
+        self.channel.group.close()
+        return self.final_stats
+
+    async def serve_async(self) -> list[dict]:
+        done = threading.Event()
+        errs: list[BaseException] = []
+
+        def run() -> None:
+            try:
+                self.serve()
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errs.append(e)
+            finally:
+                done.set()
+
+        threading.Thread(target=run, daemon=True, name="spmd-follower").start()
+        loop = asyncio.get_running_loop()
+        last_progress, last_change = self._progress, loop.time()
+        while not done.is_set():
+            await asyncio.sleep(0.5)
+            if self._progress != last_progress:
+                last_progress, last_change = self._progress, loop.time()
+                continue
+            if self.fabric is not None and loop.time() - last_change > self.idle_grace_s:
+                key = f"barriers/{self.barrier_id}/data"
+                try:
+                    alive = await self.fabric.kv_get(key) is not None
+                except Exception:  # noqa: BLE001 - the fabric itself is gone
+                    alive = False
+                if not alive:
+                    raise LeaderLostError(
+                        f"no step for {self.idle_grace_s:.0f} s and the leader's barrier "
+                        f"lease ({key}) is gone")
+                last_change = loop.time()
+        if errs:
+            raise errs[0]
+        return self.final_stats
+
+
+def follower_loop(runner, channel: SpmdStepChannel, progress_cb=None) -> list[dict]:
     """Run on every follower: replay the leader's runner calls until
     OP_STOP, then hand this rank's ``rank_stats`` (its launch counters
     among them) back. Raises LeaderLostError when the leader goes away.
-    Returns every rank's final stats."""
+    ``progress_cb`` fires after every received step. Returns every rank's
+    final stats."""
     group = channel.group
     while True:
         op, args, kwargs = channel.recv()
+        if progress_cb is not None:
+            progress_cb()
         if op == OP_STOP:
             return group.gather_objects(rank_stats(group))
         if op == OP_STATS:

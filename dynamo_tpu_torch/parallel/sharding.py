@@ -1,4 +1,5 @@
-"""Megatron-style tensor-parallel sharding of the llama family's parameters.
+"""Megatron-style tensor-parallel sharding of the llama family's
+parameters, with the experts split over ``ep``.
 
 Counterpart of dynamo_tpu/parallel/sharding.py:63-122. The JAX package
 places the whole parameter tree on a mesh with NamedShardings and lets
@@ -12,22 +13,27 @@ issues the collectives itself. The layout is the reference's
   wg / wu       [E, F]          -> column parallel
   wd            [F, E]          -> row parallel
   lm_head       [E, V]          -> vocab split; the logits all-gathered
-  MoE wg / wu   [n_exp, E, F]   -> every expert's FFN columns split
-  MoE wd        [n_exp, F, E]   -> every expert's FFN rows split (the
-                                   dropless combine's f32 partials are
-                                   summed, ops/moe.py)
+  MoE wg / wu   [n_exp, E, F]   -> experts split over ep, each expert's
+                                   FFN columns over tp
+  MoE wd        [n_exp, F, E]   -> experts split over ep, each expert's
+                                   FFN rows over tp (the combine's f32
+                                   partials are summed, ops/moe.py)
   MoE router    [E, n_exp]      -> replicated
   embed, norms                  -> replicated
   Qwen2 bq / bk / bv            -> split with their columns
   kv cache      [L, Hkv, N, Bs, D] -> kv heads split (each rank's runner
-                                   allocates Hkv / tp heads)
+                                   allocates Hkv / tp heads), replicated over
+                                   dp, sp and ep
 
 int8 weights (``{"q": int8 [in, out], "s": bf16 [out]}``) keep their
 per-output-channel scales beside their mantissas: a column split cuts both,
 a row split cuts the mantissas and keeps every scale (``_shard_linear``,
-:52-60). The experts are placed as the reference places them on a mesh
-whose ep axis is 1 (:101-109): each rank holds every expert's FFN slice.
-Rank r's slice is block r of tp equal blocks.
+:52-60). The experts are placed as the reference places them (:101-109,
+``P("ep", None, "tp")``): the rank at ep coordinate e holds experts
+[e * n_exp / ep, (e + 1) * n_exp / ep), each cut on its FFN width by the tp
+coordinate; with ep = 1 each rank holds every expert's FFN slice. Everything
+else is replicated over dp, sp and ep. Rank r's slice is block r of tp
+equal blocks.
 """
 
 from __future__ import annotations
@@ -43,12 +49,15 @@ BIAS = ("bq", "bk", "bv")
 EXPERTS = {"wg": 2, "wu": 2, "wd": 1}
 
 
-def check_shardable(cfg, tp: int) -> None:
+def check_shardable(cfg, tp: int, ep: int = 1) -> None:
     """Raise ValueError when ``cfg``'s shapes do not split into ``tp``
-    equal slices (the reference checks the kv heads, :72-76; the port also
-    needs whole query heads, FFN and vocab blocks, since each rank holds
-    plain tensors rather than padded shards; an MoE model's experts split
-    on the same intermediate_size)."""
+    equal slices, or its experts into ``ep`` (the reference checks the kv
+    heads and the experts, :72-81; the port also needs whole query heads,
+    FFN and vocab blocks, since each rank holds plain tensors rather than
+    padded shards; an MoE model's experts split on the same
+    intermediate_size)."""
+    if cfg.num_experts and cfg.num_experts % ep:
+        raise ValueError(f"num_experts={cfg.num_experts} not divisible by ep={ep}")
     for what, n in (
         ("num_kv_heads", cfg.num_kv_heads),
         ("num_heads", cfg.num_heads),
@@ -66,13 +75,16 @@ def _block(t: torch.Tensor, dim: int, rank: int, tp: int) -> torch.Tensor:
     return t.narrow(dim, rank * n, n).clone(memory_format=torch.contiguous_format)
 
 
-def shard_leaf(name: str, w: Any, rank: int, tp: int) -> Any:
-    """Rank ``rank``'s slice of the parameter leaf called ``name`` (a layer
-    key, or ``embed`` / ``final_norm`` / ``lm_head``)."""
+def shard_leaf(name: str, w: Any, rank: int, tp: int, ep_rank: int = 0, ep: int = 1) -> Any:
+    """The slice of the parameter leaf called ``name`` (a layer key, or
+    ``embed`` / ``final_norm`` / ``lm_head``) held at tp coordinate
+    ``rank`` of ``tp`` and ep coordinate ``ep_rank`` of ``ep``."""
+    if name in EXPERTS and isinstance(w, torch.Tensor) and w.dim() == 3:  # an MoE [E, in, out] stack
+        if ep > 1:
+            w = _block(w, 0, ep_rank, ep)
+        return w if tp == 1 else _block(w, EXPERTS[name], rank, tp)
     if tp == 1:
         return w
-    if name in EXPERTS and isinstance(w, torch.Tensor) and w.dim() == 3:  # an MoE [E, in, out] stack
-        return _block(w, EXPERTS[name], rank, tp)
     if name in COLUMN:
         if isinstance(w, dict):
             return {"q": _block(w["q"], 1, rank, tp), "s": _block(w["s"], 0, rank, tp)}
@@ -88,11 +100,17 @@ def shard_leaf(name: str, w: Any, rank: int, tp: int) -> Any:
 
 def shard_llama(group, cfg, params: dict) -> dict:
     """The rank's own slice of a full parameter dict (``group`` is the
-    rank's TPGroup). Raises when the shapes do not split evenly."""
+    rank's TPGroup: its tp coordinate and size, and its ep coordinate and
+    size on a grid with an ep axis). Raises when the shapes do not split
+    evenly."""
     rank, tp = group.rank, group.world_size
-    check_shardable(cfg, tp)
-    out = {k: shard_leaf(k, v, rank, tp) for k, v in params.items() if k != "layers"}
-    out["layers"] = [
-        {k: shard_leaf(k, v, rank, tp) for k, v in layer.items()} for layer in params["layers"]
-    ]
+    ep_axis = getattr(group, "ep", None)
+    ep_rank, ep = (ep_axis.rank, ep_axis.world_size) if ep_axis is not None else (0, 1)
+    check_shardable(cfg, tp, ep)
+
+    def leaf(k, v):
+        return shard_leaf(k, v, rank, tp, ep_rank, ep)
+
+    out = {k: leaf(k, v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: leaf(k, v) for k, v in layer.items()} for layer in params["layers"]]
     return out

@@ -24,9 +24,10 @@ Everything is f32, so the bars are the reference's own held tighter:
   tp = 2 ``JaxEngine``'s (``build_mesh(tp=2)``), and its expert slices equal
   the JAX shards;
 * ``param_count`` and ``default_num_blocks`` equal the JAX factory's for
-  Mixtral-8x7B, bf16 and int8 weights; expert parallelism raises
-  NotImplementedError; the card refuses MoE shapes the grouped kernel does
-  not take, before any request.
+  Mixtral-8x7B, bf16 and int8 weights; an ep axis the experts do not split
+  over raises ValueError (expert parallelism itself: test_torch_moe_ep.py);
+  the card refuses MoE shapes the grouped kernel does not take, before any
+  request.
 """
 
 import asyncio
@@ -483,8 +484,11 @@ def test_graph_pool_room_comes_out_of_the_block_budget():
 
 
 def test_expert_parallelism_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="moe_ffn_shard_map / moe_ffn_ep_a2a"):
-        tfactory.build_torch_engine(tmix.tiny_moe(), device="cpu", expert_parallel_size=2)
+    """Expert parallelism is ported (tests/test_torch_moe_ep.py): what the
+    factory still refuses is an ep axis the experts do not split over, and
+    it does so before any rank is spawned."""
+    with pytest.raises(ValueError, match="num_experts=4 not divisible by ep=3"):
+        tfactory.build_torch_engine(tmix.tiny_moe(), device="cpu", expert_parallel_size=3)
 
 
 def test_the_card_refuses_moe_shapes_the_grouped_kernel_does_not_take():

@@ -24,8 +24,8 @@ held tighter:
   the ring tail too; every rank holds its share of the kv heads and its
   follower processes end cleanly;
 * a follower whose leader goes away leaves with LeaderLostError (exit 3);
-  spec decode with tensor parallelism raises; a group larger than the
-  card count raises.
+  CUDA graphs under a group (spec decode's too) raise; a group larger than
+  the card count raises.
 """
 
 import asyncio
@@ -355,9 +355,13 @@ def test_a_follower_leaves_when_its_leader_dies(capfd):
 
 
 def test_spec_decode_with_tensor_parallelism_raises():
-    with pytest.raises(ValueError, match="spec decode .* tensor parallelism"):
+    """Spec decode under tensor parallelism is ported
+    (tests/test_torch_spec_tp.py): what still raises is asking for CUDA
+    graphs under the group, which the verify pass would ride, before any
+    rank is spawned."""
+    with pytest.raises(ValueError, match="CUDA graphs are not captured under a tensor-parallel"):
         build_torch_engine(tl.LlamaConfig.tiny(vocab_size=VOCAB), device="cpu",
-                           tensor_parallel_size=2, spec_k=3)
+                           tensor_parallel_size=2, spec_k=3, cuda_graphs=True)
 
 
 def test_a_group_larger_than_the_card_count_raises():
