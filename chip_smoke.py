@@ -8,6 +8,12 @@ Phases, each of which must pass or the script exits non-zero:
   1. device  -- the card's name, count and power limit (nvidia-smi);
   2. build   -- every CUDA kernel of the serving path, built from
                 dynamo_tpu_torch/csrc/ with nvcc for sm_90a, all at once;
+  2b. prebake -- tools/prebake.py (--model-path, --device cuda) on a
+                Llama-3.1-8B-width directory at 16 layers with serve's
+                shapes (max_batch 8, every bucket to 4096, H 4, spec_k 3)
+                against this script's kernel directory: every library a
+                cache hit, nvcc run 0 times, the decode graphs captured and
+                listed in the manifest, the tool's wall time;
   3. parity  -- each kernel against its plain PyTorch version on the card,
                 at Llama-3.1-8B shapes (Hq 32, Hkv 8, D 128, block 16,
                 hidden 4096), with the window / scale / softcap variants,
@@ -50,11 +56,37 @@ Phases, each of which must pass or the script exits non-zero:
                 mixed steps), the other four 0), a repeat-identical run and
                 the dense reference on the shortest and the longest
                 (chunked) prompt;
+  6b. serve_mm -- multimodal serving on the serve phase's weights: an
+                encode worker in process with a tower of CLIP ViT-L/14-336's
+                shape (576 patches, hidden 1024, 24 layers; seeded weights),
+                MultimodalEngine over a TorchEngine (EAGER, max_model_len
+                8192) on the device path: four image chats (PNG data URLs
+                this script writes, read by the port's stdlib reader) and an
+                8-frame clip (an animated PNG) at once, 64 text tokens each;
+                checks #3 = L x mm prefills (one per request) and #1 = L x
+                decode steps, no Stored KV event from an mm sequence, the
+                same image's greedy tokens equal on the device path and the
+                wire path (an encode worker behind an in-process fabric), one
+                request's prefill_mm logits within MM_TOL of the row max of
+                the same spliced embeddings through the plain attention op,
+                text-only logits apart from them, the same image encoded
+                twice bitwise equal; prints the tower's encode, prefill_mm
+                and image TTFT times. Then graphs/multimodal.py over HTTP
+                (the fabric, the encode worker with the full-size tower, a
+                worker at full width and CKPT_LAYERS depth, the frontend):
+                one streamed image chat;
   7. checkpoint -- a 2-layer, full-width bf16 Llama-3.1-8B checkpoint
                 written by this script's own safetensors writer, loaded by
                 build_torch_engine(<dir>): the loaded weights equal the
                 written ones bit for bit, and its greedy tokens equal an
-                engine's built from the same arrays through params=;
+                engine's built from the same arrays through params=; then a
+                2-layer, full-width .gguf (this script's own writer: F16
+                embeddings, output and MLP, F32 norms, Q8_0 attention, llama
+                SentencePiece tokenizer metadata) in an HF-cache-shaped
+                directory, resolved by repo id through DYN_MODEL_CACHE and
+                loaded by build_torch_engine: its weights equal the script's
+                own dequantization in bf16 bit for bit, its card serves the
+                embedded tokenizer, its greedy tokens equal params='s;
   8. times   -- each kernel, its plain version and the PyTorch yardstick
                 timed with CUDA events, beside the kernel's bound (and the
                 kernel / yardstick ratio where the yardstick is one call),
@@ -102,12 +134,19 @@ Phases, each of which must pass or the script exits non-zero:
                 through HTTP and engine-direct in a process of its own
                 alive beside the server (started as the server's is),
                 medians and the per-pair difference. Also the host time
-                of templating + tokenizing a 2000-token prompt.
+                of templating + tokenizing a 2000-token prompt. On the same
+                server: POST /v1/embeddings with two inputs (4096 finite
+                floats each, different, ``usage``; within MM_TOL of the plain
+                op's embed_pooled over the same weights; the server's #3
+                launches = L x 2, all of them the embeddings'), GET
+                /debug/profile?seconds=1 while a request streams (200, then
+                409; the window's trace holds kernel events and dispatch
+                labels), and an image part answered 501 (a text-only model).
 
  11. serve_tp -- tensor-parallel serving on one card (before serve_http):
                 build_torch_engine(tensor_parallel_size=2, tp_backend="gloo",
                 tp_devices=["cuda:0", "cuda:0"], fused_decode=True) at full
-                width and 8 of the 32 layers (TP_MODEL), bf16 then int8
+                width and 4 of the 32 layers (TP_MODEL), bf16 then int8
                 weights + int8 KV, each beside a one-card engine on the same
                 seeded weights: the first decode step's logits within
                 TP_LOGIT_TOL of the one-card engine's, four of serve's
@@ -127,7 +166,10 @@ Phases, each of which must pass or the script exits non-zero:
                 bitwise on each rank (the group's gather, and the leader's own
                 head slice), every stream within 0.25 of the dense reference.
                 Two ranks on one card over gloo check correctness and say
-                nothing of collective speed across cards. The parallel legs
+                nothing of collective speed across cards. On the bf16 leg's
+                engines also an image's prefill_mm logits (OP_MM_PREFILL)
+                and a pooled embedding (OP_EMBED) within TP_LOGIT_TOL of one
+                card's, #3 2 x L a rank. The parallel legs
                 (PR 21): on the bf16 leg's engines, spec decode under the
                 group -- the verify pass's logits (``verify_logits``) within
                 TP_LOGIT_TOL of one card's, then eight greedy prompts served
@@ -300,7 +342,10 @@ Phases, each of which must pass or the script exits non-zero:
                 first and, once its first token is back, its 3 followers 0.3 s
                 apart while it decodes (the frontends' and the router's
                 health planes score without deweighting or ejecting:
-                ``KV_HEALTH_ENV``); the
+                ``KV_HEALTH_ENV``; after the warm-up each worker's health
+                score from both frontends must be under the default eject
+                ratio 3.0: a capturing dispatch's gaps stay out of
+                ``inter_token`` and the scorer's ``pace``, C15); the
                 worker that admitted each request (its id in the workers'
                 SIGUSR1 stats) and the prefix blocks its tier held. Prints the
                 share of followers on their leader's worker, follower TTFT
@@ -466,8 +511,8 @@ L is the layer count of the phase's model: Llama-3.1-8B's width at
 MAIN_LAYERS (16) of its 32 layers in serve, serve_spec, serve_default,
 serve_int8, times, serve_horizon and serve_disagg (and the fleet phases
 below), every kernel at its full-width shapes; serve_offload, serve_peer,
-serve_disagg_fabric and serve_ops run all 32, serve_tp 8 (TP_MODEL),
-checkpoint 2.
+serve_disagg_fabric and serve_ops run all 32, serve_tp 4 (TP_MODEL),
+serve_trace_faults 8 (TF_MODEL), checkpoint 2.
 
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
 decode_horizon=1, cuda_graphs=False), the path they measured before the
@@ -475,9 +520,10 @@ horizon, so their launch equalities count one step a dispatch and their
 times compare with earlier runs; checkpoint (7), serve_http (10),
 serve_moe (13) and the workers of serve_fabric (16), serve_kv (17),
 serve_disagg_fabric (18), serve_trace_faults (19) and serve_ops (21) run
-build_torch_engine's defaults. serve_http, serve_fabric, serve_kv and
-serve_trace_faults serve FLEET_MODEL (Llama-3.1-8B's width at 16 of its 32
-layers); serve_disagg_fabric and serve_ops the full 32.
+build_torch_engine's defaults. serve_http, serve_fabric and serve_kv serve
+FLEET_MODEL (Llama-3.1-8B's width at 16 of its 32 layers),
+serve_trace_faults TF_MODEL (8); serve_disagg_fabric and serve_ops the
+full 32.
 
 Before its last lines the script stops every process the run left alive
 (each one logged; SIGTERM, then SIGKILL) and waits until it is gone; a
@@ -489,6 +535,7 @@ object with a row per kernel; the last line is {"ok": true, "device":
 from __future__ import annotations
 
 import asyncio
+import collections
 import copy
 import dataclasses
 import gc
@@ -1996,6 +2043,10 @@ def phase_checkpoint(torch, np, card: str) -> dict:
         f"by build_torch_engine(<dir>) in {t_load:.1f} s; weights bit-identical; greedy "
         f"tokens equal params= over {len(reqs)} requests")
     print(json.dumps({"checkpoint": res, "card": card}), flush=True)
+    del loaded, same, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["gguf"] = gguf_leg(torch, np, card)
     return res
 
 
@@ -2729,9 +2780,10 @@ PARTIAL_SHAPES = {
     "llama31_70b_tp8": (64 * D // 8, 8192, 8192, 0),
 }
 TP = 2
-# serve_tp runs Llama-3.1-8B's width at 8 of its 32 layers (its legs'
-# checks hold at any depth; PERF.md keeps the 32-layer rows)
-TP_MODEL = dict(LLAMA31_8B, num_hidden_layers=8)
+# serve_tp runs Llama-3.1-8B's width at 4 of its 32 layers (its legs'
+# checks hold at any depth; PERF.md keeps the 32-layer rows): 8 until the
+# multimodal slice cut it to make room for its own legs
+TP_MODEL = dict(LLAMA31_8B, num_hidden_layers=4)
 TP_BLOCKS = 2112  # per rank: two ranks share the card, so the pool is set here
 TP_REQUESTS = (0, 2, 4, 7)  # serve's 16-, 300-, 800- and 2000-token prompts
 TP_TIER_GB = "4"  # DYN_KV_HOST_OFFLOAD_GB of the tp = 2 group's tiers leg
@@ -3746,13 +3798,16 @@ def phase_serve_tp(torch, np, card: str) -> dict:
     every = make_requests(np, PreprocessedRequest, SamplingOptions, StopConditions)
     reqs = [every[i] for i in TP_REQUESTS]
     def spec_and_cp_reference(one, engine):
-        return {"spec": serve_tp_spec(torch, np, card, one, engine, Context, FinishReason),
+        # the mm leg first: closing the spec leg's engines stops the followers
+        return {"mm": serve_tp_mm(torch, np, card, one, engine),
+                "spec": serve_tp_spec(torch, np, card, one, engine, Context, FinishReason),
                 "cp_reference": cp_reference(torch, np, one, Context)}
 
     legs = {"bf16": serve_tp_leg(torch, np, card, False, reqs, Context, FinishReason,
                                  after=spec_and_cp_reference)}
     done = legs["bf16"].pop("after")
     legs["spec"] = done["spec"]
+    legs["mm"] = done["mm"]
     gc.collect()
     torch.cuda.empty_cache()
     legs["int8"] = serve_tp_leg(torch, np, card, True, reqs, Context, FinishReason)
@@ -3875,30 +3930,31 @@ def llama3_style_tokenizer_json(n_regular: int = 128000, seed: int = 0) -> str:
     })
 
 
-# the fleet phases' model (serve_http, serve_fabric, serve_kv,
-# serve_trace_faults): the main phases' cut depth, so their processes start,
+# the fleet phases' model (serve_http, serve_fabric, serve_kv;
+# serve_trace_faults has TF_MODEL): the main phases' cut depth, so their processes start,
 # prefill and ship K/V in half the time; serve_disagg_fabric (whose 256-block
 # payload must pass the fabric's 512 MiB frame) and serve_ops (whose hedging
 # leg is sized to the full depth's TTFT) keep 32
 FLEET_MODEL = MAIN_MODEL
 
 
-def write_serve_dir(config: Optional[dict] = None) -> str:
+def write_serve_dir(config: Optional[dict] = None, directory: str = SERVE_DIR) -> str:
     """``config`` (default: the published Llama-3.1-8B config.json), the
-    script's tokenizer.json and a Llama-3-style tokenizer_config.json; no
-    weights, so the CLI serves seeded random bf16 weights."""
-    os.makedirs(SERVE_DIR, exist_ok=True)
-    for name in os.listdir(SERVE_DIR):
+    script's tokenizer.json and a Llama-3-style tokenizer_config.json in
+    ``directory``; no weights, so the CLI serves seeded random bf16
+    weights."""
+    os.makedirs(directory, exist_ok=True)
+    for name in os.listdir(directory):
         if name.endswith(".safetensors"):
-            raise SmokeError(f"{SERVE_DIR} holds weights ({name}); this phase serves random ones")
-    with open(os.path.join(SERVE_DIR, "config.json"), "w") as f:
+            raise SmokeError(f"{directory} holds weights ({name}); this phase serves random ones")
+    with open(os.path.join(directory, "config.json"), "w") as f:
         json.dump(config or LLAMA31_8B, f)
-    with open(os.path.join(SERVE_DIR, "tokenizer.json"), "w") as f:
+    with open(os.path.join(directory, "tokenizer.json"), "w") as f:
         f.write(llama3_style_tokenizer_json())
-    with open(os.path.join(SERVE_DIR, "tokenizer_config.json"), "w") as f:
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as f:
         json.dump({"chat_template": LLAMA3_CHAT_TEMPLATE, "bos_token": NAMED_SPECIALS[128000],
                    "eos_token": NAMED_SPECIALS[128009]}, f)
-    return SERVE_DIR
+    return directory
 
 
 def prompt_words(tokenizer, n_tokens: int, seed: int) -> str:
@@ -4277,6 +4333,17 @@ def phase_serve_http(torch, np, card: str) -> dict:
             out["concurrent"] = [{k: r[k] for k in ("finish", "usage", "ttft_s", "itl_ms_mean",
                                                     "text")}
                                  for r in results]
+            out["embeddings"] = http_embeddings(port, tok, [contents[0], contents[2]])
+            out["profile"] = http_profile(port, chat_body(contents[1], 48, nvext={"ignore_eos": True}))
+            # an image part to this text-only model
+            st, data = http_call(port, "POST", "/v1/chat/completions", {
+                "model": "llama31-8b", "max_tokens": 4, "messages": [{"role": "user", "content": [
+                    {"type": "image_url", "image_url": {"url": data_url(
+                        "image/png", png_bytes(np, np.zeros((8, 8, 3), np.uint8)))}},
+                    {"type": "text", "text": "what is this"}]}]})
+            if st != 501 or b"not_implemented" not in data:
+                raise SmokeError(f"an image to the text-only server answered {st}: {data[:200]!r}")
+            log("serve_http: an image part to the text-only model answered 501")
 
             # one non-streamed completion
             st, data = http_call(port, "POST", "/v1/completions", {
@@ -4323,6 +4390,11 @@ def phase_serve_http(torch, np, card: str) -> dict:
     launches = stats["kernel_launches"]
     if launches["paged_decode_attention"] <= 0:
         raise SmokeError(f"the HTTP phase launched no #1: {launches}")
+    # the server chunks and packs every prompt: #3 ran for the embeddings alone
+    n_embed = len(out["embeddings"]["ids"])
+    if launches["flash_prefill_attention"] != FLEET_MODEL["num_hidden_layers"] * n_embed:
+        raise SmokeError(f"the server's #3 launches {launches['flash_prefill_attention']} != "
+                         f"{FLEET_MODEL['num_hidden_layers']} x {n_embed} embeddings")
     log(f"serve_http: server kernel launches {launches}, generated {stats['generated_tokens']} tokens")
 
     # the lone request engine-direct in this process, the card now free
@@ -4351,6 +4423,19 @@ def phase_serve_http(torch, np, card: str) -> dict:
             await engine.close()
 
     out["direct_lone"] = asyncio.run(direct())
+    # the embeddings against the plain op's embed_pooled over the same weights
+    emb = out["embeddings"]
+    errs = []
+    for ids, vec in zip(emb["ids"], emb["vectors"]):
+        want = plain_embed(torch, engine.runner, ids)
+        got = torch.tensor(vec, device=want.device)
+        errs.append(float((got - want).abs().max() / want.abs().max()))
+    if not all(e <= MM_TOL for e in errs):
+        raise SmokeError(f"serve_http: embeddings {errs} of the plain op's max apart (tol {MM_TOL})")
+    log(f"serve_http: /v1/embeddings within {max(errs):.4f} of the plain op's embed_pooled; "
+        f"#3 {launches['flash_prefill_attention']} on the server")
+    emb["plain_rel_err"] = errs
+    del emb["vectors"]
     del engine, execution
     gc.collect()
     torch.cuda.empty_cache()
@@ -4382,9 +4467,69 @@ def phase_serve_http(torch, np, card: str) -> dict:
         "lone_http_minus_direct_ms": {"ttft": d_ttft, "itl": d_itl},
         "decode_launches_server": launches["paged_decode_attention"],
         **{k: out[k] for k in ("server_start_s", "concurrent_wall_s", "concurrent",
-                               "completion_usage", "after_close_s", "server_exit")},
+                               "completion_usage", "after_close_s", "server_exit",
+                               "embeddings", "profile")},
     }}), flush=True)
     return out
+
+
+def http_embeddings(port: int, tok, texts: list) -> dict:
+    """POST /v1/embeddings with two inputs: a vector of the hidden size
+    each, finite, the two different; ``usage`` counts their tokens."""
+    import math
+
+    ids = [tok.encode(t).ids for t in texts]
+    t0 = time.perf_counter()
+    st, data = http_call(port, "POST", "/v1/embeddings", {"model": "llama31-8b", "input": texts})
+    ms = (time.perf_counter() - t0) * 1e3
+    if st != 200:
+        raise SmokeError(f"/v1/embeddings answered {st}: {data[:300]!r}")
+    doc = json.loads(data)
+    vecs = [d["embedding"] for d in doc["data"]]
+    if len(vecs) != 2 or any(len(v) != HIDDEN or not all(map(math.isfinite, v)) for v in vecs) or (
+            vecs[0] == vecs[1]) or doc["usage"]["prompt_tokens"] != sum(map(len, ids)):
+        raise SmokeError(f"/v1/embeddings: {[len(v) for v in vecs]} floats, usage {doc['usage']}")
+    log(f"serve_http: /v1/embeddings of {[len(i) for i in ids]} tokens answered in {ms:.1f} ms")
+    return {"ms": ms, "tokens": [len(i) for i in ids], "ids": ids, "vectors": vecs,
+            "usage": doc["usage"]}
+
+
+def http_profile(port: int, body: dict) -> dict:
+    """GET /debug/profile?seconds=1 while a request streams: 200, then 409
+    on a second call; once the window closes its trace holds the card's
+    kernels and the engine's dispatch labels."""
+    prof_dir = os.path.join(SERVE_DIR, "profile")
+    with ThreadPoolExecutor(1) as pool:
+        streaming = pool.submit(stream_chat, port, body)
+        time.sleep(0.2)
+        st1, d1 = http_call(port, "GET", f"/debug/profile?seconds=1&dir={prof_dir}")
+        st2, d2 = http_call(port, "GET", "/debug/profile?seconds=1")
+        streaming.result()
+    if st1 != 200 or st2 != 409:
+        raise SmokeError(f"/debug/profile answered {st1} then {st2}: {d1[:200]!r} {d2[:200]!r}")
+    trace_path = os.path.join(json.loads(d1)["profile_dir"], "trace.json")
+    t0 = time.perf_counter()
+    while not os.path.exists(trace_path):
+        if time.perf_counter() - t0 > 60:
+            raise SmokeError(f"the profile window wrote no {trace_path}")
+        time.sleep(0.5)
+    time.sleep(1.0)  # the exporter's last bytes
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    cats = collections.Counter(e.get("cat") for e in events)
+    labels = sorted({e["name"] for e in events if e.get("cat") == "user_annotation"})
+    dispatches = [n for n in labels if n.split("@")[0] in DISPATCH_LABELS]
+    if not cats.get("kernel") or not dispatches:
+        raise SmokeError(f"the profile trace holds {dict(cats)} and annotations {labels}")
+    log(f"serve_http: /debug/profile 200 then 409; the window's trace holds {cats['kernel']} "
+        f"kernel events and the dispatch labels {dispatches}")
+    return {"kernel_events": cats["kernel"], "dispatch_labels": dispatches,
+            "bytes": os.path.getsize(trace_path)}
+
+
+# the engine's dispatch labels (TorchEngine._device), which profile windows name
+DISPATCH_LABELS = ("decode", "decode_multi", "prefill", "prefill_packed", "prefill_chunk",
+                   "mixed_step", "spec_verify", "prefill_mm", "embed")
 
 
 # ------------------------------------------------------------ serve_fabric
@@ -4846,6 +4991,7 @@ KV_FOLLOWERS_ON_LEADER = 11  # of the KV_GROUPS * KV_FOLLOWERS kv followers, at 
 # request lands (and round robin kept to one worker); serve_ops drives
 # deweighting and ejection
 KV_HEALTH_ENV = {"DYN_DEWEIGHT_RATIO": "1e9", "DYN_EJECT_INTERVALS": "1000000"}
+KV_EJECT_RATIO = 3.0  # the health plane's default DYN_EJECT_RATIO (telemetry/health.py)
 
 
 def kv_stream(port: int, ids: list, rid: str, marks: Optional[dict] = None) -> dict:
@@ -5105,15 +5251,35 @@ def phase_serve_kv(torch, np, card: str) -> dict:
         warm = [[int(t) for t in rng.integers(256 + 26, 128000, size=int(n))]
                 for n in rng.integers(64, 1100, size=11)]
         with ThreadPoolExecutor(8) as pool:
-            list(pool.map(lambda k: kv_stream(rport, warm[k], f"warm-{k}"), range(8)))
+            warm_out = list(pool.map(lambda k: kv_stream(rport, warm[k], f"warm-{k}"), range(8)))
         for k in range(8, 11):
-            kv_stream(rport if k < 10 else kport, warm[k], f"warm-{k}")
+            warm_out.append(kv_stream(rport if k < 10 else kport, warm[k], f"warm-{k}"))
         base = worker_stats()
+        # each warm-up request: the worker that served it, its prompt tokens
+        # and its TTFT as the client saw it
+        warm_rows = {a["id"]: [w, a["prompt_tokens"]] for w in workers for a in base[w]["admissions"]}
+        out["warmup"] = [[f"warm-{k}", *warm_rows.get(f"warm-{k}", ["?", len(warm[k])]),
+                          round(o["ttft_ms"], 1)] for k, o in enumerate(warm_out)]
+        log(f"serve_kv: the warm-up [request, worker, prompt tokens, TTFT ms]: {out['warmup']}")
         warmed = {w: base[w]["generated_tokens"] for w in workers}
         if not all(warmed.values()):
             raise SmokeError(f"the warm-up missed a worker: {warmed}")
         out["health_after_warmup"] = {m: health_view(p) for m, p in (("kv", kport), ("rr", rport))}
         log(f"serve_kv: the frontends' health planes after the warm-up: {out['health_after_warmup']}")
+        # what the workers report to those planes: the phase histograms'
+        # counts and medians, and the health series (C15)
+        out["worker_series_after_warmup"] = {
+            f"{w} {iid[w]:x}": {k: base[w][k] for k in ("phase_counts", "phase_p50_ms", "health_series")}
+            for w in workers}
+        log(f"serve_kv: the workers' series after the warm-up: {out['worker_series_after_warmup']}")
+        # C15: the warm-up's graph captures stay out of the scorer's pace
+        # and TTFT, so no fresh worker reads as a gray straggler
+        gray = {m: s for m, v in out["health_after_warmup"].items()
+                for s in v["scores"].values() if not s < KV_EJECT_RATIO}
+        if gray or not all(v["scores"] for v in out["health_after_warmup"].values()):
+            raise SmokeError(f"serve_kv: health scores after the warm-up {out['health_after_warmup']}"
+                             f"; each must be under the eject ratio {KV_EJECT_RATIO} (C15); the "
+                             f"workers' series {out['worker_series_after_warmup']}")
         probes, health = {}, {}
         for mode, g, prompts, rids in cases:
             port = kport if mode == "kv" else rport
@@ -6021,6 +6187,12 @@ def median_hops(rows: list) -> dict:
     return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
 
 
+# serve_trace_faults' model: Llama-3.1-8B's width at 8 of its 32 layers
+# (FLEET_MODEL's 16 until the multimodal slice cut it to make room for its
+# own legs; every check reads the depth from the model directory)
+TF_MODEL = dict(LLAMA31_8B, num_hidden_layers=8)
+
+
 def phase_serve_trace_faults(torch, np, card: str) -> dict:
     """Tracing and fault injection across processes and in this one (see
     the module docstring, phase 19)."""
@@ -6041,7 +6213,7 @@ def phase_serve_trace_faults(torch, np, card: str) -> dict:
     from dynamo_tpu_torch.tokenizer import TokenizerWrapper
 
     t_phase = time.perf_counter()
-    model_dir = write_serve_dir(FLEET_MODEL)
+    model_dir = write_serve_dir(TF_MODEL)
     mdc = ModelDeploymentCard.from_model_dir(model_dir, GRAPH_ENV_NAME, context_length=MAX_MODEL_LEN)
     pre = OpenAIPreprocessor(mdc)
     tok = pre.tokenizer
@@ -9092,8 +9264,8 @@ def phase_serve_ops(torch, np, card: str) -> dict:
             wf, _ = scrape(wports[w])
             per_worker[w] = {ph: prom_value(wf, "dyn_llm_phase_duration_seconds", "_count", phase=ph)
                              for ph in ("ttft", "e2e", "queue_wait")}
-            # the inter-token gaps as the engine marks them (per fetch): the
-            # share under 2 ms and the p50 / p99
+            # the inter-token gaps as the engine marks them (one a token
+            # gap, cold gaps left out): the share under 2 ms and the p50 / p99
             n = prom_value(wf, "dyn_llm_phase_duration_seconds", "_count", phase="inter_token")
             near0 = max((v for name, lab, v in wf["dyn_llm_phase_duration_seconds"]["samples"]
                          if name.endswith("_bucket") and lab.get("phase") == "inter_token"
@@ -9122,7 +9294,7 @@ def phase_serve_ops(torch, np, card: str) -> dict:
             + f"; {OPS_STREAMS} streams' tokens/s with a scrape a second / none "
             f"{rate['scrape']:.1f} / {rate['none']:.1f} = {out['a']['scraped_over_none']:.4f} ({card}); "
             f"at {time.perf_counter() - t_phase:.1f} s")
-        log("serve_ops (a): the workers' inter_token histograms (marked per fetch, H = 4): "
+        log("serve_ops (a): the workers' inter_token histograms (one sample a gap, H = 4): "
             + "; ".join(f"{w} {g['n']:.0f} gaps, {100 * g['under_2ms']:.1f}% under 2 ms, p50 "
                         f"{g['p50']:.2f} ms, p99 {g['p99']:.2f} ms" for w, g in gaps.items()))
 
@@ -9481,6 +9653,670 @@ def phase_serve_ops(torch, np, card: str) -> dict:
     return out
 
 
+# -------------------------------------------------------------- serve_mm
+#
+# Multimodal serving and embeddings (ROADMAP A6) on the card: the vision
+# tower's embeddings spliced over placeholder rows by the prefill, whose
+# attention is kernel #3.
+
+# CLIP ViT-L/14 at 336 px (LLaVA-1.5's tower): 576 patches, hidden 1024, 24
+# layers of 16 heads, projected to the language model's 4096
+MM_VIT = dict(image_size=336, patch_size=14, hidden_size=1024, num_layers=24, num_heads=16,
+              mlp_ratio=4, out_dim=HIDDEN)
+MM_IMAGES = 4  # image chats served at once, beside one clip
+MM_TEXT = 64  # text tokens beside each medium
+MM_OUT = 16  # greedy tokens out per request
+MM_FRAMES = 8  # the clip's frames: a span of 8 x 576 rows
+MM_PLACEHOLDER = 128002  # one of Llama-3's reserved special ids
+MM_MAX_LEN = 8192  # the clip's 4608-row span and its text fit
+MM_BLOCKS = 1024  # the mm engine's KV pool: 1 GiB at 16 layers
+MM_TOL = 2.0 ** -4  # of a row's max: the bar PERF.md section 2 holds TP / CP / EP logits to
+MM_GRAPH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_mm_graph")
+MM_GRAPH_HBM_GB = "8"  # the graph worker's KV budget (DYN_HBM_GB)
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _png_scanlines(np, img) -> bytes:
+    """An RGB image's zlib stream, rows filtered None, Sub and Up in turn."""
+    import zlib
+
+    h, w, _ = img.shape
+    rows = img.reshape(h, w * 3).astype(np.int16)
+    zero = np.zeros(w * 3, np.int16)
+    out = []
+    for y in range(h):
+        ft = y % 3
+        pred = (np.concatenate([zero[:3], rows[y, :-3]]) if ft == 1
+                else rows[y - 1] if ft == 2 and y else zero)
+        out.append(bytes([ft]) + ((rows[y] - pred) % 256).astype(np.uint8).tobytes())
+    return zlib.compress(b"".join(out), 6)
+
+
+def png_bytes(np, img) -> bytes:
+    """The script's own PNG writer (8-bit RGB), for the port's stdlib
+    reader: the card's machine has no PIL."""
+    import struct
+
+    h, w, _ = img.shape
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", _png_scanlines(np, img)) + _png_chunk(b"IEND", b""))
+
+
+def apng_bytes(np, frames) -> bytes:
+    """A clip as an animated PNG (full-canvas RGB frames, 25 fps), the
+    video form the port's stdlib reader decodes."""
+    import struct
+
+    T, h, w, _ = frames.shape
+    out = [b"\x89PNG\r\n\x1a\n", _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)),
+           _png_chunk(b"acTL", struct.pack(">II", T, 0))]
+    seq = 0
+    for t in range(T):
+        out.append(_png_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, 1, 25, 0, 0)))
+        seq += 1
+        data = _png_scanlines(np, frames[t])
+        if t == 0:
+            out.append(_png_chunk(b"IDAT", data))
+        else:
+            out.append(_png_chunk(b"fdAT", struct.pack(">I", seq) + data))
+            seq += 1
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def data_url(media: str, raw: bytes) -> str:
+    import base64
+
+    return f"data:{media};base64,{base64.b64encode(raw).decode()}"
+
+
+def dense_logits_mm(torch, runner, seq: list, emb, start: int = 0):
+    """The plain reference's logits over ``seq`` with ``emb`` spliced over
+    rows [start, start + M): one forward, the plain attention version, no
+    cache, the runner's weights."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops.layers import attn_out, qkv_head
+
+    cfg, params = runner.config, runner.params
+    with torch.inference_mode():
+        tokens = torch.tensor(seq, device=runner.device)
+        positions = torch.arange(len(seq), device=runner.device)
+        freqs = llama._rope_pair(cfg, tokens.device)
+        x = llama._embed(params, cfg, tokens)
+        x[start:start + emb.shape[0]] = emb.to(x.dtype)
+        for i, layer in enumerate(params["layers"]):
+            q, k, v = qkv_head(x, layer, cfg, llama._layer_freqs(cfg, i, freqs), positions)
+            attn = A.causal_prefill_attention_plain(q, k, v, len(seq))
+            x = llama._mlp(attn_out(attn, x, layer, cfg), layer, cfg)
+        return llama._logits(x[len(seq) - 1:], params, cfg)[0]
+
+
+def plain_embed(torch, runner, ids: list):
+    """The plain reference of ``embed_pooled``: the same forward with the
+    plain attention version over the prompt alone, the final norm, the mean
+    of the rows (f32)."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops import attention as A
+    from dynamo_tpu_torch.ops.basics import rms_norm
+    from dynamo_tpu_torch.ops.layers import attn_out, qkv_head
+
+    cfg, params = runner.config, runner.params
+    with torch.inference_mode():
+        tokens = torch.tensor(ids, device=runner.device)
+        positions = torch.arange(len(ids), device=runner.device)
+        freqs = llama._rope_pair(cfg, tokens.device)
+        x = llama._embed(params, cfg, tokens)
+        for i, layer in enumerate(params["layers"]):
+            q, k, v = qkv_head(x, layer, cfg, llama._layer_freqs(cfg, i, freqs), positions)
+            attn = A.causal_prefill_attention_plain(q, k, v, len(ids))
+            x = llama._mlp(attn_out(attn, x, layer, cfg), layer, cfg)
+        return rms_norm(x, params["final_norm"], cfg.rms_eps).float().mean(dim=0)
+
+
+def mm_media(np):
+    """The phase's media: MM_IMAGES random RGB images of other sizes as PNG
+    data URLs, and a clip of MM_FRAMES random frames as an animated PNG
+    (each decoded by the port's stdlib reader and checked against what was
+    written)."""
+    from dynamo_tpu_torch.multimodal.processor import load_image_array, load_video_frames
+
+    rng = np.random.default_rng(21)
+    imgs = [rng.integers(0, 256, (280 + 24 * i, 360 + 16 * i, 3), dtype=np.uint8)
+            for i in range(MM_IMAGES)]
+    urls = [data_url("image/png", png_bytes(np, img)) for img in imgs]
+    clip = rng.integers(0, 256, (MM_FRAMES, 120, 160, 3), dtype=np.uint8)
+    video = data_url("image/apng", apng_bytes(np, clip))
+    for img, url in zip(imgs, urls):
+        if not np.array_equal(load_image_array(url), img):
+            raise SmokeError("serve_mm: the stdlib PNG reader returned other pixels")
+    if not np.array_equal(load_video_frames(video, MM_FRAMES), clip):
+        raise SmokeError("serve_mm: the stdlib APNG reader returned other frames")
+    return urls, video
+
+
+def phase_serve_mm(torch, np, card: str, params) -> dict:
+    """Multimodal serving on the card (see the docstring's phase 6b)."""
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.multimodal.encode_worker import EncodeClient, EncodeWorker
+    from dynamo_tpu_torch.multimodal.vision import ViTConfig, init_vit_params
+    from dynamo_tpu_torch.multimodal.worker import MultimodalEngine
+    from dynamo_tpu_torch.ops import kernels
+    from dynamo_tpu_torch.protocols.common import (
+        Context, FinishReason, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    t0 = time.perf_counter()
+    urls, video = mm_media(np)
+    t_media = time.perf_counter() - t0
+    vit = ViTConfig(**MM_VIT)
+    vparams = init_vit_params(vit, torch.Generator().manual_seed(7), device="cuda")
+    encoder = EncodeWorker(vparams, vit)
+    engine = build_torch_engine(
+        MAIN_MODEL, device="cuda", max_batch=8, max_model_len=MM_MAX_LEN, seed=0,
+        fused_decode=False, spec_k=0, params=params, num_blocks=MM_BLOCKS, **EAGER)
+    runner = engine.runner
+    L = runner.config.num_layers
+    P = vit.num_patches
+    mm = MultimodalEngine(engine, encoder, placeholder_id=MM_PLACEHOLDER, num_patches=P,
+                          video_frames=MM_FRAMES)
+    stored: list = []
+    mm.on_blocks_stored = lambda *a, **k: stored.append(a)
+    t_build = time.perf_counter() - t0 - t_media
+    rng = np.random.default_rng(22)
+    texts = [rng.integers(0, 128000, MM_TEXT).tolist() for _ in range(MM_IMAGES + 1)]
+
+    def req(text, extra, n=MM_OUT):
+        return PreprocessedRequest(token_ids=list(text), sampling=SamplingOptions(greedy=True),
+                                   stop=StopConditions(max_tokens=n), eos_token_ids=[],
+                                   extra=dict(extra))
+
+    reqs = [req(texts[i], {"mm_images": [urls[i]]}) for i in range(MM_IMAGES)]
+    reqs.append(req(texts[-1], {"mm_videos": [video]}))
+
+    async def serve():
+        # a warm-up image (the tower's and the prefill's first use), then
+        # the counters to 0 just before the path, read just after
+        await run_requests(mm, [req(texts[0], {"mm_images": [urls[0]]}, 2)], Context)
+        kernels.reset_launch_counts()
+        before = stats_dict(engine.stats)
+        t1 = time.perf_counter()
+        out = await run_requests(mm, reqs, Context)
+        wall = time.perf_counter() - t1
+        launches = kernels.launch_counts()
+        after = stats_dict(engine.stats)
+        events = len(stored)
+        # the same image alone on the device path, then on the wire path
+        # (an encode worker behind an in-process fabric)
+        solo = await run_requests(mm, [req(texts[0], {"mm_images": [urls[0]]})], Context)
+        drt = await DistributedRuntime.detached()
+        try:
+            svc = await encoder.serve(drt, "mm.encoder.encode")
+            client = EncodeClient(drt, "mm.encoder.encode")
+            wire_mm = MultimodalEngine(engine, client, placeholder_id=MM_PLACEHOLDER,
+                                       num_patches=P, video_frames=MM_FRAMES)
+            t1 = time.perf_counter()
+            wire = await run_requests(wire_mm, [req(texts[0], {"mm_images": [urls[0]]})], Context)
+            wire_s = time.perf_counter() - t1
+            await client.close()
+            await svc.stop(drain=False)
+        finally:
+            await drt.close()
+        # a text prompt on the same engine stores its blocks (the hook is live)
+        await run_requests(mm, [req(rng.integers(0, 128000, 100).tolist(), {}, 4)], Context)
+        return out, wall, launches, before, after, events, solo, wire, wire_s
+
+    out, wall, launches, before, after, events, solo, wire, wire_s = asyncio.run(serve())
+    for i, ((toks, reason, _), r) in enumerate(zip(out, reqs)):
+        if reason is not FinishReason.LENGTH or len(toks) != MM_OUT or not all(
+                0 <= t < LLAMA31_8B["vocab_size"] for t in toks):
+            raise SmokeError(f"serve_mm request {i}: {len(toks)} tokens, reason {reason}")
+    mm_prefills = after["mm_prefills"] - before["mm_prefills"]
+    decode_steps = after["decode_steps"] - before["decode_steps"]
+    want = {**dict.fromkeys(kernels.KERNELS, 0), "flash_prefill_attention": L * mm_prefills,
+            "paged_decode_attention": L * decode_steps}
+    if mm_prefills != len(reqs) or launches != want:
+        raise SmokeError(f"serve_mm: {mm_prefills} mm prefills, launches {launches} != {want}")
+    if events:
+        raise SmokeError(f"serve_mm: the mm sequences emitted {events} Stored KV events")
+    if not stored:
+        raise SmokeError("serve_mm: a text prompt emitted no Stored event (the hook is dead)")
+    if solo[0][0] != wire[0][0]:
+        raise SmokeError(f"serve_mm: device-path tokens {solo[0][0]} != wire-path {wire[0][0]}")
+
+    # the same image encoded twice; one request's prefill_mm logits
+    # against the same spliced embeddings through the plain attention op
+    emb = encoder.encode_device(urls[0])
+    if not torch.equal(emb, encoder.encode_device(urls[0])):
+        raise SmokeError("serve_mm: the same image encoded twice differs")
+    ids = [MM_PLACEHOLDER] * P + texts[0]
+    blocks = engine.allocator.alloc(-(-len(ids) // BLOCK))
+    try:
+        with torch.inference_mode():
+            got = runner.prefill_mm(ids, blocks, emb, 0, 0.0, 1.0, 0, return_logits=True)
+            text_only = runner.prefill_logits(ids, blocks)
+            plain = dense_logits_mm(torch, runner, ids, emb)
+            err = rel_logit_err(torch, got[None], plain[None])
+            apart = rel_logit_err(torch, text_only[None], got[None])
+            if err > MM_TOL:
+                raise SmokeError(f"serve_mm: prefill_mm logits {err:.4f} of the row max from the "
+                                 f"plain op's (tol {MM_TOL})")
+            if apart <= MM_TOL:
+                raise SmokeError(f"serve_mm: text-only logits within {apart:.4f} of the image's")
+            t_encode = time_ms(torch, lambda: encoder.encode_device(urls[0]), reps=5, warmup=1)
+            t_prefill = time_ms(torch, lambda: runner.prefill_mm(
+                ids, blocks, emb, 0, 0.0, 1.0, 0, return_logits=True), reps=5, warmup=1)
+    finally:
+        engine.allocator.free(blocks)
+    asyncio.run(engine.close())
+    res = {
+        "vit": MM_VIT, "patches": P, "requests": len(reqs), "text_tokens": MM_TEXT,
+        "video_frames": MM_FRAMES, "launches": launches, "mm_prefills": mm_prefills,
+        "decode_steps": decode_steps, "wall_s": wall, "ttft_s_concurrent": [t for _, _, t in out],
+        "image_ttft_ms": solo[0][2] * 1e3, "wire_image_ttft_ms": wire[0][2] * 1e3,
+        "wire_request_s": wire_s, "encode_ms": t_encode, "prefill_mm_ms": t_prefill,
+        "prefill_mm_tokens": len(ids), "logits_rel_err": err, "text_only_rel_gap": apart,
+        "media_s": t_media, "build_s": t_build,
+    }
+    log(f"serve_mm: {MM_IMAGES} images + a {MM_FRAMES}-frame clip (PNG / APNG by the stdlib "
+        f"reader) through MultimodalEngine on the device path in {wall:.2f} s: {mm_prefills} mm "
+        f"prefills, #3 {launches['flash_prefill_attention']} (= {L} x {mm_prefills}), #1 "
+        f"{launches['paged_decode_attention']}; no Stored event; device = wire tokens; tower "
+        f"encode {t_encode['median']:.2f} ms, prefill_mm of {len(ids)} tokens "
+        f"{t_prefill['median']:.2f} ms, image TTFT {solo[0][2] * 1e3:.1f} ms (wire "
+        f"{wire[0][2] * 1e3:.1f} ms); logits within {err:.4f} of the plain op's, text-only "
+        f"{apart:.3f} apart ({card})")
+    print(json.dumps({"serve_mm": res, "card": card}), flush=True)
+    res["graph"] = mm_graph_leg(torch, np, card, urls[0])
+    return res
+
+
+def mm_graph_leg(torch, np, card: str, url: str) -> dict:
+    """``python -m dynamo_tpu_torch.serve dynamo_tpu_torch.graphs.multimodal``
+    on this card: the fabric, an encode worker with the full-size tower, a
+    TorchEngine worker at Llama-3.1-8B's width and CKPT_LAYERS depth and the
+    frontend, processes of their own; one streamed image chat over HTTP
+    (the wire path)."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_dir = write_serve_dir(dict(LLAMA31_8B, num_hidden_layers=CKPT_LAYERS,
+                                     max_position_embeddings=MAX_MODEL_LEN), MM_GRAPH_DIR)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               DYN_GRAPH_ENGINE="torch", DYN_MODEL_PATH=model_dir, DYN_MODEL_NAME="mm-graph",
+               DYN_DEVICE="cuda", DYN_HBM_GB=MM_GRAPH_HBM_GB, DYN_MM_VIT="clip-l-336",
+               DYN_MM_OUT_DIM=str(HIDDEN), DYN_MM_PLACEHOLDER=str(MM_PLACEHOLDER))
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.serve", "dynamo_tpu_torch.graphs.multimodal",
+           "--env", f"DYN_HTTP_PORT={port}", "--env", "DYN_HTTP_HOST=127.0.0.1"]
+    log("serve_mm: " + " ".join(cmd[1:]))
+    path = os.path.join(MM_GRAPH_DIR, "graph.log")
+    t0 = time.perf_counter()
+    with open(path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=logf, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise SmokeError(f"the multimodal graph exited with {proc.returncode} ({path})")
+                try:
+                    st, data = http_call(port, "GET", "/v1/models", timeout=5)
+                    if st == 200 and json.loads(data)["data"]:
+                        break
+                except (OSError, ValueError):
+                    pass
+                if time.perf_counter() - t0 > SERVER_START_S:
+                    raise SmokeError(f"the multimodal graph did not come up ({path})")
+                time.sleep(0.5)
+            up_s = time.perf_counter() - t0
+            body = {"model": "mm-graph", "max_tokens": 8, "temperature": 0, "stream": True,
+                    "stream_options": {"include_usage": True}, "nvext": {"ignore_eos": True},
+                    "messages": [{"role": "user", "content": [
+                        {"type": "image_url", "image_url": {"url": url}},
+                        {"type": "text", "text": "describe the picture"}]}]}
+            got = stream_chat(port, body)
+            if got["usage"]["completion_tokens"] != 8 or got["usage"]["prompt_tokens"] <= 0:
+                raise SmokeError(f"serve_mm graph: usage {got['usage']}")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+    res = {"up_s": up_s, "ttft_s": got["ttft_s"], "usage": got["usage"]}
+    log(f"serve_mm: the multimodal graph came up in {up_s:.1f} s; a streamed image chat over "
+        f"HTTP (the wire path) in TTFT {got['ttft_s'] * 1e3:.1f} ms, usage {got['usage']} ({card})")
+    return res
+
+
+PREBAKE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "prebake_model")
+
+
+def phase_prebake(card: str) -> dict:
+    """tools/prebake.py against this script's kernel directory, as an
+    operator runs it: ``--model-path`` on a Llama-3.1-8B-width directory at
+    ``MAIN_LAYERS`` depth (seeded random weights) with serve's shapes --
+    ``max_batch`` 8, ``max_model_len`` 4096 (every prefill bucket), the
+    HTTP server's pool of 2112 blocks, decode horizon 4 -- and spec_k 3.
+    Every library must be found built (nvcc run 0 times), every dispatch
+    driven on the card, its decode graphs captured and listed in the
+    manifest."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_json = os.path.join(root, "build", "prebake.json")
+    model_dir = write_serve_dir(MAIN_MODEL, PREBAKE_DIR)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("DYN_KERNEL_CACHE_DIR", None)
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.tools.prebake", "--model-path", model_dir,
+           "--device", "cuda", "--max-batch", "8", "--context-length", str(MAX_MODEL_LEN),
+           "--num-blocks", "2112", "--decode-horizon", "4", "--spec-k", "3", "--json", out_json]
+    log("prebake: " + " ".join(cmd[1:]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeError(f"prebake exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_json) as f:
+        doc = json.load(f)
+    k = doc["kernels"]
+    libs = k.get("libraries", {})
+    if not k.get("built") or k.get("nvcc_runs") != 0 or not libs or not all(
+            v["cache_hit"] for v in libs.values()):
+        raise SmokeError(f"prebake: the libraries were not all cache hits: {k}")
+    with open(doc["manifest"]) as f:
+        manifest = json.load(f)
+    if not doc["graphs"] or manifest.get("graphs") != doc["graphs"]:
+        raise SmokeError(f"prebake: graphs {doc['graphs']}, manifest {manifest.get('graphs')}")
+    res = {"wall_s": wall, "tool_wall_s": doc["wall_s"], "total_s": doc["total_s"],
+           "libraries": libs, "graphs": doc["graphs"], "programs": doc["programs"],
+           "labels": manifest["labels"], "model": f"Llama-3.1-8B width, {MAIN_LAYERS} layers"}
+    log(f"prebake (Llama-3.1-8B width, {MAIN_LAYERS} layers, {len(doc['programs'])} programs in "
+        f"{doc['total_s']:.1f} s): {len(libs)} libraries, every one a cache hit, nvcc run 0 times; "
+        f"{len(doc['graphs'])} graphs captured ({', '.join(doc['graphs'])}); manifest labels "
+        f"{manifest['labels']}; wall {wall:.1f} s (the tool's own {doc['wall_s']:.1f} s) ({card})")
+    print(json.dumps({"prebake": res, "card": card}), flush=True)
+    return res
+
+
+# The GGUF leg of the checkpoint phase: a 2-layer, full-width Llama-3.1-8B
+# .gguf written by the script's own writer into an HF-cache-shaped directory,
+# resolved by repo id through DYN_MODEL_CACHE and loaded by build_torch_engine.
+GGUF_CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_hf_cache")
+GGUF_REPO = "chip-smoke/llama31-8b-2l-gguf"
+GGML_F32, GGML_F16, GGML_Q8_0 = 0, 1, 8
+GGUF_U32, GGUF_F32, GGUF_STRING, GGUF_ARRAY = 4, 6, 8, 9
+
+
+def _gguf_str(s: str) -> bytes:
+    import struct
+
+    b = s.encode()
+    return struct.pack("<Q", len(b)) + b
+
+
+def _gguf_value(vtype: int, value) -> bytes:
+    import struct
+
+    if vtype == GGUF_STRING:
+        return _gguf_str(value)
+    if vtype == GGUF_U32:
+        return struct.pack("<I", value)
+    if vtype == GGUF_F32:
+        return struct.pack("<f", value)
+    etype, items = value  # an array
+    return struct.pack("<IQ", etype, len(items)) + b"".join(_gguf_value(etype, x) for x in items)
+
+
+def write_gguf(path: str, metadata: dict, tensors: dict, align: int = 32) -> int:
+    """A GGUF v3 file: ``metadata`` {key: (type, value)}, ``tensors`` {name:
+    (ggml type, numpy shape [out, in], raw bytes)}. Returns its size."""
+    import struct
+
+    head = [struct.pack("<IIQQ", 0x46554747, 3, len(tensors), len(metadata))]
+    head += [_gguf_str(k) + struct.pack("<I", t) + _gguf_value(t, v) for k, (t, v) in metadata.items()]
+    offset = 0
+    offsets = []
+    for name, (gt, shape, raw) in tensors.items():
+        offset = (offset + align - 1) // align * align
+        dims = list(reversed(shape))  # ggml order: the fastest-varying first
+        head.append(_gguf_str(name) + struct.pack("<I", len(dims))
+                    + b"".join(struct.pack("<Q", d) for d in dims) + struct.pack("<IQ", gt, offset))
+        offsets.append(offset)
+        offset += len(raw)
+    head = b"".join(head)
+    start = (len(head) + align - 1) // align * align
+    with open(path, "wb") as f:
+        f.write(head + b"\0" * (start - len(head)))
+        for off, (_, _, raw) in zip(offsets, tensors.values()):
+            f.seek(start + off)
+            f.write(raw)
+    return start + offset
+
+
+def q8_0(torch, np, w):
+    """Q8_0 blocks of 32 (an f16 scale, then 32 int8) of a card tensor
+    [out, in]: the file's bytes, and the script's own dequantization of them
+    (f32, [out, in])."""
+    flat = w.float().reshape(-1, 32)
+    d = (flat.abs().amax(dim=1) / 127.0).clamp_min(1e-8).half()
+    q = torch.round(flat / d.float()[:, None]).clamp(-127, 127).to(torch.int8)
+    rec = np.zeros(flat.shape[0], dtype=np.dtype([("d", "<f2"), ("q", "i1", (32,))]))
+    rec["d"] = d.cpu().numpy()
+    rec["q"] = q.cpu().numpy()
+    return rec.tobytes(), (q.float() * d.float()[:, None]).reshape(w.shape)
+
+
+def gguf_leg(torch, np, card: str) -> dict:
+    """The GGUF leg (see the docstring's phase 7): F16 embeddings and
+    output, F32 norms, Q8_0 attention projections, F16 MLP, llama
+    SentencePiece tokenizer metadata; the loaded weights bit for bit the
+    script's own dequantization in bf16, greedy tokens equal params='s."""
+    import shutil
+
+    from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
+    from dynamo_tpu_torch.hub import resolve_model
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+    from dynamo_tpu_torch.protocols.common import (
+        Context, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    c = LLAMA31_8B
+    V, H, F, Lg = c["vocab_size"], c["hidden_size"], c["intermediate_size"], CKPT_LAYERS
+    hd = H // c["num_attention_heads"]
+    kv = c["num_key_value_heads"] * hd
+    cfg = LlamaConfig(vocab_size=V, hidden_size=H, intermediate_size=F, num_layers=Lg,
+                      num_heads=c["num_attention_heads"], num_kv_heads=c["num_key_value_heads"],
+                      head_dim=hd, rope_theta=c["rope_theta"], rms_eps=c["rms_norm_eps"],
+                      max_position_embeddings=MAX_MODEL_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    tensors, want = {}, {"layers": [dict() for _ in range(Lg)]}
+
+    def f16(name, w, ours, layer=None, transpose=False):
+        h = w.half()
+        tensors[name] = (GGML_F16, tuple(h.shape), h.cpu().numpy().tobytes())
+        v = h.float().t() if transpose else h.float()
+        (want if layer is None else want["layers"][layer])[ours] = v.contiguous().to(torch.bfloat16)
+
+    def f32(name, w, ours, layer=None):
+        tensors[name] = (GGML_F32, tuple(w.shape), w.float().cpu().numpy().tobytes())
+        (want if layer is None else want["layers"][layer])[ours] = w.float().to(torch.bfloat16)
+
+    def q8(name, w, ours, layer):
+        raw, deq = q8_0(torch, np, w)
+        tensors[name] = (GGML_Q8_0, tuple(w.shape), raw)
+        want["layers"][layer][ours] = deq.t().contiguous().to(torch.bfloat16)
+
+    f16("token_embd.weight", randn(V, H, scale=0.02), "embed")
+    f32("output_norm.weight", 1 + randn(H, scale=0.1), "final_norm")
+    f16("output.weight", randn(V, H, scale=H ** -0.5), "lm_head", transpose=True)
+    for i in range(Lg):
+        b = f"blk.{i}."
+        f32(b + "attn_norm.weight", 1 + randn(H, scale=0.1), "attn_norm", i)
+        f32(b + "ffn_norm.weight", 1 + randn(H, scale=0.1), "mlp_norm", i)
+        for name, ours, out_dim in (("attn_q", "wq", H), ("attn_k", "wk", kv), ("attn_v", "wv", kv)):
+            q8(b + name + ".weight", randn(out_dim, H, scale=H ** -0.5), ours, i)
+        q8(b + "attn_output.weight", randn(H, H, scale=H ** -0.5), "wo", i)
+        f16(b + "ffn_gate.weight", randn(F, H, scale=H ** -0.5), "wg", i, transpose=True)
+        f16(b + "ffn_up.weight", randn(F, H, scale=H ** -0.5), "wu", i, transpose=True)
+        f16(b + "ffn_down.weight", randn(H, F, scale=F ** -0.5), "wd", i, transpose=True)
+    n = V - 3
+    metadata = {
+        "general.architecture": (GGUF_STRING, "llama"),
+        "llama.embedding_length": (GGUF_U32, H), "llama.feed_forward_length": (GGUF_U32, F),
+        "llama.block_count": (GGUF_U32, Lg),
+        "llama.attention.head_count": (GGUF_U32, cfg.num_heads),
+        "llama.attention.head_count_kv": (GGUF_U32, cfg.num_kv_heads),
+        "llama.attention.key_length": (GGUF_U32, hd),
+        "llama.context_length": (GGUF_U32, MAX_MODEL_LEN), "llama.vocab_size": (GGUF_U32, V),
+        "llama.rope.freq_base": (GGUF_F32, cfg.rope_theta),
+        "llama.attention.layer_norm_rms_epsilon": (GGUF_F32, cfg.rms_eps),
+        "tokenizer.ggml.model": (GGUF_STRING, "llama"),
+        "tokenizer.ggml.tokens": (GGUF_ARRAY, (GGUF_STRING, ["<unk>", "<s>", "</s>"]
+                                               + [f"▁w{i}" for i in range(n)])),
+        "tokenizer.ggml.scores": (GGUF_ARRAY, (GGUF_F32, [0.0] * 3 + [-i / 1e4 for i in range(n)])),
+        "tokenizer.ggml.token_type": (GGUF_ARRAY, (GGUF_U32, [2, 3, 3] + [1] * n)),
+        "tokenizer.ggml.unknown_token_id": (GGUF_U32, 0),
+        "tokenizer.ggml.bos_token_id": (GGUF_U32, 1),
+        "tokenizer.ggml.eos_token_id": (GGUF_U32, 2),
+    }
+    snap = os.path.join(GGUF_CACHE, "models--" + GGUF_REPO.replace("/", "--"), "snapshots", "r1")
+    shutil.rmtree(GGUF_CACHE, ignore_errors=True)
+    os.makedirs(snap)
+    prev = os.environ.get("DYN_MODEL_CACHE")
+    os.environ["DYN_MODEL_CACHE"] = GGUF_CACHE
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_gguf(os.path.join(snap, "llama31-8b-2l-q8_0.gguf"), metadata, tensors)
+        del tensors
+        t_write = time.perf_counter() - t0
+        path = resolve_model(GGUF_REPO)
+        if not path.endswith(".gguf"):
+            raise SmokeError(f"gguf: {GGUF_REPO} resolved to {path}")
+        t0 = time.perf_counter()
+        loaded = build_torch_engine(GGUF_REPO, device="cuda", max_batch=4, max_model_len=1024)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mdc = ModelDeploymentCard.from_model_path(path, kv_block_size=BLOCK)
+        t_card = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            os.environ.pop("DYN_MODEL_CACHE", None)
+        else:
+            os.environ["DYN_MODEL_CACHE"] = prev
+        shutil.rmtree(GGUF_CACHE, ignore_errors=True)
+    got_cfg = loaded.runner.config
+    for k in ("vocab_size", "hidden_size", "intermediate_size", "num_layers", "num_heads",
+              "num_kv_heads", "head_dim", "rope_theta", "max_position_embeddings"):
+        if getattr(got_cfg, k) != getattr(cfg, k):
+            raise SmokeError(f"gguf: config {k} {getattr(got_cfg, k)} != {getattr(cfg, k)}")
+    a = {k: v for k, v in loaded.runner.params.items() if k != "layers"}
+    bad = [k for k in want if k != "layers" and not torch.equal(a[k].view(torch.int16),
+                                                                  want[k].view(torch.int16))]
+    for i, layer in enumerate(want["layers"]):
+        got_l = loaded.runner.params["layers"][i]
+        bad += [f"{i}/{k}" for k, v in layer.items() if got_l[k].dtype != torch.bfloat16
+                or not torch.equal(got_l[k].view(torch.int16), v.view(torch.int16))]
+        if sorted(got_l) != sorted(layer):
+            bad.append(f"{i}: keys {sorted(got_l)}")
+    if bad or sorted(a) != sorted(k for k in want if k != "layers"):
+        raise SmokeError(f"gguf: loaded weights differ from the dequantized ones: {bad[:8]}")
+    tok = mdc.load_tokenizer()
+    ids = tok.encode("w1 w2 w300", add_special_tokens=False).ids
+    if mdc.tokenizer_kind != "sp" or tok.decode(ids) != "w1 w2 w300":
+        raise SmokeError(f"gguf: the embedded tokenizer gave {ids} -> {tok.decode(ids)!r}")
+    same = build_torch_engine(cfg, device="cuda", max_batch=4, max_model_len=1024, params=want)
+    rng = np.random.default_rng(10)
+    reqs = [PreprocessedRequest(token_ids=rng.integers(0, V, n).tolist(),
+                                sampling=SamplingOptions(greedy=True),
+                                stop=StopConditions(max_tokens=m), eos_token_ids=[])
+            for n, m in CKPT_PROMPTS]
+
+    async def serve(engine):
+        try:
+            return await run_requests(engine, reqs, Context)
+        finally:
+            await engine.close()
+
+    got = asyncio.run(serve(loaded))
+    ref = asyncio.run(serve(same))
+    if [t for t, _, _ in got] != [t for t, _, _ in ref]:
+        raise SmokeError("gguf: the loaded engine's tokens differ from params='s")
+    if [len(t) for t, _, _ in got] != [m for _, m in CKPT_PROMPTS]:
+        raise SmokeError("gguf: wrong token counts")
+    res = {"layers": Lg, "bytes": nbytes, "write_s": t_write, "load_s": t_load, "card_s": t_card,
+           "repo": GGUF_REPO, "types": "F16 embed/output/MLP, F32 norms, Q8_0 attention"}
+    log(f"checkpoint/gguf: {nbytes / 1e9:.2f} GB .gguf written in {t_write:.1f} s; {GGUF_REPO} "
+        f"resolved through DYN_MODEL_CACHE and loaded by build_torch_engine in {t_load:.1f} s "
+        f"(its card with the embedded {V}-piece tokenizer in {t_card:.1f} s); weights "
+        f"bit-identical to the script's dequantization; greedy tokens equal params= ({card})")
+    print(json.dumps({"checkpoint_gguf": res, "card": card}), flush=True)
+    return res
+
+
+def serve_tp_mm(torch, np, card: str, one, engine) -> dict:
+    """serve_tp's bf16 leg, its mm / embed part (both engines open, before
+    the spec leg, whose close stops the followers): an image's prefill_mm
+    logits (OP_MM_PREFILL) and a pooled embedding (OP_EMBED) on the tp = 2
+    group against the one-card engine's, within TP_LOGIT_TOL; each rank's
+    #3 launched once a layer per call."""
+    from dynamo_tpu_torch.multimodal.encode_worker import EncodeWorker
+    from dynamo_tpu_torch.multimodal.vision import ViTConfig, init_vit_params
+
+    vit = ViTConfig(**MM_VIT)
+    encoder = EncodeWorker(init_vit_params(vit, torch.Generator().manual_seed(7), device="cuda"), vit)
+    rng = np.random.default_rng(23)
+    url = data_url("image/png", png_bytes(np, rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)))
+    text = rng.integers(0, 128000, MM_TEXT).tolist()
+    ids = [MM_PLACEHOLDER] * vit.num_patches + text
+    emb = encoder.encode_device(url)
+    runner = engine.runner
+    n_blocks = -(-len(ids) // BLOCK)
+    blocks = {e: e.allocator.alloc(n_blocks) for e in (one, engine)}
+    try:
+        # one card first: the leader's counters are this process's
+        want = one.runner.prefill_mm(ids, blocks[one], emb, 0, 0.0, 1.0, 0, return_logits=True)
+        e_want = torch.from_numpy(one.runner.embed(text))
+        runner.rank_stats(reset=True)
+        t0 = time.perf_counter()
+        got = runner.prefill_mm(ids, blocks[engine], emb, 0, 0.0, 1.0, 0, return_logits=True)
+        e_got = torch.from_numpy(runner.embed(text))
+        group_s = time.perf_counter() - t0
+        ranks = runner.rank_stats()
+    finally:
+        for e, b in blocks.items():
+            e.allocator.free(b)
+    err = rel_logit_err(torch, got[None].float(), want[None].float())
+    e_err = float((e_got - e_want).abs().max() / e_want.abs().max())
+    if err > TP_LOGIT_TOL or not (e_err <= TP_LOGIT_TOL) or not torch.isfinite(e_got).all():
+        raise SmokeError(f"serve_tp/mm: prefill_mm logits {err:.4f}, embedding {e_err:.4f} of the "
+                         f"one-card engine's (tol {TP_LOGIT_TOL})")
+    L = TP_MODEL["num_hidden_layers"]
+    for r, st in enumerate(ranks):
+        if st["launches"]["flash_prefill_attention"] != 2 * L:  # one mm prefill, one embed
+            raise SmokeError(f"serve_tp/mm rank {r}: #3 launched {st['launches']}")
+    res = {"logits_rel_err": err, "embed_rel_err": e_err, "group_s": group_s,
+           "rank_prefill_launches": [st["launches"]["flash_prefill_attention"] for st in ranks]}
+    log(f"serve_tp/mm: over OP_MM_PREFILL the group's prefill_mm logits ({len(ids)} rows, "
+        f"{vit.num_patches} of them an image's) are within {err:.4f} of the row max of one "
+        f"card's, over OP_EMBED its embedding within {e_err:.4f} ({group_s:.2f} s for both); #3 "
+        f"{res['rank_prefill_launches']} a rank (= 2 x {L}) ({card})")
+    return res
+
+
 def main() -> int:
     if "--cp-node" in sys.argv:  # node 1 of serve_tp's CP leg, started by that leg
         return cp_node_main()
@@ -9536,8 +10372,21 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
         if only in ("serve_offload", "serve_fabric", "serve_kv", "serve_tp", "serve_disagg_fabric",
-                    "serve_trace_faults", "serve_peer", "serve_ops", "serve_moe"):
-            if only == "serve_offload":
+                    "serve_trace_faults", "serve_peer", "serve_ops", "serve_moe", "serve_mm",
+                    "checkpoint", "serve_http", "prebake"):
+            if only == "serve_mm":
+                from dynamo_tpu_torch.engine.torch_engine.weights import init_params
+                from dynamo_tpu_torch.models.llama import LlamaConfig
+
+                phase_serve_mm(torch, np, card, init_params(
+                    LlamaConfig.from_hf_dict(MAIN_MODEL), seed=0, device="cuda"))
+            elif only == "checkpoint":
+                phase_checkpoint(torch, np, card)
+            elif only == "serve_http":
+                phase_serve_http(torch, np, card)
+            elif only == "prebake":
+                phase_prebake(card)
+            elif only == "serve_offload":
                 phase_serve_offload(torch, np, card, *offload_params(torch))
             elif only == "serve_fabric":
                 phase_serve_fabric(torch, np, card)
@@ -9559,8 +10408,12 @@ def main() -> int:
                 "platform": "gpu", "kind": kind, "count": count}})])
         if only is not None:
             raise SmokeError(f"--only takes serve_offload, serve_fabric, serve_kv, serve_tp, "
-                             f"serve_disagg_fabric, serve_trace_faults, serve_peer, serve_ops or "
-                             f"serve_moe, not {only}")
+                             f"serve_disagg_fabric, serve_trace_faults, serve_peer, serve_ops, "
+                             f"serve_moe, serve_mm, checkpoint, serve_http or prebake, not {only}")
+
+        # 2b. prebake: the tool against this script's kernel directory
+        phase_prebake(card)
+        lap("prebake")
 
         # 3. parity; the parallel forms' parity on two rank processes of
         # their own meanwhile (their start-up overlaps the kernel checks)
@@ -9586,6 +10439,11 @@ def main() -> int:
         default = phase_serve_default(torch, np, card, engine.runner.params)
         default_engine = default.pop("engine")
         lap("serve_default")
+        # 6b. serve_mm: multimodal serving over the same weights (its
+        # counters set to 0 just before its traffic, read just after), then
+        # the multimodal graph over HTTP
+        mm = phase_serve_mm(torch, np, card, engine.runner.params)
+        lap("serve_mm")
         phase_checkpoint(torch, np, card)
         lap("checkpoint")
         # 9. serve_int8 (each of its two runs' counters set to 0 just before
@@ -9653,6 +10511,9 @@ def main() -> int:
         log(f"flash_prefill_attention launches: serve {launches['flash_prefill_attention']}, "
             f"serve_disagg {from_disagg}")
         launches["flash_prefill_attention"] += sum(from_disagg.values())
+        # serve_mm's multimodal prefills, each a single-shot #3 prefill
+        log(f"flash_prefill_attention launches: serve_mm {mm['launches']['flash_prefill_attention']}")
+        launches["flash_prefill_attention"] += mm["launches"]["flash_prefill_attention"]
         lap("serve_disagg")
 
         # 15. serve_offload: the tiered block manager (each leg's counters
@@ -9670,7 +10531,7 @@ def main() -> int:
         # 10. serve_http: the CLI's HTTP server in a process of its own, so
         # this process's engines leave the card first
         del engine, default_engine, fused_runner, spec, served, default, int8_runner, int8
-        del horizon, spec_reqs, disagg
+        del horizon, spec_reqs, disagg, mm
         gc.collect()
         torch.cuda.empty_cache()
         # 11. serve_tp: two ranks on this card over gloo, then one over

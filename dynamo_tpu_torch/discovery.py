@@ -25,7 +25,12 @@ The tail-tolerance plane (``telemetry/health.py``): each worker endpoint
 gets one ``HealthScorer`` and one ``HedgeController``, shared by its
 Client (ejected workers leave ``_eligible``), its KV scheduler (route set
 and deweighting) and its ``RemoteEngine``, which records every dispatch,
-first-frame and inter-frame latency against the serving worker. With
+first-frame and inter-frame latency against the serving worker, but for a
+frame the worker marks ``cold`` (a graph capture or a kernel load held it,
+C15; a departure from the reference, which scores those too). The
+inter-frame signal, the scorer's own EWMA and exported nowhere, is scored
+by delivery (``telemetry/health.StreamPace``): a fetch's frames share its
+gap; the frontend's inter-token latency histogram is not. With
 ``DYN_HEDGE=1`` an interactive request whose first token has not come
 within the hedge delay gets one hedge dispatch on another worker
 (``_hedged_first``): the first good first frame wins, the loser's stream
@@ -222,6 +227,12 @@ class RemoteEngine:
     def _runtime_dying(self) -> bool:
         return self.cancel_token is not None and self.cancel_token.is_cancelled()
 
+    def _record_pace(self, wid: Optional[int], done) -> None:
+        """A stream's closed delivery (``StreamPace``) as one inter-frame
+        sample of its per-token gap; a cold one is not scored (C15)."""
+        if done is not None and wid is not None and not done[2]:
+            self.health.record(wid, "inter_frame", done[0])
+
     async def _hedged_first(self, stream: Any, ctx: Context, attempt_ctx: Context,
                             req_dict: dict, exclude: set[int], dsp: Any) -> Any:
         """Hedged first token (discovery.py:202-335, "The Tail at Scale"):
@@ -322,7 +333,7 @@ class RemoteEngine:
             stream = None
             t_attempt = dclock.now()
             t_first: Optional[float] = None
-            t_last_frame: Optional[float] = None
+            pace: Optional[dhealth.StreamPace] = None
             # per-attempt dispatch span: replays share the request's trace
             # id (ctx carries it), so a migrated stream stays one trace with
             # one dispatch span per attempt, all parented on the root
@@ -394,18 +405,23 @@ class RemoteEngine:
                                 emitted.extend(out.token_ids)
                                 progressed = True
                                 if self.health is not None:
+                                    # a cold frame's wait held the worker's
+                                    # graph capture or kernel load, and a
+                                    # fetch's frames share its gap: scored
+                                    # by StreamPace (C15)
                                     now = dclock.now()
                                     if t_first is None:
                                         t_first = now
+                                        pace = dhealth.StreamPace(now, out.fetch)
                                         ms = (now - t_attempt) * 1e3
-                                        if wid is not None:
+                                        if wid is not None and not out.cold:
                                             self.health.record(wid, "first_frame", ms)
                                         if self.hedger is not None:
                                             self.hedger.note_first_frame(ms)
-                                    elif wid is not None and t_last_frame is not None:
-                                        self.health.record(wid, "inter_frame",
-                                                           (now - t_last_frame) * 1e3)
-                                    t_last_frame = now
+                                    elif pace is not None:
+                                        self._record_pace(wid, pace.token(now, out.fetch, out.cold))
+                            if out.finish_reason is not None and pace is not None:
+                                self._record_pace(wid, pace.flush())
                             yield out
                             if out.finish_reason is not None:
                                 finished = True
@@ -521,7 +537,7 @@ class WorkerCapacityPoller:
             self.waiting = sum(m.worker_stats.num_requests_waiting for m in per_worker.values())
             if self.health is not None:
                 for wid, m in per_worker.items():
-                    self.health.observe_worker_hists(wid, m.phase_histograms)
+                    self.health.observe_worker_hists(wid, m.phase_histograms, m.health_histograms)
         except Exception:  # noqa: BLE001 — scrape gaps are tolerated
             self.total_slots = None
         if self.health is not None:

@@ -194,9 +194,19 @@ Always-on phase histograms (engine.py:334, :559-571, :1570;
 ``telemetry/histogram.py``): ``queue_wait`` at a first admission, and at the
 stream edge ``ttft``, ``prefill`` (admitted to first token), ``inter_token``
 and ``e2e``, in ``EngineStats.phase_histograms``. They are marked on the host
-when a fetch hands tokens to the stream, as in the reference: under a
-decode horizon of H, one fetch delivers up to H tokens, so ``inter_token``
-holds one gap of ~H steps and H - 1 gaps near 0 per dispatch.
+when a fetch hands tokens to the stream, as in the reference, one
+``inter_token`` sample a token gap; but a gap whose delivery waited on a
+graph capture, a kernel load or, on a card, a label's first dispatch is
+left out (such a first token's TTFT is kept). The health plane's own series are apart, in
+``EngineStats.health_histograms`` (shipped on ForwardPassMetrics, on no
+``/metrics``): ``ttft_cold``, those cold first tokens' TTFTs, which the
+scorer subtracts from ``ttft``, and ``pace``, which it reads in place of
+``inter_token``: under a decode horizon of H the reference's gaps are one
+of ~H steps and H - 1 near 0 per dispatch, whose median is the stream
+consumer's pacing, so in ``pace`` each token of a fetch takes its share of
+the fetch's gap (``telemetry/health.StreamPace``), cold fetches left out
+(C15: those near-zero medians and one-off stalls scored fresh workers as
+gray stragglers).
 
 The brownout ladder (``apply_brownout``, engine.py:1029-1060;
 ``telemetry/brownout.py``): level >= 1 sheds bulk arrivals with the typed
@@ -206,8 +216,18 @@ its first use like any other), >= 3 halves the chunk width and the per-step
 chunk budget (``qos.effective_chunk_budget``, on the KV block grid; latched
 once per loop iteration), >= 4 sheds standard arrivals too.
 
-Left out (ROADMAP.md lists them): the goodput counters on the trace timeline
-(A12), multimodal prompts.
+Multimodal prompts (engine.py:1575-1584, :1739-1775): a request whose
+``extra["mm"]`` holds vision embeddings and their start (set by
+``multimodal/worker.MultimodalEngine``) is prefilled on its own by the
+runner's ``prefill_mm``, and skips the tiers' and the peers' prefix lookup,
+disagg shipping, chunking and packing. It builds no hash chain, so it emits
+no KV event: two prompts with different images share the same placeholder
+tokens, and a router would route on the poisoned hashes. ``embed`` (the
+``/v1/embeddings`` path, :2532) runs the runner's pooled forward in turn
+with the loop's dispatches.
+
+Left out (ROADMAP.md lists it): the goodput counters on the trace timeline
+(A12).
 """
 
 from __future__ import annotations
@@ -253,7 +273,9 @@ from dynamo_tpu_torch.protocols.common import (
 )
 from dynamo_tpu_torch.runtime import clock as dclock
 from dynamo_tpu_torch.telemetry import brownout as dbrownout
+from dynamo_tpu_torch.telemetry import profile as dprofile
 from dynamo_tpu_torch.telemetry import trace as dtrace
+from dynamo_tpu_torch.telemetry.health import StreamPace
 from dynamo_tpu_torch.telemetry.histogram import PhaseHistograms
 from dynamo_tpu_torch.testing import faults
 from dynamo_tpu_torch.tokens import TokenBlockSequence
@@ -398,6 +420,17 @@ class EngineStats:
     # always-on per-phase latency histograms (queue_wait / ttft / prefill /
     # inter_token / e2e), shipped on ForwardPassMetrics
     phase_histograms: PhaseHistograms = field(default_factory=PhaseHistograms)
+    # the health plane's own series (C15): ``pace``, the token pace by
+    # delivery, and ``ttft_cold``, the TTFTs of cold first tokens; shipped
+    # on ForwardPassMetrics beside the phase histograms
+    health_histograms: PhaseHistograms = field(default_factory=PhaseHistograms)
+    # dispatches that captured a graph or loaded a kernel library (their
+    # token gaps stay out of inter_token and pace), and the gaps so left out
+    cold_dispatches: int = 0
+    cold_gaps: int = 0
+    # multimodal prefills (extra["mm"]) and pooled embeddings served
+    mm_prefills: int = 0
+    embeds: int = 0
 
     @property
     def tokens_per_horizon(self) -> float:
@@ -484,6 +517,11 @@ class _Sequence:
         self.t_admitted: Optional[float] = None
         self.t_first: Optional[float] = None
         self.t_last: Optional[float] = None
+        # the stream's token pace from its first token on (C15)
+        self.pace: Optional[StreamPace] = None
+        # the engine's cold-dispatch count at this sequence's arrival or
+        # last delivery: a delivery after it moved is marked cold (C15)
+        self.cold_seen = 0
 
     @property
     def num_generated(self) -> int:
@@ -625,6 +663,15 @@ class TorchEngine:
         # each label's first dispatch in seconds: what the cold budget covers
         # (a graph capture rides a graphed label's first)
         self.dispatch_first_s: dict[str, float] = {}
+        # the runner's warm events (graph captures, kernel library loads)
+        # seen by the last dispatch's end (C15)
+        self._warm_seen = getattr(runner, "warm_events", 0)
+        # on a card a label's first dispatch is a one-off cost too: torch
+        # loads the kernel modules of its ops, and cuBLAS its workspaces, on
+        # first use (a fresh worker's first prefill took ~1.6 s on the H100)
+        self._first_use_cold = str(runner.device).startswith("cuda")
+        # dispatches run so far: the fetch id each token carries
+        self._fetches = 0
         self._watchdog_task: Optional[asyncio.Task] = None
         self._tripped = False
         self._fenced = False  # self-fenced on primary-lease loss
@@ -734,6 +781,7 @@ class TorchEngine:
                 )
                 return
         seq = _Sequence(next(self._seq_ids), request, context)
+        seq.cold_seen = self.stats.cold_dispatches
         if dtrace.enabled():
             self._sp_begin(seq, "queue_wait", tokens=n, priority=seq.priority)
         self._enqueue(seq)
@@ -754,20 +802,47 @@ class TorchEngine:
     def _observe_stream(self, seq: _Sequence, item: LLMEngineOutput) -> None:
         """Always-on phase histograms at the stream edge (what a consumer of
         this worker sees): TTFT, prefill (admitted to first token),
-        inter-token gaps, end to end (engine.py:555-571)."""
+        inter-token gaps, end to end (engine.py:555-571). A gap whose
+        delivery is marked ``cold`` (``_device``) is no ``inter_token``
+        sample; the reference observes each gap, its XLA compiles included.
+        A cold first token's TTFT is kept, and also observed in the health
+        plane's ``ttft_cold``, which its scorer subtracts; the health
+        plane's ``pace`` is scored by delivery (``StreamPace``): a fetch's
+        tokens share its gap (C15)."""
         ph = self.stats.phase_histograms
         now = time.monotonic()
         if item.token_ids:
-            if seq.t_first is None:
+            if seq.pace is None:
                 seq.t_first = now
+                seq.pace = StreamPace(now, item.fetch)
                 ph.observe("ttft", (now - seq.t_arrival) * 1e3)
+                if item.cold:  # the health plane's TTFT leaves it out
+                    self.stats.health_histograms.observe(
+                        "ttft_cold", (now - seq.t_arrival) * 1e3)
                 if seq.t_admitted is not None:
                     ph.observe("prefill", (now - seq.t_admitted) * 1e3)
-            elif seq.t_last is not None:
-                ph.observe("inter_token", (now - seq.t_last) * 1e3)
+            else:
+                if item.cold:
+                    self.stats.cold_gaps += 1
+                else:
+                    ph.observe("inter_token", (now - seq.t_last) * 1e3)
+                self._observe_pace(seq.pace.token(now, item.fetch, item.cold))
             seq.t_last = now
         if item.finish_reason is not None:
+            if seq.pace is not None:
+                self._observe_pace(seq.pace.flush())
             ph.observe("e2e", (now - seq.t_arrival) * 1e3)
+
+    def _observe_pace(self, done) -> None:
+        """One closed delivery of a stream (``StreamPace``) into ``pace``:
+        a sample a token, each its share of the fetch's gap; a cold one is
+        left out (C15)."""
+        if done is None or done[2]:
+            return
+        ms, n, _ = done
+        h = self.stats.health_histograms
+        for _ in range(n):
+            h.observe("pace", ms)
 
     # ---------------------------------------------------------- brownout
 
@@ -961,7 +1036,15 @@ class TorchEngine:
         duration by an asyncio sleep after it returns (the device thread
         and its card lock are free meanwhile); the label stays the running
         dispatch until the stretch ends and its EMA takes the stretched
-        time, so the watchdog's budget tracks a throttled worker."""
+        time, so the watchdog's budget tracks a throttled worker.
+
+        A dispatch is cold when the runner's ``warm_events`` (graph
+        captures, kernel library loads) moved since the previous one ended
+        -- it, or a lazy horizon's capture queued before it, paid a one-off
+        cost -- or, on a card, when it is its label's first
+        (``stats.cold_dispatches``). Every sequence's next delivery
+        after it is marked ``cold`` (``_append_token``): its gap, or its
+        wait for a first token, held that cost (C15)."""
         runner, stats = self.runner, self.stats
         slow = 1.0
         if faults.active():
@@ -977,9 +1060,16 @@ class TorchEngine:
             started.append(info)
             self._dispatch_info = info
             try:
-                return fn()
+                with dprofile.annotate(label):
+                    return fn()
             finally:
                 stats.graph_replays += runner.graph_replays - replays
+                self._fetches += 1
+                warm = getattr(runner, "warm_events", 0)
+                first_use = self._first_use_cold and label not in self.dispatch_first_s
+                if warm != self._warm_seen or first_use:
+                    self._warm_seen = warm
+                    stats.cold_dispatches += 1
                 if slow <= 1.0:
                     self._dispatch_done(info)
 
@@ -1485,8 +1575,8 @@ class TorchEngine:
         the chunked prefill is the one that starts at an offset, and the
         final chunk keeps at least one token (:1662-1690). Between the
         lookup and the routing, the peer tier (``_peer_fetch``) may pull the
-        rest of the chain into the tiers. Not ported, and so not branched on
-        here: multimodal prompts (A6)."""
+        rest of the chain into the tiers. A multimodal prompt (``extra["mm"]``)
+        skips all of it and is prefilled on its own (``_run_mm_prefill``)."""
         admitted = False
         C = self._step_chunk_tokens
         bs = self.config.block_size
@@ -1509,6 +1599,16 @@ class TorchEngine:
                     "queue_wait", (seq.t_admitted - seq.t_arrival) * 1e3)
             if seq.spans:
                 self._sp_finish(seq, "queue_wait")
+            mm = seq.request.extra.get("mm")
+            if mm is not None:
+                # token-hash prefix reuse would collide across different
+                # images behind identical placeholder tokens
+                self.admissions.append({"id": seq.ctx.id, "prompt_tokens": len(seq.token_ids),
+                                        "cached_blocks": 0})
+                if dtrace.enabled():
+                    self._sp_begin(seq, "prefill", tokens=len(seq.token_ids), path="mm")
+                await self._run_mm_prefill(seq, mm)
+                continue
             hit_len = 0
             if bm is not None:
                 seq.pending_chain = TokenBlockSequence(list(seq.token_ids), bs)
@@ -1605,6 +1705,39 @@ class TorchEngine:
         self._set_chain(seq)
         tok, lp, tids, tlps = sample
         self._append_token(seq, int(tok[0]), float(lp[0]), tids[0], tlps[0])
+
+    async def _run_mm_prefill(self, seq: _Sequence, mm: dict) -> None:
+        """One multimodal prompt (engine.py:1739-1775): the vision
+        embeddings spliced over the placeholder span by the runner's
+        ``prefill_mm``. No hash chain is set, so no Stored event leaves."""
+        replay = list(seq.token_ids)
+        embeds, start = mm["embeds"], int(mm["start"])
+        key_row = self._key_row(seq)
+        runner = self.runner
+        eos_suppress = seq.needs_eos_suppress
+        sample = await self._device(
+            lambda: runner.fetch_sample(runner.prefill_mm(
+                replay, seq.block_ids, embeds, start, seq.temperature, seq.top_p,
+                seq.top_k, rep_pen=seq.rep_pen, key_data=key_row,
+                eos_ids=seq.eos_row, eos_suppress=eos_suppress,
+            )), "prefill_mm"
+        )
+        self.stats.prefills += 1
+        self.stats.mm_prefills += 1
+        if seq.slot is None:  # cancelled during the device call
+            return
+        tok, lp, tids, tlps = sample
+        self._append_token(seq, int(tok[0]), float(lp[0]), tids[0], tlps[0])
+
+    async def embed(self, token_ids: list[int]) -> np.ndarray:
+        """The pooled embedding [hidden] (f32) of ``token_ids`` for
+        ``/v1/embeddings`` (engine.py:2532): a cacheless forward on the
+        device thread, in turn with the loop's dispatches."""
+        runner = self.runner
+        ids = list(token_ids)
+        vec = await self._device(lambda: runner.embed(ids), "embed")
+        self.stats.embeds += 1
+        return vec
 
     async def _run_packed_prefill(self, group: list[_Sequence]) -> None:
         """Short prompts packed into one prefill (engine.py:1771)."""
@@ -2137,7 +2270,10 @@ class TorchEngine:
         if seq.hash_seq is not None:
             seq.hash_seq.append(token)
             self._emit_stored(seq)
-        out = LLMEngineOutput(token_ids=[token])
+        out = LLMEngineOutput(token_ids=[token], fetch=self._fetches)
+        if seq.cold_seen != self.stats.cold_dispatches:
+            out.cold = True
+            seq.cold_seen = self.stats.cold_dispatches
         if seq.want_logprobs:
             out.log_probs = [lp]
             k = seq.num_top_lp

@@ -28,6 +28,13 @@ that many GiB in whole blocks of its own KV block size (pinned on a card),
 ``DYN_KV_DISK_DIR`` a disk tier capped at ``DYN_KV_DISK_GB`` (0: no cap);
 ``DYN_KV_WIRE=int8`` stores the tiers quantized, and an int8-resident cache
 forces int8 tiers (its pages move verbatim). Unset, there is none.
+
+Model resolution and GGUF (the JAX factory's :77-103, :167-175): a string
+``config`` goes through ``hub.resolve_model`` (a directory or a ``.gguf``
+file as it is, else a repo id in the local HF cache); a ``.gguf`` file gives
+the config from its metadata and the weights from ``gguf.params_from_gguf``
+(``load_gguf_params``), and ``ModelDeploymentCard.from_model_path`` its card
+(a tokenizer beside the file, else the one in its metadata).
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ from dynamo_tpu_torch.engine.torch_engine.engine import (
 )
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
 from dynamo_tpu_torch.engine.torch_engine.weights import load_or_init_params
+from dynamo_tpu_torch.gguf import GgufFile, config_from_gguf, params_from_gguf
+from dynamo_tpu_torch.hub import resolve_model
 from dynamo_tpu_torch.models.llama import LlamaConfig, param_count
 from dynamo_tpu_torch.ops.kernels import card_shape_problems
 from dynamo_tpu_torch.parallel.launch import free_port, init_method
@@ -256,7 +265,15 @@ def _resolve_config(config) -> tuple[LlamaConfig, Optional[str]]:
     if isinstance(config, dict):
         return LlamaConfig.from_hf_dict(config), None
     if isinstance(config, (str, os.PathLike)):
-        path = os.fspath(config)
+        # a directory or a .gguf file as it is, else a repo id in the local
+        # HF cache (hub.py; downloading stays gated)
+        path = resolve_model(os.fspath(config))
+        if path.endswith(".gguf"):
+            g = GgufFile(path)
+            try:
+                return config_from_gguf(g), path
+            finally:
+                g.close()
         try:
             return LlamaConfig.from_model_dir(path), path
         except (OSError, json.JSONDecodeError) as e:
@@ -266,6 +283,16 @@ def _resolve_config(config) -> tuple[LlamaConfig, Optional[str]]:
     if config is None:
         return LlamaConfig.llama3_8b(), None
     raise TypeError(f"config must be a LlamaConfig, an HF config dict or a model dir, not {type(config)}")
+
+
+def load_gguf_params(path: str, cfg: LlamaConfig, dtype: torch.dtype, device) -> dict:
+    """A ``.gguf`` file's parameters (gguf.params_from_gguf: the port's
+    layout, bit for bit the reference's in bf16) on ``device``."""
+    g = GgufFile(path)
+    try:
+        return params_from_gguf(g, cfg, dtype=dtype, device=device)[1]
+    finally:
+        g.close()  # the mmap must not outlive the load
 
 
 def _to(tree, dev):
@@ -516,6 +543,11 @@ def build_torch_engine(
             quantized=quantize, kv_dtype=kv_dtype, tp=tp, ep=ep,
             reserve_bytes=graph_pool_bytes(cfg, max_batch, spec["spec_k"]) if graphed else 0,
         )
+    if params is None and model_dir is not None and model_dir.endswith(".gguf"):
+        # the file's weights (dequantized, then in ``dtype``), on the CPU for
+        # a group (each rank cuts its slice); int8 weight quantization is
+        # not applied to them, as in the reference
+        params = load_gguf_params(model_dir, cfg, dtype, "cpu" if grouped else dev)
     runner_kw = dict(
         num_blocks=num_blocks, block_size=kv_block_size, max_batch=max_batch,
         max_model_len=max_len, rng_seed=seed, fused_decode=fused_decode,

@@ -109,6 +109,7 @@ class StepGraphs:
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
         self.replays = 0
+        self.captures = 0
 
     def __contains__(self, key: tuple) -> bool:
         return key in self._graphs
@@ -166,6 +167,7 @@ class StepGraphs:
             launches={k: captured[k] - ran[k] for k in captured if captured[k] != ran[k]},
             capture_s=time.perf_counter() - t0,
         )
+        self.captures += 1
 
     def launch(self, key: tuple, inputs: StepInputs, arrays: Optional[dict] = None) -> None:
         """Fill (unless ``arrays`` is None: the inputs as they are) and

@@ -9,7 +9,8 @@ Counterpart of dynamo_tpu/engine/jax_engine/model_runner.py (``prefill``
 ``_decode_impl`` :579, ``decode_multi`` :1646 with ``_decode_multi_impl``
 :593, ``spec_verify`` :1696 with ``_spec_verify_impl`` :704,
 ``decode_multi_ready`` / ``prepare_decode_multi_async`` :1760-1767,
-``fetch_sample`` :1049, ``default_prefill_buckets`` :41, the block data
+``fetch_sample`` :1049, ``default_prefill_buckets`` :41, the multimodal
+``prefill_mm`` :1192 and the pooled ``embed`` :1299, the block data
 plane ``extract_blocks*`` / ``inject_blocks*`` :1407-1601 over
 :366-460):
 
@@ -330,13 +331,7 @@ class TorchModelRunner:
         ``uses_cp_prefill`` says so."""
         T = len(token_ids)
         bucket = self.pick_bucket(T)
-        tokens = np.zeros(bucket, np.int64)
-        tokens[:T] = token_ids
-        table = np.zeros(bucket // self.block_size, np.int64)
-        used = (T + self.block_size - 1) // self.block_size
-        table[:used] = block_ids[:used]  # padding blocks go to null block 0
-        tokens_d = self._dev(tokens, np.int64)
-        table_d = self._dev(table, np.int64)
+        tokens_d, table_d = self._prompt_arrays(token_ids, block_ids, bucket)
         if self.uses_cp_prefill(bucket):
             logits = llama.prefill_context_parallel(
                 self.params, self.config, self.group, tokens_d, T,
@@ -345,6 +340,69 @@ class TorchModelRunner:
             logits = llama.prefill(self.params, self.config, tokens_d, T, self.k_cache,
                                    self.v_cache, table_d, group=self.group)
         return logits, tokens_d
+
+    def _prompt_arrays(self, token_ids: list[int], block_ids: list[int], bucket: int):
+        """The prompt padded to ``bucket`` and its block table (padding
+        blocks go to null block 0), on the device."""
+        T = len(token_ids)
+        tokens = np.zeros(bucket, np.int64)
+        tokens[:T] = token_ids
+        table = np.zeros(bucket // self.block_size, np.int64)
+        used = (T + self.block_size - 1) // self.block_size
+        table[:used] = block_ids[:used]
+        return self._dev(tokens, np.int64), self._dev(table, np.int64)
+
+    @torch.inference_mode()
+    def prefill_mm(
+        self,
+        token_ids: list[int],  # image placeholders already expanded
+        block_ids: list[int],
+        mm_embeds,  # [M, hidden] vision embeddings: a tensor (any device) or numpy
+        mm_start: int,  # first expanded-placeholder index
+        temperature: float,
+        top_p: float,
+        top_k: int,
+        rep_pen: float = 1.0,
+        key_data: Optional[np.ndarray] = None,
+        eos_ids: Optional[np.ndarray] = None,
+        eos_suppress: bool = False,
+        return_logits: bool = False,
+    ) -> SampleOut:
+        """Multimodal prefill (model_runner.py:1192-1245): the vision
+        embeddings spliced over the placeholder span (``llama.prefill_mm``),
+        one prompt on its own, never context parallel; then ``prefill``'s
+        sampling tail, or with ``return_logits`` the last token's logits [V]
+        (f32) on the device (what a check compares). Device-path embeddings
+        stay on the device; a host payload (the wire path) is uploaded
+        here."""
+        if key_data is None:
+            key_data = self._next_key_data()
+        T = len(token_ids)
+        tokens_d, table_d = self._prompt_arrays(token_ids, block_ids, self.pick_bucket(T))
+        emb = mm_embeds if torch.is_tensor(mm_embeds) else torch.from_numpy(
+            np.array(mm_embeds, np.float32))
+        logits = llama.prefill_mm(
+            self.params, self.config, tokens_d, T, self.k_cache, self.v_cache, table_d,
+            emb.to(self.device, torch.float32), int(mm_start), group=self.group)
+        if return_logits:
+            return logits
+        return self._sample_first(
+            logits, tokens_d, T, key_data, temperature, top_p, top_k, rep_pen,
+            eos_ids, eos_suppress,
+        )
+
+    @torch.inference_mode()
+    def embed(self, token_ids: list[int]) -> np.ndarray:
+        """Pooled sequence embedding [hidden] (f32) of one prompt padded to
+        its bucket (model_runner.py:1299-1320, ``llama.embed_pooled``): no
+        cache is read or written."""
+        T = len(token_ids)
+        bucket = self.pick_bucket(T)
+        tokens = np.zeros(bucket, np.int64)
+        tokens[:T] = token_ids
+        out = llama.embed_pooled(self.params, self.config, self._dev(tokens, np.int64), T,
+                                 group=self.group)
+        return out.cpu().numpy()
 
     @torch.inference_mode()
     def prefill_logits(self, token_ids: list[int], block_ids: list[int]) -> torch.Tensor:
@@ -1179,6 +1237,17 @@ class TorchModelRunner:
         S = key[1] if key[0] == "verify" else 1
         hkv = self.config.num_kv_heads
         reserve_tickets(self.device, B * hkv * -(-S * G // PAGED_ROWS))
+
+    @property
+    def warm_events(self) -> int:
+        """One-off costs paid so far: this runner's graph captures plus the
+        kernel libraries loaded into the process. A dispatch during which
+        it moves is cold (the engine keeps its token gaps out of
+        ``inter_token``)."""
+        from dynamo_tpu_torch.ops import _build
+
+        captures = self._graphs.captures if self._graphs is not None else 0
+        return captures + _build.load_events
 
     @property
     def graph_replays(self) -> int:

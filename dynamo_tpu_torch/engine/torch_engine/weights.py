@@ -262,7 +262,9 @@ def params_from_jax(tree: Any, device="cuda") -> Any:
     for bit. bf16 leaves travel through a uint16 view; int8-quantized
     weights (``{"q": int8, "s": bf16}``) keep their form, leaf by leaf. The
     layout is the same on both sides ([in, out] weights), so nothing is
-    transposed."""
+    transposed. A vision-tower tree (dynamo_tpu/multimodal/vision.py
+    ``init_vit_params``: f32 leaves, ``layers`` a list of dicts) carries
+    across the same way."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, dev) for k, v in tree.items()}

@@ -157,8 +157,14 @@ class EngineConfig:
         return self.engine is not None
 
     def execution(self) -> ModelExecution:
+        """The static engine's execution (inputs.py:208-215, :798-806): a
+        ``MultimodalEngine`` marks the card ``supports_images``, and an
+        engine with ``embed`` serves ``/v1/embeddings``."""
+        if getattr(self.engine, "supports_images", False):
+            self.mdc.extra["supports_images"] = True
         return ModelExecution(self.mdc, self.engine.generate,
-                              clear_fn=_local_clear_fn(self.engine))
+                              clear_fn=_local_clear_fn(self.engine),
+                              embed_fn=getattr(self.engine, "embed", None))
 
 
 def _local_clear_fn(engine: Any) -> Optional[Any]:
@@ -459,6 +465,9 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
     stamp = make_stamp(drt.primary_lease, drt.fencing_epoch)
     service = await endpoint.serve_endpoint(make_engine_handler(
         engine, worker_label, namespace=endpoint.component.namespace, stamp=stamp))
+    if getattr(engine, "supports_images", False):
+        # rides the registered card, so remote frontends pass media parts
+        config.mdc.extra["supports_images"] = True
     await register_llm(drt, endpoint, config.mdc)
 
     # reconcile-on-heal: when the fabric comes back from a blackout (or a
@@ -698,6 +707,9 @@ def load_metrics(engine: Any):
         # the always-on phase histograms, shipped once anything is recorded,
         # so the aggregator and the health scorer see this worker's own view
         phase_histograms=(st.phase_histograms if st.phase_histograms.total_count() else None),
+        # shipped even empty: it marks a port worker, which the health
+        # plane scores on its pace, never on its inter_token gaps
+        health_histograms=st.health_histograms,
     )
 
 

@@ -13,6 +13,7 @@ import dataclasses
 import json
 import os
 
+from dynamo_tpu_torch.hub import resolve_model
 from dynamo_tpu_torch.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.tokenizer import TokenizerWrapper
 
@@ -77,8 +78,8 @@ async def build_engine_from_env():
             )
 
         engine = await loop.run_in_executor(None, build)
-        mdc = ModelDeploymentCard.from_model_dir(path, model_name(),
-                                                 context_length=engine.config.max_model_len)
+        mdc = ModelDeploymentCard.from_model_path(resolve_model(path), model_name(),
+                                                  context_length=engine.config.max_model_len)
         return engine, mdc
     raise SystemExit(f"unknown DYN_GRAPH_ENGINE={kind!r} (echo, tiny-torch or torch)")
 

@@ -9,12 +9,18 @@ stream; ``n`` >= 1 choices merged into one stream), ``GET /v1/models`` and
 ``POST /v1/responses`` (unary: the body as a chat request, the answer
 reshaped into a Response object), ``GET /v1/models``, ``GET /health`` and
 ``GET /live``, the Prometheus text at ``GET /metrics`` (``http/metrics.py``),
-``GET /debug/slo``, and the admin route ``POST /clear_kv_blocks`` (every
-model's ``clear_fn``: its engine's reusable KV state dropped, the
-reference's per-worker-group answer); any other route gets 404 with the
-reference's error payload. A malformed body gets 400
-``invalid_request_error``, an unknown model 404 ``not_found_error``, image
-parts 501 ``not_implemented``. A chat request that declares ``tools`` has
+``GET /debug/slo``, ``POST /v1/embeddings`` (each input's pooled vector from
+the model's ``embed_fn``, 501 without one, and ``usage``),
+``GET /debug/profile?seconds=N[&dir=PATH]`` (a ``torch.profiler`` window,
+``telemetry/profile.py``: 200, 409 while a window is open, 400 on a bad
+``seconds``, 501 where no engine runs), and the admin route
+``POST /clear_kv_blocks`` (every model's ``clear_fn``: its engine's
+reusable KV state dropped, the reference's per-worker-group answer); any
+other route gets 404 with the reference's error payload. A malformed body
+gets 400 ``invalid_request_error``, an unknown model 404
+``not_found_error``, and image or video parts to a model whose card does
+not say ``supports_images`` (a ``MultimodalEngine`` deployment's does) 501
+``not_implemented``. A chat request that declares ``tools`` has
 them rendered by its template, and a choice whose text parses as tool calls
 (``tool_calling.parse_tool_calls``: Hermes, Mistral or Llama-3 JSON) is
 answered with ``tool_calls`` deltas and the ``tool_calls`` finish.
@@ -69,9 +75,8 @@ trace only when it errored, breached its SLO, migrated or was sampled
 
 Tokenizing, templating and detokenizing run on the event loop, per request,
 as in the reference; the engine keeps its device calls on its own thread.
-Left out: ``/v1/embeddings`` (ROADMAP A6), ``/debug/goodput``,
-``/debug/decisions``, ``/debug/fleet`` and the admission's provenance
-records (A12), ``/debug/profile`` (A11).
+Left out: ``/debug/goodput``, ``/debug/decisions``, ``/debug/fleet`` and
+the admission's provenance records (A12).
 """
 
 from __future__ import annotations
@@ -86,6 +91,7 @@ import math
 import os
 import re
 import time
+import urllib.parse
 import uuid
 from typing import Any, AsyncIterator, Callable, Optional
 
@@ -104,12 +110,14 @@ from dynamo_tpu_torch.protocols.common import Context, FinishReason, Preprocesse
 from dynamo_tpu_torch.protocols.openai import (
     ChatCompletionRequest,
     CompletionRequest,
+    EmbeddingRequest,
     ModelInfo,
     ModelList,
 )
 from dynamo_tpu_torch.protocols.sse import encode_done, encode_json_event
 from dynamo_tpu_torch.runtime.prom import CONTENT_TYPE_LATEST
 from dynamo_tpu_torch.telemetry import brownout as dbrownout
+from dynamo_tpu_torch.telemetry import profile as dprofile
 from dynamo_tpu_torch.telemetry import slo as dslo
 from dynamo_tpu_torch.telemetry import trace as dtrace
 from dynamo_tpu_torch.tool_calling import parse_tool_calls
@@ -377,13 +385,24 @@ class ModelExecution:
     """Per-model chain: preprocess -> engine -> detokenize -> OpenAI chunks."""
 
     def __init__(self, mdc: ModelDeploymentCard, engine_fn: EngineFn,
-                 clear_fn: Optional[Callable] = None) -> None:
+                 clear_fn: Optional[Callable] = None,
+                 embed_fn: Optional[Callable] = None) -> None:
         self.mdc = mdc
         self.engine_fn = engine_fn
+        # async (token_ids) -> pooled embedding vector, where the engine
+        # has one (POST /v1/embeddings)
+        self.embed_fn = embed_fn
         # async () -> [per-worker dict]: drops the workers' reusable KV
         self.clear_fn = clear_fn
         self.preprocessor = OpenAIPreprocessor(mdc)
         self.backend = Backend(self.preprocessor.tokenizer)
+
+    @property
+    def supports_images(self) -> bool:
+        """Whether the backing worker takes image / video parts: a
+        ``MultimodalEngine`` deployment says so on its model card, which
+        rides discovery, so a remote frontend sees it too."""
+        return bool(self.mdc.extra.get("supports_images"))
 
     @staticmethod
     def _fanout(pre: PreprocessedRequest) -> list[PreprocessedRequest]:
@@ -610,6 +629,7 @@ class _Request:
     version: str
     headers: dict[str, str]
     body: bytes = b""
+    query: dict[str, str] = dataclasses.field(default_factory=dict)
 
     @property
     def keep_alive(self) -> bool:
@@ -660,7 +680,9 @@ class _Connection:
             if not sep or not name.strip():
                 raise _BadRequest(400, f"bad header line {line!r}")
             headers[name.strip().lower()] = value.strip()
-        req = _Request(method.upper(), target.split("?", 1)[0], version, headers)
+        path, _, qs = target.partition("?")
+        req = _Request(method.upper(), path, version, headers,
+                       query=dict(urllib.parse.parse_qsl(qs)))
         if "chunked" in headers.get("transfer-encoding", "").lower():
             raise _BadRequest(411, "chunked request bodies are not supported; send Content-Length")
         try:
@@ -779,7 +801,9 @@ class HttpService:
             ("GET", "/health"): self._health,
             ("GET", "/live"): self._health,
             ("GET", "/metrics"): self._metrics,
+            ("POST", "/v1/embeddings"): self._embeddings,
             ("GET", "/debug/slo"): self._debug_slo,
+            ("GET", "/debug/profile"): self._debug_profile,
             ("GET", "/debug/traces"): self._debug_traces_list,
             ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
         }
@@ -1185,9 +1209,12 @@ class HttpService:
         async def run():
             chat_req, execution = self._parse(
                 req, ChatCompletionRequest, self.template and self.template.apply_chat)
-            if any(isinstance(m.content, list) and any(
-                    p.get("type") in ("image_url", "video_url") for p in m.content)
+            if not execution.supports_images and any(
+                    isinstance(m.content, list) and any(
+                        p.get("type") in ("image_url", "video_url") for p in m.content)
                     for m in chat_req.messages):
+                # fail loudly instead of answering text-only (the
+                # preprocessor lifts media parts out of the template)
                 raise _Reply(501, "this model does not accept image input", "not_implemented")
             sig = _chat_prefix_sig(chat_req)
             prio = self._admit(req, chat_req, ctx, sig)
@@ -1317,6 +1344,57 @@ class HttpService:
     async def _metrics(self, conn: _Connection, req: _Request, ctx: Context) -> None:
         await conn.send_text(200, self.metrics.render(), CONTENT_TYPE_LATEST,
                              keep_alive=req.keep_alive)
+
+    async def _embeddings(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """OpenAI embeddings (service.py:1265-1316): each input tokenized
+        (token ids as they are), pooled by the model's ``embed_fn``, and
+        the prompt tokens counted in ``usage``."""
+        async def run():
+            try:
+                emb_req = EmbeddingRequest.from_dict(json.loads(req.body))
+            except ValueError as e:
+                raise _Reply(400, f"invalid request: {e}") from None
+            execution = self.manager.get(emb_req.model)
+            if execution is None:
+                raise _Reply(404, f"model {emb_req.model!r} not found", "not_found_error")
+            if execution.embed_fn is None:
+                raise _Reply(501, "this model does not serve embeddings", "not_implemented")
+            inputs = emb_req.input
+            if isinstance(inputs, str):
+                inputs = [inputs]
+            elif inputs and isinstance(inputs[0], int):
+                inputs = [inputs]
+            tokenizer = execution.preprocessor.tokenizer
+            data, prompt_tokens = [], 0
+            with self.metrics.track(emb_req.model, "embeddings"):
+                for i, item in enumerate(inputs):
+                    ids = list(item) if isinstance(item, list) else tokenizer.encode(str(item)).ids
+                    prompt_tokens += len(ids)
+                    vec = await execution.embed_fn(ids)
+                    data.append({"object": "embedding", "index": i,
+                                 "embedding": [float(x) for x in vec]})
+            await conn.send_json(200, {
+                "object": "list", "data": data, "model": emb_req.model,
+                "usage": {"prompt_tokens": prompt_tokens, "total_tokens": prompt_tokens},
+            }, self._resp_headers(ctx), req.keep_alive)
+        await self._reply(conn, req, ctx, run)
+
+    async def _debug_profile(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """Open a device profile window (service.py:1678-1692):
+        ``?seconds=N[&dir=PATH]``; it closes itself and its trace lands
+        under ``DYN_PROFILE_DIR``."""
+        try:
+            seconds = float(req.query.get("seconds", "5"))
+        except ValueError:
+            await conn.send_json(400, {"error": {"message": "seconds must be a number",
+                                                 "type": "invalid_request_error"}},
+                                 keep_alive=req.keep_alive)
+            return
+        info = dprofile.start(seconds, req.query.get("dir") or None)
+        status = 200
+        if "error" in info:
+            status = 409 if "already" in info["error"] else 501
+        await conn.send_json(status, info, keep_alive=req.keep_alive)
 
     async def _debug_slo(self, conn: _Connection, req: _Request, ctx: Context) -> None:
         """The frontend's SLO status: per-model burn rates, window

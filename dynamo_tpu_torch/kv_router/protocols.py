@@ -244,6 +244,9 @@ class ForwardPassMetrics:
     # per-phase latency distributions on the shared fixed-log bucket grid
     # (telemetry/histogram.py): merged across the fleet by bucket addition
     phase_histograms: Optional[PhaseHistograms] = None
+    # a port worker's own series for the health plane (C15; ``pace`` and
+    # ``ttft_cold``, telemetry/health.py), on the same grid
+    health_histograms: Optional[PhaseHistograms] = None
     # the reference's goodput ledger as its wire dict (module docstring)
     goodput: Optional[dict[str, Any]] = None
 
@@ -258,6 +261,8 @@ class ForwardPassMetrics:
             d["kv_transfer_stats"] = self.kv_transfer_stats.__dict__
         if self.phase_histograms is not None:
             d["phase_histograms"] = self.phase_histograms.to_dict()
+        if self.health_histograms is not None:
+            d["health_histograms"] = self.health_histograms.to_dict()
         if self.goodput is not None:
             d["goodput"] = self.goodput
         return d
@@ -272,6 +277,8 @@ class ForwardPassMetrics:
             spec_decode_stats=SpecDecodeStats(**spec) if spec else None,
             kv_transfer_stats=KvTransferStats(**xfer) if xfer else None,
             phase_histograms=PhaseHistograms.from_dict(ph) if (ph := d.get("phase_histograms")) else None,
+            health_histograms=(PhaseHistograms.from_dict(d["health_histograms"])
+                               if "health_histograms" in d else None),
             goodput=d.get("goodput") or None,
         )
 

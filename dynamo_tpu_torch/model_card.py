@@ -84,6 +84,57 @@ class ModelDeploymentCard:
         card._attach_tokenizer(tok)
         return card
 
+    @classmethod
+    def from_model_path(
+        cls,
+        path: str,
+        name: Optional[str] = None,
+        kv_block_size: int = DEFAULT_KV_BLOCK_SIZE,
+        context_length: Optional[int] = None,
+    ) -> "ModelDeploymentCard":
+        """The card of a resolved model path (``hub.resolve_model``): a
+        directory's (``from_model_dir``), or a ``.gguf`` file's
+        (the JAX factory's ``_gguf_model_card``, :348-390): tokenizer files
+        beside it win, else the tokenizer and chat template embedded in its
+        metadata, with its bos / eos strings."""
+        if not path.endswith(".gguf"):
+            return cls.from_model_dir(path, name, kv_block_size=kv_block_size,
+                                      context_length=context_length)
+        from dynamo_tpu_torch.gguf import GgufFile, tokenizer_from_gguf
+
+        card_name = name or os.path.basename(path).removesuffix(".gguf")
+        try:
+            return cls.from_model_dir(os.path.dirname(os.path.abspath(path)), card_name,
+                                      kv_block_size=kv_block_size, context_length=context_length)
+        except FileNotFoundError:
+            pass
+        g = GgufFile(path)
+        try:
+            tok = tokenizer_from_gguf(g)
+            if tok is None:
+                raise FileNotFoundError(
+                    f"{path}: no tokenizer.json/tokenizer.model beside the file and no "
+                    "tokenizer.ggml metadata inside it"
+                )
+            md = g.metadata
+        finally:
+            g.close()
+        tokens = md.get("tokenizer.ggml.tokens") or []
+
+        def tok_str(key: str) -> str:
+            # chat templates use '{{ bos_token }}': the strings must be there
+            tid = md.get(key)
+            return tokens[tid] if isinstance(tid, int) and 0 <= tid < len(tokens) else ""
+
+        ctx = context_length or md.get(f"{md.get('general.architecture', 'llama')}.context_length")
+        return cls.from_tokenizer(
+            card_name, tok, chat_template=md.get("tokenizer.chat_template"),
+            bos_token=tok_str("tokenizer.ggml.bos_token_id"),
+            eos_token=tok_str("tokenizer.ggml.eos_token_id"),
+            kv_block_size=kv_block_size,
+            context_length=int(ctx or DEFAULT_CONTEXT_LENGTH),
+        )
+
     def _attach_tokenizer(self, tok: TokenizerWrapper) -> None:
         if tok.kind == "sp":
             self.tokenizer_kind = "sp"

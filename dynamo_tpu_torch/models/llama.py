@@ -6,8 +6,9 @@ Counterpart of dynamo_tpu/models/llama.py: ``LlamaConfig`` is the port's own
 copy of the JAX package's config (with ``from_hf_dict``), and the forward
 pass follows the JAX functions op for op (``_embed``, ``_rope_pair`` /
 ``_layer_freqs``, ``_attn_prefill``, ``_attn_decode``, ``_mlp``, ``_logits``,
-``prefill``, ``prefill_chunk``, ``prefill_packed``, ``decode``,
-``decode_verify``, and the fused decode heads
+``prefill`` (``_embed`` then ``_prefill_from_embeds``), the multimodal
+``prefill_mm``, the cacheless ``embed_pooled``, ``prefill_chunk``,
+``prefill_packed``, ``decode``, ``decode_verify``, and the fused decode heads
 ``_use_fused_decode`` / ``_fused_qkv_dispatch`` / ``_fused_out_dispatch``).
 Parameters are a dict with the JAX layout --
 weights ``[in, out]``, ``layers`` a list of per-layer dicts -- so a JAX
@@ -528,10 +529,41 @@ def prefill(
 ) -> torch.Tensor:
     """Process a prompt; writes its K/V into the caches and returns the last
     valid token's logits [V] (f32)."""
-    lc = rank_config(cfg, group)
-    freqs = _rope_pair(cfg, tokens.device)
-    positions = torch.arange(tokens.shape[0], device=tokens.device)
     x = _embed(params, cfg, tokens)
+    return _prefill_from_embeds(params, cfg, x, valid_len, k_cache, v_cache, block_table, group)
+
+
+def prefill_mm(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [P] int64, image placeholders already expanded
+    valid_len: int,
+    k_cache: KVCache,
+    v_cache: KVCache,
+    block_table: torch.Tensor,
+    mm_embeds: torch.Tensor,  # [M, hidden] the vision projector's output (f32)
+    mm_start: int,  # the embeds overwrite rows [mm_start, mm_start + M)
+    group=None,
+) -> torch.Tensor:
+    """Multimodal prefill (dynamo_tpu/models/llama.py:593-621): the token
+    embeddings with the vision tower's patch embeddings, cast to the
+    embedding dtype, spliced over the expanded placeholder span, then the
+    same stack as ``prefill``. The start is clamped so the span fits, as
+    the reference's ``dynamic_update_slice`` clamps it."""
+    x = _embed(params, cfg, tokens)
+    M = mm_embeds.shape[0]
+    start = min(max(int(mm_start), 0), x.shape[0] - M)
+    x[start:start + M] = mm_embeds.to(device=x.device, dtype=x.dtype)
+    return _prefill_from_embeds(params, cfg, x, valid_len, k_cache, v_cache, block_table, group)
+
+
+def _prefill_from_embeds(params, cfg, x, valid_len, k_cache, v_cache, block_table, group=None):
+    """The stack over embedded rows x [P, hidden] (llama.py:623-645): each
+    layer writes its K/V into the paged caches and attends causally over
+    the prompt; returns the last valid row's logits [V] (f32)."""
+    lc = rank_config(cfg, group)
+    freqs = _rope_pair(cfg, x.device)
+    positions = torch.arange(x.shape[0], device=x.device)
     for i, layer in enumerate(params["layers"]):
         x = _attn_prefill(
             x, layer, lc, _layer_freqs(cfg, i, freqs), positions, valid_len,
@@ -539,6 +571,34 @@ def prefill(
         )
         x = _mlp(x, layer, cfg, group)
     return _logits(x[valid_len - 1][None, :], params, cfg, group)[0]
+
+
+def embed_pooled(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [P] int64, padded
+    valid_len: int,
+    group=None,
+) -> torch.Tensor:
+    """Pooled sequence embedding (dynamo_tpu/models/llama.py:821-845): a
+    cacheless causal forward, the final norm, and the mean of the valid
+    rows in f32. The valid rows are selected, not masked by a product: the
+    prefill kernel leaves a bucket's padding rows unspecified, and a NaN
+    there times 0 would still be NaN (the reference multiplies)."""
+    lc = rank_config(cfg, group)
+    freqs = _rope_pair(cfg, tokens.device)
+    positions = torch.arange(tokens.shape[0], device=tokens.device)
+    x = _embed(params, cfg, tokens)
+    for i, layer in enumerate(params["layers"]):
+        q, k, v = qkv_head(x, layer, lc, _layer_freqs(cfg, i, freqs), positions)
+        attn = causal_prefill_attention(
+            q, k, v, valid_len, window=cfg.layer_window(i), scale=cfg.attn_scale,
+            logit_softcap=cfg.attn_logit_softcap,
+        )
+        x = _attn_out(attn, x, layer, lc, group)
+        x = _mlp(x, layer, cfg, group)
+    h = rms_norm(x[:valid_len], params["final_norm"], cfg.rms_eps).float()
+    return h.sum(dim=0) / max(valid_len, 1)
 
 
 def prefill_chunk(

@@ -3,7 +3,9 @@
 Each source in ``dynamo_tpu_torch/csrc/`` becomes one shared library with a
 plain C interface (a kernel with an int8 mode exports both modes' entry
 points from its one library), compiled for Hopper (``sm_90a``) on first use into
-``build/kernels/`` at the root of the checkout. The library name carries a
+the kernel cache directory (``runtime/config.kernel_cache_dir``:
+``DYN_KERNEL_CACHE_DIR``, else ``build/kernels/`` at the root of the
+checkout; ``tools/prebake.py`` fills it ahead of serving). The library name carries a
 hash of the source, the shared ``*.cuh`` headers and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. Nothing here runs at import time: the CPU
 tests import every module of the package on a machine without nvcc.
@@ -20,9 +22,10 @@ import threading
 import time
 from pathlib import Path
 
+from dynamo_tpu_torch.runtime.config import kernel_cache_dir
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = (
     "paged_decode_attention",
     "flash_prefill_attention",
@@ -38,6 +41,10 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# libraries loaded into this process so far (a runner's warm events), and
+# the nvcc processes this process started
+load_events = 0
+nvcc_runs = 0
 # per source: {"seconds": build time (0.0 when loaded from an earlier
 # build), "ptxas": the compiler's register/spill report}
 build_info: dict[str, dict] = {}
@@ -56,13 +63,18 @@ def _nvcc() -> str:
     )
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and looked for."""
+    return Path(kernel_cache_dir())
+
+
 def _target(name: str) -> Path:
     # the shared headers are hashed too: a source's library changes with them
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
         p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))
     )
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return build_dir() / f"lib{name}-{digest}.so"
 
 
 def _start(name: str) -> subprocess.Popen | None:
@@ -70,8 +82,10 @@ def _start(name: str) -> subprocess.Popen | None:
     out = _target(name)
     if out.exists():
         return None
+    global nvcc_runs
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc_runs += 1
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     return subprocess.Popen(
@@ -111,10 +125,12 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
+    global load_events
     build_all((name,))
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
+            load_events += 1
     return lib

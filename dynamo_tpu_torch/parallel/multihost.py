@@ -2,7 +2,7 @@
 node.
 
 Counterpart of dynamo_tpu/parallel/multihost.py (``LeaderLostError``
-:43-47, the opcodes :47-60, ``SpmdStepChannel`` :162-200,
+:43-47, the opcodes :47-60, all ported, ``SpmdStepChannel`` :162-200,
 ``SpmdModelRunner`` :200-472, ``follower_loop`` :563). Every rank's model
 calls issue collectives, so all ranks must make the same calls in the same
 order with the same host inputs. The engine's asyncio loop is dynamic, so
@@ -31,6 +31,11 @@ shape and dtype of each rank's part; the runner's method then gathers the
 ranks' heads into the dense array on the leader, or scatters each rank only
 its own heads of the leader's (where the reference broadcasts the whole
 payload to every host, :390-427, :707-720).
+
+Multimodal prefill and pooled embeddings (ROADMAP A6, done) ride
+``OP_MM_PREFILL`` and ``OP_EMBED`` (the reference's 8 and 7, :56-57): the
+vision embeddings travel in the payload as host f32, so every rank splices
+the same rows, and every rank runs the cacheless embedding forward.
 
 The verify pass of speculative decoding rides ``OP_VERIFY``, which the
 reference's channel lacks (:50-59) because its verify pass runs as one
@@ -81,6 +86,8 @@ OP_CHUNK = 3
 OP_EXTRACT = 4
 OP_INJECT = 5
 OP_PACKED = 6
+OP_EMBED = 7
+OP_MM_PREFILL = 8
 OP_DECODE_MULTI = 9
 OP_MIXED = 10
 OP_LOGITS = 11
@@ -95,6 +102,8 @@ _METHODS = {
     OP_PREFILL: "prefill",
     OP_CHUNK: "prefill_chunk",
     OP_PACKED: "prefill_packed_arrays",
+    OP_EMBED: "embed",
+    OP_MM_PREFILL: "prefill_mm",
     OP_DECODE_MULTI: "decode_multi",
     OP_MIXED: "mixed_step",
     OP_LOGITS: "decode_logits",
@@ -220,6 +229,26 @@ class SpmdModelRunner:
 
     def prefill_packed_arrays(self, *args, **kwargs):
         return self._call(OP_PACKED, *args, **kwargs)
+
+    def prefill_mm(self, token_ids, block_ids, mm_embeds, mm_start, temperature, top_p, top_k,
+                   rep_pen=1.0, key_data=None, eos_ids=None, eos_suppress=False,
+                   return_logits=False):
+        # the embeddings ride the payload as host f32 (multihost.py:428,
+        # :661): a device-path tensor is brought back once here
+        if key_data is None:
+            key_data = self._runner._next_key_data()
+        if torch.is_tensor(mm_embeds):
+            mm_embeds = mm_embeds.detach().float().cpu().numpy()
+        return self._call(OP_MM_PREFILL, list(token_ids), list(block_ids),
+                          np.asarray(mm_embeds, np.float32), int(mm_start), temperature, top_p,
+                          top_k, rep_pen=rep_pen, key_data=np.asarray(key_data),
+                          eos_ids=eos_ids, eos_suppress=eos_suppress,
+                          return_logits=return_logits)
+
+    def embed(self, token_ids):
+        # every rank runs the cacheless forward (multihost.py:452, :703);
+        # the row-parallel sums leave the pooled vector on each
+        return self._call(OP_EMBED, list(token_ids))
 
     def mixed_step(self, chunks, tokens, positions, block_tables, slot_indices, keys, temps,
                    top_ps, top_ks, eos_ids=None, eos_suppress=None):

@@ -7,8 +7,10 @@ tokenize -> PreprocessedRequest, and the OpenAI chunks built from the
 detokenized engine deltas, with the same annotation events
 ("formatted_prompt", "token_ids"), and the tool-call chunks of a request
 that declares tools (``tool_calls_chunk``, the ``tool_calls`` finish).
-Left out: the multimodal content parts (the port's engine takes no images;
-the HTTP layer refuses them; ROADMAP A6).
+Multimodal content parts: ``image_url`` / ``video_url`` parts are lifted
+out of the template (the text renders alone) into ``extra["mm_images"]`` /
+``extra["mm_videos"]``, which ``multimodal/worker.MultimodalEngine`` turns
+into vision embeddings over placeholder tokens.
 """
 
 from __future__ import annotations
@@ -52,9 +54,18 @@ class OpenAIPreprocessor:
         self, request: ChatCompletionRequest
     ) -> tuple[PreprocessedRequest, str]:
         messages = []
+        image_urls: list[str] = []
+        video_urls: list[str] = []
         for m in request.messages:
             d = m.to_dict()
             if isinstance(d.get("content"), list):
+                for part in d["content"]:
+                    if isinstance(part, dict) and part.get("type") in ("image_url", "video_url"):
+                        url = part.get(part["type"])
+                        if isinstance(url, dict):
+                            url = url.get("url")
+                        if url:
+                            (video_urls if part["type"] == "video_url" else image_urls).append(url)
                 d["content"] = m.text_content()
             messages.append(d)
         prompt = self.template.render(
@@ -63,7 +74,12 @@ class OpenAIPreprocessor:
             tools=request.tools,
         )
         enc = self.tokenizer.encode(prompt)
-        return self._build(request, enc.ids, request.output_limit()), prompt
+        pre = self._build(request, enc.ids, request.output_limit())
+        if image_urls:
+            pre.extra["mm_images"] = image_urls
+        if video_urls:
+            pre.extra["mm_videos"] = video_urls
+        return pre, prompt
 
     def preprocess_completion(
         self, request: CompletionRequest

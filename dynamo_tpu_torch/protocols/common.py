@@ -141,6 +141,15 @@ class LLMEngineOutput:
     # worker-side decision records riding the FINAL frame next to `trace`
     # (worker -> frontend provenance assembly; same lifecycle)
     decisions: Optional[list] = None
+    # a graph capture or a kernel library load ran on the worker since the
+    # sequence's previous frame (or its arrival): the gap before this frame
+    # is a one-off cost, not the worker's pace, and latency scoring skips
+    # it (C15). On the wire only when set; the reference's readers ignore it.
+    cold: bool = False
+    # the worker's dispatch that fetched this token: the tokens of one
+    # fetch (a decode horizon's) arrive back to back, and latency scoring
+    # spreads their gap over them (telemetry/health.StreamPace)
+    fetch: Optional[int] = None
 
     def to_dict(self) -> dict[str, Any]:
         out: dict[str, Any] = {"token_ids": self.token_ids, "index": self.index}
@@ -160,6 +169,10 @@ class LLMEngineOutput:
             out["trace"] = self.trace
         if self.decisions is not None:
             out["decisions"] = self.decisions
+        if self.cold:
+            out["cold"] = True
+        if self.fetch is not None:
+            out["fetch"] = self.fetch
         return out
 
     @classmethod
@@ -176,6 +189,8 @@ class LLMEngineOutput:
             error=d.get("error"),
             trace=d.get("trace"),
             decisions=d.get("decisions"),
+            cold=bool(d.get("cold", False)),
+            fetch=d.get("fetch"),
         )
 
     @classmethod

@@ -332,6 +332,40 @@ class CompletionRequest(_CommonSampling):
         return self.max_tokens
 
 
+@dataclass
+class EmbeddingRequest:
+    """``POST /v1/embeddings`` (the reference's ``EmbeddingRequest``): a
+    string, a list of strings, token ids, or a list of token-id lists."""
+
+    model: str
+    input: Union[str, list[str], list[int], list[list[int]]]
+    encoding_format: str = "float"
+
+    @classmethod
+    def from_dict(cls, d: Any) -> "EmbeddingRequest":
+        if not isinstance(d, dict):
+            _fail("body", "must be a JSON object")
+        model = d.get("model")
+        if not isinstance(model, str):
+            _fail("model", "is required and must be a string")
+        if "input" not in d:
+            _fail("input", "is required")
+        x = d["input"]
+        ok = isinstance(x, str) or (
+            isinstance(x, list) and (
+                all(isinstance(i, str) for i in x)
+                or all(_is_int(i) for i in x)
+                or all(isinstance(i, list) and all(_is_int(t) for t in i) for i in x)
+            )
+        )
+        if not ok:
+            _fail("input", "must be a string, a list of strings, or token ids")
+        fmt = d.get("encoding_format", "float")
+        if not isinstance(fmt, str):
+            _fail("encoding_format", "must be a string")
+        return cls(model=model, input=x, encoding_format=fmt)
+
+
 # -------------------------------------------------------------- responses
 
 

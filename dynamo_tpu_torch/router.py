@@ -226,7 +226,7 @@ class StandaloneRouter:
                 self._load = (slots, load)
                 # the same scrape feeds the health plane
                 for wid, m in per_worker.items():
-                    self.health.observe_worker_hists(wid, m.phase_histograms)
+                    self.health.observe_worker_hists(wid, m.phase_histograms, m.health_histograms)
             except Exception:  # noqa: BLE001 - missing stats = no shedding
                 self._load = (0, 0)
             self._load_at = now

@@ -12,8 +12,12 @@ The port's own copy of dynamo_tpu/run.py:
 
 in  = http | text | batch:FILE.jsonl | dyn://ns.comp.ep (serve the engine as
       a worker of that endpoint; ``in=dyn`` alone serves ``--endpoint``)
-out = torch  (TorchEngine from build_torch_engine(<dir>); a directory with
-      config.json and no *.safetensors serves seeded random weights)
+out = torch  (TorchEngine from build_torch_engine(<path>); --model-path is a
+      directory (config.json and *.safetensors; with no *.safetensors it
+      serves seeded random weights), a .gguf file (its weights, config and,
+      unless a tokenizer sits beside it, its embedded tokenizer and chat
+      template), or a repo id already in the local HF cache
+      (DYN_MODEL_CACHE, $HF_HOME/hub, ~/.cache/huggingface/hub; hub.py))
     | dyn  (route to the workers discovery finds, with --router-mode; ``kv``
       sends each request to the worker whose KV cache holds most of its
       prompt, weighed against its load: cost = weight x blocks to prefill +
@@ -176,10 +180,13 @@ def build_config(args: argparse.Namespace):
 
     if args.out_opt != "torch":
         raise SystemExit(f"unknown out={args.out_opt} (torch or dyn)")
+    from dynamo_tpu_torch.hub import resolve_model
+
     if not args.model_path:
-        raise SystemExit("out=torch requires a --model-path (HF dir)")
+        raise SystemExit("out=torch requires a --model-path (HF dir, .gguf file or cached repo id)")
+    path = resolve_model(args.model_path)
     engine = build_torch_engine(
-        args.model_path,
+        path,
         device=args.device,
         kv_block_size=args.kv_block_size,
         max_batch=args.max_batch,
@@ -187,8 +194,8 @@ def build_config(args: argparse.Namespace):
         max_model_len=args.context_length,
         tensor_parallel_size=args.tensor_parallel_size,
     )
-    mdc = ModelDeploymentCard.from_model_dir(
-        args.model_path,
+    mdc = ModelDeploymentCard.from_model_path(
+        path,
         args.model_name or args.model_path,
         kv_block_size=args.kv_block_size,
         context_length=engine.config.max_model_len,
@@ -235,6 +242,10 @@ def exit_stats(engine) -> dict:
             "decode_steps", "verify_steps", "chunk_steps", "graph_replays")},
         # the always-on phase histograms' counts (streams, gaps) by phase
         "phase_counts": {k: h.count for k, h in engine.stats.phase_histograms.phases.items()},
+        "phase_p50_ms": {k: h.percentile(50) for k, h in engine.stats.phase_histograms.phases.items()},
+        # the health plane's own series (C15): [count, median ms] by name
+        "health_series": {k: [h.count, h.percentile(50)]
+                          for k, h in engine.stats.health_histograms.phases.items()},
         "admissions": list(engine.admissions),
         "integrity": COUNTERS.snapshot(),
         "faults_fired": dict(faults.get_injector().fired) if faults.active() else {},

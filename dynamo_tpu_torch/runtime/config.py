@@ -1,9 +1,11 @@
 """Layered runtime configuration: defaults <- TOML file <- DYN_* env vars.
 
 The port's own copy of dynamo_tpu/runtime/config.py's ``RuntimeConfig``.
-Left out: the JAX compilation cache (``setup_jax_compilation_cache``,
-``default_jax_cache_dir``; a kernel-cache directory takes its place with
-ROADMAP A11). ``http_enabled`` / ``http_port`` (``DYN_RUNTIME_HTTP_ENABLED``,
+In place of the reference's JAX compilation cache
+(``setup_jax_compilation_cache``) the port has a kernel-cache directory,
+``kernel_cache_dir()``: ``DYN_KERNEL_CACHE_DIR``, else ``build/kernels`` at
+the root of the checkout, where ``ops/_build.py`` builds and finds the CUDA
+libraries. ``http_enabled`` / ``http_port`` (``DYN_RUNTIME_HTTP_ENABLED``,
 ``DYN_RUNTIME_HTTP_PORT``) start a worker's system status server
 (``runtime/http_server.py``), off by default as in the reference.
 
@@ -17,6 +19,20 @@ import os
 import tomllib
 from dataclasses import dataclass, fields
 from typing import Any, Optional
+
+
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def kernel_cache_dir() -> str:
+    """The directory of the built CUDA kernel libraries:
+    ``DYN_KERNEL_CACHE_DIR`` (``~`` expanded), else ``build/kernels`` at the
+    root of the checkout. A library's name carries the hash of its source
+    and flags, so one directory serves any number of checkouts' builds."""
+    raw = (os.environ.get("DYN_KERNEL_CACHE_DIR") or "").strip()
+    if raw:
+        return os.path.abspath(os.path.expanduser(raw))
+    return os.path.join(_CHECKOUT, "build", "kernels")
 
 
 def _env(name: str, default: Optional[str] = None) -> Optional[str]:

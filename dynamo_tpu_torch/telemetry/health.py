@@ -187,6 +187,50 @@ class _WorkerView:
         return e.value if e is not None else None
 
 
+class StreamPace:
+    """One stream's token pace, as the health plane scores it (C15; a
+    worker's ``pace`` health histogram, which the scorer reads in place of
+    its ``inter_token``, and a frontend's ``inter_frame`` signal, the
+    scorer's own EWMA). A worker marks each token with the dispatch that
+    fetched it (``LLMEngineOutput.fetch``): the tokens of one fetch -- a
+    decode horizon's H steps -- reach the stream back to back, so their
+    gap is spread over them (each token's share of the fetch's wait)
+    instead of one horizon-long gap and H - 1 gaps near zero, whose median
+    is the stream consumer's pacing, not the worker's. A delivery marked
+    ``cold`` (a graph capture, a kernel load or, on a card, a label's first
+    dispatch held it) is not scored. Without
+    ``fetch`` (the reference's workers) every token is its own delivery,
+    the reference's rule."""
+
+    __slots__ = ("t_last", "fetch", "gap_ms", "n", "cold")
+
+    def __init__(self, now: float, fetch: Optional[int] = None) -> None:
+        self.t_last = now
+        self.fetch = fetch
+        self.gap_ms: Optional[float] = None
+        self.n = 0
+        self.cold = False
+
+    def token(self, now: float, fetch: Optional[int], cold: bool):
+        """A token delivered at ``now`` (s). Returns the delivery it
+        closes, as ``flush`` does, or None while the fetch goes on."""
+        if fetch is not None and fetch == self.fetch:
+            self.n += 1
+            return None
+        done = self.flush()
+        self.gap_ms, self.n, self.cold, self.fetch = (now - self.t_last) * 1e3, 1, cold, fetch
+        self.t_last = now
+        return done
+
+    def flush(self):
+        """The open delivery as (ms per token, tokens, cold), or None."""
+        if self.gap_ms is None:
+            return None
+        done = (self.gap_ms / self.n, self.n, self.cold)
+        self.gap_ms = None
+        return done
+
+
 class HealthScorer:
     """Fleet-median-relative slowness scores + the ejection state machine.
 
@@ -228,11 +272,18 @@ class HealthScorer:
     # --------------------------------------------- self-reported recording
 
     def observe_worker_hists(
-        self, worker_id: int, hists: Optional[PhaseHistograms]
+        self, worker_id: int, hists: Optional[PhaseHistograms],
+        health: Optional[PhaseHistograms] = None,
     ) -> None:
         """Fold one worker's cumulative phase histograms into its view:
         the DELTA since the previous scrape (clamped sub, restart-safe)
-        yields interval-true self-reported TTFT/ITL medians."""
+        yields interval-true self-reported TTFT/ITL medians. ``health``: a
+        port worker's own series for this plane (C15), given by every port
+        worker: its ITL is then read from ``pace`` alone, and its
+        ``ttft_cold`` is left out of its TTFT."""
+        if health is not None:
+            hists = hists.copy() if hists is not None else PhaseHistograms()
+            hists.merge(health)
         if hists is None:
             return
         v = self._view(worker_id)
@@ -240,18 +291,30 @@ class HealthScorer:
         v.prev_hists = hists.copy()
         now = self._now()
 
-        def interval_median(phase: str) -> Optional[float]:
+        def interval(phase: str):
             cur = hists.get(phase)
-            if cur is None:
-                return None
-            if prev is not None and prev.get(phase) is not None:
+            if cur is not None and prev is not None and prev.get(phase) is not None:
                 cur = cur.sub(prev.get(phase))
-            if cur.count <= 0:
+            return cur
+
+        def interval_median(phase: str) -> Optional[float]:
+            cur = interval(phase)
+            if cur is not None and phase == "ttft":
+                # a port worker's first tokens that waited on a graph
+                # capture or a kernel load (``ttft_cold``, a subset of
+                # ``ttft``) are not its pace (C15)
+                cold = interval("ttft_cold")
+                if cold is not None:
+                    cur = cur.sub(cold)
+            if cur is None or cur.count <= 0:
                 return None
             return cur.percentile(50)
 
         ttft = interval_median("ttft")
-        itl = interval_median("inter_token")
+        # a port worker's token pace by delivery (``pace``, StreamPace), a
+        # reference worker's inter-token gaps: never one for the other in
+        # an interval (under a horizon the gaps' median is near 0)
+        itl = interval_median("pace" if health is not None else "inter_token")
         if ttft is not None:
             v.self_ttft_ms = ttft
             v.updated_t = now

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -406,7 +407,7 @@ def _use(d: Path):
     from dynamo_tpu_torch.ops import _build
 
     _build.CSRC = d / "csrc"
-    _build.BUILD_DIR = d / "lib"
+    os.environ["DYN_KERNEL_CACHE_DIR"] = str(d / "lib")
     return _build
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import shutil
 import sys
 from pathlib import Path
@@ -93,7 +94,7 @@ def _prepare():
     from dynamo_tpu_torch.ops import _build
 
     _build.CSRC = OUT / "csrc"
-    _build.BUILD_DIR = OUT / "lib"
+    os.environ["DYN_KERNEL_CACHE_DIR"] = str(OUT / "lib")
     return _build
 
 

@@ -9,7 +9,9 @@ routers, the fabric client, the distributed runtime, the CLI and the
 supervisor, the engine-facing inputs, the rendezvous barrier, and the
 multi-node config a supervisor may read (the port's
 ``parallel/multinode.py``; the reference's ``parallel/multihost.py``, which
-holds it there).
+holds it there); on the port's side also the profiler hooks the HTTP
+service imports, model resolution, the image processor, the encode
+client's module and the multimodal graph.
 """
 
 import os
@@ -21,7 +23,13 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRONTEND = ["http.service", "discovery", "router", "kv_router", "fabric.client",
             "runtime.distributed", "run", "serve", "entrypoint.inputs", "runtime.barrier"]
-CASES = ([(f"dynamo_tpu_torch.{m}", "torch") for m in FRONTEND + ["parallel.multinode"]]
+# the port's own frontend-side modules whose reference twins import jax
+# (the encode worker's module holds EncodeClient, which a prefill-side
+# process or a frontend imports; the multimodal graph's Frontend)
+PORT_ONLY = ["telemetry.profile", "hub", "multimodal.processor", "multimodal.encode_worker",
+             "graphs.multimodal"]
+CASES = ([(f"dynamo_tpu_torch.{m}", "torch")
+          for m in FRONTEND + ["parallel.multinode"] + PORT_ONLY]
          + [(f"dynamo_tpu.{m}", "jax") for m in FRONTEND + ["parallel.multihost"]])
 
 

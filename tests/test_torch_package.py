@@ -194,6 +194,50 @@ def test_cpu_tensors_take_the_plain_versions():
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
+def test_png_decodes_without_pil_or_cv2(monkeypatch):
+    """The card's machine has neither PIL nor cv2: a PNG (every filter, RGB
+    and palette) decodes with the port's stdlib reader to the pixels
+    written, and a format that needs PIL raises an error naming it."""
+    import base64
+    import struct
+    import sys
+    import zlib
+
+    from dynamo_tpu_torch.multimodal import processor
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rng = np.random.default_rng(0)
+    px = rng.integers(0, 256, (9, 7, 3), dtype=np.uint8)
+    rows = px.reshape(9, 21).astype(np.int64)
+    raw = b""
+    for y in range(9):  # filters None, Sub and Up (the reader's inverses)
+        ft = y % 3
+        pred = (np.concatenate([np.zeros(3, np.int64), rows[y, :-3]]) if ft == 1
+                else rows[y - 1] if ft == 2 and y else np.zeros(21, np.int64))
+        raw += bytes([ft]) + ((rows[y] - pred) % 256).astype(np.uint8).tobytes()
+    png = (processor.PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", 7, 9, 8, 2, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    url = "data:image/png;base64," + base64.b64encode(png).decode()
+    np.testing.assert_array_equal(processor.load_image_array(url), px)
+    pal = rng.integers(0, 256, (4, 3), dtype=np.uint8)
+    idx = rng.integers(0, 4, (5, 6), dtype=np.uint8)
+    png = (processor.PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", 6, 5, 8, 3, 0, 0, 0))
+           + chunk(b"PLTE", pal.tobytes())
+           + chunk(b"IDAT", zlib.compress(b"".join(b"\x00" + r.tobytes() for r in idx)))
+           + chunk(b"IEND", b""))
+    np.testing.assert_array_equal(processor.decode_png(png), pal[idx])
+    jpeg = "data:image/jpeg;base64," + base64.b64encode(b"\xff\xd8\xff\xe0 not a png").decode()
+    with pytest.raises(RuntimeError, match="Pillow"):
+        processor.load_image_array(jpeg)
+
+
 # ------------------------------------------------------------- on the card
 
 
