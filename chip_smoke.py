@@ -46,7 +46,9 @@ Phases, each of which must pass or the script exits non-zero:
                 verify dispatches, the launch counters (verify L x verify
                 dispatches, the fused heads L x every decode and verify
                 step, decode L x plain steps, prefill L x prefills), a
-                dense reference and that the seeded request repeats;
+                dense reference, that the seeded request repeats, and that
+                the goodput families' tokens_wasted{cause="spec_rejected"}
+                is the drafted minus the accepted tokens;
   6. serve_default -- the default admission path on the serve phase's
                 weights: build_torch_engine with its defaults (chunk 512,
                 mixed steps on; fused and spec off), the serve phase's 8
@@ -336,7 +338,9 @@ Phases, each of which must pass or the script exits non-zero:
                 graphs), a ``run in=http out=dyn --router-mode kv
                 --router-temperature 0`` frontend, a round-robin frontend over
                 the same workers (driven only in turns with the kv one) and
-                ``python -m dynamo_tpu_torch.router``, all on cuda:0. Traffic:
+                ``python -m dynamo_tpu_torch.router`` and the metrics
+                component (``python -m dynamo_tpu_torch.components.metrics``
+                over the workers' load metrics), all on cuda:0. Traffic:
                 4 groups a mode, each a fresh 1024-token prefix (64 blocks) and
                 4 suffixes of 64-256 tokens, 128 greedy tokens out, the leader
                 first and, once its first token is back, its 3 followers 0.3 s
@@ -359,6 +363,20 @@ Phases, each of which must pass or the script exits non-zero:
                 free answering, its index empty once every stream ended, and
                 every stream's first 8 tokens against the dense reference (the
                 workers' seed-0 weights in this process once they are gone).
+                The observation plane after the measured traffic: (a) the
+                component's fleet dyn_llm_phase_duration_seconds{phase=
+                "ttft"} count is the workers' own counts summed; (b)
+                dyn_llm_mfu_decode_est is 2 x params x each worker's
+                windowed rate / 989.4e12, averaged; (c) the workers'
+                modelled decode bytes over the traffic's wall imply at most
+                1.05 x 3.35 TB/s; (d) the kv frontend's
+                /debug/decisions/kv-g0-f1 holds one router/route record
+                naming the worker that served it, and tools/explain.py
+                prints the timeline; (e) each worker's goodput counts
+                decode_multi@H4 steps (the component's /debug/goodput); no
+                prebake_miss after the warm-up, each label's compile record
+                its first dispatch's seconds; record_step's ns a call on
+                this host.
                 Then the agg graph (``python -m dynamo_tpu_torch.serve
                 dynamo_tpu_torch.graphs.agg``, tiny-torch workers on the card,
                 kv, the default lease): a request, Worker-0 (started once)
@@ -511,7 +529,7 @@ L is the layer count of the phase's model: Llama-3.1-8B's width at
 MAIN_LAYERS (16) of its 32 layers in serve, serve_spec, serve_default,
 serve_int8, times, serve_horizon and serve_disagg (and the fleet phases
 below), every kernel at its full-width shapes; serve_offload, serve_peer,
-serve_disagg_fabric and serve_ops run all 32, serve_tp 4 (TP_MODEL),
+serve_disagg_fabric and serve_ops run all 32, serve_tp 2 (TP_MODEL),
 serve_trace_faults 8 (TF_MODEL), checkpoint 2.
 
 Phases 4-6, 9 and 11 pin one eager step per dispatch (EAGER:
@@ -1635,6 +1653,17 @@ def phase_serve_spec(torch, np, card: str, params) -> dict:
     }
     if launches != want:
         raise SmokeError(f"spec: kernel launches {launches} != layers x dispatches {want}")
+    # the goodput ledger's waste, as the metric families render it: every
+    # draft token the verify passes rejected (the engine's whole life)
+    from dynamo_tpu_torch.components.metrics import goodput_families
+
+    wasted = {lab["cause"]: v for fam in goodput_families(spec.stats.goodput)
+              if fam.name.startswith("dyn_llm_tokens_wasted") for _, lab, v in fam.samples}
+    rejected = spec.stats.num_draft_tokens - spec.stats.num_accepted_tokens
+    log(f"serve_spec: tokens_wasted{{cause=\"spec_rejected\"}} {wasted['spec_rejected']:.0f}; drafted "
+        f"{spec.stats.num_draft_tokens} - accepted {spec.stats.num_accepted_tokens} = {rejected} ({card})")
+    if wasted["spec_rejected"] != rejected or rejected <= 0:
+        raise SmokeError(f"spec: tokens_wasted{{spec_rejected}} {wasted} != drafts - accepts {rejected}")
     # every greedy lane's first 32 tokens, most of them from verify
     # dispatches, against a dense reference of the same weights
     gap = max(
@@ -2780,10 +2809,12 @@ PARTIAL_SHAPES = {
     "llama31_70b_tp8": (64 * D // 8, 8192, 8192, 0),
 }
 TP = 2
-# serve_tp runs Llama-3.1-8B's width at 4 of its 32 layers (its legs'
+# serve_tp runs Llama-3.1-8B's width at 2 of its 32 layers (its legs'
 # checks hold at any depth; PERF.md keeps the 32-layer rows): 8 until the
-# multimodal slice cut it to make room for its own legs
-TP_MODEL = dict(LLAMA31_8B, num_hidden_layers=4)
+# multimodal slice cut it to 4 to make room for its own legs, 2 since the
+# observation plane's checks (serve_disagg_fabric has no depth to give: its
+# oversize leg needs 32 layers for a payload over the 512 MiB frame)
+TP_MODEL = dict(LLAMA31_8B, num_hidden_layers=2)
 TP_BLOCKS = 2112  # per rank: two ranks share the card, so the pool is set here
 TP_REQUESTS = (0, 2, 4, 7)  # serve's 16-, 300-, 800- and 2000-token prompts
 TP_TIER_GB = "4"  # DYN_KV_HOST_OFFLOAD_GB of the tp = 2 group's tiers leg
@@ -5164,6 +5195,156 @@ def kv_graph_leg(root: str, env: dict, card: str) -> dict:
     return out
 
 
+METRICS_POLL_S = 0.5  # the metrics component's scrape of the workers' load metrics
+H100_PEAK_FLOPS = 989.4e12  # the MFU gauge's peak: the H100 SXM's dense bf16 (perf_model.py)
+MFU_FOLLOWER = "kv-g0-f1"  # the follower whose decisions are read back
+RECORD_STEP_CALLS = 100_000
+
+
+def record_step_cost() -> dict:
+    """The goodput ledger's ``record_step`` on this host: ns per call over
+    ``RECORD_STEP_CALLS`` calls, as the median of 100 batches' means."""
+    from dynamo_tpu_torch.telemetry.goodput import GoodputLedger
+
+    gp = GoodputLedger(enabled=True)
+    batch = RECORD_STEP_CALLS // 100
+    per_call, t = [], 100.0
+    for _ in range(100):
+        t0 = time.perf_counter_ns()
+        for _ in range(batch):
+            gp.record_step("decode_multi@H4", 0.004, lanes=5, capacity=8, t_start=t)
+            t += 0.005
+        per_call.append((time.perf_counter_ns() - t0) / batch)
+    if gp.steps_total != RECORD_STEP_CALLS:
+        raise SmokeError(f"record_step: {gp.steps_total} steps recorded of {RECORD_STEP_CALLS}")
+    return {"calls": RECORD_STEP_CALLS, "median_ns": statistics.median(per_call),
+            "min_ns": min(per_call), "max_ns": max(per_call)}
+
+
+def observation_checks(np, card: str, mport: int, kport: int, stats: dict, base: dict, iid: dict,
+                       rows: dict, cases: list, t_traffic: list) -> dict:
+    """serve_kv's observation plane after the measured traffic: (a) the
+    metrics component's fleet TTFT histogram counts the workers' own; (b)
+    its MFU gauge is the workers' 2 x params x windowed rate / the H100's
+    peak; (c) the modelled decode bytes over the traffic's wall stay within
+    the card's memory rate; (d) a follower's decisions on the kv frontend
+    name the worker that served it, and tools/explain.py prints them; (e)
+    each worker's goodput counts steps of the graphed decode label; and no
+    dispatch after the warm-up was a prebake miss, the compile records
+    being each label's first dispatch."""
+    from dynamo_tpu_torch.models.llama import LlamaConfig, param_count
+
+    workers = sorted(stats)
+    out: dict = {"card": card}
+    # (a) the fleet histogram: the merge adds the workers' buckets. Once
+    # the component's e2e count is the workers' too, its view is from after
+    # the traffic's last dispatch (a stream's end is observed after the
+    # engine's last refresh of its gauges)
+    want_ttft = sum(stats[w]["phase_counts"].get("ttft", 0) for w in workers)
+    want_e2e = sum(stats[w]["phase_counts"].get("e2e", 0) for w in workers)
+    t0 = time.perf_counter()
+    while True:
+        fams, _ = scrape(mport)
+        got_ttft = prom_value(fams, "dyn_llm_phase_duration_seconds", "_count", phase="ttft")
+        got_e2e = prom_value(fams, "dyn_llm_phase_duration_seconds", "_count", phase="e2e")
+        if (got_ttft, got_e2e) == (want_ttft, want_e2e) or time.perf_counter() - t0 > 20:
+            break
+        time.sleep(METRICS_POLL_S)
+    le_inf = prom_value(fams, "dyn_llm_phase_duration_seconds", "_bucket", phase="ttft", le="+Inf")
+    out["a_fleet_ttft_count"] = {"fleet": got_ttft, "workers": {w: stats[w]["phase_counts"].get("ttft", 0)
+                                                                for w in workers}}
+    log(f"serve_kv observation (a): the metrics component's fleet "
+        f"dyn_llm_phase_duration_seconds{{phase=\"ttft\"}} count {got_ttft:.0f} (+Inf bucket "
+        f"{le_inf:.0f}); the workers' own {out['a_fleet_ttft_count']['workers']} ({card})")
+    if got_ttft != want_ttft or le_inf != want_ttft or want_ttft <= 0:
+        raise SmokeError(f"(a) the fleet TTFT count {got_ttft} is not the workers' sum {want_ttft}")
+    # (b) the MFU gauge against each worker's windowed rate
+    params = param_count(LlamaConfig.from_hf_dict(FLEET_MODEL))
+    mine = {w: 2.0 * params * stats[w]["perf"]["mfu_rate_tok_s"] / H100_PEAK_FLOPS for w in workers}
+    fleet_mfu = prom_value(fams, "dyn_llm_mfu_decode_est")
+    want_mfu = sum(mine.values()) / len(workers)
+    out["b_mfu"] = {"fleet": fleet_mfu, "from_rates": want_mfu, "params": params,
+                    "rates_tok_s": {w: stats[w]["perf"]["mfu_rate_tok_s"] for w in workers},
+                    "workers": {w: stats[w]["perf"]["mfu_decode_est"] for w in workers}}
+    log(f"serve_kv observation (b): dyn_llm_mfu_decode_est {fleet_mfu:.6f} (fleet mean); 2 x {params} "
+        f"params x the workers' windowed rates {out['b_mfu']['rates_tok_s']} tokens/s / 989.4e12 = "
+        f"{ {w: round(v, 6) for w, v in mine.items()} } ({card})")
+    if not fleet_mfu > 0 or abs(fleet_mfu - want_mfu) > 1e-9 * max(fleet_mfu, want_mfu) or any(
+            abs(stats[w]["perf"]["mfu_decode_est"] - mine[w]) > 1e-9 * mine[w] for w in workers):
+        raise SmokeError(f"(b) the MFU gauge {out['b_mfu']} is not 2 x params x rate / peak")
+    # (c) the bytes the model says decoding moved, over the traffic's wall
+    wall = t_traffic[1] - t_traffic[0]
+    moved = {w: stats[w]["perf"]["modelled_decode_bytes"] - base[w]["perf"]["modelled_decode_bytes"]
+             for w in workers}
+    tokens = {w: stats[w]["generated_tokens"] - base[w]["generated_tokens"] for w in workers}
+    implied = sum(moved.values()) / wall
+    out["c_bandwidth"] = {"wall_s": wall, "modelled_bytes": moved, "decode_tokens": tokens,
+                          "implied_tb_s": implied / 1e12,
+                          "bytes_per_token_now": {w: stats[w]["perf"]["decode_hbm_bytes_per_token"]
+                                                  for w in workers}}
+    log(f"serve_kv observation (c): modelled decode bytes {moved} over the {wall:.2f} s of measured "
+        f"traffic ({tokens} tokens): {implied / 1e12:.3f} TB/s implied, against 1.05 x 3.35 TB/s ({card})")
+    if not 0 < implied <= 1.05 * HBM_BYTES_PER_S:
+        raise SmokeError(f"(c) the model implies {implied / 1e12:.3f} TB/s: {out['c_bandwidth']}")
+    # (d) a follower's decisions on the kv frontend, and tools/explain.py
+    w_served = rows[MFU_FOLLOWER]["worker"]
+    status, body = http_call(kport, "GET", f"/debug/decisions/{MFU_FOLLOWER}")
+    doc = json.loads(body)
+    routes = [r for r in doc.get("decisions", []) if r["actor"] == "router" and r["kind"] == "route"]
+    explained = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch.tools.explain", MFU_FOLLOWER, "--base",
+         f"http://127.0.0.1:{kport}"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=60)
+    out["d_decisions"] = {"status": status, "records": len(doc.get("decisions", [])),
+                          "route_chosen": [r["chosen"] for r in routes], "served_by": iid[w_served],
+                          "kinds": [f"{r['actor']}/{r['kind']}" for r in doc.get("decisions", [])]}
+    log(f"serve_kv observation (d): /debug/decisions/{MFU_FOLLOWER} on the kv frontend: "
+        f"{out['d_decisions']}; tools/explain.py:")
+    for line in explained.stdout.splitlines():
+        log(f"  {line}")
+    if status != 200 or [c for c in out["d_decisions"]["route_chosen"]] != [iid[w_served]] \
+            or explained.returncode != 0 or "router/route" not in explained.stdout:
+        raise SmokeError(f"(d) the follower's decisions {out['d_decisions']}, explain rc "
+                         f"{explained.returncode}: {explained.stderr[-400:]}")
+    # (e) the per-worker ledgers the component merged
+    status, body = http_call(mport, "GET", "/debug/goodput")
+    gdoc = json.loads(body)
+    label = f"decode_multi@H{HORIZON}"
+    counts = {w: ((gdoc["workers"].get(f"{iid[w]:x}") or {}).get("steps_by_label", {})
+                  .get(label, {}).get("count", 0)) for w in workers}
+    out["e_goodput"] = {"label": label, "steps": counts, "fleet_steps_total": gdoc["fleet"]["steps_total"],
+                        "fleet_occupancy": gdoc["fleet"]["occupancy"],
+                        "fleet_tokens_wasted": gdoc["fleet"]["tokens_wasted"]}
+    log(f"serve_kv observation (e): goodput steps of {label} per worker {counts}; the fleet "
+        f"{gdoc['fleet']['steps_total']} steps, occupancy {gdoc['fleet']['occupancy']}, waste "
+        f"{gdoc['fleet']['tokens_wasted']}")
+    if status != 200 or not all(counts.values()):
+        raise SmokeError(f"(e) goodput steps of {label}: {counts}")
+    # the recompile forensics after the prebake and the warm-up
+    rec = {}
+    for w in workers:
+        g0, g1 = base[w]["goodput"], stats[w]["goodput"]
+        after = {k: v - g0["recompiles"].get(k, 0) for k, v in g1["recompiles"].items()
+                 if v - g0["recompiles"].get(k, 0)}
+        miss = {k: v for k, v in after.items() if k.endswith("|prebake_miss")}
+        rec[w] = {"prebaked_labels": stats[w]["prebaked_labels"], "recompiles_lifetime": g1["recompiles"],
+                  "recompiles_after_warmup": after, "compile_s": g1["compile_s"]}
+        if miss:
+            raise SmokeError(f"{w}: prebake misses after the warm-up {miss}")
+        if g1["compile_s"] != stats[w]["dispatch_first_s"]:
+            raise SmokeError(f"{w}: the compile records {g1['compile_s']} are not the labels' first "
+                             f"dispatches {stats[w]['dispatch_first_s']}")
+    out["recompiles"] = rec
+    log(f"serve_kv observation: recompiles {rec}")
+    out["record_step"] = record_step_cost()
+    log(f"serve_kv observation: record_step {out['record_step']['median_ns']:.0f} ns per call (median of "
+        f"100 batches of {RECORD_STEP_CALLS // 100}, min {out['record_step']['min_ns']:.0f}, max "
+        f"{out['record_step']['max_ns']:.0f}) beside the graphed dispatch's 0.36 ms host time "
+        f"(PERF.md section 5) on this host ({card})")
+    print(json.dumps({"serve_kv_observation": out}), flush=True)
+    return out
+
+
 def phase_serve_kv(torch, np, card: str) -> dict:
     """The KV-aware router on this card (see the docstring's phase 17)."""
     import signal
@@ -5175,7 +5356,7 @@ def phase_serve_kv(torch, np, card: str) -> dict:
     t_phase = time.perf_counter()
     model_dir = write_serve_dir(FLEET_MODEL)
     root = os.path.dirname(os.path.abspath(__file__))
-    fport, kport, rport = free_port(), free_port(), free_port()
+    fport, kport, rport, mport = free_port(), free_port(), free_port(), free_port()
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""),
                DYN_FABRIC_ADDR=f"127.0.0.1:{fport}", DYN_LEASE_TTL_S=str(FABRIC_TTL_S))
     py = sys.executable
@@ -5189,8 +5370,12 @@ def phase_serve_kv(torch, np, card: str) -> dict:
         "kv": front + ["--router-mode", "kv", "--router-temperature", "0", "--http-port", str(kport)],
         "rr": front + ["--router-mode", "round_robin", "--http-port", str(rport)],
         "router": [py, "-m", "dynamo_tpu_torch.router", "--block-size", str(BLOCK)],
+        # the fleet's observation plane beside them
+        "metrics": [py, "-m", "dynamo_tpu_torch.components.metrics", "--namespace", "dynamo",
+                    "--component", "backend", "--endpoint", "generate", "--port", str(mport),
+                    "--poll-interval", str(METRICS_POLL_S)],
     }
-    for name in ("worker0", "kv", "rr", "router"):
+    for name in ("worker0", "kv", "rr", "router", "metrics"):
         log("serve_kv: " + " ".join(cmds[name][1:]))
     workers = ["worker0", "worker1"]
     procs, logs, files = {}, {}, []
@@ -5226,7 +5411,8 @@ def phase_serve_kv(torch, np, card: str) -> dict:
             try:
                 ok = all(json.loads(http_call(port, "GET", "/v1/models", timeout=5)[1])["data"]
                          for port in (kport, rport))
-                if ok and len(fabric_instances(fport)) == 2:
+                if ok and len(fabric_instances(fport)) == 2 and http_call(
+                        mport, "GET", "/metrics", timeout=5)[0] == 200:
                     break
             except OSError:
                 pass
@@ -5235,8 +5421,8 @@ def phase_serve_kv(torch, np, card: str) -> dict:
             time.sleep(0.5)
         out["start_s"] = time.perf_counter() - t0
         log(f"serve_kv: fabric, 2 workers ({', '.join(f'{w} {iid[w]:x}' for w in workers)}, host tier "
-            f"{KV_HOST_GB} GB each), kv + round-robin frontends and the standalone router up in "
-            f"{out['start_s']:.1f} s")
+            f"{KV_HOST_GB} GB each), kv + round-robin frontends, the standalone router and the "
+            f"metrics component up in {out['start_s']:.1f} s")
 
         def worker_stats() -> dict:
             seen = {w: len(logs[w].json_lines("worker_stats")) for w in workers}
@@ -5281,6 +5467,7 @@ def phase_serve_kv(torch, np, card: str) -> dict:
                              f"; each must be under the eject ratio {KV_EJECT_RATIO} (C15); the "
                              f"workers' series {out['worker_series_after_warmup']}")
         probes, health = {}, {}
+        t_traffic = [time.perf_counter()]
         for mode, g, prompts, rids in cases:
             port = kport if mode == "kv" else rport
             with ThreadPoolExecutor(len(prompts)) as pool:
@@ -5308,6 +5495,7 @@ def phase_serve_kv(torch, np, card: str) -> dict:
                 for rid, fut in zip(rids, futs):
                     streams[rid] = fut.result()
             streams[rids[0]]["group_s"] = time.perf_counter() - t_g
+        t_traffic.append(time.perf_counter())
         stats = worker_stats()
         # every stream ended: the Removed events must have emptied the index
         t_wait = time.perf_counter()
@@ -5397,8 +5585,10 @@ def phase_serve_kv(torch, np, card: str) -> dict:
                              f"(the leader's worker is {holder:x})")
         if any(probes["after"]["index_blocks"].values()):
             raise SmokeError(f"the router's index still holds blocks after every stream: {probes['after']}")
+        out["observation"] = observation_checks(
+            np, card, mport, kport, stats, base, iid, rows, cases, t_traffic)
     finally:
-        for name in ("kv", "rr", "router", "worker0", "worker1", "fabric"):
+        for name in ("metrics", "kv", "rr", "router", "worker0", "worker1", "fabric"):
             p = procs.get(name)
             if p is not None and p.poll() is None:
                 p.send_signal(signal.SIGTERM)
@@ -10373,13 +10563,16 @@ def main() -> int:
                     log(f"  ptxas {name}: {line.strip()}")
         if only in ("serve_offload", "serve_fabric", "serve_kv", "serve_tp", "serve_disagg_fabric",
                     "serve_trace_faults", "serve_peer", "serve_ops", "serve_moe", "serve_mm",
-                    "checkpoint", "serve_http", "prebake"):
-            if only == "serve_mm":
+                    "checkpoint", "serve_http", "prebake", "serve_spec"):
+            if only in ("serve_mm", "serve_spec"):
                 from dynamo_tpu_torch.engine.torch_engine.weights import init_params
                 from dynamo_tpu_torch.models.llama import LlamaConfig
 
-                phase_serve_mm(torch, np, card, init_params(
-                    LlamaConfig.from_hf_dict(MAIN_MODEL), seed=0, device="cuda"))
+                params = init_params(LlamaConfig.from_hf_dict(MAIN_MODEL), seed=0, device="cuda")
+                if only == "serve_mm":
+                    phase_serve_mm(torch, np, card, params)
+                else:
+                    phase_serve_spec(torch, np, card, params)
             elif only == "checkpoint":
                 phase_checkpoint(torch, np, card)
             elif only == "serve_http":
@@ -10409,7 +10602,8 @@ def main() -> int:
         if only is not None:
             raise SmokeError(f"--only takes serve_offload, serve_fabric, serve_kv, serve_tp, "
                              f"serve_disagg_fabric, serve_trace_faults, serve_peer, serve_ops, "
-                             f"serve_moe, serve_mm, checkpoint, serve_http or prebake, not {only}")
+                             f"serve_moe, serve_mm, serve_spec, checkpoint, serve_http or prebake, "
+                             f"not {only}")
 
         # 2b. prebake: the tool against this script's kernel directory
         phase_prebake(card)

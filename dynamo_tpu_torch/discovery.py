@@ -39,8 +39,11 @@ is closed (its worker frees the lane and blocks), and the events
 ``WorkerCapacityPoller`` per model scrapes the workers' load metrics every
 2 s: their slots set the admission watermark, their phase histograms feed
 the scorer, and each scrape ticks it; an ejection is published on the
-namespace's ``health-status`` subject. Left out (ROADMAP.md A12): the
-decision provenance records.
+namespace's ``health-status`` subject. Hedges (budget denied, won, lost)
+and migrations are decision records (``telemetry/provenance.py``); the
+records a worker ships on its final frame, or on the ``trace-export``
+event, are ingested into this process's ledger for
+``GET /debug/decisions/{request_id}``.
 
 Role-equivalent of lib/llm/src/discovery/{watcher,model_manager,model_entry}.rs
 and the bindings' ``register_llm``.
@@ -73,6 +76,7 @@ from dynamo_tpu_torch.runtime.component import Endpoint, NoInstancesError
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.protocols import MODEL_ROOT, EndpointId
 from dynamo_tpu_torch.telemetry import health as dhealth
+from dynamo_tpu_torch.telemetry import provenance as dprov
 from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.discovery")
@@ -250,6 +254,8 @@ class RemoteEngine:
             return _ResumedStream(stream, it, first_task)
         if not hedger.try_acquire():  # counts outcome=budget_denied
             dsp.set(hedge="budget_denied")
+            if dprov.enabled():
+                dprov.record("remote", "hedge", None, reason="budget_denied", ctx=ctx)
             return _ResumedStream(stream, it, first_task)
         primary_wid = attempt_ctx.metadata.get("worker_instance_id")
         hx = set(exclude)
@@ -292,6 +298,14 @@ class RemoteEngine:
             hedger.note_outcome("won", wasted_tokens=wasted)
             dsp.set(hedge="won")
             dtrace.event("hedge_won", loser=f"{primary_wid:x}" if primary_wid is not None else None)
+            if dprov.enabled():
+                dprov.record(
+                    "remote", "hedge", f"{hedge_wid:x}" if hedge_wid is not None else None,
+                    reason="won", ctx=ctx,
+                    alternatives=[{"worker": f"{primary_wid:x}" if primary_wid is not None else None,
+                                   "outcome": "lost"}],
+                    wasted_tokens=wasted,
+                )
             # exclusion and health attribution follow the serving worker
             if hedge_wid is not None:
                 attempt_ctx.metadata["worker_instance_id"] = hedge_wid
@@ -302,6 +316,14 @@ class RemoteEngine:
             await hstream.close()
         hedger.note_outcome("lost", wasted_tokens=wasted)
         dsp.set(hedge="lost")
+        if dprov.enabled():
+            dprov.record(
+                "remote", "hedge", f"{primary_wid:x}" if primary_wid is not None else None,
+                reason="lost", ctx=ctx,
+                alternatives=[{"worker": f"{hedge_wid:x}" if hedge_wid is not None else None,
+                               "outcome": "cancelled"}],
+                wasted_tokens=wasted,
+            )
         return _ResumedStream(stream, it, first_task)
 
     async def __call__(
@@ -401,6 +423,10 @@ class RemoteEngine:
                                 # the final frame: into this process's ring
                                 dtrace.ingest(out.trace)
                                 out.trace = None
+                            if out.decisions:
+                                # the same for the worker's decision records
+                                dprov.ingest(out.decisions)
+                                out.decisions = None
                             if out.token_ids:
                                 emitted.extend(out.token_ids)
                                 progressed = True
@@ -488,6 +514,10 @@ class RemoteEngine:
                 failed_worker=f"{bad:x}" if bad is not None else None,
                 emitted=len(emitted), cause=failure,
             )
+            if dprov.enabled():
+                dprov.record("remote", "migrate", f"{bad:x}" if bad is not None else None,
+                             reason="worker_failed", ctx=ctx, emitted=len(emitted),
+                             cause=failure, attempt=failures)
             if emitted:
                 req_dict = dict(req_dict)
                 req_dict["token_ids"] = list(request.token_ids) + list(emitted)
@@ -655,10 +685,11 @@ class ModelWatcher:
                     logger.exception("model watcher failed applying %s", ev.key)
 
     async def _ensure_trace_ingest(self, namespace: str) -> None:
-        """Subscribe (once per namespace, with tracing on) to the workers'
-        ``trace-export`` subject: the fallback for spans whose response
-        stream was torn down before its final frame could carry them."""
-        if namespace in self._trace_subs or not dtrace.enabled():
+        """Subscribe (once per namespace, with tracing or the decision
+        ledger on) to the workers' ``trace-export`` subject: the fallback
+        for spans and decision records whose response stream was torn down
+        before its final frame could carry them."""
+        if namespace in self._trace_subs or not (dtrace.enabled() or dprov.enabled()):
             return
         self._trace_subs.add(namespace)
         sub = await self.drt.namespace(namespace).subscribe_event(dtrace.EXPORT_SUBJECT)
@@ -669,6 +700,8 @@ class ModelWatcher:
                     data = mpack.unpackb(payload)
                     if dtrace.enabled():
                         dtrace.ingest(data.get("trace") or [])
+                    if dprov.enabled():
+                        dprov.ingest(data.get("decisions") or [])
                 except Exception:  # noqa: BLE001 — a malformed export
                     continue
 

@@ -226,8 +226,23 @@ tokens, and a router would route on the poisoned hashes. ``embed`` (the
 ``/v1/embeddings`` path, :2532) runs the runner's pooled forward in turn
 with the loop's dispatches.
 
-Left out (ROADMAP.md lists it): the goodput counters on the trace timeline
-(A12).
+The goodput ledger and the perf gauges (engine.py:752-798, :3265-3319;
+``telemetry/goodput.py``, ``perf_model.py``): every dispatch lands in
+``stats.goodput`` (``record_step`` with its label, decode lanes, capacity
+and prompt tokens; ``record_compile`` on a label's first). A *recompile* is
+a later dispatch that the runner's ``warm_events`` mark cold (a graph
+capture or a kernel-library load), counted ``prebake_miss`` when the kernel
+cache's prebake manifest covers the label and ``shape_miss`` otherwise:
+the card's exact signal in place of the reference's EMA guess. Waste is
+recorded at the reference's causes (a migration's replayed tail, a
+preemption's discarded KV, a deadline's or a cancel's partial output, the
+verify pass's rejected drafts). After each decode or mixed phase the
+modelled ``decode_hbm_bytes_per_token`` / ``tp_collective_bytes_per_step``
+of the live batch and a windowed ``mfu_decode_est`` are refreshed. With
+tracing on, the counter tracks ``step_ms``, ``occupancy``,
+``mfu_achieved`` and ``tokens_wasted`` go on the timeline. Preemption
+victims and re-admission backoffs are decision records
+(``telemetry/provenance.py``).
 """
 
 from __future__ import annotations
@@ -260,6 +275,7 @@ from dynamo_tpu_torch.disagg.protocols import (
     dtype_name,
     wire_codec_from_env,
 )
+from dynamo_tpu_torch.engine.torch_engine import perf_model
 from dynamo_tpu_torch.engine.torch_engine.drafter import make_drafter
 from dynamo_tpu_torch.engine.torch_engine.kv_cache import BlockAllocator, OutOfBlocks
 from dynamo_tpu_torch.engine.torch_engine.model_runner import TorchModelRunner
@@ -274,7 +290,9 @@ from dynamo_tpu_torch.protocols.common import (
 from dynamo_tpu_torch.runtime import clock as dclock
 from dynamo_tpu_torch.telemetry import brownout as dbrownout
 from dynamo_tpu_torch.telemetry import profile as dprofile
+from dynamo_tpu_torch.telemetry import provenance as dprov
 from dynamo_tpu_torch.telemetry import trace as dtrace
+from dynamo_tpu_torch.telemetry.goodput import GoodputLedger, load_prebaked_labels, normalize_label
 from dynamo_tpu_torch.telemetry.health import StreamPace
 from dynamo_tpu_torch.telemetry.histogram import PhaseHistograms
 from dynamo_tpu_torch.testing import faults
@@ -431,6 +449,18 @@ class EngineStats:
     # multimodal prefills (extra["mm"]) and pooled embeddings served
     mm_prefills: int = 0
     embeds: int = 0
+    # the decode-bandwidth gauges (perf_model.py): modelled HBM bytes per
+    # emitted token of the live batch (per card under a group), the tp
+    # axis's collective bytes per step, and a windowed-rate MFU estimate
+    decode_hbm_bytes_per_token: float = 0.0
+    mfu_decode_est: float = 0.0
+    tp_collective_bytes_per_step: float = 0.0
+    # each decode or mixed dispatch's modelled bytes per token at its batch
+    # times the tokens it emitted, summed: the bytes the model says
+    # decoding moved (held against the card's memory rate)
+    modelled_decode_bytes: float = 0.0
+    # the goodput ledger (telemetry/goodput.py), shipped on ForwardPassMetrics
+    goodput: GoodputLedger = field(default_factory=GoodputLedger)
 
     @property
     def tokens_per_horizon(self) -> float:
@@ -672,6 +702,18 @@ class TorchEngine:
         self._first_use_cold = str(runner.device).startswith("cuda")
         # dispatches run so far: the fetch id each token carries
         self._fetches = 0
+        # recompile forensics: labels the kernel cache's prebake manifest
+        # covers (a cold dispatch of one is cache drift)
+        try:
+            from dynamo_tpu_torch.runtime.config import kernel_cache_dir
+
+            self._prebaked_labels = load_prebaked_labels(kernel_cache_dir())
+        except Exception:  # noqa: BLE001 - forensics must never block start-up
+            self._prebaked_labels = frozenset()
+        # (time, generated tokens) samples of the MFU gauge's window, and
+        # the tokens counted by the last refresh of the bytes gauge
+        self._mfu_window: collections.deque = collections.deque()
+        self._gauge_tokens = 0
         self._watchdog_task: Optional[asyncio.Task] = None
         self._tripped = False
         self._fenced = False  # self-fenced on primary-lease loss
@@ -782,6 +824,10 @@ class TorchEngine:
                 return
         seq = _Sequence(next(self._seq_ids), request, context)
         seq.cold_seen = self.stats.cold_dispatches
+        if seq.num_prompt < n:
+            # a migration resume: the tail was streamed by a dead worker,
+            # but its KV is prefilled again here (replayed work)
+            self.stats.goodput.record_waste("migration_replay", n - seq.num_prompt)
         if dtrace.enabled():
             self._sp_begin(seq, "queue_wait", tokens=n, priority=seq.priority)
         self._enqueue(seq)
@@ -977,6 +1023,10 @@ class TorchEngine:
         self.stats.preemptions += 1
         by_class = self.stats.preemptions_by_class
         by_class[victim.priority] = by_class.get(victim.priority, 0) + 1
+        # every token whose device KV this discards is recomputed on
+        # re-admission (a tier spill may onboard some back: an upper bound)
+        self.stats.goodput.record_waste(
+            "preempt_replay", victim.prefill_pos if victim.prefilling else len(victim.token_ids))
         if victim.preemptions <= self.config.max_preemptions:
             self._spill_preempted(victim)
         self._free_seq(victim)
@@ -1005,6 +1055,10 @@ class TorchEngine:
             # re-queued: its wait for re-admission is a fresh phase
             self._sp_begin(victim, "queue_wait", resumed=True)
         backoff_s = min(2.0, self.config.preempt_backoff_ms / 1e3 * (1 << (victim.preemptions - 1)))
+        if dprov.enabled():
+            dprov.record("engine", "readmit", victim.priority, reason="backoff", ctx=victim.ctx,
+                         proc=self.trace_proc, backoff_ms=round(backoff_s * 1e3, 3),
+                         preemptions=victim.preemptions)
         victim.requeue_after = time.monotonic() + backoff_s
         self._enqueue(victim)
 
@@ -1021,11 +1075,23 @@ class TorchEngine:
                 if (victim is exclude or victim.slot is None or victim.pending_remote
                         or victim.rank != rank):
                     continue
+                if dprov.enabled():
+                    dprov.record(
+                        "engine", "preempt", victim.priority, reason="class_rank",
+                        ctx=victim.ctx, proc=self.trace_proc,
+                        alternatives=[
+                            {"request": c.ctx.id, "class": c.priority, "rank": c.rank,
+                             "generated": c.num_generated}
+                            for c in self._admit_order if c is not exclude and c.slot is not None
+                        ][:8],
+                        grower=exclude.ctx.id, grower_class=exclude.priority,
+                    )
                 self._preempt(victim)
                 return True
         return False
 
-    async def _device(self, fn, label: str):
+    async def _device(self, fn, label: str, *, lanes: int = 0, capacity: int = 0,
+                      tokens: int = 0):
         """Run one device call (and its host fetch) on the worker thread,
         visible to the watchdog under ``label`` from the moment it holds the
         device. Its graph replays are counted there: calls of the loop, of
@@ -1044,7 +1110,11 @@ class TorchEngine:
         cost -- or, on a card, when it is its label's first
         (``stats.cold_dispatches``). Every sequence's next delivery
         after it is marked ``cold`` (``_append_token``): its gap, or its
-        wait for a first token, held that cost (C15)."""
+        wait for a first token, held that cost (C15).
+
+        Each dispatch goes into the goodput ledger on the loop when it ends
+        (``_record_step``): ``lanes`` / ``capacity`` for decode-family
+        dispatches, ``tokens`` for the prompt tokens it prefilled."""
         runner, stats = self.runner, self.stats
         slow = 1.0
         if faults.active():
@@ -1053,6 +1123,8 @@ class TorchEngine:
                 await inj.on_dispatch()
                 slow = inj.dispatch_slow_factor()
         started: list[tuple[str, float]] = []
+        # (the label's first dispatch, warm events moved) per dispatch
+        marks: list[tuple[bool, bool]] = []
 
         def counted():
             replays = runner.graph_replays
@@ -1066,23 +1138,51 @@ class TorchEngine:
                 stats.graph_replays += runner.graph_replays - replays
                 self._fetches += 1
                 warm = getattr(runner, "warm_events", 0)
-                first_use = self._first_use_cold and label not in self.dispatch_first_s
-                if warm != self._warm_seen or first_use:
+                first = label not in self.dispatch_first_s
+                moved = warm != self._warm_seen
+                if moved or (self._first_use_cold and first):
                     self._warm_seen = warm
                     stats.cold_dispatches += 1
+                marks.append((first, moved))
                 if slow <= 1.0:
                     self._dispatch_done(info)
 
         loop = asyncio.get_running_loop()
-        if slow <= 1.0:
-            return await loop.run_in_executor(self._executor, counted)
         try:
             result = await loop.run_in_executor(self._executor, counted)
-            await asyncio.sleep((slow - 1.0) * (time.monotonic() - started[0][1]))
+            if slow > 1.0:
+                await asyncio.sleep((slow - 1.0) * (time.monotonic() - started[0][1]))
             return result
         finally:
             if started:
-                self._dispatch_done(started[0])
+                if slow > 1.0:
+                    self._dispatch_done(started[0])
+                if marks:
+                    self._record_step(label, started[0][1], *marks[0], lanes, capacity, tokens)
+
+    def _record_step(self, label: str, t0: float, first: bool, moved: bool, lanes: int,
+                     capacity: int, tokens: int) -> None:
+        """One dispatch into the goodput ledger (engine.py:757-798): its
+        first-dispatch seconds, or a recompile when the runner paid a
+        one-off cost (``warm_events`` moved) after the label's first; then
+        the step, and with tracing on the ``step_ms`` / ``occupancy``
+        counter tracks."""
+        gp = self.stats.goodput
+        if not gp.enabled:
+            return
+        elapsed = time.monotonic() - t0
+        if first:  # the first dispatch's seconds, as the watchdog's cold budget saw them
+            gp.record_compile(label, self.dispatch_first_s.get(label, elapsed))
+        elif moved:
+            cause = ("prebake_miss" if normalize_label(label) in self._prebaked_labels
+                     else "shape_miss")
+            gp.record_recompile(label, cause, shape=f"lanes={lanes},tokens={tokens}")
+        gp.record_step(label, elapsed, lanes=lanes, capacity=capacity, prefill_tokens=tokens,
+                       t_start=t0)
+        if dtrace.enabled():
+            dtrace.counter("step_ms", elapsed * 1e3)
+            if capacity > 0:
+                dtrace.counter("occupancy", lanes / capacity)
 
     def _dispatch_done(self, info: tuple[str, float]) -> None:
         """A dispatch ended: it stops being the running one and its
@@ -1460,6 +1560,7 @@ class TorchEngine:
                         # every decode lane and up to the budget of prompt
                         # tokens in one step
                         await self._mixed_step_phase(active)
+                        self._update_perf_gauges(active)
                         if not admitted:
                             await asyncio.sleep(0)
                         continue
@@ -1472,6 +1573,7 @@ class TorchEngine:
                 active = self._decode_lanes()
                 if not active:
                     if chunked:
+                        self._update_perf_gauges()
                         continue
                     if not self.waiting and not self._landed and not self._closed:
                         # a landing remote prefill sets the wake too; a
@@ -1479,11 +1581,16 @@ class TorchEngine:
                         # close or fence during the last dispatch set it
                         # already: the loop ends instead)
                         self._wake.clear()
+                        if not any(s is not None for s in self.slots):
+                            # nothing in flight: the gap to the next
+                            # dispatch is idleness, not a phase bubble
+                            self.stats.goodput.mark_idle()
                         await self._idle_wait()
                     else:
                         await asyncio.sleep(0.001)  # backlog waits for blocks
                     continue
                 await self._decode_phase(active)
+                self._update_perf_gauges(active)
                 if not admitted:
                     await asyncio.sleep(0)  # fairness for the stream consumers
         except Exception as e:
@@ -1504,6 +1611,70 @@ class TorchEngine:
                 ))
             self.waiting.clear()
             raise
+
+    def _modelled_step(self, lanes: list) -> Any:
+        """``perf_model.meshed_decode_hbm_bytes_per_token`` for a batch of
+        ``lanes`` at their mean context, with this runner's weights, cache
+        form, fused heads and tp group."""
+        mcfg = self.runner.config
+        params = getattr(self.runner, "params", None)
+        quant_w = False
+        if isinstance(params, dict):
+            layers = params.get("layers") or [{}]
+            quant_w = isinstance(layers[0].get("wq"), dict)
+        group = getattr(self.runner, "group", None)
+        return perf_model.meshed_decode_hbm_bytes_per_token(
+            mcfg, batch=len(lanes), context=sum(len(s.token_ids) for s in lanes) / len(lanes),
+            block_size=self.config.block_size, tp=group.world_size if group is not None else 1,
+            weights_int8=quant_w, kv_int8=getattr(self.runner, "kv_quantized", False),
+            fused=getattr(mcfg, "fused_decode", False),
+            overlap=getattr(mcfg, "collective_overlap", False),
+        )
+
+    def _update_perf_gauges(self, lanes: Optional[list] = None) -> None:
+        """The decode-bandwidth gauges (engine.py:3265-3321): modelled HBM
+        bytes per emitted token of the live batch and context (per card
+        under a group) and the tp axis's collective bytes per step
+        (``perf_model.meshed_decode_hbm_bytes_per_token``), and an MFU
+        estimate from the token rate over the last ~10 s; the goodput
+        ledger takes the latest point, and with tracing on the
+        ``mfu_achieved`` / ``tokens_wasted`` counter tracks. ``lanes``, the
+        dispatch's decode lanes: the tokens it emitted add their modelled
+        bytes at its batch to ``modelled_decode_bytes``."""
+        mcfg = getattr(self.runner, "config", None)
+        if mcfg is None or not hasattr(mcfg, "num_layers"):
+            return
+        st = self.stats
+        active = [s for s in self.slots if s is not None]
+        now = time.monotonic()
+        win = self._mfu_window
+        win.append((now, st.generated_tokens))
+        while len(win) > 2 and now - win[0][0] > 10.0:
+            win.popleft()
+        if active:
+            mb = self._modelled_step(active)
+            st.decode_hbm_bytes_per_token = mb.per_chip.total
+            st.tp_collective_bytes_per_step = mb.tp_collective_bytes_per_step
+        if lanes:
+            emitted = st.generated_tokens - self._gauge_tokens
+            st.modelled_decode_bytes += self._modelled_step(lanes).per_chip.total * emitted
+        self._gauge_tokens = st.generated_tokens
+        dt = now - win[0][0]
+        if dt > 0.5:
+            rate = (st.generated_tokens - win[0][1]) / dt
+            st.mfu_decode_est = perf_model.mfu_decode_est(mcfg, rate, perf_model.peak_flops_from_env())
+        st.goodput.set_perf_gauges(st.mfu_decode_est, st.decode_hbm_bytes_per_token)
+        if dtrace.enabled() and st.goodput.enabled:
+            dtrace.counter("mfu_achieved", st.mfu_decode_est)
+            dtrace.counter("tokens_wasted", float(st.goodput.wasted_total()))
+
+    def mfu_window_rate(self) -> float:
+        """The token rate the MFU gauge last used: generated tokens per
+        second over the window its last refresh saw (0 before 0.5 s)."""
+        win = self._mfu_window
+        if len(win) < 2 or win[-1][0] - win[0][0] <= 0.5:
+            return 0.0
+        return (win[-1][1] - win[0][1]) / (win[-1][0] - win[0][0])
 
     async def _idle_wait(self) -> None:
         """Wait for new work, or until the earliest deadline of a sequence
@@ -1559,9 +1730,14 @@ class TorchEngine:
                 self.stats.deadline_exceeded += 1
                 seq.ctx.kill()
                 self._sp_event(seq, "deadline_exceeded", phase="decode")
+                # the partial output is discarded: the consumer gets an error
+                self.stats.goodput.record_waste("deadline_partial", seq.num_generated)
                 self._finish_error(seq, "decode", "deadline exceeded mid-generation",
                                    "deadline_exceeded")
             elif seq.ctx.is_killed():
+                # the consumer went away (a plain cancel or a hedge loser:
+                # the frontend's hedger attributes hedge_loser on its side)
+                self.stats.goodput.record_waste("cancelled_partial", seq.num_generated)
                 self._finish(seq, FinishReason.CANCELLED)
 
     async def _admit_phase(self) -> bool:
@@ -1697,7 +1873,7 @@ class TorchEngine:
                 replay, seq.block_ids, seq.temperature, seq.top_p,
                 seq.top_k, rep_pen=seq.rep_pen, key_data=key_row,
                 eos_ids=seq.eos_row, eos_suppress=eos_suppress,
-            )), "prefill"
+            )), "prefill", tokens=len(replay)
         )
         self.stats.prefills += 1
         if seq.slot is None:  # cancelled during the device call
@@ -1720,7 +1896,7 @@ class TorchEngine:
                 replay, seq.block_ids, embeds, start, seq.temperature, seq.top_p,
                 seq.top_k, rep_pen=seq.rep_pen, key_data=key_row,
                 eos_ids=seq.eos_row, eos_suppress=eos_suppress,
-            )), "prefill_mm"
+            )), "prefill_mm", tokens=len(replay)
         )
         self.stats.prefills += 1
         self.stats.mm_prefills += 1
@@ -1751,7 +1927,8 @@ class TorchEngine:
         runner = self.runner
         packed = runner.pack_prefill(specs)
         toks, lps, tids, tlps = await self._device(
-            lambda: runner.fetch_sample(runner.prefill_packed_arrays(**packed)), "prefill_packed")
+            lambda: runner.fetch_sample(runner.prefill_packed_arrays(**packed)), "prefill_packed",
+            tokens=sum(len(s.token_ids) for s in group))
         self.stats.packed_prefills += 1
         for i, seq in enumerate(group):
             if seq.slot is None:  # preempted by an earlier segment's growth
@@ -1781,7 +1958,7 @@ class TorchEngine:
             )
             return runner.fetch_sample(out) if final else None
 
-        sample = await self._device(run_chunk, "prefill_chunk")
+        sample = await self._device(run_chunk, "prefill_chunk", tokens=len(chunk))
         self.stats.chunk_steps += 1
         if seq.spans:
             self._sp_span_event(seq, "prefill", "prefill_chunk", pos=start, tokens=len(chunk))
@@ -1868,7 +2045,9 @@ class TorchEngine:
             fetch = [t for i in final_slots for t in chunk_outs[i]]
             return runner.fetch_sample((*fetch, *d_out))
 
-        out = await self._device(run_mixed, "mixed_step")
+        out = await self._device(run_mixed, "mixed_step", lanes=len(active),
+                                 capacity=self.config.max_batch,
+                                 tokens=sum(n for _, _, n in packed))
         self.stats.mixed_steps += 1
         for seq, start, n in packed:
             if seq.spans:
@@ -2033,7 +2212,7 @@ class TorchEngine:
         try:
             packed = await self._device(
                 lambda: runner.decode_multi(H, *args, penalties=penalties).cpu().numpy(),
-                f"decode_multi@H{H}")
+                f"decode_multi@H{H}", lanes=len(active), capacity=self.config.max_batch)
         except Exception:
             if not self.config.lazy_horizon:
                 raise
@@ -2105,7 +2284,8 @@ class TorchEngine:
         )
         toks, lps, tids, tlps = await self._device(
             lambda: runner.fetch_sample(runner.decode(
-                *args[:7], keys=args[7], penalties=penalties, eos_mask=eos_mask)), "decode"
+                *args[:7], keys=args[7], penalties=penalties, eos_mask=eos_mask)), "decode",
+            lanes=len(active), capacity=self.config.max_batch,
         )
         self.stats.decode_steps += 1
         if dtrace.enabled():
@@ -2195,7 +2375,7 @@ class TorchEngine:
         # one device-to-host copy of the packed [S + E, B, 2 + 2K] samples
         packed = await self._device(
             lambda: runner.spec_verify(K, E, *args, penalties=penalties).cpu().numpy(),
-            "spec_verify")
+            "spec_verify", lanes=len(active), capacity=self.config.max_batch)
         self.stats.verify_steps += 1
         self.stats.verify_chained_steps += E
         if dtrace.enabled():
@@ -2221,6 +2401,8 @@ class TorchEngine:
                 if seq.slot is None or not accept:
                     break
             if d:
+                # the verify premium paid for the rejected draft positions
+                self.stats.goodput.record_waste("spec_rejected", len(d) - accepted)
                 if accepted:
                     seq.spec_fail = 0
                 else:
@@ -2241,6 +2423,7 @@ class TorchEngine:
     def _append_token(self, seq: _Sequence, token: int, lp: float, top_ids, top_lps) -> None:
         """Record a newly generated token: stream it, grow blocks, stop."""
         self.stats.generated_tokens += 1
+        self.stats.goodput.record_decode_tokens()
         if seq.spans and "decode" not in seq.spans:
             # first token: the prefill phase (local or remote) is over
             self._sp_finish(seq, "prefill")
@@ -2301,6 +2484,10 @@ class TorchEngine:
                     # every other lane outranks this one: it yields itself
                     # (engine.py:3184-3200), its KV to the host tier when
                     # there is one, and resumes by re-admission
+                    if dprov.enabled():
+                        dprov.record("engine", "preempt", seq.priority, reason="self_yield",
+                                     ctx=seq.ctx, proc=self.trace_proc, grower=seq.ctx.id,
+                                     grower_class=seq.priority)
                     self._preempt(seq)
                 else:
                     self._finish_error(seq, "decode", "out of KV blocks with no preemptable "
@@ -2456,7 +2643,7 @@ class TorchEngine:
                 replay, seq.block_ids, seq.temperature, seq.top_p, seq.top_k,
                 rep_pen=seq.rep_pen, key_data=key_row, eos_ids=seq.eos_row,
                 eos_suppress=eos_suppress,
-            )), "prefill"
+            )), "prefill", tokens=len(replay)
         )
         return int(tok[0]), float(lp[0]), [[int(t), float(v)] for t, v in zip(tids[0], tlps[0])]
 
@@ -2550,7 +2737,7 @@ class TorchEngine:
                     **args))
                 return sample, extract(ship) if ship else None
 
-            sample, data = await self._device(run, "prefill")
+            sample, data = await self._device(run, "prefill", tokens=len(req.token_ids))
         finally:
             self.allocator.free(block_ids)
         payload = None
@@ -2594,7 +2781,7 @@ class TorchEngine:
                 start = pos
                 out = await self._device(lambda: runner.prefill_chunk(
                     chunk, start, T, block_ids, req.temperature, req.top_p, req.top_k, **args),
-                    "prefill_chunk")
+                    "prefill_chunk", tokens=len(chunk))
                 pos += len(chunk)
                 # the blocks this chunk completed; the partial tail waits for
                 # the final frame, so each block lands exactly once
@@ -2643,7 +2830,7 @@ class TorchEngine:
                     **args))
                 return sample, runner.extract_blocks_device(ship) if ship else (None, None, 0)
 
-            sample, (k, v, n) = await self._device(run, "prefill")
+            sample, (k, v, n) = await self._device(run, "prefill", tokens=len(req.token_ids))
         finally:
             self.allocator.free(block_ids)
         return self._served(req, sample, DevicePrefillResponse, k_dev=k, v_dev=v, num_blocks=n,

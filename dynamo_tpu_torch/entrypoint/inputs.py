@@ -29,7 +29,11 @@ engine's phase histograms, applies it through ``engine.apply_brownout``
 and publishes its transitions on ``brownout-status``; with
 ``DYN_RUNTIME_HTTP_ENABLED=1`` it serves ``/health``, ``/live`` and
 ``/metrics`` on ``DYN_RUNTIME_HTTP_PORT`` (``runtime/http_server.py``).
-Left out: the planner's status row on the frontend (ROADMAP.md A12).
+A worker's load metrics carry the engine's decode-bandwidth gauges and its
+goodput ledger (``load_metrics``); a colocated engine's ledger is on the
+frontend's ``/metrics`` and ``GET /debug/goodput``, and a dynamic
+frontend's ``GET /debug/fleet`` carries its health scorers. Left out: the
+planner's status row on the frontend (ROADMAP.md A12.3).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from dynamo_tpu_torch.pipeline.router import RouterMode
 from dynamo_tpu_torch.protocols.common import Context, PreprocessedRequest
 from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest, ChatMessage
 from dynamo_tpu_torch.telemetry import brownout as dbrownout
+from dynamo_tpu_torch.telemetry import provenance as dprov
 from dynamo_tpu_torch.telemetry import slo as dslo
 from dynamo_tpu_torch.telemetry import trace as dtrace
 
@@ -76,11 +81,13 @@ def make_engine_handler(
     worker) ride the stream's final frame, held until the span closed. When
     the consumer tears the stream down before that frame, the export is
     published on ``namespace``'s ``trace-export`` event subject instead,
-    which the frontend's ModelWatcher subscribes to."""
+    which the frontend's ModelWatcher subscribes to. The request's decision
+    records (``telemetry/provenance.py``: preemptions, re-admissions) ride
+    the same final frame or event."""
 
     async def handler(request: dict, ctx: Context) -> AsyncIterator[dict]:
         pre = PreprocessedRequest.from_dict(request)
-        if not dtrace.enabled():
+        if not dtrace.enabled() and not dprov.enabled():
             async for out in engine.generate(pre, ctx):
                 d = out.to_dict()
                 if stamp is not None:
@@ -90,6 +97,7 @@ def make_engine_handler(
         label = proc_label or getattr(engine, "trace_proc", None)
         final_d: Optional[dict] = None
         shipped = False
+        shipped_dec = False
         agen = engine.generate(pre, ctx)
         try:
             with dtrace.process_scope(label), dtrace.span(
@@ -109,18 +117,31 @@ def make_engine_handler(
                 tid = dtrace.ctx_trace_id(ctx)
                 if tid:
                     final_d["trace"] = dtrace.export_for_trace(tid)
+                if dprov.enabled():
+                    recs = dprov.export_for_request(ctx.id)
+                    if recs:
+                        final_d["decisions"] = recs
                 yield final_d
                 shipped = bool(final_d.get("trace"))
+                shipped_dec = bool(final_d.get("decisions"))
         finally:
             with contextlib.suppress(Exception):
                 await agen.aclose()
-            if namespace is not None and dtrace.enabled() and not shipped:
-                tid = dtrace.ctx_trace_id(ctx)
-                wire = dtrace.export_for_trace(tid) if tid else None
-                if wire:
+            if namespace is not None:
+                payload: dict = {}
+                if dtrace.enabled() and not shipped:
+                    tid = dtrace.ctx_trace_id(ctx)
+                    wire = dtrace.export_for_trace(tid) if tid else None
+                    if wire:
+                        payload["trace"] = wire
+                if dprov.enabled() and not shipped_dec:
+                    recs = dprov.export_for_request(ctx.id)
+                    if recs:
+                        payload["decisions"] = recs
+                if payload:
                     # the stream is gone (or never reached its final
                     # frame): fire and forget the export onto the event plane
-                    async def _publish(p={"trace": wire}):
+                    async def _publish(p=payload):
                         with contextlib.suppress(Exception):
                             await namespace.publish_event(dtrace.EXPORT_SUBJECT, p)
 
@@ -231,6 +252,9 @@ async def run_http(
                                metrics=service.metrics, admission=service.admission)
         await watcher.start()
         service.watcher = watcher
+        # GET /debug/fleet's health feed: each worker endpoint's scorer
+        service.fleet_sources["health"] = lambda: {
+            ep: scorer.status() for ep, scorer in watcher.health.items()}
     if drt is not None:
         ns = drt.namespace(drt.config.namespace)
         # the SLO plane's transitions and the brownout ladder's go out on
@@ -262,7 +286,12 @@ def _wire_local_engine(service: HttpService, config: EngineConfig) -> None:
     if hasattr(stats, "kv_wire_bytes_rx"):
         service.metrics.attach_kv_transfer_stats(stats)
     service.metrics.attach_engine_qos(stats)
+    # the goodput ledger's families and GET /debug/goodput (a TorchEngine's
+    # stats or a MockEngine's stats() dict)
+    service.metrics.attach_goodput(stats)
     slots = getattr(getattr(engine, "config", None), "max_batch", None)
+    if callable(stats):
+        slots = stats().get("total_slots")
     if slots:
         service.admission.set_capacity_fn(config.mdc.name, lambda: slots)
     if hasattr(engine, "apply_brownout"):
@@ -539,7 +568,7 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
             kv_pub.on_blocks_stored(adverts)
             logger.info("republished %d warm-restored block advert(s)", len(adverts))
     metrics_pub = None
-    if hasattr(engine, "allocator"):
+    if hasattr(engine, "allocator") or callable(getattr(engine, "stats", None)):
         metrics_pub = WorkerMetricsPublisher(endpoint.component, endpoint.id, service.instance_id,
                                              stamp=stamp)
         await metrics_pub.start(lambda: load_metrics(engine))
@@ -583,7 +612,9 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
                     try:
                         state = None
                         if local_slo is not None:
-                            state = local_slo.observe(engine.stats.phase_histograms).get("state")
+                            st = engine.stats() if callable(engine.stats) else engine.stats
+                            ph = st["phase_histograms"] if isinstance(st, dict) else st.phase_histograms
+                            state = local_slo.observe(ph).get("state")
                         _feed("local", state)
                     except Exception:  # noqa: BLE001 — telemetry only
                         logger.exception("local SLO tick failed")
@@ -623,6 +654,43 @@ async def run_endpoint(drt: Any, config: EngineConfig, endpoint_str: str) -> Non
             await clear_service.stop(drain=False)
 
 
+def _dict_load_metrics(d: dict):
+    """A MockEngine's ``stats()`` dict as ``ForwardPassMetrics``
+    (inputs.py:610-705, the reference's dict path)."""
+    from dynamo_tpu_torch.integrity import COUNTERS
+    from dynamo_tpu_torch.kv_router.protocols import ForwardPassMetrics, KvStats, WorkerStats
+
+    total = d.get("total_blocks", 1) or 1
+    used = d.get("used_blocks", 0)
+    ph = d.get("phase_histograms")
+    gp = d.get("goodput")
+    integ = COUNTERS.snapshot()
+    return ForwardPassMetrics(
+        worker_stats=WorkerStats(
+            request_active_slots=d.get("active_slots", 0),
+            request_total_slots=d.get("total_slots", 0),
+            num_requests_waiting=d.get("waiting", 0),
+            num_deadline_exceeded=d.get("deadline_exceeded", 0),
+            num_watchdog_trips=d.get("watchdog_trips", 0),
+            preemptions_by_class=dict(d.get("preemptions_by_class") or {}) or None,
+            num_preempted_too_often=d.get("preempted_too_often", 0),
+            num_shed_brownout=d.get("shed_brownout", 0),
+            brownout_level=d.get("brownout_level", 0),
+            integrity_failures_by_path=integ["integrity_failures_by_path"] or None,
+            num_blocks_quarantined=integ["blocks_quarantined"],
+            fenced_rejects_by_plane=integ["fenced_rejects_by_plane"] or None,
+            kv_pulled_blocks_by_outcome=dict(d.get("kv_pull_outcomes") or {}) or None,
+            decode_hbm_bytes_per_token=d.get("decode_hbm_bytes_per_token", 0.0),
+            mfu_decode_est=d.get("mfu_decode_est", 0.0),
+            tp_collective_bytes_per_step=d.get("tp_collective_bytes_per_step", 0.0),
+        ),
+        kv_stats=KvStats(kv_active_blocks=used, kv_total_blocks=total,
+                         gpu_cache_usage_perc=used / total),
+        phase_histograms=ph if ph is not None and ph.total_count() else None,
+        goodput=gp if gp is not None and gp.total_events() else None,
+    )
+
+
 async def _start_status_server(port: int, engine: Any, controller: Any):
     """The worker's system status server (runtime/http_server.py):
     ``/health``, ``/live`` and ``/metrics`` with the process's families, the
@@ -655,7 +723,8 @@ def load_metrics(engine: Any):
     """A ``TorchEngine``'s load and counters as the reference's
     ``ForwardPassMetrics`` (dynamo_tpu/entrypoint/inputs.py:610-705, under
     its field names; the fields the port's engine does not keep stay at
-    their defaults)."""
+    their defaults), with the decode-bandwidth gauges and the goodput
+    ledger (shipped once it recorded anything)."""
     from dynamo_tpu_torch.integrity import COUNTERS
     from dynamo_tpu_torch.kv_router.protocols import (
         ForwardPassMetrics,
@@ -665,6 +734,8 @@ def load_metrics(engine: Any):
         WorkerStats,
     )
 
+    if callable(engine.stats):  # a MockEngine: its stats() dict
+        return _dict_load_metrics(engine.stats())
     st, cfg = engine.stats, engine.config
     total = cfg.num_blocks - 1  # block 0 is the allocator's pad block
     used = total - engine.allocator.free_count
@@ -699,6 +770,9 @@ def load_metrics(engine: Any):
             fenced_rejects_by_plane=integ["fenced_rejects_by_plane"] or None,
             # the peer tier's pulled blocks by outcome
             kv_pulled_blocks_by_outcome=dict(st.kv_pull_outcomes) or None,
+            decode_hbm_bytes_per_token=st.decode_hbm_bytes_per_token,
+            mfu_decode_est=st.mfu_decode_est,
+            tp_collective_bytes_per_step=st.tp_collective_bytes_per_step,
         ),
         kv_stats=KvStats(kv_active_blocks=used, kv_total_blocks=total,
                          gpu_cache_usage_perc=used / max(1, total)),
@@ -710,6 +784,7 @@ def load_metrics(engine: Any):
         # shipped even empty: it marks a port worker, which the health
         # plane scores on its pace, never on its inter_token gaps
         health_histograms=st.health_histograms,
+        goodput=st.goodput if st.goodput.total_events() else None,
     )
 
 

@@ -8,12 +8,12 @@ latency and token counts, class-aware sheds, migrations and deadlines, and
 the scrape-time families of the ``attach_*`` hooks (spec decode, the KV data
 plane, engine QoS, integrity and fence counters, control-plane health, the
 tail-tolerance plane, the brownout ladder, the KV router's hit rates and
-peer-pull outcomes). Exposed at ``GET /metrics``. Every family keeps the
-reference's name, type, labels and help.
+peer-pull outcomes, a colocated engine's goodput ledger, this process's
+decision-provenance counts). Exposed at ``GET /metrics``. Every family keeps
+the reference's name, type, labels and help.
 
-Left out, with the modules that feed them (ROADMAP A12): the planner
-families (``attach_planner``), the goodput ledger's (``attach_goodput``)
-and the decision-provenance ledger's (``attach_decisions``).
+Left out, with the module that feeds them (ROADMAP A12.3): the planner
+families (``attach_planner``).
 """
 
 from __future__ import annotations
@@ -133,6 +133,8 @@ class ServiceMetrics:
         # process's requests only — fleet-true percentiles come from the
         # metrics component's merged per-worker histograms.
         self._phase_hist: dict[str, PhaseHistograms] = {}
+        # the decision-provenance ledger is process-global: always attached
+        self.attach_decisions()
 
     def phase_hist_for(self, model: str) -> PhaseHistograms:
         ph = self._phase_hist.get(model)
@@ -437,6 +439,61 @@ class ServiceMetrics:
                 )
 
         self.registry.register(_HealthCollector())
+
+    def attach_goodput(self, stats_src, hedger=None) -> None:
+        """A colocated engine's goodput ledger on this frontend's /metrics
+        (metrics.py:457-500): step-duration histograms by dispatch label,
+        occupancy, bubbles, the token-waste taxonomy, recompile forensics,
+        achieved MFU / HBM bytes per token. ``stats_src`` is the engine's
+        stats (or a zero-argument callable returning them; a dict or an
+        object whose ``goodput`` is the ledger). A wired ``HedgeController``'s
+        wasted tokens overlay the ``hedge_loser`` cause: the engine sees a
+        hedge loser only as a consumer gone away. The families are the
+        metrics component's (``components/metrics.goodput_families``)."""
+        if getattr(self, "_goodput_attached", False):
+            return
+        self._goodput_attached = True
+
+        def read():
+            s = stats_src() if callable(stats_src) else stats_src
+            d = s if isinstance(s, dict) else getattr(s, "__dict__", {})
+            return d.get("goodput")
+
+        # the same source and overlay for GET /debug/goodput
+        self._goodput_read = read
+        self._goodput_hedger = hedger
+
+        class _GoodputCollector:
+            def describe(self):
+                return []
+
+            def collect(self):
+                from dynamo_tpu_torch.components.metrics import goodput_families
+
+                yield from goodput_families(
+                    read(), hedge_loser_tokens=hedger.wasted_tokens if hedger is not None else 0.0)
+
+        self.registry.register(_GoodputCollector())
+
+    def attach_decisions(self) -> None:
+        """This process's decision-provenance ledger on /metrics
+        (metrics.py:520-541): ``dyn_llm_decisions{actor,kind}`` over the
+        closed taxonomy (every pair seeded at 0) and the ring's evictions.
+        Attached once, by the constructor: the ledger is process-global."""
+        if getattr(self, "_decisions_attached", False):
+            return
+        self._decisions_attached = True
+
+        class _DecisionCollector:
+            def describe(self):
+                return []
+
+            def collect(self):
+                from dynamo_tpu_torch.components.metrics import decision_families
+
+                yield from decision_families()
+
+        self.registry.register(_DecisionCollector())
 
     def attach_brownout(self, controller) -> None:
         """Surface the brownout ladder on /metrics: the live rung as a

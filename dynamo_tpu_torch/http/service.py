@@ -75,8 +75,19 @@ trace only when it errored, breached its SLO, migrated or was sampled
 
 Tokenizing, templating and detokenizing run on the event loop, per request,
 as in the reference; the engine keeps its device calls on its own thread.
-Left out: ``/debug/goodput``, ``/debug/decisions``, ``/debug/fleet`` and
-the admission's provenance records (A12).
+Decision provenance (``telemetry/provenance.py``): each admit or shed
+verdict and each class resolved at the edge is a decision record;
+``GET /debug/decisions/{request_id}`` assembles a request's records from
+every process (the workers' ride their final frames), with the same
+bounded wait as ``/debug/traces``; ``DYN_DECISIONS=auto`` keeps a completed
+request's records only under the trace plane's retention rules, and
+``DYN_DECISIONS_USAGE=1`` puts the timeline into ``usage.timing``.
+``GET /debug/goodput`` shows a colocated engine's goodput ledger (with the
+hedger's ``hedge_loser`` overlay) and ``GET /debug/fleet`` one snapshot of
+the models, admission, brownout, SLO state, integrity counters, recent
+fleet-scoped decisions and the feeds registered in ``fleet_sources``
+(``entrypoint/inputs.run_http`` registers the health scorers; the planner
+and upgrade feeds come with ROADMAP A12.3 / A12.4).
 """
 
 from __future__ import annotations
@@ -118,6 +129,7 @@ from dynamo_tpu_torch.protocols.sse import encode_done, encode_json_event
 from dynamo_tpu_torch.runtime.prom import CONTENT_TYPE_LATEST
 from dynamo_tpu_torch.telemetry import brownout as dbrownout
 from dynamo_tpu_torch.telemetry import profile as dprofile
+from dynamo_tpu_torch.telemetry import provenance as dprov
 from dynamo_tpu_torch.telemetry import slo as dslo
 from dynamo_tpu_torch.telemetry import trace as dtrace
 from dynamo_tpu_torch.tool_calling import parse_tool_calls
@@ -184,10 +196,14 @@ def _error_payload(message: Optional[str]) -> dict:
 
 def _usage_timing_block(ctx: Context) -> dict:
     """The ``usage.timing`` payload of a finished request: the trace's
-    per-phase breakdown ({} with tracing off)."""
+    per-phase breakdown ({} with tracing off), and with
+    ``DYN_DECISIONS_USAGE=1`` the request's decision timeline."""
+    tb: dict = {}
     if dtrace.enabled():
-        return dtrace.breakdown(dtrace.ctx_trace_id(ctx)) or {}
-    return {}
+        tb = dtrace.breakdown(dtrace.ctx_trace_id(ctx)) or {}
+    if dprov.enabled() and dprov.usage_enabled():
+        tb["decisions"] = dprov.timeline(ctx.id)
+    return tb
 
 
 def _parse_class_fractions(raw: Optional[str]) -> dict[str, float]:
@@ -343,10 +359,14 @@ class AdmissionController:
         """None = admitted (the caller must release()); else shed, and the
         value is the Retry-After hint in seconds."""
         priority = qos.normalize_priority(priority) or qos.DEFAULT_CLASS
+        prov = dprov.enabled()
         if priority in self.brownout_shed:
+            if prov:
+                self._record_admission("shed", model, priority, "brownout", request_id)
             return self._shed_one(model, priority, "brownout", 1)
         wm = self.class_watermark(model, priority)
         cur = self._inflight.get(model, 0)
+        heat = None
         if wm is not None and priority == "bulk":
             heat = self.prefix_heat(model, prefix_sig)
             if heat is not None and heat < self.cold_prefix_heat:
@@ -354,11 +374,30 @@ class AdmissionController:
                 # pressure it costs the full prefill that hot traffic skips
                 cold_wm = max(1, int(math.ceil(wm * self.cold_prefix_fraction)))
                 if cur >= cold_wm:
+                    if prov:
+                        self._record_admission("shed", model, priority, "cold_prefix", request_id,
+                                               watermark=cold_wm, heat=round(heat, 4))
                     return self._shed_one(model, priority, "cold_prefix", cur - cold_wm + 1)
         if wm is not None and cur >= wm:
+            if prov:
+                self._record_admission("shed", model, priority, "watermark", request_id,
+                                       watermark=wm)
             return self._shed_one(model, priority, "watermark", cur - wm + 1)
+        if prov:
+            self._record_admission(
+                "admit", model, priority, "under_watermark" if wm is not None else "unbounded",
+                request_id, watermark=wm, heat=round(heat, 4) if heat is not None else None)
         self._inflight[model] = cur + 1
         return None
+
+    def _record_admission(self, kind: str, model: str, priority: str, reason: str,
+                          request_id: Optional[str], **attrs: Any) -> None:
+        """The watermark arithmetic behind one admit / shed verdict
+        (service.py:296-314)."""
+        dprov.record("admission", kind, priority, reason=reason, request_id=request_id,
+                     epoch=None if request_id else model, model=model,
+                     inflight=self._inflight.get(model, 0),
+                     class_fraction=self.class_fractions.get(priority, 1.0), **attrs)
 
     def release(self, model: str) -> None:
         self._inflight[model] = max(0, self._inflight.get(model, 1) - 1)
@@ -805,6 +844,8 @@ class HttpService:
             ("GET", "/debug/slo"): self._debug_slo,
             ("GET", "/debug/profile"): self._debug_profile,
             ("GET", "/debug/traces"): self._debug_traces_list,
+            ("GET", "/debug/goodput"): self._debug_goodput,
+            ("GET", "/debug/fleet"): self._debug_fleet,
             ("POST", "/clear_kv_blocks"): self._clear_kv_blocks,
         }
         # the SLO plane: an engine per model fed from this frontend's own
@@ -825,6 +866,9 @@ class HttpService:
         self.metrics.attach_brownout(self.brownout)
         # auxiliary background tasks (event subscriptions) cancelled on close
         self._aux_tasks: list[asyncio.Task] = []
+        # GET /debug/fleet's feeds: label -> zero-argument callable returning
+        # a JSON-able blob (the entrypoint registers the health scorers)
+        self.fleet_sources: dict[str, Callable[[], Any]] = {}
 
     # ---------------------------------------------------------- lifecycle
 
@@ -908,6 +952,8 @@ class HttpService:
         handler = self._routes.get((req.method, req.path))
         if handler is None and req.method == "GET" and req.path.startswith("/debug/traces/"):
             handler = self._debug_trace
+        if handler is None and req.method == "GET" and req.path.startswith("/debug/decisions/"):
+            handler = self._debug_decisions
         if handler is None:
             if any(path == req.path for _, path in self._routes):
                 await conn.send_json(405, {"error": {"message": f"method {req.method} not allowed",
@@ -1051,6 +1097,7 @@ class HttpService:
         the flight recorder keeps it only when the request breached its SLO,
         errored or hit its deadline, migrated, or hit the 1-in-N sample
         (DYN_TRACE_SAMPLE)."""
+        self._finish_decisions(ctx, model=model, timer=timer)
         if not dtrace.enabled():
             return
         tid = dtrace.ctx_trace_id(ctx)
@@ -1073,12 +1120,37 @@ class HttpService:
             rec.note_dropped()
 
     @staticmethod
+    def _finish_decisions(ctx: Context, model: str = "",
+                          timer: Optional[TokenTimer] = None) -> None:
+        """``DYN_DECISIONS=auto``: keep a completed request's decision
+        records only under the trace plane's retention verdict
+        (service.py:1025-1047)."""
+        if not (dprov.enabled() and dprov.auto()):
+            return
+        migrated = any(r.actor == "remote" and r.kind == "migrate"
+                       for r in dprov.records_for_request(ctx.id))
+        reason = dslo.retention_reason(
+            dslo.SloConfig.from_env(model) if model else None,
+            error_code=ctx.metadata.get("error_code"),
+            ttft_ms=getattr(timer, "ttft_ms", None),
+            max_itl_ms=getattr(timer, "max_itl_ms", None),
+            migrated=migrated,
+        )
+        dprov.maybe_retain(ctx.id, reason)
+
+    @staticmethod
     def _resolve_priority(req: _Request, api_req: Any, ctx: Context) -> str:
         """The QoS class at the edge: ``x-dyn-priority``, then
-        ``ext.priority``, then ``DYN_PRIORITY_DEFAULT``."""
+        ``ext.priority``, then ``DYN_PRIORITY_DEFAULT``; the rung that won
+        is a ``qos/priority`` decision record (service.py:873-892)."""
+        header = req.headers.get("x-dyn-priority")
         ext = api_req.ext
-        return qos.resolve_priority(
-            req.headers.get("x-dyn-priority"), ext.priority if ext else None, api_req.model)
+        ext_value = ext.priority if ext else None
+        prio = qos.resolve_priority(header, ext_value, api_req.model)
+        if dprov.enabled():
+            dprov.record("qos", "priority", prio, reason=qos.priority_source(header, ext_value),
+                         request_id=ctx.id, model=api_req.model)
+        return prio
 
     def _admit(self, req: _Request, api_req: Any, ctx: Context, sig: Optional[int]) -> str:
         """Resolve the class and take an admission slot, or raise the 429
@@ -1471,6 +1543,95 @@ class HttpService:
         doc["otherData"]["breakdown"] = dtrace.breakdown(tid)
         doc["otherData"]["partial"] = False
         await conn.send_json(200, doc, keep_alive=req.keep_alive)
+
+    async def _debug_goodput(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """A colocated engine's goodput ledger (service.py:1489-1520): step
+        distributions by label, occupancy, bubbles, the waste taxonomy with
+        the hedger's ``hedge_loser`` overlay, recompile forensics. The
+        fleet's merged view is the metrics component's ``/debug/goodput``."""
+        from dynamo_tpu_torch.telemetry import goodput as dgoodput
+
+        read = getattr(self.metrics, "_goodput_read", None)
+        hedger = getattr(self.metrics, "_goodput_hedger", None)
+        gp = read() if read is not None else None
+        summary = gp.summary() if gp is not None else None
+        hedge_tokens = int(hedger.wasted_tokens) if hedger is not None else 0
+        if summary is not None and hedge_tokens:
+            summary["tokens_wasted"]["hedge_loser"] += hedge_tokens
+            summary["tokens_wasted_total"] += hedge_tokens
+        body: dict[str, Any] = {"scope": "frontend", "enabled": dgoodput.enabled_from_env(),
+                                "goodput": summary, "hedge_loser_tokens": hedge_tokens}
+        if summary is None:
+            body["hint"] = ("no colocated engine ledger on this frontend; the fleet-merged "
+                            "view is GET /debug/goodput on the metrics component")
+        await conn.send_json(200, body, keep_alive=req.keep_alive)
+
+    async def _debug_decisions(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """One request's cross-process decision timeline
+        (service.py:1595-1627): this process's records and the ones the
+        workers and the router shipped, in causal order, with the same
+        bounded wait as ``/debug/traces``."""
+        if not dprov.enabled():
+            await conn.send_json(404, {"error": {
+                "message": "decision ledger is disabled (set DYN_DECISIONS=1)",
+                "type": "not_found_error"}}, keep_alive=req.keep_alive)
+            return
+        rid = urllib.parse.unquote(req.path[len("/debug/decisions/"):])
+        recs = await self._wait_assembled(lambda: dprov.records_for_request(rid))
+        if not recs:
+            if dtrace.trace_for_request(rid) is None:
+                await conn.send_json(404, {"error": {"message": f"no decisions for request {rid!r}",
+                                                     "type": "not_found_error"}},
+                                     keep_alive=req.keep_alive)
+                return
+            await conn.send_json(200, {"request_id": rid, "partial": True, "decisions": []},
+                                 keep_alive=req.keep_alive)
+            return
+        await conn.send_json(200, {"request_id": rid, "partial": False, "count": len(recs),
+                                   "procs": sorted({r.proc for r in recs}),
+                                   "decisions": dprov.timeline(rid)},
+                             keep_alive=req.keep_alive)
+
+    async def _debug_fleet(self, conn: _Connection, req: _Request, ctx: Context) -> None:
+        """One fleet snapshot (service.py:1629-1677): models, admission and
+        prefix heat, the brownout rung, SLO states, integrity counters,
+        recent fleet-scoped decisions, and every ``fleet_sources`` feed."""
+        from dynamo_tpu_torch.integrity import COUNTERS
+
+        adm = self.admission
+        models = self.manager.list_models()
+        heat = list(adm._prefix_heat.values())
+        body: dict[str, Any] = {
+            "models": models,
+            "admission": {
+                "inflight": {m: adm.inflight(m) for m in models},
+                "watermarks": {m: adm.watermark(m) for m in models},
+                "class_fractions": adm.class_fractions,
+                "shed_total": adm.shed_total,
+                "shed_by_class": dict(adm.shed_by_class),
+                "brownout_shed": sorted(adm.brownout_shed),
+                "prefix_heat": {
+                    "entries": len(heat),
+                    "mean": round(sum(heat) / len(heat), 4) if heat else None,
+                    "cold_threshold": adm.cold_prefix_heat,
+                },
+            },
+            "brownout": self.brownout.status(),
+            "slo": {"local": self._local_slo_state, "remote": self._remote_slo_state},
+            "integrity": COUNTERS.snapshot(),
+            "decisions": {
+                "enabled": dprov.enabled(),
+                "counts": {f"{a}/{k}": n for (a, k), n in sorted(dprov.counts().items())},
+                "ring_dropped": dprov.dropped_total(),
+                "fleet_recent": dprov.fleet_summary(limit=16),
+            },
+        }
+        for label, fn in self.fleet_sources.items():
+            try:
+                body[label] = fn()
+            except Exception as e:  # noqa: BLE001 - one stale feed must not sink the rest
+                body[label] = {"error": str(e)}
+        await conn.send_json(200, body, keep_alive=req.keep_alive)
 
     async def _clear_kv_blocks(self, conn: _Connection, req: _Request, ctx: Context) -> None:
         """Drop every worker group's reusable KV state (the reference's

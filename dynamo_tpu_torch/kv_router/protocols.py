@@ -2,11 +2,9 @@
 
 The port's own copy of dynamo_tpu/kv_router/protocols.py, with the same
 dicts on the wire. ``ForwardPassMetrics.phase_histograms`` is typed
-(``telemetry/histogram.PhaseHistograms``, its wire dict on the wire).
-``goodput`` stays a plain dict: a worker of the JAX package may send it,
-and the port passes it through unchanged (``from_dict`` then ``to_dict``
-gives the same dict back); its typed class (``telemetry/goodput.py``)
-comes with ROADMAP.md A12.
+(``telemetry/histogram.PhaseHistograms``) and so is ``goodput``
+(``telemetry/goodput.GoodputStats``); each travels as the reference's wire
+dict, so a router of either package reads a worker of either.
 
 Role-equivalent of lib/llm/src/kv_router/protocols.rs: KvCacheEvent
 {Stored, Removed, Cleared} (:142-183) and ForwardPassMetrics
@@ -25,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
+from dynamo_tpu_torch.telemetry.goodput import GoodputStats
 from dynamo_tpu_torch.telemetry.histogram import PhaseHistograms
 
 
@@ -247,8 +246,9 @@ class ForwardPassMetrics:
     # a port worker's own series for the health plane (C15; ``pace`` and
     # ``ttft_cold``, telemetry/health.py), on the same grid
     health_histograms: Optional[PhaseHistograms] = None
-    # the reference's goodput ledger as its wire dict (module docstring)
-    goodput: Optional[dict[str, Any]] = None
+    # the goodput ledger (telemetry/goodput.py): step histograms by
+    # dispatch label, occupancy, bubbles, waste, compile forensics
+    goodput: Optional[GoodputStats] = None
 
     def to_dict(self) -> dict[str, Any]:
         d: dict[str, Any] = {
@@ -264,7 +264,7 @@ class ForwardPassMetrics:
         if self.health_histograms is not None:
             d["health_histograms"] = self.health_histograms.to_dict()
         if self.goodput is not None:
-            d["goodput"] = self.goodput
+            d["goodput"] = self.goodput.to_dict()
         return d
 
     @classmethod
@@ -279,7 +279,7 @@ class ForwardPassMetrics:
             phase_histograms=PhaseHistograms.from_dict(ph) if (ph := d.get("phase_histograms")) else None,
             health_histograms=(PhaseHistograms.from_dict(d["health_histograms"])
                                if "health_histograms" in d else None),
-            goodput=d.get("goodput") or None,
+            goodput=GoodputStats.from_dict(d["goodput"]) if d.get("goodput") else None,
         )
 
 

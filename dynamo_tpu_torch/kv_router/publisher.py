@@ -5,10 +5,8 @@ The port's own copy of dynamo_tpu/kv_router/publisher.py: payloads packed
 by the port's codec (``fabric/mpack.py``), byte for byte what
 ``msgpack.packb(d, use_bin_type=True)`` writes, so a router of either
 package reads a worker of either. ``KvMetricsAggregator.aggregate`` sums
-everything the reference sums, the per-phase histograms merged by bucket
-addition, except the goodput ledger: the port keeps it as a wire dict and
-its merge comes with its typed class (ROADMAP.md A12); ``collect`` passes
-each worker's through unchanged.
+everything the reference sums: the per-phase histograms and the goodput
+ledgers merged by addition.
 
 Role-equivalent of lib/llm/src/kv_router/publisher.rs (KvEventPublisher :99,
 WorkerMetricsPublisher :481) and metrics_aggregator.rs. The publisher hooks
@@ -36,6 +34,7 @@ from dynamo_tpu_torch.kv_router.protocols import (
     SpecDecodeStats,
 )
 from dynamo_tpu_torch.runtime.protocols import EndpointId
+from dynamo_tpu_torch.telemetry.goodput import GoodputStats
 from dynamo_tpu_torch.telemetry.histogram import PhaseHistograms
 
 logger = logging.getLogger("dynamo_tpu_torch.kv_router.publisher")
@@ -245,6 +244,11 @@ class KvMetricsAggregator:
                 if agg.phase_histograms is None:
                     agg.phase_histograms = PhaseHistograms()
                 agg.phase_histograms.merge(m.phase_histograms)
+            if m.goodput is not None:
+                # counters and bucket grids add, compile times take the max
+                if agg.goodput is None:
+                    agg.goodput = GoodputStats()
+                agg.goodput.merge(m.goodput)
         n = len(per_worker)
         if n:
             kv.gpu_cache_usage_perc /= n

@@ -7,9 +7,11 @@ the result carries a ``pull_plan`` naming the source (ranked by
 ``indexer.rank_pull_sources``), which the engine's peer tier
 (block_manager/peer.py) pulls from, and the health scorer's hook
 (``KvScheduler.health``, telemetry/health.py): ejected workers leave the
-route set and suspects are deweighted by their ``health_factors``. Left
-out: the decision provenance records (A12). Seeded, it picks what the reference
-picks: both draw from Python's ``random``.
+route set and suspects are deweighted by their ``health_factors``. Each
+choice is a ``router/route`` decision record with every candidate's
+overlap, load and health factor, and a pull plan a ``router/prefix_pull``
+one (``telemetry/provenance.py``, scheduler.py:317-367). Seeded, it picks
+what the reference picks: both draw from Python's ``random``.
 
 Role-equivalent of lib/llm/src/kv_router/scheduler.rs (:100-446): per worker
 logit = overlap_score_weight * prefill_blocks + potential_active_blocks
@@ -28,6 +30,7 @@ from typing import Callable, Optional, Protocol
 
 from dynamo_tpu_torch.kv_router.indexer import OverlapScores, rank_pull_sources
 from dynamo_tpu_torch.kv_router.protocols import KVHitRateEvent
+from dynamo_tpu_torch.telemetry import provenance as dprov
 from dynamo_tpu_torch.kv_router.sequence import ActiveSequencesMultiWorker
 from dynamo_tpu_torch.tokens import compute_seq_hash_chain
 
@@ -245,6 +248,8 @@ class KvScheduler:
         result = self.selector.select_worker(worker_ids, request, self.block_size)
         result.fleet_blocks = min(result.required_blocks, max(overlap.scores.values(), default=0))
         result.pull_plan = self._plan_pull(result, overlap, chain, set(worker_ids), health_factors)
+        if dprov.enabled():
+            self._record_route(request_id, request, result, worker_ids)
         self.sequences.add_request_chain(result.worker_id, chain, partial, request_id)
         self.hit_stats["decisions"] += 1
         self.hit_stats["isl_blocks"] += result.required_blocks
@@ -258,6 +263,37 @@ class KvScheduler:
                 fleet_blocks=result.fleet_blocks,
             ))
         return result
+
+    @staticmethod
+    def _record_route(request_id: Optional[str], request: SchedulingRequest,
+                      result: WorkerSelectionResult, worker_ids: list[int]) -> None:
+        """The candidates' overlap / load / health scores behind this
+        choice, and the pull plan when one was built."""
+        cap = result.required_blocks
+        alts = [
+            {
+                "worker": w,
+                "overlap": min(int(request.overlap.scores.get(w, 0)), cap),
+                "load": int(request.potential_blocks.get(w, 0)),
+                "health": round(request.health_factors.get(w, 1.0), 4),
+            }
+            for w in sorted(worker_ids)
+        ]
+        if len(worker_ids) <= 1:
+            reason = "single_candidate"
+        elif result.overlap_blocks and result.overlap_blocks >= result.fleet_blocks:
+            reason = "overlap"
+        else:
+            reason = "load"
+        dprov.record("router", "route", result.worker_id, reason=reason, alternatives=alts,
+                     request_id=request_id, required_blocks=cap,
+                     overlap_blocks=result.overlap_blocks, fleet_blocks=result.fleet_blocks)
+        plan = result.pull_plan
+        if plan is not None:
+            dprov.record("router", "prefix_pull", plan["src"], reason="gap_over_threshold",
+                         request_id=request_id, blocks=plan["blocks"],
+                         gap=result.fleet_blocks - result.overlap_blocks,
+                         avoid=list(plan.get("avoid") or []))
 
     def _plan_pull(
         self,

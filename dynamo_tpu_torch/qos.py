@@ -3,8 +3,8 @@
 The port's own copy of dynamo_tpu/qos.py: the three classes, their
 resolution at the edge, the brownout ladder's prefill cap
 (``effective_chunk_budget``) and the drain-rate estimator behind a shed's
-Retry-After. Left out: the decision-provenance record that the reference's
-``stamp_priority`` writes (A12).
+Retry-After. ``stamp_priority`` records a ``qos/priority`` decision when it
+resolves the class itself (``telemetry/provenance.py``).
 
 Three classes, strictly ordered:
 
@@ -150,18 +150,24 @@ def stamp_priority(pre: Any, ctx: Any) -> str:
     resolve from the request ext stamp / env default when the Context
     carries none). Returns the class."""
     from dynamo_tpu_torch.pipeline.context import decisions_of
+    from dynamo_tpu_torch.telemetry import provenance as dprov
 
     carrier = decisions_of(ctx) if ctx is not None else None
     p = None
     if carrier is not None:
         p = normalize_priority(carrier.priority)
     if p is None:
+        ext_value = (pre.extra or {}).get("priority")
         p = resolve_priority(
-            ext_value=(pre.extra or {}).get("priority"),
+            ext_value=ext_value,
             model=getattr(pre, "model", None) or None,
         )
         if carrier is not None:
             carrier.priority = p
+        if dprov.enabled():
+            # resolved here (no edge handler stamped the Context): record
+            # the precedence rung that won
+            dprov.record("qos", "priority", p, reason=priority_source(ext_value=ext_value), ctx=ctx)
     pre.extra["priority"] = p
     return p
 

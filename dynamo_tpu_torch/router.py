@@ -10,16 +10,17 @@ counters, and its health scorer's families. The scorer is fed by the same
 load scrape that decides sheds (the workers' self-reported phase
 histograms, one tick a scrape), and its ejected workers leave the router's
 candidate set. A traced request's decision runs under a ``route_decision``
-span on the ``router`` track, shipped back in the reply's ``trace``. Left
-out (ROADMAP.md A12): the decision provenance in a reply and the decision
-families on ``/metrics``.
+span on the ``router`` track, shipped back in the reply's ``trace``; its
+decision records (``router/route``, ``router/prefix_pull``) in the reply's
+``decisions``, and this process's decision counts on ``/metrics``.
 
 Endpoint: ``<namespace>.router.find_best``
   request : {"token_ids": [...], "request_id": "..."}   (or {"tokens": ...})
   response: {"worker_id": int, "overlap_blocks": int, "fleet_frac": float,
-             "prefix_pull": {plan}, "trace": [span dicts]}   (prefix_pull:
-             only when the scheduler made a pull plan; trace: only for a
-             traced request)
+             "prefix_pull": {plan}, "trace": [span dicts],
+             "decisions": [record dicts]}   (prefix_pull: only when the
+             scheduler made a pull plan; trace: only for a traced request;
+             decisions: with the decision ledger on and a request id)
            | {"shed": true, "retry_after_ms": int}   (fleet overloaded)
   request : {"op": "free", "request_id": "..."}  -> {"ok": true}
   request : {"op": "index"} -> {"index_blocks": {worker hex id: blocks},
@@ -49,6 +50,7 @@ from typing import Any, Optional
 
 from dynamo_tpu_torch import qos
 from dynamo_tpu_torch.runtime import logging as dlog
+from dynamo_tpu_torch.telemetry import provenance as dprov
 from dynamo_tpu_torch.telemetry import trace as dtrace
 
 logger = logging.getLogger("dynamo_tpu_torch.router")
@@ -131,6 +133,17 @@ def build_router_registry(scheduler, decisions_fn, shed_fn, health=None):
             yield fam
 
     registry.register(_PullCollector())
+    # this process's decision-provenance counts (route / prefix_pull)
+    from dynamo_tpu_torch.components.metrics import decision_families
+
+    class _DecisionCollector:
+        def describe(self):
+            return []
+
+        def collect(self):
+            yield from decision_families()
+
+    registry.register(_DecisionCollector())
     CallbackCounter(registry, "dyn_llm_router_decisions_total", "Routing decisions served",
                     decisions_fn)
     CallbackCounter(registry, "dyn_llm_requests_shed_total",
@@ -279,6 +292,12 @@ class StandaloneRouter:
             out["fleet_frac"] = round(result.fleet_blocks / result.required_blocks, 4)
         if rsp.trace_id:
             out["trace"] = dtrace.export_for_trace(rsp.trace_id, include_remote=False)
+        if dprov.enabled() and request_id:
+            # the router has no final frame of its own: the decision's
+            # records ride the reply, like the span above
+            recs = dprov.export_for_request(request_id)
+            if recs:
+                out["decisions"] = recs
         yield out
 
     async def close(self) -> None:

@@ -18,6 +18,10 @@ out = torch  (TorchEngine from build_torch_engine(<path>); --model-path is a
       unless a tokenizer sits beside it, its embedded tokenizer and chat
       template), or a repo id already in the local HF cache
       (DYN_MODEL_CACHE, $HF_HOME/hub, ~/.cache/huggingface/hub; hub.py))
+    | mocker  (engine/mocker.MockEngine: simulated compute over real KV
+      block bookkeeping and events, no card, --num-blocks (1024),
+      --kv-block-size, --max-batch; with no --model-path a word-level
+      test card)
     | dyn  (route to the workers discovery finds, with --router-mode; ``kv``
       sends each request to the worker whose KV cache holds most of its
       prompt, weighed against its load: cost = weight x blocks to prefill +
@@ -176,10 +180,24 @@ def build_config(args: argparse.Namespace):
         )
         _add_template(config, args)
         return config
+    if args.out_opt == "mocker":
+        # simulated compute (run.py:124-143): no torch in this process
+        from dynamo_tpu_torch.engine.mocker import MockEngine, MockEngineArgs
+
+        mdc = (ModelDeploymentCard.from_model_path(
+                   args.model_path, args.model_name or args.model_path,
+                   kv_block_size=args.kv_block_size, context_length=args.context_length)
+               if args.model_path else build_test_mdc(args.model_name or "mocker"))
+        engine = MockEngine(MockEngineArgs(num_blocks=args.num_blocks or 1024,
+                                           block_size=args.kv_block_size,
+                                           max_batch=args.max_batch))
+        config = EngineConfig.static_(engine, mdc)
+        _add_template(config, args)
+        return config
     from dynamo_tpu_torch.engine.torch_engine.factory import build_torch_engine
 
     if args.out_opt != "torch":
-        raise SystemExit(f"unknown out={args.out_opt} (torch or dyn)")
+        raise SystemExit(f"unknown out={args.out_opt} (torch, mocker or dyn)")
     from dynamo_tpu_torch.hub import resolve_model
 
     if not args.model_path:
@@ -205,6 +223,22 @@ def build_config(args: argparse.Namespace):
     return config
 
 
+def build_test_mdc(name: str):
+    """A self-contained word-level model card (run.py:28-36, over the port's
+    tokenizer.json reader): ``<unk>``, ``<s>``, ``</s>`` (the EOS)."""
+    from dynamo_tpu_torch.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.tokenizer import TokenizerWrapper
+    from dynamo_tpu_torch.tokenizer_json import JsonTokenizer
+
+    tok = JsonTokenizer(json.dumps({
+        "version": "1.0",
+        "model": {"type": "WordLevel", "vocab": {"<unk>": 0, "<s>": 1, "</s>": 2},
+                  "unk_token": "<unk>"},
+        "pre_tokenizer": {"type": "Whitespace"},
+    }))
+    return ModelDeploymentCard.from_tokenizer(name, TokenizerWrapper(tok, eos_token_ids=[2]))
+
+
 def _add_template(config, args: argparse.Namespace) -> None:
     if args.request_template:
         from dynamo_tpu_torch.request_template import RequestTemplate
@@ -220,12 +254,17 @@ def exit_stats(engine) -> dict:
     tokens, prefix blocks found in the tiers) and the process's integrity
     counters (checksum failures, quarantined blocks, fenced frames), the
     brownout rung and sheds, the step counts, the phase histograms' counts
-    and the injected faults that fired (``DYN_FAULT``), by name."""
+    and the injected faults that fired (``DYN_FAULT``), by name; the perf
+    gauges and the goodput ledger's steps, compile records and recompiles.
+    A mocker's are its own counters (``mocker_stats``)."""
+    if not hasattr(engine, "runner"):
+        return mocker_stats(engine)
     from dynamo_tpu_torch.integrity import COUNTERS
     from dynamo_tpu_torch.ops import kernels
     from dynamo_tpu_torch.parallel.multihost import SpmdModelRunner
     from dynamo_tpu_torch.testing import faults
 
+    st = engine.stats
     ranks = {}
     if isinstance(engine.runner, SpmdModelRunner):  # every rank's, in rank order
         ranks["rank_kernel_launches"] = [r["launches"] for r in engine.runner.rank_stats()]
@@ -249,6 +288,21 @@ def exit_stats(engine) -> dict:
         "admissions": list(engine.admissions),
         "integrity": COUNTERS.snapshot(),
         "faults_fired": dict(faults.get_injector().fired) if faults.active() else {},
+        # the decode-bandwidth gauges, the MFU gauge's token rate and the
+        # bytes the model says decoding moved (perf_model.py)
+        "perf": {"decode_hbm_bytes_per_token": st.decode_hbm_bytes_per_token,
+                 "tp_collective_bytes_per_step": st.tp_collective_bytes_per_step,
+                 "mfu_decode_est": st.mfu_decode_est, "mfu_rate_tok_s": engine.mfu_window_rate(),
+                 "modelled_decode_bytes": st.modelled_decode_bytes},
+        # the goodput ledger's steps by label, compile records and
+        # recompiles, beside each label's first dispatch and the labels the
+        # prebake manifest covers
+        "goodput": {"steps_by_label": {k: h.count for k, h in st.goodput.step_hists.phases.items()},
+                    "compile_s": dict(st.goodput.compile_s_by_label),
+                    "recompiles": dict(st.goodput.recompiles),
+                    "tokens_wasted": dict(st.goodput.waste_by_cause)},
+        "dispatch_first_s": dict(engine.dispatch_first_s),
+        "prebaked_labels": sorted(engine._prebaked_labels),
     }
 
 
@@ -262,6 +316,7 @@ async def amain(args: argparse.Namespace) -> None:
     config = build_config(args)
     engine = config.engine
     torch_engine = engine is not None and hasattr(engine, "restore_tiers")
+    mocker = args.out_opt == "mocker"
     if torch_engine:
         restored = engine.restore_tiers()
         if restored is not None:
@@ -272,7 +327,7 @@ async def amain(args: argparse.Namespace) -> None:
 
         drt = await DistributedRuntime.from_settings()
         if args.in_opt.startswith("dyn://"):
-            _worker_signals(drt, engine if torch_engine else None)
+            _worker_signals(drt, engine if torch_engine or mocker else None)
     served = None
     try:
         served = await run_input(args.in_opt, config, args.http_port, args.http_host, drt=drt)
@@ -282,10 +337,30 @@ async def amain(args: argparse.Namespace) -> None:
             if drt is None:  # a worker's drain checkpointed them
                 engine.checkpoint_tiers()
             await engine.close()
+        elif mocker:
+            print(json.dumps({"exit_stats": mocker_stats(engine)}), flush=True)
+            await engine.close()
         elif drt is not None and not args.in_opt.startswith("dyn://"):
             print(json.dumps({"exit_stats": frontend_stats(served)}), flush=True)
         if drt is not None:
             await drt.close()
+
+
+def mocker_stats(engine) -> dict:
+    """A MockEngine's counters: tokens, prompt tokens prefilled, lanes and
+    blocks held, deadline sheds, preemptions, pulls and its goodput."""
+    st = engine.stats()
+    return {
+        "generated_tokens": engine.generated_tokens,
+        "prefilled_tokens": engine.prefilled_tokens,
+        "busy_lanes": st["active_slots"],
+        "used_blocks": st["used_blocks"],
+        "num_blocks": st["total_blocks"],
+        "deadline_exceeded": st["deadline_exceeded"],
+        "preemptions_by_class": st["preemptions_by_class"],
+        "kv_pull_outcomes": st["kv_pull_outcomes"],
+        "goodput": st["goodput"].summary(),
+    }
 
 
 def frontend_stats(service) -> dict:

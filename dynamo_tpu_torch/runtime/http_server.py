@@ -11,7 +11,8 @@ can expose liveness for supervisors and process-level Prometheus metrics
 registers) apart from the LLM frontend.
 
 The server answers ``GET`` requests of HTTP/1.1 clients (one request per
-connection, ``Connection: close``); any other method or path gets 404.
+connection, ``Connection: close``) on its routes and those a host adds
+(``add_route``); any other method or path gets 404.
 """
 
 from __future__ import annotations
@@ -61,6 +62,12 @@ class SystemStatusServer:
 
     def add_health_check(self, name: str, check: HealthCheck) -> None:
         self._checks[name] = check
+
+    def add_route(self, path: str, handler: Callable[[], Awaitable[tuple[int, bytes, str]]]) -> None:
+        """An extra ``GET`` route (http_server.py:67-70; the metrics
+        component's ``/debug/slo`` and ``/debug/goodput``): ``handler``
+        returns (status, body, content type)."""
+        self._routes[path] = handler
 
     async def start(self) -> int:
         self._server = await asyncio.start_server(self._serve, self.host, self.port)

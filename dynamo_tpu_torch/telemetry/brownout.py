@@ -1,8 +1,7 @@
 """SLO-driven brownout controller: a stepped degradation ladder.
 
-The port's own copy of dynamo_tpu/telemetry/brownout.py. Left out: the
-decision-provenance record of each transition (the reference's
-``telemetry/provenance.py``, ROADMAP A12).
+The port's own copy of dynamo_tpu/telemetry/brownout.py; each transition is
+a ``brownout/level`` decision record (``telemetry/provenance.py``).
 
 Consumes the SLO plane — ``slo-status`` fabric events published by
 the metrics component / frontend SLO engines, and (on a worker) the
@@ -40,6 +39,7 @@ from typing import Any, Callable, Optional
 
 from dynamo_tpu_torch.runtime import clock as dclock
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.telemetry import provenance as dprov
 
 logger = get_logger("dynamo_tpu_torch.brownout")
 
@@ -162,6 +162,11 @@ class BrownoutController:
             f" [{self.scope}]" if self.scope else "",
             old, LADDER[old], level, LADDER[level],
         )
+        if dprov.enabled():
+            dprov.record("brownout", "level", LADDER[level],
+                         reason="step_up" if level > old else "step_down",
+                         epoch=self.scope or "frontend", from_level=old, to_level=level,
+                         slo_state=self.last_state)
         if self.on_change is not None:
             try:
                 self.on_change(old, level, LADDER[level])

@@ -1,9 +1,9 @@
 """Tail-tolerance plane: gray-failure detection + latency-outlier
 ejection + hedged-dispatch bookkeeping.
 
-The port's own copy of dynamo_tpu/telemetry/health.py. Left out: the
-decision-provenance records of ejections, restores and probes (the
-reference's ``telemetry/provenance.py``, ROADMAP A12).
+The port's own copy of dynamo_tpu/telemetry/health.py; ejections, restores
+and probation probes are ``health/*`` decision records
+(``telemetry/provenance.py``).
 
 Every failure mode the stack already handles is binary: dead workers
 migrate, fenced zombies are rejected, crash-loopers are quarantined. A
@@ -59,6 +59,7 @@ from typing import Callable, Optional
 
 from dynamo_tpu_torch.runtime import clock as dclock
 from dynamo_tpu_torch.runtime.logging import get_logger
+from dynamo_tpu_torch.telemetry import provenance as dprov
 from dynamo_tpu_torch.telemetry.histogram import PhaseHistograms
 
 logger = get_logger("dynamo_tpu_torch.telemetry.health")
@@ -395,6 +396,9 @@ class HealthScorer:
                     "worker %x ejected from routing: health score %.2fx "
                     "fleet median (signal=%s)", wid, v.score, cause,
                 )
+                if dprov.enabled():
+                    dprov.record("health", "eject", f"{wid:x}", reason=cause, epoch=f"{wid:x}",
+                                 score=round(v.score, 4), bad_ticks=v.bad_ticks)
                 if self.on_eject is not None:
                     try:
                         self.on_eject(wid, cause)
@@ -413,6 +417,10 @@ class HealthScorer:
                     "worker %x re-admitted to routing (score %.2f)",
                     wid, v.score,
                 )
+                if dprov.enabled():
+                    dprov.record("health", "restore", f"{wid:x}", reason="recovered",
+                                 epoch=f"{wid:x}", score=round(v.score, 4),
+                                 good_ticks=v.good_ticks)
                 if self.on_restore is not None:
                     try:
                         self.on_restore(wid)
@@ -450,6 +458,11 @@ class HealthScorer:
             v.probe_countdown -= 1
             if v.probe_countdown <= 0:
                 v.probe_countdown = self.config.probe_every
+                if dprov.enabled():
+                    # the probation trickle: this decision may land on the
+                    # ejected worker again
+                    dprov.record("health", "probe", f"{wid:x}", reason="trickle",
+                                 epoch=f"{wid:x}", score=round(v.score, 4))
                 continue  # probe: let this decision consider the worker
             out.add(wid)
         return out

@@ -11,7 +11,9 @@ multi-node config a supervisor may read (the port's
 ``parallel/multinode.py``; the reference's ``parallel/multihost.py``, which
 holds it there); on the port's side also the profiler hooks the HTTP
 service imports, model resolution, the image processor, the encode
-client's module and the multimodal graph.
+client's module and the multimodal graph; and the fleet's observation
+plane (the metrics component, the provenance and goodput ledgers, the
+mocker, ``tools/explain.py``).
 """
 
 import os
@@ -28,8 +30,12 @@ FRONTEND = ["http.service", "discovery", "router", "kv_router", "fabric.client",
 # process or a frontend imports; the multimodal graph's Frontend)
 PORT_ONLY = ["telemetry.profile", "hub", "multimodal.processor", "multimodal.encode_worker",
              "graphs.multimodal"]
+# the fleet's observation plane: the metrics component, the ledgers every
+# process keeps, the mocker a worker serves and the decision reader
+FLEET = ["components.metrics", "telemetry.provenance", "telemetry.goodput", "engine.mocker",
+         "tools.explain"]
 CASES = ([(f"dynamo_tpu_torch.{m}", "torch")
-          for m in FRONTEND + ["parallel.multinode"] + PORT_ONLY]
+          for m in FRONTEND + ["parallel.multinode"] + PORT_ONLY + FLEET]
          + [(f"dynamo_tpu.{m}", "jax") for m in FRONTEND + ["parallel.multihost"]])
 
 

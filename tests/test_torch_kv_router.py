@@ -646,17 +646,24 @@ async def test_event_and_metric_payloads_are_the_reference_bytes():
     pd = port_m.to_dict()
     pd["stamp"] = {"iid": 5, "ep": 7}
     assert mpack.packb(pd) == msgpack.packb(d, use_bin_type=True)
-    # the reference's phase histograms read back typed, to the same wire
-    # dict; its goodput dict passes through unchanged
+    # the reference's phase histograms and goodput ledger read back typed,
+    # to the same wire dict
+    from dynamo_tpu.telemetry.goodput import GoodputLedger as JGoodputLedger
     from dynamo_tpu.telemetry.histogram import PhaseHistograms as JPhaseHistograms
 
     jph = JPhaseHistograms()
     for v in (0.3, 12.5, 80.0, 80.0, 4000.0):
         jph.observe("ttft", v)
     jph.observe("inter_token", 9.75)
-    passthrough = {**ref_m.to_dict(), "phase_histograms": jph.to_dict(), "goodput": {"steps": 4}}
+    jgp = JGoodputLedger(enabled=True)
+    jgp.record_step("decode", 0.0123, lanes=3, capacity=8, t_start=1.0)
+    jgp.record_step("prefill", 0.05, prefill_tokens=64, t_start=1.02)
+    jgp.record_waste("spec_rejected", 4)
+    jgp.record_compile("decode", 1.25)
+    passthrough = {**ref_m.to_dict(), "phase_histograms": jph.to_dict(), "goodput": jgp.to_dict()}
     back = ForwardPassMetrics.from_dict(passthrough)
     assert back.phase_histograms.phases["ttft"].count == 5
+    assert back.goodput.steps_total == 2 and back.goodput.waste_by_cause == {"spec_rejected": 4}
     assert back.to_dict() == passthrough
 
 
@@ -690,10 +697,10 @@ def slowed(engine, seconds: float = 0.02):
         return engine
     device = engine._device
 
-    async def _slow(fn, label):
+    async def _slow(fn, label, **kw):
         engine.dispatches[label] += 1
         await asyncio.sleep(seconds)
-        return await device(fn, label)
+        return await device(fn, label, **kw)
 
     engine._device = _slow
     return engine

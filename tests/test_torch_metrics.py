@@ -5,8 +5,8 @@
   port has wired to the same sources and fed the same observations, render
   text that ``prometheus_client.parser`` reads into the same families:
   names, types, help, labels and values (the reference's optional
-  ``_created`` samples aside). The families the port leaves out are exactly
-  the reference's decision-provenance ones (ROADMAP A12). Label values and
+  ``_created`` samples aside), the decision-provenance families included
+  (each process's ledger seeded with the same records). Label values and
   help text are escaped as the reference's are.
 - ``test_metrics_lint.py``'s rules on the port's registries (frontend,
   standalone router, system status): ``_total`` only on counters, a unit on
@@ -34,6 +34,7 @@ from dynamo_tpu.http import metrics as jm
 from dynamo_tpu.router import build_router_registry as j_router_registry
 from dynamo_tpu.runtime import logging as jlog
 from dynamo_tpu.telemetry import health as jh
+from dynamo_tpu.telemetry import provenance as jprov
 from dynamo_tpu_torch.entrypoint.inputs import EngineConfig, _start_status_server, run_http
 from dynamo_tpu_torch.http import metrics as tm
 from dynamo_tpu_torch.kv_router.scheduler import KvScheduler
@@ -46,13 +47,25 @@ from dynamo_tpu_torch.runtime.http_server import SystemStatusServer
 from dynamo_tpu_torch.runtime.prom import generate_latest
 from dynamo_tpu_torch.telemetry import brownout as tb
 from dynamo_tpu_torch.telemetry import health as th
+from dynamo_tpu_torch.telemetry import provenance as tprov
 from dynamo_tpu_torch.telemetry import trace as dtrace
 from tests.test_torch_engine import make_torch_engine
 from tests.test_torch_frontend import MODEL, afetch, model_dir  # noqa: F401
 from tests.test_torch_qos_deadlines import collect, req
 
 UNIT_SUFFIXES = ("_seconds", "_bytes", "_ms")
-A12_FAMILIES = {"dyn_llm_decisions", "dyn_llm_decision_ring_dropped"}
+DECISION_FAMILIES = {"dyn_llm_decisions", "dyn_llm_decision_ring_dropped"}
+
+
+def _same_ledgers() -> None:
+    """Both processes' decision ledgers fresh, with the same records."""
+    for prov in (tprov, jprov):
+        prov.set_mode("1")
+        prov.reset(proc="test", ring=16)
+        prov.record("router", "route", 1, reason="overlap", request_id="r1")
+        prov.record("admission", "shed", "bulk", reason="watermark", request_id="r2")
+        for i in range(20):  # 16 kept, 4 evicted
+            prov.record("qos", "priority", "standard", reason="default", request_id=f"q{i}")
 
 
 def parsed(text: str) -> dict:
@@ -138,10 +151,10 @@ def test_exposition_parses_to_the_reference_families():
     bp, br = tb.BrownoutController(), tb.BrownoutController()
     bp.level = br.level = 2
     bp.steps_up = br.steps_up = 2
+    _same_ledgers()
     port = parsed(_fed(tm, sp, bp).render().decode())
     ref = parsed(_fed(jm, sr, br).render().decode())
-    assert set(ref) - set(port) == A12_FAMILIES
-    assert set(port) - set(ref) == set()
+    assert set(ref) == set(port) and DECISION_FAMILIES <= set(port)
     for name in port:
         assert port[name] == ref[name], name
     assert port["dyn_llm_workers_ejected"][2][0][2] == 1.0
@@ -210,11 +223,12 @@ def test_families_present_with_correct_types(role, names):
 
 def test_router_registry_renders_as_the_reference():
     sp, sr = _scorers()
+    _same_ledgers()
     port = parsed(generate_latest(build_router_registry(_Sched(), lambda: 5, lambda: 2, health=sp)).decode())
     from prometheus_client import generate_latest as j_generate
 
     ref = parsed(j_generate(j_router_registry(_Sched(), lambda: 5, lambda: 2, health=sr)).decode())
-    assert set(ref) - set(port) == A12_FAMILIES and set(port) <= set(ref)
+    assert set(ref) == set(port) and DECISION_FAMILIES <= set(port)
     for name in port:
         assert port[name] == ref[name], name
     # the port's scheduler has the properties the registry reads

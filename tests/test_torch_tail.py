@@ -285,10 +285,10 @@ def _delayed(engine, seconds: float):
     device = engine._device
     engine.device_calls = 0
 
-    async def _slow(fn, label):
+    async def _slow(fn, label, **kw):
         engine.device_calls += 1
         await asyncio.sleep(seconds)
-        return await device(fn, label)
+        return await device(fn, label, **kw)
 
     engine._device = _slow
     return engine
